@@ -1,0 +1,244 @@
+"""Reconfigurable cross-replica communication contexts.
+
+Twin of ``torchft_tpu/comm/context.py``. Gradient averaging across replica
+groups is the plane whose membership changes per step with the quorum; a
+``CommContext`` abstracts it: host-side collectives that are torn down and
+rebuilt at step boundaries (``configure``), with error-latching futures
+instead of job-killing exceptions.
+
+Buffers are numpy arrays in host memory (zero-copy views of CPU tensors);
+CUDA gradients are staged through pinned host buffers by ``ddp.py`` before
+they reach a context.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+from abc import ABC, abstractmethod
+from concurrent.futures import Future
+from datetime import timedelta
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from torchft_tpu_torch.futures import completed_future, failed_future
+
+logger = logging.getLogger(__name__)
+
+__all__ = [
+    "Work",
+    "CompletedWork",
+    "FailedWork",
+    "CommContext",
+    "DummyCommContext",
+    "ErrorSwallowingCommContext",
+    "ManagedCommContext",
+    "ReduceOp",
+]
+
+
+class ReduceOp:
+    SUM = "sum"
+    AVG = "avg"
+    MAX = "max"
+    MIN = "min"
+
+
+class Work:
+    """Handle for an in-flight collective. ``future()`` resolves to the
+    op's result (list of np.ndarray) or raises the transport error."""
+
+    def __init__(self, fut: "Future[List[np.ndarray]]") -> None:
+        self._fut = fut
+
+    def wait(self, timeout: "float | timedelta | None" = None) -> bool:
+        if isinstance(timeout, timedelta):
+            timeout = timeout.total_seconds()
+        self._fut.result(timeout=timeout)
+        return True
+
+    def future(self) -> "Future[List[np.ndarray]]":
+        return self._fut
+
+    def add_done_callback(self, fn) -> None:
+        """``fn(future)`` runs on the completing thread (a transport lane
+        for TcpCommContext): keep it cheap."""
+        self._fut.add_done_callback(fn)
+
+
+class CompletedWork(Work):
+    """Immediately-successful work."""
+
+    def __init__(self, result: Optional[List[np.ndarray]] = None) -> None:
+        super().__init__(completed_future(result if result is not None else []))
+
+
+class FailedWork(Work):
+    def __init__(self, exc: Exception) -> None:
+        super().__init__(failed_future(exc))
+
+
+class CommContext(ABC):
+    """Abstract reconfigurable cross-replica collective context.
+
+    ``configure(store_addr, rank, world_size)`` tears down any previous
+    transport state and rebuilds for the new membership. The store address
+    carries a per-quorum prefix (``host:port/torchft/{quorum_id}/...``) so
+    stale rounds cannot cross-talk.
+    """
+
+    # "host" for the socket transport, "none" for identity/test contexts.
+    backend_name = "none"
+
+    def __init__(self) -> None:
+        self._rank = 0
+        self._world_size = 1
+
+    @staticmethod
+    def _prepare(a) -> np.ndarray:
+        """Donation contract: allreduce reduces in place, so the submitted
+        array must be contiguous and writable — anything else is copied once
+        here; caller-owned staging buffers pass through untouched and the
+        future resolves to those same arrays, reduced."""
+        a = np.asarray(a)
+        if not (a.flags["C_CONTIGUOUS"] and a.flags["WRITEABLE"]):
+            a = np.array(a)
+        return a
+
+    @abstractmethod
+    def configure(self, store_addr: str, rank: int, world_size: int) -> None:
+        ...
+
+    @abstractmethod
+    def allreduce(
+        self, arrays: Sequence[np.ndarray], op: str = ReduceOp.SUM
+    ) -> Work:
+        """Reduce arrays across ranks. The caller DONATES ``arrays``: the
+        implementation may reduce in place and resolve the future to the
+        submitted arrays themselves. Do not read a donated array until the
+        future resolves; on error its contents are unspecified."""
+
+    def size(self) -> int:
+        return self._world_size
+
+    def rank(self) -> int:
+        return self._rank
+
+    def shutdown(self) -> None:  # noqa: B027 — optional hook
+        pass
+
+    def errored(self) -> Optional[Exception]:
+        """Latched transport error, if any (cleared by configure)."""
+        return None
+
+
+class DummyCommContext(CommContext):
+    """Context that completes every op with its own inputs — the
+    cross-replica context when only one replica group participates."""
+
+    def __init__(self, rank: int = 0, world_size: int = 1) -> None:
+        super().__init__()
+        self._rank = rank
+        self._world_size = world_size
+        self.configure_count = 0
+
+    def configure(self, store_addr: str, rank: int, world_size: int) -> None:
+        self._rank = rank
+        self._world_size = world_size
+        self.configure_count += 1
+
+    def allreduce(
+        self, arrays: Sequence[np.ndarray], op: str = ReduceOp.SUM
+    ) -> Work:
+        return CompletedWork(list(arrays))
+
+
+class ErrorSwallowingCommContext(CommContext):
+    """Wrapper that latches the first transport error and turns subsequent
+    ops into no-ops until the next configure — one failed collective
+    poisons the step, not the process."""
+
+    def __init__(self, inner: CommContext) -> None:
+        super().__init__()
+        self._inner = inner
+        self._error: Optional[Exception] = None
+        self._lock = threading.Lock()
+
+    @property
+    def backend_name(self) -> str:  # type: ignore[override]
+        return self._inner.backend_name
+
+    def configure(self, store_addr: str, rank: int, world_size: int) -> None:
+        with self._lock:
+            self._error = None
+        self._inner.configure(store_addr, rank, world_size)
+
+    def errored(self) -> Optional[Exception]:
+        with self._lock:
+            return self._error
+
+    def report_error(self, exc: Exception) -> None:
+        with self._lock:
+            if self._error is None:
+                self._error = exc
+                logger.warning("comm context error latched: %s", exc)
+
+    def allreduce(
+        self, arrays: Sequence[np.ndarray], op: str = ReduceOp.SUM
+    ) -> Work:
+        if self.errored() is not None:
+            return CompletedWork(list(arrays))
+        fallback = list(arrays)
+        out: "Future[List[np.ndarray]]" = Future()
+        out.set_running_or_notify_cancel()
+
+        def _done(f: Future) -> None:
+            exc = f.exception()
+            if exc is not None:
+                self.report_error(exc)  # type: ignore[arg-type]
+                out.set_result(fallback)  # swallowed: op becomes identity
+            else:
+                out.set_result(f.result())
+
+        self._inner.allreduce(arrays, op).future().add_done_callback(_done)
+        return Work(out)
+
+    def size(self) -> int:
+        return self._inner.size()
+
+    def rank(self) -> int:
+        return self._inner.rank()
+
+    def shutdown(self) -> None:
+        self._inner.shutdown()
+
+
+class ManagedCommContext(CommContext):
+    """Context that routes every collective through a Manager so errors and
+    quorum state are handled centrally. size() reports the number of
+    participating replicas in the current quorum."""
+
+    def __init__(self, manager) -> None:  # torchft_tpu_torch.manager.Manager
+        super().__init__()
+        self._manager = manager
+
+    @property
+    def backend_name(self) -> str:  # type: ignore[override]
+        return self._manager.comm_backend()
+
+    def configure(self, store_addr: str, rank: int, world_size: int) -> None:
+        raise RuntimeError(
+            "ManagedCommContext is configured by its Manager, not directly"
+        )
+
+    def allreduce(
+        self, arrays: Sequence[np.ndarray], op: str = ReduceOp.SUM
+    ) -> Work:
+        return self._manager.allreduce_arrays(arrays, op=op)
+
+    def size(self) -> int:
+        return self._manager.num_participants()
+
+    def rank(self) -> int:
+        return self._manager.participating_rank() or 0

@@ -1,0 +1,446 @@
+"""Python surface of the native control plane.
+
+Twin of ``torchft_tpu/control/__init__.py`` over the port's build of the
+same native sources: the Lighthouse and ManagerServer servers, their
+clients, and the quorum decision kernels (``quorum_compute_raw``,
+``IncrementalQuorum``), whose JSON is byte-identical through both
+bindings. Server objects own native threads; every RPC releases the GIL
+for its full duration (ctypes calls drop the GIL).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+from dataclasses import dataclass, field
+from datetime import timedelta
+from typing import List, Optional
+
+from torchft_tpu_torch.control._native import check_error, get_lib, take_string
+
+__all__ = [
+    "IncrementalQuorum",
+    "Lighthouse",
+    "LighthouseClient",
+    "ManagerServer",
+    "ManagerClient",
+    "QuorumResult",
+    "quorum_compute_raw",
+]
+
+
+def _ms(t: "float | timedelta", default_ms: int = 60000) -> int:
+    if t is None:
+        return default_ms
+    if isinstance(t, timedelta):
+        return max(1, int(t.total_seconds() * 1000))
+    return max(1, int(float(t) * 1000))
+
+
+def _split_bind(bind: str) -> "tuple[str, int]":
+    """Accept 'host:port', ':port', '[::]:port'."""
+    host, _, port = bind.rpartition(":")
+    if host in ("", "[::]", "::"):
+        host = "0.0.0.0"
+    if host.startswith("[") and host.endswith("]"):
+        host = host[1:-1]
+    return host, int(port or "0")
+
+
+@dataclass
+class QuorumResult:
+    """Per-rank quorum view (proto ManagerQuorumResponse)."""
+
+    quorum_id: int = 0
+    replica_rank: int = 0
+    replica_world_size: int = 1
+    recover_src_manager_address: str = ""
+    recover_src_rank: Optional[int] = None
+    recover_dst_ranks: List[int] = field(default_factory=list)
+    store_address: str = ""
+    max_step: int = 0
+    max_rank: Optional[int] = None
+    max_world_size: int = 1
+    # Sorted replica_ids of the max-step cohort (diagnostics/labeling).
+    max_replica_ids: List[str] = field(default_factory=list)
+    # Data-plane transport membership: quorum participants that did not
+    # opt out of the gradient wire (observer replicas are excluded).
+    # transport_rank is None when this replica itself opted out.
+    transport_rank: Optional[int] = None
+    transport_world_size: int = 0
+    transport_replica_ids: List[str] = field(default_factory=list)
+    heal: bool = False
+    # Epoch lease (steady-state fast path): the membership epoch this
+    # quorum was announced at and the lease duration the lighthouse
+    # grants (0 = leases disabled / pre-lease lighthouse). While an
+    # EpochWatch sees the epoch unchanged and the lease is live, the
+    # manager steps with zero control RPCs.
+    membership_epoch: int = 0
+    lease_ms: int = 0
+    # Prescriptive eviction (multi-tenant priority preemption): the
+    # lighthouse answered the group's quorum request with an eviction
+    # decision instead of a member list. No other field is meaningful;
+    # the trainer should exit cleanly while the job's survivors shrink.
+    evicted: bool = False
+
+    @staticmethod
+    def from_json(payload: str) -> "QuorumResult":
+        d = json.loads(payload)
+        if d.get("evicted"):
+            return QuorumResult(
+                evicted=True,
+                membership_epoch=d.get("membership_epoch", 0),
+                lease_ms=0,
+            )
+        return QuorumResult(
+            quorum_id=d["quorum_id"],
+            replica_rank=d["replica_rank"],
+            replica_world_size=d["replica_world_size"],
+            recover_src_manager_address=d["recover_src_manager_address"],
+            recover_src_rank=d.get("recover_src_rank"),
+            recover_dst_ranks=list(d.get("recover_dst_ranks") or []),
+            store_address=d["store_address"],
+            max_step=d["max_step"],
+            max_rank=d.get("max_rank"),
+            max_world_size=d["max_world_size"],
+            max_replica_ids=list(d.get("max_replica_ids") or []),
+            transport_rank=d.get("transport_rank"),
+            transport_world_size=d.get("transport_world_size", 0),
+            transport_replica_ids=list(
+                d.get("transport_replica_ids") or []
+            ),
+            heal=d["heal"],
+            membership_epoch=d.get("membership_epoch", 0),
+            lease_ms=d.get("lease_ms", 0),
+        )
+
+
+class Lighthouse:
+    """In-process lighthouse server: quorum RPCs and the HTML dashboard on
+    one port. The embedded default join_timeout_ms is 100; the CLI default
+    is 60000."""
+
+    def __init__(
+        self,
+        bind: str = "0.0.0.0:0",
+        min_replicas: int = 1,
+        join_timeout_ms: Optional[int] = None,
+        quorum_tick_ms: Optional[int] = None,
+        heartbeat_timeout_ms: Optional[int] = None,
+        hostname: str = "127.0.0.1",
+    ) -> None:
+        host, port = _split_bind(bind)
+        lib = get_lib()
+        err = ctypes.c_char_p()
+        self._handle = lib.ft_lighthouse_new(
+            host.encode(),
+            port,
+            hostname.encode(),
+            min_replicas,
+            join_timeout_ms if join_timeout_ms is not None else 100,
+            quorum_tick_ms if quorum_tick_ms is not None else 100,
+            heartbeat_timeout_ms if heartbeat_timeout_ms is not None else 5000,
+            json.dumps({"cache_quorum": True}).encode(),
+            ctypes.byref(err),
+        )
+        check_error(err)
+        if not self._handle:
+            raise RuntimeError("failed to create lighthouse")
+
+    def address(self) -> str:
+        return take_string(get_lib().ft_lighthouse_address(self._handle))
+
+    def shutdown(self) -> None:
+        if self._handle:
+            get_lib().ft_lighthouse_shutdown(self._handle)
+
+    def __del__(self) -> None:
+        handle, self._handle = getattr(self, "_handle", None), None
+        if handle:
+            try:
+                get_lib().ft_lighthouse_free(handle)
+            except Exception:
+                pass  # interpreter teardown
+
+
+class ManagerServer:
+    """Native per-replica-group manager server, embedded in the rank-0
+    trainer process."""
+
+    def __init__(
+        self,
+        replica_id: str,
+        lighthouse_addr: str,
+        hostname: Optional[str] = None,
+        bind: str = "0.0.0.0:0",
+        store_addr: str = "",
+        world_size: int = 1,
+        heartbeat_interval: "float | timedelta" = 0.1,
+        connect_timeout: "float | timedelta" = 10.0,
+        exit_on_kill: bool = True,
+    ) -> None:
+        if hostname is None:
+            # The advertised address crosses hosts (it becomes peers'
+            # recover_src_manager_address).
+            from torchft_tpu_torch.utils.net import advertised_host
+
+            hostname = advertised_host()
+        host, port = _split_bind(bind)
+        lib = get_lib()
+        err = ctypes.c_char_p()
+        self._handle = lib.ft_manager_new(
+            replica_id.encode(),
+            lighthouse_addr.encode(),
+            hostname.encode(),
+            host.encode(),
+            port,
+            store_addr.encode(),
+            world_size,
+            _ms(heartbeat_interval, 100),
+            _ms(connect_timeout, 10000),
+            1 if exit_on_kill else 0,
+            json.dumps({"job_id": "default"}).encode(),
+            ctypes.byref(err),
+        )
+        check_error(err)
+        if not self._handle:
+            raise RuntimeError("failed to create manager server")
+
+    def address(self) -> str:
+        return take_string(get_lib().ft_manager_address(self._handle))
+
+    def kill_requested(self) -> bool:
+        return bool(get_lib().ft_manager_kill_requested(self._handle))
+
+    def shutdown(self) -> None:
+        if self._handle:
+            get_lib().ft_manager_shutdown(self._handle)
+
+    def __del__(self) -> None:
+        handle, self._handle = getattr(self, "_handle", None), None
+        if handle:
+            try:
+                get_lib().ft_manager_free(handle)
+            except Exception:
+                pass  # interpreter teardown
+
+
+class ManagerClient:
+    """Blocking client to a ManagerServer. Every call carries an explicit
+    timeout that is also enforced server-side via the x-timeout-ms
+    header."""
+
+    def __init__(
+        self, addr: str, connect_timeout: "float | timedelta" = 10.0
+    ) -> None:
+        lib = get_lib()
+        err = ctypes.c_char_p()
+        self._handle = lib.ft_manager_client_new(
+            addr.encode(), _ms(connect_timeout, 10000), ctypes.byref(err)
+        )
+        check_error(err)
+        if not self._handle:
+            raise RuntimeError("failed to create manager client")
+
+    def quorum(
+        self,
+        rank: int,
+        step: int,
+        checkpoint_metadata: str,
+        shrink_only: bool,
+        timeout: "float | timedelta",
+        data_plane: bool = True,
+        comm_epoch: int = 0,
+    ) -> QuorumResult:
+        err = ctypes.c_char_p()
+        ptr = get_lib().ft_manager_client_quorum(
+            self._handle,
+            rank,
+            step,
+            checkpoint_metadata.encode(),
+            1 if shrink_only else 0,
+            1 if data_plane else 0,
+            comm_epoch,
+            _ms(timeout),
+            ctypes.byref(err),
+        )
+        check_error(err)
+        return QuorumResult.from_json(take_string(ptr))
+
+    def checkpoint_metadata(
+        self, rank: int, timeout: "float | timedelta"
+    ) -> str:
+        err = ctypes.c_char_p()
+        ptr = get_lib().ft_manager_client_checkpoint_metadata(
+            self._handle, rank, _ms(timeout), ctypes.byref(err)
+        )
+        check_error(err)
+        return take_string(ptr)
+
+    def should_commit(
+        self,
+        rank: int,
+        step: int,
+        should_commit: bool,
+        timeout: "float | timedelta",
+    ) -> bool:
+        err = ctypes.c_char_p()
+        result = get_lib().ft_manager_client_should_commit(
+            self._handle,
+            rank,
+            step,
+            1 if should_commit else 0,
+            _ms(timeout),
+            ctypes.byref(err),
+        )
+        check_error(err)
+        return result == 1
+
+    def kill(self, msg: str = "", timeout: "float | timedelta" = 10.0) -> None:
+        err = ctypes.c_char_p()
+        get_lib().ft_manager_client_kill(
+            self._handle, msg.encode(), _ms(timeout), ctypes.byref(err)
+        )
+        check_error(err)
+
+    def __del__(self) -> None:
+        handle, self._handle = getattr(self, "_handle", None), None
+        if handle:
+            try:
+                get_lib().ft_manager_client_free(handle)
+            except Exception:
+                pass  # interpreter teardown
+
+
+class LighthouseClient:
+    """Persistent client to a lighthouse: heartbeat (one replica id or a
+    batch in one RPC) and quorum RPCs over pooled keep-alive connections."""
+
+    def __init__(self, addr: str) -> None:
+        lib = get_lib()
+        err = ctypes.c_char_p()
+        self._handle = lib.ft_lighthouse_client_new(
+            addr.encode(), ctypes.byref(err)
+        )
+        check_error(err)
+        if not self._handle:
+            raise RuntimeError("failed to create lighthouse client")
+
+    def heartbeat(self, replica_id: "str | List[str]",
+                  timeout: "float | timedelta" = 5.0) -> None:
+        err = ctypes.c_char_p()
+        get_lib().ft_lighthouse_client_heartbeat2(
+            self._handle, json.dumps(replica_id).encode(), _ms(timeout),
+            ctypes.byref(err),
+        )
+        check_error(err)
+
+    def quorum(self, requester: dict,
+               timeout: "float | timedelta" = 60.0) -> dict:
+        """Lighthouse quorum long-poll for one requester (a member dict)."""
+        err = ctypes.c_char_p()
+        ptr = get_lib().ft_lighthouse_client_quorum2(
+            self._handle, json.dumps(requester).encode(), _ms(timeout),
+            ctypes.byref(err),
+        )
+        check_error(err)
+        return json.loads(take_string(ptr))
+
+    def __del__(self) -> None:
+        handle, self._handle = getattr(self, "_handle", None), None
+        if handle:
+            try:
+                get_lib().ft_lighthouse_client_free(handle)
+            except Exception:
+                pass  # interpreter teardown
+
+
+def quorum_compute_raw(now_ms: int, state_json: str, opts: dict) -> str:
+    """Run the pure decision kernel over a dumped QuorumState, returning
+    the RAW decision JSON string — the byte-identity oracle against
+    ``IncrementalQuorum.decision``."""
+    err = ctypes.c_char_p()
+    ptr = get_lib().ft_quorum_compute(
+        now_ms,
+        state_json.encode(),
+        json.dumps(opts).encode(),
+        ctypes.byref(err),
+    )
+    check_error(err)
+    return take_string(ptr)
+
+
+class IncrementalQuorum:
+    """Driver over the native incremental quorum evaluator
+    (ftquorum::IncrementalQuorum), the epoch-cached decision plane the
+    lighthouse serves. Tests replay heartbeat/join/expiry/install sequences
+    through it and pin ``decision()`` byte-identical to a from-scratch
+    ``quorum_compute_raw`` over ``state()``, and to the JAX package's
+    binding.
+
+    ``now_ms`` arguments must be non-decreasing across calls (the
+    lighthouse feeds a monotonic clock)."""
+
+    def __init__(
+        self,
+        opts: Optional[dict] = None,
+        incremental: bool = True,
+        prune_after_ms: int = 0,
+    ) -> None:
+        lib = get_lib()
+        err = ctypes.c_char_p()
+        self._handle = lib.ft_iq_new(
+            json.dumps(opts or {}).encode(),
+            1 if incremental else 0,
+            prune_after_ms,
+            ctypes.byref(err),
+        )
+        check_error(err)
+        if not self._handle:
+            raise RuntimeError("failed to create incremental quorum")
+
+    def heartbeat(self, replica_id: str, now_ms: int) -> None:
+        get_lib().ft_iq_heartbeat(self._handle, replica_id.encode(), now_ms)
+
+    def join(self, joined_ms: int, member: dict) -> None:
+        err = ctypes.c_char_p()
+        get_lib().ft_iq_join(
+            self._handle, joined_ms, json.dumps(member).encode(),
+            ctypes.byref(err),
+        )
+        check_error(err)
+
+    def decision(self, now_ms: int) -> str:
+        """RAW decision JSON ({"quorum": [...]|null, "reason": ...}) —
+        returned unparsed so byte-level comparison is possible."""
+        err = ctypes.c_char_p()
+        ptr = get_lib().ft_iq_decision(
+            self._handle, now_ms, ctypes.byref(err)
+        )
+        check_error(err)
+        return take_string(ptr)
+
+    def install(self, now_ms: int, wall_ms: int = 0) -> dict:
+        """Install the current decision as prev_quorum when ready (the
+        lighthouse announcement step). {"installed": bool, "quorum_id"}."""
+        err = ctypes.c_char_p()
+        ptr = get_lib().ft_iq_install(
+            self._handle, now_ms, wall_ms, ctypes.byref(err)
+        )
+        check_error(err)
+        return json.loads(take_string(ptr))
+
+    def state(self) -> str:
+        """RAW QuorumState JSON in the shape quorum_compute_raw consumes."""
+        err = ctypes.c_char_p()
+        ptr = get_lib().ft_iq_state(self._handle, ctypes.byref(err))
+        check_error(err)
+        return take_string(ptr)
+
+    def __del__(self) -> None:
+        handle, self._handle = getattr(self, "_handle", None), None
+        if handle:
+            try:
+                get_lib().ft_iq_free(handle)
+            except Exception:
+                pass  # interpreter teardown

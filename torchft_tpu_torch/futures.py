@@ -1,0 +1,231 @@
+"""Future utilities for the control and data planes.
+
+Twin of ``torchft_tpu/futures.py`` (the part the port uses): a singleton
+deadline thread that wraps any ``concurrent.futures.Future`` in a timeout,
+continuation chaining, and ``StealableTask`` for the heal plane's lazy
+staging. The futures carry host-side control-plane, transport and heal
+results; device work never lives inside them.
+"""
+
+from __future__ import annotations
+
+import heapq
+import itertools
+import threading
+from concurrent.futures import Future
+from datetime import timedelta
+from typing import Callable, Optional, TypeVar
+
+T = TypeVar("T")
+S = TypeVar("S")
+
+__all__ = [
+    "future_timeout",
+    "future_chain",
+    "StealableTask",
+    "completed_future",
+    "failed_future",
+    "TimerHandle",
+]
+
+
+class TimerHandle:
+    """Cancellable handle to a pending deadline (ref futures.py:12-29)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._cancelled = False
+
+    def cancel(self) -> None:
+        with self._lock:
+            self._cancelled = True
+
+    @property
+    def cancelled(self) -> bool:
+        with self._lock:
+            return self._cancelled
+
+
+class _TimerManager:
+    """Singleton deadline thread: min-heap of (deadline, seq, handle, fn).
+
+    Replaces the reference's asyncio ``call_later`` loop
+    (ref futures.py:32-117) with a plain condition-variable heap, which is
+    easier to reason about under free-threading and has no event-loop
+    startup cost on the hot path.
+    """
+
+    def __init__(self) -> None:
+        self._lock = threading.Condition()
+        self._heap: list = []
+        self._seq = itertools.count()
+        self._thread: Optional[threading.Thread] = None
+
+    def _ensure_thread(self) -> None:
+        if self._thread is None or not self._thread.is_alive():
+            self._thread = threading.Thread(
+                target=self._run, name="torchft_tpu_timers", daemon=True
+            )
+            self._thread.start()
+
+    def call_at(self, deadline: float, fn: Callable[[], None]) -> TimerHandle:
+        handle = TimerHandle()
+        with self._lock:
+            heapq.heappush(self._heap, (deadline, next(self._seq), handle, fn))
+            self._ensure_thread()
+            self._lock.notify()
+        return handle
+
+    def _run(self) -> None:
+        import time
+
+        while True:
+            with self._lock:
+                while not self._heap:
+                    self._lock.wait()
+                deadline, _, handle, fn = self._heap[0]
+                now = time.monotonic()
+                if deadline > now:
+                    self._lock.wait(timeout=deadline - now)
+                    continue
+                heapq.heappop(self._heap)
+            if not handle.cancelled:
+                try:
+                    fn()
+                except Exception:  # timer callbacks must never kill the thread
+                    pass
+
+
+_TIMER_MANAGER = _TimerManager()
+
+
+def _as_seconds(timeout: "float | timedelta") -> float:
+    if isinstance(timeout, timedelta):
+        return timeout.total_seconds()
+    return float(timeout)
+
+
+def future_timeout(fut: "Future[T]", timeout: "float | timedelta") -> "Future[T]":
+    """Return a new future that mirrors ``fut`` but fails with
+    ``TimeoutError`` if ``fut`` is not done within ``timeout``
+    (ref futures.py:120-135).
+
+    The original future is left untouched (it may still complete later);
+    only the returned wrapper observes the deadline.
+    """
+    import time
+
+    out: Future = Future()
+    out.set_running_or_notify_cancel()
+    seconds = _as_seconds(timeout)
+    handle = _TIMER_MANAGER.call_at(
+        time.monotonic() + seconds,
+        lambda: _try_set_exception(
+            out, TimeoutError(f"future timed out after {seconds}s")
+        ),
+    )
+
+    def _done(f: "Future[T]") -> None:
+        handle.cancel()
+        _transfer(f, out)
+
+    fut.add_done_callback(_done)
+    return out
+
+
+def future_chain(fut: "Future[T]", fn: "Callable[[Future[T]], S]") -> "Future[S]":
+    """``then``-style continuation: returns a future holding ``fn(fut)``
+    once ``fut`` completes; ``fn`` receives the *completed* future so it can
+    inspect errors (mirrors torch.futures.Future.then used at ref
+    manager.py:277-291)."""
+    out: Future = Future()
+    out.set_running_or_notify_cancel()
+
+    def _done(f: "Future[T]") -> None:
+        try:
+            out.set_result(fn(f))
+        except Exception as e:
+            _try_set_exception(out, e)
+
+    fut.add_done_callback(_done)
+    return out
+
+
+class StealableTask:
+    """A deferred computation exactly one thread may execute, with any
+    number of waiters.
+
+    This is the lazy-staging heal plane's priority-bump primitive: the
+    donor's background stager walks leaf tasks in order calling
+    :meth:`run`, while an HTTP handler thread that needs leaf *i* NOW
+    calls :meth:`result` on that leaf directly — whichever side claims
+    the task first executes it inline, the other just observes
+    ``future``. No queue reshuffling, no executor priorities: the bump
+    is the requester stealing the work onto its own thread.
+
+    The callable is dropped after execution so a task whose closure
+    pins large buffers (a staged device array) releases them once the
+    result exists.
+    """
+
+    def __init__(self, fn: "Callable[[], T]") -> None:
+        self._fn: "Optional[Callable[[], T]]" = fn
+        self._lock = threading.Lock()
+        self._claimed = False
+        self.future: "Future[T]" = Future()
+        self.future.set_running_or_notify_cancel()
+
+    def run(self) -> None:
+        """Execute the task if unclaimed (no-op otherwise); resolves
+        ``future`` either way (immediately, or by the claiming thread
+        when it finishes)."""
+        with self._lock:
+            if self._claimed:
+                return
+            self._claimed = True
+            fn = self._fn
+            self._fn = None
+        try:
+            self.future.set_result(fn())  # type: ignore[misc]
+        except BaseException as e:  # noqa: BLE001 — deliver to waiters
+            _try_set_exception(self.future, e)  # type: ignore[arg-type]
+
+    @property
+    def done(self) -> bool:
+        return self.future.done()
+
+    def result(self, timeout: Optional[float] = None) -> T:
+        """Priority path: claim-and-run inline when still pending, else
+        wait for the thread that already claimed it."""
+        self.run()
+        return self.future.result(timeout)
+
+
+def completed_future(value: T) -> "Future[T]":
+    f: Future = Future()
+    f.set_result(value)
+    return f
+
+
+def failed_future(exc: Exception) -> "Future[T]":
+    f: Future = Future()
+    f.set_exception(exc)
+    return f
+
+
+def _try_set_exception(fut: Future, exc: Exception) -> None:
+    try:
+        fut.set_exception(exc)
+    except Exception:
+        pass  # already completed
+
+
+def _transfer(src: Future, dst: Future) -> None:
+    exc = src.exception()
+    if exc is not None:
+        _try_set_exception(dst, exc)
+    else:
+        try:
+            dst.set_result(src.result())
+        except Exception:
+            pass  # dst already timed out

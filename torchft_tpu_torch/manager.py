@@ -1,0 +1,674 @@
+"""Manager — the per-step fault-tolerance runtime.
+
+Twin of ``torchft_tpu/manager.py``. One Manager runs in every worker process
+of a replica group; rank 0 additionally embeds the native manager server
+(``control.ManagerServer``) that talks to the lighthouse.
+
+Per-step protocol (driven by ``optim.OptimizerWrapper``):
+
+    start_quorum     — async quorum on a 1-thread executor, overlapping the
+                       forward pass; reconfigures the data plane when the
+                       wire membership changes; serves or fetches a heal
+    allreduce_arrays — fault-tolerant cross-replica gradient averaging;
+                       errors are latched, not raised
+    should_commit    — drain pending work, apply a pending heal, two-phase
+                       commit barrier; True => apply the optimizer update
+
+Every step takes the full quorum and commit barrier, the reference
+torchft's semantics (the JAX package's epoch-lease fast path is not
+ported). Gradient normalization uses the runtime ``num_participants``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import logging
+import os
+import socket as _socket
+import threading
+import time
+import uuid
+from concurrent.futures import Future, ThreadPoolExecutor
+from datetime import timedelta
+from enum import Enum
+from typing import Any, Callable, Dict, List, Optional, Sequence, TypeVar
+
+import numpy as np
+
+from torchft_tpu_torch.checkpointing import CheckpointServer, CheckpointTransport
+from torchft_tpu_torch.comm.context import CommContext, CompletedWork, ReduceOp, Work
+from torchft_tpu_torch.comm.store import StoreClient
+from torchft_tpu_torch.control import ManagerClient, ManagerServer
+from torchft_tpu_torch.futures import future_chain, future_timeout
+from torchft_tpu_torch.utils.events import EventRecorder
+from torchft_tpu_torch.utils.metrics import Metrics
+
+logger = logging.getLogger(__name__)
+
+T = TypeVar("T")
+
+MANAGER_ADDR_KEY: str = "manager_addr"
+REPLICA_ID_KEY: str = "replica_id"
+MANAGER_PORT_ENV: str = "TORCHFT_TPU_MANAGER_PORT"
+LIGHTHOUSE_ENV: str = "TORCHFT_TPU_LIGHTHOUSE"
+
+__all__ = ["Manager", "WorldSizeMode"]
+
+
+def _cohort_fingerprint(replica_ids: "Sequence[str]") -> str:
+    """Short stable digest of the wire membership, part of the transport
+    rendezvous prefix (the same digest as the JAX package's)."""
+    return hashlib.sha1("\x00".join(replica_ids).encode()).hexdigest()[:12]
+
+
+def _seconds(t: "float | timedelta") -> float:
+    return t.total_seconds() if isinstance(t, timedelta) else float(t)
+
+
+class WorldSizeMode(Enum):
+    """DYNAMIC: every healthy replica contributes; gradients are normalized
+    by the actual participant count. FIXED_WITH_SPARES: exactly
+    ``min_replica_size`` replicas contribute; spares contribute zeros."""
+
+    DYNAMIC = 0
+    FIXED_WITH_SPARES = 1
+
+
+class Manager:
+    """Fault-tolerant training loop manager.
+
+    ``comm`` is the cross-replica CommContext (default: a TcpCommContext);
+    ``load_state_dict``/``state_dict`` restore/capture the user's training
+    state (model, optimizer, sampler...) for heals.
+    """
+
+    def __init__(
+        self,
+        comm: Optional[CommContext] = None,
+        load_state_dict: Optional[Callable[[T], None]] = None,
+        state_dict: Optional[Callable[[], T]] = None,
+        min_replica_size: Optional[int] = None,
+        use_async_quorum: bool = True,
+        timeout: "float | timedelta" = 60.0,
+        quorum_timeout: "float | timedelta" = 60.0,
+        connect_timeout: "float | timedelta" = 60.0,
+        rank: Optional[int] = None,
+        world_size: Optional[int] = None,
+        world_size_mode: WorldSizeMode = WorldSizeMode.DYNAMIC,
+        store_addr: Optional[str] = None,
+        lighthouse_addr: Optional[str] = None,
+        replica_id: Optional[str] = None,
+        port: Optional[int] = None,
+        hostname: Optional[str] = None,
+        heartbeat_interval: "float | timedelta" = 0.1,
+        checkpoint_transport: Optional[CheckpointTransport] = None,
+    ) -> None:
+        if min_replica_size is None:
+            # a silently defaulted quorum floor of 1 would let every
+            # partition-isolated replica keep committing (split brain)
+            raise TypeError(
+                "Manager() missing required argument: 'min_replica_size' "
+                "(the quorum floor; there is no safe default)"
+            )
+        if (load_state_dict is None) != (state_dict is None):
+            raise ValueError(
+                "load_state_dict and state_dict must be provided together "
+                "(or both omitted for a manager that never serves or "
+                "receives a heal)"
+            )
+        self._timeout = _seconds(timeout)
+        if comm is None:
+            from torchft_tpu_torch.comm.transport import TcpCommContext
+
+            comm = TcpCommContext(timeout=self._timeout)
+        self._load_state_dict = load_state_dict
+        self._user_state_dict = state_dict
+        self._pending_state_dict: Optional[Dict[str, Any]] = None
+        self._use_async_quorum = use_async_quorum
+        self._quorum_timeout = _seconds(quorum_timeout)
+        self._connect_timeout = _seconds(connect_timeout)
+        self._world_size_mode = world_size_mode
+        self._min_replica_size = min_replica_size
+
+        store_addr = store_addr or (
+            f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
+        )
+        self._rank = rank if rank is not None else int(os.environ.get("RANK", "0"))
+        self._world_size = world_size or int(os.environ.get("WORLD_SIZE", "1"))
+
+        if checkpoint_transport is None:
+            checkpoint_transport = CheckpointServer(
+                timeout=self._timeout, num_chunks=2
+            )
+        self._checkpoint_transport = checkpoint_transport
+        self._executor = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="async_quorum"
+        )
+        self._quorum_future: Optional[Future] = None
+        self._store = StoreClient(store_addr,
+                                  connect_timeout=self._connect_timeout)
+        self._comm = comm
+        self._manager: Optional[ManagerServer] = None
+
+        if self._rank == 0:
+            if port is None:
+                port = int(os.environ.get(MANAGER_PORT_ENV, 0))
+            lighthouse_addr = lighthouse_addr or os.environ[LIGHTHOUSE_ENV]
+            replica_id = (replica_id or "") + str(uuid.uuid4())
+            self._manager = ManagerServer(
+                replica_id=replica_id,
+                lighthouse_addr=lighthouse_addr,
+                hostname=hostname or _socket.gethostname(),
+                bind=f"0.0.0.0:{port}",
+                store_addr=store_addr,
+                world_size=self._world_size,
+                heartbeat_interval=_seconds(heartbeat_interval),
+                connect_timeout=self._connect_timeout,
+            )
+            self._store.set(MANAGER_ADDR_KEY, self._manager.address())
+            self._store.set(REPLICA_ID_KEY, replica_id)
+
+        addr = self._store.wait(
+            MANAGER_ADDR_KEY, timeout=self._connect_timeout
+        ).decode()
+        self._client = ManagerClient(addr, connect_timeout=self._connect_timeout)
+        self._replica_id = self._store.wait(
+            REPLICA_ID_KEY, timeout=self._connect_timeout
+        ).decode()
+        self._logger = _ManagerLogger(self, self._replica_id, self._rank)
+        # lifecycle events (quorum, heal, commit, errors); TORCHFT_TPU_EVENTS=0
+        # disables the recorder
+        self.events = EventRecorder(replica_id=self._replica_id,
+                                    rank=self._rank)
+        self._quorum_epoch: Optional[int] = None
+
+        self._step = 0
+        # (quorum_id, wire fingerprint, in_transport) of the last successful
+        # comm.configure: the transport reconfigures exactly when it changes
+        self._transport_key: "Optional[tuple]" = None
+        # Data-plane incarnation sent with every quorum request, bumped when
+        # our transport latched an error that membership change alone would
+        # not clear; the lighthouse then issues a fresh quorum_id so every
+        # wire member reconfigures together.
+        self._comm_epoch = 0
+        self._transport_world_size = 1
+        self._errored: Optional[Exception] = None
+        self._errored_lock = threading.Lock()
+        self._healing = False
+        self._pending_work: List[Future] = []
+        self._batches_committed = 0
+        self._participating_rank: Optional[int] = None
+        self._participating_world_size: int = 0
+        self._replica_world_size: int = 0
+        self._did_heal = False
+        self._heal_t0: Optional[float] = None
+        # one sink for the quorum / commit_barrier / allreduce timers, the
+        # transport's lane timers and the heal gauges
+        self.metrics = Metrics()
+        for target in (comm, self._checkpoint_transport):
+            set_metrics = getattr(target, "set_metrics", None)
+            if callable(set_metrics):
+                set_metrics(self.metrics)
+
+    # ------------------------------------------------------------- lifecycle
+
+    def set_state_dict_fns(self, load_state_dict: Callable[[T], None],
+                           state_dict: Callable[[], T]) -> None:
+        self._load_state_dict = load_state_dict
+        self._user_state_dict = state_dict
+
+    def shutdown(self, wait: bool = True) -> None:
+        """Shut down the manager server, checkpoint transport and comm."""
+        self._checkpoint_transport.shutdown(wait=wait)
+        if self._manager is not None:
+            self._manager.shutdown()
+        self._executor.shutdown(wait=wait)
+        self._comm.shutdown()
+
+    # ------------------------------------------------------------ collectives
+
+    def allreduce_arrays(self, arrays: Sequence[np.ndarray],
+                         op: str = ReduceOp.SUM) -> Work:
+        """Fault-tolerant cross-replica allreduce of host arrays, scaled by
+        1/num_participants for SUM and AVG:
+
+        * after the first error this step, returns the input unchanged;
+        * while healing or not participating, contributes zeros;
+        * transport errors are latched, never raised — the future always
+          completes (with the unused input as the default).
+
+        The caller DONATES ``arrays``: the transport reduces in place, so the
+        future may resolve to the very arrays submitted.
+        """
+        arrays = [np.asarray(a) for a in arrays]
+        if op == ReduceOp.AVG and any(
+            not np.issubdtype(a.dtype, np.floating) for a in arrays
+        ):
+            raise ValueError(
+                "ReduceOp.AVG requires floating-point arrays; got "
+                + str([str(a.dtype) for a in arrays])
+            )
+        if self.errored() is not None:
+            return CompletedWork(list(arrays))
+        try:
+            self.wait_quorum()
+        except Exception as e:  # quorum failed: latch and skip the step
+            self._logger.exception(f"quorum failed in allreduce: {e}")
+            self.report_error(e)
+            return CompletedWork(list(arrays))
+        if not self.is_participating():
+            arrays = [np.zeros_like(a) for a in arrays]
+        try:
+            submit_time = time.perf_counter()
+            # AVG averages over participants, not the transport world
+            # (healing members contribute zeros): reduce as SUM and scale.
+            transport_op = ReduceOp.SUM if op == ReduceOp.AVG else op
+            work = self._comm.allreduce(arrays, transport_op)
+
+            def _normalize(f: Future) -> List[np.ndarray]:
+                self.metrics.observe(
+                    "allreduce", time.perf_counter() - submit_time
+                )
+                reduced = list(f.result())
+                if op not in (ReduceOp.SUM, ReduceOp.AVG):
+                    return reduced
+                scale = 1.0 / max(1, self.num_participants())
+                for i, a in enumerate(reduced):
+                    if np.issubdtype(a.dtype, np.floating):
+                        s = np.asarray(scale).astype(a.dtype)
+                        if a.flags.writeable:
+                            np.multiply(a, s, out=a)
+                        else:
+                            reduced[i] = a * s
+                return reduced
+
+            fut = future_chain(work.future(), _normalize)
+            return Work(self.wrap_future(fut, list(arrays)))
+        except Exception as e:  # noqa: BLE001
+            self._logger.exception(f"allreduce submit failed: {e}")
+            self.report_error(e)
+            return CompletedWork(list(arrays))
+
+    # ---------------------------------------------------------- error model
+
+    def report_error(self, e: Exception) -> None:
+        """Latch an error: this step will not commit and the comm context
+        reconfigures at the next quorum."""
+        with self._errored_lock:
+            first = self._errored is None
+            self._errored = e
+        if first and self.events:
+            self.events.emit(
+                "error_latched", step=self._step, epoch=self._quorum_epoch,
+                source="manager", error=repr(e)[:200],
+            )
+
+    def errored(self) -> Optional[Exception]:
+        with self._errored_lock:
+            return self._errored
+
+    def wrap_future(self, fut: Future, default: Any,
+                    timeout: "float | timedelta | None" = None) -> Future:
+        """Timeout + error-swallow continuation: on failure the future
+        completes with ``default`` and the error is latched."""
+        timed = future_timeout(
+            fut, _seconds(timeout) if timeout else self._timeout
+        )
+
+        def _swallow(f: Future) -> Any:
+            exc = f.exception()
+            if exc is None:
+                return f.result()
+            self._logger.exception(f"got exception in future: {exc}")
+            self.report_error(exc)  # type: ignore[arg-type]
+            return default
+
+        out = future_chain(timed, _swallow)
+        self._pending_work.append(out)
+        return out
+
+    # --------------------------------------------------------------- quorum
+
+    def start_quorum(self, allow_heal: bool = True, shrink_only: bool = False,
+                     timeout: "float | timedelta | None" = None) -> None:
+        """Compute a new quorum (async by default, overlapping the forward
+        pass) and ready the manager for a new step."""
+        if self._quorum_future is not None:
+            try:
+                self._quorum_future.result()
+            except Exception as e:  # superseded by the quorum below
+                self._logger.exception(
+                    f"previous quorum failed, starting fresh: {e}"
+                )
+        with self._errored_lock:
+            self._errored = None
+        self._healing = False
+        self._did_heal = False
+        if self._comm.errored() is not None:
+            # latched transport: request a coordinated reconfigure
+            self._comm_epoch += 1
+            self._logger.warn(
+                f"transport latched ({self._comm.errored()}); bumping "
+                f"comm_epoch to {self._comm_epoch}"
+            )
+        self._quorum_future = self._executor.submit(
+            self._async_quorum,
+            allow_heal=allow_heal,
+            shrink_only=shrink_only,
+            quorum_timeout=_seconds(timeout) if timeout else self._quorum_timeout,
+        )
+        if not self._use_async_quorum:
+            self.wait_quorum()
+            if self._healing:
+                # sync mode: apply the fetched state before the forward pass
+                self._apply_pending_state_dict()
+                self._healing = False
+
+    def wait_quorum(self) -> None:
+        """Block until the in-flight quorum completes; the comm context is
+        configured for the new membership after this returns."""
+        assert self._quorum_future is not None, (
+            "must call start_quorum before wait_quorum"
+        )
+        self._quorum_future.result()
+
+    def _async_quorum(self, allow_heal: bool, shrink_only: bool,
+                      quorum_timeout: float) -> None:
+        if self.events:
+            self.events.emit("quorum_start", step=self._step,
+                             epoch=self._quorum_epoch)
+        with self.metrics.timed("quorum"):
+            quorum = self._client.quorum(
+                rank=self._rank,
+                step=self._step,
+                checkpoint_metadata=self._checkpoint_transport.metadata(),
+                shrink_only=shrink_only,
+                timeout=quorum_timeout,
+                comm_epoch=self._comm_epoch,
+            )
+        self._finish_quorum(quorum, allow_heal)
+
+    def _finish_quorum(self, quorum, allow_heal: bool) -> None:
+        self._quorum_epoch = quorum.quorum_id
+        # Async quorum: only the up-to-date (max-step) cohort participates;
+        # healing replicas contribute zeros this step. Sync quorum: every
+        # wire member participates.
+        if self._use_async_quorum or not allow_heal:
+            self._participating_rank = quorum.max_rank
+            self._participating_world_size = quorum.max_world_size
+        else:
+            self._participating_rank = quorum.transport_rank
+            self._participating_world_size = quorum.transport_world_size
+        self._replica_world_size = quorum.replica_world_size
+        if self._world_size_mode == WorldSizeMode.FIXED_WITH_SPARES:
+            self._participating_world_size = min(
+                self._participating_world_size, self._min_replica_size
+            )
+            if (self._participating_rank is not None
+                    and self._participating_rank >= self._min_replica_size):
+                self._participating_rank = None
+
+        # --- data-plane (re)configuration ---------------------------------
+        # The wire spans the quorum's data-plane members. Healing replicas
+        # stay members: in the heal step they receive the cohort's average
+        # and apply it on top of the fetched state, which is what makes
+        # recovery bitwise exact.
+        in_transport = quorum.transport_rank is not None
+        t_rank = quorum.transport_rank if in_transport else 0
+        t_world = quorum.transport_world_size if in_transport else 1
+        fingerprint = _cohort_fingerprint(quorum.transport_replica_ids)
+        self._transport_world_size = t_world
+        if self.events:
+            self.events.emit(
+                "quorum_complete", step=self._step, epoch=quorum.quorum_id,
+                wire_world=t_world, replica_world=quorum.replica_world_size,
+                participants=self._participating_world_size,
+                max_step=quorum.max_step, heal=bool(quorum.heal),
+            )
+        transport_key = (quorum.quorum_id, fingerprint, in_transport)
+        if transport_key != self._transport_key:
+            # the JAX package's rendezvous key shape, so a mixed cohort
+            # meets on the same store keys
+            store_prefixed_addr = (
+                f"{quorum.store_address}/torchft/{quorum.quorum_id}"
+                f"/{fingerprint}/{self._rank}"
+            )
+            self._logger.info(
+                f"reconfiguring for quorum_id={quorum.quorum_id} "
+                f"wire={fingerprint} store={store_prefixed_addr}"
+            )
+            try:
+                self._comm.configure(store_prefixed_addr, t_rank, t_world)
+                self._transport_key = transport_key
+            except Exception as e:  # noqa: BLE001
+                # a peer died between announcement and rendezvous: latch;
+                # the unchanged key forces a reconfigure next quorum
+                self._logger.exception(f"comm configure failed: {e}")
+                self.report_error(e)
+
+        if not allow_heal:
+            return
+        if quorum.recover_dst_ranks:
+            self._logger.info(
+                f"peers need recovery from us {quorum.recover_dst_ranks}"
+            )
+            self._checkpoint_transport.send_checkpoint(
+                dst_ranks=quorum.recover_dst_ranks,
+                step=quorum.max_step,
+                state_dict=self._manager_state_dict(),
+                timeout=self._timeout,
+            )
+        if quorum.heal:
+            try:
+                self._healing = True
+                self._heal_t0 = time.perf_counter()
+                if self.events:
+                    self.events.emit(
+                        "heal_start", step=self._step,
+                        epoch=self._quorum_epoch,
+                        src_rank=quorum.recover_src_rank,
+                        max_step=quorum.max_step,
+                    )
+                src_client = ManagerClient(
+                    quorum.recover_src_manager_address,
+                    connect_timeout=self._connect_timeout,
+                )
+                metadata = src_client.checkpoint_metadata(
+                    self._rank, timeout=self._timeout
+                )
+                assert quorum.recover_src_rank is not None, (
+                    "must have a recover rank when healing"
+                )
+                self._logger.info(
+                    f"healing from rank {quorum.recover_src_rank} "
+                    f"metadata={metadata} max_step={quorum.max_step}"
+                )
+                # the user state applies later on the main thread
+                # (should_commit); only the manager's own state loads here
+                self._pending_state_dict = (
+                    self._checkpoint_transport.recv_checkpoint(
+                        src_rank=quorum.recover_src_rank,
+                        metadata=metadata,
+                        step=quorum.max_step,
+                        timeout=self._timeout,
+                    )
+                )
+                self.load_state_dict(self._pending_state_dict["torchft"])
+                self._step = quorum.max_step
+            except Exception as e:  # noqa: BLE001
+                # donor vanished mid-heal: latch (this step votes False and
+                # the next quorum retries the heal)
+                self._logger.exception(f"heal failed: {e}")
+                self._healing = False
+                self._pending_state_dict = None
+                self.report_error(e)
+
+    def _apply_pending_state_dict(self) -> None:
+        assert self._healing, "must be in healing state"
+        assert self._quorum_future is not None, (
+            "must call start_quorum before should_commit"
+        )
+        self._quorum_future.result()
+        assert self._pending_state_dict is not None, "checkpoint was not staged"
+        assert self._load_state_dict is not None, (
+            "user load_state_dict is not initialized"
+        )
+        self._load_state_dict(self._pending_state_dict["user"])
+        self._pending_state_dict = None
+        self._did_heal = True
+        wall_ms = None
+        if self._heal_t0 is not None:
+            wall_ms = (time.perf_counter() - self._heal_t0) * 1000.0
+            self.metrics.gauge("heal_wall_ms", wall_ms)
+            self._heal_t0 = None
+        if self.events:
+            self.events.emit("heal_done", step=self._step,
+                             epoch=self._quorum_epoch, wall_ms=wall_ms)
+        self._logger.info("loaded state dict")
+
+    # ---------------------------------------------------------------- commit
+
+    def should_commit(self, timeout: "float | timedelta | None" = None) -> bool:
+        """Two-phase commit: drain pending collectives, apply a pending
+        heal, then vote across the local ranks of this replica group. True
+        => the optimizer may be stepped."""
+        return self.should_commit_async(timeout=timeout).result()
+
+    def should_commit_async(
+        self, timeout: "float | timedelta | None" = None
+    ) -> Future:
+        """The prologue (drain this step's collectives, apply a pending
+        heal, cast the local vote) runs on the caller's thread; the barrier
+        RPC rides the executor. The returned future resolves to the global
+        decision; its ``local_should_commit`` attribute is this replica's
+        ballot."""
+        for work in self._pending_work:
+            if self.errored() is not None:
+                break
+            try:
+                work.result()  # wrap_future never raises
+            except Exception:  # pragma: no cover — defensive
+                pass
+        self._pending_work = []
+        if self._healing:
+            self._apply_pending_state_dict()
+        enough_replicas = self.num_participants() >= self._min_replica_size
+        local_should_commit = enough_replicas and self.errored() is None
+
+        def _barrier() -> bool:
+            t0 = time.perf_counter()
+            should_commit = self._client.should_commit(
+                self._rank, self._step, local_should_commit,
+                timeout=_seconds(timeout) if timeout else self._timeout,
+            )
+            self.metrics.observe("commit_barrier", time.perf_counter() - t0)
+            self._logger.info(
+                f"should_commit={should_commit} "
+                f"enough_replicas={enough_replicas} errored={self.errored()}"
+            )
+            self.metrics.incr(
+                "steps_committed" if should_commit else "steps_discarded"
+            )
+            if self.events:
+                self.events.emit(
+                    "step_commit" if should_commit else "step_discard",
+                    step=self._step, epoch=self._quorum_epoch,
+                    participants=self.num_participants(),
+                )
+            self._checkpoint_transport.disallow_checkpoint()
+            if should_commit:
+                self._step += 1
+                self._batches_committed += self.num_participants()
+            return should_commit
+
+        fut = self._executor.submit(_barrier)
+        fut.local_should_commit = local_should_commit  # type: ignore[attr-defined]
+        return fut
+
+    # ----------------------------------------------------------------- state
+
+    def load_state_dict(self, state_dict: Dict[str, int]) -> None:
+        self._step = state_dict["step"]
+        self._batches_committed = state_dict["batches_committed"]
+
+    def _manager_state_dict(self) -> Dict[str, Any]:
+        assert self._user_state_dict is not None, (
+            "user state_dict is not initialized"
+        )
+        return {"user": self._user_state_dict(), "torchft": self.state_dict()}
+
+    def state_dict(self) -> Dict[str, int]:
+        return {"step": self._step, "batches_committed": self._batches_committed}
+
+    def current_step(self) -> int:
+        return self._step
+
+    def batches_committed(self) -> int:
+        return self._batches_committed
+
+    def num_participants(self) -> int:
+        return self._participating_world_size
+
+    def did_heal(self) -> bool:
+        """True once this step's fetched checkpoint was applied through the
+        user load_state_dict (reset by the next start_quorum)."""
+        return self._did_heal
+
+    def replica_world_size(self) -> int:
+        return self._replica_world_size
+
+    def comm_backend(self) -> str:
+        return str(getattr(self._comm, "backend_name", "none"))
+
+    def transport_world_size(self) -> int:
+        """Members of the gradient wire for the current quorum."""
+        return self._transport_world_size
+
+    def is_solo_wire(self) -> bool:
+        """True when this quorum's wire is an identity for this replica: no
+        error latched, no data-plane peer, and participating. Valid after
+        ``wait_quorum``."""
+        return (
+            self.errored() is None
+            and self._transport_world_size == 1
+            and self.is_participating()
+        )
+
+    def participating_rank(self) -> Optional[int]:
+        return self._participating_rank
+
+    def is_participating(self) -> bool:
+        """False while healing or parked as a spare: such replicas
+        contribute zero gradients."""
+        if self._participating_rank is None:
+            return False
+        if self._healing:
+            assert self._use_async_quorum
+            return False
+        return True
+
+    def replica_id(self) -> str:
+        return self._replica_id
+
+
+class _ManagerLogger:
+    """``[replica/rank - step N]`` log prefixing."""
+
+    def __init__(self, manager: Manager, replica_id: str, rank: int) -> None:
+        self._logger = logging.getLogger(__name__)
+        self._replica_id = replica_id
+        self._rank = rank
+        self._manager = manager
+
+    def prefix(self) -> str:
+        return (f"[{self._replica_id}/{self._rank} - "
+                f"step {self._manager.current_step()}]")
+
+    def info(self, msg: str) -> None:
+        self._logger.info(f"{self.prefix()} {msg}")
+
+    def warn(self, msg: str) -> None:
+        self._logger.warning(f"{self.prefix()} {msg}")
+
+    def exception(self, msg: str) -> None:
+        self._logger.exception(f"{self.prefix()} {msg}")

@@ -1,0 +1,8 @@
+from torchft_tpu_torch.models.transformer import (  # noqa: F401
+    CONFIGS,
+    GPT,
+    TransformerConfig,
+    count_params,
+    from_jax_params,
+    loss_fn,
+)

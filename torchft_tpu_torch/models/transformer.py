@@ -1,0 +1,231 @@
+"""GPT-style decoder-only transformer — the framework's flagship model.
+
+Twin of ``torchft_tpu/models/transformer.py`` as an ``nn.Module``: the
+parameters carry the JAX pytree's names and layouts (``layers_{i}/attn/
+q_proj/kernel`` is the state-dict key ``layers_{i}.attn.q_proj.kernel``,
+``[in, out]``), so ``from_jax_params`` maps one onto the other directly.
+
+Numerics mirror the reference: f32 parameters, bf16 activations; layer norm
+in f32 with the biased variance and eps 1e-5, cast back; embeddings cast to
+bf16 before the gather; the tanh GELU; attention through
+``ops.attention.causal_attention`` (the flash kernels on the GPU); the
+lm-head product and the loss in f32, chunked over the vocab when
+``xent_chunks`` > 0.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from torchft_tpu_torch.ops.attention import causal_attention
+from torchft_tpu_torch.ops.xent import hidden_cross_entropy
+from torchft_tpu_torch.utils.device import resolve_device
+
+__all__ = ["CONFIGS", "GPT", "TransformerConfig", "count_params",
+           "from_jax_params", "loss_fn"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32768
+    d_model: int = 768
+    n_layers: int = 12
+    n_heads: int = 12
+    d_ff: int = 3072
+    max_seq_len: int = 1024
+    dtype: torch.dtype = torch.bfloat16        # activation/compute dtype
+    param_dtype: torch.dtype = torch.float32
+    remat: bool = True
+    attention: str = "local"
+    # > 0: the loss runs ops/xent.py's online logsumexp over this many
+    # vocab chunks instead of materializing [B, S, V] logits
+    xent_chunks: int = 0
+
+    @property
+    def head_dim(self) -> int:
+        assert self.d_model % self.n_heads == 0
+        return self.d_model // self.n_heads
+
+
+CONFIGS: Dict[str, TransformerConfig] = {
+    "tiny": TransformerConfig(
+        vocab_size=512, d_model=64, n_layers=2, n_heads=4, d_ff=256,
+        max_seq_len=128, remat=False,
+    ),
+    "125m": TransformerConfig(
+        vocab_size=32768, d_model=768, n_layers=12, n_heads=12, d_ff=3072,
+        max_seq_len=1024, xent_chunks=8, remat=False,
+    ),
+    "350m": TransformerConfig(
+        vocab_size=32768, d_model=1024, n_layers=24, n_heads=16, d_ff=4096,
+        max_seq_len=1024, xent_chunks=8,
+    ),
+    "1b": TransformerConfig(
+        vocab_size=32768, d_model=2048, n_layers=24, n_heads=16, d_ff=8192,
+        max_seq_len=2048, xent_chunks=8,
+    ),
+}
+
+
+def _layer_norm(x, scale, bias, eps: float = 1e-5):
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, unbiased=False, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+class _Param(nn.Module):
+    """A module holding named parameters (``kernel``, ``embedding``,
+    ``scale``/``bias``), so state-dict keys spell the JAX paths."""
+
+    def __init__(self, **shapes) -> None:
+        super().__init__()
+        for name, shape in shapes.items():
+            self.register_parameter(name, nn.Parameter(torch.empty(shape)))
+
+
+class _Attn(nn.Module):
+    def __init__(self, d: int) -> None:
+        super().__init__()
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            setattr(self, name, _Param(kernel=(d, d)))
+
+
+class _MLP(nn.Module):
+    def __init__(self, d: int, f: int) -> None:
+        super().__init__()
+        self.up_proj = _Param(kernel=(d, f))
+        self.down_proj = _Param(kernel=(f, d))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig) -> None:
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        self.ln_1 = _Param(scale=(d,), bias=(d,))
+        self.attn = _Attn(d)
+        self.ln_2 = _Param(scale=(d,), bias=(d,))
+        self.mlp = _MLP(d, cfg.d_ff)
+
+    def forward(self, x):
+        cfg, dt = self.cfg, self.cfg.dtype
+        b, s, _ = x.shape
+        h = _layer_norm(x, self.ln_1.scale, self.ln_1.bias)
+        shape = (b, s, cfg.n_heads, cfg.head_dim)
+        q = (h @ self.attn.q_proj.kernel.to(dt)).reshape(shape)
+        k = (h @ self.attn.k_proj.kernel.to(dt)).reshape(shape)
+        v = (h @ self.attn.v_proj.kernel.to(dt)).reshape(shape)
+        a = causal_attention(q, k, v).reshape(b, s, cfg.d_model)
+        x = x + a @ self.attn.o_proj.kernel.to(dt)
+        h = _layer_norm(x, self.ln_2.scale, self.ln_2.bias)
+        h = F.gelu(h @ self.mlp.up_proj.kernel.to(dt), approximate="tanh")
+        return x + h @ self.mlp.down_proj.kernel.to(dt)
+
+
+class GPT(nn.Module):
+    """tokens [B, S] int64 -> final-norm hidden states / loss.
+
+    Runs on ``device`` (CUDA by default; pass ``device="cpu"`` for the
+    CPU). Weights are drawn from ``torch.Generator`` seeded with ``seed``
+    with the reference's scheme: N(0, 0.02) embeddings, N(0, 1/fan_in)
+    kernels, unit/zero layer norms."""
+
+    def __init__(self, cfg: TransformerConfig,
+                 device: "Optional[str | torch.device]" = None,
+                 seed: int = 0) -> None:
+        super().__init__()
+        if cfg.attention != "local":
+            raise ValueError(f"attention {cfg.attention!r} is not ported; "
+                             "use 'local'")
+        self.cfg = cfg
+        d = cfg.d_model
+        self.wte = _Param(embedding=(cfg.vocab_size, d))
+        self.wpe = _Param(embedding=(cfg.max_seq_len, d))
+        self.ln_f = _Param(scale=(d,), bias=(d,))
+        self.lm_head = _Param(kernel=(d, cfg.vocab_size))
+        for i in range(cfg.n_layers):
+            self.add_module(f"layers_{i}", Block(cfg))
+        self.to(device=resolve_device(device), dtype=cfg.param_dtype)
+        self.reset_parameters(seed)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int) -> None:
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "embedding":
+                init = torch.randn(p.shape, generator=gen) * 0.02
+            elif leaf == "kernel":
+                init = torch.randn(p.shape, generator=gen) / np.sqrt(p.shape[0])
+            elif leaf == "scale":
+                init = torch.ones(p.shape)
+            else:
+                init = torch.zeros(p.shape)
+            p.copy_(init)
+
+    def blocks(self):
+        return [getattr(self, f"layers_{i}") for i in range(self.cfg.n_layers)]
+
+    def forward_hidden(self, tokens):
+        dt = self.cfg.dtype
+        s = tokens.shape[1]
+        x = self.wte.embedding.to(dt)[tokens]
+        x = x + self.wpe.embedding.to(dt)[:s][None, :, :]
+        for block in self.blocks():
+            if self.cfg.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(block, x,
+                                                      use_reentrant=False)
+            else:
+                x = block(x)
+        return _layer_norm(x, self.ln_f.scale, self.ln_f.bias)
+
+    def forward(self, tokens):
+        """Logits [B, S, vocab] in f32."""
+        h = self.forward_hidden(tokens)
+        return h.float() @ self.lm_head.kernel.float()
+
+    def loss(self, tokens, targets):
+        """Mean next-token cross entropy."""
+        h = self.forward_hidden(tokens)
+        w = self.lm_head.kernel
+        if self.cfg.xent_chunks > 0:
+            return hidden_cross_entropy(h, w, targets, self.cfg.xent_chunks)
+        logp = torch.log_softmax(h.float() @ w.float(), dim=-1)
+        return -logp.gather(-1, targets[..., None])[..., 0].mean()
+
+
+def loss_fn(cfg: TransformerConfig, model: GPT, tokens, targets):
+    """Mean next-token cross entropy (twin of the reference's
+    ``loss_fn(cfg, params, tokens, targets)``)."""
+    assert model.cfg == cfg, "model was built for another config"
+    return model.loss(tokens, targets)
+
+
+def count_params(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def from_jax_params(params_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map the JAX package's parameter pytree (nested dicts of numpy
+    arrays, as ``jax.device_get(init_params(...))`` gives) onto a state
+    dict for :class:`GPT`: path ``a/b/c`` becomes key ``a.b.c``; kernels
+    keep their ``[in, out]`` layout."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, node: Any) -> None:
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}.{k}" if prefix else k, v)
+        else:
+            out[prefix] = torch.from_numpy(np.array(node, dtype=np.float32))
+
+    walk("", params_np)
+    return out

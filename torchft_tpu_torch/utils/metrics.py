@@ -1,0 +1,85 @@
+"""Lightweight in-process metrics.
+
+Twin of ``torchft_tpu/utils/metrics.py``: cheap counters, gauges and
+rolling timings the Manager, transport, DDP wrapper and heal plane update
+per step, exposed as a dict for the user's own metrics pipeline. Zero
+overhead when not read: plain floats under a lock, no exporter threads.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from collections import defaultdict, deque
+from contextlib import contextmanager
+from typing import Deque, Dict
+
+__all__ = ["Metrics"]
+
+
+class Metrics:
+    """Counters + rolling-window timers keyed by name."""
+
+    def __init__(self, window: int = 128) -> None:
+        self._lock = threading.Lock()
+        self._counters: Dict[str, float] = defaultdict(float)
+        self._gauges: Dict[str, float] = {}
+        self._timings: Dict[str, Deque[float]] = defaultdict(
+            lambda: deque(maxlen=window)
+        )
+
+    def incr(self, name: str, value: float = 1.0) -> None:
+        with self._lock:
+            self._counters[name] += value
+
+    def gauge(self, name: str, value: float) -> None:
+        """Set an absolute last-write-wins value (e.g. the most recent
+        heal's ``heal_wall_ms`` / ``heal_bytes_per_s``). Gauges land in
+        ``snapshot`` under their bare name, like counters — callers keep
+        the namespaces disjoint."""
+        with self._lock:
+            self._gauges[name] = float(value)
+
+    def observe(self, name: str, seconds: float) -> None:
+        with self._lock:
+            self._timings[name].append(seconds)
+
+    @contextmanager
+    def timed(self, name: str):
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.observe(name, time.perf_counter() - start)
+
+    def snapshot(self) -> Dict[str, float]:
+        """Flat dict: counters/gauges as-is, timings as
+        name_{avg,p50,p95,max}_ms.
+
+        High-cardinality producers (the transport's per-lane ``comm_l*``
+        timers) share this one sink; consumers filter the returned dict
+        by key prefix rather than paying a second locked sort pass.
+
+        The percentile split exists to make tails attributable: an
+        avg/max pair cannot distinguish one transport stall from steady
+        scheduling jitter, while p50≈avg≪max pins the cost on a single
+        outlier."""
+        out: Dict[str, float] = {}
+        with self._lock:
+            out.update(self._counters)
+            out.update(self._gauges)
+            for name, window in self._timings.items():
+                if window:
+                    vals = sorted(window)
+                    n = len(vals)
+                    out[f"{name}_avg_ms"] = sum(vals) / n * 1000.0
+                    out[f"{name}_p50_ms"] = vals[n // 2] * 1000.0
+                    # nearest-rank: ceil(0.95n)-1 — the floor form
+                    # (n*95)//100 lands ON the max for 20-39 samples,
+                    # making a lone outlier read as steady-state cost
+                    out[f"{name}_p95_ms"] = (
+                        vals[max(0, math.ceil(n * 0.95) - 1)] * 1000.0
+                    )
+                    out[f"{name}_max_ms"] = vals[-1] * 1000.0
+        return out
