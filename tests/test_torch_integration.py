@@ -36,12 +36,17 @@ def test_ddp_recovery_replica_killed_and_heals() -> None:
     result = run_kill_and_heal(CONFIGS["tiny"], kill_step=2, steps_after=2,
                                device="cpu", batch_size=2, timeout=20.0)
     runs = result["runs"]
-    heal = result["heal_step"]
-    assert heal > 2
-    assert result["checked_steps"][0] >= heal
-    assert len(result["checked_steps"]) >= 3
-    # the healed group committed with its donor after the heal
-    assert runs[1].participants[max(runs[1].participants)] == 2
+    # the fixed schedule: steps 1-2 together, 3 by group 0 alone, the heal
+    # commit 4 (whose gradient is group 0's alone: the healing group's came
+    # from its poisoned state), then 5-6 together; 6 + 2 + 3
+    # forward/backward passes
+    assert result["heal_step"] == 4
+    assert result["checked_steps"] == [4, 5, 6]
+    assert sorted(runs[0].losses) == [1, 2, 3, 4, 5, 6]
+    assert sorted(runs[1].losses) == [4, 5, 6]
+    assert runs[0].participants == {1: 2, 2: 2, 3: 1, 4: 1, 5: 2, 6: 2}
+    assert runs[1].participants == {4: 1, 5: 2, 6: 2}
+    assert result["passes"] == 11
     for run in runs.values():
         assert all(math.isfinite(v) for v in run.losses.values())
 

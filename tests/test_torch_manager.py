@@ -17,6 +17,7 @@ from torchft_tpu_torch.comm.store import StoreServer
 from torchft_tpu_torch.comm.transport import TcpCommContext
 from torchft_tpu_torch.control import Lighthouse
 from torchft_tpu_torch.ddp import DistributedDataParallel, _BucketPlan
+from torchft_tpu_torch.examples.train_ddp import _wait_lighthouse
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.optim import OptimizerWrapper
 
@@ -84,6 +85,10 @@ def test_two_groups_average_over_participants(infra) -> None:
                      state_dict=lambda: {"w": np.zeros(3, np.float32)},
                      load_state_dict=lambda sd: None)
         try:
+            # both heartbeating before either asks for a quorum, so neither
+            # forms one alone
+            _wait_lighthouse(lh.address(), "healthy", 2, 20.0,
+                             threading.Event())
             for _ in range(3):  # the first step is the step-0 init heal
                 m.start_quorum()
                 a = np.full(8, float(i + 1), np.float32)

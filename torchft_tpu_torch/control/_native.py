@@ -4,9 +4,10 @@ The control plane is the repo's framework-neutral C++ library in native/,
 the same sources the JAX package loads, so quorum decisions are
 byte-identical through both bindings. The port compiles its own copy of the
 library from those sources, with the Makefile's ``SRCS`` and ``CXXFLAGS``,
-into ``build/torchft_tpu_torch/native/`` (one compiler per source, all in
-parallel), and links the C++ runtime into it privately (``_LINK_FLAGS``).
-On an H100 host, in a process that has imported torch, the stock link of
+together with the port's own host helpers (``csrc/host/*.cc``: the heal
+wire's CRC32C) into ``build/torchft_tpu_torch/native/`` (one compiler per
+source, all in parallel), and links the C++ runtime into it privately
+(``_LINK_FLAGS``). On an H100 host, in a process that has imported torch, the stock link of
 ``make -C native`` segfaults in the first Lighthouse or in the next thread
 start: the libraries torch loads interpose the control plane's C++
 runtime symbols. A static libstdc++/libgcc whose symbols stay local, with
@@ -32,6 +33,7 @@ from typing import List, Optional
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
+_HOST_DIR = os.path.join(_REPO_ROOT, "torchft_tpu_torch", "csrc", "host")
 _BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torchft_tpu_torch", "native")
 
 _LINK_FLAGS = ["-shared", "-pthread", "-static-libstdc++", "-static-libgcc",
@@ -48,14 +50,21 @@ def _makefile_var(text: str, name: str) -> List[str]:
     return m.group(1).split()
 
 
+def _host_srcs() -> List[str]:
+    return sorted(os.path.join(_HOST_DIR, f) for f in os.listdir(_HOST_DIR)
+                  if f.endswith(".cc"))
+
+
 def lib_path() -> str:
     """Where this tree's build of the library lives (named by a digest of
     the sources, headers, flags and Makefile)."""
     h = hashlib.sha256(" ".join(_LINK_FLAGS).encode())
-    for name in sorted(os.listdir(_NATIVE_DIR)):
-        if name.endswith((".cc", ".h")) or name == "Makefile":
-            with open(os.path.join(_NATIVE_DIR, name), "rb") as f:
-                h.update(name.encode() + b"\0" + f.read())
+    inputs = [os.path.join(_NATIVE_DIR, n)
+              for n in sorted(os.listdir(_NATIVE_DIR))
+              if n.endswith((".cc", ".h")) or n == "Makefile"]
+    for path in inputs + _host_srcs():
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(_BUILD_DIR,
                         f"libtorchft_tpu_native-{h.hexdigest()[:16]}.so")
 
@@ -63,7 +72,8 @@ def lib_path() -> str:
 def _build(path: str) -> None:
     with open(os.path.join(_NATIVE_DIR, "Makefile")) as f:
         text = f.read()
-    srcs = _makefile_var(text, "SRCS")
+    srcs = [os.path.join(_NATIVE_DIR, s) for s in _makefile_var(text, "SRCS")]
+    srcs += _host_srcs()
     cxxflags = _makefile_var(text, "CXXFLAGS")
     cxx = os.environ.get("CXX", "g++")
     # niced: a first-use build must not starve the caller's siblings (e.g.
@@ -71,11 +81,10 @@ def _build(path: str) -> None:
     nice = ["nice", "-n", "10"] if shutil.which("nice") else []
     objs, procs = [], []
     for src in srcs:
-        obj = f"{path}.{src}.o"
+        obj = f"{path}.{os.path.basename(src)}.o"
         objs.append(obj)
         procs.append(subprocess.Popen(
-            [*nice, cxx, *cxxflags, "-c", os.path.join(_NATIVE_DIR, src),
-             "-o", obj],
+            [*nice, cxx, *cxxflags, "-c", src, "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     outs = [(p, p.communicate()[0]) for p in procs]
@@ -183,6 +192,10 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.ft_iq_install.restype = c_void_p
     lib.ft_iq_state.argtypes = [c_void_p, err_p]
     lib.ft_iq_state.restype = c_void_p
+
+    # the heal wire's CRC32C (csrc/host/crc32c.cc)
+    lib.tft_crc32c.argtypes = [ctypes.c_uint32, c_void_p, ctypes.c_size_t]
+    lib.tft_crc32c.restype = ctypes.c_uint32
 
 
 def get_lib() -> ctypes.CDLL:

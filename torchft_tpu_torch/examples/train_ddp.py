@@ -15,16 +15,19 @@ CPU).
 
 ``train_group`` is the loop as a function; ``run_kill_and_heal`` drives two
 groups in threads through a failure, a restart from a poisoned init and a
-heal, and checks that the healed group is bitwise equal to its donor.
+heal, on a fixed schedule of steps, and checks that the healed group is
+bitwise equal to its donor.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import math
 import os
 import threading
 import time
+import urllib.request
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
@@ -47,15 +50,22 @@ __all__ = ["InjectedFailure", "GroupRun", "run_kill_and_heal", "train_group"]
 
 
 class InjectedFailure(Exception):
-    """Raised by ``train_group`` at ``fail_at_step``: a simulated crash."""
+    """Raised by ``train_group`` at ``fail_at_step``: a simulated crash.
+    ``run`` is what the group did until then."""
+
+    def __init__(self, msg: str, run: "GroupRun") -> None:
+        super().__init__(msg)
+        self.run = run
 
 
 @dataclass
 class GroupRun:
     """What one replica group did: loss and wall time per committed step
     (keyed by the step count after the commit), the step count after each
-    step in which it applied a healed state, and its final metrics."""
+    step in which it applied a healed state, its forward/backward passes
+    (committed or not), and its final metrics."""
 
+    passes: int = 0
     losses: Dict[int, float] = field(default_factory=dict)
     step_seconds: Dict[int, float] = field(default_factory=dict)
     participants: Dict[int, int] = field(default_factory=dict)
@@ -162,11 +172,12 @@ def train_group(
             if (fail_at_step is not None
                     and manager.current_step() >= fail_at_step):
                 raise InjectedFailure(
-                    f"group {replica_group} at step {fail_at_step}"
+                    f"group {replica_group} at step {fail_at_step}", run
                 )
             tokens, targets = next_batch()
             t0 = time.perf_counter()
             opt.begin_step()
+            run.passes += 1
             with manager.metrics.timed("forward_backward"):
                 loss = model.loss(tokens, targets)
                 loss.backward()
@@ -198,6 +209,24 @@ def _require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def _wait_lighthouse(addr: str, key: str, count: int, timeout: float,
+                     stop: threading.Event) -> None:
+    """Wait until the lighthouse's ``/status.json`` counts at least
+    ``count`` ``key`` (``healthy`` heartbeating replicas, or
+    ``participants`` waiting in a quorum request)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        with urllib.request.urlopen(f"{addr}/status.json",
+                                    timeout=timeout) as r:
+            if json.load(r)["jobs"]["default"][key] >= count:
+                return
+        if stop.is_set():
+            raise RuntimeError("the other replica group failed")
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"lighthouse never counted {count} {key}")
+        time.sleep(0.01)
+
+
 def run_kill_and_heal(
     cfg: TransformerConfig,
     *,
@@ -209,26 +238,37 @@ def run_kill_and_heal(
     timeout: float = 60.0,
     log: Callable[[str], None] = logger.info,
 ) -> Dict[str, object]:
-    """Two replica groups under an in-process lighthouse: both commit
-    ``kill_step`` steps, group 1 fails and restarts from a poisoned init
-    (another seed) at step 0, heals from group 0, and the restarted group
-    commits ``steps_after + 1`` steps (its heal commit among them) while
-    group 0 keeps training; then both stop.
+    """Two replica groups under an in-process lighthouse, on a fixed
+    schedule (k = ``kill_step``, a = ``steps_after``):
+
+    - both groups commit steps 1..k together;
+    - group 1 fails; group 0 commits step k + 1 alone;
+    - group 1 restarts from a poisoned init (another seed) at step 0, heals
+      from group 0 in its first step and commits step k + 2 with it;
+    - both commit steps k + 3..k + 2 + a together, and stop.
+
+    Each group waits for the other at the lighthouse where the schedule
+    needs it (both heartbeating before the first quorum; the restarted
+    group's quorum request pending before group 0 asks for step k + 2), so
+    every run makes the same 2k + 2a + 3 forward/backward passes.
 
     Raises AssertionError unless the healed group's parameters equal the
-    donor's bitwise at every step both committed from the heal on, and every
-    loss is finite. Returns the per-group runs, the heal step and the
-    checked steps."""
+    donor's bitwise at every step from the heal on, and every loss is
+    finite. Returns the per-group runs (group 1's restarted one), the heal
+    step, the checked steps and the forward/backward passes of all runs."""
     lighthouse = Lighthouse(min_replicas=1, join_timeout_ms=200,
                             heartbeat_timeout_ms=1000)
-    rejoined, stop = threading.Event(), threading.Event()
+    addr = lighthouse.address()
+    total = kill_step + 2 + steps_after
+    survivor_ahead, stop = threading.Event(), threading.Event()
     snapshots: Dict[int, Dict[int, List[torch.Tensor]]] = {0: {}, 1: {}}
     runs: Dict[int, List[GroupRun]] = {0: [], 1: []}
     errors: List[BaseException] = []
 
-    def on_commit(group: int, restarted: bool = False):
-        commits = [0]
+    def both_heartbeating(manager):
+        _wait_lighthouse(addr, "healthy", 2, timeout, stop)
 
+    def on_commit(group: int):
         def _hook(step, manager, model, loss):
             log(f"group {group} committed step {step} loss {loss:.4f} "
                 f"participants {manager.num_participants()}"
@@ -237,40 +277,35 @@ def run_kill_and_heal(
                 snapshots[group][step] = [
                     p.detach().clone() for p in model.parameters()
                 ]
-            if group == 0 and step > kill_step and not rejoined.is_set():
-                # hold the survivor until the failed group is back, so the
-                # heal lands within a few steps
-                if not rejoined.wait(timeout):
-                    raise TimeoutError("group 1 did not restart")
-            if restarted:
-                commits[0] += 1
-                if commits[0] > steps_after:
-                    stop.set()
+            if group == 0 and step == kill_step + 1:
+                # let group 1 restart, and take the next quorum with it
+                survivor_ahead.set()
+                _wait_lighthouse(addr, "participants", 1, timeout, stop)
         return _hook
 
-    common = dict(num_groups=2, lighthouse_addr=lighthouse.address(),
-                  device=device, batch_size=batch_size, data_seed=seed,
-                  timeout=timeout)
-    endless = 1 << 62
+    common = dict(num_groups=2, lighthouse_addr=addr, device=device,
+                  batch_size=batch_size, data_seed=seed, timeout=timeout,
+                  total_steps=total, stop=stop)
 
     def group0():
         runs[0].append(train_group(
-            cfg, replica_group=0, init_seed=seed, total_steps=endless,
-            stop=stop, on_commit=on_commit(0), **common))
+            cfg, replica_group=0, init_seed=seed, on_start=both_heartbeating,
+            on_commit=on_commit(0), **common))
 
     def group1():
         try:
             train_group(cfg, replica_group=1, init_seed=seed,
-                        total_steps=endless, fail_at_step=kill_step,
+                        fail_at_step=kill_step, on_start=both_heartbeating,
                         on_commit=on_commit(1), **common)
             raise AssertionError("group 1 was never failed")
         except InjectedFailure as e:
+            runs[1].append(e.run)
             log(f"injected failure: {e}; restarting from a poisoned init")
+        if not survivor_ahead.wait(timeout) or stop.is_set():
+            raise TimeoutError(f"group 0 never committed step {kill_step + 1}")
         runs[1].append(train_group(
-            cfg, replica_group=1, init_seed=seed + 1000, total_steps=endless,
-            stop=stop, on_start=lambda m: rejoined.set(),
-            on_commit=on_commit(1, restarted=True), **common,
-        ))
+            cfg, replica_group=1, init_seed=seed + 1000,
+            on_commit=on_commit(1), **common))
 
     def guarded(fn):
         def _run():
@@ -278,8 +313,8 @@ def run_kill_and_heal(
                 fn()
             except BaseException as e:  # noqa: BLE001 — re-raised below
                 errors.append(e)
-                rejoined.set()  # never strand the other group
-                stop.set()
+                stop.set()  # never strand the other group
+                survivor_ahead.set()
         return _run
 
     threads = [threading.Thread(target=guarded(f), name=f"group{i}")
@@ -294,21 +329,23 @@ def run_kill_and_heal(
     if errors:
         raise errors[0]
 
-    healed = runs[1][0].healed_at
-    _require(healed, "the restarted group never healed")
-    heal_step = healed[0]
+    survivor, restarted = runs[0][0], runs[1][1]
+    _require(restarted.healed_at == [kill_step + 2],
+             f"the restarted group healed at {restarted.healed_at}, not at "
+             f"step {kill_step + 2}")
+    heal_step = restarted.healed_at[0]
     steps = sorted(set(snapshots[0]) & set(snapshots[1]))
-    steps = [s for s in steps if s >= heal_step]
-    _require(len(steps) >= 1 + steps_after,
+    _require(steps == list(range(heal_step, total + 1)),
              f"heal at {heal_step}; steps both groups committed: {steps}")
     for s in steps:
         for a, b in zip(snapshots[0][s], snapshots[1][s]):
             _require(torch.equal(a, b),
                      f"group 1 diverged from its donor at step {s}")
-    losses = [v for r in (runs[0][0], runs[1][0]) for v in r.losses.values()]
+    losses = [v for r in (survivor, restarted) for v in r.losses.values()]
     _require(all(math.isfinite(v) for v in losses), "non-finite loss")
-    return {"runs": {g: runs[g][0] for g in runs}, "heal_step": heal_step,
-            "checked_steps": steps}
+    return {"runs": {0: survivor, 1: restarted}, "heal_step": heal_step,
+            "checked_steps": steps,
+            "passes": sum(r.passes for g in runs for r in runs[g])}
 
 
 def main() -> None:

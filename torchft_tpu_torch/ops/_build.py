@@ -38,18 +38,18 @@ _lib: Optional[ctypes.CDLL] = None
 build_log = ""
 
 
-def _sources() -> List[str]:
+def _sources(csrc: str) -> List[str]:
     return sorted(
-        os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cu")
+        os.path.join(csrc, f) for f in os.listdir(csrc) if f.endswith(".cu")
     )
 
 
-def _digest() -> str:
+def _digest(csrc: str) -> str:
     h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
-    for f in sorted(os.listdir(_CSRC)):
+    for f in sorted(os.listdir(csrc)):
         if not f.endswith((".cu", ".cuh")):
             continue
-        with open(os.path.join(_CSRC, f), "rb") as fh:
+        with open(os.path.join(csrc, f), "rb") as fh:
             h.update(f.encode() + b"\0" + fh.read())
     return h.hexdigest()[:16]
 
@@ -69,10 +69,10 @@ def nvcc_path() -> str:
     return path
 
 
-def _compile(lib_path: str) -> str:
+def _compile(csrc: str, lib_path: str) -> str:
     nvcc = nvcc_path()
     objs, procs = [], []
-    for src in _sources():
+    for src in _sources(csrc):
         obj = lib_path + "." + os.path.basename(src) + ".o"
         objs.append(obj)
         procs.append((src, subprocess.Popen(
@@ -115,21 +115,29 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.tft_flash_bwd_dkv.restype = i
 
 
+def build_library(csrc: str, build_dir: str) -> ctypes.CDLL:
+    """The library of the kernel sources in ``csrc``, compiled into
+    ``build_dir`` unless a build of the same sources is there already."""
+    global build_log
+    os.makedirs(build_dir, exist_ok=True)
+    lib_path = os.path.join(build_dir, f"libtft_kernels_{_digest(csrc)}.so")
+    if not os.path.exists(lib_path):
+        with open(os.path.join(build_dir, ".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not os.path.exists(lib_path):
+                build_log = _compile(csrc, lib_path)
+    lib = ctypes.CDLL(lib_path)
+    _configure(lib)
+    return lib
+
+
 def load_kernels() -> ctypes.CDLL:
-    """The kernel library, built first if this tree has not built it yet."""
-    global _lib, build_log
+    """The library of this tree's kernels, built first if this tree has not
+    built it yet. Every wrapper launches through it."""
+    global _lib
     with _lock:
         if _lib is None:
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            lib_path = os.path.join(BUILD_DIR, f"libtft_kernels_{_digest()}.so")
-            if not os.path.exists(lib_path):
-                with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
-                    fcntl.flock(lock, fcntl.LOCK_EX)
-                    if not os.path.exists(lib_path):
-                        build_log = _compile(lib_path)
-            lib = ctypes.CDLL(lib_path)
-            _configure(lib)
-            _lib = lib
+            _lib = build_library(_CSRC, BUILD_DIR)
     return _lib
 
 

@@ -39,6 +39,7 @@ import torch
 from torchft_tpu_torch.ops import _build
 
 __all__ = [
+    "KERNEL_TOL",
     "LAUNCHES",
     "flash_attention",
     "flash_attention_with_lse",
@@ -49,6 +50,7 @@ __all__ = [
     "flash_bwd_dq_plain",
     "flash_fwd",
     "flash_fwd_plain",
+    "kernel_error",
     "reset_launch_counts",
 ]
 
@@ -71,6 +73,34 @@ def reset_launch_counts() -> None:
 def _count(name: str) -> None:
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += 1
+
+
+# A kernel against its plain version on the same bf16 inputs. Both do the
+# same f32 arithmetic in another order and round once to bf16, so an element
+# differs by one bf16 ulp (at most 2**-7 of its size) where the two f32
+# results straddle a rounding boundary, and near zero by f32 noise (atol).
+# Few elements straddle, so the relative norm of the whole difference stays
+# far below one ulp; rounding P or dS to bf16 for the products (instead of
+# the hi + lo split) moves every result by about 2**-9 and the norm past the
+# bound. lse is f32 and is held absolutely.
+KERNEL_TOL = {
+    torch.bfloat16: {"atol": 1e-4, "rtol": 2.0 ** -7, "rel_norm": 1e-3},
+    torch.float32: {"atol": 1e-5, "rtol": 0.0, "rel_norm": 1e-6},
+}
+
+
+def kernel_error(got: torch.Tensor, want: torch.Tensor) -> Dict[str, object]:
+    """How far a kernel's result ``got`` lies from its plain version's
+    ``want`` under ``KERNEL_TOL[want.dtype]``: ``max_abs_err``; ``worst``,
+    the largest ``|got - want| / (atol + rtol |want|)`` (at most 1 passes);
+    ``rel_norm``, ``||got - want|| / ||want||``; and ``ok``."""
+    tol = KERNEL_TOL[want.dtype]
+    g, w = got.detach().double(), want.detach().double()
+    diff = (g - w).abs()
+    worst = float((diff / (tol["atol"] + tol["rtol"] * w.abs())).max())
+    rel = float(diff.norm() / w.norm().clamp_min(1e-30))
+    return {"max_abs_err": float(diff.max()), "worst": worst,
+            "rel_norm": rel, "ok": worst <= 1.0 and rel <= tol["rel_norm"]}
 
 
 # ----------------------------------------------------------- plain versions

@@ -1,65 +1,21 @@
 """CRC32C (Castagnoli) for the heal wire's integrity frames.
 
 Twin of ``torchft_tpu/utils/crc32c.py``: the same checksums, so frames
-verify across packages. One implementation: ``csrc/host/crc32c.c`` (the
+verify across packages. One implementation: ``csrc/host/crc32c.cc`` (the
 SSE4.2 crc32 instruction where the CPU has it, a byte table elsewhere),
-compiled with the host C compiler (``$CC``, default ``cc``) at first use
-into ``build/torchft_tpu_torch/`` and called through ctypes, which releases
-the GIL and reads the buffer in place. A heal moves gigabytes at the
-flagship sizes, where a pure-Python or numpy CRC would dominate the heal.
+linked into the port's build of the native control plane
+(``control/_native.py``) and called through ctypes, which releases the GIL
+and reads the buffer in place. A heal moves gigabytes at the flagship
+sizes, where a pure-Python or numpy CRC would dominate the heal.
 """
 
 from __future__ import annotations
 
-import ctypes
-import fcntl
-import hashlib
-import os
-import subprocess
-import threading
-from typing import Optional
-
 import numpy as np
 
+from torchft_tpu_torch.control._native import get_lib
+
 __all__ = ["crc32c"]
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "host", "crc32c.c")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
-                          "torchft_tpu_torch")
-
-_lock = threading.Lock()
-_fn: Optional[ctypes._CFuncPtr] = None
-
-
-def _load():
-    global _fn
-    with _lock:
-        if _fn is None:
-            with open(_SRC, "rb") as f:
-                digest = hashlib.sha256(f.read()).hexdigest()[:16]
-            path = os.path.join(_BUILD_DIR, f"libtft_crc32c-{digest}.so")
-            if not os.path.exists(path):
-                os.makedirs(_BUILD_DIR, exist_ok=True)
-                with open(os.path.join(_BUILD_DIR, ".crc32c.lock"), "w") as lk:
-                    fcntl.flock(lk, fcntl.LOCK_EX)
-                    if not os.path.exists(path):
-                        cc = os.environ.get("CC", "cc")
-                        out = subprocess.run(
-                            [cc, "-O2", "-shared", "-fPIC", _SRC, "-o",
-                             path + ".tmp"],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True,
-                        )
-                        if out.returncode != 0:
-                            raise RuntimeError(
-                                f"failed to build {_SRC}:\n{out.stdout}")
-                        os.replace(path + ".tmp", path)
-            fn = ctypes.CDLL(path).tft_crc32c
-            fn.argtypes = [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_size_t]
-            fn.restype = ctypes.c_uint32
-            _fn = fn
-    return _fn
 
 
 def crc32c(data, value: int = 0) -> int:
@@ -71,4 +27,5 @@ def crc32c(data, value: int = 0) -> int:
         buf = np.frombuffer(memoryview(data).cast("B"), dtype=np.uint8)
     if buf.size == 0:
         return value & 0xFFFFFFFF
-    return int(_load()(value & 0xFFFFFFFF, buf.ctypes.data, buf.size))
+    return int(get_lib().tft_crc32c(value & 0xFFFFFFFF, buf.ctypes.data,
+                                    buf.size))
