@@ -10,19 +10,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. device: the card's name and power limit, then the build of the CUDA
    kernels from torchft_tpu_torch/csrc.
 2. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the 125m attention shape in bf16, causal and non-causal,
-   through ``flash_attention`` forward + backward and through
-   ``flash_block_attention_bwd`` with external lse/Delta, within
+   the card. The flash kernels at the 125m attention shape in bf16, causal
+   and non-causal, through ``flash_attention`` forward + backward and
+   through ``flash_block_attention_bwd`` with external lse/Delta, within
    ``flash.KERNEL_TOL`` (each element within one bf16 ulp plus 1e-4, the
-   difference's relative norm at most 1e-3, lse within 1e-5); kernel, plain
-   and library times, and the least time the card could take (bound).
-3. train: the main path at the full width of the "125m" config: two replica
-   groups under an in-process lighthouse, a few committed steps, a failure
-   injected into group 1, its restart from a poisoned init, a heal from
-   group 0, more commits, on a fixed schedule of steps. The healed
-   parameters must equal the donor's bitwise, the losses must be finite,
-   and every kernel must have launched once per layer per forward/backward
-   pass.
+   difference's relative norm at most 1e-3, lse within 1e-5). The int8
+   codec kernels (``quant_int8``, ``dequant_acc_int8``) at the 125m
+   gradient size (2 rows of every parameter, f32, on the 1 MiB chunk grid,
+   with a short tail chunk, an all-zero chunk and chunks holding NaN and
+   Inf) bitwise: tolerance 0, NaN bit patterns included. Kernel, plain and
+   library times, and the least time the card could take (bound).
+3. train: the main path at the full width of the "125m" config over the
+   TCP gradient wire: two replica groups under an in-process lighthouse, a
+   few committed steps, a failure injected into group 1, its restart from a
+   poisoned init, a heal from group 0, more commits, on a fixed schedule of
+   steps. The healed parameters must equal the donor's bitwise, the losses
+   must be finite, and every flash kernel must have launched once per layer
+   per forward/backward pass.
+4. train_cuda_int8: the same drill, all 12 layers, with the gradient wire
+   swapped for the on-device plane running the quantized psum
+   (``comm_backend="cuda"``, ``{"algorithm": "psum", "compression":
+   "int8"}``) with error feedback. Besides the checks of 3, each codec
+   kernel must have launched exactly twice per gradient bucket per
+   allreduce with a peer on the wire. Then the plane on the card is held
+   bitwise against the plane on the CPU at each of the drill's bucket
+   sizes.
 
 It prints a ``kernels`` JSON line before the last line and ends with
 ``{"ok": true, "device": {...}}``. It needs one card and no network.
@@ -48,12 +60,20 @@ _TPU_KERNELS = {
                     "torchft_tpu/ops/flash.py:352 _flash_bwd_dq_streamed_kernel",
     "flash_bwd_dkv": "torchft_tpu/ops/flash.py:311 _flash_bwd_dkv_kernel, "
                      "torchft_tpu/ops/flash.py:391 _flash_bwd_dkv_streamed_kernel",
+    "quant_int8": "torchft_tpu/comm/xla_backend.py:592 _pallas_quant_kernel",
+    # no TPU kernel: the reference leaves the owner-side decode to XLA
+    "dequant_acc_int8": "none (XLA ops in torchft_tpu/comm/xla_backend.py:727 "
+                        "reduce_int8)",
 }
 _SOURCES = {
     "flash_fwd": "torchft_tpu_torch/csrc/flash_fwd.cu",
     "flash_bwd_dq": "torchft_tpu_torch/csrc/flash_bwd_dq.cu",
     "flash_bwd_dkv": "torchft_tpu_torch/csrc/flash_bwd_dkv.cu",
+    "quant_int8": "torchft_tpu_torch/csrc/quant_int8.cu",
+    "dequant_acc_int8": "torchft_tpu_torch/csrc/quant_int8.cu",
 }
+CHUNK_BYTES = 1 << 20  # the gradient plane's chunk grid (1 MiB of f32)
+INT8_OPTIONS = {"algorithm": "psum", "compression": "int8"}
 
 
 def log(msg: str) -> None:
@@ -245,9 +265,127 @@ def phase_kernels(seed: int):
     return rows
 
 
-def phase_train(steps: int, layers, seed: int, card: str) -> int:
-    """Run the drill; return the kernel launches each kernel must have made
-    (one per layer per forward/backward pass)."""
+def _bits(t):
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _max_abs_err(got, want) -> float:
+    """Largest |got - want| over the elements finite in both (0 when the
+    two agree bit for bit)."""
+    import torch
+
+    g, w = got.double(), want.double()
+    ok = torch.isfinite(g) & torch.isfinite(w)
+    return float((g - w).abs()[ok].max()) if bool(ok.any()) else 0.0
+
+
+def phase_quant_kernels(seed: int):
+    """The int8 codec kernels bitwise against their plain versions at the
+    125m gradient size, then timed."""
+    import torch
+
+    from torchft_tpu_torch.models import CONFIGS, GPT
+    from torchft_tpu_torch.ops import quant
+
+    n_params = sum(p.numel() for p in GPT(CONFIGS["125m"]).parameters())
+    torch.cuda.empty_cache()
+    rows, step = 2, CHUNK_BYTES // 4
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((rows, n_params), generator=gen, device="cuda") * 1e-3
+    x[0, step:2 * step] = 0.0             # an all-zero chunk: scale 1
+    x[0, 2 * step + 5] = float("nan")     # poisons its own chunk only
+    x[1, 3 * step + 17] = float("inf")
+    chunks = quant.n_chunks(n_params, step)
+    log(f"  codec input: {rows} x {n_params} f32 (the 125m gradient), "
+        f"{chunks} chunks of {step} per row, tail {n_params - (chunks - 1) * step}")
+    L = -(-n_params // rows)
+    q = torch.zeros((rows, rows * L), dtype=torch.int8, device="cuda")
+    s = torch.empty((rows, chunks), device="cuda")
+    failed, errs = [], {"quant_int8": 0.0, "dequant_acc_int8": 0.0}
+
+    def check(name, what, got, want):
+        same = torch.equal(_bits(got), _bits(want))
+        errs[name] = max(errs[name], _max_abs_err(got, want))
+        log(f"  {name:16s} {what:30s} bitwise {'ok' if same else 'FAIL'}")
+        if not same:
+            failed.append(f"{name} {what}")
+
+    quant.quant_int8(x, step, out=(q[:, :n_params], s))
+    pq, ps = quant.quant_int8_plain(x, step)
+    torch.cuda.synchronize()
+    check("quant_int8", "phase-1 q", q[:, :n_params], pq)
+    check("quant_int8", "phase-1 scales", s, ps)
+    if not (s[0, 1] == 1.0 and torch.isnan(s[0, 2]) and torch.isnan(s[1, 3])
+            and bool(torch.isfinite(s[1, :3]).all())):
+        failed.append("quant_int8 special chunks (zero, NaN, Inf)")
+    del pq, ps
+    acc = quant.dequant_acc_int8(q, s, step, valid=n_params)
+    p_acc = quant.dequant_acc_int8_plain(q, s, step, valid=n_params)
+    torch.cuda.synchronize()
+    check("dequant_acc_int8", "owner sums (2 sources)", acc, p_acc)
+    del p_acc
+    c2 = quant.n_chunks(L, step)
+    q2, s2 = quant.quant_int8(acc.view(rows, L), step)
+    pq2, ps2 = quant.quant_int8_plain(acc.view(rows, L), step)
+    out = quant.dequant_acc_int8(q2.view(1, -1), s2.view(1, -1), step,
+                                 valid=n_params, seg=L, cps=c2)
+    p_out = quant.dequant_acc_int8_plain(q2.view(1, -1), s2.view(1, -1),
+                                         step, valid=n_params, seg=L, cps=c2)
+    torch.cuda.synchronize()
+    check("quant_int8", "phase-2 q (shard grid)", q2, pq2)
+    check("quant_int8", "phase-2 scales", s2, ps2)
+    check("dequant_acc_int8", "final decode (shard grid)", out, p_out)
+    del pq2, ps2, p_out
+    if failed:
+        raise AssertionError(f"codec kernels disagree with their plain "
+                             f"versions: {failed}")
+
+    # times at the main path's shapes: the phase-1 quantize of both rows
+    # and the owner decode-accumulate of both sources
+    n_el = rows * n_params
+    q_bytes = n_el * 4 + n_el * 1 + rows * chunks * 4
+    d_bytes = rows * rows * L * 1 + rows * chunks * 4 + rows * L * 4
+    full = (n_params // step) * step
+    timing = {
+        "quant_int8": (
+            lambda: quant.quant_int8(x, step, out=(q[:, :n_params], s)),
+            lambda: quant.quant_int8_plain(x, step),
+            lambda: torch.amax(x[:, :full].reshape(-1, step).abs(), 1),
+            "torch.amax(x.view(B, step).abs(), 1)", q_bytes),
+        "dequant_acc_int8": (
+            lambda: quant.dequant_acc_int8(q, s, step, valid=n_params,
+                                           out=acc),
+            lambda: quant.dequant_acc_int8_plain(q, s, step,
+                                                 valid=n_params),
+            lambda: torch.sum(q, 0, dtype=torch.float32),
+            "torch.sum(q, 0, dtype=float32)", d_bytes),
+    }
+    out_rows = {}
+    for name, (kern, plain, yard, yard_what, nbytes) in timing.items():
+        ms = cuda_ms(kern)
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        yard_ms = cuda_ms(yard)
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        out_rows[name] = {
+            "name": name, "route": "cuda", "source": _SOURCES[name],
+            "replaces": _TPU_KERNELS[name], "launches": 0,
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+        }
+        log(f"  {name:16s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"bound {bound:.4f} ms (bytes, {nbytes / 1e6:.1f} MB)  "
+            f"yardstick {yard_what} {yard_ms:.4f} ms")
+    del x, q, s, acc, q2, s2, out
+    torch.cuda.empty_cache()
+    return out_rows
+
+
+def phase_train(steps: int, layers, seed: int, card: str,
+                comm_backend: str = "host", comm_options=None):
+    """Run the drill; return the flash kernels' launches (one per layer
+    per forward/backward pass) and the result."""
     import dataclasses
 
     from torchft_tpu_torch.examples.train_ddp import run_kill_and_heal
@@ -259,11 +397,14 @@ def phase_train(steps: int, layers, seed: int, card: str) -> int:
     batch = 8
     log(f"  125m: vocab {cfg.vocab_size} d_model {cfg.d_model} layers "
         f"{cfg.n_layers} heads {cfg.n_heads} d_ff {cfg.d_ff} seq "
-        f"{cfg.max_seq_len} xent_chunks {cfg.xent_chunks}, batch {batch}")
+        f"{cfg.max_seq_len} xent_chunks {cfg.xent_chunks}, batch {batch}, "
+        f"gradient wire {comm_backend} {comm_options or ''}")
     t0 = time.perf_counter()
     result = run_kill_and_heal(cfg, kill_step=steps, steps_after=steps - 1,
                                device="cuda", batch_size=batch, seed=seed,
-                               timeout=120.0, log=lambda m: log("  " + m))
+                               timeout=120.0, log=lambda m: log("  " + m),
+                               comm_backend=comm_backend,
+                               comm_options=comm_options)
     wall = time.perf_counter() - t0
     runs, heal = result["runs"], result["heal_step"]
     log(f"  group 1 healed at step {heal}; parameters bitwise equal to "
@@ -272,8 +413,8 @@ def phase_train(steps: int, layers, seed: int, card: str) -> int:
         times = ", ".join(f"{s}: {t * 1e3:.1f}"
                           for s, t in sorted(run.step_seconds.items()))
         log(f"  group {g} step ms {{{times}}}")
-    phases = ("quorum", "forward_backward", "ddp_d2h", "ddp_wire",
-              "ddp_h2d", "commit_barrier")
+    phases = ("quorum", "forward_backward", "ddp_d2h", "ddp_ef",
+              "ddp_wire", "ddp_h2d", "commit_barrier", "comm_wire_reduce")
     for g, run in runs.items():
         p50 = {p: round(run.metrics[f"{p}_p50_ms"], 1) for p in phases
                if f"{p}_p50_ms" in run.metrics}
@@ -288,18 +429,73 @@ def phase_train(steps: int, layers, seed: int, card: str) -> int:
     log(f"  tokens/s, two groups sharing the card, steps after the heal: "
         f"{[round(r) for r in rates]} ({card})")
     log(f"  forward/backward passes of both groups: {result['passes']}")
-    return result["passes"] * cfg.n_layers
+    return result["passes"] * cfg.n_layers, result
+
+
+def check_plane_at_buckets(sizes, seed: int) -> None:
+    """The int8 plane on the card against the same plane on the CPU (the
+    codec kernels' plain versions), bitwise, at each distinct size of the
+    drill's DDP buckets: two groups decode the same bytes, so the drill's
+    own checks cannot see a kernel that is wrong but deterministic at the
+    main path's shapes (phase-1 rows, phase-2 shards, their tail chunks)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from torchft_tpu_torch.comm.context import ReduceOp
+    from torchft_tpu_torch.comm.cuda_backend import CudaCommContext, DevicePool
+
+    world = 2
+    pools = {"cuda": DevicePool("cuda"), "cpu": DevicePool("cpu")}
+    rng = np.random.default_rng(seed)
+    for size in sorted(set(sizes)):
+        grads = [(rng.standard_normal(size) * 1e-3).astype(np.float32)
+                 for _ in range(world)]
+        out = {}
+        for device, pool in pools.items():
+            ctxs = [CudaCommContext(timeout=120.0, **INT8_OPTIONS,
+                                    chunk_bytes=CHUNK_BYTES, device_pool=pool)
+                    for _ in range(world)]
+
+            def worker(r):
+                ctxs[r].configure(f"smoke://bucket{size}/{device}", r, world)
+                w = ctxs[r].allreduce([grads[r].copy()], ReduceOp.SUM)
+                return w.future().result(timeout=120)[0]
+
+            try:
+                with ThreadPoolExecutor(world) as ex:
+                    out[device] = [f.result(180) for f in
+                                   [ex.submit(worker, r) for r in range(world)]]
+            finally:
+                for c in ctxs:
+                    c.shutdown()
+        same = all(c.tobytes() == h.tobytes()
+                   for c, h in zip(out["cuda"], out["cpu"]))
+        log(f"  bucket of {size} f32: card plane vs CPU plane bitwise "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"int8 plane on the card differs from the "
+                                 f"CPU plane at a bucket of {size}")
+
+
+def _check_launches(counts, want, what: str) -> None:
+    log(f"  kernel launches on the main path: {counts} (want {want})")
+    if counts != want:
+        raise AssertionError(f"kernel launches on the main path {counts}, "
+                             f"want {want} ({what})")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="kernels,train",
-                        help="comma list of kernels,train (device always runs)")
+    parser.add_argument("--phases", default="kernels,train,train_cuda_int8",
+                        help="comma list of kernels,train,train_cuda_int8 "
+                             "(device always runs)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=3,
                         help="committed steps before and after the heal")
     parser.add_argument("--layers", type=int, default=None,
-                        help="cut the 125m depth to this many layers")
+                        help="cut the 125m depth of the TCP drill (train) "
+                             "to this many layers")
     args = parser.parse_args()
 
     import torch
@@ -319,26 +515,55 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     phases = set(args.phases.split(","))
+    unknown = phases - {"kernels", "train", "train_cuda_int8"}
+    if unknown:
+        print(f"chip_smoke: unknown phases {sorted(unknown)}", file=sys.stderr)
+        return 2
     smi = phase_device()
+    from torchft_tpu_torch.ops import flash, quant
+
     rows = {}
     if "kernels" in phases:
         log("phase kernels")
         rows = phase_kernels(args.seed)
+        rows.update(phase_quant_kernels(args.seed))
     if "train" in phases:
-        from torchft_tpu_torch.ops import flash
-
         log("phase train")
         flash.reset_launch_counts()
-        want = phase_train(args.steps, args.layers, args.seed, smi)
+        want, _ = phase_train(args.steps, args.layers, args.seed, smi)
         counts = dict(flash.LAUNCHES)
-        log(f"  kernel launches on the main path: {counts} (want {want} "
-            f"each: one per layer per pass)")
-        if any(c != want for c in counts.values()):
-            raise AssertionError(f"kernel launches on the main path {counts}, "
-                                 f"want {want} of each")
+        _check_launches(counts, {n: want for n in counts},
+                        "one per layer per forward/backward pass")
         for name, c in counts.items():
             if name in rows:
                 rows[name]["launches"] = c
+    if "train_cuda_int8" in phases:
+        log("phase train_cuda_int8")
+        flash.reset_launch_counts()
+        quant.reset_launch_counts()
+        want, result = phase_train(args.steps, None, args.seed, smi,
+                                   comm_backend="cuda",
+                                   comm_options=INT8_OPTIONS)
+        counts = {**flash.LAUNCHES, **quant.LAUNCHES}
+        # the fixed schedule has a peer on the wire in k + 1 + a steps
+        # (all but the survivor's solo step); each of those reduces every
+        # frozen DDP bucket once, with 2 launches of each codec kernel
+        survivor = result["runs"][0]
+        wire_steps = args.steps + 1 + (args.steps - 1)
+        if survivor.wire_steps != wire_steps:
+            raise AssertionError(f"{survivor.wire_steps} steps with a wire "
+                                 f"peer, the schedule has {wire_steps}")
+        per_kernel = 2 * len(survivor.buckets) * wire_steps
+        log(f"  {len(survivor.buckets)} gradient buckets x {wire_steps} steps "
+            f"with a peer x 2 launches = {per_kernel} of each codec kernel")
+        _check_launches(counts, {**{n: want for n in flash.LAUNCHES},
+                                 **{n: per_kernel for n in quant.LAUNCHES}},
+                        "flash: one per layer per pass; codec: 2 per bucket "
+                        "per allreduce with a peer")
+        for name, c in counts.items():
+            if name in rows:
+                rows[name]["launches"] = c
+        check_plane_at_buckets(survivor.buckets, args.seed)
     if rows:
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,11 @@ PyTorch versions on the card, small shapes in bf16, under
 ``flash.KERNEL_TOL``: each element within one bf16 ulp of the plain
 version's (plus 1e-4), the relative norm of the difference at most 1e-3,
 lse within 1e-5. A build of the kernels that rounds P and dS to plain bf16
-for its products must fail that check. This file imports no JAX, so it runs
-where only torch is installed:
+for its products must fail that check. The int8 codec kernels
+(``ops/quant.py``) are held to their plain versions bitwise (tolerance 0,
+NaN bit patterns included), and a build of the dequantizer that leaves
+``acc + q * scale`` to FMA contraction must fail that. This file imports no
+JAX, so it runs where only torch is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -18,7 +21,7 @@ import pytest
 import torch
 
 from torchft_tpu_torch.models import CONFIGS, GPT
-from torchft_tpu_torch.ops import _build, attention, flash
+from torchft_tpu_torch.ops import _build, attention, flash, quant
 
 # the GPT's loss with the kernels against the same model on the CPU path,
 # whose reference attention rounds P to bf16 before P V
@@ -120,3 +123,127 @@ def test_model_on_card_runs_the_kernels() -> None:
     diff = (got - want).abs()
     assert bool((diff <= REF_ATOL + REF_RTOL * want.abs()).all())
     assert float(diff.norm() / want.norm()) <= REF_REL_NORM
+
+
+# ----------------------------------------------------- the int8 codec
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _quant_cases(step=1024, size=5000, n=3, seed=0):
+    """[(what, kernel result, plain result)] of both codec kernels at the
+    quantized psum's three call shapes: phase-1 quantize of n rows, owner
+    decode-accumulate with AVG over the padded (n, n·L) rows, and the
+    shard-grid quantize + decode of the reduced shards."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, size), generator=gen, device="cuda") * 3
+    x[0, step:2 * step] = 0.0             # an all-zero chunk: scale 1
+    x[0, 2 * step + 5] = float("nan")     # poisons its own chunk only
+    x[1, 3 * step + 17] = float("inf")
+    L = -(-size // n)
+    q = torch.zeros((n, n * L), dtype=torch.int8, device="cuda")
+    s = torch.empty((n, quant.n_chunks(size, step)), device="cuda")
+    quant.quant_int8(x, step, out=(q[:, :size], s))
+    pq, ps = quant.quant_int8_plain(x, step)
+    acc = quant.dequant_acc_int8(q, s, step, valid=size, divisor=n)
+    p_acc = quant.dequant_acc_int8_plain(q, s, step, valid=size, divisor=n)
+    c2 = quant.n_chunks(L, step)
+    q2, s2 = quant.quant_int8(acc.view(n, L), step)
+    pq2, ps2 = quant.quant_int8_plain(acc.view(n, L), step)
+    out = quant.dequant_acc_int8(q2.view(1, -1), s2.view(1, -1), step,
+                                 valid=size, seg=L, cps=c2)
+    p_out = quant.dequant_acc_int8_plain(q2.view(1, -1), s2.view(1, -1),
+                                         step, valid=size, seg=L, cps=c2)
+    torch.cuda.synchronize()
+    return [("q", q[:, :size], pq), ("scales", s, ps), ("acc", acc, p_acc),
+            ("q2", q2, pq2), ("scales2", s2, ps2), ("out", out, p_out)]
+
+
+@pytest.mark.cuda
+def test_quant_kernels_match_plain_bitwise_on_card() -> None:
+    _cuda()
+    quant.reset_launch_counts()
+    for what, got, want in _quant_cases():
+        assert torch.equal(_bits(got), _bits(want)), what
+    assert quant.LAUNCHES == {"quant_int8": 2, "dequant_acc_int8": 2}
+    with pytest.raises(ValueError, match="float32"):
+        quant.quant_int8(torch.zeros((1, 8), device="cuda",
+                                     dtype=torch.float16), 8)
+
+
+@pytest.mark.cuda
+def test_bitwise_check_rejects_fma_contraction(tmp_path, monkeypatch) -> None:
+    """Leave acc + q * scale to nvcc's default FMA contraction in the
+    dequantizer: the product's rounding is skipped and the owner sums must
+    differ from the plain version's."""
+    _cuda()
+    src = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, src)
+    cu = src / "quant_int8.cu"
+    text = cu.read_text()
+    exact = "acc = __fadd_rn(acc, __fmul_rn(v, scales[r * lds + chunk]));"
+    assert text.count(exact) == 1
+    cu.write_text(text.replace(exact, "acc = acc + v * scales[r * lds + chunk];"))
+    monkeypatch.setattr(_build, "_lib", _build.build_library(
+        str(src), str(tmp_path / "build")))
+    cases = {what: (got, want) for what, got, want in _quant_cases()}
+    got, want = cases["acc"]
+    diff = int((_bits(got) != _bits(want)).sum())
+    print(f"FMA-contracted dequantizer: {diff} of {got.numel()} sums differ")
+    assert diff > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 3])
+def test_device_plane_on_card_equals_cpu_plane(world) -> None:
+    """The gradient plane through the kernels on the card against the same
+    plane on the CPU (plain versions), bitwise: star/ring at every codec
+    (their AVG divides included) and the quantized psum."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchft_tpu_torch.comm.context import ReduceOp
+    from torchft_tpu_torch.comm.cuda_backend import CudaCommContext, DevicePool
+
+    _cuda()
+    rng = np.random.default_rng(world)
+    inputs = [[(rng.standard_normal(5000) * (r + 1)).astype(np.float32),
+               rng.standard_normal(257).astype(np.float32)]
+              for r in range(world)]
+    pools = {"cuda": DevicePool("cuda"), "cpu": DevicePool("cpu")}
+
+    def run(device, algo, codec, op, tag):
+        ctxs = [CudaCommContext(timeout=30.0, algorithm=algo,
+                                compression=codec, chunk_bytes=1 << 12,
+                                device_pool=pools[device])
+                for _ in range(world)]
+
+        def worker(r):
+            ctxs[r].configure(f"card://{tag}/{device}", r, world)
+            w = ctxs[r].allreduce([a.copy() for a in inputs[r]], op)
+            return [np.array(a) for a in w.future().result(timeout=30)]
+
+        try:
+            with ThreadPoolExecutor(world) as ex:
+                return [f.result(60) for f in
+                        [ex.submit(worker, r) for r in range(world)]]
+        finally:
+            for c in ctxs:
+                c.shutdown()
+
+    quant.reset_launch_counts()
+    for algo in ("star", "ring", "psum"):
+        for codec in ("none", "bf16", "fp16", "int8"):
+            for op in (ReduceOp.SUM, ReduceOp.AVG):
+                tag = f"{world}_{algo}_{codec}_{op}"
+                card = run("cuda", algo, codec, op, tag)
+                host = run("cpu", algo, codec, op, tag)
+                if algo == "psum" and codec == "none":
+                    continue  # the plain sum's order is the library's
+                for c_r, h_r in zip(card, host):
+                    for c, h in zip(c_r, h_r):
+                        assert c.tobytes() == h.tobytes(), tag
+    # psum int8: 2 launches of each kernel per array per allreduce (2 ops)
+    assert quant.LAUNCHES["quant_int8"] >= 2 * 2 * 2

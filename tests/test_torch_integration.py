@@ -8,7 +8,8 @@ restarts from a poisoned init, heals from its peer and must then be
 bitwise equal to its donor at every step both commit. The cross-package
 check starts the port and the JAX package's classic (non-fused) path from
 the same parameters and data, one replica group each, and compares the
-losses of 5 committed steps.
+losses of 5 committed steps. The drill runs once more over the on-device
+int8 plane.
 """
 
 import dataclasses
@@ -47,6 +48,34 @@ def test_ddp_recovery_replica_killed_and_heals() -> None:
     assert runs[0].participants == {1: 2, 2: 2, 3: 1, 4: 1, 5: 2, 6: 2}
     assert runs[1].participants == {4: 1, 5: 2, 6: 2}
     assert result["passes"] == 11
+    for run in runs.values():
+        assert all(math.isfinite(v) for v in run.losses.values())
+
+
+def test_recovery_over_the_int8_device_plane() -> None:
+    # the same drill with the gradient wire swapped for the on-device plane
+    # (comm/cuda_backend.py, here on the CPU) running the quantized psum
+    # with error feedback: the heal must still be bitwise, because every
+    # rank decodes the same reduced bytes
+    from torchft_tpu_torch.comm.cuda_backend import default_device_pool
+
+    pool = default_device_pool("cpu")
+    plans = pool.compile_count
+    result = run_kill_and_heal(
+        CONFIGS["tiny"], kill_step=2, steps_after=2, device="cpu",
+        batch_size=2, timeout=20.0, comm_backend="cuda",
+        comm_options={"algorithm": "psum", "compression": "int8"})
+    runs = result["runs"]
+    assert result["heal_step"] == 4 and result["checked_steps"] == [4, 5, 6]
+    assert runs[0].participants == {1: 2, 2: 2, 3: 1, 4: 1, 5: 2, 6: 2}
+    # a peer on the wire in k + 1 + a = 5 steps, group 0's solo step aside
+    assert runs[0].wire_steps == 5 and runs[1].wire_steps == 3
+    assert runs[0].metrics["comm_backend"] == "cuda"
+    assert runs[0].metrics["comm_encoded_bytes"] \
+        <= 0.3 * runs[0].metrics["comm_raw_bytes"]
+    # one plan (world 2, the frozen bucket layout) however often the
+    # membership changed
+    assert pool.compile_count - plans <= 1
     for run in runs.values():
         assert all(math.isfinite(v) for v in run.losses.values())
 

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from torchft_tpu_torch.comm.wire import as_bytes_view, readinto_exact
+from torchft_tpu_torch.control._native import get_lib
 from torchft_tpu_torch.futures import StealableTask
 from torchft_tpu_torch.utils.crc32c import crc32c
 from torchft_tpu_torch.utils.net import advertised_host
@@ -307,6 +308,10 @@ class CheckpointServer(CheckpointTransport[T]):
             timeout = timeout.total_seconds()
         if num_chunks < 1:
             raise ValueError("num_chunks must be >= 1")
+        # the wire's CRC32C lives in the native library: load it (building
+        # it on the first use in a checkout, ~10 s) here, before any
+        # request handler and its caller's timeout need it
+        get_lib()
         self._timeout = float(timeout)
         self._num_chunks = int(num_chunks)
         self._metrics = None

@@ -88,12 +88,38 @@ class CommContext(ABC):
     stale rounds cannot cross-talk.
     """
 
-    # "host" for the socket transport, "none" for identity/test contexts.
+    # "host" for the socket transport, "cuda" for the on-device plane
+    # (comm/cuda_backend.py), "none" for identity/test contexts.
     backend_name = "none"
 
     def __init__(self) -> None:
         self._rank = 0
         self._world_size = 1
+
+    # ------------------------------------------------- capability query
+    # One definition of which (algorithm, compression, op, topology) combos
+    # each backend runs, shared by ctor validation and
+    # Manager.comm_unsupported_reason.
+
+    @classmethod
+    def unsupported_reason(
+        cls, algorithm: str, compression: str, op: str = ReduceOp.SUM,
+        topology: str = "flat",
+    ) -> Optional[str]:
+        """``None`` when this backend can run ``algorithm`` with
+        ``compression`` for ``op`` over ``topology``, else a prescriptive
+        error string. Identity/test contexts move no bytes, so they
+        "support" every combo; real data planes override."""
+        return None
+
+    @classmethod
+    def supports(
+        cls, algorithm: str, compression: str, op: str = ReduceOp.SUM,
+        topology: str = "flat",
+    ) -> bool:
+        return cls.unsupported_reason(
+            algorithm, compression, op, topology
+        ) is None
 
     @staticmethod
     def _prepare(a) -> np.ndarray:
@@ -131,6 +157,38 @@ class CommContext(ABC):
     def errored(self) -> Optional[Exception]:
         """Latched transport error, if any (cleared by configure)."""
         return None
+
+    # ----------------------------------------------- wire introspection
+    # The defaults describe an identity wire; the on-device plane
+    # overrides. The DDP error-feedback arena keys off these.
+
+    def wire_codec_name(self) -> str:
+        """Name of the allreduce wire codec ("none": payloads untouched)."""
+        return "none"
+
+    def wire_is_lossy(self) -> bool:
+        """True when the wire codec loses precision (bf16/fp16/int8)."""
+        return False
+
+    def wire_compensable(self) -> bool:
+        """True when THIS rank's contribution crosses the wire through the
+        lossy codec (role-aware) — the gate for error feedback."""
+        return False
+
+    def wire_generation(self) -> int:
+        """Transport incarnation, bumped by configure: wire-derived
+        step-persistent state (error-feedback residuals) resets on it."""
+        return 0
+
+    def wire_roundtrip(self, src: np.ndarray, out: np.ndarray) -> None:
+        """Write the wire's local image of ``src`` (decode(encode(src)) on
+        the chunk grid) into ``out``. Identity wire: a copy."""
+        np.copyto(out, src)
+
+    def wire_nbytes(self, a: np.ndarray) -> int:
+        """Encoded size of ``a`` as one allreduce contribution. Identity
+        wire: the raw byte count."""
+        return int(np.asarray(a).nbytes)
 
 
 class DummyCommContext(CommContext):
@@ -213,6 +271,40 @@ class ErrorSwallowingCommContext(CommContext):
     def shutdown(self) -> None:
         self._inner.shutdown()
 
+    def wire_codec_name(self) -> str:
+        return self._inner.wire_codec_name()
+
+    def wire_is_lossy(self) -> bool:
+        return self._inner.wire_is_lossy()
+
+    def wire_compensable(self) -> bool:
+        return self._inner.wire_compensable()
+
+    def wire_generation(self) -> int:
+        return self._inner.wire_generation()
+
+    def wire_roundtrip(self, src: np.ndarray, out: np.ndarray) -> None:
+        self._inner.wire_roundtrip(src, out)
+
+    def wire_nbytes(self, a: np.ndarray) -> int:
+        return self._inner.wire_nbytes(a)
+
+    # instance-level shadows of the classmethods: capability follows the
+    # wrapped backend, not this wrapper's identity default
+    def unsupported_reason(  # type: ignore[override]
+        self, algorithm: str, compression: str, op: str = ReduceOp.SUM,
+        topology: str = "flat",
+    ) -> Optional[str]:
+        return self._inner.unsupported_reason(
+            algorithm, compression, op, topology
+        )
+
+    def supports(  # type: ignore[override]
+        self, algorithm: str, compression: str, op: str = ReduceOp.SUM,
+        topology: str = "flat",
+    ) -> bool:
+        return self._inner.supports(algorithm, compression, op, topology)
+
 
 class ManagedCommContext(CommContext):
     """Context that routes every collective through a Manager so errors and
@@ -242,3 +334,37 @@ class ManagedCommContext(CommContext):
 
     def rank(self) -> int:
         return self._manager.participating_rank() or 0
+
+    def wire_codec_name(self) -> str:
+        return self._manager.wire_codec_name()
+
+    def wire_is_lossy(self) -> bool:
+        return self._manager.wire_is_lossy()
+
+    def wire_compensable(self) -> bool:
+        return self._manager.wire_compensable()
+
+    def wire_generation(self) -> int:
+        return self._manager.wire_generation()
+
+    def wire_roundtrip(self, src: np.ndarray, out: np.ndarray) -> None:
+        self._manager.wire_roundtrip(src, out)
+
+    def wire_nbytes(self, a: np.ndarray) -> int:
+        return self._manager.wire_nbytes(a)
+
+    def unsupported_reason(  # type: ignore[override]
+        self, algorithm: str, compression: str, op: str = ReduceOp.SUM,
+        topology: str = "flat",
+    ) -> Optional[str]:
+        return self._manager.comm_unsupported_reason(
+            algorithm, compression, op, topology
+        )
+
+    def supports(  # type: ignore[override]
+        self, algorithm: str, compression: str, op: str = ReduceOp.SUM,
+        topology: str = "flat",
+    ) -> bool:
+        return self.unsupported_reason(
+            algorithm, compression, op, topology
+        ) is None

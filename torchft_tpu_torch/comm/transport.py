@@ -44,12 +44,14 @@ from datetime import timedelta
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from torchft_tpu_torch.comm.context import CommContext, ReduceOp, Work
 from torchft_tpu_torch.comm.store import create_store_client
 from torchft_tpu_torch.comm.wire import (
     IOV_MAX,
     as_bytes_view,
+    iov_join,
     iov_nbytes,
     recv_exact,
     recv_into_exact,
@@ -60,7 +62,13 @@ from torchft_tpu_torch.utils.net import advertised_host
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["TcpCommContext"]
+__all__ = [
+    "TcpCommContext",
+    "codec_roundtrip",
+    "codec_wire_nbytes",
+    "host_unsupported_reason",
+    "make_wire_codec",
+]
 
 _OP_ALLREDUCE = 1  # the reference's opcode for allreduce frames
 
@@ -222,6 +230,215 @@ def _chunk_grid(flats: Sequence[np.ndarray],
         step = max(1, chunk_bytes // f.dtype.itemsize)
         chunks.extend(f[s: s + step] for s in range(0, f.size, step))
     return chunks
+
+
+def _chunk_bounds(total: int, n: int, c: int) -> "tuple[int, int]":
+    """Element bounds of rank-part ``c`` when ``total`` is split into n
+    near-equal parts, the first ``total % n`` one element longer (the
+    ring's reduce-scatter split)."""
+    base, extra = divmod(total, n)
+    start = c * base + min(c, extra)
+    return start, start + base + (1 if c < extra else 0)
+
+
+# --------------------------------------------------------------- compression
+# Wire codecs for allreduce payloads (gradients), twins of the reference's:
+# bf16/fp16 downcast, int8 with one absmax scale per chunk of the grid.
+# Plain numpy (bf16 through torch, which numpy lacks). They are the host
+# image of the wire and the bitwise oracle of the on-device plane
+# (comm/cuda_backend.py); this module's TcpCommContext still carries raw
+# values only.
+
+
+def _is_compressible(a: np.ndarray) -> bool:
+    return a.dtype in (np.float32, np.float64)
+
+
+class _NoCodec:
+    name = "none"
+
+    # flat-view interface: encode_iovecs for the send side, decode_into for
+    # the in-place receive side, wire_nbytes for size validation
+    def wire_nbytes(self, v: np.ndarray) -> int:
+        return v.nbytes
+
+    def encode_iovecs(self, views: Sequence[np.ndarray]) -> List:
+        """Encoded payload as an iovec list; the identity codec returns the
+        views themselves (zero copy)."""
+        return list(views)
+
+    def decode_into(self, data: bytes, views: Sequence[np.ndarray],
+                    combine) -> None:
+        _decode_into(data, views, combine)
+
+
+def _to_bf16_bits(v: np.ndarray) -> np.ndarray:
+    return (torch.from_numpy(np.ascontiguousarray(v)).to(torch.bfloat16)
+            .view(torch.int16).numpy())
+
+
+def _from_bf16_bits(bits: np.ndarray, dtype: np.dtype) -> np.ndarray:
+    t = torch.from_numpy(np.array(bits, dtype=np.int16)).view(torch.bfloat16)
+    return t.to(torch.float64 if dtype == np.float64
+                else torch.float32).numpy()
+
+
+class _AstypeCodec(_NoCodec):
+    """Lossy float downcast on the wire (bf16 / fp16, round to nearest
+    even); non-float arrays pass through untouched."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._wd = np.dtype(np.int16 if name == "bf16" else np.float16)
+
+    def _encode(self, v: np.ndarray) -> np.ndarray:
+        return _to_bf16_bits(v) if self.name == "bf16" \
+            else v.astype(np.float16)
+
+    def _decode(self, wire: np.ndarray, dtype: np.dtype) -> np.ndarray:
+        return _from_bf16_bits(wire, dtype) if self.name == "bf16" \
+            else wire.astype(dtype)
+
+    def wire_nbytes(self, v: np.ndarray) -> int:
+        if _is_compressible(v):
+            return v.size * self._wd.itemsize
+        return v.nbytes
+
+    def encode_iovecs(self, views):
+        return [self._encode(v) if _is_compressible(v) else v for v in views]
+
+    def decode_into(self, data, views, combine):
+        offset = 0
+        for v in views:
+            if _is_compressible(v):
+                nb = v.size * self._wd.itemsize
+                incoming = self._decode(
+                    np.frombuffer(data[offset: offset + nb], dtype=self._wd),
+                    v.dtype)
+            else:
+                nb = v.nbytes
+                incoming = np.frombuffer(data[offset: offset + nb],
+                                         dtype=v.dtype)
+            combine(v, incoming)
+            offset += nb
+
+
+class _Int8Codec(_NoCodec):
+    """Per-chunk absmax int8 quantization: wire = [scale f32][int8
+    payload]. Max abs error per element is scale/2 = absmax/254."""
+
+    name = "int8"
+
+    @staticmethod
+    def _quantize(a: np.ndarray) -> "tuple[np.float32, np.ndarray]":
+        absmax = float(np.max(np.abs(a))) if a.size else 0.0
+        if not np.isfinite(absmax):
+            # a NaN scale poisons the chunk (its decode is NaN everywhere)
+            # instead of clipping Inf/NaN into plausible values
+            return np.float32("nan"), np.zeros(a.shape, np.int8)
+        scale = np.float32(absmax / 127.0 if absmax > 0 else 1.0)
+        q = np.clip(np.rint(a / scale), -127, 127).astype(np.int8)
+        return scale, q
+
+    def wire_nbytes(self, v: np.ndarray) -> int:
+        if _is_compressible(v):
+            return 4 + v.size
+        return v.nbytes
+
+    def encode_iovecs(self, views):
+        parts: List = []
+        for v in views:
+            if _is_compressible(v):
+                scale, q = self._quantize(v)
+                parts.append(np.float32(scale).tobytes())
+                parts.append(q)
+            else:
+                parts.append(v)
+        return parts
+
+    def decode_into(self, data, views, combine):
+        offset = 0
+        for v in views:
+            if _is_compressible(v):
+                scale = np.frombuffer(data[offset: offset + 4],
+                                      dtype=np.float32)[0]
+                q = np.frombuffer(data[offset + 4: offset + 4 + v.size],
+                                  dtype=np.int8)
+                incoming = q.astype(v.dtype) * v.dtype.type(scale)
+                offset += 4 + v.size
+            else:
+                incoming = np.frombuffer(data[offset: offset + v.nbytes],
+                                         dtype=v.dtype)
+                offset += v.nbytes
+            combine(v, incoming)
+
+
+_CODECS = {
+    "none": _NoCodec,
+    "bf16": lambda: _AstypeCodec("bf16"),
+    "fp16": lambda: _AstypeCodec("fp16"),
+    "int8": _Int8Codec,
+}
+
+
+def make_wire_codec(name: str):
+    """A standalone wire codec by name ("none" / "bf16" / "fp16" /
+    "int8"). Codecs are stateless."""
+    try:
+        return _CODECS[name]()
+    except KeyError:
+        raise ValueError(
+            f"unknown wire codec {name!r}; have {sorted(_CODECS)}"
+        ) from None
+
+
+def codec_roundtrip(codec, chunk_bytes: int, src: np.ndarray,
+                    out: np.ndarray) -> None:
+    """Write decode(encode(src)) into ``out``, chunked exactly as one
+    allreduce contribution over the grid: the wire's local image, which
+    error feedback computes its residual against."""
+    src_chunks = _chunk_grid([src.reshape(-1)], chunk_bytes)
+    out_chunks = _chunk_grid([out.reshape(-1)], chunk_bytes)
+    for ch_s, ch_o in zip(src_chunks, out_chunks):
+        codec.decode_into(iov_join(codec.encode_iovecs([ch_s])), [ch_o],
+                          _copy)
+
+
+def codec_wire_nbytes(codec, chunk_bytes: int, a: np.ndarray) -> int:
+    """Encoded size of ``a`` as one allreduce contribution: the codec's
+    per-chunk wire size summed over the grid (int8 carries a scale per
+    chunk). Size arithmetic only."""
+    a = np.asarray(a)
+    return sum(codec.wire_nbytes(ch)
+               for ch in _chunk_grid([a.reshape(-1)], chunk_bytes))
+
+
+def host_unsupported_reason(algorithm: str, compression: str,
+                            op: str = ReduceOp.SUM,
+                            topology: str = "flat") -> "Optional[str]":
+    """The reference's host-plane capability rule: every codec on
+    star/ring/auto for every reduce op; ``psum`` is the on-device path and
+    does not exist on sockets."""
+    if algorithm == "psum":
+        return (
+            "algorithm='psum' is the on-device hardware-native path "
+            "(comm_backend='cuda', comm/cuda_backend.py); the host socket "
+            "transport has no psum — use algorithm='star'/'ring'/'auto' "
+            "here, or select the cuda backend"
+        )
+    if algorithm not in ("auto", "star", "ring"):
+        return f"unknown algorithm {algorithm!r}"
+    if compression not in _CODECS:
+        return (
+            f"unknown compression {compression!r}; have {sorted(_CODECS)}"
+        )
+    if topology not in ("flat", "hier"):
+        return (
+            f"unknown topology {topology!r}; have 'flat' (one tier "
+            "spanning the wire) and 'hier' (domain tree: reduce-within "
+            "-> compress -> exchange-across -> broadcast-within)"
+        )
+    return None
 
 
 class _OpState:
@@ -449,9 +666,8 @@ class _Lane:
         parts, the first ``size % n`` one element longer."""
         views = []
         for f in flats:
-            base, extra = divmod(f.size, n)
-            start = c * base + min(c, extra)
-            views.append(f[start: start + base + (1 if c < extra else 0)])
+            start, end = _chunk_bounds(f.size, n, c)
+            views.append(f[start: end])
         return views
 
     def _ring_allreduce(self, p: _PendingOp) -> None:
@@ -504,19 +720,20 @@ class TcpCommContext(CommContext):
 
     def __init__(self, timeout: "float | timedelta" = 60.0,
                  algorithm: str = "auto", channels: int = 4,
-                 chunk_bytes: int = 1 << 20, stripe: bool = True) -> None:
+                 chunk_bytes: int = 1 << 20, stripe: bool = True,
+                 compression: str = "none") -> None:
         """``algorithm``: "star", "ring" or "auto" (ring at world size >= 3).
         ``channels``: socket lanes; ops are assigned round-robin and, with
         ``stripe``, one op's chunks spread over every lane. ``chunk_bytes``:
         the chunk grid (0 keeps each array whole). All four must match
-        across ranks, and across packages in a mixed cohort."""
+        across ranks, and across packages in a mixed cohort.
+        ``compression``: "none" only (see :meth:`unsupported_reason`)."""
         super().__init__()
         if isinstance(timeout, timedelta):
             timeout = timeout.total_seconds()
-        if algorithm not in ("auto", "star", "ring"):
-            raise ValueError(
-                f"unknown algorithm {algorithm!r}; have 'auto', 'star', 'ring'"
-            )
+        reason = self.unsupported_reason(algorithm, compression)
+        if reason is not None:
+            raise ValueError(reason)
         if channels < 1:
             raise ValueError("channels must be >= 1")
         if chunk_bytes < 0:
@@ -534,9 +751,33 @@ class TcpCommContext(CommContext):
         self._error: Optional[Exception] = None
         self.metrics = Metrics()
 
+    @classmethod
+    def unsupported_reason(cls, algorithm: str, compression: str,
+                           op: str = ReduceOp.SUM,
+                           topology: str = "flat") -> Optional[str]:
+        """The reference's host-plane rule (:func:`host_unsupported_reason`)
+        narrowed to what this wire carries: raw values on the flat tier."""
+        reason = host_unsupported_reason(algorithm, compression, op, topology)
+        if reason is not None:
+            return reason
+        if compression != "none":
+            return (
+                f"compression={compression!r}: this TCP wire carries raw "
+                "values (codecs on its frames are ROADMAP queue 1 item 2); "
+                "use comm_backend='cuda', whose on-device plane runs every "
+                "codec"
+            )
+        if topology != "flat":
+            return (
+                "topology='hier' is not ported (ROADMAP queue 1 item 2); "
+                "this wire is one flat tier"
+            )
+        return None
+
     def set_metrics(self, metrics: Metrics) -> None:
         """Record lane phase timings into ``metrics`` (the Manager's)."""
         self.metrics = metrics
+        metrics.label("comm_backend", self.backend_name)
 
     # ------------------------------------------------------------ lifecycle
 

@@ -19,6 +19,7 @@ __all__ = [
     "IOV_MAX",
     "HAS_SENDMSG",
     "as_bytes_view",
+    "iov_join",
     "iov_nbytes",
     "sendmsg_all",
     "recv_into_exact",
@@ -44,6 +45,11 @@ def iov_nbytes(bufs: Sequence) -> int:
     return sum(
         b.nbytes if isinstance(b, np.ndarray) else len(b) for b in bufs
     )
+
+
+def iov_join(bufs: Sequence) -> bytes:
+    """Materialize an iovec list (a lossy codec's self-decode)."""
+    return b"".join(bytes(as_bytes_view(b)) for b in bufs)
 
 
 def sendmsg_all(sock: socket.socket, bufs: Sequence) -> None:

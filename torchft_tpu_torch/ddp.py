@@ -17,18 +17,43 @@ they end the heal step bitwise identical to their donor.
 
 With no data-plane peer (a solo wire) the average is an identity and the
 copies are skipped; the quorum still runs.
+
+Error feedback (the reference's ``error_feedback="auto"``): when this
+rank's contribution crosses the wire through a lossy codec
+(``manager.wire_compensable()``, role-aware: a star peer, or every rank of
+the quantized psum) and this replica contributes real gradients, each f32
+bucket carries a residual e: the bucket ships g + e and keeps
+e = (g + e) - C(g + e), C being the wire's own image of one contribution
+(``manager.wire_roundtrip``). The residuals reset to zero whenever the
+transport reconfigures (``wire_generation`` changes). This is the
+reference's lock-step path; its streamed pipeline is not ported.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import Future
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["DistributedDataParallel"]
 
 _DEFAULT_BUCKET_BYTES = 32 * 1024 * 1024
+
+
+def _ef_dtype(dt: np.dtype) -> bool:
+    """Buckets the wire codecs compress (transport ``_is_compressible``):
+    integer buckets pass losslessly and carry no residual."""
+    return dt in (np.float32, np.float64)
+
+
+def _ef_gate(manager) -> bool:
+    """The error-feedback activation rule: this rank's contribution crosses
+    the wire through a lossy codec, AND this replica contributes real
+    gradients this step (a healing or spare replica ships zeros, whose
+    "error" would bank the whole gradient)."""
+    return bool(manager.wire_compensable() and manager.is_participating())
 
 
 class _BucketPlan:
@@ -86,6 +111,18 @@ class DistributedDataParallel:
         self._bucket_bytes = bucket_bytes
         self._plan: "_BucketPlan | None" = None
         self._staging: "List[torch.Tensor] | None" = None
+        # per-bucket residuals (None for buckets the codecs pass raw) and
+        # the wire generation they describe
+        self._residuals: "Optional[List[Optional[np.ndarray]]]" = None
+        self._ef_generation: Optional[int] = None
+
+    def bucket_sizes(self) -> List[int]:
+        """Element counts of the frozen plan's buckets (empty before the
+        first average): one allreduce each per step with a wire peer."""
+        if self._plan is None:
+            return []
+        return [sum(self._plan.sizes[i] for i in b)
+                for b in self._plan.buckets]
 
     def _grads(self, params: Sequence[torch.nn.Parameter]) -> List[torch.Tensor]:
         grads = []
@@ -137,9 +174,16 @@ class DistributedDataParallel:
                     )
             if sync:
                 torch.cuda.current_stream(grads[0].device).synchronize()
+        buckets = [s.numpy() for s in staging]
+        if _ef_gate(self._manager):
+            residuals = self._ef_arena(buckets)
+            with metrics.timed("ddp_ef"):
+                for packed, res in zip(buckets, residuals):
+                    if res is not None:
+                        np.add(packed, res, out=packed)
+                        self._ef_residual(packed, res)
         works: List[Future] = [
-            self._manager.allreduce_arrays([s.numpy()]).future()
-            for s in staging
+            self._manager.allreduce_arrays([b]).future() for b in buckets
         ]
         with metrics.timed("ddp_wire"):
             # the reduced bucket is the staging buffer itself, or (while
@@ -153,3 +197,26 @@ class DistributedDataParallel:
             if sync:
                 # the next step's D2H and host-side reduce reuse staging
                 torch.cuda.current_stream(grads[0].device).synchronize()
+
+    def _ef_arena(self, buckets: List[np.ndarray]
+                  ) -> "List[Optional[np.ndarray]]":
+        """The residuals, zeroed on first use and whenever the transport
+        reconfigured: a new membership's wire made none of the old
+        error."""
+        gen = self._manager.wire_generation()
+        if self._residuals is None or gen != self._ef_generation:
+            self._residuals = [np.zeros_like(b) if _ef_dtype(b.dtype)
+                               else None for b in buckets]
+            self._ef_generation = gen
+        return self._residuals
+
+    def _ef_residual(self, transmitted: np.ndarray, res: np.ndarray) -> None:
+        """e = g' - C(g'), with g' the contribution about to be donated to
+        the wire (reduced in place after submit, so computed before)."""
+        self._manager.wire_roundtrip(transmitted, res)  # res = C(g')
+        np.subtract(transmitted, res, out=res)
+        if not np.all(np.isfinite(res)):
+            # a non-finite gradient poisons its wire image and the step is
+            # discarded, but the residual persists: drop that error rather
+            # than re-inject the spike into every later step
+            np.nan_to_num(res, copy=False, nan=0.0, posinf=0.0, neginf=0.0)

@@ -16,7 +16,11 @@ CPU).
 ``train_group`` is the loop as a function; ``run_kill_and_heal`` drives two
 groups in threads through a failure, a restart from a poisoned init and a
 heal, on a fixed schedule of steps, and checks that the healed group is
-bitwise equal to its donor.
+bitwise equal to its donor. Both take ``comm_backend`` and ``comm_options``
+for the Manager: the default is the TCP gradient wire; ``comm_backend=
+"cuda"`` with e.g. ``comm_options={"algorithm": "psum", "compression":
+"int8"}`` reduces on the training device instead (comm/cuda_backend.py),
+where groups that share a process share the device's plans.
 """
 
 from __future__ import annotations
@@ -29,13 +33,13 @@ import threading
 import time
 import urllib.request
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from torchft_tpu_torch.comm.cuda_backend import default_device_pool
 from torchft_tpu_torch.comm.store import StoreServer
-from torchft_tpu_torch.comm.transport import TcpCommContext
 from torchft_tpu_torch.control import Lighthouse
 from torchft_tpu_torch.data import DistributedSampler
 from torchft_tpu_torch.ddp import DistributedDataParallel
@@ -63,9 +67,13 @@ class GroupRun:
     """What one replica group did: loss and wall time per committed step
     (keyed by the step count after the commit), the step count after each
     step in which it applied a healed state, its forward/backward passes
-    (committed or not), and its final metrics."""
+    (committed or not), its committed steps whose gradient wire had a peer
+    (``wire_steps``), the element counts of DDP's gradient buckets, and
+    its final metrics."""
 
     passes: int = 0
+    wire_steps: int = 0
+    buckets: List[int] = field(default_factory=list)
     losses: Dict[int, float] = field(default_factory=dict)
     step_seconds: Dict[int, float] = field(default_factory=dict)
     participants: Dict[int, int] = field(default_factory=dict)
@@ -95,6 +103,8 @@ def train_group(
     rank: int = 0,
     world_size: int = 1,
     store_addr: Optional[str] = None,
+    comm_backend: str = "host",
+    comm_options: Optional[Dict[str, Any]] = None,
 ) -> GroupRun:
     """Train one replica group until ``total_steps`` steps are committed
     (or ``stop`` is set).
@@ -104,9 +114,14 @@ def train_group(
     starts with ``fail_at_step`` or more steps committed. ``init_state``: a
     model state dict to start from instead of the ``init_seed`` draw.
     ``on_start(manager)`` runs once the manager exists; ``on_commit(step,
-    manager, model, loss)`` after every commit.
+    manager, model, loss)`` after every commit. ``comm_backend`` /
+    ``comm_options``: the Manager's data plane; the cuda plane reduces on
+    ``device`` unless ``comm_options`` names a ``device_pool``.
     """
     device = resolve_device(device)
+    comm_options = dict(comm_options or {})
+    if comm_backend == "cuda":
+        comm_options.setdefault("device_pool", default_device_pool(device))
     model = GPT(cfg, device=device, seed=init_seed)
     if init_state is not None:
         model.load_state_dict(init_state)
@@ -133,7 +148,8 @@ def train_group(
     # per-group rendezvous store: rank 0 binds it
     store = StoreServer() if rank == 0 and store_addr is None else None
     manager = Manager(
-        comm=TcpCommContext(timeout=timeout),
+        comm_backend=comm_backend,
+        comm_options=comm_options,
         load_state_dict=load_state_dict,
         state_dict=state_dict,
         min_replica_size=1,
@@ -194,10 +210,13 @@ def train_group(
             run.losses[step] = loss_value
             run.step_seconds[step] = time.perf_counter() - t0
             run.participants[step] = manager.num_participants()
+            if manager.transport_world_size() > 1:
+                run.wire_steps += 1
             if on_commit is not None:
                 on_commit(step, manager, model, loss_value)
     finally:
         run.metrics = manager.metrics.snapshot()
+        run.buckets = ddp.bucket_sizes()
         manager.shutdown(wait=False)
         if store is not None:
             store.shutdown()
@@ -237,6 +256,8 @@ def run_kill_and_heal(
     seed: int = 0,
     timeout: float = 60.0,
     log: Callable[[str], None] = logger.info,
+    comm_backend: str = "host",
+    comm_options: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, object]:
     """Two replica groups under an in-process lighthouse, on a fixed
     schedule (k = ``kill_step``, a = ``steps_after``):
@@ -251,6 +272,10 @@ def run_kill_and_heal(
     needs it (both heartbeating before the first quorum; the restarted
     group's quorum request pending before group 0 asks for step k + 2), so
     every run makes the same 2k + 2a + 3 forward/backward passes.
+
+    The gradient wire has a peer in k + 1 + a of those steps (all but the
+    survivor's solo step k + 1); ``comm_backend`` / ``comm_options`` select
+    it as for :func:`train_group`.
 
     Raises AssertionError unless the healed group's parameters equal the
     donor's bitwise at every step from the heal on, and every loss is
@@ -285,7 +310,8 @@ def run_kill_and_heal(
 
     common = dict(num_groups=2, lighthouse_addr=addr, device=device,
                   batch_size=batch_size, data_seed=seed, timeout=timeout,
-                  total_steps=total, stop=stop)
+                  total_steps=total, stop=stop, comm_backend=comm_backend,
+                  comm_options=comm_options)
 
     def group0():
         runs[0].append(train_group(

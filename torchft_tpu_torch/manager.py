@@ -65,6 +65,27 @@ def _seconds(t: "float | timedelta") -> float:
     return t.total_seconds() if isinstance(t, timedelta) else float(t)
 
 
+def _build_comm_context(
+    backend: str, options: "Optional[Dict[str, Any]]", timeout: float
+) -> CommContext:
+    """The Manager's ``comm_backend`` selector: the gradient data plane by
+    name, built with ``options`` as its constructor's keyword arguments."""
+    options = dict(options or {})
+    options.setdefault("timeout", timeout)
+    if backend == "host":
+        from torchft_tpu_torch.comm.transport import TcpCommContext
+
+        return TcpCommContext(**options)
+    if backend == "cuda":
+        from torchft_tpu_torch.comm.cuda_backend import CudaCommContext
+
+        return CudaCommContext(**options)
+    raise ValueError(
+        f"unknown comm_backend {backend!r}; have 'host' (socket "
+        "transport) and 'cuda' (the on-device plane)"
+    )
+
+
 class WorldSizeMode(Enum):
     """DYNAMIC: every healthy replica contributes; gradients are normalized
     by the actual participant count. FIXED_WITH_SPARES: exactly
@@ -77,9 +98,13 @@ class WorldSizeMode(Enum):
 class Manager:
     """Fault-tolerant training loop manager.
 
-    ``comm`` is the cross-replica CommContext (default: a TcpCommContext);
-    ``load_state_dict``/``state_dict`` restore/capture the user's training
-    state (model, optimizer, sampler...) for heals.
+    ``comm`` is the cross-replica CommContext; without one, ``comm_backend``
+    selects the data plane to build, "host" (TcpCommContext, the default)
+    or "cuda" (CudaCommContext, comm/cuda_backend.py), with
+    ``comm_options`` as its constructor's keyword arguments (algorithm,
+    compression, chunk_bytes, ...). ``load_state_dict``/``state_dict``
+    restore/capture the user's training state (model, optimizer,
+    sampler...) for heals.
     """
 
     def __init__(
@@ -102,6 +127,8 @@ class Manager:
         hostname: Optional[str] = None,
         heartbeat_interval: "float | timedelta" = 0.1,
         checkpoint_transport: Optional[CheckpointTransport] = None,
+        comm_backend: Optional[str] = None,
+        comm_options: Optional[Dict[str, Any]] = None,
     ) -> None:
         if min_replica_size is None:
             # a silently defaulted quorum floor of 1 would let every
@@ -118,9 +145,20 @@ class Manager:
             )
         self._timeout = _seconds(timeout)
         if comm is None:
-            from torchft_tpu_torch.comm.transport import TcpCommContext
-
-            comm = TcpCommContext(timeout=self._timeout)
+            comm = _build_comm_context(comm_backend or "host", comm_options,
+                                       self._timeout)
+        else:
+            if comm_options is not None:
+                raise ValueError(
+                    "comm_options applies only when the Manager builds the "
+                    "context; pass the options to your own comm ctor"
+                )
+            actual = getattr(comm, "backend_name", None)
+            if comm_backend is not None and actual != comm_backend:
+                raise ValueError(
+                    f"comm_backend={comm_backend!r} but the provided comm "
+                    f"context is backend {actual!r}"
+                )
         self._load_state_dict = load_state_dict
         self._user_state_dict = state_dict
         self._pending_state_dict: Optional[Dict[str, Any]] = None
@@ -209,6 +247,9 @@ class Manager:
             set_metrics = getattr(target, "set_metrics", None)
             if callable(set_metrics):
                 set_metrics(self.metrics)
+        set_events = getattr(comm, "set_events", None)
+        if callable(set_events):
+            set_events(self.events)
 
     # ------------------------------------------------------------- lifecycle
 
@@ -618,7 +659,47 @@ class Manager:
         return self._replica_world_size
 
     def comm_backend(self) -> str:
+        """Name of the gradient data plane ("host", "cuda", or "none" for
+        identity contexts), also the ``comm_backend`` metrics label."""
         return str(getattr(self._comm, "backend_name", "none"))
+
+    # the wire introspection error feedback keys off (comm/context.py)
+
+    def wire_codec_name(self) -> str:
+        return self._comm.wire_codec_name()
+
+    def wire_is_lossy(self) -> bool:
+        return self._comm.wire_is_lossy()
+
+    def wire_compensable(self) -> bool:
+        return self._comm.wire_compensable()
+
+    def wire_generation(self) -> int:
+        return self._comm.wire_generation()
+
+    def wire_roundtrip(self, src: np.ndarray, out: np.ndarray) -> None:
+        self._comm.wire_roundtrip(src, out)
+
+    def wire_nbytes(self, a: np.ndarray) -> int:
+        return self._comm.wire_nbytes(a)
+
+    def comm_unsupported_reason(
+        self, algorithm: str, compression: str, op: str = ReduceOp.SUM,
+        topology: str = "flat",
+    ) -> Optional[str]:
+        """Capability query against the active data plane (one definition
+        per backend, ``CommContext.unsupported_reason``): None when the
+        combo runs, else a prescriptive error string."""
+        return self._comm.unsupported_reason(algorithm, compression, op,
+                                             topology)
+
+    def comm_supports(
+        self, algorithm: str, compression: str, op: str = ReduceOp.SUM,
+        topology: str = "flat",
+    ) -> bool:
+        return self.comm_unsupported_reason(
+            algorithm, compression, op, topology
+        ) is None
 
     def transport_world_size(self) -> int:
         """Members of the gradient wire for the current quorum."""

@@ -113,6 +113,12 @@ def _configure(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, p, p, p, i, i, i, i, f, i, p,
     ]
     lib.tft_flash_bwd_dkv.restype = i
+    ll = ctypes.c_longlong
+    lib.tft_quant_int8.argtypes = [p, ll, p, ll, p, ll, ll, ll, p]
+    lib.tft_quant_int8.restype = i
+    lib.tft_dequant_acc_int8.argtypes = [p, ll, p, ll, p, i, ll, ll, ll, ll,
+                                         ll, i, p]
+    lib.tft_dequant_acc_int8.restype = i
 
 
 def build_library(csrc: str, build_dir: str) -> ctypes.CDLL:

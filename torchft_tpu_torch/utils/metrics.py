@@ -13,7 +13,7 @@ import threading
 import time
 from collections import defaultdict, deque
 from contextlib import contextmanager
-from typing import Deque, Dict
+from typing import Deque, Dict, Union
 
 __all__ = ["Metrics"]
 
@@ -28,6 +28,13 @@ class Metrics:
         self._timings: Dict[str, Deque[float]] = defaultdict(
             lambda: deque(maxlen=window)
         )
+        self._labels: Dict[str, str] = {}
+
+    def label(self, name: str, value: str) -> None:
+        """Attach a string dimension to every snapshot (e.g. the data
+        plane, ``comm_backend``), so a series names what produced it."""
+        with self._lock:
+            self._labels[name] = str(value)
 
     def incr(self, name: str, value: float = 1.0) -> None:
         with self._lock:
@@ -53,8 +60,8 @@ class Metrics:
         finally:
             self.observe(name, time.perf_counter() - start)
 
-    def snapshot(self) -> Dict[str, float]:
-        """Flat dict: counters/gauges as-is, timings as
+    def snapshot(self) -> Dict[str, Union[float, str]]:
+        """Flat dict: counters/gauges as-is, labels as strings, timings as
         name_{avg,p50,p95,max}_ms.
 
         High-cardinality producers (the transport's per-lane ``comm_l*``
@@ -69,6 +76,7 @@ class Metrics:
         with self._lock:
             out.update(self._counters)
             out.update(self._gauges)
+            out.update(self._labels)
             for name, window in self._timings.items():
                 if window:
                     vals = sorted(window)
