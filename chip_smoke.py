@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device: the card's name and power limit, then the build of the CUDA
-   kernels from torchft_tpu_torch/csrc.
+   kernels from torchft_tpu_torch/csrc, with ptxas's registers and spills
+   per kernel; a spill in the forward or dK/dV kernel fails the run.
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the card. The flash kernels at the 125m attention shape in bf16, causal
    and non-causal, through ``flash_attention`` forward + backward and
@@ -19,7 +20,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    gradient size (2 rows of every parameter, f32, on the 1 MiB chunk grid,
    with a short tail chunk, an all-zero chunk and chunks holding NaN and
    Inf) bitwise: tolerance 0, NaN bit patterns included. Kernel, plain and
-   library times, and the least time the card could take (bound).
+   library times (device time of a replayed CUDA graph), each wrapper's
+   host time per call, and the least time the card could take (bound); beside
+   the two backward flash kernels, PyTorch's fused attention backward (dq,
+   dk and dv in one call, ``library_pair_ms``); beside the codec kernels,
+   their time summed over one wire step of the int8 drill at each DDP
+   bucket's own size (``step_ms`` over ``step_launches`` launches).
 3. train: the main path at the full width of the "125m" config over the
    TCP gradient wire: two replica groups under an in-process lighthouse, a
    few committed steps, a failure injected into group 1, its restart from a
@@ -80,20 +86,60 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+# How every time of the kernels line was taken; each row carries it.
+TIMED_BY = ("ms, plain_ms, library_ms, library_pair_ms, step_ms: device time "
+            "by CUDA events around the replay of a CUDA graph of the calls "
+            "(host work per call left out); host_us: the host's clock per "
+            "call issued back to back")
+
+
+def cuda_ms(fn, iters: int = 100, warmup: int = 10, repeats: int = 3) -> float:
+    """Device ms per call of ``fn``: after ``warmup`` calls, ``iters`` calls
+    are captured once into a CUDA graph, and CUDA events around each of
+    ``repeats`` replays give a mean; the median of those. The replay leaves
+    out the host's work per call, so the shared host's speed does not enter
+    (``host_us`` measures that part). A capture failure raises."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    means = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    del graph
+    torch.cuda.empty_cache()
+    return sorted(means)[len(means) // 2]
+
+
+def host_us(fn, iters: int = 100, repeats: int = 3) -> float:
+    """Host microseconds per call of ``fn``: the host's clock around
+    ``iters`` calls issued back to back (their launches queue on the card
+    without a wait), the median of ``repeats`` such means."""
+    import torch
+
+    fn()
+    means = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        means.append((time.perf_counter() - t0) / iters * 1e6)
+    torch.cuda.synchronize()
+    return sorted(means)[len(means) // 2]
 
 
 def attention_bound_ms(b: int, s: int, h: int, d: int, causal: bool,
@@ -110,14 +156,65 @@ def attention_bound_ms(b: int, s: int, h: int, d: int, causal: bool,
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def phase_device():
-    import torch
+# ptxas names the kernels by their mangled symbols
+_KERNEL_SYMBOLS = {
+    "flash_fwd": "flash_fwd_kernel",
+    "flash_bwd_dq": "flash_bwd_dq_kernel",
+    "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+    "quant_int8": "quant_int8_kernel",
+    "dequant_acc_int8": "dequant_acc_int8_kernel",
+}
+_NO_SPILL = ("flash_fwd", "flash_bwd_dkv")  # the Hopper-redesigned kernels
 
-    smi = subprocess.run(
+
+def ptxas_report(build_log: str):
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from the
+    ptxas lines of the build, plus its warnings and performance notes (a
+    wgmma serialized by the compiler is one)."""
+    import re
+
+    report, warnings, current = {}, [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = next((n for n, sym in _KERNEL_SYMBOLS.items()
+                            if sym in m.group(1)), None)
+            continue
+        if "warning" in line.lower() or "Performance Loss" in line:
+            warnings.append(line.strip())
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report.setdefault(current, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report.setdefault(current, {})["registers"] = int(m.group(1))
+    return report, warnings
+
+
+def spill_failures(report):
+    """The kernels of _NO_SPILL that spill, or that ptxas did not report."""
+    return [n for n in _NO_SPILL
+            if report.get(n, {}).get("spill_stores", 1)
+            or report.get(n, {}).get("spill_loads", 1)]
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip()
+
+
+def phase_device():
+    import torch
+
+    smi = card()
     log(f"nvidia-smi: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -127,10 +224,16 @@ def phase_device():
     t0 = time.perf_counter()
     _build.load_kernels()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            log(f"  ptxas {line.strip()}")
-    return smi
+    report, warnings = ptxas_report(_build.build_log)
+    for name in _KERNEL_SYMBOLS:
+        log(f"  ptxas {name:16s} {report.get(name, 'not reported')}")
+    for w in warnings:
+        log(f"  ptxas {w}")
+    spilled = spill_failures(report)
+    if spilled:
+        raise AssertionError(f"ptxas: {spilled} spill or were not reported: "
+                             f"{report}")
+    return smi, report
 
 
 def _check(name: str, got, want, what: str, failed: list) -> float:
@@ -147,21 +250,30 @@ def _check(name: str, got, want, what: str, failed: list) -> float:
     return e["max_abs_err"]
 
 
-def phase_kernels(seed: int):
+FLASH_SHAPE = (8, 1024, 12, 64)  # "125m": batch 8, seq 1024, 12 heads of 64
+
+
+def flash_inputs(seed: int):
+    """q, k, v and dO: bf16 [B, S, H, D] on the card at FLASH_SHAPE."""
     import torch
-    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(FLASH_SHAPE, generator=gen, device="cuda",
+                             dtype=torch.float32).to(torch.bfloat16)
+                 for _ in range(4))
+
+
+def check_flash(q, k, v, do) -> dict:
+    """Hold the three flash kernels against their plain versions on q, k,
+    v, dO, causal and non-causal: through ``flash_attention`` forward +
+    backward, ``flash_attention_with_lse`` and ``flash_block_attention_bwd``
+    with external lse/Delta, under ``flash.KERNEL_TOL``. Returns each
+    kernel's max abs error; raises if any result disagrees."""
+    import torch
 
     from torchft_tpu_torch.ops import flash
 
-    b, s, h, d = 8, 1024, 12, 64   # "125m": batch 8, seq 1024, 12 heads
-    scale = 1.0 / d ** 0.5
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-
-    def randn():
-        return torch.randn((b, s, h, d), generator=gen, device="cuda",
-                           dtype=torch.float32).to(torch.bfloat16)
-
-    q, k, v, do = randn(), randn(), randn(), randn()
+    scale = 1.0 / q.shape[-1] ** 0.5
     errs = {n: 0.0 for n in flash.LAUNCHES}
     failed = []
 
@@ -208,60 +320,96 @@ def phase_kernels(seed: int):
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failed}")
+    return errs
+
+
+def flash_calls(q, k, v, do) -> dict:
+    """{kernel: its wrapper's call as the main path makes it}: causal, the
+    backward kernels with the forward kernel's lse and its out's Delta."""
+    from torchft_tpu_torch.ops import flash
+
+    scale = 1.0 / q.shape[-1] ** 0.5
+    out, lse = flash.flash_fwd(q, k, v, True, scale)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return {
+        "flash_fwd": lambda: flash.flash_fwd(q, k, v, True, scale),
+        "flash_bwd_dq": lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                   True, scale),
+        "flash_bwd_dkv": lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                     True, scale),
+    }
+
+
+def phase_kernels(seed: int):
+    import torch
+    import torch.nn.functional as F
+
+    from torchft_tpu_torch.ops import flash
+
+    q, k, v, do = flash_inputs(seed)
+    errs = check_flash(q, k, v, do)
 
     # times at the main path's call: causal, bf16, 125m shape
-    causal = True
-    _, lse = flash.flash_fwd(q, k, v, causal, scale)
-    out, _ = flash.flash_fwd(q, k, v, causal, scale)
+    b, s, h, d = FLASH_SHAPE
+    scale = 1.0 / d ** 0.5
+    calls = flash_calls(q, k, v, do)
+    out, lse = calls["flash_fwd"]()
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     timing = {
         "flash_fwd": (
-            lambda: flash.flash_fwd(q, k, v, causal, scale),
-            lambda: flash.flash_fwd_plain(q, k, v, causal, scale, 128, 128),
+            lambda: flash.flash_fwd_plain(q, k, v, True, scale, 128, 128),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-            attention_bound_ms(b, s, h, d, causal, 2, 4, 1),
+            attention_bound_ms(b, s, h, d, True, 2, 4, 1),
         ),
         "flash_bwd_dq": (
-            lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale),
-            lambda: flash.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+            lambda: flash.flash_bwd_dq_plain(q, k, v, do, lse, delta, True,
                                              scale, 128, 128),
             None,
-            attention_bound_ms(b, s, h, d, causal, 3, 5, 2),
+            attention_bound_ms(b, s, h, d, True, 3, 5, 2),
         ),
         "flash_bwd_dkv": (
-            lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, causal,
-                                        scale),
-            lambda: flash.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+            lambda: flash.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True,
                                               scale, 128, 128),
             None,
-            attention_bound_ms(b, s, h, d, causal, 4, 6, 2),
+            attention_bound_ms(b, s, h, d, True, 4, 6, 2),
         ),
     }
     rows = {}
-    for name, (kern, plain, lib, (bound, bound_by)) in timing.items():
-        ms = cuda_ms(kern)
-        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+    for name, (plain, lib, (bound, bound_by)) in timing.items():
+        ms = cuda_ms(calls[name])
+        us = host_us(calls[name])
+        plain_ms = cuda_ms(plain, iters=3, warmup=1, repeats=1)
         lib_ms = cuda_ms(lib) if lib is not None else None
         rows[name] = {
             "name": name, "route": "cuda", "source": _SOURCES[name],
             "replaces": _TPU_KERNELS[name], "launches": 0,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+            "host_us": us, "timed_by": TIMED_BY,
         }
-        log(f"  {name:14s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms  "
+        log(f"  {name:14s} kernel {ms:.4f} ms  host {us:.1f} us/call  "
+            f"plain {plain_ms:.4f} ms  library "
+            f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms  "
             f"bound {bound:.4f} ms ({bound_by})")
     # yardstick beside the two backward kernels: the fused backward of
-    # PyTorch's own flash attention (dq, dk and dv in one call)
+    # PyTorch's own flash attention (dq, dk and dv in one call), against
+    # which the pair's sum compares. Autograd replays into a CUDA graph only
+    # with its forward inside the capture, so the backward is timed as
+    # forward + backward less the forward.
     qr, kr, vr = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
-    ref = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
     dot = do.transpose(1, 2)
-    bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        ref, (qr, kr, vr), dot, retain_graph=True))
+    both_ms = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qr, kr, vr, is_causal=True),
+        (qr, kr, vr), dot))
+    bwd_ms = both_ms - rows["flash_fwd"]["library_ms"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        rows[name]["library_pair_ms"] = bwd_ms
     log(f"  yardstick: scaled_dot_product_attention backward (dq, dk, dv) "
-        f"{bwd_ms:.4f} ms")
+        f"{bwd_ms:.4f} ms (forward + backward in one graph, less the "
+        f"forward) against flash_bwd_dq + flash_bwd_dkv "
+        f"{rows['flash_bwd_dq']['ms'] + rows['flash_bwd_dkv']['ms']:.4f} ms")
     return rows
 
 
@@ -289,7 +437,10 @@ def phase_quant_kernels(seed: int):
     from torchft_tpu_torch.models import CONFIGS, GPT
     from torchft_tpu_torch.ops import quant
 
-    n_params = sum(p.numel() for p in GPT(CONFIGS["125m"]).parameters())
+    params = list(GPT(CONFIGS["125m"]).parameters())
+    n_params = sum(p.numel() for p in params)
+    sizes = bucket_sizes(params)
+    del params
     torch.cuda.empty_cache()
     rows, step = 2, CHUNK_BYTES // 4
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -365,7 +516,8 @@ def phase_quant_kernels(seed: int):
     out_rows = {}
     for name, (kern, plain, yard, yard_what, nbytes) in timing.items():
         ms = cuda_ms(kern)
-        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        us = host_us(kern, iters=20)
+        plain_ms = cuda_ms(plain, iters=3, warmup=1, repeats=1)
         yard_ms = cuda_ms(yard)
         bound = nbytes / PEAK_BYTES_PER_S * 1e3
         out_rows[name] = {
@@ -373,13 +525,79 @@ def phase_quant_kernels(seed: int):
             "replaces": _TPU_KERNELS[name], "launches": 0,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            "host_us": us, "timed_by": TIMED_BY,
         }
-        log(f"  {name:16s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        log(f"  {name:16s} kernel {ms:.4f} ms  host {us:.1f} us/call  "
+            f"plain {plain_ms:.4f} ms  "
             f"bound {bound:.4f} ms (bytes, {nbytes / 1e6:.1f} MB)  "
             f"yardstick {yard_what} {yard_ms:.4f} ms")
     del x, q, s, acc, q2, s2, out
     torch.cuda.empty_cache()
+    for name, (ms, launches) in codec_step_ms(sizes, seed).items():
+        out_rows[name]["step_ms"] = ms
+        out_rows[name]["step_launches"] = launches
     return out_rows
+
+
+def bucket_sizes(params):
+    """Element counts of the DDP buckets the drill's gradients fill."""
+    from torchft_tpu_torch.ddp import _DEFAULT_BUCKET_BYTES, _BucketPlan
+
+    plan = _BucketPlan(params, _DEFAULT_BUCKET_BYTES)
+    return [sum(plan.sizes[i] for i in b) for b in plan.buckets]
+
+
+def codec_step_ms(sizes, seed: int):
+    """{kernel: (ms, launches)}: each codec kernel's time summed over one
+    step of the int8 drill with a wire peer, two groups, at the shapes its
+    launches have there: per DDP bucket (``sizes``) one phase-1 launch over
+    both groups' rows and one phase-2 launch over the reduced shards (the
+    quantized psum of comm/cuda_backend.py), at each bucket's own size."""
+    import torch
+
+    from torchft_tpu_torch.ops import quant
+
+    n, step = 2, CHUNK_BYTES // 4
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    total = {"quant_int8": 0.0, "dequant_acc_int8": 0.0}
+    for size in sorted(set(sizes)):
+        count = sizes.count(size)
+        L = -(-size // n)
+        c1, c2 = quant.n_chunks(size, step), quant.n_chunks(L, step)
+        x = torch.randn((n, size), generator=gen, device="cuda") * 1e-3
+        q = torch.zeros((n, n * L), dtype=torch.int8, device="cuda")
+        s = torch.empty((n, c1), device="cuda")
+        acc = torch.empty(n * L, device="cuda")
+        q2 = torch.empty((n, L), dtype=torch.int8, device="cuda")
+        s2 = torch.empty((n, c2), device="cuda")
+        out = torch.empty(n * L, device="cuda")
+        quant.quant_int8(x, step, out=(q[:, :size], s))
+        quant.dequant_acc_int8(q, s, step, valid=size, divisor=n, out=acc)
+        quant.quant_int8(acc.view(n, L), step, out=(q2, s2))
+        times = {
+            "quant_int8": (
+                cuda_ms(lambda: quant.quant_int8(x, step,
+                                                 out=(q[:, :size], s)))
+                + cuda_ms(lambda: quant.quant_int8(acc.view(n, L), step,
+                                                   out=(q2, s2)))),
+            "dequant_acc_int8": (
+                cuda_ms(lambda: quant.dequant_acc_int8(
+                    q, s, step, valid=size, divisor=n, out=acc))
+                + cuda_ms(lambda: quant.dequant_acc_int8(
+                    q2.view(1, n * L), s2.view(1, n * c2), step, valid=size,
+                    seg=L, cps=c2, out=out))),
+        }
+        for name, ms in times.items():
+            total[name] += count * ms
+        log(f"  codec at a bucket of {size} f32 (x{count} per step): "
+            f"quant_int8 {times['quant_int8']:.4f} ms, dequant_acc_int8 "
+            f"{times['dequant_acc_int8']:.4f} ms (phase 1 + phase 2)")
+        del x, q, s, acc, q2, s2, out
+    torch.cuda.empty_cache()
+    log(f"  codec per wire step ({len(sizes)} buckets, 2 launches each): "
+        f"quant_int8 {total['quant_int8']:.4f} ms, dequant_acc_int8 "
+        f"{total['dequant_acc_int8']:.4f} ms")
+    return {name: (ms, 2 * len(sizes)) for name, ms in total.items()}
 
 
 def phase_train(steps: int, layers, seed: int, card: str,
@@ -519,7 +737,7 @@ def main() -> int:
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}", file=sys.stderr)
         return 2
-    smi = phase_device()
+    smi, ptxas = phase_device()
     from torchft_tpu_torch.ops import flash, quant
 
     rows = {}
@@ -527,6 +745,8 @@ def main() -> int:
         log("phase kernels")
         rows = phase_kernels(args.seed)
         rows.update(phase_quant_kernels(args.seed))
+        for name, row in rows.items():
+            row["ptxas"] = ptxas.get(name)
     if "train" in phases:
         log("phase train")
         flash.reset_launch_counts()

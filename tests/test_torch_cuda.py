@@ -4,8 +4,9 @@ The kernels have no CPU mode, so these tests hold them against their plain
 PyTorch versions on the card, small shapes in bf16, under
 ``flash.KERNEL_TOL``: each element within one bf16 ulp of the plain
 version's (plus 1e-4), the relative norm of the difference at most 1e-3,
-lse within 1e-5. A build of the kernels that rounds P and dS to plain bf16
-for its products must fail that check. The int8 codec kernels
+lse within 1e-5, at S = 64, 128, 192, 256 and 1024. A build of the kernels
+that rounds P and dS to plain bf16 for its products (``-DTFT_SPLIT_LO=0``)
+must fail that check. The int8 codec kernels
 (``ops/quant.py``) are held to their plain versions bitwise (tolerance 0,
 NaN bit patterns included), and a build of the dequantizer that leaves
 ``acc + q * scale`` to FMA contraction must fail that. This file imports no
@@ -36,22 +37,24 @@ def _cuda():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
 
 
-def _kernels_and_plain(causal, seed=0):
+def _kernels_and_plain(causal, seed=0, shape=(2, 256, 4, 64)):
     """[(what, kernel result, plain result)] for all three kernels."""
-    b, s, h, d = 2, 256, 4, 64
+    b, s, h, d = shape
+    blk = 128 if s % 128 == 0 else 64  # the plain versions' block sizes
     scale = d ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
     out, lse = flash.flash_fwd(q, k, v, causal, scale)
-    p_out, p_lse = flash.flash_fwd_plain(q, k, v, causal, scale, 128, 128)
+    p_out, p_lse = flash.flash_fwd_plain(q, k, v, causal, scale, blk, blk)
     delta = (do.float() * p_out.float()).sum(-1).transpose(1, 2).contiguous()
     dq, dk, dv = flash.flash_block_attention_bwd(q, k, v, do, p_lse, delta,
-                                                 causal)
+                                                 causal, block_q=blk,
+                                                 block_k=blk)
     pq = flash.flash_bwd_dq_plain(q, k, v, do, p_lse, delta, causal, scale,
-                                  128, 128)
+                                  blk, blk)
     pk, pv = flash.flash_bwd_dkv_plain(q, k, v, do, p_lse, delta, causal,
-                                       scale, 128, 128)
+                                       scale, blk, blk)
     torch.cuda.synchronize()
     return [("out", out, p_out), ("lse", lse, p_lse), ("dq", dq, pq),
             ("dk", dk, pk), ("dv", dv, pv)]
@@ -67,20 +70,31 @@ def test_kernels_match_plain_on_card(causal) -> None:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [64, 128, 192, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernels_match_plain_at_tile_edges(causal, s) -> None:
+    """The forward tiles queries by 192 rows (three warpgroups of 64), dK/dV
+    keys by 128 (two): S = 64 and 128 leave forward warpgroups idle (and,
+    at 64, a dK/dV one), S = 192 is one full forward block and one and a
+    half dK/dV blocks, and S = 1024 is the 125m length with a 64-row last
+    forward block; B * H = 3 is odd."""
+    _cuda()
+    for what, got, want in _kernels_and_plain(causal, seed=s,
+                                              shape=(1, s, 3, 64)):
+        err = flash.kernel_error(got, want)
+        assert err["ok"], (s, what, err)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 def test_tolerance_rejects_plain_bf16_products(causal, tmp_path,
                                                monkeypatch) -> None:
-    """Drop the lo term of the hi + lo split (P and dS then enter the
-    tensor cores as plain bf16): every bf16 result must fail the check."""
+    """Drop the lo term of the hi + lo split from every kernel
+    (``-DTFT_SPLIT_LO=0``: P and dS then enter the tensor cores as plain
+    bf16): every bf16 result must fail the check."""
     _cuda()
-    src = tmp_path / "csrc"
-    shutil.copytree(_build._CSRC, src)
-    common = src / "flash_common.cuh"
-    text = common.read_text()
-    lo_term = "      mma16816(out[n], lo, b0, b1);\n"
-    assert text.count(lo_term) == 1
-    common.write_text(text.replace(lo_term, ""))
-    mutant = _build.build_library(str(src), str(tmp_path / "build"))
+    mutant = _build.build_library(_build._CSRC, str(tmp_path / "build"),
+                                  extra_flags=["-DTFT_SPLIT_LO=0"])
     monkeypatch.setattr(_build, "_lib", mutant)
     for what, got, want in _kernels_and_plain(causal):
         err = flash.kernel_error(got, want)

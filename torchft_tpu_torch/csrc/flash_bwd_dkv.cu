@@ -3,93 +3,211 @@
 // Replaces the TPU kernels _flash_bwd_dkv_kernel (K4) and
 // _flash_bwd_dkv_streamed_kernel (K6) of torchft_tpu/ops/flash.py. lse and
 // Delta = rowsum(dO * O) come from outside, as flash_block_attention_bwd
-// needs for the ring backward.
-//
-// One block per (64-key tile, batch x head); each warp owns 16 key rows and
-// sweeps the query tiles from the causal lower bound, working on the
-// transposed scores so that its keys stay the rows of every product:
+// needs for the ring backward. Working on the transposed scores keeps a
+// block's keys the rows of every product:
 //   P^T  = exp(scale * K Q^T - lse)     (mask -1e30 where key > query)
 //   dS^T = P^T * (V dO^T - Delta)
 //   dV  += P^T dO,   dK += dS^T Q       (P, dS kept in f32: bf16 split)
-// and finally writes dK * scale and dV in bf16.
+// and finally dK * scale and dV are written in bf16.
 //
 // Bound on an H100 at the 125m shape (B*H = 96, S = 1024, D = 64, causal):
 // four S x S x D products, 25.8 GFLOP (26.1 us of bf16 tensor time),
 // against 76.3 MB of Q, K, V, dO, lse, Delta, dK and dV (22.8 us of HBM
-// time): operations bound.
-#include "flash_common.cuh"
+// time): operations bound. The hi + lo split doubles the two products with
+// P^T and dS^T, so the tensor cores see 38.7 GFLOP (39 us at peak).
+//
+// Design (hopper.cuh): one block of three warpgroups per 128 keys of one
+// (batch, head). Warpgroup 2 is the producer: one thread issues TMA loads
+// of the block's K and V tiles, then streams Q and dO tiles with their lse
+// and Delta slices (1-D bulk copies) through a ring of kDkvStages slots from
+// the causal lower bound, and hands its registers to the consumers.
+// Warpgroups 0 and 1 own 64 keys each: S^T = K Q^T and dP^T = V dO^T run
+// on wgmma with K, V and the slot's Q and dO all K-major in shared memory,
+// P^T and dS^T are formed in registers (exp2 of prescaled scores, the mask
+// only on the diagonal tile), and dV += P^T dO, dK += dS^T Q take their hi
+// and lo halves straight from those registers against the same slot's
+// tiles read MN-major. The next tile's S^T and dP^T are issued right behind
+// those products, so a warpgroup's 24 multiplies of a tile reach the tensor
+// cores back to back. A warpgroup skips a query tile that lies wholly
+// before its keys. For S = 64 * odd the last block holds 64 keys and its
+// second warpgroup stays idle. Registers per consumer thread: dK, dV, S^T
+// and dP^T take 32 f32 each, the split P^T and dS^T 64 more, which is why
+// a block has two consumer warpgroups and not the forward's three.
+#include "hopper.cuh"
 
 namespace tft {
 
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
+constexpr int kDkvStages = 3;
+constexpr int kDkvThreads = 384;
+constexpr int kStatBytes = kTile * 4;  // one tile's lse or Delta slice
+constexpr int kDkvSmem = (4 + 2 * kDkvStages) * kTileBytes +
+                         2 * kDkvStages * kStatBytes +
+                         8 * (1 + 2 * kDkvStages) + 1024;
+
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
-                         int H, float scale, int causal) {
-  __shared__ __align__(16) bf16 sK[kTile * kStride];
-  __shared__ __align__(16) bf16 sV[kTile * kStride];
-  __shared__ __align__(16) bf16 sQ[kTile * kStride];
-  __shared__ __align__(16) bf16 sO[kTile * kStride];  // dO tile
-  __shared__ float sL[kTile];
-  __shared__ float sD[kTile];
+                         int H, float scale, float scale_log2, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = smem_base_1k(smem_raw);
+  uint8_t* sV = sK + 2 * kTileBytes;
+  uint8_t* sQ = sV + 2 * kTileBytes;
+  uint8_t* sO = sQ + kDkvStages * kTileBytes;  // dO tiles
+  float* sL = reinterpret_cast<float*>(sO + kDkvStages * kTileBytes);
+  float* sD = sL + kDkvStages * kTile;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sD + kDkvStages * kTile);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kDkvStages;
 
-  const int kt = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int ld = H * kHeadDim;
-  const size_t base = (size_t)b * S * ld + (size_t)h * kHeadDim;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = kt * kTile + warp * 16 + g, k1 = k0 + 8;
-
-  load_tile(sK, k + base + (size_t)kt * kTile * ld, ld);
-  load_tile(sV, v + base + (size_t)kt * kTile * ld, ld);
-  __syncthreads();
-  uint32_t ka[kDSteps][4], va[kDSteps][4];
-  load_a_frags(ka, sK, warp * 16 + g, t);
-  load_a_frags(va, sV, warp * 16 + g, t);
-
-  float dka[kDTiles][4], dva[kDTiles][4];
-#pragma unroll
-  for (int n = 0; n < kDTiles; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
-  }
-
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int kb = blockIdx.y;  // causal: block 0 sweeps the most query tiles
+  const int key0 = kb * 2 * kTile;
+  const int n_wg = min(2, (S - key0) / kTile);
   const int nq = S / kTile;
-  const int lower = causal ? kt : 0;
-  for (int qt = lower; qt < nq; ++qt) {
-    __syncthreads();
-    load_tile(sQ, q + base + (size_t)qt * kTile * ld, ld);
-    load_tile(sO, dout + base + (size_t)qt * kTile * ld, ld);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      sL[i] = lse[(size_t)bh * S + qt * kTile + i];
-      sD[i] = delta[(size_t)bh * S + qt * kTile + i];
-    }
-    __syncthreads();
+  const int q_begin = causal ? 2 * kb : 0;
+  const int n_q = nq - q_begin;
+  const int wg = warpgroup();
 
-    float pt[kRowTiles][4], dpt[kRowTiles][4];
-    mma_abt(pt, ka, sQ, g, t);
-    mma_abt(dpt, va, sO, g, t);
-#pragma unroll
-    for (int j = 0; j < kRowTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = j * 8 + 2 * t + (e & 1);  // query column in the tile
-        float x = pt[j][e] * scale;
-        if (causal && (e < 2 ? k0 : k1) > qt * kTile + qc) x = kNegInf;
-        const float p = expf(x - sL[qc]);
-        pt[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - sD[qc]);  // dS^T
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * n_wg);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    regs_release<24>();
+    if (threadIdx.x == 256) {
+      const int col = h * kHeadDim, grow = b * S;
+      mbar_expect_tx(kv_full, 2 * n_wg * kTileBytes);
+      for (int w = 0; w < n_wg; ++w) {
+        tma_load_2d(sK + w * kTileBytes, &map_k, col, grow + key0 + w * kTile,
+                    kv_full);
+        tma_load_2d(sV + w * kTileBytes, &map_v, col, grow + key0 + w * kTile,
+                    kv_full);
+      }
+      for (int u = 0; u < n_q; ++u) {
+        const int s = u % kDkvStages, qt = q_begin + u;
+        if (u >= kDkvStages) mbar_wait(&empty[s], ((u / kDkvStages) + 1) & 1);
+        mbar_expect_tx(&full[s], 2 * kTileBytes + 2 * kStatBytes);
+        tma_load_2d(sQ + s * kTileBytes, &map_q, col, grow + qt * kTile,
+                    &full[s]);
+        tma_load_2d(sO + s * kTileBytes, &map_do, col, grow + qt * kTile,
+                    &full[s]);
+        const size_t at = (size_t)bh * S + (size_t)qt * kTile;
+        bulk_load(sL + s * kTile, lse + at, kStatBytes, &full[s]);
+        bulk_load(sD + s * kTile, delta + at, kStatBytes, &full[s]);
       }
     }
-    mma_xs(dva, pt, sO, g, t);
-    mma_xs(dka, dpt, sQ, g, t);
+    return;
   }
-  store_rows(dk + base, ld, k0, dka, scale, scale, g, t);
-  store_rows(dv + base, ld, k0, dva, 1.f, 1.f, g, t);
+  regs_claim<240>();
+  if (wg >= n_wg) return;
+
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kt = 2 * kb + wg;  // this warpgroup's key tile
+
+  const uint8_t* tk = sK + wg * kTileBytes;
+  const uint8_t* tv = sV + wg * kTileBytes;
+  float dka[32], dva[32], st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+  uint32_t phi[4][4], plo[4][4], dhi[4][4], dlo[4][4];
+
+  // A query tile wholly before this warpgroup's keys (its first one, for
+  // warpgroup 1 under the causal mask) is skipped. A parity wait may run
+  // at most one phase ahead, so a skipped slot is still waited for.
+  const int u0 = (causal && q_begin < kt) ? 1 : 0;
+  for (int u = 0; u < u0; ++u) {
+    mbar_wait(&full[u % kDkvStages], (u / kDkvStages) & 1);
+    if (lane == 0) mbar_arrive(&empty[u % kDkvStages]);
+  }
+  mbar_wait(kv_full, 0);
+
+  // S^T = K Q^T and dP^T = V dO^T of query tile u.
+  auto issue_scores = [&](int u) {
+    const int s = u % kDkvStages;
+    mbar_wait(&full[s], (u / kDkvStages) & 1);
+    wgmma_abt_ss(st, tk, sQ + s * kTileBytes);
+    wgmma_abt_ss(dpt, tv, sO + s * kTileBytes);
+    wgmma_commit();
+  };
+  // With tile u's scores in: P^T and dS^T, then dV += P^T dO and
+  // dK += dS^T Q issued.
+  auto grads = [&](int u) {
+    const int s = u % kDkvStages, qt = q_begin + u;
+    const float* L = sL + s * kTile;
+    const float* Dl = sD + s * kTile;
+    const bool on_diag = causal && qt == kt;
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int c = acc_col(i, t4);  // query within the tile (even)
+      const float2 lv = *reinterpret_cast<const float2*>(L + c);
+      const float2 dl = *reinterpret_cast<const float2*>(Dl + c);
+      float p0 = fast_exp2(st[i] * scale_log2 - lv.x * kLog2e);
+      float p1 = fast_exp2(st[i + 1] * scale_log2 - lv.y * kLog2e);
+      if (on_diag) {
+        const int r = acc_row(i, warp, g);  // key within the tile
+        if (r > c) p0 = 0.f;
+        if (r > c + 1) p1 = 0.f;
+      }
+      st[i] = p0;
+      st[i + 1] = p1;
+      dpt[i] = p0 * (dpt[i] - dl.x);
+      dpt[i + 1] = p1 * (dpt[i + 1] - dl.y);
+    }
+    acc_to_a(st, phi, plo);
+    acc_to_a(dpt, dhi, dlo);
+    fence_frags(phi);
+    fence_frags(plo);
+    fence_frags(dhi);
+    fence_frags(dlo);
+    fence_acc(st);  // the next issue_scores writes them
+    fence_acc(dpt);
+    fence_acc(dka);
+    fence_acc(dva);
+    wgmma_fence();
+    wgmma_split(dva, phi, plo, sO + s * kTileBytes);
+    wgmma_split(dka, dhi, dlo, sQ + s * kTileBytes);
+    wgmma_commit();
+  };
+  auto settle = [&]() {
+    wgmma_wait<0>();
+    fence_acc(st);
+    fence_acc(dpt);
+    fence_acc(dka);
+    fence_acc(dva);
+  };
+
+  // Every group of multiplies is waited for in the iteration that issues
+  // it; tile u's products and tile u + 1's scores go to the tensor cores
+  // back to back. The last tile is peeled off so that no wgmma sits in a
+  // branch.
+  wgmma_fence();
+  issue_scores(u0);
+  settle();
+  for (int u = u0; u + 1 < n_q; ++u) {
+    grads(u);
+    issue_scores(u + 1);
+    settle();
+    if (lane == 0) mbar_arrive(&empty[u % kDkvStages]);
+  }
+  grads(n_q - 1);
+  settle();
+
+  const int ld = H * kHeadDim;
+  const size_t at = (size_t)(b * S + key0 + wg * kTile) * ld + h * kHeadDim;
+  store_acc(dk + at, ld, dka, scale, scale, warp, g, t4);
+  store_acc(dv + at, ld, dva, 1.f, 1.f, warp, g, t4);
 }
 
 }  // namespace tft
@@ -100,12 +218,23 @@ extern "C" int tft_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int S, int H, int D, float scale, int causal,
                                  void* stream) {
   using namespace tft;
-  if (D != kHeadDim || S % kTile != 0 || B * H > 65535)
+  const int nblk = (S + 2 * kTile - 1) / (2 * kTile);
+  if (D != kHeadDim || B <= 0 || H <= 0 || S <= 0 || S % kTile != 0 ||
+      nblk > 65535)
     return (int)cudaErrorInvalidValue;
-  dim3 grid(S / kTile, B * H);
-  flash_bwd_dkv_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, S, H,
-      scale, causal);
+  const long long rows = (long long)B * S, cols = (long long)H * kHeadDim;
+  CUtensorMap mq, mk, mv, mdo;
+  int rc;
+  if ((rc = make_tile_map(&mq, q, rows, cols)) != 0) return rc;
+  if ((rc = make_tile_map(&mk, k, rows, cols)) != 0) return rc;
+  if ((rc = make_tile_map(&mv, v, rows, cols)) != 0) return rc;
+  if ((rc = make_tile_map(&mdo, dout, rows, cols)) != 0) return rc;
+  static std::atomic<uint64_t> smem_set{0};
+  if ((rc = smem_limit_once(flash_bwd_dkv_kernel, kDkvSmem, smem_set)) != 0)
+    return rc;
+  dim3 grid(B * H, nblk);
+  flash_bwd_dkv_kernel<<<grid, kDkvThreads, kDkvSmem, (cudaStream_t)stream>>>(
+      mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (bf16*)dk,
+      (bf16*)dv, S, H, scale, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }

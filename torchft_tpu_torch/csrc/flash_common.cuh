@@ -1,16 +1,23 @@
-// Shared building blocks of the flash-attention kernels for Hopper (sm_90a).
+// Shared building blocks of the flash-attention kernels (sm_90a).
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [B, S, H, D] bf16, contiguous; a
 // (batch, head) pair walks rows of stride H*D. lse and delta are [B, H, S]
-// f32. Tiles are 64 rows (queries or keys) by D = 64; one block of four
-// warps owns one 64-row tile and each warp owns 16 of its rows.
+// f32. Tiles are 64 rows (queries or keys) by D = 64.
 //
-// Products run on the tensor cores through mma.sync m16n8k16 (bf16 inputs,
-// f32 accumulators). The operands that the JAX reference keeps in f32 (the
-// probabilities P and the score gradient dS) enter the tensor cores as a
-// two-term bf16 split, x = hi + lo, so they keep 16 mantissa bits instead of
-// bf16's 8; q, k, v and dO are bf16 already and enter exactly.
+// The operands that the JAX reference keeps in f32 (the probabilities P and
+// the score gradient dS) enter the tensor cores as a two-term bf16 split,
+// x = hi + lo, so they keep 16 mantissa bits instead of bf16's 8; q, k, v
+// and dO are bf16 already and enter exactly. TFT_SPLIT_LO=0 drops the lo
+// term from every kernel: a build for the test that the tolerance needs it.
+//
+// The helpers below are flash_bwd_dq's: mma.sync m16n8k16 on one block of
+// four warps per 64-row tile, each warp owning 16 of its rows. The forward
+// and dK/dV kernels use hopper.cuh.
 #pragma once
+
+#ifndef TFT_SPLIT_LO
+#define TFT_SPLIT_LO 1
+#endif
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -130,7 +137,9 @@ __device__ __forceinline__ void mma_xs(float (&out)[kDTiles][4],
       const uint32_t b0 = ld_col2(s, kk * 16 + 2 * t, n * 8 + g);
       const uint32_t b1 = ld_col2(s, kk * 16 + 8 + 2 * t, n * 8 + g);
       mma16816(out[n], hi, b0, b1);
+#if TFT_SPLIT_LO
       mma16816(out[n], lo, b0, b1);
+#endif
     }
   }
 }

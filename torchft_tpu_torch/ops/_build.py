@@ -7,7 +7,13 @@ PyTorch's headers, so a build takes seconds. The library lands in
 ``build/torchft_tpu_torch/`` at the repo root (listed in ``.gitignore``),
 named by a digest of the sources and flags, so an edit rebuilds and an
 unchanged tree reuses the last build. An exclusive ``flock`` serialises
-builds across processes.
+builds across processes. The ptxas report of a build (registers, shared
+memory, spills per kernel) is kept beside its library.
+
+``build_library`` takes extra nvcc flags for builds other than the
+library's own, such as ``-DTFT_SPLIT_LO=0`` (the kernels without the lo
+half of their bf16 split, which the tolerance tests must reject); the flags
+enter the digest, and ``load_kernels`` never passes any.
 
 Nothing here runs at import time: the kernels are built on the first launch,
 and only where there is a CUDA toolkit.
@@ -22,7 +28,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -33,8 +39,9 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-# ptxas report (registers, shared memory, spills per kernel) of the build
-# this process compiled; empty when the library came from an earlier build.
+# ptxas report (registers, shared memory, spills per kernel) of the last
+# library this process loaded, read back from beside it when it was built
+# earlier.
 build_log = ""
 
 
@@ -44,8 +51,9 @@ def _sources(csrc: str) -> List[str]:
     )
 
 
-def _digest(csrc: str) -> str:
-    h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+def _digest(csrc: str, extra_flags: Sequence[str] = ()) -> str:
+    flags = [*ARCH_FLAGS, *NVCC_FLAGS, *extra_flags]
+    h = hashlib.sha256(" ".join(flags).encode())
     for f in sorted(os.listdir(csrc)):
         if not f.endswith((".cu", ".cuh")):
             continue
@@ -69,14 +77,15 @@ def nvcc_path() -> str:
     return path
 
 
-def _compile(csrc: str, lib_path: str) -> str:
+def _compile(csrc: str, lib_path: str, extra_flags: Sequence[str]) -> None:
     nvcc = nvcc_path()
     objs, procs = [], []
     for src in _sources(csrc):
         obj = lib_path + "." + os.path.basename(src) + ".o"
         objs.append(obj)
         procs.append((src, subprocess.Popen(
-            [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", src, "-o", obj],
+            [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *extra_flags, "-c", src,
+             "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
     log = []
@@ -97,10 +106,11 @@ def _compile(csrc: str, lib_path: str) -> str:
     )
     if link.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + link.stdout)
+    with open(lib_path + ".log", "w") as fh:
+        fh.write("\n".join(log))
     os.replace(tmp, lib_path)
     for obj in objs:
         os.remove(obj)
-    return "\n".join(log)
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -121,17 +131,23 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.tft_dequant_acc_int8.restype = i
 
 
-def build_library(csrc: str, build_dir: str) -> ctypes.CDLL:
-    """The library of the kernel sources in ``csrc``, compiled into
-    ``build_dir`` unless a build of the same sources is there already."""
+def build_library(csrc: str, build_dir: str,
+                  extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """The library of the kernel sources in ``csrc`` compiled with
+    ``extra_flags`` besides the usual ones, built into ``build_dir`` unless
+    a build of the same sources and flags is there already."""
     global build_log
     os.makedirs(build_dir, exist_ok=True)
-    lib_path = os.path.join(build_dir, f"libtft_kernels_{_digest(csrc)}.so")
+    lib_path = os.path.join(
+        build_dir, f"libtft_kernels_{_digest(csrc, extra_flags)}.so")
     if not os.path.exists(lib_path):
         with open(os.path.join(build_dir, ".lock"), "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
             if not os.path.exists(lib_path):
-                build_log = _compile(csrc, lib_path)
+                _compile(csrc, lib_path, extra_flags)
+    if os.path.exists(lib_path + ".log"):
+        with open(lib_path + ".log") as fh:
+            build_log = fh.read()
     lib = ctypes.CDLL(lib_path)
     _configure(lib)
     return lib

@@ -20,6 +20,11 @@ Three kernels (``csrc/``) do the work on the card, one per wrapper:
 - ``flash_bwd_dkv`` (csrc/flash_bwd_dkv.cu) replaces
   ``_flash_bwd_dkv_kernel`` and its streamed twin.
 
+The forward and dK/dV kernels are built for Hopper (csrc/hopper.cuh): TMA
+loads through a ring of shared-memory slots, ``wgmma`` products, blocks of
+192 query rows (forward) and 128 keys (dK/dV); dQ runs on ``mma.sync`` with
+64-row blocks.
+
 Each wrapper launches its kernel for a CUDA tensor (bf16, head_dim 64, S a
 multiple of 64; anything else raises), runs its plain PyTorch version for a
 CPU tensor, and counts its launches in ``LAUNCHES``. The plain versions
@@ -313,8 +318,8 @@ def _on_cpu(x: torch.Tensor) -> bool:
 def flash_fwd(q, k, v, causal: bool, scale: float, block_q: int = 128,
               block_k: int = 128):
     """Forward: ``(out [B, S, H, D], lse [B, H, S] f32)``. CUDA tensors go
-    through the kernel (which tiles by 64 whatever the block sizes),
-    CPU tensors through :func:`flash_fwd_plain`."""
+    through the kernel (which tiles by its own sizes whatever the block
+    sizes), CPU tensors through :func:`flash_fwd_plain`."""
     if _on_cpu(q):
         return flash_fwd_plain(q, k, v, causal, scale, block_q, block_k)
     return _flash_fwd_cuda(q, k, v, causal, scale)

@@ -64,9 +64,11 @@ def div_exact(t: torch.Tensor, d: "int | float") -> torch.Tensor:
     """``t / d`` correctly rounded on every device. PyTorch's CUDA kernel
     turns a division by a Python scalar into a multiplication by its
     reciprocal, which is one ulp off for some values; a divisor held in a
-    0-dim tensor on ``t``'s device takes the true division."""
+    0-dim tensor on ``t``'s device takes the true division. The divisor is
+    filled on the device (no copy from the host), so a CUDA graph can
+    capture the division."""
     dt = torch.float64 if t.dtype == torch.float64 else torch.float32
-    return t / torch.tensor(d, dtype=dt, device=t.device)
+    return t / torch.full((), d, dtype=dt, device=t.device)
 
 
 def n_chunks(n: int, step: int) -> int:
