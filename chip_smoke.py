@@ -9,7 +9,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device: the card's name and power limit, then the build of the CUDA
    kernels from torchft_tpu_torch/csrc, with ptxas's registers and spills
-   per kernel; a spill in the forward or dK/dV kernel fails the run.
+   per kernel; a spill in a flash kernel or in ``quant_int8``, or a ptxas
+   note that it serialized ``wgmma`` instructions (C7515), fails the run.
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the card. The flash kernels at the 125m attention shape in bf16, causal
    and non-causal, through ``flash_attention`` forward + backward and
@@ -19,13 +20,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    codec kernels (``quant_int8``, ``dequant_acc_int8``) at the 125m
    gradient size (2 rows of every parameter, f32, on the 1 MiB chunk grid,
    with a short tail chunk, an all-zero chunk and chunks holding NaN and
-   Inf) bitwise: tolerance 0, NaN bit patterns included. Kernel, plain and
+   Inf) bitwise: tolerance 0, NaN bit patterns included; ``quant_int8``
+   also at every bucket shape of both phases of the int8 drill, and, on
+   grids of 1 MiB, 4 MiB and 1000 f32, at rows of x and q that start
+   unaligned, at n = 1, step - 1, step and step + 1, and with a NaN in the
+   last CTA's slice of a chunk. Kernel, plain and
    library times (device time of a replayed CUDA graph), each wrapper's
    host time per call, and the least time the card could take (bound); beside
    the two backward flash kernels, PyTorch's fused attention backward (dq,
    dk and dv in one call, ``library_pair_ms``); beside the codec kernels,
    their time summed over one wire step of the int8 drill at each DDP
-   bucket's own size (``step_ms`` over ``step_launches`` launches).
+   bucket's own size (``step_ms`` over ``step_launches`` launches) beside
+   that step's bound (``step_bound_ms``).
 3. train: the main path at the full width of the "125m" config over the
    TCP gradient wire: two replica groups under an in-process lighthouse, a
    few committed steps, a failure injected into group 1, its restart from a
@@ -164,7 +170,8 @@ _KERNEL_SYMBOLS = {
     "quant_int8": "quant_int8_kernel",
     "dequant_acc_int8": "dequant_acc_int8_kernel",
 }
-_NO_SPILL = ("flash_fwd", "flash_bwd_dkv")  # the Hopper-redesigned kernels
+# the Hopper-redesigned kernels
+_NO_SPILL = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quant_int8")
 
 
 def ptxas_report(build_log: str):
@@ -202,6 +209,13 @@ def spill_failures(report):
             or report.get(n, {}).get("spill_loads", 1)]
 
 
+def serialized_notes(notes):
+    """The ptxas notes that it serialized wgmma instructions (C7515): a
+    wgmma in a branch it cannot prove warpgroup-uniform, math drifting past
+    ``wgmma.fence``, or a group in flight across a loop's back-edge."""
+    return [n for n in notes if "C7515" in n]
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi reads them."""
     return subprocess.run(
@@ -233,6 +247,9 @@ def phase_device():
     if spilled:
         raise AssertionError(f"ptxas: {spilled} spill or were not reported: "
                              f"{report}")
+    serialized = serialized_notes(warnings)
+    if serialized:
+        raise AssertionError(f"ptxas serialized wgmma: {serialized}")
     return smi, report
 
 
@@ -429,20 +446,88 @@ def _max_abs_err(got, want) -> float:
     return float((g - w).abs()[ok].max()) if bool(ok.any()) else 0.0
 
 
-def phase_quant_kernels(seed: int):
-    """The int8 codec kernels bitwise against their plain versions at the
-    125m gradient size, then timed."""
+CHUNK_STEP = CHUNK_BYTES // 4  # f32 elements of a chunk
+
+
+class Bitwise:
+    """Bitwise checks of codec results: logs each, keeps every kernel's
+    largest finite difference, and raises from ``raise_failed`` if any
+    check failed."""
+
+    def __init__(self):
+        self.errs = {"quant_int8": 0.0, "dequant_acc_int8": 0.0}
+        self.failed = []
+
+    def __call__(self, name, what, got, want) -> None:
+        import torch
+
+        same = torch.equal(_bits(got), _bits(want))
+        self.errs[name] = max(self.errs[name], _max_abs_err(got, want))
+        log(f"  {name:16s} {what:36s} bitwise {'ok' if same else 'FAIL'}")
+        if not same:
+            self.failed.append(f"{name} {what}")
+
+    def raise_failed(self) -> None:
+        if self.failed:
+            raise AssertionError(f"codec kernels disagree with their plain "
+                                 f"versions: {self.failed}")
+
+
+def quant_cases(step: int, seed: int, device: str, sizes=()):
+    """[(what, x, q, s)]: inputs of ``quant_int8`` at the shapes its kernel
+    must handle, with the output views to quantize them into. Rows of x
+    with a stride of 1 mod 4 elements (rows start off 16-byte alignment)
+    and q a column slice of a wider int8 buffer (rows start on odd bytes);
+    n = 1, step - 1, step and step + 1; a NaN in the last eighth of a chunk
+    (the last CTA's slice) beside a clean chunk; and, per DDP bucket size
+    in ``sizes``, the quantized psum's two calls over two groups: phase 1
+    on [2, size] into q[:, :size] of a [2, 2 L] buffer, phase 2 on the
+    reduced shards, a [2, L] view of a flat vector."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(rows, n):
+        return torch.randn((rows, n), generator=gen, device=device) * 1e-3
+
+    def outs(rows, n, q=None):
+        if q is None:
+            q = torch.zeros((rows, n), dtype=torch.int8, device=device)
+        return q, torch.empty((rows, -(-n // step)), device=device)
+
+    n = 4 * step + 37
+    x = randn(3, n + (1 - n) % 4 + 4)[:, :n]  # row stride = 1 mod 4
+    wide = torch.zeros((3, n + 3), dtype=torch.int8, device=device)
+    cases = [("unaligned rows of x and q", x,
+              *outs(3, n, wide[:, 1:1 + n]))]
+    for n in sorted({1, max(1, step - 1), step, step + 1}):
+        cases.append((f"n = {n}", randn(2, n), *outs(2, n)))
+    x = randn(2, 2 * step + 5)
+    x[1, 2 * step - 3] = float("nan")  # near chunk 1's end
+    cases.append(("NaN in a chunk's last slice", x, *outs(2, 2 * step + 5)))
+    for size in sorted(set(sizes)):
+        L = -(-size // 2)
+        q = torch.zeros((2, 2 * L), dtype=torch.int8, device=device)
+        cases.append((f"bucket {size} phase 1", randn(2, size),
+                      *outs(2, size, q[:, :size])))
+        cases.append((f"bucket {size} phase 2", randn(1, 2 * L).view(2, L),
+                      *outs(2, L)))
+    return cases
+
+
+def codec_inputs(seed: int):
+    """The 125m gradient of two groups, x f32 [2, n_params] on the card,
+    with an all-zero chunk, a NaN chunk and an Inf chunk on the 1 MiB
+    grid; and the drill's DDP bucket sizes."""
     import torch
 
     from torchft_tpu_torch.models import CONFIGS, GPT
     from torchft_tpu_torch.ops import quant
 
-    params = list(GPT(CONFIGS["125m"]).parameters())
+    params = list(GPT(CONFIGS["125m"], device="meta").parameters())
     n_params = sum(p.numel() for p in params)
     sizes = bucket_sizes(params)
-    del params
-    torch.cuda.empty_cache()
-    rows, step = 2, CHUNK_BYTES // 4
+    rows, step = 2, CHUNK_STEP
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((rows, n_params), generator=gen, device="cuda") * 1e-3
     x[0, step:2 * step] = 0.0             # an all-zero chunk: scale 1
@@ -450,30 +535,60 @@ def phase_quant_kernels(seed: int):
     x[1, 3 * step + 17] = float("inf")
     chunks = quant.n_chunks(n_params, step)
     log(f"  codec input: {rows} x {n_params} f32 (the 125m gradient), "
-        f"{chunks} chunks of {step} per row, tail {n_params - (chunks - 1) * step}")
-    L = -(-n_params // rows)
+        f"{chunks} chunks of {step} per row, tail "
+        f"{n_params - (chunks - 1) * step}")
+    return x, sizes
+
+
+def codec_calls(x) -> dict:
+    """{kernel: its wrapper's call at the 125m gradient x as the int8 plane
+    makes it}: the phase-1 quantize of both rows into the first columns of
+    a padded [2, 2 L] buffer, and the owner decode-accumulate of both
+    sources."""
+    import torch
+
+    from torchft_tpu_torch.ops import quant
+
+    rows, n = x.shape
+    step = CHUNK_STEP
+    L = -(-n // rows)
     q = torch.zeros((rows, rows * L), dtype=torch.int8, device="cuda")
-    s = torch.empty((rows, chunks), device="cuda")
-    failed, errs = [], {"quant_int8": 0.0, "dequant_acc_int8": 0.0}
+    s = torch.empty((rows, quant.n_chunks(n, step)), device="cuda")
+    acc = torch.empty(rows * L, device="cuda")
+    quant.quant_int8(x, step, out=(q[:, :n], s))
+    return {
+        "quant_int8": lambda: quant.quant_int8(x, step, out=(q[:, :n], s)),
+        "dequant_acc_int8": lambda: quant.dequant_acc_int8(
+            q, s, step, valid=n, out=acc),
+    }
 
-    def check(name, what, got, want):
-        same = torch.equal(_bits(got), _bits(want))
-        errs[name] = max(errs[name], _max_abs_err(got, want))
-        log(f"  {name:16s} {what:30s} bitwise {'ok' if same else 'FAIL'}")
-        if not same:
-            failed.append(f"{name} {what}")
 
-    quant.quant_int8(x, step, out=(q[:, :n_params], s))
+def check_codec(x, sizes, seed: int, check) -> None:
+    """Both codec kernels against their plain versions at the 125m
+    gradient x through the quantized psum's four calls, the special
+    chunks' scales, then quant_int8 at every shape of quant_cases on the
+    1 MiB grid, on a grid of 1000 (chunks starting off alignment) and on a
+    4 MiB grid (chunks longer than a cluster holds)."""
+    import torch
+
+    from torchft_tpu_torch.ops import quant
+
+    rows, n = x.shape
+    step = CHUNK_STEP
+    L = -(-n // rows)
+    q = torch.zeros((rows, rows * L), dtype=torch.int8, device="cuda")
+    s = torch.empty((rows, quant.n_chunks(n, step)), device="cuda")
+    quant.quant_int8(x, step, out=(q[:, :n], s))
     pq, ps = quant.quant_int8_plain(x, step)
     torch.cuda.synchronize()
-    check("quant_int8", "phase-1 q", q[:, :n_params], pq)
+    check("quant_int8", "phase-1 q", q[:, :n], pq)
     check("quant_int8", "phase-1 scales", s, ps)
     if not (s[0, 1] == 1.0 and torch.isnan(s[0, 2]) and torch.isnan(s[1, 3])
             and bool(torch.isfinite(s[1, :3]).all())):
-        failed.append("quant_int8 special chunks (zero, NaN, Inf)")
+        check.failed.append("quant_int8 special chunks (zero, NaN, Inf)")
     del pq, ps
-    acc = quant.dequant_acc_int8(q, s, step, valid=n_params)
-    p_acc = quant.dequant_acc_int8_plain(q, s, step, valid=n_params)
+    acc = quant.dequant_acc_int8(q, s, step, valid=n)
+    p_acc = quant.dequant_acc_int8_plain(q, s, step, valid=n)
     torch.cuda.synchronize()
     check("dequant_acc_int8", "owner sums (2 sources)", acc, p_acc)
     del p_acc
@@ -481,49 +596,71 @@ def phase_quant_kernels(seed: int):
     q2, s2 = quant.quant_int8(acc.view(rows, L), step)
     pq2, ps2 = quant.quant_int8_plain(acc.view(rows, L), step)
     out = quant.dequant_acc_int8(q2.view(1, -1), s2.view(1, -1), step,
-                                 valid=n_params, seg=L, cps=c2)
+                                 valid=n, seg=L, cps=c2)
     p_out = quant.dequant_acc_int8_plain(q2.view(1, -1), s2.view(1, -1),
-                                         step, valid=n_params, seg=L, cps=c2)
+                                         step, valid=n, seg=L, cps=c2)
     torch.cuda.synchronize()
     check("quant_int8", "phase-2 q (shard grid)", q2, pq2)
     check("quant_int8", "phase-2 scales", s2, ps2)
     check("dequant_acc_int8", "final decode (shard grid)", out, p_out)
-    del pq2, ps2, p_out
-    if failed:
-        raise AssertionError(f"codec kernels disagree with their plain "
-                             f"versions: {failed}")
+    del q, s, acc, q2, s2, out, pq2, ps2, p_out
+    for grid, sz in ((step, sizes), (1000, ()), (4 * step, ())):
+        for what, xc, qc, sc in quant_cases(grid, seed, "cuda", sz):
+            quant.quant_int8(xc, grid, out=(qc, sc))
+            pq, ps = quant.quant_int8_plain(xc, grid)
+            torch.cuda.synchronize()
+            check("quant_int8", f"step {grid}, {what}: q", qc, pq)
+            check("quant_int8", f"step {grid}, {what}: scales", sc, ps)
+    torch.cuda.empty_cache()
+
+
+def phase_quant_kernels(seed: int):
+    """The int8 codec kernels bitwise against their plain versions (see
+    check_codec), then timed at the 125m gradient and per wire step."""
+    import torch
+
+    from torchft_tpu_torch.ops import quant
+
+    x, sizes = codec_inputs(seed)
+    check = Bitwise()
+    check_codec(x, sizes, seed, check)
+    check.raise_failed()
 
     # times at the main path's shapes: the phase-1 quantize of both rows
     # and the owner decode-accumulate of both sources
+    rows, n_params = x.shape
+    step = CHUNK_STEP
+    chunks = quant.n_chunks(n_params, step)
+    L = -(-n_params // rows)
     n_el = rows * n_params
     q_bytes = n_el * 4 + n_el * 1 + rows * chunks * 4
     d_bytes = rows * rows * L * 1 + rows * chunks * 4 + rows * L * 4
-    full = (n_params // step) * step
-    timing = {
+    calls = codec_calls(x)
+    q = torch.zeros((rows, rows * L), dtype=torch.int8, device="cuda")
+    s = torch.empty((rows, chunks), device="cuda")
+    quant.quant_int8(x, step, out=(q[:, :n_params], s))
+    timing = {  # yardsticks: PyTorch calls that move the same bytes
         "quant_int8": (
-            lambda: quant.quant_int8(x, step, out=(q[:, :n_params], s)),
             lambda: quant.quant_int8_plain(x, step),
-            lambda: torch.amax(x[:, :full].reshape(-1, step).abs(), 1),
-            "torch.amax(x.view(B, step).abs(), 1)", q_bytes),
+            lambda: q[:, :n_params].copy_(x),
+            "q.copy_(x) (f32 -> int8)", q_bytes),
         "dequant_acc_int8": (
-            lambda: quant.dequant_acc_int8(q, s, step, valid=n_params,
-                                           out=acc),
             lambda: quant.dequant_acc_int8_plain(q, s, step,
                                                  valid=n_params),
             lambda: torch.sum(q, 0, dtype=torch.float32),
             "torch.sum(q, 0, dtype=float32)", d_bytes),
     }
     out_rows = {}
-    for name, (kern, plain, yard, yard_what, nbytes) in timing.items():
-        ms = cuda_ms(kern)
-        us = host_us(kern, iters=20)
+    for name, (plain, yard, yard_what, nbytes) in timing.items():
+        ms = cuda_ms(calls[name])
+        us = host_us(calls[name], iters=20)
         plain_ms = cuda_ms(plain, iters=3, warmup=1, repeats=1)
         yard_ms = cuda_ms(yard)
         bound = nbytes / PEAK_BYTES_PER_S * 1e3
         out_rows[name] = {
             "name": name, "route": "cuda", "source": _SOURCES[name],
             "replaces": _TPU_KERNELS[name], "launches": 0,
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": check.errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
             "host_us": us, "timed_by": TIMED_BY,
         }
@@ -531,11 +668,15 @@ def phase_quant_kernels(seed: int):
             f"plain {plain_ms:.4f} ms  "
             f"bound {bound:.4f} ms (bytes, {nbytes / 1e6:.1f} MB)  "
             f"yardstick {yard_what} {yard_ms:.4f} ms")
-    del x, q, s, acc, q2, s2, out
+    del x, q, s, calls
     torch.cuda.empty_cache()
-    for name, (ms, launches) in codec_step_ms(sizes, seed).items():
-        out_rows[name]["step_ms"] = ms
-        out_rows[name]["step_launches"] = launches
+    bounds = codec_step_bound_ms(sizes)
+    for name, (ms, launches) in codec_step_ms(sizes, seed, check).items():
+        out_rows[name].update(step_ms=ms, step_launches=launches,
+                              step_bound_ms=bounds[name])
+        log(f"  {name:16s} per wire step {ms:.4f} ms, bound "
+            f"{bounds[name]:.4f} ms (bytes)")
+    check.raise_failed()
     return out_rows
 
 
@@ -547,17 +688,39 @@ def bucket_sizes(params):
     return [sum(plan.sizes[i] for i in b) for b in plan.buckets]
 
 
-def codec_step_ms(sizes, seed: int):
+def codec_step_bound_ms(sizes, n: int = 2):
+    """{kernel: ms}: the least time the card could take for each codec
+    kernel's launches in one wire step of the int8 drill (n groups): the
+    bytes they must move over the card's memory rate, summed at each DDP
+    bucket's own shapes. quant_int8 reads 4 B and writes 1 B an element in
+    both phases (the n x size gradients, then the n x L reduced shards),
+    plus 4 B a chunk; dequant_acc_int8 reads n B and writes 4 B an element
+    of the n L padded sums in phase 1, reads 1 B and writes 4 B in phase
+    2, plus the scales it reads."""
+    step = CHUNK_STEP
+    nbytes = {"quant_int8": 0, "dequant_acc_int8": 0}
+    for size in sizes:
+        L = -(-size // n)
+        c1, c2 = -(-size // step), -(-L // step)
+        nbytes["quant_int8"] += n * size * 5 + n * L * 5 + n * (c1 + c2) * 4
+        nbytes["dequant_acc_int8"] += (n * L * (n + 4) + n * L * 5
+                                       + n * (c1 + c2) * 4)
+    return {k: b / PEAK_BYTES_PER_S * 1e3 for k, b in nbytes.items()}
+
+
+def codec_step_ms(sizes, seed: int, check):
     """{kernel: (ms, launches)}: each codec kernel's time summed over one
     step of the int8 drill with a wire peer, two groups, at the shapes its
     launches have there: per DDP bucket (``sizes``) one phase-1 launch over
     both groups' rows and one phase-2 launch over the reduced shards (the
-    quantized psum of comm/cuda_backend.py), at each bucket's own size."""
+    quantized psum of comm/cuda_backend.py), at each bucket's own size.
+    Each bucket's four calls are first held bitwise against the plain
+    versions through ``check`` (a Bitwise)."""
     import torch
 
     from torchft_tpu_torch.ops import quant
 
-    n, step = 2, CHUNK_BYTES // 4
+    n, step = 2, CHUNK_STEP
     gen = torch.Generator(device="cuda").manual_seed(seed)
     total = {"quant_int8": 0.0, "dequant_acc_int8": 0.0}
     for size in sorted(set(sizes)):
@@ -571,28 +734,44 @@ def codec_step_ms(sizes, seed: int):
         q2 = torch.empty((n, L), dtype=torch.int8, device="cuda")
         s2 = torch.empty((n, c2), device="cuda")
         out = torch.empty(n * L, device="cuda")
-        quant.quant_int8(x, step, out=(q[:, :size], s))
-        quant.dequant_acc_int8(q, s, step, valid=size, divisor=n, out=acc)
-        quant.quant_int8(acc.view(n, L), step, out=(q2, s2))
-        times = {
+        calls = {  # phase 1, phase 2
             "quant_int8": (
-                cuda_ms(lambda: quant.quant_int8(x, step,
-                                                 out=(q[:, :size], s)))
-                + cuda_ms(lambda: quant.quant_int8(acc.view(n, L), step,
-                                                   out=(q2, s2)))),
+                lambda: quant.quant_int8(x, step, out=(q[:, :size], s)),
+                lambda: quant.quant_int8(acc.view(n, L), step, out=(q2, s2))),
             "dequant_acc_int8": (
-                cuda_ms(lambda: quant.dequant_acc_int8(
-                    q, s, step, valid=size, divisor=n, out=acc))
-                + cuda_ms(lambda: quant.dequant_acc_int8(
+                lambda: quant.dequant_acc_int8(q, s, step, valid=size,
+                                               divisor=n, out=acc),
+                lambda: quant.dequant_acc_int8(
                     q2.view(1, n * L), s2.view(1, n * c2), step, valid=size,
-                    seg=L, cps=c2, out=out))),
+                    seg=L, cps=c2, out=out)),
         }
+        tag = f"bucket {size}"
+        calls["quant_int8"][0]()
+        pq, ps = quant.quant_int8_plain(x, step)
+        check("quant_int8", f"{tag} phase-1 q", q[:, :size], pq)
+        check("quant_int8", f"{tag} phase-1 scales", s, ps)
+        calls["dequant_acc_int8"][0]()
+        check("dequant_acc_int8", f"{tag} phase-1 sums", acc,
+              quant.dequant_acc_int8_plain(q, s, step, valid=size,
+                                           divisor=n))
+        calls["quant_int8"][1]()
+        pq, ps = quant.quant_int8_plain(acc.view(n, L), step)
+        check("quant_int8", f"{tag} phase-2 q", q2, pq)
+        check("quant_int8", f"{tag} phase-2 scales", s2, ps)
+        calls["dequant_acc_int8"][1]()
+        check("dequant_acc_int8", f"{tag} phase-2 decode", out,
+              quant.dequant_acc_int8_plain(
+                  q2.view(1, n * L), s2.view(1, n * c2), step, valid=size,
+                  seg=L, cps=c2))
+        del pq, ps
+        times = {name: cuda_ms(fns[0]) + cuda_ms(fns[1])
+                 for name, fns in calls.items()}
         for name, ms in times.items():
             total[name] += count * ms
         log(f"  codec at a bucket of {size} f32 (x{count} per step): "
             f"quant_int8 {times['quant_int8']:.4f} ms, dequant_acc_int8 "
             f"{times['dequant_acc_int8']:.4f} ms (phase 1 + phase 2)")
-        del x, q, s, acc, q2, s2, out
+        del x, q, s, acc, q2, s2, out, calls
     torch.cuda.empty_cache()
     log(f"  codec per wire step ({len(sizes)} buckets, 2 launches each): "
         f"quant_int8 {total['quant_int8']:.4f} ms, dequant_acc_int8 "

@@ -2,8 +2,9 @@
 
 The script itself needs a GPU: here it must refuse to run (exit 2, no
 result line), and its helpers must read a ptxas report (registers and
-spills per kernel, the spill gate on the Hopper-redesigned kernels), size
-the int8 drill's DDP buckets, and price the flash kernels' bounds.
+spills per kernel, the spill gate on the Hopper-redesigned kernels, the
+gate on wgmma serialization notes), size the int8 drill's DDP buckets,
+and price the flash kernels' bounds and the codec kernels' per wire step.
 """
 
 import importlib.util
@@ -36,6 +37,9 @@ def _entry(symbol, regs, spill=0):
 
 
 _LOG = "\n".join([
+    "== flash_bwd_dq.cu",
+    _entry("_ZN3tft19flash_bwd_dq_kernelE14CUtensorMap_stS0_S0_S0_PKfS2_"
+           "P13__nv_bfloat16iiffi", 154),
     "== flash_bwd_dkv.cu",
     _entry("_ZN3tft20flash_bwd_dkv_kernelE14CUtensorMap_stS0_S0_S0_PKfS2_"
            "P13__nv_bfloat16S4_iiffi", 168),
@@ -46,19 +50,21 @@ _LOG = "\n".join([
            "Pfiifi", 128),
     "== quant_int8.cu",
     _entry("_ZN3tft23dequant_acc_int8_kernelEPKaxPKfxPfixxxxxi", 32, spill=8),
-    _entry("_ZN3tft17quant_int8_kernelEPKfxPaxPfxxx", 30),
+    _entry("_ZN3tft17quant_int8_kernelEPKfxPaxPfxxxx", 56),
 ])
 
 
 def test_ptxas_report_reads_every_kernel() -> None:
     report, notes = _smoke().ptxas_report(_LOG)
     assert report == {
+        "flash_bwd_dq": {"registers": 154, "spill_stores": 0,
+                         "spill_loads": 0},
         "flash_bwd_dkv": {"registers": 168, "spill_stores": 0,
                           "spill_loads": 0},
         "flash_fwd": {"registers": 128, "spill_stores": 0, "spill_loads": 0},
         "dequant_acc_int8": {"registers": 32, "spill_stores": 8,
                              "spill_loads": 8},
-        "quant_int8": {"registers": 30, "spill_stores": 0, "spill_loads": 0},
+        "quant_int8": {"registers": 56, "spill_stores": 0, "spill_loads": 0},
     }
     assert len(notes) == 1 and "serialized" in notes[0]
 
@@ -67,7 +73,9 @@ def test_ptxas_report_reads_every_kernel() -> None:
     ("clean", []),
     ("fwd_spills", ["flash_fwd"]),
     ("dkv_missing", ["flash_bwd_dkv"]),
-    ("codec_spills", []),  # only the redesigned flash kernels are gated
+    ("dq_spills", ["flash_bwd_dq"]),
+    ("quant_spills", ["quant_int8"]),
+    ("codec_spills", []),  # the dequantizer is not redesigned yet
 ])
 def test_spill_gate(case, want) -> None:
     smoke = _smoke()
@@ -78,7 +86,23 @@ def test_spill_gate(case, want) -> None:
         report["flash_fwd"]["spill_loads"] = 4
     elif case == "dkv_missing":
         del report["flash_bwd_dkv"]
+    elif case == "dq_spills":
+        report["flash_bwd_dq"]["spill_stores"] = 16
+    elif case == "quant_spills":
+        report["quant_int8"].update(spill_stores=4, spill_loads=4)
     assert smoke.spill_failures(report) == want
+
+
+def test_serialization_gate() -> None:
+    smoke = _smoke()
+    _, notes = smoke.ptxas_report(_LOG)
+    assert smoke.serialized_notes(notes) == notes  # the C7515 note
+    clean = _LOG.replace("(C7515) Potential Performance Loss: wgmma.mma_async "
+                         "instructions are serialized", "")
+    _, notes = smoke.ptxas_report(clean)
+    assert notes == [] and smoke.serialized_notes(notes) == []
+    assert smoke.serialized_notes(["ptxas warning : Registers are spilled"]) \
+        == []
 
 
 def test_bucket_sizes_of_the_125m_drill() -> None:
@@ -96,6 +120,31 @@ def test_attention_bounds_at_125m() -> None:
     assert by == "bytes" and fwd == pytest.approx(0.015142, rel=1e-4)
     dkv, by = bound(8, 1024, 12, 64, True, 4, 6, 2)
     assert by == "operations" and dkv == pytest.approx(0.026082, rel=1e-4)
+    # dq: three products over the 524,800 causal pairs of 96 heads
+    dq, by = bound(8, 1024, 12, 64, True, 3, 5, 2)
+    assert by == "operations" and dq == pytest.approx(0.019561, rel=1e-4)
+
+
+def test_codec_step_bounds_at_the_drill_buckets() -> None:
+    """The codec kernels' bytes in one wire step of the int8 drill over its
+    15 buckets (two groups): quant_int8 moves 5 B an element of the 2 x
+    136,091,136 gradients and of the 2 x 68,045,568 reduced shards;
+    dequant_acc_int8 6 B an element of the padded sums in phase 1, 5 B in
+    phase 2; the scales add 4 B a chunk (a few KB)."""
+    smoke = _smoke()
+    params = list(GPT(CONFIGS["125m"], device="meta").parameters())
+    sizes = smoke.bucket_sizes(params)
+    bounds = smoke.codec_step_bound_ms(sizes)
+    n = 136091136
+    assert bounds["quant_int8"] == pytest.approx(
+        (2 * n * 5 + n * 5) / 3.35e12 * 1e3, rel=1e-4)  # 0.6094 ms
+    assert bounds["dequant_acc_int8"] == pytest.approx(
+        (n * 6 + n * 5) / 3.35e12 * 1e3, rel=1e-4)      # 0.4469 ms
+    # per bucket it is the sum of its own shapes: two 787,968 buckets cost
+    # twice one
+    one = smoke.codec_step_bound_ms([787968])
+    two = smoke.codec_step_bound_ms([787968, 787968])
+    assert two["quant_int8"] == pytest.approx(2 * one["quant_int8"])
 
 
 def test_refuses_without_a_card() -> None:

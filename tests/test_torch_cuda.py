@@ -8,14 +8,19 @@ lse within 1e-5, at S = 64, 128, 192, 256 and 1024. A build of the kernels
 that rounds P and dS to plain bf16 for its products (``-DTFT_SPLIT_LO=0``)
 must fail that check. The int8 codec kernels
 (``ops/quant.py``) are held to their plain versions bitwise (tolerance 0,
-NaN bit patterns included), and a build of the dequantizer that leaves
-``acc + q * scale`` to FMA contraction must fail that. This file imports no
+NaN bit patterns included), ``quant_int8`` also at the shapes of
+chip_smoke.py's ``quant_cases`` (unaligned rows, n around the step, a NaN
+in a chunk's last slice, the drill's bucket shapes of both phases), and a
+build of the dequantizer that leaves ``acc + q * scale`` to FMA
+contraction must fail that. This file imports no
 JAX, so it runs where only torch is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
 
 import dataclasses
+import importlib.util
+import os
 import shutil
 
 import pytest
@@ -261,3 +266,35 @@ def test_device_plane_on_card_equals_cpu_plane(world) -> None:
                         assert c.tobytes() == h.tobytes(), tag
     # psum int8: 2 launches of each kernel per array per allreduce (2 ops)
     assert quant.LAUNCHES["quant_int8"] >= 2 * 2 * 2
+
+
+# the 125m drill's DDP bucket sizes (tests/test_torch_chip_smoke.py)
+BUCKETS = (787968, 4718592, 7080960, 8262144, 25165824)
+
+
+def _odd_quant_cases(step, sizes):
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.quant_cases(step, step, "cuda", sizes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [1000, 1 << 18, 1 << 20])
+def test_quant_kernel_matches_plain_at_odd_shapes(step) -> None:
+    """The cluster kernel against its plain version, bitwise, at rows of x
+    and q that start unaligned, n = 1, step - 1, step and step + 1, a NaN
+    in the last CTA's slice of a chunk and, on the plane's 1 MiB grid, the
+    drill's five bucket sizes at both phases' shapes; a grid of 1000 puts
+    chunk starts off 16-byte alignment, one of 4 MiB gives each CTA more
+    than it holds."""
+    _cuda()
+    sizes = BUCKETS if step == 1 << 18 else ()
+    for what, x, q, s in _odd_quant_cases(step, sizes):
+        quant.quant_int8(x, step, out=(q, s))
+        pq, ps = quant.quant_int8_plain(x, step)
+        torch.cuda.synchronize()
+        assert torch.equal(q, pq), what
+        assert torch.equal(_bits(s), _bits(ps)), what

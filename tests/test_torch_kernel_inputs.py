@@ -124,11 +124,16 @@ def test_split_lo_is_on_unless_a_build_asks() -> None:
     assert "#ifndef TFT_SPLIT_LO\n#define TFT_SPLIT_LO 1\n#endif" in common
     assert not any("TFT_SPLIT_LO" in f
                    for f in _build.ARCH_FLAGS + _build.NVCC_FLAGS)
-    # every lo-term product sits behind the switch
+    # every lo-term product sits behind the switch, in the one helper that
+    # all three flash kernels multiply a split operand with (wgmma_split)
     with open(os.path.join(_build._CSRC, "hopper.cuh")) as fh:
         hopper = fh.read()
     assert hopper.count("#if TFT_SPLIT_LO") == 1
-    assert common.count("#if TFT_SPLIT_LO") == 1
+    assert common.count("#if TFT_SPLIT_LO") == 0
+    for name in ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu"):
+        with open(os.path.join(_build._CSRC, name)) as fh:
+            src = fh.read()
+        assert "wgmma_split(" in src and "TFT_SPLIT_LO" not in src, name
 
 
 def test_default_build_passes_no_extra_flags(monkeypatch) -> None:

@@ -13,8 +13,16 @@ reference:
   within +-1;
 - ``dequant_acc_int8`` against the numpy composition of
   ``_Int8Codec.decode_into`` in rank order, bitwise, on one grid over the
-  payload, on per-shard grids, with padding and with the AVG division.
+  payload, on per-shard grids, with padding and with the AVG division;
+- ``quant_int8`` against the host codec, bitwise, at the shapes the kernel
+  must handle (chip_smoke.py's ``quant_cases``): rows of x and of q that
+  start unaligned, n = 1, step - 1, step and step + 1, a NaN in the last
+  slice of a chunk, and the int8 drill's five DDP bucket sizes at both
+  phases' shapes, on a small grid.
 """
+
+import importlib.util
+import os
 
 import jax
 import numpy as np
@@ -28,6 +36,17 @@ from torchft_tpu_torch.ops import quant
 
 STEP = 1024
 SIZE = 5000  # 4 full chunks and a 904-element tail
+# the 125m drill's DDP bucket sizes (tests/test_torch_chip_smoke.py)
+BUCKETS = (787968, 4718592, 7080960, 8262144, 25165824)
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(_ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _special_rows(seed: int) -> np.ndarray:
@@ -169,3 +188,87 @@ def test_wrappers_refuse_bad_arguments() -> None:
     q = torch.zeros((1, 8), dtype=torch.int8)
     with pytest.raises(ValueError, match="valid"):
         quant.dequant_acc_int8(q, torch.ones((1, 1)), 8, valid=9)
+
+
+def _assert_host_codec_bitwise(x: torch.Tensor, q: torch.Tensor,
+                               s: torch.Tensor, step: int) -> None:
+    """q and s equal the host codec's, chunk by chunk, bit for bit."""
+    xn, qn, sn = x.numpy(), q.numpy(), s.numpy()
+    rows, n = xn.shape
+    assert sn.shape == (rows, quant.n_chunks(n, step))
+    for r in range(rows):
+        for c in range(sn.shape[1]):
+            sc_h, q_h = _Int8Codec._quantize(xn[r, c * step:(c + 1) * step])
+            assert np.float32(sc_h).tobytes() == sn[r, c].tobytes(), (r, c)
+            assert q_h.tobytes() == qn[r, c * step:c * step + q_h.size] \
+                .tobytes(), (r, c)
+
+
+_ODD_CASES = ("unaligned rows of x and q", "n = 1", "n = 999", "n = 1000",
+              "n = 1001", "NaN in a chunk's last slice")
+
+
+@pytest.mark.parametrize("what", _ODD_CASES)
+def test_quant_plain_matches_host_codec_at_odd_shapes(what) -> None:
+    """On a grid of 1000 (chunks start off 16-byte alignment): strided rows
+    of x (stride 1 mod 4) into a column slice of a wider q buffer (rows on
+    odd bytes), n around the step, a NaN near the end of a chunk."""
+    cases = {w: rest for w, *rest in _smoke().quant_cases(1000, 3, "cpu")}
+    assert tuple(cases) == _ODD_CASES
+    x, q, s = cases[what]
+    if what.startswith("unaligned"):
+        assert x.stride(0) % 4 == 1 and q.storage_offset() % 4 == 1
+    quant.quant_int8(x, 1000, out=(q, s))
+    _assert_host_codec_bitwise(x, q, s, 1000)
+    if what.startswith("NaN"):
+        assert np.isnan(s[1, 1].item()) and not (q[1, 1000:2000] != 0).any()
+        assert torch.isfinite(s[0]).all() and torch.isfinite(s[1, ::2]).all()
+
+
+@pytest.mark.parametrize("phase", [1, 2])
+@pytest.mark.parametrize("size", BUCKETS)
+def test_quant_plain_matches_host_codec_at_bucket_shapes(size, phase) -> None:
+    """The quantized psum's two calls at each bucket size of the drill, two
+    groups: phase 1 on [2, size] into q[:, :size] of a [2, 2 L] buffer,
+    phase 2 on a [2, L] view of the reduced shards; on a grid of 16,384
+    (the plane's is 262,144) to keep the host codec's loop short."""
+    step = 1 << 14
+    cases = {w: rest for w, *rest in
+             _smoke().quant_cases(step, size, "cpu", [size])}
+    x, q, s = cases[f"bucket {size} phase {phase}"]
+    assert x.shape == (2, size if phase == 1 else -(-size // 2))
+    quant.quant_int8(x, step, out=(q, s))
+    _assert_host_codec_bitwise(x, q, s, step)
+
+
+def test_reciprocal_shortcut_rounds_as_the_exact_division() -> None:
+    """The arithmetic that csrc/quant_int8.cu's quant1 relies on, in numpy
+    (f32 operations correctly rounded, as on the card): with rcp =
+    f32(1 / scale), rint(f32(v * rcp)) equals rint(f32(v / scale)) unless
+    f32(v * rcp) lies within 2^-14 of a half-integer, where the kernel
+    takes the exact division; the band holds few values. Scales from
+    absmax / 127 over magnitudes 1e-30 to 1e30, plus values on, and one
+    ulp either side of, every half-integer quotient."""
+    rng = np.random.default_rng(0)
+    band = np.float32(0.5 - 2.0 ** -14)
+    slow = total = 0
+    for _ in range(20):
+        x = (rng.standard_normal(2_000_000)
+             * 10.0 ** rng.uniform(-30, 30)).astype(np.float32)
+        scale = np.float32(np.float64(np.abs(x).max()) / 127.0)
+        xs = [x]
+        half = ((np.arange(-127, 128) + 0.5) * np.float64(scale)) \
+            .astype(np.float32)
+        xs += [half, np.nextafter(half, np.float32(np.inf)),
+               np.nextafter(half, np.float32(-np.inf))]
+        for i, v in enumerate(xs):
+            y = v * (np.float32(1) / scale)
+            fast = np.abs(y - np.rint(y)) < band
+            exact = np.rint(v / scale)
+            assert (np.rint(y)[fast] == exact[fast]).all()
+            if i == 0:
+                slow += int((~fast).sum())
+                total += v.size
+    share = slow / total
+    print(f"exact division taken for {share:.6%} of {total} values")
+    assert 0 < share < 1e-3

@@ -230,7 +230,9 @@ extern "C" int tft_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if ((rc = make_tile_map(&mv, v, rows, cols)) != 0) return rc;
   if ((rc = make_tile_map(&mdo, dout, rows, cols)) != 0) return rc;
   static std::atomic<uint64_t> smem_set{0};
-  if ((rc = smem_limit_once(flash_bwd_dkv_kernel, kDkvSmem, smem_set)) != 0)
+  if ((rc = func_attr_once(flash_bwd_dkv_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kDkvSmem, smem_set)) != 0)
     return rc;
   dim3 grid(B * H, nblk);
   flash_bwd_dkv_kernel<<<grid, kDkvThreads, kDkvSmem, (cudaStream_t)stream>>>(

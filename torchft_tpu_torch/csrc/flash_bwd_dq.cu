@@ -3,82 +3,201 @@
 // Replaces the TPU kernels _flash_bwd_dq_kernel (K3) and
 // _flash_bwd_dq_streamed_kernel (K5) of torchft_tpu/ops/flash.py. lse and
 // Delta = rowsum(dO * O) come from outside, as flash_block_attention_bwd
-// needs for the ring backward.
-//
-// One block per (64-query tile, batch x head); each warp owns 16 query rows
-// and sweeps the key tiles up to the diagonal, recomputing per tile
-//   P  = exp(scale * Q K^T - lse)      (mask -1e30 past the diagonal)
+// needs for the ring backward. Per key tile, for a block's queries:
+//   P  = exp(scale * Q K^T - lse)       (mask -1e30 past the diagonal)
 //   dS = P * (dO V^T - Delta)
-//   dQ += dS K                          (dS kept in f32: two-term bf16 split)
-// and finally writes dQ * scale in bf16. Nothing S x S touches memory.
+//   dQ += dS K                           (dS kept in f32: bf16 hi + lo split)
+// and finally dQ * scale is written in bf16. Nothing S x S touches memory.
 //
 // Bound on an H100 at the 125m shape (B*H = 96, S = 1024, D = 64, causal):
-// three S x S x D products, 19.3 GFLOP (19.5 us of bf16 tensor time),
+// three S x S x D products, 19.3 GFLOP (19.6 us of bf16 tensor time),
 // against 63.7 MB of Q, K, V, dO, lse, Delta and dQ (19.0 us of HBM time):
-// operations bound by a hair. The split dS doubles the dS K product.
-#include "flash_common.cuh"
+// operations bound by a hair. The hi + lo split doubles the dS K product,
+// so the tensor cores see 25.8 GFLOP (26.1 us at peak).
+//
+// Design (hopper.cuh): seen from the queries, dQ has the forward's shape
+// without its online softmax (lse and Delta are given, nothing rescales).
+// One block of kDqConsumers + 1 warpgroups per kDqConsumers x 64 queries of
+// one (batch, head), the heaviest causal blocks first. The last warpgroup
+// is the producer: it gives its registers back, loads the block's Q and dO
+// tiles once by TMA with their lse and Delta slices (1-D bulk copies), then
+// streams K and V tiles from key tile 0 up to the causal diagonal through a
+// ring of kDqStages slots under full and empty mbarriers. Each consumer
+// warpgroup owns 64 queries: S = Q K^T and dP = dO V^T run on wgmma with Q,
+// dO and the slot's K and V all K-major in shared memory; P = exp2 of the
+// log2(e)-prescaled scores less lse (the mask on the diagonal tile only)
+// and dS are formed in registers; dQ += dS K takes dS's hi and lo halves
+// straight from those registers (the forward's layout for P) and reads K
+// MN-major from the same slot. The next tile's S and dP are issued right
+// behind that product, so a warpgroup's 16 multiplies of a tile reach the
+// tensor cores back to back. When S is not a multiple of 192 the last
+// block holds 64 or 128 queries and its idle warpgroups return at once.
+// Registers per consumer thread: dQ, S and dP take 32 f32 each and the
+// split dS 32 more, which fits the 160 that three consumers get. Three
+// measured 7% faster than two at the 125m shape (kernel_ab.py): as in the
+// forward, a warpgroup's per-tile chain (wait, exp2, split, issue) is
+// latency-bound, and a third one hides more of it. That chain, the 64 x 64
+// tile's fixed costs and the exp2 of every score still hold it back.
+#include "hopper.cuh"
 
 namespace tft {
 
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+constexpr int kDqConsumers = 3;  // warpgroups of 64 queries a block
+constexpr int kDqRows = kDqConsumers * kTile;
+constexpr int kDqStages = 3;
+constexpr int kDqThreads = 128 * (kDqConsumers + 1);
+// registers a consumer thread claims once the producer keeps 24: the SM's
+// 65,536 less the producer's, over the consumers, a multiple of 8, <= 240
+constexpr int kDqSpareRegs = (65536 - 128 * 24) / (128 * kDqConsumers);
+constexpr int kDqRegs = kDqSpareRegs >= 240 ? 240 : kDqSpareRegs / 8 * 8;
+constexpr int kDqStatBytes = kTile * 4;  // one tile's lse or Delta slice
+constexpr int kDqSmem = (2 * kDqConsumers + 2 * kDqStages) * kTileBytes +
+                        2 * kDqConsumers * kDqStatBytes +
+                        8 * (1 + 2 * kDqStages) + 1024;
+// a warpgroup that stops before the last key tiles never releases their
+// slots, so the ring must hold every tile past the first stopper's
+static_assert(kDqStages >= kDqConsumers, "ring shorter than a block");
+
+__global__ void __launch_bounds__(kDqThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, bf16* __restrict__ dq,
-                        int S, int H, float scale, int causal) {
-  __shared__ __align__(16) bf16 sQ[kTile * kStride];
-  __shared__ __align__(16) bf16 sO[kTile * kStride];  // dO tile
-  __shared__ __align__(16) bf16 sK[kTile * kStride];
-  __shared__ __align__(16) bf16 sV[kTile * kStride];
+                        int S, int H, float scale, float scale_log2,
+                        int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = smem_base_1k(smem_raw);
+  uint8_t* sO = sQ + kDqConsumers * kTileBytes;  // dO tiles
+  uint8_t* sK = sO + kDqConsumers * kTileBytes;
+  uint8_t* sV = sK + kDqStages * kTileBytes;
+  float* sL = reinterpret_cast<float*>(sV + kDqStages * kTileBytes);
+  float* sD = sL + kDqConsumers * kTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sD + kDqConsumers * kTile);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kDqStages;
 
-  const int qt = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int ld = H * kHeadDim;
-  const size_t base = (size_t)b * S * ld + (size_t)h * kHeadDim;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kTile + warp * 16 + g, q1 = q0 + 8;
-
-  load_tile(sQ, q + base + (size_t)qt * kTile * ld, ld);
-  load_tile(sO, dout + base + (size_t)qt * kTile * ld, ld);
-  __syncthreads();
-  uint32_t qa[kDSteps][4], da[kDSteps][4];
-  load_a_frags(qa, sQ, warp * 16 + g, t);
-  load_a_frags(da, sO, warp * 16 + g, t);
-  const float lse0 = lse[(size_t)bh * S + q0], lse1 = lse[(size_t)bh * S + q1];
-  const float dl0 = delta[(size_t)bh * S + q0];
-  const float dl1 = delta[(size_t)bh * S + q1];
-
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int n = 0; n < kDTiles; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int qb = gridDim.y - 1 - blockIdx.y;  // heaviest causal block first
+  const int row0 = qb * kDqRows;
+  const int n_wg = min(kDqConsumers, (S - row0) / kTile);
   const int nk = S / kTile;
-  const int upper = causal ? min(nk, qt + 1) : nk;
-  for (int kt = 0; kt < upper; ++kt) {
-    __syncthreads();
-    load_tile(sK, k + base + (size_t)kt * kTile * ld, ld);
-    load_tile(sV, v + base + (size_t)kt * kTile * ld, ld);
-    __syncthreads();
+  const int n_kv = causal ? min(nk, kDqConsumers * qb + n_wg) : nk;
+  const int wg = warpgroup();
 
-    float s[kRowTiles][4], dp[kRowTiles][4];
-    mma_abt(s, qa, sK, g, t);
-    mma_abt(dp, da, sV, g, t);
-#pragma unroll
-    for (int j = 0; j < kRowTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale;
-        const int kp = kt * kTile + j * 8 + 2 * t + (e & 1);
-        if (causal && kp > (e < 2 ? q0 : q1)) x = kNegInf;
-        const float p = expf(x - (e < 2 ? lse0 : lse1));
-        s[j][e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1));  // dS
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * n_wg);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kDqConsumers) {  // producer
+    regs_release<24>();
+    if (threadIdx.x == 128 * kDqConsumers) {
+      const int col = h * kHeadDim, grow = b * S;
+      mbar_expect_tx(q_full, n_wg * (2 * kTileBytes + 2 * kDqStatBytes));
+      for (int w = 0; w < n_wg; ++w) {
+        tma_load_2d(sQ + w * kTileBytes, &map_q, col, grow + row0 + w * kTile,
+                    q_full);
+        tma_load_2d(sO + w * kTileBytes, &map_do, col,
+                    grow + row0 + w * kTile, q_full);
+      }
+      const size_t at = (size_t)bh * S + row0;
+      bulk_load(sL, lse + at, n_wg * kDqStatBytes, q_full);
+      bulk_load(sD, delta + at, n_wg * kDqStatBytes, q_full);
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % kDqStages;
+        if (t >= kDqStages) mbar_wait(&empty[s], ((t / kDqStages) + 1) & 1);
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        tma_load_2d(sK + s * kTileBytes, &map_k, col, grow + t * kTile,
+                    &full[s]);
+        tma_load_2d(sV + s * kTileBytes, &map_v, col, grow + t * kTile,
+                    &full[s]);
       }
     }
-    mma_xs(acc, s, sK, g, t);
+    return;
   }
-  store_rows(dq + base, ld, q0, acc, scale, scale, g, t);
+  regs_claim<kDqRegs>();
+  if (wg >= n_wg) return;
+
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int qt = kDqConsumers * qb + wg;      // this warpgroup's query tile
+  const int upper = causal ? qt + 1 : nk;     // key tiles attended
+
+  const uint8_t* tq = sQ + wg * kTileBytes;
+  const uint8_t* to = sO + wg * kTileBytes;
+  float dqa[32], sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+  uint32_t dhi[4][4], dlo[4][4];
+
+  mbar_wait(q_full, 0);
+  // this thread's two query rows: lse in log2 units, and Delta
+  const int r0 = 16 * warp + g;
+  const float ls0 = sL[wg * kTile + r0] * kLog2e;
+  const float ls1 = sL[wg * kTile + r0 + 8] * kLog2e;
+  const float dl0 = sD[wg * kTile + r0], dl1 = sD[wg * kTile + r0 + 8];
+
+  // S = Q K^T and dP = dO V^T of key tile t.
+  auto issue_scores = [&](int t) {
+    const int s = t % kDqStages;
+    mbar_wait(&full[s], (t / kDqStages) & 1);
+    wgmma_abt_ss(sc, tq, sK + s * kTileBytes);
+    wgmma_abt_ss(dp, to, sV + s * kTileBytes);
+    wgmma_commit();
+  };
+  // With tile t's scores in: P and dS, then dQ += dS K issued.
+  auto grads = [&](int t) {
+    const int s = t % kDqStages;
+    const bool on_diag = causal && t == qt;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool hi_row = (i >> 1) & 1;
+      float p = fast_exp2(sc[i] * scale_log2 - (hi_row ? ls1 : ls0));
+      if (on_diag && acc_col(i, t4) > acc_row(i, warp, g)) p = 0.f;
+      dp[i] = p * (dp[i] - (hi_row ? dl1 : dl0));  // dS
+    }
+    acc_to_a(dp, dhi, dlo);
+    fence_frags(dhi);
+    fence_frags(dlo);
+    fence_acc(sc);  // the next issue_scores writes them
+    fence_acc(dp);
+    fence_acc(dqa);
+    wgmma_fence();
+    wgmma_split(dqa, dhi, dlo, sK + s * kTileBytes);
+    wgmma_commit();
+  };
+  auto settle = [&]() {
+    wgmma_wait<0>();
+    fence_acc(sc);
+    fence_acc(dp);
+    fence_acc(dqa);
+  };
+
+  // Every group of multiplies is waited for in the iteration that issues
+  // it; tile t's dS K and tile t + 1's scores go to the tensor cores back
+  // to back. The last tile is peeled off so that no wgmma sits in a branch.
+  wgmma_fence();
+  issue_scores(0);
+  settle();
+  for (int t = 0; t + 1 < upper; ++t) {
+    grads(t);
+    issue_scores(t + 1);
+    settle();
+    if (lane == 0) mbar_arrive(&empty[t % kDqStages]);
+  }
+  grads(upper - 1);
+  settle();
+
+  const int ld = H * kHeadDim;
+  store_acc(dq + (size_t)(b * S + row0 + wg * kTile) * ld + h * kHeadDim, ld,
+            dqa, scale, scale, warp, g, t4);
 }
 
 }  // namespace tft
@@ -89,11 +208,25 @@ extern "C" int tft_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int H, int D, float scale, int causal,
                                 void* stream) {
   using namespace tft;
-  if (D != kHeadDim || S % kTile != 0 || B * H > 65535)
+  const int nblk = (S + kDqRows - 1) / kDqRows;
+  if (D != kHeadDim || B <= 0 || H <= 0 || S <= 0 || S % kTile != 0 ||
+      nblk > 65535)
     return (int)cudaErrorInvalidValue;
-  dim3 grid(S / kTile, B * H);
-  flash_bwd_dq_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, S, H, scale, causal);
+  const long long rows = (long long)B * S, cols = (long long)H * kHeadDim;
+  CUtensorMap mq, mk, mv, mdo;
+  int rc;
+  if ((rc = make_tile_map(&mq, q, rows, cols)) != 0) return rc;
+  if ((rc = make_tile_map(&mk, k, rows, cols)) != 0) return rc;
+  if ((rc = make_tile_map(&mv, v, rows, cols)) != 0) return rc;
+  if ((rc = make_tile_map(&mdo, dout, rows, cols)) != 0) return rc;
+  static std::atomic<uint64_t> smem_set{0};
+  if ((rc = func_attr_once(flash_bwd_dq_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kDqSmem, smem_set)) != 0)
+    return rc;
+  dim3 grid(B * H, nblk);
+  flash_bwd_dq_kernel<<<grid, kDqThreads, kDqSmem, (cudaStream_t)stream>>>(
+      mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (bf16*)dq, S,
+      H, scale, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }

@@ -240,7 +240,9 @@ extern "C" int tft_flash_fwd(const void* q, const void* k, const void* v,
   if ((rc = make_tile_map(&mk, k, rows, cols)) != 0) return rc;
   if ((rc = make_tile_map(&mv, v, rows, cols)) != 0) return rc;
   static std::atomic<uint64_t> smem_set{0};
-  if ((rc = smem_limit_once(flash_fwd_kernel, kFwdSmem, smem_set)) != 0)
+  if ((rc = func_attr_once(flash_fwd_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kFwdSmem, smem_set)) != 0)
     return rc;
   dim3 grid(B * H, nblk);
   flash_fwd_kernel<<<grid, kFwdThreads, kFwdSmem, (cudaStream_t)stream>>>(

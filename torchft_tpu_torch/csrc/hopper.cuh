@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels: mbarriers,
-// TMA loads, warpgroup matrix multiplies (wgmma) and register hand-over.
+// Hopper (sm_90a) building blocks of the port's kernels: mbarriers, TMA
+// loads, warpgroup matrix multiplies (wgmma), register hand-over, and
+// kernel attributes set once per device.
 //
 // Operand tiles are 64 rows x 64 bf16 (128 bytes a row), loaded by TMA with
 // the 128-byte swizzle: the 16-byte chunk c of row r lands at chunk
@@ -298,6 +299,18 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// Max and sum over the four threads (t = lane % 4) that share an
+// accumulator row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffff, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffff, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffff, x, 1);
+  return x + __shfl_xor_sync(0xffffffff, x, 2);
+}
+
 // Accumulator element i of a thread (lane = 4 g + t) of warp w sits at row
 // 16 w + g + 8 ((i >> 1) & 1) and column 8 (i >> 2) + 2 t + (i & 1).
 __device__ __forceinline__ int acc_col(int i, int t) {
@@ -365,19 +378,19 @@ static inline int make_tile_map(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// Raise a kernel's dynamic shared-memory limit to `bytes` on the current
-// device, once per device: `done` holds a bit for each device already set,
-// so later launches make no driver call for it. Returns a cudaError_t.
+// Set a kernel's attribute (its dynamic shared-memory limit, or leave to
+// launch clusters of a non-portable size) to `value` on the current device,
+// once per device: `done` holds a bit for each device already set, so
+// later launches skip cudaFuncSetAttribute. Returns a cudaError_t.
 template <typename Kernel>
-static inline int smem_limit_once(Kernel kernel, int bytes,
-                                  std::atomic<uint64_t>& done) {
+static inline int func_attr_once(Kernel kernel, cudaFuncAttribute attr,
+                                 int value, std::atomic<uint64_t>& done) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   const uint64_t bit = dev < 64 ? 1ull << dev : 0;
   if (done.load(std::memory_order_acquire) & bit) return 0;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           bytes);
+  e = cudaFuncSetAttribute(kernel, attr, value);
   if (e != cudaSuccess) return (int)e;
   done.fetch_or(bit, std::memory_order_release);
   return 0;

@@ -27,48 +27,143 @@
 // Bound on an H100: both are pure streams. quant_int8 reads 4 B and writes
 // 1 B per element (plus 4 B per chunk); dequant_acc_int8 reads 1 B per
 // element per source (plus the scales) and writes 4 B. At the 125m
-// gradient (2 x 136 M elements) that is ~0.41 ms of HBM time for
-// quant_int8. This simple version runs one block per (row, chunk) and
-// reads the chunk twice (absmax, then quantize), the second time mostly
-// from L2; the dequantizer is a grid-stride elementwise loop.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// gradient (2 x 136 M elements) that is 0.41 ms of HBM time for quant_int8.
+//
+// quant_int8's design: one thread-block cluster of kQuantCluster CTAs per
+// (row, chunk), launched with cudaLaunchKernelEx. Each CTA owns a slice of
+// the chunk (16,384 f32 at the plane's 1 MiB grid), loads it once with
+// 16-byte loads into registers (scalar loads for an unaligned head and the
+// tail: rows of x and q may start on any 4-byte or 1-byte boundary), and
+// reduces its absmax and, apart, its non-finite flag. The CTAs swap those
+// partials through distributed shared memory between two cluster
+// barriers; every CTA derives the same scale from the same exact max, rank
+// 0 writes it, and each CTA quantizes the values it holds (quant1: a
+// multiply by the reciprocal, the exact division only where it can change
+// the result) and stores them four to a 32-bit word. So x is read once: 5 B
+// an element. A short chunk (the tail, a small shard grid) leaves CTAs with
+// shorter or empty slices; a chunk longer than a cluster holds (a grid
+// coarser than 1 MiB) reads its excess twice. Two CTAs share an SM (62
+// registers a thread), so one can load while the other reduces or stores.
+// What still holds it back (0.74 ms against 0.41 at the 125m gradient):
+// every CTA runs load, cluster barrier, quantize and store once, then
+// exits; the cluster's barrier and the launch of the next cluster leave
+// the SM's memory pipe idle between waves. A persistent cluster that
+// prefetches its next chunk into shared memory (1-D TMA) would hide that.
+// dequant_acc_int8 is a grid-stride elementwise loop.
+#include <cooperative_groups.h>
+
+#include "hopper.cuh"
 
 namespace tft {
 
+namespace cg = cooperative_groups;
+
+// CTAs per (row, chunk): 16 is past the portable 8, and measured faster
+// at the 125m gradient (two CTAs of 512 threads per SM; kernel_ab.py)
+constexpr int kQuantCluster = 16;
 constexpr int kQuantThreads = 512;
+constexpr int kQuantVecs = 8;        // float4s a thread holds
+constexpr int kQuantHeld = kQuantThreads * kQuantVecs;  // float4s a CTA holds
 constexpr int kDequantThreads = 256;
 
-__global__ void __launch_bounds__(kQuantThreads)
+__device__ __forceinline__ void absmax1(float v, float& m, int& bad) {
+  if (!isfinite(v)) bad = 1;  // fmaxf drops NaN: carry the flag apart
+  m = fmaxf(m, fabsf(v));
+}
+
+__device__ __forceinline__ void absmax4(float4 v, float& m, int& bad) {
+  absmax1(v.x, m, bad);
+  absmax1(v.y, m, bad);
+  absmax1(v.z, m, bad);
+  absmax1(v.w, m, bad);
+}
+
+// rint(v / scale) clipped to [-127, 127], as a byte, with the quotient
+// correctly rounded (__fdiv_rn) as the reference's. The division costs
+// about ten instructions, so it is taken only where it can matter: y = v *
+// rcp, rcp = 1 / scale correctly rounded, lies within 2^-16 of the rounded
+// quotient (both are within 2^-17 + 2^-18 of v / scale, which is at most
+// ~127 in size), and rint is constant between half-integers, so rint(y) is
+// the answer unless y lies within 2^-14 of a half-integer (about one value
+// in 8,000) or is not finite (a reciprocal that overflowed).
+__device__ __forceinline__ uint32_t quant1(float v, float scale, float rcp) {
+  const float y = __fmul_rn(v, rcp);
+  float r = rintf(y);
+  if (!(fabsf(__fsub_rn(y, r)) < 0.5f - 0x1p-14f))
+    r = rintf(__fdiv_rn(v, scale));
+  r = fminf(fmaxf(r, -127.0f), 127.0f);
+  return (uint32_t)(uint8_t)(int8_t)(int)r;
+}
+
+// Four int8 of a float4, packed little-endian; 0 for a non-finite chunk.
+__device__ __forceinline__ uint32_t quant4(float4 v, float scale, float rcp,
+                                           int nonfinite) {
+  if (nonfinite) return 0u;
+  return quant1(v.x, scale, rcp) | (quant1(v.y, scale, rcp) << 8) |
+         (quant1(v.z, scale, rcp) << 16) | (quant1(v.w, scale, rcp) << 24);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kQuantThreads, 2)
     quant_int8_kernel(const float* __restrict__ x, long long ldx,
                       int8_t* __restrict__ q, long long ldq,
                       float* __restrict__ scales, long long n, long long step,
-                      long long cpr) {
+                      long long cpr, long long slice) {
   __shared__ float s_max[kQuantThreads / 32];
   __shared__ int s_bad[kQuantThreads / 32];
+  __shared__ float s_part_max;  // this CTA's partials, read by the cluster
+  __shared__ int s_part_bad;
   __shared__ float s_scale;
   __shared__ int s_nonfinite;
 
-  const long long blk = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const long long blk = blockIdx.x / kQuantCluster;
   const long long row = blk / cpr, c = blk % cpr;
-  const long long lo = c * step;
-  const long long hi = lo + step < n ? lo + step : n;
+  const long long end = min(c * step + step, n);
+  const long long a = min(c * step + rank * slice, end);  // this CTA's slice
+  const long long e = min(a + slice, end);
   const float* xr = x + row * ldx;
   int8_t* qr = q + row * ldq;
+  // [a, va) scalar head, [va, vb) float4s, [vb, e) scalar tail
+  const int mis = (int)((reinterpret_cast<uintptr_t>(xr + a) >> 2) & 3);
+  const long long va = min(a + ((4 - mis) & 3), e);
+  const long long nvec = (e - va) / 4;
+  const long long vb = va + 4 * nvec;
+  const int nh = (int)(va - a), nt = (int)(e - vb);
+  const float4* xv = reinterpret_cast<const float4*>(xr + va);
+  const int tid = threadIdx.x;
 
   float m = 0.0f;
   int bad = 0;
-  for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    const float v = xr[i];
-    if (!isfinite(v)) bad = 1;  // fmaxf drops NaN: carry the flag apart
-    m = fmaxf(m, fabsf(v));
+  float4 v[kQuantVecs];
+#pragma unroll
+  for (int j = 0; j < kQuantVecs; ++j) {
+    const long long k = (long long)j * kQuantThreads + tid;
+    if (k < nvec) {
+      v[j] = xv[k];
+      absmax4(v[j], m, bad);
+    }
   }
+  // a slice longer than the CTA holds: its excess is read again below
+  for (long long k = kQuantHeld + tid; k < nvec; k += kQuantThreads)
+    absmax4(xv[k], m, bad);
+  float hx = 0.0f, tx = 0.0f;
+  if (tid < nh) absmax1(hx = xr[a + tid], m, bad);
+  if (tid < nt) absmax1(tx = xr[vb + tid], m, bad);
+
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
     bad |= __shfl_xor_sync(0xffffffffu, bad, off);
   }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = tid / 32, lane = tid % 32;
   if (lane == 0) {
     s_max[warp] = m;
     s_bad[warp] = bad;
@@ -77,6 +172,24 @@ __global__ void __launch_bounds__(kQuantThreads)
   if (warp == 0) {
     m = lane < kQuantThreads / 32 ? s_max[lane] : 0.0f;
     bad = lane < kQuantThreads / 32 ? s_bad[lane] : 0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      bad |= __shfl_xor_sync(0xffffffffu, bad, off);
+    }
+    if (lane == 0) {
+      s_part_max = m;
+      s_part_bad = bad;
+    }
+  }
+  cluster.sync();  // every CTA's partials are written
+  if (warp == 0) {
+    m = 0.0f;
+    bad = 0;
+    if (lane < kQuantCluster) {
+      m = *cluster.map_shared_rank(&s_part_max, lane);
+      bad = *cluster.map_shared_rank(&s_part_bad, lane);
+    }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
@@ -92,21 +205,35 @@ __global__ void __launch_bounds__(kQuantThreads)
         scale = 1.0f;
       s_scale = scale;
       s_nonfinite = bad;
-      scales[row * cpr + c] = scale;
+      if (rank == 0) scales[row * cpr + c] = scale;
     }
   }
   __syncthreads();
+  cluster_arrive();  // this CTA has read the others' partials
+
   const float scale = s_scale;
+  const float rcp = __frcp_rn(scale);
   const int nonfinite = s_nonfinite;
-  for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    int8_t out = 0;
-    if (!nonfinite) {
-      float r = rintf(__fdiv_rn(xr[i], scale));
-      r = fminf(fmaxf(r, -127.0f), 127.0f);
-      out = (int8_t)(int)r;
+  // q's words line up with x's float4s only when both rows share the phase
+  const bool words = ((reinterpret_cast<uintptr_t>(qr + va)) & 3) == 0;
+  auto store4 = [&](long long k, uint32_t w) {
+    if (words) {
+      reinterpret_cast<uint32_t*>(qr + va)[k] = w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qr[va + 4 * k + i] = (int8_t)(w >> (8 * i));
     }
-    qr[i] = out;
+  };
+#pragma unroll
+  for (int j = 0; j < kQuantVecs; ++j) {
+    const long long k = (long long)j * kQuantThreads + tid;
+    if (k < nvec) store4(k, quant4(v[j], scale, rcp, nonfinite));
   }
+  for (long long k = kQuantHeld + tid; k < nvec; k += kQuantThreads)
+    store4(k, quant4(xv[k], scale, rcp, nonfinite));
+  if (tid < nh) qr[a + tid] = nonfinite ? 0 : (int8_t)quant1(hx, scale, rcp);
+  if (tid < nt) qr[vb + tid] = nonfinite ? 0 : (int8_t)quant1(tx, scale, rcp);
+  cluster_wait();  // no CTA leaves while another may read its partials
 }
 
 __global__ void __launch_bounds__(kDequantThreads)
@@ -142,11 +269,32 @@ extern "C" int tft_quant_int8(const void* x, long long ldx, void* q,
   if (rows <= 0 || n <= 0) return 0;
   if (step <= 0) return (int)cudaErrorInvalidValue;
   const long long cpr = (n + step - 1) / step;
-  const long long blocks = rows * cpr;
+  const long long blocks = rows * cpr * kQuantCluster;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  quant_int8_kernel<<<(unsigned)blocks, kQuantThreads, 0,
-                      (cudaStream_t)stream>>>(
-      (const float*)x, ldx, (int8_t*)q, ldq, (float*)scales, n, step, cpr);
+  // the CTAs' slices, whole float4s; past 4 kQuantHeld f32 a CTA reads
+  // its excess twice
+  long long slice = (step + kQuantCluster - 1) / kQuantCluster;
+  slice = (slice + 3) / 4 * 4;
+  static std::atomic<uint64_t> cluster_set{0};
+  int rc = func_attr_once(quant_int8_kernel,
+                          cudaFuncAttributeNonPortableClusterSizeAllowed, 1,
+                          cluster_set);
+  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kQuantThreads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kQuantCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, quant_int8_kernel, (const float*)x, ldx, (int8_t*)q, ldq,
+      (float*)scales, n, step, cpr, slice);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -20,10 +20,9 @@ Three kernels (``csrc/``) do the work on the card, one per wrapper:
 - ``flash_bwd_dkv`` (csrc/flash_bwd_dkv.cu) replaces
   ``_flash_bwd_dkv_kernel`` and its streamed twin.
 
-The forward and dK/dV kernels are built for Hopper (csrc/hopper.cuh): TMA
-loads through a ring of shared-memory slots, ``wgmma`` products, blocks of
-192 query rows (forward) and 128 keys (dK/dV); dQ runs on ``mma.sync`` with
-64-row blocks.
+The three kernels are built for Hopper (csrc/hopper.cuh): TMA loads
+through a ring of shared-memory slots, ``wgmma`` products, blocks of 192
+query rows (forward and dQ) and 128 keys (dK/dV).
 
 Each wrapper launches its kernel for a CUDA tensor (bf16, head_dim 64, S a
 multiple of 64; anything else raises), runs its plain PyTorch version for a
