@@ -9,12 +9,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device: the card's name and power limit, then the build of the CUDA
    kernels from torchft_tpu_torch/csrc, with ptxas's registers and spills
-   per kernel; a spill in a flash kernel or in ``quant_int8``, or a ptxas
+   per kernel and, for the flash kernels, per head_dim instantiation; a
+   spill in any flash instantiation or in either codec kernel, or a ptxas
    note that it serialized ``wgmma`` instructions (C7515), fails the run.
 2. kernels: each hand-written kernel against its plain PyTorch version on
-   the card. The flash kernels at the 125m attention shape in bf16, causal
-   and non-causal, through ``flash_attention`` forward + backward and
-   through ``flash_block_attention_bwd`` with external lse/Delta, within
+   the card. The flash kernels at every head_dim they take, at the
+   attention shape of the model that reaches it and at one with work
+   enough to time (``FLASH_SHAPES``: "tiny" (8, 128, 4, 16) and (8, 1024,
+   12, 16); (1, 128, 2, 32) and (8, 1024, 12, 32); "125m" (8, 1024, 12,
+   64); "1b" (1, 2048, 16, 128)), in bf16, causal and non-causal, through
+   ``flash_attention`` forward + backward and through
+   ``flash_block_attention_bwd`` with external lse/Delta, within
    ``flash.KERNEL_TOL`` (each element within one bf16 ulp plus 1e-4, the
    difference's relative norm at most 1e-3, lse within 1e-5). The int8
    codec kernels (``quant_int8``, ``dequant_acc_int8``) at the 125m
@@ -24,11 +29,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    also at every bucket shape of both phases of the int8 drill, and, on
    grids of 1 MiB, 4 MiB and 1000 f32, at rows of x and q that start
    unaligned, at n = 1, step - 1, step and step + 1, and with a NaN in the
-   last CTA's slice of a chunk. Kernel, plain and
+   last CTA's slice of a chunk; ``dequant_acc_int8`` also at
+   ``dequant_cases`` (chunk and shard boundaries and ``valid`` inside its
+   16-element runs, rows off 16-byte alignment, the bucket shapes of both
+   phases). Kernel, plain and
    library times (device time of a replayed CUDA graph), each wrapper's
-   host time per call, and the least time the card could take (bound); beside
-   the two backward flash kernels, PyTorch's fused attention backward (dq,
-   dk and dv in one call, ``library_pair_ms``); beside the codec kernels,
+   host time per call, and the least time the card could take (bound), at
+   each timed flash shape (the ``per_head_dim`` rows); beside the two
+   backward flash kernels, PyTorch's fused attention backward (dq, dk and
+   dv in one call, ``library_pair_ms``); beside the codec kernels,
    their time summed over one wire step of the int8 drill at each DDP
    bucket's own size (``step_ms`` over ``step_launches`` launches) beside
    that step's bound (``step_bound_ms``).
@@ -47,6 +56,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    allreduce with a peer on the wire. Then the plane on the card is held
    bitwise against the plane on the CPU at each of the drill's bucket
    sizes.
+5. train_tiny: the drill of 3 over TCP at "tiny" (head_dim 16), full width
+   and depth, batch 8: the example's default config, on the card.
+6. gpt_1b: one forward/backward of "1b" (24 layers, d_model 2048, 16 heads
+   of 128, seq 2048, activation checkpointing on) at batch 1, at full width
+   and depth. The checkpointing recomputes each block's forward in the
+   backward: 48 forward, 24 dQ and 24 dK/dV launches. The loss must lie
+   within ``LOSS_TOL`` and a sample of gradients within ``GRAD_REL_NORM``
+   of the same model whose attention runs ``reference_attention`` on the
+   card.
 
 It prints a ``kernels`` JSON line before the last line and ends with
 ``{"ok": true, "device": {...}}``. It needs one card and no network.
@@ -170,13 +188,31 @@ _KERNEL_SYMBOLS = {
     "quant_int8": "quant_int8_kernel",
     "dequant_acc_int8": "dequant_acc_int8_kernel",
 }
-# the Hopper-redesigned kernels
-_NO_SPILL = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quant_int8")
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+HEAD_DIMS = (16, 32, 64, 128)  # the flash kernels' instantiations
+# every instantiation of the Hopper-redesigned kernels
+_NO_SPILL = tuple(f"{n}/d{d}" for n in FLASH_KERNELS for d in HEAD_DIMS) + (
+    "quant_int8", "dequant_acc_int8")
+
+
+def _report_key(symbol: str):
+    """The report's key for a mangled kernel symbol: the kernel's name,
+    with ``/d<D>`` for an instantiation at head size D (``...ILi64E...``),
+    or None for a symbol of no kernel here."""
+    import re
+
+    for name, sym in _KERNEL_SYMBOLS.items():
+        i = symbol.find(sym)
+        if i >= 0:
+            m = re.match(r"ILi(\d+)E", symbol[i + len(sym):])
+            return f"{name}/d{m.group(1)}" if m else name
+    return None
 
 
 def ptxas_report(build_log: str):
     """{kernel: {"registers", "spill_stores", "spill_loads"}} from the
-    ptxas lines of the build, plus its warnings and performance notes (a
+    ptxas lines of the build, one entry per instantiation of a templated
+    kernel (``flash_fwd/d64``), plus its warnings and performance notes (a
     wgmma serialized by the compiler is one)."""
     import re
 
@@ -184,8 +220,7 @@ def ptxas_report(build_log: str):
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            current = next((n for n, sym in _KERNEL_SYMBOLS.items()
-                            if sym in m.group(1)), None)
+            current = _report_key(m.group(1))
             continue
         if "warning" in line.lower() or "Performance Loss" in line:
             warnings.append(line.strip())
@@ -203,7 +238,8 @@ def ptxas_report(build_log: str):
 
 
 def spill_failures(report):
-    """The kernels of _NO_SPILL that spill, or that ptxas did not report."""
+    """The kernels (instantiations) of _NO_SPILL that spill, or that ptxas
+    did not report."""
     return [n for n in _NO_SPILL
             if report.get(n, {}).get("spill_stores", 1)
             or report.get(n, {}).get("spill_loads", 1)]
@@ -239,8 +275,8 @@ def phase_device():
     _build.load_kernels()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     report, warnings = ptxas_report(_build.build_log)
-    for name in _KERNEL_SYMBOLS:
-        log(f"  ptxas {name:16s} {report.get(name, 'not reported')}")
+    for name in sorted(report):
+        log(f"  ptxas {name:18s} {report[name]}")
     for w in warnings:
         log(f"  ptxas {w}")
     spilled = spill_failures(report)
@@ -268,14 +304,25 @@ def _check(name: str, got, want, what: str, failed: list) -> float:
 
 
 FLASH_SHAPE = (8, 1024, 12, 64)  # "125m": batch 8, seq 1024, 12 heads of 64
+# (what, [B, S, H, D], timed): the flash kernels at each head_dim they
+# take, at the attention shape of the model that reaches it and at one
+# with work enough to time
+FLASH_SHAPES = (
+    ("tiny", (8, 128, 4, 16), False),
+    ("head_dim 16", (8, 1024, 12, 16), True),
+    ("head_dim 32", (1, 128, 2, 32), False),
+    ("head_dim 32", (8, 1024, 12, 32), True),
+    ("125m", FLASH_SHAPE, True),
+    ("1b", (1, 2048, 16, 128), True),
+)
 
 
-def flash_inputs(seed: int):
-    """q, k, v and dO: bf16 [B, S, H, D] on the card at FLASH_SHAPE."""
+def flash_inputs(seed: int, shape=FLASH_SHAPE):
+    """q, k, v and dO: bf16 [B, S, H, D] on the card at ``shape``."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return tuple(torch.randn(FLASH_SHAPE, generator=gen, device="cuda",
+    return tuple(torch.randn(shape, generator=gen, device="cuda",
                              dtype=torch.float32).to(torch.bfloat16)
                  for _ in range(4))
 
@@ -357,17 +404,20 @@ def flash_calls(q, k, v, do) -> dict:
     }
 
 
-def phase_kernels(seed: int):
+def time_flash(q, k, v, do) -> dict:
+    """{kernel: times} of the three flash kernels at q's shape, called as
+    the main path calls them (causal; the backward kernels with the
+    forward kernel's lse and its out's Delta): device ms, host µs per call,
+    the plain version's ms, the bound, PyTorch's
+    ``scaled_dot_product_attention`` forward beside the forward kernel
+    (``library_ms``) and its fused backward (dq, dk and dv in one call)
+    beside the two backward kernels (``library_pair_ms``)."""
     import torch
     import torch.nn.functional as F
 
     from torchft_tpu_torch.ops import flash
 
-    q, k, v, do = flash_inputs(seed)
-    errs = check_flash(q, k, v, do)
-
-    # times at the main path's call: causal, bf16, 125m shape
-    b, s, h, d = FLASH_SHAPE
+    b, s, h, d = q.shape
     scale = 1.0 / d ** 0.5
     calls = flash_calls(q, k, v, do)
     out, lse = calls["flash_fwd"]()
@@ -398,13 +448,9 @@ def phase_kernels(seed: int):
         us = host_us(calls[name])
         plain_ms = cuda_ms(plain, iters=3, warmup=1, repeats=1)
         lib_ms = cuda_ms(lib) if lib is not None else None
-        rows[name] = {
-            "name": name, "route": "cuda", "source": _SOURCES[name],
-            "replaces": _TPU_KERNELS[name], "launches": 0,
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
-            "host_us": us, "timed_by": TIMED_BY,
-        }
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": bound_by, "library_ms": lib_ms,
+                      "host_us": us}
         log(f"  {name:14s} kernel {ms:.4f} ms  host {us:.1f} us/call  "
             f"plain {plain_ms:.4f} ms  library "
             f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms  "
@@ -428,6 +474,45 @@ def phase_kernels(seed: int):
         f"forward) against flash_bwd_dq + flash_bwd_dkv "
         f"{rows['flash_bwd_dq']['ms'] + rows['flash_bwd_dkv']['ms']:.4f} ms")
     return rows
+
+
+def phase_kernels(seed: int, ptxas: dict):
+    """The flash kernels checked at every shape of FLASH_SHAPES and timed
+    at the timed ones: a row per kernel with the "125m" shape's times and
+    a ``per_head_dim`` row per instantiation (its checked shapes, largest
+    error, times at its timed shape, ptxas report and, filled in by the
+    training phases, its launches on the main path)."""
+    import torch
+
+    per_d = {n: {} for n in FLASH_KERNELS}
+    top = {}
+    for what, shape, timed in FLASH_SHAPES:
+        d = shape[3]
+        log(f"  flash kernels at {what} {shape}")
+        q, k, v, do = flash_inputs(seed, shape)
+        errs = check_flash(q, k, v, do)
+        for name in FLASH_KERNELS:
+            row = per_d[name].setdefault(d, {
+                "head_dim": d, "checked": [], "max_abs_err": 0.0,
+                "launches": 0, "ptxas": ptxas.get(f"{name}/d{d}")})
+            row["checked"].append(list(shape))
+            row["max_abs_err"] = max(row["max_abs_err"], errs[name])
+        if timed:
+            times = time_flash(q, k, v, do)
+            for name in FLASH_KERNELS:
+                per_d[name][d].update(shape=list(shape), **times[name])
+            if shape == FLASH_SHAPE:
+                top = times
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return {name: {
+        "name": name, "route": "cuda", "source": _SOURCES[name],
+        "replaces": _TPU_KERNELS[name], "launches": 0,
+        "max_abs_err": max(r["max_abs_err"] for r in per_d[name].values()),
+        "shape": list(FLASH_SHAPE), **top[name], "timed_by": TIMED_BY,
+        "ptxas": ptxas.get(f"{name}/d{FLASH_SHAPE[3]}"),
+        "per_head_dim": [per_d[name][d] for d in HEAD_DIMS],
+    } for name in FLASH_KERNELS}
 
 
 def _bits(t):
@@ -515,6 +600,60 @@ def quant_cases(step: int, seed: int, device: str, sizes=()):
     return cases
 
 
+def dequant_cases(step: int, seed: int, device: str, sizes=()):
+    """[(what, q, scales, kwargs)]: inputs of ``dequant_acc_int8`` (and its
+    keyword arguments) where its 16-element runs meet a boundary: a grid
+    whose step is no multiple of 16 (chunk boundaries inside runs),
+    per-shard grids whose shard length is no multiple of 16 (segment
+    boundaries inside runs), ``valid`` inside a run, rows of q that start
+    off 16-byte alignment (a view at byte 3 of a wider buffer, rows of
+    another phase than row 0's), fewer elements than a run; and, per DDP
+    bucket size in ``sizes``, the quantized psum's two decodes over two
+    groups (phase 1: the [2, 2 L] padded rows, AVG; phase 2: the reduced
+    shards as one row on per-shard grids) and phase 1 with its rows
+    starting at byte 1."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def q_rows(rows, n, offset=0, pad=0):
+        buf = torch.randint(-127, 128, (rows * (n + pad) + offset,),
+                            generator=gen, device=device,
+                            dtype=torch.int32).to(torch.int8)
+        return buf[offset:].view(rows, n + pad)[:, :n]
+
+    def scales(rows, chunks):
+        return torch.rand((rows, chunks), generator=gen, device=device) * 1e-2
+
+    n = 3 * step + 37
+    L = step + 21  # a shard length no multiple of 16
+    cps = -(-L // step)
+    cases = [
+        ("step inside runs, AVG", q_rows(2, n), scales(2, -(-n // step)),
+         dict(valid=n, divisor=2)),
+        ("rows off 16-byte alignment, valid inside a run",
+         q_rows(3, n, offset=3, pad=5), scales(3, -(-n // step)),
+         dict(valid=n - 7, divisor=3)),
+        ("shard grid, seg inside runs", q_rows(1, 3 * L),
+         scales(1, 3 * cps), dict(valid=3 * L - 10, seg=L, cps=cps)),
+        ("fewer elements than a run", q_rows(1, 9, offset=5), scales(1, 1),
+         dict(valid=9)),
+    ]
+    for size in sorted(set(sizes)):
+        L = -(-size // 2)
+        c1, c2 = -(-size // step), -(-L // step)
+        cases += [
+            (f"bucket {size} phase 1", q_rows(2, 2 * L), scales(2, c1),
+             dict(valid=size, divisor=2)),
+            (f"bucket {size} phase 2", q_rows(1, 2 * L), scales(1, 2 * c2),
+             dict(valid=size, seg=L, cps=c2)),
+            (f"bucket {size} phase 1, rows at byte 1",
+             q_rows(2, 2 * L, offset=1), scales(2, c1),
+             dict(valid=size, divisor=2)),
+        ]
+    return cases
+
+
 def codec_inputs(seed: int):
     """The 125m gradient of two groups, x f32 [2, n_params] on the card,
     with an all-zero chunk, a NaN chunk and an Inf chunk on the 1 MiB
@@ -568,7 +707,9 @@ def check_codec(x, sizes, seed: int, check) -> None:
     gradient x through the quantized psum's four calls, the special
     chunks' scales, then quant_int8 at every shape of quant_cases on the
     1 MiB grid, on a grid of 1000 (chunks starting off alignment) and on a
-    4 MiB grid (chunks longer than a cluster holds)."""
+    4 MiB grid (chunks longer than a cluster holds), and dequant_acc_int8
+    at every shape of dequant_cases on the 1 MiB grid and on a grid of
+    1000."""
     import torch
 
     from torchft_tpu_torch.ops import quant
@@ -611,6 +752,12 @@ def check_codec(x, sizes, seed: int, check) -> None:
             torch.cuda.synchronize()
             check("quant_int8", f"step {grid}, {what}: q", qc, pq)
             check("quant_int8", f"step {grid}, {what}: scales", sc, ps)
+    for grid, sz in ((step, sizes), (1000, ())):
+        for what, qc, sc, kw in dequant_cases(grid, seed, "cuda", sz):
+            got = quant.dequant_acc_int8(qc, sc, grid, **kw)
+            want = quant.dequant_acc_int8_plain(qc, sc, grid, **kw)
+            torch.cuda.synchronize()
+            check("dequant_acc_int8", f"step {grid}, {what}", got, want)
     torch.cuda.empty_cache()
 
 
@@ -779,23 +926,23 @@ def codec_step_ms(sizes, seed: int, check):
     return {name: (ms, 2 * len(sizes)) for name, ms in total.items()}
 
 
-def phase_train(steps: int, layers, seed: int, card: str,
+def phase_train(config: str, steps: int, layers, seed: int, card: str,
                 comm_backend: str = "host", comm_options=None):
-    """Run the drill; return the flash kernels' launches (one per layer
-    per forward/backward pass) and the result."""
+    """Run the drill at CONFIGS[config]; return the flash kernels'
+    launches (one per layer per forward/backward pass) and the result."""
     import dataclasses
 
     from torchft_tpu_torch.examples.train_ddp import run_kill_and_heal
     from torchft_tpu_torch.models import CONFIGS
 
-    cfg = CONFIGS["125m"]
+    cfg = CONFIGS[config]
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     batch = 8
-    log(f"  125m: vocab {cfg.vocab_size} d_model {cfg.d_model} layers "
-        f"{cfg.n_layers} heads {cfg.n_heads} d_ff {cfg.d_ff} seq "
-        f"{cfg.max_seq_len} xent_chunks {cfg.xent_chunks}, batch {batch}, "
-        f"gradient wire {comm_backend} {comm_options or ''}")
+    log(f"  {config}: vocab {cfg.vocab_size} d_model {cfg.d_model} layers "
+        f"{cfg.n_layers} heads {cfg.n_heads} (head_dim {cfg.head_dim}) d_ff "
+        f"{cfg.d_ff} seq {cfg.max_seq_len} xent_chunks {cfg.xent_chunks}, "
+        f"batch {batch}, gradient wire {comm_backend} {comm_options or ''}")
     t0 = time.perf_counter()
     result = run_kill_and_heal(cfg, kill_step=steps, steps_after=steps - 1,
                                device="cuda", batch_size=batch, seed=seed,
@@ -875,6 +1022,90 @@ def check_plane_at_buckets(sizes, seed: int) -> None:
                                  f"CPU plane at a bucket of {size}")
 
 
+# the loss of the 1b GPT with the kernels against the same model with
+# reference_attention on the card, whose P is rounded to bf16 before P V
+# (tests/test_torch_cuda.py's LOSS_TOL)
+LOSS_TOL = 2e-2
+# a sample of its gradients, relative norm of the difference: the
+# reference rounds P (and, in its backward, dP) to bf16 where the kernels
+# keep f32; on the CPU the plain flash path against reference_attention
+# differs by 0.5-1.4% at 4 and 8 layers of that shape, growing slowly with
+# depth, and a wrong kernel moves a gradient by O(1)
+GRAD_REL_NORM = 5e-2
+GRAD_SAMPLE = ("wte.embedding", "layers_0.attn.q_proj.kernel",
+               "layers_12.mlp.up_proj.kernel", "layers_23.attn.o_proj.kernel",
+               "lm_head.kernel")
+
+
+def phase_gpt_1b(seed: int):
+    """One forward/backward of the 1b GPT at full width and depth, batch
+    1, through the kernels; then the same model, its attention swapped for
+    reference_attention, on the same tokens. Returns the flash launches
+    and checks the loss and GRAD_SAMPLE against the reference."""
+    import torch
+
+    from torchft_tpu_torch.models import CONFIGS, GPT, transformer
+    from torchft_tpu_torch.ops import attention, flash
+
+    cfg = CONFIGS["1b"]
+    t0 = time.perf_counter()
+    model = GPT(cfg, device="cuda", seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab_size, (1, cfg.max_seq_len),
+                        generator=gen, device="cuda")
+    tgt = torch.roll(tok, -1, dims=1)
+    log(f"  1b: {n_params} parameters, vocab {cfg.vocab_size} d_model "
+        f"{cfg.d_model} layers {cfg.n_layers} heads {cfg.n_heads} (head_dim "
+        f"{cfg.head_dim}) d_ff {cfg.d_ff} seq {cfg.max_seq_len} remat "
+        f"{cfg.remat}, batch 1")
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(tok, tgt)
+        loss.backward()
+        torch.cuda.synchronize()
+        named = dict(model.named_parameters())
+        return loss.item(), {n: named[n].grad.detach().clone()
+                             for n in GRAD_SAMPLE}
+
+    flash.reset_launch_counts()
+    t1 = time.perf_counter()
+    loss, grads = loss_and_grads()
+    t2 = time.perf_counter()
+    counts = dict(flash.LAUNCHES)
+    kernel_attention = transformer.causal_attention
+    transformer.causal_attention = attention.reference_attention
+    try:
+        ref_loss, ref_grads = loss_and_grads()
+    finally:
+        transformer.causal_attention = kernel_attention
+    if dict(flash.LAUNCHES) != counts:
+        raise AssertionError("the reference model launched a flash kernel")
+    log(f"  loss {loss:.6f} with the kernels, {ref_loss:.6f} with "
+        f"reference_attention (|diff| {abs(loss - ref_loss):.3e}, tolerance "
+        f"{LOSS_TOL}); model built in {t1 - t0:.1f} s, forward/backward "
+        f"{t2 - t1:.2f} s with the kernels ({torch.cuda.get_device_name(0)}, "
+        f"first call)")
+    failed = []
+    if not (abs(loss - ref_loss) <= LOSS_TOL and loss == loss):
+        failed.append(f"loss {loss} against {ref_loss}")
+    for n in GRAD_SAMPLE:
+        g, r = grads[n].double(), ref_grads[n].double()
+        rel = float((g - r).norm() / r.norm().clamp_min(1e-30))
+        ok = bool(torch.isfinite(g).all()) and rel <= GRAD_REL_NORM
+        log(f"  grad {n:32s} relative norm of the difference {rel:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"grad {n}: {rel}")
+    del model, grads, ref_grads
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"1b with the kernels against the reference: "
+                             f"{failed}")
+    return counts, cfg.n_layers
+
+
 def _check_launches(counts, want, what: str) -> None:
     log(f"  kernel launches on the main path: {counts} (want {want})")
     if counts != want:
@@ -882,11 +1113,26 @@ def _check_launches(counts, want, what: str) -> None:
                              f"want {want} ({what})")
 
 
+PHASES = ("kernels", "train", "train_cuda_int8", "train_tiny", "gpt_1b")
+
+
+def _add_launches(rows: dict, counts: dict, head_dim: int) -> None:
+    """Add a main-path phase's launches to the kernels rows: a flash
+    kernel's to its row and to its ``head_dim`` instantiation's."""
+    for name, c in counts.items():
+        if name not in rows:
+            continue
+        rows[name]["launches"] += c
+        for row in rows[name].get("per_head_dim", ()):
+            if row["head_dim"] == head_dim:
+                row["launches"] += c
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="kernels,train,train_cuda_int8",
-                        help="comma list of kernels,train,train_cuda_int8 "
-                             "(device always runs)")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma list of " + ",".join(PHASES) +
+                             " (device always runs)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=3,
                         help="committed steps before and after the heal")
@@ -912,35 +1158,34 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     phases = set(args.phases.split(","))
-    unknown = phases - {"kernels", "train", "train_cuda_int8"}
+    unknown = phases - set(PHASES)
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}", file=sys.stderr)
         return 2
     smi, ptxas = phase_device()
+    from torchft_tpu_torch.models import CONFIGS
     from torchft_tpu_torch.ops import flash, quant
 
     rows = {}
     if "kernels" in phases:
         log("phase kernels")
-        rows = phase_kernels(args.seed)
+        rows = phase_kernels(args.seed, ptxas)
         rows.update(phase_quant_kernels(args.seed))
-        for name, row in rows.items():
-            row["ptxas"] = ptxas.get(name)
+        for name in ("quant_int8", "dequant_acc_int8"):
+            rows[name]["ptxas"] = ptxas.get(name)
     if "train" in phases:
         log("phase train")
         flash.reset_launch_counts()
-        want, _ = phase_train(args.steps, args.layers, args.seed, smi)
+        want, _ = phase_train("125m", args.steps, args.layers, args.seed, smi)
         counts = dict(flash.LAUNCHES)
         _check_launches(counts, {n: want for n in counts},
                         "one per layer per forward/backward pass")
-        for name, c in counts.items():
-            if name in rows:
-                rows[name]["launches"] = c
+        _add_launches(rows, counts, CONFIGS["125m"].head_dim)
     if "train_cuda_int8" in phases:
         log("phase train_cuda_int8")
         flash.reset_launch_counts()
         quant.reset_launch_counts()
-        want, result = phase_train(args.steps, None, args.seed, smi,
+        want, result = phase_train("125m", args.steps, None, args.seed, smi,
                                    comm_backend="cuda",
                                    comm_options=INT8_OPTIONS)
         counts = {**flash.LAUNCHES, **quant.LAUNCHES}
@@ -959,10 +1204,27 @@ def main() -> int:
                                  **{n: per_kernel for n in quant.LAUNCHES}},
                         "flash: one per layer per pass; codec: 2 per bucket "
                         "per allreduce with a peer")
-        for name, c in counts.items():
-            if name in rows:
-                rows[name]["launches"] = c
+        _add_launches(rows, counts, CONFIGS["125m"].head_dim)
         check_plane_at_buckets(survivor.buckets, args.seed)
+    if "train_tiny" in phases:
+        log("phase train_tiny")
+        flash.reset_launch_counts()
+        want, _ = phase_train("tiny", args.steps, None, args.seed, smi)
+        counts = dict(flash.LAUNCHES)
+        _check_launches(counts, {n: want for n in counts},
+                        "one per layer per forward/backward pass")
+        _add_launches(rows, counts, CONFIGS["tiny"].head_dim)
+    if "gpt_1b" in phases:
+        log("phase gpt_1b")
+        flash.reset_launch_counts()
+        counts, layers = phase_gpt_1b(args.seed)
+        # activation checkpointing runs each block's forward again in the
+        # backward: two forward launches per layer, one of each backward
+        _check_launches(counts, {"flash_fwd": 2 * layers,
+                                 "flash_bwd_dq": layers,
+                                 "flash_bwd_dkv": layers},
+                        "1b, remat: 2 forward, 1 dQ, 1 dK/dV per layer")
+        _add_launches(rows, counts, CONFIGS["1b"].head_dim)
     if rows:
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

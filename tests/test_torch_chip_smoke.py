@@ -2,9 +2,11 @@
 
 The script itself needs a GPU: here it must refuse to run (exit 2, no
 result line), and its helpers must read a ptxas report (registers and
-spills per kernel, the spill gate on the Hopper-redesigned kernels, the
-gate on wgmma serialization notes), size the int8 drill's DDP buckets,
-and price the flash kernels' bounds and the codec kernels' per wire step.
+spills per kernel and per head_dim instantiation, the spill gate on the
+Hopper-redesigned kernels, the gate on wgmma serialization notes), size
+the int8 drill's DDP buckets, reach every head_dim the flash kernels take,
+add each phase's launches to the right rows, and price the flash kernels'
+bounds and the codec kernels' per wire step.
 """
 
 import importlib.util
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from torchft_tpu_torch.models import CONFIGS, GPT
+from torchft_tpu_torch.ops import flash
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -36,46 +39,57 @@ def _entry(symbol, regs, spill=0):
             f"1 barriers\n")
 
 
-_LOG = "\n".join([
-    "== flash_bwd_dq.cu",
-    _entry("_ZN3tft19flash_bwd_dq_kernelE14CUtensorMap_stS0_S0_S0_PKfS2_"
-           "P13__nv_bfloat16iiffi", 154),
-    "== flash_bwd_dkv.cu",
-    _entry("_ZN3tft20flash_bwd_dkv_kernelE14CUtensorMap_stS0_S0_S0_PKfS2_"
-           "P13__nv_bfloat16S4_iiffi", 168),
-    "== flash_fwd.cu",
-    "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async "
-    "instructions are serialized",
-    _entry("_ZN3tft16flash_fwd_kernelE14CUtensorMap_stS0_S0_P13__nv_bfloat16"
-           "Pfiifi", 128),
-    "== quant_int8.cu",
-    _entry("_ZN3tft23dequant_acc_int8_kernelEPKaxPKfxPfixxxxxi", 32, spill=8),
-    _entry("_ZN3tft17quant_int8_kernelEPKfxPaxPfxxxx", 56),
-])
+_FLASH_SYMBOLS = {
+    "flash_fwd": "_ZN3tft16flash_fwd_kernelILi{d}EEEv14CUtensorMap_stS1_S1_"
+                 "P13__nv_bfloat16Pfiifi",
+    "flash_bwd_dq": "_ZN3tft19flash_bwd_dq_kernelILi{d}EEEv14CUtensorMap_st"
+                    "S1_S1_S1_PKfS3_P13__nv_bfloat16iiffi",
+    "flash_bwd_dkv": "_ZN3tft20flash_bwd_dkv_kernelILi{d}EEEv14CUtensorMap_"
+                     "stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiffi",
+}
+_REGS = {"flash_fwd": 128, "flash_bwd_dq": 154, "flash_bwd_dkv": 168}
+_LOG = "\n".join(
+    [f"== {name}.cu\n" + "".join(
+        _entry(sym.format(d=d), _REGS[name] + (40 if d == 128 else 0))
+        for d in (16, 32, 64, 128))
+     for name, sym in _FLASH_SYMBOLS.items()] + [
+        "ptxas info    : (C7515) Potential Performance Loss: "
+        "wgmma.mma_async instructions are serialized",
+        "== quant_int8.cu",
+        _entry("_ZN3tft23dequant_acc_int8_kernelEPKaxPKfxPfixxxxxixx", 40,
+               spill=8),
+        _entry("_ZN3tft17quant_int8_kernelEPKfxPaxPfxxxx", 56),
+    ])
 
 
 def test_ptxas_report_reads_every_kernel() -> None:
+    """One entry per instantiation of the templated flash kernels (key
+    ``<kernel>/d<head_dim>``), one per codec kernel."""
     report, notes = _smoke().ptxas_report(_LOG)
-    assert report == {
-        "flash_bwd_dq": {"registers": 154, "spill_stores": 0,
-                         "spill_loads": 0},
-        "flash_bwd_dkv": {"registers": 168, "spill_stores": 0,
-                          "spill_loads": 0},
-        "flash_fwd": {"registers": 128, "spill_stores": 0, "spill_loads": 0},
-        "dequant_acc_int8": {"registers": 32, "spill_stores": 8,
-                             "spill_loads": 8},
-        "quant_int8": {"registers": 56, "spill_stores": 0, "spill_loads": 0},
-    }
+    want = {f"{name}/d{d}": {"registers": _REGS[name] + (40 if d == 128
+                                                         else 0),
+                             "spill_stores": 0, "spill_loads": 0}
+            for name in _FLASH_SYMBOLS for d in (16, 32, 64, 128)}
+    want["dequant_acc_int8"] = {"registers": 40, "spill_stores": 8,
+                                "spill_loads": 8}
+    want["quant_int8"] = {"registers": 56, "spill_stores": 0,
+                          "spill_loads": 0}
+    assert report == want
     assert len(notes) == 1 and "serialized" in notes[0]
+    # a kernel built without the template (an earlier tree) keeps its name
+    old = _entry("_ZN3tft16flash_fwd_kernelE14CUtensorMap_stS0_S0_P13__nv_"
+                 "bfloat16Pfiifi", 128)
+    assert _smoke().ptxas_report(old)[0] == {
+        "flash_fwd": {"registers": 128, "spill_stores": 0, "spill_loads": 0}}
 
 
 @pytest.mark.parametrize("case, want", [
     ("clean", []),
-    ("fwd_spills", ["flash_fwd"]),
-    ("dkv_missing", ["flash_bwd_dkv"]),
-    ("dq_spills", ["flash_bwd_dq"]),
+    ("fwd_spills", ["flash_fwd/d16"]),
+    ("dkv_missing", ["flash_bwd_dkv/d128"]),
+    ("dq_spills", ["flash_bwd_dq/d32"]),
     ("quant_spills", ["quant_int8"]),
-    ("codec_spills", []),  # the dequantizer is not redesigned yet
+    ("codec_spills", ["dequant_acc_int8"]),  # redesigned: held too
 ])
 def test_spill_gate(case, want) -> None:
     smoke = _smoke()
@@ -83,11 +97,11 @@ def test_spill_gate(case, want) -> None:
     if case != "codec_spills":
         report["dequant_acc_int8"].update(spill_stores=0, spill_loads=0)
     if case == "fwd_spills":
-        report["flash_fwd"]["spill_loads"] = 4
+        report["flash_fwd/d16"]["spill_loads"] = 4
     elif case == "dkv_missing":
-        del report["flash_bwd_dkv"]
+        del report["flash_bwd_dkv/d128"]
     elif case == "dq_spills":
-        report["flash_bwd_dq"]["spill_stores"] = 16
+        report["flash_bwd_dq/d32"]["spill_stores"] = 16
     elif case == "quant_spills":
         report["quant_int8"].update(spill_stores=4, spill_loads=4)
     assert smoke.spill_failures(report) == want
@@ -112,6 +126,42 @@ def test_bucket_sizes_of_the_125m_drill() -> None:
     assert sorted(set(sizes)) == [787968, 4718592, 7080960, 8262144,
                                   25165824]
     assert sum(sizes) == sum(p.numel() for p in params) == 136091136
+
+
+def test_flash_shapes_reach_every_head_dim() -> None:
+    """The kernels phase checks every instantiation at the attention shape
+    of the model that reaches it and times each at one shape; the models'
+    own shapes are among them."""
+    smoke = _smoke()
+    assert smoke.HEAD_DIMS == flash.KERNEL_HEAD_DIMS
+    shapes = smoke.FLASH_SHAPES
+    assert sorted({shape[3] for _, shape, _ in shapes}) == \
+        list(smoke.HEAD_DIMS)
+    for d in smoke.HEAD_DIMS:
+        assert sum(1 for _, shape, t in shapes if t and shape[3] == d) == 1
+    for name in ("tiny", "125m", "1b"):
+        cfg = CONFIGS[name]
+        assert (name, (8 if name != "1b" else 1, cfg.max_seq_len,
+                       cfg.n_heads, cfg.head_dim)) in \
+            {(w, shape) for w, shape, _ in shapes}
+    assert smoke.PHASES == ("kernels", "train", "train_cuda_int8",
+                            "train_tiny", "gpt_1b")
+    assert all(n in {k for k, v in GPT(CONFIGS["1b"], device="meta")
+                     .named_parameters()} for n in smoke.GRAD_SAMPLE)
+
+
+def test_launches_add_to_the_head_dim_of_the_phase() -> None:
+    smoke = _smoke()
+    rows = {"flash_fwd": {"launches": 0, "per_head_dim": [
+        {"head_dim": d, "launches": 0} for d in smoke.HEAD_DIMS]},
+        "quant_int8": {"launches": 0}}
+    smoke._add_launches(rows, {"flash_fwd": 156}, 64)
+    smoke._add_launches(rows, {"flash_fwd": 26, "flash_bwd_dq": 26}, 16)
+    smoke._add_launches(rows, {"quant_int8": 180}, 64)
+    assert rows["flash_fwd"]["launches"] == 182
+    assert [r["launches"] for r in rows["flash_fwd"]["per_head_dim"]] == \
+        [26, 0, 156, 0]
+    assert rows["quant_int8"]["launches"] == 180
 
 
 def test_attention_bounds_at_125m() -> None:

@@ -3,7 +3,8 @@
 Inputs come from numpy with a fixed seed and go through both packages: the
 JAX kernels in interpret mode (in both regimes: resident K/V, and streamed
 with ``_resident_kv_bytes=0``), the port's plain PyTorch versions on the
-CPU. Tolerances: f32 <= 1e-5 in the forward and <= 1e-4 in the gradients
+CPU; at head_dim 64 and at the other head sizes the kernels take (16, 32,
+128). Tolerances: f32 <= 1e-5 in the forward and <= 1e-4 in the gradients
 (summation order only); bf16 <= 2e-2 (bf16 rounding of the outputs).
 The hand-written CUDA kernels are held against the same plain versions on
 the card by tests/test_torch_cuda.py and by chip_smoke.py.
@@ -70,6 +71,22 @@ def test_flash_f32_matches_pallas(causal, threshold) -> None:
                                               jnp.float32)
     t_out, t_grads = _torch_attention_and_grads(q, k, v, do, causal,
                                                 torch.float32)
+    assert _max_err(t_out, j_out) <= F32_FWD
+    for tg, jg in zip(t_grads, j_grads):
+        assert _max_err(tg, jg) <= F32_GRAD
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 128])
+def test_flash_f32_matches_pallas_at_head_dim(d, causal) -> None:
+    """The other head sizes the kernels take: 16 ("tiny"), 32 (the
+    reference's own test shape) and 128 ("1b"), forward and gradients."""
+    q, k, v, do = _inputs(10 + d, shape=(1, 256, 2, d))
+    j_out, j_grads = _jax_attention_and_grads(q, k, v, do, causal, None,
+                                              jnp.float32)
+    t_out, t_grads = _torch_attention_and_grads(q, k, v, do, causal,
+                                                torch.float32)
+    assert t_out.shape == (1, 256, 2, d)
     assert _max_err(t_out, j_out) <= F32_FWD
     for tg, jg in zip(t_grads, j_grads):
         assert _max_err(tg, jg) <= F32_GRAD

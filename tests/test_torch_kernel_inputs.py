@@ -8,7 +8,9 @@ never reach the library the wrappers load. A fake ``nvcc`` stands in for
 the CUDA toolkit. The plain versions the wrappers run on the CPU are held
 against the JAX package's flash attention (interpret mode) at S = 192, a
 length the kernels take in one 192-row forward block and one and a half
-128-key dK/dV blocks.
+128-key dK/dV blocks. The example's ``train_group`` refuses a CUDA run of
+a config whose head_dim the kernels do not take before it builds
+anything, which needs no card to check.
 """
 
 import os
@@ -22,6 +24,8 @@ import torch
 import jax.numpy as jnp
 
 from torchft_tpu.ops import flash as jflash
+from torchft_tpu_torch.examples.train_ddp import train_group
+from torchft_tpu_torch.models import CONFIGS, TransformerConfig
 from torchft_tpu_torch.ops import _build, flash
 
 F32_FWD = 1e-5  # plain vs Pallas interpret, f32: summation order only
@@ -31,9 +35,10 @@ def _bf16(shape):
     return torch.zeros(shape, dtype=torch.bfloat16)
 
 
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("s", [64, 128, 192, 1024])
-def test_kernel_inputs_accept_any_multiple_of_64(s) -> None:
-    q = _bf16((1, s, 3, 64))
+def test_kernel_inputs_accept_any_multiple_of_64(s, d) -> None:
+    q = _bf16((1, s, 3, d))
     flash._check_kernel_inputs("flash_fwd", q, q.clone(), q.clone())
     lse = torch.zeros((1, 3, s))
     flash._check_kernel_inputs("flash_bwd_dkv", q, q, q, q, lse, lse.clone())
@@ -45,8 +50,8 @@ def test_kernel_inputs_accept_any_multiple_of_64(s) -> None:
     ("s32", "multiple of 64"),
     ("f32", "bf16"),
     ("f16", "bf16"),
-    ("head_dim32", "head_dim 64"),
-    ("head_dim128", "head_dim 64"),
+    ("head_dim48", "got head_dim 48"),
+    ("head_dim256", "got head_dim 256"),
     ("shape_mismatch", "one shape"),
     ("rank3", r"\[B, S, H, D\]"),
     ("strided", "contiguous"),
@@ -62,10 +67,10 @@ def test_kernel_inputs_refuse(case, match) -> None:
         args = [q.float()] * 3
     elif case == "f16":
         args = [q, q.half(), q]
-    elif case == "head_dim32":
-        args = [_bf16((2, 128, 3, 32))] * 3
-    elif case == "head_dim128":
-        args = [_bf16((2, 128, 3, 128))] * 3
+    elif case == "head_dim48":
+        args = [_bf16((2, 128, 3, 48))] * 3
+    elif case == "head_dim256":
+        args = [_bf16((2, 128, 3, 256))] * 3
     elif case == "shape_mismatch":
         args = [q, _bf16((2, 128, 2, 64)), q]
     elif case == "rank3":
@@ -101,6 +106,27 @@ def test_plain_at_s192_matches_jax(causal) -> None:
         block_k=64)
     assert lse.shape == (1, 3, 192)
     assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) <= F32_FWD
+
+
+def test_kernel_head_dims_cover_every_config() -> None:
+    """Every model config of the port has a head_dim the kernels take."""
+    assert flash.KERNEL_HEAD_DIMS == (16, 32, 64, 128)
+    for name, cfg in CONFIGS.items():
+        flash.check_head_dim(name, cfg.head_dim)
+
+
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_train_group_refuses_a_head_dim_the_kernels_do_not_take(
+        device) -> None:
+    """A CUDA run (the default device) of a config with head_dim 48 stops
+    in train_group before anything is built: no card is needed for it to
+    raise, and the message names the head_dim."""
+    cfg = TransformerConfig(vocab_size=64, d_model=96, n_layers=1,
+                            n_heads=2, d_ff=64, max_seq_len=64)
+    assert cfg.head_dim == 48
+    with pytest.raises(ValueError, match="got head_dim 48"):
+        train_group(cfg, replica_group=0, num_groups=1, total_steps=1,
+                    device=device)
 
 
 # ------------------------------------------------------------------ build

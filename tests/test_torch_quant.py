@@ -18,7 +18,12 @@ reference:
   must handle (chip_smoke.py's ``quant_cases``): rows of x and of q that
   start unaligned, n = 1, step - 1, step and step + 1, a NaN in the last
   slice of a chunk, and the int8 drill's five DDP bucket sizes at both
-  phases' shapes, on a small grid.
+  phases' shapes, on a small grid;
+- ``dequant_acc_int8`` against the host codec's ``decode_into`` in rank
+  order, bitwise, where the kernel's 16-element runs meet a boundary
+  (chip_smoke.py's ``dequant_cases``): chunk and shard boundaries and
+  ``valid`` inside a run, rows of q off 16-byte alignment, fewer elements
+  than a run.
 """
 
 import importlib.util
@@ -272,3 +277,52 @@ def test_reciprocal_shortcut_rounds_as_the_exact_division() -> None:
     share = slow / total
     print(f"exact division taken for {share:.6%} of {total} values")
     assert 0 < share < 1e-3
+
+
+def _codec_dequant(q: torch.Tensor, s: torch.Tensor, step: int, valid: int,
+                   seg=None, cps: int = 0, divisor: int = 0) -> np.ndarray:
+    """The decode-accumulate through the host codec: every chunk of every
+    source decoded by ``_Int8Codec.decode_into`` (its scale, then its int8
+    values) and added in rank order, then the f32 division; 0 past
+    ``valid``."""
+    qn, sn = q.numpy(), s.numpy()
+    n = qn.shape[1]
+    seg = n if seg is None else seg
+    cps = cps or quant.n_chunks(seg, step)
+    codec = _Int8Codec()
+    out = np.zeros(n, np.float32)
+    for r in range(qn.shape[0]):
+        for g in range(quant.n_chunks(valid, seg)):
+            for c in range(cps):
+                a = g * seg + c * step
+                b = min(g * seg + min((c + 1) * step, seg), valid)
+                if a >= b:
+                    break
+                enc = sn[r, g * cps + c].tobytes() + qn[r, a:b].tobytes()
+                codec.decode_into(enc, [out[a:b]],
+                                  lambda v, inc: np.add(v, inc, out=v))
+    if divisor:
+        out[:valid] = out[:valid] / np.float32(divisor)
+    return out
+
+
+_RUN_CASES = ("step inside runs, AVG",
+              "rows off 16-byte alignment, valid inside a run",
+              "shard grid, seg inside runs", "fewer elements than a run")
+
+
+@pytest.mark.parametrize("what", _RUN_CASES)
+def test_dequant_plain_matches_host_codec_at_run_boundaries(what) -> None:
+    """On a grid of 1000 (no multiple of 16, so chunk starts fall inside
+    the kernel's 16-element runs): the cases of chip_smoke.py's
+    ``dequant_cases`` that the kernel handles apart from its plain runs."""
+    cases = {w: rest for w, *rest in _smoke().dequant_cases(1000, 7, "cpu")}
+    assert tuple(cases) == _RUN_CASES
+    q, s, kw = cases[what]
+    if what.startswith("rows off"):
+        assert q.storage_offset() % 16 == 3 and q.stride(0) % 16 != 0
+    if what.startswith("shard"):
+        assert kw["seg"] % 16 and 1000 % 16
+    got = quant.dequant_acc_int8(q, s, 1000, **kw)
+    want = _codec_dequant(q, s, 1000, **kw)
+    assert got.numpy().tobytes() == want.tobytes()

@@ -15,14 +15,15 @@
 // operations bound by a hair. The hi + lo split doubles the dS K product,
 // so the tensor cores see 25.8 GFLOP (26.1 us at peak).
 //
-// Design (hopper.cuh): seen from the queries, dQ has the forward's shape
-// without its online softmax (lse and Delta are given, nothing rescales).
-// One block of kDqConsumers + 1 warpgroups per kDqConsumers x 64 queries of
-// one (batch, head), the heaviest causal blocks first. The last warpgroup
+// Design (hopper.cuh), templated on the head size D (DqTraits): seen from
+// the queries, dQ has the forward's shape without its online softmax (lse
+// and Delta are given, nothing rescales). One block of C + 1 warpgroups
+// per C x 64 queries of one (batch, head), C = 3 consumers at D <= 64 and
+// 2 at D = 128, the heaviest causal blocks first. The last warpgroup
 // is the producer: it gives its registers back, loads the block's Q and dO
 // tiles once by TMA with their lse and Delta slices (1-D bulk copies), then
 // streams K and V tiles from key tile 0 up to the causal diagonal through a
-// ring of kDqStages slots under full and empty mbarriers. Each consumer
+// ring of kStages slots under full and empty mbarriers. Each consumer
 // warpgroup owns 64 queries: S = Q K^T and dP = dO V^T run on wgmma with Q,
 // dO and the slot's K and V all K-major in shared memory; P = exp2 of the
 // log2(e)-prescaled scores less lse (the mask on the diagonal tile only)
@@ -30,10 +31,11 @@
 // straight from those registers (the forward's layout for P) and reads K
 // MN-major from the same slot. The next tile's S and dP are issued right
 // behind that product, so a warpgroup's 16 multiplies of a tile reach the
-// tensor cores back to back. When S is not a multiple of 192 the last
-// block holds 64 or 128 queries and its idle warpgroups return at once.
-// Registers per consumer thread: dQ, S and dP take 32 f32 each and the
-// split dS 32 more, which fits the 160 that three consumers get. Three
+// tensor cores back to back. When S is not a multiple of C x 64 the last
+// block holds fewer queries and its idle warpgroups return at once.
+// Registers per consumer thread: dQ takes D / 2 f32, S and dP 32 each and
+// the split dS 32 more: at D <= 64 that fits the 160 that three consumers
+// get, at D = 128 (160 live) the 240 of two. Three
 // measured 7% faster than two at the 125m shape (kernel_ab.py): as in the
 // forward, a warpgroup's per-tile chain (wait, exp2, split, issue) is
 // latency-bound, and a third one hides more of it. That chain, the 64 x 64
@@ -42,23 +44,25 @@
 
 namespace tft {
 
-constexpr int kDqConsumers = 3;  // warpgroups of 64 queries a block
-constexpr int kDqRows = kDqConsumers * kTile;
-constexpr int kDqStages = 3;
-constexpr int kDqThreads = 128 * (kDqConsumers + 1);
-// registers a consumer thread claims once the producer keeps 24: the SM's
-// 65,536 less the producer's, over the consumers, a multiple of 8, <= 240
-constexpr int kDqSpareRegs = (65536 - 128 * 24) / (128 * kDqConsumers);
-constexpr int kDqRegs = kDqSpareRegs >= 240 ? 240 : kDqSpareRegs / 8 * 8;
-constexpr int kDqStatBytes = kTile * 4;  // one tile's lse or Delta slice
-constexpr int kDqSmem = (2 * kDqConsumers + 2 * kDqStages) * kTileBytes +
-                        2 * kDqConsumers * kDqStatBytes +
-                        8 * (1 + 2 * kDqStages) + 1024;
-// a warpgroup that stops before the last key tiles never releases their
-// slots, so the ring must hold every tile past the first stopper's
-static_assert(kDqStages >= kDqConsumers, "ring shorter than a block");
+template <int D>
+struct DqTraits {
+  static constexpr int kConsumers = D == 128 ? 2 : 3;  // 64-query warpgroups
+  static constexpr int kRows = kConsumers * kTile;     // queries a block
+  static constexpr int kStages = 3;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kRegs = consumer_regs(kConsumers);
+  static constexpr int kStatBytes = kTile * 4;  // one tile's lse or Delta
+  static constexpr int kTileBytes = TileLayout<D>::kBytes;
+  static constexpr int kSmem = (2 * kConsumers + 2 * kStages) * kTileBytes +
+                               2 * kConsumers * kStatBytes +
+                               8 * (1 + 2 * kStages) + 1024;
+  // a warpgroup that stops before the last key tiles never releases their
+  // slots, so the ring must hold every tile past the first stopper's
+  static_assert(kStages >= kConsumers, "ring shorter than a block");
+};
 
-__global__ void __launch_bounds__(kDqThreads, 1)
+template <int D>
+__global__ void __launch_bounds__(DqTraits<D>::kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
                         const __grid_constant__ CUtensorMap map_v,
@@ -67,28 +71,31 @@ __global__ void __launch_bounds__(kDqThreads, 1)
                         const float* __restrict__ delta, bf16* __restrict__ dq,
                         int S, int H, float scale, float scale_log2,
                         int causal) {
+  using T = DqTraits<D>;
+  constexpr int kConsumers = T::kConsumers, kStages = T::kStages;
+  constexpr int kTileBytes = T::kTileBytes, kStatBytes = T::kStatBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = smem_base_1k(smem_raw);
-  uint8_t* sO = sQ + kDqConsumers * kTileBytes;  // dO tiles
-  uint8_t* sK = sO + kDqConsumers * kTileBytes;
-  uint8_t* sV = sK + kDqStages * kTileBytes;
-  float* sL = reinterpret_cast<float*>(sV + kDqStages * kTileBytes);
-  float* sD = sL + kDqConsumers * kTile;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sD + kDqConsumers * kTile);
+  uint8_t* sO = sQ + kConsumers * kTileBytes;  // dO tiles
+  uint8_t* sK = sO + kConsumers * kTileBytes;
+  uint8_t* sV = sK + kStages * kTileBytes;
+  float* sL = reinterpret_cast<float*>(sV + kStages * kTileBytes);
+  float* sD = sL + kConsumers * kTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sD + kConsumers * kTile);
   uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kDqStages;
+  uint64_t* empty = full + kStages;
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int qb = gridDim.y - 1 - blockIdx.y;  // heaviest causal block first
-  const int row0 = qb * kDqRows;
-  const int n_wg = min(kDqConsumers, (S - row0) / kTile);
+  const int row0 = qb * T::kRows;
+  const int n_wg = min(kConsumers, (S - row0) / kTile);
   const int nk = S / kTile;
-  const int n_kv = causal ? min(nk, kDqConsumers * qb + n_wg) : nk;
+  const int n_kv = causal ? min(nk, kConsumers * qb + n_wg) : nk;
   const int wg = warpgroup();
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kDqStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4 * n_wg);  // one arrival per consumer warp
     }
@@ -96,45 +103,45 @@ __global__ void __launch_bounds__(kDqThreads, 1)
   }
   __syncthreads();
 
-  if (wg == kDqConsumers) {  // producer
+  if (wg == kConsumers) {  // producer
     regs_release<24>();
-    if (threadIdx.x == 128 * kDqConsumers) {
-      const int col = h * kHeadDim, grow = b * S;
-      mbar_expect_tx(q_full, n_wg * (2 * kTileBytes + 2 * kDqStatBytes));
+    if (threadIdx.x == 128 * kConsumers) {
+      const int col = h * D, grow = b * S;
+      mbar_expect_tx(q_full, n_wg * (2 * kTileBytes + 2 * kStatBytes));
       for (int w = 0; w < n_wg; ++w) {
-        tma_load_2d(sQ + w * kTileBytes, &map_q, col, grow + row0 + w * kTile,
-                    q_full);
-        tma_load_2d(sO + w * kTileBytes, &map_do, col,
-                    grow + row0 + w * kTile, q_full);
+        tma_load_tile<D>(sQ + w * kTileBytes, &map_q, col,
+                         grow + row0 + w * kTile, q_full);
+        tma_load_tile<D>(sO + w * kTileBytes, &map_do, col,
+                         grow + row0 + w * kTile, q_full);
       }
       const size_t at = (size_t)bh * S + row0;
-      bulk_load(sL, lse + at, n_wg * kDqStatBytes, q_full);
-      bulk_load(sD, delta + at, n_wg * kDqStatBytes, q_full);
+      bulk_load(sL, lse + at, n_wg * kStatBytes, q_full);
+      bulk_load(sD, delta + at, n_wg * kStatBytes, q_full);
       for (int t = 0; t < n_kv; ++t) {
-        const int s = t % kDqStages;
-        if (t >= kDqStages) mbar_wait(&empty[s], ((t / kDqStages) + 1) & 1);
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[s], ((t / kStages) + 1) & 1);
         mbar_expect_tx(&full[s], 2 * kTileBytes);
-        tma_load_2d(sK + s * kTileBytes, &map_k, col, grow + t * kTile,
-                    &full[s]);
-        tma_load_2d(sV + s * kTileBytes, &map_v, col, grow + t * kTile,
-                    &full[s]);
+        tma_load_tile<D>(sK + s * kTileBytes, &map_k, col, grow + t * kTile,
+                         &full[s]);
+        tma_load_tile<D>(sV + s * kTileBytes, &map_v, col, grow + t * kTile,
+                         &full[s]);
       }
     }
     return;
   }
-  regs_claim<kDqRegs>();
+  regs_claim<T::kRegs>();
   if (wg >= n_wg) return;
 
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;
-  const int qt = kDqConsumers * qb + wg;      // this warpgroup's query tile
+  const int qt = kConsumers * qb + wg;        // this warpgroup's query tile
   const int upper = causal ? qt + 1 : nk;     // key tiles attended
 
   const uint8_t* tq = sQ + wg * kTileBytes;
   const uint8_t* to = sO + wg * kTileBytes;
-  float dqa[32], sc[32], dp[32];
+  float dqa[D / 2], sc[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
   uint32_t dhi[4][4], dlo[4][4];
 
   mbar_wait(q_full, 0);
@@ -146,15 +153,15 @@ __global__ void __launch_bounds__(kDqThreads, 1)
 
   // S = Q K^T and dP = dO V^T of key tile t.
   auto issue_scores = [&](int t) {
-    const int s = t % kDqStages;
-    mbar_wait(&full[s], (t / kDqStages) & 1);
-    wgmma_abt_ss(sc, tq, sK + s * kTileBytes);
-    wgmma_abt_ss(dp, to, sV + s * kTileBytes);
+    const int s = t % kStages;
+    mbar_wait(&full[s], (t / kStages) & 1);
+    wgmma_abt_ss<D>(sc, tq, sK + s * kTileBytes);
+    wgmma_abt_ss<D>(dp, to, sV + s * kTileBytes);
     wgmma_commit();
   };
   // With tile t's scores in: P and dS, then dQ += dS K issued.
   auto grads = [&](int t) {
-    const int s = t % kDqStages;
+    const int s = t % kStages;
     const bool on_diag = causal && t == qt;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -190,14 +197,42 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     grads(t);
     issue_scores(t + 1);
     settle();
-    if (lane == 0) mbar_arrive(&empty[t % kDqStages]);
+    if (lane == 0) mbar_arrive(&empty[t % kStages]);
   }
   grads(upper - 1);
   settle();
 
-  const int ld = H * kHeadDim;
-  store_acc(dq + (size_t)(b * S + row0 + wg * kTile) * ld + h * kHeadDim, ld,
-            dqa, scale, scale, warp, g, t4);
+  const int ld = H * D;
+  store_acc(dq + (size_t)(b * S + row0 + wg * kTile) * ld + h * D, ld, dqa,
+            scale, scale, warp, g, t4);
+}
+
+template <int D>
+static int launch_dq(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dq, int B, int S, int H, float scale, int causal,
+                     cudaStream_t stream) {
+  using T = DqTraits<D>;
+  const int nblk = (S + T::kRows - 1) / T::kRows;
+  if (B <= 0 || H <= 0 || S <= 0 || S % kTile != 0 || nblk > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)B * S, cols = (long long)H * D;
+  CUtensorMap mq, mk, mv, mdo;
+  int rc;
+  if ((rc = make_tile_map<D>(&mq, q, rows, cols)) != 0) return rc;
+  if ((rc = make_tile_map<D>(&mk, k, rows, cols)) != 0) return rc;
+  if ((rc = make_tile_map<D>(&mv, v, rows, cols)) != 0) return rc;
+  if ((rc = make_tile_map<D>(&mdo, dout, rows, cols)) != 0) return rc;
+  static std::atomic<uint64_t> smem_set{0};
+  if ((rc = func_attr_once(flash_bwd_dq_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           T::kSmem, smem_set)) != 0)
+    return rc;
+  dim3 grid(B * H, nblk);
+  flash_bwd_dq_kernel<D><<<grid, T::kThreads, T::kSmem, stream>>>(
+      mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (bf16*)dq, S,
+      H, scale, scale * kLog2e, causal);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace tft
@@ -207,26 +242,9 @@ extern "C" int tft_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* delta, void* dq, int B, int S,
                                 int H, int D, float scale, int causal,
                                 void* stream) {
-  using namespace tft;
-  const int nblk = (S + kDqRows - 1) / kDqRows;
-  if (D != kHeadDim || B <= 0 || H <= 0 || S <= 0 || S % kTile != 0 ||
-      nblk > 65535)
-    return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)B * S, cols = (long long)H * kHeadDim;
-  CUtensorMap mq, mk, mv, mdo;
-  int rc;
-  if ((rc = make_tile_map(&mq, q, rows, cols)) != 0) return rc;
-  if ((rc = make_tile_map(&mk, k, rows, cols)) != 0) return rc;
-  if ((rc = make_tile_map(&mv, v, rows, cols)) != 0) return rc;
-  if ((rc = make_tile_map(&mdo, dout, rows, cols)) != 0) return rc;
-  static std::atomic<uint64_t> smem_set{0};
-  if ((rc = func_attr_once(flash_bwd_dq_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kDqSmem, smem_set)) != 0)
-    return rc;
-  dim3 grid(B * H, nblk);
-  flash_bwd_dq_kernel<<<grid, kDqThreads, kDqSmem, (cudaStream_t)stream>>>(
-      mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (bf16*)dq, S,
-      H, scale, scale * kLog2e, causal);
-  return (int)cudaGetLastError();
+  return tft::with_head_dim(D, [&](auto d) {
+    return tft::launch_dq<decltype(d)::value>(q, k, v, dout, lse, delta, dq,
+                                              B, S, H, scale, causal,
+                                              (cudaStream_t)stream);
+  });
 }

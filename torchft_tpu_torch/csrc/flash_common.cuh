@@ -3,7 +3,10 @@
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [B, S, H, D] bf16, contiguous; a
 // (batch, head) pair walks rows of stride H*D. lse and delta are [B, H, S]
-// f32. Tiles are 64 rows (queries or keys) by D = 64.
+// f32. Tiles are 64 rows (queries or keys) by D. The head size D is a
+// template parameter of every kernel, instantiated at 16, 32, 64 and 128
+// (hopper.cuh's TileLayout); each entry point dispatches on it and returns
+// cudaErrorInvalidValue for any other.
 //
 // The operands that the JAX reference keeps in f32 (the probabilities P and
 // the score gradient dS) enter the tensor cores as a two-term bf16 split,
@@ -25,7 +28,6 @@ namespace tft {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kTile = 64;             // rows of a q tile and of a k/v tile
-constexpr int kHeadDim = 64;          // the only head size these kernels take
 constexpr float kNegInf = -1e30f;     // the reference's mask value
 
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {

@@ -14,13 +14,15 @@
 // and the bf16 conversions of the split cost about as much again on the
 // SM's other units.
 //
-// Design (hopper.cuh): one block of four warpgroups per 192 query rows of
-// one (batch, head). Warpgroup 3 is the producer: one thread issues TMA
-// loads of the block's Q tiles, then of the K/V tiles into a ring of
-// kFwdStages slots, each guarded by a full and an empty mbarrier, so the
-// copies run while the tensor cores work; it hands its registers to the
-// consumers (setmaxnreg: 24 for it, 160 for each consumer thread).
-// Warpgroups 0-2 own 64 query rows each and run the online softmax in
+// Design (hopper.cuh), templated on the head size D (FwdTraits): one block
+// of C + 1 warpgroups per C x 64 query rows of one (batch, head), C = 3
+// consumers at D <= 64 and 2 at D = 128. The last warpgroup is the
+// producer: one thread issues TMA loads of the block's Q tiles, then of
+// the K/V tiles into a ring of kStages slots, each guarded by a full and
+// an empty mbarrier, so the copies run while the tensor cores work; it
+// hands its registers to the consumers (setmaxnreg: 24 for it, 160 for
+// each of three consumer threads, 240 for each of two). The consumers own
+// 64 query rows each and run the online softmax in
 // registers: S = Q K^T on wgmma (Q from registers, K from its swizzled
 // tile), the mask only on the diagonal tile, exp2 of log2(e)-prescaled
 // scores, then O += P V as two wgmmas (P's hi and lo halves from the S
@@ -29,51 +31,58 @@
 // softmax overlaps its own P V as well as the other warpgroups' products
 // (FlashAttention-3's intra-warpgroup pipelining). The per-tile chain of a
 // warpgroup is latency-bound, so a third consumer warpgroup (measured 4.5%
-// faster than two at the 125m shape) hides more of it. The grid runs the
-// heaviest causal blocks first; when S is not a multiple of 192 the last
-// block holds 64 or 128 rows and its idle warpgroups return at once. O is
-// written in bf16, lse = m + log(l) in f32, with the reference's l == 0
-// guard.
+// faster than two at the 125m shape) hides more of it. At D = 128 the O
+// accumulator (64 f32 a thread) and Q's fragments (32) double, so a
+// consumer holds ~160 live registers and the block has two consumers of
+// 240. The grid runs the heaviest causal blocks first; when S is not a
+// multiple of C x 64 the last block holds fewer rows and its idle
+// warpgroups return at once. O is written in bf16, lse = m + log(l) in
+// f32, with the reference's l == 0 guard.
 #include "hopper.cuh"
 
 namespace tft {
 
-constexpr int kFwdConsumers = 3;  // warpgroups of 64 query rows a block
-constexpr int kFwdRows = kFwdConsumers * kTile;
-constexpr int kFwdStages = 3;
-constexpr int kFwdThreads = 128 * (kFwdConsumers + 1);
-// registers a consumer thread claims once the producer keeps 24: the SM's
-// 65,536 less the producer's, over the consumers, a multiple of 8, <= 240
-constexpr int kFwdSpareRegs = (65536 - 128 * 24) / (128 * kFwdConsumers);
-constexpr int kFwdRegs = kFwdSpareRegs >= 240 ? 240 : kFwdSpareRegs / 8 * 8;
-constexpr int kFwdSmem = (kFwdConsumers + 2 * kFwdStages) * kTileBytes +
-                         8 * (1 + 2 * kFwdStages) + 1024;
+template <int D>
+struct FwdTraits {
+  static constexpr int kConsumers = D == 128 ? 2 : 3;  // 64-row warpgroups
+  static constexpr int kRows = kConsumers * kTile;     // query rows a block
+  static constexpr int kStages = 3;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kRegs = consumer_regs(kConsumers);
+  static constexpr int kTileBytes = TileLayout<D>::kBytes;
+  static constexpr int kSmem = (kConsumers + 2 * kStages) * kTileBytes +
+                               8 * (1 + 2 * kStages) + 1024;
+};
 
-__global__ void __launch_bounds__(kFwdThreads, 1)
+template <int D>
+__global__ void __launch_bounds__(FwdTraits<D>::kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
                      bf16* __restrict__ o, float* __restrict__ lse, int S,
                      int H, float scale_log2, int causal) {
+  using T = FwdTraits<D>;
+  constexpr int kConsumers = T::kConsumers, kStages = T::kStages;
+  constexpr int kTileBytes = T::kTileBytes, kAcc = D / 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = smem_base_1k(smem_raw);
-  uint8_t* sK = sQ + kFwdConsumers * kTileBytes;
-  uint8_t* sV = sK + kFwdStages * kTileBytes;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kFwdStages * kTileBytes);
+  uint8_t* sK = sQ + kConsumers * kTileBytes;
+  uint8_t* sV = sK + kStages * kTileBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * kTileBytes);
   uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kFwdStages;
+  uint64_t* empty = full + kStages;
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int qb = gridDim.y - 1 - blockIdx.y;  // heaviest causal block first
-  const int row0 = qb * kFwdRows;
-  const int n_wg = min(kFwdConsumers, (S - row0) / kTile);
+  const int row0 = qb * T::kRows;
+  const int n_wg = min(kConsumers, (S - row0) / kTile);
   const int nk = S / kTile;
-  const int n_kv = causal ? min(nk, kFwdConsumers * (qb + 1)) : nk;
+  const int n_kv = causal ? min(nk, kConsumers * (qb + 1)) : nk;
   const int wg = warpgroup();
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kFwdStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4 * n_wg);  // one arrival per consumer warp
     }
@@ -81,41 +90,41 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
   __syncthreads();
 
-  if (wg == kFwdConsumers) {  // producer
+  if (wg == kConsumers) {  // producer
     regs_release<24>();
-    if (threadIdx.x == 128 * kFwdConsumers) {
-      const int col = h * kHeadDim, grow = b * S;
+    if (threadIdx.x == 128 * kConsumers) {
+      const int col = h * D, grow = b * S;
       mbar_expect_tx(q_full, n_wg * kTileBytes);
       for (int w = 0; w < n_wg; ++w)
-        tma_load_2d(sQ + w * kTileBytes, &map_q, col, grow + row0 + w * kTile,
-                    q_full);
+        tma_load_tile<D>(sQ + w * kTileBytes, &map_q, col,
+                         grow + row0 + w * kTile, q_full);
       for (int t = 0; t < n_kv; ++t) {
-        const int s = t % kFwdStages;
-        if (t >= kFwdStages) mbar_wait(&empty[s], ((t / kFwdStages) + 1) & 1);
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[s], ((t / kStages) + 1) & 1);
         mbar_expect_tx(&full[s], 2 * kTileBytes);
-        tma_load_2d(sK + s * kTileBytes, &map_k, col, grow + t * kTile,
-                    &full[s]);
-        tma_load_2d(sV + s * kTileBytes, &map_v, col, grow + t * kTile,
-                    &full[s]);
+        tma_load_tile<D>(sK + s * kTileBytes, &map_k, col, grow + t * kTile,
+                         &full[s]);
+        tma_load_tile<D>(sV + s * kTileBytes, &map_v, col, grow + t * kTile,
+                         &full[s]);
       }
     }
     return;
   }
-  regs_claim<kFwdRegs>();
+  regs_claim<T::kRegs>();
   if (wg >= n_wg) return;
 
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;
-  const int diag = kFwdConsumers * qb + wg;  // key tile of our diagonal
+  const int diag = kConsumers * qb + wg;     // key tile of our diagonal
   const int upper = causal ? diag + 1 : nk;  // key tiles attended
 
   mbar_wait(q_full, 0);
-  uint32_t qa[4][4];
-  load_a_swz(qa, sQ + wg * kTileBytes, 16 * warp + g, t4);
+  uint32_t qa[D / 16][4];
+  load_a_swz<D>(qa, sQ + wg * kTileBytes, 16 * warp + g, t4);
 
-  float acc[32], sc[32];
+  float acc[kAcc], sc[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
   uint32_t hi[4][4], lo[4][4];       // P of the previous tile, split
   float m0 = kNegInf, m1 = kNegInf;  // running row max, log2 units
   float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sum
@@ -160,7 +169,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   // Once the previous P V is done: rescale O and split P for the next one.
   auto rescale_split = [&]() {
 #pragma unroll
-    for (int i = 0; i < 32; i += 4) {
+    for (int i = 0; i < kAcc; i += 4) {
       acc[i] *= al0;
       acc[i + 1] *= al0;
       acc[i + 2] *= al1;
@@ -171,7 +180,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 
   mbar_wait(&full[0], 0);
   wgmma_fence();
-  wgmma_abt(sc, qa, sK);
+  wgmma_abt<D>(sc, qa, sK);
   wgmma_commit();
   wgmma_wait<0>();
   fence_acc(sc);
@@ -180,14 +189,14 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   // Tile t: its Q K^T goes to the tensor cores ahead of the previous tile's
   // P V, so its softmax runs while P V does.
   for (int t = 1; t < upper; ++t) {
-    const int s = t % kFwdStages, sp = (t - 1) % kFwdStages;
-    mbar_wait(&full[s], (t / kFwdStages) & 1);
+    const int s = t % kStages, sp = (t - 1) % kStages;
+    mbar_wait(&full[s], (t / kStages) & 1);
     fence_acc(sc);
     fence_acc(acc);
     fence_frags(hi);
     fence_frags(lo);
     wgmma_fence();
-    wgmma_abt(sc, qa, sK + s * kTileBytes);
+    wgmma_abt<D>(sc, qa, sK + s * kTileBytes);
     wgmma_commit();
     wgmma_split(acc, hi, lo, sV + sp * kTileBytes);
     wgmma_commit();
@@ -203,7 +212,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   fence_frags(hi);
   fence_frags(lo);
   wgmma_fence();
-  wgmma_split(acc, hi, lo, sV + ((upper - 1) % kFwdStages) * kTileBytes);
+  wgmma_split(acc, hi, lo, sV + ((upper - 1) % kStages) * kTileBytes);
   wgmma_commit();
   wgmma_wait<0>();
   fence_acc(acc);
@@ -212,9 +221,9 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   l1 = quad_sum(l1);
   if (l0 == 0.f) l0 = 1.f;
   if (l1 == 0.f) l1 = 1.f;
-  const int ld = H * kHeadDim;
+  const int ld = H * D;
   const int r0 = row0 + wg * kTile;  // this warpgroup's first query
-  store_acc(o + (size_t)(b * S + r0) * ld + h * kHeadDim, ld, acc, 1.f / l0,
+  store_acc(o + (size_t)(b * S + r0) * ld + h * D, ld, acc, 1.f / l0,
             1.f / l1, warp, g, t4);
   if (t4 == 0) {
     const int r = r0 + 16 * warp + g;
@@ -223,29 +232,39 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
 }
 
+template <int D>
+static int launch_fwd(const void* q, const void* k, const void* v, void* o,
+                      void* lse, int B, int S, int H, float scale, int causal,
+                      cudaStream_t stream) {
+  using T = FwdTraits<D>;
+  const int nblk = (S + T::kRows - 1) / T::kRows;
+  if (B <= 0 || H <= 0 || S <= 0 || S % kTile != 0 || nblk > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)B * S, cols = (long long)H * D;
+  CUtensorMap mq, mk, mv;
+  int rc;
+  if ((rc = make_tile_map<D>(&mq, q, rows, cols)) != 0) return rc;
+  if ((rc = make_tile_map<D>(&mk, k, rows, cols)) != 0) return rc;
+  if ((rc = make_tile_map<D>(&mv, v, rows, cols)) != 0) return rc;
+  static std::atomic<uint64_t> smem_set{0};
+  if ((rc = func_attr_once(flash_fwd_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           T::kSmem, smem_set)) != 0)
+    return rc;
+  dim3 grid(B * H, nblk);
+  flash_fwd_kernel<D><<<grid, T::kThreads, T::kSmem, stream>>>(
+      mq, mk, mv, (bf16*)o, (float*)lse, S, H, scale * kLog2e, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tft
 
 extern "C" int tft_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int S, int H, int D,
                              float scale, int causal, void* stream) {
-  using namespace tft;
-  const int nblk = (S + kFwdRows - 1) / kFwdRows;
-  if (D != kHeadDim || B <= 0 || H <= 0 || S <= 0 || S % kTile != 0 ||
-      nblk > 65535)
-    return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)B * S, cols = (long long)H * kHeadDim;
-  CUtensorMap mq, mk, mv;
-  int rc;
-  if ((rc = make_tile_map(&mq, q, rows, cols)) != 0) return rc;
-  if ((rc = make_tile_map(&mk, k, rows, cols)) != 0) return rc;
-  if ((rc = make_tile_map(&mv, v, rows, cols)) != 0) return rc;
-  static std::atomic<uint64_t> smem_set{0};
-  if ((rc = func_attr_once(flash_fwd_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kFwdSmem, smem_set)) != 0)
-    return rc;
-  dim3 grid(B * H, nblk);
-  flash_fwd_kernel<<<grid, kFwdThreads, kFwdSmem, (cudaStream_t)stream>>>(
-      mq, mk, mv, (bf16*)o, (float*)lse, S, H, scale * kLog2e, causal);
-  return (int)cudaGetLastError();
+  return tft::with_head_dim(D, [&](auto d) {
+    return tft::launch_fwd<decltype(d)::value>(q, k, v, o, lse, B, S, H,
+                                               scale, causal,
+                                               (cudaStream_t)stream);
+  });
 }

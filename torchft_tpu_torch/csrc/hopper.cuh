@@ -2,14 +2,18 @@
 // loads, warpgroup matrix multiplies (wgmma), register hand-over, and
 // kernel attributes set once per device.
 //
-// Operand tiles are 64 rows x 64 bf16 (128 bytes a row), loaded by TMA with
-// the 128-byte swizzle: the 16-byte chunk c of row r lands at chunk
-// c ^ (r % 8), in a tile aligned to 1024 bytes. wgmma reads the same tiles
-// through shared-memory descriptors of that layout, either K-major (the 64
-// values of a row are the reduction dimension: S = Q K^T reads K so) or
-// MN-major (the rows are the reduction dimension: O += P V reads V so). A
-// operands come from registers, in the mma.sync m16n8k16 fragment layout of
-// each warp's 16 rows; accumulators are m64n64 f32, 32 per thread.
+// Operand tiles are 64 rows x D bf16, D the head size (16, 32, 64 or 128;
+// TileLayout<D>), loaded by TMA with the swizzle whose span is a row's
+// bytes, at most 128: 32 bytes at D = 16, 64 at D = 32, 128 at D = 64.
+// The 16-byte chunk c of row r lands at chunk c ^ ((r * span / 128) %
+// (span / 16)), in a tile aligned to 1024 bytes. A D = 128 tile is two
+// 64-column sub-tiles of the 128-byte layout, one after the other (two TMA
+// boxes). wgmma reads the same tiles through shared-memory descriptors of
+// that layout, either K-major (the D values of a row are the reduction
+// dimension: S = Q K^T reads K so, D / 16 k-steps) or MN-major (the rows
+// are the reduction dimension: O += P V reads V so, N = D). A operands
+// come from registers, in the mma.sync m16n8k16 fragment layout of each
+// warp's 16 rows; an m64nN accumulator is N / 2 f32 per thread.
 #pragma once
 
 #include <cuda.h>
@@ -17,14 +21,28 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "flash_common.cuh"
 
 namespace tft {
 
-constexpr int kTileBytes = kTile * kHeadDim * 2;  // one 64 x 64 bf16 tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// The shared-memory layout of a 64 x D bf16 tile.
+template <int D>
+struct TileLayout {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "the kernels take head sizes 16, 32, 64 and 128");
+  static constexpr int kSpan = D >= 64 ? 128 : 2 * D;  // swizzle span, bytes
+  static constexpr int kSubCols = kSpan / 2;       // columns of a sub-tile
+  static constexpr int kSubBytes = kTile * kSpan;  // one 64-row sub-tile
+  static constexpr int kSubs = D / kSubCols;       // 2 at D = 128, else 1
+  static constexpr int kBytes = kTile * D * 2;     // the whole tile
+  // descriptor layout type: 1 = SWIZZLE_128B, 2 = 64B, 3 = 32B
+  static constexpr uint64_t kDescLayout = kSpan == 128 ? 1 : kSpan == 64 ? 2 : 3;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -89,6 +107,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A 64 x D tile from column `col`, row `row` of a map made by
+// make_tile_map<D>: one box per sub-tile.
+template <int D>
+__device__ __forceinline__ void tma_load_tile(uint8_t* dst,
+                                              const CUtensorMap* map, int col,
+                                              int row, uint64_t* bar) {
+  using L = TileLayout<D>;
+#pragma unroll
+  for (int s = 0; s < L::kSubs; ++s)
+    tma_load_2d(dst + s * L::kSubBytes, map, col + s * L::kSubCols, row, bar);
+}
+
 // A contiguous run of `bytes` (a multiple of 16, both ends 16-byte aligned).
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
@@ -120,6 +150,15 @@ __device__ __forceinline__ void regs_claim() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
+// Registers a consumer thread of a block of `consumers` warpgroups claims
+// once the producer keeps 24: the SM's 65,536 less the producer's, over
+// the consumers, a multiple of 8, at most 240.
+constexpr int consumer_regs(int consumers) {
+  return (65536 - 128 * 24) / (128 * consumers) >= 240
+             ? 240
+             : (65536 - 128 * 24) / (128 * consumers) / 8 * 8;
+}
+
 // ------------------------------------------------------------------- wgmma
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -137,50 +176,103 @@ __device__ __forceinline__ void wgmma_wait() {
 // the wgmma instructions (volatile asm keeps its order): before a
 // wgmma_fence, so that every value a multiply reads is computed by then,
 // and after a wgmma_wait, so that nothing reads a result early.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
+template <int K>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[K][4]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < 4 * K; ++i)
     asm volatile("" : "+r"(a[i / 4][i % 4]) :: "memory");
 }
 
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1 =
-// SWIZZLE_128B.
+// Fresh zeros in an accumulator's registers, in program order (after a
+// wgmma_wait): its old values then die where they were last read, where a
+// product's "+f" operands would keep them live up to the product that
+// overwrites them.
+template <int N>
+__device__ __forceinline__ void clear_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("mov.f32 %0, 0f00000000;\n" : "=f"(d[i]) :: "memory");
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), layout type (TileLayout::kDescLayout).
 __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo, uint64_t layout) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
          ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         (1ull << 62);
+         (layout << 62);
 }
 
-// K-major tile (rows are M or N, a row's 64 values are K): k-step kk starts
-// 32 bytes further into every row; 8-row groups are 1024 bytes apart.
+// K-major 64 x D tile (rows are M or N, a row's D values are K): k-step kk
+// starts 32 bytes further into every row, in the next sub-tile past 64
+// columns; 8-row groups are 8 spans apart.
+template <int D>
 __device__ __forceinline__ uint64_t desc_kmajor(const uint8_t* tile, int kk) {
-  return smem_desc(tile + kk * 32, 16, 1024);
+  using L = TileLayout<D>;
+  const int col = 16 * kk;
+  return smem_desc(tile + (col / L::kSubCols) * L::kSubBytes +
+                       (col % L::kSubCols) * 2,
+                   16, 8 * L::kSpan, L::kDescLayout);
 }
 
-// MN-major tile (rows are K, a row's 64 values are N): k-step kk starts 16
-// rows further; the two 8-row groups of a step are 1024 bytes apart. N = 64
-// is one swizzle atom wide, so the leading offset is never used.
+// MN-major 64 x D tile (rows are K, a row's D values are N): k-step kk
+// starts 16 rows further; the two 8-row groups of a step are 8 spans
+// apart (stride offset), and the swizzle atoms across N one sub-tile apart
+// (leading offset; used only at D = 128, where N spans two atoms).
+template <int D>
 __device__ __forceinline__ uint64_t desc_mnmajor(const uint8_t* tile, int kk) {
-  return smem_desc(tile + kk * 2048, kTileBytes, 1024);
+  using L = TileLayout<D>;
+  return smem_desc(tile + kk * 16 * L::kSpan, L::kSubBytes, 8 * L::kSpan,
+                   L::kDescLayout);
 }
 
-#define TFT_ACC32(d)                                                        \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-      "+f"(d[31])
+#define TFT_ACC8(d, o)                                                   \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),            \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define TFT_RS_IN(a, desc_b, accumulate, trans)                           \
+  "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),                \
+      "r"(accumulate), "n"(trans)
 
-// d (64 x 64 f32) = A (64 x 16 bf16, registers) B (16 x 64 bf16, shared)
-// + (accumulate ? d : 0). TRANS_B = 0: B is K-major, 1: MN-major.
+// d (64 x N f32, N / 2 a thread) = A (64 x 16 bf16, registers) B (16 x N
+// bf16, shared) + (accumulate ? d : 0), N = 16, 32, 64 or 128 from d's
+// size. TRANS_B = 0: B is K-major, 1: MN-major.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+      "}\n"
+      : TFT_ACC8(d, 0)
+      : TFT_RS_IN(a, desc_b, accumulate, TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : TFT_ACC8(d, 0), TFT_ACC8(d, 8)
+      : TFT_RS_IN(a, desc_b, accumulate, TRANS_B));
+}
+
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],
@@ -196,13 +288,36 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
       "}\n"
-      : TFT_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate), "n"(TRANS_B));
+      : TFT_ACC8(d, 0), TFT_ACC8(d, 8), TFT_ACC8(d, 16), TFT_ACC8(d, 24)
+      : TFT_RS_IN(a, desc_b, accumulate, TRANS_B));
 }
 
-// d = A B + (accumulate ? d : 0) with A (64 x 16) and B (16 x 64) both
-// K-major tiles in shared memory.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : TFT_ACC8(d, 0), TFT_ACC8(d, 8), TFT_ACC8(d, 16), TFT_ACC8(d, 24),
+        TFT_ACC8(d, 32), TFT_ACC8(d, 40), TFT_ACC8(d, 48), TFT_ACC8(d, 56)
+      : TFT_RS_IN(a, desc_b, accumulate, TRANS_B));
+}
+
+// d (64 x 64) = A B + (accumulate ? d : 0) with A (64 x 16) and B (16 x
+// 64) both K-major tiles in shared memory.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
                                          uint64_t desc_b, int accumulate) {
   asm volatile(
@@ -216,30 +331,37 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, 0, 0;\n"
       "}\n"
-      : TFT_ACC32(d)
+      : TFT_ACC8(d, 0), TFT_ACC8(d, 8), TFT_ACC8(d, 16), TFT_ACC8(d, 24)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-#undef TFT_ACC32
+#undef TFT_ACC8
+#undef TFT_RS_IN
 
 // ------------------------------------------------------ register fragments
 
-// bf16 pair (r, c..c+1) of a swizzled 64 x 64 tile (c even).
+// bf16 pair (r, c..c+1) of a swizzled 64 x D tile (c even).
+template <int D>
 __device__ __forceinline__ uint32_t ld_swz(const uint8_t* tile, int r, int c) {
+  using L = TileLayout<D>;
+  const int sub = c / L::kSubCols, cc = c % L::kSubCols;
+  const int chunk = (cc >> 3) ^ (((r * L::kSpan) >> 7) & (L::kSpan / 16 - 1));
   return *reinterpret_cast<const uint32_t*>(
-      tile + r * 128 + ((((c >> 3) ^ (r & 7))) << 4) + ((c & 7) << 1));
+      tile + sub * L::kSubBytes + r * L::kSpan + (chunk << 4) +
+      ((cc & 7) << 1));
 }
 
 // A fragments of a warp's 16 rows (r = its first row + lane / 4) of a
-// swizzled K-major tile, for the four k-steps over its 64 columns.
-__device__ __forceinline__ void load_a_swz(uint32_t (&a)[4][4],
+// swizzled K-major 64 x D tile, for the D / 16 k-steps over its columns.
+template <int D>
+__device__ __forceinline__ void load_a_swz(uint32_t (&a)[D / 16][4],
                                            const uint8_t* tile, int r, int t) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = ld_swz(tile, r, kk * 16 + 2 * t);
-    a[kk][1] = ld_swz(tile, r + 8, kk * 16 + 2 * t);
-    a[kk][2] = ld_swz(tile, r, kk * 16 + 8 + 2 * t);
-    a[kk][3] = ld_swz(tile, r + 8, kk * 16 + 8 + 2 * t);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    a[kk][0] = ld_swz<D>(tile, r, kk * 16 + 2 * t);
+    a[kk][1] = ld_swz<D>(tile, r + 8, kk * 16 + 2 * t);
+    a[kk][2] = ld_swz<D>(tile, r, kk * 16 + 8 + 2 * t);
+    a[kk][3] = ld_swz<D>(tile, r + 8, kk * 16 + 8 + 2 * t);
   }
 }
 
@@ -258,14 +380,16 @@ __device__ __forceinline__ void acc_to_a(const float (&x)[32],
   }
 }
 
-// out += X B over the 64 rows of an MN-major tile B, with X = hi + lo.
-__device__ __forceinline__ void wgmma_split(float (&out)[32],
+// out (64 x D, D / 2 = A f32 a thread) += X B over the 64 rows of an
+// MN-major 64 x D tile B, with X = hi + lo.
+template <int A>
+__device__ __forceinline__ void wgmma_split(float (&out)[A],
                                             const uint32_t (&hi)[4][4],
                                             const uint32_t (&lo)[4][4],
                                             const uint8_t* tile_b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t db = desc_mnmajor(tile_b, kk);
+    const uint64_t db = desc_mnmajor<2 * A>(tile_b, kk);
     wgmma_rs<1>(out, hi[kk], db, 1);
 #if TFT_SPLIT_LO
     wgmma_rs<1>(out, lo[kk], db, 1);
@@ -273,23 +397,28 @@ __device__ __forceinline__ void wgmma_split(float (&out)[32],
   }
 }
 
-// d = A B^T over the 64 columns of A (registers) and of the K-major tile B.
+// d (64 x 64) = A B^T over the D columns of A (registers) and of the
+// K-major 64 x D tile B.
+template <int D>
 __device__ __forceinline__ void wgmma_abt(float (&d)[32],
-                                          const uint32_t (&a)[4][4],
+                                          const uint32_t (&a)[D / 16][4],
                                           const uint8_t* tile_b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wgmma_rs<0>(d, a[kk], desc_kmajor(tile_b, kk), kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_rs<0>(d, a[kk], desc_kmajor<D>(tile_b, kk), kk > 0);
   }
 }
 
-// d = A B^T over the 64 columns of two K-major tiles in shared memory.
+// d (64 x 64) = A B^T over the D columns of two K-major 64 x D tiles in
+// shared memory.
+template <int D>
 __device__ __forceinline__ void wgmma_abt_ss(float (&d)[32],
                                              const uint8_t* tile_a,
                                              const uint8_t* tile_b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wgmma_ss(d, desc_kmajor(tile_a, kk), desc_kmajor(tile_b, kk), kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss(d, desc_kmajor<D>(tile_a, kk), desc_kmajor<D>(tile_b, kk),
+             kk > 0);
   }
 }
 
@@ -320,14 +449,15 @@ __device__ __forceinline__ int acc_row(int i, int warp, int g) {
   return 16 * warp + g + 8 * ((i >> 1) & 1);
 }
 
-// Write a warpgroup's 64 x 64 accumulator times mul as bf16 rows of a
-// [.., ld] global array, from row row0.
+// Write a warpgroup's 64 x N accumulator (N / 2 f32 a thread) times mul
+// as bf16 rows of a [.., ld] global array, from row row0.
+template <int A>
 __device__ __forceinline__ void store_acc(bf16* dst, int ld,
-                                          const float (&x)[32], float mul0,
+                                          const float (&x)[A], float mul0,
                                           float mul1, int warp, int g,
                                           int t) {
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
+  for (int i = 0; i < A; i += 2) {
     const float m = ((i >> 1) & 1) ? mul1 : mul0;
     *reinterpret_cast<__nv_bfloat162*>(
         dst + (size_t)acc_row(i, warp, g) * ld + acc_col(i, t)) =
@@ -337,10 +467,11 @@ __device__ __forceinline__ void store_acc(bf16* dst, int ld,
 
 // --------------------------------------------------------------- host side
 
-// A 2-D tensor map over a row-major [rows, cols] bf16 array in 64 x 64
-// boxes with the 128-byte swizzle. cuTensorMapEncodeTiled is a driver
-// function: it is fetched through the runtime, so the library needs no
-// -lcuda. Returns a cudaError_t.
+// A 2-D tensor map over a row-major [rows, cols] bf16 array in boxes of 64
+// rows by one sub-tile's columns (TileLayout<D>), with the swizzle of that
+// layout. cuTensorMapEncodeTiled is a driver function: it is fetched
+// through the runtime, so the library needs no -lcuda. Returns a
+// cudaError_t.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*,
@@ -348,8 +479,10 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
+template <int D>
 static inline int make_tile_map(CUtensorMap* map, const void* base,
                                 long long rows, long long cols) {
+  using L = TileLayout<D>;
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -368,14 +501,30 @@ static inline int make_tile_map(CUtensorMap* map, const void* base,
   }
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {kHeadDim, kTile};
+  const cuuint32_t box[2] = {(cuuint32_t)L::kSubCols, kTile};
   const cuuint32_t elem[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle =
+      L::kSpan == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : L::kSpan == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                       : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// f(std::integral_constant<int, D>{}) for a head size d the flash kernels
+// are instantiated at (TileLayout); cudaErrorInvalidValue for any other.
+template <typename F>
+static inline int with_head_dim(int d, F&& f) {
+  switch (d) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Set a kernel's attribute (its dynamic shared-memory limit, or leave to

@@ -45,6 +45,7 @@ from torchft_tpu_torch.data import DistributedSampler
 from torchft_tpu_torch.ddp import DistributedDataParallel
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.models import CONFIGS, GPT, TransformerConfig
+from torchft_tpu_torch.ops.flash import check_head_dim
 from torchft_tpu_torch.optim import OptimizerWrapper
 from torchft_tpu_torch.utils.device import resolve_device
 
@@ -117,7 +118,13 @@ def train_group(
     manager, model, loss)`` after every commit. ``comm_backend`` /
     ``comm_options``: the Manager's data plane; the cuda plane reduces on
     ``device`` unless ``comm_options`` names a ``device_pool``.
+
+    A CUDA run of a config whose head_dim the flash kernels do not take
+    raises ValueError here, before anything is built.
     """
+    if torch.device("cuda" if device is None else device).type == "cuda":
+        check_head_dim(f"train_group: config with d_model {cfg.d_model} and "
+                       f"{cfg.n_heads} heads", cfg.head_dim)
     device = resolve_device(device)
     comm_options = dict(comm_options or {})
     if comm_backend == "cuda":

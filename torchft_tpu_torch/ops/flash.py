@@ -22,11 +22,15 @@ Three kernels (``csrc/``) do the work on the card, one per wrapper:
 
 The three kernels are built for Hopper (csrc/hopper.cuh): TMA loads
 through a ring of shared-memory slots, ``wgmma`` products, blocks of 192
-query rows (forward and dQ) and 128 keys (dK/dV).
+query rows (forward and dQ; 128 at head_dim 128) and 128 keys (dK/dV).
+Each is a template on the head size, instantiated at every head_dim the
+models reach: 16 ("tiny"), 32, 64 ("125m", "350m") and 128 ("1b")
+(``KERNEL_HEAD_DIMS``).
 
-Each wrapper launches its kernel for a CUDA tensor (bf16, head_dim 64, S a
-multiple of 64; anything else raises), runs its plain PyTorch version for a
-CPU tensor, and counts its launches in ``LAUNCHES``. The plain versions
+Each wrapper launches its kernel for a CUDA tensor (bf16, head_dim in
+``KERNEL_HEAD_DIMS``, S a multiple of 64; anything else raises), runs its
+plain PyTorch version for a CPU tensor, and counts its launches in
+``LAUNCHES``. The plain versions
 repeat the reference's arithmetic block by block: the tiled online softmax
 forward and the FlashAttention-2 recompute backward, f32 throughout, mask
 -1e30, the ``l == 0`` guard. Delta = rowsum(dO * O) stays a plain torch
@@ -43,6 +47,7 @@ import torch
 from torchft_tpu_torch.ops import _build
 
 __all__ = [
+    "KERNEL_HEAD_DIMS",
     "KERNEL_TOL",
     "LAUNCHES",
     "flash_attention",
@@ -54,6 +59,7 @@ __all__ = [
     "flash_bwd_dq_plain",
     "flash_fwd",
     "flash_fwd_plain",
+    "check_head_dim",
     "kernel_error",
     "reset_launch_counts",
 ]
@@ -64,8 +70,9 @@ _NEG_INF = -1e30  # avoid nan from (-inf) - (-inf) in the running max
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 _LAUNCHES_LOCK = threading.Lock()  # replica groups may share a process
 
-_KERNEL_TILE = 64      # rows of the kernels' q and k tiles
-_KERNEL_HEAD_DIM = 64  # the head size the kernels take
+_KERNEL_TILE = 64  # rows of the kernels' q and k tiles
+# the head sizes the kernels are instantiated at (csrc/hopper.cuh TileLayout)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def reset_launch_counts() -> None:
@@ -225,6 +232,14 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool, scale: float,
 # ------------------------------------------------------------ CUDA wrappers
 
 
+def check_head_dim(name: str, d: int) -> None:
+    """Raise ValueError unless the kernels take head size ``d``."""
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"{name}: the kernels take head_dim "
+            f"{', '.join(map(str, KERNEL_HEAD_DIMS))}; got head_dim {d}")
+
+
 def _check_kernel_inputs(name: str, *tensors: torch.Tensor) -> None:
     q = tensors[0]
     if q.dim() != 4:
@@ -236,8 +251,7 @@ def _check_kernel_inputs(name: str, *tensors: torch.Tensor) -> None:
                 f"{name}: the kernel takes bf16 [B, S, H, D] tensors of one "
                 f"shape; got {t.dtype} {tuple(t.shape)}"
             )
-    if d != _KERNEL_HEAD_DIM:
-        raise ValueError(f"{name}: the kernel takes head_dim 64, got {d}")
+    check_head_dim(name, d)
     if s % _KERNEL_TILE:
         raise ValueError(f"{name}: the kernel takes S a multiple of 64, got {s}")
     for t in tensors:
