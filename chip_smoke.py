@@ -66,6 +66,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    of the same model whose attention runs ``reference_attention`` on the
    card.
 
+7. train_durable: the reference training loop whole, at "125m" full width
+   and depth, batch 8, over TCP under a lighthouse granting 2 s epoch
+   leases (``run_resume_drill``): group 0 commits 3 steps alone, each a
+   fused step replaying one CUDA graph; group 1 starts from a poisoned
+   init and heals; both commit 4 steps together, the steady ones on the
+   lease's fast path (0 control RPCs; a GET /telemetry/metrics during one
+   must show the lease live and 0 RPCs); every group writes an
+   ``AsyncCheckpointWriter(keep=2)`` checkpoint every 2 steps; both are
+   killed once the last write persisted, restart from a poisoned init and
+   resume from their newest checkpoint, which the resumed step,
+   parameters, AdamW state and sampler position must equal bitwise; both
+   commit 2 more steps. The healed and resumed groups must be bitwise
+   equal at every step both commit, the losses finite, and every flash
+   kernel launched once per layer per pass, graph replays (the capture's
+   tally) and the capture's warm-up passes included. It first checks the
+   disk (``durable_disk_bytes``, 9.8 GB at 125m) and fails if short.
+   Then the fused step against the same step run eagerly, bitwise after 3
+   steps, and the device time of each.
+
 It prints a ``kernels`` JSON line before the last line and ends with
 ``{"ok": true, "device": {...}}``. It needs one card and no network.
 """
@@ -1106,6 +1125,210 @@ def phase_gpt_1b(seed: int):
     return counts, cfg.n_layers
 
 
+# A checkpoint holds the f32 parameters and AdamW's two moments; a group
+# keeps 2 (keep=2) with one more in flight as its .tmp.
+CKPT_FILES_PER_GROUP = 3
+
+
+def durable_disk_bytes(n_params: int, groups: int = 2) -> int:
+    """Disk train_durable may fill at once: every group's kept checkpoints
+    and the one it is writing, each 3 f32 copies of the parameters."""
+    return groups * CKPT_FILES_PER_GROUP * 3 * 4 * n_params
+
+
+def check_disk(directory: str, need: int) -> int:
+    """Free bytes under ``directory``; fails with both figures if fewer
+    than ``need``."""
+    import shutil
+
+    free = shutil.disk_usage(directory).free
+    if free < need:
+        raise AssertionError(
+            f"train_durable needs {need / 1e9:.2f} GB free under "
+            f"{directory} (2 groups x {CKPT_FILES_PER_GROUP} checkpoints of "
+            f"{need / 6e9:.2f} GB), has {free / 1e9:.2f} GB")
+    return free
+
+
+def _p50s(metrics: dict, names) -> dict:
+    return {n: round(metrics[f"{n}_p50_ms"], 3) for n in names
+            if f"{n}_p50_ms" in metrics}
+
+
+def durable_report(result: dict, batch: int, seq: int, card: str) -> list:
+    """The lines train_durable prints about a ``run_resume_drill`` result:
+    the fused path's phase p50s, quorum and commit p50s on full and on
+    fast steps, every checkpoint write, the resumes, the heal, the
+    committed step times and tokens/s."""
+    runs = result["runs"]
+    first = {g: runs[g][0] for g in (0, 1)}
+    after = {g: runs[g][1] for g in (0, 1)}
+    lines = [f"fused solo steps of group 0: {first[0].fused_steps} on "
+             f"{first[0].captures} CUDA graph capture(s); phase p50 ms "
+             f"{_p50s(first[0].fused_metrics, ('barrier', 'dispatch', 'fence'))}"
+             f" ({card})"]
+    for g in (0, 1):
+        m = first[g].metrics
+        fast = sorted(s for s, n in first[g].control_rpcs.items() if n == 0)
+        lines.append(
+            f"group {g}: full steps quorum p50 {m.get('quorum_p50_ms', 0):.3f}"
+            f" ms commit_barrier p50 {m.get('commit_barrier_p50_ms', 0):.3f} "
+            f"ms; fast steps {fast} (fastpath_steps "
+            f"{m.get('fastpath_steps')}, 0 control RPCs) quorum_fast p50 "
+            f"{m.get('quorum_fast_p50_ms', 0):.4f} ms commit_fast p50 "
+            f"{m.get('commit_fast_p50_ms', 0):.4f} ms; lease grants "
+            f"{m.get('lease_grants')} breaks {m.get('lease_breaks')}")
+    for g in (0, 1):
+        for life, run in enumerate(runs[g]):
+            for c in run.checkpoints:
+                lines.append(
+                    f"group {g} life {life} checkpoint "
+                    f"{os.path.basename(c['path'])}: stage "
+                    f"{c['stage_s'] * 1e3:.1f} ms, persist "
+                    f"{c['persist_s'] * 1e3:.1f} ms, {c['bytes']} bytes "
+                    f"({c['bytes'] / max(c['persist_s'], 1e-9) / 1e9:.3f} "
+                    "GB/s to disk)")
+    for g in (0, 1):
+        lines.append(f"group {g} resumed at step {after[g].resumed_step} in "
+                     f"{after[g].resume_seconds * 1e3:.1f} ms (load + copy to "
+                     "the card), bitwise equal to its checkpoint")
+    heal = first[1].metrics
+    lines.append(f"heal at step {result['heal_step']}: wall "
+                 f"{heal.get('heal_wall_ms', 0):.1f} ms, wire "
+                 f"{heal.get('heal_bytes_per_s', 0) / 1e9:.3f} GB/s")
+    tokens = 2 * batch * seq
+    for life, runs_ in ((0, first), (1, after)):
+        joint = sorted(set(runs_[0].step_seconds) & set(runs_[1].step_seconds))
+        ms = {s: round(max(runs_[0].step_seconds[s],
+                           runs_[1].step_seconds[s]) * 1e3, 1) for s in joint}
+        rates = [round(tokens / (v / 1e3)) for v in ms.values()]
+        lines.append(f"life {life} joint step ms {ms}, tokens/s of both "
+                     f"groups {rates} ({card})")
+    solo = {s: round(t * 1e3, 1) for s, t in first[0].step_seconds.items()
+            if s <= result["heal_step"] - 1}
+    lines.append(f"group 0 fused solo step host ms {solo} (dispatch; the "
+                 "fence reads back 8 steps at a time)")
+    lines.append(f"resumed step {result['resume_step'] + 1} repeated the "
+                 f"first life's bitwise: {result['replay_equal']}")
+    return lines
+
+
+def phase_train_durable(seed: int, card: str, batch: int = 8):
+    """run_resume_drill at "125m", full width and depth, over TCP under a
+    lease_ms=2000 lighthouse, checkpoints in a temporary directory that is
+    removed; returns the flash launches it must have made (one per layer
+    per pass, graph replays and capture warm-ups included) and the
+    result."""
+    import shutil
+    import tempfile
+
+    from torchft_tpu_torch.examples.train_ddp import run_resume_drill
+    from torchft_tpu_torch.models import CONFIGS, GPT, count_params
+
+    cfg = CONFIGS["125m"]
+    n_params = count_params(GPT(cfg, device="meta"))
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        need = durable_disk_bytes(n_params)
+        free = check_disk(directory, need)
+        log(f"  125m: {n_params} parameters; checkpoints under {directory}: "
+            f"up to {need / 1e9:.2f} GB, {free / 1e9:.1f} GB free")
+        t0 = time.perf_counter()
+        result = run_resume_drill(cfg, device="cuda", batch_size=batch,
+                                  seed=seed, timeout=120.0,
+                                  ckpt_dir=directory,
+                                  log=lambda m: log("  " + m))
+        log(f"  drill {time.perf_counter() - t0:.1f} s; both groups bitwise "
+            f"equal at steps {result['checked_steps']}; telemetry during a "
+            f"fast step: lease_live {result['telemetry']['lease_live']} "
+            f"control_rpcs_per_step "
+            f"{result['telemetry']['control_rpcs_per_step']}")
+        for line in durable_report(result, batch, cfg.max_seq_len, card):
+            log("  " + line)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    if result["runs"][0][0].captures < 1 and result["runs"][0][0].fused_steps:
+        raise AssertionError("group 0's fused steps ran without a CUDA graph")
+    log(f"  forward/backward passes of all runs: {result['passes']}")
+    return result["passes"] * cfg.n_layers, result
+
+
+def fused_vs_classic(seed: int, card: str, batch: int = 8, steps: int = 3,
+                     timed: int = 5) -> dict:
+    """The fused step (one CUDA graph) against the same step run eagerly,
+    on two "125m" models from one seed: bitwise equal parameters and AdamW
+    state after ``steps`` steps, then the device time of each per step
+    (CUDA events, median of ``timed``). Also reports whether AdamW's
+    ``capturable=True`` (the step count on the card, which the graph
+    needs) changes any bit of the eager step against ``capturable=False``."""
+    import torch
+
+    from torchft_tpu_torch.models import CONFIGS, GPT, make_train_step
+
+    cfg = CONFIGS["125m"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = []
+    for _ in range(steps + timed):
+        tok = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len),
+                            generator=gen, device="cuda")
+        batches.append((tok, torch.roll(tok, -1, dims=1)))
+
+    def build():
+        model = GPT(cfg, device="cuda", seed=seed)
+        optimizer = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                      weight_decay=1e-4, capturable=True)
+        return model, optimizer, make_train_step(model, optimizer)
+
+    (ma, oa, eager), (mb, ob, graph) = build(), build()
+    for tok, tgt in batches[:steps]:
+        eager._eager(tok, tgt)
+        graph(tok, tgt)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(ma.parameters(),
+                                                   mb.parameters()))
+    equal = equal and all(
+        torch.equal(oa.state[a][k], ob.state[b][k])
+        for a, b in zip(ma.parameters(), mb.parameters())
+        for k in oa.state[a])
+    mc = GPT(cfg, device="cuda", seed=seed)
+    oc = torch.optim.AdamW(mc.parameters(), lr=3e-4, weight_decay=1e-4)
+    for tok, tgt in batches[:steps]:
+        oc.zero_grad(set_to_none=True)
+        mc.loss(tok, tgt).backward()
+        oc.step()
+    torch.cuda.synchronize()
+    flag_equal = all(torch.equal(a, c) for a, c in zip(ma.parameters(),
+                                                       mc.parameters()))
+    del mc, oc
+
+    def per_step(fn):
+        times = []
+        for tok, tgt in batches[steps:]:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn(tok, tgt)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[len(times) // 2]
+
+    out = {"bitwise_equal": equal, "classic_ms": per_step(eager._eager),
+           "fused_ms": per_step(graph), "captures": graph.captures,
+           "capturable_bits_equal": flag_equal}
+    log(f"  fused step {out['fused_ms']:.2f} ms (one CUDA graph) against the "
+        f"same step eager {out['classic_ms']:.2f} ms, 125m batch {batch}, "
+        f"median of {timed}; bitwise equal after {steps} steps: {equal}; "
+        f"eager steps with capturable=True equal to capturable=False: "
+        f"{flag_equal} ({card})")
+    del ma, mb, oa, ob, eager, graph
+    torch.cuda.empty_cache()
+    if not equal:
+        raise AssertionError("the fused step's CUDA graph differs from the "
+                             "same step run eagerly")
+    return out
+
+
 def _check_launches(counts, want, what: str) -> None:
     log(f"  kernel launches on the main path: {counts} (want {want})")
     if counts != want:
@@ -1113,7 +1336,8 @@ def _check_launches(counts, want, what: str) -> None:
                              f"want {want} ({what})")
 
 
-PHASES = ("kernels", "train", "train_cuda_int8", "train_tiny", "gpt_1b")
+PHASES = ("kernels", "train", "train_cuda_int8", "train_tiny", "gpt_1b",
+          "train_durable")
 
 
 def _add_launches(rows: dict, counts: dict, head_dim: int) -> None:
@@ -1225,6 +1449,15 @@ def main() -> int:
                                  "flash_bwd_dkv": layers},
                         "1b, remat: 2 forward, 1 dQ, 1 dK/dV per layer")
         _add_launches(rows, counts, CONFIGS["1b"].head_dim)
+    if "train_durable" in phases:
+        log("phase train_durable")
+        flash.reset_launch_counts()
+        want, _ = phase_train_durable(args.seed, smi)
+        counts = dict(flash.LAUNCHES)
+        _check_launches(counts, {n: want for n in counts},
+                        "one per layer per pass, graph replays included")
+        _add_launches(rows, counts, CONFIGS["125m"].head_dim)
+        fused_vs_classic(args.seed, smi)
     if rows:
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ spills per kernel and per head_dim instantiation, the spill gate on the
 Hopper-redesigned kernels, the gate on wgmma serialization notes), size
 the int8 drill's DDP buckets, reach every head_dim the flash kernels take,
 add each phase's launches to the right rows, and price the flash kernels'
-bounds and the codec kernels' per wire step.
+bounds and the codec kernels' per wire step. For ``train_durable``: the
+disk it needs at 125m, the failure when the disk is short, and the report
+it prints, read off a run of the same drill at "tiny" on the CPU.
 """
 
 import importlib.util
@@ -145,7 +147,7 @@ def test_flash_shapes_reach_every_head_dim() -> None:
                        cfg.n_heads, cfg.head_dim)) in \
             {(w, shape) for w, shape, _ in shapes}
     assert smoke.PHASES == ("kernels", "train", "train_cuda_int8",
-                            "train_tiny", "gpt_1b")
+                            "train_tiny", "gpt_1b", "train_durable")
     assert all(n in {k for k, v in GPT(CONFIGS["1b"], device="meta")
                      .named_parameters()} for n in smoke.GRAD_SAMPLE)
 
@@ -214,3 +216,50 @@ def test_kernel_ab_refuses_without_a_card() -> None:
                        capture_output=True, text=True, timeout=120, cwd=_ROOT)
     assert r.returncode == 2
     assert "no CUDA device" in r.stderr and r.stdout == ""
+
+
+def test_train_durable_is_the_last_phase() -> None:
+    assert _smoke().PHASES[-1] == "train_durable"
+
+
+def test_durable_disk_bytes_at_125m() -> None:
+    smoke = _smoke()
+    n = sum(p.numel() for p in GPT(CONFIGS["125m"], device="meta")
+            .parameters())
+    assert n == 136091136
+    # 2 groups x (keep=2 + one in flight) x (parameters + 2 AdamW moments)
+    assert smoke.durable_disk_bytes(n) == 2 * 3 * 3 * 4 * n == 9798561792
+
+
+def test_check_disk_fails_with_the_figures(tmp_path, monkeypatch) -> None:
+    import collections
+    import shutil
+
+    smoke = _smoke()
+    usage = collections.namedtuple("usage", "total used free")
+    monkeypatch.setattr(shutil, "disk_usage",
+                        lambda path: usage(10**10, 9 * 10**9, 10**9))
+    with pytest.raises(AssertionError, match=r"needs 9\.80 GB.*has 1\.00 GB"):
+        smoke.check_disk(str(tmp_path), 9798561792)
+    assert smoke.check_disk(str(tmp_path), 10**8) == 10**9
+
+
+def test_durable_report_reads_the_drill(monkeypatch) -> None:
+    from torchft_tpu_torch.examples.train_ddp import run_resume_drill
+
+    monkeypatch.setenv("TORCHFT_TPU_FASTPATH", "1")
+    result = run_resume_drill(CONFIGS["tiny"], device="cpu", batch_size=2,
+                              timeout=30.0)
+    lines = _smoke().durable_report(result, 2, 128, "card, 700 W")
+    text = "\n".join(lines)
+    assert "fused solo steps of group 0: 3" in lines[0]
+    assert "'barrier'" in lines[0] and "'fence'" in lines[0]
+    for g in (0, 1):
+        assert f"group {g}: full steps quorum p50" in text
+        assert f"group {g} resumed at step 6" in text
+    assert "fast steps [6, 7]" in text
+    # every write: group 0 at 2, 4, 6 then 8; group 1 at 4, 6 then 8
+    assert sum("checkpoint ckpt." in line for line in lines) == 7
+    assert "heal at step 4" in text
+    assert "life 0 joint step ms" in text and "life 1 joint step ms" in text
+    assert "repeated the first life's bitwise: True" in text

@@ -18,12 +18,19 @@ in a chunk's last slice, the drill's bucket shapes of both phases),
 ``dequant_acc_int8`` at its ``dequant_cases`` (boundaries inside its
 16-element runs, unaligned rows, the bucket shapes of both phases), and a
 build of the dequantizer that leaves ``acc + q * scale`` to FMA
-contraction must fail that. This file imports no
+contraction must fail that. The fused train step
+(``models.make_train_step``, one CUDA graph) equals the same step run
+eagerly bitwise, over 3 steps, across a heal's in-place load and across a
+load that replaces the optimizer's tensors (a re-capture), also while
+another thread keeps launching; its replays count the flash launches the
+capture recorded, and a capture holds while another thread runs eager
+steps, the codec kernels and stream syncs. This file imports no
 JAX, so it runs where only torch is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
 
+import copy
 import dataclasses
 import importlib.util
 import os
@@ -380,3 +387,170 @@ def test_example_trains_tiny_on_card() -> None:
     assert all(math.isfinite(v) for v in run.losses.values())
     assert flash.LAUNCHES == {n: run.passes * cfg.n_layers
                               for n in flash.LAUNCHES}
+
+
+def _fused_pair(cfg, seed=0):
+    """Two copies of one model and AdamW (capturable), and a train step on
+    the second: the eager and the graph arm of the same step."""
+    from torchft_tpu_torch.models import make_train_step
+
+    arms = []
+    for _ in range(2):
+        model = GPT(cfg, device="cuda", seed=seed)
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                weight_decay=1e-4, capturable=True)
+        arms.append((model, opt, make_train_step(model, opt)))
+    return arms
+
+
+def _tiny_batches(cfg, n, seed=0, batch=2):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(n):
+        tok = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len),
+                            generator=gen, device="cuda")
+        out.append((tok, torch.roll(tok, -1, dims=1)))
+    return out
+
+
+def _assert_arms_equal(a, b, what):
+    (ma, oa, _), (mb, ob, _) = a, b
+    for (name, pa), pb in zip(ma.named_parameters(), mb.parameters()):
+        assert torch.equal(pa, pb), f"{what}: {name}"
+        for k in oa.state[pa]:
+            assert torch.equal(oa.state[pa][k], ob.state[pb][k]), \
+                f"{what}: {name} {k}"
+
+
+@pytest.mark.cuda
+def test_fused_graph_step_equals_eager_across_a_heal() -> None:
+    from torchft_tpu_torch.optim import load_optimizer_state_dict
+
+    _cuda()
+    cfg = CONFIGS["tiny"]
+    eager, graph = _fused_pair(cfg)
+    batches = _tiny_batches(cfg, 9)
+    for tok, tgt in batches[:3]:
+        le = eager[2]._eager(tok, tgt)
+        lg = graph[2](tok, tgt)
+        assert torch.equal(le, lg)
+    assert graph[2].captures == 1
+    _assert_arms_equal(eager, graph, "3 steps")
+    # a heal: the donor's state loaded in place into both arms; the graph
+    # keeps its capture
+    donor_model, donor_opt, donor_step = _fused_pair(cfg, seed=7)[0]
+    for tok, tgt in _tiny_batches(cfg, 2, seed=3):
+        donor_step._eager(tok, tgt)
+    for model, opt, _ in (eager, graph):
+        model.load_state_dict(donor_model.state_dict())
+        load_optimizer_state_dict(opt, donor_opt.state_dict())
+    graph[2].sync_state()
+    for tok, tgt in batches[3:6]:
+        eager[2]._eager(tok, tgt)
+        graph[2](tok, tgt)
+    assert graph[2].captures == 1
+    _assert_arms_equal(eager, graph, "after an in-place heal")
+    # a load that replaces the optimizer's tensors: the next call
+    # re-captures, and the arms stay equal (each arm loads its own copy:
+    # load_state_dict keeps a tensor already of the right dtype and device,
+    # so two arms loading one dict would share their moments)
+    for model, opt, _ in (eager, graph):
+        opt.load_state_dict(copy.deepcopy(donor_opt.state_dict()))
+        model.load_state_dict(donor_model.state_dict())
+    for tok, tgt in batches[6:]:
+        eager[2]._eager(tok, tgt)
+        graph[2](tok, tgt)
+    assert graph[2].captures == 2
+    _assert_arms_equal(eager, graph, "after a replacing load")
+
+
+@pytest.mark.cuda
+def test_graph_replays_count_the_captured_launches() -> None:
+    _cuda()
+    cfg = CONFIGS["tiny"]
+    _, (_, _, step) = _fused_pair(cfg)
+    flash.reset_launch_counts()
+    for tok, tgt in _tiny_batches(cfg, 4):
+        step(tok, tgt)
+    passes = 4 + step.warmup_passes
+    assert step.captures == 1 and step.warmup_passes == 1
+    assert flash.LAUNCHES == {n: passes * cfg.n_layers
+                              for n in flash.LAUNCHES}
+
+
+@pytest.mark.cuda
+def test_capture_while_another_thread_launches() -> None:
+    # two replica groups share a process: one captures while the other
+    # keeps running eager steps through the kernels and host syncs
+    import threading
+
+    _cuda()
+    cfg = CONFIGS["tiny"]
+    eager, graph = _fused_pair(cfg)
+    other_model = GPT(cfg, device="cuda", seed=3)
+    stop, errors, other_passes = threading.Event(), [], [0]
+
+    def other():
+        try:
+            for tok, tgt in _tiny_batches(cfg, 50, seed=4):
+                if stop.is_set():
+                    return
+                other_model.zero_grad(set_to_none=True)
+                other_model.loss(tok, tgt).backward()
+                # the int8 plane's codec kernels, as a wire step runs them
+                grad = other_model.wte.embedding.grad.reshape(2, -1)
+                q, scales = quant.quant_int8(grad, 1 << 12)
+                quant.dequant_acc_int8(q, scales, 1 << 12)
+                # a stream sync, as the example's step takes: a device-wide
+                # sync during a capture would invalidate it
+                torch.cuda.current_stream().synchronize()
+                other_passes[0] += 1
+        except BaseException as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    flash.reset_launch_counts()
+    quant.reset_launch_counts()
+    thread = threading.Thread(target=other)
+    thread.start()
+    try:
+        for tok, tgt in _tiny_batches(cfg, 3):
+            eager[2]._eager(tok, tgt)
+            graph[2](tok, tgt)
+    finally:
+        stop.set()
+        thread.join()
+    assert not errors, errors
+    torch.cuda.synchronize()
+    _assert_arms_equal(eager, graph, "beside another thread")
+    passes = 3 + 3 + graph[2].warmup_passes + other_passes[0]
+    assert flash.LAUNCHES == {n: passes * cfg.n_layers
+                              for n in flash.LAUNCHES}
+    assert quant.LAUNCHES == {n: other_passes[0] for n in quant.LAUNCHES}
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_refuses_what_it_cannot_capture() -> None:
+    from torchft_tpu_torch.models import make_train_step
+
+    _cuda()
+    model = GPT(CONFIGS["tiny"], device="cuda")
+    with pytest.raises(ValueError, match="capturable"):
+        make_train_step(model, torch.optim.AdamW(model.parameters()))
+    with pytest.raises(TypeError, match="Adam"):
+        make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.1))
+
+
+@pytest.mark.cuda
+def test_prefetch_iterator_lands_batches_on_the_card() -> None:
+    import numpy as np
+
+    from torchft_tpu_torch.data import PrefetchIterator
+
+    _cuda()
+    src = ({"x": np.full((1 << 16,), i, np.float32)} for i in range(6))
+    it = PrefetchIterator(src, depth=2)
+    for i, batch in enumerate(it):
+        assert batch["x"].is_cuda
+        # read on the consumer's stream: the copy has landed
+        assert float(batch["x"].sum()) == float(i * (1 << 16))
+    it.close()

@@ -9,11 +9,15 @@ bitwise equal to its donor at every step both commit. The cross-package
 check starts the port and the JAX package's classic (non-fused) path from
 the same parameters and data, one replica group each, and compares the
 losses of 5 committed steps. The drill runs once more over the on-device
-int8 plane.
+int8 plane. ``run_resume_drill`` runs the durable half at "tiny": a fused
+solo phase, a heal, steady steps on the epoch lease, checkpoints, a kill of
+both groups and a resume, with the checks ``chip_smoke.py``'s
+``train_durable`` makes (on the card it also counts the flash launches).
 """
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import pytest
@@ -23,7 +27,11 @@ import jax
 import jax.numpy as jnp
 
 from torchft_tpu_torch.control import Lighthouse
-from torchft_tpu_torch.examples.train_ddp import run_kill_and_heal, train_group
+from torchft_tpu_torch.examples.train_ddp import (
+    run_kill_and_heal,
+    run_resume_drill,
+    train_group,
+)
 from torchft_tpu_torch.models import CONFIGS, from_jax_params
 
 STEPS = 5
@@ -160,3 +168,44 @@ def test_single_group_loss_tracks_jax_classic_path(dtype_case, monkeypatch):
     for step, loss in run.losses.items():
         assert abs(loss - jax_losses[step]) <= LOSS_TOL[dtype_case], (
             step, loss, jax_losses[step])
+
+
+def test_resume_drill_at_tiny(tmp_path, monkeypatch) -> None:
+    monkeypatch.setenv("TORCHFT_TPU_FASTPATH", "1")
+    cfg = CONFIGS["tiny"]
+    assert cfg.n_layers == 2
+    result = run_resume_drill(cfg, device="cpu", batch_size=2, timeout=30.0,
+                              ckpt_dir=str(tmp_path))
+    runs = result["runs"]
+    first0, first1 = runs[0][0], runs[1][0]
+    # the schedule: 3 fused solo steps, the heal commit 4, joint 5-7, the
+    # kill, the resume from step 6, then 7-8 again
+    assert first0.fused_steps == 3 and first1.fused_steps == 0
+    assert first1.healed_at == [4]
+    assert result["heal_step"] == 4 and result["resume_step"] == 6
+    assert result["checked_steps"] == [[4, 5, 6, 7], [7, 8]]
+    # steps 6 and 7 ride the lease in both groups (the heal quorum grants
+    # no lease; the next full quorum does), 8 after the resume
+    for g in (0, 1):
+        assert [s for s, n in runs[g][0].control_rpcs.items() if n == 0] \
+            == [6, 7]
+        assert [s for s, n in runs[g][1].control_rpcs.items() if n == 0] \
+            == [8]
+        assert runs[g][1].resumed_step == 6
+        assert runs[g][1].resume_mismatches == []
+        assert runs[g][1].resume_seconds > 0
+    assert result["telemetry"]["lease_live"] is True
+    assert result["telemetry"]["control_rpcs_per_step"] == 0
+    # the resumed step 7 repeats the first life's step 7 bit for bit
+    assert result["replay_equal"] is True
+    # every group wrote every second step, keep=2 on disk
+    assert [c["path"].rsplit(".", 1)[1] for c in first0.checkpoints] == [
+        "2", "4", "6"]
+    assert sorted(os.listdir(tmp_path / "group0")) == ["ckpt.6", "ckpt.8"]
+    # passes: 7 + 4 before the kill, 2 + 2 after (no capture on the CPU)
+    assert result["passes"] == 15
+    for g in (0, 1):
+        for run in runs[g]:
+            assert all(math.isfinite(v) for v in run.losses.values())
+    assert sorted(first0.losses) == list(range(1, 8))
+    assert sorted(runs[0][1].losses) == [7, 8]

@@ -21,6 +21,11 @@ may touch the state again) closes it.
   to back, each followed by a 4-byte little-endian CRC32C with ``?crc=1``),
   and ``GET /checkpoint/{step}/leaf/{i}`` (one leaf with dtype/shape
   headers). Tensor bytes never go through pickle.
+- Telemetry: ``GET /telemetry/metrics`` (the Manager's metrics snapshot)
+  and ``GET /telemetry/events?since=<seq>`` (the flight recorder's tail),
+  each framed by the Manager's identity probe (``set_telemetry``) in the
+  reference's payload shape, so ``scripts/fleet_top.py`` reads a replica of
+  either package. Telemetry is not gated on the checkpoint gate.
 - Healer: ``_recv_chunked`` splits the tensor leaves into byte-balanced
   ranges over ``num_chunks`` keep-alive connections and ``readinto``s each
   leaf straight into a preallocated CPU tensor, verifying its CRC32C frame.
@@ -33,6 +38,7 @@ from __future__ import annotations
 
 import http.client
 import io
+import json
 import logging
 import os
 import pickle
@@ -201,11 +207,71 @@ class _Handler(BaseHTTPRequestHandler):
         if crc:
             self.wfile.write(struct.pack("<I", c))
 
+    def _send_json(self, obj: dict) -> None:
+        body = json.dumps(obj).encode()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _do_telemetry(self, parts, url) -> None:
+        """GET /telemetry/metrics and GET /telemetry/events?since=<seq>,
+        framed with the Manager's identity probe (replica_id, rank, step,
+        quorum epoch, lease state). A probe that raises still answers,
+        with ``telemetry_info_error`` in the frame."""
+        from urllib.parse import parse_qs
+
+        server: "CheckpointServer" = self.server.ckpt_server  # type: ignore[attr-defined]
+        base: dict = {}
+        info_fn = server._telemetry_info
+        if callable(info_fn):
+            try:
+                base = dict(info_fn())
+            except Exception as e:  # noqa: BLE001 — framing only
+                base = {"telemetry_info_error": repr(e)[:200]}
+        if len(parts) == 2 and parts[1] == "metrics":
+            metrics = server._metrics
+            base["t_wall"] = time.time()
+            base["metrics"] = metrics.snapshot() if metrics is not None else {}
+            self._send_json(base)
+            return
+        if len(parts) == 2 and parts[1] == "events":
+            q = parse_qs(url.query)
+            try:
+                since = int(q.get("since", ["0"])[0])
+            except ValueError:
+                self.send_error(400, "bad since cursor (want an integer)")
+                return
+            events = server._events
+            if events is not None:
+                evs, nxt, dropped = events.since(since)
+                base.setdefault("replica_id", events.replica_id)
+                base.setdefault("rank", events.rank)
+                base.update(events=evs, next=nxt, dropped=dropped,
+                            enabled=events.enabled)
+            else:
+                base.update(events=[], next=0, dropped=0, enabled=False)
+            base["t_wall"] = time.time()
+            self._send_json(base)
+            return
+        self.send_error(
+            404,
+            "unknown telemetry path (have /telemetry/metrics and "
+            "/telemetry/events?since=<seq>)",
+        )
+
     def do_GET(self) -> None:  # noqa: N802
         from urllib.parse import parse_qs, urlparse
 
         url = urlparse(self.path)
         parts = [p for p in url.path.split("/") if p]
+        if parts and parts[0] == "telemetry":
+            try:
+                self._do_telemetry(parts, url)
+            except (BrokenPipeError, ConnectionResetError):
+                logger.debug("telemetry poller disconnected")
+            return
         if len(parts) < 3 or parts[0] != "checkpoint":
             self.send_error(404, "unknown path")
             return
@@ -315,6 +381,8 @@ class CheckpointServer(CheckpointTransport[T]):
         self._timeout = float(timeout)
         self._num_chunks = int(num_chunks)
         self._metrics = None
+        self._events = None
+        self._telemetry_info = None
         self._cond = threading.Condition()
         self._disallowed = True
         self._staged: Optional[_Staged] = None
@@ -333,8 +401,20 @@ class CheckpointServer(CheckpointTransport[T]):
         return self._addr
 
     def set_metrics(self, metrics) -> None:
-        """Share the Manager's Metrics sink (heal gauges)."""
+        """Share the Manager's Metrics sink (heal gauges; served by GET
+        /telemetry/metrics)."""
         self._metrics = metrics
+
+    def set_events(self, events) -> None:
+        """Share the Manager's flight recorder, served read-only by GET
+        /telemetry/events."""
+        self._events = events
+
+    def set_telemetry(self, info_fn) -> None:
+        """Register a zero-argument callable returning the identity and
+        state dict that frames every /telemetry response
+        (``Manager._telemetry_info``)."""
+        self._telemetry_info = info_fn
 
     def send_checkpoint(self, dst_ranks: List[int], step: int, state_dict: T,
                         timeout: "float | timedelta") -> None:

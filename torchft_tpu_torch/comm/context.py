@@ -158,6 +158,24 @@ class CommContext(ABC):
         """Latched transport error, if any (cleared by configure)."""
         return None
 
+    # ------------------------------------------- data-plane commit votes
+    # Backends that fold a 1-byte health vote into their collectives (the
+    # TCP wire) override these. The defaults describe a backend with no
+    # vote channel, which the Manager's fast path treats as ABSENT: it
+    # falls back to the full commit barrier.
+
+    def set_vote_health(self, fn) -> None:  # noqa: B027 — optional hook
+        """Install the local health provider for data-plane votes:
+        ``fn() -> bool`` (True = healthy). Backends without a vote channel
+        ignore it."""
+
+    def take_commit_vote(self) -> "Optional[bool]":
+        """Windowed aggregate of the health votes that rode this backend's
+        collectives since the last call: True when at least one voted op
+        completed and every participant was healthy, False on any dissent,
+        None when no voted op completed. Default: never present."""
+        return None
+
     # ----------------------------------------------- wire introspection
     # The defaults describe an identity wire; the on-device plane
     # overrides. The DDP error-feedback arena keys off these.
@@ -288,6 +306,12 @@ class ErrorSwallowingCommContext(CommContext):
 
     def wire_nbytes(self, a: np.ndarray) -> int:
         return self._inner.wire_nbytes(a)
+
+    def set_vote_health(self, fn) -> None:
+        self._inner.set_vote_health(fn)
+
+    def take_commit_vote(self) -> "Optional[bool]":
+        return self._inner.take_commit_vote()
 
     # instance-level shadows of the classmethods: capability follows the
     # wrapped backend, not this wrapper's identity default

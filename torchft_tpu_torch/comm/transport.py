@@ -25,9 +25,11 @@ closes the sockets, which fails in-flight ops with ConnectionError; the
 first error latches until the next ``configure``.
 
 The wire carries raw values (``compression="none"``). Each gradient frame
-keeps the reference's one-byte health vote (0 = healthy, 1 = this rank has
-latched an error) so the bytes match the reference's; the port's Manager
-always takes the full commit barrier and does not read the votes.
+carries the reference's one-byte health vote (0 = healthy, 1 = this rank
+has latched an error or its Manager reports an error), byte for byte. Every
+op records the aggregate vote it carried; ``take_commit_vote`` hands the
+window's verdict to the Manager's fast path, which commits a leased step on
+it without the barrier RPC.
 """
 
 from __future__ import annotations
@@ -544,6 +546,9 @@ class _Lane:
     def _execute(self, p: _PendingOp) -> None:
         self._seq += 1
         if self._ctx._world_size == 1:
+            # solo wire: the op's vote is this rank's own health, the
+            # degenerate (but present) evidence the fast path consumes
+            self._ctx._record_vote(self._ctx._vote_health_bit())
             return
         if self._ctx._use_ring:
             self._ring_allreduce(p)
@@ -567,7 +572,7 @@ class _Lane:
             raise ValueError(f"unsupported reduce op: {p.op}")
         world = self._ctx._world_size
         peers = sorted(self._peer_socks.items())
-        vote = self._ctx._vote_bit()
+        vote = self._ctx._vote_health_bit()
         for peer_rank, sock in peers:
             r_op, r_seq, r_vote = struct.unpack(
                 "<BQB", self._bufs.recv_header(sock, 10)
@@ -597,12 +602,13 @@ class _Lane:
                 sendmsg_all(sock, frame)
         for _, sock in peers:
             sendmsg_all(sock, [struct.pack("<B", vote)])
+        self._ctx._record_vote(vote)
 
     def _star_peer(self, p: _PendingOp) -> None:
         sock = self._root_sock
         assert sock is not None
         tx: List = [struct.pack("<BQB", _OP_ALLREDUCE, self._seq,
-                                self._ctx._vote_bit())]
+                                self._ctx._vote_health_bit())]
         for ch in p.chunks:
             tx.append(struct.pack("<Q", ch.nbytes))
             tx.append(ch)
@@ -620,7 +626,9 @@ class _Lane:
                 payload = self._bufs.payload_slot(nbytes)
                 yield payload
                 _decode_into(payload, [ch], _copy)
-            yield self._bufs.header_slot(1)  # the root's aggregate vote
+            vote_mv = self._bufs.header_slot(1)  # the root's aggregate vote
+            yield vote_mv
+            self._ctx._record_vote(vote_mv[0])
 
         _duplex_exchange(sock, tx, sock, _rx_targets(), self._ctx._timeout)
 
@@ -681,7 +689,7 @@ class _Lane:
         if reduce_fn is None:
             raise ValueError(f"unsupported reduce op: {p.op}")
         flats = p.chunks
-        vote = self._ctx._vote_bit()
+        vote = self._ctx._vote_health_bit()
         for step in range(n - 1):
             send_views = self._part_views(flats, n, (r - step) % n)
             recv_views = self._part_views(flats, n, (r - step - 1) % n)
@@ -708,6 +716,7 @@ class _Lane:
                 )
             _decode_into(data, recv_views, _copy)
             carry, carry_len = [data], len(data)
+        self._ctx._record_vote(vote)
         if p.op == ReduceOp.AVG:
             for f in flats:
                 np.divide(f, n, out=f)
@@ -749,6 +758,12 @@ class TcpCommContext(CommContext):
         self._rr = 0
         self._listener: Optional[socket.socket] = None
         self._error: Optional[Exception] = None
+        # data-plane commit votes: the aggregate health bytes that rode
+        # this context's collectives since the last take_commit_vote
+        self._vote_health = None
+        self._vote_lock = threading.Lock()
+        self._vote_ops = 0
+        self._vote_unhealthy = False
         self.metrics = Metrics()
 
     @classmethod
@@ -788,6 +803,9 @@ class TcpCommContext(CommContext):
             self._world_size = world_size
             self._error = None
             self._rr = 0
+        with self._vote_lock:  # votes of the old membership prove nothing
+            self._vote_ops = 0
+            self._vote_unhealthy = False
         n_lanes = 1 if world_size == 1 else self._channels
         lanes = [_Lane(self, i) for i in range(n_lanes)]
         if world_size > 1:
@@ -947,8 +965,46 @@ class TcpCommContext(CommContext):
             if self._error is None:
                 self._error = e
 
-    def _vote_bit(self) -> int:
-        return 0 if self.errored() is None else 1
+    # ------------------------------------------- data-plane commit votes
+
+    def set_vote_health(self, fn) -> None:
+        """Install the local health provider (``fn() -> bool``, True =
+        healthy) sampled when each op ships its vote byte. The Manager
+        wires its error latch here; without one a rank votes healthy
+        unless this context has latched an error."""
+        self._vote_health = fn
+
+    def _vote_health_bit(self) -> int:
+        """This rank's vote byte: 1 = unhealthy. A latched transport
+        error always votes unhealthy; so does a provider that raises."""
+        if self.errored() is not None:
+            return 1
+        fn = self._vote_health
+        if fn is None:
+            return 0
+        try:
+            return 0 if fn() else 1
+        except Exception:  # noqa: BLE001 — a broken provider is unhealthy
+            return 1
+
+    def _record_vote(self, bit: int) -> None:
+        with self._vote_lock:
+            self._vote_ops += 1
+            if bit & 1:
+                self._vote_unhealthy = True
+
+    def take_commit_vote(self) -> "Optional[bool]":
+        """Aggregate of the votes recorded since the last call: True (at
+        least one voted op, every participant healthy on each), False (any
+        dissent), None (no voted op completed: the caller must run the
+        full commit barrier)."""
+        with self._vote_lock:
+            ops, bad = self._vote_ops, self._vote_unhealthy
+            self._vote_ops = 0
+            self._vote_unhealthy = False
+        if ops == 0:
+            return None
+        return not bad
 
     # ----------------------------------------------------------- collectives
 

@@ -118,7 +118,8 @@ class QuorumResult:
 class Lighthouse:
     """In-process lighthouse server: quorum RPCs and the HTML dashboard on
     one port. The embedded default join_timeout_ms is 100; the CLI default
-    is 60000."""
+    is 60000. ``lease_ms`` grants an epoch lease of that length with every
+    quorum (None: the native default, no lease)."""
 
     def __init__(
         self,
@@ -128,10 +129,16 @@ class Lighthouse:
         quorum_tick_ms: Optional[int] = None,
         heartbeat_timeout_ms: Optional[int] = None,
         hostname: str = "127.0.0.1",
+        lease_ms: Optional[int] = None,
     ) -> None:
         host, port = _split_bind(bind)
         lib = get_lib()
         err = ctypes.c_char_p()
+        extra = {"cache_quorum": True}
+        if lease_ms is not None:
+            # epoch lease granted with every quorum: steady steps of a
+            # leased manager make no control RPC (manager.py fast path)
+            extra["lease_ms"] = int(lease_ms)
         self._handle = lib.ft_lighthouse_new(
             host.encode(),
             port,
@@ -140,7 +147,7 @@ class Lighthouse:
             join_timeout_ms if join_timeout_ms is not None else 100,
             quorum_tick_ms if quorum_tick_ms is not None else 100,
             heartbeat_timeout_ms if heartbeat_timeout_ms is not None else 5000,
-            json.dumps({"cache_quorum": True}).encode(),
+            json.dumps(extra).encode(),
             ctypes.byref(err),
         )
         check_error(err)
@@ -266,6 +273,22 @@ class ManagerClient:
         )
         check_error(err)
         return QuorumResult.from_json(take_string(ptr))
+
+    def epoch_watch(
+        self, epoch: int, timeout: "float | timedelta"
+    ) -> "tuple[int, bool]":
+        """Park on the manager's EpochWatch proxy until the membership
+        epoch moves off ``epoch`` or ~timeout elapses. Returns
+        ``(current_epoch, changed)``: ``changed=False`` at the deadline is
+        a lease renewal; ``changed=True`` means the fleet moved and any
+        lease granted at ``epoch`` is dead."""
+        err = ctypes.c_char_p()
+        ptr = get_lib().ft_manager_client_epoch_watch(
+            self._handle, epoch, _ms(timeout), ctypes.byref(err)
+        )
+        check_error(err)
+        d = json.loads(take_string(ptr))
+        return int(d.get("epoch", 0)), bool(d.get("changed", False))
 
     def checkpoint_metadata(
         self, rank: int, timeout: "float | timedelta"

@@ -148,6 +148,10 @@ def _configure(lib: ctypes.CDLL) -> None:
         c_void_p, c_i64, c_i64, c_char_p, c_int, c_int, c_i64, c_u64, err_p,
     ]
     lib.ft_manager_client_quorum.restype = c_void_p
+    lib.ft_manager_client_epoch_watch.argtypes = [
+        c_void_p, c_i64, c_u64, err_p,
+    ]
+    lib.ft_manager_client_epoch_watch.restype = c_void_p
     lib.ft_manager_client_checkpoint_metadata.argtypes = [
         c_void_p, c_i64, c_u64, err_p,
     ]

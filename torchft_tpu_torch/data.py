@@ -1,21 +1,29 @@
-"""Fault-tolerant data sharding.
+"""Fault-tolerant data sharding and the host-to-device input pipeline.
 
-Twin of ``DistributedSampler`` in ``torchft_tpu/data.py``, with the identical
+Twin of ``torchft_tpu/data.py``. ``DistributedSampler`` has the identical
 index stream: an epoch-seeded numpy permutation sharded over
 ``num_replicas x num_replica_groups`` with
 ``global_rank = rank + num_replicas * replica_group``. It yields dataset
 indices for any batching code; ``state_dict``/``load_state_dict``
 checkpoint the position. Lossy by design when a group is down: it shards
 by the maximum number of groups.
+
+``PrefetchIterator`` keeps the next batches' host work and host-to-device
+copies ahead of the step that consumes them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Sized
+import queue
+import threading
+from typing import Any, Dict, Iterator, List, Optional, Sized
 
 import numpy as np
+import torch
 
-__all__ = ["DistributedSampler"]
+from torchft_tpu_torch.utils.device import resolve_device
+
+__all__ = ["DistributedSampler", "PrefetchIterator"]
 
 
 class DistributedSampler:
@@ -98,3 +106,115 @@ class DistributedSampler:
     def load_state_dict(self, state: Dict[str, int]) -> None:
         self.epoch = state["epoch"]
         self._pos = state["pos"]
+
+
+class PrefetchIterator:
+    """Host-to-device input pipeline: a worker thread stays ``depth``
+    batches ahead of the consumer, overlapping the next batch's host work
+    and copy with the current step.
+
+    ``source`` yields batches: tensors, numpy arrays, or dicts, lists and
+    tuples of them (other values pass through). Each tensor goes to
+    ``device`` (CUDA unless the caller asks for the CPU). On CUDA the worker
+    stages it in pinned host memory and copies it with ``non_blocking=True``
+    on a side stream, then records an event; ``__next__`` makes the
+    consumer's current stream wait on that event (and records the batch's
+    tensors on that stream for the allocator), so no batch is read before
+    its copy lands. A source exception re-raises on the consumer; iteration
+    ends when the source does. ``close()`` stops the worker."""
+
+    _DONE = object()
+
+    def __init__(self, source, depth: int = 2,
+                 device: "Optional[str | torch.device]" = None) -> None:
+        self._device = resolve_device(device)
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+        self._stop = threading.Event()
+        self._finished = False
+        self._stream = (torch.cuda.Stream(self._device)
+                        if self._device.type == "cuda" else None)
+        self._thread = threading.Thread(target=self._worker,
+                                        args=(iter(source),), daemon=True,
+                                        name="prefetch")
+        self._thread.start()
+
+    def _place(self, x: Any, tensors: List[torch.Tensor]) -> Any:
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        if isinstance(x, torch.Tensor):
+            if self._stream is not None:
+                if not x.is_cuda:
+                    x = x.pin_memory()
+                x = x.to(self._device, non_blocking=True)
+            else:
+                x = x.to(self._device)
+            tensors.append(x)
+            return x
+        if isinstance(x, dict):
+            return type(x)((k, self._place(v, tensors)) for k, v in x.items())
+        if isinstance(x, (list, tuple)):
+            return type(x)(self._place(v, tensors) for v in x)
+        return x
+
+    def _worker(self, it) -> None:
+        try:
+            for item in it:
+                if self._stop.is_set():
+                    return
+                tensors: List[torch.Tensor] = []
+                event = None
+                if self._stream is not None:
+                    with torch.cuda.stream(self._stream):
+                        placed = self._place(item, tensors)
+                        event = torch.cuda.Event()
+                        event.record(self._stream)
+                else:
+                    placed = self._place(item, tensors)
+                while not self._stop.is_set():
+                    try:
+                        self._q.put((placed, event, tensors), timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+            self._q.put(self._DONE)
+        except BaseException as e:  # noqa: BLE001 — raised on the consumer
+            self._q.put(e)
+
+    def __iter__(self) -> "PrefetchIterator":
+        return self
+
+    def __next__(self):
+        if self._finished:
+            # the worker exited and will never fill the queue again
+            raise StopIteration
+        item = self._q.get()
+        if item is self._DONE:
+            self._finished = True
+            raise StopIteration
+        if isinstance(item, BaseException):
+            self._finished = True
+            raise item
+        placed, event, tensors = item
+        if event is not None:
+            current = torch.cuda.current_stream(self._device)
+            current.wait_event(event)
+            for t in tensors:
+                t.record_stream(current)
+        return placed
+
+    def close(self) -> None:
+        self._stop.set()
+        # latch first: the drain below may discard the worker's sentinel
+        self._finished = True
+        try:
+            while True:  # unblock a worker stuck on put()
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=5.0)
+
+    def __del__(self) -> None:  # pragma: no cover — best effort
+        try:
+            self.close()
+        except Exception:
+            pass

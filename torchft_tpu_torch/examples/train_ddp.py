@@ -1,26 +1,37 @@
 """Fault-tolerant DDP training of the GPT with torch (twin of the
-non-sharded, non-fused arm of ``examples/train_ddp.py``).
+non-sharded arm of ``examples/train_ddp.py``).
 
 Run one replica group per process (repeat per group):
 
     python -m torchft_tpu_torch.lighthouse_cli --min_replicas 1 &
     REPLICA_GROUP_ID=0 NUM_REPLICA_GROUPS=2 MODEL=125m \\
     TORCHFT_TPU_LIGHTHOUSE=http://host:29510 \\
+    CKPT_PATH=/data/run0.ckpt \\
         python -m torchft_tpu_torch.examples.train_ddp
 
 Kill any replica group at any time: survivors keep committing; the
-relaunched group heals from a live peer and rejoins. The loop below needs
-no failure-handling code for that. It runs on CUDA (``DEVICE=cpu`` for the
-CPU).
+relaunched group heals from a live peer and rejoins. Kill every group, and
+each resumes from its newest durable checkpoint (``CKPT_PATH``, written
+every ``CKPT_EVERY`` steps). The loop below needs no failure-handling code
+for either. It runs on CUDA (``DEVICE=cpu`` for the CPU).
 
-``train_group`` is the loop as a function; ``run_kill_and_heal`` drives two
+Each step takes one of the reference's two paths: on a solo wire (no
+data-plane peer) ``opt.can_fuse()`` -> ``opt.fused_step(train_step, ...)``,
+forward, backward and AdamW as one CUDA graph; otherwise forward/backward,
+``ddp.average_gradients``, ``opt.step()``. Losses come back through the
+optimizer wrapper's fence, in batches, never one sync per step.
+
+``train_group`` is the loop as a function. ``run_kill_and_heal`` drives two
 groups in threads through a failure, a restart from a poisoned init and a
 heal, on a fixed schedule of steps, and checks that the healed group is
-bitwise equal to its donor. Both take ``comm_backend`` and ``comm_options``
-for the Manager: the default is the TCP gradient wire; ``comm_backend=
-"cuda"`` with e.g. ``comm_options={"algorithm": "psum", "compression":
-"int8"}`` reduces on the training device instead (comm/cuda_backend.py),
-where groups that share a process share the device's plans.
+bitwise equal to its donor. ``run_resume_drill`` adds the durable half:
+a fused solo phase, a heal, steps on the epoch lease's fast path,
+checkpoints, a kill of every group, and a resume that must equal the
+checkpoint bitwise. Both take ``comm_backend`` and ``comm_options`` for the
+Manager: the default is the TCP gradient wire; ``comm_backend="cuda"`` with
+e.g. ``comm_options={"algorithm": "psum", "compression": "int8"}`` reduces
+on the training device instead (comm/cuda_backend.py), where groups that
+share a process share the device's plans.
 """
 
 from __future__ import annotations
@@ -29,6 +40,8 @@ import json
 import logging
 import math
 import os
+import shutil
+import tempfile
 import threading
 import time
 import urllib.request
@@ -38,20 +51,31 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from torchft_tpu_torch.checkpoint_io import (
+    AsyncCheckpointWriter,
+    latest_checkpoint,
+    load_checkpoint,
+)
 from torchft_tpu_torch.comm.cuda_backend import default_device_pool
 from torchft_tpu_torch.comm.store import StoreServer
 from torchft_tpu_torch.control import Lighthouse
 from torchft_tpu_torch.data import DistributedSampler
 from torchft_tpu_torch.ddp import DistributedDataParallel
 from torchft_tpu_torch.manager import Manager
-from torchft_tpu_torch.models import CONFIGS, GPT, TransformerConfig
+from torchft_tpu_torch.models import (
+    CONFIGS,
+    GPT,
+    TransformerConfig,
+    make_train_step,
+)
 from torchft_tpu_torch.ops.flash import check_head_dim
-from torchft_tpu_torch.optim import OptimizerWrapper
+from torchft_tpu_torch.optim import OptimizerWrapper, load_optimizer_state_dict
 from torchft_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["InjectedFailure", "GroupRun", "run_kill_and_heal", "train_group"]
+__all__ = ["InjectedFailure", "GroupRun", "run_kill_and_heal",
+           "run_resume_drill", "train_group"]
 
 
 class InjectedFailure(Exception):
@@ -65,22 +89,61 @@ class InjectedFailure(Exception):
 
 @dataclass
 class GroupRun:
-    """What one replica group did: loss and wall time per committed step
-    (keyed by the step count after the commit), the step count after each
-    step in which it applied a healed state, its forward/backward passes
-    (committed or not), its committed steps whose gradient wire had a peer
-    (``wire_steps``), the element counts of DDP's gradient buckets, and
-    its final metrics."""
+    """What one replica group did: loss, host wall time and control RPCs
+    per committed step (keyed by the step count after the commit; 0 RPCs
+    is a fast-path step), the step count after each step in which it
+    applied a healed state, its forward/backward passes (committed or not,
+    graph replays and the captures' warm-up passes included), its
+    committed fused steps and the CUDA graphs it captured, its committed
+    steps whose gradient wire had a peer (``wire_steps``), the element
+    counts of DDP's gradient buckets, its resume (step, seconds, and the
+    paths where the loaded state differs from the file, when verified),
+    its checkpoint writes, and its final metrics."""
 
     passes: int = 0
     wire_steps: int = 0
+    fused_steps: int = 0
+    captures: int = 0
     buckets: List[int] = field(default_factory=list)
     losses: Dict[int, float] = field(default_factory=dict)
     step_seconds: Dict[int, float] = field(default_factory=dict)
     participants: Dict[int, int] = field(default_factory=dict)
+    control_rpcs: Dict[int, int] = field(default_factory=dict)
     healed_at: List[int] = field(default_factory=list)
-    # the manager's metrics snapshot at the end (phase timers, heal gauges)
+    resumed_step: Optional[int] = None
+    resume_seconds: Optional[float] = None
+    resume_mismatches: List[str] = field(default_factory=list)
+    checkpoints: List[Dict[str, Any]] = field(default_factory=list)
+    # the manager's metrics snapshot at the end (phase timers, heal gauges,
+    # lease counters) and the optimizer wrapper's of its fused steps
+    # (barrier, dispatch, fence, transition_drain)
     metrics: Dict[str, object] = field(default_factory=dict)
+    fused_metrics: Dict[str, object] = field(default_factory=dict)
+
+
+def _bytes_of(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _mismatches(got: Any, want: Any, path: str = "") -> List[str]:
+    """Paths at which ``got`` differs from ``want``: tensors bitwise
+    (dtype, shape and every bit), other values by ``==``."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [path or "."]
+        return [m for k in want
+                for m in _mismatches(got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            return [path or "."]
+        return [m for i, (g, w) in enumerate(zip(got, want))
+                for m in _mismatches(g, w, f"{path}/{i}")]
+    if isinstance(want, torch.Tensor):
+        ok = (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+              and got.shape == want.shape
+              and torch.equal(_bytes_of(got), _bytes_of(want)))
+        return [] if ok else [path]
+    return [] if got == want else [path]
 
 
 def train_group(
@@ -98,7 +161,7 @@ def train_group(
     dataset_size: int = 4096,
     fail_at_step: Optional[int] = None,
     on_start: Optional[Callable[[Manager], None]] = None,
-    on_commit: Optional[Callable[[int, Manager, GPT, float], None]] = None,
+    on_commit: Optional[Callable[[int, Manager, GPT, Any], None]] = None,
     stop: Optional[threading.Event] = None,
     timeout: float = 60.0,
     rank: int = 0,
@@ -106,18 +169,29 @@ def train_group(
     store_addr: Optional[str] = None,
     comm_backend: str = "host",
     comm_options: Optional[Dict[str, Any]] = None,
+    ckpt_path: Optional[str] = None,
+    ckpt_every: int = 0,
+    verify_resume: bool = False,
 ) -> GroupRun:
     """Train one replica group until ``total_steps`` steps are committed
     (or ``stop`` is set).
 
-    ``fail_at_step``: raise :class:`InjectedFailure` (after shutting this
-    group's manager and store down) at the top of the first step that
-    starts with ``fail_at_step`` or more steps committed. ``init_state``: a
-    model state dict to start from instead of the ``init_seed`` draw.
-    ``on_start(manager)`` runs once the manager exists; ``on_commit(step,
-    manager, model, loss)`` after every commit. ``comm_backend`` /
-    ``comm_options``: the Manager's data plane; the cuda plane reduces on
-    ``device`` unless ``comm_options`` names a ``device_pool``.
+    ``fail_at_step``: raise :class:`InjectedFailure` (after the last
+    checkpoint write has persisted, then shutting this group's manager and
+    store down) at the top of the first step that starts with
+    ``fail_at_step`` or more steps committed. ``init_state``: a model state
+    dict to start from instead of the ``init_seed`` draw. ``on_start(
+    manager)`` runs once the manager exists; ``on_commit(step, manager,
+    model, loss)`` after every commit, ``loss`` being the step's loss on
+    the device (reading it syncs). ``comm_backend`` / ``comm_options``: the
+    Manager's data plane; the cuda plane reduces on ``device`` unless
+    ``comm_options`` names a ``device_pool``.
+
+    ``ckpt_path``: resume from ``latest_checkpoint(ckpt_path)`` if there
+    is one (the user state and the Manager's), and write
+    ``{ckpt_path}.{step}`` through ``AsyncCheckpointWriter(keep=2)`` after
+    every ``ckpt_every``-th committed step. ``verify_resume``: compare the
+    resumed state with the file, bitwise (``GroupRun.resume_mismatches``).
 
     A CUDA run of a config whose head_dim the flash kernels do not take
     raises ValueError here, before anything is built.
@@ -132,8 +206,11 @@ def train_group(
     model = GPT(cfg, device=device, seed=init_seed)
     if init_state is not None:
         model.load_state_dict(init_state)
+    # one optimizer for both paths; on the card its step count lives on
+    # the device, which the fused step's CUDA graph needs
     optimizer = torch.optim.AdamW(model.parameters(), lr=3e-4,
-                                  weight_decay=1e-4)
+                                  weight_decay=1e-4,
+                                  capturable=device.type == "cuda")
     # synthetic next-token dataset, sharded across groups x local ranks
     rng = np.random.default_rng(data_seed)
     dataset = rng.integers(0, cfg.vocab_size, (dataset_size, cfg.max_seq_len))
@@ -148,8 +225,10 @@ def train_group(
                 "sampler": sampler.state_dict()}
 
     def load_state_dict(sd):
+        # in place where the tensors exist, so the fused step's graph stays
+        # valid across heals and resumes
         model.load_state_dict(sd["model"])
-        optimizer.load_state_dict(sd["optim"])
+        load_optimizer_state_dict(optimizer, sd["optim"])
         sampler.load_state_dict(sd["sampler"])
 
     # per-group rendezvous store: rank 0 binds it
@@ -172,57 +251,110 @@ def train_group(
     )
     ddp = DistributedDataParallel(manager)
     opt = OptimizerWrapper(manager, optimizer)
+    # the solo-wire step: forward, backward and AdamW as one CUDA graph
+    train_step = make_train_step(model, optimizer)
     run = GroupRun()
-    it = iter(sampler)
-
-    def next_batch():
-        nonlocal it
-        idx: List[int] = []
-        while len(idx) < batch_size:
-            try:
-                idx.append(next(it))
-            except StopIteration:
-                sampler.set_epoch(sampler.epoch + 1)
-                it = iter(sampler)
-        tokens = torch.as_tensor(dataset[idx], device=device)
-        return tokens, torch.roll(tokens, -1, dims=1)
+    writer: Optional[AsyncCheckpointWriter] = None
 
     try:
+        if ckpt_path is not None:
+            # durable resume (the user's job in the reference torchft): the
+            # Manager's state_dict rides in the same file
+            newest = latest_checkpoint(ckpt_path)
+            if newest is not None:
+                t0 = time.perf_counter()
+                saved = load_checkpoint(newest)
+                load_state_dict(saved["user"])
+                manager.load_state_dict(saved["manager"])
+                if device.type == "cuda":
+                    torch.cuda.current_stream(device).synchronize()
+                run.resume_seconds = time.perf_counter() - t0
+                run.resumed_step = manager.current_step()
+                if verify_resume:
+                    run.resume_mismatches = _mismatches(
+                        {"user": state_dict(),
+                         "manager": manager.state_dict()}, saved)
+                del saved
+            # stage on call, persist in the background: training never
+            # waits on the disk, only on the device-to-host copy
+            writer = AsyncCheckpointWriter(keep=2)
+        it = iter(sampler)
+
+        def next_batch():
+            nonlocal it
+            idx: List[int] = []
+            while len(idx) < batch_size:
+                try:
+                    idx.append(next(it))
+                except StopIteration:
+                    sampler.set_epoch(sampler.epoch + 1)
+                    it = iter(sampler)
+            tokens = torch.as_tensor(dataset[idx], device=device)
+            return tokens, torch.roll(tokens, -1, dims=1)
+
         if on_start is not None:
             on_start(manager)
         while manager.current_step() < total_steps and not (
                 stop is not None and stop.is_set()):
             if (fail_at_step is not None
                     and manager.current_step() >= fail_at_step):
+                if writer is not None:
+                    writer.wait()  # the kill lands once the write persisted
                 raise InjectedFailure(
                     f"group {replica_group} at step {fail_at_step}", run
                 )
             tokens, targets = next_batch()
             t0 = time.perf_counter()
             opt.begin_step()
-            run.passes += 1
-            with manager.metrics.timed("forward_backward"):
-                loss = model.loss(tokens, targets)
-                loss.backward()
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-            ddp.average_gradients(model)
-            committed = opt.step()
-            loss_value = loss.detach().item()  # waits for the device
+            if opt.can_fuse():  # waits the quorum; latches on failure
+                loss, committed = opt.fused_step(train_step, tokens, targets)
+                if committed:
+                    run.passes += 1
+                    run.fused_steps += 1
+            else:
+                run.passes += 1
+                with manager.metrics.timed("forward_backward"):
+                    loss = model.loss(tokens, targets)
+                    loss.backward()
+                    if device.type == "cuda":
+                        torch.cuda.current_stream(device).synchronize()
+                ddp.average_gradients(model)
+                loss = loss.detach()
+                committed = opt.step(loss)
+            run.losses.update(opt.take_losses())
             step = manager.current_step()
             if manager.did_heal():
                 run.healed_at.append(step)
             if not committed:
                 continue
-            run.losses[step] = loss_value
             run.step_seconds[step] = time.perf_counter() - t0
             run.participants[step] = manager.num_participants()
+            run.control_rpcs[step] = manager.control_rpcs()
             if manager.transport_world_size() > 1:
                 run.wire_steps += 1
+            if writer is not None and ckpt_every and step % ckpt_every == 0:
+                writer.save_step(ckpt_path, step, {
+                    "user": state_dict(), "manager": manager.state_dict(),
+                })
             if on_commit is not None:
-                on_commit(step, manager, model, loss_value)
+                on_commit(step, manager, model, loss)
+        if writer is not None:
+            writer.wait()  # surface a write error before returning
     finally:
+        try:
+            run.losses.update(opt.drain())
+        except Exception as e:  # noqa: BLE001 — keep the step's own error
+            logger.warning(f"group {replica_group}: loss readback failed: {e}")
+        run.passes += train_step.warmup_passes
+        run.captures = train_step.captures
+        if writer is not None:
+            try:
+                writer.close()
+            except Exception as e:  # noqa: BLE001 — raised by wait() above
+                logger.warning(f"group {replica_group}: checkpoint: {e}")
+            run.checkpoints = list(writer.saves)
         run.metrics = manager.metrics.snapshot()
+        run.fused_metrics = opt.fused_metrics.snapshot()
         run.buckets = ddp.bucket_sizes()
         manager.shutdown(wait=False)
         if store is not None:
@@ -236,15 +368,16 @@ def _require(ok: bool, what: str) -> None:
 
 
 def _wait_lighthouse(addr: str, key: str, count: int, timeout: float,
-                     stop: threading.Event) -> None:
-    """Wait until the lighthouse's ``/status.json`` counts at least
-    ``count`` ``key`` (``healthy`` heartbeating replicas, or
-    ``participants`` waiting in a quorum request)."""
+                     stop: threading.Event, at_most: bool = False) -> None:
+    """Wait until the lighthouse's ``/status.json`` counts at least (with
+    ``at_most``: at most) ``count`` ``key`` (``healthy`` heartbeating
+    replicas, or ``participants`` waiting in a quorum request)."""
     deadline = time.monotonic() + timeout
     while True:
         with urllib.request.urlopen(f"{addr}/status.json",
                                     timeout=timeout) as r:
-            if json.load(r)["jobs"]["default"][key] >= count:
+            n = json.load(r)["jobs"]["default"][key]
+            if (n <= count) if at_most else (n >= count):
                 return
         if stop.is_set():
             raise RuntimeError("the other replica group failed")
@@ -302,7 +435,7 @@ def run_kill_and_heal(
 
     def on_commit(group: int):
         def _hook(step, manager, model, loss):
-            log(f"group {group} committed step {step} loss {loss:.4f} "
+            log(f"group {group} committed step {step} "
                 f"participants {manager.num_participants()}"
                 + (" (healed)" if manager.did_heal() else ""))
             if step > kill_step:
@@ -381,6 +514,218 @@ def run_kill_and_heal(
             "passes": sum(r.passes for g in runs for r in runs[g])}
 
 
+def _telemetry_metrics(manager: Manager, timeout: float) -> Dict[str, Any]:
+    """GET /telemetry/metrics from the manager's checkpoint server."""
+    url = manager._checkpoint_transport.metadata() + "/telemetry/metrics"
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.load(r)
+
+
+# run_resume_drill's schedule: solo, joint and resumed steps, checkpoint
+# cadence, and the lighthouse's lease
+_SOLO_STEPS, _JOINT_STEPS, _STEPS_AFTER, _CKPT_EVERY = 3, 4, 2, 2
+_LEASE_MS = 2000
+
+
+def run_resume_drill(
+    cfg: TransformerConfig,
+    *,
+    device: "Optional[str | torch.device]" = None,
+    batch_size: int = 8,
+    seed: int = 0,
+    timeout: float = 60.0,
+    ckpt_dir: Optional[str] = None,
+    log: Callable[[str], None] = logger.info,
+) -> Dict[str, object]:
+    """The durable half of the fault-tolerance story over the TCP wire, on
+    a fixed schedule under an in-process lighthouse that grants 2 s epoch
+    leases (s = 3 solo steps, j = 4 joint steps, a = 2 steps after the
+    resume, every group checkpointing through
+    ``AsyncCheckpointWriter(keep=2)`` after every 2nd step):
+
+    - group 0 commits steps 1..s alone, each a fused step (a CUDA graph on
+      the card);
+    - group 1 starts from a poisoned init, heals from group 0 in step
+      s + 1, and both commit steps s + 1..s + j together: from the second
+      joint quorum on, steady steps ride the lease (no control RPC);
+    - once both have committed s + j, and their last checkpoint has
+      persisted, both are killed; both restart from another poisoned init,
+      resume from their newest checkpoint (step c = 6, the last multiple
+      of 2 up to s + j) and commit c + 1..c + a together.
+
+    During group 0's first joint fast-path step it reads its own GET
+    /telemetry/metrics. Raises AssertionError unless: group 0's solo steps
+    were all fused; the healed and the resumed groups are bitwise equal at
+    every step both commit; each group committed at least 2 steps on the
+    fast path before the kill, each with 0 control RPCs; the telemetry read
+    showed the lease live and 0 control RPCs; both resumed at step c with
+    parameters, AdamW state, sampler position and step equal to the file's
+    bitwise; every loss is finite. ``ckpt_dir`` (a temporary directory by
+    default, removed at the end) holds the checkpoints. Returns the runs
+    (``runs[g]`` = [before the kill, after the resume]), the heal and
+    resume steps, the checked steps, the telemetry read, whether the
+    resumed run's first step repeated the first run's bitwise
+    (``replay_equal``), and the forward/backward passes of all runs."""
+    solo_steps, ckpt_every = _SOLO_STEPS, _CKPT_EVERY
+    lighthouse = Lighthouse(min_replicas=1, join_timeout_ms=200,
+                            heartbeat_timeout_ms=1000, lease_ms=_LEASE_MS)
+    addr = lighthouse.address()
+    kill_at = solo_steps + _JOINT_STEPS
+    resume_at = kill_at // ckpt_every * ckpt_every
+    total = resume_at + _STEPS_AFTER
+    own_dir = ckpt_dir is None
+    ckpt_dir = ckpt_dir or tempfile.mkdtemp(prefix="torchft_tpu_torch_ckpt_")
+    solo_done, stop = threading.Event(), threading.Event()
+    # snapshots[life][group][step]: parameters after each joint commit
+    snapshots: Dict[int, Dict[int, Dict[int, List[torch.Tensor]]]] = {
+        0: {0: {}, 1: {}}, 1: {0: {}, 1: {}}}
+    runs: Dict[int, List[GroupRun]] = {0: [], 1: []}
+    telemetry: Dict[str, Any] = {}
+    errors: List[BaseException] = []
+
+    def wait_for(pred: Callable[[], bool], what: str) -> None:
+        deadline = time.monotonic() + timeout
+        while not pred():
+            if stop.is_set():
+                raise RuntimeError("the other replica group failed")
+            if time.monotonic() > deadline:
+                raise TimeoutError(what)
+            time.sleep(0.01)
+
+    def both_heartbeating(manager):
+        _wait_lighthouse(addr, "healthy", 2, timeout, stop)
+
+    def on_commit(life: int, group: int):
+        def _hook(step, manager, model, loss):
+            rpcs = manager.control_rpcs()
+            log(f"life {life} group {group} committed step {step} "
+                f"participants {manager.num_participants()} control RPCs "
+                f"{rpcs}" + (" (healed)" if manager.did_heal() else ""))
+            if life == 0 and group == 0 and step == solo_steps:
+                # let group 1 start; take the next quorum with it, once its
+                # arrival has broken our lease
+                solo_done.set()
+                _wait_lighthouse(addr, "participants", 1, timeout, stop)
+                wait_for(lambda: not manager.lease_live(),
+                         "group 1's arrival never broke group 0's lease")
+            if step > solo_steps:
+                snapshots[life][group][step] = [
+                    p.detach().clone() for p in model.parameters()]
+            if (group == 0 and life == 0 and not telemetry and rpcs == 0
+                    and step > solo_steps + 1):
+                telemetry.update(_telemetry_metrics(manager, timeout))
+        return _hook
+
+    common = dict(num_groups=2, lighthouse_addr=addr, device=device,
+                  batch_size=batch_size, data_seed=seed, timeout=timeout,
+                  stop=stop, ckpt_every=ckpt_every)
+
+    def group(g: int):
+        def _run():
+            path = os.path.join(ckpt_dir, f"group{g}", "ckpt")
+            if g == 1 and not (solo_done.wait(timeout) and not stop.is_set()):
+                raise TimeoutError(f"group 0 never committed {solo_steps}")
+            try:
+                train_group(cfg, replica_group=g, init_seed=seed + 1000 * g,
+                            total_steps=total, fail_at_step=kill_at,
+                            ckpt_path=path, on_commit=on_commit(0, g),
+                            **common)
+                raise AssertionError(f"group {g} was never failed")
+            except InjectedFailure as e:
+                runs[g].append(e.run)
+                log(f"group {g} killed: {e}")
+            killed.wait()  # both down before either restarts
+            if stop.is_set():
+                return
+            runs[g].append(train_group(
+                cfg, replica_group=g, init_seed=seed + 2000 + g,
+                total_steps=total, ckpt_path=path, verify_resume=True,
+                on_start=both_heartbeating, on_commit=on_commit(1, g),
+                **common))
+        return _run
+
+    killed = threading.Event()
+
+    def guarded(fn):
+        def _run():
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+                stop.set()  # never strand the other group
+                solo_done.set()
+                killed.set()
+        return _run
+
+    threads = [threading.Thread(target=guarded(group(g)), name=f"group{g}")
+               for g in (0, 1)]
+    try:
+        for t in threads:
+            t.start()
+        # the kill: both groups down, and gone from the lighthouse, before
+        # either restarts, so both resume together from the same step
+        wait_for(lambda: bool(errors) or (len(runs[0]), len(runs[1])) == (1, 1),
+                 "the groups were never killed")
+        if not errors:
+            _wait_lighthouse(addr, "healthy", 0, timeout, stop, at_most=True)
+        killed.set()
+        for t in threads:
+            t.join()
+    finally:
+        killed.set()
+        lighthouse.shutdown()
+        if own_dir:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if errors:
+        raise errors[0]
+
+    first, resumed = ({g: runs[g][i] for g in (0, 1)} for i in (0, 1))
+    _require(first[0].fused_steps == solo_steps
+             and sorted(first[0].losses)[:solo_steps]
+             == list(range(1, solo_steps + 1)),
+             f"group 0 fused {first[0].fused_steps} of its {solo_steps} "
+             "solo steps")
+    _require(first[1].healed_at == [solo_steps + 1],
+             f"group 1 healed at {first[1].healed_at}, not at step "
+             f"{solo_steps + 1}")
+    for g in (0, 1):
+        fast = [s for s, n in first[g].control_rpcs.items() if n == 0]
+        _require(len(fast) >= 2 and
+                 first[g].metrics.get("fastpath_steps") == float(len(fast)),
+                 f"group {g}: fast-path steps {fast}, counter "
+                 f"{first[g].metrics.get('fastpath_steps')}")
+        _require(resumed[g].resumed_step == resume_at,
+                 f"group {g} resumed at {resumed[g].resumed_step}, not at "
+                 f"{resume_at}")
+        _require(not resumed[g].resume_mismatches,
+                 f"group {g}'s resumed state differs from its checkpoint at "
+                 f"{resumed[g].resume_mismatches[:5]}")
+    _require(bool(telemetry) and telemetry.get("lease_live") is True
+             and telemetry.get("control_rpcs_per_step") == 0,
+             f"telemetry during a fast-path step: {telemetry or 'none'}")
+    checked = []
+    for life, lo, hi in ((0, solo_steps + 1, kill_at), (1, resume_at + 1, total)):
+        steps = sorted(set(snapshots[life][0]) & set(snapshots[life][1]))
+        _require(steps == list(range(lo, hi + 1)),
+                 f"life {life}: steps both groups committed {steps}")
+        for s in steps:
+            for a, b in zip(snapshots[life][0][s], snapshots[life][1][s]):
+                _require(torch.equal(a, b),
+                         f"life {life}: the groups diverged at step {s}")
+        checked.append(steps)
+    replay_equal = all(
+        torch.equal(a, b)
+        for a, b in zip(snapshots[0][0][resume_at + 1],
+                        snapshots[1][0][resume_at + 1])
+    ) if resume_at + 1 <= kill_at else None
+    losses = [v for g in runs for r in runs[g] for v in r.losses.values()]
+    _require(all(math.isfinite(v) for v in losses), "non-finite loss")
+    return {"runs": runs, "heal_step": solo_steps + 1,
+            "resume_step": resume_at, "checked_steps": checked,
+            "telemetry": telemetry, "replay_equal": replay_equal,
+            "passes": sum(r.passes for g in runs for r in runs[g])}
+
+
 def main() -> None:
     logging.basicConfig(level=os.environ.get("LOGLEVEL", "WARNING"),
                         format="%(asctime)s %(name)s: %(message)s")
@@ -391,13 +736,15 @@ def main() -> None:
     rank = int(os.environ.get("RANK", "0"))
 
     def on_commit(step, manager, model, loss):
-        print(f"[group {replica_group}] step {step} loss {loss:.4f} "
+        # the loss is read only every 10th step: a read syncs with the card
+        loss_part = f" loss {float(loss):.4f}" if step % 10 == 0 else ""
+        print(f"[group {replica_group}] step {step}{loss_part} "
               f"participants {manager.num_participants()}", flush=True)
 
     store_addr = None
     if rank != 0:
         store_addr = f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
-    train_group(
+    run = train_group(
         CONFIGS[os.environ.get("MODEL", "tiny")],
         replica_group=replica_group,
         num_groups=int(os.environ.get("NUM_REPLICA_GROUPS", "2")),
@@ -407,7 +754,15 @@ def main() -> None:
         world_size=int(os.environ.get("WORLD_SIZE", "1")),
         store_addr=store_addr,
         on_commit=on_commit,
+        ckpt_path=os.environ.get(
+            "CKPT_PATH", os.path.join(tempfile.gettempdir(),
+                                      f"torchft_tpu_torch_ddp_{replica_group}"
+                                      ".ckpt")),
+        ckpt_every=int(os.environ.get("CKPT_EVERY", "10")),
     )
+    if run.resumed_step is not None:
+        print(f"[group {replica_group}] resumed at step {run.resumed_step}",
+              flush=True)
     print(f"[group {replica_group}] done", flush=True)
 
 

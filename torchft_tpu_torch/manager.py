@@ -14,9 +14,15 @@ Per-step protocol (driven by ``optim.OptimizerWrapper``):
     should_commit    — drain pending work, apply a pending heal, two-phase
                        commit barrier; True => apply the optimizer update
 
-Every step takes the full quorum and commit barrier, the reference
-torchft's semantics (the JAX package's epoch-lease fast path is not
-ported). Gradient normalization uses the runtime ``num_participants``.
+Steady-state fast path (the JAX package's epoch lease): a full quorum from
+a lighthouse started with ``lease_ms`` grants a lease on the membership
+epoch it announced, renewed off the step path by an EpochWatch long-poll.
+While it stands, ``start_quorum`` is a local check and ``should_commit``
+commits on the 1-byte health vote that rode the step's own collective:
+zero control RPCs per step. Any epoch bump, latch, expiry, or an absent or
+dissenting vote breaks the lease, and the step takes the full barrier.
+``TORCHFT_TPU_FASTPATH=0`` disables it. Gradient normalization uses the
+runtime ``num_participants``.
 """
 
 from __future__ import annotations
@@ -179,6 +185,7 @@ class Manager:
                 timeout=self._timeout, num_chunks=2
             )
         self._checkpoint_transport = checkpoint_transport
+        self._commit_hook: "Optional[Callable[[int, int], None]]" = None
         self._executor = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="async_quorum"
         )
@@ -187,11 +194,14 @@ class Manager:
                                   connect_timeout=self._connect_timeout)
         self._comm = comm
         self._manager: Optional[ManagerServer] = None
+        # the lighthouse this group is homed to, served by /telemetry
+        self._lighthouse_addr: Optional[str] = None
 
         if self._rank == 0:
             if port is None:
                 port = int(os.environ.get(MANAGER_PORT_ENV, 0))
             lighthouse_addr = lighthouse_addr or os.environ[LIGHTHOUSE_ENV]
+            self._lighthouse_addr = lighthouse_addr
             replica_id = (replica_id or "") + str(uuid.uuid4())
             self._manager = ManagerServer(
                 replica_id=replica_id,
@@ -205,6 +215,10 @@ class Manager:
             )
             self._store.set(MANAGER_ADDR_KEY, self._manager.address())
             self._store.set(REPLICA_ID_KEY, replica_id)
+        # every rank advertises its checkpoint (and telemetry) server on
+        # the group store, where scripts/fleet_top.py discovers it
+        self._store.set(f"checkpoint_addr_{self._rank}",
+                        self._checkpoint_transport.metadata())
 
         addr = self._store.wait(
             MANAGER_ADDR_KEY, timeout=self._connect_timeout
@@ -247,9 +261,40 @@ class Manager:
             set_metrics = getattr(target, "set_metrics", None)
             if callable(set_metrics):
                 set_metrics(self.metrics)
-        set_events = getattr(comm, "set_events", None)
-        if callable(set_events):
-            set_events(self.events)
+        for target in (comm, self._checkpoint_transport):
+            set_events = getattr(target, "set_events", None)
+            if callable(set_events):
+                set_events(self.events)
+        # GET /telemetry/* frames its payload with this identity probe
+        set_telemetry = getattr(self._checkpoint_transport, "set_telemetry",
+                                None)
+        if callable(set_telemetry):
+            set_telemetry(self._telemetry_info)
+
+        # --- steady-state fast path (epoch lease + data-plane votes) ------
+        # Only a single-rank group steps fast: the ManagerServer's fan-in
+        # across local ranks is itself a control RPC per rank.
+        self._lease_enabled = (
+            os.environ.get("TORCHFT_TPU_FASTPATH", "1") not in ("0", "false")
+            and self._world_size == 1
+        )
+        self._lease_lock = threading.Lock()
+        self._lease_epoch: Optional[int] = None
+        self._lease_ms = 0
+        self._lease_deadline = 0.0  # monotonic
+        self._lease_live = False
+        self._lease_thread: Optional[threading.Thread] = None
+        self._lease_stop = threading.Event()
+        # armed by a fast start_quorum, consumed by the next should_commit
+        self._fastpath_active = False
+        # control RPCs of the current step (quorum + barrier), gauged as
+        # control_rpcs_per_step: 0 on a fast-path step
+        self._control_rpcs = 0
+        self.metrics.gauge("control_rpcs_per_step", 0.0)
+        # the transport samples this when it stamps a step's vote byte
+        set_vote_health = getattr(comm, "set_vote_health", None)
+        if callable(set_vote_health):
+            set_vote_health(lambda: self.errored() is None)
 
     # ------------------------------------------------------------- lifecycle
 
@@ -260,11 +305,20 @@ class Manager:
 
     def shutdown(self, wait: bool = True) -> None:
         """Shut down the manager server, checkpoint transport and comm."""
+        # break the lease and stop the epoch watch first: a poll parked on
+        # our own server would error when it goes down, and a restarted
+        # group must not meet a stale watcher
+        self._break_lease("shutdown")
+        self._lease_stop.set()
         self._checkpoint_transport.shutdown(wait=wait)
         if self._manager is not None:
             self._manager.shutdown()
         self._executor.shutdown(wait=wait)
         self._comm.shutdown()
+        thread = self._lease_thread
+        if thread is not None and thread is not threading.current_thread():
+            # the parked poll fails as soon as our server is down
+            thread.join(timeout=max(1.0, self._lease_ms / 1000.0))
 
     # ------------------------------------------------------------ collectives
 
@@ -330,6 +384,31 @@ class Manager:
             self.report_error(e)
             return CompletedWork(list(arrays))
 
+    # ------------------------------------------------------------- telemetry
+
+    def _telemetry_info(self) -> Dict[str, Any]:
+        """Identity and live state framing every /telemetry response, in
+        the JAX package's keys (plain attribute reads; the port has one
+        job, no evictions and no pipeline stages)."""
+        return {
+            "replica_id": self._replica_id,
+            "rank": self._rank,
+            "job_id": "default",
+            "evicted": False,
+            "step": self._step,
+            "epoch": self._quorum_epoch,
+            "comm_backend": self.comm_backend(),
+            "participating": self._participating_rank is not None,
+            "healing": self._healing,
+            "batches_committed": self._batches_committed,
+            "stage_index": 0,
+            "stage_count": 1,
+            "lighthouse_addr": self._lighthouse_addr,
+            "lease_live": self._lease_valid(),
+            "lease_epoch": self._lease_epoch,
+            "control_rpcs_per_step": self._control_rpcs,
+        }
+
     # ---------------------------------------------------------- error model
 
     def report_error(self, e: Exception) -> None:
@@ -368,12 +447,83 @@ class Manager:
         self._pending_work.append(out)
         return out
 
+    # ----------------------------------------------------------- epoch lease
+
+    def _lease_valid(self) -> bool:
+        with self._lease_lock:
+            return (self._lease_live and self._lease_epoch is not None
+                    and time.monotonic() < self._lease_deadline)
+
+    def _grant_lease(self, epoch: int, lease_ms: int) -> None:
+        """Arm (or re-arm) the lease from a full quorum's announcement and
+        make sure the EpochWatch renewal thread runs."""
+        with self._lease_lock:
+            self._lease_epoch = epoch
+            self._lease_ms = lease_ms
+            self._lease_deadline = time.monotonic() + lease_ms / 1000.0
+            self._lease_live = True
+            self.metrics.incr("lease_grants")
+            if self._lease_thread is None or not self._lease_thread.is_alive():
+                self._lease_thread = threading.Thread(
+                    target=self._epoch_watch_loop, name="epoch_watch",
+                    daemon=True,
+                )
+                self._lease_thread.start()
+
+    def _break_lease(self, reason: str, epoch: Optional[int] = None) -> None:
+        """Invalidate the lease (idempotent). ``epoch`` keeps the watch
+        thread from breaking a fresher lease than the one it watched."""
+        with self._lease_lock:
+            if not self._lease_live:
+                return
+            if epoch is not None and self._lease_epoch != epoch:
+                return
+            self._lease_live = False
+            broken_epoch = self._lease_epoch
+        self.metrics.incr("lease_breaks")
+        if self.events:
+            self.events.emit("lease_break", step=self._step,
+                             epoch=self._quorum_epoch,
+                             lease_epoch=broken_epoch, reason=reason)
+        self._logger.info(f"lease broken ({reason}) lease_epoch={broken_epoch}")
+
+    def _epoch_watch_loop(self) -> None:
+        """Renew the lease off the step path: park an EpochWatch long-poll
+        on the lighthouse (through our ManagerServer) at half the lease;
+        an unchanged epoch re-stamps the deadline. A change, an error or
+        shutdown breaks the lease and ends the loop; the next full
+        quorum's grant starts it again."""
+        while not self._lease_stop.is_set():
+            with self._lease_lock:
+                live, epoch = self._lease_live, self._lease_epoch
+                lease_s = self._lease_ms / 1000.0
+            if not live or epoch is None:
+                return
+            try:
+                _, changed = self._client.epoch_watch(
+                    epoch, timeout=max(0.05, lease_s / 2.0)
+                )
+            except Exception as e:  # noqa: BLE001 — an absent liveness signal
+                self._break_lease(f"watch_error: {e!r}", epoch=epoch)
+                return
+            if changed:
+                self._break_lease("epoch_advanced", epoch=epoch)
+                return
+            with self._lease_lock:
+                if self._lease_live and self._lease_epoch == epoch:
+                    self._lease_deadline = time.monotonic() + lease_s
+
+    def _count_control_rpc(self) -> None:
+        self._control_rpcs += 1
+        self.metrics.gauge("control_rpcs_per_step", float(self._control_rpcs))
+
     # --------------------------------------------------------------- quorum
 
     def start_quorum(self, allow_heal: bool = True, shrink_only: bool = False,
                      timeout: "float | timedelta | None" = None) -> None:
         """Compute a new quorum (async by default, overlapping the forward
-        pass) and ready the manager for a new step."""
+        pass) and ready the manager for a new step. Under a live lease
+        this is a local check: no RPC."""
         if self._quorum_future is not None:
             try:
                 self._quorum_future.result()
@@ -381,6 +531,34 @@ class Manager:
                 self._logger.exception(
                     f"previous quorum failed, starting fresh: {e}"
                 )
+
+        # --- steady-state fast path ---------------------------------------
+        # Lease live, watched epoch unchanged, no latch: the last full
+        # quorum's membership and configured transport still describe the
+        # fleet. Every invalidation edge falls through to the full path.
+        self._fastpath_active = False
+        self._control_rpcs = 0
+        self.metrics.gauge("control_rpcs_per_step", 0.0)
+        if self._lease_enabled and not shrink_only:
+            t0 = time.perf_counter()
+            if self.errored() is not None or self._comm.errored() is not None:
+                self._break_lease("latch_edge")
+            elif (not self._healing and self._transport_key is not None
+                    and self._lease_valid()):
+                # votes left over from an earlier step prove nothing about
+                # this one: a step with no collective must find none (the
+                # JAX package keeps them, and would commit such a step on
+                # the last full-path step's vote)
+                take_vote = getattr(self._comm, "take_commit_vote", None)
+                if callable(take_vote):
+                    take_vote()
+                fast: Future = Future()
+                fast.set_result(None)
+                self._quorum_future = fast
+                self._fastpath_active = True
+                self.metrics.observe("quorum_fast", time.perf_counter() - t0)
+                return
+
         with self._errored_lock:
             self._errored = None
         self._healing = False
@@ -413,12 +591,23 @@ class Manager:
         )
         self._quorum_future.result()
 
+    def quorum_fence(self) -> None:
+        """Wait the in-flight quorum and apply a pending heal now, not at
+        ``should_commit``: for loops that read the state between the
+        quorum and the commit. ``did_heal()`` then tells the caller to
+        re-read it. Raises whatever the quorum raised."""
+        self.wait_quorum()
+        if self._healing:
+            self._apply_pending_state_dict()
+            self._healing = False
+
     def _async_quorum(self, allow_heal: bool, shrink_only: bool,
                       quorum_timeout: float) -> None:
         if self.events:
             self.events.emit("quorum_start", step=self._step,
                              epoch=self._quorum_epoch)
         with self.metrics.timed("quorum"):
+            self._count_control_rpc()
             quorum = self._client.quorum(
                 rank=self._rank,
                 step=self._step,
@@ -487,8 +676,27 @@ class Manager:
                 self._logger.exception(f"comm configure failed: {e}")
                 self.report_error(e)
 
-        if not allow_heal:
-            return
+        if allow_heal:
+            self._heal_exchange(quorum)
+
+        # --- lease grant --------------------------------------------------
+        # A clean full quorum arms the lease for the epoch it announced;
+        # never off a latched step (the transport may not match this
+        # membership), and never off a quorum in which any member heals
+        # (replica_world_size > max_world_size): the healer takes a full
+        # quorum next step, which needs every member's request, so no
+        # member may step on a lease from this one. (The JAX package denies
+        # only the healer, and its donor then waits in the next step's
+        # collective for a healer that waits in the quorum.)
+        if (self._lease_enabled and quorum.lease_ms > 0
+                and quorum.membership_epoch >= 0 and not self._healing
+                and quorum.max_world_size >= quorum.replica_world_size
+                and self.errored() is None):
+            self._grant_lease(quorum.membership_epoch, quorum.lease_ms)
+
+    def _heal_exchange(self, quorum) -> None:
+        """Serve our state to the peers this quorum assigned us as donor,
+        or fetch the donor's when it assigned us a heal."""
         if quorum.recover_dst_ranks:
             self._logger.info(
                 f"peers need recovery from us {quorum.recover_dst_ranks}"
@@ -575,6 +783,23 @@ class Manager:
         => the optimizer may be stepped."""
         return self.should_commit_async(timeout=timeout).result()
 
+    def set_commit_hook(
+        self, hook: "Optional[Callable[[int, int], None]]"
+    ) -> None:
+        """Register ``hook(step, num_participants)`` to run after every
+        committed step, fast path and barrier alike. It runs on the commit
+        path's thread; its exceptions are logged, never raised."""
+        self._commit_hook = hook
+
+    def _fire_commit_hook(self, step: int) -> None:
+        hook = self._commit_hook
+        if hook is None:
+            return
+        try:
+            hook(step, self.num_participants())
+        except Exception as e:  # noqa: BLE001 — never discard a commit
+            self._logger.warn(f"commit hook failed at step {step}: {e!r}")
+
     def should_commit_async(
         self, timeout: "float | timedelta | None" = None
     ) -> Future:
@@ -596,8 +821,50 @@ class Manager:
         enough_replicas = self.num_participants() >= self._min_replica_size
         local_should_commit = enough_replicas and self.errored() is None
 
+        # --- steady-state fast path ---------------------------------------
+        # Armed by this step's local start_quorum and consumed once: commit
+        # without the barrier only on a True local ballot, a True wire vote
+        # (every wire member healthy; None when no voted op ran) and a
+        # lease valid at this instant. Otherwise break the lease and take
+        # the full barrier.
+        fastpath, self._fastpath_active = self._fastpath_active, False
+        if fastpath:
+            t0 = time.perf_counter()
+            take_vote = getattr(self._comm, "take_commit_vote", None)
+            wire_vote = take_vote() if callable(take_vote) else None
+            if local_should_commit and wire_vote is True and self._lease_valid():
+                self.metrics.incr("fastpath_steps")
+                self.metrics.incr("steps_committed")
+                if self.events:
+                    self.events.emit(
+                        "step_commit", step=self._step,
+                        epoch=self._quorum_epoch,
+                        participants=self.num_participants(), fastpath=True,
+                    )
+                self._checkpoint_transport.disallow_checkpoint()
+                self._step += 1
+                self._batches_committed += self.num_participants()
+                self._fire_commit_hook(self._step - 1)
+                self.metrics.observe("commit_fast", time.perf_counter() - t0)
+                fast: Future = Future()
+                fast.set_result(True)
+                fast.local_should_commit = True  # type: ignore[attr-defined]
+                return fast
+            if wire_vote is False:
+                reason = "vote_dissent"
+            elif wire_vote is None:
+                reason = "vote_absent"
+            elif not local_should_commit:
+                reason = "local_vote_false"
+            else:
+                reason = "lease_expired"
+            self._break_lease(reason)
+        if self._lease_enabled:
+            self.metrics.incr("fallback_steps")
+
         def _barrier() -> bool:
             t0 = time.perf_counter()
+            self._count_control_rpc()
             should_commit = self._client.should_commit(
                 self._rank, self._step, local_should_commit,
                 timeout=_seconds(timeout) if timeout else self._timeout,
@@ -620,6 +887,7 @@ class Manager:
             if should_commit:
                 self._step += 1
                 self._batches_committed += self.num_participants()
+                self._fire_commit_hook(self._step - 1)
             return should_commit
 
         fut = self._executor.submit(_barrier)
@@ -643,6 +911,15 @@ class Manager:
 
     def current_step(self) -> int:
         return self._step
+
+    def control_rpcs(self) -> int:
+        """Control RPCs (quorum, commit barrier) this step has made so
+        far: 0 on a fast-path step."""
+        return self._control_rpcs
+
+    def lease_live(self) -> bool:
+        """True while an epoch lease lets steps skip the control plane."""
+        return self._lease_valid()
 
     def batches_committed(self) -> int:
         return self._batches_committed

@@ -1,8 +1,10 @@
 from torchft_tpu_torch.models.transformer import (  # noqa: F401
     CONFIGS,
     GPT,
+    TrainStep,
     TransformerConfig,
     count_params,
     from_jax_params,
     loss_fn,
+    make_train_step,
 )

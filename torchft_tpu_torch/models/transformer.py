@@ -16,6 +16,7 @@ lm-head product and the loss in f32, chunked over the vocab when
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -27,8 +28,8 @@ from torchft_tpu_torch.ops.attention import causal_attention
 from torchft_tpu_torch.ops.xent import hidden_cross_entropy
 from torchft_tpu_torch.utils.device import resolve_device
 
-__all__ = ["CONFIGS", "GPT", "TransformerConfig", "count_params",
-           "from_jax_params", "loss_fn"]
+__all__ = ["CONFIGS", "GPT", "TrainStep", "TransformerConfig",
+           "count_params", "from_jax_params", "loss_fn", "make_train_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,3 +230,172 @@ def from_jax_params(params_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk("", params_np)
     return out
+
+
+# One CUDA graph capture at a time in a process: entering a capture
+# synchronizes the device and empties the allocator's cache, which would
+# invalidate a capture in flight on another thread.
+_CAPTURE_LOCK = threading.Lock()
+
+
+class TrainStep:
+    """``(tokens, targets) -> loss``: forward, backward and
+    ``optimizer.step()`` on the model's own tensors, in place (twin of the
+    reference's jitted, donated ``make_train_step``).
+
+    On CUDA the step is one CUDA graph, the port's counterpart of one
+    donated XLA program. The first call (and the first after the
+    parameters or the optimizer state were replaced by new tensors) warms
+    up on a side stream, puts the parameters and optimizer state back as
+    they were, and captures forward, backward and update with static token
+    and target buffers and the loss as a static output; every call then
+    copies its batch in and replays. A capture or replay failure raises:
+    there is no eager fallback on CUDA. Other threads (another replica
+    group) may keep launching while one captures, but none may synchronize
+    the whole device (``torch.cuda.synchronize``): that invalidates the
+    capture; synchronize a stream instead. The optimizer must keep its step
+    count on the device (Adam or AdamW with ``capturable=True``).
+
+    Loading a state into the same tensors in place (``nn.Module.
+    load_state_dict``, ``optim.load_optimizer_state_dict``) keeps the graph;
+    anything that replaces them makes the next call re-capture.
+
+    On the CPU the step runs eagerly (tests). ``warmup_passes`` counts the
+    eager forward/backward passes the captures ran; ``captures`` the
+    graphs captured. The flash wrappers' launches a capture records are
+    added to their counts at every replay."""
+
+    def __init__(self, model: "GPT", optimizer: torch.optim.Optimizer) -> None:
+        self.model = model
+        self.optimizer = optimizer
+        self.device = next(model.parameters()).device
+        self.captures = 0
+        self.warmup_passes = 0
+        self._graph = None
+        self._stream = None
+        self._tokens = self._targets = self._loss = None
+        self._tally: Dict[str, int] = {}
+        self._key: Optional[tuple] = None
+        if self.device.type == "cuda":
+            if not isinstance(optimizer, (torch.optim.Adam,
+                                          torch.optim.AdamW)):
+                raise TypeError(
+                    "a CUDA train step captures Adam or AdamW (their lazy "
+                    f"state starts at zero), not {type(optimizer).__name__}"
+                )
+            if not all(g.get("capturable") for g in optimizer.param_groups):
+                raise ValueError(
+                    "a CUDA train step needs the optimizer's step count on "
+                    "the device: build it with capturable=True"
+                )
+
+    def _state_key(self) -> tuple:
+        """Addresses of every tensor the graph reads or updates in place."""
+        ptrs = []
+        for p in self.model.parameters():
+            ptrs.append(p.data_ptr())
+            for v in self.optimizer.state.get(p, {}).values():
+                if isinstance(v, torch.Tensor):
+                    ptrs.append(v.data_ptr())
+        return tuple(ptrs)
+
+    def _eager(self, tokens, targets):
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.model.loss(tokens, targets)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    @torch.no_grad()
+    def _restore(self, params, saved_params, saved_state) -> None:
+        for p, saved in zip(params, saved_params):
+            p.copy_(saved)
+        for p in params:
+            old = saved_state.get(p)
+            for k, v in self.optimizer.state.get(p, {}).items():
+                if not isinstance(v, torch.Tensor):
+                    continue
+                if old is None:
+                    v.zero_()  # Adam's lazy state starts at zero
+                else:
+                    v.copy_(old[k])
+
+    def _capture(self, tokens, targets) -> None:
+        from torchft_tpu_torch.ops import flash
+
+        self._graph = None
+        params = list(self.model.parameters())
+        saved_params = [p.detach().clone() for p in params]
+        saved_state = {
+            p: {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                for k, v in self.optimizer.state[p].items()}
+            for p in params if self.optimizer.state.get(p)
+        }
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        side, cur = self._stream, torch.cuda.current_stream(self.device)
+        self._tokens = tokens.clone()
+        self._targets = targets.clone()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            # lazy state, cuBLAS workspaces and autograd's stream state come
+            # into being here, on the capture's stream, outside the capture
+            self._eager(self._tokens, self._targets)
+            self.warmup_passes += 1
+        cur.wait_stream(side)
+        for p in params:  # state born on the side stream, used on this one
+            for v in self.optimizer.state.get(p, {}).values():
+                if isinstance(v, torch.Tensor) and v.is_cuda:
+                    v.record_stream(cur)
+        self._restore(params, saved_params, saved_state)
+        self.optimizer.zero_grad(set_to_none=True)
+        del saved_params, saved_state
+        side.wait_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        tally: Dict[str, int] = {}
+        with _CAPTURE_LOCK, flash.recording_launches(tally, side):
+            # thread_local: another replica group's thread may keep
+            # launching while this one captures
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                loss = self.model.loss(self._tokens, self._targets)
+                loss.backward()
+                self.optimizer.step()
+        cur.wait_stream(side)
+        self._loss = loss.detach()
+        self._graph, self._tally = graph, tally
+        self._key = self._state_key()
+        self.captures += 1
+
+    def sync_state(self) -> None:
+        """Drop the graph if the parameters or optimizer state are no
+        longer the tensors it captured (a load that replaced them); the
+        next call re-captures."""
+        if self._graph is not None and self._state_key() != self._key:
+            self._graph = None
+
+    def __call__(self, tokens: torch.Tensor,
+                 targets: torch.Tensor) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return self._eager(tokens, targets)
+        from torchft_tpu_torch.ops import flash
+
+        self.sync_state()
+        if self._graph is None or tokens.shape != self._tokens.shape:
+            self._capture(tokens, targets)
+        else:
+            self._tokens.copy_(tokens)
+            self._targets.copy_(targets)
+        self._graph.replay()
+        flash.add_launches(self._tally)
+        # the static loss is overwritten by the next replay
+        return self._loss.clone()
+
+
+def make_train_step(model: "GPT",
+                    optimizer: torch.optim.Optimizer) -> TrainStep:
+    """The fused step of a solo wire: ``(tokens, targets) -> loss`` with
+    forward, backward and the update in one CUDA graph on the card (see
+    :class:`TrainStep`). Cross-replica averaging never happens inside it,
+    so quorum changes never re-capture."""
+    return TrainStep(model, optimizer)

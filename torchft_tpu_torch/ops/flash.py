@@ -30,7 +30,10 @@ models reach: 16 ("tiny"), 32, 64 ("125m", "350m") and 128 ("1b")
 Each wrapper launches its kernel for a CUDA tensor (bf16, head_dim in
 ``KERNEL_HEAD_DIMS``, S a multiple of 64; anything else raises), runs its
 plain PyTorch version for a CPU tensor, and counts its launches in
-``LAUNCHES``. The plain versions
+``LAUNCHES``. Under a CUDA graph capture (``recording_launches``) a wrapper
+records its kernel into the graph and launches nothing: its count goes to
+the capture's tally, which the graph's owner adds to ``LAUNCHES`` at every
+replay (``add_launches``). The plain versions
 repeat the reference's arithmetic block by block: the tiled online softmax
 forward and the FlashAttention-2 recompute backward, f32 throughout, mask
 -1e30, the ``l == 0`` guard. Delta = rowsum(dO * O) stays a plain torch
@@ -40,7 +43,8 @@ reduction, as the reference leaves it outside Pallas.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Tuple
+from contextlib import contextmanager
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -50,6 +54,7 @@ __all__ = [
     "KERNEL_HEAD_DIMS",
     "KERNEL_TOL",
     "LAUNCHES",
+    "add_launches",
     "flash_attention",
     "flash_attention_with_lse",
     "flash_block_attention_bwd",
@@ -61,6 +66,7 @@ __all__ = [
     "flash_fwd_plain",
     "check_head_dim",
     "kernel_error",
+    "recording_launches",
     "reset_launch_counts",
 ]
 
@@ -81,9 +87,43 @@ def reset_launch_counts() -> None:
             LAUNCHES[name] = 0
 
 
+# capture stream handle -> the tally of the graph being captured on it
+_CAPTURES: Dict[int, Dict[str, int]] = {}
+
+
+@contextmanager
+def recording_launches(into: Dict[str, int],
+                       stream: "torch.cuda.Stream") -> Iterator[Dict[str, int]]:
+    """Tally the kernel calls made on ``stream`` into ``into`` instead of
+    ``LAUNCHES``, for the span of a CUDA graph capture on that stream: the
+    kernels are recorded into the graph, not launched. Keyed by stream, so
+    the autograd engine's thread (which runs the backward on the forward's
+    stream) tallies too, and other streams keep counting."""
+    key = stream.cuda_stream
+    with _LAUNCHES_LOCK:
+        _CAPTURES[key] = into
+    try:
+        yield into
+    finally:
+        with _LAUNCHES_LOCK:
+            _CAPTURES.pop(key, None)
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count a graph replay's launches: the tally of its capture."""
+    with _LAUNCHES_LOCK:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
+
+
 def _count(name: str) -> None:
     with _LAUNCHES_LOCK:
-        LAUNCHES[name] += 1
+        into = (_CAPTURES.get(torch.cuda.current_stream().cuda_stream)
+                if _CAPTURES else None)
+        if into is not None:
+            into[name] = into.get(name, 0) + 1
+        else:
+            LAUNCHES[name] += 1
 
 
 # A kernel against its plain version on the same bf16 inputs. Both do the

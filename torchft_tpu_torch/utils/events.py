@@ -1,17 +1,20 @@
 """Flight recorder: a bounded ring buffer of structured lifecycle events.
 
-Twin of ``torchft_tpu/utils/events.py`` (the recorder; the Chrome-trace
-export is not ported). The metrics sink (utils/metrics.py) answers "how
-long do things take"; this answers "what happened when": a discarded step,
-a heal, a latched error each leave one structured event. The Manager owns
+Twin of ``torchft_tpu/utils/events.py``: the recorder and its Chrome-trace
+export (``to_chrome_trace``, ``validate_chrome_trace``). The metrics sink
+(utils/metrics.py) answers "how long do things take"; this answers "what
+happened when": a discarded step, a heal, a latched error, a broken lease
+each leave one structured event. The Manager owns
 one recorder per process (``manager.events``).
 
 Event vocabulary of the port (all emitted by manager.py):
 
     quorum_start / quorum_complete   the async quorum RPC
-    step_commit / step_discard       the commit barrier
+    step_commit / step_discard       the commit barrier, or a fast-path
+                                     commit (``fastpath=True``)
     heal_start / heal_done           heal assignment -> healed state applied
     error_latched                    first latch of an error episode
+    lease_break                      the epoch lease broke (``reason``)
 
 Every event is stamped with a process-monotonic sequence number, wall and
 monotonic clocks, the replica_id/rank, and the step and quorum epoch when
@@ -28,12 +31,25 @@ from __future__ import annotations
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["EventRecorder"]
+__all__ = ["EventRecorder", "to_chrome_trace", "validate_chrome_trace"]
 
 
 _DEFAULT_CAPACITY = 4096
+
+# span start -> end kinds the Chrome export pairs into duration slices
+_SPAN_PAIRS = {
+    "quorum_start": "quorum_complete",
+    "heal_start": "heal_done",
+    "deploy_start": "deploy_done",
+}
+_SPAN_ENDS = {v: k for k, v in _SPAN_PAIRS.items()}
+_SPAN_NAMES = {
+    "quorum_start": "quorum",
+    "heal_start": "heal",
+    "deploy_start": "deploy",
+}
 
 
 class EventRecorder:
@@ -143,3 +159,118 @@ class EventRecorder:
             "dropped": dropped,
             "events": events,
         }
+
+
+# ------------------------------------------------------------ chrome export
+
+
+def _track_ids(dumps: Sequence[Dict[str, Any]]) -> Dict[str, int]:
+    """One Chrome 'process' per replica_id, in first-seen order."""
+    pids: Dict[str, int] = {}
+    for d in dumps:
+        rid = str(d.get("replica_id", ""))
+        if rid not in pids:
+            pids[rid] = len(pids) + 1
+    return pids
+
+
+def to_chrome_trace(dumps: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """Merge per-replica event dumps into one Chrome ``trace_event`` JSON.
+
+    ``dumps``: any mix of ``EventRecorder.dump()`` payloads and
+    ``/telemetry/events`` response bodies (same shape). One process (pid)
+    per replica, one thread (tid) per rank; ``quorum_start ->
+    quorum_complete`` and ``heal_start -> heal_done`` become duration
+    slices, everything else an instant. Timestamps are wall-clock
+    microseconds, so dumps from several processes share one timeline."""
+    pids = _track_ids(dumps)
+    trace_events: List[Dict[str, Any]] = []
+    for rid, pid in pids.items():
+        trace_events.append({
+            "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+            "args": {"name": f"replica {rid or '?'}"},
+        })
+    for d in dumps:
+        rid = str(d.get("replica_id", ""))
+        pid = pids[rid]
+        rank = int(d.get("rank", 0) or 0)
+        tid = rank + 1  # Chrome treats tid 0 oddly; keep ranks 1-based
+        trace_events.append({
+            "name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+            "args": {"name": f"rank {rank}"},
+        })
+        open_spans: Dict[str, Dict[str, Any]] = {}
+        events = sorted(d.get("events", []), key=lambda e: e.get("seq", 0))
+        for ev in events:
+            kind = ev.get("kind", "?")
+            ts = float(ev.get("t_wall", 0.0)) * 1e6
+            args = {
+                k: v for k, v in ev.items()
+                if k not in ("kind", "t_wall", "replica_id", "rank")
+                and v is not None
+            }
+            if kind in _SPAN_PAIRS:
+                # held until its end arrives; a start whose end never came
+                # (a crash mid-quorum) degrades to an instant
+                prev = open_spans.pop(kind, None)
+                if prev is not None:
+                    trace_events.append(prev["instant"])
+                open_spans[kind] = {
+                    "ts": ts, "args": args,
+                    "instant": _instant(kind, ts, pid, tid, args),
+                }
+                continue
+            if kind in _SPAN_ENDS:
+                start = open_spans.pop(_SPAN_ENDS[kind], None)
+                if start is not None:
+                    merged = dict(start["args"])
+                    merged.update(args)
+                    trace_events.append({
+                        "name": _SPAN_NAMES[_SPAN_ENDS[kind]], "ph": "X",
+                        "cat": "torchft_tpu",
+                        "ts": start["ts"],
+                        "dur": max(0.0, ts - start["ts"]),
+                        "pid": pid, "tid": tid, "args": merged,
+                    })
+                    continue
+                # an end whose start the ring dropped: a plain instant
+            trace_events.append(_instant(kind, ts, pid, tid, args))
+        for pending in open_spans.values():  # unclosed starts
+            trace_events.append(pending["instant"])
+    trace_events.sort(key=lambda e: (e["ph"] == "M" and -1, e.get("ts", 0)))
+    return {"traceEvents": trace_events, "displayTimeUnit": "ms"}
+
+
+def _instant(kind: str, ts: float, pid: int, tid: int,
+             args: Dict[str, Any]) -> Dict[str, Any]:
+    return {
+        "name": kind, "ph": "i", "s": "t", "cat": "torchft_tpu",
+        "ts": ts, "pid": pid, "tid": tid, "args": args,
+    }
+
+
+def validate_chrome_trace(trace: Any) -> List[str]:
+    """Structural check of a ``to_chrome_trace`` result: the list of
+    problems, empty when ``trace`` is a valid Chrome trace_event JSON
+    container."""
+    problems: List[str] = []
+    if not isinstance(trace, dict):
+        return [f"trace is {type(trace).__name__}, not a dict"]
+    evs = trace.get("traceEvents")
+    if not isinstance(evs, list):
+        return ["traceEvents missing or not a list"]
+    for i, ev in enumerate(evs):
+        if not isinstance(ev, dict):
+            problems.append(f"traceEvents[{i}] not a dict")
+            continue
+        for key in ("name", "ph", "pid"):
+            if key not in ev:
+                problems.append(f"traceEvents[{i}] missing {key!r}")
+        ph = ev.get("ph")
+        if ph not in ("M", "i", "X", "B", "E"):
+            problems.append(f"traceEvents[{i}] bad ph {ph!r}")
+        if ph in ("i", "X") and not isinstance(ev.get("ts"), (int, float)):
+            problems.append(f"traceEvents[{i}] missing numeric ts")
+        if ph == "X" and not isinstance(ev.get("dur"), (int, float)):
+            problems.append(f"traceEvents[{i}] X event missing dur")
+    return problems

@@ -36,6 +36,10 @@ class Metrics:
         with self._lock:
             self._labels[name] = str(value)
 
+    def labels(self) -> Dict[str, str]:
+        with self._lock:
+            return dict(self._labels)
+
     def incr(self, name: str, value: float = 1.0) -> None:
         with self._lock:
             self._counters[name] += value
@@ -59,6 +63,13 @@ class Metrics:
             yield
         finally:
             self.observe(name, time.perf_counter() - start)
+
+    def reset_timings(self) -> None:
+        """Drop the rolling timing windows (counters are kept): call at a
+        measurement window's start so bring-up and warm-up spikes stay out
+        of its percentiles."""
+        with self._lock:
+            self._timings.clear()
 
     def snapshot(self) -> Dict[str, Union[float, str]]:
         """Flat dict: counters/gauges as-is, labels as strings, timings as
