@@ -66,7 +66,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    of the same model whose attention runs ``reference_attention`` on the
    card.
 
-7. train_durable: the reference training loop whole, at "125m" full width
+7. train_diloco: BASELINE config 4's shape, the DiLoCo example
+   (``run_diloco_drill``) at "125m", full width and depth, batch 8: two
+   groups over TCP at codec none, ``sync_every=8``, 2 streaming fragments,
+   outer ``sgd(0.7, momentum=0.9, nesterov=True)``, inner AdamW (3e-4,
+   weight decay 0.1, betas 0.9/0.95) as one CUDA graph a step. Both commit
+   rounds 1-2; group 1 is killed at inner step 4 of round 3, which group 0
+   commits alone; group 1 restarts from a poisoned init and heals at round
+   4's fence; both commit rounds 4-5. After every round both commit, their
+   parameters and outer states must be bitwise equal (the healed group
+   equal to its donor), the losses finite, and every flash kernel launched
+   12 x (inner steps + capture warm-up passes) times. It prints the outer
+   sync's phase p50s and gauges, the round times and the heal.
+8. train_localsgd_int8: BASELINE config 3's shape, LocalSGD at "125m",
+   full width and depth, batch 8, four groups on the on-device plane
+   (``comm_backend="cuda"``, psum, int8, error feedback on),
+   ``sync_every=8``, 2 fragments. Every group commits round 1; in round 2
+   group 3's second fragment op fails after its collective ran (its round
+   aborts and every fragment returns bitwise to its backup; the others
+   commit it); group 3 heals at round 3's quorum and all four commit it.
+   After every round, the groups that commit it must be bitwise equal, and
+   each codec kernel must have launched exactly twice per fragment op with
+   a peer. Round 1's fragment averages on the card must equal the same
+   plane on the CPU bitwise. It first checks the host's free memory
+   (``localsgd_host_bytes``).
+9. train_durable: the reference training loop whole, at "125m" full width
    and depth, batch 8, over TCP under a lighthouse granting 2 s epoch
    leases (``run_resume_drill``): group 0 commits 3 steps alone, each a
    fused step replaying one CUDA graph; group 1 starts from a poisoned
@@ -1329,6 +1353,173 @@ def fused_vs_classic(seed: int, card: str, batch: int = 8, steps: int = 3,
     return out
 
 
+def _outer_report(run, card: str) -> str:
+    """One group's outer-sync p50s (ms) and last-round gauges."""
+    m = run.metrics
+    p50 = _p50s(m, ("outer_d2h", "outer_ef", "outer_wire", "outer_land",
+                    "quorum", "commit_barrier"))
+    gauges = {k: round(m[k], 3) for k in (
+        "outer_wire_ms", "outer_wire_exposed_ms", "outer_overlap",
+        "outer_wire_bytes", "outer_inflight_at_drain") if k in m}
+    rounds = {s: round(t * 1e3, 1) for s, t in run.round_seconds.items()}
+    return (f"phase p50 ms {p50}; last round {gauges}; committed round ms "
+            f"{rounds} ({card})")
+
+
+def phase_train_diloco(seed: int, card: str, batch: int = 8):
+    """run_diloco_drill at "125m" (module docstring, phase 7); returns the
+    flash launches it must have made and the result."""
+    from torchft_tpu_torch.examples.train_diloco import run_diloco_drill
+    from torchft_tpu_torch.models import CONFIGS, GPT, count_params
+
+    cfg = CONFIGS["125m"]
+    n_params = count_params(GPT(cfg, device="meta"))
+    log(f"  125m: {n_params} parameters, batch {batch}, 2 groups over TCP, "
+        f"sync_every 8, 2 fragments: {4 * n_params} bytes of f32 per round "
+        "per group")
+    t0 = time.perf_counter()
+    result = run_diloco_drill(cfg, device="cuda", batch_size=batch,
+                              seed=seed, timeout=120.0,
+                              log=lambda m: log("  " + m))
+    runs = result["runs"]
+    survivor, restarted = runs[0][0], runs[1][1]
+    if result["checked_rounds"] != {1: 2, 2: 2, 4: 2, 5: 2}:
+        raise AssertionError(f"rounds both groups committed: "
+                             f"{result['checked_rounds']}, the schedule has "
+                             "1, 2, 4 and 5")
+    log(f"  drill {time.perf_counter() - t0:.1f} s; rounds both groups "
+        f"committed, bitwise equal (parameters and outer state): "
+        f"{sorted(result['checked_rounds'])}; group 1 healed at round "
+        f"{restarted.healed_at}")
+    for g, life in ((0, survivor), (1, runs[1][0]), (1, restarted)):
+        log(f"  group {g}: {_outer_report(life, card)}")
+    heal = restarted.metrics
+    log(f"  heal: wall {heal.get('heal_wall_ms', 0):.1f} ms, wire "
+        f"{heal.get('heal_bytes_per_s', 0) / 1e9:.3f} GB/s ({card})")
+    tokens = 2 * 8 * batch * cfg.max_seq_len  # both groups' inner steps
+    g1 = {**runs[1][0].round_seconds, **restarted.round_seconds}
+    rates = {s: round(tokens / max(t, g1[s]))
+             for s, t in sorted(survivor.round_seconds.items()) if s in g1}
+    log(f"  tokens/s of both groups by committed round {rates} ({card})")
+    losses = survivor.losses
+    log(f"  group 0 loss first {losses[0]:.4f} last {losses[-1]:.4f}; "
+        f"forward/backward passes of all runs: {result['passes']}")
+    return result["passes"] * cfg.n_layers, result
+
+
+LOCALSGD_GROUPS = 4
+
+
+def localsgd_host_bytes(n_params: int, groups: int = LOCALSGD_GROUPS) -> int:
+    """Host memory train_localsgd_int8 may hold at once, in f32 copies of
+    the parameters: per group the backup, the fragment arenas, the
+    error-feedback residuals and scratch, round 1's recorded fragment ops
+    (inputs and outputs) and their CPU replay (8); once, the heal's staged
+    state on both ends (parameters and AdamW's moments, 6)."""
+    return (groups * 8 + 6) * 4 * n_params
+
+
+def check_host_memory(need: int, meminfo: str = "/proc/meminfo") -> int:
+    """The host's available memory (``MemAvailable``); fails with both
+    figures if less than ``need``."""
+    with open(meminfo) as f:
+        fields = dict(line.split(":", 1) for line in f)
+    free = int(fields["MemAvailable"].split()[0]) * 1024
+    if free < need:
+        raise AssertionError(
+            f"train_localsgd_int8 needs {need / 1e9:.2f} GB of host memory "
+            f"available, has {free / 1e9:.2f} GB")
+    return free
+
+
+def check_plane_at_fragments(recorded, seed: int) -> None:
+    """Round 1's fragment ops on the card against the same plane on the
+    CPU, bitwise: each recorded op's inputs of every group, reduced by
+    ``DevicePool("cpu")`` contexts, must give the bits each group got."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchft_tpu_torch.comm.context import ReduceOp
+    from torchft_tpu_torch.comm.cuda_backend import CudaCommContext, DevicePool
+
+    groups = sorted(recorded)
+    world = len(groups)
+    pool = DevicePool("cpu")
+    for op in sorted(recorded[groups[0]]):
+        ctxs = [CudaCommContext(timeout=300.0, **INT8_OPTIONS,
+                                chunk_bytes=CHUNK_BYTES, device_pool=pool)
+                for _ in groups]
+
+        def worker(r):
+            ctxs[r].configure(f"smoke://fragment{op}", r, world)
+            inputs = [a.copy() for a in recorded[groups[r]][op][0]]
+            return ctxs[r].allreduce(inputs, ReduceOp.SUM).future().result(
+                timeout=300)
+
+        try:
+            with ThreadPoolExecutor(world) as ex:
+                cpu = [f.result(600) for f in
+                       [ex.submit(worker, r) for r in range(world)]]
+        finally:
+            for c in ctxs:
+                c.shutdown()
+        same = all(a.tobytes() == b.tobytes()
+                   for r, g in enumerate(groups)
+                   for a, b in zip(cpu[r], recorded[g][op][1]))
+        size = recorded[groups[0]][op][0][0].size
+        log(f"  round 1 fragment op {op} ({size} f32, {world} groups): card "
+            f"plane vs CPU plane bitwise {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"int8 plane on the card differs from the "
+                                 f"CPU plane at fragment op {op}")
+
+
+def phase_train_localsgd_int8(seed: int, card: str, batch: int = 8):
+    """The LocalSGD drill on the int8 device plane (module docstring, phase
+    8); returns the flash launches, the codec launches per kernel and the
+    result."""
+    from torchft_tpu_torch.examples.train_diloco import run_diloco_drill
+    from torchft_tpu_torch.models import CONFIGS, GPT, count_params
+
+    cfg = CONFIGS["125m"]
+    n_params = count_params(GPT(cfg, device="meta"))
+    need = localsgd_host_bytes(n_params)
+    free = check_host_memory(need)
+    log(f"  125m: {n_params} parameters, batch {batch}, {LOCALSGD_GROUPS} "
+        f"groups on the cuda plane {INT8_OPTIONS}; host memory: up to "
+        f"{need / 1e9:.2f} GB, {free / 1e9:.1f} GB available")
+    t0 = time.perf_counter()
+    result = run_diloco_drill(
+        cfg, algo="local_sgd", groups=LOCALSGD_GROUPS, rounds=3, kill=None,
+        fault=(3, 4), record_ops=(1, 2), device="cuda", batch_size=batch,
+        seed=seed, timeout=300.0, log=lambda m: log("  " + m),
+        comm_backend="cuda", comm_options=INT8_OPTIONS)
+    runs = result["runs"]
+    if result["checked_rounds"] != {1: 4, 2: 3, 3: 4}:
+        raise AssertionError(f"groups committing each round: "
+                             f"{result['checked_rounds']}, the schedule has "
+                             "4, 3 and 4")
+    log(f"  drill {time.perf_counter() - t0:.1f} s; groups committing each "
+        f"round, bitwise equal: {result['checked_rounds']}; group 3's round "
+        f"2 aborted and rolled back bitwise, healed at "
+        f"{runs[3][0].healed_at}")
+    for g in sorted(runs):
+        m = runs[g][0].metrics
+        ratio = m.get("comm_encoded_bytes", 0) / max(1, m.get("comm_raw_bytes",
+                                                              1))
+        log(f"  group {g}: {_outer_report(runs[g][0], card)}; "
+            f"comm_encoded_bytes {m.get('comm_encoded_bytes')} "
+            f"({ratio:.3f} of raw)")
+    heal = runs[3][0].metrics
+    log(f"  heal of group 3: wall {heal.get('heal_wall_ms', 0):.1f} ms, wire "
+        f"{heal.get('heal_bytes_per_s', 0) / 1e9:.3f} GB/s ({card})")
+    # every fragment op of the 3 rounds had 3 peers on the wire
+    codec = 2 * 2 * 3
+    log(f"  2 fragments x 3 rounds with a peer x 2 launches = {codec} of "
+        f"each codec kernel; forward/backward passes: {result['passes']}")
+    check_plane_at_fragments(result["recorded"], seed)
+    return result["passes"] * cfg.n_layers, codec, result
+
+
 def _check_launches(counts, want, what: str) -> None:
     log(f"  kernel launches on the main path: {counts} (want {want})")
     if counts != want:
@@ -1337,7 +1528,7 @@ def _check_launches(counts, want, what: str) -> None:
 
 
 PHASES = ("kernels", "train", "train_cuda_int8", "train_tiny", "gpt_1b",
-          "train_durable")
+          "train_diloco", "train_localsgd_int8", "train_durable")
 
 
 def _add_launches(rows: dict, counts: dict, head_dim: int) -> None:
@@ -1449,6 +1640,26 @@ def main() -> int:
                                  "flash_bwd_dkv": layers},
                         "1b, remat: 2 forward, 1 dQ, 1 dK/dV per layer")
         _add_launches(rows, counts, CONFIGS["1b"].head_dim)
+    if "train_diloco" in phases:
+        log("phase train_diloco")
+        flash.reset_launch_counts()
+        want, _ = phase_train_diloco(args.seed, smi)
+        counts = dict(flash.LAUNCHES)
+        _check_launches(counts, {n: want for n in counts},
+                        "one per layer per pass, graph replays and capture "
+                        "warm-ups included")
+        _add_launches(rows, counts, CONFIGS["125m"].head_dim)
+    if "train_localsgd_int8" in phases:
+        log("phase train_localsgd_int8")
+        flash.reset_launch_counts()
+        quant.reset_launch_counts()
+        want, codec, _ = phase_train_localsgd_int8(args.seed, smi)
+        counts = {**flash.LAUNCHES, **quant.LAUNCHES}
+        _check_launches(counts, {**{n: want for n in flash.LAUNCHES},
+                                 **{n: codec for n in quant.LAUNCHES}},
+                        "flash: one per layer per pass; codec: 2 per "
+                        "fragment op with a peer")
+        _add_launches(rows, counts, CONFIGS["125m"].head_dim)
     if "train_durable" in phases:
         log("phase train_durable")
         flash.reset_launch_counts()

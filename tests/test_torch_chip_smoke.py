@@ -8,7 +8,11 @@ the int8 drill's DDP buckets, reach every head_dim the flash kernels take,
 add each phase's launches to the right rows, and price the flash kernels'
 bounds and the codec kernels' per wire step. For ``train_durable``: the
 disk it needs at 125m, the failure when the disk is short, and the report
-it prints, read off a run of the same drill at "tiny" on the CPU.
+it prints, read off a run of the same drill at "tiny" on the CPU. For
+``train_diloco`` and ``train_localsgd_int8``: the host memory the second
+needs at 125m, the failure when it is short, and both phases whole, run
+at "tiny" on the CPU (their drills' schedules, reports and the CPU plane
+check).
 """
 
 import importlib.util
@@ -147,7 +151,8 @@ def test_flash_shapes_reach_every_head_dim() -> None:
                        cfg.n_heads, cfg.head_dim)) in \
             {(w, shape) for w, shape, _ in shapes}
     assert smoke.PHASES == ("kernels", "train", "train_cuda_int8",
-                            "train_tiny", "gpt_1b", "train_durable")
+                            "train_tiny", "gpt_1b", "train_diloco",
+                            "train_localsgd_int8", "train_durable")
     assert all(n in {k for k, v in GPT(CONFIGS["1b"], device="meta")
                      .named_parameters()} for n in smoke.GRAD_SAMPLE)
 
@@ -263,3 +268,47 @@ def test_durable_report_reads_the_drill(monkeypatch) -> None:
     assert "heal at step 4" in text
     assert "life 0 joint step ms" in text and "life 1 joint step ms" in text
     assert "repeated the first life's bitwise: True" in text
+
+
+def test_localsgd_host_bytes_at_125m() -> None:
+    smoke = _smoke()
+    n = 136091136
+    # 4 groups x 8 f32 copies, and the heal's 6 once
+    assert smoke.localsgd_host_bytes(n) == (4 * 8 + 6) * 4 * n
+
+
+def test_check_host_memory_fails_with_the_figures(tmp_path) -> None:
+    smoke = _smoke()
+    meminfo = tmp_path / "meminfo"
+    meminfo.write_text("MemTotal:       8000000 kB\n"
+                       "MemAvailable:   1000000 kB\n")
+    with pytest.raises(AssertionError, match=r"needs 20\.00 GB.*has 1\.02 GB"):
+        smoke.check_host_memory(20 * 10**9, str(meminfo))
+    assert smoke.check_host_memory(10**8, str(meminfo)) == 1024000000
+
+
+@pytest.mark.parametrize("phase", ["train_diloco", "train_localsgd_int8"])
+def test_outer_sync_phases_run_at_tiny_on_the_cpu(monkeypatch,
+                                                  phase) -> None:
+    # the phase as the card runs it, its drill moved to "tiny" on the CPU:
+    # the schedule checks, the report lines and (int8) the plane check
+    import torchft_tpu_torch.examples.train_diloco as example
+    import torchft_tpu_torch.models as models
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    monkeypatch.setitem(models.CONFIGS, "125m", CONFIGS["tiny"])
+    drill = example.run_diloco_drill
+    monkeypatch.setattr(example, "run_diloco_drill", lambda cfg, **kw: drill(
+        cfg, **dict(kw, device="cpu", batch_size=2, timeout=30.0)))
+    out = getattr(smoke, f"phase_{phase}")(0, "CPU")
+    passes = out[-1]["passes"]
+    assert out[0] == passes * CONFIGS["tiny"].n_layers
+    text = "\n".join(lines)
+    assert "outer_wire" in text and "heal" in text
+    if phase == "train_localsgd_int8":
+        assert out[1] == 12 and passes == 4 * 24
+        assert text.count("card plane vs CPU plane bitwise ok") == 2
+    else:
+        assert passes == 40 + 19 + 16

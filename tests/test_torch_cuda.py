@@ -10,7 +10,8 @@ kernels that rounds P and dS to plain bf16 for its products
 (``-DTFT_SPLIT_LO=0``) must fail that check at every head_dim. The GPT
 runs on the card through the kernels at "tiny" as configured (head_dim
 16) and widened to head_dim 128, and the example's ``train_group`` trains
-"tiny" there. The int8 codec kernels
+"tiny" there, and the DiLoCo example's drill (kill, poisoned restart,
+heal at a round's fence) runs there bitwise. The int8 codec kernels
 (``ops/quant.py``) are held to their plain versions bitwise (tolerance 0,
 NaN bit patterns included), ``quant_int8`` also at the shapes of
 chip_smoke.py's ``quant_cases`` (unaligned rows, n around the step, a NaN
@@ -386,6 +387,29 @@ def test_example_trains_tiny_on_card() -> None:
     assert sorted(run.losses) == [1, 2, 3]
     assert all(math.isfinite(v) for v in run.losses.values())
     assert flash.LAUNCHES == {n: run.passes * cfg.n_layers
+                              for n in flash.LAUNCHES}
+
+
+@pytest.mark.cuda
+def test_diloco_drill_tiny_on_card() -> None:
+    """The DiLoCo example's drill at "tiny" on the card: two groups over
+    TCP, each inner step one CUDA graph replay, group 1 killed at inner step
+    4 of round 3, restarted poisoned, healed at round 4's fence; every round
+    both commit is bitwise equal across the groups (the healed group equal
+    to its donor), and each flash kernel launched once per layer per pass,
+    the captures' warm-up passes included."""
+    from torchft_tpu_torch.examples.train_diloco import run_diloco_drill
+
+    _cuda()
+    cfg = CONFIGS["tiny"]
+    flash.reset_launch_counts()
+    result = run_diloco_drill(cfg, device="cuda", batch_size=4, timeout=60.0)
+    assert result["checked_rounds"] == {1: 2, 2: 2, 4: 2, 5: 2}
+    assert result["runs"][1][1].healed_at == [4]
+    assert all(r.captures == 1 for g in result["runs"]
+               for r in result["runs"][g])
+    assert result["passes"] == 40 + 19 + 16 + 3  # + one warm-up a capture
+    assert flash.LAUNCHES == {n: result["passes"] * cfg.n_layers
                               for n in flash.LAUNCHES}
 
 

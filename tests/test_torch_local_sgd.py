@@ -1,0 +1,842 @@
+"""The port's LocalSGD/DiLoCo streaming fragment scheduler against the JAX
+package's (twins of tests/test_localsgd_streaming.py).
+
+Cross-package: the same seeded inputs go through the JAX package's
+``LocalSGD`` over its ``TcpCommContext`` and the port's over
+``CudaCommContext`` on the CPU, at codecs none/bf16/int8 on star (world 2)
+and ring (world 3): committed parameters and error-feedback residuals must
+be bitwise equal. DiLoCo's averaged pseudogradients are bitwise equal to
+the reference's; its outer-updated parameters and outer states lie within
+``OUTER_TOL`` of optax's. Within the port, streaming and blocking rounds
+are bitwise equal at every codec, a mid-round abort rolls every fragment
+back bitwise, and a heal at the fence re-reads ``params_fn``.
+"""
+
+import copy
+import threading
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from torchft_tpu.comm import StoreServer as JaxStoreServer
+from torchft_tpu.comm import TcpCommContext as JaxTcp
+from torchft_tpu.comm.wire import split_weighted as jax_split_weighted
+from torchft_tpu.comm.wire_stub import WireStubManager as JaxWireStub
+from torchft_tpu.local_sgd import DiLoCo as JaxDiLoCo
+from torchft_tpu.local_sgd import LocalSGD as JaxLocalSGD
+from torchft_tpu.local_sgd import fragment_boundaries as jax_boundaries
+from torchft_tpu_torch import optim as outer
+from torchft_tpu_torch.comm.context import CompletedWork, ReduceOp, Work
+from torchft_tpu_torch.comm.cuda_backend import CudaCommContext, DevicePool
+from torchft_tpu_torch.comm.wire import split_weighted
+from torchft_tpu_torch.futures import future_chain
+from torchft_tpu_torch.local_sgd import (
+    DiLoCo,
+    LocalSGD,
+    _outer_executor,
+    fragment_boundaries,
+    from_jax_state,
+)
+from torchft_tpu_torch.utils.metrics import Metrics
+
+# DiLoCo's outer step against optax's (the same order of operations; the
+# compilers may contract a multiply-add differently)
+OUTER_TOL = dict(rtol=1e-6, atol=1e-7)
+
+_KEYS = ("a", "b", "c", "d", "e")  # jax.tree_util's (sorted) leaf order
+
+
+def _params0_np():
+    """Uneven leaf sizes, so the byte-balanced grid splits mid-tree."""
+    rng = np.random.default_rng(7)
+    return {
+        "a": rng.standard_normal(96).astype(np.float32),
+        "b": rng.standard_normal((8, 8)).astype(np.float32),
+        "c": rng.standard_normal(160).astype(np.float32),
+        "d": rng.standard_normal(32).astype(np.float32),
+        "e": rng.standard_normal(48).astype(np.float32),
+    }
+
+
+def _port_params(tree=None):
+    tree = _params0_np() if tree is None else tree
+    return [torch.from_numpy(np.array(tree[k])) for k in _KEYS]
+
+
+def _jax_params(tree=None):
+    tree = _params0_np() if tree is None else tree
+    return {k: jnp.asarray(v) for k, v in tree.items()}
+
+
+def _increments(rank, steps):
+    """Per-(rank, step) inner updates, drawn once so every arm of both
+    packages replays the same inner trajectory."""
+    rng = np.random.default_rng(1000 + rank)
+    base = _params0_np()
+    return [{k: (rng.standard_normal(v.shape) * 0.1).astype(np.float32)
+             for k, v in base.items()} for _ in range(steps)]
+
+
+def _snap_port(params):
+    return {k: p.numpy().copy() for k, p in zip(_KEYS, params)}
+
+
+def _snap_jax(params):
+    return {k: np.asarray(params[k]).copy() for k in _KEYS}
+
+
+class _PortWireStub:
+    """Manager facade over a raw port context: the twin of the JAX
+    package's ``WireStubManager`` (no-op quorum and fence, AVG by the wire
+    world in f32, the error-latch commit vote). ``reduced`` keeps a copy of
+    every averaged array."""
+
+    def __init__(self, ctx, world):
+        self._ctx = ctx
+        self._world = world
+        self.metrics = Metrics()
+        self._use_async_quorum = True
+        self._error = None
+        self.reduced = []
+
+    def start_quorum(self, **kw):
+        self._error = None
+
+    def quorum_fence(self):
+        pass
+
+    def did_heal(self):
+        return False
+
+    def errored(self):
+        return self._error
+
+    def report_error(self, e):
+        if self._error is None:
+            self._error = e
+
+    def should_commit(self):
+        return self._error is None
+
+    def is_participating(self):
+        return True
+
+    def transport_world_size(self):
+        return self._world
+
+    def transport_rank(self):
+        return self._ctx.rank()
+
+    def wire_compensable(self):
+        return self._ctx.wire_compensable()
+
+    def wire_generation(self):
+        return self._ctx.wire_generation()
+
+    def wire_roundtrip(self, src, out):
+        self._ctx.wire_roundtrip(src, out)
+
+    def wire_nbytes(self, a):
+        return self._ctx.wire_nbytes(a)
+
+    def allreduce_arrays(self, arrays, op=ReduceOp.SUM):
+        work = self._ctx.allreduce(list(arrays), ReduceOp.SUM)
+        scale = np.float32(1.0 / self._world)
+
+        def _avg(f):
+            reduced = f.result()
+            for a in reduced:
+                np.multiply(a, a.dtype.type(scale), out=a)
+                self.reduced.append(a.copy())
+            return reduced
+
+        return Work(future_chain(work.future(), _avg))
+
+
+class _RecordingJaxStub(JaxWireStub):
+    def __init__(self, ctx, world):
+        super().__init__(ctx, world)
+        self.reduced = []
+
+    def allreduce_arrays(self, arrays, op=ReduceOp.SUM, topology=None):
+        work = super().allreduce_arrays(arrays, op, topology)
+        return Work(future_chain(
+            work.future(),
+            lambda f: [self.reduced.append(a.copy()) or a
+                       for a in f.result()]))
+
+
+class _LocalStubManager:
+    """Transport-less stub (twin of the reference test's): identity
+    averaging with the Manager's latching (a failed op latches and its
+    future resolves to its inputs) and a heal-at-fence hook."""
+
+    def __init__(self, fail_at_op=None):
+        self.metrics = Metrics()
+        self._use_async_quorum = True
+        self._error = None
+        self._ops = 0
+        self.fail_at_op = fail_at_op
+        self.heal_next_fence = False
+        self._did_heal = False
+
+    def start_quorum(self, **kw):
+        self._error = None
+        self._did_heal = False
+
+    def quorum_fence(self):
+        if self.heal_next_fence:
+            self._did_heal = True
+            self.heal_next_fence = False
+
+    def did_heal(self):
+        return self._did_heal
+
+    def errored(self):
+        return self._error
+
+    def report_error(self, e):
+        if self._error is None:
+            self._error = e
+
+    def should_commit(self):
+        return self._error is None
+
+    def is_participating(self):
+        return True
+
+    def wire_compensable(self):
+        return False
+
+    def wire_generation(self):
+        return 0
+
+    def wire_roundtrip(self, src, out):
+        np.copyto(out, src)
+
+    def wire_nbytes(self, a):
+        return int(np.asarray(a).nbytes)
+
+    def allreduce_arrays(self, arrays, op=ReduceOp.SUM):
+        self._ops += 1
+        if self._error is not None:
+            return CompletedWork([np.asarray(a) for a in arrays])
+        if self.fail_at_op is not None and self._ops == self.fail_at_op:
+            self.report_error(RuntimeError("injected outer-sync fault"))
+            return CompletedWork([np.asarray(a) for a in arrays])
+        return CompletedWork([np.array(a, copy=True) for a in arrays])
+
+
+# ------------------------------------------------------------- the arms
+
+
+def _port_arm(prefix, algorithm, world, codec, fragments, streaming,
+              rounds=2, sync_every=4, outer_tx=None):
+    """``rounds`` rounds over the port's on-device plane on the CPU; per
+    rank: the committed parameters of each round, the final EF residuals
+    and the stub (its averaged arrays)."""
+    pool = DevicePool("cpu")
+    ctxs = [CudaCommContext(timeout=15.0, algorithm=algorithm,
+                            compression=codec, chunk_bytes=256,
+                            device_pool=pool) for _ in range(world)]
+    outs = [None] * world
+    steps = rounds * sync_every
+
+    def worker(rank):
+        ctxs[rank].configure(f"localsgd://{prefix}", rank, world)
+        manager = _PortWireStub(ctxs[rank], world)
+        if outer_tx is not None:
+            wrapper = DiLoCo(manager, outer_tx(), sync_every=sync_every,
+                             num_fragments=fragments, streaming=streaming)
+        else:
+            wrapper = LocalSGD(manager, sync_every=sync_every,
+                               num_fragments=fragments, streaming=streaming)
+        params = _port_params()
+        wrapper.register(params)
+        incs = _increments(rank, steps)
+        per_round = []
+        for t in range(steps):
+            for k, p in zip(_KEYS, params):
+                p.add_(torch.from_numpy(incs[t][k]))
+            wrapper.step()
+            if wrapper.local_step == 0:
+                per_round.append(_snap_port(params))
+        residuals = (None if wrapper._ef_residuals is None
+                     else [r.copy() for r in wrapper._ef_residuals])
+        outs[rank] = (per_round, residuals, manager, wrapper)
+
+    try:
+        with ThreadPoolExecutor(max_workers=world) as ex:
+            for f in [ex.submit(worker, r) for r in range(world)]:
+                f.result(timeout=120)
+    finally:
+        for c in ctxs:
+            c.shutdown()
+    return outs
+
+
+def _jax_arm(store, prefix, algorithm, world, codec, fragments, streaming,
+             rounds=2, sync_every=4, outer_tx=None):
+    """The same rounds through the JAX package over its TcpCommContext."""
+    ctxs = [JaxTcp(timeout=15.0, algorithm=algorithm, channels=2,
+                   compression=codec, chunk_bytes=256) for _ in range(world)]
+    outs = [None] * world
+    steps = rounds * sync_every
+
+    def worker(rank):
+        ctxs[rank].configure(f"{store.addr}/{prefix}", rank, world)
+        manager = _RecordingJaxStub(ctxs[rank], world)
+        if outer_tx is not None:
+            wrapper = JaxDiLoCo(manager, outer_tx(), sync_every=sync_every,
+                                num_fragments=fragments, streaming=streaming)
+        else:
+            wrapper = JaxLocalSGD(manager, sync_every=sync_every,
+                                  num_fragments=fragments,
+                                  streaming=streaming)
+        params = wrapper.register(_jax_params())
+        incs = _increments(rank, steps)
+        per_round = []
+        for t in range(steps):
+            params = {k: params[k] + incs[t][k] for k in params}
+            params = wrapper.step(params)
+            if wrapper.local_step == 0:
+                per_round.append(_snap_jax(params))
+        residuals = (None if wrapper._ef_residuals is None
+                     else [r.copy() for r in wrapper._ef_residuals])
+        outs[rank] = (per_round, residuals, manager, wrapper)
+
+    try:
+        with ThreadPoolExecutor(max_workers=world) as ex:
+            for f in [ex.submit(worker, r) for r in range(world)]:
+                f.result(timeout=120)
+    finally:
+        for c in ctxs:
+            c.shutdown()
+    return outs
+
+
+@pytest.fixture()
+def jax_store():
+    server = JaxStoreServer()
+    yield server
+    server.shutdown()
+
+
+def _assert_rounds_equal(got, want, what):
+    assert len(got) == len(want), what
+    for t, (g, w) in enumerate(zip(got, want)):
+        for k in w:
+            assert g[k].tobytes() == w[k].tobytes(), (
+                f"{what}: round {t}, leaf {k!r}")
+
+
+# --------------------------------------------- cross-package, bitwise
+
+
+@pytest.mark.parametrize("algorithm,world", [("star", 2), ("ring", 3)])
+@pytest.mark.parametrize("codec", ["none", "bf16", "int8"])
+def test_localsgd_bitwise_equals_reference(jax_store, algorithm, world,
+                                           codec) -> None:
+    # EF "auto" engages exactly where the reference's does (star peers
+    # under a lossy codec): the residual arenas must match bit for bit too
+    for fragments in (1, 2, 4):
+        tag = f"{algorithm}_{codec}_f{fragments}"
+        port = _port_arm(tag, algorithm, world, codec, fragments, True)
+        ref = _jax_arm(jax_store, f"x_{tag}", algorithm, world, codec,
+                       fragments, True)
+        for rank in range(world):
+            _assert_rounds_equal(port[rank][0], ref[rank][0],
+                                 f"{tag} rank {rank}")
+            got_res, want_res = port[rank][1], ref[rank][1]
+            assert (got_res is None) == (want_res is None), (tag, rank)
+            if want_res is not None:
+                for g, w in zip(got_res, want_res):
+                    assert g.tobytes() == w.tobytes(), (tag, rank)
+            if codec != "none" and algorithm == "star" and rank > 0:
+                assert got_res is not None and any(
+                    np.any(r != 0) for r in got_res), (tag, rank)
+
+
+@pytest.mark.parametrize("algorithm,world", [("star", 2), ("ring", 3)])
+@pytest.mark.parametrize("codec", ["none", "bf16", "int8"])
+def test_streaming_bitwise_identical_to_blocking(algorithm, world,
+                                                 codec) -> None:
+    # streaming is a scheduling change only: same grid, snapshot points,
+    # codec and EF math; the residuals evolve across rounds in both arms
+    def outer_tx():
+        return outer.sgd(0.7, momentum=0.9, nesterov=True)
+
+    for fragments in (1, 2, 4):
+        tag = f"{algorithm}_{codec}_f{fragments}"
+        streamed = _port_arm(f"st_{tag}", algorithm, world, codec,
+                             fragments, True, outer_tx=outer_tx)
+        blocking = _port_arm(f"bl_{tag}", algorithm, world, codec,
+                             fragments, False, outer_tx=outer_tx)
+        for rank in range(world):
+            assert len(streamed[rank][0]) == 2
+            _assert_rounds_equal(streamed[rank][0], blocking[rank][0],
+                                 f"{tag}: streaming vs blocking, rank {rank}")
+        for rank in range(1, world):  # every rank commits the same state
+            _assert_rounds_equal(streamed[rank][0], streamed[0][0],
+                                 f"{tag}: rank {rank} vs rank 0")
+
+
+def test_streaming_localsgd_bitwise_and_ef_disabled() -> None:
+    # the weight-averaging arm, int8 on star (EF on the peer, raw root),
+    # and error_feedback=False on the blocking path
+    for fragments in (2, 4):
+        streamed = _port_arm(f"ls_st_{fragments}", "star", 2, "int8",
+                             fragments, True)
+        blocking = _port_arm(f"ls_bl_{fragments}", "star", 2, "int8",
+                             fragments, False)
+        for rank in range(2):
+            _assert_rounds_equal(streamed[rank][0], blocking[rank][0],
+                                 f"f{fragments} rank {rank}")
+    off = _port_arm("ls_off", "star", 2, "int8", 2, True)
+    assert off[1][1] is not None  # the peer kept residuals...
+    manager = _LocalStubManager()
+    wrapper = LocalSGD(manager, sync_every=2, num_fragments=2,
+                       error_feedback=False)
+    params = _port_params()
+    wrapper.register(params)
+    for _ in range(2):
+        wrapper.step()
+    assert wrapper._ef_residuals is None  # ...and the disabled arm none
+
+
+@pytest.mark.parametrize("name", ["sgd", "nesterov", "adam"])
+def test_diloco_matches_reference_outer_step(jax_store, name) -> None:
+    txs = {
+        "sgd": (lambda: outer.sgd(1.0), lambda: optax.sgd(1.0)),
+        "nesterov": (lambda: outer.sgd(0.7, momentum=0.9, nesterov=True),
+                     lambda: optax.sgd(0.7, momentum=0.9, nesterov=True)),
+        "adam": (lambda: outer.adam(1e-2), lambda: optax.adam(1e-2)),
+    }
+    port_tx, jax_tx = txs[name]
+    port = _port_arm(f"dl_{name}", "star", 2, "none", 2, True,
+                     rounds=3, outer_tx=port_tx)
+    ref = _jax_arm(jax_store, f"dlx_{name}", "star", 2, "none", 2, True,
+                   rounds=3, outer_tx=jax_tx)
+    for rank in range(2):
+        got_avg, want_avg = port[rank][2].reduced, ref[rank][2].reduced
+        assert len(got_avg) == len(want_avg) == 6  # 2 fragments x 3 rounds
+        # round 1 starts from the same backup: its averaged
+        # pseudogradients are bitwise; at lr 1 without state, every round's
+        checked = want_avg if name == "sgd" else want_avg[:2]
+        for g, w in zip(got_avg, checked):
+            assert g.tobytes() == w.tobytes(), (name, rank)
+        for g, w in zip(got_avg[2:], want_avg[2:]):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+        for t, (g, w) in enumerate(zip(port[rank][0], ref[rank][0])):
+            for k in _KEYS:
+                np.testing.assert_allclose(g[k], w[k], **OUTER_TOL,
+                                           err_msg=f"{name} round {t} {k}")
+        got_states = port[rank][3].outer_state
+        want_states = [outer.from_optax_state(s) for s in
+                       jax.device_get(ref[rank][3].outer_state)]
+        assert len(got_states) == len(want_states) == 2
+        for g, w in zip(got_states, want_states):
+            assert sorted(g) == sorted(w)
+            for key in w:
+                if key == "count":
+                    assert int(g[key]) == int(w[key]) == 3
+                    continue
+                for a, b in zip(g[key], w[key]):
+                    np.testing.assert_allclose(a.numpy(), b.numpy(),
+                                               **OUTER_TOL)
+
+
+def test_diloco_resumes_from_reference_state() -> None:
+    # one mid-run state, carried across: a JAX-package DiLoCo commits a
+    # round (outer momentum non-zero), its state_dict starts a port DiLoCo,
+    # and both run the next round from it
+    incs = _increments(0, 8)
+    jax_wrapper = JaxDiLoCo(_JaxLocalStub(), optax.sgd(0.7, momentum=0.9,
+                                                       nesterov=True),
+                            sync_every=4, num_fragments=2)
+    params = jax_wrapper.register(_jax_params())
+    for t in range(4):
+        params = {k: params[k] + incs[t][k] for k in params}
+        params = jax_wrapper.step(params)
+    assert jax_wrapper.local_step == 0
+    state = from_jax_state(jax.device_get(jax_wrapper.state_dict()))
+    mid = _snap_jax(params)
+    port_params = _port_params(mid)
+    wrapper = DiLoCo(_LocalStubManager(),
+                     outer.sgd(0.7, momentum=0.9, nesterov=True),
+                     sync_every=4, num_fragments=2)
+    wrapper.register(port_params)
+    wrapper.load_state_dict(state)
+    assert wrapper.local_step == 0
+    for p, b in zip(port_params, wrapper._backup):
+        assert p.numpy().tobytes() == b.numpy().tobytes()
+    for t in range(4, 8):
+        params = {k: params[k] + incs[t][k] for k in params}
+        params = jax_wrapper.step(params)
+        for k, p in zip(_KEYS, port_params):
+            p.add_(torch.from_numpy(incs[t][k]))
+        wrapper.step()
+    assert wrapper.local_step == jax_wrapper.local_step == 0
+    want = _snap_jax(params)
+    for k, p in zip(_KEYS, port_params):
+        np.testing.assert_allclose(p.numpy(), want[k], **OUTER_TOL)
+
+
+class _JaxLocalStub:
+    """The reference test's transport-less stub (identity averaging)."""
+
+    def __init__(self):
+        from torchft_tpu.utils.metrics import Metrics as JaxMetrics
+
+        self.metrics = JaxMetrics()
+        self._use_async_quorum = True
+
+    def start_quorum(self, **kw):
+        pass
+
+    def quorum_fence(self):
+        pass
+
+    def did_heal(self):
+        return False
+
+    def errored(self):
+        return None
+
+    def report_error(self, e):
+        raise AssertionError(e)
+
+    def should_commit(self):
+        return True
+
+    def is_participating(self):
+        return True
+
+    def wire_compensable(self):
+        return False
+
+    def wire_generation(self):
+        return 0
+
+    def wire_nbytes(self, a):
+        return int(np.asarray(a).nbytes)
+
+    def allreduce_arrays(self, arrays, op=ReduceOp.SUM):
+        from torchft_tpu.comm.context import CompletedWork as JaxCompleted
+
+        return JaxCompleted([np.array(a, copy=True) for a in arrays])
+
+
+# ------------------------------------------------------- fragment grid
+
+
+def test_fragment_partition_deterministic_balanced() -> None:
+    sizes = [96 * 4, 64 * 4, 160 * 4, 32 * 4, 48 * 4]
+    grid = split_weighted(sizes, 3)
+    assert grid[0][0] == 0 and grid[-1][1] == len(sizes)
+    for (a, b), (c, d) in zip(grid, grid[1:]):
+        assert b == c and b > a and d > c
+    assert grid == split_weighted(sizes, 3)
+    weights = [sum(sizes[a:b]) for a, b in grid]
+    assert max(weights) - min(weights) <= max(sizes)
+    assert split_weighted([8, 8], 5) == [(0, 1), (1, 2)]
+    assert split_weighted([8], 1) == [(0, 1)]
+    # the reference's grid, exactly, and the wrapper's on the same leaves
+    assert grid == jax_split_weighted(sizes, 3)
+    for f in (1, 2, 3, 4, 5, 7):
+        wrapper = LocalSGD(_LocalStubManager(), sync_every=8,
+                           num_fragments=min(f, 8))
+        wrapper.register(_port_params())
+        ref = JaxLocalSGD(_LocalStubManager(), sync_every=8,
+                          num_fragments=min(f, 8))
+        ref.register(_jax_params())
+        assert wrapper._fragments == ref._fragments
+        assert wrapper._boundaries == ref._boundaries
+
+
+def test_fragment_boundaries_schedule() -> None:
+    assert fragment_boundaries(8, 4) == [2, 4, 6, 8]
+    assert fragment_boundaries(8, 1) == [8]
+    assert fragment_boundaries(4, 4) == [1, 2, 3, 4]
+    assert fragment_boundaries(5, 2) == [2, 5]
+    for e in range(1, 12):
+        for f in range(1, e + 1):
+            bs = fragment_boundaries(e, f)
+            assert bs == jax_boundaries(e, f)
+            assert bs[-1] == e and all(b2 > b1 for b1, b2 in zip(bs, bs[1:]))
+
+
+# -------------------------------------------------- abort / heal paths
+
+
+def test_midround_abort_rolls_back_every_fragment() -> None:
+    # fragment 0 lands, fragment 1's op latches: the WHOLE round rolls
+    # back bitwise, landed fragment included, into the same tensors; the
+    # next round commits
+    manager = _LocalStubManager(fail_at_op=2)
+    diloco = DiLoCo(manager, outer.sgd(1.0), sync_every=4, num_fragments=4)
+    params = _port_params()
+    ptrs = [p.data_ptr() for p in params]
+    diloco.register(params)
+    ref = _snap_port(params)
+    for _ in range(4):
+        for p in params:
+            p.add_(1.0)
+        diloco.step()
+    assert diloco.local_step == 0
+    assert [p.data_ptr() for p in params] == ptrs
+    for k, p in zip(_KEYS, params):
+        assert p.numpy().tobytes() == ref[k].tobytes(), k
+    # fragment f ships at inner step f+1, when the loop has added f+1
+    manager.fail_at_op = None
+    for _ in range(4):
+        for p in params:
+            p.add_(1.0)
+        diloco.step()
+    for f, (start, stop) in enumerate(diloco._fragments):
+        for i in range(start, stop):
+            np.testing.assert_allclose(params[i].numpy(),
+                                       ref[_KEYS[i]] + (f + 1.0), rtol=1e-6,
+                                       err_msg=f"fragment {f} leaf {i}")
+
+
+def test_rollback_then_the_next_step_trains_the_restored_values() -> None:
+    # the inner step (a CUDA graph on the card) holds the parameter and
+    # AdamW tensors: an aborted round writes the backup INTO them, so the
+    # next step trains the restored values, as a fresh model loaded with
+    # them does
+    from torchft_tpu_torch.models import CONFIGS, GPT, make_train_step
+
+    cfg = CONFIGS["tiny"]
+    model = GPT(cfg, device="cpu", seed=0)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-2)
+    step = make_train_step(model, opt)
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
+    targets = torch.roll(tokens, -1, dims=1)
+    manager = _LocalStubManager(fail_at_op=1)
+    wrapper = LocalSGD(manager, sync_every=2, num_fragments=1)
+    wrapper.register(model)
+    synced = [p.detach().clone() for p in model.parameters()]
+    step(tokens, targets)  # AdamW's lazy state is born here
+    wrapper.step()
+    key = step._state_key()
+    step(tokens, targets)
+    wrapper.step()  # the round ends and aborts
+    assert wrapper.local_step == 0
+    assert step._state_key() == key  # same storages: no re-capture
+    for p, s in zip(model.parameters(), synced):
+        assert torch.equal(p, s)
+    twin = GPT(cfg, device="cpu", seed=1)
+    twin.load_state_dict(model.state_dict())
+    twin_opt = torch.optim.AdamW(twin.parameters(), lr=1e-2)
+    # a deep copy: a plain load shares the state tensors
+    twin_opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+    make_train_step(twin, twin_opt)(tokens, targets)
+    step(tokens, targets)
+    for a, b in zip(model.parameters(), twin.parameters()):
+        assert torch.equal(a, b)
+
+
+def test_heal_at_fence_rereads_params_fn() -> None:
+    # a heal applied at the fence: the round snapshots the params_fn
+    # re-read, and without a donor backup the healed state becomes the
+    # new sync point
+    healed = [torch.full_like(p, 5.0) for p in _port_params()]
+    holder = {"params": _port_params()}
+    manager = _LocalStubManager()
+    wrapper = LocalSGD(manager, sync_every=2, num_fragments=2,
+                       params_fn=lambda: holder["params"])
+    wrapper.register(holder["params"])
+    manager.heal_next_fence = True
+    holder["params"] = healed
+    for _ in range(2):  # no inner movement: isolates the re-read
+        wrapper.step()
+    for p in healed:
+        np.testing.assert_allclose(p.numpy(), 5.0, rtol=1e-6)
+    wrapper.restore()
+    for p, b in zip(healed, wrapper._backup):
+        np.testing.assert_allclose(b.numpy(), 5.0, rtol=1e-6)
+
+
+def test_heal_keeps_donor_backup_as_sync_point() -> None:
+    # the donor's backup came through load_state_dict: the fence keeps IT;
+    # outer lr 0.5 commits the midpoint of backup (2) and params (6)
+    base = _port_params()
+    holder = {"params": base}
+    manager = _LocalStubManager()
+    wrapper = DiLoCo(manager, outer.sgd(0.5), sync_every=2, num_fragments=2,
+                     params_fn=lambda: holder["params"])
+    wrapper.register(base)
+    wrapper.load_state_dict({
+        "backup": [torch.full_like(p, 2.0) for p in base],
+        "local_step": 0, "outer_state": wrapper.outer_state,
+    })
+    manager.heal_next_fence = True
+    healed = [torch.full_like(p, 6.0) for p in base]
+    holder["params"] = healed
+    for _ in range(2):
+        wrapper.step()
+    for p in healed:  # pseudograd 2 - 6 = -4; 2 + 0.5 * 4 = 4
+        np.testing.assert_allclose(p.numpy(), 4.0, rtol=1e-6)
+
+
+# ------------------------------------------------------ metric surface
+
+
+def test_outer_metric_surface() -> None:
+    manager = _LocalStubManager()
+    wrapper = DiLoCo(manager, outer.sgd(0.7), sync_every=2, num_fragments=2)
+    params = _port_params()
+    wrapper.register(params)
+    for _ in range(2):
+        for p in params:
+            p.add_(1.0)
+        wrapper.step()
+    snap = manager.metrics.snapshot()
+    for stage in ("outer_d2h", "outer_wire", "outer_land"):
+        assert f"{stage}_avg_ms" in snap, (stage, sorted(snap))
+        assert np.isfinite(snap[f"{stage}_avg_ms"])
+    for gauge in ("outer_wire_ms", "outer_wire_exposed_ms", "outer_overlap",
+                  "outer_wire_bytes", "outer_inflight_at_drain"):
+        assert gauge in snap, (gauge, sorted(snap))
+        assert np.isfinite(snap[gauge]) and snap[gauge] >= 0.0
+    assert 0.0 <= snap["outer_overlap"] <= 1.0
+    total = sum(v.size for v in _params0_np().values())
+    assert snap["outer_wire_bytes"] == 4 * total
+
+
+def test_outer_ef_timer_under_a_lossy_wire() -> None:
+    port = _port_arm("ef_timer", "star", 2, "int8", 2, True, rounds=1)
+    snap = port[1][2].metrics.snapshot()  # the peer compensates
+    assert snap["outer_ef_p50_ms"] >= 0.0
+    assert "outer_ef_p50_ms" not in port[0][2].metrics.snapshot()
+
+
+def test_streaming_overlaps_wire_behind_inner_steps() -> None:
+    # a delayed wire: fragment 0 (shipped at step 1 of 2) resolves while
+    # the inner loop still steps, so the exposed time is below the summed
+    # wire time and the overlap gauge reads > 0
+    delay = 0.15
+
+    class _DelayedStub(_LocalStubManager):
+        def allreduce_arrays(self, arrays, op=ReduceOp.SUM):
+            self._ops += 1
+            fut = Future()
+            fut.set_running_or_notify_cancel()
+            arrs = [np.array(a, copy=True) for a in arrays]
+
+            def _complete():
+                time.sleep(delay)
+                fut.set_result(arrs)
+
+            threading.Thread(target=_complete, daemon=True).start()
+            return Work(fut)
+
+    manager = _DelayedStub()
+    wrapper = LocalSGD(manager, sync_every=2, num_fragments=2)
+    params = _port_params()
+    wrapper.register(params)
+    for t in range(2):
+        for p in params:
+            p.add_(1.0)
+        wrapper.step()
+        if t == 0:
+            time.sleep(delay * 1.5)  # inner compute hiding fragment 0
+    snap = manager.metrics.snapshot()
+    assert snap["outer_overlap"] > 0.25, snap
+    assert snap["outer_wire_exposed_ms"] < snap["outer_wire_ms"], snap
+
+
+def test_sync_quorum_heal_does_not_rewind_round() -> None:
+    # a use_async_quorum=False manager heals INSIDE start_quorum, before
+    # the round object exists: the donor's mid-round local_step must not
+    # be adopted, or this round's fragments never ship
+    refs = {}
+
+    class _SyncQuorumStub(_LocalStubManager):
+        def __init__(self):
+            super().__init__()
+            self._use_async_quorum = False
+            self.heal_in_start_quorum = False
+
+        def start_quorum(self, **kw):
+            super().start_quorum(**kw)
+            if self.heal_in_start_quorum:
+                self.heal_in_start_quorum = False
+                refs["wrapper"].load_state_dict(
+                    {"backup": refs["donor_backup"], "local_step": 1})
+                self._did_heal = True
+
+    base = _port_params()
+    holder = {"params": base}
+    manager = _SyncQuorumStub()
+    wrapper = LocalSGD(manager, sync_every=4, num_fragments=1,
+                       params_fn=lambda: holder["params"])
+    refs["wrapper"] = wrapper
+    refs["donor_backup"] = [torch.full_like(p, 2.0) for p in base]
+    wrapper.register(base)
+    for _ in range(3):
+        wrapper.step()
+    manager.heal_in_start_quorum = True
+    healed = [torch.full_like(p, 3.0) for p in base]
+    holder["params"] = healed
+    wrapper.step()  # the round-start step (boundary 4)
+    assert wrapper.local_step == 0, (
+        "heal rewound the fragment schedule; the round never closed")
+    for p in healed:
+        np.testing.assert_allclose(p.numpy(), 3.0, rtol=1e-6)
+
+
+def test_sync_without_register() -> None:
+    # sync(params) on a wrapper that never saw register() bootstraps the
+    # layout and DiLoCo's outer state
+    wrapper = DiLoCo(_LocalStubManager(), outer.sgd(1.0), sync_every=4,
+                     num_fragments=2)
+    params = _port_params()
+    before = _snap_port(params)
+    wrapper.sync(params)
+    assert wrapper.local_step == 0
+    for k, p in zip(_KEYS, params):  # zero pseudogradient
+        np.testing.assert_allclose(p.numpy(), before[k], rtol=1e-6)
+    with pytest.raises(RuntimeError, match="register"):
+        LocalSGD(_LocalStubManager(), sync_every=2).step()
+
+
+def test_load_state_dict_leaf_count_mismatch_raises() -> None:
+    wrapper = LocalSGD(_LocalStubManager(), sync_every=2, num_fragments=2)
+    wrapper.register(_port_params())
+    with pytest.raises(ValueError, match="leaves"):
+        wrapper.load_state_dict(
+            {"backup": [np.zeros(96, np.float32)], "local_step": 0})
+
+
+def test_outer_pools_are_split() -> None:
+    assert _outer_executor("ef") is not _outer_executor("land")
+    assert _outer_executor("land") is _outer_executor("land")
+
+
+def test_num_fragments_validation() -> None:
+    with pytest.raises(ValueError, match="num_fragments must be >= 1"):
+        LocalSGD(_LocalStubManager(), sync_every=4, num_fragments=0)
+    with pytest.raises(ValueError, match="must be >= num_fragments"):
+        LocalSGD(_LocalStubManager(), sync_every=3, num_fragments=4)
+    with pytest.raises(ValueError, match="error_feedback"):
+        LocalSGD(_LocalStubManager(), sync_every=3, error_feedback="yes")
+
+
+@pytest.mark.parametrize("kwargs,entry", [
+    ({"sharded_outer": True}, "queue 1 item 9"),
+    ({"topology": "hier"}, "queue 1 item 2"),
+])
+def test_unported_arms_refused_with_their_roadmap_entry(kwargs,
+                                                        entry) -> None:
+    for cls, args in ((LocalSGD, ()), (DiLoCo, (outer.sgd(0.7),))):
+        with pytest.raises(ValueError, match=entry):
+            cls(_LocalStubManager(), *args, sync_every=4, **kwargs)

@@ -109,6 +109,51 @@ def test_two_groups_average_over_participants(infra) -> None:
         assert np.array_equal(got, np.full(8, 1.5, np.float32))
 
 
+def test_transport_rank_is_the_wire_rank(infra) -> None:
+    # after wait_quorum, transport_rank() is the comm context's configured
+    # rank; on a solo wire it is 0 (reference manager.py:1677-1682)
+    lh, stores = infra
+    seen = {}
+
+    def group(i):
+        m = _manager(lh, stores[i], name=f"tr{i}",
+                     state_dict=lambda: {"w": np.zeros(3, np.float32)},
+                     load_state_dict=lambda sd: None)
+        try:
+            _wait_lighthouse(lh.address(), "healthy", 2, 20.0,
+                             threading.Event())
+            m.start_quorum()
+            m.wait_quorum()
+            seen[i] = (m.transport_rank(), m._comm.rank(),
+                       m.transport_world_size())
+            m.allreduce_arrays([np.ones(4, np.float32)]).future().result(
+                timeout=20)
+            m.should_commit()
+        finally:
+            m.shutdown(wait=False)
+
+    threads = [threading.Thread(target=group, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert sorted(r for r, _, _ in seen.values()) == [0, 1]
+    assert all(r == ctx for r, ctx, _ in seen.values())
+    assert all(w == 2 for _, _, w in seen.values())
+
+    alone = Lighthouse(min_replicas=1, join_timeout_ms=100)
+    solo = _manager(alone, stores[0], name="tr_solo")
+    try:
+        solo.start_quorum()
+        solo.wait_quorum()
+        assert solo.is_solo_wire()
+        assert solo.transport_rank() == 0
+    finally:
+        solo.shutdown(wait=False)
+        alone.shutdown()
+
+
 def test_avg_rejects_integer_arrays(infra) -> None:
     lh, stores = infra
     m = _manager(lh, stores[0])

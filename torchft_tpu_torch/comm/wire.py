@@ -11,7 +11,7 @@ standard library only.
 from __future__ import annotations
 
 import socket
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -25,6 +25,7 @@ __all__ = [
     "recv_into_exact",
     "recv_exact",
     "readinto_exact",
+    "split_weighted",
 ]
 
 # Linux UIO_MAXIOV is 1024; stay under it per sendmsg call.
@@ -104,3 +105,36 @@ def readinto_exact(fp, mv: memoryview, what: str = "body") -> None:
                 "live peer"
             )
         got += r
+
+
+def split_weighted(
+    weights: "Sequence[int]", part_count: int
+) -> "List[Tuple[int, int]]":
+    """Deterministic weighted partition: contiguous (start, stop) ranges
+    over ``len(weights)`` items, balanced by cumulative weight. Every range
+    is non-empty (``part_count`` is clamped to the item count), and the
+    grid is a pure function of the weights, so all ranks compute the
+    identical partition from shapes alone. The outer-sync fragment
+    scheduler (local_sgd.py) byte-balances parameter leaves with it."""
+    n = len(weights)
+    part_count = max(1, min(part_count, n))
+    total = sum(int(w) for w in weights)
+    out: "List[Tuple[int, int]]" = []
+    start = 0
+    acc = 0
+    for i in range(n):
+        acc += int(weights[i])
+        closed = len(out)
+        parts_left = part_count - closed
+        items_left = n - (i + 1)
+        if parts_left == 1:
+            continue  # the final range swallows the tail
+        # close once this range reaches its even share of the total
+        # weight, or when the remaining items are only just enough to give
+        # every remaining range one item
+        if (acc * part_count >= total * (closed + 1)
+                or items_left == parts_left - 1):
+            out.append((start, i + 1))
+            start = i + 1
+    out.append((start, n))
+    return out

@@ -48,12 +48,17 @@ def _ef_dtype(dt: np.dtype) -> bool:
     return dt in (np.float32, np.float64)
 
 
-def _ef_gate(manager) -> bool:
-    """The error-feedback activation rule: this rank's contribution crosses
-    the wire through a lossy codec, AND this replica contributes real
-    gradients this step (a healing or spare replica ships zeros, whose
-    "error" would bank the whole gradient)."""
-    return bool(manager.wire_compensable() and manager.is_participating())
+def _ef_gate(manager, error_feedback: "bool | str" = "auto") -> bool:
+    """The error-feedback activation rule: enabled, AND (under "auto") this
+    rank's contribution crosses the wire through a lossy codec, AND this
+    replica contributes real values this step (a healing or spare replica
+    ships zeros, whose "error" would bank the whole gradient).
+    ``error_feedback=True`` forces it on; False turns it off."""
+    if error_feedback is False:
+        return False
+    if error_feedback == "auto" and not manager.wire_compensable():
+        return False
+    return bool(manager.is_participating())
 
 
 class _BucketPlan:

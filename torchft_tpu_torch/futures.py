@@ -2,13 +2,15 @@
 
 Twin of ``torchft_tpu/futures.py`` (the part the port uses): a singleton
 deadline thread that wraps any ``concurrent.futures.Future`` in a timeout,
-continuation chaining, and ``StealableTask`` for the heal plane's lazy
-staging. The futures carry host-side control-plane, transport and heal
+a bounded wait, continuation chaining, the ``future_all`` and
+``FutureGroup`` completion barriers (the outer sync's round resolves on
+one), and ``StealableTask`` for the heal plane's lazy staging. The futures carry host-side control-plane, transport and heal
 results; device work never lives inside them.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import heapq
 import itertools
 import threading
@@ -21,7 +23,10 @@ S = TypeVar("S")
 
 __all__ = [
     "future_timeout",
+    "future_wait",
     "future_chain",
+    "future_all",
+    "FutureGroup",
     "StealableTask",
     "completed_future",
     "failed_future",
@@ -133,6 +138,20 @@ def future_timeout(fut: "Future[T]", timeout: "float | timedelta") -> "Future[T]
     return out
 
 
+def future_wait(fut: "Future[T]", timeout: "float | timedelta") -> T:
+    """Block on ``fut`` up to ``timeout``; raise the builtin
+    ``TimeoutError`` on expiry (ref futures.py:138-165). A future that
+    itself completed with a TimeoutError re-raises that one."""
+    try:
+        return fut.result(timeout=_as_seconds(timeout))
+    except concurrent.futures.TimeoutError:
+        if fut.done():
+            raise
+        raise TimeoutError(
+            f"future timed out after {_as_seconds(timeout)}s"
+        ) from None
+
+
 def future_chain(fut: "Future[T]", fn: "Callable[[Future[T]], S]") -> "Future[S]":
     """``then``-style continuation: returns a future holding ``fn(fut)``
     once ``fut`` completes; ``fn`` receives the *completed* future so it can
@@ -149,6 +168,105 @@ def future_chain(fut: "Future[T]", fn: "Callable[[Future[T]], S]") -> "Future[S]
 
     fut.add_done_callback(_done)
     return out
+
+
+def future_all(futs: "list[Future]") -> "Future[list[Future]]":
+    """Completes with the input futures once ALL of them are done,
+    successfully or not (the caller inspects each): a non-blocking barrier
+    over a fan-out whose members finish out of order."""
+    out: Future = Future()
+    out.set_running_or_notify_cancel()
+    if not futs:
+        out.set_result([])
+        return out
+    remaining = [len(futs)]
+    lock = threading.Lock()
+
+    def _done(_f: Future) -> None:
+        with lock:
+            remaining[0] -= 1
+            if remaining[0] != 0:
+                return
+        out.set_result(list(futs))
+
+    for f in futs:
+        f.add_done_callback(_done)
+    return out
+
+
+class FutureGroup:
+    """Dynamic completion barrier for streamed fan-out pipelines.
+
+    ``future_all`` needs the whole list up front; a streamed producer (the
+    outer sync's fragments, each a wire future plus worker futures for its
+    landing and error feedback) creates members incrementally while earlier
+    ones already complete on other threads. ``add()`` registers members as
+    they are born; ``seal(fn)`` arms the group and returns a future that
+    resolves to ``fn()`` once every member has completed (on whichever
+    thread finishes last: keep ``fn`` cheap).
+
+    Error semantics: the first member (or ``fn``) exception fails the
+    group future, but only AFTER every member has settled, so whatever the
+    group guards is quiescent once its future is done, success or not.
+    """
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._pending = 0
+        self._sealed = False
+        self._fn: "Optional[Callable[[], object]]" = None
+        self._error: Optional[BaseException] = None
+        self._out: Future = Future()
+        self._out.set_running_or_notify_cancel()
+
+    def add(self, fut: Future) -> None:
+        """Register a member. Must happen before :meth:`seal`; a member may
+        already be completed (its callback fires inline)."""
+        with self._lock:
+            if self._sealed:
+                raise RuntimeError("FutureGroup.add after seal")
+            self._pending += 1
+        fut.add_done_callback(self._member_done)
+
+    @property
+    def outstanding(self) -> int:
+        """Members registered but not yet settled (the outer sync reads it
+        at its round-end drain: fragments still riding the wire)."""
+        with self._lock:
+            return self._pending
+
+    def _member_done(self, f: Future) -> None:
+        exc = f.exception()
+        with self._lock:
+            if exc is not None and self._error is None:
+                self._error = exc
+            self._pending -= 1
+            finish = self._sealed and self._pending == 0
+        if finish:
+            self._resolve()
+
+    def seal(self, fn: "Callable[[], S]") -> "Future[S]":
+        """Arm the group: no more members may be added; the returned future
+        resolves to ``fn()`` once every member has completed (or fails with
+        the first member error)."""
+        with self._lock:
+            if self._sealed:
+                raise RuntimeError("FutureGroup sealed twice")
+            self._sealed = True
+            self._fn = fn
+            finish = self._pending == 0
+        if finish:
+            self._resolve()
+        return self._out
+
+    def _resolve(self) -> None:
+        if self._error is not None:
+            _try_set_exception(self._out, self._error)  # type: ignore[arg-type]
+            return
+        try:
+            self._out.set_result(self._fn())  # type: ignore[misc]
+        except Exception as e:  # noqa: BLE001 — delivered to the waiter
+            _try_set_exception(self._out, e)
 
 
 class StealableTask:

@@ -982,6 +982,12 @@ class Manager:
         """Members of the gradient wire for the current quorum."""
         return self._transport_world_size
 
+    def transport_rank(self) -> int:
+        """This replica's rank on the gradient wire for the current quorum
+        (the comm context's configured rank). Valid after ``wait_quorum``;
+        0 on a solo wire."""
+        return int(self._comm.rank())
+
     def is_solo_wire(self) -> bool:
         """True when this quorum's wire is an identity for this replica: no
         error latched, no data-plane peer, and participating. Valid after

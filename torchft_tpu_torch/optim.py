@@ -33,18 +33,28 @@ The losses read back land in ``take_losses()``, keyed by the step count
 after the commit. ``metrics`` times ``prologue``, ``barrier``,
 ``dispatch``, ``fence`` and ``transition_drain`` over every step, the
 reference's names; ``fused_metrics`` the same phases of fused steps alone.
+
+DiLoCo's outer optimizer (local_sgd.py) must stage a step and adopt it only
+if the round commits, which ``torch.optim.Optimizer`` (it updates in place)
+cannot. So it runs on :class:`OuterTransformation`, a functional
+transformation in optax's shape and order of operations (``sgd`` with
+optional momentum and Nesterov, ``adam``), partitioned per fragment by
+:class:`PartitionedOuterOptimizer`.
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from torchft_tpu_torch.utils.metrics import Metrics
 
-__all__ = ["OptimizerWrapper", "load_optimizer_state_dict"]
+__all__ = ["OptimizerWrapper", "OuterTransformation",
+           "PartitionedOuterOptimizer", "adam", "apply_updates",
+           "from_optax_state", "load_optimizer_state_dict", "sgd"]
 
 
 def _hyper(group: Dict[str, Any]) -> Dict[str, Any]:
@@ -269,3 +279,163 @@ class OptimizerWrapper:
 
     def load_state_dict(self, state_dict) -> None:
         load_optimizer_state_dict(self.optimizer, state_dict)
+
+
+# ------------------------------------------------------- outer optimizer
+
+
+class OuterTransformation:
+    """A pure gradient transformation over a list of tensors, in optax's
+    order of operations: ``init(leaves) -> state`` and ``update(grads,
+    state, params) -> (updates, new_state)``, never mutating its inputs.
+    The state is a dict of tensors: ``{}`` for plain SGD, ``{"trace":
+    [...]}`` with momentum, ``{"count", "mu", "nu"}`` for Adam. Build one
+    with :func:`sgd` or :func:`adam`."""
+
+    def __init__(self, kind: str, learning_rate: float, *,
+                 momentum: Optional[float] = None, nesterov: bool = False,
+                 b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8) -> None:
+        self.kind = kind
+        self.learning_rate = float(learning_rate)
+        self.momentum = momentum
+        self.nesterov = nesterov
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, leaves: Sequence[torch.Tensor]) -> Dict[str, Any]:
+        zeros = lambda: [torch.zeros_like(x) for x in leaves]  # noqa: E731
+        if self.kind == "adam":
+            return {"count": torch.zeros((), dtype=torch.int32),
+                    "mu": zeros(), "nu": zeros()}
+        if self.momentum is not None:
+            return {"trace": zeros()}
+        return {}
+
+    def update(self, grads: Sequence[torch.Tensor], state: Dict[str, Any],
+               params: Optional[Sequence[torch.Tensor]] = None
+               ) -> Tuple[List[torch.Tensor], Dict[str, Any]]:
+        del params  # neither transformation reads them (optax's too)
+        new_state: Dict[str, Any] = {}
+        if self.kind == "adam":
+            b1, b2 = self.b1, self.b2
+            # (1 - decay) * g**order + decay * t, then the bias correction
+            # 1 - decay**count in f32, as optax computes them
+            mu = [g * (1 - b1) + t * b1 for g, t in zip(grads, state["mu"])]
+            nu = [(g * g) * (1 - b2) + t * b2
+                  for g, t in zip(grads, state["nu"])]
+            count = state["count"] + 1
+            c = count.to(torch.float32)
+            bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** c
+            bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** c
+            updates = [(m / bc1.to(m.dtype))
+                       / (torch.sqrt(v / bc2.to(v.dtype)) + self.eps)
+                       for m, v in zip(mu, nu)]
+            new_state = {"count": count, "mu": mu, "nu": nu}
+        elif self.momentum is not None:
+            decay = self.momentum
+            trace = [g + t * decay for g, t in zip(grads, state["trace"])]
+            updates = ([g + t * decay for g, t in zip(grads, trace)]
+                       if self.nesterov else trace)
+            new_state = {"trace": trace}
+        else:
+            updates = list(grads)
+        return [u * -self.learning_rate for u in updates], new_state
+
+
+def sgd(learning_rate: float, momentum: Optional[float] = None,
+        nesterov: bool = False) -> OuterTransformation:
+    """``optax.sgd``: a momentum trace (``g + decay * trace``, Nesterov
+    ``g + decay * new_trace``) when ``momentum`` is set, then scale by
+    ``-learning_rate``."""
+    return OuterTransformation("sgd", learning_rate, momentum=momentum,
+                               nesterov=nesterov)
+
+
+def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> OuterTransformation:
+    """``optax.adam`` (``eps_root`` 0)."""
+    return OuterTransformation("adam", learning_rate, b1=b1, b2=b2, eps=eps)
+
+
+def apply_updates(params: Sequence[torch.Tensor],
+                  updates: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``optax.apply_updates``: ``p + u`` in the parameter's dtype."""
+    return [(p + u).to(p.dtype) for p, u in zip(params, updates)]
+
+
+def from_optax_state(state: Any) -> Dict[str, Any]:
+    """One fragment's optax state (a chain tuple of ``TraceState`` /
+    ``ScaleByAdamState`` / empty states, as numpy arrays) in the port's
+    form, by field name: ``trace``, ``mu`` and ``nu`` lists of tensors and
+    ``count`` a 0-dim int32 tensor."""
+    out: Dict[str, Any] = {}
+
+    def walk(node: Any) -> None:
+        fields = getattr(node, "_fields", None)
+        if fields is not None:
+            for name in fields:
+                value = getattr(node, name)
+                if name == "count":
+                    out["count"] = torch.tensor(np.asarray(value),
+                                                dtype=torch.int32)
+                elif name in ("trace", "mu", "nu"):
+                    out[name] = [torch.from_numpy(np.array(v))
+                                 for v in value]
+                else:
+                    walk(value)
+        elif isinstance(node, (tuple, list)):
+            for member in node:
+                walk(member)
+
+    walk(state)
+    return out
+
+
+class PartitionedOuterOptimizer:
+    """One outer transformation partitioned per fragment (twin of the
+    reference's, optim.py:38-106): each fragment owns its own state over
+    its own leaf list, so a fragment's outer step lands the moment its
+    average comes off the wire. For the elementwise transformations here
+    the concatenation of per-fragment updates is the monolithic update.
+
+    :meth:`update_fragment` is pure: it returns the staged ``(new_params,
+    new_state)``, and the round adopts the state with :meth:`adopt` only
+    after the commit vote, so an aborted round leaves every fragment's
+    state untouched. ``adopt`` replaces the state list rather than
+    mutating it, so a snapshot taken before (``states``) never changes
+    under its holder."""
+
+    def __init__(self, tx: OuterTransformation) -> None:
+        self._tx = tx
+        self._states: Optional[List[Any]] = None
+
+    def init(self, fragments: Sequence[Sequence[torch.Tensor]]) -> None:
+        """One state per fragment, over that fragment's leaf list."""
+        self._states = [self._tx.init(list(f)) for f in fragments]
+
+    def init_fragment(self, leaves: Sequence[torch.Tensor]) -> Any:
+        """A fresh state for one fragment's leaf list."""
+        return self._tx.init(list(leaves))
+
+    @property
+    def states(self) -> Optional[List[Any]]:
+        return self._states
+
+    def load_states(self, states: Sequence[Any]) -> None:
+        self._states = list(states)
+
+    def update_fragment(self, f: int, grads: Sequence[torch.Tensor],
+                        params: Sequence[torch.Tensor]
+                        ) -> Tuple[List[torch.Tensor], Any]:
+        """The staged outer step of fragment ``f``: ``(new_params,
+        new_state)``, the state not adopted."""
+        assert self._states is not None, "init() was never called"
+        updates, new_state = self._tx.update(list(grads), self._states[f],
+                                             list(params))
+        return apply_updates(list(params), updates), new_state
+
+    def adopt(self, f: int, new_state: Any) -> None:
+        assert self._states is not None, "init() was never called"
+        states = list(self._states)
+        states[f] = new_state
+        self._states = states
