@@ -90,7 +90,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a peer. Round 1's fragment averages on the card must equal the same
    plane on the CPU bitwise. It first checks the host's free memory
    (``localsgd_host_bytes``).
-9. train_durable: the reference training loop whole, at "125m" full width
+9. train_hier_int8: the hierarchical data plane at "125m", full width and
+   depth, batch 8: four groups in two domains (``HIER_DOMAINS``: rack0 =
+   {g0, g1}, rack1 = {g2, g3}) over ``TcpCommContext(algorithm="star",
+   compression="int8", topology="hier")``, 4 lanes, 1 MiB chunks, DDP with
+   error feedback, each group's domain resolved through a
+   ``DomainTopology`` over the drill's domain tree. Steps 1-3 joint; group
+   2, rack1's egress, is killed; steps 4-5 commit with rack1 = {g3} (its
+   egress, no intra tier); g2 restarts from a poisoned init, heals at 6;
+   7-8 joint. All live groups must be bitwise equal at every committed
+   step; each life's ``comm_inter_bytes`` must be non-zero only on its
+   egress steps and equal ``codec_wire_nbytes`` of its contribution,
+   ``comm_intra_bytes`` zero in a singleton domain, ``comm_hops`` 4 per
+   op in a two-member domain and 2 in a singleton; ``ddp_ef`` only on the
+   compensable roles (rack1's egress); step 2's bucket ops of every group
+   bitwise equal to the port's ``_host_hier_allreduce`` of the recorded
+   contributions. Then, at each distinct bucket size, the card plane's
+   hier arms in the same 2x2 layout: ``CudaCommContext(topology="hier",
+   compression="int8")`` with "star" bitwise equal to the TCP hier path and
+   to ``DevicePool("cpu")``, with "psum" identical on every rank and within
+   ``HIER_PSUM_TOL`` x absmax of the f64 sum; the codec kernels must have
+   launched 3 times each per distinct size (star 2, psum 1). It first
+   checks the host's free memory (``hier_host_bytes``).
+10. train_durable: the reference training loop whole, at "125m" full width
    and depth, batch 8, over TCP under a lighthouse granting 2 s epoch
    leases (``run_resume_drill``): group 0 commits 3 steps alone, each a
    fused step replaying one CUDA graph; group 1 starts from a poisoned
@@ -1419,7 +1441,8 @@ def localsgd_host_bytes(n_params: int, groups: int = LOCALSGD_GROUPS) -> int:
     return (groups * 8 + 6) * 4 * n_params
 
 
-def check_host_memory(need: int, meminfo: str = "/proc/meminfo") -> int:
+def check_host_memory(need: int, meminfo: str = "/proc/meminfo",
+                      what: str = "train_localsgd_int8") -> int:
     """The host's available memory (``MemAvailable``); fails with both
     figures if less than ``need``."""
     with open(meminfo) as f:
@@ -1427,7 +1450,7 @@ def check_host_memory(need: int, meminfo: str = "/proc/meminfo") -> int:
     free = int(fields["MemAvailable"].split()[0]) * 1024
     if free < need:
         raise AssertionError(
-            f"train_localsgd_int8 needs {need / 1e9:.2f} GB of host memory "
+            f"{what} needs {need / 1e9:.2f} GB of host memory "
             f"available, has {free / 1e9:.2f} GB")
     return free
 
@@ -1520,6 +1543,272 @@ def phase_train_localsgd_int8(seed: int, card: str, batch: int = 8):
     return result["passes"] * cfg.n_layers, codec, result
 
 
+# train_hier_int8: four groups in two domains over the hierarchical TCP
+# wire, int8 across domains, error feedback on the compensable egress
+HIER_DOMAINS = {"rack0": [0, 1], "rack1": [2, 3]}
+HIER_OPTIONS = {"algorithm": "star", "compression": "int8",
+                "topology": "hier", "channels": 4, "chunk_bytes": CHUNK_BYTES}
+# (kill_step, steps_alone, steps_after, kill_group, record_step): steps 1-3
+# joint, group 2 (rack1's egress) killed, 4-5 with rack1 = {g3}, the heal
+# at 6, 7-8 joint; step 2's bucket ops recorded
+HIER_SCHEDULE = (3, 2, 2, 2, 2)
+# the codec kernels a hier op launches per bucket on the card plane:
+# star: the encode/decode of the non-root domain sums and the root's
+# re-encode; psum: one encode of the egress rows, one decode-accumulate
+HIER_LAUNCHES = {"star": 2, "psum": 1}
+# the card plane's psum arm against the f64 sum: one quantization of each
+# domain's sum (tests/test_hier_topology.py's envelope)
+HIER_PSUM_TOL = 3 / 100
+# the device train_hier_int8 trains on and runs the card plane's arms on
+# (the CPU tests move it)
+HIER_DEVICE = "cuda"
+
+
+def hier_host_bytes(n_params: int, groups: int = 4) -> int:
+    """Host memory train_hier_int8 may hold at once, in f32 copies of the
+    parameters: per group the pinned staging, the error-feedback residual,
+    the broadcast's landing and wire scratch (4); the recorded step's
+    inputs and outputs of every group (8); the heal's staged state on both
+    ends (6); the host oracle's domain sums and result (4)."""
+    return (groups * 4 + 18) * 4 * n_params
+
+
+def _hier_roles(step: int, group: int) -> "tuple[int, bool]":
+    """(members of the group's domain, is its egress) at a step of the
+    drill's schedule."""
+    k, s_alone, _, killed, _ = HIER_SCHEDULE
+    domain = next(d for d, gs in HIER_DOMAINS.items() if group in gs)
+    alive = [g for g in HIER_DOMAINS[domain]
+             if not (g == killed and k < step <= k + s_alone)]
+    return len(alive), group == min(alive)
+
+
+def check_hier_drill(result: dict, cfg, card: str) -> list:
+    """The drill's checks, raising on any miss, and its report lines: the
+    groups bitwise equal at every committed step, each life's tier
+    counters against the schedule (``comm_inter_bytes`` only on egress
+    steps, equal to ``codec_wire_nbytes`` of the contribution;
+    ``comm_intra_bytes`` zero in a singleton domain; ``comm_hops`` 4 per op
+    in a two-member domain and 2 in a singleton), error feedback on the
+    compensable roles only, and the recorded step against the port's
+    ``_host_hier_allreduce``."""
+    import numpy as np
+
+    from torchft_tpu_torch.comm.cuda_backend import _host_hier_allreduce
+    from torchft_tpu_torch.comm.transport import (
+        codec_wire_nbytes,
+        make_wire_codec,
+    )
+
+    k, s_alone, after, killed, record_step = HIER_SCHEDULE
+    total = k + s_alone + 1 + after
+    want = {s: (3 if k < s <= k + s_alone else 4)
+            for s in range(1, total + 1)}
+    if result["compared"] != want:
+        raise AssertionError(f"groups bitwise equal per step "
+                             f"{result['compared']}, the schedule has {want}")
+    lines = [f"  groups bitwise equal at every committed step "
+             f"{result['compared']}; group {killed} healed at step "
+             f"{result['heal_step']}, bitwise equal to its donor from then"]
+    codec = make_wire_codec("int8")
+    buckets = result["runs"][0].buckets
+    raw_step = float(sum(4 * b for b in buckets))
+    enc_step = float(sum(codec_wire_nbytes(codec, CHUNK_BYTES,
+                                           np.zeros(b, np.float32))
+                         for b in buckets))
+    for g, lives in sorted(result["lives"].items()):
+        for life, run in enumerate(lives):
+            steps = sorted(run.participants)
+            if run.wire_steps != len(steps):
+                raise AssertionError(f"group {g} life {life}: "
+                                     f"{run.wire_steps} wire steps of "
+                                     f"{len(steps)} committed")
+            roles = [_hier_roles(s, g) for s in steps]
+            want_ctr = {
+                "comm_intra_bytes": sum(raw_step for m, _ in roles if m > 1),
+                "comm_inter_bytes": sum(enc_step for _, e in roles if e),
+                "comm_hops": sum(len(buckets) * (2.0 * (m > 1) + 2.0)
+                                 for m, _ in roles),
+            }
+            got = {c: run.metrics.get(c, 0.0) for c in want_ctr}
+            if got != want_ctr:
+                raise AssertionError(f"group {g} life {life} tier counters "
+                                     f"{got}, the schedule gives {want_ctr}")
+            # compensable: an egress outside domain 0 (the inter root),
+            # in a step it contributes real gradients (not its heal step)
+            healing = set(run.healed_at)
+            ef = any(e and g not in HIER_DOMAINS["rack0"]
+                     for s, (_, e) in zip(steps, roles) if s not in healing)
+            if ("ddp_ef_p50_ms" in run.metrics) != ef:
+                raise AssertionError(f"group {g} life {life}: ddp_ef "
+                                     f"{'missing' if ef else 'present'}")
+            lines.append(
+                f"  group {g} life {life}: steps {steps[0]}-{steps[-1]}, "
+                f"comm_intra_bytes {got['comm_intra_bytes']:.0f}, "
+                f"comm_inter_bytes {got['comm_inter_bytes']:.0f} "
+                f"({got['comm_inter_bytes'] / max(1.0, raw_step * len(steps)):.3f}"
+                f" of raw), comm_hops {got['comm_hops']:.0f} "
+                f"({got['comm_hops'] / (len(buckets) * len(steps)):.2f} per "
+                f"op), error feedback {'on' if ef else 'off'} ({card})")
+    recorded = {g: lives[0].recorded for g, lives in result["lives"].items()}
+    groups = tuple(tuple(gs) for _, gs in sorted(HIER_DOMAINS.items()))
+    ops = sorted(recorded[0])
+    if len(ops) != len(buckets) or any(sorted(r) != ops
+                                       for r in recorded.values()):
+        raise AssertionError(f"recorded ops {[sorted(r) for r in recorded.values()]}"
+                             f", want {len(buckets)} per group")
+    for op in ops:
+        want_out = _host_hier_allreduce(
+            [[a.copy() for a in recorded[g][op][0]] for g in sorted(recorded)],
+            "int8", CHUNK_BYTES, "sum", groups, len(recorded))
+        for g in sorted(recorded):
+            for got_a, w in zip(recorded[g][op][1], want_out):
+                if got_a.tobytes() != w.tobytes():
+                    raise AssertionError(
+                        f"step {record_step} bucket op {op}: group {g} "
+                        "differs from _host_hier_allreduce")
+    lines.append(f"  step {record_step}: {len(ops)} bucket ops of every "
+                 f"group bitwise equal to _host_hier_allreduce of the "
+                 f"recorded contributions ({card})")
+    return lines
+
+
+def check_hier_planes(sizes, seed: int, card: str) -> "tuple[list, int]":
+    """The card plane's hier arms against the TCP hier path at each
+    distinct bucket size, in the drill's 2x2 layout: ``CudaCommContext(
+    topology="hier", compression="int8")`` with algorithm "star" bitwise
+    equal to four TCP hier contexts and to the same plane on
+    ``DevicePool("cpu")``; with "psum", identical on every rank and within
+    ``HIER_PSUM_TOL * absmax`` of the f64 sum. Returns the report lines and
+    the launches of each codec kernel the card arms make."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from torchft_tpu_torch.comm.context import ReduceOp
+    from torchft_tpu_torch.comm.cuda_backend import CudaCommContext, DevicePool
+    from torchft_tpu_torch.comm.store import StoreServer
+    from torchft_tpu_torch.comm.topology import DomainTopology
+    from torchft_tpu_torch.comm.transport import TcpCommContext
+
+    world = 4
+    smap = {d: [f"rank{g}" for g in gs] for d, gs in HIER_DOMAINS.items()}
+    opts = {k: v for k, v in HIER_OPTIONS.items()
+            if k not in ("algorithm", "channels")}
+    pools = {"card": DevicePool(HIER_DEVICE), "cpu": DevicePool("cpu")}
+    rng = np.random.default_rng(seed)
+    lines = []
+    launches = 0
+
+    def cohort(make, tag, grads):
+        ctxs = [make() for _ in range(world)]
+
+        def worker(r):
+            ctxs[r].configure(tag, r, world)
+            w = ctxs[r].allreduce([grads[r].copy()], ReduceOp.SUM)
+            return w.future().result(timeout=300)[0]
+
+        try:
+            with ThreadPoolExecutor(world) as ex:
+                return [f.result(600) for f in
+                        [ex.submit(worker, r) for r in range(world)]]
+        finally:
+            for c in ctxs:
+                c.shutdown()
+
+    store = StoreServer()
+    try:
+        for size in sorted(set(sizes)):
+            grads = [(rng.standard_normal(size) * 1e-3 * (r + 1))
+                     .astype(np.float32) for r in range(world)]
+            out = {"tcp": cohort(lambda: TcpCommContext(
+                timeout=300.0, channels=HIER_OPTIONS["channels"],
+                algorithm="star", domain_resolver=DomainTopology(
+                    static_map=smap), **opts),
+                f"{store.addr}/hier{size}", grads)}
+            for name, pool in pools.items():
+                for algo in ("star", "psum"):
+                    out[f"{name}/{algo}"] = cohort(
+                        lambda: CudaCommContext(
+                            timeout=300.0, algorithm=algo, device_pool=pool,
+                            domain_resolver=DomainTopology(static_map=smap),
+                            **opts),
+                        f"smoke://hier{size}/{name}/{algo}", grads)
+            launches += sum(HIER_LAUNCHES.values())
+            star = all(a.tobytes() == b.tobytes() == c.tobytes()
+                       for a, b, c in zip(out["card/star"], out["tcp"],
+                                          out["cpu/star"]))
+            psum = out["card/psum"]
+            exact = np.sum(grads, axis=0, dtype=np.float64)
+            absmax = float(max(np.abs(g).max() for g in grads))
+            err = float(np.abs(psum[0].astype(np.float64) - exact).max())
+            same = len({p.tobytes() for p in psum}) == 1
+            ok_psum = same and err <= HIER_PSUM_TOL * absmax
+            lines.append(
+                f"  bucket of {size} f32: card hier star vs TCP hier and "
+                f"CPU plane bitwise {'ok' if star else 'FAIL'}; card hier "
+                f"psum identical on every rank {same}, max |err| "
+                f"{err:.3e} <= {HIER_PSUM_TOL} x absmax {absmax:.3e}: "
+                f"{'ok' if ok_psum else 'FAIL'} ({card})")
+            if not (star and ok_psum):
+                raise AssertionError("\n".join(lines))
+    finally:
+        store.shutdown()
+    return lines, launches
+
+
+def phase_train_hier_int8(seed: int, card: str, batch: int = 8):
+    """The hierarchical drill (module docstring, phase 9): returns the
+    flash kernels' launches, the codec kernels' launches and the result."""
+    from torchft_tpu_torch.examples.train_ddp import run_kill_and_heal
+    from torchft_tpu_torch.models import CONFIGS, GPT, count_params
+
+    cfg = CONFIGS["125m"]
+    n_params = count_params(GPT(cfg, device="meta"))
+    need = hier_host_bytes(n_params)
+    free = check_host_memory(need, what="train_hier_int8")
+    log(f"  125m: {n_params} parameters, batch {batch}, 4 groups in "
+        f"domains {HIER_DOMAINS} over TCP {HIER_OPTIONS}; host memory: up "
+        f"to {need / 1e9:.2f} GB, {free / 1e9:.1f} GB available")
+    k, s_alone, after, killed, record_step = HIER_SCHEDULE
+    t0 = time.perf_counter()
+    result = run_kill_and_heal(
+        cfg, kill_step=k, steps_alone=s_alone, steps_after=after, groups=4,
+        kill_group=killed, domains=HIER_DOMAINS, record_step=record_step,
+        device=HIER_DEVICE, batch_size=batch, seed=seed, timeout=300.0,
+        log=lambda m: log("  " + m), comm_backend="host",
+        comm_options=HIER_OPTIONS)
+    log(f"  drill {time.perf_counter() - t0:.1f} s ({card})")
+    for line in check_hier_drill(result, cfg, card):
+        log(line)
+    lives = result["lives"]
+    phases = ("quorum", "forward_backward", "ddp_d2h", "ddp_ef", "ddp_wire",
+              "ddp_h2d", "commit_barrier", "comm_op_wire")
+    for g, runs in sorted(lives.items()):
+        for life, run in enumerate(runs):
+            log(f"  group {g} life {life} phase p50 ms "
+                f"{_p50s(run.metrics, phases)} ({card})")
+    healed = lives[killed][-1].metrics
+    log(f"  heal of group {killed}: wall {healed.get('heal_wall_ms', 0):.1f} "
+        f"ms, wire {healed.get('heal_bytes_per_s', 0) / 1e9:.3f} GB/s "
+        f"({card})")
+    runs = result["runs"]
+    tokens = batch * cfg.max_seq_len
+    rates = {s: round(tokens * len(runs) / max(r.step_seconds[s]
+                                               for r in runs.values()))
+             for s in result["checked_steps"][1:]}
+    log(f"  committed tokens/s, 4 groups sharing the card, joint steps "
+        f"after the heal: {rates} ({card})")
+    lines, per_kernel = check_hier_planes(runs[0].buckets, seed, card)
+    for line in lines:
+        log(line)
+    log(f"  {len(set(runs[0].buckets))} distinct bucket sizes x (star "
+        f"{HIER_LAUNCHES['star']} + psum {HIER_LAUNCHES['psum']}) = "
+        f"{per_kernel} of each codec kernel; forward/backward passes: "
+        f"{result['passes']}")
+    return result["passes"] * cfg.n_layers, per_kernel, result
+
+
 def _check_launches(counts, want, what: str) -> None:
     log(f"  kernel launches on the main path: {counts} (want {want})")
     if counts != want:
@@ -1528,7 +1817,8 @@ def _check_launches(counts, want, what: str) -> None:
 
 
 PHASES = ("kernels", "train", "train_cuda_int8", "train_tiny", "gpt_1b",
-          "train_diloco", "train_localsgd_int8", "train_durable")
+          "train_diloco", "train_localsgd_int8", "train_hier_int8",
+          "train_durable")
 
 
 def _add_launches(rows: dict, counts: dict, head_dim: int) -> None:
@@ -1659,6 +1949,17 @@ def main() -> int:
                                  **{n: codec for n in quant.LAUNCHES}},
                         "flash: one per layer per pass; codec: 2 per "
                         "fragment op with a peer")
+        _add_launches(rows, counts, CONFIGS["125m"].head_dim)
+    if "train_hier_int8" in phases:
+        log("phase train_hier_int8")
+        flash.reset_launch_counts()
+        quant.reset_launch_counts()
+        want, codec, _ = phase_train_hier_int8(args.seed, smi)
+        counts = {**flash.LAUNCHES, **quant.LAUNCHES}
+        _check_launches(counts, {**{n: want for n in flash.LAUNCHES},
+                                 **{n: codec for n in quant.LAUNCHES}},
+                        "flash: one per layer per pass; codec: the card "
+                        "plane's hier arms at each distinct bucket size")
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
     if "train_durable" in phases:
         log("phase train_durable")

@@ -12,7 +12,10 @@ it prints, read off a run of the same drill at "tiny" on the CPU. For
 ``train_diloco`` and ``train_localsgd_int8``: the host memory the second
 needs at 125m, the failure when it is short, and both phases whole, run
 at "tiny" on the CPU (their drills' schedules, reports and the CPU plane
-check).
+check). For ``train_hier_int8``: the host memory it needs at 125m, the
+roles of its schedule, the phase whole at "tiny" on the CPU (the card
+plane's arms on a CPU pool), and its checks failing a drill whose counter
+or recorded step is wrong.
 """
 
 import importlib.util
@@ -152,7 +155,8 @@ def test_flash_shapes_reach_every_head_dim() -> None:
             {(w, shape) for w, shape, _ in shapes}
     assert smoke.PHASES == ("kernels", "train", "train_cuda_int8",
                             "train_tiny", "gpt_1b", "train_diloco",
-                            "train_localsgd_int8", "train_durable")
+                            "train_localsgd_int8", "train_hier_int8",
+                            "train_durable")
     assert all(n in {k for k, v in GPT(CONFIGS["1b"], device="meta")
                      .named_parameters()} for n in smoke.GRAD_SAMPLE)
 
@@ -312,3 +316,87 @@ def test_outer_sync_phases_run_at_tiny_on_the_cpu(monkeypatch,
         assert text.count("card plane vs CPU plane bitwise ok") == 2
     else:
         assert passes == 40 + 19 + 16
+
+
+def test_hier_host_bytes_at_125m() -> None:
+    smoke = _smoke()
+    n = 136091136
+    # 4 groups x 4 f32 copies, the recorded step (8), the heal (6) and the
+    # host oracle (4)
+    assert smoke.hier_host_bytes(n) == (4 * 4 + 18) * 4 * n
+    assert smoke.PHASES.index("train_hier_int8") == len(smoke.PHASES) - 2
+
+
+def test_hier_roles_follow_the_schedule() -> None:
+    smoke = _smoke()
+    k, s_alone, _, killed, _ = smoke.HIER_SCHEDULE
+    assert killed in smoke.HIER_DOMAINS["rack1"]
+    assert smoke._hier_roles(1, 0) == (2, True)
+    assert smoke._hier_roles(1, 1) == (2, False)
+    assert smoke._hier_roles(k, 2) == (2, True)
+    assert smoke._hier_roles(k + 1, 3) == (1, True)  # rack1 = {g3}
+    assert smoke._hier_roles(k + s_alone, 3) == (1, True)
+    assert smoke._hier_roles(k + s_alone + 1, 3) == (2, False)
+    assert smoke._hier_roles(k + s_alone + 1, 2) == (2, True)
+
+
+def test_train_hier_int8_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # the phase as the card runs it, moved to "tiny" on the CPU: the drill's
+    # schedule, bitwise steps, tier counters, error-feedback roles and the
+    # recorded step against _host_hier_allreduce, then the plane arms (the
+    # "card" pool on the CPU) against the TCP hier path
+    import torchft_tpu_torch.examples.train_ddp as example
+    import torchft_tpu_torch.models as models
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    monkeypatch.setattr(smoke, "HIER_DEVICE", "cpu")
+    monkeypatch.setitem(models.CONFIGS, "125m", CONFIGS["tiny"])
+    drill = example.run_kill_and_heal
+    monkeypatch.setattr(example, "run_kill_and_heal", lambda cfg, **kw: drill(
+        cfg, **dict(kw, batch_size=2, timeout=30.0)))
+    flash_launches, codec, result = smoke.phase_train_hier_int8(0, "CPU")
+    # 4 groups x 8 steps - 2 steps alone
+    assert result["passes"] == 30
+    assert flash_launches == 30 * CONFIGS["tiny"].n_layers
+    buckets = result["runs"][0].buckets
+    assert codec == 3 * len(set(buckets))
+    text = "\n".join(lines)
+    assert "bitwise equal to _host_hier_allreduce" in text
+    assert text.count("card hier star vs TCP hier and CPU plane bitwise "
+                      "ok") == len(set(buckets))
+    assert "error feedback on" in text and "heal of group 2" in text
+    for g in range(4):
+        assert f"group {g} life 0 phase p50 ms" in text
+    assert "group 2 life 1" in text and "committed tokens/s" in text
+
+
+def test_check_hier_drill_catches_a_wrong_counter() -> None:
+    # a drill whose egress counted its inter bytes twice must fail
+    import copy
+
+    import numpy as np
+
+    from torchft_tpu_torch.examples.train_ddp import run_kill_and_heal
+
+    smoke = _smoke()
+    k, s_alone, after, killed, record = smoke.HIER_SCHEDULE
+    result = run_kill_and_heal(
+        CONFIGS["tiny"], kill_step=k, steps_alone=s_alone, steps_after=after,
+        groups=4, kill_group=killed, domains=smoke.HIER_DOMAINS,
+        record_step=record, device="cpu", batch_size=2, timeout=30.0,
+        comm_backend="host", comm_options=smoke.HIER_OPTIONS)
+    assert smoke.check_hier_drill(result, CONFIGS["tiny"], "CPU")
+    bad = copy.copy(result)
+    bad["lives"] = copy.deepcopy(result["lives"])
+    bad["lives"][0][0].metrics["comm_inter_bytes"] *= 2
+    with pytest.raises(AssertionError, match="tier counters"):
+        smoke.check_hier_drill(bad, CONFIGS["tiny"], "CPU")
+    bad = copy.copy(result)
+    bad["lives"] = copy.deepcopy(result["lives"])
+    op = sorted(bad["lives"][1][0].recorded)[0]
+    out = bad["lives"][1][0].recorded[op][1][0]
+    out[0] = np.nextafter(out[0], np.float32(np.inf))
+    with pytest.raises(AssertionError, match="_host_hier_allreduce"):
+        smoke.check_hier_drill(bad, CONFIGS["tiny"], "CPU")

@@ -25,7 +25,10 @@ eagerly bitwise, over 3 steps, across a heal's in-place load and across a
 load that replaces the optimizer's tensors (a re-capture), also while
 another thread keeps launching; its replays count the flash launches the
 capture recorded, and a capture holds while another thread runs eager
-steps, the codec kernels and stream syncs. This file imports no
+steps, the codec kernels and stream syncs. The hierarchical plane
+(``CudaCommContext(topology="hier")``) runs through the codec kernels on
+the card bitwise with the CPU plane and ``_host_hier_allreduce`` (star),
+and within its bound (psum). This file imports no
 JAX, so it runs where only torch is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -309,6 +312,86 @@ def test_device_plane_on_card_equals_cpu_plane(world) -> None:
                         assert c.tobytes() == h.tobytes(), tag
     # psum int8: 2 launches of each kernel per array per allreduce (2 ops)
     assert quant.LAUNCHES["quant_int8"] >= 2 * 2 * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["2x2", "uneven"])
+def test_hier_plane_on_card(layout) -> None:
+    """``CudaCommContext(topology="hier")`` through the kernels on the card:
+    the star composition bitwise equal to the same plane on the CPU and to
+    ``_host_hier_allreduce`` at every codec, with 2 launches of each codec
+    kernel per f32 array per int8 op; the psum composition identical on
+    every rank, within 3 * absmax / 100 of the f64 sum (int8), with 1
+    launch of each per array."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchft_tpu_torch.comm.context import ReduceOp
+    from torchft_tpu_torch.comm.cuda_backend import (
+        CudaCommContext,
+        DevicePool,
+        _host_hier_allreduce,
+    )
+    from torchft_tpu_torch.comm.topology import DomainTopology
+
+    _cuda()
+    smap, groups = {
+        "2x2": ({"d0": ["rank0", "rank1"], "d1": ["rank2", "rank3"]},
+                ((0, 1), (2, 3))),
+        "uneven": ({"d0": ["rank0", "rank2"], "d1": ["rank1"],
+                    "d2": ["rank3"]}, ((0, 2), (1,), (3,))),
+    }[layout]
+    rng = np.random.default_rng(7)
+    inputs = [[(rng.standard_normal(5000) * (r + 1)).astype(np.float32),
+               rng.standard_normal(257).astype(np.float32)]
+              for r in range(4)]
+    pools = {"cuda": DevicePool("cuda"), "cpu": DevicePool("cpu")}
+
+    def run(device, algo, codec, op):
+        ctxs = [CudaCommContext(timeout=30.0, algorithm=algo,
+                                compression=codec, chunk_bytes=1 << 12,
+                                device_pool=pools[device], topology="hier",
+                                domain_resolver=DomainTopology(
+                                    static_map=smap))
+                for _ in range(4)]
+
+        def worker(r):
+            ctxs[r].configure(f"card://hier/{layout}/{device}/{algo}/"
+                              f"{codec}/{op}", r, 4)
+            w = ctxs[r].allreduce([a.copy() for a in inputs[r]], op)
+            return [np.array(a) for a in w.future().result(timeout=30)]
+
+        try:
+            with ThreadPoolExecutor(4) as ex:
+                return [f.result(60) for f in
+                        [ex.submit(worker, r) for r in range(4)]]
+        finally:
+            for c in ctxs:
+                c.shutdown()
+
+    for codec in ("none", "bf16", "fp16", "int8"):
+        for op in (ReduceOp.SUM, ReduceOp.AVG):
+            quant.reset_launch_counts()
+            card = run("cuda", "star", codec, op)
+            if codec == "int8":
+                assert quant.LAUNCHES == {"quant_int8": 4,
+                                          "dequant_acc_int8": 4}
+            host = run("cpu", "star", codec, op)
+            want = _host_hier_allreduce(
+                [[a.copy() for a in per] for per in inputs], codec, 1 << 12,
+                op, groups, 4)
+            for c_r, h_r in zip(card, host):
+                for c, h, w in zip(c_r, h_r, want):
+                    assert c.tobytes() == h.tobytes() == w.tobytes(), (
+                        codec, op)
+    quant.reset_launch_counts()
+    psum = run("cuda", "psum", "int8", ReduceOp.SUM)
+    assert quant.LAUNCHES == {"quant_int8": 2, "dequant_acc_int8": 2}
+    for j in range(2):
+        assert len({r[j].tobytes() for r in psum}) == 1
+        exact = np.sum([per[j] for per in inputs], axis=0, dtype=np.float64)
+        absmax = max(float(np.abs(per[j]).max()) for per in inputs)
+        assert float(np.abs(psum[0][j] - exact).max()) <= 3 * absmax / 100
 
 
 # the 125m drill's DDP bucket sizes (tests/test_torch_chip_smoke.py)

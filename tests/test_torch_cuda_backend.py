@@ -16,7 +16,11 @@ the card). Oracles, all bitwise unless stated:
   against the reference's DDP over its ``TcpCommContext(star, int8)``:
   averaged gradients and residuals;
 - plan counters across kill -> reform, lifecycle failures, capability
-  surface, counters and the Manager's selector.
+  surface, counters and the Manager's selector;
+- ``topology="hier"``: the star composition against both packages'
+  ``_host_hier_allreduce`` and the TCP hier path (bitwise), the psum
+  composition within ``3 * absmax / 100`` of the f64 sum and identical on
+  every rank, divergent assignments, roles, tier counters, plan cache.
 """
 
 from __future__ import annotations
@@ -35,6 +39,9 @@ from torchft_tpu.comm.transport import (
     codec_roundtrip as ref_codec_roundtrip,
 )
 from torchft_tpu.comm.xla_backend import _host_allreduce as ref_host_allreduce
+from torchft_tpu.comm.xla_backend import (
+    _host_hier_allreduce as ref_host_hier_allreduce,
+)
 from torchft_tpu_torch.comm.context import (
     DummyCommContext,
     ErrorSwallowingCommContext,
@@ -43,10 +50,12 @@ from torchft_tpu_torch.comm.context import (
 from torchft_tpu_torch.comm.cuda_backend import (
     CudaCommContext,
     DevicePool,
+    _host_hier_allreduce,
     default_device_pool,
     device_codec_roundtrip,
 )
 from torchft_tpu_torch.comm.store import StoreServer
+from torchft_tpu_torch.comm.topology import DomainTopology
 from torchft_tpu_torch.comm.transport import (
     _CODECS,
     TcpCommContext,
@@ -581,16 +590,23 @@ def test_capability_surface_and_labels(pool) -> None:
     assert CudaCommContext.supports("psum", "none", ReduceOp.MAX)
     assert "unknown algorithm" in CudaCommContext.unsupported_reason(
         "tree", "none")
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 2"):
-        CudaCommContext(topology="hier", device_pool=pool)
+    # the hierarchical tier: star/auto/psum compose it, the ring inter
+    # tier is a host-plane arm
+    CudaCommContext(topology="hier", device_pool=pool)
+    assert CudaCommContext.supports("psum", "int8", topology="hier")
+    assert "host" in CudaCommContext.unsupported_reason(
+        "ring", "none", topology="hier")
+    assert "unknown topology" in CudaCommContext.unsupported_reason(
+        "star", "none", topology="tree")
     with pytest.raises(ValueError, match="unknown compression"):
         CudaCommContext(compression="zstd", device_pool=pool)
-    # the TCP wire: no psum, raw values only
+    # the TCP wire: no psum; every codec on both tiers
     assert not TcpCommContext.supports("psum", "none")
     assert "cuda" in TcpCommContext.unsupported_reason("psum", "none")
-    assert not TcpCommContext.supports("star", "int8")
-    with pytest.raises(ValueError, match="raw values"):
-        TcpCommContext(compression="int8")
+    for codec in CODECS:
+        assert TcpCommContext.supports("star", codec)
+        assert TcpCommContext.supports("ring", codec, topology="hier")
+        TcpCommContext(compression=codec, topology="hier").shutdown()
     wrapped = ErrorSwallowingCommContext(
         CudaCommContext(algorithm="psum", compression="int8",
                         device_pool=pool))
@@ -789,3 +805,228 @@ def test_ddp_error_feedback_matches_reference_bitwise(pool) -> None:
     for g, w in zip(got[1][1], want[1][1]):
         assert g.tobytes() == w.tobytes()
     assert np.abs(got[1][1][1]).max() > 0  # the peer banked real error
+
+
+# ------------------------------------------------- the hierarchical tier
+# CudaCommContext(topology="hier") on DevicePool("cpu"): the star
+# composition bitwise with the port's and the reference's
+# _host_hier_allreduce and with the TCP hier path; the psum composition
+# within 3 * absmax / 100 of the f64 sum and identical on every rank;
+# divergent assignments fail fast; the error-feedback roles; the plan cache
+# across a kill and re-form; the tier counters.
+
+MAP_2X2 = {"d0": ["rank0", "rank1"], "d1": ["rank2", "rank3"]}
+MAP_UNEVEN = {"d0": ["rank0", "rank2"], "d1": ["rank1"], "d2": ["rank3"]}
+HIER_LAYOUTS = {"2x2": (MAP_2X2, ((0, 1), (2, 3))),
+                "uneven": (MAP_UNEVEN, ((0, 2), (1,), (3,)))}
+
+
+def _hier_inputs(seed, size=5000):
+    rng = np.random.default_rng(seed)
+    return [[(rng.standard_normal(size) * (r + 1)).astype(np.float32),
+             rng.standard_normal(300).astype(np.float32),
+             rng.standard_normal(64),                        # f64: host
+             rng.integers(-50, 50, 100).astype(np.int32)]
+            for r in range(4)]
+
+
+def _hier_cuda(pool, tag, codec, inputs, op, algorithm="star",
+               smap=MAP_2X2, timeout=30.0):
+    resolver = DomainTopology(static_map=smap)
+    ctxs = [CudaCommContext(timeout=timeout, algorithm=algorithm,
+                            compression=codec, chunk_bytes=CHUNK,
+                            device_pool=pool, topology="hier",
+                            domain_resolver=resolver) for _ in range(4)]
+
+    def body(ctx, rank):
+        w = ctx.allreduce([a.copy() for a in inputs[rank]], op)
+        return ([np.array(x) for x in w.future().result(timeout=30)],
+                ctx.metrics.snapshot(), ctx.wire_compensable())
+
+    try:
+        return _run_cohort(ctxs, f"cuda://{tag}", 4, body)
+    finally:
+        for c in ctxs:
+            c.shutdown()
+
+
+@pytest.mark.parametrize("layout", sorted(HIER_LAYOUTS))
+@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("op", [ReduceOp.SUM, ReduceOp.AVG, ReduceOp.MAX])
+def test_hier_star_bitwise_with_host_composition(pool, layout, codec,
+                                                 op) -> None:
+    smap, groups = HIER_LAYOUTS[layout]
+    inputs = _hier_inputs(31)
+    if op == ReduceOp.AVG:
+        inputs = [per[:3] for per in inputs]  # AVG takes floats only
+    got = _hier_cuda(pool, f"hs_{layout}_{codec}_{op}", codec, inputs, op,
+                     smap=smap)
+    want = _host_hier_allreduce([[a.copy() for a in per] for per in inputs],
+                                codec, CHUNK, op, groups, 4)
+    ref = ref_host_hier_allreduce(
+        [[a.copy() for a in per] for per in inputs], codec, CHUNK, op,
+        groups, 4)
+    for w, r in zip(want, ref):
+        assert w.tobytes() == r.tobytes()
+    for outs, _, _ in got:
+        for o, w in zip(outs, want):
+            assert o.dtype == w.dtype and o.tobytes() == w.tobytes()
+
+
+def test_hier_star_bitwise_with_tcp_hier_path(pool) -> None:
+    inputs = _hier_inputs(33)
+    store = StoreServer()
+    resolver = DomainTopology(static_map=MAP_2X2)
+    tcp = [TcpCommContext(timeout=30.0, algorithm="star", channels=2,
+                          compression="int8", chunk_bytes=CHUNK,
+                          topology="hier", domain_resolver=resolver)
+           for _ in range(4)]
+    try:
+        over_tcp = _run_cohort(tcp, f"{store.addr}/hier_tcp", 4,
+                               _allreduce_body(inputs, ReduceOp.SUM))
+    finally:
+        for c in tcp:
+            c.shutdown()
+        store.shutdown()
+    got = _hier_cuda(pool, "hs_tcp", "int8", inputs, ReduceOp.SUM)
+    for (outs, _, _), want in zip(got, over_tcp):
+        for o, w in zip(outs, want):
+            assert o.tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("codec", ["none", "bf16", "int8"])
+def test_hier_psum_numeric_and_cross_rank_identical(pool, codec) -> None:
+    inputs = [[per[0]] for per in _hier_inputs(35)]
+    exact = np.sum([per[0] for per in inputs], axis=0, dtype=np.float64)
+    absmax = float(max(np.abs(per[0]).max() for per in inputs))
+    got = _hier_cuda(pool, f"hp_{codec}", codec, inputs, ReduceOp.SUM,
+                     algorithm="psum")
+    assert len({outs[0].tobytes() for outs, _, _ in got}) == 1
+    err = float(np.abs(got[0][0][0].astype(np.float64) - exact).max())
+    # one quantization per domain sum: the reference test's envelope
+    assert err <= 3 * absmax / 100.0
+    if codec == "none":
+        assert err <= 1e-4 * absmax
+    # AVG divides in the same pass; extrema stay exact
+    avg = _hier_cuda(pool, f"hpa_{codec}", codec, inputs, ReduceOp.AVG,
+                     algorithm="psum")
+    assert len({outs[0].tobytes() for outs, _, _ in avg}) == 1
+    assert float(np.abs(avg[0][0][0] - exact / 4).max()) <= \
+        3 * absmax / 400.0
+    if codec == "none":
+        mx = _hier_cuda(pool, "hpm", codec, inputs, ReduceOp.MAX,
+                        algorithm="psum")
+        want = np.max([per[0] for per in inputs], axis=0)
+        assert mx[0][0][0].tobytes() == want.tobytes()
+
+
+def test_hier_counters_and_roles(pool) -> None:
+    inputs = [[per[0]] for per in _hier_inputs(37)]
+    raw = float(inputs[0][0].nbytes)
+    enc = float(codec_wire_nbytes(_CODECS["int8"](), CHUNK, inputs[0][0]))
+    star = _hier_cuda(pool, "hc_star", "int8", inputs, ReduceOp.SUM)
+    psum = _hier_cuda(pool, "hc_psum", "int8", inputs, ReduceOp.SUM,
+                      algorithm="psum")
+    # star fan-in: the d1 egress is compensable, the d0 egress is the root
+    assert [c for _, _, c in star] == [False, False, True, False]
+    assert [c for _, _, c in psum] == [True, False, True, False]
+    for rank, (_, snap, _) in enumerate(star):
+        assert snap["comm_intra_bytes"] == raw
+        assert snap["comm_inter_bytes"] == (enc if rank in (0, 2) else 0.0)
+        assert snap["comm_hops"] == 4.0
+    uneven = _hier_cuda(pool, "hc_uneven", "int8", inputs, ReduceOp.SUM,
+                        smap=MAP_UNEVEN)
+    for rank, (_, snap, _) in enumerate(uneven):
+        single = rank in (1, 3)
+        assert snap["comm_intra_bytes"] == (0.0 if single else raw)
+        assert snap["comm_hops"] == (2.0 if single else 4.0)
+        assert snap["comm_inter_bytes"] == (enc if rank != 2 else 0.0)
+
+
+def test_hier_divergent_assignments_fail_fast(pool) -> None:
+    ctxs = [CudaCommContext(
+        timeout=5.0, algorithm="star", chunk_bytes=CHUNK, device_pool=pool,
+        topology="hier", domain_resolver=DomainTopology(
+            static_map=MAP_2X2 if r == 0
+            else {"dX": [f"rank{i}" for i in range(4)]}))
+        for r in range(4)]
+
+    def body(ctx, rank):
+        w = ctx.allreduce([np.ones(16, np.float32)])
+        with pytest.raises(ConnectionError, match="divergent"):
+            w.future().result(timeout=20)
+        return ctx.errored() is not None
+
+    try:
+        assert all(_run_cohort(ctxs, "cuda://hier_div", 4, body))
+    finally:
+        for c in ctxs:
+            c.shutdown()
+
+
+def test_hier_plan_cache_pins_across_kill_reform() -> None:
+    own = DevicePool("cpu")
+    inputs = [[per[0][:512]] for per in _hier_inputs(39)]
+    _hier_cuda(own, "pin_a", "int8", inputs, ReduceOp.SUM)
+    assert own.compile_count == 1
+    hits = own.hit_count
+    _hier_cuda(own, "pin_b", "int8", inputs, ReduceOp.SUM)  # re-form
+    assert own.compile_count == 1 and own.hit_count > hits
+    # the kill: three ranks re-form over a new domain structure ...
+    resolver = DomainTopology(static_map=MAP_2X2)
+    ctxs = [CudaCommContext(timeout=30.0, algorithm="star",
+                            compression="int8", chunk_bytes=CHUNK,
+                            device_pool=own, topology="hier",
+                            domain_resolver=resolver) for _ in range(3)]
+    for c in ctxs:
+        c.set_wire_members(["rank0", "rank1", "rank3"])
+    try:
+        outs = _run_cohort(ctxs, "cuda://pin_c", 3,
+                           _allreduce_body(inputs[:2] + inputs[3:],
+                                           ReduceOp.SUM))
+    finally:
+        for c in ctxs:
+            c.shutdown()
+    assert own.compile_count == 2
+    want = _host_hier_allreduce([inputs[0], inputs[1], inputs[3]], "int8",
+                                CHUNK, ReduceOp.SUM, ((0, 1), (2,)), 3)
+    assert outs[0][0].tobytes() == want[0].tobytes()
+    # ... and the restart returns to a membership seen before: a hit
+    _hier_cuda(own, "pin_d", "int8", inputs, ReduceOp.SUM)
+    assert own.compile_count == 2
+
+
+def test_hier_per_op_override_and_flat_default(pool) -> None:
+    inputs = [[per[0]] for per in _hier_inputs(41)]
+    resolver = DomainTopology(static_map=MAP_2X2)
+    ctxs = [CudaCommContext(timeout=30.0, algorithm="star",
+                            chunk_bytes=CHUNK, device_pool=pool,
+                            domain_resolver=resolver) for _ in range(4)]
+
+    def body(ctx, rank):
+        hier = inputs[rank][0].copy()
+        ctx.allreduce([hier], topology="hier").future().result(timeout=30)
+        flat = inputs[rank][0].copy()
+        ctx.allreduce([flat]).future().result(timeout=30)
+        return hier.tobytes(), flat.tobytes(), ctx.wire_compensable()
+
+    try:
+        outs = _run_cohort(ctxs, "cuda://hier_override", 4, body)
+    finally:
+        for c in ctxs:
+            c.shutdown()
+    want = _host_hier_allreduce(inputs, "none", CHUNK, ReduceOp.SUM,
+                                ((0, 1), (2, 3)), 4)[0]
+    flat = _host_hier_allreduce(inputs, "none", CHUNK, ReduceOp.SUM,
+                                ((0, 1, 2, 3),), 4)[0]
+    for hier_b, flat_b, comp in outs:
+        assert hier_b == want.tobytes()
+        # the flat default at world 4 is the ring
+        assert np.allclose(np.frombuffer(flat_b, np.float32), flat,
+                           rtol=1e-5, atol=1e-5)
+        assert not comp
+    lossy = CudaCommContext(algorithm="star", compression="int8",
+                            device_pool=pool)
+    w = lossy.allreduce([np.ones(8, np.float32)], topology="hier")
+    with pytest.raises(ValueError, match="error-feedback"):
+        w.future().result(timeout=5)

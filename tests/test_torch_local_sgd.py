@@ -26,6 +26,7 @@ import torch
 
 from torchft_tpu.comm import StoreServer as JaxStoreServer
 from torchft_tpu.comm import TcpCommContext as JaxTcp
+from torchft_tpu.comm.topology import DomainTopology as JaxTopology
 from torchft_tpu.comm.wire import split_weighted as jax_split_weighted
 from torchft_tpu.comm.wire_stub import WireStubManager as JaxWireStub
 from torchft_tpu.local_sgd import DiLoCo as JaxDiLoCo
@@ -34,6 +35,8 @@ from torchft_tpu.local_sgd import fragment_boundaries as jax_boundaries
 from torchft_tpu_torch import optim as outer
 from torchft_tpu_torch.comm.context import CompletedWork, ReduceOp, Work
 from torchft_tpu_torch.comm.cuda_backend import CudaCommContext, DevicePool
+from torchft_tpu_torch.comm.topology import DomainTopology
+from torchft_tpu_torch.comm.transport import TcpCommContext
 from torchft_tpu_torch.comm.wire import split_weighted
 from torchft_tpu_torch.futures import future_chain
 from torchft_tpu_torch.local_sgd import (
@@ -145,8 +148,9 @@ class _PortWireStub:
     def wire_nbytes(self, a):
         return self._ctx.wire_nbytes(a)
 
-    def allreduce_arrays(self, arrays, op=ReduceOp.SUM):
-        work = self._ctx.allreduce(list(arrays), ReduceOp.SUM)
+    def allreduce_arrays(self, arrays, op=ReduceOp.SUM, topology=None):
+        work = self._ctx.allreduce(list(arrays), ReduceOp.SUM,
+                                   topology=topology)
         scale = np.float32(1.0 / self._world)
 
         def _avg(f):
@@ -817,6 +821,129 @@ def test_load_state_dict_leaf_count_mismatch_raises() -> None:
             {"backup": [np.zeros(96, np.float32)], "local_step": 0})
 
 
+# ------------------------------------------- the hierarchical outer sync
+
+HIER_MAP = {"d0": ["rank0", "rank1"], "d1": ["rank2", "rank3"]}
+
+
+def _hier_arm(kind, store, prefix, codec, outer_tx=None, rounds=2,
+              sync_every=4, fragments=2):
+    """Four ranks in two domains, the wrapper's fragments over
+    ``topology="hier"``: ``kind`` "port" (the port's wrapper over its
+    TcpCommContext), "cuda" (over its CudaCommContext on the CPU) or "jax"
+    (the JAX package's wrapper over its own). Per rank: the committed
+    parameters of each round, the EF residuals and the stub."""
+    world = 4
+    if kind == "jax":
+        resolver = JaxTopology(static_map=HIER_MAP)
+        ctxs = [JaxTcp(timeout=15.0, algorithm="star", channels=2,
+                       compression=codec, chunk_bytes=256, topology="hier",
+                       domain_resolver=resolver) for _ in range(world)]
+    elif kind == "port":
+        resolver = DomainTopology(static_map=HIER_MAP)
+        ctxs = [TcpCommContext(timeout=15.0, algorithm="star", channels=2,
+                               compression=codec, chunk_bytes=256,
+                               topology="hier", domain_resolver=resolver)
+                for _ in range(world)]
+    else:
+        resolver = DomainTopology(static_map=HIER_MAP)
+        pool = DevicePool("cpu")
+        ctxs = [CudaCommContext(timeout=15.0, algorithm="star",
+                                compression=codec, chunk_bytes=256,
+                                device_pool=pool, topology="hier",
+                                domain_resolver=resolver)
+                for _ in range(world)]
+    addr = (f"{store.addr}/{prefix}" if kind != "cuda"
+            else f"localsgd://{prefix}")
+    outs = [None] * world
+    steps = rounds * sync_every
+
+    def worker(rank):
+        ctxs[rank].configure(addr, rank, world)
+        incs = _increments(rank, steps)
+        per_round = []
+        if kind == "jax":
+            manager = _RecordingJaxStub(ctxs[rank], world)
+            cls = (JaxLocalSGD if outer_tx is None
+                   else lambda m, **kw: JaxDiLoCo(m, outer_tx[1](), **kw))
+            wrapper = cls(manager, sync_every=sync_every,
+                          num_fragments=fragments, topology="hier")
+            params = wrapper.register(_jax_params())
+            for t in range(steps):
+                params = {k: params[k] + incs[t][k] for k in params}
+                params = wrapper.step(params)
+                if wrapper.local_step == 0:
+                    per_round.append(_snap_jax(params))
+        else:
+            manager = _PortWireStub(ctxs[rank], world)
+            cls = (LocalSGD if outer_tx is None
+                   else lambda m, **kw: DiLoCo(m, outer_tx[0](), **kw))
+            wrapper = cls(manager, sync_every=sync_every,
+                          num_fragments=fragments, topology="hier")
+            params = _port_params()
+            wrapper.register(params)
+            for t in range(steps):
+                for k, p in zip(_KEYS, params):
+                    p.add_(torch.from_numpy(incs[t][k]))
+                wrapper.step()
+                if wrapper.local_step == 0:
+                    per_round.append(_snap_port(params))
+        residuals = (None if wrapper._ef_residuals is None
+                     else [r.copy() for r in wrapper._ef_residuals])
+        outs[rank] = (per_round, residuals, manager)
+
+    try:
+        with ThreadPoolExecutor(max_workers=world) as ex:
+            for f in [ex.submit(worker, r) for r in range(world)]:
+                f.result(timeout=120)
+    finally:
+        for c in ctxs:
+            c.shutdown()
+    return outs
+
+
+@pytest.mark.parametrize("codec", ["none", "bf16", "int8"])
+def test_localsgd_hier_bitwise_equals_reference(jax_store, codec) -> None:
+    # EF "auto" engages on the compensable egress alone (rank 2: the d1
+    # egress encodes into the inter fan-in), in both packages
+    ref = _hier_arm("jax", jax_store, f"hx_{codec}", codec)
+    for kind in ("port", "cuda"):
+        got = _hier_arm(kind, jax_store, f"h{kind}_{codec}", codec)
+        for rank in range(4):
+            _assert_rounds_equal(got[rank][0], ref[rank][0],
+                                 f"{kind} {codec} rank {rank}")
+            g_res, w_res = got[rank][1], ref[rank][1]
+            assert (g_res is None) == (w_res is None), (kind, rank)
+            if w_res is not None:
+                for g, w in zip(g_res, w_res):
+                    assert g.tobytes() == w.tobytes(), (kind, rank)
+            if codec != "none":
+                # only the compensable egress keeps a residual that moved
+                moved = g_res is not None and any(np.any(r != 0)
+                                                  for r in g_res)
+                assert moved == (rank == 2), (kind, codec, rank)
+    for rank in range(1, 4):  # every rank commits the same state
+        _assert_rounds_equal(ref[rank][0], ref[0][0], f"rank {rank}")
+
+
+@pytest.mark.parametrize("codec", ["none", "bf16", "int8"])
+def test_diloco_hier_matches_reference(jax_store, codec) -> None:
+    # outer sgd(1.0) has no state: every round's averaged pseudogradients
+    # are bitwise; the outer step itself is held to OUTER_TOL, as above
+    tx = (lambda: outer.sgd(1.0), lambda: optax.sgd(1.0))
+    got = _hier_arm("port", jax_store, f"dh_{codec}", codec, outer_tx=tx)
+    ref = _hier_arm("jax", jax_store, f"dhx_{codec}", codec, outer_tx=tx)
+    for rank in range(4):
+        g_avg, w_avg = got[rank][2].reduced, ref[rank][2].reduced
+        assert len(g_avg) == len(w_avg) == 4  # 2 fragments x 2 rounds
+        for g, w in zip(g_avg, w_avg):
+            assert g.tobytes() == w.tobytes(), (codec, rank)
+        for t, (g, w) in enumerate(zip(got[rank][0], ref[rank][0])):
+            for k in _KEYS:
+                np.testing.assert_allclose(g[k], w[k], **OUTER_TOL,
+                                           err_msg=f"round {t} {k}")
+
+
 def test_outer_pools_are_split() -> None:
     assert _outer_executor("ef") is not _outer_executor("land")
     assert _outer_executor("land") is _outer_executor("land")
@@ -833,7 +960,6 @@ def test_num_fragments_validation() -> None:
 
 @pytest.mark.parametrize("kwargs,entry", [
     ({"sharded_outer": True}, "queue 1 item 9"),
-    ({"topology": "hier"}, "queue 1 item 2"),
 ])
 def test_unported_arms_refused_with_their_roadmap_entry(kwargs,
                                                         entry) -> None:

@@ -2,8 +2,10 @@
 
 Twins of the manager cases of tests/test_manager.py over real servers:
 allreduce scaling by participants, the error latch and its commit veto,
-the solo-wire identity, the required quorum floor, and DDP's frozen
-bucket plan.
+the solo-wire identity, the required quorum floor, DDP's frozen bucket
+plan, ``reduce_scatter_arrays``/``allgather_arrays`` across two groups,
+and the ``topology`` keyword forwarded (only when set) through the
+Manager, its wrappers and DDP.
 """
 
 import threading
@@ -214,3 +216,119 @@ def test_bucket_plan_is_frozen_and_dtype_grouped() -> None:
     ddp._get_plan(params)
     with pytest.raises(ValueError, match="frozen"):
         ddp._get_plan([torch.zeros(11)])
+
+
+class _RecordingComm(DummyCommContext):
+    """An identity context that records the keywords each collective got."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def allreduce(self, arrays, op=ReduceOp.SUM, **kw):
+        self.calls.append(("allreduce", op, kw))
+        return super().allreduce(arrays, op)
+
+    def reduce_scatter(self, arrays, op=ReduceOp.SUM, owners=None):
+        self.calls.append(("reduce_scatter", op, {"owners": owners}))
+        return super().reduce_scatter(arrays, op, owners)
+
+
+def test_topology_is_forwarded_only_when_set(infra) -> None:
+    from torchft_tpu_torch.comm.context import (
+        ErrorSwallowingCommContext,
+        ManagedCommContext,
+    )
+
+    lh, stores = infra
+    comm = _RecordingComm()
+    m = _manager(lh, stores[0], comm=comm)
+    try:
+        m.start_quorum()
+        a = np.ones(4, np.float32)
+        m.allreduce_arrays([a]).future().result(timeout=10)
+        m.allreduce_arrays([a], topology="hier").future().result(timeout=10)
+        ManagedCommContext(m).allreduce([a], topology="flat").wait(10)
+        ErrorSwallowingCommContext(comm).allreduce([a], topology="hier")
+        out = m.reduce_scatter_arrays([a, a.copy()], op=ReduceOp.AVG)
+        assert len(out.future().result(timeout=10)) == 2
+        gathered = m.allgather_arrays([a]).future().result(timeout=10)
+        assert len(gathered) == 1 and gathered[0][0] is not None
+        # the DDP buckets carry it too
+        p = torch.nn.Parameter(torch.ones(3))
+        p.grad = torch.ones(3)
+        DistributedDataParallel(m, topology="hier").average_gradients([p])
+        assert m.should_commit()
+    finally:
+        m.shutdown(wait=False)
+    kws = [kw for name, _, kw in comm.calls if name == "allreduce"]
+    assert kws == [{}, {"topology": "hier"}, {"topology": "flat"},
+                   {"topology": "hier"}]
+    assert comm.calls[-1] == ("reduce_scatter", ReduceOp.SUM,
+                              {"owners": [0, 0]})
+    with pytest.raises(ValueError, match="error_feedback"):
+        DistributedDataParallel(m, error_feedback="yes")
+
+
+def test_reduce_scatter_and_allgather_across_groups(infra) -> None:
+    from torchft_tpu_torch.comm.topology import DomainTopology
+
+    lh, stores = infra
+    results = {}
+
+    def group(i):
+        # a hier-default context: the Manager hands it the wire cohort and a
+        # resolver on its lighthouse, whose flat /status.json maps every
+        # group to the one "default" domain (the intra tier alone)
+        comm = TcpCommContext(timeout=10.0, algorithm="star",
+                              topology="hier")
+        m = _manager(lh, stores[i], comm=comm, name=f"rs{i}",
+                     state_dict=lambda: {"w": np.zeros(3, np.float32)},
+                     load_state_dict=lambda sd: None)
+        try:
+            assert isinstance(comm._domain_resolver, DomainTopology)
+            _wait_lighthouse(lh.address(), "healthy", 2, 20.0,
+                             threading.Event())
+            for _ in range(3):  # the first step is the step-0 init heal
+                m.start_quorum()
+                r = m.transport_rank()
+                own = [np.full(6, float(i + 1), np.float32),
+                       np.full(5, 10.0 * (i + 1), np.float32)]
+                rs = m.reduce_scatter_arrays(own, op=ReduceOp.AVG)
+                rs = [x.copy() for x in rs.future().result(timeout=20)]
+                ag = m.allgather_arrays([np.full(2, float(i), np.float32)])
+                ag = ag.future().result(timeout=20)
+                ar = m.allreduce_arrays([np.full(4, float(i + 1),
+                                                 np.float32)])
+                ar = ar.future().result(timeout=20)[0].copy()
+                flat = m.allreduce_arrays([np.full(4, float(i + 1),
+                                                   np.float32)],
+                                          topology="flat")
+                flat = flat.future().result(timeout=20)[0].copy()
+                if m.should_commit():
+                    results[i] = (r, rs, [g[0].copy() for g in ag], ar,
+                                  flat, m.metrics.snapshot(),
+                                  list(comm._wire_members))
+        finally:
+            m.shutdown(wait=False)
+
+    threads = [threading.Thread(target=group, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=90)
+        assert not t.is_alive()
+    assert len(results) == 2
+    by_rank = {v[0]: (g, v) for g, v in results.items()}
+    for r, (g, (_, rs, ag, ar, flat, snap, members)) in by_rank.items():
+        # array r is owned by rank r: its average lands there
+        want = np.full(6, 1.5, np.float32) if r == 0 \
+            else np.full(5, 15.0, np.float32)
+        assert np.array_equal(rs[r], want)
+        assert [float(x[0]) for x in ag] == [float(by_rank[k][0])
+                                             for k in (0, 1)]
+        assert np.array_equal(ar, np.full(4, 1.5, np.float32))
+        assert np.array_equal(flat, ar)
+        assert len(members) == 2 and all("rs" in x for x in members)
+        assert snap["comm_intra_bytes"] > 0
+        assert snap["comm_inter_bytes"] == 0.0  # one domain

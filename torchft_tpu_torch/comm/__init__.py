@@ -7,4 +7,8 @@ from torchft_tpu_torch.comm.context import (  # noqa: F401
     Work,
 )
 from torchft_tpu_torch.comm.store import StoreClient, StoreServer  # noqa: F401
+from torchft_tpu_torch.comm.topology import (  # noqa: F401
+    DomainAssignment,
+    DomainTopology,
+)
 from torchft_tpu_torch.comm.transport import TcpCommContext  # noqa: F401

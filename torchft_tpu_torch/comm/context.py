@@ -138,12 +138,44 @@ class CommContext(ABC):
 
     @abstractmethod
     def allreduce(
-        self, arrays: Sequence[np.ndarray], op: str = ReduceOp.SUM
+        self, arrays: Sequence[np.ndarray], op: str = ReduceOp.SUM,
+        topology: Optional[str] = None,
     ) -> Work:
         """Reduce arrays across ranks. The caller DONATES ``arrays``: the
         implementation may reduce in place and resolve the future to the
         submitted arrays themselves. Do not read a donated array until the
-        future resolves; on error its contents are unspecified."""
+        future resolves; on error its contents are unspecified.
+
+        ``topology`` selects the data path of this op: "flat" (one tier
+        spanning the wire), "hier" (reduce within each domain, exchange
+        across domains through the egress ranks, broadcast within; needs a
+        context configured for it) or None (the context's default).
+        Identity contexts ignore it."""
+
+    def reduce_scatter(
+        self, arrays: Sequence[np.ndarray], op: str = ReduceOp.SUM,
+        owners: "Optional[Sequence[int]]" = None,
+    ) -> Work:
+        """Reduce ``arrays`` across ranks, delivering each array's result
+        only to its owner rank (``owners[i]``, default ``i % world_size``):
+        bitwise what :meth:`allreduce` gives there; the other arrays'
+        contents are unspecified (donation contract)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement reduce_scatter; use "
+            "the host (TcpCommContext) or cuda (CudaCommContext) data plane"
+        )
+
+    def allgather(self, arrays: Sequence[np.ndarray]) -> Work:
+        """Future resolves to a list of per-rank lists of arrays."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement allgather"
+        )
+
+    def broadcast(self, arrays: Sequence[np.ndarray], root: int = 0) -> Work:
+        """Future resolves to root's arrays on every rank."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement broadcast"
+        )
 
     def size(self) -> int:
         return self._world_size
@@ -225,8 +257,21 @@ class DummyCommContext(CommContext):
         self.configure_count += 1
 
     def allreduce(
-        self, arrays: Sequence[np.ndarray], op: str = ReduceOp.SUM
+        self, arrays: Sequence[np.ndarray], op: str = ReduceOp.SUM,
+        topology: Optional[str] = None,
     ) -> Work:
+        return CompletedWork(list(arrays))
+
+    def reduce_scatter(
+        self, arrays: Sequence[np.ndarray], op: str = ReduceOp.SUM,
+        owners: "Optional[Sequence[int]]" = None,
+    ) -> Work:
+        return CompletedWork(list(arrays))
+
+    def allgather(self, arrays: Sequence[np.ndarray]) -> Work:
+        return CompletedWork([list(arrays)])
+
+    def broadcast(self, arrays: Sequence[np.ndarray], root: int = 0) -> Work:
         return CompletedWork(list(arrays))
 
 
@@ -260,12 +305,7 @@ class ErrorSwallowingCommContext(CommContext):
                 self._error = exc
                 logger.warning("comm context error latched: %s", exc)
 
-    def allreduce(
-        self, arrays: Sequence[np.ndarray], op: str = ReduceOp.SUM
-    ) -> Work:
-        if self.errored() is not None:
-            return CompletedWork(list(arrays))
-        fallback = list(arrays)
+    def _wrap(self, work: Work, fallback: list) -> Work:
         out: "Future[List[np.ndarray]]" = Future()
         out.set_running_or_notify_cancel()
 
@@ -277,8 +317,37 @@ class ErrorSwallowingCommContext(CommContext):
             else:
                 out.set_result(f.result())
 
-        self._inner.allreduce(arrays, op).future().add_done_callback(_done)
+        work.future().add_done_callback(_done)
         return Work(out)
+
+    def allreduce(
+        self, arrays: Sequence[np.ndarray], op: str = ReduceOp.SUM,
+        topology: Optional[str] = None,
+    ) -> Work:
+        if self.errored() is not None:
+            return CompletedWork(list(arrays))
+        return self._wrap(
+            self._inner.allreduce(arrays, op, topology=topology),
+            list(arrays))
+
+    def reduce_scatter(
+        self, arrays: Sequence[np.ndarray], op: str = ReduceOp.SUM,
+        owners: "Optional[Sequence[int]]" = None,
+    ) -> Work:
+        if self.errored() is not None:
+            return CompletedWork(list(arrays))
+        return self._wrap(self._inner.reduce_scatter(arrays, op, owners),
+                          list(arrays))
+
+    def allgather(self, arrays: Sequence[np.ndarray]) -> Work:
+        if self.errored() is not None:
+            return CompletedWork([list(arrays)])
+        return self._wrap(self._inner.allgather(arrays), [list(arrays)])
+
+    def broadcast(self, arrays: Sequence[np.ndarray], root: int = 0) -> Work:
+        if self.errored() is not None:
+            return CompletedWork(list(arrays))
+        return self._wrap(self._inner.broadcast(arrays, root), list(arrays))
 
     def size(self) -> int:
         return self._inner.size()
@@ -349,9 +418,26 @@ class ManagedCommContext(CommContext):
         )
 
     def allreduce(
-        self, arrays: Sequence[np.ndarray], op: str = ReduceOp.SUM
+        self, arrays: Sequence[np.ndarray], op: str = ReduceOp.SUM,
+        topology: Optional[str] = None,
     ) -> Work:
-        return self._manager.allreduce_arrays(arrays, op=op)
+        return self._manager.allreduce_arrays(arrays, op=op,
+                                              topology=topology)
+
+    def reduce_scatter(
+        self, arrays: Sequence[np.ndarray], op: str = ReduceOp.SUM,
+        owners: "Optional[Sequence[int]]" = None,
+    ) -> Work:
+        return self._manager.reduce_scatter_arrays(arrays, op=op,
+                                                   owners=owners)
+
+    def allgather(self, arrays: Sequence[np.ndarray]) -> Work:
+        return self._manager.allgather_arrays(arrays)
+
+    def broadcast(self, arrays: Sequence[np.ndarray], root: int = 0) -> Work:
+        raise NotImplementedError(
+            "managed broadcast is not part of the manager surface"
+        )
 
     def size(self) -> int:
         return self._manager.num_participants()

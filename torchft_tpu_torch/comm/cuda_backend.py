@@ -1,7 +1,7 @@
 """On-device gradient plane: the collectives as torch code over one stacked
 device tensor, with the int8 block codec as hand-written CUDA kernels.
 
-Twin of ``torchft_tpu/comm/xla_backend.py`` (flat topology). The TCP
+Twin of ``torchft_tpu/comm/xla_backend.py``. The TCP
 transport (transport.py) moves gradient bytes over sockets; this plane
 implements the same ``CommContext`` surface (allreduce with the donation
 contract, reduce_scatter, allgather, broadcast, the ``wire_*``
@@ -65,6 +65,22 @@ and the pinned host staging. Every quorum at a seen world size and layout
 reuses its plan (``hit_count``); only first sight builds one
 (``compile_count``), so membership churn never grows the cache per step.
 
+Hierarchical topology
+---------------------
+``topology="hier"`` reduces over the domain tree that ``comm/topology.py``
+resolves (every rank resolves the cohort; divergent assignments fail the
+op). ``star``/``auto`` is the deterministic composition of the TCP hier
+path, bitwise with it: each domain's rows accumulate at full precision in
+wire rank order, domain 0's sum stays raw and every other domain's sum is
+decoded from its encoding in domain order, and the result is re-encoded
+once (``_dev_enc_dec``: ``quant_int8`` and ``dequant_acc_int8`` under
+int8). ``psum`` is numeric: a full-precision sum within each domain, then
+``quant_int8`` of every domain sum (the egress rows) and one
+``dequant_acc_int8`` across them, identical on every rank. The plan key
+holds the domain groups, so a re-form at a membership seen before is a
+cache hit. ``_host_hier_allreduce`` is the reference composition on the
+host: the fallback for dtypes the card does not hold, and the oracle.
+
 64-bit payloads and the dtypes torch does not add on the card (u16, u32)
 reduce on a host simulation of the same topology and codec math
 (``_host_allreduce``), bitwise identical by construction.
@@ -84,6 +100,7 @@ import numpy as np
 import torch
 
 from torchft_tpu_torch.comm.context import CommContext, ReduceOp, Work
+from torchft_tpu_torch.comm.topology import DomainAssignment, DomainTopology
 from torchft_tpu_torch.comm.transport import (
     _CODECS,
     _REDUCE_FNS,
@@ -556,6 +573,90 @@ def _build_quantized_psum_scatter(pool: DevicePool, n: int,
                  [((n, L), torch.float32)], fn)
 
 
+def _build_hier(pool: DevicePool, n: int, codec_name: str,
+                chunk_bytes: int, op: str,
+                layouts: Sequence[Tuple[int, str]],
+                groups: Sequence[Sequence[int]]) -> _Plan:
+    """The deterministic hierarchical allreduce (module docstring), per
+    payload array over its ``(n, size)`` stacked buffer, bitwise with the
+    TCP hier path: reduce-within in wire rank order, the star fan-in of the
+    encoded domain sums in domain order, the root's re-encode, then AVG."""
+    pool._note_trace()
+    lossy = codec_name != "none"
+
+    def build_one(size: int, dkey: str):
+        step = _grid_step(size, chunk_bytes, np.dtype(dkey).itemsize)
+
+        def fn(g: torch.Tensor) -> torch.Tensor:
+            dsums = []
+            for ranks in groups:
+                acc = g[ranks[0]]
+                for r in ranks[1:]:
+                    acc = _comb(op, acc, g[r])
+                dsums.append(acc)
+            acc = dsums[0]
+            if len(dsums) > 1:
+                dec = _dev_enc_dec(codec_name, torch.stack(dsums[1:]), step)
+                for d in range(len(dsums) - 1):
+                    acc = _comb(op, acc, dec[d])
+                if lossy:
+                    acc = _dev_enc_dec(codec_name, acc[None], step)[0]
+            if op == ReduceOp.AVG:
+                acc = div_exact(acc, n)
+            return acc[None]
+        return fn
+
+    fns = [build_one(size, dkey) if size else (lambda g: g[:1])
+           for size, dkey in layouts]
+    shapes = [((n, s), _DEVICE_DTYPES[d]) for s, d in layouts]
+    outs = [((1, s), _DEVICE_DTYPES[d]) for s, d in layouts]
+    return _Plan(pool.device(), shapes, outs,
+                 lambda ins: [f(g) for f, g in zip(fns, ins)])
+
+
+def _build_hier_psum(pool: DevicePool, n: int, codec_name: str,
+                     chunk_bytes: int, op: str,
+                     layouts: Sequence[Tuple[int, str]],
+                     groups: Sequence[Sequence[int]]) -> _Plan:
+    """The native hierarchical allreduce (numeric): a full-precision sum
+    within each domain, then the domain sums (one per egress row) encoded
+    once and accumulated across domains in domain order. int8 is one
+    ``quant_int8`` of the egress rows and one ``dequant_acc_int8`` across
+    them (AVG divides in the same launch); bf16/fp16 downcast. Extrema
+    are idempotent across tiers (a plain max/min); non-f32 payloads and a
+    single domain accumulate flat. Every rank receives the one result."""
+    pool._note_trace()
+    div = n if op == ReduceOp.AVG else 0
+    index = [torch.tensor(list(r), dtype=torch.long, device=pool.device())
+             for r in groups]
+
+    def build_one(size: int, dkey: str):
+        if op in (ReduceOp.MAX, ReduceOp.MIN) or dkey != "<f4" \
+                or len(groups) == 1:
+            return _raw_psum(n, op)
+        step = _grid_step(size, chunk_bytes)
+
+        def fn(g: torch.Tensor) -> torch.Tensor:
+            dsums = torch.stack([g.index_select(0, i).sum(0) for i in index])
+            if codec_name == "int8":
+                q, s = quant_int8(dsums, step)
+                return dequant_acc_int8(q, s, step, divisor=div)[None]
+            if codec_name != "none":
+                dsums = dsums.to(_WIRE_DTYPES[codec_name]).float()
+            acc = dsums[0]
+            for d in range(1, len(groups)):
+                acc = acc + dsums[d]
+            return (div_exact(acc, div) if div else acc)[None]
+        return fn
+
+    fns = [build_one(size, dkey) if size else (lambda g: g[:1])
+           for size, dkey in layouts]
+    shapes = [((n, s), _DEVICE_DTYPES[d]) for s, d in layouts]
+    outs = [((1, s), _DEVICE_DTYPES[d]) for s, d in layouts]
+    return _Plan(pool.device(), shapes, outs,
+                 lambda ins: [f(g) for f, g in zip(fns, ins)])
+
+
 # ------------------------------------------------------ host-side fallback
 
 
@@ -626,22 +727,69 @@ def _host_allreduce(contribs: List[List[np.ndarray]], algorithm: str,
     return ranks
 
 
+def _host_hier_allreduce(contribs: List[List[np.ndarray]],
+                         codec_name: str, chunk_bytes: int, op: str,
+                         groups: Sequence[Sequence[int]],
+                         world_size: int) -> List[np.ndarray]:
+    """The hierarchical composition on the host, through the real codec
+    over the real chunk grid (bitwise with the TCP hier path by
+    construction): the fallback for dtypes the card does not hold, and the
+    reference both planes are held to. Returns ONE result list (every rank
+    decodes the same values)."""
+    codec = _CODECS[codec_name]()
+    reduce_fn = _REDUCE_FNS.get(ReduceOp.SUM if op == ReduceOp.AVG else op)
+    if reduce_fn is None:
+        raise ValueError(f"unsupported reduce op: {op}")
+    lossy = type(codec) is not _NoCodec
+    copy = lambda v, inc: np.copyto(v, inc)  # noqa: E731
+
+    def grid(arrays: List[np.ndarray]) -> List[np.ndarray]:
+        return _chunk_grid([a.reshape(-1) for a in arrays], chunk_bytes)
+
+    # reduce-within: wire rank order per domain (the intra star's order)
+    dsums: List[List[np.ndarray]] = []
+    for ranks in groups:
+        acc = [a.copy() for a in contribs[ranks[0]]]
+        acc_chunks = grid(acc)
+        for r in ranks[1:]:
+            for ch, inc in zip(acc_chunks, grid(contribs[r])):
+                reduce_fn(ch, inc)
+        dsums.append(acc)
+    # exchange-across: star fan-in over the domains (domain 0 raw, the
+    # rest encoded once), then the root's re-encode
+    total = dsums[0]
+    total_chunks = grid(total)
+    for dsum in dsums[1:]:
+        for ch, inc in zip(total_chunks, grid(dsum)):
+            codec.decode_into(iov_join(codec.encode_iovecs([inc])), [ch],
+                              reduce_fn)
+    if len(dsums) > 1 and lossy:
+        for ch in total_chunks:
+            codec.decode_into(iov_join(codec.encode_iovecs([ch])), [ch], copy)
+    if op == ReduceOp.AVG:
+        for a in total:
+            np.divide(a, world_size, out=a)
+    return total
+
+
 # ---------------------------------------------------------- group rendezvous
 
 
 class _Sub:
     __slots__ = ("opcode", "arrays", "op", "root", "fut", "owners",
-                 "t_submit")
+                 "topology", "t_submit")
 
     def __init__(self, opcode: str, arrays: List[np.ndarray], op: str,
                  root: int, fut: Future,
-                 owners: "Optional[List[int]]" = None) -> None:
+                 owners: "Optional[List[int]]" = None,
+                 topology: Optional[str] = None) -> None:
         self.opcode = opcode
         self.arrays = arrays
         self.op = op
         self.root = root
         self.fut = fut
         self.owners = owners  # reduce_scatter: destination rank per array
+        self.topology = topology  # allreduce: the per-op override
         self.t_submit = time.perf_counter()
 
 
@@ -730,15 +878,17 @@ class _DeviceGroup:
                 # the first member's pool runs the group's plans
                 self.pool = ctx._pool
             else:
-                mine = (ctx._codec_name, ctx._chunk_bytes, ctx._algorithm)
+                mine = (ctx._codec_name, ctx._chunk_bytes, ctx._algorithm,
+                        ctx._topology_default)
                 theirs = (first._codec_name, first._chunk_bytes,
-                          first._algorithm)
+                          first._algorithm, first._topology_default)
                 if mine != theirs or ctx._pool is not self.pool:
                     raise ValueError(
                         f"cuda comm configure: rank {rank} joined "
                         f"{self.key!r} with (codec, chunk_bytes, "
-                        f"algorithm)={mine} but the group runs {theirs} "
-                        "(settings and device pool must match across ranks)"
+                        f"algorithm, topology)={mine} but the group runs "
+                        f"{theirs} (settings and device pool must match "
+                        "across ranks)"
                     )
             self._members[rank] = ctx
             self._cond.notify_all()
@@ -870,14 +1020,15 @@ class _DeviceGroup:
         ordered = [subs[r] for r in range(n)]
         first = ordered[0]
         sig = [
-            (sub.opcode, sub.op, sub.root, tuple(sub.owners or ()),
+            (sub.opcode, sub.op, sub.root, sub.topology,
+             tuple(sub.owners or ()),
              [(a.shape, _dtype_key(a.dtype)) for a in sub.arrays])
             for sub in ordered
         ]
         if first.opcode in ("broadcast", "allgather"):
             # layouts may differ per rank: broadcast discards non-root
             # contributions, allgather self-describes each rank's arrays
-            sig = [s[:3] for s in sig]
+            sig = [s[:4] for s in sig]
         if any(s != sig[0] for s in sig):
             raise ConnectionError(
                 f"cuda comm collective mismatch at seq={seq}: ranks "
@@ -917,9 +1068,15 @@ class _DeviceGroup:
         codec_name = ctx0._codec_name
         chunk_bytes = ctx0._chunk_bytes
         arrays0 = ordered[0].arrays
-        # op-dependent capability (the ctor vetted the static combo)
-        reason = CudaCommContext.unsupported_reason(algorithm, codec_name,
-                                                    op)
+        # allreduce only: reduce_scatter stays on the flat tier, as on the
+        # TCP wire
+        topo = ("flat" if ordered[0].opcode != "allreduce"
+                else ordered[0].topology or ctx0._topology_default)
+        # op-dependent capability (the ctor vetted the static combo); hier
+        # checks the constructor's algorithm ("auto" composes as star)
+        reason = CudaCommContext.unsupported_reason(
+            ctx0._algorithm if topo == "hier" else algorithm, codec_name,
+            op, topo)
         if reason is not None:
             raise ValueError(reason)
         if op == ReduceOp.AVG and not all(_is_float(a.dtype)
@@ -928,6 +1085,9 @@ class _DeviceGroup:
                 "ReduceOp.AVG requires float arrays (matching the host "
                 "transport, whose in-place integer divide raises)"
             )
+        if topo == "hier":
+            self._execute_hier(ordered, op)
+            return
         # one direction, one rank's encoded contribution (wire_nbytes), in
         # every member's sink: a compression ratio is a counter division
         raw_b = float(sum(a.nbytes for a in arrays0))
@@ -996,6 +1156,86 @@ class _DeviceGroup:
             for k, j in enumerate(host_idx):
                 if owners is None or owners[j] == r:
                     np.copyto(sub.arrays[j], host_results[r][k])
+
+    def _execute_hier(self, ordered: List[_Sub], op: str) -> None:
+        """The hierarchical allreduce (module docstring) as one cached plan
+        per (world, composition, codec, grid, op, layouts, domain groups).
+        The tier counters follow the TCP hier path's convention: one
+        direction, each rank's contribution; raw bytes within a domain of
+        several, encoded bytes across domains on egress ranks only."""
+        n = self.world_size
+        ctx0 = self._members[0]
+        codec_name = ctx0._codec_name
+        chunk_bytes = ctx0._chunk_bytes
+        arrays0 = ordered[0].arrays
+        assigns = [self._members[r]._resolve_assignment() for r in range(n)]
+        fps = {a.fingerprint for a in assigns}
+        if len(fps) != 1:
+            raise ConnectionError(
+                "hier allreduce with divergent domain assignments across "
+                f"ranks: {sorted(fps)}; resolver maps must match across "
+                "the cohort"
+            )
+        a0 = assigns[0]
+        if a0.world_size() != n:
+            raise ConnectionError(
+                f"domain assignment spans {a0.world_size()} ranks but the "
+                f"wire has {n}"
+            )
+        groups = a0.groups
+        raw_b = float(sum(a.nbytes for a in arrays0))
+        enc_b = float(sum(ctx0.wire_nbytes(a) for a in arrays0))
+        for r in range(n):
+            m = self._members[r].metrics
+            many = len(a0.group_of(r)) > 1
+            across = a0.n_domains > 1
+            m.incr("comm_raw_bytes", raw_b)
+            m.incr("comm_encoded_bytes", enc_b)
+            m.incr("comm_intra_bytes", raw_b if many else 0.0)
+            m.incr("comm_inter_bytes",
+                   enc_b if across and a0.is_egress(r) else 0.0)
+            # reduce-to-egress and broadcast-within, the star fan-in
+            m.incr("comm_hops", float(2 * many + 2 * across))
+
+        dev_idx = [j for j, a in enumerate(arrays0)
+                   if _is_device_dtype(a.dtype)]
+        host_idx = [j for j in range(len(arrays0)) if j not in dev_idx]
+        if host_idx:
+            host_result = _host_hier_allreduce(
+                [[sub.arrays[j] for j in host_idx] for sub in ordered],
+                codec_name, chunk_bytes, op, groups, n,
+            )
+            for sub in ordered:
+                for k, j in enumerate(host_idx):
+                    np.copyto(sub.arrays[j], host_result[k])
+        if not dev_idx:
+            return
+        layouts = tuple((int(arrays0[j].size), _dtype_key(arrays0[j].dtype))
+                        for j in dev_idx)
+        pool = self.pool
+        if ctx0._resolved_hier_algorithm() == "psum":
+            key = (n, "hier_psum", codec_name, chunk_bytes, op, layouts,
+                   groups)
+            build = lambda: _build_hier_psum(  # noqa: E731
+                pool, n, codec_name, chunk_bytes, op, layouts, groups)
+        else:
+            key = (n, "hier", codec_name, chunk_bytes, op, layouts, groups)
+            build = lambda: _build_hier(  # noqa: E731
+                pool, n, codec_name, chunk_bytes, op, layouts, groups)
+        n_chunks_op = float(sum(
+            n_chunks(arrays0[j].size, _grid_step(
+                arrays0[j].size, chunk_bytes, arrays0[j].itemsize))
+            for j in dev_idx))
+        for r in range(n):
+            self._members[r].metrics.incr("comm_chunks", n_chunks_op)
+
+        def deliver(outs: List[np.ndarray]) -> None:
+            for sub in ordered:
+                for k, j in enumerate(dev_idx):
+                    np.copyto(sub.arrays[j].reshape(-1), outs[k][0])
+
+        self._run(key, build, [[sub.arrays[j] for sub in ordered]
+                               for j in dev_idx], deliver)
 
     def _run(self, key: Tuple, build: Callable[[], _Plan],
              rows: List[List[np.ndarray]],
@@ -1069,7 +1309,10 @@ class CudaCommContext(CommContext):
     ``compression`` / ``chunk_bytes``: the reference's codecs and chunk
     grid (the int8 scale granularity). ``device_pool``: the plan cache and
     device, process-wide on ``cuda`` by default; pass
-    ``DevicePool("cpu")`` to run the plane on the CPU."""
+    ``DevicePool("cpu")`` to run the plane on the CPU. ``topology``: the
+    default path of ``allreduce``, "flat" or "hier" (module docstring);
+    ``domain_resolver``: the :class:`DomainTopology` every rank resolves
+    its cohort with (default: the ``TORCHFT_TPU_DOMAINS`` map)."""
 
     backend_name = "cuda"
 
@@ -1078,7 +1321,8 @@ class CudaCommContext(CommContext):
                  compression: str = "none",
                  chunk_bytes: int = 1 << 20,
                  device_pool: Optional[DevicePool] = None,
-                 topology: str = "flat") -> None:
+                 topology: str = "flat",
+                 domain_resolver: Optional[DomainTopology] = None) -> None:
         super().__init__()
         if isinstance(timeout, timedelta):
             timeout = timeout.total_seconds()
@@ -1094,6 +1338,11 @@ class CudaCommContext(CommContext):
         self._codec = _CODECS[compression]()
         self._chunk_bytes = int(chunk_bytes)
         self._pool = device_pool or default_device_pool()
+        self._topology_default = topology
+        self._domain_resolver = domain_resolver
+        self._wire_members: "Optional[List[str]]" = None
+        self._configured_members: "Optional[List[str]]" = None
+        self._hier_assignment: Optional[DomainAssignment] = None
         self._group: Optional[_DeviceGroup] = None
         self._seq = 0
         self._generation = 0
@@ -1110,22 +1359,28 @@ class CudaCommContext(CommContext):
         """The cuda-plane capability rule: every codec on star/ring (the
         bitwise parity paths) for every reduce op; ``psum`` carries every
         codec too, but a lossy one only accumulates (per-chunk scales
-        cannot ride max/min). One flat tier: the hierarchical topology is
-        not ported."""
+        cannot ride max/min). ``topology="hier"`` composes the domain tree
+        as the star fan-in or the native psum; its multi-hop ring inter
+        tier is a host-plane arm."""
         if algorithm not in ("auto", "star", "ring", "psum"):
             return f"unknown algorithm {algorithm!r}"
         if compression not in _CODECS:
             return (f"unknown compression {compression!r}; have "
                     f"{sorted(_CODECS)}")
-        if topology == "hier":
+        if topology not in ("flat", "hier"):
             return (
-                "topology='hier' (reduce-within -> compress -> "
-                "exchange-across -> broadcast-within) is not ported to the "
-                "cuda plane yet (ROADMAP queue 1 item 2); use the flat "
-                "topology"
+                f"unknown topology {topology!r}; have 'flat' (one tier "
+                "spanning the wire) and 'hier' (domain tree: reduce-within "
+                "-> compress -> exchange-across -> broadcast-within)"
             )
-        if topology != "flat":
-            return f"unknown topology {topology!r}; have 'flat'"
+        if topology == "hier" and algorithm == "ring":
+            return (
+                "topology='hier' with algorithm='ring' is the multi-hop "
+                "cross-domain rotation, a host-plane arm (comm_backend="
+                "'host'); the cuda hier path composes star fan-in or the "
+                "native psum: use algorithm='star'/'auto'/'psum' here, or "
+                "the host backend for the ring inter tier"
+            )
         if (algorithm == "psum" and compression != "none"
                 and op not in (ReduceOp.SUM, ReduceOp.AVG)):
             return (
@@ -1150,10 +1405,40 @@ class CudaCommContext(CommContext):
         self._events = events
         self._pool.events = events
 
+    def set_wire_members(self, members: "Sequence[str]") -> None:
+        """Replica ids of the upcoming cohort in transport rank order (the
+        Manager calls this before each ``configure``); ``rank{r}`` names
+        without it."""
+        self._wire_members = [str(m) for m in members]
+
+    def set_domain_resolver(self, resolver: DomainTopology) -> None:
+        """Install a resolver unless one was given to the constructor."""
+        if self._domain_resolver is None:
+            self._domain_resolver = resolver
+
+    def _resolve_assignment(self) -> DomainAssignment:
+        """This configure's domain assignment, resolved once: at configure
+        for a hier-default context, at its first hier op otherwise."""
+        if self._hier_assignment is not None:
+            return self._hier_assignment
+        members = self._configured_members
+        if members is None:
+            raise RuntimeError(
+                "hier allreduce before configure: the cohort is unknown")
+        if self._domain_resolver is None:
+            self._domain_resolver = DomainTopology()
+        self._hier_assignment = self._domain_resolver.assign(members)
+        return self._hier_assignment
+
     def _resolved_algorithm(self, world_size: int) -> str:
         if self._algorithm == "auto":
             return "ring" if world_size >= 3 else "star"
         return self._algorithm
+
+    def _resolved_hier_algorithm(self) -> str:
+        """The hier composition: "psum" stays native, anything else
+        (including "auto" at any world size) is the star fan-in."""
+        return "psum" if self._algorithm == "psum" else "star"
 
     # ------------------------------------------------------------ lifecycle
 
@@ -1172,6 +1457,15 @@ class CudaCommContext(CommContext):
                 ev.emit("mesh_reconfigure", world_size=1,
                         generation=generation, solo=True)
             return  # solo: every op is an identity, no group needed
+        # pin the cohort for domain resolution: eagerly for a hier default
+        # (a live resolver pays its walk at the quorum boundary)
+        members = self._wire_members
+        self._configured_members = (
+            members if members is not None and len(members) == world_size
+            else [f"rank{r}" for r in range(world_size)])
+        self._hier_assignment = None
+        assignment = (self._resolve_assignment()
+                      if self._topology_default == "hier" else None)
         # the store address is the cohort's rendezvous namespace: every
         # member of a transport cohort passes the same one
         group = _DeviceGroup.join(store_addr, rank, world_size, self,
@@ -1182,6 +1476,13 @@ class CudaCommContext(CommContext):
             ev.emit("mesh_reconfigure", world_size=world_size,
                     generation=generation,
                     algorithm=self._resolved_algorithm(world_size))
+            if assignment is not None:
+                ev.emit("hier_exchange", world=world_size,
+                        domains=assignment.n_domains,
+                        egress=list(assignment.egress),
+                        domain=assignment.domains[rank],
+                        is_egress=assignment.is_egress(rank),
+                        fingerprint=assignment.fingerprint)
 
     def shutdown(self) -> None:
         with self._lock:
@@ -1221,11 +1522,19 @@ class CudaCommContext(CommContext):
         """Role-aware like the host transport: a star PEER's contribution
         crosses the wire through the lossy codec (the root's stays raw;
         ring partial sums ride uncompressed), and on the quantized ``psum``
-        path EVERY rank's contribution is phase-1 encoded."""
+        path EVERY rank's contribution is phase-1 encoded. Hier: only an
+        egress rank's domain sum is encoded, every egress on the psum
+        composition and all but domain 0's on the star fan-in."""
         with self._lock:
             world, rank = self._world_size, self._rank
         if self._codec_name == "none" or world <= 1:
             return False
+        if self._topology_default == "hier":
+            a = self._hier_assignment
+            if a is None or a.n_domains <= 1 or not a.is_egress(rank):
+                return False
+            return (self._resolved_hier_algorithm() == "psum"
+                    or a.domain_index(rank) != 0)
         algo = self._resolved_algorithm(world)
         return (algo == "star" and rank != 0) or algo == "psum"
 
@@ -1247,7 +1556,8 @@ class CudaCommContext(CommContext):
 
     def _submit(self, opcode: str, arrays: Sequence[np.ndarray], op: str,
                 root: int,
-                owners: "Optional[Sequence[int]]" = None) -> Work:
+                owners: "Optional[Sequence[int]]" = None,
+                topology: Optional[str] = None) -> Work:
         fut: Future = Future()
         fut.set_running_or_notify_cancel()
         err = self.errored()
@@ -1272,14 +1582,32 @@ class CudaCommContext(CommContext):
         group.submit(
             self._rank, seq,
             _Sub(opcode, prepared, op, root, fut,
-                 owners=None if owners is None else [int(o) for o in owners]),
+                 owners=None if owners is None else [int(o) for o in owners],
+                 topology=topology),
             self._timeout,
         )
         return Work(fut)
 
     def allreduce(self, arrays: Sequence[np.ndarray],
-                  op: str = ReduceOp.SUM) -> Work:
-        return self._submit("allreduce", arrays, op, 0)
+                  op: str = ReduceOp.SUM,
+                  topology: Optional[str] = None) -> Work:
+        """``topology`` overrides the default path for this op; under a
+        lossy codec it may not differ from the default (the error-feedback
+        roles follow the default), as on the TCP wire."""
+        if (topology is not None and topology != self._topology_default
+                and self._codec_name != "none"):
+            fut: Future = Future()
+            fut.set_running_or_notify_cancel()
+            fut.set_exception(ValueError(
+                f"per-op topology={topology!r} differs from this context's "
+                f"default {self._topology_default!r} under the lossy "
+                f"{self._codec_name!r} codec: construct a context with "
+                f"topology={topology!r} for this arm, or use "
+                "compression='none' for a per-op A/B (the error-feedback "
+                "roles follow the default topology)"
+            ))
+            return Work(fut)
+        return self._submit("allreduce", arrays, op, 0, topology=topology)
 
     def reduce_scatter(self, arrays: Sequence[np.ndarray],
                        op: str = ReduceOp.SUM,

@@ -119,7 +119,17 @@ class Lighthouse:
     """In-process lighthouse server: quorum RPCs and the HTML dashboard on
     one port. The embedded default join_timeout_ms is 100; the CLI default
     is 60000. ``lease_ms`` grants an epoch lease of that length with every
-    quorum (None: the native default, no lease)."""
+    quorum (None: the native default, no lease).
+
+    ``cache_quorum`` serves epoch-cached quorum decisions (False recomputes
+    on every evaluation); ``prune_after_ms`` prunes heartbeat entries dead
+    longer than that. ``upstream_addr``/``domain``/``tier`` make this
+    lighthouse a tier-1 aggregator for one domain (rack) of replica groups:
+    it holds that domain's quorum and posts a membership summary to the
+    root every ``upstream_report_interval_ms``, which the root lists under
+    ``/status.json`` ``domains`` (what ``comm.topology.DomainTopology``
+    walks). The keys ride the native constructor's ``extra`` JSON, as the
+    JAX package's do."""
 
     def __init__(
         self,
@@ -130,11 +140,29 @@ class Lighthouse:
         heartbeat_timeout_ms: Optional[int] = None,
         hostname: str = "127.0.0.1",
         lease_ms: Optional[int] = None,
+        cache_quorum: bool = True,
+        prune_after_ms: Optional[int] = None,
+        tier: Optional[int] = None,
+        domain: Optional[str] = None,
+        upstream_addr: Optional[str] = None,
+        upstream_report_interval_ms: Optional[int] = None,
     ) -> None:
         host, port = _split_bind(bind)
         lib = get_lib()
         err = ctypes.c_char_p()
-        extra = {"cache_quorum": True}
+        extra = {"cache_quorum": bool(cache_quorum)}
+        if prune_after_ms is not None:
+            extra["prune_after_ms"] = int(prune_after_ms)
+        if tier is not None:
+            extra["tier"] = int(tier)
+        if domain is not None:
+            extra["domain"] = domain
+        if upstream_addr is not None:
+            extra["upstream_addr"] = upstream_addr
+        if upstream_report_interval_ms is not None:
+            extra["upstream_report_interval_ms"] = int(
+                upstream_report_interval_ms
+            )
         if lease_ms is not None:
             # epoch lease granted with every quorum: steady steps of a
             # leased manager make no control RPC (manager.py fast path)

@@ -25,8 +25,11 @@ the quantized psum) and this replica contributes real gradients, each f32
 bucket carries a residual e: the bucket ships g + e and keeps
 e = (g + e) - C(g + e), C being the wire's own image of one contribution
 (``manager.wire_roundtrip``). The residuals reset to zero whenever the
-transport reconfigures (``wire_generation`` changes). This is the
-reference's lock-step path; its streamed pipeline is not ported.
+transport reconfigures (``wire_generation`` changes). Over
+``topology="hier"`` the gate is role-aware by itself: only an egress rank
+whose domain sum crosses the inter tier encoded is compensable, and its
+residual is that of its own contribution. This is the reference's
+lock-step path; its streamed pipeline is not ported.
 """
 
 from __future__ import annotations
@@ -108,12 +111,23 @@ class _BucketPlan:
 
 
 class DistributedDataParallel:
-    """Bucketed fault-tolerant gradient averager."""
+    """Bucketed fault-tolerant gradient averager. ``error_feedback``:
+    "auto" (a residual exactly where this rank's contribution crosses a
+    lossy codec), True or False. ``topology``: the data path of every
+    bucket's allreduce ("flat"/"hier"; None passes no override)."""
 
     def __init__(self, manager,
-                 bucket_bytes: int = _DEFAULT_BUCKET_BYTES) -> None:
+                 bucket_bytes: int = _DEFAULT_BUCKET_BYTES,
+                 error_feedback: "bool | str" = "auto",
+                 topology: Optional[str] = None) -> None:
+        if error_feedback not in (True, False, "auto"):
+            raise ValueError(f"error_feedback must be True/False/'auto', "
+                             f"got {error_feedback!r}")
         self._manager = manager
         self._bucket_bytes = bucket_bytes
+        self._error_feedback = error_feedback
+        # passed only when set, so managers without the keyword work
+        self._ar_kwargs = {} if topology is None else {"topology": topology}
         self._plan: "_BucketPlan | None" = None
         self._staging: "List[torch.Tensor] | None" = None
         # per-bucket residuals (None for buckets the codecs pass raw) and
@@ -180,7 +194,7 @@ class DistributedDataParallel:
             if sync:
                 torch.cuda.current_stream(grads[0].device).synchronize()
         buckets = [s.numpy() for s in staging]
-        if _ef_gate(self._manager):
+        if _ef_gate(self._manager, self._error_feedback):
             residuals = self._ef_arena(buckets)
             with metrics.timed("ddp_ef"):
                 for packed, res in zip(buckets, residuals):
@@ -188,7 +202,8 @@ class DistributedDataParallel:
                         np.add(packed, res, out=packed)
                         self._ef_residual(packed, res)
         works: List[Future] = [
-            self._manager.allreduce_arrays([b]).future() for b in buckets
+            self._manager.allreduce_arrays([b], **self._ar_kwargs).future()
+            for b in buckets
         ]
         with metrics.timed("ddp_wire"):
             # the reduced bucket is the staging buffer itself, or (while

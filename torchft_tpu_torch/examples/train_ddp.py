@@ -21,10 +21,13 @@ forward, backward and AdamW as one CUDA graph; otherwise forward/backward,
 ``ddp.average_gradients``, ``opt.step()``. Losses come back through the
 optimizer wrapper's fence, in batches, never one sync per step.
 
-``train_group`` is the loop as a function. ``run_kill_and_heal`` drives two
-groups in threads through a failure, a restart from a poisoned init and a
-heal, on a fixed schedule of steps, and checks that the healed group is
-bitwise equal to its donor. ``run_resume_drill`` adds the durable half:
+``train_group`` is the loop as a function. ``run_kill_and_heal`` drives
+replica groups in threads (two by default) through a failure, a restart
+from a poisoned init and a heal, on a fixed schedule of steps, and checks
+that the groups, the healed one included, are bitwise equal at every step
+they commit; with a domain map it drives the hierarchical wire
+(``topology="hier"``), resolving each group's domain as the groups start.
+``run_resume_drill`` adds the durable half:
 a fused solo phase, a heal, steps on the epoch lease's fast path,
 checkpoints, a kill of every group, and a resume that must equal the
 checkpoint bitwise. Both take ``comm_backend`` and ``comm_options`` for the
@@ -46,7 +49,8 @@ import threading
 import time
 import urllib.request
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional
+from concurrent.futures import Future
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,12 +60,23 @@ from torchft_tpu_torch.checkpoint_io import (
     latest_checkpoint,
     load_checkpoint,
 )
+from torchft_tpu_torch.comm.context import (
+    CommContext,
+    ErrorSwallowingCommContext,
+    ReduceOp,
+    Work,
+)
 from torchft_tpu_torch.comm.cuda_backend import default_device_pool
 from torchft_tpu_torch.comm.store import StoreServer
+from torchft_tpu_torch.comm.topology import DomainTopology
 from torchft_tpu_torch.control import Lighthouse
 from torchft_tpu_torch.data import DistributedSampler
-from torchft_tpu_torch.ddp import DistributedDataParallel
-from torchft_tpu_torch.manager import Manager
+from torchft_tpu_torch.ddp import (
+    _DEFAULT_BUCKET_BYTES,
+    DistributedDataParallel,
+    _BucketPlan,
+)
+from torchft_tpu_torch.manager import Manager, _build_comm_context
 from torchft_tpu_torch.models import (
     CONFIGS,
     GPT,
@@ -74,8 +89,8 @@ from torchft_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["InjectedFailure", "GroupRun", "run_kill_and_heal",
-           "run_resume_drill", "train_group"]
+__all__ = ["FaultyCommContext", "InjectedFailure", "GroupRun",
+           "run_kill_and_heal", "run_resume_drill", "train_group"]
 
 
 class InjectedFailure(Exception):
@@ -85,6 +100,77 @@ class InjectedFailure(Exception):
     def __init__(self, msg: str, run: "GroupRun") -> None:
         super().__init__(msg)
         self.run = run
+
+
+class FaultyCommContext(ErrorSwallowingCommContext):
+    """A comm context that runs every allreduce on ``inner`` and fails the
+    ``fail_at_op``-th one (counted from 1) after it completed: the
+    collective ran for every peer, and this rank's Manager sees an error
+    (as the JAX package's test stub's ``fail_at_op``, which latches the
+    round). ``record_ops`` lists op numbers whose inputs and raw reduced
+    outputs are kept (``recorded[op] = (inputs, outputs)``)."""
+
+    def __init__(self, inner: CommContext, fail_at_op: Optional[int] = None,
+                 record_ops: Sequence[int] = ()) -> None:
+        super().__init__(inner)
+        self.fail_at_op = fail_at_op
+        self.record_ops = set(record_ops)
+        self.recorded: Dict[int, Tuple[List[np.ndarray],
+                                       List[np.ndarray]]] = {}
+        self.ops = 0
+
+    def errored(self):
+        # the wrapped plane's own latch: the Manager reconfigures on it
+        return self._inner.errored()
+
+    def set_metrics(self, metrics) -> None:
+        fn = getattr(self._inner, "set_metrics", None)
+        if callable(fn):
+            fn(metrics)
+
+    def set_events(self, events) -> None:
+        fn = getattr(self._inner, "set_events", None)
+        if callable(fn):
+            fn(events)
+
+    def set_wire_members(self, members) -> None:
+        fn = getattr(self._inner, "set_wire_members", None)
+        if callable(fn):
+            fn(members)
+
+    def set_domain_resolver(self, resolver) -> None:
+        fn = getattr(self._inner, "set_domain_resolver", None)
+        if callable(fn):
+            fn(resolver)
+
+    def allreduce(self, arrays: Sequence[np.ndarray],
+                  op: str = ReduceOp.SUM,
+                  topology: Optional[str] = None) -> Work:
+        self.ops += 1
+        n = self.ops
+        inputs = ([np.array(a, copy=True) for a in arrays]
+                  if n in self.record_ops else None)
+        inner = self._inner.allreduce(arrays, op, topology=topology).future()
+        if n != self.fail_at_op and inputs is None:
+            return Work(inner)
+        out: Future = Future()
+        out.set_running_or_notify_cancel()
+
+        def _done(f: Future) -> None:
+            exc = f.exception()
+            if exc is None and inputs is not None:
+                self.recorded[n] = (inputs,
+                                    [np.array(a, copy=True)
+                                     for a in f.result()])
+            if exc is None and n == self.fail_at_op:
+                exc = RuntimeError(f"injected allreduce fault at op {n}")
+            if exc is not None:
+                out.set_exception(exc)
+            else:
+                out.set_result(f.result())
+
+        inner.add_done_callback(_done)
+        return Work(out)
 
 
 @dataclass
@@ -98,7 +184,9 @@ class GroupRun:
     steps whose gradient wire had a peer (``wire_steps``), the element
     counts of DDP's gradient buckets, its resume (step, seconds, and the
     paths where the loaded state differs from the file, when verified),
-    its checkpoint writes, and its final metrics."""
+    its checkpoint writes, its final metrics, and the ops its comm context
+    recorded (``record_ops``: op number -> (inputs, raw reduced outputs)).
+    """
 
     passes: int = 0
     wire_steps: int = 0
@@ -119,6 +207,8 @@ class GroupRun:
     # (barrier, dispatch, fence, transition_drain)
     metrics: Dict[str, object] = field(default_factory=dict)
     fused_metrics: Dict[str, object] = field(default_factory=dict)
+    recorded: Dict[int, Tuple[List[np.ndarray], List[np.ndarray]]] = field(
+        default_factory=dict)
 
 
 def _bytes_of(t: torch.Tensor) -> torch.Tensor:
@@ -172,6 +262,7 @@ def train_group(
     ckpt_path: Optional[str] = None,
     ckpt_every: int = 0,
     verify_resume: bool = False,
+    record_ops: Sequence[int] = (),
 ) -> GroupRun:
     """Train one replica group until ``total_steps`` steps are committed
     (or ``stop`` is set).
@@ -192,6 +283,8 @@ def train_group(
     ``{ckpt_path}.{step}`` through ``AsyncCheckpointWriter(keep=2)`` after
     every ``ckpt_every``-th committed step. ``verify_resume``: compare the
     resumed state with the file, bitwise (``GroupRun.resume_mismatches``).
+    ``record_ops``: numbers (from 1) of this group's gradient allreduces
+    whose inputs and raw reduced outputs are kept (``GroupRun.recorded``).
 
     A CUDA run of a config whose head_dim the flash kernels do not take
     raises ValueError here, before anything is built.
@@ -233,9 +326,15 @@ def train_group(
 
     # per-group rendezvous store: rank 0 binds it
     store = StoreServer() if rank == 0 and store_addr is None else None
+    comm: Optional[FaultyCommContext] = None
+    if record_ops:
+        comm = FaultyCommContext(
+            _build_comm_context(comm_backend, comm_options, timeout),
+            record_ops=record_ops)
     manager = Manager(
-        comm_backend=comm_backend,
-        comm_options=comm_options,
+        comm=comm,
+        comm_backend=None if comm is not None else comm_backend,
+        comm_options=None if comm is not None else comm_options,
         load_state_dict=load_state_dict,
         state_dict=state_dict,
         min_replica_size=1,
@@ -356,6 +455,8 @@ def train_group(
         run.metrics = manager.metrics.snapshot()
         run.fused_metrics = opt.fused_metrics.snapshot()
         run.buckets = ddp.bucket_sizes()
+        if comm is not None:
+            run.recorded = comm.recorded
         manager.shutdown(wait=False)
         if store is not None:
             store.shutdown()
@@ -386,11 +487,50 @@ def _wait_lighthouse(addr: str, key: str, count: int, timeout: float,
         time.sleep(0.01)
 
 
+class _DrillDomains:
+    """The drill's domain tree, served to a :class:`DomainTopology` through
+    its ``fetch`` hook as a root ``/status.json`` with one aggregator per
+    domain, each listing the replica ids of its groups. Replica ids are
+    uuid-suffixed, so a group registers its id when its Manager starts (a
+    restarted group registers a new one); the resolver pins each id at
+    first sight, as it does on a live tree."""
+
+    ROOT = "drill://domains"
+
+    def __init__(self, domains: Dict[str, Sequence[int]]) -> None:
+        self._domains = {str(k): [int(g) for g in v]
+                         for k, v in domains.items()}
+        self._ids: Dict[int, List[str]] = {}
+        self._lock = threading.Lock()
+        self.resolver = DomainTopology(status_url=self.ROOT,
+                                       fetch=self._fetch)
+
+    def register(self, group: int, replica_id: str) -> None:
+        with self._lock:
+            self._ids.setdefault(group, []).append(replica_id)
+
+    def _fetch(self, url: str, timeout: float) -> Dict[str, Any]:
+        if url == f"{self.ROOT}/status.json":
+            return {"domains": {name: {"address": f"{self.ROOT}/{name}"}
+                                for name in self._domains}}
+        name = url[len(self.ROOT) + 1:-len("/status.json")]
+        with self._lock:
+            ids = [rid for g in self._domains[name]
+                   for rid in self._ids.get(g, ())]
+        return {"quorum": {"participants": [{"replica_id": rid}
+                                            for rid in ids]}}
+
+
 def run_kill_and_heal(
     cfg: TransformerConfig,
     *,
     kill_step: int = 3,
     steps_after: int = 2,
+    groups: int = 2,
+    kill_group: int = 1,
+    steps_alone: int = 1,
+    domains: Optional[Dict[str, Sequence[int]]] = None,
+    record_step: Optional[int] = None,
     device: "Optional[str | torch.device]" = None,
     batch_size: int = 8,
     seed: int = 0,
@@ -399,79 +539,142 @@ def run_kill_and_heal(
     comm_backend: str = "host",
     comm_options: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, object]:
-    """Two replica groups under an in-process lighthouse, on a fixed
-    schedule (k = ``kill_step``, a = ``steps_after``):
+    """``groups`` replica groups under an in-process lighthouse, on a fixed
+    schedule (k = ``kill_step``, s = ``steps_alone``, a = ``steps_after``):
 
-    - both groups commit steps 1..k together;
-    - group 1 fails; group 0 commits step k + 1 alone;
-    - group 1 restarts from a poisoned init (another seed) at step 0, heals
-      from group 0 in its first step and commits step k + 2 with it;
-    - both commit steps k + 3..k + 2 + a together, and stop.
+    - every group commits steps 1..k;
+    - group ``kill_group`` fails; the others commit k + 1..k + s without it;
+    - it restarts from a poisoned init (another seed) at step 0, heals from
+      a peer in its first step and commits k + s + 1 with them;
+    - all commit steps k + s + 2..k + s + 1 + a, and stop.
 
-    Each group waits for the other at the lighthouse where the schedule
-    needs it (both heartbeating before the first quorum; the restarted
-    group's quorum request pending before group 0 asks for step k + 2), so
-    every run makes the same 2k + 2a + 3 forward/backward passes.
+    The groups wait for each other at the lighthouse where the schedule
+    needs it (all heartbeating before the first quorum; the restarted
+    group's quorum request pending before the survivors ask for step
+    k + s + 1), so every run makes the same forward/backward passes:
+    groups * (k + s + 1 + a) - s (2k + 2a + 3 at the defaults).
 
-    The gradient wire has a peer in k + 1 + a of those steps (all but the
-    survivor's solo step k + 1); ``comm_backend`` / ``comm_options`` select
-    it as for :func:`train_group`.
+    ``domains`` (``{name: [group, ...]}``) maps the groups to domains for
+    ``topology="hier"``: every group's context resolves through one
+    :class:`DomainTopology` over the drill's domain tree
+    (:class:`_DrillDomains`), given as its ``domain_resolver``.
+    ``record_step``: each group's first life records its gradient
+    allreduces of that step (a joint step up to k) in ``GroupRun.recorded``.
+    ``comm_backend`` / ``comm_options`` select the wire as for
+    :func:`train_group`.
 
-    Raises AssertionError unless the healed group's parameters equal the
-    donor's bitwise at every step from the heal on, and every loss is
-    finite. Returns the per-group runs (group 1's restarted one), the heal
-    step, the checked steps and the forward/backward passes of all runs."""
-    lighthouse = Lighthouse(min_replicas=1, join_timeout_ms=200,
-                            heartbeat_timeout_ms=1000)
+    Raises AssertionError unless, at every committed step, the parameters
+    of every group that committed it are bitwise equal (the healed group
+    included, from its heal on), and every loss is finite. Returns the
+    groups' last runs (``runs``) and all their lives (``lives``), the heal
+    step, the steps from the heal on at which every group was compared
+    (``checked_steps``), the number of groups compared at each step
+    (``compared``), the forward/backward passes of all runs and the domain
+    tree (``domains``)."""
+    if not 0 <= kill_group < groups or groups < 2:
+        raise ValueError(f"kill_group {kill_group} of {groups} groups")
+    s_alone = steps_alone
+    if record_step is not None and not 1 <= record_step <= kill_step:
+        raise ValueError(f"record_step {record_step} is not a joint step "
+                         f"in 1..{kill_step}")
+    # the default two-group drill keeps the lighthouse's 200 ms join
+    # window; more groups, started one after another, wait for each other
+    lighthouse = Lighthouse(
+        min_replicas=1, heartbeat_timeout_ms=1000,
+        join_timeout_ms=200 if groups == 2 else int(timeout * 1000))
     addr = lighthouse.address()
-    total = kill_step + 2 + steps_after
-    survivor_ahead, stop = threading.Event(), threading.Event()
-    snapshots: Dict[int, Dict[int, List[torch.Tensor]]] = {0: {}, 1: {}}
-    runs: Dict[int, List[GroupRun]] = {0: [], 1: []}
+    total = kill_step + s_alone + 1 + steps_after
+    survivors = [g for g in range(groups) if g != kill_group]
+    ahead, stop = threading.Event(), threading.Event()
+    survivors_done = threading.Barrier(len(survivors))
+    runs: Dict[int, List[GroupRun]] = {g: [] for g in range(groups)}
     errors: List[BaseException] = []
+    tree = _DrillDomains(domains) if domains is not None else None
+    comm_options = dict(comm_options or {})
+    if tree is not None:
+        comm_options["domain_resolver"] = tree.resolver
+    # bitwise comparison per step, as soon as every group of it committed
+    lock = threading.Lock()
+    pending: Dict[int, Dict[int, List[torch.Tensor]]] = {}
+    compared: Dict[int, int] = {}
 
-    def both_heartbeating(manager):
-        _wait_lighthouse(addr, "healthy", 2, timeout, stop)
+    def expected(step: int) -> int:
+        alone = kill_step < step <= kill_step + s_alone
+        return groups - 1 if alone else groups
+
+    def deposit(group: int, step: int, model) -> None:
+        snap = [p.detach().clone() for p in model.parameters()]
+        with lock:
+            held = pending.setdefault(step, {})
+            held[group] = snap
+            if len(held) < expected(step):
+                return
+            del pending[step]
+        first = min(held)
+        for g in sorted(held):
+            for a, b in zip(held[first], held[g]):
+                _require(torch.equal(a, b), f"group {g} diverged from "
+                         f"group {first} at step {step}")
+        compared[step] = len(held)
+
+    def started(group: int, wait_all: bool):
+        def _start(manager):
+            if tree is not None:
+                tree.register(group, manager.replica_id())
+            if wait_all:
+                _wait_lighthouse(addr, "healthy", groups, timeout, stop)
+        return _start
 
     def on_commit(group: int):
         def _hook(step, manager, model, loss):
             log(f"group {group} committed step {step} "
                 f"participants {manager.num_participants()}"
                 + (" (healed)" if manager.did_heal() else ""))
-            if step > kill_step:
-                snapshots[group][step] = [
-                    p.detach().clone() for p in model.parameters()
-                ]
-            if group == 0 and step == kill_step + 1:
-                # let group 1 restart, and take the next quorum with it
-                survivor_ahead.set()
+            deposit(group, step, model)
+            if group != kill_group and step == kill_step + s_alone:
+                # let the failed group restart, then take the next quorum
+                # with it: no survivor asks before all have committed
+                survivors_done.wait(timeout)
+                ahead.set()
                 _wait_lighthouse(addr, "participants", 1, timeout, stop)
         return _hook
 
-    common = dict(num_groups=2, lighthouse_addr=addr, device=device,
+    common = dict(num_groups=groups, lighthouse_addr=addr, device=device,
                   batch_size=batch_size, data_seed=seed, timeout=timeout,
                   total_steps=total, stop=stop, comm_backend=comm_backend,
                   comm_options=comm_options)
+    record = ()
+    if record_step is not None:
+        n_buckets = len(_BucketPlan(list(GPT(cfg, device="meta")
+                                         .parameters()),
+                                    _DEFAULT_BUCKET_BYTES).buckets)
+        record = range((record_step - 1) * n_buckets + 1,
+                       record_step * n_buckets + 1)
 
-    def group0():
-        runs[0].append(train_group(
-            cfg, replica_group=0, init_seed=seed, on_start=both_heartbeating,
-            on_commit=on_commit(0), **common))
+    def survivor(g: int):
+        def _run():
+            runs[g].append(train_group(
+                cfg, replica_group=g, init_seed=seed,
+                on_start=started(g, True), on_commit=on_commit(g),
+                record_ops=record, **common))
+        return _run
 
-    def group1():
+    def killed():
+        g = kill_group
         try:
-            train_group(cfg, replica_group=1, init_seed=seed,
-                        fail_at_step=kill_step, on_start=both_heartbeating,
-                        on_commit=on_commit(1), **common)
-            raise AssertionError("group 1 was never failed")
+            train_group(cfg, replica_group=g, init_seed=seed,
+                        fail_at_step=kill_step, on_start=started(g, True),
+                        on_commit=on_commit(g), record_ops=record, **common)
+            raise AssertionError(f"group {g} was never failed")
         except InjectedFailure as e:
-            runs[1].append(e.run)
+            runs[g].append(e.run)
             log(f"injected failure: {e}; restarting from a poisoned init")
-        if not survivor_ahead.wait(timeout) or stop.is_set():
-            raise TimeoutError(f"group 0 never committed step {kill_step + 1}")
-        runs[1].append(train_group(
-            cfg, replica_group=1, init_seed=seed + 1000,
-            on_commit=on_commit(1), **common))
+        if not ahead.wait(timeout) or stop.is_set():
+            raise TimeoutError(
+                f"the survivors never committed step {kill_step + s_alone}")
+        runs[g].append(train_group(
+            cfg, replica_group=g, init_seed=seed + 1000,
+            on_start=started(g, False), on_commit=on_commit(g), **common))
 
     def guarded(fn):
         def _run():
@@ -479,12 +682,14 @@ def run_kill_and_heal(
                 fn()
             except BaseException as e:  # noqa: BLE001 — re-raised below
                 errors.append(e)
-                stop.set()  # never strand the other group
-                survivor_ahead.set()
+                stop.set()  # never strand the other groups
+                ahead.set()
+                survivors_done.abort()
         return _run
 
-    threads = [threading.Thread(target=guarded(f), name=f"group{i}")
-               for i, f in enumerate((group0, group1))]
+    threads = [threading.Thread(
+        target=guarded(killed if g == kill_group else survivor(g)),
+        name=f"group{g}") for g in range(groups)]
     try:
         for t in threads:
             t.start()
@@ -495,23 +700,24 @@ def run_kill_and_heal(
     if errors:
         raise errors[0]
 
-    survivor, restarted = runs[0][0], runs[1][1]
-    _require(restarted.healed_at == [kill_step + 2],
+    restarted = runs[kill_group][-1]
+    _require(restarted.healed_at == [kill_step + s_alone + 1],
              f"the restarted group healed at {restarted.healed_at}, not at "
-             f"step {kill_step + 2}")
+             f"step {kill_step + s_alone + 1}")
     heal_step = restarted.healed_at[0]
-    steps = sorted(set(snapshots[0]) & set(snapshots[1]))
+    _require(not pending and sorted(compared) == list(range(1, total + 1)),
+             f"steps compared {sorted(compared)}, left {sorted(pending)}")
+    steps = [s for s in range(heal_step, total + 1)
+             if compared[s] == groups]
     _require(steps == list(range(heal_step, total + 1)),
-             f"heal at {heal_step}; steps both groups committed: {steps}")
-    for s in steps:
-        for a, b in zip(snapshots[0][s], snapshots[1][s]):
-            _require(torch.equal(a, b),
-                     f"group 1 diverged from its donor at step {s}")
-    losses = [v for r in (survivor, restarted) for v in r.losses.values()]
+             f"heal at {heal_step}; steps all groups committed: {steps}")
+    losses = [v for g in runs for r in runs[g] for v in r.losses.values()]
     _require(all(math.isfinite(v) for v in losses), "non-finite loss")
-    return {"runs": {0: survivor, 1: restarted}, "heal_step": heal_step,
-            "checked_steps": steps,
-            "passes": sum(r.passes for g in runs for r in runs[g])}
+    return {"runs": {g: runs[g][-1] for g in runs}, "lives": runs,
+            "heal_step": heal_step, "checked_steps": steps,
+            "compared": dict(sorted(compared.items())),
+            "passes": sum(r.passes for g in runs for r in runs[g]),
+            "domains": tree}
 
 
 def _telemetry_metrics(manager: Manager, timeout: float) -> Dict[str, Any]:

@@ -34,23 +34,21 @@ import math
 import os
 import threading
 import time
-from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from torchft_tpu_torch.comm.context import (
-    CommContext,
-    ErrorSwallowingCommContext,
-    ReduceOp,
-    Work,
-)
+from torchft_tpu_torch.comm.context import CommContext
 from torchft_tpu_torch.comm.store import StoreServer
 from torchft_tpu_torch.control import Lighthouse
 from torchft_tpu_torch.data import DistributedSampler
-from torchft_tpu_torch.examples.train_ddp import InjectedFailure, _wait_lighthouse
+from torchft_tpu_torch.examples.train_ddp import (
+    FaultyCommContext,
+    InjectedFailure,
+    _wait_lighthouse,
+)
 from torchft_tpu_torch.local_sgd import DiLoCo, LocalSGD
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.models import CONFIGS, GPT, TransformerConfig, make_train_step
@@ -62,66 +60,6 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["DiLoCoRun", "FaultyCommContext", "run_diloco_drill",
            "train_group"]
-
-
-class FaultyCommContext(ErrorSwallowingCommContext):
-    """A comm context that runs every allreduce on ``inner`` and fails the
-    ``fail_at_op``-th one (counted from 1) after it completed: the
-    collective ran for every peer, and this rank's Manager sees an error
-    (as the JAX package's test stub's ``fail_at_op``, which latches the
-    round). ``record_ops`` lists op numbers whose inputs and raw reduced
-    outputs are kept (``recorded[op] = (inputs, outputs)``)."""
-
-    def __init__(self, inner: CommContext, fail_at_op: Optional[int] = None,
-                 record_ops: Sequence[int] = ()) -> None:
-        super().__init__(inner)
-        self.fail_at_op = fail_at_op
-        self.record_ops = set(record_ops)
-        self.recorded: Dict[int, Tuple[List[np.ndarray],
-                                       List[np.ndarray]]] = {}
-        self.ops = 0
-
-    def errored(self):
-        # the wrapped plane's own latch: the Manager reconfigures on it
-        return self._inner.errored()
-
-    def set_metrics(self, metrics) -> None:
-        fn = getattr(self._inner, "set_metrics", None)
-        if callable(fn):
-            fn(metrics)
-
-    def set_events(self, events) -> None:
-        fn = getattr(self._inner, "set_events", None)
-        if callable(fn):
-            fn(events)
-
-    def allreduce(self, arrays: Sequence[np.ndarray],
-                  op: str = ReduceOp.SUM) -> Work:
-        self.ops += 1
-        n = self.ops
-        inputs = ([np.array(a, copy=True) for a in arrays]
-                  if n in self.record_ops else None)
-        inner = self._inner.allreduce(arrays, op).future()
-        if n != self.fail_at_op and inputs is None:
-            return Work(inner)
-        out: Future = Future()
-        out.set_running_or_notify_cancel()
-
-        def _done(f: Future) -> None:
-            exc = f.exception()
-            if exc is None and inputs is not None:
-                self.recorded[n] = (inputs,
-                                    [np.array(a, copy=True)
-                                     for a in f.result()])
-            if exc is None and n == self.fail_at_op:
-                exc = RuntimeError(f"injected allreduce fault at op {n}")
-            if exc is not None:
-                out.set_exception(exc)
-            else:
-                out.set_result(f.result())
-
-        inner.add_done_callback(_done)
-        return Work(out)
 
 
 @dataclass

@@ -58,8 +58,10 @@ total), ``outer_wire_bytes`` (encoded payload bytes) and
 ``outer_inflight_at_drain`` (fragments still on the wire when the round ran
 out of inner steps).
 
-Not ported: ``sharded_outer=True`` and ``topology="hier"`` are refused at
-construction (ROADMAP queue 1 items 9 and 2).
+``topology`` ("flat"/"hier", None = the comm context's default) is
+forwarded to every fragment's allreduce: the hierarchical tier carries the
+pseudogradients across domains encoded once per domain. Not ported:
+``sharded_outer=True`` is refused at construction (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -175,20 +177,16 @@ class LocalSGD:
         or block at every boundary (the A/B arm). ``error_feedback``:
         "auto" keeps a residual exactly when this rank's contribution
         crosses a lossy codec (``manager.wire_compensable``); True forces
-        it; False disables it."""
+        it; False disables it. ``topology``: the data path of every
+        fragment's allreduce ("flat"/"hier"; None passes no override)."""
         if sharded_outer:
             raise ValueError(
                 "sharded_outer=True is not ported: it needs "
-                "comm/redistribute.py and the Manager's "
-                "reduce_scatter_arrays/allgather_arrays (ROADMAP queue 1 "
-                "item 9); use the replicated outer update"
+                "comm/redistribute.py and the sharded outer optimizer "
+                "(ROADMAP queue 1 item 9); use the replicated outer update"
             )
-        if topology not in (None, "flat"):
-            raise ValueError(
-                f"topology={topology!r} is not ported (ROADMAP queue 1 "
-                "item 2: the hierarchical tier); the outer sync runs on "
-                "the flat wire"
-            )
+        # passed only when set, so managers without the keyword work
+        self._ar_kwargs = {} if topology is None else {"topology": topology}
         if sync_every < 1:
             raise ValueError("sync_every must be >= 1")
         if num_fragments < 1:
@@ -583,7 +581,7 @@ class LocalSGD:
         if callable(nbytes_fn):
             rnd.wire_bytes += int(nbytes_fn(arena))
         rnd.submit_t[f] = time.perf_counter()
-        work = mgr.allreduce_arrays([arena])
+        work = mgr.allreduce_arrays([arena], **self._ar_kwargs)
         landed: Future = Future()
         landed.set_running_or_notify_cancel()
         rnd.group.add(landed)

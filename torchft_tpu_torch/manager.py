@@ -44,6 +44,7 @@ import numpy as np
 from torchft_tpu_torch.checkpointing import CheckpointServer, CheckpointTransport
 from torchft_tpu_torch.comm.context import CommContext, CompletedWork, ReduceOp, Work
 from torchft_tpu_torch.comm.store import StoreClient
+from torchft_tpu_torch.comm.topology import DomainTopology
 from torchft_tpu_torch.control import ManagerClient, ManagerServer
 from torchft_tpu_torch.futures import future_chain, future_timeout
 from torchft_tpu_torch.utils.events import EventRecorder
@@ -291,6 +292,14 @@ class Manager:
         # control_rpcs_per_step: 0 on a fast-path step
         self._control_rpcs = 0
         self.metrics.gauge("control_rpcs_per_step", 0.0)
+        # Domain discovery for topology="hier": home the comm's resolver to
+        # the job's lighthouse /status.json on every rank (rank k's wire
+        # spans rank-k processes, which hold no ManagerServer), unless the
+        # caller installed one. A flat context never consults it.
+        set_resolver = getattr(comm, "set_domain_resolver", None)
+        lh_addr = self._lighthouse_addr or os.environ.get(LIGHTHOUSE_ENV)
+        if callable(set_resolver) and lh_addr:
+            set_resolver(DomainTopology(status_url=lh_addr))
         # the transport samples this when it stamps a step's vote byte
         set_vote_health = getattr(comm, "set_vote_health", None)
         if callable(set_vote_health):
@@ -323,7 +332,8 @@ class Manager:
     # ------------------------------------------------------------ collectives
 
     def allreduce_arrays(self, arrays: Sequence[np.ndarray],
-                         op: str = ReduceOp.SUM) -> Work:
+                         op: str = ReduceOp.SUM,
+                         topology: Optional[str] = None) -> Work:
         """Fault-tolerant cross-replica allreduce of host arrays, scaled by
         1/num_participants for SUM and AVG:
 
@@ -333,23 +343,12 @@ class Manager:
           completes (with the unused input as the default).
 
         The caller DONATES ``arrays``: the transport reduces in place, so the
-        future may resolve to the very arrays submitted.
+        future may resolve to the very arrays submitted. ``topology``
+        ("flat"/"hier") overrides the context's default data path for this
+        op; None passes no override.
         """
         arrays = [np.asarray(a) for a in arrays]
-        if op == ReduceOp.AVG and any(
-            not np.issubdtype(a.dtype, np.floating) for a in arrays
-        ):
-            raise ValueError(
-                "ReduceOp.AVG requires floating-point arrays; got "
-                + str([str(a.dtype) for a in arrays])
-            )
-        if self.errored() is not None:
-            return CompletedWork(list(arrays))
-        try:
-            self.wait_quorum()
-        except Exception as e:  # quorum failed: latch and skip the step
-            self._logger.exception(f"quorum failed in allreduce: {e}")
-            self.report_error(e)
+        if not self._reduction_ready(arrays, op, "allreduce"):
             return CompletedWork(list(arrays))
         if not self.is_participating():
             arrays = [np.zeros_like(a) for a in arrays]
@@ -358,31 +357,123 @@ class Manager:
             # AVG averages over participants, not the transport world
             # (healing members contribute zeros): reduce as SUM and scale.
             transport_op = ReduceOp.SUM if op == ReduceOp.AVG else op
-            work = self._comm.allreduce(arrays, transport_op)
-
-            def _normalize(f: Future) -> List[np.ndarray]:
-                self.metrics.observe(
-                    "allreduce", time.perf_counter() - submit_time
-                )
-                reduced = list(f.result())
-                if op not in (ReduceOp.SUM, ReduceOp.AVG):
-                    return reduced
-                scale = 1.0 / max(1, self.num_participants())
-                for i, a in enumerate(reduced):
-                    if np.issubdtype(a.dtype, np.floating):
-                        s = np.asarray(scale).astype(a.dtype)
-                        if a.flags.writeable:
-                            np.multiply(a, s, out=a)
-                        else:
-                            reduced[i] = a * s
-                return reduced
-
-            fut = future_chain(work.future(), _normalize)
+            if topology is None:
+                work = self._comm.allreduce(arrays, transport_op)
+            else:
+                work = self._comm.allreduce(arrays, transport_op,
+                                            topology=topology)
+            fut = future_chain(work.future(),
+                               self._scaled(op, submit_time, None))
             return Work(self.wrap_future(fut, list(arrays)))
         except Exception as e:  # noqa: BLE001
             self._logger.exception(f"allreduce submit failed: {e}")
             self.report_error(e)
             return CompletedWork(list(arrays))
+
+    def _reduction_ready(self, arrays: List[np.ndarray], op: str,
+                         what: str) -> bool:
+        """The reductions' prologue: AVG takes floating-point arrays only
+        (raises); False, the op then returning its inputs, once this step
+        has errored or when its quorum fails (latched)."""
+        if op == ReduceOp.AVG and any(
+            not np.issubdtype(a.dtype, np.floating) for a in arrays
+        ):
+            raise ValueError(
+                "ReduceOp.AVG requires floating-point arrays; got "
+                + str([str(a.dtype) for a in arrays])
+            )
+        if self.errored() is not None:
+            return False
+        try:
+            self.wait_quorum()
+        except Exception as e:  # quorum failed: latch and skip the step
+            self._logger.exception(f"quorum failed in {what}: {e}")
+            self.report_error(e)
+            return False
+        return True
+
+    def _scaled(self, op: str, submit_time: float,
+                owned: "Optional[Sequence[int]]"):
+        """The continuation of a reduction: observe ``allreduce`` and scale
+        the float results by 1/num_participants for SUM and AVG (only the
+        arrays in ``owned``, when given: a reduce_scatter's others are
+        unspecified)."""
+
+        def _normalize(f: Future) -> List[np.ndarray]:
+            self.metrics.observe("allreduce",
+                                 time.perf_counter() - submit_time)
+            reduced = list(f.result())
+            if op not in (ReduceOp.SUM, ReduceOp.AVG):
+                return reduced
+            scale = 1.0 / max(1, self.num_participants())
+            for i in (range(len(reduced)) if owned is None else owned):
+                a = reduced[i]
+                if np.issubdtype(a.dtype, np.floating):
+                    s = np.asarray(scale).astype(a.dtype)
+                    if a.flags.writeable:
+                        np.multiply(a, s, out=a)
+                    else:
+                        reduced[i] = a * s
+            return reduced
+
+        return _normalize
+
+    def reduce_scatter_arrays(self, arrays: Sequence[np.ndarray],
+                              op: str = ReduceOp.SUM,
+                              owners: "Optional[Sequence[int]]" = None
+                              ) -> Work:
+        """Fault-tolerant reduce_scatter: as :meth:`allreduce_arrays` (zeros
+        while healing, errors latched and never raised, 1/num_participants
+        scaling) except that each array's result lands only on its owner
+        (``owners[i]``, default ``i % transport_world_size``). Owned arrays
+        come back bitwise what the allreduce would give; the others are
+        unspecified, and only owned arrays are scaled."""
+        arrays = [np.asarray(a) for a in arrays]
+        if not self._reduction_ready(arrays, op, "reduce_scatter"):
+            return CompletedWork(list(arrays))
+        world = max(1, self._transport_world_size)
+        if owners is None:
+            owners = [i % world for i in range(len(arrays))]
+        owners = [int(o) for o in owners]
+        my_rank = self._comm.rank()
+        owned = [i for i, o in enumerate(owners) if o == my_rank]
+        if not self.is_participating():
+            arrays = [np.zeros_like(a) for a in arrays]
+        try:
+            submit_time = time.perf_counter()
+            transport_op = ReduceOp.SUM if op == ReduceOp.AVG else op
+            work = self._comm.reduce_scatter(arrays, transport_op, owners)
+            fut = future_chain(work.future(),
+                               self._scaled(op, submit_time, owned))
+            return Work(self.wrap_future(fut, list(arrays)))
+        except Exception as e:  # noqa: BLE001
+            self._logger.exception(f"reduce_scatter submit failed: {e}")
+            self.report_error(e)
+            return CompletedWork(list(arrays))
+
+    def allgather_arrays(self, arrays: Sequence[np.ndarray]) -> Work:
+        """Fault-tolerant allgather with the allreduce error model (errors
+        latched, never raised; ``[own arrays]`` is the degraded result). No
+        scaling and no zeros: allgather carries state, and a healing
+        member's contribution is whatever it advertises. Resolves to a
+        list of per-rank array lists, by transport rank."""
+        arrays = [np.asarray(a) for a in arrays]
+        fallback = [list(arrays)]
+        if self.errored() is not None:
+            return CompletedWork(fallback)
+        try:
+            self.wait_quorum()
+        except Exception as e:
+            self._logger.exception(f"quorum failed in allgather: {e}")
+            self.report_error(e)
+            return CompletedWork(fallback)
+        try:
+            work = self._comm.allgather(arrays)
+            return Work(self.wrap_future(work.future(), fallback))
+        except Exception as e:  # noqa: BLE001
+            self._logger.exception(f"allgather submit failed: {e}")
+            self.report_error(e)
+            return CompletedWork(fallback)
 
     # ------------------------------------------------------------- telemetry
 
@@ -667,6 +758,11 @@ class Manager:
                 f"reconfiguring for quorum_id={quorum.quorum_id} "
                 f"wire={fingerprint} store={store_prefixed_addr}"
             )
+            # the cohort's replica ids in transport rank order, which the
+            # hier tier's domain resolver maps to domains
+            set_members = getattr(self._comm, "set_wire_members", None)
+            if callable(set_members) and quorum.transport_replica_ids:
+                set_members(list(quorum.transport_replica_ids))
             try:
                 self._comm.configure(store_prefixed_addr, t_rank, t_world)
                 self._transport_key = transport_key
