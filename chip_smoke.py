@@ -48,7 +48,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    steps. The healed parameters must equal the donor's bitwise, the losses
    must be finite, and every flash kernel must have launched once per layer
    per forward/backward pass.
-4. train_cuda_int8: the same drill, all 12 layers, with the gradient wire
+4. train_multijob: the multi-tenant control plane at "125m", full width
+   and depth, batch 8, over TCP at codec none, on one lighthouse granting 2
+   s epoch leases with ``fleet_capacity`` 5 (``run_multijob_drill``). Job
+   "a" (priority 5): DDP groups a0 and a1 and an observer
+   (``data_plane=False``) running a forward-only probe; job "b" (priority
+   0, group budget 1): DDP groups b0 and b1 on the lease's fast path, step
+   for step with a0. a1 fails after step 3, a0 commits 4 alone, a1
+   restarts from a poisoned init and heals at 5, both commit 6-7; then hi0
+   joins job "hi" (priority 10) one group over capacity, the lighthouse
+   evicts b1 in its quorum answer, b0 commits 8-9 alone and hi0 2 steps.
+   The native lighthouse counts every heartbeating group toward the
+   capacity, the observer included, so the capacity is the five groups
+   before hi0. Checks: a0 and a1 bitwise equal at every step both commit;
+   a0's participants and wire world 2, and 1 alone and at the heal, never
+   3; the observer in every barrier, never participating, healed or on a
+   wire of more than itself, its parameters unchanged; b0 and b1 bitwise
+   equal, 0 control RPCs at steps 3-6 and job b's ``membership_epoch``,
+   ``quorum_compute_count`` and ``lease_breaks`` flat across them; b1
+   evicted within 5 s with a ``job_preempted`` event and its parameters
+   as committed, ``jobs.b`` one preemption naming b1; every flash kernel
+   launched 12 x (training passes + observer passes (forward only) +
+   capture warm-up passes), none of the codec kernels. It first checks the
+   device memory (``multijob_device_bytes``; hi0 runs at "tiny" if it
+   does not fit) and the host's (``multijob_host_bytes``); it runs before
+   the phases that keep the card plane's buffers, with six models to hold.
+5. train_cuda_int8: the same drill, all 12 layers, with the gradient wire
    swapped for the on-device plane running the quantized psum
    (``comm_backend="cuda"``, ``{"algorithm": "psum", "compression":
    "int8"}``) with error feedback. Besides the checks of 3, each codec
@@ -56,9 +81,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    allreduce with a peer on the wire. Then the plane on the card is held
    bitwise against the plane on the CPU at each of the drill's bucket
    sizes.
-5. train_tiny: the drill of 3 over TCP at "tiny" (head_dim 16), full width
+6. train_tiny: the drill of 3 over TCP at "tiny" (head_dim 16), full width
    and depth, batch 8: the example's default config, on the card.
-6. gpt_1b: one forward/backward of "1b" (24 layers, d_model 2048, 16 heads
+7. gpt_1b: one forward/backward of "1b" (24 layers, d_model 2048, 16 heads
    of 128, seq 2048, activation checkpointing on) at batch 1, at full width
    and depth. The checkpointing recomputes each block's forward in the
    backward: 48 forward, 24 dQ and 24 dK/dV launches. The loss must lie
@@ -66,7 +91,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    of the same model whose attention runs ``reference_attention`` on the
    card.
 
-7. train_diloco: BASELINE config 4's shape, the DiLoCo example
+8. train_diloco: BASELINE config 4's shape, the DiLoCo example
    (``run_diloco_drill``) at "125m", full width and depth, batch 8: two
    groups over TCP at codec none, ``sync_every=8``, 2 streaming fragments,
    outer ``sgd(0.7, momentum=0.9, nesterov=True)``, inner AdamW (3e-4,
@@ -78,7 +103,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    equal to its donor), the losses finite, and every flash kernel launched
    12 x (inner steps + capture warm-up passes) times. It prints the outer
    sync's phase p50s and gauges, the round times and the heal.
-8. train_localsgd_int8: BASELINE config 3's shape, LocalSGD at "125m",
+9. train_localsgd_int8: BASELINE config 3's shape, LocalSGD at "125m",
    full width and depth, batch 8, four groups on the on-device plane
    (``comm_backend="cuda"``, psum, int8, error feedback on),
    ``sync_every=8``, 2 fragments. Every group commits round 1; in round 2
@@ -90,7 +115,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a peer. Round 1's fragment averages on the card must equal the same
    plane on the CPU bitwise. It first checks the host's free memory
    (``localsgd_host_bytes``).
-9. train_hier_int8: the hierarchical data plane at "125m", full width and
+10. train_hier_int8: the hierarchical data plane at "125m", full width and
    depth, batch 8: four groups in two domains (``HIER_DOMAINS``: rack0 =
    {g0, g1}, rack1 = {g2, g3}) over ``TcpCommContext(algorithm="star",
    compression="int8", topology="hier")``, 4 lanes, 1 MiB chunks, DDP with
@@ -112,7 +137,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``HIER_PSUM_TOL`` x absmax of the f64 sum; the codec kernels must have
    launched 3 times each per distinct size (star 2, psum 1). It first
    checks the host's free memory (``hier_host_bytes``).
-10. train_durable: the reference training loop whole, at "125m" full width
+11. train_durable: the reference training loop whole, at "125m" full width
    and depth, batch 8, over TCP under a lighthouse granting 2 s epoch
    leases (``run_resume_drill``): group 0 commits 3 steps alone, each a
    fused step replaying one CUDA graph; group 1 starts from a poisoned
@@ -138,6 +163,7 @@ It prints a ``kernels`` JSON line before the last line and ends with
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -1389,7 +1415,7 @@ def _outer_report(run, card: str) -> str:
 
 
 def phase_train_diloco(seed: int, card: str, batch: int = 8):
-    """run_diloco_drill at "125m" (module docstring, phase 7); returns the
+    """run_diloco_drill at "125m" (module docstring, phase 8); returns the
     flash launches it must have made and the result."""
     from torchft_tpu_torch.examples.train_diloco import run_diloco_drill
     from torchft_tpu_torch.models import CONFIGS, GPT, count_params
@@ -1498,7 +1524,7 @@ def check_plane_at_fragments(recorded, seed: int) -> None:
 
 def phase_train_localsgd_int8(seed: int, card: str, batch: int = 8):
     """The LocalSGD drill on the int8 device plane (module docstring, phase
-    8); returns the flash launches, the codec launches per kernel and the
+    9); returns the flash launches, the codec launches per kernel and the
     result."""
     from torchft_tpu_torch.examples.train_diloco import run_diloco_drill
     from torchft_tpu_torch.models import CONFIGS, GPT, count_params
@@ -1541,6 +1567,149 @@ def phase_train_localsgd_int8(seed: int, card: str, batch: int = 8):
         f"each codec kernel; forward/backward passes: {result['passes']}")
     check_plane_at_fragments(result["recorded"], seed)
     return result["passes"] * cfg.n_layers, codec, result
+
+
+# train_multijob: the multi-tenant control plane at 125m
+MULTIJOB_TRAINERS = 5  # a0, a1, b0, b1, hi0 (the observer trains nothing)
+MULTIJOB_CONCURRENT = 4  # a0, a1, b0 and b1 train at once
+MULTIJOB_GRAPHS = 3  # solo steps capture CUDA graphs: a0 (alone), b0, hi0
+
+
+def gpt_activation_bytes(cfg, batch: int) -> int:
+    """A reckoning of one forward/backward's live activations in f32: per
+    layer 18 tensors of batch x seq x d_model (the block's inputs, norms,
+    q/k/v, attention output, residuals and the MLP's two d_ff-wide ones at
+    4 each), and the logits with their gradient."""
+    bsd = batch * cfg.max_seq_len * cfg.d_model
+    return 4 * (18 * bsd * cfg.n_layers
+                + 2 * batch * cfg.max_seq_len * cfg.vocab_size)
+
+
+def multijob_device_bytes(n_params: int, act: int,
+                          trainers: int = MULTIJOB_TRAINERS) -> int:
+    """Device memory train_multijob may hold at once: each trainer's f32
+    parameters, gradients and two AdamW moments (16 bytes a parameter),
+    the observer's parameters, the activations of the groups training at
+    once, and the private memory pools of the CUDA graphs the solo steps
+    capture (one pass's activations each)."""
+    return (16 * trainers + 4) * n_params + act * (MULTIJOB_CONCURRENT
+                                                   + MULTIJOB_GRAPHS)
+
+
+def multijob_host_bytes(n_params: int) -> int:
+    """Host memory train_multijob may hold at once, in f32 copies of the
+    parameters: per trainer the DDP staging arena, the wire's buffers and
+    scratch (4); once, the heal's staged state on both ends (6)."""
+    return (MULTIJOB_TRAINERS * 4 + 6) * 4 * n_params
+
+
+MULTIJOB_PHASES = ("quorum", "quorum_fast", "forward_backward", "ddp_wire",
+                   "commit_barrier", "commit_fast", "probe_forward")
+
+
+def multijob_report(result: dict, card: str) -> list:
+    """The lines train_multijob prints about a ``run_multijob_drill``
+    result: per job and group the phase p50s, B's during A's kill and
+    heal, its counters, the heal, the eviction and the drill's wall time."""
+    runs = result["runs"]
+    lines = []
+    for job, names in (("a", ("a0", "a1", "a_obs")), ("b", ("b0", "b1")),
+                       ("hi", ("hi0",))):
+        for name in names:
+            for life, run in enumerate(runs[name]):
+                lines.append(f"job {job} {name} life {life} phase p50 ms "
+                             f"{_p50s(run.metrics, MULTIJOB_PHASES)} "
+                             f"({card})")
+    k = result["heal_step"] - 2
+    for name, m in sorted(result["b_window"].items()):
+        lines.append(f"job b {name} during a's kill and heal (steps {k}-"
+                     f"{result['heal_step'] + 1}): quorum_fast p50 "
+                     f"{m.get('quorum_fast_p50_ms', 0):.4f} ms, commit_fast "
+                     f"p50 {m.get('commit_fast_p50_ms', 0):.4f} ms, 0 control "
+                     f"RPCs a step ({card})")
+    keys = ("membership_epoch", "quorum_compute_count", "lease_breaks")
+    lines.append("job b's counters before and after the window: "
+                 + ", ".join(f"{key} {result['b_status']['before'][key]} -> "
+                             f"{result['b_status']['after'][key]}"
+                             for key in keys))
+    heal = runs["a1"][-1].metrics
+    lines.append(f"a1's heal at step {result['heal_step']}: wall "
+                 f"{heal.get('heal_wall_ms', 0):.1f} ms, wire "
+                 f"{heal.get('heal_bytes_per_s', 0) / 1e9:.3f} GB/s ({card})")
+    ev = result["eviction"]
+    lines.append(f"b1 evicted at step {result['total']}: answered in "
+                 f"{ev['seconds'] * 1e3:.2f} ms; jobs.b preemptions "
+                 f"{ev['status']['preemptions']}, evicted "
+                 f"{ev['status']['evicted']}; job_preempted events "
+                 f"{len(ev['events'])}; parameters unchanged "
+                 f"{ev['unchanged']}")
+    lines.append(f"a0 and b0 (same seeds and data) bitwise equal at steps "
+                 f"{result['cross_job_equal']} of 1-{k}")
+    lines.append(f"drill {result['seconds']:.1f} s; passes: {result['passes']}"
+                 f" training, {result['probe_passes']} observer probe, "
+                 f"{result['hi_passes']} hi0 ({card})")
+    return lines
+
+
+def phase_train_multijob(seed: int, card: str, batch: int = 8):
+    """The multi-tenant drill (module docstring, phase 4): returns the flash
+    kernels' launches by head_dim and the result."""
+    import torch
+
+    from torchft_tpu_torch.examples.train_ddp import run_multijob_drill
+    from torchft_tpu_torch.models import CONFIGS, GPT, count_params
+
+    t0 = time.perf_counter()
+    cfg = CONFIGS["125m"]
+    n_params = count_params(GPT(cfg, device="meta"))
+    need_host = multijob_host_bytes(n_params)
+    free_host = check_host_memory(need_host, what="train_multijob")
+    act = gpt_activation_bytes(cfg, batch)
+    need = multijob_device_bytes(n_params, act)
+    gc.collect()  # an earlier phase's cycles may hold tensors
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    free = torch.cuda.mem_get_info()[0]
+    hi_name = "125m"
+    if free < need:
+        # the late job at "tiny": jobs a and b stay at full size
+        hi_name = "tiny"
+        need = multijob_device_bytes(n_params, act, MULTIJOB_TRAINERS - 1)
+        if free < need:
+            raise AssertionError(
+                f"train_multijob needs {need / 1e9:.2f} GB of device memory "
+                f"free, has {free / 1e9:.2f} GB")
+    hi_cfg = CONFIGS[hi_name]
+    log(f"  125m: {n_params} parameters, batch {batch}; jobs a (a0, a1, an "
+        f"observer), b (b0, b1) and hi (hi0 at {hi_name}) over TCP at "
+        "codec none; "
+        f"device memory: up to {need / 1e9:.2f} GB, {free / 1e9:.1f} GB free "
+        f"({held / 1e9:.2f} GB held by earlier phases);"
+        f" host memory: up to {need_host / 1e9:.2f} GB, "
+        f"{free_host / 1e9:.1f} GB available")
+    torch.cuda.reset_peak_memory_stats()
+    result = run_multijob_drill(cfg, hi_cfg=hi_cfg, device="cuda",
+                                batch_size=batch, seed=seed, timeout=300.0,
+                                log=lambda m: log("  " + m))
+    for line in multijob_report(result, card):
+        log("  " + line)
+    log(f"  device memory peak: {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB allocated, {torch.cuda.max_memory_reserved() / 1e9:.2f} GB "
+        f"reserved (reckoned {need / 1e9:.2f} GB) ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase {time.perf_counter() - t0:.1f} s ({card})")
+    trained = result["passes"] * cfg.n_layers
+    per_d = {cfg.head_dim: {"flash_fwd": trained
+                            + result["probe_passes"] * cfg.n_layers,
+                            "flash_bwd_dq": trained,
+                            "flash_bwd_dkv": trained}}
+    hi = result["hi_passes"] * hi_cfg.n_layers
+    row = per_d.setdefault(hi_cfg.head_dim, dict.fromkeys(per_d[cfg.head_dim],
+                                                          0))
+    for name in row:
+        row[name] += hi
+    return per_d, result
 
 
 # train_hier_int8: four groups in two domains over the hierarchical TCP
@@ -1758,7 +1927,7 @@ def check_hier_planes(sizes, seed: int, card: str) -> "tuple[list, int]":
 
 
 def phase_train_hier_int8(seed: int, card: str, batch: int = 8):
-    """The hierarchical drill (module docstring, phase 9): returns the
+    """The hierarchical drill (module docstring, phase 10): returns the
     flash kernels' launches, the codec kernels' launches and the result."""
     from torchft_tpu_torch.examples.train_ddp import run_kill_and_heal
     from torchft_tpu_torch.models import CONFIGS, GPT, count_params
@@ -1816,9 +1985,9 @@ def _check_launches(counts, want, what: str) -> None:
                              f"want {want} ({what})")
 
 
-PHASES = ("kernels", "train", "train_cuda_int8", "train_tiny", "gpt_1b",
-          "train_diloco", "train_localsgd_int8", "train_hier_int8",
-          "train_durable")
+PHASES = ("kernels", "train", "train_multijob", "train_cuda_int8",
+          "train_tiny", "gpt_1b", "train_diloco", "train_localsgd_int8",
+          "train_hier_int8", "train_durable")
 
 
 def _add_launches(rows: dict, counts: dict, head_dim: int) -> None:
@@ -1886,6 +2055,19 @@ def main() -> int:
         _check_launches(counts, {n: want for n in counts},
                         "one per layer per forward/backward pass")
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
+    if "train_multijob" in phases:
+        log("phase train_multijob")
+        flash.reset_launch_counts()
+        quant.reset_launch_counts()
+        per_d, _ = phase_train_multijob(args.seed, smi)
+        counts = {**flash.LAUNCHES, **quant.LAUNCHES}
+        want = {n: sum(c[n] for c in per_d.values()) for n in flash.LAUNCHES}
+        _check_launches(counts, {**want, **dict.fromkeys(quant.LAUNCHES, 0)},
+                        "flash: one per layer per pass, the observer's "
+                        "forward-only passes and the captures' warm-up "
+                        "passes included; codec: none")
+        for head_dim, c in per_d.items():
+            _add_launches(rows, c, head_dim)
     if "train_cuda_int8" in phases:
         log("phase train_cuda_int8")
         flash.reset_launch_counts()

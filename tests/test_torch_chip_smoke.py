@@ -153,10 +153,10 @@ def test_flash_shapes_reach_every_head_dim() -> None:
         assert (name, (8 if name != "1b" else 1, cfg.max_seq_len,
                        cfg.n_heads, cfg.head_dim)) in \
             {(w, shape) for w, shape, _ in shapes}
-    assert smoke.PHASES == ("kernels", "train", "train_cuda_int8",
-                            "train_tiny", "gpt_1b", "train_diloco",
-                            "train_localsgd_int8", "train_hier_int8",
-                            "train_durable")
+    assert smoke.PHASES == ("kernels", "train", "train_multijob",
+                            "train_cuda_int8", "train_tiny", "gpt_1b",
+                            "train_diloco", "train_localsgd_int8",
+                            "train_hier_int8", "train_durable")
     assert all(n in {k for k, v in GPT(CONFIGS["1b"], device="meta")
                      .named_parameters()} for n in smoke.GRAD_SAMPLE)
 
@@ -400,3 +400,94 @@ def test_check_hier_drill_catches_a_wrong_counter() -> None:
     out[0] = np.nextafter(out[0], np.float32(np.inf))
     with pytest.raises(AssertionError, match="_host_hier_allreduce"):
         smoke.check_hier_drill(bad, CONFIGS["tiny"], "CPU")
+
+
+def test_multijob_memory_at_125m() -> None:
+    smoke = _smoke()
+    cfg = CONFIGS["125m"]
+    n = 136091136
+    # per layer 18 x (8 x 1024 x 768) f32, and the logits with their grad
+    act = smoke.gpt_activation_bytes(cfg, 8)
+    assert act == 4 * (18 * 8 * 1024 * 768 * 12 + 2 * 8 * 1024 * 32768)
+    # five trainers' parameters, gradients and AdamW moments, the
+    # observer's parameters, four groups' activations and three graphs'
+    assert smoke.multijob_device_bytes(n, act) == (16 * 5 + 4) * n + 7 * act
+    assert smoke.multijob_host_bytes(n) == (5 * 4 + 6) * 4 * n
+    assert smoke.PHASES.index("train_multijob") < smoke.PHASES.index(
+        "train_hier_int8")
+
+
+def _tiny_multijob(monkeypatch, free):
+    import torchft_tpu_torch.examples.train_ddp as example
+    import torchft_tpu_torch.models as models
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setenv("TORCHFT_TPU_FASTPATH", "1")
+    monkeypatch.setattr(smoke, "log", lines.append)
+    monkeypatch.setitem(models.CONFIGS, "125m", CONFIGS["tiny"])
+    # the card's memory queries, answered for a CPU-only torch
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (free, free))
+    for name in ("empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    for name in ("memory_allocated", "max_memory_allocated",
+                 "max_memory_reserved"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    drill = example.run_multijob_drill
+    monkeypatch.setattr(example, "run_multijob_drill", lambda cfg, **kw: drill(
+        cfg, **dict(kw, device="cpu", batch_size=2, timeout=30.0)))
+    return smoke, lines
+
+
+def test_train_multijob_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # the phase as the card runs it, moved to "tiny" on the CPU, with the
+    # device memory short of five trainers: hi0 runs at "tiny" (here the
+    # same head_dim), every check of the drill, the report, the launches
+    cfg = CONFIGS["tiny"]
+    smoke = _smoke()
+    n = sum(p.numel() for p in GPT(cfg, device="meta").parameters())
+    act = smoke.gpt_activation_bytes(cfg, 8)
+    smoke, lines = _tiny_multijob(
+        monkeypatch, smoke.multijob_device_bytes(n, act) - 1)
+    per_d, result = smoke.phase_train_multijob(0, "CPU")
+    text = "\n".join(lines)
+    assert "hi0 at tiny" in text
+    trained = result["passes"] + result["hi_passes"]
+    assert per_d == {16: {
+        "flash_fwd": cfg.n_layers * (trained + result["probe_passes"]),
+        "flash_bwd_dq": cfg.n_layers * trained,
+        "flash_bwd_dkv": cfg.n_layers * trained}}
+    assert result["probe_passes"] == 7
+    for name in ("a0", "a1", "a_obs", "b0", "b1", "hi0"):
+        assert f" {name} life 0 phase p50 ms" in text
+    assert "a1 life 1" in text and "quorum_fast p50" in text
+    assert "membership_epoch 8 -> 8" in text
+    assert "b1 evicted at step 7" in text
+    assert "parameters unchanged True" in text
+    assert "bitwise equal at steps [1, 2, 3] of 1-3" in text
+    assert "a1's heal at step 5" in text and "phase " in text
+    assert "device memory peak" in text
+
+
+def test_train_multijob_failures_are_not_swallowed(monkeypatch, capsys):
+    # a failed drill fails the phase and chip_smoke.py's main (a non-zero
+    # exit, no result line); so does memory short even for four trainers
+    import sys
+
+    smoke, _ = _tiny_multijob(monkeypatch, 1)
+    with pytest.raises(AssertionError, match="device memory free"):
+        smoke.phase_train_multijob(0, "CPU")
+    import torchft_tpu_torch.examples.train_ddp as example
+
+    def broken(cfg, **kw):
+        raise AssertionError("b1's eviction: at None")
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (1e15, 1e15))
+    monkeypatch.setattr(example, "run_multijob_drill", broken)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(smoke, "phase_device", lambda: ("CPU", {}))
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py", "--phases",
+                                      "train_multijob"])
+    with pytest.raises(AssertionError, match="eviction"):
+        smoke.main()
+    assert '"ok"' not in capsys.readouterr().out

@@ -205,3 +205,140 @@ def test_timer_stress() -> None:
     time.sleep(0.3)
     ok = sum(1 for t in timed if t.exception() is None)
     assert ok == 100
+
+
+# --- the observer cases of the quorum kernel, through both bindings ---------
+
+
+def _results(replica_id, parts, rank=0):
+    """compute_quorum_results through the port's binding, held equal to the
+    JAX package's native entry point on the same quorum."""
+    import ctypes
+    import json
+
+    from torchft_tpu.control._native import check_error, get_lib, take_string
+
+    q = {"quorum_id": 1, "participants": parts, "created_ms": 0}
+    got = control.compute_quorum_results(replica_id, rank, q)
+    err = ctypes.c_char_p()
+    ptr = get_lib().ft_compute_quorum_results(
+        replica_id.encode(), rank, json.dumps(q).encode(), ctypes.byref(err))
+    check_error(err)
+    assert got == json.loads(take_string(ptr))
+    return got
+
+
+def _observer(replica_id, step=0):
+    return {**_member(replica_id, step=step), "data_plane": False}
+
+
+def test_transport_membership_excludes_observers() -> None:
+    # observers join the quorum, not the wire; wire ranks are contiguous
+    # in replica order
+    parts = [_member("a", step=5), _observer("b"), _member("c", step=5)]
+    res_a = _results("a", parts)
+    assert res_a["transport_replica_ids"] == ["a", "c"]
+    assert res_a["transport_rank"] == 0
+    assert res_a["transport_world_size"] == 2
+    assert res_a["max_replica_ids"] == ["a", "c"]
+    assert _results("c", parts)["transport_rank"] == 1
+    res_b = _results("b", parts)
+    assert res_b["transport_rank"] is None
+    assert res_b["transport_world_size"] == 2
+    assert res_b["replica_world_size"] == 3
+
+
+def test_transport_membership_includes_healing_members() -> None:
+    # a behind data-plane member stays on the wire: it receives the
+    # cohort's average in its heal step
+    res_b = _results("b", [_member("a", step=9), _member("b", step=2)])
+    assert res_b["heal"] is True
+    assert res_b["transport_replica_ids"] == ["a", "b"]
+    assert res_b["transport_rank"] == 1
+    assert res_b["max_replica_ids"] == ["a"]
+
+
+def test_observers_invisible_to_step_and_recovery_logic() -> None:
+    # never the bootstrap primary or a donor, never a recovery
+    # destination, never defining max_step, never in the cohort
+    parts0 = [_observer("_obs"), _member("a"), _member("b")]
+    res_a = _results("a", parts0)
+    assert res_a["recover_dst_ranks"] == [2]
+    assert res_a["max_world_size"] == 2
+    assert res_a["store_address"] == "store_addr_a"
+    parts_ahead = [_observer("obs", step=99), _member("a", step=5),
+                   _member("b", step=5)]
+    res = _results("a", parts_ahead)
+    assert res["max_step"] == 5
+    assert res["max_replica_ids"] == ["a", "b"]
+    assert res["heal"] is False
+
+
+def test_all_observer_fallback_emits_coherent_transport() -> None:
+    # every member an observer: the kernel takes them all as the data
+    # plane, and the transport fields describe that same membership
+    parts = [_observer("a", step=3), _observer("b", step=3)]
+    res_a = _results("a", parts)
+    assert res_a["transport_replica_ids"] == ["a", "b"]
+    assert res_a["transport_rank"] == 0
+    assert res_a["transport_world_size"] == 2
+    res_b = _results("b", parts)
+    assert res_b["transport_rank"] == 1
+    assert res_b["max_replica_ids"] == ["a", "b"]
+
+
+def test_incremental_quorum_counters_match_the_reference() -> None:
+    opts = {"min_replicas": 1, "join_timeout_ms": 100,
+            "heartbeat_timeout_ms": 50}
+    port, ref = (mod.IncrementalQuorum(opts, prune_after_ms=100)
+                 for mod in (control, jcontrol))
+    for iq in (port, ref):
+        for i, rid in enumerate(("x", "y", "z")):
+            iq.heartbeat(rid, 1000 + i)
+            iq.join(1000 + i, _member(rid))
+        iq.decision(1010)
+        iq.heartbeat("x", 1200)
+        iq.decision(1200)  # y and z expire; at 1400 all three are pruned
+        iq.decision(1400)
+    assert port.counters() == ref.counters()
+    assert port.counters()["pruned_heartbeats"] == 3
+
+
+def test_lighthouse_cli_serves_a_domain_tier() -> None:
+    # the fleet-tree flags: a tier-1 aggregator for one domain, reporting
+    # to a root lighthouse, as the JAX package's CLI does
+    import json
+    import subprocess
+    import sys
+    import urllib.request
+
+    root = control.Lighthouse(min_replicas=1)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torchft_tpu_torch.lighthouse_cli",
+         "--min_replicas", "1", "--bind", "127.0.0.1:0", "--hostname",
+         "127.0.0.1", "--domain", "rack7", "--upstream", root.address(),
+         "--upstream_report_interval_ms", "50", "--prune_after_ms", "60000",
+         "--no-cache-quorum"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert "lighthouse serving at" in line, line
+        addr = line.strip().rsplit(" ", 1)[-1]
+        assert "tier-1 aggregator for domain 'rack7'" in proc.stdout.readline()
+        with urllib.request.urlopen(addr + "/status.json", timeout=5) as r:
+            ctl = json.load(r)["control"]
+        assert ctl["tier"] == 1 and ctl["domain"] == "rack7"
+        deadline = time.monotonic() + 10.0
+        while True:
+            with urllib.request.urlopen(root.address() + "/status.json",
+                                        timeout=5) as r:
+                domains = json.load(r).get("domains") or {}
+            if "rack7" in domains or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        assert domains["rack7"]["tier"] == 1
+        assert domains["rack7"]["address"] == addr
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
+        root.shutdown()

@@ -18,6 +18,7 @@ both groups and a resume, with the checks ``chip_smoke.py``'s
 import dataclasses
 import math
 import os
+import time
 
 import numpy as np
 import pytest
@@ -209,3 +210,215 @@ def test_resume_drill_at_tiny(tmp_path, monkeypatch) -> None:
             assert all(math.isfinite(v) for v in run.losses.values())
     assert sorted(first0.losses) == list(range(1, 8))
     assert sorted(runs[0][1].losses) == [7, 8]
+
+
+# --- observers in a live quorum (twins of test_integration.py's) -----------
+
+_TARGET = np.full((2, 3), 10.0, dtype=np.float32)
+
+
+def _observer_manager(pkg, lighthouse, store, name, **kw):
+    import torchft_tpu.comm.transport as jtransport
+    import torchft_tpu.manager as jmanager
+
+    from torchft_tpu_torch.comm.transport import TcpCommContext
+    from torchft_tpu_torch.manager import Manager
+
+    mgr_cls, comm = ((Manager, TcpCommContext(timeout=5.0)) if pkg == "torch"
+                     else (jmanager.Manager,
+                           jtransport.TcpCommContext(timeout=5.0)))
+    kw.setdefault("min_replica_size", 1)
+    return mgr_cls(comm=comm, timeout=5.0,
+                   quorum_timeout=5.0, connect_timeout=5.0, rank=0,
+                   world_size=1, store_addr=store.addr,
+                   lighthouse_addr=lighthouse.address(),
+                   replica_id=f"{name}_", heartbeat_interval=0.05, **kw)
+
+
+class _Trainer:
+    """A replica group descending w -= 0.5 * avg(w - target): one step's
+    implied contribution ratio (w_a - w_b) / (0.5 (w_a - target)) is the
+    share of participants that contributed, 1.0 or 0.5 (a healer gives
+    zeros) in a cohort of two; 2/3 or 1/3 if an observer were counted."""
+
+    def __init__(self, lighthouse, name, **kw) -> None:
+        from torchft_tpu_torch.comm.store import StoreServer
+
+        self.store = StoreServer()
+        self.state = {"w": np.zeros((2, 3), np.float32)}
+        self.history = {}
+        self.parts = set()
+        self.healed = False
+        self.manager = _observer_manager(
+            "torch", lighthouse, self.store, name,
+            load_state_dict=self._load, state_dict=lambda: dict(self.state),
+            **kw)
+
+    def _load(self, sd) -> None:
+        self.state["w"] = np.array(sd["w"], np.float32)
+
+    def step(self) -> bool:
+        from torchft_tpu_torch.comm.context import ReduceOp
+
+        m = self.manager
+        m.start_quorum()
+        avg = m.allreduce_arrays([self.state["w"] - _TARGET],
+                                 op=ReduceOp.AVG).future().result(timeout=20)
+        if not m.should_commit():
+            return False
+        self.healed |= m.did_heal()
+        self.parts.add(m.num_participants())
+        self.state["w"] = self.state["w"] - np.float32(0.5) * avg[0]
+        self.history[m.current_step()] = self.state["w"].copy()
+        return True
+
+    def close(self) -> None:
+        self.manager.shutdown(wait=False)
+        self.store.shutdown()
+
+
+def _ratios(trainer):
+    steps = sorted(trainer.history)
+    out = []
+    for a, b in zip(steps, steps[1:]):
+        if b == a + 1:
+            w_a, w_b = trainer.history[a], trainer.history[b]
+            out.append(float(np.mean((w_a - w_b) / (0.5 * (w_a - _TARGET)))))
+    return out
+
+
+def _observe(pkg, lighthouse, stop, view):
+    from torchft_tpu_torch.comm.store import StoreServer
+
+    store = StoreServer()
+    m = _observer_manager(pkg, lighthouse, store, "observer_0",
+                          data_plane=False, load_state_dict=lambda sd: None,
+                          state_dict=lambda: {})
+    try:
+        while not stop.is_set():
+            try:
+                m.start_quorum(allow_heal=False)
+                m.wait_quorum()
+            except (TimeoutError, RuntimeError):
+                continue
+            view["world_max"] = max(view["world_max"],
+                                    m.replica_world_size())
+            view["participated"] |= m.is_participating()
+            view["wire_max"] = max(view["wire_max"],
+                                   m.transport_world_size())
+            view["steps"] = m.current_step()
+            time.sleep(0.02)
+    finally:
+        m.shutdown(wait=False)
+        store.shutdown()
+
+
+@pytest.mark.parametrize("observer_pkg", ["torch", "jax"])
+def test_observer_replica_is_invisible_to_training(observer_pkg) -> None:
+    """Two port trainers and an observer (of either package) in one
+    quorum: every update is a two-participant scale, the observer sees
+    the full three-member quorum from a wire of its own and never
+    participates or advances."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    lh = Lighthouse(min_replicas=1, join_timeout_ms=200,
+                    heartbeat_timeout_ms=1000)
+    stop = threading.Event()
+    view = {"world_max": 0, "participated": False, "wire_max": 0,
+            "steps": 0}
+    obs = threading.Thread(target=_observe,
+                           args=(observer_pkg, lh, stop, view), daemon=True)
+    trainers = [_Trainer(lh, f"obstrain_{i}") for i in range(2)]
+    try:
+        obs.start()
+
+        def run(t):
+            while len(t.history) < 6:
+                t.step()
+
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            list(pool.map(run, trainers, timeout=120))
+    finally:
+        stop.set()
+        obs.join(timeout=10)
+        for t in trainers:
+            t.close()
+        lh.shutdown()
+    for step in set(trainers[0].history) & set(trainers[1].history):
+        assert np.array_equal(trainers[0].history[step],
+                              trainers[1].history[step])
+    ratios = [r for t in trainers for r in _ratios(t)]
+    assert len(ratios) >= 4
+    assert all(min(abs(r - 1.0), abs(r - 0.5)) < 1e-4 for r in ratios), ratios
+    assert all(t.parts <= {1, 2} for t in trainers)
+    assert view["world_max"] == 3, view
+    assert not view["participated"] and view["wire_max"] == 1
+    assert view["steps"] == 0
+
+
+def test_observer_heal_and_spares_together() -> None:
+    """Three trainers under FIXED_WITH_SPARES(min 2) and a JAX-package
+    observer: a participant is killed, restarts and heals; at every step
+    the participant count is clamped to 2, every update is a
+    two-participant scale and the observer never participates."""
+    import threading
+
+    from torchft_tpu_torch.manager import WorldSizeMode
+
+    lh = Lighthouse(min_replicas=2, join_timeout_ms=200,
+                    heartbeat_timeout_ms=1000)
+    stop = threading.Event()
+    view = {"world_max": 0, "participated": False, "wire_max": 0,
+            "steps": 0}
+    obs = threading.Thread(target=_observe, args=("jax", lh, stop, view),
+                           daemon=True)
+    spares = dict(min_replica_size=2,
+                  world_size_mode=WorldSizeMode.FIXED_WITH_SPARES)
+    trainers = [_Trainer(lh, f"spare_{i}", **spares) for i in range(3)]
+    rejoined = []
+    errors = []
+
+    def run(i):
+        # trainer 0 is killed after its third step and restarts; the
+        # others step on until the restarted one has committed 3 steps
+        try:
+            t = trainers[i]
+            while not stop.is_set():
+                if i == 0 and len(t.history) == 3:
+                    t.close()
+                    t = _Trainer(lh, "spare_0_again", **spares)
+                    rejoined.append(t)
+                    while len(t.history) < 3 and not stop.is_set():
+                        t.step()
+                    return
+                if i and rejoined and len(rejoined[0].history) >= 3:
+                    return
+                t.step()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+            stop.set()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(3)]
+    try:
+        obs.start()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        stop.set()
+        obs.join(timeout=10)
+        for t in trainers[1:] + rejoined:
+            t.close()
+        lh.shutdown()
+    if errors:
+        raise errors[0]
+    everyone = trainers + rejoined
+    assert rejoined and rejoined[0].healed
+    assert all(t.parts <= {1, 2} and t.parts for t in everyone)
+    ratios = [r for t in everyone for r in _ratios(t)]
+    assert len(ratios) >= 6
+    assert all(min(abs(r - 1.0), abs(r - 0.5)) < 1e-4 for r in ratios), ratios
+    assert not view["participated"] and view["world_max"] >= 3

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from torchft_tpu_torch.comm.context import DummyCommContext, ReduceOp
-from torchft_tpu_torch.comm.store import StoreServer
+from torchft_tpu_torch.comm.store import StoreClient, StoreServer
 from torchft_tpu_torch.comm.transport import TcpCommContext
 from torchft_tpu_torch.control import Lighthouse
 from torchft_tpu_torch.ddp import DistributedDataParallel, _BucketPlan
@@ -332,3 +332,294 @@ def test_reduce_scatter_and_allgather_across_groups(infra) -> None:
         assert len(members) == 2 and all("rs" in x for x in members)
         assert snap["comm_intra_bytes"] > 0
         assert snap["comm_inter_bytes"] == 0.0  # one domain
+
+
+# --- observers, jobs, stages and the mesh label, against the JAX package ----
+# Both packages' Managers over a mocked control plane (the reference's
+# test_manager.py harness): the same fabricated quorum answers must drive
+# the same wire configuration, participation and heal decisions.
+
+
+def _mocked_manager(pkg, store, **kwargs):
+    from unittest.mock import MagicMock, patch
+
+    import torchft_tpu.comm.context as jctx
+    import torchft_tpu.manager as jmanager
+    import torchft_tpu_torch.comm.context as pctx
+    import torchft_tpu_torch.manager as pmanager
+
+    mod, ctx = (pmanager, pctx) if pkg == "torch" else (jmanager, jctx)
+
+    class FakeComm(ctx.CommContext):
+        """Identity-sum wire recording its configure calls."""
+
+        def __init__(self) -> None:
+            super().__init__()
+            self.configure_calls = []
+
+        def configure(self, store_addr, rank, world_size):
+            self.configure_calls.append((store_addr, rank, world_size))
+            self._rank, self._world_size = rank, world_size
+
+        def allreduce(self, arrays, op=ReduceOp.SUM, topology=None):
+            return ctx.CompletedWork([np.array(a, copy=True)
+                                      for a in arrays])
+
+        def allgather(self, arrays):
+            return ctx.CompletedWork([list(arrays)])
+
+        def broadcast(self, arrays, root=0):
+            return ctx.CompletedWork(list(arrays))
+
+    state = {"w": np.zeros(2)}
+    defaults = dict(min_replica_size=2, use_async_quorum=True, rank=0,
+                    world_size=1, store_addr=store.addr,
+                    lighthouse_addr="http://mock-lighthouse:1", timeout=5.0,
+                    quorum_timeout=5.0, connect_timeout=5.0)
+    defaults.update(kwargs)
+    comm = FakeComm()
+    with patch.object(mod, "ManagerServer") as server, \
+            patch.object(mod, "ManagerClient") as client_cls:
+        server.return_value.address.return_value = "http://mock:1"
+        client = MagicMock()
+        client_cls.return_value = client
+        manager = mod.Manager(comm=comm, load_state_dict=state.update,
+                              state_dict=lambda: dict(state), **defaults)
+    return manager, client, comm, server
+
+
+def _quorum(pkg, **kw):
+    import torchft_tpu.control as jctrl
+    import torchft_tpu_torch.control as pctrl
+
+    d = dict(quorum_id=1, replica_rank=0, replica_world_size=2,
+             recover_src_manager_address="", recover_src_rank=None,
+             recover_dst_ranks=[], store_address="store", max_step=0,
+             max_rank=0, max_world_size=2, max_replica_ids=[],
+             transport_rank=None, transport_world_size=0,
+             transport_replica_ids=[], heal=False)
+    d.update(kw)
+    return (pctrl if pkg == "torch" else jctrl).QuorumResult(**d)
+
+
+@pytest.fixture()
+def mstore():
+    server = StoreServer()
+    yield server
+    server.shutdown()
+
+
+def _both(mstore, **kwargs):
+    return {pkg: _mocked_manager(pkg, mstore, **kwargs)
+            for pkg in ("torch", "jax")}
+
+
+def test_transport_scoped_to_data_plane_members(mstore) -> None:
+    # the wire spans the data-plane members: an observer in the quorum
+    # widens nothing, and a change of the wire's members reconfigures
+    # under the same quorum id
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore).items():
+        try:
+            client.quorum.return_value = _quorum(
+                pkg, replica_world_size=3, max_step=5, max_world_size=2,
+                transport_rank=0, transport_world_size=2,
+                transport_replica_ids=["a", "b"])
+            m.start_quorum()
+            m.wait_quorum()
+            m.start_quorum()
+            m.wait_quorum()
+            assert len(comm.configure_calls) == 1
+            assert m.num_participants() == 2
+            client.quorum.return_value = _quorum(
+                pkg, replica_world_size=3, max_step=5, max_world_size=3,
+                transport_rank=0, transport_world_size=3,
+                transport_replica_ids=["a", "b", "c"])
+            m.start_quorum()
+            m.wait_quorum()
+            seen[pkg] = list(comm.configure_calls)
+        finally:
+            m.shutdown(wait=False)
+    assert seen["torch"] == seen["jax"]
+    (p1, r1, w1), (p2, r2, w2) = seen["torch"]
+    assert (r1, w1, r2, w2) == (0, 2, 0, 3)
+    assert "/observer/" not in p1 and p1 != p2
+
+
+def test_observer_gets_solo_transport_and_never_participates(mstore) -> None:
+    # an observer in the max-step cohort is still off the wire: a private
+    # one-member transport, never participating, contributing zeros
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore, data_plane=False).items():
+        try:
+            client.quorum.return_value = _quorum(
+                pkg, replica_rank=2, replica_world_size=3, max_step=0,
+                max_rank=2, max_world_size=3, transport_rank=None,
+                transport_world_size=2, transport_replica_ids=["a", "b"])
+            m.start_quorum(allow_heal=False)
+            m.wait_quorum()
+            assert not m.is_participating() and not m.is_solo_wire()
+            assert m.transport_world_size() == 1
+            fut = m.allreduce_arrays([np.full(2, 5.0, np.float32)]).future()
+            assert np.array_equal(fut.result(timeout=5)[0], np.zeros(2))
+            seen[pkg] = (comm.configure_calls,
+                         client.quorum.call_args.kwargs["data_plane"])
+            rid = m.replica_id() if pkg == "torch" else m._replica_id
+            assert comm.configure_calls[0][0].endswith(f"/observer/{rid}/0")
+        finally:
+            m.shutdown(wait=False)
+    (calls_t, dp_t), (calls_j, dp_j) = seen["torch"], seen["jax"]
+    assert dp_t is dp_j is False
+    assert [(r, w) for _, r, w in calls_t] == [(r, w) for _, r, w in calls_j]
+    assert calls_t[0][0].rsplit("/", 3)[0] == calls_j[0][0].rsplit("/", 3)[0]
+
+
+def test_observer_start_quorum_forces_allow_heal_false(mstore) -> None:
+    # a confused control plane assigns an observer a heal: nothing is
+    # fetched and the sync-participation branch is skipped
+    for pkg, (m, client, comm, _) in _both(mstore, data_plane=False).items():
+        try:
+            client.quorum.return_value = _quorum(
+                pkg, replica_rank=1, replica_world_size=2, max_step=7,
+                max_rank=None, max_world_size=1, recover_src_rank=0,
+                recover_src_manager_address="http://donor:1", heal=True,
+                transport_rank=None, transport_world_size=1,
+                transport_replica_ids=["a"])
+            m.start_quorum(allow_heal=True)
+            m.wait_quorum()
+            assert m._healing is False and m._pending_state_dict is None
+            assert not m.is_participating()
+            assert m.num_participants() == 1
+        finally:
+            m.shutdown(wait=False)
+
+
+def test_sync_participation_counts_the_wire_not_the_quorum(mstore) -> None:
+    # use_async_quorum=False: every wire member participates, and an
+    # off-wire observer must not inflate the count (1/3 instead of 1/2
+    # would under-scale every average)
+    got = {}
+    for pkg, (m, client, comm, _) in _both(
+            mstore, use_async_quorum=False).items():
+        try:
+            client.quorum.return_value = _quorum(
+                pkg, replica_world_size=3, max_world_size=2,
+                transport_rank=1, transport_world_size=2,
+                transport_replica_ids=["a", "b"])
+            m.start_quorum()
+            out = m.allreduce_arrays([np.full(4, 6.0, np.float32)])
+            got[pkg] = (m.num_participants(), m.participating_rank(),
+                        out.future().result(timeout=5)[0].tolist())
+        finally:
+            m.shutdown(wait=False)
+    assert got["torch"] == got["jax"] == (2, 1, [3.0] * 4)
+
+
+def test_eviction_latches_and_clears_participation(mstore) -> None:
+    # an evicted answer: no commit, no participants, is_evicted() for
+    # good, a job_preempted event and the telemetry fields
+    import torchft_tpu.control as jctrl
+    import torchft_tpu_torch.control as pctrl
+
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore, job_id="lo").items():
+        ctrl = pctrl if pkg == "torch" else jctrl
+        try:
+            client.quorum.return_value = _quorum(pkg)
+            m.start_quorum()
+            m.wait_quorum()
+            client.should_commit.return_value = True
+            assert m.should_commit() and not m.is_evicted()
+            client.quorum.return_value = ctrl.QuorumResult.from_json(
+                '{"evicted": true, "job_id": "lo", "membership_epoch": 9, '
+                '"lease_ms": 0}')
+            m.start_quorum()
+            m.wait_quorum()
+            assert m.is_evicted() and m.errored() is not None
+            assert m.num_participants() == 0 and not m.is_participating()
+            assert not m.should_commit_async().local_should_commit
+            info = m._telemetry_info()
+            assert info["evicted"] is True and info["job_id"] == "lo"
+            ev = [e for e in m.events.since(0)[0]
+                  if e["kind"] == "job_preempted"]
+            seen[pkg] = [(e["step"], e["epoch"], e["job_id"]) for e in ev]
+        finally:
+            m.shutdown(wait=False)
+    assert seen["torch"] == seen["jax"] == [(1, 9, "lo")]
+
+
+def test_job_prefixes_every_group_store_key() -> None:
+    # "default" keeps the unprefixed keys; any other job prefixes them all
+    for job, prefix in (("default", ""), ("train-7", "job:train-7/")):
+        for pkg in ("torch", "jax"):
+            own = StoreServer()
+            m, client, comm, server = _mocked_manager(pkg, own, job_id=job)
+            try:
+                assert m.job_id() == job
+                assert server.call_args.kwargs["job_id"] == job
+                c = StoreClient(own.addr)
+                assert c.get(f"{prefix}manager_addr") == b"http://mock:1"
+                assert c.get(f"{prefix}replica_id").decode() == (
+                    m.replica_id() if pkg == "torch" else m._replica_id)
+                assert c.get(f"{prefix}checkpoint_addr_0")
+                assert m._telemetry_info()["job_id"] == job
+            finally:
+                m.shutdown(wait=False)
+                own.shutdown()
+
+
+def test_bind_stage_and_mesh_shape_match_the_reference(mstore) -> None:
+    got = {}
+    for pkg, (m, client, comm, _) in _both(mstore, model_shards=4).items():
+        try:
+            assert (m.stage_index(), m.stage_count()) == (0, 1)
+            assert m.metrics.labels()["mesh_shape"] == "1x4"
+            with pytest.raises(ValueError, match="outside"):
+                m.bind_stage(3, 3)
+            with pytest.raises(ValueError, match="outside"):
+                m.bind_stage(-1, 2)
+            m.bind_stage(1, 3)
+            snap = m.metrics.snapshot()
+            info = m._telemetry_info()
+            # a wire of 3, then a shrink to 2: the label follows the wire
+            shapes = []
+            for world in (3, 2):
+                client.quorum.return_value = _quorum(
+                    pkg, quorum_id=world, replica_world_size=world,
+                    max_world_size=world, transport_rank=0,
+                    transport_world_size=world,
+                    transport_replica_ids=list("abc"[:world]))
+                m.start_quorum()
+                m.wait_quorum()
+                shapes.append(m.metrics.labels()["mesh_shape"])
+            got[pkg] = (m.stage_index(), m.stage_count(),
+                        snap["pipe_stage_index"], snap["pipe_stage_count"],
+                        info["stage_index"], info["stage_count"], shapes,
+                        m.model_shards)
+        finally:
+            m.shutdown(wait=False)
+    assert got["torch"] == got["jax"] == (1, 3, 1.0, 3.0, 1, 3,
+                                          ["3x4", "2x4"], 4)
+
+
+def test_all_observer_quorum_stays_coherent(mstore) -> None:
+    # every member an observer: the kernel puts them all on the wire (its
+    # fallback), so the observer configures the cohort's wire, yet never
+    # participates, heals or donates
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore, data_plane=False).items():
+        try:
+            client.quorum.return_value = _quorum(
+                pkg, replica_world_size=2, max_step=3, max_world_size=2,
+                recover_dst_ranks=[1], transport_rank=0,
+                transport_world_size=2, transport_replica_ids=["a", "b"])
+            m.start_quorum(allow_heal=True)
+            m.wait_quorum()
+            assert not m.is_participating() and not m._healing
+            assert m.transport_world_size() == 2
+            seen[pkg] = comm.configure_calls
+        finally:
+            m.shutdown(wait=False)
+    assert seen["torch"] == seen["jax"]
+    prefix, rank, world = seen["torch"][0]
+    assert (rank, world) == (0, 2) and "/observer/" not in prefix

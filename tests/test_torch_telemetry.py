@@ -335,3 +335,62 @@ def test_manager_telemetry_metrics_serve_fastpath_counters(monkeypatch) -> None:
         manager.shutdown(wait=False)
         store.shutdown()
         lh.shutdown()
+
+
+def test_fleet_top_tags_port_rows_by_job_with_the_observer() -> None:
+    """fleet_top's read-only collection over port managers in two jobs,
+    one with an observer: every row is found through the job-prefixed
+    store keys, tagged with its job, and the observer's row is there with
+    its telemetry saying it does not participate."""
+    import threading
+
+    ft = _load_fleet_top()
+    lh = Lighthouse(min_replicas=1, join_timeout_ms=100)
+    stores = [StoreServer() for _ in range(3)]
+    specs = (("a", "fa0", True), ("a", "fobs", False), ("b", "fb0", True))
+    managers = [Manager(min_replica_size=1, rank=0, world_size=1,
+                        store_addr=s.addr, lighthouse_addr=lh.address(),
+                        replica_id=f"{name}_", job_id=job, data_plane=dp,
+                        timeout=10.0, quorum_timeout=10.0,
+                        connect_timeout=10.0, heartbeat_interval=0.05)
+                for s, (job, name, dp) in zip(stores, specs)]
+
+    def step(m):
+        m.start_quorum(allow_heal=False)
+        m.allreduce_arrays([np.ones(4, np.float32)]).future().result(
+            timeout=20)
+        assert m.should_commit()
+
+    try:
+        threads = [threading.Thread(target=step, args=(m,)) for m in managers]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+            assert not t.is_alive()
+        status, endpoints = ft.discover_managers(lh.address(), timeout=5.0)
+        assert set(status["jobs"]) >= {"a", "b"}
+        by_id = {ep["replica_id"]: ep for ep in endpoints}
+        ids = {m.replica_id(): job for m, (job, _, _) in zip(managers, specs)}
+        assert {rid: ep["job"] for rid, ep in by_id.items()} == ids
+        rows = []
+        for ep in endpoints:
+            assert ep.get("url"), ep
+            polled = ft.poll_manager(ep["url"], 0, timeout=5.0)
+            rows.append((ft.build_row(ep, polled), polled))
+        obs_id = managers[1].replica_id()
+        obs_rows = [(r, p) for r, p in rows if obs_id[:20] in r["replica"]]
+        assert len(obs_rows) == 1
+        row, polled = obs_rows[0]
+        assert row["replica"].startswith("a/")
+        assert polled["metrics"]["participating"] is False
+        assert polled["metrics"]["job_id"] == "a"
+        assert sorted(r["replica"].split("/")[0] for r, _ in rows) == [
+            "a", "a", "b"]
+        assert "a/" in ft.render(status, [r for r, _ in rows])
+    finally:
+        for m in managers:
+            m.shutdown(wait=False)
+        for s in stores:
+            s.shutdown()
+        lh.shutdown()

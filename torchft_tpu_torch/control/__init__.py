@@ -25,6 +25,9 @@ __all__ = [
     "ManagerServer",
     "ManagerClient",
     "QuorumResult",
+    "compute_quorum_results",
+    "lighthouse_heartbeat",
+    "lighthouse_quorum",
     "quorum_compute_raw",
 ]
 
@@ -128,8 +131,13 @@ class Lighthouse:
     it holds that domain's quorum and posts a membership summary to the
     root every ``upstream_report_interval_ms``, which the root lists under
     ``/status.json`` ``domains`` (what ``comm.topology.DomainTopology``
-    walks). The keys ride the native constructor's ``extra`` JSON, as the
-    JAX package's do."""
+    walks). ``fleet_capacity`` caps the replica groups of all jobs
+    together: a quorum request that finds the fleet over it evicts one
+    group of the lowest-priority job that is over its own group budget and
+    below the requester's priority (``LighthouseClient.register_job`` sets
+    both), and that group's next quorum request is answered with the
+    eviction. The keys ride the native constructor's ``extra`` JSON, as
+    the JAX package's do."""
 
     def __init__(
         self,
@@ -146,6 +154,7 @@ class Lighthouse:
         domain: Optional[str] = None,
         upstream_addr: Optional[str] = None,
         upstream_report_interval_ms: Optional[int] = None,
+        fleet_capacity: Optional[int] = None,
     ) -> None:
         host, port = _split_bind(bind)
         lib = get_lib()
@@ -167,6 +176,8 @@ class Lighthouse:
             # epoch lease granted with every quorum: steady steps of a
             # leased manager make no control RPC (manager.py fast path)
             extra["lease_ms"] = int(lease_ms)
+        if fleet_capacity is not None:
+            extra["fleet_capacity"] = int(fleet_capacity)
         self._handle = lib.ft_lighthouse_new(
             host.encode(),
             port,
@@ -200,7 +211,8 @@ class Lighthouse:
 
 class ManagerServer:
     """Native per-replica-group manager server, embedded in the rank-0
-    trainer process."""
+    trainer process. ``job_id`` names the job its heartbeats, quorum and
+    epoch-watch requests land in on a shared lighthouse."""
 
     def __init__(
         self,
@@ -213,6 +225,7 @@ class ManagerServer:
         heartbeat_interval: "float | timedelta" = 0.1,
         connect_timeout: "float | timedelta" = 10.0,
         exit_on_kill: bool = True,
+        job_id: str = "default",
     ) -> None:
         if hostname is None:
             # The advertised address crosses hosts (it becomes peers'
@@ -234,7 +247,7 @@ class ManagerServer:
             _ms(heartbeat_interval, 100),
             _ms(connect_timeout, 10000),
             1 if exit_on_kill else 0,
-            json.dumps({"job_id": "default"}).encode(),
+            json.dumps({"job_id": job_id or "default"}).encode(),
             ctypes.byref(err),
         )
         check_error(err)
@@ -364,8 +377,10 @@ class ManagerClient:
 
 
 class LighthouseClient:
-    """Persistent client to a lighthouse: heartbeat (one replica id or a
-    batch in one RPC) and quorum RPCs over pooled keep-alive connections."""
+    """Persistent client to a lighthouse over pooled keep-alive
+    connections: heartbeat (one replica id or a batch in one RPC), quorum,
+    job registration and the raw epoch watch. The request bodies are the
+    JAX package's, byte for byte."""
 
     def __init__(self, addr: str) -> None:
         lib = get_lib()
@@ -378,24 +393,85 @@ class LighthouseClient:
             raise RuntimeError("failed to create lighthouse client")
 
     def heartbeat(self, replica_id: "str | List[str]",
-                  timeout: "float | timedelta" = 5.0) -> None:
+                  timeout: "float | timedelta" = 5.0,
+                  job_id: Optional[str] = None) -> None:
+        """Heartbeat one replica id, or a list in one RPC. ``job_id``
+        lands it in that job (absent: "default", the single-job form)."""
+        if job_id is not None:
+            body: dict = ({"replica_ids": replica_id}
+                          if isinstance(replica_id, list)
+                          else {"replica_id": replica_id})
+            body["job_id"] = job_id
+            payload = json.dumps(body)
+        else:
+            payload = json.dumps(replica_id)
         err = ctypes.c_char_p()
         get_lib().ft_lighthouse_client_heartbeat2(
-            self._handle, json.dumps(replica_id).encode(), _ms(timeout),
-            ctypes.byref(err),
+            self._handle, payload.encode(), _ms(timeout), ctypes.byref(err),
         )
         check_error(err)
 
-    def quorum(self, requester: dict,
-               timeout: "float | timedelta" = 60.0) -> dict:
-        """Lighthouse quorum long-poll for one requester (a member dict)."""
+    def quorum(self, requester: dict, timeout: "float | timedelta" = 60.0,
+               job_id: Optional[str] = None,
+               extra: Optional[dict] = None) -> dict:
+        """Lighthouse quorum long-poll for one requester (a member dict).
+        ``job_id`` lands it in that job; ``extra`` adds top-level request
+        fields (``priority``, ``group_budget``, ``rpc_budget``)."""
+        if job_id is not None or extra:
+            body = {"requester": requester}
+            if job_id is not None:
+                body["job_id"] = job_id
+            if extra:
+                body.update(extra)
+            payload = json.dumps(body)
+        else:
+            payload = json.dumps(requester)
         err = ctypes.c_char_p()
         ptr = get_lib().ft_lighthouse_client_quorum2(
-            self._handle, json.dumps(requester).encode(), _ms(timeout),
-            ctypes.byref(err),
+            self._handle, payload.encode(), _ms(timeout), ctypes.byref(err),
         )
         check_error(err)
         return json.loads(take_string(ptr))
+
+    def post(self, path: str, body: dict,
+             timeout: "float | timedelta" = 10.0) -> dict:
+        """POST ``body`` as JSON to ``path`` and return the parsed answer."""
+        err = ctypes.c_char_p()
+        ptr = get_lib().ft_lighthouse_client_post(
+            self._handle, path.encode(), json.dumps(body).encode(),
+            _ms(timeout), ctypes.byref(err),
+        )
+        check_error(err)
+        return json.loads(take_string(ptr))
+
+    def register_job(self, job_id: str, priority: Optional[int] = None,
+                     group_budget: Optional[int] = None,
+                     rpc_budget: Optional[int] = None,
+                     timeout: "float | timedelta" = 10.0) -> dict:
+        """Register a job's priority and its group and RPC budgets (last
+        writer wins; raising or lifting the group budget readmits the
+        job's evicted groups)."""
+        body: dict = {"job_id": job_id}
+        if priority is not None:
+            body["priority"] = int(priority)
+        if group_budget is not None:
+            body["group_budget"] = int(group_budget)
+        if rpc_budget is not None:
+            body["rpc_budget"] = int(rpc_budget)
+        return self.post("/torchft.LighthouseService/RegisterJob", body,
+                         timeout)
+
+    def epoch_watch(self, replica_id: str, epoch: int,
+                    timeout: "float | timedelta" = 10.0,
+                    job_id: Optional[str] = None) -> "tuple[int, bool]":
+        """The lighthouse's EpochWatch long-poll on a job's membership
+        epoch (managers watch through ``ManagerClient.epoch_watch``).
+        Returns ``(current_epoch, changed)``."""
+        body: dict = {"replica_id": replica_id, "epoch": int(epoch)}
+        if job_id is not None:
+            body["job_id"] = job_id
+        d = self.post("/torchft.LighthouseService/EpochWatch", body, timeout)
+        return int(d.get("epoch", 0)), bool(d.get("changed", False))
 
     def __del__(self) -> None:
         handle, self._handle = getattr(self, "_handle", None), None
@@ -404,6 +480,43 @@ class LighthouseClient:
                 get_lib().ft_lighthouse_client_free(handle)
             except Exception:
                 pass  # interpreter teardown
+
+
+def lighthouse_heartbeat(lighthouse_addr: str, replica_id: str,
+                         timeout: "float | timedelta" = 5.0) -> None:
+    """One-shot heartbeat on a connection of its own."""
+    err = ctypes.c_char_p()
+    get_lib().ft_lighthouse_client_heartbeat(
+        lighthouse_addr.encode(), replica_id.encode(), _ms(timeout),
+        ctypes.byref(err),
+    )
+    check_error(err)
+
+
+def lighthouse_quorum(lighthouse_addr: str, requester: dict,
+                      timeout: "float | timedelta" = 60.0) -> dict:
+    """One-shot quorum long-poll on a connection of its own."""
+    err = ctypes.c_char_p()
+    ptr = get_lib().ft_lighthouse_client_quorum(
+        lighthouse_addr.encode(), json.dumps(requester).encode(),
+        _ms(timeout), ctypes.byref(err),
+    )
+    check_error(err)
+    return json.loads(take_string(ptr))
+
+
+def compute_quorum_results(replica_id: str, rank: int, quorum: dict) -> dict:
+    """One replica's view of an announced quorum (``{"quorum_id",
+    "participants", "created_ms"}``): the native kernel that turns it into
+    the ManagerQuorumResponse fields (ranks, heal assignment, max-step
+    cohort, data-plane transport membership)."""
+    err = ctypes.c_char_p()
+    ptr = get_lib().ft_compute_quorum_results(
+        replica_id.encode(), rank, json.dumps(quorum).encode(),
+        ctypes.byref(err),
+    )
+    check_error(err)
+    return json.loads(take_string(ptr))
 
 
 def quorum_compute_raw(now_ms: int, state_json: str, opts: dict) -> str:
@@ -487,6 +600,14 @@ class IncrementalQuorum:
         ptr = get_lib().ft_iq_state(self._handle, ctypes.byref(err))
         check_error(err)
         return take_string(ptr)
+
+    def counters(self) -> dict:
+        """The evaluator's counters: epoch, decisions computed, cache hits,
+        pruned heartbeats and participants, healthy replicas."""
+        err = ctypes.c_char_p()
+        ptr = get_lib().ft_iq_counters(self._handle, ctypes.byref(err))
+        check_error(err)
+        return json.loads(take_string(ptr))
 
     def __del__(self) -> None:
         handle, self._handle = getattr(self, "_handle", None), None

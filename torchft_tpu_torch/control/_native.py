@@ -165,6 +165,16 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.ft_manager_client_free.argtypes = [c_void_p]
     lib.ft_manager_client_free.restype = None
 
+    # one-shot lighthouse RPCs (a connection per call)
+    lib.ft_lighthouse_client_heartbeat.argtypes = [
+        c_char_p, c_char_p, c_u64, err_p,
+    ]
+    lib.ft_lighthouse_client_heartbeat.restype = c_int
+    lib.ft_lighthouse_client_quorum.argtypes = [
+        c_char_p, c_char_p, c_u64, err_p,
+    ]
+    lib.ft_lighthouse_client_quorum.restype = c_void_p
+    # persistent lighthouse client handles (pooled keep-alive)
     lib.ft_lighthouse_client_new.argtypes = [c_char_p, err_p]
     lib.ft_lighthouse_client_new.restype = c_void_p
     lib.ft_lighthouse_client_free.argtypes = [c_void_p]
@@ -177,9 +187,17 @@ def _configure(lib: ctypes.CDLL) -> None:
         c_void_p, c_char_p, c_u64, err_p,
     ]
     lib.ft_lighthouse_client_quorum2.restype = c_void_p
+    # generic POST (RegisterJob, a raw EpochWatch)
+    lib.ft_lighthouse_client_post.argtypes = [
+        c_void_p, c_char_p, c_char_p, c_u64, err_p,
+    ]
+    lib.ft_lighthouse_client_post.restype = c_void_p
 
     lib.ft_quorum_compute.argtypes = [c_i64, c_char_p, c_char_p, err_p]
     lib.ft_quorum_compute.restype = c_void_p
+    lib.ft_compute_quorum_results.argtypes = [c_char_p, c_i64, c_char_p,
+                                              err_p]
+    lib.ft_compute_quorum_results.restype = c_void_p
 
     # incremental-quorum driver (the byte-identity oracle in the tests)
     lib.ft_iq_new.argtypes = [c_char_p, c_int, c_i64, err_p]
@@ -196,6 +214,8 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.ft_iq_install.restype = c_void_p
     lib.ft_iq_state.argtypes = [c_void_p, err_p]
     lib.ft_iq_state.restype = c_void_p
+    lib.ft_iq_counters.argtypes = [c_void_p, err_p]
+    lib.ft_iq_counters.restype = c_void_p
 
     # the heal wire's CRC32C (csrc/host/crc32c.cc)
     lib.tft_crc32c.argtypes = [ctypes.c_uint32, c_void_p, ctypes.c_size_t]

@@ -30,7 +30,10 @@ they commit; with a domain map it drives the hierarchical wire
 ``run_resume_drill`` adds the durable half:
 a fused solo phase, a heal, steps on the epoch lease's fast path,
 checkpoints, a kill of every group, and a resume that must equal the
-checkpoint bitwise. Both take ``comm_backend`` and ``comm_options`` for the
+checkpoint bitwise. ``run_multijob_drill`` puts two jobs on one lighthouse
+(one with an observer, ``data_plane=False``), kills and heals a group of
+one while the other stays on its lease, then lets a higher-priority job
+evict a group of the second. The first two take ``comm_backend`` and ``comm_options`` for the
 Manager: the default is the TCP gradient wire; ``comm_backend="cuda"`` with
 e.g. ``comm_options={"algorithm": "psum", "compression": "int8"}`` reduces
 on the training device instead (comm/cuda_backend.py), where groups that
@@ -69,7 +72,7 @@ from torchft_tpu_torch.comm.context import (
 from torchft_tpu_torch.comm.cuda_backend import default_device_pool
 from torchft_tpu_torch.comm.store import StoreServer
 from torchft_tpu_torch.comm.topology import DomainTopology
-from torchft_tpu_torch.control import Lighthouse
+from torchft_tpu_torch.control import Lighthouse, LighthouseClient
 from torchft_tpu_torch.data import DistributedSampler
 from torchft_tpu_torch.ddp import (
     _DEFAULT_BUCKET_BYTES,
@@ -90,7 +93,8 @@ from torchft_tpu_torch.utils.device import resolve_device
 logger = logging.getLogger(__name__)
 
 __all__ = ["FaultyCommContext", "InjectedFailure", "GroupRun",
-           "run_kill_and_heal", "run_resume_drill", "train_group"]
+           "run_kill_and_heal", "run_multijob_drill", "run_resume_drill",
+           "train_group"]
 
 
 class InjectedFailure(Exception):
@@ -175,11 +179,14 @@ class FaultyCommContext(ErrorSwallowingCommContext):
 
 @dataclass
 class GroupRun:
-    """What one replica group did: loss, host wall time and control RPCs
-    per committed step (keyed by the step count after the commit; 0 RPCs
-    is a fast-path step), the step count after each step in which it
-    applied a healed state, its forward/backward passes (committed or not,
-    graph replays and the captures' warm-up passes included), its
+    """What one replica group did: loss, host wall time, control RPCs and
+    wire world per committed step (keyed by the step count after the
+    commit; 0 RPCs is a fast-path step), the step count after each step in
+    which it applied a healed state, its forward/backward passes (committed
+    or not, graph replays and the captures' warm-up passes included) and,
+    for an observer, its forward-only probe passes, its replica id, the
+    step count at which a quorum answer evicted it and how long that answer
+    took (``evict_seconds``, from the step's start), its
     committed fused steps and the CUDA graphs it captured, its committed
     steps whose gradient wire had a peer (``wire_steps``), the element
     counts of DDP's gradient buckets, its resume (step, seconds, and the
@@ -189,6 +196,7 @@ class GroupRun:
     """
 
     passes: int = 0
+    probe_passes: int = 0
     wire_steps: int = 0
     fused_steps: int = 0
     captures: int = 0
@@ -197,7 +205,11 @@ class GroupRun:
     step_seconds: Dict[int, float] = field(default_factory=dict)
     participants: Dict[int, int] = field(default_factory=dict)
     control_rpcs: Dict[int, int] = field(default_factory=dict)
+    wire_world: Dict[int, int] = field(default_factory=dict)
     healed_at: List[int] = field(default_factory=list)
+    replica_id: str = ""
+    evicted_at: Optional[int] = None
+    evict_seconds: Optional[float] = None
     resumed_step: Optional[int] = None
     resume_seconds: Optional[float] = None
     resume_mismatches: List[str] = field(default_factory=list)
@@ -263,6 +275,10 @@ def train_group(
     ckpt_every: int = 0,
     verify_resume: bool = False,
     record_ops: Sequence[int] = (),
+    job_id: str = "default",
+    data_plane: bool = True,
+    model_shards: int = 1,
+    on_evicted: Optional[Callable[[Manager, GPT], None]] = None,
 ) -> GroupRun:
     """Train one replica group until ``total_steps`` steps are committed
     (or ``stop`` is set).
@@ -285,6 +301,13 @@ def train_group(
     resumed state with the file, bitwise (``GroupRun.resume_mismatches``).
     ``record_ops``: numbers (from 1) of this group's gradient allreduces
     whose inputs and raw reduced outputs are kept (``GroupRun.recorded``).
+
+    ``job_id``, ``data_plane`` and ``model_shards`` go to the Manager. With
+    ``data_plane=False`` the group is an observer running an evaluation
+    probe: each step a forward pass of its own model under
+    ``torch.no_grad()`` between the quorum and the commit barrier, and no
+    optimizer step. When a quorum answer evicts the group, it stops before
+    the step's forward pass, after ``on_evicted(manager, model)``.
 
     A CUDA run of a config whose head_dim the flash kernels do not take
     raises ValueError here, before anything is built.
@@ -345,14 +368,18 @@ def train_group(
         world_size=world_size,
         store_addr=store.addr if store is not None else store_addr,
         lighthouse_addr=lighthouse_addr,
-        replica_id=f"train_ddp_{replica_group}_",
+        replica_id=(f"train_ddp_{replica_group}_" if job_id == "default"
+                    else f"train_ddp_{job_id}_{replica_group}_"),
         heartbeat_interval=0.05,
+        data_plane=data_plane,
+        model_shards=model_shards,
+        job_id=job_id,
     )
     ddp = DistributedDataParallel(manager)
     opt = OptimizerWrapper(manager, optimizer)
     # the solo-wire step: forward, backward and AdamW as one CUDA graph
     train_step = make_train_step(model, optimizer)
-    run = GroupRun()
+    run = GroupRun(replica_id=manager.replica_id())
     writer: Optional[AsyncCheckpointWriter] = None
 
     try:
@@ -404,8 +431,31 @@ def train_group(
                 )
             tokens, targets = next_batch()
             t0 = time.perf_counter()
-            opt.begin_step()
-            if opt.can_fuse():  # waits the quorum; latches on failure
+            if data_plane:
+                opt.begin_step()
+                fuse = opt.can_fuse()  # waits the quorum; latches on failure
+            else:
+                manager.start_quorum()
+                try:
+                    manager.wait_quorum()
+                except Exception as e:  # noqa: BLE001 — the barrier discards
+                    manager.report_error(e)
+            if manager.is_evicted():
+                run.evicted_at = manager.current_step()
+                run.evict_seconds = time.perf_counter() - t0
+                if on_evicted is not None:
+                    on_evicted(manager, model)
+                break
+            if not data_plane:
+                # the observer's probe: a forward pass of its own model
+                # between the quorum and the barrier; no gradient, no update
+                with manager.metrics.timed("probe_forward"), torch.no_grad():
+                    loss = model.loss(tokens, targets)
+                run.probe_passes += 1
+                committed = manager.should_commit()
+                if committed:
+                    run.losses[manager.current_step()] = float(loss)
+            elif fuse:
                 loss, committed = opt.fused_step(train_step, tokens, targets)
                 if committed:
                     run.passes += 1
@@ -429,6 +479,7 @@ def train_group(
             run.step_seconds[step] = time.perf_counter() - t0
             run.participants[step] = manager.num_participants()
             run.control_rpcs[step] = manager.control_rpcs()
+            run.wire_world[step] = manager.transport_world_size()
             if manager.transport_world_size() > 1:
                 run.wire_steps += 1
             if writer is not None and ckpt_every and step % ckpt_every == 0:
@@ -468,16 +519,31 @@ def _require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def _wait_for(pred: Callable[[], bool], what: str, timeout: float,
+              stop: threading.Event) -> None:
+    """Poll ``pred`` until it holds; TimeoutError(``what``) after
+    ``timeout`` s, RuntimeError once another group of the drill failed
+    (``stop``)."""
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if stop.is_set():
+            raise RuntimeError("another replica group failed")
+        if time.monotonic() > deadline:
+            raise TimeoutError(what)
+        time.sleep(0.01)
+
+
 def _wait_lighthouse(addr: str, key: str, count: int, timeout: float,
-                     stop: threading.Event, at_most: bool = False) -> None:
+                     stop: threading.Event, at_most: bool = False,
+                     job: str = "default") -> None:
     """Wait until the lighthouse's ``/status.json`` counts at least (with
     ``at_most``: at most) ``count`` ``key`` (``healthy`` heartbeating
-    replicas, or ``participants`` waiting in a quorum request)."""
+    replicas, or ``participants`` waiting in a quorum request) in ``job``."""
     deadline = time.monotonic() + timeout
     while True:
         with urllib.request.urlopen(f"{addr}/status.json",
                                     timeout=timeout) as r:
-            n = json.load(r)["jobs"]["default"][key]
+            n = json.load(r)["jobs"].get(job, {}).get(key, 0)
             if (n <= count) if at_most else (n >= count):
                 return
         if stop.is_set():
@@ -720,11 +786,408 @@ def run_kill_and_heal(
             "domains": tree}
 
 
-def _telemetry_metrics(manager: Manager, timeout: float) -> Dict[str, Any]:
-    """GET /telemetry/metrics from the manager's checkpoint server."""
-    url = manager._checkpoint_transport.metadata() + "/telemetry/metrics"
+# run_multijob_drill's schedule: a1 fails after step 3, heals at 5, the
+# jobs' last joint step is 7; b0 and hi0 then commit 2 more
+_MJ_KILL, _MJ_AFTER, _MJ_MORE = 3, 2, 2
+# run_multijob_drill's jobs: name -> (priority, group budget or None)
+MULTIJOB_JOBS = {"a": (5, None), "b": (0, 1), "hi": (10, None)}
+# the fleet before hi0 arrives: a0, a1, the observer, b0, b1 (the native
+# lighthouse counts every heartbeating group, observers included)
+MULTIJOB_CAPACITY = 5
+
+
+def _job_status(addr: str, job: str, timeout: float) -> Dict[str, Any]:
+    with urllib.request.urlopen(f"{addr}/status.json", timeout=timeout) as r:
+        return json.load(r)["jobs"].get(job, {})
+
+
+def _telemetry(manager: Manager, what: str, timeout: float) -> Dict[str, Any]:
+    """GET /telemetry/{what} from the manager's checkpoint server."""
+    url = f"{manager._checkpoint_transport.metadata()}/telemetry/{what}"
     with urllib.request.urlopen(url, timeout=timeout) as r:
         return json.load(r)
+
+
+def run_multijob_drill(
+    cfg: TransformerConfig,
+    *,
+    hi_cfg: Optional[TransformerConfig] = None,
+    device: "Optional[str | torch.device]" = None,
+    batch_size: int = 8,
+    seed: int = 0,
+    timeout: float = 60.0,
+    log: Callable[[str], None] = logger.info,
+) -> Dict[str, object]:
+    """Two jobs on one lighthouse (2 s epoch leases, ``fleet_capacity``
+    ``MULTIJOB_CAPACITY``), and a third that preempts one of them, over the
+    TCP wire at codec none (k = 3, the kill; h = 5, the heal; t = 7, the
+    jobs' last joint step; m = 2):
+
+    - job "a" (priority 5, no group budget): groups a0 and a1 train DDP,
+      and a_obs is an observer (``data_plane=False``) running the forward
+      probe. All commit 1..k; a1 fails; a0 commits k + 1 alone once the
+      lighthouse has seen a1 die; a1 restarts from a poisoned init, heals
+      from a0 at h, and both commit h..t. The observer commits every step's
+      barrier and trains nothing.
+    - job "b" (priority 0, group budget 1): b0 and b1 train DDP on the
+      lease's fast path from step 3 on, each step waiting for a0 to commit
+      the same step, so that steps k..h + 1 overlap a1's death and heal.
+    - once every group of "a" and "b" committed t, hi0 joins job "hi"
+      (priority 10) with ``hi_cfg`` (``cfg`` by default): its first quorum
+      request puts the fleet one over capacity, and the lighthouse evicts
+      b1 (job "b" is over its budget; b1 has the greater replica id). b1
+      learns it from its next quorum answer and stops; b0 commits t + 1..
+      t + m on a wire of one; hi0 commits 1..m.
+
+    Raises AssertionError unless: a0 and a1 are bitwise equal at every step
+    both commit and a1 healed at h; a0 counted 2 participants and a wire
+    of 2 at every joint step, and 1 at k + 1 and h (the healer contributes
+    zeros), never the observer; the observer committed 1..t, was never
+    participating, healed or on a wire of more than itself, and its
+    parameters never changed; b0 and b1 are bitwise equal at every step
+    both commit, made 0 control RPCs at steps k..h + 1, and job "b"'s
+    ``membership_epoch``, ``quorum_compute_count`` and ``lease_breaks`` in
+    ``/status.json`` did not move from before step k to after step h + 1;
+    b1 was evicted at step t within 5 s of asking, with a ``job_preempted``
+    event on its ``/telemetry/events`` and its parameters bitwise as it
+    committed them; ``jobs.b`` shows one preemption and b1's id evicted;
+    b0 and hi0 committed their m steps; every loss is finite. Returns the
+    runs (``runs[name]``: its lives), the forward/backward passes of the
+    ``cfg`` groups (``passes``) and of hi0 (``hi_passes``), the observer's
+    probe passes, job b's counters before and after the window, each b
+    group's phase metrics over the window (``b_window``), the eviction
+    (``eviction``: seconds and the ``jobs.b`` status), the steps at which
+    a0 and b0 were bitwise equal (``cross_job_equal``: the jobs run the
+    same seeds and data, so these are 1..k unless the observer changed
+    a0's average or the device's arithmetic is not deterministic), and the
+    drill's wall seconds."""
+    kill_step, steps_after, steps_more = _MJ_KILL, _MJ_AFTER, _MJ_MORE
+    hi_cfg = hi_cfg or cfg
+    heal = kill_step + 2
+    total = heal + steps_after
+    t_start = time.perf_counter()
+    lighthouse = Lighthouse(
+        min_replicas=1, heartbeat_timeout_ms=1000,
+        join_timeout_ms=int(timeout * 1000), lease_ms=_LEASE_MS,
+        fleet_capacity=MULTIJOB_CAPACITY)
+    addr = lighthouse.address()
+    client = LighthouseClient(addr)
+    for job, (priority, budget) in MULTIJOB_JOBS.items():
+        client.register_job(job, priority=priority, group_budget=budget)
+    stop = threading.Event()
+    ahead, b_go, release = (threading.Event() for _ in range(3))
+    b_barrier = threading.Barrier(2)
+    errors: List[BaseException] = []
+    runs: Dict[str, List[GroupRun]] = {n: [] for n in
+                                      ("a0", "a1", "a_obs", "b0", "b1", "hi0")}
+    ids: Dict[str, str] = {}
+    a0_steps: set = set()
+    lock = threading.Lock()
+    pending: Dict[Tuple[str, int], Dict[str, List[torch.Tensor]]] = {}
+    compared: Dict[str, Dict[int, int]] = {"a": {}, "b": {}}
+    cross: Dict[int, Dict[str, List[torch.Tensor]]] = {}
+    cross_equal: List[int] = []
+    b_status: Dict[str, Dict[str, Any]] = {}
+    b_window: Dict[str, Dict[str, object]] = {}
+    b_last: Dict[str, List[torch.Tensor]] = {}
+    obs_first: List[torch.Tensor] = []
+    obs_steps: List[int] = []
+    eviction: Dict[str, Any] = {}
+
+    def snap(model) -> List[torch.Tensor]:
+        return [p.detach().clone() for p in model.parameters()]
+
+    def same(a: List[torch.Tensor], b: List[torch.Tensor]) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def expected(job: str, step: int) -> int:
+        if job == "a":
+            return 1 if step == kill_step + 1 else 2
+        return 2 if step <= total else 1
+
+    def deposit(job: str, name: str, step: int, model) -> None:
+        params = snap(model)
+        with lock:
+            held = pending.setdefault((job, step), {})
+            held[name] = params
+            if len(held) < expected(job, step):
+                return
+            del pending[(job, step)]
+        first = min(held)
+        for n in sorted(held):
+            _require(same(held[first], held[n]),
+                     f"{n} diverged from {first} at step {step}")
+        compared[job][step] = len(held)
+
+    def cross_deposit(name: str, step: int, model) -> None:
+        # a0 and b0 run the same seeds and data up to the kill
+        with lock:
+            held = cross.setdefault(step, {})
+            held[name] = snap(model)
+            if len(held) < 2:
+                return
+            del cross[step]
+        if same(held["a0"], held["b0"]):
+            cross_equal.append(step)
+
+    def started(name: str, job: str, healthy: int = 0):
+        def _start(manager):
+            ids[name] = manager.replica_id()
+            if healthy:
+                _wait_lighthouse(addr, "healthy", healthy, timeout, stop,
+                                 job=job)
+        return _start
+
+    def a_hook(name: str):
+        def _hook(step, manager, model, loss):
+            log(f"{name} committed step {step} participants "
+                f"{manager.num_participants()} wire "
+                f"{manager.transport_world_size()}"
+                + (" (healed)" if manager.did_heal() else ""))
+            deposit("a", name, step, model)
+            if name == "a0":
+                if step <= kill_step:
+                    cross_deposit("a0", step, model)
+                with lock:
+                    a0_steps.add(step)
+                if step == kill_step:
+                    # a1 dies at the top of its next step: take k + 1 once
+                    # the lighthouse has seen it go
+                    _wait_lighthouse(addr, "healthy", 2, timeout, stop,
+                                     at_most=True, job="a")
+                elif step == kill_step + 1:
+                    # let a1 restart; take the heal quorum with it and the
+                    # observer, both asking
+                    ahead.set()
+                    _wait_lighthouse(addr, "participants", 2, timeout, stop,
+                                     job="a")
+            if step == total:
+                _wait_for(release.is_set, "the drill never released job a",
+                          timeout, stop)
+        return _hook
+
+    def obs_hook(step, manager, model, loss):
+        _require(not manager.is_participating()
+                 and manager.transport_world_size() == 1
+                 and not manager.did_heal(),
+                 f"observer at step {step}: participating "
+                 f"{manager.is_participating()}, wire "
+                 f"{manager.transport_world_size()}, healed "
+                 f"{manager.did_heal()}")
+        if not obs_first:
+            obs_first.extend(snap(model))
+        _require(same(obs_first, list(model.parameters())),
+                 f"the observer's parameters changed at step {step}")
+        obs_steps.append(step)
+        if step == total:
+            _wait_for(release.is_set,
+                      "the drill never released the observer", timeout, stop)
+
+    def b_hook(name: str):
+        def _hook(step, manager, model, loss):
+            log(f"{name} committed step {step} participants "
+                f"{manager.num_participants()} control RPCs "
+                f"{manager.control_rpcs()}")
+            deposit("b", name, step, model)
+            if name == "b0" and step <= kill_step:
+                cross_deposit("b0", step, model)
+            if step > total:
+                return
+            # lockstep with job a: step s + 1 starts once a0 committed s
+            _wait_for(lambda: step in a0_steps, f"a0 never committed {step}",
+                      timeout, stop)
+            if step in (kill_step - 1, heal + 1):
+                when = "before" if step == kill_step - 1 else "after"
+                b_barrier.wait(timeout)
+                if name == "b0":
+                    # an install's recompute lands on the next tick
+                    time.sleep(0.3)
+                    b_status[when] = _job_status(addr, "b", timeout)
+                if when == "before":
+                    manager.metrics.reset_timings()
+                else:
+                    b_window[name] = manager.metrics.snapshot()
+                b_barrier.wait(timeout)
+            if step == total:
+                b_last[name] = snap(model)
+                _wait_for(b_go.is_set, "hi0 never preempted job b", timeout,
+                          stop)
+                # the eviction bumped job b's epoch: both leases break
+                _wait_for(lambda: not manager.lease_live(),
+                          f"{name}'s lease outlived the eviction", timeout,
+                          stop)
+        return _hook
+
+    def b_evicted(name: str):
+        def _hook(manager, model):
+            events = _telemetry(manager, "events", timeout)["events"]
+            eviction["events"] = [e for e in events
+                                  if e["kind"] == "job_preempted"]
+            eviction["unchanged"] = same(b_last[name],
+                                         list(model.parameters()))
+            eviction["is_evicted"] = manager.is_evicted()
+            eviction["telemetry_evicted"] = _telemetry(
+                manager, "metrics", timeout).get("evicted")
+        return _hook
+
+    def hi_hook(step, manager, model, loss):
+        log(f"hi0 committed step {step} wire {manager.transport_world_size()}")
+
+    common = dict(lighthouse_addr=addr, device=device, batch_size=batch_size,
+                  data_seed=seed, timeout=timeout, stop=stop)
+
+    def group_a(name: str):
+        def _run():
+            g = int(name[1])
+            if name == "a0":
+                runs[name].append(train_group(
+                    cfg, replica_group=0, num_groups=2, total_steps=total,
+                    job_id="a", init_seed=seed,
+                    on_start=started(name, "a", 3), on_commit=a_hook(name),
+                    **common))
+                return
+            try:
+                train_group(cfg, replica_group=g, num_groups=2,
+                            total_steps=total, job_id="a", init_seed=seed,
+                            fail_at_step=kill_step,
+                            on_start=started(name, "a", 3),
+                            on_commit=a_hook(name), **common)
+                raise AssertionError("a1 was never failed")
+            except InjectedFailure as e:
+                runs[name].append(e.run)
+                log(f"injected failure: {e}; a1 restarts from a poisoned "
+                    "init")
+            _wait_for(ahead.is_set, f"a0 never committed {kill_step + 1}",
+                      timeout, stop)
+            runs[name].append(train_group(
+                cfg, replica_group=g, num_groups=2, total_steps=total,
+                job_id="a", init_seed=seed + 1000,
+                on_start=started(name, "a"), on_commit=a_hook(name),
+                **common))
+        return _run
+
+    def observer():
+        runs["a_obs"].append(train_group(
+            cfg, replica_group=2, num_groups=3, total_steps=total,
+            job_id="a", data_plane=False, init_seed=seed + 2000,
+            on_start=started("a_obs", "a", 3), on_commit=obs_hook,
+            **common))
+
+    def group_b(name: str):
+        def _run():
+            runs[name].append(train_group(
+                cfg, replica_group=int(name[1]), num_groups=2,
+                total_steps=total + steps_more, job_id="b", init_seed=seed,
+                on_start=started(name, "b", 2), on_commit=b_hook(name),
+                on_evicted=b_evicted(name), **common))
+        return _run
+
+    def hi0():
+        runs["hi0"].append(train_group(
+            hi_cfg, replica_group=0, num_groups=1, total_steps=steps_more,
+            job_id="hi", init_seed=seed + 3000, on_start=started("hi0", "hi"),
+            on_commit=hi_hook, **common))
+
+    def guarded(fn):
+        def _run():
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+                stop.set()  # never strand the other groups
+                for ev in (ahead, b_go, release):
+                    ev.set()
+                b_barrier.abort()
+        return _run
+
+    names = {"a0": group_a("a0"), "a1": group_a("a1"), "a_obs": observer,
+             "b0": group_b("b0"), "b1": group_b("b1")}
+    threads = {n: threading.Thread(target=guarded(fn), name=n)
+               for n, fn in names.items()}
+    try:
+        for t in threads.values():
+            t.start()
+        # every group of a and b parked at its step t before hi0 arrives
+        _wait_for(lambda: (len(obs_steps) == total
+                           and all(n in b_last for n in ("b0", "b1"))
+                           and compared["a"].get(total) == 2),
+                  f"jobs a and b never committed step {total}", timeout, stop)
+        threads["hi0"] = threading.Thread(target=guarded(hi0), name="hi0")
+        threads["hi0"].start()
+        _wait_for(lambda: _job_status(addr, "b", timeout).get("preemptions"),
+                  "hi0's arrival never preempted job b", timeout, stop)
+        eviction["status"] = _job_status(addr, "b", timeout)
+        b_go.set()
+        for n in ("b0", "b1", "hi0"):
+            threads[n].join(timeout=10 * timeout)
+        release.set()
+        for t in threads.values():
+            t.join(timeout=10 * timeout)
+            _require(not t.is_alive(), f"{t.name} never finished")
+    finally:
+        for ev in (ahead, b_go, release):
+            ev.set()
+        lighthouse.shutdown()
+    if errors:
+        raise errors[0]
+
+    a0, a1, obs = runs["a0"][0], runs["a1"][-1], runs["a_obs"][0]
+    b0, b1, hi = runs["b0"][0], runs["b1"][0], runs["hi0"][0]
+    _require(a1.healed_at == [heal],
+             f"a1 healed at {a1.healed_at}, not at step {heal}")
+    _require(not pending and sorted(compared["a"]) == list(range(1, total + 1))
+             and sorted(compared["b"]) == list(range(1, total + steps_more
+                                                     + 1)),
+             f"steps compared {compared}, left {sorted(pending)}")
+    alone = (kill_step + 1, heal)
+    want = {s: 1 if s in alone else 2 for s in range(1, total + 1)}
+    _require(a0.participants == want,
+             f"a0's participants {a0.participants}, want {want}")
+    want = {s: 1 if s == kill_step + 1 else 2 for s in range(1, total + 1)}
+    _require(a0.wire_world == want,
+             f"a0's wire world {a0.wire_world}, want {want}")
+    _require(obs_steps == list(range(1, total + 1)) and not obs.healed_at
+             and obs.passes == 0,
+             f"observer committed {obs_steps}, healed at {obs.healed_at}")
+    window = range(kill_step, heal + 2)
+    for run, name in ((b0, "b0"), (b1, "b1")):
+        rpcs = [run.control_rpcs.get(s) for s in window]
+        _require(rpcs == [0] * len(window),
+                 f"{name}'s control RPCs at steps {list(window)}: {rpcs}")
+    keys = ("membership_epoch", "quorum_compute_count", "lease_breaks")
+    before = {k: b_status["before"][k] for k in keys}
+    after = {k: b_status["after"][k] for k in keys}
+    _require(before == after,
+             f"job b's counters moved during a's kill and heal: {before} -> "
+             f"{after}")
+    status = eviction["status"]
+    _require(b1.evicted_at == total and b1.evict_seconds is not None
+             and b1.evict_seconds < 5.0 and eviction.get("is_evicted")
+             and eviction.get("telemetry_evicted") is True
+             and [e.get("job_id") for e in eviction["events"]] == ["b"]
+             and eviction.get("unchanged"),
+             f"b1's eviction: at {b1.evicted_at} in {b1.evict_seconds} s, "
+             f"{ {k: v for k, v in eviction.items() if k != 'status'} }")
+    _require(status.get("preemptions") == 1
+             and status.get("evicted") == [ids["b1"]],
+             f"jobs.b after the eviction: preemptions "
+             f"{status.get('preemptions')}, evicted {status.get('evicted')}")
+    more = list(range(total + 1, total + steps_more + 1))
+    _require([b0.wire_world.get(s) for s in more] == [1] * steps_more
+             and sorted(hi.participants) == list(range(1, steps_more + 1)),
+             f"b0's wire after the eviction {b0.wire_world}; hi0 committed "
+             f"{sorted(hi.participants)}")
+    losses = [v for n in runs for r in runs[n] for v in r.losses.values()]
+    _require(all(math.isfinite(v) for v in losses), "non-finite loss")
+    cfg_runs = [r for n in runs if n != "hi0" for r in runs[n]]
+    return {"runs": runs, "heal_step": heal, "total": total,
+            "compared": compared, "ids": ids,
+            "passes": sum(r.passes for r in cfg_runs),
+            "hi_passes": hi.passes, "probe_passes": obs.probe_passes,
+            "b_status": b_status, "b_window": b_window,
+            "eviction": dict(eviction, seconds=b1.evict_seconds),
+            "cross_job_equal": sorted(cross_equal),
+            "seconds": time.perf_counter() - t_start}
 
 
 # run_resume_drill's schedule: solo, joint and resumed steps, checkpoint
@@ -789,15 +1252,6 @@ def run_resume_drill(
     telemetry: Dict[str, Any] = {}
     errors: List[BaseException] = []
 
-    def wait_for(pred: Callable[[], bool], what: str) -> None:
-        deadline = time.monotonic() + timeout
-        while not pred():
-            if stop.is_set():
-                raise RuntimeError("the other replica group failed")
-            if time.monotonic() > deadline:
-                raise TimeoutError(what)
-            time.sleep(0.01)
-
     def both_heartbeating(manager):
         _wait_lighthouse(addr, "healthy", 2, timeout, stop)
 
@@ -812,14 +1266,15 @@ def run_resume_drill(
                 # arrival has broken our lease
                 solo_done.set()
                 _wait_lighthouse(addr, "participants", 1, timeout, stop)
-                wait_for(lambda: not manager.lease_live(),
-                         "group 1's arrival never broke group 0's lease")
+                _wait_for(lambda: not manager.lease_live(),
+                          "group 1's arrival never broke group 0's lease",
+                          timeout, stop)
             if step > solo_steps:
                 snapshots[life][group][step] = [
                     p.detach().clone() for p in model.parameters()]
             if (group == 0 and life == 0 and not telemetry and rpcs == 0
                     and step > solo_steps + 1):
-                telemetry.update(_telemetry_metrics(manager, timeout))
+                telemetry.update(_telemetry(manager, "metrics", timeout))
         return _hook
 
     common = dict(num_groups=2, lighthouse_addr=addr, device=device,
@@ -870,8 +1325,9 @@ def run_resume_drill(
             t.start()
         # the kill: both groups down, and gone from the lighthouse, before
         # either restarts, so both resume together from the same step
-        wait_for(lambda: bool(errors) or (len(runs[0]), len(runs[1])) == (1, 1),
-                 "the groups were never killed")
+        _wait_for(lambda: bool(errors)
+                  or (len(runs[0]), len(runs[1])) == (1, 1),
+                  "the groups were never killed", timeout, stop)
         if not errors:
             _wait_lighthouse(addr, "healthy", 0, timeout, stop, at_most=True)
         killed.set()

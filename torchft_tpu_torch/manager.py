@@ -23,6 +23,15 @@ zero control RPCs per step. Any epoch bump, latch, expiry, or an absent or
 dissenting vote breaks the lease, and the step takes the full barrier.
 ``TORCHFT_TPU_FASTPATH=0`` disables it. Gradient normalization uses the
 runtime ``num_participants``.
+
+Multi-tenancy (the JAX package's job-scoped managers): ``job_id`` places
+the group in one job of a shared lighthouse, and every group-store key the
+Manager writes is prefixed ``job:<id>/`` ("default" keeps the unprefixed
+keys). A quorum answer that evicts the group (a higher-priority job claimed
+its capacity) latches an error, so the step does not commit, and
+``is_evicted()`` turns True for good. ``data_plane=False`` makes the group
+an observer: in every quorum and commit barrier, never on the gradient
+wire, never a participant, never healed.
 """
 
 from __future__ import annotations
@@ -112,6 +121,13 @@ class Manager:
     compression, chunk_bytes, ...). ``load_state_dict``/``state_dict``
     restore/capture the user's training state (model, optimizer,
     sampler...) for heals.
+
+    ``data_plane=False``: an observer (a probe or an evaluator) that joins
+    every quorum and commit barrier but stays off the gradient wire, out
+    of the participant count and out of heals. ``job_id``: the job this
+    group belongs to on a shared lighthouse. ``model_shards``: the devices
+    one replica group spans, labelled with the wire world as
+    ``mesh_shape`` ("{wire world}x{model_shards}").
     """
 
     def __init__(
@@ -134,8 +150,11 @@ class Manager:
         hostname: Optional[str] = None,
         heartbeat_interval: "float | timedelta" = 0.1,
         checkpoint_transport: Optional[CheckpointTransport] = None,
+        data_plane: bool = True,
         comm_backend: Optional[str] = None,
         comm_options: Optional[Dict[str, Any]] = None,
+        model_shards: int = 1,
+        job_id: str = "default",
     ) -> None:
         if min_replica_size is None:
             # a silently defaulted quorum floor of 1 would let every
@@ -174,6 +193,18 @@ class Manager:
         self._connect_timeout = _seconds(connect_timeout)
         self._world_size_mode = world_size_mode
         self._min_replica_size = min_replica_size
+        self._data_plane = data_plane
+        # the job rides every lighthouse request (the ManagerServer stamps
+        # it) and prefixes every group-store key, so two jobs sharing one
+        # store never collide; "default" keeps the unprefixed keys
+        self._job_id = job_id or "default"
+        self._store_prefix = ("" if self._job_id == "default"
+                              else f"job:{self._job_id}/")
+        # set for good when a quorum answer evicts this group
+        self._evicted = False
+        # the pipeline stage this group serves, of how many (bind_stage)
+        self._stage_index = 0
+        self._stage_count = 1
 
         store_addr = store_addr or (
             f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
@@ -213,20 +244,24 @@ class Manager:
                 world_size=self._world_size,
                 heartbeat_interval=_seconds(heartbeat_interval),
                 connect_timeout=self._connect_timeout,
+                job_id=self._job_id,
             )
-            self._store.set(MANAGER_ADDR_KEY, self._manager.address())
-            self._store.set(REPLICA_ID_KEY, replica_id)
+            self._store.set(self._store_prefix + MANAGER_ADDR_KEY,
+                            self._manager.address())
+            self._store.set(self._store_prefix + REPLICA_ID_KEY, replica_id)
         # every rank advertises its checkpoint (and telemetry) server on
         # the group store, where scripts/fleet_top.py discovers it
-        self._store.set(f"checkpoint_addr_{self._rank}",
+        self._store.set(f"{self._store_prefix}checkpoint_addr_{self._rank}",
                         self._checkpoint_transport.metadata())
 
         addr = self._store.wait(
-            MANAGER_ADDR_KEY, timeout=self._connect_timeout
+            self._store_prefix + MANAGER_ADDR_KEY,
+            timeout=self._connect_timeout,
         ).decode()
         self._client = ManagerClient(addr, connect_timeout=self._connect_timeout)
         self._replica_id = self._store.wait(
-            REPLICA_ID_KEY, timeout=self._connect_timeout
+            self._store_prefix + REPLICA_ID_KEY,
+            timeout=self._connect_timeout,
         ).decode()
         self._logger = _ManagerLogger(self, self._replica_id, self._rank)
         # lifecycle events (quorum, heal, commit, errors); TORCHFT_TPU_EVENTS=0
@@ -258,6 +293,9 @@ class Manager:
         # one sink for the quorum / commit_barrier / allreduce timers, the
         # transport's lane timers and the heal gauges
         self.metrics = Metrics()
+        # replicas x model shards, re-labelled at every reconfigure
+        self.model_shards = max(1, int(model_shards))
+        self._label_mesh_shape()
         for target in (comm, self._checkpoint_transport):
             set_metrics = getattr(target, "set_metrics", None)
             if callable(set_metrics):
@@ -278,6 +316,9 @@ class Manager:
         self._lease_enabled = (
             os.environ.get("TORCHFT_TPU_FASTPATH", "1") not in ("0", "false")
             and self._world_size == 1
+            # an observer's vote rides a private one-member wire, which
+            # proves nothing about the cohort
+            and self._data_plane
         )
         self._lease_lock = threading.Lock()
         self._lease_epoch: Optional[int] = None
@@ -479,21 +520,20 @@ class Manager:
 
     def _telemetry_info(self) -> Dict[str, Any]:
         """Identity and live state framing every /telemetry response, in
-        the JAX package's keys (plain attribute reads; the port has one
-        job, no evictions and no pipeline stages)."""
+        the JAX package's keys (plain attribute reads)."""
         return {
             "replica_id": self._replica_id,
             "rank": self._rank,
-            "job_id": "default",
-            "evicted": False,
+            "job_id": self._job_id,
+            "evicted": self._evicted,
             "step": self._step,
             "epoch": self._quorum_epoch,
             "comm_backend": self.comm_backend(),
             "participating": self._participating_rank is not None,
             "healing": self._healing,
             "batches_committed": self._batches_committed,
-            "stage_index": 0,
-            "stage_count": 1,
+            "stage_index": self._stage_index,
+            "stage_count": self._stage_count,
             "lighthouse_addr": self._lighthouse_addr,
             "lease_live": self._lease_valid(),
             "lease_epoch": self._lease_epoch,
@@ -614,7 +654,11 @@ class Manager:
                      timeout: "float | timedelta | None" = None) -> None:
         """Compute a new quorum (async by default, overlapping the forward
         pass) and ready the manager for a new step. Under a live lease
-        this is a local check: no RPC."""
+        this is a local check: no RPC. An observer never heals or donates
+        (``allow_heal`` is forced False): it trains nothing, and in an
+        all-observer quorum the native kernel would elect one."""
+        if not self._data_plane:
+            allow_heal = False
         if self._quorum_future is not None:
             try:
                 self._quorum_future.result()
@@ -705,15 +749,39 @@ class Manager:
                 checkpoint_metadata=self._checkpoint_transport.metadata(),
                 shrink_only=shrink_only,
                 timeout=quorum_timeout,
+                data_plane=self._data_plane,
                 comm_epoch=self._comm_epoch,
             )
         self._finish_quorum(quorum, allow_heal)
 
+    def _evict(self, quorum) -> None:
+        """The lighthouse's prescriptive preemption: a higher-priority job
+        claimed this group's capacity, said in the quorum answer and not
+        by a timeout. Latch (this step does not commit), leave the
+        participant count, break the lease, and stay evicted."""
+        self._evicted = True
+        self._participating_rank = None
+        self._participating_world_size = 0
+        self._break_lease("job_preempted")
+        if self.events:
+            self.events.emit("job_preempted", step=self._step,
+                             epoch=quorum.membership_epoch,
+                             job_id=self._job_id)
+        self._logger.warn(f"evicted from job {self._job_id!r} by a "
+                          "higher-priority job; the step will not commit")
+        self.report_error(RuntimeError(
+            f"evicted: job {self._job_id!r} preempted by a higher-priority "
+            "job"))
+
     def _finish_quorum(self, quorum, allow_heal: bool) -> None:
+        if quorum.evicted:
+            self._evict(quorum)
+            return
         self._quorum_epoch = quorum.quorum_id
         # Async quorum: only the up-to-date (max-step) cohort participates;
         # healing replicas contribute zeros this step. Sync quorum: every
-        # wire member participates.
+        # wire member participates. Both counts are of data-plane members:
+        # an observer counted here would under-scale every average.
         if self._use_async_quorum or not allow_heal:
             self._participating_rank = quorum.max_rank
             self._participating_world_size = quorum.max_world_size
@@ -721,6 +789,10 @@ class Manager:
             self._participating_rank = quorum.transport_rank
             self._participating_world_size = quorum.transport_world_size
         self._replica_world_size = quorum.replica_world_size
+        if not self._data_plane:
+            # off the wire, an observer contributes nothing, whatever its
+            # step says
+            self._participating_rank = None
         if self._world_size_mode == WorldSizeMode.FIXED_WITH_SPARES:
             self._participating_world_size = min(
                 self._participating_world_size, self._min_replica_size
@@ -739,6 +811,7 @@ class Manager:
         t_world = quorum.transport_world_size if in_transport else 1
         fingerprint = _cohort_fingerprint(quorum.transport_replica_ids)
         self._transport_world_size = t_world
+        self._label_mesh_shape()
         if self.events:
             self.events.emit(
                 "quorum_complete", step=self._step, epoch=quorum.quorum_id,
@@ -749,10 +822,13 @@ class Manager:
         transport_key = (quorum.quorum_id, fingerprint, in_transport)
         if transport_key != self._transport_key:
             # the JAX package's rendezvous key shape, so a mixed cohort
-            # meets on the same store keys
+            # meets on the same store keys; an observer configures a
+            # private one-member wire (its replica id keeps several apart)
             store_prefixed_addr = (
                 f"{quorum.store_address}/torchft/{quorum.quorum_id}"
-                f"/{fingerprint}/{self._rank}"
+                f"/{fingerprint}/{self._rank}" if in_transport else
+                f"{quorum.store_address}/torchft/{quorum.quorum_id}"
+                f"/{fingerprint}/observer/{self._replica_id}/{self._rank}"
             )
             self._logger.info(
                 f"reconfiguring for quorum_id={quorum.quorum_id} "
@@ -778,14 +854,20 @@ class Manager:
         # --- lease grant --------------------------------------------------
         # A clean full quorum arms the lease for the epoch it announced;
         # never off a latched step (the transport may not match this
-        # membership), and never off a quorum in which any member heals
-        # (replica_world_size > max_world_size): the healer takes a full
-        # quorum next step, which needs every member's request, so no
-        # member may step on a lease from this one. (The JAX package denies
-        # only the healer, and its donor then waits in the next step's
-        # collective for a healer that waits in the quorum.)
+        # membership), and never off a quorum in which any member heals:
+        # the healer takes a full quorum next step, which needs every
+        # member's request, so no member may step on a lease from this
+        # one. A member heals when some member is behind the max step
+        # (replica_world_size > max_world_size) and, in the step-0
+        # bootstrap, when the donor serves the others (recover_dst_ranks).
+        # (The JAX package denies only the healer, and its donor then
+        # waits in the next step's collective for a healer that waits in
+        # the quorum.) An observer asks for a quorum every step, so a job
+        # with one (replica_world_size > max_world_size) grants no lease
+        # either.
         if (self._lease_enabled and quorum.lease_ms > 0
                 and quorum.membership_epoch >= 0 and not self._healing
+                and not (allow_heal and quorum.recover_dst_ranks)
                 and quorum.max_world_size >= quorum.replica_world_size
                 and self.errored() is None):
             self._grant_lease(quorum.membership_epoch, quorum.lease_ms)
@@ -1027,6 +1109,42 @@ class Manager:
         """True once this step's fetched checkpoint was applied through the
         user load_state_dict (reset by the next start_quorum)."""
         return self._did_heal
+
+    def job_id(self) -> str:
+        """The job this group belongs to on the lighthouse ("default" for
+        a single-job fleet, with the unprefixed store keys)."""
+        return self._job_id
+
+    def is_evicted(self) -> bool:
+        """True once a quorum answer evicted this group (a higher-priority
+        job claimed its capacity): it never commits again, and the training
+        loop shrinks the job or exits."""
+        return self._evicted
+
+    def bind_stage(self, stage_index: int, stage_count: int) -> None:
+        """Declare this group pipeline stage ``stage_index`` of
+        ``stage_count``: the ``pipe_stage_index``/``pipe_stage_count``
+        gauges and the telemetry's stage fields."""
+        stage_index, stage_count = int(stage_index), int(stage_count)
+        if not 0 <= stage_index < stage_count:
+            raise ValueError(
+                f"stage_index {stage_index} outside [0, {stage_count})")
+        self._stage_index = stage_index
+        self._stage_count = stage_count
+        self.metrics.gauge("pipe_stage_index", float(stage_index))
+        self.metrics.gauge("pipe_stage_count", float(stage_count))
+
+    def stage_index(self) -> int:
+        """This group's pipeline stage (0 when not pipelined)."""
+        return self._stage_index
+
+    def stage_count(self) -> int:
+        """The pipeline's depth (1 when not pipelined)."""
+        return self._stage_count
+
+    def _label_mesh_shape(self) -> None:
+        self.metrics.label("mesh_shape",
+                           f"{self._transport_world_size}x{self.model_shards}")
 
     def replica_world_size(self) -> int:
         return self._replica_world_size

@@ -7,14 +7,20 @@ happened when": a discarded step, a heal, a latched error, a broken lease
 each leave one structured event. The Manager owns
 one recorder per process (``manager.events``).
 
-Event vocabulary of the port (all emitted by manager.py):
+Event vocabulary of the port (``EVENT_KINDS``, a subset of the JAX
+package's, with the same fields):
 
     quorum_start / quorum_complete   the async quorum RPC
     step_commit / step_discard       the commit barrier, or a fast-path
                                      commit (``fastpath=True``)
     heal_start / heal_done           heal assignment -> healed state applied
+    round_abort                      a LocalSGD/DiLoCo round rolled back
     error_latched                    first latch of an error episode
+    mesh_reconfigure / mesh_compile  the device plane's group and plans
+    hier_exchange                    the hierarchical tier's roles
     lease_break                      the epoch lease broke (``reason``)
+    job_preempted                    the lighthouse evicted this group
+                                     (``job_id``; epoch = membership epoch)
 
 Every event is stamped with a process-monotonic sequence number, wall and
 monotonic clocks, the replica_id/rank, and the step and quorum epoch when
@@ -33,7 +39,24 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["EventRecorder", "to_chrome_trace", "validate_chrome_trace"]
+__all__ = ["EVENT_KINDS", "EventRecorder", "to_chrome_trace",
+           "validate_chrome_trace"]
+
+EVENT_KINDS = (
+    "quorum_start",
+    "quorum_complete",
+    "step_commit",
+    "step_discard",
+    "heal_start",
+    "heal_done",
+    "round_abort",
+    "error_latched",
+    "mesh_reconfigure",
+    "mesh_compile",
+    "hier_exchange",
+    "lease_break",
+    "job_preempted",
+)
 
 
 _DEFAULT_CAPACITY = 4096
