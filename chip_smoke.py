@@ -73,7 +73,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    device memory (``multijob_device_bytes``; hi0 runs at "tiny" if it
    does not fit) and the host's (``multijob_host_bytes``); it runs before
    the phases that keep the card plane's buffers, with six models to hold.
-5. train_cuda_int8: the same drill, all 12 layers, with the gradient wire
+5. train_sharded: the reference example's two remaining arms at "125m",
+   full width and depth, batch 8. (b) ``SHARDED=1``: three groups over TCP
+   at codec none through ``ShardedOptimizerWrapper`` (reduce-scatter, a
+   1/3 update with optax-order ``adamw(3e-4)``, weight decay 1e-4, a
+   params allgather); g0 is killed after step 3, g1 and g2 commit 4 on a
+   wire of 2 after a reshard (its ``reinit_leaves`` reported), g0 restarts
+   from a poisoned init and heals at 5, its optimizer shard through
+   ``fetch_opt_shard``, and the three reshard back and commit 5-7. Every
+   committed step's parameters must be bitwise equal across the live
+   groups, every reshard and the heal must move exactly their lower bound
+   (``redist_moved_bytes == redist_lower_bound_bytes``), and steps 1-3
+   must equal, bitwise, the same steps of the wrapper's replicated arm
+   (``sharded=False``). (a) DDP's streamed pipeline against its lock-step
+   arm: two groups on the card's int8 psum plane with error feedback, the
+   same seeds and batches, 3 steps each; the averaged gradients and the
+   residuals must be bitwise equal after every step. (c) the sharded arm on
+   the same plane, two groups, 3 steps: the groups bitwise equal, and each
+   codec kernel launched once per reduce_scatter (the native scatter of
+   the two owned shard buckets). Every flash kernel launched 12 x the
+   passes of all runs. It checks the device memory first
+   (``sharded_device_bytes``) and runs before the phases that keep the
+   card plane's buffers.
+6. train_cuda_int8: the same drill, all 12 layers, with the gradient wire
    swapped for the on-device plane running the quantized psum
    (``comm_backend="cuda"``, ``{"algorithm": "psum", "compression":
    "int8"}``) with error feedback. Besides the checks of 3, each codec
@@ -81,9 +103,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    allreduce with a peer on the wire. Then the plane on the card is held
    bitwise against the plane on the CPU at each of the drill's bucket
    sizes.
-6. train_tiny: the drill of 3 over TCP at "tiny" (head_dim 16), full width
+7. train_tiny: the drill of 3 over TCP at "tiny" (head_dim 16), full width
    and depth, batch 8: the example's default config, on the card.
-7. gpt_1b: one forward/backward of "1b" (24 layers, d_model 2048, 16 heads
+8. gpt_1b: one forward/backward of "1b" (24 layers, d_model 2048, 16 heads
    of 128, seq 2048, activation checkpointing on) at batch 1, at full width
    and depth. The checkpointing recomputes each block's forward in the
    backward: 48 forward, 24 dQ and 24 dK/dV launches. The loss must lie
@@ -91,7 +113,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    of the same model whose attention runs ``reference_attention`` on the
    card.
 
-8. train_diloco: BASELINE config 4's shape, the DiLoCo example
+9. train_diloco: BASELINE config 4's shape, the DiLoCo example
    (``run_diloco_drill``) at "125m", full width and depth, batch 8: two
    groups over TCP at codec none, ``sync_every=8``, 2 streaming fragments,
    outer ``sgd(0.7, momentum=0.9, nesterov=True)``, inner AdamW (3e-4,
@@ -103,7 +125,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    equal to its donor), the losses finite, and every flash kernel launched
    12 x (inner steps + capture warm-up passes) times. It prints the outer
    sync's phase p50s and gauges, the round times and the heal.
-9. train_localsgd_int8: BASELINE config 3's shape, LocalSGD at "125m",
+10. train_localsgd_int8: BASELINE config 3's shape, LocalSGD at "125m",
    full width and depth, batch 8, four groups on the on-device plane
    (``comm_backend="cuda"``, psum, int8, error feedback on),
    ``sync_every=8``, 2 fragments. Every group commits round 1; in round 2
@@ -115,7 +137,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a peer. Round 1's fragment averages on the card must equal the same
    plane on the CPU bitwise. It first checks the host's free memory
    (``localsgd_host_bytes``).
-10. train_hier_int8: the hierarchical data plane at "125m", full width and
+11. train_hier_int8: the hierarchical data plane at "125m", full width and
    depth, batch 8: four groups in two domains (``HIER_DOMAINS``: rack0 =
    {g0, g1}, rack1 = {g2, g3}) over ``TcpCommContext(algorithm="star",
    compression="int8", topology="hier")``, 4 lanes, 1 MiB chunks, DDP with
@@ -137,7 +159,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``HIER_PSUM_TOL`` x absmax of the f64 sum; the codec kernels must have
    launched 3 times each per distinct size (star 2, psum 1). It first
    checks the host's free memory (``hier_host_bytes``).
-11. train_durable: the reference training loop whole, at "125m" full width
+12. train_durable: the reference training loop whole, at "125m" full width
    and depth, batch 8, over TCP under a lighthouse granting 2 s epoch
    leases (``run_resume_drill``): group 0 commits 3 steps alone, each a
    fused step replaying one CUDA graph; group 1 starts from a poisoned
@@ -1415,7 +1437,7 @@ def _outer_report(run, card: str) -> str:
 
 
 def phase_train_diloco(seed: int, card: str, batch: int = 8):
-    """run_diloco_drill at "125m" (module docstring, phase 8); returns the
+    """run_diloco_drill at "125m" (module docstring, phase 9); returns the
     flash launches it must have made and the result."""
     from torchft_tpu_torch.examples.train_diloco import run_diloco_drill
     from torchft_tpu_torch.models import CONFIGS, GPT, count_params
@@ -1524,7 +1546,7 @@ def check_plane_at_fragments(recorded, seed: int) -> None:
 
 def phase_train_localsgd_int8(seed: int, card: str, batch: int = 8):
     """The LocalSGD drill on the int8 device plane (module docstring, phase
-    9); returns the flash launches, the codec launches per kernel and the
+    10); returns the flash launches, the codec launches per kernel and the
     result."""
     from torchft_tpu_torch.examples.train_diloco import run_diloco_drill
     from torchft_tpu_torch.models import CONFIGS, GPT, count_params
@@ -1710,6 +1732,237 @@ def phase_train_multijob(seed: int, card: str, batch: int = 8):
     for name in row:
         row[name] += hi
     return per_d, result
+
+
+# train_sharded: the reference example's two remaining arms, DDP's
+# streamed pipeline against its lock-step arm and SHARDED=1
+SHARDED_GROUPS = 3
+# the drill: (kill_step, steps_alone, steps_after, kill_group)
+SHARDED_SCHEDULE = (3, 1, 2, 0)
+SHARDED_AB_STEPS = 3
+SHARDED_PHASES = ("quorum", "forward_backward", "opt_update", "reshard",
+                  "commit_barrier")
+DDP_STAGES = ("ddp_d2h", "ddp_ef", "ddp_wire", "ddp_h2d", "ddp_wire_total",
+              "ddp_wire_exposed")
+
+
+def sharded_device_bytes(n_params: int, act: int,
+                         groups: int = SHARDED_GROUPS) -> int:
+    """Device memory the sharded drill may hold at once: per group the f32
+    parameters and gradients (8 bytes a parameter) and, at the smallest
+    wire (groups - 1), its optimizer shard (two moments) and the staged
+    update of it (parameters and both moments): 20 bytes over the wire's
+    size; and every group's activations."""
+    return groups * ((8 + 20 // max(1, groups - 1)) * n_params + act)
+
+
+def sharded_expected_launches(buckets: int, steps: int = SHARDED_AB_STEPS,
+                              wire_steps: int = SHARDED_AB_STEPS) -> dict:
+    """Each codec kernel's launches in train_sharded: the A/B arms (two
+    runs of ``steps`` steps of two groups, each step an allreduce of every
+    DDP bucket: 2 launches per kernel per bucket), then the card plane's
+    sharded arm, whose reduce_scatter of the two owned shard buckets is the
+    native scatter, one launch per kernel per step with a peer."""
+    return {"ab": 2 * 2 * buckets * steps, "sharded": wire_steps}
+
+
+def _digests_equal(runs, steps) -> bool:
+    return all(len({r.param_digests.get(s) for r in runs}) == 1
+               and runs[0].param_digests.get(s) is not None for s in steps)
+
+
+def sharded_report(result: dict, replicated_bytes: int, card: str) -> list:
+    """The lines train_sharded prints about the drill: per group and life
+    the optimizer bytes held against the replicated bytes, the reshards
+    (new world, moved and lower-bound bytes, reinitialized leaves, ms),
+    the heal's optimizer bytes and its plan, and the phase p50s."""
+    lines = []
+    for g, lives in sorted(result["lives"].items()):
+        for life, run in enumerate(lives):
+            m = run.metrics
+            resh = [(e["new_world"], e["wire_bytes"], e["lower_bound_bytes"],
+                     e["reinit_leaves"]) for e in run.events
+                    if e["kind"] == "reshard"]
+            heal = [(e["moved_bytes"], e["lower_bound_bytes"])
+                    for e in run.events if e["kind"] == "redist_plan"
+                    and e["source"] == "opt_shard_heal"]
+            lines.append(
+                f"g{g} life {life}: optimizer state held "
+                f"{int(m.get('opt_state_bytes', 0))} B of "
+                f"{replicated_bytes} replicated; reshards (new world, moved, "
+                f"lower bound, reinit leaves) {resh}; reshard p50 "
+                f"{m.get('reshard_p50_ms', 0):.1f} ms; heal_opt_bytes "
+                f"{int(m.get('heal_opt_bytes', 0))}, heal plan (moved, "
+                f"lower bound) {heal}; phase p50 ms "
+                f"{_p50s(m, SHARDED_PHASES)} ({card})")
+    return lines
+
+
+def check_sharded_drill(result: dict, replicated: dict) -> None:
+    """The drill's own checks beyond bitwise equality of the live groups
+    (``run_kill_and_heal``): every reshard and the heal moved exactly their
+    lower bound, the shrink reinitialized the killed group's states, and
+    steps 1-3 equal the replicated arm's bitwise."""
+    for g, lives in result["lives"].items():
+        for run in lives:
+            for e in run.events:
+                if e["kind"] == "reshard" and \
+                        e["wire_bytes"] != e["lower_bound_bytes"]:
+                    raise AssertionError(f"g{g}: a reshard moved "
+                                         f"{e['wire_bytes']} bytes, lower "
+                                         f"bound {e['lower_bound_bytes']}")
+                if e["kind"] == "redist_plan" and \
+                        e["moved_bytes"] != e["lower_bound_bytes"]:
+                    raise AssertionError(f"g{g}: a {e['source']} plan moved "
+                                         f"{e['moved_bytes']} bytes, lower "
+                                         f"bound {e['lower_bound_bytes']}")
+    kill_step, alone, _, kill_group = SHARDED_SCHEDULE
+    healed = result["lives"][kill_group][-1]
+    heals = [e for e in healed.events if e["kind"] == "redist_plan"
+             and e["source"] == "opt_shard_heal"]
+    if not heals or heals[0]["moved_bytes"] <= 0:
+        raise AssertionError("the restarted group never fetched its "
+                             "optimizer shard with fetch_opt_shard")
+    survivor = result["lives"][(kill_group + 1) % SHARDED_GROUPS][0]
+    shrink = [e for e in survivor.events if e["kind"] == "reshard"
+              and e["new_world"] == SHARDED_GROUPS - 1]
+    if not shrink:
+        raise AssertionError("no reshard onto the shrunken wire")
+    grow = [e for e in survivor.events if e["kind"] == "reshard"
+            and e["new_world"] == SHARDED_GROUPS and e["old_world"]]
+    if not grow:
+        raise AssertionError("no reshard back onto the grown wire")
+    reinit = sum(e["reinit_leaves"] for g, lives in result["lives"].items()
+                 for run in lives for e in run.events
+                 if e["kind"] == "reshard"
+                 and e["new_world"] == SHARDED_GROUPS - 1)
+    if reinit <= 0:
+        raise AssertionError("the shrink reported no reinitialized leaves")
+    steps = range(1, kill_step + 1)
+    mine = survivor.param_digests
+    theirs = replicated[0].param_digests
+    same = [s for s in steps if mine.get(s) == theirs.get(s) is not None]
+    if same != list(steps):
+        raise AssertionError(f"the sharded arm equals the replicated arm "
+                             f"bitwise at steps {same} of {list(steps)}")
+
+
+def phase_train_sharded(seed: int, card: str, batch: int = 8):
+    """The reference example's two remaining arms (module docstring, phase
+    5): returns the flash launches, each codec kernel's launches, and the
+    runs."""
+    import torch
+
+    from torchft_tpu_torch.examples.train_ddp import (
+        run_joint,
+        run_kill_and_heal,
+    )
+    from torchft_tpu_torch.models import CONFIGS, GPT, count_params
+
+    t0 = time.perf_counter()
+    cfg = CONFIGS["125m"]
+    n_params = count_params(GPT(cfg, device="meta"))
+    act = gpt_activation_bytes(cfg, batch)
+    need = sharded_device_bytes(n_params, act)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    held = torch.cuda.memory_allocated()
+    log(f"  125m: {n_params} parameters, batch {batch}; device memory: up "
+        f"to {need / 1e9:.2f} GB, {free / 1e9:.1f} GB free ({held / 1e9:.2f}"
+        f" GB held by earlier phases)")
+    if free < need:
+        raise AssertionError(f"train_sharded needs {need / 1e9:.2f} GB of "
+                             f"device memory free, has {free / 1e9:.2f} GB")
+    passes = 0
+    # (b) SHARDED=1: three groups over TCP at codec none, g0 killed after
+    # step 3, the survivors shrink, g0 heals at 5, the three grow back
+    kill_step, alone, after, kill_group = SHARDED_SCHEDULE
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    drill = run_kill_and_heal(
+        cfg, kill_step=kill_step, steps_alone=alone, steps_after=after,
+        groups=SHARDED_GROUPS, kill_group=kill_group, device="cuda",
+        batch_size=batch, seed=seed, timeout=300.0, sharded=True,
+        digest_params=True, log=lambda m: log("  " + m))
+    drill_s = time.perf_counter() - t1
+    passes += drill["passes"]
+    t1 = time.perf_counter()
+    replicated = run_joint(cfg, groups=SHARDED_GROUPS, steps=kill_step,
+                           device="cuda", batch_size=batch, seed=seed,
+                           timeout=300.0, sharded=False, digest_params=True)
+    replicated_s = time.perf_counter() - t1
+    passes += sum(r.passes for r in replicated.values())
+    rep_bytes = int(replicated[0].metrics.get("opt_state_bytes", 0))
+    check_sharded_drill(drill, replicated)
+    log(f"  (b) SHARDED=1 drill {drill_s:.1f} s: heal at step "
+        f"{drill['heal_step']}, live groups bitwise equal at every committed "
+        f"step, steps 1-{kill_step} bitwise equal to the replicated arm "
+        f"(its run {replicated_s:.1f} s); device memory peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated "
+        f"(reckoned {need / 1e9:.2f} GB) ({card})")
+    for line in sharded_report(drill, rep_bytes, card):
+        log("  " + line)
+    for g, run in sorted(drill["runs"].items()):
+        times = ", ".join(f"{s}: {t * 1e3:.1f}"
+                          for s, t in sorted(run.step_seconds.items()))
+        log(f"  g{g} step ms {{{times}}}")
+    del drill, replicated
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (a) DDP's streamed pipeline against its lock-step arm on the card's
+    # int8 plane with error feedback: the same seeds and batches
+    arms = {}
+    for streamed in (True, False):
+        t1 = time.perf_counter()
+        arms[streamed] = run_joint(
+            cfg, groups=2, steps=SHARDED_AB_STEPS, device="cuda",
+            batch_size=batch, seed=seed, timeout=300.0, streamed=streamed,
+            comm_backend="cuda", comm_options=INT8_OPTIONS,
+            digest_averages=True)
+        passes += sum(r.passes for r in arms[streamed].values())
+        for g, run in sorted(arms[streamed].items()):
+            steps_ms = [round(t * 1e3, 1)
+                        for _, t in sorted(run.step_seconds.items())]
+            log(f"  (a) {'streamed' if streamed else 'lock-step'} g{g}: "
+                f"{time.perf_counter() - t1:.1f} s, step ms {steps_ms} "
+                f"(digests included); p50 ms "
+                f"{_p50s(run.metrics, DDP_STAGES)} ({card})")
+    for g in (0, 1):
+        a, b = arms[True][g].average_digests, arms[False][g].average_digests
+        steps = list(range(1, SHARDED_AB_STEPS + 1))
+        if [s for s in steps if a.get(s) == b.get(s) is not None] != steps:
+            raise AssertionError(f"g{g}: streamed and lock-step averages or "
+                                 f"residuals differ ({a} vs {b})")
+    buckets = len(arms[True][0].buckets)
+    log(f"  (a) streamed == lock-step bitwise, averaged gradients and EF "
+        f"residuals, after each of {SHARDED_AB_STEPS} steps, both groups "
+        f"({buckets} buckets)")
+    del arms
+    gc.collect()
+    # (c) the sharded arm on the card's int8 plane
+    t1 = time.perf_counter()
+    card_runs = run_joint(cfg, groups=2, steps=SHARDED_AB_STEPS,
+                          device="cuda", batch_size=batch, seed=seed,
+                          timeout=300.0, sharded=True, comm_backend="cuda",
+                          comm_options=INT8_OPTIONS, digest_params=True)
+    passes += sum(r.passes for r in card_runs.values())
+    runs = list(card_runs.values())
+    if not _digests_equal(runs, range(1, SHARDED_AB_STEPS + 1)):
+        raise AssertionError("(c): the two groups' parameters differ")
+    wire_steps = runs[0].wire_steps
+    log(f"  (c) sharded on the int8 card plane {time.perf_counter() - t1:.1f}"
+        f" s: both groups bitwise equal after each of {SHARDED_AB_STEPS} "
+        f"steps; {len(runs[0].buckets)} shard buckets, {wire_steps} steps "
+        f"with a peer; p50 ms {_p50s(runs[0].metrics, SHARDED_PHASES)} "
+        f"({card})")
+    del card_runs, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase {time.perf_counter() - t0:.1f} s; device memory held "
+        f"after it {torch.cuda.memory_allocated() / 1e9:.2f} GB ({card})")
+    codec = sharded_expected_launches(buckets, wire_steps=wire_steps)
+    return passes * cfg.n_layers, codec["ab"] + codec["sharded"]
 
 
 # train_hier_int8: four groups in two domains over the hierarchical TCP
@@ -1927,7 +2180,7 @@ def check_hier_planes(sizes, seed: int, card: str) -> "tuple[list, int]":
 
 
 def phase_train_hier_int8(seed: int, card: str, batch: int = 8):
-    """The hierarchical drill (module docstring, phase 10): returns the
+    """The hierarchical drill (module docstring, phase 11): returns the
     flash kernels' launches, the codec kernels' launches and the result."""
     from torchft_tpu_torch.examples.train_ddp import run_kill_and_heal
     from torchft_tpu_torch.models import CONFIGS, GPT, count_params
@@ -1985,7 +2238,8 @@ def _check_launches(counts, want, what: str) -> None:
                              f"want {want} ({what})")
 
 
-PHASES = ("kernels", "train", "train_multijob", "train_cuda_int8",
+PHASES = ("kernels", "train", "train_multijob", "train_sharded",
+          "train_cuda_int8",
           "train_tiny", "gpt_1b", "train_diloco", "train_localsgd_int8",
           "train_hier_int8", "train_durable")
 
@@ -2068,6 +2322,18 @@ def main() -> int:
                         "passes included; codec: none")
         for head_dim, c in per_d.items():
             _add_launches(rows, c, head_dim)
+    if "train_sharded" in phases:
+        log("phase train_sharded")
+        flash.reset_launch_counts()
+        quant.reset_launch_counts()
+        want, codec = phase_train_sharded(args.seed, smi)
+        counts = {**flash.LAUNCHES, **quant.LAUNCHES}
+        _check_launches(counts, {**{n: want for n in flash.LAUNCHES},
+                                 **{n: codec for n in quant.LAUNCHES}},
+                        "flash: one per layer per pass; codec: 2 per DDP "
+                        "bucket per allreduce in the A/B arms, 1 per "
+                        "sharded reduce_scatter")
+        _add_launches(rows, counts, CONFIGS["125m"].head_dim)
     if "train_cuda_int8" in phases:
         log("phase train_cuda_int8")
         flash.reset_launch_counts()

@@ -154,7 +154,8 @@ def test_flash_shapes_reach_every_head_dim() -> None:
                        cfg.n_heads, cfg.head_dim)) in \
             {(w, shape) for w, shape, _ in shapes}
     assert smoke.PHASES == ("kernels", "train", "train_multijob",
-                            "train_cuda_int8", "train_tiny", "gpt_1b",
+                            "train_sharded", "train_cuda_int8",
+                            "train_tiny", "gpt_1b",
                             "train_diloco", "train_localsgd_int8",
                             "train_hier_int8", "train_durable")
     assert all(n in {k for k, v in GPT(CONFIGS["1b"], device="meta")
@@ -491,3 +492,98 @@ def test_train_multijob_failures_are_not_swallowed(monkeypatch, capsys):
     with pytest.raises(AssertionError, match="eviction"):
         smoke.main()
     assert '"ok"' not in capsys.readouterr().out
+
+
+# ------------------------------------------------------------ train_sharded
+
+
+def test_sharded_memory_and_launches_at_125m() -> None:
+    smoke = _smoke()
+    cfg = CONFIGS["125m"]
+    n = 136091136
+    act = smoke.gpt_activation_bytes(cfg, 8)
+    # three groups' parameters and gradients, at a wire of 2 half the
+    # moments and their staged update, and three groups' activations
+    assert smoke.sharded_device_bytes(n, act) == 3 * (18 * n + act)
+    # the A/B arms: 2 arms x 2 launches x 15 DDP buckets x 3 steps; the
+    # card plane's sharded arm: one native scatter a step with a peer
+    assert smoke.sharded_expected_launches(15) == {"ab": 180, "sharded": 3}
+    phases = smoke.PHASES
+    assert phases.index("train_multijob") < phases.index("train_sharded") \
+        < phases.index("train_cuda_int8")
+
+
+def _tiny_sharded(monkeypatch, free=1e12):
+    import torchft_tpu_torch.examples.train_ddp as example
+    import torchft_tpu_torch.models as models
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    monkeypatch.setitem(models.CONFIGS, "125m", CONFIGS["tiny"])
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (free, free))
+    for name in ("empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    for name in ("run_joint", "run_kill_and_heal"):
+        fn = getattr(example, name)
+        monkeypatch.setattr(example, name, lambda cfg, _fn=fn, **kw: _fn(
+            cfg, **dict(kw, device="cpu", batch_size=2, timeout=30.0)))
+    return smoke, lines
+
+
+def test_train_sharded_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # the phase as the card runs it, moved to "tiny" on the CPU (the card
+    # plane on a CPU pool): every check of (a), (b) and (c), the report
+    # and the launch counts it expects
+    smoke, lines = _tiny_sharded(monkeypatch)
+    flash_launches, codec = smoke.phase_train_sharded(0, "CPU")
+    text = "\n".join(lines)
+    # (b) 3 x 7 - 1 drill passes, 3 x 3 replicated; (a) 2 x 2 x 3; (c) 2 x 3
+    assert flash_launches == CONFIGS["tiny"].n_layers * (20 + 9 + 12 + 6)
+    # "tiny" has one DDP bucket: 2 x 2 x 1 x 3, then 3 sharded scatters
+    assert codec == 12 + 3
+    assert "steps 1-3 bitwise equal to the replicated arm" in text
+    assert "(a) streamed == lock-step bitwise" in text
+    assert "(c) sharded on the int8 card plane" in text
+    for g in (0, 1, 2):
+        assert f"g{g} life 0: optimizer state held" in text
+    assert "g0 life 1" in text and "heal plan (moved, lower bound) [(" \
+        in text
+
+
+def test_check_sharded_drill_catches_an_overship() -> None:
+    # a reshard that moved more than its lower bound, a heal that never
+    # fetched, and a sharded arm off the replicated one each fail
+    from torchft_tpu_torch.examples.train_ddp import GroupRun
+
+    smoke = _smoke()
+
+    def result(moved=10, heal=5, digest="x"):
+        reshards = [
+            {"kind": "reshard", "new_world": 3, "old_world": None,
+             "wire_bytes": 0, "lower_bound_bytes": 0, "reinit_leaves": 0},
+            {"kind": "reshard", "new_world": 2, "old_world": 3,
+             "wire_bytes": moved, "lower_bound_bytes": 10,
+             "reinit_leaves": 2},
+            {"kind": "reshard", "new_world": 3, "old_world": 2,
+             "wire_bytes": 0, "lower_bound_bytes": 0, "reinit_leaves": 0}]
+        digests = {s: digest for s in (1, 2, 3)}
+        healed = GroupRun(events=[{"kind": "redist_plan",
+                                   "source": "opt_shard_heal",
+                                   "moved_bytes": heal,
+                                   "lower_bound_bytes": heal}])
+        return {"lives": {0: [GroupRun(), healed],
+                          1: [GroupRun(events=reshards,
+                                       param_digests=digests)],
+                          2: [GroupRun()]}}
+
+    replicated = {0: GroupRun(param_digests={s: "x" for s in (1, 2, 3)})}
+    smoke.check_sharded_drill(result(), replicated)
+    with pytest.raises(AssertionError, match="moved 11 bytes"):
+        smoke.check_sharded_drill(result(moved=11), replicated)
+    with pytest.raises(AssertionError, match="fetch_opt_shard"):
+        smoke.check_sharded_drill(result(heal=0), replicated)
+    with pytest.raises(AssertionError, match="replicated arm"):
+        smoke.check_sharded_drill(result(digest="y"), replicated)

@@ -20,6 +20,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import pytest
 
+from torchft_tpu_torch.comm.cuda_backend import CudaCommContext, DevicePool
 from torchft_tpu_torch.comm.store import StoreServer
 from torchft_tpu_torch.comm.transport import TcpCommContext
 from torchft_tpu_torch.control import Lighthouse, LighthouseClient
@@ -325,12 +326,23 @@ def test_lighthouse_without_lease_grants_none(store) -> None:
 # ------------------------------------------------------- vote wire semantics
 
 
-def _run_ranks(store, world_size, fn, prefix="vote", kinds=None):
+_CPU_POOL = DevicePool("cpu")
+
+
+def _make_ctx(kind: str):
+    """A context of ``kind``: "port" (the port's TCP wire), "jax" (the JAX
+    package's) or "cuda" (the port's device plane, run on the CPU)."""
     from torchft_tpu.comm.transport import TcpCommContext as JaxTcp
 
+    if kind == "cuda":
+        # the ranks of one group must share a pool (its device and plans)
+        return CudaCommContext(timeout=10.0, device_pool=_CPU_POOL)
+    return (TcpCommContext if kind == "port" else JaxTcp)(timeout=10.0)
+
+
+def _run_ranks(store, world_size, fn, prefix="vote", kinds=None):
     kinds = kinds or ("port",) * world_size
-    ctxs = [(TcpCommContext if k == "port" else JaxTcp)(timeout=10.0)
-            for k in kinds]
+    ctxs = [_make_ctx(k) for k in kinds]
     results = [None] * world_size
 
     def _worker(rank):
@@ -347,11 +359,13 @@ def _run_ranks(store, world_size, fn, prefix="vote", kinds=None):
 
 @pytest.mark.parametrize("kinds", [("port", "port"), ("port", "jax"),
                                    ("jax", "port"), ("port", "jax", "port"),
-                                   ("port",)])
+                                   ("port",), ("cuda", "cuda"),
+                                   ("cuda", "cuda", "cuda"), ("cuda",)])
 def test_take_commit_vote_semantics(store, kinds) -> None:
     # absent -> None; all healthy -> True on every rank; one dissenter ->
     # False on every rank (the vote rides the collective); consumed once.
     # Mixed with the JAX package's wire, star and ring: the same verdicts.
+    # The device plane folds the same votes into its group rendezvous.
     world = len(kinds)
     dissenter = world - 1
 
@@ -476,3 +490,147 @@ def test_mixed_cohort_steady_steps_are_zero_rpc(lease_lighthouse) -> None:
     assert port_run["rpcs"][0] >= 2 and jax_run["rpcs"][0] >= 2
     assert port_run["rpcs"][2:] == jax_run["rpcs"][2:] == [0] * (steps - 2)
     assert managers[1].metrics.snapshot()["fastpath_steps"] >= steps - 2
+
+
+# ------------------------------------------- the device plane's vote (F6)
+
+
+@pytest.mark.parametrize("case", ["raising_provider", "reduce_scatter",
+                                  "resets_on_configure", "after_a_latch"])
+def test_cuda_plane_vote_window(store, case) -> None:
+    # CudaCommContext keeps the TCP wire's window: a raising provider votes
+    # unhealthy, reduce_scatter votes as allreduce does, a configure
+    # empties the window, and a failed op records no vote while the latch
+    # makes this rank's next submissions vote unhealthy
+    def _fn(ctx, rank):
+        if case == "raising_provider":
+            def broken():
+                raise RuntimeError("provider down")
+
+            ctx.set_vote_health(broken)
+            ctx.allreduce([np.ones(4, np.float32)]).future().result(10)
+            return ctx.take_commit_vote()
+        if case == "reduce_scatter":
+            ctx.reduce_scatter([np.ones(4, np.float32),
+                                np.ones(4, np.float32)]).future().result(10)
+            healthy = ctx.take_commit_vote()
+            ctx.set_vote_health(lambda: rank != 0)
+            ctx.reduce_scatter([np.ones(4, np.float32),
+                                np.ones(4, np.float32)]).future().result(10)
+            return healthy, ctx.take_commit_vote()
+        if case == "resets_on_configure":
+            ctx.allreduce([np.ones(4, np.float32)]).future().result(10)
+            ctx.configure(f"{store.addr}/vote2_cuda", rank, 2)
+            return ctx.take_commit_vote()
+        # after_a_latch: a mismatched op fails for both ranks and records
+        # nothing; the latch then votes unhealthy on the solo re-form
+        bad = ctx.allreduce([np.ones(4 + rank, np.float32)]).future()
+        failed = bad.exception(10) is not None
+        absent = ctx.take_commit_vote()
+        ctx.configure(f"{store.addr}/vote3_cuda_{rank}", 0, 1)
+        ctx._error = RuntimeError("latched")
+        ctx._record_vote(ctx._vote_health_bit())
+        return failed, absent, ctx.take_commit_vote()
+
+    got = _run_ranks(store, 2, _fn, prefix=f"vote_{case}",
+                     kinds=("cuda", "cuda"))
+    want = {"raising_provider": [False, False],
+            "reduce_scatter": [(True, False), (True, False)],
+            "resets_on_configure": [None, None],
+            "after_a_latch": [(True, None, False), (True, None, False)]}
+    assert got == want[case]
+
+
+def test_cuda_plane_vote_window_under_concurrent_recorders() -> None:
+    # the executor records on every member while Managers take their
+    # windows: no vote is lost, one dissent makes the window False
+    ctx = CudaCommContext(timeout=10.0, device_pool=DevicePool("cpu"))
+    threads, per = 8, 500
+    workers = [threading.Thread(
+        target=lambda t=t: [ctx._record_vote(int(t == 3 and i == 100))
+                            for i in range(per)]) for t in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=30)
+        assert not w.is_alive()
+    assert ctx._vote_ops == threads * per
+    assert ctx.take_commit_vote() is False
+    assert ctx.take_commit_vote() is None
+
+
+@pytest.mark.parametrize("comm_options", [
+    {"algorithm": "star"},
+    {"algorithm": "psum", "compression": "int8"},
+], ids=["star", "psum_int8"])
+def test_leased_ddp_on_the_cuda_plane_is_zero_rpc(lease_lighthouse,
+                                                   comm_options) -> None:
+    # two groups averaging gradients with DDP over comm_backend="cuda": the
+    # first step grants the leases, and every steady step after it commits
+    # on the device plane's vote with no control RPC, as over TCP
+    import torch
+
+    from torchft_tpu_torch.ddp import DistributedDataParallel
+
+    steps = 5
+    stores = [StoreServer(), StoreServer()]
+    pool = DevicePool("cpu")
+    managers = [None, None]
+    out = [{"commits": [], "rpcs": [], "grads": []} for _ in range(2)]
+    barrier = threading.Barrier(2, timeout=60.0)
+
+    def _replica(idx: int) -> None:
+        mgr = Manager(comm_backend="cuda",
+                      comm_options=dict(comm_options, device_pool=pool,
+                                        timeout=20.0),
+                      min_replica_size=1, rank=0, world_size=1,
+                      store_addr=stores[idx].addr,
+                      lighthouse_addr=lease_lighthouse.address(),
+                      replica_id=f"cuda_lease_{idx}_", timeout=20.0,
+                      quorum_timeout=20.0, connect_timeout=20.0,
+                      heartbeat_interval=0.05, use_async_quorum=False)
+        managers[idx] = mgr
+        ddp = DistributedDataParallel(mgr)
+        params = [torch.nn.Parameter(torch.zeros(300)),
+                  torch.nn.Parameter(torch.zeros(7))]
+        gen = torch.Generator().manual_seed(idx)
+        for _ in range(steps):
+            barrier.wait()
+            mgr.start_quorum(allow_heal=False)
+            for p in params:
+                p.grad = torch.randn(p.shape, generator=gen)
+            ddp.average_gradients(params)
+            out[idx]["grads"].append([p.grad.clone() for p in params])
+            out[idx]["commits"].append(mgr.should_commit())
+            out[idx]["rpcs"].append(mgr.control_rpcs())
+
+    errors = []
+
+    def _guarded(idx: int) -> None:
+        try:
+            _replica(idx)
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=_guarded, args=(i,)) for i in range(2)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120.0)
+            assert not t.is_alive()
+    finally:
+        for mgr in managers:
+            if mgr is not None:
+                mgr.shutdown(wait=False)
+        for s in stores:
+            s.shutdown()
+    assert not errors, errors
+    for run in out:
+        assert run["commits"] == [True] * steps
+        assert run["rpcs"][0] >= 2
+        assert run["rpcs"][2:] == [0] * (steps - 2), run["rpcs"]
+    for a, b in zip(out[0]["grads"], out[1]["grads"]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert managers[0].metrics.snapshot()["fastpath_steps"] >= steps - 2

@@ -22,6 +22,7 @@ from torchft_tpu_torch.futures import (
     completed_future,
     failed_future,
     future_all,
+    future_timeout,
     future_wait,
 )
 
@@ -166,3 +167,26 @@ def test_split_weighted_equals_reference(seed) -> None:
             assert grid[0][0] == 0 and grid[-1][1] == n
             assert len(grid) == min(parts, n)
             assert all(a < b for a, b in grid)
+
+
+def test_cancelled_timeout_releases_its_callback() -> None:
+    # a future resolved before its deadline cancels the timer, and the
+    # cancelled entry, still in the heap until the deadline, no longer
+    # holds the wrapper future or what its continuations close over (the
+    # reference's asyncio handle drops its callback on cancel too)
+    import gc
+    import weakref
+
+    class Payload:
+        pass
+
+    fut = Future()
+    payload = Payload()
+    timed = future_timeout(fut, 3600.0)
+    timed.add_done_callback(lambda f, p=payload: p)
+    ref = weakref.ref(payload)
+    fut.set_result(1)
+    assert timed.result(timeout=5) == 1
+    del fut, timed, payload
+    gc.collect()
+    assert ref() is None

@@ -17,7 +17,13 @@ from torchft_tpu_torch.comm import (  # noqa: F401
     TcpCommContext,
 )
 from torchft_tpu_torch.data import DistributedSampler  # noqa: F401
-from torchft_tpu_torch.ddp import DistributedDataParallel  # noqa: F401
+from torchft_tpu_torch.ddp import (  # noqa: F401
+    DistributedDataParallel,
+    PureDistributedDataParallel,
+)
 from torchft_tpu_torch.local_sgd import DiLoCo, LocalSGD  # noqa: F401
 from torchft_tpu_torch.manager import Manager, WorldSizeMode  # noqa: F401
-from torchft_tpu_torch.optim import OptimizerWrapper  # noqa: F401
+from torchft_tpu_torch.optim import (  # noqa: F401
+    OptimizerWrapper,
+    ShardedOptimizerWrapper,
+)

@@ -777,12 +777,12 @@ def _host_hier_allreduce(contribs: List[List[np.ndarray]],
 
 class _Sub:
     __slots__ = ("opcode", "arrays", "op", "root", "fut", "owners",
-                 "topology", "t_submit")
+                 "topology", "vote", "t_submit")
 
     def __init__(self, opcode: str, arrays: List[np.ndarray], op: str,
                  root: int, fut: Future,
                  owners: "Optional[List[int]]" = None,
-                 topology: Optional[str] = None) -> None:
+                 topology: Optional[str] = None, vote: int = 0) -> None:
         self.opcode = opcode
         self.arrays = arrays
         self.op = op
@@ -790,6 +790,9 @@ class _Sub:
         self.fut = fut
         self.owners = owners  # reduce_scatter: destination rank per array
         self.topology = topology  # allreduce: the per-op override
+        # this rank's commit-vote health bit (1 = unhealthy), sampled at
+        # submit on the gradient ops
+        self.vote = vote
         self.t_submit = time.perf_counter()
 
 
@@ -1041,6 +1044,15 @@ class _DeviceGroup:
             for sub, m in zip(ordered, sinks):
                 m.observe("comm_submit_wire", t_exec - sub.t_submit)
             self._execute_allreduce(ordered)
+            # the commit vote: the rendezvous gathered every rank's health
+            # bit with the op, so the aggregate is their OR, recorded on
+            # every member (the reference's fold). A failed or expired op
+            # records nothing: the vote is absent and the barrier runs
+            agg = 0
+            for sub in ordered:
+                agg |= sub.vote & 1
+            for r in range(n):
+                self._members[r]._record_vote(agg)
             # spans before the futures resolve: a caller reading the
             # metrics right after .result() sees them
             t_done = time.perf_counter()
@@ -1351,6 +1363,12 @@ class CudaCommContext(CommContext):
         self.metrics = Metrics()
         self.metrics.label("comm_backend", self.backend_name)
         self._events = None
+        # data-plane commit votes: the aggregate health bits that rode this
+        # context's gradient ops since the last take_commit_vote
+        self._vote_health = None
+        self._vote_lock = threading.Lock()
+        self._vote_ops = 0
+        self._vote_unhealthy = False
 
     @classmethod
     def unsupported_reason(cls, algorithm: str, compression: str,
@@ -1451,6 +1469,9 @@ class CudaCommContext(CommContext):
             self._error = None
             self._seq = 0
             generation = self._generation
+        with self._vote_lock:  # votes of the old membership prove nothing
+            self._vote_ops = 0
+            self._vote_unhealthy = False
         ev = self._events
         if world_size == 1:
             if ev:
@@ -1505,6 +1526,48 @@ class CudaCommContext(CommContext):
         ev = self._events
         if first and ev:
             ev.emit("error_latched", source="cuda", error=repr(e)[:200])
+
+    # ------------------------------------------- data-plane commit votes
+    # The TCP wire's surface and window semantics: a voted op proves every
+    # cohort member reached the step's collective and reported healthy. On
+    # this plane the evidence is the group rendezvous (_DeviceGroup._execute).
+
+    def set_vote_health(self, fn) -> None:
+        """Install the local health provider (``fn() -> bool``, True =
+        healthy) sampled when each gradient op is submitted."""
+        self._vote_health = fn
+
+    def _vote_health_bit(self) -> int:
+        """This rank's vote bit: 1 = unhealthy. A latched error always
+        votes unhealthy; so does a provider that raises."""
+        if self.errored() is not None:
+            return 1
+        fn = self._vote_health
+        if fn is None:
+            return 0
+        try:
+            return 0 if fn() else 1
+        except Exception:  # noqa: BLE001 — a broken provider is unhealthy
+            return 1
+
+    def _record_vote(self, bit: int) -> None:
+        with self._vote_lock:
+            self._vote_ops += 1
+            if bit & 1:
+                self._vote_unhealthy = True
+
+    def take_commit_vote(self) -> "Optional[bool]":
+        """Aggregate of the votes recorded since the last call: True (at
+        least one voted op, every member healthy on each), False (any
+        dissent), None (no voted op completed: the caller runs the full
+        commit barrier)."""
+        with self._vote_lock:
+            ops, bad = self._vote_ops, self._vote_unhealthy
+            self._vote_ops = 0
+            self._vote_unhealthy = False
+        if ops == 0:
+            return None
+        return not bad
 
     # ------------------------------------------------- wire introspection
 
@@ -1574,7 +1637,12 @@ class CudaCommContext(CommContext):
                 return Work(fut)
             self._seq += 1
             seq = self._seq
+        grad_op = opcode in ("allreduce", "reduce_scatter")
         if world == 1:
+            if grad_op:
+                # solo: the op's vote is this rank's own health, as on the
+                # TCP wire's solo path
+                self._record_vote(self._vote_health_bit())
             fut.set_result([prepared] if opcode == "allgather" else prepared)
             return Work(fut)
         if opcode == "reduce_scatter" and owners is None:
@@ -1583,7 +1651,8 @@ class CudaCommContext(CommContext):
             self._rank, seq,
             _Sub(opcode, prepared, op, root, fut,
                  owners=None if owners is None else [int(o) for o in owners],
-                 topology=topology),
+                 topology=topology,
+                 vote=self._vote_health_bit() if grad_op else 0),
             self._timeout,
         )
         return Work(fut)

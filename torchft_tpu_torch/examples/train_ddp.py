@@ -1,5 +1,5 @@
-"""Fault-tolerant DDP training of the GPT with torch (twin of the
-non-sharded arm of ``examples/train_ddp.py``).
+"""Fault-tolerant DDP training of the GPT with torch (twin of
+``examples/train_ddp.py``, both arms).
 
 Run one replica group per process (repeat per group):
 
@@ -8,6 +8,9 @@ Run one replica group per process (repeat per group):
     TORCHFT_TPU_LIGHTHOUSE=http://host:29510 \\
     CKPT_PATH=/data/run0.ckpt \\
         python -m torchft_tpu_torch.examples.train_ddp
+
+(``SHARDED=1`` for the sharded weight update, ``MODEL_SHARDS=M`` with it,
+``STREAMED=0`` for DDP's lock-step arm.)
 
 Kill any replica group at any time: survivors keep committing; the
 relaunched group heals from a live peer and rejoins. Kill every group, and
@@ -18,15 +21,28 @@ for either. It runs on CUDA (``DEVICE=cpu`` for the CPU).
 Each step takes one of the reference's two paths: on a solo wire (no
 data-plane peer) ``opt.can_fuse()`` -> ``opt.fused_step(train_step, ...)``,
 forward, backward and AdamW as one CUDA graph; otherwise forward/backward,
-``ddp.average_gradients``, ``opt.step()``. Losses come back through the
+``ddp.average_gradients`` (the streamed per-bucket pipeline; ``streamed=
+False`` is its lock-step arm), ``opt.step()``. Losses come back through the
 optimizer wrapper's fence, in batches, never one sync per step.
+
+``SHARDED=1`` switches the weight update to the cross-replica sharded path
+(``optim.ShardedOptimizerWrapper``: reduce-scatter, a 1/N update with
+optax-order ``adamw(3e-4)``, weight decay 1e-4, then a params allgather),
+which never fuses. Optimizer state and its heal bytes divide by the wire
+world size; every membership change reshards through comm/redistribute.py,
+and a healer fetches the donor's optimizer shard with
+``checkpointing.fetch_opt_shard``. ``MODEL_SHARDS=M`` prices reshards on
+the 2-D (replica x model) sub-unit grid. Both must match across groups.
 
 ``train_group`` is the loop as a function. ``run_kill_and_heal`` drives
 replica groups in threads (two by default) through a failure, a restart
 from a poisoned init and a heal, on a fixed schedule of steps, and checks
 that the groups, the healed one included, are bitwise equal at every step
 they commit; with a domain map it drives the hierarchical wire
-(``topology="hier"``), resolving each group's domain as the groups start.
+(``topology="hier"``), resolving each group's domain as the groups start;
+with ``sharded=True`` it drives the sharded update through a shrink and a
+grow. ``run_joint`` runs groups a few steps together, with no failure (the
+A/B arms' runs).
 ``run_resume_drill`` adds the durable half:
 a fused solo phase, a heal, steps on the epoch lease's fast path,
 checkpoints, a kill of every group, and a resume that must equal the
@@ -74,6 +90,7 @@ from torchft_tpu_torch.comm.store import StoreServer
 from torchft_tpu_torch.comm.topology import DomainTopology
 from torchft_tpu_torch.control import Lighthouse, LighthouseClient
 from torchft_tpu_torch.data import DistributedSampler
+from torchft_tpu_torch.checkpointing import CheckpointServer
 from torchft_tpu_torch.ddp import (
     _DEFAULT_BUCKET_BYTES,
     DistributedDataParallel,
@@ -87,14 +104,23 @@ from torchft_tpu_torch.models import (
     make_train_step,
 )
 from torchft_tpu_torch.ops.flash import check_head_dim
-from torchft_tpu_torch.optim import OptimizerWrapper, load_optimizer_state_dict
+from torchft_tpu_torch.optim import (
+    OptimizerWrapper,
+    ShardedOptimizerWrapper,
+    adamw,
+    load_optimizer_state_dict,
+)
 from torchft_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["FaultyCommContext", "InjectedFailure", "GroupRun",
-           "run_kill_and_heal", "run_multijob_drill", "run_resume_drill",
-           "train_group"]
+           "run_joint", "run_kill_and_heal", "run_multijob_drill",
+           "run_resume_drill", "train_group"]
+
+# the manifest paths of the sharded optimizer's slots: a heal leaves them
+# on the donor, and the healer fetches them with fetch_opt_shard
+OPT_SLOTS_PATH_RE = r".*\['slots'\]\[(\d+)\]\[(\d+)\]$"
 
 
 class InjectedFailure(Exception):
@@ -221,6 +247,29 @@ class GroupRun:
     fused_metrics: Dict[str, object] = field(default_factory=dict)
     recorded: Dict[int, Tuple[List[np.ndarray], List[np.ndarray]]] = field(
         default_factory=dict)
+    # digests (sha256) of the parameters after each committed step, and of
+    # the averaged gradients with DDP's residuals after each average, keyed
+    # by the step count after the step (``digest_params``/``digest_averages``)
+    param_digests: Dict[int, str] = field(default_factory=dict)
+    average_digests: Dict[int, str] = field(default_factory=dict)
+    # the Manager's flight recorder at the end (what GET /telemetry/events
+    # serves): quorums, heals, commits, the sharded update's reshards
+    events: List[Dict[str, Any]] = field(default_factory=list)
+
+
+def _digest(tensors: Sequence[Any]) -> str:
+    """sha256 over the bytes of tensors and arrays, in order (None skipped)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        if t is None:
+            continue
+        if isinstance(t, torch.Tensor):
+            t = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8) \
+                .numpy()
+        h.update(np.ascontiguousarray(t).view(np.uint8).data)
+    return h.hexdigest()
 
 
 def _bytes_of(t: torch.Tensor) -> torch.Tensor:
@@ -279,6 +328,10 @@ def train_group(
     data_plane: bool = True,
     model_shards: int = 1,
     on_evicted: Optional[Callable[[Manager, GPT], None]] = None,
+    streamed: bool = True,
+    sharded: Optional[bool] = None,
+    digest_params: bool = False,
+    digest_averages: bool = False,
 ) -> GroupRun:
     """Train one replica group until ``total_steps`` steps are committed
     (or ``stop`` is set).
@@ -309,6 +362,14 @@ def train_group(
     optimizer step. When a quorum answer evicts the group, it stops before
     the step's forward pass, after ``on_evicted(manager, model)``.
 
+    ``streamed``: DDP's per-bucket pipeline (True) or its lock-step arm.
+    ``sharded``: None for the classic arm (DDP and ``torch.optim.AdamW``);
+    True for ``ShardedOptimizerWrapper`` (optax-order ``adamw``), False for
+    that wrapper's replicated arm, its bitwise oracle.
+    ``digest_params``/``digest_averages``: keep
+    sha256 digests of the parameters after each commit, and of the averaged
+    gradients with DDP's residuals after each average.
+
     A CUDA run of a config whose head_dim the flash kernels do not take
     raises ValueError here, before anything is built.
     """
@@ -322,11 +383,12 @@ def train_group(
     model = GPT(cfg, device=device, seed=init_seed)
     if init_state is not None:
         model.load_state_dict(init_state)
-    # one optimizer for both paths; on the card its step count lives on
-    # the device, which the fused step's CUDA graph needs
+    # one optimizer for both classic paths; on the card its step count
+    # lives on the device, which the fused step's CUDA graph needs
     optimizer = torch.optim.AdamW(model.parameters(), lr=3e-4,
                                   weight_decay=1e-4,
                                   capturable=device.type == "cuda")
+    sharded_opt: Optional[ShardedOptimizerWrapper] = None
     # synthetic next-token dataset, sharded across groups x local ranks
     rng = np.random.default_rng(data_seed)
     dataset = rng.integers(0, cfg.vocab_size, (dataset_size, cfg.max_seq_len))
@@ -337,14 +399,23 @@ def train_group(
     )
 
     def state_dict():
+        if sharded is not None:
+            # the sharded arm's optimizer shard rides under train.opt
+            return {"train": {"params": model.state_dict(),
+                              "opt": sharded_opt.opt_state_dict()},
+                    "sampler": sampler.state_dict()}
         return {"model": model.state_dict(), "optim": optimizer.state_dict(),
                 "sampler": sampler.state_dict()}
 
     def load_state_dict(sd):
         # in place where the tensors exist, so the fused step's graph stays
         # valid across heals and resumes
-        model.load_state_dict(sd["model"])
-        load_optimizer_state_dict(optimizer, sd["optim"])
+        if sharded is not None:
+            model.load_state_dict(sd["train"]["params"])
+            sharded_opt.load_opt_state_dict(sd["train"]["opt"])
+        else:
+            model.load_state_dict(sd["model"])
+            load_optimizer_state_dict(optimizer, sd["optim"])
         sampler.load_state_dict(sd["sampler"])
 
     # per-group rendezvous store: rank 0 binds it
@@ -374,9 +445,14 @@ def train_group(
         data_plane=data_plane,
         model_shards=model_shards,
         job_id=job_id,
+        checkpoint_transport=None if sharded is None else CheckpointServer(
+            timeout=timeout, defer_paths=OPT_SLOTS_PATH_RE),
     )
-    ddp = DistributedDataParallel(manager)
+    ddp = DistributedDataParallel(manager, streamed=streamed)
     opt = OptimizerWrapper(manager, optimizer)
+    if sharded is not None:
+        sharded_opt = ShardedOptimizerWrapper(
+            manager, adamw(3e-4, weight_decay=1e-4), model, sharded=sharded)
     # the solo-wire step: forward, backward and AdamW as one CUDA graph
     train_step = make_train_step(model, optimizer)
     run = GroupRun(replica_id=manager.replica_id())
@@ -431,7 +507,15 @@ def train_group(
                 )
             tokens, targets = next_batch()
             t0 = time.perf_counter()
-            if data_plane:
+            if sharded_opt is not None:
+                # the sharded update never fuses
+                sharded_opt.begin_step()
+                fuse = False
+                try:
+                    manager.wait_quorum()
+                except Exception as e:  # noqa: BLE001 — the barrier discards
+                    manager.report_error(e)
+            elif data_plane:
                 opt.begin_step()
                 fuse = opt.can_fuse()  # waits the quorum; latches on failure
             else:
@@ -460,6 +544,17 @@ def train_group(
                 if committed:
                     run.passes += 1
                     run.fused_steps += 1
+            elif sharded_opt is not None:
+                run.passes += 1
+                with manager.metrics.timed("forward_backward"):
+                    loss = model.loss(tokens, targets)
+                    loss.backward()
+                    if device.type == "cuda":
+                        torch.cuda.current_stream(device).synchronize()
+                loss = loss.detach()
+                committed = sharded_opt.step()
+                if committed:
+                    run.losses[manager.current_step()] = float(loss)
             else:
                 run.passes += 1
                 with manager.metrics.timed("forward_backward"):
@@ -468,6 +563,10 @@ def train_group(
                     if device.type == "cuda":
                         torch.cuda.current_stream(device).synchronize()
                 ddp.average_gradients(model)
+                if digest_averages:
+                    run.average_digests[manager.current_step() + 1] = _digest(
+                        [p.grad for p in model.parameters()]
+                        + list(ddp._residuals or ()))
                 loss = loss.detach()
                 committed = opt.step(loss)
             run.losses.update(opt.take_losses())
@@ -482,6 +581,8 @@ def train_group(
             run.wire_world[step] = manager.transport_world_size()
             if manager.transport_world_size() > 1:
                 run.wire_steps += 1
+            if digest_params:
+                run.param_digests[step] = _digest(list(model.parameters()))
             if writer is not None and ckpt_every and step % ckpt_every == 0:
                 writer.save_step(ckpt_path, step, {
                     "user": state_dict(), "manager": manager.state_dict(),
@@ -505,7 +606,10 @@ def train_group(
             run.checkpoints = list(writer.saves)
         run.metrics = manager.metrics.snapshot()
         run.fused_metrics = opt.fused_metrics.snapshot()
-        run.buckets = ddp.bucket_sizes()
+        run.buckets = (ddp.bucket_sizes() if sharded_opt is None
+                       else sharded_opt.bucket_sizes())
+        if manager.events:
+            run.events = manager.events.since(0)[0]
         if comm is not None:
             run.recorded = comm.recorded
         manager.shutdown(wait=False)
@@ -604,6 +708,10 @@ def run_kill_and_heal(
     log: Callable[[str], None] = logger.info,
     comm_backend: str = "host",
     comm_options: Optional[Dict[str, Any]] = None,
+    streamed: bool = True,
+    sharded: Optional[bool] = None,
+    model_shards: int = 1,
+    digest_params: bool = False,
 ) -> Dict[str, object]:
     """``groups`` replica groups under an in-process lighthouse, on a fixed
     schedule (k = ``kill_step``, s = ``steps_alone``, a = ``steps_after``):
@@ -626,8 +734,12 @@ def run_kill_and_heal(
     (:class:`_DrillDomains`), given as its ``domain_resolver``.
     ``record_step``: each group's first life records its gradient
     allreduces of that step (a joint step up to k) in ``GroupRun.recorded``.
-    ``comm_backend`` / ``comm_options`` select the wire as for
-    :func:`train_group`.
+    ``comm_backend`` / ``comm_options`` select the wire, ``streamed`` DDP's
+    arm, ``sharded`` the weight update, ``model_shards`` its mesh and
+    ``digest_params`` the digests, as for :func:`train_group`. With
+    ``sharded=True`` the survivors reshard onto the shrunken wire after the
+    kill, the restarted group heals its optimizer shard with
+    ``fetch_opt_shard``, and all reshard back.
 
     Raises AssertionError unless, at every committed step, the parameters
     of every group that committed it are bitwise equal (the healed group
@@ -708,7 +820,9 @@ def run_kill_and_heal(
     common = dict(num_groups=groups, lighthouse_addr=addr, device=device,
                   batch_size=batch_size, data_seed=seed, timeout=timeout,
                   total_steps=total, stop=stop, comm_backend=comm_backend,
-                  comm_options=comm_options)
+                  comm_options=comm_options, streamed=streamed,
+                  sharded=sharded, model_shards=model_shards,
+                  digest_params=digest_params)
     record = ()
     if record_step is not None:
         n_buckets = len(_BucketPlan(list(GPT(cfg, device="meta")
@@ -784,6 +898,51 @@ def run_kill_and_heal(
             "compared": dict(sorted(compared.items())),
             "passes": sum(r.passes for g in runs for r in runs[g]),
             "domains": tree}
+
+
+def run_joint(cfg: TransformerConfig, *, groups: int = 2, steps: int = 3,
+              device: "Optional[str | torch.device]" = None,
+              batch_size: int = 8, seed: int = 0, timeout: float = 60.0,
+              **kwargs) -> Dict[int, GroupRun]:
+    """``groups`` replica groups under an in-process lighthouse commit
+    ``steps`` steps together from the same seed, with no failure: the run
+    an A/B arm is compared on (``kwargs`` go to :func:`train_group`, e.g.
+    ``streamed``, ``sharded``, ``comm_backend``, ``digest_params``).
+    Every group waits for all to heartbeat before its first quorum.
+    Returns each group's run; raises the first group's error."""
+    lighthouse = Lighthouse(min_replicas=1, heartbeat_timeout_ms=1000,
+                            join_timeout_ms=int(timeout * 1000))
+    addr = lighthouse.address()
+    stop = threading.Event()
+    runs: Dict[int, GroupRun] = {}
+    errors: List[BaseException] = []
+
+    def started(manager) -> None:
+        _wait_lighthouse(addr, "healthy", groups, timeout, stop)
+
+    def group(g: int) -> None:
+        try:
+            runs[g] = train_group(
+                cfg, replica_group=g, num_groups=groups, total_steps=steps,
+                lighthouse_addr=addr, device=device, batch_size=batch_size,
+                init_seed=seed, data_seed=seed, timeout=timeout, stop=stop,
+                on_start=started, **kwargs)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+            stop.set()
+
+    threads = [threading.Thread(target=group, args=(g,), name=f"group{g}")
+               for g in range(groups)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        lighthouse.shutdown()
+    if errors:
+        raise errors[0]
+    return runs
 
 
 # run_multijob_drill's schedule: a1 fails after step 3, heals at 5, the
@@ -1421,6 +1580,10 @@ def main() -> None:
                                       f"torchft_tpu_torch_ddp_{replica_group}"
                                       ".ckpt")),
         ckpt_every=int(os.environ.get("CKPT_EVERY", "10")),
+        # SHARDED=1 and MODEL_SHARDS=M must match across groups
+        sharded=True if os.environ.get("SHARDED", "0") == "1" else None,
+        model_shards=int(os.environ.get("MODEL_SHARDS", "1")),
+        streamed=os.environ.get("STREAMED", "1") != "0",
     )
     if run.resumed_step is not None:
         print(f"[group {replica_group}] resumed at step {run.resumed_step}",

@@ -35,24 +35,36 @@ __all__ = [
 
 
 class TimerHandle:
-    """Cancellable handle to a pending deadline (ref futures.py:12-29)."""
+    """Cancellable handle to a pending deadline (ref futures.py:12-29).
+    Cancelling drops the callback at once, as asyncio's handle does: the
+    heap keeps the handle until its deadline, and a kept callback would
+    keep whatever it closes over (a future, its continuations, a step's
+    gradients) alive that long."""
 
-    def __init__(self) -> None:
+    def __init__(self, fn: Optional[Callable[[], None]] = None) -> None:
         self._lock = threading.Lock()
         self._cancelled = False
+        self._fn = fn
 
     def cancel(self) -> None:
         with self._lock:
             self._cancelled = True
+            self._fn = None
 
     @property
     def cancelled(self) -> bool:
         with self._lock:
             return self._cancelled
 
+    def _take(self) -> Optional[Callable[[], None]]:
+        """The callback, once, unless cancelled."""
+        with self._lock:
+            fn, self._fn = self._fn, None
+            return None if self._cancelled else fn
+
 
 class _TimerManager:
-    """Singleton deadline thread: min-heap of (deadline, seq, handle, fn).
+    """Singleton deadline thread: min-heap of (deadline, seq, handle).
 
     Replaces the reference's asyncio ``call_later`` loop
     (ref futures.py:32-117) with a plain condition-variable heap, which is
@@ -74,9 +86,9 @@ class _TimerManager:
             self._thread.start()
 
     def call_at(self, deadline: float, fn: Callable[[], None]) -> TimerHandle:
-        handle = TimerHandle()
+        handle = TimerHandle(fn)
         with self._lock:
-            heapq.heappush(self._heap, (deadline, next(self._seq), handle, fn))
+            heapq.heappush(self._heap, (deadline, next(self._seq), handle))
             self._ensure_thread()
             self._lock.notify()
         return handle
@@ -88,13 +100,14 @@ class _TimerManager:
             with self._lock:
                 while not self._heap:
                     self._lock.wait()
-                deadline, _, handle, fn = self._heap[0]
+                deadline, _, handle = self._heap[0]
                 now = time.monotonic()
                 if deadline > now:
                     self._lock.wait(timeout=deadline - now)
                     continue
                 heapq.heappop(self._heap)
-            if not handle.cancelled:
+            fn = handle._take()
+            if fn is not None:
                 try:
                     fn()
                 except Exception:  # timer callbacks must never kill the thread

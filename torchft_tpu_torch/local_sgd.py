@@ -61,7 +61,7 @@ out of inner steps).
 ``topology`` ("flat"/"hier", None = the comm context's default) is
 forwarded to every fragment's allreduce: the hierarchical tier carries the
 pseudogradients across domains encoded once per domain. Not ported:
-``sharded_outer=True`` is refused at construction (ROADMAP queue 1 item 9).
+``sharded_outer=True`` is refused at construction (ROADMAP queue 1 item 9b).
 """
 
 from __future__ import annotations
@@ -181,9 +181,10 @@ class LocalSGD:
         fragment's allreduce ("flat"/"hier"; None passes no override)."""
         if sharded_outer:
             raise ValueError(
-                "sharded_outer=True is not ported: it needs "
-                "comm/redistribute.py and the sharded outer optimizer "
-                "(ROADMAP queue 1 item 9); use the replicated outer update"
+                "sharded_outer=True is not ported: the per-fragment owner "
+                "map and its exchange on heal over comm/redistribute.py "
+                "wait for ROADMAP queue 1 item 9b; use the replicated "
+                "outer update"
             )
         # passed only when set, so managers without the keyword work
         self._ar_kwargs = {} if topology is None else {"topology": topology}

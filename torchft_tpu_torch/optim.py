@@ -34,16 +34,32 @@ after the commit. ``metrics`` times ``prologue``, ``barrier``,
 ``dispatch``, ``fence`` and ``transition_drain`` over every step, the
 reference's names; ``fused_metrics`` the same phases of fused steps alone.
 
+``step`` also takes the future ``DistributedDataParallel.average_gradients_async``
+returned and resolves it before the prologue: a loop may submit the average
+and hand the unresolved future straight to ``step``. A failed future latches
+its error, so the step discards.
+
 DiLoCo's outer optimizer (local_sgd.py) must stage a step and adopt it only
 if the round commits, which ``torch.optim.Optimizer`` (it updates in place)
 cannot. So it runs on :class:`OuterTransformation`, a functional
 transformation in optax's shape and order of operations (``sgd`` with
-optional momentum and Nesterov, ``adam``), partitioned per fragment by
-:class:`PartitionedOuterOptimizer`.
+optional momentum and Nesterov, ``adam``, ``adamw``), partitioned per
+fragment by :class:`PartitionedOuterOptimizer`.
+
+:class:`ShardedOptimizerWrapper` is the cross-replica sharded weight update
+(ZeRO style): reduce-scatter of the gradients, an update of this rank's 1/N
+leaf shard against per-leaf states (:class:`ShardedOptState`), the commit
+barrier, then an allgather of the updated parameters into the
+``nn.Parameter`` s in place. Its per-leaf update is an
+:class:`OuterTransformation` too (the reference example's ``adamw``), never
+``torch.optim.AdamW``, whose decoupled decay runs in another order.
 """
 
 from __future__ import annotations
 
+import logging
+import time
+from concurrent.futures import Future
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -52,8 +68,11 @@ import torch
 
 from torchft_tpu_torch.utils.metrics import Metrics
 
+logger = logging.getLogger(__name__)
+
 __all__ = ["OptimizerWrapper", "OuterTransformation",
-           "PartitionedOuterOptimizer", "adam", "apply_updates",
+           "PartitionedOuterOptimizer", "ShardedOptState",
+           "ShardedOptimizerWrapper", "adam", "adamw", "apply_updates",
            "from_optax_state", "load_optimizer_state_dict", "sgd"]
 
 
@@ -145,10 +164,21 @@ class OptimizerWrapper:
 
     # ----------------------------------------------------------- classic
 
-    def step(self, loss: Optional[torch.Tensor] = None) -> bool:
+    def step(self, loss: Optional[torch.Tensor] = None,
+             grads: Optional[Future] = None) -> bool:
         """Apply the update iff the replica group commits this step.
-        ``loss`` (optional) is read back through the fence."""
+        ``loss`` (optional) is read back through the fence. ``grads``: the
+        future of ``average_gradients_async``, resolved here before the
+        prologue (the average lands in ``.grad`` in place); its failure is
+        latched, so the step discards."""
         self.classic_steps += 1
+        if isinstance(loss, Future):
+            loss, grads = None, loss
+        if grads is not None:
+            try:
+                grads.result()
+            except Exception as e:  # noqa: BLE001 — the barrier discards
+                self.manager.report_error(e)
         with self.metrics.timed("prologue"):
             decision = self.manager.should_commit_async()
         try:
@@ -295,16 +325,17 @@ class OuterTransformation:
     def __init__(self, kind: str, learning_rate: float, *,
                  momentum: Optional[float] = None, nesterov: bool = False,
                  b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8) -> None:
+                 eps: float = 1e-8, weight_decay: float = 0.0) -> None:
         self.kind = kind
         self.learning_rate = float(learning_rate)
         self.momentum = momentum
         self.nesterov = nesterov
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = float(weight_decay)
 
     def init(self, leaves: Sequence[torch.Tensor]) -> Dict[str, Any]:
         zeros = lambda: [torch.zeros_like(x) for x in leaves]  # noqa: E731
-        if self.kind == "adam":
+        if self.kind in ("adam", "adamw"):
             return {"count": torch.zeros((), dtype=torch.int32),
                     "mu": zeros(), "nu": zeros()}
         if self.momentum is not None:
@@ -314,9 +345,8 @@ class OuterTransformation:
     def update(self, grads: Sequence[torch.Tensor], state: Dict[str, Any],
                params: Optional[Sequence[torch.Tensor]] = None
                ) -> Tuple[List[torch.Tensor], Dict[str, Any]]:
-        del params  # neither transformation reads them (optax's too)
         new_state: Dict[str, Any] = {}
-        if self.kind == "adam":
+        if self.kind in ("adam", "adamw"):
             b1, b2 = self.b1, self.b2
             # (1 - decay) * g**order + decay * t, then the bias correction
             # 1 - decay**count in f32, as optax computes them
@@ -330,6 +360,12 @@ class OuterTransformation:
             updates = [(m / bc1.to(m.dtype))
                        / (torch.sqrt(v / bc2.to(v.dtype)) + self.eps)
                        for m, v in zip(mu, nu)]
+            if self.kind == "adamw":
+                # optax's add_decayed_weights, after the Adam scaling
+                if params is None:
+                    raise ValueError("adamw's update reads the parameters")
+                updates = [u + self.weight_decay * p
+                           for u, p in zip(updates, params)]
             new_state = {"count": count, "mu": mu, "nu": nu}
         elif self.momentum is not None:
             decay = self.momentum
@@ -355,6 +391,15 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8) -> OuterTransformation:
     """``optax.adam`` (``eps_root`` 0)."""
     return OuterTransformation("adam", learning_rate, b1=b1, b2=b2, eps=eps)
+
+
+def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, weight_decay: float = 1e-4
+          ) -> OuterTransformation:
+    """``optax.adamw`` (``eps_root`` 0, no mask): Adam's scaling, then
+    ``+ weight_decay * params``, then ``-learning_rate``."""
+    return OuterTransformation("adamw", learning_rate, b1=b1, b2=b2, eps=eps,
+                               weight_decay=weight_decay)
 
 
 def apply_updates(params: Sequence[torch.Tensor],
@@ -439,3 +484,469 @@ class PartitionedOuterOptimizer:
         states = list(self._states)
         states[f] = new_state
         self._states = states
+
+
+# ------------------------------------------------- sharded weight update
+
+
+class ShardedOptState:
+    """The sharded optimizer state: one transformation state per parameter
+    leaf, held only for the leaves this rank's shard owns. ``ranges``,
+    ``rank`` and ``world_size`` record the grid the held states were built
+    for; ``wire_gen`` the transport incarnation the grid was adopted
+    under, the reshard trigger."""
+
+    __slots__ = ("world_size", "rank", "ranges", "leaf_states", "wire_gen")
+
+    def __init__(self, n_leaves: int, world_size: int = 0, rank: int = 0,
+                 ranges: Sequence[Tuple[int, int]] = (),
+                 leaf_states: Optional[List[Any]] = None,
+                 wire_gen: Optional[int] = None) -> None:
+        self.world_size = int(world_size)
+        self.rank = int(rank)
+        self.ranges = tuple(tuple(r) for r in ranges)
+        self.leaf_states: List[Any] = (list(leaf_states)
+                                       if leaf_states is not None
+                                       else [None] * int(n_leaves))
+        self.wire_gen = wire_gen
+
+    def held(self) -> List[int]:
+        return [i for i, s in enumerate(self.leaf_states) if s is not None]
+
+    def state_bytes(self) -> int:
+        return sum(int(t.nbytes) for s in self.leaf_states if s is not None
+                   for t in _state_tensors(s))
+
+
+def _state_tensors(state: Dict[str, Any]) -> List[torch.Tensor]:
+    """One leaf's state flattened in the JAX package's slot order: optax's
+    ``count, mu, nu`` for Adam(W), ``trace`` with momentum, nothing for
+    plain SGD."""
+    if "count" in state:
+        return [state["count"], state["mu"][0], state["nu"][0]]
+    if "trace" in state:
+        return [state["trace"][0]]
+    return []
+
+
+class ShardedOptimizerWrapper:
+    """The cross-replica sharded weight update (twin of the reference's
+    ``ShardedOptimizerWrapper``, torchft_tpu/optim.py), over the
+    ``nn.Parameter`` s ``params``, updated in place:
+
+        reduce-scatter(grads) -> 1/N update -> barrier -> allgather(params)
+
+    Each wire rank receives its byte-balanced leaf shard of the averaged
+    gradient (``ddp.ShardedGradReducer``), updates only those leaves with
+    ``tx`` (an elementwise :class:`OuterTransformation`, e.g.
+    :func:`adamw`) against per-leaf states, and a committed step
+    allgathers the updated shards into every parameter. Optimizer state,
+    update work and heal bytes divide by the wire world size.
+
+    ``sharded=False`` is the A/B lever and bitwise oracle: the same buckets
+    ride an allreduce and every rank updates every leaf with the same
+    per-leaf function. ``sharded``, ``redistribute`` and ``model_shards``
+    must match across replicas (they change the collective sequence).
+
+    Resharding: every transport incarnation change runs one exchange
+    (comm/redistribute.py over the heal plane): a holdings-metadata
+    allgather, a cached transfer plan, and point-to-point fetches of
+    exactly the leaf states whose owner changed
+    (``redist_moved_bytes == redist_lower_bound_bytes``).
+    ``redistribute="allgather"`` allgathers every departing state to the
+    whole cohort instead (the A/B arm). States no survivor holds are
+    reinitialized, counted in the ``reshard`` event's ``reinit_leaves``.
+
+    ``step`` reads the parameters' ``.grad`` (raw per-replica gradients:
+    the wrapper owns the reduction), or a list of gradient tensors, or a
+    future resolving to one. A heal applies the donor's parameters in
+    place and its shard through :meth:`load_opt_state_dict` inside the
+    commit prologue, before the update reads them. The params allgather
+    runs after the barrier: if it fails on a committed step, ``step``
+    raises, and the replica restarts and heals."""
+
+    def __init__(self, manager, tx: OuterTransformation, params,
+                 sharded: bool = True,
+                 error_feedback: "bool | str" = "auto",
+                 redistribute: str = "plan",
+                 planner=None,
+                 model_shards: "int | str" = "auto") -> None:
+        from torchft_tpu_torch.comm.redistribute import RedistPlanner
+        from torchft_tpu_torch.ddp import ShardedGradReducer
+
+        if redistribute not in ("plan", "allgather"):
+            raise ValueError(
+                f"redistribute must be 'plan' (minimal transfer plans over "
+                f"the heal plane) or 'allgather' (the full-departing-leaf "
+                f"broadcast A/B arm), got {redistribute!r}; the choice "
+                "must match across replicas")
+        self.manager = manager
+        self.tx = tx
+        self.params: List[torch.Tensor] = (
+            list(params.parameters()) if isinstance(params, torch.nn.Module)
+            else list(params))
+        self._sharded = bool(sharded)
+        self._redistribute = redistribute
+        if model_shards == "auto":
+            model_shards = getattr(manager, "model_shards", 1)
+        self._model_shards = max(1, int(model_shards))
+        self._planner = planner if planner is not None else RedistPlanner()
+        self._reducer = ShardedGradReducer(manager,
+                                           error_feedback=error_feedback)
+        self._state_slots = len(_state_tensors(
+            tx.init([torch.zeros(1)])))
+        # held-state bytes change only at grid changes
+        self._state_bytes: Optional[float] = None
+        self.state = ShardedOptState(len(self.params))
+
+    @property
+    def sharded(self) -> bool:
+        return self._sharded
+
+    @property
+    def state_slots(self) -> int:
+        """Arrays per leaf state (``fetch_opt_shard``'s ``state_slots``)."""
+        return self._state_slots
+
+    def bucket_sizes(self) -> List[int]:
+        """Element counts of the gradient buckets at the last wire world
+        (empty before the first step): one reduce_scatter per step."""
+        plan = self._reducer.last_plan()
+        if plan is None:
+            return []
+        return [sum(plan.sizes[i] for i in b) for b in plan.buckets]
+
+    def init(self) -> ShardedOptState:
+        """A fresh unsharded state: the per-leaf states materialize at the
+        first step, once the wire world is known (the supported
+        transformations init to zeros, so deferring is bitwise)."""
+        self.state = ShardedOptState(len(self.params))
+        self._state_bytes = None
+        return self.state
+
+    def begin_step(self, **kwargs) -> None:
+        """Start the (async) quorum and clear the gradients."""
+        self.manager.start_quorum(**kwargs)
+        for p in self.params:
+            if p.grad is not None:
+                p.grad.zero_()
+
+    zero_grad = begin_step
+
+    def _metrics(self):
+        return getattr(self.manager, "metrics", None)
+
+    def _leaf_init(self, i: int) -> Dict[str, Any]:
+        return self.tx.init([self.params[i].detach()])
+
+    def _unflatten_state(self, arrays: Sequence[Any],
+                         i: int) -> Dict[str, Any]:
+        """Slot arrays (host arrays or tensors) as leaf ``i``'s state, the
+        count on the host and the moments on the parameter's device."""
+        if len(arrays) != self._state_slots:
+            raise ValueError(
+                f"leaf state has {len(arrays)} arrays, the transformation "
+                f"expects {self._state_slots}: optimizer configs diverged "
+                "across replicas")
+        device = self.params[i].device
+
+        def t(a: Any, dev) -> torch.Tensor:
+            x = a if isinstance(a, torch.Tensor) else \
+                torch.from_numpy(np.array(a, copy=True))
+            return x.to(dev).clone()
+
+        if self._state_slots == 3:
+            return {"count": t(arrays[0], "cpu").to(torch.int32),
+                    "mu": [t(arrays[1], device)],
+                    "nu": [t(arrays[2], device)]}
+        if self._state_slots == 1:
+            return {"trace": [t(arrays[0], device)]}
+        return {}
+
+    def _host_slots(self, state: Dict[str, Any]) -> List[np.ndarray]:
+        return [t.detach().cpu().numpy() for t in _state_tensors(state)]
+
+    # ------------------------------------------------------------ reshard
+
+    def _maybe_reshard(self, state: ShardedOptState, plan,
+                       my_rank: int) -> ShardedOptState:
+        """Redistribute the per-leaf states at the quorum boundary when the
+        transport incarnation changed (a membership change, a heal, the
+        first step). Every wire member runs it at the same step, so its
+        collectives stay matched."""
+        from torchft_tpu_torch.checkpointing import (
+            join_leaf_payload,
+            redistribute_exchange,
+            split_leaf_payload,
+        )
+
+        mgr = self.manager
+        gen_fn = getattr(mgr, "wire_generation", None)
+        gen = int(gen_fn()) if callable(gen_fn) else 0
+        world = plan.world_size
+        ranges = tuple(tuple(r) for r in plan.ranges)
+        n_leaves = len(state.leaf_states)
+        if not self._sharded:
+            # replicated arm: every rank owns every leaf, no exchange
+            missing = [i for i, s in enumerate(state.leaf_states) if s is None]
+            for i in missing:
+                state.leaf_states[i] = self._leaf_init(i)
+            state.world_size, state.rank = 1, 0
+            state.ranges = ((0, n_leaves),)
+            state.wire_gen = gen
+            if missing or self._state_bytes is None:
+                self._state_bytes = float(state.state_bytes())
+            return state
+        if (state.wire_gen == gen and state.ranges == ranges
+                and state.rank == my_rank):
+            return state
+        owned = set(plan.owned_leaves(my_rank))
+        held = set(state.held())
+        # available: leaf states that arrived off the wire; wire_bytes:
+        # what the exchange received; lower_bound: the bytes of
+        # owned-but-missing states some survivor holds
+        available: Dict[int, List[Any]] = {}
+        wire_bytes = lower_bound = 0
+        if world > 1 and self._redistribute == "plan":
+            m = self._model_shards
+            if m > 1:
+                holdings = {
+                    i * m + k: pieces for i in sorted(held)
+                    for k, pieces in enumerate(split_leaf_payload(
+                        self._host_slots(state.leaf_states[i]), m))}
+            else:
+                # device tensors: a unit stages when a receiver fetches it
+                holdings = {i: _state_tensors(state.leaf_states[i])
+                            for i in sorted(held)}
+            result = redistribute_exchange(mgr, my_rank, world,
+                                           plan.shard_spec(m), holdings,
+                                           self._planner, source="reshard")
+            if result is None:
+                # latched wire or a transfer failed whole: keep the old
+                # grid; the step discards and the next quorum retries
+                return state
+            wire_bytes = result.moved_bytes
+            lower_bound = result.lower_bound_bytes
+            if m > 1:
+                for i in sorted(owned - held):
+                    subs = [result.fetched.get(i * m + k) for k in range(m)]
+                    if any(sub is None for sub in subs):
+                        continue
+                    shapes = [tuple(a.shape) for a in
+                              _state_tensors(self._leaf_init(i))]
+                    try:
+                        available[i] = join_leaf_payload(subs, shapes)
+                    except ValueError:
+                        logger.warning("reshard: leaf %d sub-units did not "
+                                       "reassemble; reinitializing", i)
+            else:
+                available = result.fetched
+        elif world > 1:
+            # the allgather A/B arm: [outgoing indices] + each outgoing
+            # leaf's slot arrays, in index order
+            outgoing = sorted(held - owned)
+            contrib: List[np.ndarray] = [np.asarray(outgoing, np.int64)]
+            for i in outgoing:
+                contrib.extend(self._host_slots(state.leaf_states[i]))
+            gathered = mgr.allgather_arrays(contrib).future().result()
+            errored = getattr(mgr, "errored", None)
+            if callable(errored) and errored() is not None:
+                return state
+            k = self._state_slots
+            for r, rank_arrays in enumerate(gathered):
+                if not rank_arrays:
+                    continue
+                idx = np.asarray(rank_arrays[0]).astype(np.int64).reshape(-1)
+                pos = 1
+                for i in idx.tolist():
+                    slot = [np.asarray(a) for a in rank_arrays[pos: pos + k]]
+                    pos += k
+                    if r != my_rank:
+                        wire_bytes += sum(int(a.nbytes) for a in slot)
+                    available.setdefault(int(i), slot)
+            lower_bound = sum(sum(int(a.nbytes) for a in available[i])
+                              for i in owned - held if i in available)
+            metrics = self._metrics()
+            if metrics is not None:
+                metrics.incr("redist_moved_bytes", float(wire_bytes))
+                metrics.incr("redist_lower_bound_bytes", float(lower_bound))
+        new_states: List[Any] = [None] * n_leaves
+        moved_bytes = kept = 0
+        reinit: List[int] = []
+        # a fresh wrapper's first grid materializes every owned state
+        # (deferred zero-init, not a loss)
+        had_grid = state.world_size > 0
+        for i in sorted(owned):
+            if state.leaf_states[i] is not None:
+                new_states[i] = state.leaf_states[i]
+                kept += 1
+            elif i in available:
+                new_states[i] = self._unflatten_state(available[i], i)
+                moved_bytes += sum(int(a.nbytes) for a in available[i])
+            else:
+                new_states[i] = self._leaf_init(i)
+                if had_grid:
+                    reinit.append(i)
+        if reinit:
+            logger.warning(
+                "reshard reinitialized %d leaf optimizer states (their "
+                "owner left the quorum with them)", len(reinit))
+        out = ShardedOptState(n_leaves, world_size=world, rank=my_rank,
+                              ranges=ranges, leaf_states=new_states,
+                              wire_gen=gen)
+        self._state_bytes = float(out.state_bytes())
+        metrics = self._metrics()
+        if metrics is not None:
+            metrics.incr("reshard_count")
+            metrics.incr("reshard_moved_bytes", float(moved_bytes))
+        ev = getattr(mgr, "events", None)
+        if ev:
+            ev.emit("reshard", old_world=state.world_size or None,
+                    new_world=world, rank=my_rank, moved_bytes=moved_bytes,
+                    wire_bytes=wire_bytes, lower_bound_bytes=lower_bound,
+                    kept_leaves=kept, reinit_leaves=len(reinit),
+                    owned_leaves=len(owned),
+                    mesh_shape=f"{world}x{self._model_shards}")
+        return out
+
+    # --------------------------------------------------------------- step
+
+    def _leaf_update(self, i: int, grad: np.ndarray):
+        """Leaf ``i``'s staged update: ``(new_param, new_state)``, nothing
+        adopted."""
+        p = self.params[i].detach()
+        g = torch.from_numpy(np.ascontiguousarray(grad)).to(
+            device=p.device, dtype=p.dtype)
+        updates, new_state = self.tx.update([g], self.state.leaf_states[i],
+                                            [p])
+        return apply_updates([p], updates)[0], new_state
+
+    def step(self, grads: Any = None) -> bool:
+        """One sharded step: reduce-scatter the gradients, update this
+        rank's leaf shard, run the commit barrier, allgather the updated
+        parameters into ``params`` in place. Returns whether the step
+        committed; a discarded step changes no parameter and adopts no
+        state (a reshard this step persists: it moves states between
+        ranks, never along the trajectory)."""
+        if isinstance(grads, Future):
+            grads = grads.result()
+        if grads is None:
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in self.params]
+        mgr = self.manager
+        metrics = self._metrics()
+        plan, my_rank, red = self._reducer.reduce(list(grads),
+                                                  sharded=self._sharded)
+        sca = getattr(mgr, "should_commit_async", None)
+        if callable(sca):
+            decision = sca()
+            local_ok = bool(getattr(decision, "local_should_commit", True))
+            resolve = decision.result
+        else:  # stub managers: a synchronous barrier
+            errored = getattr(mgr, "errored", None)
+            local_ok = not callable(errored) or errored() is None
+
+            def resolve():
+                return bool(mgr.should_commit())
+        errored_fn = getattr(mgr, "errored", None)
+        if not callable(errored_fn) or errored_fn() is None:
+            # never reshard off a failed step's degraded (world 1) view
+            before = self.state
+            t0 = time.perf_counter()
+            self.state = self._maybe_reshard(before, plan, my_rank)
+            if self.state is not before and metrics is not None:
+                metrics.observe("reshard", time.perf_counter() - t0)
+        state = self.state
+        owned = (plan.owned_leaves(my_rank) if self._sharded
+                 else list(range(len(self.params))))
+        staged: Optional[Dict[int, Tuple[torch.Tensor, Any]]] = None
+        # a reshard that latched after a True local vote may leave owned
+        # leaves without a state: skip the update, the step discards
+        if local_ok and set(owned) <= set(red) and all(
+                state.leaf_states[i] is not None for i in owned):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                staged = {i: self._leaf_update(i, red[i]) for i in owned}
+            if metrics is not None:
+                metrics.observe("opt_update", time.perf_counter() - t0)
+                metrics.gauge("opt_update_elems",
+                              float(sum(plan.sizes[i] for i in owned)))
+        committed = bool(resolve())
+        if metrics is not None and self._state_bytes is not None:
+            metrics.gauge("opt_state_bytes", self._state_bytes)
+        if not committed or staged is None:
+            return False
+        with torch.no_grad():
+            for i, (new_param, new_state) in staged.items():
+                state.leaf_states[i] = new_state
+                self.params[i].copy_(new_param)
+        if not self._sharded or plan.world_size == 1:
+            return True
+        contrib = [staged[i][0].cpu().numpy() for i in owned]
+        gathered = mgr.allgather_arrays(contrib).future().result()
+        errored = getattr(mgr, "errored", None)
+        if callable(errored) and errored() is not None:
+            raise RuntimeError(
+                "sharded step committed but the params allgather failed "
+                f"({errored()}): this replica cannot materialize the "
+                "committed step; restart and heal from a peer")
+        with torch.no_grad():
+            for shard, (start, stop) in enumerate(plan.ranges):
+                if shard == my_rank:
+                    continue
+                got = gathered[shard]
+                if len(got) != stop - start:
+                    raise RuntimeError(
+                        f"sharded step committed but shard {shard} "
+                        f"contributed {len(got)} of {stop - start} leaves; "
+                        "restart and heal from a peer")
+                for j, i in enumerate(range(start, stop)):
+                    self.params[i].copy_(torch.from_numpy(
+                        np.asarray(got[j]).reshape(plan.shapes[i])))
+        return True
+
+    # ------------------------------------------------------- heal surface
+    # A donor's checkpoint carries only its shard, in a fixed structure
+    # (zero-length placeholders for the leaves it does not hold), so every
+    # donor's manifest aligns slot for slot and is its shard spec
+    # (checkpointing.fetch_opt_shard).
+
+    def opt_state_dict(self, state: Optional[ShardedOptState] = None
+                       ) -> Dict[str, Any]:
+        """``{"spec": {world_size, rank, ranges}, "slots": [[...]]}``: the
+        held leaves' state tensors (on the device: a checkpoint server
+        stages them lazily) and placeholders elsewhere."""
+        state = self.state if state is None else state
+        slots: List[List[Any]] = []
+        for s in state.leaf_states:
+            if s is None:
+                slots.append([np.zeros(0, np.float32)] * self._state_slots)
+            else:
+                slots.append(list(_state_tensors(s)))
+        return {"spec": {"world_size": state.world_size, "rank": state.rank,
+                         "ranges": [list(r) for r in state.ranges]},
+                "slots": slots}
+
+    def load_opt_state_dict(self, sd: Dict[str, Any]) -> ShardedOptState:
+        """Adopt a donor's shard as this replica's held states (the grid
+        is the donor's, ``wire_gen=None``: the next step's reshard
+        redistributes onto the live grid) and return it. Gauges
+        ``heal_opt_bytes``, the optimizer bytes the heal moved."""
+        spec, slots = sd["spec"], sd["slots"]
+        rank = int(spec.get("rank", 0))
+        ranges = [tuple(r) for r in spec.get("ranges", [])]
+        held = set(range(*ranges[rank])) if rank < len(ranges) else set()
+        leaf_states: List[Any] = [None] * len(slots)
+        heal_bytes = 0
+        for i in sorted(held):
+            leaf_states[i] = self._unflatten_state(slots[i], i)
+            heal_bytes += sum(int(a.nbytes) for a in slots[i])
+        metrics = self._metrics()
+        if metrics is not None:
+            metrics.gauge("heal_opt_bytes", float(heal_bytes))
+            metrics.incr("heal_opt_bytes_total", float(heal_bytes))
+        self.state = ShardedOptState(
+            len(slots), world_size=int(spec.get("world_size", 0)),
+            rank=rank, ranges=ranges, leaf_states=leaf_states, wire_gen=None)
+        self._state_bytes = float(self.state.state_bytes())
+        return self.state

@@ -15,8 +15,8 @@ from typing import Any, List, Tuple
 import numpy as np
 import torch
 
-__all__ = ["dtype_from_str", "dtype_str", "flatten_state", "to_host",
-           "unflatten_state"]
+__all__ = ["dtype_from_str", "dtype_str", "flatten_state", "leaf_paths",
+           "to_host", "unflatten_state"]
 
 
 class _Leaf:
@@ -48,6 +48,29 @@ def flatten_state(state: Any) -> Tuple[List[Any], Any]:
         return x
 
     return leaves, walk(state)
+
+
+def leaf_paths(state: Any) -> List[str]:
+    """The path of every leaf of :func:`flatten_state`, in its order, in
+    the JAX package's key-string format (``jax.tree_util.keystr``): a dict
+    key ``k`` as ``[repr(k)]``, a list or tuple index ``i`` as ``[i]``,
+    e.g. ``['train']['opt']['slots'][3][0]``. The JAX package walks dicts
+    in sorted key order and this package in insertion order, so leaves are
+    matched across packages by path, never by index."""
+    paths: List[str] = []
+
+    def walk(x: Any, path: str) -> None:
+        if isinstance(x, (torch.Tensor, np.ndarray)):
+            paths.append(path)
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{path}[{k!r}]")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{path}[{i}]")
+
+    walk(state, "")
+    return paths
 
 
 def unflatten_state(spec: Any, leaves: List[Any]) -> Any:
