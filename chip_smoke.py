@@ -178,6 +178,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    Then the fused step against the same step run eagerly, bitwise after 3
    steps, and the device time of each.
 
+13. train_moe (it runs after train_sharded, before the phases that keep
+   the card plane's buffers): the reference's ``examples/train_moe.py`` at
+   "moe-8x125m" (334,308,864 parameters; 12 layers of the 125m backbone,
+   8 top-2 experts with capacity factor 1.25 on every other layer,
+   activation checkpointing on), full width and depth, batch 8 x 1024,
+   over TCP at codec none, AdamW (3e-4, weight decay 1e-4):
+   ``run_moe_drill``, two replica groups of two ranks each, every rank
+   holding the whole model (the reference's expert axis of width 1).
+   Group 0 commits step 1 alone; group 1 joins and heals at 2; both commit
+   2-3; group 1's two ranks fail, group 0 commits 4 alone; they restart
+   from a poisoned init and each heals at 5 through
+   ``recv_checkpoint_sharded`` from group 0's rank of its number, the
+   stripes spread over both of group 0's ranks (peers from the group
+   store); both commit 5-7. Every live rank's parameters and AdamW state
+   must be bitwise equal at every committed step, both donor ranks must
+   have served bytes of the second heal, the losses must be finite, and
+   the flash kernels must have launched per layer per pass twice forward
+   (the checkpointing's recompute) and once each backward. It prints each
+   healer rank's ``heal_wall_ms``, ``heal_bytes_per_s``, wire bytes and
+   upload p50, the bytes each donor rank served, the state's size and the
+   step phases' p50s. It first checks the device memory
+   (``moe_device_bytes``) and the host's (``moe_host_bytes``).
+
 It prints a ``kernels`` JSON line before the last line and ends with
 ``{"ok": true, "device": {...}}``. It needs one card and no network.
 """
@@ -1734,6 +1757,125 @@ def phase_train_multijob(seed: int, card: str, batch: int = 8):
     return per_d, result
 
 
+# train_moe: the template heal of examples/train_moe.py's twin at
+# "moe-8x125m", two groups of MOE_RANKS ranks
+MOE_RANKS = 2
+MOE_SCHEDULE = dict(kill_step=3, steps_alone=1, steps_after=2)
+MOE_PHASES = ("quorum", "forward_backward", "ddp_d2h", "ddp_wire", "ddp_h2d",
+              "commit_barrier", "heal_stage", "heal_wire", "heal_h2d")
+
+
+def moe_activation_bytes(cfg, batch: int) -> int:
+    """A reckoning of one rank's live activations in a forward/backward of
+    the MoE model with activation checkpointing: every block's bf16 input
+    kept, one block recomputed at a time, whose routing holds about 8 f32
+    tensors of tokens x experts x capacity (the dispatch and combine
+    masks, their parts and gradients), and the chunked loss's logits with
+    their gradient (one chunk of the vocabulary, f32)."""
+    n = batch * cfg.max_seq_len
+    cap = max(1, int(cfg.capacity_factor * n * 2 / cfg.num_experts))
+    keep = 2 * n * cfg.d_model * cfg.n_layers
+    routing = 4 * 8 * n * cfg.num_experts * cap
+    block = 4 * 18 * n * max(cfg.d_model, cfg.d_ff)
+    logits = 2 * 4 * n * cfg.vocab_size // max(1, cfg.xent_chunks)
+    return keep + routing + block + logits
+
+
+def moe_device_bytes(n_params: int, act: int, ranks: int = 2 * MOE_RANKS
+                     ) -> int:
+    """Device memory train_moe may hold at once: each rank's f32
+    parameters, gradients and two AdamW moments (16 bytes a parameter),
+    the drill's kept copy of one rank's parameters and moments (12), each
+    healer rank's incoming state before it is copied in (12 each), and
+    every rank's activations."""
+    return (16 * ranks + 12 + 12 * MOE_RANKS) * n_params + act * ranks
+
+
+def moe_host_bytes(n_params: int, ranks: int = 2 * MOE_RANKS) -> int:
+    """Host memory train_moe may hold at once, in f32 copies of the
+    parameters: per rank DDP's two staging arenas and the wire's buffers
+    (4); per donor rank its staged state (3), per healer rank its pinned
+    regions (3)."""
+    return (ranks * 4 + 2 * MOE_RANKS * 3) * 4 * n_params
+
+
+def moe_report(result: dict, n_params: int, state_bytes: int,
+               card: str) -> list:
+    lines = [f"every live rank bitwise equal (parameters and AdamW state) at "
+             f"every committed step {result['compared']}; group 1 healed at "
+             f"steps 2 and {result['heal_step']}"]
+    for r, h in sorted(result["heals"].items()):
+        lines.append(
+            f"heal of group 1 rank {r} at step {result['heal_step']}: wall "
+            f"{h['heal_wall_ms']:.1f} ms, wire {h['heal_bytes_per_s'] / 1e9:.3f}"
+            f" GB/s, {int(h['heal_wire_bytes'])} wire bytes of a "
+            f"{state_bytes} B state, upload p50 {h['heal_h2d_p50_ms']} ms "
+            f"({card})")
+    lines.append("bytes served in that heal by group 0's ranks: "
+                 + ", ".join(f"rank {r} {int(b)}"
+                             for r, b in sorted(result["served"].items())))
+    for (g, r), run in sorted(result["runs"].items()):
+        times = ", ".join(f"{s}: {t:.2f}"
+                          for s, t in sorted(run.step_seconds.items()))
+        lines.append(f"group {g} rank {r}: phase p50 ms "
+                     f"{_p50s(run.metrics, MOE_PHASES)}; committed steps (s) "
+                     f"{{{times}}} ({card})")
+    lines.append(f"drill {result['seconds']:.1f} s, {result['passes']} "
+                 f"forward/backward passes ({n_params} parameters; {card})")
+    return lines
+
+
+def phase_train_moe(seed: int, card: str, batch: int = 8):
+    """The MoE drill (module docstring, phase 13): returns the passes and
+    the layers."""
+    import torch
+
+    from torchft_tpu_torch.examples.train_moe import run_moe_drill
+    from torchft_tpu_torch.models import (
+        MOE_CONFIGS,
+        MoETransformer,
+        count_params,
+    )
+
+    t0 = time.perf_counter()
+    cfg = MOE_CONFIGS["moe-8x125m"]
+    n_params = count_params(MoETransformer(cfg, device="meta"))
+    need_host = moe_host_bytes(n_params)
+    free_host = check_host_memory(need_host, what="train_moe")
+    need = moe_device_bytes(n_params, moe_activation_bytes(cfg, batch))
+    gc.collect()  # an earlier phase's cycles may hold tensors
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    if free < need:
+        raise AssertionError(f"train_moe needs {need / 1e9:.2f} GB of device "
+                             f"memory free, has {free / 1e9:.2f} GB")
+    log(f"  moe-8x125m: {n_params} parameters, {cfg.num_experts} experts "
+        f"(capacity factor {cfg.capacity_factor}) on every "
+        f"{cfg.moe_every}nd layer of {cfg.n_layers}, remat {cfg.remat}, "
+        f"batch {batch} x {cfg.max_seq_len}; 2 groups x {MOE_RANKS} ranks "
+        f"over TCP at codec none; device memory: up to {need / 1e9:.2f} GB, "
+        f"{free / 1e9:.1f} GB free; host memory: up to "
+        f"{need_host / 1e9:.2f} GB, {free_host / 1e9:.1f} GB available")
+    torch.cuda.reset_peak_memory_stats()
+    result = run_moe_drill(cfg, ranks=MOE_RANKS, device="cuda",
+                           batch_size=batch, seed=seed, timeout=300.0,
+                           log=lambda m: log("  " + m), **MOE_SCHEDULE)
+    # the heal moves the parameters and AdamW's moments and step counts
+    state_bytes = 12 * n_params + 4 * len(list(
+        MoETransformer(cfg, device="meta").parameters()))
+    for line in moe_report(result, n_params, state_bytes, card):
+        log("  " + line)
+    log(f"  device memory peak: {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB allocated, {torch.cuda.max_memory_reserved() / 1e9:.2f} GB "
+        f"reserved (reckoned {need / 1e9:.2f} GB) ({card})")
+    passes = result["passes"]
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase {time.perf_counter() - t0:.1f} s ({card})")
+    return passes, cfg.n_layers
+
+
 # train_sharded: the reference example's two remaining arms, DDP's
 # streamed pipeline against its lock-step arm and SHARDED=1
 SHARDED_GROUPS = 3
@@ -2239,7 +2381,7 @@ def _check_launches(counts, want, what: str) -> None:
 
 
 PHASES = ("kernels", "train", "train_multijob", "train_sharded",
-          "train_cuda_int8",
+          "train_moe", "train_cuda_int8",
           "train_tiny", "gpt_1b", "train_diloco", "train_localsgd_int8",
           "train_hier_int8", "train_durable")
 
@@ -2291,7 +2433,7 @@ def main() -> int:
         print(f"chip_smoke: unknown phases {sorted(unknown)}", file=sys.stderr)
         return 2
     smi, ptxas = phase_device()
-    from torchft_tpu_torch.models import CONFIGS
+    from torchft_tpu_torch.models import CONFIGS, MOE_CONFIGS
     from torchft_tpu_torch.ops import flash, quant
 
     rows = {}
@@ -2334,6 +2476,17 @@ def main() -> int:
                         "bucket per allreduce in the A/B arms, 1 per "
                         "sharded reduce_scatter")
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
+    if "train_moe" in phases:
+        log("phase train_moe")
+        flash.reset_launch_counts()
+        passes, layers = phase_train_moe(args.seed, smi)
+        counts = dict(flash.LAUNCHES)
+        _check_launches(counts, {"flash_fwd": 2 * passes * layers,
+                                 "flash_bwd_dq": passes * layers,
+                                 "flash_bwd_dkv": passes * layers},
+                        "remat: per layer per pass 2 forward (the "
+                        "recompute), 1 dQ, 1 dK/dV")
+        _add_launches(rows, counts, MOE_CONFIGS["moe-8x125m"].head_dim)
     if "train_cuda_int8" in phases:
         log("phase train_cuda_int8")
         flash.reset_launch_counts()

@@ -19,7 +19,11 @@ import torch
 from torchft_tpu.utils.crc32c import crc32c as jax_crc32c
 from torchft_tpu_torch import checkpointing as cp
 from torchft_tpu_torch.utils.crc32c import crc32c
-from torchft_tpu_torch.utils.serialization import flatten_state, unflatten_state
+from torchft_tpu_torch.utils.serialization import (
+    is_tensor_leaf,
+    tree_flatten_with_path,
+    tree_unflatten,
+)
 
 
 def _state():
@@ -59,9 +63,10 @@ def _assert_same(a, b) -> None:
 
 def test_flatten_roundtrip() -> None:
     state = _state()
-    leaves, spec = flatten_state(state)
-    assert len(leaves) == 6
-    _assert_same(state, unflatten_state(spec, leaves))
+    flat, spec = tree_flatten_with_path(state)
+    leaves = [leaf for _, leaf in flat]
+    assert sum(is_tensor_leaf(leaf) for leaf in leaves) == 6
+    _assert_same(state, tree_unflatten(spec, leaves))
 
 
 @pytest.mark.parametrize("num_chunks", [1, 2, 3])
@@ -119,13 +124,24 @@ def test_fetch_leaf_and_manifest() -> None:
         state = _state()
         server.send_checkpoint([1], 2, state, 5.0)
         manifest = cp.fetch_manifest(server.metadata(), 2)
-        assert [e["dtype"] for e in manifest["leaves"]] == [
-            "torch.float32", "torch.bfloat16", "torch.float32",
-            "torch.float32", "torch.int64", "float32"]
-        leaf = cp.fetch_leaf(server.metadata(), 2, 1)
+        # the JAX package's flattening order: dict keys sorted, None no
+        # leaf; dtypes by numpy's names, torch leaves marked as tensors
+        tensors = [(e["path"], e["dtype"], e["tensor"])
+                   for e in manifest["leaves"] if e["kind"] == "ndarray"]
+        assert tensors == [
+            ("['host']", "float32", False), ("['ids']", "int64", True),
+            ("['model']['b']", "bfloat16", True),
+            ("['model']['w']", "float32", True),
+            ("['optim']['state'][0]['exp_avg']", "float32", True),
+            ("['optim']['state'][0]['step']", "float32", True)]
+        index = {e["path"]: i for i, e in enumerate(manifest["leaves"])}
+        leaf = cp.fetch_leaf(server.metadata(), 2, index["['model']['b']"])
         assert torch.equal(leaf, state["model"]["b"])
-        host = cp.fetch_leaf(server.metadata(), 2, 5)
+        host = cp.fetch_leaf(server.metadata(), 2, index["['host']"])
         assert np.array_equal(host, state["host"])
+        lr = cp.fetch_leaf(server.metadata(), 2,
+                           index["['optim']['param_groups'][0]['lr']"])
+        assert lr == 3e-4
     finally:
         server.shutdown()
 

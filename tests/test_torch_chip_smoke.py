@@ -154,7 +154,7 @@ def test_flash_shapes_reach_every_head_dim() -> None:
                        cfg.n_heads, cfg.head_dim)) in \
             {(w, shape) for w, shape, _ in shapes}
     assert smoke.PHASES == ("kernels", "train", "train_multijob",
-                            "train_sharded", "train_cuda_int8",
+                            "train_sharded", "train_moe", "train_cuda_int8",
                             "train_tiny", "gpt_1b",
                             "train_diloco", "train_localsgd_int8",
                             "train_hier_int8", "train_durable")
@@ -587,3 +587,52 @@ def test_check_sharded_drill_catches_an_overship() -> None:
         smoke.check_sharded_drill(result(heal=0), replicated)
     with pytest.raises(AssertionError, match="replicated arm"):
         smoke.check_sharded_drill(result(digest="y"), replicated)
+
+
+def test_moe_memory_at_8x125m() -> None:
+    from torchft_tpu_torch.models import MOE_CONFIGS
+
+    smoke = _smoke()
+    cfg, n = MOE_CONFIGS["moe-8x125m"], 334308864
+    act = smoke.moe_activation_bytes(cfg, 8)
+    # N = 8192 tokens, capacity int(1.25 * 8192 * 2 / 8) = 2560
+    assert act == (2 * 8192 * 768 * 12 + 4 * 8 * 8192 * 8 * 2560
+                   + 4 * 18 * 8192 * 3072 + 2 * 4 * 8192 * 32768 // 8)
+    # four ranks' parameters, gradients and moments, the kept copy, two
+    # healers' incoming state and four ranks' activations: under 80 GB
+    assert smoke.moe_device_bytes(n, act) == (4 * 16 + 12 + 24) * n + 4 * act
+    assert smoke.moe_device_bytes(n, act) < 70e9
+    assert smoke.moe_host_bytes(n) == (16 + 12) * 4 * n
+    phases = smoke.PHASES
+    assert phases.index("train_sharded") < phases.index("train_moe") \
+        < phases.index("train_cuda_int8")
+
+
+def test_train_moe_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # the phase as the card runs it, moved to "moe-tiny" on the CPU: the
+    # drill's checks, the report and the passes it returns
+    import torchft_tpu_torch.examples.train_moe as example
+    import torchft_tpu_torch.models as models
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    monkeypatch.setitem(models.MOE_CONFIGS, "moe-8x125m",
+                        models.MOE_CONFIGS["moe-tiny"])
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (1e12, 1e12))
+    for name in ("empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "max_memory_reserved", lambda *a: 0)
+    fn = example.run_moe_drill
+    monkeypatch.setattr(example, "run_moe_drill", lambda cfg, **kw: fn(
+        cfg, **dict(kw, device="cpu", batch_size=2, timeout=30.0)))
+    passes, layers = smoke.phase_train_moe(0, "CPU")
+    # per rank: group 0 at 1-7, group 1 at 2-3 and 5-7
+    assert (passes, layers) == (2 * (7 + 2 + 3), 2)
+    text = "\n".join(lines)
+    assert "every live rank bitwise equal" in text
+    assert "heal of group 1 rank 0 at step 5" in text
+    assert "heal of group 1 rank 1 at step 5" in text
+    assert "bytes served in that heal by group 0's ranks: rank 0" in text
+    assert "group 1 rank 1: phase p50 ms" in text

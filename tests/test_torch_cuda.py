@@ -661,3 +661,41 @@ def test_prefetch_iterator_lands_batches_on_the_card() -> None:
         # read on the consumer's stream: the copy has landed
         assert float(batch["x"].sum()) == float(i * (1 << 16))
     it.close()
+
+
+@pytest.mark.cuda
+def test_template_heal_lands_on_the_card() -> None:
+    # a template on the card: each region lands in pinned memory and is
+    # uploaded on the heal's side stream; the result has the template's
+    # devices and dtypes and the donor's bits (a CPU step count stays on
+    # the CPU, as the template's), striped over two donors
+    _cuda()
+    from torchft_tpu_torch import checkpointing as cp
+    from torchft_tpu_torch.utils.metrics import Metrics
+
+    gen = torch.Generator().manual_seed(0)
+    state = {"w": torch.randn(4096, 64, generator=gen),
+             "b": torch.randn(7, generator=gen).to(torch.bfloat16),
+             "step": torch.tensor(3.0), "torchft": {"step": 2}}
+    template = {"w": torch.empty(4096, 64, device="cuda"),
+                "b": torch.empty(7, dtype=torch.bfloat16, device="cuda"),
+                "step": torch.tensor(0.0), "torchft": {"step": 0}}
+    donors = [cp.CheckpointServer(timeout=30.0) for _ in range(2)]
+    metrics = Metrics()
+    try:
+        donors[0].set_peers([donors[1].metadata()])
+        for d in donors:
+            d.send_checkpoint([], 2, state, 30.0)
+        got = cp.recv_checkpoint_sharded(donors[0].metadata(), 2, template,
+                                         timeout=30.0, metrics=metrics,
+                                         stripe_bytes=1 << 16)
+    finally:
+        for d in donors:
+            d.shutdown()
+    for k in ("w", "b", "step"):
+        assert got[k].device == template[k].device
+        assert got[k].dtype == state[k].dtype
+        assert torch.equal(got[k].cpu(), state[k])
+    assert got["torchft"] == {"step": 2}
+    snap = metrics.snapshot()
+    assert snap["heal_h2d_avg_ms"] >= 0.0 and snap["heal_wire_bytes"] > 0

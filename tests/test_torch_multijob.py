@@ -466,8 +466,9 @@ def test_mixed_cohort_in_one_job_same_keys_and_bitwise_heal(
     lighthouse: every group-store key each writes is the same string, they
     allreduce together over both packages' TCP wires, and the one behind
     heals from the other bitwise. Both heal over one package's checkpoint
-    transport (``transport``): the two raw-leaves manifests differ until
-    the sharded heal is ported."""
+    transport (``transport``): a heal without a template rebuilds the
+    donor's tree structure, which does not cross packages (only the
+    template heal does, tests/test_torch_heal_plane.py)."""
     import torchft_tpu.checkpointing as jax_ckpt
     import torchft_tpu.comm.store as jax_store
 

@@ -892,10 +892,11 @@ def test_sharded_wrapper_discards_and_validates() -> None:
 
 
 def test_manifest_paths_match_across_packages_not_indices() -> None:
-    # the same state served by each package: the paths name the same
-    # leaves in the same key-string format, the leaf indices differ (the
-    # JAX package sorts dict keys, the port keeps insertion order), and a
-    # leaf fetched by path is the same bytes from either donor
+    # the same state served by each package: the manifests list the same
+    # leaves under the same key-string paths, of the same kinds and in the
+    # same order (both flatten with jax.tree_util's rules: dict keys
+    # sorted), and a leaf fetched by path is the same bytes from either
+    # donor
     from torchft_tpu.checkpointing import CheckpointServer as JaxServer
     from torchft_tpu_torch.checkpointing import (
         CheckpointServer,
@@ -919,15 +920,15 @@ def test_manifest_paths_match_across_packages_not_indices() -> None:
         mp = fetch_manifest(port.metadata(), 3)["leaves"]
         mr = fetch_manifest(ref.metadata(), 3)["leaves"]
         port_paths = [e["path"] for e in mp]
-        ref_paths = [e["path"] for e in mr if e.get("kind") == "ndarray"]
-        assert sorted(port_paths) == sorted(ref_paths)
-        assert port_paths != ref_paths  # the orders differ
+        ref_paths = [e["path"] for e in mr]
+        assert port_paths == ref_paths
+        assert [e["kind"] for e in mp] == [e["kind"] for e in mr]
         assert "['user']['train']['params']['zeta']" in port_paths
-        assert all(e["kind"] == "ndarray" for e in mp)
-        for path in port_paths:
+        assert [e["pieces"] for e in mp if e["kind"] == "ndarray"] == \
+            [e["pieces"] for e in mr if e["kind"] == "ndarray"]
+        for path in (e["path"] for e in mp if e["kind"] == "ndarray"):
             a = fetch_leaf(port.metadata(), 3, port_paths.index(path))
-            b = fetch_leaf(ref.metadata(), 3,
-                           [e["path"] for e in mr].index(path))
+            b = fetch_leaf(ref.metadata(), 3, ref_paths.index(path))
             assert np.asarray(a).tobytes() == np.asarray(b).tobytes(), path
     finally:
         port.shutdown()

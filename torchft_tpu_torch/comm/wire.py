@@ -25,6 +25,7 @@ __all__ = [
     "recv_into_exact",
     "recv_exact",
     "readinto_exact",
+    "split_stripes",
     "split_weighted",
 ]
 
@@ -105,6 +106,20 @@ def readinto_exact(fp, mv: memoryview, what: str = "body") -> None:
                 "live peer"
             )
         got += r
+
+
+def split_stripes(n: int, stripe_count: int) -> "List[Tuple[int, int]]":
+    """Deterministic 1-D stripe grid over ``n`` rows: ``stripe_count``
+    contiguous (start, stop) ranges, balanced to within one row, empty
+    ranges dropped. The heal plane stripes a large region over donors and
+    connections on it; every healer computes the same grid from shapes
+    alone."""
+    stripe_count = max(1, min(stripe_count, n))
+    return [
+        (n * k // stripe_count, n * (k + 1) // stripe_count)
+        for k in range(stripe_count)
+        if n * (k + 1) // stripe_count > n * k // stripe_count
+    ]
 
 
 def split_weighted(

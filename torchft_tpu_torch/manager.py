@@ -250,9 +250,13 @@ class Manager:
                             self._manager.address())
             self._store.set(self._store_prefix + REPLICA_ID_KEY, replica_id)
         # every rank advertises its checkpoint (and telemetry) server on
-        # the group store, where scripts/fleet_top.py discovers it
+        # the group store, where scripts/fleet_top.py discovers it and a
+        # donor rank finds its peers: their addresses ride its manifests,
+        # so a healer can fetch a region from every rank that holds it
         self._store.set(f"{self._store_prefix}checkpoint_addr_{self._rank}",
                         self._checkpoint_transport.metadata())
+        self._ckpt_fanout = self._world_size > 1 and hasattr(
+            self._checkpoint_transport, "set_peers")
 
         addr = self._store.wait(
             self._store_prefix + MANAGER_ADDR_KEY,
@@ -879,6 +883,20 @@ class Manager:
             self._logger.info(
                 f"peers need recovery from us {quorum.recover_dst_ranks}"
             )
+            if self._ckpt_fanout:
+                # read on every donor event: a rank that died and restarted
+                # advertises a new address
+                try:
+                    self._checkpoint_transport.set_peers([
+                        self._store.wait(
+                            f"{self._store_prefix}checkpoint_addr_{r}",
+                            timeout=self._connect_timeout,
+                        ).decode()
+                        for r in range(self._world_size) if r != self._rank
+                    ])
+                except Exception as e:  # noqa: BLE001 — the heal proceeds
+                    # without peers; the next donor event reads them again
+                    self._logger.warn(f"checkpoint peer discovery failed: {e}")
             self._checkpoint_transport.send_checkpoint(
                 dst_ranks=quorum.recover_dst_ranks,
                 step=quorum.max_step,

@@ -8,3 +8,8 @@ from torchft_tpu_torch.models.transformer import (  # noqa: F401
     loss_fn,
     make_train_step,
 )
+from torchft_tpu_torch.models.moe_transformer import (  # noqa: F401
+    MOE_CONFIGS,
+    MoETransformer,
+    MoETransformerConfig,
+)

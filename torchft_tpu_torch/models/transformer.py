@@ -106,6 +106,20 @@ class _MLP(nn.Module):
         self.down_proj = _Param(kernel=(f, d))
 
 
+def attn_sublayer(block: nn.Module, x):
+    """``x`` plus the causal self-attention of ``block`` (its ``ln_1`` and
+    ``attn``), the half a dense and an MoE block share."""
+    cfg, dt = block.cfg, block.cfg.dtype
+    b, s, _ = x.shape
+    h = _layer_norm(x, block.ln_1.scale, block.ln_1.bias)
+    shape = (b, s, cfg.n_heads, cfg.head_dim)
+    q = (h @ block.attn.q_proj.kernel.to(dt)).reshape(shape)
+    k = (h @ block.attn.k_proj.kernel.to(dt)).reshape(shape)
+    v = (h @ block.attn.v_proj.kernel.to(dt)).reshape(shape)
+    a = causal_attention(q, k, v).reshape(b, s, cfg.d_model)
+    return x + a @ block.attn.o_proj.kernel.to(dt)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig) -> None:
         super().__init__()
@@ -117,15 +131,8 @@ class Block(nn.Module):
         self.mlp = _MLP(d, cfg.d_ff)
 
     def forward(self, x):
-        cfg, dt = self.cfg, self.cfg.dtype
-        b, s, _ = x.shape
-        h = _layer_norm(x, self.ln_1.scale, self.ln_1.bias)
-        shape = (b, s, cfg.n_heads, cfg.head_dim)
-        q = (h @ self.attn.q_proj.kernel.to(dt)).reshape(shape)
-        k = (h @ self.attn.k_proj.kernel.to(dt)).reshape(shape)
-        v = (h @ self.attn.v_proj.kernel.to(dt)).reshape(shape)
-        a = causal_attention(q, k, v).reshape(b, s, cfg.d_model)
-        x = x + a @ self.attn.o_proj.kernel.to(dt)
+        dt = self.cfg.dtype
+        x = attn_sublayer(self, x)
         h = _layer_norm(x, self.ln_2.scale, self.ln_2.bias)
         h = F.gelu(h @ self.mlp.up_proj.kernel.to(dt), approximate="tanh")
         return x + h @ self.mlp.down_proj.kernel.to(dt)
@@ -143,7 +150,7 @@ class GPT(nn.Module):
                  device: "Optional[str | torch.device]" = None,
                  seed: int = 0) -> None:
         super().__init__()
-        if cfg.attention != "local":
+        if getattr(cfg, "attention", "local") != "local":
             raise ValueError(f"attention {cfg.attention!r} is not ported; "
                              "use 'local'")
         self.cfg = cfg
@@ -153,9 +160,12 @@ class GPT(nn.Module):
         self.ln_f = _Param(scale=(d,), bias=(d,))
         self.lm_head = _Param(kernel=(d, cfg.vocab_size))
         for i in range(cfg.n_layers):
-            self.add_module(f"layers_{i}", Block(cfg))
+            self.add_module(f"layers_{i}", self._block(i))
         self.to(device=resolve_device(device), dtype=cfg.param_dtype)
         self.reset_parameters(seed)
+
+    def _block(self, i: int) -> nn.Module:
+        return Block(self.cfg)
 
     @torch.no_grad()
     def reset_parameters(self, seed: int) -> None:
@@ -166,6 +176,8 @@ class GPT(nn.Module):
                 init = torch.randn(p.shape, generator=gen) * 0.02
             elif leaf == "kernel":
                 init = torch.randn(p.shape, generator=gen) / np.sqrt(p.shape[0])
+            elif leaf in ("up", "down"):  # experts [E, in, out]
+                init = torch.randn(p.shape, generator=gen) / np.sqrt(p.shape[1])
             elif leaf == "scale":
                 init = torch.ones(p.shape)
             else:
@@ -193,14 +205,18 @@ class GPT(nn.Module):
         h = self.forward_hidden(tokens)
         return h.float() @ self.lm_head.kernel.float()
 
-    def loss(self, tokens, targets):
-        """Mean next-token cross entropy."""
-        h = self.forward_hidden(tokens)
+    def cross_entropy(self, h, targets):
+        """Mean next-token cross entropy of final-norm hidden states ``h``
+        (the reference's ``ce_from_hidden``)."""
         w = self.lm_head.kernel
         if self.cfg.xent_chunks > 0:
             return hidden_cross_entropy(h, w, targets, self.cfg.xent_chunks)
         logp = torch.log_softmax(h.float() @ w.float(), dim=-1)
         return -logp.gather(-1, targets[..., None])[..., 0].mean()
+
+    def loss(self, tokens, targets):
+        """Mean next-token cross entropy."""
+        return self.cross_entropy(self.forward_hidden(tokens), targets)
 
 
 def loss_fn(cfg: TransformerConfig, model: GPT, tokens, targets):

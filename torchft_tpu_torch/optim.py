@@ -73,7 +73,8 @@ logger = logging.getLogger(__name__)
 __all__ = ["OptimizerWrapper", "OuterTransformation",
            "PartitionedOuterOptimizer", "ShardedOptState",
            "ShardedOptimizerWrapper", "adam", "adamw", "apply_updates",
-           "from_optax_state", "load_optimizer_state_dict", "sgd"]
+           "from_optax_state", "init_adam_state", "load_optimizer_state_dict",
+           "sgd"]
 
 
 def _hyper(group: Dict[str, Any]) -> Dict[str, Any]:
@@ -104,6 +105,34 @@ def _loads_in_place(optimizer: torch.optim.Optimizer,
             if isinstance(v, torch.Tensor) and v.shape != new[k].shape:
                 return False
     return True
+
+
+def init_adam_state(optimizer: torch.optim.Optimizer) -> None:
+    """Create an Adam or AdamW optimizer's per-parameter state now, as its
+    first ``step()`` would (step 0, zero moments), instead of lazily: an
+    optimizer that never stepped then lists the same state leaves as one
+    that did, so its ``state_dict()`` is a heal template (optax creates its
+    state at ``init`` too). The first step is bitwise the lazy one's."""
+    with torch.no_grad():
+        for group in optimizer.param_groups:
+            on_device = group.get("capturable") or group.get("fused")
+            scalar = torch.float64 \
+                if torch.get_default_dtype() == torch.float64 \
+                else torch.float32
+            for p in group["params"]:
+                state = optimizer.state[p]
+                if state:
+                    continue
+                state["step"] = (
+                    torch.zeros((), dtype=scalar, device=p.device)
+                    if on_device else torch.tensor(0.0, dtype=scalar))
+                state["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                if group.get("amsgrad"):
+                    state["max_exp_avg_sq"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
 
 
 def load_optimizer_state_dict(optimizer: torch.optim.Optimizer,
