@@ -201,6 +201,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    step phases' p50s. It first checks the device memory
    (``moe_device_bytes``) and the host's (``moe_host_bytes``).
 
+14. train_diloco_sharded (it runs after train_diloco): DiLoCo's outer
+   update sharded by fragment (``sharded_outer=True``) at "125m", full
+   width and depth, batch 8 x 1024: three groups as threads over loopback
+   TCP at codec none, group 2's wire in a ``SubprocessCommContext`` child
+   (``check_comm_child`` first shows such a child holds no CUDA context),
+   ``sync_every=8``, 3 fragments, outer ``sgd(0.7, momentum=0.9,
+   nesterov=True)``, a wire timeout of ``DILOCO_WIRE_TIMEOUT``. First the
+   replicated arm (``sharded_outer=False``) for rounds 1-2 on the same
+   seeds. Then the schedule: rounds 1-2 all three, each group holding
+   exactly fragment ``f % 3 == rank``, bitwise equal to the replicated
+   arm; group 2 killed at inner step 4 of round 3 (its child gone with
+   it), groups 0 and 1 commit round 3 at world 2 after a reshard that
+   reinitializes f2 on its new owner only; group 2 restarts from a
+   poisoned init with a new child, heals at round 4's quorum, and the
+   fence's exchange gives it f2's momentum bitwise as its holder
+   committed it (every reshard moving exactly its lower bound, no
+   reinit); at round 5's fence group 2's child is SIGSTOPped with a
+   fragment op in flight, every group's round aborts and rolls back
+   (parameters at the backup, outer states as the fence left them),
+   every group reconfigures and the stopped child is SIGKILLed and
+   replaced; all three commit the retried round and round 6. After every
+   committed round the live groups hold each fragment's momentum exactly
+   once; every flash kernel launched 12 x the passes of both arms. It
+   prints the five checks, per group and life the p50s of ``outer_d2h``,
+   ``outer_wire``, ``outer_land`` and ``reshard``, the ``reshard``
+   events, round seconds, the heal's wall and GB/s, the drill's seconds
+   and the device memory peak. It first checks the host's memory
+   (``diloco_sharded_host_bytes``) and the device's
+   (``diloco_sharded_device_bytes``).
+
 It prints a ``kernels`` JSON line before the last line and ends with
 ``{"ok": true, "device": {...}}``. It needs one card and no network.
 """
@@ -1500,6 +1530,266 @@ def phase_train_diloco(seed: int, card: str, batch: int = 8):
     return result["passes"] * cfg.n_layers, result
 
 
+# train_diloco_sharded: the sharded outer update with exchange on heal, one
+# group's wire in a child process
+DILOCO_SHARDED = dict(groups=3, sync_every=8, num_fragments=3,
+                      subproc_groups=(2,))
+# the schedule: group 2 killed at inner step 4 of round 3, its restart
+# heals at round 4, its child SIGSTOPped at round 5's fence, 6 rounds
+DILOCO_SHARDED_SCHEDULE = dict(rounds=6, kill=(2, 2, 4), wedge=(2, 4))
+# the wire's timeout (s): a wedge costs it on the peers, and 10 s more on
+# the wedged group, whose pump gives its child up after timeout + 10
+DILOCO_WIRE_TIMEOUT = 8.0
+DILOCO_SHARDED_P50S = ("outer_d2h", "outer_wire", "outer_land", "reshard")
+
+
+def diloco_sharded_host_bytes(n_params: int,
+                              groups: int = DILOCO_SHARDED["groups"]) -> int:
+    """Host memory train_diloco_sharded may hold at once, in f32 copies of
+    the parameters: per group the backup, the fragment arenas, the outer
+    momentum (all of it in the replicated arm), a fence's snapshot of it and
+    a committed round's parameters (5); once, the heal's staged state on
+    both ends (params, AdamW's moments, backup, momentum: 10), the kept
+    rounds of both arms (4) and the wire child's copies of a fragment (2)."""
+    return (groups * 5 + 16) * 4 * n_params
+
+
+def diloco_sharded_device_bytes(n_params: int, act: int,
+                                groups: int = DILOCO_SHARDED["groups"]
+                                ) -> int:
+    """Device memory train_diloco_sharded may hold at once: each group's
+    f32 parameters, gradients and two AdamW moments (16 bytes a parameter),
+    a restarted group's model beside its dead life's (4), and per group one
+    pass's activations and its CUDA graph's private pool (one more)."""
+    return (16 * groups + 4) * n_params + 2 * groups * act
+
+
+def _reshards(run) -> list:
+    keys = ("old_world", "new_world", "rank", "owned_fragments",
+            "adopted_fragments", "wire_bytes", "lower_bound_bytes",
+            "reinit_fragments", "dropped_fragments")
+    return [{k: e.get(k) for k in keys} for e in run.events
+            if e["kind"] == "reshard"]
+
+
+def check_diloco_sharded(result: dict, replicated: dict) -> list:
+    """The schedule's five checks on a ``run_diloco_drill`` result of
+    train_diloco_sharded (module docstring, phase 14) against its
+    replicated arm; raises on a miss, returns one line per check."""
+    runs = result["runs"]
+    survivors, restarted = (0, 1), runs[2][1]
+    lines = []
+    ranks = {g: next(r["rank"] for r in _reshards(runs[g][0])
+                     if r["new_world"] == 3) for g in (0, 1, 2)}
+    rounds = result["checked_rounds"]
+    # 1. rounds 1-2: all three, each its own fragment, equal to replicated
+    _require(rounds.get(1) == 3 and rounds.get(2) == 3
+                   and replicated["checked_rounds"] == {1: 3, 2: 3},
+                   f"rounds 1-2 not committed by all three groups in both "
+                   f"arms: {rounds}, {replicated['checked_rounds']}")
+    for step in (1, 2):
+        want = {g: [f for f in range(3) if f % 3 == ranks[g]]
+                for g in (0, 1, 2)}
+        _require(result["held"][step] == want,
+                       f"round {step}: held {result['held'][step]}, want "
+                       f"{want}")
+        same = all(a.equal(b) for a, b in zip(result["params"][step],
+                                               replicated["params"][step]))
+        _require(same, f"round {step}: sharded parameters differ from "
+                             "the replicated arm's")
+    lines.append("1. rounds 1-2: 3 groups bitwise equal, each holding "
+                 f"fragment f % 3 == rank (ranks {ranks}), bitwise equal to "
+                 "the replicated arm: passed")
+    # 2. round 3: group 2 killed, its child gone; 0 and 1 commit at world 2
+    shrink = {g: [r for r in _reshards(runs[g][0]) if r["new_world"] == 2]
+              for g in survivors}
+    # f2's owner at world 2: wire rank 2 % 2
+    owner = next((g for g in survivors
+                  if shrink[g] and shrink[g][0]["rank"] == 2 % 2), None)
+    _require(rounds.get(3) == 2 and all(len(v) == 1
+                                              for v in shrink.values()),
+                   f"round 3: committed by {rounds.get(3)} groups, reshards "
+                   f"at world 2 {shrink}")
+    _require(all(shrink[g][0]["reinit_fragments"] == (g == owner)
+                       for g in survivors),
+                   f"round 3: reinit_fragments {shrink}, want 1 on f2's new "
+                   f"owner (group {owner}) and 0 on the other")
+    _require(result["killed_pid"] is not None,
+                   "group 2's wire child was never seen")
+    lines.append(f"2. round 3: group 2 killed at inner step 4 (its child "
+                 f"{result['killed_pid']} gone), groups 0 and 1 committed at "
+                 f"world 2 after a reshard {shrink}: passed")
+    # 3. the restart heals, and the grow moves exactly the lower bound
+    grow = {g: [r for r in _reshards(runs[g][-1]) if r["new_world"] == 3
+                and r["old_world"] in (2, None)][-1] for g in (0, 1, 2)}
+    holder = result["grow"]["holders"].get(2)
+    donor_group = next((g for g in survivors
+                        if ranks[g] == result["donor"]), None)
+    moved = sum(g["wire_bytes"] for g in grow.values())
+    _require(restarted.healed_at == [4]
+                   and all(r["reinit_fragments"] == 0 for r in grow.values())
+                   and result["grow"]["equal"]
+                   and (donor_group == holder or moved > 0),
+                   f"grow: healed at {restarted.healed_at}, reshards {grow}, "
+                   f"{result['grow']}, donor group {donor_group}")
+    new_pid = result["pids"][(2, 1)][0]
+    _require(new_pid != result["killed_pid"],
+                   "the restarted group reused its dead child's pid")
+    lines.append(f"3. group 2 restarted (child {new_pid}), healed at 4 from "
+                 f"group {donor_group} (f2's holder: group {holder}); grow "
+                 f"reshards {grow}; its f2 state bitwise the holder's: passed")
+    # 4. round 5: the wedge aborts every group's round, all reconfigure
+    wedged = result["wedged"]
+    aborted = {g: (4, False) in runs[g][-1].rounds for g in (0, 1, 2)}
+    reform = {g: [r for r in _reshards(runs[g][-1])
+                  if r["old_world"] == r["new_world"] == 3] for g in (0, 1, 2)}
+    _require(all(aborted.values()) and all(reform.values()),
+                   f"round 5: aborted {aborted}, reconfigure reshards "
+                   f"{reform}")
+    lines.append(f"4. round 5: group 2's child {wedged['pid']} SIGSTOPped "
+                 f"mid-round, every group aborted and rolled back bitwise "
+                 f"(parameters and outer states), every group reconfigured, "
+                 f"the child SIGKILLed and replaced by {wedged['next_pid']}: "
+                 "passed")
+    # 5. round 6: all three commit
+    _require(rounds.get(5) == 3 and rounds.get(6) == 3,
+                   f"rounds 5-6 committed by {rounds.get(5)}, "
+                   f"{rounds.get(6)} groups")
+    lines.append("5. rounds 5-6 (the wedged round retried, then round 6): "
+                 "all three groups bitwise equal: passed")
+    lines.append(f"coverage: after every committed round the live groups "
+                 f"held each fragment once {result['held']}")
+    return lines
+
+
+def _require(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def phase_train_diloco_sharded(seed: int, card: str, batch: int = 8):
+    """The sharded DiLoCo drill (module docstring, phase 14) after its
+    replicated arm; returns the flash launches it must have made and the
+    result."""
+    import torch
+
+    from torchft_tpu_torch.examples.train_diloco import run_diloco_drill
+    from torchft_tpu_torch.models import CONFIGS, GPT, count_params
+
+    t0 = time.perf_counter()
+    cfg = CONFIGS["125m"]
+    n_params = count_params(GPT(cfg, device="meta"))
+    need_host = diloco_sharded_host_bytes(n_params)
+    free_host = check_host_memory(need_host, what="train_diloco_sharded")
+    act = gpt_activation_bytes(cfg, batch)
+    need = diloco_sharded_device_bytes(n_params, act)
+    cuda = torch.cuda.is_available()
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0]
+        if free < need:
+            raise AssertionError(
+                f"train_diloco_sharded needs {need / 1e9:.2f} GB of device "
+                f"memory free, has {free / 1e9:.2f} GB")
+        torch.cuda.reset_peak_memory_stats()
+    log(f"  125m: {n_params} parameters, batch {batch}, 3 groups over TCP "
+        f"at codec none (group 2's wire in a child), sync_every 8, 3 "
+        f"fragments, wire timeout {DILOCO_WIRE_TIMEOUT} s; host memory: up "
+        f"to {need_host / 1e9:.2f} GB, {free_host / 1e9:.1f} GB available; "
+        f"device memory: up to {need / 1e9:.2f} GB")
+    common = dict(DILOCO_SHARDED, device="cuda", batch_size=batch, seed=seed,
+                  timeout=120.0, keep_params=(1, 2),
+                  comm_options={"timeout": DILOCO_WIRE_TIMEOUT},
+                  log=lambda m: log("  " + m))
+    t1 = time.perf_counter()
+    replicated = run_diloco_drill(cfg, rounds=2, kill=None,
+                                  sharded_outer=False, **common)
+    t_rep = time.perf_counter() - t1
+    log(f"  replicated arm (sharded_outer=False, 2 rounds): {t_rep:.1f} s")
+    t1 = time.perf_counter()
+    result = run_diloco_drill(cfg, sharded_outer=True,
+                              **DILOCO_SHARDED_SCHEDULE, **common)
+    t_drill = time.perf_counter() - t1
+    for line in check_diloco_sharded(result, replicated):
+        log("  " + line)
+    runs = result["runs"]
+    for g in sorted(runs):
+        for life, run in enumerate(runs[g]):
+            rounds = {s: round(t, 3) for s, t in run.round_seconds.items()}
+            log(f"  group {g} life {life}: p50 ms "
+                f"{_p50s(run.metrics, DILOCO_SHARDED_P50S)}; committed "
+                f"round s {rounds}; reshard events {_reshards(run)} ({card})")
+    heal = runs[2][1].metrics
+    log(f"  heal of group 2 at round 4: wall "
+        f"{heal.get('heal_wall_ms', 0):.1f} ms, wire "
+        f"{heal.get('heal_bytes_per_s', 0) / 1e9:.3f} GB/s ({card})")
+    peak = (f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated"
+            if cuda else "not measured")
+    log(f"  drill {t_drill:.1f} s, replicated arm {t_rep:.1f} s, phase "
+        f"{time.perf_counter() - t0:.1f} s; device memory peak {peak}; "
+        f"forward/backward passes: {replicated['passes']} + "
+        f"{result['passes']} ({card})")
+    del replicated["params"], result["params"]
+    passes = replicated["passes"] + result["passes"]
+    return passes * cfg.n_layers, result
+
+
+def _compute_pids() -> list:
+    return subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30).stdout.split()
+
+
+def check_comm_child(card: str, mb: int = 181) -> None:
+    """A ``SubprocessCommContext`` child on the card's host holds no CUDA
+    context: the device's free memory does not move when it starts (a
+    context costs hundreds of MB) and ``nvidia-smi`` lists no new compute
+    process. (The child maps ``libcuda``, as any process that imports torch
+    does; that alone makes no context.) Then one allreduce of ``mb`` MB of
+    f32 (a 125m fragment) through it at world 1, timed: the round trip
+    through the process boundary."""
+    import torch
+
+    from torchft_tpu_torch.comm.store import StoreServer
+    from torchft_tpu_torch.comm.subproc import SubprocessCommContext
+
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    apps0 = _compute_pids()
+    store = StoreServer()
+    ctx = SubprocessCommContext(timeout=60.0)
+    try:
+        t0 = time.perf_counter()
+        ctx.configure(f"{store.addr}/smoke_child", 0, 1)
+        spawn = time.perf_counter() - t0
+        pid = ctx.child_pid()
+        free1 = torch.cuda.mem_get_info()[0]
+        apps1 = _compute_pids()
+        with open(f"/proc/{pid}/maps") as f:
+            libcuda = "libcuda.so" in f.read()
+        x = torch.arange(mb * (1 << 20) // 4, dtype=torch.float32).numpy()
+        trips = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = ctx.allreduce([x.copy()]).future().result(timeout=120)[0]
+            trips.append(time.perf_counter() - t0)
+        same = out.tobytes() == x.tobytes()
+    finally:
+        ctx.shutdown()
+        store.shutdown()
+    log(f"  comm child {pid}: spawned and configured in {spawn:.2f} s; "
+        f"device free memory {free0 / 1e9:.3f} -> {free1 / 1e9:.3f} GB; "
+        f"nvidia-smi compute pids {apps0} -> {apps1}; libcuda mapped "
+        f"{libcuda}; {mb} MB allreduce at world 1 through the child "
+        f"{[round(t * 1e3, 1) for t in trips]} ms, bitwise {same} ({card})")
+    if (str(pid) in apps1 or len(apps1) > len(apps0)
+            or free0 - free1 > 64 * (1 << 20) or not same):
+        raise AssertionError(f"the comm child {pid} made a CUDA context "
+                             f"(compute pids {apps0} -> {apps1}, free memory "
+                             f"{free0} -> {free1}) or garbled its op")
+
+
 LOCALSGD_GROUPS = 4
 
 
@@ -2382,8 +2672,8 @@ def _check_launches(counts, want, what: str) -> None:
 
 PHASES = ("kernels", "train", "train_multijob", "train_sharded",
           "train_moe", "train_cuda_int8",
-          "train_tiny", "gpt_1b", "train_diloco", "train_localsgd_int8",
-          "train_hier_int8", "train_durable")
+          "train_tiny", "gpt_1b", "train_diloco", "train_diloco_sharded",
+          "train_localsgd_int8", "train_hier_int8", "train_durable")
 
 
 def _add_launches(rows: dict, counts: dict, head_dim: int) -> None:
@@ -2539,6 +2829,16 @@ def main() -> int:
         _check_launches(counts, {n: want for n in counts},
                         "one per layer per pass, graph replays and capture "
                         "warm-ups included")
+        _add_launches(rows, counts, CONFIGS["125m"].head_dim)
+    if "train_diloco_sharded" in phases:
+        log("phase train_diloco_sharded")
+        check_comm_child(smi)
+        flash.reset_launch_counts()
+        want, _ = phase_train_diloco_sharded(args.seed, smi)
+        counts = dict(flash.LAUNCHES)
+        _check_launches(counts, {n: want for n in counts},
+                        "one per layer per pass of both arms, graph replays "
+                        "and capture warm-ups included")
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
     if "train_localsgd_int8" in phases:
         log("phase train_localsgd_int8")

@@ -12,10 +12,12 @@ it prints, read off a run of the same drill at "tiny" on the CPU. For
 ``train_diloco`` and ``train_localsgd_int8``: the host memory the second
 needs at 125m, the failure when it is short, and both phases whole, run
 at "tiny" on the CPU (their drills' schedules, reports and the CPU plane
-check). For ``train_hier_int8``: the host memory it needs at 125m, the
-roles of its schedule, the phase whole at "tiny" on the CPU (the card
-plane's arms on a CPU pool), and its checks failing a drill whose counter
-or recorded step is wrong.
+check). For ``train_diloco_sharded``: its memory at 125m, and the phase
+whole at "tiny" on the CPU (both drills, the five schedule checks, which
+must also reject a broken coverage or grow). For ``train_hier_int8``:
+the host memory it needs at 125m, the roles of its schedule, the phase
+whole at "tiny" on the CPU (the card plane's arms on a CPU pool), and its
+checks failing a drill whose counter or recorded step is wrong.
 """
 
 import importlib.util
@@ -156,8 +158,9 @@ def test_flash_shapes_reach_every_head_dim() -> None:
     assert smoke.PHASES == ("kernels", "train", "train_multijob",
                             "train_sharded", "train_moe", "train_cuda_int8",
                             "train_tiny", "gpt_1b",
-                            "train_diloco", "train_localsgd_int8",
-                            "train_hier_int8", "train_durable")
+                            "train_diloco", "train_diloco_sharded",
+                            "train_localsgd_int8", "train_hier_int8",
+                            "train_durable")
     assert all(n in {k for k, v in GPT(CONFIGS["1b"], device="meta")
                      .named_parameters()} for n in smoke.GRAD_SAMPLE)
 
@@ -317,6 +320,59 @@ def test_outer_sync_phases_run_at_tiny_on_the_cpu(monkeypatch,
         assert text.count("card plane vs CPU plane bitwise ok") == 2
     else:
         assert passes == 40 + 19 + 16
+
+
+def test_diloco_sharded_memory_at_125m() -> None:
+    smoke = _smoke()
+    n = 136091136
+    act = smoke.gpt_activation_bytes(CONFIGS["125m"], 8)
+    # 3 groups x 5 f32 copies and 16 once; 16 B a parameter a group, a
+    # restarted model, two passes' activations a group
+    assert smoke.diloco_sharded_host_bytes(n) == (3 * 5 + 16) * 4 * n
+    assert smoke.diloco_sharded_device_bytes(n, act) == \
+        (16 * 3 + 4) * n + 6 * act
+    assert smoke.diloco_sharded_host_bytes(n) / 1e9 < 17.0
+    assert smoke.diloco_sharded_device_bytes(n, act) / 1e9 < 60.0
+
+
+def test_train_diloco_sharded_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # the phase as the card runs it, its drills at "tiny" on the CPU with a
+    # 3 s wire timeout: the replicated arm, the kill, the shrink, the heal
+    # and grow, the wedge, the five schedule checks and the report; then
+    # the checks must reject a drill that broke coverage or the grow
+    import torchft_tpu_torch.examples.train_diloco as example
+    import torchft_tpu_torch.models as models
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    monkeypatch.setattr(smoke, "DILOCO_WIRE_TIMEOUT", 3.0)
+    monkeypatch.setitem(models.CONFIGS, "125m", CONFIGS["tiny"])
+    drill = example.run_diloco_drill
+    monkeypatch.setattr(example, "run_diloco_drill", lambda cfg, **kw: drill(
+        cfg, **dict(kw, device="cpu", batch_size=2, timeout=30.0)))
+    seen = {}
+    check = smoke.check_diloco_sharded
+
+    def spy(result, replicated):
+        seen.update(result=dict(result), replicated=dict(replicated))
+        return check(result, replicated)
+
+    monkeypatch.setattr(smoke, "check_diloco_sharded", spy)
+    want, result = smoke.phase_train_diloco_sharded(0, "CPU")
+    text = "\n".join(lines)
+    for n in range(1, 6):
+        assert f"{n}. " in text and "passed" in text
+    assert "reshard" in text and "heal of group 2" in text
+    assert want % CONFIGS["tiny"].n_layers == 0 and want > 0
+    assert result["wedged"]["next_pid"] != result["wedged"]["pid"]
+    held = dict(seen["result"]["held"])
+    held[1] = {0: [0, 1], 1: [1], 2: [2]}
+    with pytest.raises(AssertionError, match="round 1"):
+        check(dict(seen["result"], held=held), seen["replicated"])
+    grow = dict(seen["result"]["grow"], equal=False)
+    with pytest.raises(AssertionError, match="grow"):
+        check(dict(seen["result"], grow=grow), seen["replicated"])
 
 
 def test_hier_host_bytes_at_125m() -> None:

@@ -28,7 +28,10 @@ capture recorded, and a capture holds while another thread runs eager
 steps, the codec kernels and stream syncs. The hierarchical plane
 (``CudaCommContext(topology="hier")``) runs through the codec kernels on
 the card bitwise with the CPU plane and ``_host_hier_allreduce`` (star),
-and within its bound (psum). This file imports no
+and within its bound (psum). DiLoCo's sharded outer update at "tiny"
+with one group's wire in a ``SubprocessCommContext`` child commits its
+round bitwise the replicated arm's, and the child holds no CUDA context.
+This file imports no
 JAX, so it runs where only torch is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -699,3 +702,41 @@ def test_template_heal_lands_on_the_card() -> None:
     assert got["torchft"] == {"step": 2}
     snap = metrics.snapshot()
     assert snap["heal_h2d_avg_ms"] >= 0.0 and snap["heal_wire_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_sharded_diloco_with_a_wire_child_on_card() -> None:
+    """DiLoCo's sharded outer update at "tiny" on the card, three groups,
+    group 2's wire in a ``SubprocessCommContext`` child: the child holds no
+    CUDA context (the device's free memory does not move when it starts;
+    it maps ``libcuda``, as any process that imports torch does, which
+    alone makes no context), and the committed round is bitwise the
+    replicated arm's (``sharded_outer=False``, the same seeds), each group
+    holding exactly its own fragment's outer state."""
+    from torchft_tpu_torch.comm.store import StoreServer
+    from torchft_tpu_torch.comm.subproc import SubprocessCommContext
+    from torchft_tpu_torch.examples.train_diloco import run_diloco_drill
+
+    _cuda()
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    store = StoreServer()
+    ctx = SubprocessCommContext(timeout=30.0)
+    try:
+        ctx.configure(f"{store.addr}/card_child", 0, 1)
+        free1 = torch.cuda.mem_get_info()[0]
+    finally:
+        ctx.shutdown()
+        store.shutdown()
+    assert free0 - free1 < 64 * (1 << 20), (free0, free1)
+    cfg = CONFIGS["tiny"]
+    arms = {}
+    for sharded in (False, True):
+        arms[sharded] = run_diloco_drill(
+            cfg, device="cuda", batch_size=4, timeout=60.0, groups=3,
+            rounds=1, kill=None, num_fragments=3, subproc_groups=(2,),
+            sharded_outer=sharded, keep_params=(1,))
+    assert arms[True]["checked_rounds"] == {1: 3}
+    assert all(torch.equal(a, b) for a, b in zip(arms[True]["params"][1],
+                                                 arms[False]["params"][1]))
+    assert arms[True]["held"][1] == {g: [g] for g in range(3)}

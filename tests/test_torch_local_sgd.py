@@ -10,6 +10,17 @@ the reference's; its outer-updated parameters and outer states lie within
 ``OUTER_TOL`` of optax's. Within the port, streaming and blocking rounds
 are bitwise equal at every codec, a mid-round abort rolls every fragment
 back bitwise, and a heal at the fence re-reads ``params_fn``.
+
+``sharded_outer=True`` (twins of test_sharded_update.py's and
+test_redistribute.py's DiLoCo tests): bitwise the replicated arm at world 3
+over codecs none/int8, 1 and 3 fragments and both schedules, each rank
+holding exactly the fragments ``f % world == rank``; LocalSGD's sharded arm
+bitwise the reference's; DiLoCo's within ``OUTER_TOL`` of the reference's,
+its state_dict's leaves in the reference's order; a grow fetches an
+arriving fragment's momentum from its live holder (moved == lower bound >
+0, bitwise a carried copy), a shrink reinitializes only an uncovered
+fragment, and an aborted sharded round leaves parameters and owned outer
+states bitwise as they were. Every stub is ``comm.wire_stub``'s.
 """
 
 import copy
@@ -33,11 +44,19 @@ from torchft_tpu.local_sgd import DiLoCo as JaxDiLoCo
 from torchft_tpu.local_sgd import LocalSGD as JaxLocalSGD
 from torchft_tpu.local_sgd import fragment_boundaries as jax_boundaries
 from torchft_tpu_torch import optim as outer
-from torchft_tpu_torch.comm.context import CompletedWork, ReduceOp, Work
+from torchft_tpu_torch.comm.context import (
+    CompletedWork,
+    DummyCommContext,
+    ReduceOp,
+    Work,
+)
 from torchft_tpu_torch.comm.cuda_backend import CudaCommContext, DevicePool
+from torchft_tpu_torch.comm.store import StoreServer
 from torchft_tpu_torch.comm.topology import DomainTopology
 from torchft_tpu_torch.comm.transport import TcpCommContext
 from torchft_tpu_torch.comm.wire import split_weighted
+from torchft_tpu_torch.comm.wire_stub import WireStubManager, run_stub_ranks
+from torchft_tpu_torch.examples.train_diloco import _tree_equal
 from torchft_tpu_torch.futures import future_chain
 from torchft_tpu_torch.local_sgd import (
     DiLoCo,
@@ -46,7 +65,6 @@ from torchft_tpu_torch.local_sgd import (
     fragment_boundaries,
     from_jax_state,
 )
-from torchft_tpu_torch.utils.metrics import Metrics
 
 # DiLoCo's outer step against optax's (the same order of operations; the
 # compilers may contract a multiply-add differently)
@@ -94,73 +112,20 @@ def _snap_jax(params):
     return {k: np.asarray(params[k]).copy() for k in _KEYS}
 
 
-class _PortWireStub:
-    """Manager facade over a raw port context: the twin of the JAX
-    package's ``WireStubManager`` (no-op quorum and fence, AVG by the wire
-    world in f32, the error-latch commit vote). ``reduced`` keeps a copy of
-    every averaged array."""
+class _PortWireStub(WireStubManager):
+    """The port's ``WireStubManager`` keeping a copy of every averaged
+    array (``reduced``)."""
 
     def __init__(self, ctx, world):
-        self._ctx = ctx
-        self._world = world
-        self.metrics = Metrics()
-        self._use_async_quorum = True
-        self._error = None
+        super().__init__(ctx, world)
         self.reduced = []
 
-    def start_quorum(self, **kw):
-        self._error = None
-
-    def quorum_fence(self):
-        pass
-
-    def did_heal(self):
-        return False
-
-    def errored(self):
-        return self._error
-
-    def report_error(self, e):
-        if self._error is None:
-            self._error = e
-
-    def should_commit(self):
-        return self._error is None
-
-    def is_participating(self):
-        return True
-
-    def transport_world_size(self):
-        return self._world
-
-    def transport_rank(self):
-        return self._ctx.rank()
-
-    def wire_compensable(self):
-        return self._ctx.wire_compensable()
-
-    def wire_generation(self):
-        return self._ctx.wire_generation()
-
-    def wire_roundtrip(self, src, out):
-        self._ctx.wire_roundtrip(src, out)
-
-    def wire_nbytes(self, a):
-        return self._ctx.wire_nbytes(a)
-
     def allreduce_arrays(self, arrays, op=ReduceOp.SUM, topology=None):
-        work = self._ctx.allreduce(list(arrays), ReduceOp.SUM,
-                                   topology=topology)
-        scale = np.float32(1.0 / self._world)
-
-        def _avg(f):
-            reduced = f.result()
-            for a in reduced:
-                np.multiply(a, a.dtype.type(scale), out=a)
-                self.reduced.append(a.copy())
-            return reduced
-
-        return Work(future_chain(work.future(), _avg))
+        work = super().allreduce_arrays(arrays, op, topology)
+        return Work(future_chain(
+            work.future(),
+            lambda f: [self.reduced.append(a.copy()) or a
+                       for a in f.result()]))
 
 
 class _RecordingJaxStub(JaxWireStub):
@@ -176,22 +141,21 @@ class _RecordingJaxStub(JaxWireStub):
                        for a in f.result()]))
 
 
-class _LocalStubManager:
-    """Transport-less stub (twin of the reference test's): identity
-    averaging with the Manager's latching (a failed op latches and its
-    future resolves to its inputs) and a heal-at-fence hook."""
+class _LocalStubManager(WireStubManager):
+    """The shared stub over an identity wire (``DummyCommContext``, world
+    1) with the reference test's hooks: a failed op latches and its future
+    resolves to its inputs, as the Manager's does (``fail_at_op``), and
+    the next fence reports a heal (``heal_next_fence``)."""
 
     def __init__(self, fail_at_op=None):
-        self.metrics = Metrics()
-        self._use_async_quorum = True
-        self._error = None
+        super().__init__(DummyCommContext(), 1)
         self._ops = 0
         self.fail_at_op = fail_at_op
         self.heal_next_fence = False
         self._did_heal = False
 
     def start_quorum(self, **kw):
-        self._error = None
+        super().start_quorum(**kw)
         self._did_heal = False
 
     def quorum_fence(self):
@@ -202,32 +166,7 @@ class _LocalStubManager:
     def did_heal(self):
         return self._did_heal
 
-    def errored(self):
-        return self._error
-
-    def report_error(self, e):
-        if self._error is None:
-            self._error = e
-
-    def should_commit(self):
-        return self._error is None
-
-    def is_participating(self):
-        return True
-
-    def wire_compensable(self):
-        return False
-
-    def wire_generation(self):
-        return 0
-
-    def wire_roundtrip(self, src, out):
-        np.copyto(out, src)
-
-    def wire_nbytes(self, a):
-        return int(np.asarray(a).nbytes)
-
-    def allreduce_arrays(self, arrays, op=ReduceOp.SUM):
+    def allreduce_arrays(self, arrays, op=ReduceOp.SUM, topology=None):
         self._ops += 1
         if self._error is not None:
             return CompletedWork([np.asarray(a) for a in arrays])
@@ -241,10 +180,10 @@ class _LocalStubManager:
 
 
 def _port_arm(prefix, algorithm, world, codec, fragments, streaming,
-              rounds=2, sync_every=4, outer_tx=None):
+              rounds=2, sync_every=4, outer_tx=None, sharded_outer=False):
     """``rounds`` rounds over the port's on-device plane on the CPU; per
-    rank: the committed parameters of each round, the final EF residuals
-    and the stub (its averaged arrays)."""
+    rank: the committed parameters of each round, the final EF residuals,
+    the stub (its averaged arrays) and the wrapper."""
     pool = DevicePool("cpu")
     ctxs = [CudaCommContext(timeout=15.0, algorithm=algorithm,
                             compression=codec, chunk_bytes=256,
@@ -257,10 +196,12 @@ def _port_arm(prefix, algorithm, world, codec, fragments, streaming,
         manager = _PortWireStub(ctxs[rank], world)
         if outer_tx is not None:
             wrapper = DiLoCo(manager, outer_tx(), sync_every=sync_every,
-                             num_fragments=fragments, streaming=streaming)
+                             num_fragments=fragments, streaming=streaming,
+                             sharded_outer=sharded_outer)
         else:
             wrapper = LocalSGD(manager, sync_every=sync_every,
-                               num_fragments=fragments, streaming=streaming)
+                               num_fragments=fragments, streaming=streaming,
+                               sharded_outer=sharded_outer)
         params = _port_params()
         wrapper.register(params)
         incs = _increments(rank, steps)
@@ -286,7 +227,7 @@ def _port_arm(prefix, algorithm, world, codec, fragments, streaming,
 
 
 def _jax_arm(store, prefix, algorithm, world, codec, fragments, streaming,
-             rounds=2, sync_every=4, outer_tx=None):
+             rounds=2, sync_every=4, outer_tx=None, sharded_outer=False):
     """The same rounds through the JAX package over its TcpCommContext."""
     ctxs = [JaxTcp(timeout=15.0, algorithm=algorithm, channels=2,
                    compression=codec, chunk_bytes=256) for _ in range(world)]
@@ -298,11 +239,13 @@ def _jax_arm(store, prefix, algorithm, world, codec, fragments, streaming,
         manager = _RecordingJaxStub(ctxs[rank], world)
         if outer_tx is not None:
             wrapper = JaxDiLoCo(manager, outer_tx(), sync_every=sync_every,
-                                num_fragments=fragments, streaming=streaming)
+                                num_fragments=fragments, streaming=streaming,
+                                sharded_outer=sharded_outer)
         else:
             wrapper = JaxLocalSGD(manager, sync_every=sync_every,
                                   num_fragments=fragments,
-                                  streaming=streaming)
+                                  streaming=streaming,
+                                  sharded_outer=sharded_outer)
         params = wrapper.register(_jax_params())
         incs = _increments(rank, steps)
         per_round = []
@@ -958,11 +901,316 @@ def test_num_fragments_validation() -> None:
         LocalSGD(_LocalStubManager(), sync_every=3, error_feedback="yes")
 
 
-@pytest.mark.parametrize("kwargs,entry", [
-    ({"sharded_outer": True}, "queue 1 item 9"),
-])
-def test_unported_arms_refused_with_their_roadmap_entry(kwargs,
-                                                        entry) -> None:
-    for cls, args in ((LocalSGD, ()), (DiLoCo, (outer.sgd(0.7),))):
-        with pytest.raises(ValueError, match=entry):
-            cls(_LocalStubManager(), *args, sync_every=4, **kwargs)
+# --------------------------------------------- the sharded outer update
+
+
+@pytest.fixture()
+def port_store():
+    server = StoreServer()
+    yield server
+    server.shutdown()
+
+
+def _tcp(codec="none"):
+    return lambda: TcpCommContext(timeout=15.0, algorithm="star",
+                                  compression=codec, chunk_bytes=256,
+                                  channels=2)
+
+
+def _diloco_ranks(store, prefix, world, sharded=True, codec="none",
+                  fragments=3, streaming=True, rounds=2, sync_every=4,
+                  carried=None, stub=None):
+    """A DiLoCo (outer ``sgd(0.5, momentum=0.9)``) per rank over the port's
+    TCP wire behind ``comm.wire_stub``; per rank: the committed parameters
+    of each round (or the rolled-back ones of an aborted round), the
+    wrapper and the stub. ``carried[rank]`` replaces a rank's outer states
+    after register; ``stub(ctx, world)`` builds a rank's manager."""
+    def fn(mgr, rank):
+        if stub is not None:
+            mgr = stub(mgr._ctx, world)
+        params = _port_params()
+        dl = DiLoCo(mgr, outer.sgd(0.5, momentum=0.9), sync_every=sync_every,
+                    num_fragments=fragments, streaming=streaming,
+                    sharded_outer=sharded)
+        dl.register(params)
+        if carried is not None and carried[rank] is not None:
+            dl.load_outer_state(copy.deepcopy(carried[rank]))
+        incs = _increments(rank, rounds * sync_every)
+        per_round = []
+        for t in range(rounds * sync_every):
+            for k, p in zip(_KEYS, params):
+                p.add_(torch.from_numpy(incs[t][k]))
+            dl.step()
+            if dl.local_step == 0:
+                per_round.append(_snap_port(params))
+        return per_round, dl, mgr
+
+    return run_stub_ranks(store.addr, prefix, world, fn, _tcp(codec),
+                          timeout=120)
+
+
+def _held(wrapper):
+    return [f for f, s in enumerate(wrapper.outer_state) if s is not None]
+
+
+def _reshards(mgr):
+    return [e for e in mgr.events.since(0)[0] if e["kind"] == "reshard"]
+
+
+@pytest.mark.parametrize("codec", ["none", "int8"])
+@pytest.mark.parametrize("num_fragments", [1, 3])
+@pytest.mark.parametrize("streaming", [True, False])
+def test_diloco_sharded_outer_bitwise(port_store, codec, num_fragments,
+                                      streaming) -> None:
+    # fragments as the shard unit: bitwise the replicated arm's commits at
+    # world 3, both schedules, both codecs (EF on the star peers at int8);
+    # each rank holds exactly the fragments f % world == rank
+    tag = f"{codec}_{num_fragments}_{streaming}"
+    sh = _diloco_ranks(port_store, f"sh_{tag}", 3, True, codec,
+                       num_fragments, streaming)
+    rp = _diloco_ranks(port_store, f"rp_{tag}", 3, False, codec,
+                       num_fragments, streaming)
+    for rank in range(3):
+        assert len(sh[rank][0]) == 2
+        _assert_rounds_equal(sh[rank][0], rp[0][0],
+                             f"{tag}: sharded rank {rank} vs replicated")
+        assert sh[rank][1].num_fragments == num_fragments
+        assert _held(sh[rank][1]) == [f for f in range(num_fragments)
+                                      if f % 3 == rank], (tag, rank)
+        assert len(_held(rp[rank][1])) == num_fragments  # replicated: all
+        for e in _reshards(sh[rank][2]):
+            assert e["source"] == "outer_sync"
+            assert e["wire_bytes"] == e["lower_bound_bytes"] == 0
+            assert e["reinit_fragments"] == 0
+
+
+@pytest.mark.parametrize("codec", ["none", "int8"])
+def test_localsgd_sharded_outer_bitwise_equals_reference(jax_store,
+                                                         codec) -> None:
+    # LocalSGD's weight average sharded by fragment: the owner's average
+    # rides the commit allgather, bitwise the reference's sharded arm (star
+    # w3: EF on the peers at int8, the same residuals) and the replicated
+    port = _port_arm(f"lsh_{codec}", "star", 3, codec, 3, True,
+                     sharded_outer=True)
+    ref = _jax_arm(jax_store, f"x_lsh_{codec}", "star", 3, codec, 3, True,
+                   sharded_outer=True)
+    flat = _port_arm(f"lrp_{codec}", "star", 3, codec, 3, True)
+    for rank in range(3):
+        _assert_rounds_equal(port[rank][0], ref[rank][0], f"{codec} {rank}")
+        _assert_rounds_equal(port[rank][0], flat[rank][0], f"{codec} {rank}")
+        got_res, want_res = port[rank][1], ref[rank][1]
+        assert (got_res is None) == (want_res is None), (codec, rank)
+        for g, w in zip(got_res or (), want_res or ()):
+            assert g.tobytes() == w.tobytes(), (codec, rank)
+
+
+def test_diloco_sharded_outer_matches_reference(jax_store) -> None:
+    # against the reference's sharded DiLoCo on the same inputs: the same
+    # owner map (each rank the same fragments), the committed parameters
+    # and the held momentum within OUTER_TOL, and the state_dict's leaves
+    # (the heal manifest's) in the reference's order: None is no leaf
+    from torchft_tpu_torch.utils.serialization import tree_flatten_with_path
+
+    port = _port_arm("dsh", "star", 3, "none", 3, True,
+                     outer_tx=lambda: outer.sgd(0.5, momentum=0.9),
+                     sharded_outer=True)
+    ref = _jax_arm(jax_store, "x_dsh", "star", 3, "none", 3, True,
+                   outer_tx=lambda: optax.sgd(0.5, momentum=0.9),
+                   sharded_outer=True)
+    for rank in range(3):
+        pw, rw = port[rank][3], ref[rank][3]
+        for t, (g, w) in enumerate(zip(port[rank][0], ref[rank][0])):
+            for k in _KEYS:
+                np.testing.assert_allclose(g[k], w[k], **OUTER_TOL,
+                                           err_msg=f"rank {rank} round {t}")
+        assert _held(pw) == [f for f, s in enumerate(rw.outer_state)
+                             if s is not None] == [rank]
+        want = outer.from_optax_state(
+            jax.device_get(rw.outer_state[rank]))
+        for a, b in zip(pw.outer_state[rank]["trace"], want["trace"]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), **OUTER_TOL)
+        got_leaves = [v for _, v in tree_flatten_with_path(
+            pw.state_dict())[0]]
+        want_leaves = jax.tree_util.tree_leaves(
+            jax.device_get(rw.state_dict()))
+        assert len(got_leaves) == len(want_leaves)
+        for g, w in zip(got_leaves, want_leaves):
+            if isinstance(g, torch.Tensor):
+                w = np.asarray(w)
+                assert tuple(g.shape) == w.shape and str(g.dtype) == \
+                    f"torch.{w.dtype}"
+                np.testing.assert_allclose(g.numpy(), w, **OUTER_TOL)
+            else:
+                assert g == w
+
+
+def _tiny_params(seed=9):
+    rng = np.random.default_rng(seed)
+    return {"a": rng.standard_normal((13, 5)).astype(np.float32),
+            "b": rng.standard_normal(31).astype(np.float32),
+            "c": rng.standard_normal((3, 3)).astype(np.float32)}
+
+
+def _run_diloco(store, prefix, world, carried=None, rounds=1, sync_every=4,
+                fragments=3):
+    """Twin of the reference test's ``_run_diloco``
+    (tests/test_redistribute.py): per rank the final parameters, the outer
+    states and the stub."""
+    params0 = _tiny_params()
+
+    def fn(mgr, rank):
+        dl = DiLoCo(mgr, outer.sgd(0.5, momentum=0.9), sync_every=sync_every,
+                    num_fragments=fragments, streaming=True,
+                    sharded_outer=True)
+        params = [torch.from_numpy(params0[k].copy()) for k in "abc"]
+        dl.register(params)
+        if carried is not None and carried[rank] is not None:
+            dl.load_outer_state(copy.deepcopy(carried[rank]))
+        for step in range(1, rounds * sync_every + 1):
+            for p in params:
+                p.sub_(0.01 * (rank + 1) * step)
+            dl.step()
+        return ({k: p.numpy().copy() for k, p in zip("abc", params)},
+                dl.outer_state, mgr)
+
+    return run_stub_ranks(store.addr, prefix, world, fn, _tcp(), timeout=120)
+
+
+def test_diloco_sharded_outer_heal_exchanges_not_reinits(port_store) -> None:
+    # a healer whose donor does not cover its new fragment FETCHES that
+    # fragment's outer state from the live holder (reinit 0, moved == lower
+    # bound > 0), and the adopted momentum is bitwise what a healer that
+    # carried the holder's states holds
+    w2 = _run_diloco(port_store, "dh_w2", 2)
+    # w2's owner map f % 2: rank 0 holds {f0, f2}, rank 1 {f1}. Grow to 3:
+    # the joiner (rank 2) healed from rank 1, so it carries {f1} but owns
+    # f2, which only rank 0 holds: a real fetch
+    fetched = _run_diloco(port_store, "dh_w3f", 3,
+                          carried=[w2[0][1], w2[1][1], w2[1][1]])
+    resh = _reshards(fetched[2][2])
+    assert resh and resh[0]["source"] == "outer_sync"
+    assert resh[0]["adopted_fragments"] == 1
+    assert resh[0]["reinit_fragments"] == 0
+    assert resh[0]["wire_bytes"] == resh[0]["lower_bound_bytes"] > 0
+    plans = [e for e in fetched[2][2].events.since(0)[0]
+             if e["kind"] == "redist_plan"]
+    assert plans and plans[0]["source"] == "outer_sync"
+    snap = fetched[2][2].metrics.snapshot()
+    assert snap["redist_moved_bytes"] == snap["redist_lower_bound_bytes"] > 0
+    carried = _run_diloco(port_store, "dh_w3c", 3,
+                          carried=[w2[0][1], w2[1][1], w2[0][1]])
+    for k in "abc":
+        assert fetched[2][0][k].tobytes() == carried[2][0][k].tobytes()
+    for a, b in zip(fetched[2][1][2]["trace"], carried[2][1][2]["trace"]):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+    assert [f for f, s in enumerate(fetched[2][1]) if s is not None] == [2]
+
+
+def test_diloco_shrink_reinit_only_when_uncovered(port_store) -> None:
+    # w3 -> w2 with the departed rank's fragment state gone with it: the
+    # arriving fragment reinitializes (counted, never silent); covered
+    # fragments keep their state
+    w3 = _run_diloco(port_store, "ds_w3", 3)
+    res = _run_diloco(port_store, "ds_w2", 2, carried=[w3[0][1], w3[1][1]])
+    resh = _reshards(res[0][2])
+    assert resh and resh[0]["reinit_fragments"] == 1
+    assert resh[0]["adopted_fragments"] == 0
+    resh1 = _reshards(res[1][2])
+    assert resh1 and resh1[0]["reinit_fragments"] == 0
+
+
+def test_localsgd_sharded_outer_native_dtypes(port_store) -> None:
+    # the commit allgather carries each owned fragment in its leaves' own
+    # dtypes: a bfloat16 leaf (numpy has none: it rides as its bits) and an
+    # int32 leaf (rounded, not truncated) land bitwise as the replicated
+    # arm's copy_ writes them, at world 2 with a fragment per leaf
+    rng = np.random.default_rng(11)
+    base = [rng.standard_normal((13, 5)).astype(np.float32),
+            rng.standard_normal(31).astype(np.float32),
+            rng.integers(-50, 50, (3, 3)).astype(np.int32)]
+
+    def arm(prefix, sharded):
+        def fn(mgr, rank):
+            params = [torch.from_numpy(base[0].copy()),
+                      torch.from_numpy(base[1].copy()).to(torch.bfloat16),
+                      torch.from_numpy(base[2].copy())]
+            ls = LocalSGD(mgr, sync_every=3, num_fragments=3,
+                          sharded_outer=sharded)
+            ls.register(params)
+            for step in range(1, 7):
+                params[0].add_(0.01 * (rank + 1) * step)
+                params[1].add_(0.01 * (rank + 1) * step)
+                params[2].add_(rank + step)
+                ls.step()
+            return [p.view(torch.int16) if p.dtype == torch.bfloat16
+                    else p for p in params], ls
+
+        return run_stub_ranks(port_store.addr, prefix, 2, fn, _tcp(),
+                              timeout=120)
+
+    sh, rp = arm("nd_sh", True), arm("nd_rp", False)
+    assert sh[0][1].num_fragments == 3
+    for rank in range(2):
+        for got, want in zip(sh[rank][0], rp[0][0]):
+            assert got.dtype == want.dtype
+            assert torch.equal(got, want), rank
+
+
+class _FaultOnEveryRank(WireStubManager):
+    """A wire failure every rank sees: the ``fail_at``-th reduce_scatter
+    latches after its collective ran."""
+
+    fail_at = 5
+
+    def __init__(self, ctx, world):
+        super().__init__(ctx, world)
+        self.scatters = 0
+
+    def reduce_scatter_arrays(self, arrays, op=ReduceOp.SUM, owners=None):
+        self.scatters += 1
+        work = super().reduce_scatter_arrays(arrays, op, owners)
+        if self.scatters != self.fail_at:
+            return work
+
+        def _fail(f):
+            self.report_error(RuntimeError("injected wire fault"))
+            return f.result()
+
+        return Work(future_chain(work.future(), _fail))
+
+
+def test_sharded_round_abort_restores_params_and_owned_states(
+        port_store) -> None:
+    # round 2's second fragment op fails on every rank after the wire ran:
+    # the round rolls back bitwise (parameters at the backup, each owned
+    # outer state as round 1 committed it: nothing adopted), and round 3
+    # commits equal on every rank
+    def fn(mgr, rank):
+        mgr = _FaultOnEveryRank(mgr._ctx, 3)
+        params = _port_params()
+        dl = DiLoCo(mgr, outer.sgd(0.5, momentum=0.9), sync_every=4,
+                    num_fragments=3, sharded_outer=True)
+        dl.register(params)
+        incs = _increments(rank, 12)
+        snaps, states = [], []
+        for t in range(12):
+            for k, p in zip(_KEYS, params):
+                p.add_(torch.from_numpy(incs[t][k]))
+            dl.step()
+            if dl.local_step == 0:
+                snaps.append(_snap_port(params))
+                states.append(copy.deepcopy(dl.outer_state))
+        return snaps, states, mgr
+
+    res = run_stub_ranks(port_store.addr, "abort", 3, fn, _tcp(),
+                         timeout=120)
+    for rank, (snaps, states, mgr) in enumerate(res):
+        assert len(snaps) == 3
+        _assert_rounds_equal([snaps[1]], [snaps[0]], f"rank {rank} abort")
+        assert [f for f, s in enumerate(states[1]) if s is not None] == [rank]
+        assert _tree_equal(states[1], states[0]), rank
+        assert not _tree_equal(states[2], states[1]), rank
+        _assert_rounds_equal(snaps, res[0][0], f"rank {rank} vs rank 0")
+        aborts = [e for e in mgr.events.since(0)[0]
+                  if e["kind"] == "round_abort"]
+        assert len(aborts) == 1 and aborts[0]["wire_world"] == 3

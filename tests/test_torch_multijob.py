@@ -13,6 +13,8 @@ non-default job (the same store keys, an allreduce and a bitwise heal),
 and the two-job drill at "tiny", whose jobs run the same seeds and data, so
 job A (with an observer) and job B (without) must agree bit for bit until
 A's kill: an observer counted as a participant would change A's average.
+The victim job's shrink (3 -> 2 sharded optimizer ranks) moves exactly
+its lower bound through the redistribution planner.
 """
 
 import json
@@ -167,8 +169,7 @@ def test_priority_preemption_is_prescriptive(pkg_lo) -> None:
     port group of a high-priority job joins and exactly one low group is
     evicted through the quorum answer: ``is_evicted()``, a
     ``job_preempted`` event with its job, the status counters, and an
-    immediate answer to its next ask. (The victim job's shrink through
-    the redistribution planner waits for the sharded update.)"""
+    immediate answer to its next ask."""
     lh = Lighthouse(min_replicas=1, join_timeout_ms=100, quorum_tick_ms=10,
                     heartbeat_timeout_ms=30000, fleet_capacity=3)
     stores = [StoreServer() for _ in range(4)]
@@ -232,6 +233,65 @@ def test_priority_preemption_is_prescriptive(pkg_lo) -> None:
         assert time.perf_counter() - t0 < 5.0
     finally:
         _shutdown(managers, stores, lh)
+
+
+def test_victim_shrink_moves_exactly_the_lower_bound() -> None:
+    """The evicted group's state leaves the job through the redistribution
+    planner: a live 3 -> 2 shrink of the sharded optimizer ships
+    ``redist_moved_bytes == redist_lower_bound_bytes`` on every surviving
+    rank (and a non-zero total: real state moved), and each survivor's
+    last ``redist_plan`` event agrees with its gauges."""
+    import copy
+
+    import torch
+
+    from torchft_tpu_torch.comm.transport import TcpCommContext
+    from torchft_tpu_torch.comm.wire_stub import run_stub_ranks
+    from torchft_tpu_torch.optim import ShardedOptimizerWrapper, adam
+
+    store = StoreServer()
+    rng = np.random.default_rng(1909)
+    params0 = [rng.standard_normal(64 + 8 * i).astype(np.float32)
+               for i in range(4)]
+
+    def _run(prefix, world, carried=None):
+        def _fn(mgr, rank):
+            params = [torch.nn.Parameter(torch.from_numpy(p.copy()))
+                      for p in params0]
+            opt = ShardedOptimizerWrapper(mgr, adam(1e-2), params,
+                                          sharded=True)
+            if carried is not None and carried[rank] is not None:
+                opt.state = copy.deepcopy(carried[rank])
+            mgr.start_quorum()
+            for p in params:
+                p.grad = p.detach() * 0.1
+            assert opt.step(), "shrink step discarded"
+            plans = [e for e in mgr.events.since(0)[0]
+                     if e["kind"] == "redist_plan"]
+            return opt.state, mgr.metrics.snapshot(), plans
+
+        return run_stub_ranks(store.addr, prefix, world, _fn,
+                              lambda: TcpCommContext(timeout=15.0),
+                              timeout=90)
+
+    try:
+        w3 = _run("mj_shrink_w3", 3)
+        shrunk = _run("mj_shrink_w2", 2, carried=[w3[0][0], w3[1][0]])
+        total_moved = 0.0
+        for rank, (_, snap, plans) in enumerate(shrunk):
+            moved = snap.get("redist_moved_bytes")
+            lower = snap.get("redist_lower_bound_bytes")
+            assert moved is not None and lower is not None, rank
+            assert float(moved) == float(lower), (
+                f"rank {rank}: the victim shrink over-shipped ({moved} vs "
+                f"lower bound {lower})")
+            assert plans, f"rank {rank}: no redist_plan event"
+            assert plans[-1]["moved_bytes"] == int(moved)
+            assert plans[-1]["lower_bound_bytes"] == int(lower)
+            total_moved += float(moved)
+        assert total_moved > 0, "the 3 -> 2 shrink moved zero bytes"
+    finally:
+        store.shutdown()
 
 
 def test_job_preempted_fields_and_registry_match_the_reference() -> None:

@@ -23,9 +23,7 @@ import torch
 from tests.test_torch_sharded_update import (
     _KEYS,
     _TX,
-    ShardStub,
     _helper,
-    run_stub_ranks,
     run_wrapper,
 )
 from torchft_tpu_torch.comm.redistribute import (
@@ -38,6 +36,7 @@ from torchft_tpu_torch.comm.redistribute import (
 )
 from torchft_tpu_torch.comm.store import StoreServer
 from torchft_tpu_torch.comm.transport import TcpCommContext
+from torchft_tpu_torch.comm.wire_stub import WireStubManager, run_stub_ranks
 from torchft_tpu_torch.ddp import shard_ranges
 from torchft_tpu_torch.optim import _state_tensors
 from torchft_tpu_torch.utils.metrics import Metrics
@@ -468,7 +467,7 @@ def test_fetch_opt_shard_stripes_and_counters(store) -> None:
         needed = list(range(len(state.leaf_states)))
         metrics = Metrics()
         planner = RedistPlanner()
-        events = ShardStub(None, 1).events
+        events = WireStubManager(None, 1).events
         got = fetch_opt_shard(donors, 3, needed,
                               state_slots=helper.state_slots, timeout=10.0,
                               metrics=metrics, planner=planner,
@@ -508,7 +507,7 @@ def test_heal_fetches_deferred_slots_through_fetch_opt_shard(store) -> None:
           "torchft": {"step": 1}}
     donor = CheckpointServer(timeout=10.0)
     healer = CheckpointServer(timeout=10.0, defer_paths=OPT_SLOTS_PATH_RE)
-    healer.set_events(ShardStub(None, 1).events)
+    healer.set_events(WireStubManager(None, 1).events)
     try:
         donor.send_checkpoint([], 1, sd, 10.0)
         got = healer.recv_checkpoint(0, donor.metadata(), 1, 10.0)

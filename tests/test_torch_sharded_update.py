@@ -1,7 +1,8 @@
 """The port's sharded weight update against the JAX package's.
 
 Twins of tests/test_sharded_update.py over the port's TCP wire (its XLA
-arms cannot run here, R1, and DiLoCo's ``sharded_outer`` is not ported):
+arms cannot run here, R1; DiLoCo's ``sharded_outer`` twins live in
+test_torch_local_sgd.py), driven through ``comm.wire_stub``:
 the transport's reduce_scatter bitwise equal to its allreduce on owned
 arrays, ``shard_ranges`` equal to the reference's, the shard grid's
 rebuild event, ``ShardedOptimizerWrapper`` bitwise equal to its replicated
@@ -22,7 +23,6 @@ decay and at a large one, and the checks are shown to reject adam in its
 place and decay applied before the Adam scaling.
 """
 
-import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
@@ -35,12 +35,11 @@ from torchft_tpu_torch.comm.context import (
     ErrorSwallowingCommContext,
     ManagedCommContext,
     ReduceOp,
-    Work,
 )
 from torchft_tpu_torch.comm.store import StoreServer
 from torchft_tpu_torch.comm.transport import TcpCommContext
+from torchft_tpu_torch.comm.wire_stub import WireStubManager, run_stub_ranks
 from torchft_tpu_torch.ddp import ShardedGradReducer, shard_ranges
-from torchft_tpu_torch.futures import future_chain
 from torchft_tpu_torch.optim import (
     ShardedOptimizerWrapper,
     ShardedOptState,
@@ -49,8 +48,6 @@ from torchft_tpu_torch.optim import (
     adamw,
     sgd,
 )
-from torchft_tpu_torch.utils.events import EventRecorder
-from torchft_tpu_torch.utils.metrics import Metrics
 
 TIMEOUT = 30.0
 
@@ -60,117 +57,6 @@ def store():
     server = StoreServer()
     yield server
     server.shutdown()
-
-
-class ShardStub:
-    """Manager facade over a raw port context (the twin of the JAX
-    package's ``WireStubManager``): no-op quorum, AVG by the wire world on
-    owned arrays, the error-latch commit vote, a flight recorder."""
-
-    def __init__(self, ctx, world: int) -> None:
-        self._ctx = ctx
-        self._world = world
-        self.metrics = Metrics()
-        self.events = EventRecorder(replica_id="stub", rank=0)
-        self._error = None
-
-    def start_quorum(self, **kw) -> None:
-        self._error = None
-
-    def wait_quorum(self) -> None:
-        pass
-
-    def did_heal(self) -> bool:
-        return False
-
-    def errored(self):
-        return self._error
-
-    def report_error(self, e) -> None:
-        if self._error is None:
-            self._error = e
-
-    def should_commit(self) -> bool:
-        return self._error is None
-
-    def is_participating(self) -> bool:
-        return True
-
-    def num_participants(self) -> int:
-        return self._world
-
-    def transport_world_size(self) -> int:
-        return self._world
-
-    def transport_rank(self) -> int:
-        return int(self._ctx.rank())
-
-    def is_solo_wire(self) -> bool:
-        return self._error is None and self._world == 1
-
-    def wire_compensable(self) -> bool:
-        return self._ctx.wire_compensable()
-
-    def wire_generation(self) -> int:
-        return self._ctx.wire_generation()
-
-    def wire_roundtrip(self, src, out) -> None:
-        self._ctx.wire_roundtrip(src, out)
-
-    def _scale(self, reduced, owned):
-        scale = np.float32(1.0 / self._world)
-        for i, a in enumerate(reduced):
-            if i in owned and a.dtype in (np.float32, np.float64):
-                np.multiply(a, a.dtype.type(scale), out=a)
-        return reduced
-
-    def allreduce_arrays(self, arrays, op=ReduceOp.SUM, topology=None):
-        arrays = list(arrays)
-        work = self._ctx.allreduce(arrays, ReduceOp.SUM)
-        return Work(future_chain(work.future(), lambda f: self._scale(
-            list(f.result()), set(range(len(arrays))))))
-
-    def reduce_scatter_arrays(self, arrays, op=ReduceOp.SUM, owners=None):
-        arrays = list(arrays)
-        if owners is None:
-            owners = [i % self._world for i in range(len(arrays))]
-        owners = [int(o) for o in owners]
-        work = self._ctx.reduce_scatter(arrays, ReduceOp.SUM, owners)
-        my = self.transport_rank()
-        owned = {i for i, o in enumerate(owners) if o == my}
-        return Work(future_chain(work.future(), lambda f: self._scale(
-            list(f.result()), owned)))
-
-    def allgather_arrays(self, arrays):
-        return self._ctx.allgather(list(arrays))
-
-
-def run_stub_ranks(store_addr, prefix, world, fn, ctx_factory,
-                   timeout=120.0):
-    """One context per rank under a :class:`ShardStub`, ``fn(mgr, rank)``
-    on a thread each; returns the results, raises any rank's error."""
-    ctxs = [ctx_factory() for _ in range(world)]
-    results = [None] * world
-    errors = []
-
-    def _worker(rank):
-        try:
-            ctxs[rank].configure(f"{store_addr}/{prefix}", rank, world)
-            results[rank] = fn(ShardStub(ctxs[rank], world), rank)
-        except Exception as e:  # noqa: BLE001 — re-raised below
-            errors.append(f"rank {rank}: {e!r}")
-
-    threads = [threading.Thread(target=_worker, args=(r,))
-               for r in range(world)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=timeout)
-    for ctx in ctxs:
-        ctx.shutdown()
-    if errors or any(r is None for r in results):
-        raise RuntimeError("; ".join(errors) or "a rank hung")
-    return results
 
 
 def _run_world(store, world, prefix, fn, **ctx_kw):
@@ -300,7 +186,7 @@ def test_shard_grid_rebuild_event(store) -> None:
     # a new wire world builds the plan once and emits shard_grid_rebuild
     ctx = TcpCommContext(timeout=5.0)
     ctx.configure(f"{store.addr}/grid_ev", 0, 1)
-    mgr = ShardStub(ctx, 1)
+    mgr = WireStubManager(ctx, 1)
     red = ShardedGradReducer(mgr)
     grads = [torch.ones(4, 4), torch.ones(3)]
     red.reduce(grads, sharded=True)
@@ -722,7 +608,7 @@ def _shard_of(full_state, ranges, rank, n_leaves):
 
 
 def _helper():
-    return ShardedOptimizerWrapper(ShardStub(DummyCommContext(), 1),
+    return ShardedOptimizerWrapper(WireStubManager(DummyCommContext(), 1),
                                    adam(1e-2), _params(_make_params()))
 
 
@@ -848,7 +734,7 @@ def test_port_healer_fetches_from_a_reference_donor(store) -> None:
 def test_opt_state_dict_roundtrip_and_heal_bytes() -> None:
     # the state dict carries only the held shard, in a fixed structure;
     # a load restores it bitwise and gauges heal_opt_bytes
-    mgr = ShardStub(DummyCommContext(), 1)
+    mgr = WireStubManager(DummyCommContext(), 1)
     params = _params(_make_params())
     opt = ShardedOptimizerWrapper(mgr, adam(1e-2), params, sharded=True)
     mgr.start_quorum()
@@ -869,7 +755,7 @@ def test_opt_state_dict_roundtrip_and_heal_bytes() -> None:
 def test_sharded_wrapper_discards_and_validates() -> None:
     # a latched error discards the step and leaves parameters and state
     # alone; redistribute is validated
-    mgr = ShardStub(DummyCommContext(), 1)
+    mgr = WireStubManager(DummyCommContext(), 1)
     params = _params(_make_params())
     opt = ShardedOptimizerWrapper(mgr, adam(1e-2), params)
     mgr.start_quorum()

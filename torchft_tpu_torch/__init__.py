@@ -9,6 +9,9 @@ kernels for Hopper (``ops/flash.py``, ``csrc/``). Entry points run on CUDA
 unless asked for the CPU (``device="cpu"``).
 """
 
+import importlib
+from typing import Any
+
 from torchft_tpu_torch.comm import (  # noqa: F401
     DummyCommContext,
     ErrorSwallowingCommContext,
@@ -16,14 +19,33 @@ from torchft_tpu_torch.comm import (  # noqa: F401
     ReduceOp,
     TcpCommContext,
 )
-from torchft_tpu_torch.data import DistributedSampler  # noqa: F401
-from torchft_tpu_torch.ddp import (  # noqa: F401
-    DistributedDataParallel,
-    PureDistributedDataParallel,
-)
-from torchft_tpu_torch.local_sgd import DiLoCo, LocalSGD  # noqa: F401
-from torchft_tpu_torch.manager import Manager, WorldSizeMode  # noqa: F401
-from torchft_tpu_torch.optim import (  # noqa: F401
-    OptimizerWrapper,
-    ShardedOptimizerWrapper,
-)
+
+# The names that need torch load on first use (PEP 562), so a process that
+# imports only the wire (comm/subproc.py's child) never imports torch.
+_LAZY = {
+    "DistributedSampler": "torchft_tpu_torch.data",
+    "DistributedDataParallel": "torchft_tpu_torch.ddp",
+    "PureDistributedDataParallel": "torchft_tpu_torch.ddp",
+    "DiLoCo": "torchft_tpu_torch.local_sgd",
+    "LocalSGD": "torchft_tpu_torch.local_sgd",
+    "Manager": "torchft_tpu_torch.manager",
+    "WorldSizeMode": "torchft_tpu_torch.manager",
+    "OptimizerWrapper": "torchft_tpu_torch.optim",
+    "ShardedOptimizerWrapper": "torchft_tpu_torch.optim",
+}
+
+
+def __getattr__(name: str) -> Any:
+    module = _LAZY.get(name)
+    if module is not None:
+        value = getattr(importlib.import_module(module), name)
+    else:
+        try:  # a submodule, as an eager package would have bound it
+            value = importlib.import_module(f"{__name__}.{name}")
+        except ModuleNotFoundError as e:
+            if e.name != f"{__name__}.{name}":
+                raise
+            raise AttributeError(
+                f"module {__name__!r} has no attribute {name!r}") from None
+    globals()[name] = value
+    return value

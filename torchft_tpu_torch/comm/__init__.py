@@ -12,3 +12,4 @@ from torchft_tpu_torch.comm.topology import (  # noqa: F401
     DomainTopology,
 )
 from torchft_tpu_torch.comm.transport import TcpCommContext  # noqa: F401
+from torchft_tpu_torch.comm.subproc import SubprocessCommContext  # noqa: F401

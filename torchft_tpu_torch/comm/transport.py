@@ -65,7 +65,6 @@ from datetime import timedelta
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from torchft_tpu_torch.comm.context import CommContext, ReduceOp, Work
 from torchft_tpu_torch.comm.store import create_store_client
@@ -418,12 +417,20 @@ class _NoCodec:
         _decode_into(data, views, combine)
 
 
+# torch is imported by the bf16 codec alone, so a process that runs this
+# wire without it (comm/subproc.py's child) starts in well under a second
+
+
 def _to_bf16_bits(v: np.ndarray) -> np.ndarray:
+    import torch
+
     return (torch.from_numpy(np.ascontiguousarray(v)).to(torch.bfloat16)
             .view(torch.int16).numpy())
 
 
 def _from_bf16_bits(bits: np.ndarray, dtype: np.dtype) -> np.ndarray:
+    import torch
+
     t = torch.from_numpy(np.array(bits, dtype=np.int16)).view(torch.bfloat16)
     return t.to(torch.float64 if dtype == np.float64
                 else torch.float32).numpy()

@@ -202,6 +202,20 @@ class FaultyCommContext(ErrorSwallowingCommContext):
         inner.add_done_callback(_done)
         return Work(out)
 
+    # the other collectives run on ``inner`` as they are: a swallowed
+    # failure would hide the latch from the Manager's commit vote
+
+    def reduce_scatter(self, arrays: Sequence[np.ndarray],
+                       op: str = ReduceOp.SUM,
+                       owners: "Optional[Sequence[int]]" = None) -> Work:
+        return self._inner.reduce_scatter(arrays, op, owners)
+
+    def allgather(self, arrays: Sequence[np.ndarray]) -> Work:
+        return self._inner.allgather(arrays)
+
+    def broadcast(self, arrays: Sequence[np.ndarray], root: int = 0) -> Work:
+        return self._inner.broadcast(arrays, root)
+
 
 @dataclass
 class GroupRun:

@@ -24,7 +24,11 @@ for the CPU).
 at an inner step of a round, and a fault injected into one fragment op
 (:class:`FaultyCommContext`). ``run_diloco_drill`` drives several groups as
 threads under an in-process lighthouse through such a schedule and checks
-that every group that commits a round holds the same bits.
+that every group that commits a round holds the same bits. Both take
+``sharded_outer`` (the outer update sharded by fragment, local_sgd.py) and
+``subproc_groups`` (those groups' wires in a killable child process,
+``comm.subproc.SubprocessCommContext``); the drill's ``wedge`` SIGSTOPs such
+a child in the middle of a round.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from __future__ import annotations
 import logging
 import math
 import os
+import signal
 import threading
 import time
 from dataclasses import dataclass, field
@@ -49,7 +54,7 @@ from torchft_tpu_torch.examples.train_ddp import (
     InjectedFailure,
     _wait_lighthouse,
 )
-from torchft_tpu_torch.local_sgd import DiLoCo, LocalSGD
+from torchft_tpu_torch.local_sgd import DiLoCo, LocalSGD, fragment_boundaries
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.models import CONFIGS, GPT, TransformerConfig, make_train_step
 from torchft_tpu_torch.ops.flash import check_head_dim
@@ -70,8 +75,9 @@ class DiLoCoRun:
     after the round, committed)``), the wall seconds of each committed
     round (keyed by the manager step after it), the manager step after each
     round in which it applied a healed state, its committed rounds whose
-    wire had a peer, every inner step's loss, its final metrics, and the
-    fragment ops its comm context recorded (``FaultyCommContext``)."""
+    wire had a peer, every inner step's loss, its final metrics, the
+    fragment ops its comm context recorded (``FaultyCommContext``), and its
+    manager's flight-recorder events."""
 
     passes: int = 0
     captures: int = 0
@@ -83,6 +89,7 @@ class DiLoCoRun:
     metrics: Dict[str, object] = field(default_factory=dict)
     recorded: Dict[int, Tuple[List[np.ndarray], List[np.ndarray]]] = field(
         default_factory=dict)
+    events: List[Dict[str, Any]] = field(default_factory=list)
 
 
 def _clone_tree(x: Any) -> Any:
@@ -122,6 +129,10 @@ def train_group(
     timeout: float = 60.0,
     comm_backend: str = "host",
     comm_options: Optional[Dict[str, Any]] = None,
+    sharded_outer: bool = False,
+    subproc_groups: Sequence[int] = (),
+    on_comm: Optional[Callable[[CommContext], None]] = None,
+    on_fence: Optional[Callable[[Manager, LocalSGD], None]] = None,
 ) -> DiLoCoRun:
     """Train one replica group until ``total_syncs`` rounds are committed
     (or ``stop`` is set), as the JAX package's example does: AdamW(3e-4,
@@ -137,14 +148,24 @@ def train_group(
     fragment op on this group's wire (:class:`FaultyCommContext`, which
     also records ``record_ops``). ``on_start(manager)`` runs once the
     manager exists; ``on_round(step, committed, manager, wrapper, model,
-    loss)`` after every round (``loss``: its last inner step's). ``comm_backend`` / ``comm_options``: the Manager's
-    data plane, "host" (TCP, codec none) or "cuda".
+    loss)`` after every round (``loss``: its last inner step's);
+    ``on_fence(manager, wrapper)`` after the inner step whose round-start
+    fence ran (the quorum resolved, a heal and the sharded reshard applied),
+    when that step does not also end the round. ``comm_backend`` /
+    ``comm_options``: the Manager's data plane, "host" (TCP, codec none) or
+    "cuda". ``sharded_outer``: the outer update sharded by fragment.
+    ``subproc_groups``: when ``replica_group`` is among them, the host wire
+    runs in a killable child process (``SubprocessCommContext``, the same
+    options). ``on_comm(comm)`` sees the data-plane context once it exists.
     """
     if algo not in ("diloco", "local_sgd"):
         raise ValueError(f"algo must be diloco or local_sgd, got {algo!r}")
     if torch.device("cuda" if device is None else device).type == "cuda":
         check_head_dim(f"train_diloco: config with d_model {cfg.d_model} and "
                        f"{cfg.n_heads} heads", cfg.head_dim)
+    if comm_backend != "host" and replica_group in subproc_groups:
+        raise ValueError("subproc_groups runs the host wire in a child; "
+                         f"comm_backend {comm_backend!r} has no such arm")
     device = resolve_device(device)
     options = dict(comm_options or {})
     options.setdefault("timeout", timeout)
@@ -156,12 +177,18 @@ def train_group(
 
         options.setdefault("device_pool", default_device_pool(device))
         comm: CommContext = CudaCommContext(**options)
+    elif comm_backend == "host" and replica_group in subproc_groups:
+        from torchft_tpu_torch.comm.subproc import SubprocessCommContext
+
+        comm = SubprocessCommContext(**options)
     elif comm_backend == "host":
         from torchft_tpu_torch.comm.transport import TcpCommContext
 
         comm = TcpCommContext(**options)
     else:
         raise ValueError(f"unknown comm_backend {comm_backend!r}")
+    if on_comm is not None:
+        on_comm(comm)
     comm = FaultyCommContext(comm, fail_at_op=fail_at_op,
                              record_ops=record_ops)
 
@@ -217,13 +244,17 @@ def train_group(
         wrapper: LocalSGD = DiLoCo(
             manager, sgd(0.7, momentum=0.9, nesterov=True),
             sync_every=sync_every, params_fn=lambda: model,
-            num_fragments=num_fragments, streaming=streaming)
+            num_fragments=num_fragments, streaming=streaming,
+            sharded_outer=sharded_outer)
     else:
         wrapper = LocalSGD(manager, sync_every=sync_every,
                            params_fn=lambda: model,
-                           num_fragments=num_fragments, streaming=streaming)
+                           num_fragments=num_fragments, streaming=streaming,
+                           sharded_outer=sharded_outer)
     wrapper.register(model)  # the host arenas (pinned on CUDA)
     wrapper_ref["w"] = wrapper
+    # a sync-quorum manager fences at the first fragment's boundary
+    fence_step = fragment_boundaries(sync_every, wrapper.num_fragments)[0]
     train_step = make_train_step(model, optimizer)
     run = DiLoCoRun(recorded=comm.recorded)
     pending: List[torch.Tensor] = []  # this round's losses, on the device
@@ -258,6 +289,8 @@ def train_group(
             run.passes += 1
             step_before = manager.current_step()
             wrapper.step()
+            if on_fence is not None and wrapper.local_step == fence_step:
+                on_fence(manager, wrapper)
             if wrapper.local_step != 0:
                 continue
             # a round just ended: one read of its losses
@@ -280,6 +313,8 @@ def train_group(
         run.passes += train_step.warmup_passes
         run.captures = train_step.captures
         run.metrics = manager.metrics.snapshot()
+        if manager.events:
+            run.events = manager.events.since(0)[0]
         manager.shutdown(wait=False)
         store.shutdown()
     return run
@@ -292,6 +327,19 @@ def _require(ok: bool, what: str) -> None:
 
 def _host_copy(model: GPT) -> List[torch.Tensor]:
     return [p.detach().to("cpu", copy=True) for p in model.parameters()]
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def _held(outer: Any) -> List[int]:
+    """The fragments whose outer state a (sharded) DiLoCo holds."""
+    return [f for f, state in enumerate(outer or ()) if state is not None]
 
 
 def run_diloco_drill(
@@ -312,6 +360,10 @@ def run_diloco_drill(
     log: Callable[[str], None] = logger.info,
     comm_backend: str = "host",
     comm_options: Optional[Dict[str, Any]] = None,
+    sharded_outer: bool = False,
+    subproc_groups: Sequence[int] = (),
+    wedge: Optional[Tuple[int, int]] = None,
+    keep_params: Sequence[int] = (),
 ) -> Dict[str, object]:
     """``groups`` replica groups as threads under an in-process lighthouse
     (no lease; every quorum waits for every live group), ``rounds``
@@ -319,26 +371,53 @@ def run_diloco_drill(
 
     - ``kill=(g, syncs, inner_step)``: group ``g`` is killed at inner step
       ``inner_step`` of round ``syncs + 1``; the others' round goes on
-      without it once the lighthouse counts it dead (they commit it alone);
-      ``g`` restarts from a poisoned init (another seed) once they have
-      committed that round, and heals from a peer at the quorum of its
-      first round; then every group commits the remaining rounds together.
+      without it once the lighthouse counts it dead (they commit it alone,
+      after an aborted attempt when the kill came after the round's
+      quorum); ``g`` restarts from a poisoned init (another seed) once
+      they have committed that round, and heals from a peer at the quorum
+      of its first round; then every group commits the remaining rounds
+      together.
     - ``fault=(g, op)``: group ``g``'s ``op``-th fragment op fails after
       the collective ran (:class:`FaultyCommContext`): ``g``'s round
       aborts and rolls back, the others commit it, and ``g`` heals at the
       next round's quorum, as the JAX package's Manager rules have it.
+    - ``wedge=(g, syncs)``: group ``g``'s wire child (``g`` in
+      ``subproc_groups``) is SIGSTOPped at the fence of the first round
+      that starts with ``syncs`` rounds committed, with that round's first
+      fragment op in flight: every group's round aborts (the peers' wire
+      times out, then ``g``'s child is given up on), ``g``'s next quorum
+      bumps ``comm_epoch``, and every group reconfigures, which SIGKILLs
+      the stopped child.
 
     Every group but the quorum's first also heals in its first round (the
     step-0 heal that gives every group the same initial state).
+    ``sharded_outer`` and ``subproc_groups`` go to :func:`train_group`.
 
     Raises AssertionError unless: every group that commits a round holds
-    parameters (and, for DiLoCo, outer state) bitwise equal to every other
-    group that commits it; a killed group healed exactly once, in its
-    first round; a faulted group's aborted round left its parameters
-    bitwise equal to its backup; every loss is finite. Returns the runs
-    (``runs[g]``: one per life), the checked rounds, the passes of all
-    runs, and the CPU copies of the recorded fragment ops
-    (``recorded[g]``)."""
+    parameters bitwise equal to every other group that commits it (and, for
+    a replicated DiLoCo, outer states too); a killed group healed exactly
+    once, in its first round; an aborted round left parameters bitwise at
+    the backup and the outer states as its fence left them; a faulted
+    group's aborted round was its only one; every loss is finite. Sharded
+    besides: after every committed round the groups that commit it hold
+    each fragment's outer state exactly once; every ``reshard`` moved
+    exactly its lower bound; a killed group's wire child is gone after the
+    kill; the restarted group's fragments' outer states after its first
+    fence equal, bitwise, those their holders committed before it came
+    back; a wedged child is gone after the reconfigure, with a new one in
+    its place.
+
+    Returns the runs (``runs[g]``: one per life), the checked rounds, the
+    passes of all runs, the CPU copies of the recorded fragment ops
+    (``recorded[g]``), host copies of the parameters committed at the
+    rounds in ``keep_params`` (``params``), the fragments each committing
+    group held after each round (``held``), the wire children's pids at
+    every fence (``pids[(g, life)]``), the killed child (``killed_pid``),
+    the wedge (``wedged``: ``pid``, ``next_pid``) and the grow (``grow``:
+    the restarted group's fragments and their holders)."""
+    if wedge is not None and wedge[0] not in subproc_groups:
+        raise ValueError(f"wedge needs group {wedge[0]}'s wire in a child "
+                         "(subproc_groups)")
     # a quorum waits for every live group (a dead one drops out after the
     # 1 s heartbeat timeout), so no group is left out of a round by
     # arriving late
@@ -356,6 +435,18 @@ def run_diloco_drill(
     runs: Dict[int, List[DiLoCoRun]] = {g: [] for g in range(groups)}
     errors: List[BaseException] = []
     kill_group = kill[0] if kill is not None else None
+    kept: Dict[int, List[torch.Tensor]] = {}
+    held: Dict[int, Dict[int, List[int]]] = {}
+    n_frags: List[int] = []
+    comms: Dict[Tuple[int, int], CommContext] = {}
+    pids: Dict[Tuple[int, int], List[int]] = {}
+    # per group: (step, outer states) at its latest fence; per survivor:
+    # the outer states it committed in the kill's round
+    fenced: Dict[int, Tuple[int, Any]] = {}
+    before_grow: Dict[int, Any] = {}
+    grow: Dict[str, Any] = {}
+    wedged: Dict[str, Any] = {}
+    killed_pid: List[int] = []
 
     # every group's first life has registered (allocated its pinned
     # arenas) before any captures its inner step's CUDA graph
@@ -365,24 +456,75 @@ def run_diloco_drill(
         registered.wait(timeout)
         _wait_lighthouse(addr, "healthy", groups, timeout, stop)
 
+    def on_comm(g: int, life: int):
+        return lambda comm: comms.__setitem__((g, life), comm)
+
+    def on_fence(g: int, life: int):
+        def _hook(manager, wrapper):
+            step = manager.current_step()
+            child_pid = getattr(comms.get((g, life)), "child_pid", None)
+            pid = child_pid() if callable(child_pid) else None
+            if pid is not None:
+                pids.setdefault((g, life), []).append(pid)
+            outer = _clone_tree(getattr(wrapper, "outer_state", None))
+            fenced[g] = (step, outer)
+            if (sharded_outer and kill is not None and g == kill_group
+                    and life == 1 and not grow):
+                holders = {f: h for f in _held(outer)
+                           for h, theirs in before_grow.items()
+                           if f in _held(theirs)}
+                grow.update(
+                    group=g, step=step, fragments=_held(outer),
+                    holders=holders,
+                    equal=all(_tree_equal(outer[f], before_grow[h][f])
+                              for f, h in holders.items())
+                    and len(holders) == len(_held(outer)))
+            if wedge is None or g != wedge[0] or pid is None:
+                return
+            if "pid" in wedged and "next_pid" not in wedged:
+                # the reconfigure after the wedge: a new child
+                wedged.update(next_pid=pid,
+                              old_alive=_pid_alive(wedged["pid"]))
+            elif step == wedge[1] and "pid" not in wedged:
+                os.kill(pid, signal.SIGSTOP)
+                wedged.update(pid=pid, step=step)
+                log(f"group {g}: wire child {pid} SIGSTOPped in round "
+                    f"{step + 1} with its first fragment op in flight")
+        return _hook
+
     def on_round(g: int, life: int):
         def _hook(step, committed, manager, wrapper, model, loss):
             log(f"group {g} life {life} round -> step {step} "
                 f"{'committed' if committed else 'ABORTED'} participants "
                 f"{manager.num_participants()}"
                 + (" (healed)" if manager.did_heal() else ""))
+            outer_now = getattr(wrapper, "outer_state", None)
             if not committed:
-                # an aborted round writes the backup back, bitwise
+                # an aborted round writes the backup back, bitwise, and
+                # adopts no outer state
                 back = [b for b in wrapper._backup]
                 _require(all(torch.equal(p.detach().cpu(), b)
                              for p, b in zip(model.parameters(), back)),
                          f"group {g}'s aborted round left parameters "
                          "that differ from its backup")
+                at_fence = fenced.get(g)
+                if at_fence is not None and at_fence[0] == step:
+                    _require(_tree_equal(outer_now, at_fence[1]),
+                             f"group {g}'s aborted round changed its outer "
+                             "states")
                 rollbacks.append(g)
                 return
             params = _host_copy(model)
-            outer = _clone_tree(getattr(wrapper, "outer_state", None))
+            outer = _clone_tree(outer_now)
             with lock:
+                if step in keep_params and step not in kept:
+                    kept[step] = params
+                if sharded_outer:
+                    held.setdefault(step, {})[g] = _held(outer)
+                    n_frags[:] = [wrapper.num_fragments]
+                if (kill is not None and g != kill_group
+                        and step == kill[1] + 1):
+                    before_grow[g] = outer
                 first = firsts.get(step)
                 if first is None:
                     firsts[step] = (g, params, outer)
@@ -395,16 +537,16 @@ def run_diloco_drill(
                                  for a, b in zip(params, want)),
                              f"group {g} and group {g0} committed round "
                              f"{step} with different parameters")
-                    _require(_tree_equal(outer, want_outer),
+                    # sharded, each group holds only its own fragments
+                    _require(sharded_outer or _tree_equal(outer, want_outer),
                              f"group {g} and group {g0} committed round "
                              f"{step} with different outer states")
                     checked[step] = checked.get(step, 1) + 1
-            if (kill is not None and g != kill_group
-                    and step == kill[1] + 1 and not survivor_ahead.is_set()):
+            if kill is not None and g != kill_group and step == kill[1] + 1:
                 # let the killed group restart, and take the next quorum
                 # with it: its first quorum request must be pending before
-                # this group asks (a quorum of the previous round's members
-                # alone would form at once)
+                # any survivor asks (a quorum of the previous round's
+                # members alone would form at once)
                 survivor_ahead.set()
                 _wait_lighthouse(addr, "participants", 1, timeout, stop)
         return _hook
@@ -413,13 +555,14 @@ def run_diloco_drill(
                   batch_size=batch_size, data_seed=seed, timeout=timeout,
                   total_syncs=rounds, stop=stop, algo=algo,
                   sync_every=sync_every, num_fragments=num_fragments,
-                  comm_backend=comm_backend, comm_options=comm_options)
+                  comm_backend=comm_backend, comm_options=comm_options,
+                  sharded_outer=sharded_outer, subproc_groups=subproc_groups)
 
     def group(g: int):
         def _run():
             kwargs = dict(common, replica_group=g, init_seed=seed,
-                          on_start=on_start,
-                          on_round=on_round(g, 0))
+                          on_start=on_start, on_round=on_round(g, 0),
+                          on_fence=on_fence(g, 0), on_comm=on_comm(g, 0))
             if fault is not None and fault[0] == g:
                 kwargs.update(fail_at_op=fault[1])
             kwargs.update(record_ops=record_ops)
@@ -432,12 +575,19 @@ def run_diloco_drill(
             except InjectedFailure as e:
                 runs[g].append(e.run)
                 log(f"injected failure: {e}; restarting from a poisoned init")
+            if pids.get((g, 0)):
+                # the manager's shutdown took the wire child with it
+                killed_pid.append(pids[(g, 0)][-1])
+                _require(not _pid_alive(killed_pid[0]),
+                         f"group {g}'s wire child {killed_pid[0]} outlived "
+                         "the kill")
             if not survivor_ahead.wait(timeout * 4) or stop.is_set():
                 raise TimeoutError("the survivors never committed round "
                                    f"{kill[1] + 1}")
             runs[g].append(train_group(
                 cfg, **dict(kwargs, init_seed=seed + 1000, on_start=None,
-                            on_round=on_round(g, 1), record_ops=())))
+                            on_round=on_round(g, 1), on_fence=on_fence(g, 1),
+                            on_comm=on_comm(g, 1), record_ops=())))
         return _run
 
     def guarded(fn):
@@ -460,15 +610,20 @@ def run_diloco_drill(
             t.join()
     finally:
         lighthouse.shutdown()
+        if wedged.get("pid") is not None and _pid_alive(wedged["pid"]):
+            os.kill(wedged["pid"], signal.SIGKILL)  # never leave it stopped
     if errors:
         raise errors[0]
 
+    donor = None
     if kill is not None:
         restarted = runs[kill_group][1]
         _require(len(restarted.healed_at) == 1
                  and restarted.rounds[0] == (restarted.healed_at[0], True),
                  f"the restarted group healed at {restarted.healed_at} "
                  f"(rounds {restarted.rounds}), not in its first round")
+        donor = next((e.get("src_rank") for e in restarted.events
+                      if e["kind"] == "heal_start"), None)
     if fault is not None:
         _require(rollbacks == [fault[0]],
                  f"aborted rounds {rollbacks}, want one of group {fault[0]}")
@@ -480,11 +635,36 @@ def run_diloco_drill(
                  f"the faulted group's rounds {faulted.rounds}, heals at "
                  f"{faulted.healed_at}: no heal in the round after its "
                  "abort")
+    if sharded_outer:
+        every = list(range(n_frags[0])) if n_frags else []
+        for step, by_group in sorted(held.items()):
+            _require(sorted(f for fs in by_group.values() for f in fs)
+                     == every,
+                     f"round {step}: the committing groups hold fragments "
+                     f"{by_group}, not each of {every} once")
+        for g in runs:
+            for life, r in enumerate(runs[g]):
+                for e in r.events:
+                    _require(e["kind"] != "reshard"
+                             or e["wire_bytes"] == e["lower_bound_bytes"],
+                             f"group {g} life {life} resharded {e}: moved "
+                             "bytes differ from the lower bound")
+        if kill is not None and len(every) > 1:
+            _require(grow.get("equal", False),
+                     f"the restarted group's fragments after its first "
+                     f"fence {grow} differ from their holders' states")
+    if wedge is not None:
+        _require("next_pid" in wedged and not wedged["old_alive"]
+                 and wedged["next_pid"] != wedged["pid"],
+                 f"the wedged child was not replaced: {wedged}")
     losses = [v for g in runs for r in runs[g] for v in r.losses]
     _require(all(math.isfinite(v) for v in losses), "non-finite loss")
     return {"runs": runs, "checked_rounds": dict(sorted(checked.items())),
             "passes": sum(r.passes for g in runs for r in runs[g]),
-            "recorded": {g: runs[g][0].recorded for g in runs}}
+            "recorded": {g: runs[g][0].recorded for g in runs},
+            "params": kept, "held": dict(sorted(held.items())),
+            "pids": pids, "killed_pid": killed_pid[0] if killed_pid else None,
+            "wedged": wedged, "grow": grow, "donor": donor}
 
 
 def _tree_equal(a: Any, b: Any) -> bool:

@@ -60,8 +60,20 @@ out of inner steps).
 
 ``topology`` ("flat"/"hier", None = the comm context's default) is
 forwarded to every fragment's allreduce: the hierarchical tier carries the
-pseudogradients across domains encoded once per domain. Not ported:
-``sharded_outer=True`` is refused at construction (ROADMAP queue 1 item 9b).
+pseudogradients across domains encoded once per domain.
+
+``sharded_outer=True`` makes the fragments the shard unit of the outer
+update. Fragment ``f`` is owned by wire rank ``f % world`` (the membership
+read at the round's fence): its value reduce-scatters to the owner alone,
+only the owner lands it (and, for DiLoCo, holds its outer state), and a
+committed round allgathers the owners' updated fragments in their native
+dtypes, so every rank commits the bits the replicated arm commits. When
+the owner map changes (a shrink, a grow, a heal: ``wire_generation`` or
+``(world, rank)`` moved), DiLoCo runs one exchange at the fence
+(``checkpointing.redistribute_exchange`` over ``comm/redistribute.py``)
+that moves each arriving fragment's outer state from a live holder; only a
+fragment no live rank holds is reinitialized, counted in the ``reshard``
+event's ``reinit_fragments``.
 """
 
 from __future__ import annotations
@@ -85,6 +97,10 @@ from torchft_tpu_torch.optim import (
     from_optax_state,
 )
 from torchft_tpu_torch.utils.profiling import timed_span
+from torchft_tpu_torch.utils.serialization import (
+    tree_flatten_with_path,
+    tree_unflatten,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -122,10 +138,15 @@ def _outer_executor(kind: str) -> ThreadPoolExecutor:
         return ex
 
 
+_REMOTE = object()  # staged-slot sentinel: the fragment landed on its owner
+
+
 class _SyncRound:
     """One in-flight sync round: the completion group, the per-fragment
     staged landings (adopted only on commit), the wire timestamps the
-    overlap gauges come from, and the wire membership read at the fence."""
+    overlap gauges come from, and the wire membership read at the fence
+    (the sharded outer update's owner map, fragment ``f`` on rank
+    ``f % world``, derives from it)."""
 
     __slots__ = ("group", "staged", "shipped", "fenced", "submit_t",
                  "wire_t", "exposed_s", "wire_bytes", "world", "rank")
@@ -141,6 +162,28 @@ class _SyncRound:
         self.wire_bytes = 0
         self.world = 1
         self.rank = 0
+
+
+def _to_wire(t: torch.Tensor) -> np.ndarray:
+    """A host leaf as a wire array in its own dtype; a dtype numpy lacks
+    (bfloat16, the float8 types) rides as its bits, an integer of its
+    width."""
+    t = t.detach().contiguous()
+    try:
+        return t.numpy()
+    except TypeError:
+        bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[t.element_size()]
+        return t.view(bits).numpy()
+
+
+def _from_wire(a: np.ndarray, dtype: torch.dtype,
+               shape: Tuple[int, ...]) -> torch.Tensor:
+    """Inverse of :func:`_to_wire` (a 0-d array may arrive as shape (1,))."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if t.dtype != dtype:
+        t = t.view(dtype)
+    return t.reshape(shape)
 
 
 def _param_list(params: Any) -> List[torch.Tensor]:
@@ -178,14 +221,13 @@ class LocalSGD:
         "auto" keeps a residual exactly when this rank's contribution
         crosses a lossy codec (``manager.wire_compensable``); True forces
         it; False disables it. ``topology``: the data path of every
-        fragment's allreduce ("flat"/"hier"; None passes no override)."""
-        if sharded_outer:
-            raise ValueError(
-                "sharded_outer=True is not ported: the per-fragment owner "
-                "map and its exchange on heal over comm/redistribute.py "
-                "wait for ROADMAP queue 1 item 9b; use the replicated "
-                "outer update"
-            )
+        fragment's allreduce ("flat"/"hier"; None passes no override).
+
+        ``sharded_outer``: each fragment's value reduce-scatters to its
+        owner (wire rank ``f % world``), only the owner lands it, and a
+        committed round allgathers the owners' updated fragments (module
+        docstring). It changes the collective sequence, so it must match
+        across replica groups."""
         # passed only when set, so managers without the keyword work
         self._ar_kwargs = {} if topology is None else {"topology": topology}
         if sync_every < 1:
@@ -211,6 +253,11 @@ class LocalSGD:
         self._num_fragments = int(num_fragments)
         self._streaming = bool(streaming)
         self._error_feedback = error_feedback
+        self._sharded_outer = bool(sharded_outer)
+        # the owner map of the last outer reshard, and the transport
+        # incarnation it ran under: the cohort-synchronized trigger
+        self._outer_world: Optional[Tuple[int, int]] = None
+        self._outer_gen: Optional[int] = None
         self._local_step = 0
         self._healed_backup = False
         # the live parameters, and the layout frozen at register: the grid
@@ -477,6 +524,93 @@ class LocalSGD:
             rank_fn = getattr(mgr, "transport_rank", None)
             rnd.world = max(1, int(world_fn()) if callable(world_fn) else 1)
             rnd.rank = int(rank_fn()) if callable(rank_fn) else 0
+            if self._sharded_outer:
+                self._on_owner_map(rnd)
+
+    # -- the sharded outer update --------------------------------------------
+
+    def _frag_owner(self, rnd: _SyncRound, f: int) -> int:
+        return f % rnd.world
+
+    def _frag_owned(self, rnd: _SyncRound, f: int) -> bool:
+        return (not self._sharded_outer or rnd.world == 1
+                or self._frag_owner(rnd, f) == rnd.rank)
+
+    def _on_owner_map(self, rnd: _SyncRound) -> None:
+        """Called at every fence of a sharded round, once the wire
+        membership is known: DiLoCo moves its per-fragment outer states
+        onto the new owner map. LocalSGD holds no outer state."""
+
+    def _exchange_fragments(self, rnd: _SyncRound,
+                            contrib: Dict[int, List[np.ndarray]]
+                            ) -> Dict[int, List[np.ndarray]]:
+        """The commit's allgather of updated fragments: each rank
+        contributes its owned fragments' leaves (native dtypes, raw bytes)
+        and receives every other owner's. Returns the wire arrays of EVERY
+        fragment. It runs only on a committed round, a decision every rank
+        shares, so the collective is matched; a failure here means this
+        rank cannot build a round the cohort committed, so it raises and
+        the group restarts and heals."""
+        flat: List[np.ndarray] = []
+        for f in sorted(contrib):
+            flat.extend(contrib[f])
+        mgr = self._manager
+        gathered = mgr.allgather_arrays(flat).future().result()
+        errored = getattr(mgr, "errored", None)
+        if callable(errored) and errored() is not None:
+            raise RuntimeError(
+                "sharded outer round committed but the fragment allgather "
+                f"failed ({errored()}): restart and heal")
+        out: Dict[int, List[np.ndarray]] = {}
+        for owner in range(rnd.world):
+            arrays = gathered[owner] if owner < len(gathered) else []
+            cursor = 0
+            for f in range(len(self._fragments)):
+                if self._frag_owner(rnd, f) != owner:
+                    continue
+                start, stop = self._fragments[f]
+                got = arrays[cursor:cursor + stop - start]
+                cursor += stop - start
+                if len(got) != stop - start:
+                    raise RuntimeError(
+                        f"sharded outer commit: owner {owner} shipped "
+                        f"{len(got)} of {stop - start} leaves of fragment "
+                        f"{f}: restart and heal")
+                out[f] = [np.asarray(a) for a in got]
+        return out
+
+    def _frag_native_leaves(self, f: int,
+                            flat: np.ndarray) -> List[torch.Tensor]:
+        """Fragment ``f``'s averaged f32 values as leaves in their native
+        dtypes, converted as the replicated commit's ``copy_`` converts
+        them (integers rounded, not truncated: exact below 2**24)."""
+        start, stop = self._fragments[f]
+        src = torch.from_numpy(flat)
+        out: List[torch.Tensor] = []
+        off = 0
+        for i in range(start, stop):
+            n = self._sizes[i]
+            view = src[off:off + n].view(self._shapes[i])
+            if not self._dtypes[i].is_floating_point:
+                view = torch.round(view)
+            out.append(view.to(self._dtypes[i]))
+            off += n
+        return out
+
+    def _adopt_gathered(self, rnd: _SyncRound,
+                        contrib: Dict[int, List[torch.Tensor]]) -> None:
+        """Allgather the owned fragments' new leaves, write every
+        fragment's into the backup arena and from there into the live
+        parameters, in place."""
+        gathered = self._exchange_fragments(
+            rnd, {f: [_to_wire(t) for t in leaves]
+                  for f, leaves in contrib.items()})
+        with torch.no_grad():
+            for f, (start, stop) in enumerate(self._fragments):
+                for a, i in zip(gathered[f], range(start, stop)):
+                    self._backup[i].copy_(_from_wire(
+                        a, self._dtypes[i], self._shapes[i]))
+        self._push_backup()
 
     # -- fragment pipeline ---------------------------------------------------
 
@@ -582,14 +716,26 @@ class LocalSGD:
         if callable(nbytes_fn):
             rnd.wire_bytes += int(nbytes_fn(arena))
         rnd.submit_t[f] = time.perf_counter()
-        work = mgr.allreduce_arrays([arena], **self._ar_kwargs)
+        owned = self._frag_owned(rnd, f)
+        if self._sharded_outer and rnd.world > 1:
+            # the fragment is the shard unit: its average reaches its owner
+            # alone (the bytes the allreduce would give there); the others
+            # skip the landing and receive the owner's update at commit
+            work = mgr.reduce_scatter_arrays(
+                [arena], owners=[self._frag_owner(rnd, f)])
+        else:
+            work = mgr.allreduce_arrays([arena], **self._ar_kwargs)
         landed: Future = Future()
         landed.set_running_or_notify_cancel()
         rnd.group.add(landed)
 
-        def _land(wf: Future, f: int = f) -> None:
+        def _land(wf: Future, f: int = f, owned: bool = owned) -> None:
             try:
-                self._land_fragment(rnd, f, wf.result()[0])
+                reduced = wf.result()[0]
+                if owned:
+                    self._land_fragment(rnd, f, reduced)
+                else:
+                    rnd.staged[f] = _REMOTE
                 landed.set_result(None)
             except Exception as e:  # noqa: BLE001 — fails the group, and
                 landed.set_exception(e)  # the round aborts at its commit
@@ -684,7 +830,14 @@ class LocalSGD:
 
     def _commit_round(self, rnd: _SyncRound) -> None:
         """Adopt every fragment's staged average into the backup arena (in
-        place) and from there into the live parameters."""
+        place) and from there into the live parameters. Sharded: the owned
+        fragments' averages ride the commit allgather."""
+        if self._sharded_outer and rnd.world > 1:
+            self._adopt_gathered(rnd, {
+                f: self._frag_native_leaves(f, rnd.staged[f])
+                for f in range(len(self._fragments))
+                if rnd.staged[f] is not _REMOTE})
+            return
         with torch.no_grad():
             for f, (start, stop) in enumerate(self._fragments):
                 flat = torch.from_numpy(rnd.staged[f])
@@ -722,7 +875,12 @@ class DiLoCo(LocalSGD):
             error_feedback=error_feedback, sharded_outer=sharded_outer,
             topology=topology,
         )
+        from torchft_tpu_torch.comm.redistribute import RedistPlanner
+
         self._outer = PartitionedOuterOptimizer(outer_tx)
+        # the sharded reshard's plans, cached per (holdings, owner map)
+        # pair: a kill -> reform oscillation plans nothing new
+        self._redist_planner = RedistPlanner()
 
     def register(self, params: Any) -> Any:
         params = super().register(params)
@@ -733,7 +891,8 @@ class DiLoCo(LocalSGD):
 
     @property
     def outer_state(self) -> Any:
-        """Per-fragment outer states (a list, one per fragment)."""
+        """Per-fragment outer states (a list, one per fragment; sharded,
+        None for a fragment this rank does not own)."""
         return self._outer.states
 
     def load_outer_state(self, state: Any) -> None:
@@ -782,7 +941,121 @@ class DiLoCo(LocalSGD):
                 f, grads, self._backup[start:stop]
             )
 
+    def _adopt_fragment_state(self, f: int,
+                              arrays: List[np.ndarray]) -> Dict[str, Any]:
+        """A fetched fragment outer state rebuilt from its wire arrays: the
+        structure from a fresh ``init_fragment`` over this rank's backup
+        leaves (a state is a function of the leaves' shapes), the values
+        the donor's bytes, bitwise."""
+        start, stop = self._fragments[f]
+        template = self._outer.init_fragment(self._backup[start:stop])
+        flat, spec = tree_flatten_with_path(template)
+        if len(arrays) != len(flat):
+            raise ValueError(
+                f"fragment {f}: the holder shipped {len(arrays)} outer-state "
+                f"arrays, the transformation expects {len(flat)}: outer "
+                "optimizer configs diverged across replica groups")
+        leaves = []
+        for (_, t), a in zip(flat, arrays):
+            x = torch.from_numpy(np.array(a, copy=True))
+            if x.dtype != t.dtype:
+                raise ValueError(
+                    f"fragment {f}: outer-state array of {x.dtype}, the "
+                    f"transformation holds {t.dtype}")
+            leaves.append(x.reshape(t.shape))
+        return tree_unflatten(spec, leaves)
+
+    def _on_owner_map(self, rnd: _SyncRound) -> None:
+        """The sharded reshard, exchange on heal: when the owner map moved
+        (``(world, rank)`` or ``wire_generation()`` changed; a heal counts,
+        since a donor ships only its own fragments), the cohort runs one
+        redistribution exchange (``comm/redistribute.py`` over the raw-bytes
+        heal plane): holdings allgathered, a cached plan, and each ARRIVING
+        fragment's outer state fetched from a live holder. Only a fragment
+        no live rank holds is reinitialized (``reinit_fragments`` in the
+        ``reshard`` event). The trigger is cohort-synchronized, so the
+        exchange's collectives stay matched. A failed exchange keeps the
+        old states and does not advance the marker: the round aborts at its
+        barrier and the next fence retries."""
+        gen_fn = getattr(self._manager, "wire_generation", None)
+        gen = int(gen_fn()) if callable(gen_fn) else 0
+        key = (rnd.world, rnd.rank)
+        states = self._outer.states
+        if states is None or (key == self._outer_world
+                              and gen == self._outer_gen):
+            self._outer_world, self._outer_gen = key, gen
+            return
+        n_frags = len(self._fragments)
+        owned = {f for f in range(n_frags) if self._frag_owned(rnd, f)}
+        held = [f for f in range(n_frags) if states[f] is not None]
+        fetched: Dict[int, List[np.ndarray]] = {}
+        wire_bytes = lower_bound = 0
+        metrics = self._metrics()
+        t0 = time.perf_counter()
+        if rnd.world > 1:
+            from torchft_tpu_torch.checkpointing import redistribute_exchange
+            from torchft_tpu_torch.comm.redistribute import ShardSpec
+
+            holdings = {f: [t for _, t in tree_flatten_with_path(states[f])[0]]
+                        for f in held}
+            dst = ShardSpec.from_owner_map(
+                n_frags, rnd.world, lambda f: self._frag_owner(rnd, f))
+            result = redistribute_exchange(
+                self._manager, rnd.rank, rnd.world, dst, holdings,
+                self._redist_planner, source="outer_sync")
+            if result is None:
+                return
+            fetched = result.fetched
+            wire_bytes = result.moved_bytes
+            lower_bound = result.lower_bound_bytes
+        reinit = dropped = adopted = 0
+        new_states: List[Any] = [None] * n_frags
+        for f in range(n_frags):
+            if f in owned:
+                if states[f] is not None:
+                    new_states[f] = states[f]
+                elif f in fetched:
+                    new_states[f] = self._adopt_fragment_state(f, fetched[f])
+                    adopted += 1
+                else:
+                    start, stop = self._fragments[f]
+                    new_states[f] = self._outer.init_fragment(
+                        self._backup[start:stop])
+                    reinit += 1
+            elif states[f] is not None:
+                dropped += 1
+        if reinit:
+            logger.warning(
+                "sharded_outer reshard reinitialized %d fragment outer "
+                "states (no live holder): their outer momentum restarts",
+                reinit)
+        self._outer.load_states(new_states)
+        old = self._outer_world
+        self._outer_world, self._outer_gen = key, gen
+        if metrics is not None:
+            metrics.observe("reshard", time.perf_counter() - t0)
+        ev = getattr(self._manager, "events", None)
+        if ev:
+            ev.emit("reshard", source="outer_sync",
+                    old_world=None if old is None else old[0],
+                    new_world=rnd.world, rank=rnd.rank,
+                    owned_fragments=len(owned), adopted_fragments=adopted,
+                    wire_bytes=wire_bytes, lower_bound_bytes=lower_bound,
+                    reinit_fragments=reinit, dropped_fragments=dropped)
+
     def _commit_round(self, rnd: _SyncRound) -> None:
+        if self._sharded_outer and rnd.world > 1:
+            # the owner adopts each owned fragment's outer state here, at
+            # commit, so an aborted round leaves every owned state as it was
+            contrib: Dict[int, List[torch.Tensor]] = {}
+            for f in range(len(self._fragments)):
+                if rnd.staged[f] is _REMOTE:
+                    continue
+                new_params, new_state = rnd.staged[f]
+                self._outer.adopt(f, new_state)
+                contrib[f] = new_params
+            self._adopt_gathered(rnd, contrib)
+            return
         with torch.no_grad():
             for f, (start, stop) in enumerate(self._fragments):
                 new_params, new_state = rnd.staged[f]
