@@ -231,6 +231,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``diloco_sharded_host_bytes``) and the device's
    (``diloco_sharded_device_bytes``).
 
+15. train_llama_ring (it runs after gpt_1b): the reference's
+   ``examples/train_llama_ring.py`` at "llama_120m" (125,848,320
+   parameters; 12 layers, d_model 768, 12 query heads of 64 over 4 K/V
+   heads, d_ff 2048, vocab 32768, activation checkpointing on), full width
+   and depth, ``max_seq_len`` 4,096, the loss over 8 vocab chunks, batch
+   2, its attention the causal flash-block ring (``parallel/ring.py``)
+   over a ``seq`` axis of 4 virtual shards on the card, so each (q, kv)
+   pair is (2, 1024, 12, 64). First the three flash kernels
+   at that shape against their plain versions, causal and full, and each
+   timed per call in each mode. Then one forward/backward of one model
+   and batch through the flash ring, the einsum ring and the unsharded
+   model (``causal_attention``): each ring's loss within ``LOSS_TOL`` and
+   a sample of gradients (``llama_grad_sample``) within ``GRAD_REL_NORM``
+   of the unsharded one's. At random init any attention gives a loss near
+   ln(32768), so the loss is a sanity check and the gradient sample (the
+   first layer's q and k projections among it) the check of the ring.
+   Then a second pass of each, one thread alone on the card, timed, and
+   one more of the flash ring and of the unsharded model under
+   ``torch.profiler`` (``profile_pass``): the device's busy ms (its
+   kernels and copies) beside the pass's wall, and the host ops that
+   take the most time.
+   Then ``run_llama_ring_drill``, with the launch counts set to 0 just
+   before it: two groups over TCP at codec none, AdamW (3e-4) in optax's
+   order; group 1 fails after step 3, group 0 commits 4 alone, group 1
+   restarts from a poisoned init and heals at 5, both commit 5-7. Both
+   groups' parameters and AdamW state must be bitwise equal at every step
+   both commit, the losses finite, each flash kernel launched exactly as
+   the ring schedule says (per layer per pass n(n+1)/2 = 10 pairs at n =
+   4, 4 causal and 6 full; each backward kernel once a pair, the forward
+   twice under remat) and no codec kernel. It prints the step p50s
+   (``quorum``, ``forward_backward``, ``ddp_wire``), committed tokens/s,
+   the heal's wall and rate, the launches per pass and their summed
+   device time beside ``forward_backward``, the device memory peak and
+   the phase's seconds. It first checks the host's memory
+   (``llama_ring_host_bytes``) and the device's
+   (``llama_ring_device_bytes``). The shards share the card, so no
+   transfer overlaps compute: the ring's schedule, launches and numerics
+   are measured, its link is not.
+
 It prints a ``kernels`` JSON line before the last line and ends with
 ``{"ok": true, "device": {...}}``. It needs one card and no network.
 """
@@ -1270,6 +1309,373 @@ def phase_gpt_1b(seed: int):
         raise AssertionError(f"1b with the kernels against the reference: "
                              f"{failed}")
     return counts, cfg.n_layers
+
+
+# train_llama_ring: the Llama family on the sequence axis, its attention a
+# causal flash-block ring over virtual shards of the card
+LLAMA_RING_SHARDS = 4   # the seq axis: 4 shards of the one card
+LLAMA_RING_SEQ = 4096   # tokens a sequence, 1,024 a shard
+LLAMA_RING_BATCH = 2
+LLAMA_RING_SCHEDULE = dict(kill_step=3, steps_alone=1, steps_after=2)
+LLAMA_RING_PHASES = ("quorum", "forward_backward", "ddp_wire")
+
+
+def llama_grad_sample(layers: int) -> tuple:
+    """The gradients the parity pass compares: the embedding, the first
+    layer's q and (GQA) k projections, a middle layer's gate, the last
+    layer's output projection and the lm head."""
+    return ("tok_embed.embedding", "layers.0.attn.q_proj.kernel",
+            "layers.0.attn.k_proj.kernel",
+            f"layers.{layers // 2}.mlp.gate_proj.kernel",
+            f"layers.{layers - 1}.attn.o_proj.kernel", "lm_head.kernel")
+
+
+def llama_ring_config():
+    """"llama_120m" at full width and depth, ``max_seq_len`` 4,096 (the
+    example's ``SEQ_LEN``), the loss over 8 vocab chunks."""
+    import dataclasses
+
+    from torchft_tpu_torch.models import LLAMA_CONFIGS
+
+    return dataclasses.replace(LLAMA_CONFIGS["llama_120m"],
+                               max_seq_len=LLAMA_RING_SEQ, xent_chunks=8)
+
+
+def llama_ring_launches(passes: int, layers: int,
+                        shards: int = LLAMA_RING_SHARDS,
+                        remat: bool = True) -> dict:
+    """Each flash kernel's launches in ``passes`` forward/backward passes
+    of a model of ``layers`` causal ring attentions over ``shards``
+    (``parallel.ring.ring_launches``, the schedule the ring runs)."""
+    from torchft_tpu_torch.parallel import ring_launches
+
+    return {n: passes * layers * c
+            for n, c in ring_launches(shards, True, remat).items()}
+
+
+def llama_activation_bytes(cfg, batch: int, ring: str = "flash",
+                           shards: int = LLAMA_RING_SHARDS) -> int:
+    """A reckoning of one forward/backward's live activations with
+    activation checkpointing: every layer's bf16 input kept, one layer
+    recomputed at a time (about 18 f32 tensors of tokens x its widest
+    row, the flash ring's f32 accumulators among them), the chunked loss's
+    logits with their gradient (one chunk, f32), and, for the einsum ring,
+    the recomputed layer's saved scores (about 6 f32 [B, H, S/n, S/n] a
+    pair, n^2 pairs)."""
+    n = batch * cfg.max_seq_len
+    keep = 2 * n * cfg.d_model * cfg.n_layers
+    block = 4 * 18 * n * max(cfg.d_model, cfg.d_ff)
+    logits = 2 * 4 * n * cfg.vocab_size // max(1, cfg.xent_chunks)
+    s_local = cfg.max_seq_len // shards
+    scores = 6 * 4 * batch * cfg.n_heads * s_local * s_local * shards ** 2
+    return keep + block + logits + (scores if ring == "einsum" else 0)
+
+
+def llama_ring_device_bytes(n_params: int, cfg, batch: int,
+                            groups: int = 2) -> int:
+    """Device memory train_llama_ring may hold at once, the larger of its
+    two parts: the parity pass (one model's parameters and gradients, the
+    einsum ring's activations) and the drill (per group its f32
+    parameters, gradients and two AdamW moments, 16 bytes a parameter,
+    the optimizer stepping them in place; the drill's kept copies of
+    parameters and moments for two steps in flight, 24; every group's
+    flash-ring activations)."""
+    parity = 8 * n_params + llama_activation_bytes(cfg, batch, "einsum")
+    drill = ((16 * groups + 24) * n_params
+             + groups * llama_activation_bytes(cfg, batch, "flash"))
+    return max(parity, drill)
+
+
+def llama_ring_host_bytes(n_params: int, groups: int = 2) -> int:
+    """Host memory train_llama_ring may hold at once, in f32 copies of the
+    parameters: per group DDP's two staging arenas and the wire's buffers
+    (4); the heal's staged state on both ends (parameters and AdamW's
+    moments, 6)."""
+    return (groups * 4 + 6) * 4 * n_params
+
+
+def ring_pass_ms(times: dict, layers: int, shards: int = LLAMA_RING_SHARDS,
+                 remat: bool = True) -> dict:
+    """Device ms of the flash kernels in one forward/backward pass of the
+    causal ring model, from each kernel's ms per call by mode (``times[
+    (kernel, "causal" | "full")]``) and the ring's schedule; the forward
+    counted twice under remat. Returns ms per kernel and ``total``."""
+    from torchft_tpu_torch.parallel import ring_schedule
+
+    out = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for *_, kind in ring_schedule(shards, True):
+        if kind == "skip":
+            continue
+        out["flash_fwd"] += (2 if remat else 1) * times[("flash_fwd", kind)]
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            out[name] += times[(name, kind)]
+    out = {n: ms * layers for n, ms in out.items()}
+    out["total"] = sum(out.values())
+    return out
+
+
+def llama_ring_pair_times(seed: int, cfg, batch: int = LLAMA_RING_BATCH,
+                          shards: int = LLAMA_RING_SHARDS):
+    """The three flash kernels at the ring's pair shape (B, S/n, H, D)
+    against their plain versions, causal and full (``check_flash``), then
+    each kernel's device ms per call in each mode, called as the ring
+    calls it (the backward with external lse and Delta). Returns
+    ``{(kernel, mode): ms}``; raises if a kernel disagrees."""
+    from torchft_tpu_torch.ops import flash
+
+    shape = (batch, cfg.max_seq_len // shards, cfg.n_heads, cfg.head_dim)
+    log(f"  flash kernels at the ring's pair shape {shape}")
+    q, k, v, do = flash_inputs(seed, shape)
+    check_flash(q, k, v, do)
+    scale = 1.0 / cfg.head_dim ** 0.5
+    times = {}
+    for causal, kind in ((True, "causal"), (False, "full")):
+        out, lse = flash.flash_fwd(q, k, v, causal, scale)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()
+        calls = {
+            "flash_fwd": lambda: flash.flash_fwd(q, k, v, causal, scale),
+            "flash_bwd_dq": lambda: flash.flash_bwd_dq(
+                q, k, v, do, lse, delta, causal, scale),
+            "flash_bwd_dkv": lambda: flash.flash_bwd_dkv(
+                q, k, v, do, lse, delta, causal, scale),
+        }
+        for name, call in calls.items():
+            times[(name, kind)] = cuda_ms(call)
+        log(f"  {kind:6s} pair: " + ", ".join(
+            f"{n} {times[(n, kind)]:.4f} ms" for n in calls))
+    return times
+
+
+def profile_pass(run, sync, top: int = 6) -> dict:
+    """One call of ``run`` under ``torch.profiler`` (host ops, and the
+    card's when there is one): its wall ms, the device's busy ms (the
+    summed time of every kernel, copy and fill it ran, all on one stream)
+    and their count, the aten ops the host dispatched, and the ``top``
+    host ops by self time as (name, calls, ms). The busy ms is None where
+    the trace holds no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    sync()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    device = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in device)
+    host = sorted((e for e in avgs if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
+    return {"wall_ms": wall,
+            "device_busy_ms": busy / 1e3 if busy else None,
+            "device_ops": sum(e.count for e in device),
+            "host_ops": sum(e.count for e in avgs
+                            if e.key.startswith("aten::")),
+            "host_top": [(e.key, e.count, e.self_cpu_time_total / 1e3)
+                         for e in host]}
+
+
+def llama_ring_parity(cfg, seed: int, card: str,
+                      batch: int = LLAMA_RING_BATCH,
+                      device: str = "cuda") -> None:
+    """One forward/backward of the same parameters and batch through (a)
+    the flash ring over ``LLAMA_RING_SHARDS`` virtual shards of the card,
+    (b) the einsum ring over them and (c) the unsharded model
+    (``causal_attention``, one shard): the loss of (a) and of (b) within
+    ``LOSS_TOL`` of (c)'s and ``llama_grad_sample`` within
+    ``GRAD_REL_NORM``; raises on a miss. At random init every attention,
+    a wrong one too, gives a loss near ln(vocab): the gradient sample,
+    the first layer's q and k projections among it, is what checks the
+    ring. Then, one thread alone on the card, a second pass of each arm
+    timed and one more of (a) and (c) under ``profile_pass``, printed:
+    where a pass goes without another group on the card."""
+    import torch
+
+    from torchft_tpu_torch.examples.train_llama_ring import make_seq_ring
+    from torchft_tpu_torch.models import Llama
+
+    dev = torch.device(device)
+    model = Llama(cfg, device=dev, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len),
+                        generator=gen, device=dev)
+    tgt = torch.roll(tok, -1, dims=1)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    arms = {
+        "flash ring": make_seq_ring(cfg, dev, LLAMA_RING_SHARDS, "flash"),
+        "einsum ring": make_seq_ring(cfg, dev, LLAMA_RING_SHARDS, "einsum"),
+        "unsharded": None,
+    }
+    named = dict(model.named_parameters())
+    sample = llama_grad_sample(cfg.n_layers)
+
+    def run(fn):
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(tok, tgt, attn_fn=fn)
+        loss.backward()
+        return loss
+
+    out, steady = {}, {}
+    for arm, fn in arms.items():
+        sync()
+        t0 = time.perf_counter()
+        loss = run(fn)
+        sync()
+        out[arm] = (loss.item(), time.perf_counter() - t0,
+                    {n: named[n].grad.detach().clone() for n in sample})
+    for arm, fn in arms.items():  # steady state: every arm warm
+        sync()
+        t0 = time.perf_counter()
+        run(fn)
+        sync()
+        steady[arm] = (time.perf_counter() - t0) * 1e3
+    ref_loss, _, ref_grads = out["unsharded"]
+    failed = []
+    for arm in ("flash ring", "einsum ring"):
+        loss, secs, grads = out[arm]
+        ok = abs(loss - ref_loss) <= LOSS_TOL
+        log(f"  {arm}: loss {loss:.6f} against unsharded {ref_loss:.6f} "
+            f"(|diff| {abs(loss - ref_loss):.3e}, tolerance {LOSS_TOL}) "
+            f"{'ok' if ok else 'FAIL'}; forward/backward {secs:.2f} s "
+            f"first, {steady[arm]:.1f} ms warm ({card})")
+        if not ok:
+            failed.append(f"{arm} loss {loss} against {ref_loss}")
+        for n in sample:
+            g, r = grads[n].double(), ref_grads[n].double()
+            rel = float((g - r).norm() / r.norm().clamp_min(1e-30))
+            ok = bool(torch.isfinite(g).all()) and rel <= GRAD_REL_NORM
+            log(f"    grad {n:30s} relative norm of the difference "
+                f"{rel:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"{arm} grad {n}: {rel}")
+    log(f"  unsharded: forward/backward {out['unsharded'][1]:.2f} s first, "
+        f"{steady['unsharded']:.1f} ms warm ({card})")
+    for arm in ("flash ring", "unsharded"):
+        prof = profile_pass(lambda: run(arms[arm]), sync)
+        busy = prof["device_busy_ms"]
+        log(f"  profiled {arm} pass, one thread: wall "
+            f"{prof['wall_ms']:.1f} ms, device busy "
+            + (f"{busy:.1f} ms ({busy / prof['wall_ms']:.1%} of the wall) "
+               f"in {prof['device_ops']} kernels and copies"
+               if busy is not None else "not measured (no device event)")
+            + f" ({card}); {prof['host_ops']} aten ops, the top by self ms: "
+            + ", ".join(f"{k} {c}x {ms:.1f}" for k, c, ms in prof["host_top"]))
+    del model, named, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"ring against unsharded attention: {failed}")
+
+
+def llama_ring_report(result: dict, cfg, batch: int, per_pass: dict,
+                      pass_ms: dict, card: str) -> list:
+    """The lines train_llama_ring prints about a ``run_llama_ring_drill``
+    result: the bitwise heal, per group the step phases' p50s and
+    committed step times, committed tokens/s after the heal, the heal's
+    wall and rate, and the ring's launches and their summed device time
+    per pass beside ``forward_backward``."""
+    runs, heal = result["runs"], result["heal_step"]
+    lines = [f"both groups bitwise equal (parameters and AdamW state) at "
+             f"every step both committed {result['checked_steps']}; group 1 "
+             f"healed at step {heal}; groups per step {result['compared']}"]
+    for g, run in sorted(runs.items()):
+        times = ", ".join(f"{s}: {t:.2f}"
+                          for s, t in sorted(run.step_seconds.items()))
+        lines.append(f"group {g}: step p50 ms "
+                     f"{_p50s(run.metrics, LLAMA_RING_PHASES)}; committed "
+                     f"steps (s) {{{times}}} ({card})")
+    after = [s for s in result["checked_steps"] if s > heal]
+    tokens = 2 * batch * cfg.max_seq_len
+    rates = [tokens / max(runs[0].step_seconds[s], runs[1].step_seconds[s])
+             for s in after]
+    lines.append(f"committed tokens/s, two groups sharing the card, steps "
+                 f"{after}: {[round(r) for r in rates]} ({card})")
+    h = result["heal"]
+    lines.append(f"heal: heal_wall_ms {h['heal_wall_ms']:.1f}, "
+                 f"heal_bytes_per_s {h['heal_bytes_per_s'] / 1e9:.3f} GB/s "
+                 f"({card})")
+    fb = [run.metrics.get("forward_backward_p50_ms")
+          for _, run in sorted(runs.items())]
+    lines.append(f"ring launches per forward/backward pass: {per_pass} "
+                 f"({cfg.n_layers} layers x the schedule of "
+                 f"{LLAMA_RING_SHARDS} shards), x 2 per joint step; their "
+                 f"device time per pass {pass_ms['total']:.2f} ms ("
+                 + ", ".join(f"{n} {ms:.2f}" for n, ms in pass_ms.items()
+                             if n != "total")
+                 + f") beside forward_backward p50 {fb} ms ({card})")
+    lines.append(f"drill {result['seconds']:.1f} s, {result['passes']} "
+                 f"forward/backward passes ({card})")
+    return lines
+
+
+def phase_train_llama_ring(seed: int, card: str,
+                           batch: int = LLAMA_RING_BATCH):
+    """The llama ring phase (module docstring, phase 15): the kernels at
+    the pair shape, the parity pass, then the drill with the launch
+    counts set to 0 just before it. Returns (the drill's launches, the
+    launches the ring schedule says, the head_dim)."""
+    import torch
+
+    from torchft_tpu_torch.examples.train_llama_ring import (
+        run_llama_ring_drill,
+    )
+    from torchft_tpu_torch.models import Llama, count_params
+    from torchft_tpu_torch.ops import flash, quant
+    from torchft_tpu_torch.parallel import ring_launches
+
+    t0 = time.perf_counter()
+    cfg = llama_ring_config()
+    n_params = count_params(Llama(cfg, device="meta"))
+    need_host = llama_ring_host_bytes(n_params)
+    free_host = check_host_memory(need_host, what="train_llama_ring")
+    need = llama_ring_device_bytes(n_params, cfg, batch)
+    gc.collect()  # an earlier phase's cycles may hold tensors
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    if free < need:
+        raise AssertionError(f"train_llama_ring needs {need / 1e9:.2f} GB of "
+                             f"device memory free, has {free / 1e9:.2f} GB")
+    log(f"  llama_120m: {n_params} parameters, vocab {cfg.vocab_size} "
+        f"d_model {cfg.d_model} layers {cfg.n_layers} heads {cfg.n_heads} "
+        f"(kv {cfg.n_kv_heads}, head_dim {cfg.head_dim}) d_ff {cfg.d_ff} seq "
+        f"{cfg.max_seq_len} xent_chunks {cfg.xent_chunks} remat {cfg.remat},"
+        f" batch {batch}; seq axis of {LLAMA_RING_SHARDS} virtual shards; "
+        f"device memory: up to "
+        f"{need / 1e9:.2f} GB, {free / 1e9:.1f} GB free; host memory: up to "
+        f"{need_host / 1e9:.2f} GB, {free_host / 1e9:.1f} GB available")
+    times = llama_ring_pair_times(seed, cfg, batch)
+    per_layer = ring_launches(LLAMA_RING_SHARDS, True, cfg.remat)
+    per_pass = {n: c * cfg.n_layers for n, c in per_layer.items()}
+    pass_ms = ring_pass_ms(times, cfg.n_layers, remat=cfg.remat)
+    llama_ring_parity(cfg, seed, card, batch)
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    quant.reset_launch_counts()
+    result = run_llama_ring_drill(
+        cfg, ring_impl="flash", seq_shards=LLAMA_RING_SHARDS,
+        device="cuda", batch_size=batch, seed=seed,
+        timeout=300.0, log=lambda m: log("  " + m), **LLAMA_RING_SCHEDULE)
+    counts = {**flash.LAUNCHES, **quant.LAUNCHES}
+    want = {**llama_ring_launches(result["passes"], cfg.n_layers,
+                                  remat=cfg.remat),
+            **dict.fromkeys(quant.LAUNCHES, 0)}
+    for line in llama_ring_report(result, cfg, batch, per_pass, pass_ms,
+                                  card):
+        log("  " + line)
+    log(f"  device memory peak: {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB allocated, {torch.cuda.max_memory_reserved() / 1e9:.2f} GB "
+        f"reserved (reckoned {need / 1e9:.2f} GB) ({card})")
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase {time.perf_counter() - t0:.1f} s ({card})")
+    return counts, want, cfg.head_dim
 
 
 # A checkpoint holds the f32 parameters and AdamW's two moments; a group
@@ -2672,8 +3078,9 @@ def _check_launches(counts, want, what: str) -> None:
 
 PHASES = ("kernels", "train", "train_multijob", "train_sharded",
           "train_moe", "train_cuda_int8",
-          "train_tiny", "gpt_1b", "train_diloco", "train_diloco_sharded",
-          "train_localsgd_int8", "train_hier_int8", "train_durable")
+          "train_tiny", "gpt_1b", "train_llama_ring", "train_diloco",
+          "train_diloco_sharded", "train_localsgd_int8", "train_hier_int8",
+          "train_durable")
 
 
 def _add_launches(rows: dict, counts: dict, head_dim: int) -> None:
@@ -2821,6 +3228,15 @@ def main() -> int:
                                  "flash_bwd_dkv": layers},
                         "1b, remat: 2 forward, 1 dQ, 1 dK/dV per layer")
         _add_launches(rows, counts, CONFIGS["1b"].head_dim)
+    if "train_llama_ring" in phases:
+        log("phase train_llama_ring")
+        counts, want, head_dim = phase_train_llama_ring(args.seed, smi)
+        _check_launches(counts, want,
+                        "flash: per layer per pass the causal ring of "
+                        f"{LLAMA_RING_SHARDS} shards, its pairs that run "
+                        "once each backward and twice forward (remat); "
+                        "codec: none")
+        _add_launches(rows, counts, head_dim)
     if "train_diloco" in phases:
         log("phase train_diloco")
         flash.reset_launch_counts()

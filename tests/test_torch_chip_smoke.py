@@ -157,7 +157,7 @@ def test_flash_shapes_reach_every_head_dim() -> None:
             {(w, shape) for w, shape, _ in shapes}
     assert smoke.PHASES == ("kernels", "train", "train_multijob",
                             "train_sharded", "train_moe", "train_cuda_int8",
-                            "train_tiny", "gpt_1b",
+                            "train_tiny", "gpt_1b", "train_llama_ring",
                             "train_diloco", "train_diloco_sharded",
                             "train_localsgd_int8", "train_hier_int8",
                             "train_durable")
@@ -692,3 +692,109 @@ def test_train_moe_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
     assert "heal of group 1 rank 1 at step 5" in text
     assert "bytes served in that heal by group 0's ranks: rank 0" in text
     assert "group 1 rank 1: phase p50 ms" in text
+
+
+def test_llama_ring_memory_and_launches_at_120m() -> None:
+    from torchft_tpu_torch.models import Llama
+
+    smoke = _smoke()
+    cfg = smoke.llama_ring_config()
+    assert (cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+            cfg.d_ff, cfg.vocab_size, cfg.max_seq_len, cfg.xent_chunks,
+            cfg.remat) == (768, 12, 12, 4, 2048, 32768, 4096, 8, True)
+    n = sum(p.numel() for p in Llama(cfg, device="meta").parameters())
+    assert n == 125848320
+    # 8192 tokens: layer inputs, one recomputed layer, one logits chunk
+    flash_act = (2 * 8192 * 768 * 12 + 4 * 18 * 8192 * 2048
+                 + 2 * 4 * 8192 * 32768 // 8)
+    assert smoke.llama_activation_bytes(cfg, 2) == flash_act
+    # the einsum ring keeps a layer's pair scores: 16 pairs of 1024 x 1024
+    assert smoke.llama_activation_bytes(cfg, 2, "einsum") == \
+        flash_act + 6 * 4 * 2 * 12 * 1024 * 1024 * 16
+    need = smoke.llama_ring_device_bytes(n, cfg, 2)
+    # the drill's part (two groups' state, stepped in place, and two kept
+    # copies in flight: 10.3 GB) is below the parity pass's (the einsum
+    # ring's scores: 12.3 GB)
+    einsum = 8 * n + smoke.llama_activation_bytes(cfg, 2, "einsum")
+    assert need == max(einsum, 56 * n + 2 * flash_act) == einsum
+    assert need < 20e9
+    assert smoke.llama_ring_host_bytes(n) == 14 * 4 * n
+    # 13 passes x 12 layers x (10 pairs, the forward twice under remat)
+    assert smoke.llama_ring_launches(13, 12) == {
+        "flash_fwd": 3120, "flash_bwd_dq": 1560, "flash_bwd_dkv": 1560}
+    assert smoke.llama_ring_launches(1, 1, remat=False) == dict.fromkeys(
+        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 10)
+    phases = smoke.PHASES
+    assert phases.index("gpt_1b") < phases.index("train_llama_ring") \
+        < phases.index("train_durable")
+
+
+def test_ring_pass_ms_follows_the_schedule() -> None:
+    smoke = _smoke()
+    times = {("flash_fwd", "causal"): 1.0, ("flash_fwd", "full"): 2.0,
+             ("flash_bwd_dq", "causal"): 10.0, ("flash_bwd_dq", "full"): 20.0,
+             ("flash_bwd_dkv", "causal"): 100.0,
+             ("flash_bwd_dkv", "full"): 200.0}
+    # 4 causal pairs and 6 full ones per layer, 12 layers
+    got = smoke.ring_pass_ms(times, 12)
+    assert got["flash_fwd"] == 12 * 2 * (4 * 1.0 + 6 * 2.0)
+    assert got["flash_bwd_dq"] == 12 * (4 * 10.0 + 6 * 20.0)
+    assert got["flash_bwd_dkv"] == 12 * (4 * 100.0 + 6 * 200.0)
+    assert got["total"] == got["flash_fwd"] + got["flash_bwd_dq"] \
+        + got["flash_bwd_dkv"]
+    assert smoke.ring_pass_ms(times, 1, remat=False)["flash_fwd"] == 16.0
+
+
+def test_train_llama_ring_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # the phase as the card runs it, moved to "llama_tiny" (with remat and
+    # 8 vocab chunks) on the CPU: the parity pass, the drill's checks, the
+    # report and the launches the schedule says; the kernels' timing needs
+    # the card and is stubbed
+    import dataclasses
+    import functools
+
+    import torchft_tpu_torch.examples.train_llama_ring as example
+    from torchft_tpu_torch.models import LLAMA_CONFIGS
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    tiny = dataclasses.replace(LLAMA_CONFIGS["llama_tiny"], max_seq_len=256,
+                               xent_chunks=8, remat=True)
+    monkeypatch.setattr(smoke, "llama_ring_config", lambda: tiny)
+    times = {(n, m): 0.01 for n in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv")
+             for m in ("causal", "full")}
+    monkeypatch.setattr(smoke, "llama_ring_pair_times",
+                        lambda *a, **k: times)
+    monkeypatch.setattr(smoke, "llama_ring_parity", functools.partial(
+        smoke.llama_ring_parity, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (1e12, 1e12))
+    for name in ("empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "max_memory_reserved", lambda *a: 0)
+    fn = example.run_llama_ring_drill
+    monkeypatch.setattr(example, "run_llama_ring_drill", lambda cfg, **kw: fn(
+        cfg, **dict(kw, device="cpu", timeout=30.0)))
+    counts, want, head_dim = smoke.phase_train_llama_ring(0, "CPU")
+    assert head_dim == 16
+    # 13 passes x 2 layers; the CPU launches no kernel
+    assert want == {"flash_fwd": 13 * 2 * 20, "flash_bwd_dq": 13 * 2 * 10,
+                    "flash_bwd_dkv": 13 * 2 * 10, "quant_int8": 0,
+                    "dequant_acc_int8": 0}
+    assert set(counts) == set(want) and not any(counts.values())
+    text = "\n".join(lines)
+    assert "flash ring: loss" in text and "einsum ring: loss" in text
+    # the warm passes, and the profiled ones (no device on the CPU)
+    assert text.count(" ms warm (CPU)") == 3
+    assert "profiled flash ring pass, one thread: wall" in text
+    assert "profiled unsharded pass" in text
+    assert "device busy not measured" in text
+    assert "FAIL" not in text
+    assert "both groups bitwise equal" in text
+    assert "group 1 healed at step 5" in text
+    assert "heal: heal_wall_ms" in text
+    assert "ring launches per forward/backward pass: {'flash_fwd': 40" in text
+    assert "group 1: step p50 ms {'quorum'" in text
+    assert "committed tokens/s" in text and "phase " in text

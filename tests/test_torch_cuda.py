@@ -31,7 +31,9 @@ the card bitwise with the CPU plane and ``_host_hier_allreduce`` (star),
 and within its bound (psum). DiLoCo's sharded outer update at "tiny"
 with one group's wire in a ``SubprocessCommContext`` child commits its
 round bitwise the replicated arm's, and the child holds no CUDA context.
-This file imports no
+The flash-block ring over virtual shards of the card matches the same
+ring over CPU shards, and the llama ring example's drill heals bitwise
+there. This file imports no
 JAX, so it runs where only torch is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -740,3 +742,147 @@ def test_sharded_diloco_with_a_wire_child_on_card() -> None:
     assert all(torch.equal(a, b) for a, b in zip(arms[True]["params"][1],
                                                  arms[False]["params"][1]))
     assert arms[True]["held"][1] == {g: [g] for g in range(3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_ring_on_card_matches_the_cpu_ring(causal) -> None:
+    """The flash-block ring over 4 virtual shards of the card (the flash
+    kernels, bf16, shards of 128) against the same ring over 4 CPU shards
+    (the kernels' plain versions) on the same bf16 inputs: the output and
+    the gradients within the kernels' relative-norm bound, and each
+    kernel launched as the ring's schedule says."""
+    from torchft_tpu_torch.parallel import (
+        ft_mesh,
+        make_ring_attention,
+        ring_launches,
+    )
+
+    _cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (torch.randn((2, 512, 4, 64), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    results = {}
+    for dev in ("cuda", "cpu"):
+        ring = make_ring_attention(ft_mesh({"seq": 4}, devices=[dev] * 4),
+                                   "seq", causal=causal, block_impl="flash")
+        leaves = [x.detach().to(dev).requires_grad_(True) for x in (q, k, v)]
+        flash.reset_launch_counts()
+        out = ring(*leaves)
+        out.backward(do.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert flash.LAUNCHES == ring_launches(4, causal)
+        results[dev] = [out.detach().cpu()] + [x.grad.cpu() for x in leaves]
+    for what, got, want in zip(("out", "dq", "dk", "dv"), results["cuda"],
+                               results["cpu"]):
+        err = flash.kernel_error(got, want)
+        assert err["rel_norm"] <= 1e-3, (what, err)
+
+
+@pytest.mark.cuda
+def test_llama_ring_drill_tiny_on_card() -> None:
+    """The llama ring example's drill at "llama_tiny" (head_dim 16) on the
+    card, the flash ring over 2 shards of 64: kill, poisoned restart, heal
+    at step 5, both groups bitwise at every step both commit (the drill's
+    own checks), and the launches the schedule says."""
+    from torchft_tpu_torch.examples.train_llama_ring import (
+        run_llama_ring_drill,
+    )
+    from torchft_tpu_torch.models import LLAMA_CONFIGS
+    from torchft_tpu_torch.parallel import ring_launches
+
+    _cuda()
+    cfg = LLAMA_CONFIGS["llama_tiny"]
+    flash.reset_launch_counts()
+    result = run_llama_ring_drill(cfg, ring_impl="flash", seq_shards=2,
+                                  device="cuda", timeout=60.0)
+    assert result["heal_step"] == 5 and result["passes"] == 13
+    per_layer = ring_launches(2, True, cfg.remat)
+    assert flash.LAUNCHES == {n: 13 * cfg.n_layers * c
+                              for n, c in per_layer.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["flash", "einsum"])
+def test_ring_over_the_cards_equals_the_virtual_ring(impl,
+                                                     monkeypatch) -> None:
+    """The llama example's ring where there are cards enough, one card a
+    shard (``make_seq_ring`` over ``cuda:0`` .. ``cuda:n-1``, n the cards
+    up to 4): the rotation crosses cards and the output gathers back to
+    q's card. Against the same ring over n virtual shards of ``cuda:0`` on
+    the same bf16 inputs, the output and the gradients bitwise, and the
+    flash kernels launched as the schedule says."""
+    import torchft_tpu_torch.examples.train_llama_ring as example
+    from torchft_tpu_torch.parallel import (
+        ft_mesh,
+        make_ring_attention,
+        ring_launches,
+    )
+
+    _cuda()
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        pytest.skip("needs two cards or more: one card a shard")
+    meshes = []
+
+    def spy(axes, devices=None):
+        meshes.append(list(devices))
+        return ft_mesh(axes, devices=devices)
+
+    monkeypatch.setattr(example, "ft_mesh", spy)
+    cfg = example.example_config(256 * n)
+    card = torch.device("cuda", 0)
+    rings = {"cards": example.make_seq_ring(cfg, card, n, impl),
+             "virtual": make_ring_attention(
+                 ft_mesh({"seq": n}, devices=[card] * n), "seq",
+                 causal=True, block_impl=impl)}
+    assert meshes == [[torch.device("cuda", i) for i in range(n)]]
+    gen = torch.Generator(device=card).manual_seed(11)
+    q, k, v, do = (torch.randn((2, 256 * n, 4, 64), generator=gen,
+                               device=card).to(torch.bfloat16)
+                   for _ in range(4))
+    results = {}
+    for arm, ring in rings.items():
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        flash.reset_launch_counts()
+        out = ring(*leaves)
+        out.backward(do)
+        torch.cuda.synchronize()
+        assert out.device == card
+        want = ring_launches(n, True) if impl == "flash" else dict.fromkeys(
+            ring_launches(n, True), 0)
+        assert flash.LAUNCHES == want
+        results[arm] = [out.detach()] + [x.grad for x in leaves]
+    for what, got, want in zip(("out", "dq", "dk", "dv"), results["cards"],
+                               results["virtual"]):
+        assert torch.equal(got, want), what
+
+
+@pytest.mark.cuda
+def test_llama_ring_example_runs_over_the_cards() -> None:
+    """``examples/train_llama_ring.py`` as a subprocess on CUDA at its
+    defaults but 3 steps: the flash ring over ``SEQ_SHARDS`` = the visible
+    cards, one card a shard."""
+    import subprocess
+    import sys
+
+    from torchft_tpu_torch.control import Lighthouse
+
+    _cuda()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    lh = Lighthouse(min_replicas=1, join_timeout_ms=200)
+    env = dict(os.environ, TORCHFT_TPU_LIGHTHOUSE=lh.address(),
+               REPLICA_GROUP_ID="0", LOGLEVEL="ERROR", TOTAL_STEPS="3",
+               RING_IMPL="flash")
+    env.pop("DEVICE", None)
+    env.pop("SEQ_SHARDS", None)
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "torchft_tpu_torch.examples.train_llama_ring"], env=env,
+            capture_output=True, text=True, timeout=300, cwd=root)
+    finally:
+        lh.shutdown()
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "step 3" in proc.stdout, proc.stdout

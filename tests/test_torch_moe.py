@@ -249,3 +249,34 @@ def test_remat_recomputes_each_block() -> None:
     assert (n_plain, len(calls) - n_plain) == (1, 2)
     for (k, a), b in zip(model.named_parameters(), remat.parameters()):
         assert torch.equal(a.grad, b.grad), k
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_moe_model_takes_the_attention_hook(remat: bool) -> None:
+    # the GPT's attn_fn reaches the MoE family through the shared attention
+    # sublayer (with and without the recompute): a spy that defers to the
+    # plain path gives the same loss and gradients, called once per block
+    # per forward
+    from torchft_tpu_torch.ops.attention import causal_attention
+
+    jcfg, cfg, params, model = _model_pair(0)
+    model = MoETransformer(dataclasses.replace(cfg, remat=remat),
+                           device="cpu")
+    model.load_state_dict(from_jax_params(params))
+    tok, tgt = (torch.tensor(a) for a in _batch(cfg))
+    calls = []
+
+    def spy(q, k, v):
+        calls.append(q.shape)
+        return causal_attention(q, k, v)
+
+    loss = model.loss(tok, tgt, attn_fn=spy)
+    loss.backward()
+    grads = [p.grad.clone() for p in model.parameters()]
+    model.zero_grad()
+    want = model.loss(tok, tgt)
+    want.backward()
+    assert torch.equal(loss, want)
+    assert all(torch.equal(a, p.grad)
+               for a, p in zip(grads, model.parameters()))
+    assert len(calls) == cfg.n_layers * (2 if remat else 1)

@@ -380,3 +380,106 @@ def test_train_step_on_the_cpu_counts_no_capture() -> None:
         assert loss.dim() == 0 and torch.isfinite(loss)
     assert step.captures == 0 and step.warmup_passes == 0
     step.sync_state()  # nothing captured: a no-op
+
+
+@pytest.mark.parametrize("name", ["adamw", "adam"])
+def test_transformation_optimizer_tracks_optax(name) -> None:
+    # TransformationOptimizer steps in place by the port's optax-order
+    # transformation: five steps on seeded parameters and gradients against
+    # optax itself, within the outer optimizer's tolerance (rtol 1e-6,
+    # atol 1e-7; bitwise in practice)
+    import optax
+
+    from torchft_tpu_torch import optim
+
+    make = {"adamw": (lambda: optim.adamw(3e-4), lambda: optax.adamw(3e-4)),
+            "adam": (lambda: optim.adam(1e-2), lambda: optax.adam(1e-2))}
+    port_tx, ref_tx = make[name]
+    rng = np.random.default_rng(3)
+    shapes = [(4, 3), (5,), ()]
+    init = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    params = [torch.nn.Parameter(torch.tensor(a)) for a in init]
+    opt = optim.TransformationOptimizer(params, port_tx())
+    ref = [jnp.asarray(a) for a in init]
+    tx = ref_tx()
+    state = tx.init(ref)
+    for _ in range(5):
+        grads = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+        for p, g in zip(params, grads):
+            p.grad = torch.tensor(g)
+        opt.step()
+        updates, state = tx.update([jnp.asarray(g) for g in grads], state,
+                                   ref)
+        ref = optax.apply_updates(ref, updates)
+    for p, r in zip(params, ref):
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(r),
+                                   rtol=1e-6, atol=1e-7)
+
+
+def test_transformation_optimizer_state_is_a_template_loaded_in_place():
+    # the state exists before the first step (optax's init), so its
+    # state_dict lists every leaf a donor serves, and a load lands in place
+    from torchft_tpu_torch import optim
+
+    params = [torch.nn.Parameter(torch.ones(3)) for _ in range(2)]
+    opt = optim.TransformationOptimizer(params, optim.adamw(3e-4))
+    sd = opt.state_dict()
+    assert sorted(sd["state"][0]) == ["count", "mu", "nu"]
+    assert sd["state"][1]["count"].dtype == torch.int32
+    donor = optim.TransformationOptimizer(
+        [torch.nn.Parameter(torch.ones(3)) for _ in range(2)],
+        optim.adamw(3e-4))
+    for p in donor.param_groups[0]["params"]:
+        p.grad = torch.full((3,), 0.5)
+    donor.step()
+    before = [v.data_ptr() for s in opt.state.values() for v in s.values()]
+    load_optimizer_state_dict(opt, donor.state_dict())
+    after = [v.data_ptr() for s in opt.state.values() for v in s.values()]
+    assert before == after
+    assert all(int(s["count"]) == 1 for s in opt.state.values())
+    assert torch.equal(opt.state[params[0]]["mu"],
+                       donor.state[donor.param_groups[0]["params"][0]]["mu"])
+    with pytest.raises(ValueError, match="closure"):
+        opt.step(lambda: 0.0)
+    with pytest.raises(ValueError, match="adam or adamw"):
+        optim.TransformationOptimizer(params, optim.sgd(0.1, momentum=0.9))
+
+
+@pytest.mark.parametrize("name", ["adamw", "adam", "adamw_decay"])
+def test_transformation_optimizer_steps_in_place_as_the_transformation(
+        name) -> None:
+    # the in-place step against OuterTransformation.update then
+    # apply_updates on the same seeded values: bitwise, and the parameters
+    # and moments keep their storage across steps
+    from torchft_tpu_torch import optim
+
+    make = {"adamw": lambda: optim.adamw(3e-4),
+            "adam": lambda: optim.adam(1e-2),
+            "adamw_decay": lambda: optim.adamw(1e-2, weight_decay=0.1)}[name]
+    rng = np.random.default_rng(5)
+    shapes = [(6, 5), (7,), ()]
+    init = [torch.tensor(rng.standard_normal(s).astype(np.float32))
+            for s in shapes]
+    params = [torch.nn.Parameter(a.clone()) for a in init]
+    opt = optim.TransformationOptimizer(params, make())
+    storage = [t.data_ptr() for t in params] + [
+        v.data_ptr() for p in params for v in opt.state[p].values()]
+    tx = make()
+    ref, state = list(init), tx.init(init)
+    for _ in range(4):
+        grads = [torch.tensor(rng.standard_normal(s).astype(np.float32))
+                 for s in shapes]
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
+        updates, state = tx.update(grads, state, ref)
+        ref = optim.apply_updates(ref, updates)
+    for p, r in zip(params, ref):
+        assert torch.equal(p.detach(), r)
+    for key in ("mu", "nu"):
+        for p, r in zip(params, state[key]):
+            assert torch.equal(opt.state[p][key], r)
+    assert all(int(opt.state[p]["count"]) == int(state["count"]) == 4
+               for p in params)
+    assert storage == [t.data_ptr() for t in params] + [
+        v.data_ptr() for p in params for v in opt.state[p].values()]

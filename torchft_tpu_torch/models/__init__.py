@@ -13,3 +13,13 @@ from torchft_tpu_torch.models.moe_transformer import (  # noqa: F401
     MoETransformer,
     MoETransformerConfig,
 )
+from torchft_tpu_torch.models.llama import (  # noqa: F401
+    LLAMA_CONFIGS,
+    Llama,
+    LlamaConfig,
+    llama_forward,
+    llama_forward_hidden,
+    llama_init_params,
+    llama_loss_fn,
+    llama_param_tree,
+)

@@ -18,7 +18,7 @@ kernels on the card, their plain versions on the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -122,8 +122,8 @@ class MoEBlock(nn.Module):
         self.ln_2 = _Param(scale=(d,), bias=(d,))
         self.moe = _MoE(cfg.moe_cfg())
 
-    def forward(self, x):
-        x = attn_sublayer(self, x)
+    def forward(self, x, attn_fn: Optional[Callable] = None):
+        x = attn_sublayer(self, x, attn_fn)
         y, aux = self.moe(_layer_norm(x, self.ln_2.scale, self.ln_2.bias))
         return x + y, aux
 
@@ -146,8 +146,9 @@ class MoETransformer(GPT):
             return MoEBlock(self.moe_config)
         return Block(self.moe_config.dense_cfg())
 
-    def forward_hidden_aux(self, tokens):
-        """(final-norm hidden states [B, S, D], the summed aux loss)."""
+    def forward_hidden_aux(self, tokens, attn_fn: Optional[Callable] = None):
+        """(final-norm hidden states [B, S, D], the summed aux loss);
+        ``attn_fn`` replaces ``causal_attention`` when given."""
         dt = self.cfg.dtype
         s = tokens.shape[1]
         x = self.wte.embedding.to(dt)[tokens]
@@ -155,10 +156,10 @@ class MoETransformer(GPT):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, block in enumerate(self.blocks()):
             if self.cfg.remat and torch.is_grad_enabled():
-                out = torch.utils.checkpoint.checkpoint(block, x,
+                out = torch.utils.checkpoint.checkpoint(block, x, attn_fn,
                                                         use_reentrant=False)
             else:
-                out = block(x)
+                out = block(x, attn_fn)
             if self.moe_config.is_moe_layer(i):
                 x, aux = out
                 aux_total = aux_total + aux.float()
@@ -166,12 +167,12 @@ class MoETransformer(GPT):
                 x = out
         return _layer_norm(x, self.ln_f.scale, self.ln_f.bias), aux_total
 
-    def forward_hidden(self, tokens):
-        return self.forward_hidden_aux(tokens)[0]
+    def forward_hidden(self, tokens, attn_fn: Optional[Callable] = None):
+        return self.forward_hidden_aux(tokens, attn_fn)[0]
 
-    def loss(self, tokens, targets):
+    def loss(self, tokens, targets, attn_fn: Optional[Callable] = None):
         """Mean next-token cross entropy + aux_loss_weight x the summed
         load-balancing losses."""
-        h, aux = self.forward_hidden_aux(tokens)
+        h, aux = self.forward_hidden_aux(tokens, attn_fn)
         return (self.cross_entropy(h, targets)
                 + self.moe_config.aux_loss_weight * aux)

@@ -8,16 +8,17 @@ q_proj/kernel`` is the state-dict key ``layers_{i}.attn.q_proj.kernel``,
 Numerics mirror the reference: f32 parameters, bf16 activations; layer norm
 in f32 with the biased variance and eps 1e-5, cast back; embeddings cast to
 bf16 before the gather; the tanh GELU; attention through
-``ops.attention.causal_attention`` (the flash kernels on the GPU); the
-lm-head product and the loss in f32, chunked over the vocab when
-``xent_chunks`` > 0.
+``ops.attention.causal_attention`` (the flash kernels on the GPU) unless the
+caller passes ``attn_fn``, the reference's hook (a ring over the sequence
+axis, ``parallel/ring.py``); the lm-head product and the loss in f32,
+chunked over the vocab when ``xent_chunks`` > 0.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -43,6 +44,7 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16        # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
     remat: bool = True
+    # read nowhere, as in the reference: a ring reaches the model as attn_fn
     attention: str = "local"
     # > 0: the loss runs ops/xent.py's online logsumexp over this many
     # vocab chunks instead of materializing [B, S, V] logits
@@ -106,9 +108,10 @@ class _MLP(nn.Module):
         self.down_proj = _Param(kernel=(f, d))
 
 
-def attn_sublayer(block: nn.Module, x):
+def attn_sublayer(block: nn.Module, x, attn_fn: Optional[Callable] = None):
     """``x`` plus the causal self-attention of ``block`` (its ``ln_1`` and
-    ``attn``), the half a dense and an MoE block share."""
+    ``attn``), the half a dense and an MoE block share. ``attn_fn(q, k, v)``
+    on ``[B, S, H, D]`` replaces ``causal_attention`` when given."""
     cfg, dt = block.cfg, block.cfg.dtype
     b, s, _ = x.shape
     h = _layer_norm(x, block.ln_1.scale, block.ln_1.bias)
@@ -116,7 +119,8 @@ def attn_sublayer(block: nn.Module, x):
     q = (h @ block.attn.q_proj.kernel.to(dt)).reshape(shape)
     k = (h @ block.attn.k_proj.kernel.to(dt)).reshape(shape)
     v = (h @ block.attn.v_proj.kernel.to(dt)).reshape(shape)
-    a = causal_attention(q, k, v).reshape(b, s, cfg.d_model)
+    attn = causal_attention if attn_fn is None else attn_fn
+    a = attn(q, k, v).reshape(b, s, cfg.d_model)
     return x + a @ block.attn.o_proj.kernel.to(dt)
 
 
@@ -130,9 +134,9 @@ class Block(nn.Module):
         self.ln_2 = _Param(scale=(d,), bias=(d,))
         self.mlp = _MLP(d, cfg.d_ff)
 
-    def forward(self, x):
+    def forward(self, x, attn_fn: Optional[Callable] = None):
         dt = self.cfg.dtype
-        x = attn_sublayer(self, x)
+        x = attn_sublayer(self, x, attn_fn)
         h = _layer_norm(x, self.ln_2.scale, self.ln_2.bias)
         h = F.gelu(h @ self.mlp.up_proj.kernel.to(dt), approximate="tanh")
         return x + h @ self.mlp.down_proj.kernel.to(dt)
@@ -150,9 +154,6 @@ class GPT(nn.Module):
                  device: "Optional[str | torch.device]" = None,
                  seed: int = 0) -> None:
         super().__init__()
-        if getattr(cfg, "attention", "local") != "local":
-            raise ValueError(f"attention {cfg.attention!r} is not ported; "
-                             "use 'local'")
         self.cfg = cfg
         d = cfg.d_model
         self.wte = _Param(embedding=(cfg.vocab_size, d))
@@ -187,22 +188,24 @@ class GPT(nn.Module):
     def blocks(self):
         return [getattr(self, f"layers_{i}") for i in range(self.cfg.n_layers)]
 
-    def forward_hidden(self, tokens):
+    def forward_hidden(self, tokens, attn_fn: Optional[Callable] = None):
+        """Final-norm hidden states; ``attn_fn`` as for
+        :func:`attn_sublayer`."""
         dt = self.cfg.dtype
         s = tokens.shape[1]
         x = self.wte.embedding.to(dt)[tokens]
         x = x + self.wpe.embedding.to(dt)[:s][None, :, :]
         for block in self.blocks():
             if self.cfg.remat and torch.is_grad_enabled():
-                x = torch.utils.checkpoint.checkpoint(block, x,
+                x = torch.utils.checkpoint.checkpoint(block, x, attn_fn,
                                                       use_reentrant=False)
             else:
-                x = block(x)
+                x = block(x, attn_fn)
         return _layer_norm(x, self.ln_f.scale, self.ln_f.bias)
 
-    def forward(self, tokens):
+    def forward(self, tokens, attn_fn: Optional[Callable] = None):
         """Logits [B, S, vocab] in f32."""
-        h = self.forward_hidden(tokens)
+        h = self.forward_hidden(tokens, attn_fn)
         return h.float() @ self.lm_head.kernel.float()
 
     def cross_entropy(self, h, targets):
@@ -214,16 +217,18 @@ class GPT(nn.Module):
         logp = torch.log_softmax(h.float() @ w.float(), dim=-1)
         return -logp.gather(-1, targets[..., None])[..., 0].mean()
 
-    def loss(self, tokens, targets):
+    def loss(self, tokens, targets, attn_fn: Optional[Callable] = None):
         """Mean next-token cross entropy."""
-        return self.cross_entropy(self.forward_hidden(tokens), targets)
+        return self.cross_entropy(self.forward_hidden(tokens, attn_fn),
+                                  targets)
 
 
-def loss_fn(cfg: TransformerConfig, model: GPT, tokens, targets):
+def loss_fn(cfg: TransformerConfig, model: GPT, tokens, targets,
+            attn_fn: Optional[Callable] = None):
     """Mean next-token cross entropy (twin of the reference's
-    ``loss_fn(cfg, params, tokens, targets)``)."""
+    ``loss_fn(cfg, params, tokens, targets, attn_fn=None)``)."""
     assert model.cfg == cfg, "model was built for another config"
-    return model.loss(tokens, targets)
+    return model.loss(tokens, targets, attn_fn)
 
 
 def count_params(model: nn.Module) -> int:
@@ -231,18 +236,28 @@ def count_params(model: nn.Module) -> int:
 
 
 def from_jax_params(params_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Map the JAX package's parameter pytree (nested dicts of numpy
-    arrays, as ``jax.device_get(init_params(...))`` gives) onto a state
-    dict for :class:`GPT`: path ``a/b/c`` becomes key ``a.b.c``; kernels
-    keep their ``[in, out]`` layout."""
+    """Map the JAX package's parameter pytree (nested dicts and lists of
+    numpy arrays, as ``jax.device_get(init_params(...))`` gives) onto a
+    state dict for :class:`GPT` or ``models.llama.Llama``: path ``a/b/c``
+    becomes key ``a.b.c`` and list entry ``i`` of ``layers`` key
+    ``layers.i``; kernels keep their ``[in, out]`` layout. Torch tensors
+    are taken as they are (on their device, in their dtype); anything else
+    becomes an f32 CPU tensor."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(prefix: str, node: Any) -> None:
         if isinstance(node, dict):
-            for k, v in node.items():
-                walk(f"{prefix}.{k}" if prefix else k, v)
+            items = node.items()
+        elif isinstance(node, (list, tuple)):
+            items = enumerate(node)
+        elif isinstance(node, torch.Tensor):
+            out[prefix] = node
+            return
         else:
             out[prefix] = torch.from_numpy(np.array(node, dtype=np.float32))
+            return
+        for k, v in items:
+            walk(f"{prefix}.{k}" if prefix else str(k), v)
 
     walk("", params_np)
     return out

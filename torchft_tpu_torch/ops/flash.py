@@ -372,10 +372,12 @@ def flash_fwd(q, k, v, causal: bool, scale: float, block_q: int = 128,
               block_k: int = 128):
     """Forward: ``(out [B, S, H, D], lse [B, H, S] f32)``. CUDA tensors go
     through the kernel (which tiles by its own sizes whatever the block
-    sizes), CPU tensors through :func:`flash_fwd_plain`."""
+    sizes), launched on their card's current stream, CPU tensors through
+    :func:`flash_fwd_plain`."""
     if _on_cpu(q):
         return flash_fwd_plain(q, k, v, causal, scale, block_q, block_k)
-    return _flash_fwd_cuda(q, k, v, causal, scale)
+    with torch.cuda.device(q.device):
+        return _flash_fwd_cuda(q, k, v, causal, scale)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
@@ -383,7 +385,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
     if _on_cpu(q):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale,
                                   block_q, block_k)
-    return _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+    with torch.cuda.device(q.device):
+        return _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
@@ -391,7 +394,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
     if _on_cpu(q):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale,
                                    block_q, block_k)
-    return _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+    with torch.cuda.device(q.device):
+        return _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
 
 
 # ---------------------------------------------------------------- surfaces

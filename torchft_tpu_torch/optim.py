@@ -72,7 +72,8 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["OptimizerWrapper", "OuterTransformation",
            "PartitionedOuterOptimizer", "ShardedOptState",
-           "ShardedOptimizerWrapper", "adam", "adamw", "apply_updates",
+           "ShardedOptimizerWrapper", "TransformationOptimizer", "adam",
+           "adamw", "apply_updates",
            "from_optax_state", "init_adam_state", "load_optimizer_state_dict",
            "sgd"]
 
@@ -384,8 +385,10 @@ class OuterTransformation:
                   for g, t in zip(grads, state["nu"])]
             count = state["count"] + 1
             c = count.to(torch.float32)
-            bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** c
-            bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** c
+            bc1 = 1 - torch.tensor(b1, dtype=torch.float32,
+                                   device=c.device) ** c
+            bc2 = 1 - torch.tensor(b2, dtype=torch.float32,
+                                   device=c.device) ** c
             updates = [(m / bc1.to(m.dtype))
                        / (torch.sqrt(v / bc2.to(v.dtype)) + self.eps)
                        for m, v in zip(mu, nu)]
@@ -429,6 +432,63 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     ``+ weight_decay * params``, then ``-learning_rate``."""
     return OuterTransformation("adamw", learning_rate, b1=b1, b2=b2, eps=eps,
                                weight_decay=weight_decay)
+
+
+class TransformationOptimizer(torch.optim.Optimizer):
+    """A ``torch.optim.Optimizer`` stepping its parameters in place by an
+    Adam :class:`OuterTransformation` (``adamw(3e-4)``: optax's order, the
+    weight decay added to the Adam update rather than applied to the
+    parameters first as ``torch.optim.AdamW`` does). ``step`` runs the
+    transformation's arithmetic parameter by parameter, op for op as
+    ``tx.update`` then ``optax.apply_updates`` (so bitwise theirs), with
+    the moments and the parameter updated in place: the transients are one
+    parameter's, never a second copy of the state. The state is per
+    parameter (``mu``, ``nu`` and ``count`` on the parameter's device) and
+    exists from construction, as optax's ``init``, so ``state_dict()`` is
+    a heal template from the first step and ``load_optimizer_state_dict``
+    loads into it in place."""
+
+    def __init__(self, params, tx: OuterTransformation) -> None:
+        if tx.kind not in ("adam", "adamw"):
+            raise ValueError(f"TransformationOptimizer steps adam or adamw, "
+                             f"not {tx.kind}")
+        super().__init__(params, {})
+        self.tx = tx
+        for p in self._params():
+            self.state[p].update(
+                count=torch.zeros((), dtype=torch.int32, device=p.device),
+                mu=torch.zeros_like(p), nu=torch.zeros_like(p))
+
+    def _params(self) -> List[torch.Tensor]:
+        return [p for g in self.param_groups for p in g["params"]]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("TransformationOptimizer takes no closure")
+        params = [p for p in self._params() if p.grad is not None]
+        if not params:
+            return None
+        tx = self.tx
+        count = self.state[params[0]]["count"] + 1
+        c = count.to(torch.float32)
+        bc1 = 1 - torch.tensor(tx.b1, dtype=torch.float32,
+                               device=c.device) ** c
+        bc2 = 1 - torch.tensor(tx.b2, dtype=torch.float32,
+                               device=c.device) ** c
+        for p in params:
+            # OuterTransformation.update's expressions, in place
+            g, state = p.grad, self.state[p]
+            mu, nu = state["mu"], state["nu"]
+            mu.mul_(tx.b1).add_(g * (1 - tx.b1))
+            nu.mul_(tx.b2).add_(torch.mul(g, g).mul_(1 - tx.b2))
+            u = torch.div(mu, bc1.to(mu.dtype)).div_(
+                torch.div(nu, bc2.to(nu.dtype)).sqrt_().add_(tx.eps))
+            if tx.kind == "adamw":
+                u.add_(tx.weight_decay * p)
+            p.add_(u.mul_(-tx.learning_rate))
+            state["count"].copy_(count)
+        return None
 
 
 def apply_updates(params: Sequence[torch.Tensor],
