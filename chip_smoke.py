@@ -270,6 +270,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
    transfer overlaps compute: the ring's schedule, launches and numerics
    are measured, its link is not.
 
+16. train_hsdp (it runs after train_llama_ring): the reference's
+   ``examples/train_hsdp.py`` at "1b" (1,346,572,288 parameters; 24
+   layers, d_model 2048, 16 heads of 128, d_ff 8192, vocab 32768, seq
+   2048, activation checkpointing on, the loss over 8 vocab chunks a
+   shard), full width and depth, batch 8, each replica group's GPT
+   sharded over a virtual mesh ``{"fsdp": 2, "tensor": 2}`` of the card
+   (``models.transformer.ShardedGPT``: the batch over fsdp, fsdp gathers
+   inside the remat region, Megatron's column and row splits, the
+   vocab-parallel loss), so each position calls the flash kernels at (4,
+   2048, 8, 128). First the three kernels at that shape against their
+   plain versions and timed, beside their bound and SDPA. Then a parity
+   pass: one forward/backward of the same weights and batch through the
+   sharded model and the unsharded GPT; the loss within ``LOSS_TOL`` and
+   ``GRAD_SAMPLE`` within ``GRAD_REL_NORM``. Then ``run_hsdp_drill``, with
+   the launch counts set to 0 just before it: two groups over TCP at codec
+   none, AdamW (3e-4) in optax's order stepped on the pieces; group 1
+   fails after its 3rd commit, group 0 commits 4 alone, group 1 restarts
+   from a poisoned init (its model, optimizer and staged state released
+   first) and heals into its sharded template at 5, fetching only its
+   pieces' bounds; both commit 5-7. Every piece (parameters and both
+   moments) of each group must equal the other's bitwise at every step
+   both commit, every healed leaf must carry the healer's sharding, the
+   heal's wire bytes must equal its state's (no region fetched twice),
+   the losses finite, the flash kernels launched per pass 2 x 96 forward
+   and 96 of each backward (24 layers x 4 positions, remat) and no codec
+   kernel. It prints the step p50s (``quorum``, ``forward_backward``,
+   ``ddp_wire``), committed steps and tokens/s, the heal's wall and rate,
+   the bytes of pieces per position, the flash kernels' device ms per
+   pass beside ``forward_backward``, and the device memory peak. It first
+   checks the host's memory (``hsdp_host_bytes``) and the device's
+   (``hsdp_device_bytes``).
+
 It prints a ``kernels`` JSON line before the last line and ends with
 ``{"ok": true, "device": {...}}``. It needs one card and no network.
 """
@@ -279,6 +311,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1667,6 +1700,297 @@ def phase_train_llama_ring(seed: int, card: str,
             **dict.fromkeys(quant.LAUNCHES, 0)}
     for line in llama_ring_report(result, cfg, batch, per_pass, pass_ms,
                                   card):
+        log("  " + line)
+    log(f"  device memory peak: {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB allocated, {torch.cuda.max_memory_reserved() / 1e9:.2f} GB "
+        f"reserved (reckoned {need / 1e9:.2f} GB) ({card})")
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase {time.perf_counter() - t0:.1f} s ({card})")
+    return counts, want, cfg.head_dim
+
+
+# train_hsdp: the 1b GPT sharded over fsdp x tensor in each replica group
+HSDP_AXES = {"fsdp": 2, "tensor": 2}  # a virtual mesh of the one card
+HSDP_BATCH = 8
+HSDP_STEPS = 7          # committed steps; group 1 heals at 5
+HSDP_KILL_AFTER = 3
+HSDP_PHASES = ("quorum", "forward_backward", "ddp_wire")
+
+
+def hsdp_config():
+    """"1b", full width and depth."""
+    from torchft_tpu_torch.models import CONFIGS
+
+    return CONFIGS["1b"]
+
+
+def hsdp_positions() -> int:
+    return math.prod(HSDP_AXES.values())
+
+
+def hsdp_attention_shape(cfg, batch: int = HSDP_BATCH) -> tuple:
+    """[B, S, H, D] of each position's attention: the batch split over
+    fsdp, the heads over tensor."""
+    return (batch // HSDP_AXES["fsdp"], cfg.max_seq_len,
+            cfg.n_heads // HSDP_AXES["tensor"], cfg.head_dim)
+
+
+def hsdp_launches(passes: int, layers: int, positions: int = 4,
+                  remat: bool = True) -> dict:
+    """Each flash kernel's launches in ``passes`` forward/backward passes
+    of the sharded GPT: one attention per layer per mesh position, its
+    forward twice under remat."""
+    per = passes * layers * positions
+    return {"flash_fwd": per * (2 if remat else 1), "flash_bwd_dq": per,
+            "flash_bwd_dkv": per}
+
+
+def hsdp_activation_bytes(cfg, batch: int) -> int:
+    """A reckoning of one sharded forward/backward's live activations, all
+    positions together: every layer's bf16 input kept per position, the
+    recomputed layer's f32 layer-norm intermediates (4 tensors of a
+    position's tokens x d_model, every position), and per position that
+    layer's gathered f32 weights, the gathered embedding and lm head, and
+    one f32 logits chunk with its gradient. (Measured on the H100: 3.5 GB
+    at "1b", batch 8, over ``HSDP_AXES``; this gives 6.3.)"""
+    n_pos = hsdp_positions()
+    b, s, h, d = hsdp_attention_shape(cfg, batch)
+    tokens = b * s
+    tp = HSDP_AXES["tensor"]
+    keep = 2 * tokens * cfg.d_model * cfg.n_layers * n_pos
+    block = 4 * 4 * tokens * cfg.d_model * n_pos
+    layer_w = 4 * (4 * cfg.d_model ** 2 + 2 * cfg.d_model * cfg.d_ff) // tp
+    heads = 4 * 2 * cfg.vocab_size * cfg.d_model // tp
+    chunks = max(1, cfg.xent_chunks)
+    logits = 2 * 4 * tokens * cfg.vocab_size // tp // chunks
+    return keep + block + n_pos * (layer_w + heads + logits)
+
+
+def hsdp_device_bytes(n_params: int, cfg, batch: int = HSDP_BATCH,
+                      groups: int = 2) -> int:
+    """Device memory train_hsdp may hold at once, the larger of its two
+    parts: the parity pass (the unsharded and the sharded model, each its
+    f32 parameters and gradients, and the unsharded model's activations,
+    the larger) and the drill (per group its f32 parameters, gradients and
+    two AdamW moments, 16 bytes a parameter; the healer's healed copy of
+    parameters and moments before it is loaded, 12; every group's
+    activations)."""
+    parity = 16 * n_params + max(gpt_activation_bytes(cfg, batch) // 2,
+                                 hsdp_activation_bytes(cfg, batch))
+    drill = (16 * groups + 12) * n_params \
+        + groups * hsdp_activation_bytes(cfg, batch)
+    return max(parity, drill)
+
+
+def hsdp_host_bytes(n_params: int, groups: int = 2) -> int:
+    """Host memory train_hsdp may hold at once, in f32 copies of the
+    parameters: per group DDP's pinned staging and the wire's buffers
+    (2); the heal's staged state on both ends (parameters and AdamW's
+    moments, 6)."""
+    return (groups * 2 + 6) * 4 * n_params
+
+
+def hsdp_pass_ms(times: dict, layers: int, positions: int = 4,
+                 remat: bool = True) -> dict:
+    """Device ms of the flash kernels in one forward/backward pass of the
+    sharded GPT, from each kernel's ms per call at the positions' shape;
+    returns ms per kernel and ``total``."""
+    calls = hsdp_launches(1, layers, positions, remat)
+    out = {n: calls[n] * times[n]["ms"] for n in calls}
+    out["total"] = sum(out.values())
+    return out
+
+
+def hsdp_flash_times(seed: int, shape: tuple) -> dict:
+    """The three flash kernels at the sharded positions' shape against
+    their plain versions (``check_flash``), then timed as ``time_flash``
+    times them (device ms, host µs, plain, bound, SDPA)."""
+    log(f"  flash kernels at the sharded positions' shape {shape}")
+    q, k, v, do = flash_inputs(seed, shape)
+    errs = check_flash(q, k, v, do)
+    times = time_flash(q, k, v, do)
+    for name in times:
+        times[name]["max_abs_err"] = errs[name]
+    return times
+
+
+def hsdp_parity(cfg, seed: int, card: str, batch: int = HSDP_BATCH,
+                device: str = "cuda") -> None:
+    """One forward/backward of the same weights and batch through the
+    sharded GPT over ``HSDP_AXES`` (a virtual mesh of ``device``) and the
+    unsharded GPT: the loss within ``LOSS_TOL`` and ``GRAD_SAMPLE`` (the
+    sharded model's gradients assembled) within ``GRAD_REL_NORM``; raises
+    on a miss. Each is then timed warm, one thread alone."""
+    import torch
+
+    from torchft_tpu_torch.models import GPT, ShardedGPT, gpt_param_tree
+    from torchft_tpu_torch.parallel import ft_mesh
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    dense = GPT(cfg, device=dev, seed=seed)
+    mesh = ft_mesh(HSDP_AXES, devices=[dev] * hsdp_positions())
+    sharded = ShardedGPT(cfg, mesh, params=gpt_param_tree(dense))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len),
+                        generator=gen, device=dev)
+    tgt = torch.roll(tok, -1, dims=1)
+    sample = [n for n in GRAD_SAMPLE
+              if not n.startswith("layers_")
+              or int(n.split(".")[0].split("_")[1]) < cfg.n_layers]
+
+    def run(model):
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(tok, tgt)
+        loss.backward()
+        return loss
+
+    out, warm = {}, {}
+    for name, model in (("sharded", sharded), ("unsharded", dense)):
+        sync()
+        t0 = time.perf_counter()
+        loss = run(model).item()
+        sync()
+        secs = time.perf_counter() - t0
+        if name == "sharded":
+            from torchft_tpu_torch.models.transformer import _tree_get
+
+            tree = model.grad_tree()
+            grads = {n: _tree_get(tree, n.replace(".", "/")).full()
+                     for n in sample}
+        else:
+            named = dict(model.named_parameters())
+            grads = {n: named[n].grad.detach().clone() for n in sample}
+        out[name] = (loss, secs, grads)
+        sync()
+        t0 = time.perf_counter()
+        run(model)
+        sync()
+        warm[name] = (time.perf_counter() - t0) * 1e3
+        model.zero_grad(set_to_none=True)
+    loss, secs, grads = out["sharded"]
+    ref_loss, ref_secs, ref_grads = out["unsharded"]
+    failed = []
+    ok = abs(loss - ref_loss) <= LOSS_TOL and loss == loss
+    log(f"  sharded {HSDP_AXES}: loss {loss:.6f} against unsharded "
+        f"{ref_loss:.6f} (|diff| {abs(loss - ref_loss):.3e}, tolerance "
+        f"{LOSS_TOL}) {'ok' if ok else 'FAIL'}; forward/backward "
+        f"{secs:.2f} s first, {warm['sharded']:.1f} ms warm; unsharded "
+        f"{ref_secs:.2f} s first, {warm['unsharded']:.1f} ms warm ({card})")
+    if not ok:
+        failed.append(f"loss {loss} against {ref_loss}")
+    for n in sample:
+        g, r = grads[n].double(), ref_grads[n].double()
+        rel = float((g - r).norm() / r.norm().clamp_min(1e-30))
+        ok = bool(torch.isfinite(g).all()) and rel <= GRAD_REL_NORM
+        log(f"    grad {n:32s} relative norm of the difference {rel:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"grad {n}: {rel}")
+    del dense, sharded, out, grads, ref_grads
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"the sharded GPT against the unsharded: "
+                             f"{failed}")
+
+
+def hsdp_report(result: dict, cfg, batch: int, per_pass: dict,
+                pass_ms: dict, card: str) -> list:
+    """The lines train_hsdp prints about a ``run_hsdp_drill`` result: the
+    bitwise checks, per group the step phases' p50s and committed step
+    times, committed tokens/s after the heal, the heal's wall, rate and
+    bytes, the bytes of pieces per position, and the flash launches and
+    their summed device time per pass beside ``forward_backward``."""
+    runs, heal = result["runs"], result["heal_step"]
+    lines = [f"both groups bitwise equal (every piece of the parameters "
+             f"and AdamW's moments) at every step both committed "
+             f"{result['checked_steps']}; group 1 healed at step {heal} "
+             f"into its sharded template"]
+    for g, run in sorted(runs.items()):
+        times = ", ".join(f"{s}: {t:.2f}"
+                          for s, t in sorted(run.step_seconds.items()))
+        lines.append(f"group {g}: step p50 ms "
+                     f"{_p50s(run.metrics, HSDP_PHASES)}; committed "
+                     f"steps (s) {{{times}}} ({card})")
+    after = [s for s in result["checked_steps"] if s > heal]
+    tokens = 2 * batch * cfg.max_seq_len
+    rates = [tokens / max(runs[0].step_seconds[s], runs[1].step_seconds[s])
+             for s in after]
+    lines.append(f"committed tokens/s, two groups sharing the card, steps "
+                 f"{after}: {[round(r) for r in rates]} ({card})")
+    h = result["heal"]
+    lines.append(f"heal: heal_wall_ms {h['heal_wall_ms']:.1f}, "
+                 f"heal_bytes_per_s {h['heal_bytes_per_s'] / 1e9:.3f} GB/s, "
+                 f"wire bytes {int(h['wire_bytes'])} = the state's "
+                 f"{h['state_bytes']} ({card})")
+    lines.append(f"bytes of parameter pieces per mesh position "
+                 f"{result['piece_bytes']} (f32)")
+    fb = [run.metrics.get("forward_backward_p50_ms")
+          for _, run in sorted(runs.items())]
+    lines.append(f"flash launches per forward/backward pass: {per_pass} "
+                 f"({cfg.n_layers} layers x {hsdp_positions()} positions, "
+                 f"remat); their device time per pass "
+                 f"{pass_ms['total']:.2f} ms ("
+                 + ", ".join(f"{n} {ms:.2f}" for n, ms in pass_ms.items()
+                             if n != "total")
+                 + f") beside forward_backward p50 {fb} ms ({card})")
+    lines.append(f"drill {result['seconds']:.1f} s, {result['passes']} "
+                 f"forward/backward passes ({card})")
+    return lines
+
+
+def phase_train_hsdp(seed: int, card: str, batch: int = HSDP_BATCH):
+    """The HSDP phase (module docstring, phase 16): the kernels at the
+    positions' shape, the parity pass, then the drill with the launch
+    counts set to 0 just before it. Returns (the drill's launches, the
+    launches the schedule says, the head_dim)."""
+    import torch
+
+    from torchft_tpu_torch.examples.train_hsdp import run_hsdp_drill
+    from torchft_tpu_torch.models import gpt_param_shapes
+    from torchft_tpu_torch.ops import flash, quant
+
+    t0 = time.perf_counter()
+    cfg = hsdp_config()
+    n_params = sum(math.prod(s) for s in gpt_param_shapes(cfg).values())
+    need_host = hsdp_host_bytes(n_params)
+    free_host = check_host_memory(need_host, what="train_hsdp")
+    need = hsdp_device_bytes(n_params, cfg, batch)
+    gc.collect()  # an earlier phase's cycles may hold tensors
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    if free < need:
+        raise AssertionError(f"train_hsdp needs {need / 1e9:.2f} GB of "
+                             f"device memory free, has {free / 1e9:.2f} GB")
+    shape = hsdp_attention_shape(cfg, batch)
+    log(f"  1b: {n_params} parameters, vocab {cfg.vocab_size} d_model "
+        f"{cfg.d_model} layers {cfg.n_layers} heads {cfg.n_heads} (head_dim "
+        f"{cfg.head_dim}) d_ff {cfg.d_ff} seq {cfg.max_seq_len} xent_chunks "
+        f"{cfg.xent_chunks} remat {cfg.remat}, batch {batch}; mesh "
+        f"{HSDP_AXES} of virtual positions, attention {shape} a position; "
+        f"device memory: up to {need / 1e9:.2f} GB, {free / 1e9:.1f} GB "
+        f"free; host memory: up to {need_host / 1e9:.2f} GB, "
+        f"{free_host / 1e9:.1f} GB available")
+    times = hsdp_flash_times(seed, shape)
+    per_pass = hsdp_launches(1, cfg.n_layers, hsdp_positions(), cfg.remat)
+    pass_ms = hsdp_pass_ms(times, cfg.n_layers, hsdp_positions(), cfg.remat)
+    hsdp_parity(cfg, seed, card, batch)
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    quant.reset_launch_counts()
+    result = run_hsdp_drill(
+        cfg, HSDP_AXES, steps=HSDP_STEPS, kill_after=HSDP_KILL_AFTER,
+        device="cuda", batch_size=batch, seed=seed, timeout=600.0,
+        log=lambda m: log("  " + m))
+    counts = {**flash.LAUNCHES, **quant.LAUNCHES}
+    want = {**hsdp_launches(result["passes"], cfg.n_layers,
+                            hsdp_positions(), cfg.remat),
+            **dict.fromkeys(quant.LAUNCHES, 0)}
+    for line in hsdp_report(result, cfg, batch, per_pass, pass_ms, card):
         log("  " + line)
     log(f"  device memory peak: {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         f" GB allocated, {torch.cuda.max_memory_reserved() / 1e9:.2f} GB "
@@ -3078,7 +3402,8 @@ def _check_launches(counts, want, what: str) -> None:
 
 PHASES = ("kernels", "train", "train_multijob", "train_sharded",
           "train_moe", "train_cuda_int8",
-          "train_tiny", "gpt_1b", "train_llama_ring", "train_diloco",
+          "train_tiny", "gpt_1b", "train_llama_ring", "train_hsdp",
+          "train_diloco",
           "train_diloco_sharded", "train_localsgd_int8", "train_hier_int8",
           "train_durable")
 
@@ -3236,6 +3561,13 @@ def main() -> int:
                         f"{LLAMA_RING_SHARDS} shards, its pairs that run "
                         "once each backward and twice forward (remat); "
                         "codec: none")
+        _add_launches(rows, counts, head_dim)
+    if "train_hsdp" in phases:
+        log("phase train_hsdp")
+        counts, want, head_dim = phase_train_hsdp(args.seed, smi)
+        _check_launches(counts, want,
+                        "flash: per layer per pass one attention per mesh "
+                        "position, the forward twice (remat); codec: none")
         _add_launches(rows, counts, head_dim)
     if "train_diloco" in phases:
         log("phase train_diloco")

@@ -21,6 +21,7 @@ checks failing a drill whose counter or recorded step is wrong.
 """
 
 import importlib.util
+import math
 import os
 import subprocess
 import sys
@@ -158,7 +159,8 @@ def test_flash_shapes_reach_every_head_dim() -> None:
     assert smoke.PHASES == ("kernels", "train", "train_multijob",
                             "train_sharded", "train_moe", "train_cuda_int8",
                             "train_tiny", "gpt_1b", "train_llama_ring",
-                            "train_diloco", "train_diloco_sharded",
+                            "train_hsdp", "train_diloco",
+                            "train_diloco_sharded",
                             "train_localsgd_int8", "train_hier_int8",
                             "train_durable")
     assert all(n in {k for k, v in GPT(CONFIGS["1b"], device="meta")
@@ -798,3 +800,112 @@ def test_train_llama_ring_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
     assert "ring launches per forward/backward pass: {'flash_fwd': 40" in text
     assert "group 1: step p50 ms {'quorum'" in text
     assert "committed tokens/s" in text and "phase " in text
+
+
+def test_hsdp_memory_and_launches_at_1b() -> None:
+    smoke = _smoke()
+    cfg = smoke.hsdp_config()
+    assert (cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.head_dim, cfg.d_ff,
+            cfg.vocab_size, cfg.max_seq_len, cfg.xent_chunks, cfg.remat) == \
+        (2048, 24, 16, 128, 8192, 32768, 2048, 8, True)
+    from torchft_tpu_torch.models import gpt_param_shapes
+
+    n = sum(math.prod(s) for s in gpt_param_shapes(cfg).values())
+    assert n == 1346572288
+    # batch 8 over fsdp 2, 16 heads over tensor 2: what the kernels see
+    assert smoke.hsdp_attention_shape(cfg) == (4, 2048, 8, 128)
+    assert smoke.hsdp_positions() == 4
+    # the shard's vocabulary splits into the loss's chunks
+    assert (cfg.vocab_size // 2) % cfg.xent_chunks == 0
+    # 13 passes x 24 layers x 4 positions, the forward twice (remat)
+    assert smoke.hsdp_launches(13, 24) == {
+        "flash_fwd": 2496, "flash_bwd_dq": 1248, "flash_bwd_dkv": 1248}
+    assert smoke.hsdp_launches(1, 2, remat=False) == dict.fromkeys(
+        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 8)
+    # the drill's part: two groups' parameters, gradients and moments,
+    # the healer's healed copy, every group's activations; it must fit
+    # the 80 GB card
+    act = smoke.hsdp_activation_bytes(cfg, 8)
+    need = smoke.hsdp_device_bytes(n, cfg)
+    assert need == (16 * 2 + 12) * n + 2 * act
+    assert 2e9 < act < 8e9 and need < 76e9
+    assert smoke.hsdp_host_bytes(n) == 10 * 4 * n
+    phases = smoke.PHASES
+    assert phases.index("train_llama_ring") < phases.index("train_hsdp") \
+        < phases.index("train_durable")
+
+
+def test_hsdp_pass_ms_follows_the_schedule() -> None:
+    smoke = _smoke()
+    times = {"flash_fwd": {"ms": 1.0}, "flash_bwd_dq": {"ms": 10.0},
+             "flash_bwd_dkv": {"ms": 100.0}}
+    got = smoke.hsdp_pass_ms(times, 24)
+    assert got["flash_fwd"] == 2 * 96 * 1.0
+    assert got["flash_bwd_dq"] == 96 * 10.0
+    assert got["flash_bwd_dkv"] == 96 * 100.0
+    assert got["total"] == 192 + 960 + 9600
+
+
+def test_train_hsdp_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # the phase as the card runs it, moved to "tiny" (with remat and 2
+    # vocab chunks a shard) on the CPU: the parity pass, the drill's
+    # checks, the report and the launches the schedule says; the kernels'
+    # timing needs the card and is stubbed
+    import dataclasses
+    import functools
+
+    import torchft_tpu_torch.examples.train_hsdp as example
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    tiny = dataclasses.replace(CONFIGS["tiny"], xent_chunks=2, remat=True)
+    monkeypatch.setattr(smoke, "hsdp_config", lambda: tiny)
+    times = {n: {"ms": 0.01} for n in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")}
+    monkeypatch.setattr(smoke, "hsdp_flash_times", lambda *a, **k: times)
+    monkeypatch.setattr(smoke, "hsdp_parity", functools.partial(
+        smoke.hsdp_parity, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (1e12, 1e12))
+    for name in ("empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "max_memory_reserved", lambda *a: 0)
+    fn = example.run_hsdp_drill
+    monkeypatch.setattr(example, "run_hsdp_drill", lambda cfg, axes, **kw: fn(
+        cfg, axes, **dict(kw, device="cpu", timeout=30.0)))
+    counts, want, head_dim = smoke.phase_train_hsdp(0, "CPU")
+    assert head_dim == 16
+    # 13 passes x 2 layers x 4 positions; the CPU launches no kernel
+    assert want == {"flash_fwd": 13 * 2 * 4 * 2, "flash_bwd_dq": 13 * 2 * 4,
+                    "flash_bwd_dkv": 13 * 2 * 4, "quant_int8": 0,
+                    "dequant_acc_int8": 0}
+    assert set(counts) == set(want) and not any(counts.values())
+    text = "\n".join(lines)
+    assert "sharded {'fsdp': 2, 'tensor': 2}: loss" in text
+    assert " ms warm (CPU)" in text
+    assert "FAIL" not in text
+    assert "both groups bitwise equal" in text
+    assert "group 1 healed at step 5 into its sharded template" in text
+    assert "heal: heal_wall_ms" in text and "= the state's" in text
+    assert "bytes of parameter pieces per mesh position" in text
+    assert "flash launches per forward/backward pass: {'flash_fwd': 16" \
+        in text
+    assert "group 1: step p50 ms {'quorum'" in text
+    assert "committed tokens/s" in text and "phase " in text
+
+
+def test_hsdp_parity_fails_a_wrong_model(monkeypatch) -> None:
+    # a sharded model whose loss is off fails the parity pass loudly
+    import dataclasses
+
+    from torchft_tpu_torch.models import ShardedGPT
+
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "log", lambda m: None)
+    tiny = dataclasses.replace(CONFIGS["tiny"], xent_chunks=2)
+    real = ShardedGPT.loss
+    monkeypatch.setattr(ShardedGPT, "loss",
+                        lambda self, *a: real(self, *a) * 1.1)
+    with pytest.raises(AssertionError, match="against the unsharded"):
+        smoke.hsdp_parity(tiny, 0, "CPU", device="cpu")

@@ -886,3 +886,152 @@ def test_llama_ring_example_runs_over_the_cards() -> None:
         lh.shutdown()
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "step 3" in proc.stdout, proc.stdout
+
+
+@pytest.mark.cuda
+def test_hsdp_drill_tiny_on_card() -> None:
+    """The HSDP example's drill at "tiny" (head_dim 16) on a ``{"fsdp": 2,
+    "tensor": 2}`` mesh (virtual on one card, a card a position on four):
+    kill, poisoned restart,
+    heal into the sharded template at 5, every piece bitwise at every step
+    both commit (the drill's own checks), and one attention per layer per
+    position per pass."""
+    from torchft_tpu_torch.examples.train_hsdp import run_hsdp_drill
+    from torchft_tpu_torch.models import CONFIGS
+
+    _cuda()
+    cfg = CONFIGS["tiny"]
+    flash.reset_launch_counts()
+    result = run_hsdp_drill(cfg, {"fsdp": 2, "tensor": 2}, steps=7,
+                            kill_after=3, device="cuda", timeout=60.0)
+    assert result["heal_step"] == 5 and result["passes"] == 13
+    assert result["checked_steps"] == [1, 2, 3, 5, 6, 7]
+    per = 13 * cfg.n_layers * 4
+    assert flash.LAUNCHES == {"flash_fwd": per, "flash_bwd_dq": per,
+                              "flash_bwd_dkv": per}
+
+
+def ft_mesh_virtual(n: int):
+    """``{"fsdp": 2, "tensor": n // 2}`` over n positions of ``cuda:0``."""
+    from torchft_tpu_torch.parallel import ft_mesh
+
+    return ft_mesh({"fsdp": 2, "tensor": n // 2},
+                   devices=[torch.device("cuda", 0)] * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_sharded_gpt_over_the_cards_equals_the_virtual_mesh(remat) -> None:
+    """The sharded "tiny" over ``cuda:0`` .. ``cuda:3`` (``{"fsdp": 2,
+    "tensor": 2}``, one card a position: the gathers, the row-parallel
+    sums and the vocab-parallel combination cross cards) against the same
+    model over 4 virtual positions of ``cuda:0``: the loss and every
+    gradient piece bitwise, the parameter pieces on their cards, and the
+    flash kernels launched once per layer per position (twice forward
+    under remat)."""
+    import dataclasses
+
+    from torchft_tpu_torch.models import CONFIGS, ShardedGPT
+    from torchft_tpu_torch.parallel import ft_mesh
+
+    _cuda()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: one card a mesh position")
+    cfg = dataclasses.replace(CONFIGS["tiny"], remat=remat, xent_chunks=2)
+    axes = {"fsdp": 2, "tensor": 2}
+    cards = [torch.device("cuda", i) for i in range(4)]
+    meshes = {"cards": ft_mesh(axes, devices=cards),
+              "virtual": ft_mesh_virtual(4)}
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    tok = torch.randint(0, cfg.vocab_size, (8, cfg.max_seq_len),
+                        generator=gen)
+    tgt = torch.roll(tok, -1, dims=1)
+    results = {}
+    for arm, mesh in meshes.items():
+        model = ShardedGPT(cfg, mesh, seed=3)
+        flash.reset_launch_counts()
+        loss = model.loss(tok.to(cards[0]), tgt.to(cards[0]))
+        loss.backward()
+        for d in cards:
+            torch.cuda.synchronize(d)
+        per = cfg.n_layers * 4
+        assert flash.LAUNCHES == {"flash_fwd": per * (2 if remat else 1),
+                                  "flash_bwd_dq": per, "flash_bwd_dkv": per}
+        grads = model.grad_tree()
+        results[arm] = (loss.detach().cpu(), {
+            path: _leaf(grads, path).full("cpu") for path in model.paths})
+        if arm == "cards":
+            layout = model.layouts["layers_0/attn/q_proj/kernel"]
+            assert [p.device for p in layout.pieces] == cards
+    assert torch.equal(results["cards"][0], results["virtual"][0])
+    for path, g in results["cards"][1].items():
+        assert torch.equal(g, results["virtual"][1][path]), path
+
+
+def _leaf(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+@pytest.mark.cuda
+def test_sharded_1b_cut_matches_the_unsharded_on_card() -> None:
+    """"1b" at full width, 2 layers, batch 8, on a virtual ``{"fsdp": 2,
+    "tensor": 2}`` mesh of the card (the flash kernels at (4, 2048, 8,
+    128)) against the unsharded GPT on the same weights: chip_smoke.py's
+    LOSS_TOL and GRAD_REL_NORM."""
+    import dataclasses
+
+    from torchft_tpu_torch.models import CONFIGS, GPT, ShardedGPT, \
+        gpt_param_tree
+
+    _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(CONFIGS["1b"], n_layers=2)
+    dense = GPT(cfg, device="cuda", seed=5)
+    model = ShardedGPT(cfg, ft_mesh_virtual(4),
+                       params=gpt_param_tree(dense))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tok = torch.randint(0, cfg.vocab_size, (8, cfg.max_seq_len),
+                        generator=gen, device="cuda")
+    tgt = torch.roll(tok, -1, dims=1)
+    flash.reset_launch_counts()
+    loss = model.loss(tok, tgt)
+    loss.backward()
+    assert flash.LAUNCHES == {"flash_fwd": 16, "flash_bwd_dq": 8,
+                              "flash_bwd_dkv": 8}
+    want = dense.loss(tok, tgt)
+    want.backward()
+    assert abs(loss.item() - want.item()) <= 2e-2
+    grads = model.grad_tree()
+    for name, p in dense.named_parameters():
+        g = _leaf(grads, name.replace(".", "/")).full().double()
+        r = p.grad.double()
+        assert float((g - r).norm() / r.norm()) <= 5e-2, name
+
+
+@pytest.mark.cuda
+def test_hsdp_example_runs_over_the_cards() -> None:
+    """``examples/train_hsdp.py`` as a subprocess on CUDA at its defaults
+    ("tiny", the mesh over the visible cards, ``tensor = 2`` when their
+    count is even) but 3 steps."""
+    import subprocess
+    import sys
+
+    from torchft_tpu_torch.control import Lighthouse
+
+    _cuda()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    lh = Lighthouse(min_replicas=1, join_timeout_ms=200)
+    env = dict(os.environ, TORCHFT_TPU_LIGHTHOUSE=lh.address(),
+               REPLICA_GROUP_ID="0", LOGLEVEL="ERROR", TOTAL_STEPS="3")
+    for name in ("DEVICE", "MESH_DEVICES", "MODEL"):
+        env.pop(name, None)
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "torchft_tpu_torch.examples.train_hsdp"],
+            env=env, capture_output=True, text=True, timeout=300, cwd=root)
+    finally:
+        lh.shutdown()
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "step 3" in proc.stdout and "done" in proc.stdout, proc.stdout

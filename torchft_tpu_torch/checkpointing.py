@@ -18,7 +18,8 @@ optimizer may touch the state again) closes it.
   Each entry carries the JAX package's ``path`` and ``kind``; a tensor
   entry (``"ndarray"``) its ``dtype`` by numpy's name, ``shape``,
   ``nbytes``, ``pieces`` (the global bounds this host holds, one piece for
-  a whole tensor) and ``tensor`` (a torch tensor, not a numpy array); an
+  a whole tensor, its distinct shard bounds for a ``ShardedTensor``) and
+  ``tensor`` (a torch tensor, not a numpy array); an
   object entry (a non-tensor leaf: the step counters, an optimizer's
   hyperparameters) its ``value``. ``peers`` are the other ranks' servers
   of the replica group (``set_peers``), for a healer to fan out to.
@@ -37,6 +38,13 @@ optimizer may touch the state again) closes it.
   each framed by the Manager's identity probe (``set_telemetry``) in the
   reference's payload shape, so ``scripts/fleet_top.py`` reads a replica of
   either package. Telemetry is not gated on the checkpoint gate.
+- Sharded leaves: a ``parallel.sharding.ShardedTensor`` is staged shard by
+  shard (each distinct region's piece copied to host on its own, the twin
+  of the reference's ``_ShardedLeaf``, so the staged copy never forms the
+  whole leaf on the card). A request for exactly one piece's bounds is
+  served from that piece, a region spanning pieces is assembled on the
+  host, and a whole fetch (``/leaf/{i}`` without a slice, ``rawleaves``)
+  assembles the leaf.
 - Healer, chunked (the default without a template): ``_recv_chunked``
   splits the tensor leaves into byte-balanced ranges over ``num_chunks``
   keep-alive connections and ``readinto``s each leaf straight into a
@@ -49,7 +57,10 @@ optimizer may touch the state again) closes it.
   donor's by path, routes each region over the donor's and its peers'
   piece maps, stripes large regions over every covering host and several
   connections, fails over when a donor dies mid-stream, and uploads each
-  leaf to the template's device as soon as its last region lands. Donors
+  leaf to the template's device as soon as its last region lands. A
+  template leaf that is a ``ShardedTensor`` fetches only the bounds of its
+  pieces and lands each in its piece on that piece's device: the healed
+  leaf has the healer's own sharding. Donors
   of either package serve it, and a JAX-package healer heals from a donor
   of this one.
 
@@ -96,6 +107,7 @@ from torchft_tpu_torch.comm.redistribute import (
 from torchft_tpu_torch.comm.wire import readinto_exact, split_stripes
 from torchft_tpu_torch.control._native import get_lib
 from torchft_tpu_torch.futures import FutureGroup, StealableTask, future_chain
+from torchft_tpu_torch.parallel.sharding import ShardedTensor
 from torchft_tpu_torch.utils.crc32c import crc32c
 from torchft_tpu_torch.utils.net import advertised_host
 from torchft_tpu_torch.utils.serialization import (
@@ -370,6 +382,44 @@ def _heal_executor(kind: str) -> ThreadPoolExecutor:
 # ------------------------------------------------------------------- staging
 
 
+class _HostShards:
+    """Host copy of one ``ShardedTensor``, held shard-wise: a contiguous
+    CPU tensor per distinct region kept, keyed by its global bounds (the
+    twin of the reference's ``_ShardedLeaf``)."""
+
+    def __init__(self, leaf: ShardedTensor, keep) -> None:
+        self.shape = leaf.shape
+        self.dtype = leaf.dtype
+        self.pieces: Dict[tuple, torch.Tensor] = {}
+        for piece, b in zip(leaf.pieces, leaf.bounds):
+            if b in keep and b not in self.pieces:
+                self.pieces[b] = to_host(piece)
+
+    def read(self, bounds) -> torch.Tensor:
+        """The region ``bounds``: a piece itself when it is one, else
+        assembled on the host from the pieces it overlaps; raises
+        ValueError when they do not cover it."""
+        hit = self.pieces.get(bounds)
+        if hit is not None:
+            return hit
+        out = torch.empty(tuple(b - a for a, b in bounds), dtype=self.dtype)
+        covers = []
+        for pb, arr in self.pieces.items():
+            inter = _intersect(pb, bounds)
+            if inter is None:
+                continue
+            src = tuple(slice(a - pa, b - pa)
+                        for (a, b), (pa, _) in zip(inter, pb))
+            dst = tuple(slice(a - ra, b - ra)
+                        for (a, b), (ra, _) in zip(inter, bounds))
+            out[dst] = arr[src]
+            covers.append(inter)
+        if not _covers_exactly(bounds, covers):
+            raise ValueError(f"region {bounds} is not covered by this "
+                             "host's pieces")
+        return out
+
+
 @dataclass(frozen=True)
 class _Staged:
     """One staged checkpoint: per-leaf tasks resolving to the staged host
@@ -399,10 +449,10 @@ def _build_staged(step: int, state: Any, peers: Sequence[str] = (),
                   metrics: "Optional[Any]" = None) -> _Staged:
     """Stage ``state`` for serving; the manifest comes from metadata only.
     Tensors are copied to host lazily (the gate keeps the trainer off them
-    until staging finished); numpy arrays, mutable host state, are
-    snapshot now. ``shard_filter(path, bounds) -> bool`` drops pieces at
-    staging time (the single-process stand-in for a host that holds part
-    of a leaf)."""
+    until staging finished), a ``ShardedTensor`` piece by piece; numpy
+    arrays, mutable host state, are snapshot now. ``shard_filter(path,
+    bounds) -> bool`` drops pieces at staging time (the single-process
+    stand-in for a host that holds part of a leaf)."""
     flat, spec = tree_flatten_with_path(state)
     entries: List[dict] = []
     slots: List[StealableTask] = []
@@ -412,9 +462,25 @@ def _build_staged(step: int, state: Any, peers: Sequence[str] = (),
             slots.append(StealableTask(lambda o=leaf: o))
             continue
         shape = tuple(int(d) for d in leaf.shape)
-        pieces = [_full(shape)]
+        if isinstance(leaf, ShardedTensor):
+            pieces = sorted(set(leaf.bounds))
+        else:
+            pieces = [_full(shape)]
         if shard_filter is not None:
             pieces = [b for b in pieces if shard_filter(path, b)]
+        if isinstance(leaf, ShardedTensor):
+            entries.append({
+                "path": path, "kind": "ndarray",
+                "dtype": dtype_str(leaf.dtype), "shape": shape,
+                "nbytes": leaf.nbytes, "pieces": pieces, "tensor": True,
+            })
+
+            def _stage_shards(x=leaf, keep=frozenset(pieces)):
+                with timed_span(metrics, "heal_stage"):
+                    return _HostShards(x, keep)
+
+            slots.append(StealableTask(_stage_shards))
+            continue
         tensor = isinstance(leaf, torch.Tensor)
         entries.append({
             "path": path,
@@ -589,13 +655,16 @@ class _Handler(BaseHTTPRequestHandler):
         shape = tuple(entry["shape"])
         slices = _parse_slice_spec(spec, shape) if spec is not None else None
         bounds = _normalize_index(slices, shape) if slices else _full(shape)
-        if not any(all(pa <= a and b <= pb
-                       for (a, b), (pa, pb) in zip(bounds, p))
-                   for p in entry["pieces"]):
+        if not _covers_exactly(bounds, [tuple(tuple(b) for b in p)
+                                        for p in entry["pieces"]]):
             self.send_error(400, f"region {bounds} of leaf {idx} is not "
                                  "held by this host")
             return False
-        view, wired = _wire_encode(obj[slices] if slices else obj, wire)
+        if isinstance(obj, _HostShards):
+            region = obj.read(bounds)
+        else:
+            region = obj[slices] if slices else obj
+        view, wired = _wire_encode(region, wire)
         self.send_response(200)
         self.send_header("X-Kind", "ndarray")
         self.send_header("X-Dtype", entry["dtype"])
@@ -624,8 +693,9 @@ class _Handler(BaseHTTPRequestHandler):
             return False
         sizes = []
         for entry in staged.entries[lo:hi]:
-            if entry["kind"] != "ndarray" \
-                    or _full(entry["shape"]) not in entry["pieces"]:
+            if entry["kind"] != "ndarray" or not _covers_exactly(
+                    _full(entry["shape"]),
+                    [tuple(tuple(b) for b in p) for p in entry["pieces"]]):
                 self.send_error(400, f"leaf range {lo}-{hi} holds a leaf "
                                      "that is not a whole tensor on this "
                                      "host: fetch it through /leaf/{i}")
@@ -638,7 +708,10 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("Content-Length", str(clen))
         self.end_headers()
         for i in range(lo, hi):
-            view, _ = _wire_encode(staged.leaf(i, server._timeout), wire)
+            leaf = staged.leaf(i, server._timeout)
+            if isinstance(leaf, _HostShards):
+                leaf = leaf.read(_full(leaf.shape))
+            view, _ = _wire_encode(leaf, wire)
             self._write_body(view, crc)
         return True
 
@@ -1286,6 +1359,12 @@ def recv_checkpoint_sharded(
     JAX package orders dict keys its own way); the structure comes from the
     template, never from the donor.
 
+    A template leaf that is a ``parallel.sharding.ShardedTensor`` fetches
+    only the distinct bounds of its pieces (each once, however many
+    devices hold it) and comes back as a ``ShardedTensor`` of the
+    template's sharding, each region landed in its piece on that piece's
+    device.
+
     Streaming pipeline: each tensor leaf's region lands by ``readinto`` in
     a preallocated host buffer (pinned when the template leaf is on the
     card); a region spread over hosts is fetched piece by piece from the
@@ -1459,9 +1538,11 @@ def recv_checkpoint_sharded(
             raise ValueError(f"dtype mismatch at {path}: template "
                              f"{dtype_str(tleaf.dtype)} vs donor "
                              f"{entry['dtype']}")
-        full = _full(shape)
+        # a sharded template fetches the bounds of its pieces alone
+        regions = dict.fromkeys(tleaf.bounds) \
+            if isinstance(tleaf, ShardedTensor) else {_full(shape): None}
         plans.append((path, entry, tleaf,
-                      {full: _plan_region(path, shape, full)}))
+                      {b: _plan_region(path, shape, b) for b in regions}))
 
     h2d_ex = _heal_executor("h2d")
     streams: Dict[Any, Any] = {}
@@ -1489,7 +1570,10 @@ def recv_checkpoint_sharded(
                     _fetch_job, metadata, path, None, None, _oalts))
                 continue
             shape = tuple(int(d) for d in entry["shape"])
-            on_card = isinstance(tleaf, torch.Tensor) and tleaf.is_cuda
+            if isinstance(tleaf, ShardedTensor):
+                on_card = any(d.type == "cuda" for d in tleaf.devices)
+            else:
+                on_card = isinstance(tleaf, torch.Tensor) and tleaf.is_cuda
             dtype = tleaf.dtype
             group = FutureGroup()
             region_bufs = {}
@@ -1546,6 +1630,15 @@ def recv_checkpoint_sharded(
 
             def _assemble(tleaf=tleaf, region_bufs=region_bufs,
                           on_card=on_card):
+                if isinstance(tleaf, ShardedTensor):
+                    # each region lands in every piece that holds it, on
+                    # that piece's device
+                    with timed_span(metrics, "heal_h2d"):
+                        return tleaf.like([
+                            _to_device(region_bufs[b], d, streams,
+                                       streams_lock)
+                            if d.type == "cuda" else region_bufs[b]
+                            for b, d in zip(tleaf.bounds, tleaf.devices)])
                 (buf,) = region_bufs.values()
                 if not on_card:
                     return buf

@@ -1,10 +1,13 @@
 from torchft_tpu_torch.models.transformer import (  # noqa: F401
     CONFIGS,
     GPT,
+    ShardedGPT,
     TrainStep,
     TransformerConfig,
     count_params,
     from_jax_params,
+    gpt_param_shapes,
+    gpt_param_tree,
     loss_fn,
     make_train_step,
 )

@@ -12,13 +12,39 @@ bf16 before the gather; the tanh GELU; attention through
 caller passes ``attn_fn``, the reference's hook (a ring over the sequence
 axis, ``parallel/ring.py``); the lm-head product and the loss in f32,
 chunked over the vocab when ``xent_chunks`` > 0.
+
+:class:`ShardedGPT` is the same model with its parameters sharded over the
+``fsdp`` and ``tensor`` axes of an in-group mesh (``parallel/sharding.py``,
+``tp_rules_gpt``). The reference leaves that partitioning to XLA
+(``make_grad_step`` on ``shard_pytree`` d parameters); here the mesh's
+positions run in lock-step in one process, each on its own device, and the
+collectives are explicit autograd functions that add contributions in a
+fixed position order, so two replica groups stay bitwise equal:
+
+- the batch splits over the ``data`` x ``fsdp`` coordinates;
+- ``fsdp``: each layer gathers its pieces on every position's device when
+  it runs, inside the remat region, so the backward gathers again rather
+  than keeping whole weights; the gather's backward is the reduce-scatter
+  into the pieces (every copy of a region gets the sum over all positions
+  that used it, in position order);
+- ``tensor``, Megatron's layout: q/k/v and the MLP's up projection
+  column-parallel, so each position attends over its own ``n_heads / tp``
+  heads through ``causal_attention`` (the flash kernels on the card); the
+  attention's output and the MLP's down projection row-parallel, their
+  partial sums added in position order; the token embedding a masked
+  gather per vocab shard, summed; the lm head through
+  ``ops.xent.vocab_parallel_nll``.
+
+Its parameters are the pieces (``nn.Parameter`` s), so ``torch.optim`` and
+``ddp.DistributedDataParallel`` see plain tensors; ``state_tree`` views
+them (and an optimizer's moments) as ``ShardedTensor`` leaves for the heal.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,11 +52,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from torchft_tpu_torch.ops.attention import causal_attention
-from torchft_tpu_torch.ops.xent import hidden_cross_entropy
+from torchft_tpu_torch.ops.xent import hidden_cross_entropy, vocab_parallel_nll
+from torchft_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_FSDP, AXIS_TENSOR
+from torchft_tpu_torch.parallel.sharding import (
+    NamedSharding,
+    ShardedTensor,
+    _device,
+    make_sharding_fn,
+    tp_rules_gpt,
+)
 from torchft_tpu_torch.utils.device import resolve_device
 
-__all__ = ["CONFIGS", "GPT", "TrainStep", "TransformerConfig",
-           "count_params", "from_jax_params", "loss_fn", "make_train_step"]
+__all__ = ["CONFIGS", "GPT", "ShardedGPT", "TrainStep", "TransformerConfig",
+           "count_params", "from_jax_params", "gpt_param_shapes",
+           "gpt_param_tree", "loss_fn", "make_train_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +117,24 @@ def _layer_norm(x, scale, bias, eps: float = 1e-5):
     var = x32.var(-1, unbiased=False, keepdim=True)
     out = (x32 - mu) * torch.rsqrt(var + eps)
     return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+def _init_tensor(leaf: str, shape, gen: torch.Generator,
+                 device: "str | torch.device" = "cpu") -> torch.Tensor:
+    """The reference's draw for a parameter named ``leaf``: N(0, 0.02)
+    embeddings, N(0, 1/fan_in) kernels (experts ``[E, in, out]`` too),
+    unit scales, zero biases."""
+    if leaf == "embedding":
+        return torch.randn(shape, generator=gen, device=device) * 0.02
+    if leaf == "kernel":
+        return torch.randn(shape, generator=gen, device=device) \
+            / np.sqrt(shape[0])
+    if leaf in ("up", "down"):
+        return torch.randn(shape, generator=gen, device=device) \
+            / np.sqrt(shape[1])
+    if leaf == "scale":
+        return torch.ones(shape, device=device)
+    return torch.zeros(shape, device=device)
 
 
 class _Param(nn.Module):
@@ -172,18 +225,7 @@ class GPT(nn.Module):
     def reset_parameters(self, seed: int) -> None:
         gen = torch.Generator(device="cpu").manual_seed(seed)
         for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "embedding":
-                init = torch.randn(p.shape, generator=gen) * 0.02
-            elif leaf == "kernel":
-                init = torch.randn(p.shape, generator=gen) / np.sqrt(p.shape[0])
-            elif leaf in ("up", "down"):  # experts [E, in, out]
-                init = torch.randn(p.shape, generator=gen) / np.sqrt(p.shape[1])
-            elif leaf == "scale":
-                init = torch.ones(p.shape)
-            else:
-                init = torch.zeros(p.shape)
-            p.copy_(init)
+            p.copy_(_init_tensor(name.rsplit(".", 1)[-1], p.shape, gen))
 
     def blocks(self):
         return [getattr(self, f"layers_{i}") for i in range(self.cfg.n_layers)]
@@ -430,3 +472,421 @@ def make_train_step(model: "GPT",
     :class:`TrainStep`). Cross-replica averaging never happens inside it,
     so quorum changes never re-capture."""
     return TrainStep(model, optimizer)
+
+
+# ----------------------------------------------------------- sharded GPT
+
+
+def _tree_set(tree: Dict[str, Any], path: str, value: Any) -> None:
+    *keys, leaf = path.split("/")
+    for k in keys:
+        tree = tree.setdefault(k, {})
+    tree[leaf] = value
+
+
+def _tree_get(tree: Any, path: str) -> Any:
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def gpt_param_tree(model: GPT) -> Dict[str, Any]:
+    """The model's parameters (the live tensors, detached) in the
+    reference's pytree structure: ``{"wte": {"embedding": ...},
+    "layers_0": {"attn": {"q_proj": {"kernel": ...}}}, ...}``."""
+    tree: Dict[str, Any] = {}
+    for name, p in model.named_parameters():
+        _tree_set(tree, name.replace(".", "/"), p.detach())
+    return tree
+
+
+def gpt_param_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
+    """Every parameter's path (the reference's) and shape, in
+    ``GPT.named_parameters()`` order."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    out = {"wte/embedding": (v, d), "wpe/embedding": (cfg.max_seq_len, d),
+           "ln_f/scale": (d,), "ln_f/bias": (d,), "lm_head/kernel": (d, v)}
+    for i in range(cfg.n_layers):
+        out.update({
+            f"layers_{i}/ln_1/scale": (d,), f"layers_{i}/ln_1/bias": (d,),
+            f"layers_{i}/attn/q_proj/kernel": (d, d),
+            f"layers_{i}/attn/k_proj/kernel": (d, d),
+            f"layers_{i}/attn/v_proj/kernel": (d, d),
+            f"layers_{i}/attn/o_proj/kernel": (d, d),
+            f"layers_{i}/ln_2/scale": (d,), f"layers_{i}/ln_2/bias": (d,),
+            f"layers_{i}/mlp/up_proj/kernel": (d, f),
+            f"layers_{i}/mlp/down_proj/kernel": (f, d)})
+    return out
+
+
+# the dimension tp_rules_gpt splits over the tensor axis, by leaf name
+_TENSOR_DIM = {"wte/embedding": 0, "lm_head/kernel": 1, "q_proj/kernel": 1,
+               "k_proj/kernel": 1, "v_proj/kernel": 1, "o_proj/kernel": 0,
+               "up_proj/kernel": 1, "down_proj/kernel": 0}
+
+
+class _GatherPlan:
+    """How one leaf's pieces assemble on each mesh position: the
+    position's region is its piece's bounds with the fsdp dimension whole,
+    concatenated from the pieces of the positions that differ from it on
+    the fsdp axis alone, in fsdp order."""
+
+    def __init__(self, shard: ShardedTensor) -> None:
+        mesh = shard.sharding.mesh
+        grid, names = mesh.devices.shape, mesh.axis_names
+        spec = shard.sharding.spec
+        self.dim = spec.index(AXIS_FSDP) if AXIS_FSDP in spec else None
+        self.devices = [_device(d) for d in mesh.devices.flat]
+        self.piece_devices = list(shard.devices)
+        self.sources: List[List[int]] = []
+        for pos in range(mesh.size):
+            if self.dim is None:
+                self.sources.append([shard._index[pos]])
+                continue
+            coord = list(np.unravel_index(pos, grid))
+            axis = names.index(AXIS_FSDP)
+            srcs = []
+            for c in range(grid[axis]):
+                coord[axis] = c
+                srcs.append(shard._index[int(np.ravel_multi_index(coord,
+                                                                   grid))])
+            self.sources.append(srcs)
+        self.block = (shard.bounds[0][self.dim][1]
+                      - shard.bounds[0][self.dim][0]) \
+            if self.dim is not None else None
+        # the copies of each distinct region, and every (position, slot)
+        # that used one of them, in position order
+        group_of: Dict[tuple, int] = {}
+        for b in shard.bounds:
+            group_of.setdefault(b, len(group_of))
+        self.groups: List[List[int]] = [[] for _ in group_of]
+        for j, b in enumerate(shard.bounds):
+            self.groups[group_of[b]].append(j)
+        self.users: List[List[Tuple[int, int]]] = [[] for _ in self.groups]
+        for pos, srcs in enumerate(self.sources):
+            for k, j in enumerate(srcs):
+                self.users[group_of[shard.bounds[j]]].append((pos, k))
+
+
+class _Gather(torch.autograd.Function):
+    """fsdp all-gather of one leaf onto every mesh position; the backward
+    is the reduce-scatter, in position order, into every copy."""
+
+    @staticmethod
+    def forward(ctx, plan: _GatherPlan, *pieces):
+        ctx.plan = plan
+        ctx.shapes = [(p.shape, p.dtype) for p in pieces]
+        outs = []
+        for pos, srcs in enumerate(plan.sources):
+            dev = plan.devices[pos]
+            parts = [pieces[j].to(dev) for j in srcs]
+            outs.append(torch.cat(parts, plan.dim) if len(parts) > 1
+                        else parts[0].clone())
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plan = ctx.plan
+        out: List[Optional[torch.Tensor]] = [None] * len(ctx.shapes)
+        for group, users in zip(plan.groups, plan.users):
+            root = plan.piece_devices[group[0]]
+            acc = None
+            for pos, k in users:
+                g = grads[pos]
+                if g is None:
+                    continue
+                if plan.dim is not None:
+                    g = g.narrow(plan.dim, k * plan.block, plan.block)
+                g = g.to(root)
+                acc = g if acc is None else acc + g
+            for j in group:
+                shape, dtype = ctx.shapes[j]
+                out[j] = torch.zeros(shape, dtype=dtype,
+                                     device=plan.piece_devices[j]) \
+                    if acc is None \
+                    else acc.to(plan.piece_devices[j]).contiguous()
+        return (None, *out)
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum of the partials of one tensor-axis group on each of its
+    positions' devices, added in position order; the backward sums the
+    outputs' gradients the same way onto each partial's device."""
+
+    @staticmethod
+    def forward(ctx, devices, *parts):
+        ctx.part_devices = [p.device for p in parts]
+        ctx.devices = devices
+        outs = []
+        for dev in devices:
+            acc = parts[0].to(dev)
+            for p in parts[1:]:
+                acc = acc + p.to(dev)
+            outs.append(acc)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = []
+        for dev in ctx.part_devices:
+            acc = None
+            for g in grads:
+                if g is None:
+                    continue
+                g = g.to(dev)
+                acc = g if acc is None else acc + g
+            out.append(acc)
+        return (None, *out)
+
+
+class ShardedGPT(nn.Module):
+    """The GPT over an in-group mesh's ``fsdp`` and ``tensor`` axes (see the
+    module docstring): tokens [B, S] -> the mean next-token cross entropy,
+    equal to :class:`GPT`'s on the same weights up to the order of the
+    row-parallel and vocab-parallel sums.
+
+    ``mesh``: a ``parallel.mesh.Mesh`` (or an ``FTMesh``) with any of the
+    axes ``data``, ``fsdp`` and ``tensor``; ``n_heads``, ``d_ff`` and the
+    vocabulary split over ``tensor``, the batch over ``data`` x ``fsdp``.
+    ``params``: the whole leaves to start from, a tree in the reference's
+    structure (``jax.device_get(init_params(...))`` or
+    :func:`gpt_param_tree`), each cut into its pieces as ``shard_pytree``
+    cuts it; None draws them with :class:`GPT`'s scheme from a generator
+    seeded with ``seed`` on the first position's device, one leaf at a
+    time."""
+
+    def __init__(self, cfg: TransformerConfig, mesh, params: Any = None,
+                 seed: int = 0) -> None:
+        super().__init__()
+        mesh = getattr(mesh, "mesh", None) or mesh
+        self.cfg, self.mesh = cfg, mesh
+        shape = mesh.shape
+        self.tp = shape.get(AXIS_TENSOR, 1)
+        fsdp = shape.get(AXIS_FSDP, 1)
+        self.devices = [_device(d) for d in mesh.devices.flat]
+        coords = [dict(zip(mesh.axis_names, map(int, np.unravel_index(
+            p, mesh.devices.shape)))) for p in range(mesh.size)]
+        self.batch_shards = shape.get(AXIS_DATA, 1) * fsdp
+        self._batch_index = [c.get(AXIS_DATA, 0) * fsdp + c.get(AXIS_FSDP, 0)
+                             for c in coords]
+        self._tensor_index = [c.get(AXIS_TENSOR, 0) for c in coords]
+        # positions grouped by batch shard, each group in tensor order
+        self._groups: List[List[int]] = [[] for _ in range(self.batch_shards)]
+        for p, b in enumerate(self._batch_index):
+            self._groups[b].append(p)
+        if self.tp > 1 and (cfg.n_heads % self.tp or cfg.d_ff % self.tp
+                            or cfg.vocab_size % self.tp):
+            raise ValueError(f"n_heads {cfg.n_heads}, d_ff {cfg.d_ff} and "
+                             f"vocab {cfg.vocab_size} must split over "
+                             f"{AXIS_TENSOR} = {self.tp}")
+        fn = make_sharding_fn(mesh, tp_rules_gpt())
+        gen = None
+        if params is None:
+            gen = torch.Generator(device=self.devices[0]).manual_seed(seed)
+        self.paths = list(gpt_param_shapes(cfg))
+        self.layouts: Dict[str, ShardedTensor] = {}
+        self.plans: Dict[str, _GatherPlan] = {}
+        self.shards = nn.ModuleDict()
+        for path, want in gpt_param_shapes(cfg).items():
+            whole = _tree_get(params, path) if gen is None \
+                else _init_tensor(path.rsplit("/", 1)[-1], want, gen,
+                                  self.devices[0])
+            if tuple(whole.shape) != want:
+                raise ValueError(f"{path}: {tuple(whole.shape)}, the config "
+                                 f"wants {want}")
+            sharding = fn(path, whole)
+            self._check_layout(path, sharding)
+            leaf = ShardedTensor.from_full(whole, sharding,
+                                           dtype=cfg.param_dtype)
+            del whole
+            self.layouts[path] = leaf
+            self.plans[path] = _GatherPlan(leaf)
+            self.shards[path.replace("/", "-")] = nn.ParameterList(
+                [nn.Parameter(p) for p in leaf.pieces])
+
+    # ------------------------------------------------------------ layout
+
+    def _check_layout(self, path: str, sharding: NamedSharding) -> None:
+        """The model computes Megatron's layout: the tensor axis may split
+        only the dimension ``tp_rules_gpt`` gives each leaf."""
+        spec = sharding.spec
+        name = "/".join(path.split("/")[-2:])
+        want = _TENSOR_DIM.get(name) if self.tp > 1 else None
+        got = [i for i, e in enumerate(spec) if e == AXIS_TENSOR]
+        if got != ([] if want is None else [want]):
+            raise ValueError(f"{path}: spec {spec} is not the layout the "
+                             f"sharded GPT computes")
+
+    def pieces(self, path: str) -> List[torch.Tensor]:
+        """The parameters holding leaf ``path``'s pieces."""
+        return list(self.shards[path.replace("/", "-")])
+
+    def _gather(self, path: str) -> Tuple[torch.Tensor, ...]:
+        return _Gather.apply(self.plans[path], *self.pieces(path))
+
+    def _allreduce(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Row-parallel partials (one per position) summed over each
+        tensor-axis group."""
+        if self.tp == 1:
+            return parts
+        out: List[Optional[torch.Tensor]] = [None] * len(parts)
+        for group in self._groups:
+            summed = _AllReduce.apply([self.devices[p] for p in group],
+                                      *[parts[p] for p in group])
+            for p, y in zip(group, summed):
+                out[p] = y
+        return out
+
+    # ------------------------------------------------------------- model
+
+    def _block(self, i: int, *xs):
+        cfg, dt = self.cfg, self.cfg.dtype
+        pre = f"layers_{i}/"
+        w = {n: self._gather(pre + n) for n in (
+            "ln_1/scale", "ln_1/bias", "attn/q_proj/kernel",
+            "attn/k_proj/kernel", "attn/v_proj/kernel", "attn/o_proj/kernel",
+            "ln_2/scale", "ln_2/bias", "mlp/up_proj/kernel",
+            "mlp/down_proj/kernel")}
+        parts = []
+        for p, x in enumerate(xs):
+            b, s, _ = x.shape
+            h = _layer_norm(x, w["ln_1/scale"][p], w["ln_1/bias"][p])
+            q = h @ w["attn/q_proj/kernel"][p].to(dt)
+            shape = (b, s, q.shape[-1] // cfg.head_dim, cfg.head_dim)
+            k = (h @ w["attn/k_proj/kernel"][p].to(dt)).reshape(shape)
+            v = (h @ w["attn/v_proj/kernel"][p].to(dt)).reshape(shape)
+            a = causal_attention(q.reshape(shape), k, v)
+            parts.append(a.reshape(b, s, -1)
+                         @ w["attn/o_proj/kernel"][p].to(dt))
+        xs = [x + y for x, y in zip(xs, self._allreduce(parts))]
+        parts = []
+        for p, x in enumerate(xs):
+            h = _layer_norm(x, w["ln_2/scale"][p], w["ln_2/bias"][p])
+            h = F.gelu(h @ w["mlp/up_proj/kernel"][p].to(dt),
+                       approximate="tanh")
+            parts.append(h @ w["mlp/down_proj/kernel"][p].to(dt))
+        return tuple(x + y for x, y in zip(xs, self._allreduce(parts)))
+
+    def _split_batch(self, tokens: torch.Tensor) -> List[torch.Tensor]:
+        b = tokens.shape[0]
+        if b % self.batch_shards:
+            raise ValueError(f"batch {b} does not split over "
+                             f"{self.batch_shards} data x fsdp shards")
+        n = b // self.batch_shards
+        return [tokens[i * n:(i + 1) * n].to(self.devices[p])
+                for p, i in enumerate(self._batch_index)]
+
+    def forward_hidden(self, tokens) -> List[torch.Tensor]:
+        """Final-norm hidden states, one ``[B / (data x fsdp), S, D]``
+        tensor per mesh position (its batch shard)."""
+        cfg, dt = self.cfg, self.cfg.dtype
+        toks = self._split_batch(tokens)
+        s = tokens.shape[1]
+        wte, wpe = self._gather("wte/embedding"), self._gather("wpe/embedding")
+        parts = []
+        for p, tok in enumerate(toks):
+            table = wte[p].to(dt)
+            if self.tp > 1:
+                vloc = table.shape[0]
+                local = tok - self._tensor_index[p] * vloc
+                mask = (local >= 0) & (local < vloc)
+                emb = table[local.clamp(0, vloc - 1)]
+                parts.append(torch.where(mask[..., None], emb,
+                                         torch.zeros((), dtype=dt,
+                                                     device=emb.device)))
+            else:
+                parts.append(table[tok])
+        xs = [x + pe.to(dt)[:s][None, :, :]
+              for x, pe in zip(self._allreduce(parts), wpe)]
+        for i in range(cfg.n_layers):
+            if cfg.remat and torch.is_grad_enabled():
+                xs = torch.utils.checkpoint.checkpoint(
+                    self._block, i, *xs, use_reentrant=False)
+            else:
+                xs = self._block(i, *xs)
+        ln_s, ln_b = self._gather("ln_f/scale"), self._gather("ln_f/bias")
+        return [_layer_norm(x, a, b) for x, a, b in zip(xs, ln_s, ln_b)]
+
+    def loss(self, tokens, targets) -> torch.Tensor:
+        """Mean next-token cross entropy over the whole batch, on the first
+        position's device; the lm head vocab-parallel over the tensor axis
+        in ``max(1, xent_chunks)`` chunks a shard."""
+        hs = self.forward_hidden(tokens)
+        tgts = self._split_batch(targets)
+        heads = self._gather("lm_head/kernel")
+        d = self.cfg.d_model
+        nll = []
+        for group in self._groups:
+            nll.append(vocab_parallel_nll(
+                [hs[p].reshape(-1, d) for p in group],
+                [heads[p] for p in group],
+                tgts[group[0]].reshape(-1),
+                max(1, self.cfg.xent_chunks)).to(self.devices[0]))
+        return torch.cat(nll).mean()
+
+    # ------------------------------------------------------- state trees
+
+    def _leaf(self, path: str, pieces) -> ShardedTensor:
+        return self.layouts[path].like([t.detach() for t in pieces])
+
+    def state_tree(self, optimizer: Optional[torch.optim.Optimizer] = None
+                   ) -> Dict[str, Any]:
+        """``{"params": tree}`` in the reference's structure, each leaf a
+        ``ShardedTensor`` over the live parameter pieces; with a
+        ``optim.TransformationOptimizer``, ``"opt"``: its ``count`` (a 0-d
+        tensor) and its ``mu`` and ``nu`` as sharded leaves of the
+        parameters' layouts (the reference's ``tx.init(params)`` inherits
+        the params' shardings)."""
+        params: Dict[str, Any] = {}
+        for path in self.paths:
+            _tree_set(params, path, self._leaf(path, self.pieces(path)))
+        out: Dict[str, Any] = {"params": params}
+        if optimizer is not None:
+            mu: Dict[str, Any] = {}
+            nu: Dict[str, Any] = {}
+            for path in self.paths:
+                states = [optimizer.state[p] for p in self.pieces(path)]
+                _tree_set(mu, path, self._leaf(path, [s["mu"]
+                                                      for s in states]))
+                _tree_set(nu, path, self._leaf(path, [s["nu"]
+                                                      for s in states]))
+            first = optimizer.state[self.pieces(self.paths[0])[0]]
+            out["opt"] = {"count": first["count"].detach(), "mu": mu,
+                          "nu": nu}
+        return out
+
+    def grad_tree(self) -> Dict[str, Any]:
+        """The parameters' gradients, as ``ShardedTensor`` leaves."""
+        out: Dict[str, Any] = {}
+        for path in self.paths:
+            _tree_set(out, path, self._leaf(
+                path, [p.grad for p in self.pieces(path)]))
+        return out
+
+    @torch.no_grad()
+    def load_state_tree(self, state: Dict[str, Any],
+                        optimizer: Optional[torch.optim.Optimizer] = None
+                        ) -> None:
+        """Copy a :meth:`state_tree` (healed ``ShardedTensor`` leaves of
+        this layout) into the live parameters and the optimizer's state, in
+        place."""
+
+        def copy(dst: List[torch.Tensor], path: str,
+                 src: ShardedTensor) -> None:
+            if src.bounds != self.layouts[path].bounds:
+                raise ValueError(f"{path}: pieces {src.bounds}, this layout "
+                                 f"holds {self.layouts[path].bounds}")
+            for d, piece in zip(dst, src.pieces):
+                d.copy_(piece)
+
+        for path in self.paths:
+            copy(self.pieces(path), path, _tree_get(state["params"], path))
+        if optimizer is None:
+            return
+        opt = state["opt"]
+        for path in self.paths:
+            states = [optimizer.state[p] for p in self.pieces(path)]
+            copy([s["mu"] for s in states], path, _tree_get(opt["mu"], path))
+            copy([s["nu"] for s in states], path, _tree_get(opt["nu"], path))
+            for s_ in states:
+                s_["count"].copy_(opt["count"])

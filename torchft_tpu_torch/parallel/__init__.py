@@ -1,6 +1,7 @@
 """In-group parallelism: the device mesh and its replica axis
-(``mesh.py``), ring attention over a sequence axis (``ring.py``) and the
-expert-parallel MoE block (``moe.py``)."""
+(``mesh.py``), the fsdp and tensor layouts of parameters and the sharded
+leaf that holds them (``sharding.py``), ring attention over a sequence
+axis (``ring.py``) and the expert-parallel MoE block (``moe.py``)."""
 
 from torchft_tpu_torch.parallel.mesh import (  # noqa: F401
     AXIS_DATA,
@@ -17,6 +18,16 @@ from torchft_tpu_torch.parallel.moe import (  # noqa: F401
     MoEConfig,
     init_moe_params,
     moe_forward,
+)
+from torchft_tpu_torch.parallel.sharding import (  # noqa: F401
+    NamedSharding,
+    PartitionSpec,
+    ShardedTensor,
+    fsdp_sharding,
+    make_sharding_fn,
+    replicated,
+    shard_pytree,
+    tp_rules_gpt,
 )
 from torchft_tpu_torch.parallel.ring import (  # noqa: F401
     make_ring_attention,

@@ -128,6 +128,8 @@ class FTMesh:
       split over.
     - ``coordinate(device=None, index=None)``: per-axis indices including
       the replica rank.
+    - ``sharding(*pspec)``: a ``parallel.sharding.NamedSharding`` over the
+      in-group mesh.
     """
 
     def __init__(self, manager, mesh: Optional[Mesh],
@@ -280,6 +282,21 @@ class FTMesh:
             if name in selected:
                 out[name] = int(i)
         return out
+
+    def sharding(self, *pspec):
+        """A ``NamedSharding`` of ``pspec`` over the in-group mesh (a view
+        that selected only the replica axis has none)."""
+        from torchft_tpu_torch.parallel.sharding import (
+            NamedSharding,
+            PartitionSpec,
+        )
+
+        if self.mesh is None:
+            raise ValueError(
+                "this FTMesh view has no in-group mesh (replica-only "
+                "selection); shardings need real mesh axes"
+            )
+        return NamedSharding(self.mesh, PartitionSpec(*pspec))
 
     def __repr__(self) -> str:
         inner = {n: self.mesh.shape[n] for n in self._in_group_names()}

@@ -7,9 +7,11 @@ same leaves, in the same order and under the same paths, in both packages:
 - a ``dict`` is walked in sorted key order, an ``OrderedDict`` in
   insertion order (``nn.Module.state_dict()`` returns one);
 - lists and tuples in order; ``None`` is an empty subtree (no leaf);
-- everything else is a leaf: torch tensors and numpy arrays (the tensor
-  leaves, whose bytes ride the wire raw) and any other value (an object
-  leaf: the step counters, an optimizer's hyperparameters).
+- everything else is a leaf: torch tensors, numpy arrays and
+  ``parallel.sharding.ShardedTensor`` s (the tensor leaves, whose bytes
+  ride the wire raw; a sharded leaf is one leaf, as the reference's
+  sharded ``jax.Array``) and any other value (an object leaf: the step
+  counters, an optimizer's hyperparameters).
 
 Paths are ``jax.tree_util.keystr``'s: a dict key ``k`` as ``[repr(k)]``, a
 list or tuple index ``i`` as ``[i]``, e.g. ``['user']['optim']['state'][3]
@@ -26,14 +28,16 @@ from typing import Any, List, Tuple
 import numpy as np
 import torch
 
+from torchft_tpu_torch.parallel.sharding import ShardedTensor
+
 __all__ = ["dtype_from_str", "dtype_str", "is_tensor_leaf", "to_host",
            "tree_flatten_with_path", "tree_unflatten"]
 
 
 def is_tensor_leaf(x: Any) -> bool:
-    """A leaf whose bytes ride the tensor wire (a torch tensor or a numpy
-    array); every other leaf is an object leaf."""
-    return isinstance(x, (torch.Tensor, np.ndarray))
+    """A leaf whose bytes ride the tensor wire (a torch tensor, a numpy
+    array or a ``ShardedTensor``); every other leaf is an object leaf."""
+    return isinstance(x, (torch.Tensor, np.ndarray, ShardedTensor))
 
 
 def _keys(x: dict) -> list:
