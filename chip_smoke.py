@@ -302,6 +302,48 @@ Phases, each of which fails the run (non-zero exit, no result line):
    checks the host's memory (``hsdp_host_bytes``) and the device's
    (``hsdp_device_bytes``).
 
+17. train_moe_expert (it runs after train_hsdp): the reference's
+   ``examples/train_moe.py`` with its expert axis, at "moe-8x125m"
+   (334,308,864 parameters; remat on, 8 experts, capacity factor 1.25),
+   full width and depth, batch 8 x 1024, each replica group's model a
+   ``ShardedMoETransformer`` over a virtual mesh ``MOE_EXPERT_AXES`` =
+   ``{"expert": 4, "data": 2}`` of the card (the reference test's mesh):
+   the experts' ``up``/``down`` split 2 a position by ``moe_rules()``, the
+   router whole, the batch split over data x expert (one sequence a
+   position, so the flash kernels run at (1, 1024, 12, 64)), the routing
+   global, the tokens dispatched to their experts' positions and combined
+   back. First the three flash kernels at that shape against their plain
+   versions and timed, beside their bound and SDPA. Then a parity pass:
+   one forward/backward of the same weights and batch through the sharded
+   model and the width-1 ``MoETransformer``; the loss within ``LOSS_TOL``
+   and ``MOE_GRAD_SAMPLE`` within ``GRAD_REL_NORM``, each timed warm alone.
+   Then ``run_moe_drill(axes=MOE_EXPERT_AXES)``, with the launch counts
+   set to 0 just before it: two groups of one rank over TCP at codec none,
+   AdamW (3e-4) in optax's order stepped on the pieces; group 1 fails
+   after its 3rd commit, group 0 commits 4 alone, group 1 restarts from a
+   poisoned init and heals into its expert-sharded template at 5; both
+   commit 5-7. Every piece of both groups bitwise at every step both
+   commit, every healed leaf in the healer's sharding, the heal's wire
+   bytes the state's, finite losses, the flash kernels launched per pass 2
+   x 96 forward and 96 of each backward (12 layers x 8 positions, remat),
+   no codec kernel. It prints what train_hsdp prints. It first checks the
+   host's memory (``hsdp_host_bytes``) and the device's
+   (``moe_expert_device_bytes``).
+
+18. train_resnet: BASELINE config 2, the twin of the reference's
+   ResNet-18 kill-and-heal test (``run_resnet_drill``) at full width
+   (11,173,962 parameters), 32x32x3 synthetic batches of 64 drawn from the
+   seed, two groups over TCP at codec none, SGD (0.05, momentum 0.9),
+   ``cudnn.deterministic`` on, ``cudnn.benchmark`` and TF32 off: group 1
+   fails after step 2, group 0 commits 3 alone, group 1 restarts from a
+   poisoned init (seed 99) and heals at 4, re-running its forward on the
+   healed state before the update, as the reference; both commit 4-6.
+   The parameters, running statistics and momentum buffers of both groups
+   must be bitwise equal at every step both commit, the heal's wire bytes
+   the state's, the losses finite, and no flash or codec kernel launched.
+   It prints the heal's wall and rate, the step p50s and the drill's
+   seconds.
+
 It prints a ``kernels`` JSON line before the last line and ends with
 ``{"ok": true, "device": {...}}``. It needs one card and no network.
 """
@@ -1820,26 +1862,41 @@ def hsdp_parity(cfg, seed: int, card: str, batch: int = HSDP_BATCH,
                 device: str = "cuda") -> None:
     """One forward/backward of the same weights and batch through the
     sharded GPT over ``HSDP_AXES`` (a virtual mesh of ``device``) and the
-    unsharded GPT: the loss within ``LOSS_TOL`` and ``GRAD_SAMPLE`` (the
-    sharded model's gradients assembled) within ``GRAD_REL_NORM``; raises
-    on a miss. Each is then timed warm, one thread alone."""
+    unsharded GPT (:func:`sharded_parity`)."""
     import torch
 
     from torchft_tpu_torch.models import GPT, ShardedGPT, gpt_param_tree
     from torchft_tpu_torch.parallel import ft_mesh
 
     dev = torch.device(device)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     dense = GPT(cfg, device=dev, seed=seed)
     mesh = ft_mesh(HSDP_AXES, devices=[dev] * hsdp_positions())
     sharded = ShardedGPT(cfg, mesh, params=gpt_param_tree(dense))
+    sample = [n for n in GRAD_SAMPLE
+              if not n.startswith("layers_")
+              or int(n.split(".")[0].split("_")[1]) < cfg.n_layers]
+    sharded_parity(dense, sharded, sample, seed, card, batch,
+                   f"sharded {HSDP_AXES}")
+
+
+def sharded_parity(dense, sharded, sample, seed: int, card: str,
+                   batch: int, label: str) -> None:
+    """One forward/backward of the same weights and batch through a
+    sharded model and its unsharded twin on the same device: the loss
+    within ``LOSS_TOL`` and the gradients named in ``sample`` (the sharded
+    model's assembled from its pieces) within ``GRAD_REL_NORM``; raises on
+    a miss. Each is then timed warm, one thread alone."""
+    import torch
+
+    from torchft_tpu_torch.models.transformer import _tree_get
+
+    cfg = dense.cfg
+    dev = next(dense.parameters()).device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     gen = torch.Generator(device=dev).manual_seed(seed)
     tok = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len),
                         generator=gen, device=dev)
     tgt = torch.roll(tok, -1, dims=1)
-    sample = [n for n in GRAD_SAMPLE
-              if not n.startswith("layers_")
-              or int(n.split(".")[0].split("_")[1]) < cfg.n_layers]
 
     def run(model):
         model.zero_grad(set_to_none=True)
@@ -1855,8 +1912,6 @@ def hsdp_parity(cfg, seed: int, card: str, batch: int = HSDP_BATCH,
         sync()
         secs = time.perf_counter() - t0
         if name == "sharded":
-            from torchft_tpu_torch.models.transformer import _tree_get
-
             tree = model.grad_tree()
             grads = {n: _tree_get(tree, n.replace(".", "/")).full()
                      for n in sample}
@@ -1874,7 +1929,7 @@ def hsdp_parity(cfg, seed: int, card: str, batch: int = HSDP_BATCH,
     ref_loss, ref_secs, ref_grads = out["unsharded"]
     failed = []
     ok = abs(loss - ref_loss) <= LOSS_TOL and loss == loss
-    log(f"  sharded {HSDP_AXES}: loss {loss:.6f} against unsharded "
+    log(f"  {label}: loss {loss:.6f} against unsharded "
         f"{ref_loss:.6f} (|diff| {abs(loss - ref_loss):.3e}, tolerance "
         f"{LOSS_TOL}) {'ok' if ok else 'FAIL'}; forward/backward "
         f"{secs:.2f} s first, {warm['sharded']:.1f} ms warm; unsharded "
@@ -1894,12 +1949,12 @@ def hsdp_parity(cfg, seed: int, card: str, batch: int = HSDP_BATCH,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"the sharded GPT against the unsharded: "
+        raise AssertionError(f"the sharded model against the unsharded: "
                              f"{failed}")
 
 
 def hsdp_report(result: dict, cfg, batch: int, per_pass: dict,
-                pass_ms: dict, card: str) -> list:
+                pass_ms: dict, card: str, positions: int = 0) -> list:
     """The lines train_hsdp prints about a ``run_hsdp_drill`` result: the
     bitwise checks, per group the step phases' p50s and committed step
     times, committed tokens/s after the heal, the heal's wall, rate and
@@ -1932,7 +1987,8 @@ def hsdp_report(result: dict, cfg, batch: int, per_pass: dict,
     fb = [run.metrics.get("forward_backward_p50_ms")
           for _, run in sorted(runs.items())]
     lines.append(f"flash launches per forward/backward pass: {per_pass} "
-                 f"({cfg.n_layers} layers x {hsdp_positions()} positions, "
+                 f"({cfg.n_layers} layers x "
+                 f"{positions or hsdp_positions()} positions, "
                  f"remat); their device time per pass "
                  f"{pass_ms['total']:.2f} ms ("
                  + ", ".join(f"{n} {ms:.2f}" for n, ms in pass_ms.items()
@@ -2000,6 +2056,442 @@ def phase_train_hsdp(seed: int, card: str, batch: int = HSDP_BATCH):
     torch.cuda.empty_cache()
     log(f"  phase {time.perf_counter() - t0:.1f} s ({card})")
     return counts, want, cfg.head_dim
+
+
+# train_moe_expert: the MoE with its experts over a virtual expert x data
+# mesh in each replica group (the reference test's mesh)
+MOE_EXPERT_AXES = {"expert": 4, "data": 2}
+MOE_EXPERT_BATCH = 8
+MOE_EXPERT_SCHEDULE = dict(kill_step=3, steps_after=2)  # heal at 5, 7 steps
+MOE_GRAD_SAMPLE = ("wte.embedding", "layers_0.attn.q_proj.kernel",
+                   "layers_1.moe.gate.kernel", "layers_1.moe.experts.up",
+                   "layers_1.moe.experts.down", "lm_head.kernel")
+
+
+def moe_expert_positions() -> int:
+    return math.prod(MOE_EXPERT_AXES.values())
+
+
+def moe_expert_attention_shape(cfg, batch: int = MOE_EXPERT_BATCH) -> tuple:
+    """[B, S, H, D] of each position's attention: the batch split over
+    data x expert (one sequence a position at batch 8)."""
+    return (batch // moe_expert_positions(), cfg.max_seq_len, cfg.n_heads,
+            cfg.head_dim)
+
+
+def moe_expert_activation_bytes(cfg, batch: int) -> int:
+    """A reckoning of one expert-sharded forward/backward's live
+    activations, all positions together: the unsharded reckoning
+    (``moe_activation_bytes``: the kept block inputs, one recomputed
+    block's routing masks and intermediates, a logits chunk) plus, per
+    position, the MoE layer's bf16 exchange tensors ([E, C, D]: its
+    partial dispatch, its row's gathered outputs and their gradients, 4)
+    and its experts' bf16 hidden [E / ep, C, F] with its GELU input."""
+    n = batch * cfg.max_seq_len
+    cap = max(1, int(cfg.capacity_factor * n * 2 / cfg.num_experts))
+    p = moe_expert_positions()
+    ep = MOE_EXPERT_AXES["expert"]
+    exchange = 2 * 4 * p * cfg.num_experts * cap * cfg.d_model
+    ffn = 2 * 2 * p * (cfg.num_experts // ep) * cap * cfg.d_ff
+    return moe_activation_bytes(cfg, batch) + exchange + ffn
+
+
+def moe_expert_device_bytes(n_params: int, act: int, groups: int = 2) -> int:
+    """Device memory train_moe_expert may hold at once, the larger of its
+    two parts: the parity pass (the width-1 and the sharded model, each its
+    f32 parameters and gradients; one pass's activations) and the drill
+    (per group its f32 parameters, gradients and two AdamW moments, 16
+    bytes a parameter, each distinct piece held once on the virtual mesh;
+    the healer's healed copy of parameters and moments, 12; every group's
+    activations)."""
+    return max(16 * n_params + act, (16 * groups + 12) * n_params
+               + groups * act)
+
+
+def moe_expert_parity(cfg, seed: int, card: str,
+                      batch: int = MOE_EXPERT_BATCH,
+                      device: str = "cuda") -> None:
+    """One forward/backward of the same weights and batch through the
+    expert-sharded MoE over ``MOE_EXPERT_AXES`` (a virtual mesh of
+    ``device``) and the width-1 ``MoETransformer``
+    (:func:`sharded_parity`)."""
+    import torch
+
+    from torchft_tpu_torch.models import (
+        MoETransformer,
+        ShardedMoETransformer,
+        gpt_param_tree,
+    )
+    from torchft_tpu_torch.parallel import ft_mesh
+
+    dev = torch.device(device)
+    dense = MoETransformer(cfg, device=dev, seed=seed)
+    mesh = ft_mesh(MOE_EXPERT_AXES, devices=[dev] * moe_expert_positions())
+    sharded = ShardedMoETransformer(cfg, mesh, params=gpt_param_tree(dense))
+    sharded_parity(dense, sharded, MOE_GRAD_SAMPLE, seed, card, batch,
+                   f"expert-sharded {MOE_EXPERT_AXES}")
+
+
+def phase_train_moe_expert(seed: int, card: str,
+                           batch: int = MOE_EXPERT_BATCH):
+    """The expert-axis phase (module docstring, phase 17): the kernels at
+    a position's shape, the parity pass, then the drill with the launch
+    counts set to 0 just before it. Returns (the drill's launches, the
+    launches the schedule says, the head_dim)."""
+    import torch
+
+    from torchft_tpu_torch.examples.train_moe import run_moe_drill
+    from torchft_tpu_torch.models import MOE_CONFIGS, moe_param_shapes
+    from torchft_tpu_torch.ops import flash, quant
+
+    t0 = time.perf_counter()
+    cfg = MOE_CONFIGS["moe-8x125m"]
+    n_params = sum(math.prod(s) for s in moe_param_shapes(cfg).values())
+    positions = moe_expert_positions()
+    need_host = hsdp_host_bytes(n_params)
+    free_host = check_host_memory(need_host, what="train_moe_expert")
+    need = moe_expert_device_bytes(n_params,
+                                   moe_expert_activation_bytes(cfg, batch))
+    gc.collect()  # an earlier phase's cycles may hold tensors
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    if free < need:
+        raise AssertionError(f"train_moe_expert needs {need / 1e9:.2f} GB of "
+                             f"device memory free, has {free / 1e9:.2f} GB")
+    shape = moe_expert_attention_shape(cfg, batch)
+    log(f"  moe-8x125m: {n_params} parameters, {cfg.num_experts} experts "
+        f"(capacity factor {cfg.capacity_factor}) on every "
+        f"{cfg.moe_every}nd layer of {cfg.n_layers}, remat {cfg.remat}, "
+        f"batch {batch} x {cfg.max_seq_len}; mesh {MOE_EXPERT_AXES} of "
+        f"virtual positions (the batch over data x expert), attention "
+        f"{shape} a position; device memory: up to {need / 1e9:.2f} GB, "
+        f"{free / 1e9:.1f} GB free; host memory: up to "
+        f"{need_host / 1e9:.2f} GB, {free_host / 1e9:.1f} GB available")
+    times = hsdp_flash_times(seed, shape)
+    per_pass = hsdp_launches(1, cfg.n_layers, positions, cfg.remat)
+    pass_ms = hsdp_pass_ms(times, cfg.n_layers, positions, cfg.remat)
+    moe_expert_parity(cfg, seed, card, batch)
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    quant.reset_launch_counts()
+    result = run_moe_drill(
+        cfg, axes=MOE_EXPERT_AXES, device="cuda", batch_size=batch,
+        seed=seed, timeout=600.0, log=lambda m: log("  " + m),
+        **MOE_EXPERT_SCHEDULE)
+    counts = {**flash.LAUNCHES, **quant.LAUNCHES}
+    want = {**hsdp_launches(result["passes"], cfg.n_layers, positions,
+                            cfg.remat),
+            **dict.fromkeys(quant.LAUNCHES, 0)}
+    for line in hsdp_report(result, cfg, batch, per_pass, pass_ms, card,
+                            positions):
+        log("  " + line)
+    log(f"  device memory peak: {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB allocated, {torch.cuda.max_memory_reserved() / 1e9:.2f} GB "
+        f"reserved (reckoned {need / 1e9:.2f} GB) ({card})")
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase {time.perf_counter() - t0:.1f} s ({card})")
+    return counts, want, cfg.head_dim
+
+
+# train_resnet: BASELINE config 2, ResNet-18 over two DDP groups
+RESNET_BATCH = 64
+RESNET_IMAGE = 32
+RESNET_STEPS = 6        # committed steps; group 1 heals at 4
+RESNET_KILL_AFTER = 2
+RESNET_POISON_SEED = 99
+RESNET_SGD = dict(lr=0.05, momentum=0.9)
+
+
+def resnet_batch(seed: int, batch: int, image: int, device):
+    """The drill's synthetic CIFAR batch, drawn from ``seed`` with numpy as
+    the reference's test draws it (NHWC images, labels in 0..9), as NCHW
+    tensors on ``device``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal((batch, image, image, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, (batch,))
+    return (torch.from_numpy(images).permute(0, 3, 1, 2).contiguous()
+            .to(device), torch.as_tensor(labels).to(device))
+
+
+def run_resnet_drill(*, batch: int = RESNET_BATCH,
+                     image: int = RESNET_IMAGE, steps: int = RESNET_STEPS,
+                     kill_after: int = RESNET_KILL_AFTER, seed: int = 0,
+                     device: str = "cuda", timeout: float = 60.0,
+                     log=log) -> dict:
+    """The twin of the reference's ResNet-18 kill-and-heal test: two DDP
+    groups of ResNet-18 (``create_resnet18(seed)``) over TCP at codec
+    none, SGD (lr 0.05, momentum 0.9; its momentum buffers made before
+    the first step, so a fresh group's heal template lists them), the
+    same synthetic batch every step (:func:`resnet_batch`), the state the
+    reference's tree (``resnet_state_tree``: ``params``, ``batch_stats``
+    and the momentum ``trace``) through ``CheckpointServer(template_fn)``.
+    Each step waits its quorum before the forward (a donor stages its
+    state in the quorum, and the forward moves the running statistics in
+    place). Schedule (k = ``kill_after``): both commit 1..k; group 1
+    fails; group 0 commits k + 1 alone; group 1 restarts from
+    ``create_resnet18(RESNET_POISON_SEED)``, heals at k + 2 and, as the
+    reference, runs its forward again on the healed state before the
+    update, so its running statistics advance as the donor's did; both
+    commit up to ``steps``. At every step both commit, the parameters,
+    the running statistics and the momentum buffers of the two must be
+    bitwise equal. Raises AssertionError on any difference, a heal at
+    another step, heal wire bytes other than the state's, or a
+    non-finite loss. Returns the groups' last runs, the steps compared,
+    the heal step and gauges, the state's bytes and the drill's seconds."""
+    import threading
+
+    import torch
+    import torch.nn.functional as F
+
+    from torchft_tpu_torch.checkpointing import CheckpointServer
+    from torchft_tpu_torch.comm.store import StoreServer
+    from torchft_tpu_torch.comm.transport import TcpCommContext
+    from torchft_tpu_torch.control import Lighthouse
+    from torchft_tpu_torch.ddp import DistributedDataParallel
+    from torchft_tpu_torch.examples.train_ddp import (
+        GroupRun,
+        InjectedFailure,
+        _wait_lighthouse,
+    )
+    from torchft_tpu_torch.examples.train_hsdp import state_bytes
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.models import create_resnet18, resnet_state_tree
+    from torchft_tpu_torch.models.resnet import load_resnet_state_tree
+    from torchft_tpu_torch.optim import init_sgd_state
+
+    t_start = time.perf_counter()
+    dev = torch.device(device)
+    images, labels = resnet_batch(seed, batch, image, dev)
+    lighthouse = Lighthouse(min_replicas=1, heartbeat_timeout_ms=1000,
+                            join_timeout_ms=200)
+    addr = lighthouse.address()
+    heal_step = kill_after + 2
+    ahead, stop = threading.Event(), threading.Event()
+    lives = {0: [], 1: []}
+    errors = []
+    lock = threading.Lock()
+    meets = {}
+    checked = []
+    info = {}
+
+    def joint(step: int) -> bool:
+        return not kill_after < step < heal_step
+
+    def state_tensors(model, optimizer):
+        return ([p.detach() for p in model.parameters()]
+                + list(model.buffers())
+                + [optimizer.state[p]["momentum_buffer"]
+                   for p in model.parameters()])
+
+    def on_commit(g, step, manager, model, optimizer, loss):
+        log(f"group {g} committed step {step} loss {loss:.4f} participants "
+            f"{manager.num_participants()}"
+            + (" (healed)" if manager.did_heal() else ""))
+        if joint(step):
+            # the groups meet here: the first waits, the second compares
+            state = state_tensors(model, optimizer)
+            with lock:
+                meet = meets.setdefault(step, {"event": threading.Event(),
+                                               "state": None})
+                other = meet["state"]
+                if other is None:
+                    meet["state"] = state
+            if other is None:
+                if not meet["event"].wait(timeout) or stop.is_set():
+                    raise TimeoutError(f"group {g}: the other group never "
+                                       f"committed step {step}")
+            else:
+                try:
+                    for i, (a, b) in enumerate(zip(other, state)):
+                        _require(torch.equal(a, b),
+                                 f"group {g} differs at step {step} in "
+                                 f"state tensor {i}")
+                    checked.append(step)
+                finally:
+                    meet["state"] = None
+                    meet["event"].set()
+        if g == 0 and step == heal_step - 1:
+            # let group 1 restart, then take the next quorum with it
+            ahead.set()
+            _wait_lighthouse(addr, "participants", 1, timeout, stop)
+
+    def group(g: int, init_seed: int, fail_at=None, wait_both=False):
+        model = create_resnet18(init_seed, device=dev)
+        model.train()
+        optimizer = torch.optim.SGD(model.parameters(), **RESNET_SGD)
+        init_sgd_state(optimizer)
+        info.setdefault("state_bytes",
+                        state_bytes(resnet_state_tree(model, optimizer)))
+        transport = CheckpointServer(
+            timeout=timeout, template_fn=lambda: {
+                "user": resnet_state_tree(model, optimizer),
+                "torchft": {"step": 0, "batches_committed": 0}})
+        store = StoreServer()
+        manager = Manager(
+            comm=TcpCommContext(timeout=timeout),
+            load_state_dict=lambda sd: load_resnet_state_tree(
+                model, sd, optimizer),
+            state_dict=lambda: resnet_state_tree(model, optimizer),
+            checkpoint_transport=transport, min_replica_size=1,
+            timeout=timeout, quorum_timeout=timeout,
+            connect_timeout=timeout, rank=0, world_size=1,
+            store_addr=store.addr, lighthouse_addr=addr,
+            replica_id=f"resnet_{g}_", heartbeat_interval=0.05)
+        ddp = DistributedDataParallel(manager)
+        run = GroupRun(replica_id=manager.replica_id())
+        try:
+            if wait_both:
+                _wait_lighthouse(addr, "healthy", 2, timeout, stop)
+            while manager.current_step() < steps and not stop.is_set():
+                if fail_at is not None and manager.current_step() >= fail_at:
+                    raise InjectedFailure(f"group {g} at step {fail_at}", run)
+                t0 = time.perf_counter()
+                manager.start_quorum()
+                manager.wait_quorum()
+                optimizer.zero_grad(set_to_none=False)
+                run.passes += 1
+                with manager.metrics.timed("forward_backward"):
+                    loss = F.cross_entropy(model(images, train=True), labels)
+                    loss.backward()
+                    if dev.type == "cuda":
+                        torch.cuda.current_stream(dev).synchronize()
+                ddp.average_gradients(model)
+                if not manager.should_commit():
+                    continue
+                step = manager.current_step()
+                if manager.did_heal():
+                    run.healed_at.append(step)
+                    # the healed state is the donor's before its forward:
+                    # run it again so the running statistics advance as
+                    # the donor's did
+                    with torch.no_grad():
+                        model(images, train=True)
+                optimizer.step()
+                run.losses[step] = loss.item()
+                run.step_seconds[step] = time.perf_counter() - t0
+                run.participants[step] = manager.num_participants()
+                on_commit(g, step, manager, model, optimizer,
+                          run.losses[step])
+        finally:
+            run.metrics = manager.metrics.snapshot()
+            transport.disallow_checkpoint()
+            manager.shutdown(wait=False)
+            store.shutdown()
+            del model, optimizer, ddp
+        return run
+
+    def group0() -> None:
+        lives[0].append(group(0, seed, wait_both=True))
+
+    def group1() -> None:
+        try:
+            group(1, seed, fail_at=kill_after, wait_both=True)
+            raise AssertionError("group 1 was never failed")
+        except InjectedFailure as e:
+            lives[1].append(e.run)
+            log(f"injected failure: {e}; restarting from a poisoned init "
+                f"(seed {RESNET_POISON_SEED})")
+        if not ahead.wait(timeout) or stop.is_set():
+            raise TimeoutError(f"group 0 never committed step "
+                               f"{heal_step - 1}")
+        lives[1].append(group(1, RESNET_POISON_SEED))
+
+    def guarded(fn):
+        def _run():
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+                stop.set()
+                ahead.set()
+                with lock:
+                    for meet in meets.values():
+                        meet["event"].set()
+        return _run
+
+    threads = [threading.Thread(target=guarded(fn), name=f"resnet{g}")
+               for g, fn in enumerate((group0, group1))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        lighthouse.shutdown()
+    if errors:
+        raise errors[0]
+    restarted = lives[1][-1]
+    want = [s for s in range(1, steps + 1) if joint(s)]
+    _require(restarted.healed_at == [heal_step],
+             f"the restarted group healed at {restarted.healed_at}, not at "
+             f"step {heal_step}")
+    _require(sorted(checked) == want,
+             f"groups compared at steps {sorted(checked)}, want {want}")
+    wire = restarted.metrics.get("heal_wire_bytes")
+    _require(wire == info["state_bytes"],
+             f"the heal moved {wire} wire bytes, the state holds "
+             f"{info['state_bytes']}")
+    losses = [v for runs in lives.values() for r in runs
+              for v in r.losses.values()]
+    _require(all(math.isfinite(v) for v in losses), "non-finite loss")
+    return {"runs": {g: runs[-1] for g, runs in lives.items()},
+            "lives": lives, "heal_step": heal_step,
+            "checked_steps": sorted(checked),
+            "heal": {k: restarted.metrics.get(k) for k in (
+                "heal_wall_ms", "heal_bytes_per_s", "heal_wire_bytes")},
+            "state_bytes": info["state_bytes"],
+            "passes": sum(r.passes for runs in lives.values() for r in runs),
+            "seconds": time.perf_counter() - t_start}
+
+
+def resnet_report(result: dict, card: str) -> list:
+    runs, h = result["runs"], result["heal"]
+    lines = [f"both groups bitwise equal (parameters, running statistics, "
+             f"momentum) at every step both committed "
+             f"{result['checked_steps']}; group 1 healed at step "
+             f"{result['heal_step']}",
+             f"heal: heal_wall_ms {h['heal_wall_ms']:.1f}, heal_bytes_per_s "
+             f"{h['heal_bytes_per_s'] / 1e9:.3f} GB/s, wire bytes "
+             f"{int(h['heal_wire_bytes'])} = the state's "
+             f"{result['state_bytes']} ({card})"]
+    for g, run in sorted(runs.items()):
+        times = ", ".join(f"{s}: {t:.3f}"
+                          for s, t in sorted(run.step_seconds.items()))
+        lines.append(f"group {g}: step p50 ms "
+                     f"{_p50s(run.metrics, HSDP_PHASES)}; committed steps "
+                     f"(s) {{{times}}} ({card})")
+    lines.append(f"drill {result['seconds']:.1f} s, {result['passes']} "
+                 f"forward/backward passes ({card})")
+    return lines
+
+
+def phase_train_resnet(seed: int, card: str, batch: int = RESNET_BATCH):
+    """The ResNet-18 phase (module docstring, phase 18)."""
+    import torch
+
+    from torchft_tpu_torch.models import ResNet18, count_params
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    log(f"  ResNet-18: {count_params(ResNet18())} parameters, "
+        f"{RESNET_IMAGE}x{RESNET_IMAGE}x3 synthetic batches of {batch} a "
+        f"group from seed {seed}, SGD {RESNET_SGD}, 2 groups over TCP at "
+        f"codec none; cudnn.deterministic "
+        f"{torch.backends.cudnn.deterministic}, cudnn.benchmark "
+        f"{torch.backends.cudnn.benchmark}, TF32 matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}, TF32 cudnn "
+        f"{torch.backends.cudnn.allow_tf32}")
+    result = run_resnet_drill(batch=batch, seed=seed, device="cuda",
+                              timeout=120.0, log=lambda m: log("  " + m))
+    for line in resnet_report(result, card):
+        log("  " + line)
+    log(f"  phase {time.perf_counter() - t0:.1f} s ({card})")
 
 
 # A checkpoint holds the f32 parameters and AdamW's two moments; a group
@@ -3403,7 +3895,7 @@ def _check_launches(counts, want, what: str) -> None:
 PHASES = ("kernels", "train", "train_multijob", "train_sharded",
           "train_moe", "train_cuda_int8",
           "train_tiny", "gpt_1b", "train_llama_ring", "train_hsdp",
-          "train_diloco",
+          "train_moe_expert", "train_resnet", "train_diloco",
           "train_diloco_sharded", "train_localsgd_int8", "train_hier_int8",
           "train_durable")
 
@@ -3569,6 +4061,24 @@ def main() -> int:
                         "flash: per layer per pass one attention per mesh "
                         "position, the forward twice (remat); codec: none")
         _add_launches(rows, counts, head_dim)
+    if "train_moe_expert" in phases:
+        log("phase train_moe_expert")
+        counts, want, head_dim = phase_train_moe_expert(args.seed, smi)
+        _check_launches(counts, want,
+                        "flash: per layer per pass one attention per mesh "
+                        "position (the batch over data x expert), the "
+                        "forward twice (remat); codec: none")
+        _add_launches(rows, counts, head_dim)
+    if "train_resnet" in phases:
+        log("phase train_resnet")
+        flash.reset_launch_counts()
+        quant.reset_launch_counts()
+        phase_train_resnet(args.seed, smi)
+        counts = {**flash.LAUNCHES, **quant.LAUNCHES}
+        _check_launches(counts, dict.fromkeys(counts, 0),
+                        "ResNet-18 has no attention and codec none: its "
+                        "convolutions are library calls, as the "
+                        "reference's are XLA's")
     if "train_diloco" in phases:
         log("phase train_diloco")
         flash.reset_launch_counts()

@@ -159,7 +159,8 @@ def test_flash_shapes_reach_every_head_dim() -> None:
     assert smoke.PHASES == ("kernels", "train", "train_multijob",
                             "train_sharded", "train_moe", "train_cuda_int8",
                             "train_tiny", "gpt_1b", "train_llama_ring",
-                            "train_hsdp", "train_diloco",
+                            "train_hsdp", "train_moe_expert",
+                            "train_resnet", "train_diloco",
                             "train_diloco_sharded",
                             "train_localsgd_int8", "train_hier_int8",
                             "train_durable")
@@ -909,3 +910,116 @@ def test_hsdp_parity_fails_a_wrong_model(monkeypatch) -> None:
                         lambda self, *a: real(self, *a) * 1.1)
     with pytest.raises(AssertionError, match="against the unsharded"):
         smoke.hsdp_parity(tiny, 0, "CPU", device="cpu")
+
+
+def test_moe_expert_memory_and_launches_at_8x125m() -> None:
+    from torchft_tpu_torch.models import MOE_CONFIGS, moe_param_shapes
+
+    smoke = _smoke()
+    cfg = MOE_CONFIGS["moe-8x125m"]
+    n = sum(math.prod(s) for s in moe_param_shapes(cfg).values())
+    assert n == 334308864
+    # one sequence a position: 8 positions of the batch of 8
+    assert smoke.moe_expert_attention_shape(cfg, 8) == (1, 1024, 12, 64)
+    act = smoke.moe_expert_activation_bytes(cfg, 8)
+    # capacity int(1.25 * 8192 * 2 / 8) = 2560; 2 experts a position
+    assert act == smoke.moe_activation_bytes(cfg, 8) \
+        + 2 * 4 * 8 * 8 * 2560 * 768 + 2 * 2 * 8 * 2 * 2560 * 3072
+    assert smoke.moe_expert_device_bytes(n, act) == 44 * n + 2 * act
+    assert smoke.moe_expert_device_bytes(n, act) < 70e9
+    # 13 passes of the drill: 12 layers x 8 positions, the forward twice
+    assert smoke.hsdp_launches(13, 12, 8) == {
+        "flash_fwd": 13 * 96 * 2, "flash_bwd_dq": 13 * 96,
+        "flash_bwd_dkv": 13 * 96}
+    phases = smoke.PHASES
+    assert phases.index("train_hsdp") < phases.index("train_moe_expert") \
+        < phases.index("train_resnet") < phases.index("train_diloco")
+
+
+def test_train_moe_expert_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # the phase as the card runs it, moved to "moe-tiny" (remat on) on the
+    # CPU: the parity pass, the drill over the virtual expert x data mesh,
+    # the report and the launches the schedule says; the kernels' timing
+    # needs the card and is stubbed
+    import dataclasses
+    import functools
+
+    import torchft_tpu_torch.examples.train_moe as example
+    import torchft_tpu_torch.models as models
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    monkeypatch.setitem(models.MOE_CONFIGS, "moe-8x125m", dataclasses.replace(
+        models.MOE_CONFIGS["moe-tiny"], remat=True))
+    times = {n: {"ms": 0.01} for n in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")}
+    monkeypatch.setattr(smoke, "hsdp_flash_times", lambda *a, **k: times)
+    monkeypatch.setattr(smoke, "moe_expert_parity", functools.partial(
+        smoke.moe_expert_parity, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (1e12, 1e12))
+    for name in ("empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "max_memory_reserved", lambda *a: 0)
+    fn = example.run_moe_drill
+    monkeypatch.setattr(example, "run_moe_drill", lambda cfg, **kw: fn(
+        cfg, **dict(kw, device="cpu", timeout=30.0)))
+    counts, want, head_dim = smoke.phase_train_moe_expert(0, "CPU")
+    assert head_dim == 16
+    # 13 passes x 2 layers x 8 positions; the CPU launches no kernel
+    assert want == {"flash_fwd": 13 * 2 * 8 * 2, "flash_bwd_dq": 13 * 2 * 8,
+                    "flash_bwd_dkv": 13 * 2 * 8, "quant_int8": 0,
+                    "dequant_acc_int8": 0}
+    assert set(counts) == set(want) and not any(counts.values())
+    text = "\n".join(lines)
+    assert "expert-sharded {'expert': 4, 'data': 2}: loss" in text
+    assert "grad layers_1.moe.experts.up" in text
+    assert "FAIL" not in text
+    assert "both groups bitwise equal" in text
+    assert "group 1 healed at step 5 into its sharded template" in text
+    assert "heal: heal_wall_ms" in text and "= the state's" in text
+    assert "(2 layers x 8 positions, remat)" in text
+    assert "committed tokens/s" in text and "phase " in text
+
+
+def test_train_resnet_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # the phase's drill at 8x8 images, batch 2, on the CPU (the twin of the
+    # reference's ResNet kill-and-heal test): both groups bitwise in
+    # parameters, running statistics and momentum at every joint step,
+    # the heal's wire bytes the state's
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    fn = smoke.run_resnet_drill
+    monkeypatch.setattr(smoke, "run_resnet_drill", lambda **kw: fn(
+        **dict(kw, image=8, device="cpu", timeout=30.0)))
+    smoke.phase_train_resnet(0, "CPU", batch=2)
+    text = "\n".join(lines)
+    assert "ResNet-18: 11173962 parameters" in text
+    assert "cudnn.deterministic True, cudnn.benchmark False" in text
+    assert "at every step both committed [1, 2, 4, 5, 6]; group 1 healed " \
+        "at step 4" in text
+    assert "= the state's 89430096 (CPU)" in text
+    assert "group 1: step p50 ms {'quorum'" in text and "drill " in text
+
+
+def test_resnet_drill_catches_a_heal_without_running_statistics(
+        monkeypatch) -> None:
+    # a heal that restores the parameters and momentum but leaves the
+    # poisoned group's own running statistics diverges: the drill fails
+    import torchft_tpu_torch.models.resnet as resnet
+
+    smoke = _smoke()
+    real = resnet.load_resnet_state_tree
+
+    def params_only(model, tree, optimizer=None):
+        keep = {k: v.clone() for k, v in model.state_dict().items()
+                if "running" in k}
+        real(model, tree, optimizer)
+        model.load_state_dict(keep, strict=False)
+
+    monkeypatch.setattr(resnet, "load_resnet_state_tree", params_only)
+    with pytest.raises(AssertionError, match="group 1 differs at step"):
+        smoke.run_resnet_drill(batch=2, image=8, device="cpu", timeout=30.0,
+                               log=lambda m: None)

@@ -9,8 +9,8 @@ a routing decision. The routing's dispatch masks are compared first,
 exactly; then, within stated tolerances (summation order only): the MoE
 block's output 1e-5 absolute + 1e-4 relative and its aux loss 1e-6
 relative; the model's loss 1e-5 and each gradient within 1e-4 of that
-parameter's largest gradient entry. The expert-sharded and TP+EP tests
-wait for the port's in-group mesh (ROADMAP queue 1, item 10).
+parameter's largest gradient entry. The expert-sharded and TP+EP twins
+are in tests/test_torch_moe_sharded.py.
 """
 
 import dataclasses

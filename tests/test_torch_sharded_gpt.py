@@ -50,7 +50,7 @@ F32_LOSS, F32_GRAD = 2e-5, 5e-5
 BF16_LOSS, BF16_GRAD = 2e-3, 2e-2
 
 MESHES = [{"fsdp": 2, "tensor": 2}, {"tensor": 4}, {"fsdp": 4},
-          {"data": 2, "fsdp": 2}]
+          {"data": 2, "fsdp": 2}, {"data": 2, "fsdp": 2, "tensor": 2}]
 
 
 def _mesh(axes):

@@ -13,31 +13,84 @@ import importlib
 from typing import Any
 
 from torchft_tpu_torch.comm import (  # noqa: F401
+    CommContext,
     DummyCommContext,
     ErrorSwallowingCommContext,
     ManagedCommContext,
     ReduceOp,
+    SubprocessCommContext,
     TcpCommContext,
+)
+from torchft_tpu_torch.futures import (  # noqa: F401
+    future_chain,
+    future_timeout,
+    future_wait,
 )
 
 # The names that need torch load on first use (PEP 562), so a process that
 # imports only the wire (comm/subproc.py's child) never imports torch.
 _LAZY = {
+    "AsyncCheckpointWriter": "torchft_tpu_torch.checkpoint_io",
+    "DcpCheckpointer": "torchft_tpu_torch.checkpoint_io",
+    "load_checkpoint": "torchft_tpu_torch.checkpoint_io",
+    "CheckpointServer": "torchft_tpu_torch.checkpointing",
+    "CheckpointTransport": "torchft_tpu_torch.checkpointing",
+    "CudaCommContext": "torchft_tpu_torch.comm.cuda_backend",
     "DistributedSampler": "torchft_tpu_torch.data",
     "DistributedDataParallel": "torchft_tpu_torch.ddp",
     "PureDistributedDataParallel": "torchft_tpu_torch.ddp",
+    "ShardedGradReducer": "torchft_tpu_torch.ddp",
     "DiLoCo": "torchft_tpu_torch.local_sgd",
     "LocalSGD": "torchft_tpu_torch.local_sgd",
     "Manager": "torchft_tpu_torch.manager",
     "WorldSizeMode": "torchft_tpu_torch.manager",
     "OptimizerWrapper": "torchft_tpu_torch.optim",
     "ShardedOptimizerWrapper": "torchft_tpu_torch.optim",
+    "ShardedOptState": "torchft_tpu_torch.optim",
 }
+# the reference's alias (torchft_tpu.Optimizer is its OptimizerWrapper)
+_ALIASES = {"Optimizer": "OptimizerWrapper"}
+
+# The reference's public names this package binds, under the same names;
+# its XlaCommContext and OrbaxCheckpointer have their twins here as
+# CudaCommContext and DcpCheckpointer.
+__all__ = [
+    "AsyncCheckpointWriter",
+    "CheckpointServer",
+    "CheckpointTransport",
+    "CommContext",
+    "CudaCommContext",
+    "DcpCheckpointer",
+    "DiLoCo",
+    "DistributedDataParallel",
+    "DistributedSampler",
+    "DummyCommContext",
+    "ErrorSwallowingCommContext",
+    "LocalSGD",
+    "ManagedCommContext",
+    "Manager",
+    "Optimizer",
+    "OptimizerWrapper",
+    "PureDistributedDataParallel",
+    "ReduceOp",
+    "ShardedGradReducer",
+    "ShardedOptimizerWrapper",
+    "ShardedOptState",
+    "SubprocessCommContext",
+    "TcpCommContext",
+    "WorldSizeMode",
+    "future_chain",
+    "future_timeout",
+    "future_wait",
+    "load_checkpoint",
+]
 
 
 def __getattr__(name: str) -> Any:
     module = _LAZY.get(name)
-    if module is not None:
+    if name in _ALIASES:
+        value = __getattr__(_ALIASES[name])
+    elif module is not None:
         value = getattr(importlib.import_module(module), name)
     else:
         try:  # a submodule, as an eager package would have bound it

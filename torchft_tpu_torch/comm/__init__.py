@@ -1,12 +1,19 @@
 from torchft_tpu_torch.comm.context import (  # noqa: F401
     CommContext,
+    CompletedWork,
     DummyCommContext,
     ErrorSwallowingCommContext,
+    FailedWork,
     ManagedCommContext,
     ReduceOp,
     Work,
 )
-from torchft_tpu_torch.comm.store import StoreClient, StoreServer  # noqa: F401
+from torchft_tpu_torch.comm.store import (  # noqa: F401
+    PrefixStore,
+    StoreClient,
+    StoreServer,
+    create_store_client,
+)
 from torchft_tpu_torch.comm.topology import (  # noqa: F401
     DomainAssignment,
     DomainTopology,

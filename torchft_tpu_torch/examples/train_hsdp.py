@@ -127,6 +127,8 @@ def train_hsdp_group(
     mesh,
     *,
     replica_group: int,
+    model_fn: Callable[..., ShardedGPT] = ShardedGPT,
+    params: Any = None,
     total_steps: int,
     lighthouse_addr: Optional[str] = None,
     device: "Optional[str | torch.device]" = None,
@@ -145,7 +147,11 @@ def train_hsdp_group(
     are committed (or ``stop`` is set), its GPT sharded over ``mesh`` (a
     ``parallel.mesh.Mesh`` of ``device``'s kind, :func:`hsdp_mesh`).
 
-    ``init_seed``: the weights' draw. ``fail_at_step``: raise
+    ``model_fn(cfg, mesh, params=..., seed=...)`` builds the sharded model
+    (``ShardedGPT``, or another with its state API, as
+    ``models.ShardedMoETransformer``). ``params``: whole leaves to start
+    from (a tree in the reference's structure), else ``init_seed``: the
+    weights' draw. ``fail_at_step``: raise
     :class:`InjectedFailure` at the top of the first step that starts with
     that many steps committed; the model, the optimizer and the staged
     checkpoint are released first. ``on_start(manager)`` runs once the
@@ -157,7 +163,7 @@ def train_hsdp_group(
     if device.type == "cuda":
         check_head_dim(f"train_hsdp_group: config with d_model "
                        f"{cfg.d_model} and {cfg.n_heads} heads", cfg.head_dim)
-    model = ShardedGPT(cfg, mesh, seed=init_seed)
+    model = model_fn(cfg, mesh, params=params, seed=init_seed)
     optimizer = TransformationOptimizer(model.parameters(), adamw(3e-4))
     first = torch.device(mesh.devices.flat[0])
 
@@ -258,13 +264,17 @@ def run_hsdp_drill(
     *,
     batch_size: int = 8,
     seed: int = 0,
+    model_fn: Callable[..., ShardedGPT] = ShardedGPT,
+    params: Any = None,
     timeout: float = 60.0,
     log: Callable[[str], None] = logger.info,
 ) -> Dict[str, Any]:
     """Two replica groups in threads under an in-process lighthouse, each
-    a GPT of ``config`` (``layers`` cuts its depth) sharded over
+    a GPT of ``config`` (``layers`` cuts its depth; ``model_fn`` another
+    sharded model, as :func:`train_hsdp_group`) sharded over
     :func:`hsdp_mesh` of ``axes`` (virtual on ``device`` unless there are
-    cards for it), on a fixed schedule (k = ``kill_after``):
+    cards for it), starting from ``params`` (else the ``seed`` draw), on a
+    fixed schedule (k = ``kill_after``):
 
     - both groups commit steps 1..k;
     - group 1 fails; group 0 commits k + 1 alone;
@@ -365,18 +375,20 @@ def run_hsdp_drill(
         _wait_lighthouse(addr, "healthy", 2, timeout, stop)
 
     common = dict(lighthouse_addr=addr, device=dev, batch_size=batch_size,
-                  timeout=timeout, total_steps=steps, stop=stop)
+                  timeout=timeout, total_steps=steps, stop=stop,
+                  model_fn=model_fn)
 
     def group0() -> None:
         lives[0].append(train_hsdp_group(
             cfg, hsdp_mesh(axes, dev), replica_group=0, init_seed=seed,
-            on_start=wait_both, on_commit=on_commit(0), **common))
+            params=params, on_start=wait_both, on_commit=on_commit(0),
+            **common))
 
     def group1() -> None:
         try:
             train_hsdp_group(
                 cfg, hsdp_mesh(axes, dev), replica_group=1, init_seed=seed,
-                fail_at_step=kill_after, on_start=wait_both,
+                params=params, fail_at_step=kill_after, on_start=wait_both,
                 on_commit=on_commit(1), **common)
             raise AssertionError("group 1 was never failed")
         except InjectedFailure as e:

@@ -12,8 +12,20 @@ per rank and per group):
 ``TOTAL_STEPS`` the steps to commit and ``MODEL`` the config (``MOE_CONFIGS``: "moe-tiny", "moe-8x125m"). It runs on CUDA
 (``DEVICE=cpu`` for the CPU).
 
-Each rank holds the whole model: the experts sit on its one device (the
-reference's expert axis of width 1, which one chip gives it). The loop is
+``MESH_DEVICES=n`` (or ``main(mesh_devices=n)``) shards the experts as the
+reference does: over n positions, ``ep = n`` if ``num_experts`` divides
+by n, else 1, on the mesh ``{"expert": ep, "data": n // ep}``
+(:func:`moe_mesh_axes`), one card a position when there are cards enough,
+else n virtual positions of the one device. The group's model is then
+``models.ShardedMoETransformer`` (its positions in lock-step, the batch
+over data x expert, the tokens moved to their experts and back),
+``OptimizerWrapper`` over AdamW (3e-4) in optax's order stepped on the
+pieces, and a restarted group heals onto its own expert sharding
+(``examples.train_hsdp.train_hsdp_group``'s loop, whose state is the
+model's ``state_tree``).
+
+Without it each rank holds the whole model: the experts sit on its one
+device (the reference's expert axis of width 1). The loop is
 the reference's: ``Manager`` over the TCP gradient wire, DDP, AdamW
 (3e-4, weight decay 1e-4) behind ``OptimizerWrapper``, and a
 ``CheckpointServer(template_fn=...)`` returning the live state, so a
@@ -28,7 +40,8 @@ any of them can serve any stripe.
 drives two groups of two ranks in threads through a kill of one whole
 group, its restart from a poisoned init and its heal, and checks that
 every live rank holds the same parameters and AdamW state, bitwise, at
-every committed step.
+every committed step; given ``axes``, two groups of one rank each on that
+mesh (``examples.train_hsdp.run_hsdp_drill``'s schedule and checks).
 """
 
 from __future__ import annotations
@@ -53,8 +66,17 @@ from torchft_tpu_torch.examples.train_ddp import (
     _require,
     _wait_lighthouse,
 )
+from torchft_tpu_torch.examples.train_hsdp import (
+    hsdp_mesh,
+    run_hsdp_drill,
+    train_hsdp_group,
+)
 from torchft_tpu_torch.manager import Manager
-from torchft_tpu_torch.models import MOE_CONFIGS, MoETransformer
+from torchft_tpu_torch.models import (
+    MOE_CONFIGS,
+    MoETransformer,
+    ShardedMoETransformer,
+)
 from torchft_tpu_torch.models.moe_transformer import MoETransformerConfig
 from torchft_tpu_torch.ops.flash import check_head_dim
 from torchft_tpu_torch.optim import (
@@ -66,13 +88,22 @@ from torchft_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["run_moe_drill", "train_moe_group"]
+__all__ = ["moe_mesh_axes", "run_moe_drill", "train_moe_group"]
+
+
+def moe_mesh_axes(n: int, num_experts: int) -> Dict[str, int]:
+    """The reference's in-group mesh over ``n`` positions: the experts over
+    all of them when ``num_experts`` divides by ``n``, else an expert axis
+    of width 1; ``data`` the rest."""
+    ep = n if num_experts % n == 0 else 1
+    return {"expert": ep, "data": n // ep}
 
 
 def train_moe_group(
     cfg: MoETransformerConfig,
     *,
     replica_group: int,
+    mesh=None,
     total_steps: int,
     rank: int = 0,
     world_size: int = 1,
@@ -98,7 +129,23 @@ def train_moe_group(
     committed. ``on_commit(step, manager, model, optimizer, loss)`` runs
     after every commit. Without ``store_addr`` the rank binds its own group store. A
     CUDA run of a config whose head_dim the flash kernels do not take
-    raises ValueError here."""
+    raises ValueError here.
+
+    ``mesh``: a ``parallel.mesh.Mesh`` with an ``expert`` axis (and
+    ``data``, ``tensor``): the group trains ``ShardedMoETransformer`` over
+    it through ``train_hsdp_group`` (one rank a group; ``init_state`` is
+    then a parameter tree in the reference's structure)."""
+    if mesh is not None:
+        if world_size != 1 or store_addr is not None:
+            raise ValueError("the expert-sharded group is one rank with its "
+                             "own store")
+        return train_hsdp_group(
+            cfg, mesh, replica_group=replica_group,
+            model_fn=ShardedMoETransformer, params=init_state,
+            total_steps=total_steps, lighthouse_addr=lighthouse_addr,
+            device=device, batch_size=batch_size, init_seed=init_seed,
+            fail_at_step=fail_at_step, on_commit=on_commit, stop=stop,
+            timeout=timeout)
     if torch.device("cuda" if device is None else device).type == "cuda":
         check_head_dim(f"train_moe_group: config with d_model {cfg.d_model} "
                        f"and {cfg.n_heads} heads", cfg.head_dim)
@@ -204,6 +251,7 @@ def _state_tensors(model, optimizer) -> List[torch.Tensor]:
 def run_moe_drill(
     cfg: MoETransformerConfig,
     *,
+    axes: Optional[Dict[str, int]] = None,
     kill_step: int = 3,
     steps_alone: int = 1,
     steps_after: int = 2,
@@ -245,7 +293,27 @@ def run_moe_drill(
     heal step, the ranks compared at each step (``compared``), the bytes
     each of group 0's ranks served in the second heal (``served``), that
     heal's gauges per healer rank (``heals``), the passes of all runs and
-    the drill's wall time (``seconds``)."""
+    the drill's wall time (``seconds``).
+
+    ``axes`` (an in-group mesh with an ``expert`` axis, virtual on
+    ``device`` unless there are cards for it): two groups of one rank, each
+    a ``ShardedMoETransformer`` over that mesh, through
+    ``run_hsdp_drill`` (``ranks`` unused): both commit 1..k, group 1 fails, group 0 commits
+    k + 1 alone, group 1 restarts from a poisoned init and heals into its
+    expert-sharded template at k + 2, both commit k + 3..k + 2 + a; every
+    piece of both groups bitwise at every joint step, the healed leaves in
+    the healer's sharding, the heal's wire bytes the state's. Returns
+    ``run_hsdp_drill``'s result; ``init_state`` is then a parameter tree
+    in the reference's structure."""
+    if axes is not None:
+        if steps_alone != 1:
+            raise ValueError("the expert-sharded drill commits one step "
+                             "alone")
+        return run_hsdp_drill(
+            cfg, axes, steps=kill_step + 2 + steps_after,
+            kill_after=kill_step, device=device, batch_size=batch_size,
+            seed=seed, model_fn=ShardedMoETransformer, params=init_state,
+            timeout=timeout, log=log)
     if kill_step < 2:
         raise ValueError(f"kill_step {kill_step}: group 1 joins at step 2")
     t_start = time.perf_counter()
@@ -395,11 +463,16 @@ def run_moe_drill(
     }
 
 
-def main() -> None:
+def main(mesh_devices: Optional[int] = None) -> None:
     logging.basicConfig(level=os.environ.get("LOGLEVEL", "WARNING"),
                         format="%(asctime)s %(name)s: %(message)s")
     replica_group = int(os.environ.get("REPLICA_GROUP_ID", "0"))
     cfg = MOE_CONFIGS[os.environ.get("MODEL", "moe-tiny")]
+    if mesh_devices is None and "MESH_DEVICES" in os.environ:
+        mesh_devices = int(os.environ["MESH_DEVICES"])
+    device = resolve_device(os.environ.get("DEVICE"))
+    mesh = None if mesh_devices is None else hsdp_mesh(
+        moe_mesh_axes(mesh_devices, cfg.num_experts), device)
 
     def on_commit(step, manager, model, optimizer, loss):
         print(f"[group {replica_group}] step {step} loss {float(loss):.4f} "
@@ -410,7 +483,7 @@ def main() -> None:
         total_steps=int(os.environ.get("TOTAL_STEPS", "30")),
         rank=int(os.environ.get("RANK", "0")),
         world_size=int(os.environ.get("WORLD_SIZE", "1")),
-        device=os.environ.get("DEVICE"), on_commit=on_commit)
+        device=device, mesh=mesh, on_commit=on_commit)
     print(f"[group {replica_group}] done after {len(run.step_seconds)} "
           "committed steps")
 

@@ -13,6 +13,16 @@ each block's forward runs again in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
 Attention goes through ``ops.attention.causal_attention``: the flash
 kernels on the card, their plain versions on the CPU.
+
+:class:`ShardedMoETransformer` is the same model over an in-group mesh's
+``data``, ``tensor`` and ``expert`` axes, built on ``ShardedGPT``'s
+lock-step machinery: the leaves cut by ``tp_rules_gpt() + moe_rules()``
+(the reference's single pass: attention and the dense MLPs Megatron-split
+on ``tensor``, the experts' ``up``/``down`` on their expert dimension over
+``expert``, the router whole), the batch split over ``data`` x ``expert``
+(GShard's layout, so no position repeats another's attention), and each
+MoE layer through ``parallel.moe.sharded_moe_forward`` (global routing,
+the dispatch and combine all-to-alls over the expert axis).
 """
 
 from __future__ import annotations
@@ -26,16 +36,31 @@ from torch import nn
 from torchft_tpu_torch.models.transformer import (
     GPT,
     Block,
+    ShardedGPT,
     TransformerConfig,
     _Attn,
     _layer_norm,
     _Param,
     attn_sublayer,
+    gpt_param_shapes,
 )
-from torchft_tpu_torch.parallel.moe import MoEConfig, moe_forward
+from torchft_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_EXPERT,
+    AXIS_FSDP,
+)
+from torchft_tpu_torch.parallel.moe import (
+    ExpertPlan,
+    MoEConfig,
+    moe_forward,
+    moe_rules,
+    sharded_moe_forward,
+)
+from torchft_tpu_torch.parallel.sharding import NamedSharding, tp_rules_gpt
 
 __all__ = ["MOE_CONFIGS", "MoEBlock", "MoETransformer",
-           "MoETransformerConfig"]
+           "MoETransformerConfig", "ShardedMoETransformer",
+           "moe_param_shapes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,4 +200,107 @@ class MoETransformer(GPT):
         load-balancing losses."""
         h, aux = self.forward_hidden_aux(tokens, attn_fn)
         return (self.cross_entropy(h, targets)
+                + self.moe_config.aux_loss_weight * aux)
+
+
+def moe_param_shapes(cfg: MoETransformerConfig) -> Dict[str, tuple]:
+    """Every parameter's path (the reference's) and shape, in
+    ``MoETransformer.named_parameters()`` order: the dense skeleton's, each
+    MoE layer's ``mlp`` replaced by ``moe/gate/kernel`` [D, E] and
+    ``moe/experts/{up,down}`` [E, D, F] and [E, F, D]."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    out: Dict[str, tuple] = {}
+    for path, shape in gpt_param_shapes(cfg.dense_cfg()).items():
+        layer, *rest = path.split("/")
+        if rest[0] == "mlp" and cfg.is_moe_layer(int(layer[len("layers_"):])):
+            if rest[1] == "up_proj":
+                out.update({f"{layer}/moe/gate/kernel": (d, e),
+                            f"{layer}/moe/experts/up": (e, d, f),
+                            f"{layer}/moe/experts/down": (e, f, d)})
+            continue
+        out[path] = shape
+    return out
+
+
+class ShardedMoETransformer(ShardedGPT):
+    """The MoE transformer over an in-group mesh's ``data``, ``tensor`` and
+    ``expert`` axes (see the module docstring): tokens [B, S] -> the mean
+    next-token cross entropy plus ``aux_loss_weight`` x the summed
+    load-balancing losses, equal to :class:`MoETransformer`'s on the same
+    weights up to the order of the row-parallel, vocab-parallel and combine
+    sums. ``num_experts`` must split over ``expert``, and ``n_heads``,
+    ``d_ff`` and the vocabulary over ``tensor``; the batch splits over
+    ``data`` x ``expert``. An ``fsdp`` axis is refused (the reference's MoE
+    runs with ``fsdp_axis=None``). ``params``: a tree in the reference's
+    structure (``jax.device_get(moe_init_params(...))`` or
+    ``gpt_param_tree(moe_transformer)``), or None to draw the weights with
+    :class:`MoETransformer`'s scheme from ``seed``. ``state_tree``,
+    ``grad_tree`` and ``load_state_tree`` are ``ShardedGPT``'s: the expert
+    leaves are ``ShardedTensor`` s split on their expert dimension."""
+
+    _BATCH_AXES = (AXIS_DATA, AXIS_EXPERT)
+    _MOE_LEAVES = ("moe/gate/kernel", "moe/experts/up", "moe/experts/down")
+
+    def __init__(self, cfg: MoETransformerConfig, mesh, params=None,
+                 seed: int = 0) -> None:
+        shape = (getattr(mesh, "mesh", None) or mesh).shape
+        if shape.get(AXIS_FSDP, 1) > 1:
+            raise ValueError(f"the expert-sharded MoE takes no {AXIS_FSDP} "
+                             f"axis (mesh {shape}); the reference's MoE runs "
+                             f"with fsdp_axis=None")
+        ep = shape.get(AXIS_EXPERT, 1)
+        if cfg.num_experts % ep:
+            raise ValueError(f"{cfg.num_experts} experts do not split over "
+                             f"{AXIS_EXPERT} = {ep}")
+        self.moe_config = cfg
+        super().__init__(cfg, mesh, params=params, seed=seed)
+        self.expert_plan = ExpertPlan(self.mesh, self._BATCH_AXES)
+
+    def _param_shapes(self) -> Dict[str, tuple]:
+        return moe_param_shapes(self.moe_config)
+
+    def _rules(self) -> list:
+        return tp_rules_gpt() + moe_rules()
+
+    def _check_layout(self, path: str, sharding: NamedSharding) -> None:
+        """Megatron's layout on ``tensor``; on ``expert`` only the experts,
+        split on their expert dimension."""
+        super()._check_layout(path, sharding)
+        got = [i for i, e in enumerate(sharding.spec) if e == AXIS_EXPERT]
+        expert_leaf = path.rsplit("/", 2)[-2:] in (["experts", "up"],
+                                                   ["experts", "down"])
+        if got != ([0] if expert_leaf and self.mesh.shape.get(
+                AXIS_EXPERT, 1) > 1 else []):
+            raise ValueError(f"{path}: spec {sharding.spec} is not the "
+                             f"expert layout the sharded MoE computes")
+
+    def _moe_block(self, i: int, *xs):
+        w = self._gather_layer(i, self._ATTN_LEAVES + self._MOE_LEAVES)
+        xs = self._attention(w, xs)
+        d = self.cfg.d_model
+        hs = [_layer_norm(x, w["ln_2/scale"][p], w["ln_2/bias"][p])
+              .reshape(-1, d) for p, x in enumerate(xs)]
+        ys, aux = sharded_moe_forward(
+            self.moe_config.moe_cfg(), self.expert_plan,
+            w["moe/gate/kernel"], w["moe/experts/up"],
+            w["moe/experts/down"], hs)
+        # over-capacity tokens get 0: the residual passes them through
+        return (*(x + y.reshape(x.shape) for x, y in zip(xs, ys)),
+                aux.float())
+
+    def _layer(self, i: int, xs):
+        if not self.moe_config.is_moe_layer(i):
+            return super()._layer(i, xs)
+        if self.cfg.remat and torch.is_grad_enabled():
+            out = torch.utils.checkpoint.checkpoint(
+                self._moe_block, i, *xs, use_reentrant=False)
+        else:
+            out = self._moe_block(i, *xs)
+        return out[:-1], out[-1]
+
+    def loss(self, tokens, targets) -> torch.Tensor:
+        """Mean next-token cross entropy + aux_loss_weight x the summed
+        load-balancing losses, on the first position's device."""
+        hs, aux = self.forward_hidden_aux(tokens)
+        return (self.cross_entropy(hs, targets)
                 + self.moe_config.aux_loss_weight * aux)

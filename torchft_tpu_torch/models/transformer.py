@@ -65,7 +65,7 @@ from torchft_tpu_torch.utils.device import resolve_device
 
 __all__ = ["CONFIGS", "GPT", "ShardedGPT", "TrainStep", "TransformerConfig",
            "count_params", "from_jax_params", "gpt_param_shapes",
-           "gpt_param_tree", "loss_fn", "make_train_step"]
+           "gpt_param_tree", "loss_fn", "make_grad_step", "make_train_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -474,6 +474,58 @@ def make_train_step(model: "GPT",
     return TrainStep(model, optimizer)
 
 
+def make_grad_step(model: nn.Module, attn_fn: Optional[Callable] = None,
+                   microbatches: int = 1) -> Callable:
+    """``(tokens, targets) -> loss`` leaving the batch's mean gradient in
+    each parameter's ``.grad`` (replacing what was there), where
+    ``DistributedDataParallel`` reads it: the FT-DDP path's on-device half
+    (twin of the reference's ``make_grad_step``; ``model`` is any of the
+    port's models with a ``loss(tokens, targets)``, ``attn_fn`` as for
+    :func:`attn_sublayer`).
+
+    ``microbatches`` > 1 runs that many equal slices of the batch one after
+    another (the activations of one slice at a time), accumulates the loss
+    and the gradients in f32 and hands back their means, the gradients
+    cast to each parameter's dtype, as the reference's scan does; a batch
+    that does not divide raises ValueError."""
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def loss_of(tokens, targets):
+        if attn_fn is None:
+            return model.loss(tokens, targets)
+        return model.loss(tokens, targets, attn_fn)
+
+    def step(tokens, targets):
+        if microbatches <= 1:
+            loss = loss_of(tokens, targets)
+            grads = torch.autograd.grad(loss, params)
+            for p, g in zip(params, grads):
+                p.grad = g
+            return loss.detach()
+        b = tokens.shape[0]
+        if b % microbatches:
+            raise ValueError(
+                f"batch {b} not divisible by microbatches {microbatches}")
+        mb = b // microbatches
+        loss_sum = None
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in params]
+        for i in range(microbatches):
+            sl = slice(i * mb, (i + 1) * mb)
+            loss = loss_of(tokens[sl], targets[sl])
+            grads = torch.autograd.grad(loss, params)
+            loss = loss.detach().float()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            for a, g in zip(acc, grads):
+                a.add_(g.float())
+        inv = 1.0 / microbatches
+        for p, a in zip(params, acc):
+            p.grad = (a * inv).to(p.dtype)
+        return loss_sum * inv
+
+    return step
+
+
 # ----------------------------------------------------------- sharded GPT
 
 
@@ -655,6 +707,9 @@ class ShardedGPT(nn.Module):
     seeded with ``seed`` on the first position's device, one leaf at a
     time."""
 
+    # the axes the batch splits over, the first the major
+    _BATCH_AXES: Tuple[str, ...] = (AXIS_DATA, AXIS_FSDP)
+
     def __init__(self, cfg: TransformerConfig, mesh, params: Any = None,
                  seed: int = 0) -> None:
         super().__init__()
@@ -662,13 +717,17 @@ class ShardedGPT(nn.Module):
         self.cfg, self.mesh = cfg, mesh
         shape = mesh.shape
         self.tp = shape.get(AXIS_TENSOR, 1)
-        fsdp = shape.get(AXIS_FSDP, 1)
         self.devices = [_device(d) for d in mesh.devices.flat]
         coords = [dict(zip(mesh.axis_names, map(int, np.unravel_index(
             p, mesh.devices.shape)))) for p in range(mesh.size)]
-        self.batch_shards = shape.get(AXIS_DATA, 1) * fsdp
-        self._batch_index = [c.get(AXIS_DATA, 0) * fsdp + c.get(AXIS_FSDP, 0)
-                             for c in coords]
+        self.batch_shards = int(np.prod([shape.get(a, 1)
+                                         for a in self._BATCH_AXES]))
+        self._batch_index = []
+        for c in coords:
+            b = 0
+            for a in self._BATCH_AXES:
+                b = b * shape.get(a, 1) + c.get(a, 0)
+            self._batch_index.append(b)
         self._tensor_index = [c.get(AXIS_TENSOR, 0) for c in coords]
         # positions grouped by batch shard, each group in tensor order
         self._groups: List[List[int]] = [[] for _ in range(self.batch_shards)]
@@ -679,15 +738,16 @@ class ShardedGPT(nn.Module):
             raise ValueError(f"n_heads {cfg.n_heads}, d_ff {cfg.d_ff} and "
                              f"vocab {cfg.vocab_size} must split over "
                              f"{AXIS_TENSOR} = {self.tp}")
-        fn = make_sharding_fn(mesh, tp_rules_gpt())
+        fn = make_sharding_fn(mesh, self._rules())
         gen = None
         if params is None:
             gen = torch.Generator(device=self.devices[0]).manual_seed(seed)
-        self.paths = list(gpt_param_shapes(cfg))
+        shapes = self._param_shapes()
+        self.paths = list(shapes)
         self.layouts: Dict[str, ShardedTensor] = {}
         self.plans: Dict[str, _GatherPlan] = {}
         self.shards = nn.ModuleDict()
-        for path, want in gpt_param_shapes(cfg).items():
+        for path, want in shapes.items():
             whole = _tree_get(params, path) if gen is None \
                 else _init_tensor(path.rsplit("/", 1)[-1], want, gen,
                                   self.devices[0])
@@ -703,6 +763,12 @@ class ShardedGPT(nn.Module):
             self.plans[path] = _GatherPlan(leaf)
             self.shards[path.replace("/", "-")] = nn.ParameterList(
                 [nn.Parameter(p) for p in leaf.pieces])
+
+    def _param_shapes(self) -> Dict[str, tuple]:
+        return gpt_param_shapes(self.cfg)
+
+    def _rules(self) -> list:
+        return tp_rules_gpt()
 
     # ------------------------------------------------------------ layout
 
@@ -739,14 +805,10 @@ class ShardedGPT(nn.Module):
 
     # ------------------------------------------------------------- model
 
-    def _block(self, i: int, *xs):
+    def _attention(self, w: Dict[str, Tuple[torch.Tensor, ...]], xs):
+        """Each position's hidden states plus the attention sublayer of the
+        layer whose gathered leaves are ``w``."""
         cfg, dt = self.cfg, self.cfg.dtype
-        pre = f"layers_{i}/"
-        w = {n: self._gather(pre + n) for n in (
-            "ln_1/scale", "ln_1/bias", "attn/q_proj/kernel",
-            "attn/k_proj/kernel", "attn/v_proj/kernel", "attn/o_proj/kernel",
-            "ln_2/scale", "ln_2/bias", "mlp/up_proj/kernel",
-            "mlp/down_proj/kernel")}
         parts = []
         for p, x in enumerate(xs):
             b, s, _ = x.shape
@@ -758,7 +820,20 @@ class ShardedGPT(nn.Module):
             a = causal_attention(q.reshape(shape), k, v)
             parts.append(a.reshape(b, s, -1)
                          @ w["attn/o_proj/kernel"][p].to(dt))
-        xs = [x + y for x, y in zip(xs, self._allreduce(parts))]
+        return [x + y for x, y in zip(xs, self._allreduce(parts))]
+
+    def _gather_layer(self, i: int, names) -> Dict[str, tuple]:
+        return {n: self._gather(f"layers_{i}/{n}") for n in names}
+
+    _ATTN_LEAVES = ("ln_1/scale", "ln_1/bias", "attn/q_proj/kernel",
+                    "attn/k_proj/kernel", "attn/v_proj/kernel",
+                    "attn/o_proj/kernel", "ln_2/scale", "ln_2/bias")
+
+    def _block(self, i: int, *xs):
+        dt = self.cfg.dtype
+        w = self._gather_layer(i, self._ATTN_LEAVES + (
+            "mlp/up_proj/kernel", "mlp/down_proj/kernel"))
+        xs = self._attention(w, xs)
         parts = []
         for p, x in enumerate(xs):
             h = _layer_norm(x, w["ln_2/scale"][p], w["ln_2/bias"][p])
@@ -767,18 +842,32 @@ class ShardedGPT(nn.Module):
             parts.append(h @ w["mlp/down_proj/kernel"][p].to(dt))
         return tuple(x + y for x, y in zip(xs, self._allreduce(parts)))
 
+    def _layer(self, i: int, xs) -> Tuple[tuple, Optional[torch.Tensor]]:
+        """Layer ``i`` on every position (recomputed in the backward under
+        remat): the new hidden states and the layer's auxiliary loss (None:
+        the dense GPT has none)."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(
+                self._block, i, *xs, use_reentrant=False), None
+        return self._block(i, *xs), None
+
     def _split_batch(self, tokens: torch.Tensor) -> List[torch.Tensor]:
         b = tokens.shape[0]
         if b % self.batch_shards:
+            axes = " x ".join(self._BATCH_AXES)
             raise ValueError(f"batch {b} does not split over "
-                             f"{self.batch_shards} data x fsdp shards")
+                             f"{self.batch_shards} {axes} shards")
         n = b // self.batch_shards
         return [tokens[i * n:(i + 1) * n].to(self.devices[p])
                 for p, i in enumerate(self._batch_index)]
 
-    def forward_hidden(self, tokens) -> List[torch.Tensor]:
-        """Final-norm hidden states, one ``[B / (data x fsdp), S, D]``
-        tensor per mesh position (its batch shard)."""
+    def forward_hidden_aux(self, tokens
+                           ) -> Tuple[List[torch.Tensor],
+                                      Optional[torch.Tensor]]:
+        """Final-norm hidden states, one ``[B / batch shards, S, D]``
+        tensor per mesh position (its batch shard), and the layers' summed
+        auxiliary loss on the first position's device (None if no layer
+        has one)."""
         cfg, dt = self.cfg, self.cfg.dtype
         toks = self._split_batch(tokens)
         s = tokens.shape[1]
@@ -798,20 +887,25 @@ class ShardedGPT(nn.Module):
                 parts.append(table[tok])
         xs = [x + pe.to(dt)[:s][None, :, :]
               for x, pe in zip(self._allreduce(parts), wpe)]
+        aux_total = None
         for i in range(cfg.n_layers):
-            if cfg.remat and torch.is_grad_enabled():
-                xs = torch.utils.checkpoint.checkpoint(
-                    self._block, i, *xs, use_reentrant=False)
-            else:
-                xs = self._block(i, *xs)
+            xs, aux = self._layer(i, xs)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
         ln_s, ln_b = self._gather("ln_f/scale"), self._gather("ln_f/bias")
-        return [_layer_norm(x, a, b) for x, a, b in zip(xs, ln_s, ln_b)]
+        return ([_layer_norm(x, a, b) for x, a, b in zip(xs, ln_s, ln_b)],
+                aux_total)
 
-    def loss(self, tokens, targets) -> torch.Tensor:
-        """Mean next-token cross entropy over the whole batch, on the first
-        position's device; the lm head vocab-parallel over the tensor axis
-        in ``max(1, xent_chunks)`` chunks a shard."""
-        hs = self.forward_hidden(tokens)
+    def forward_hidden(self, tokens) -> List[torch.Tensor]:
+        """Final-norm hidden states, one ``[B / batch shards, S, D]``
+        tensor per mesh position (its batch shard)."""
+        return self.forward_hidden_aux(tokens)[0]
+
+    def cross_entropy(self, hs: List[torch.Tensor], targets) -> torch.Tensor:
+        """Mean next-token cross entropy over the whole batch of each
+        position's final-norm hidden states, on the first position's
+        device; the lm head vocab-parallel over the tensor axis in
+        ``max(1, xent_chunks)`` chunks a shard."""
         tgts = self._split_batch(targets)
         heads = self._gather("lm_head/kernel")
         d = self.cfg.d_model
@@ -823,6 +917,11 @@ class ShardedGPT(nn.Module):
                 tgts[group[0]].reshape(-1),
                 max(1, self.cfg.xent_chunks)).to(self.devices[0]))
         return torch.cat(nll).mean()
+
+    def loss(self, tokens, targets) -> torch.Tensor:
+        """Mean next-token cross entropy over the whole batch (see
+        :meth:`cross_entropy`)."""
+        return self.cross_entropy(self.forward_hidden(tokens), targets)
 
     # ------------------------------------------------------- state trees
 

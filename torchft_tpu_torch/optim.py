@@ -136,6 +136,22 @@ def init_adam_state(optimizer: torch.optim.Optimizer) -> None:
                         p, memory_format=torch.preserve_format)
 
 
+def init_sgd_state(optimizer: torch.optim.SGD) -> None:
+    """Create an SGD optimizer's momentum buffers now (zeros) instead of at
+    its first step, so a fresh optimizer's state lists the leaves a
+    stepped one's does (a heal template before any step). The first step
+    is the lazy one's: ``0 * momentum + grad``."""
+    with torch.no_grad():
+        for group in optimizer.param_groups:
+            if not group.get("momentum"):
+                continue
+            for p in group["params"]:
+                state = optimizer.state[p]
+                if state.get("momentum_buffer") is None:
+                    state["momentum_buffer"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+
+
 def load_optimizer_state_dict(optimizer: torch.optim.Optimizer,
                               state_dict: Dict[str, Any]) -> None:
     """``optimizer.load_state_dict(state_dict)``, but copied into the

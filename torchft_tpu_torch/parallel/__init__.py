@@ -15,9 +15,13 @@ from torchft_tpu_torch.parallel.mesh import (  # noqa: F401
     ft_mesh,
 )
 from torchft_tpu_torch.parallel.moe import (  # noqa: F401
+    ExpertPlan,
     MoEConfig,
     init_moe_params,
     moe_forward,
+    moe_forward_sharded,
+    moe_rules,
+    sharded_moe_forward,
 )
 from torchft_tpu_torch.parallel.sharding import (  # noqa: F401
     NamedSharding,
