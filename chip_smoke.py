@@ -17,7 +17,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    attention shape of the model that reaches it and at one with work
    enough to time (``FLASH_SHAPES``: "tiny" (8, 128, 4, 16) and (8, 1024,
    12, 16); (1, 128, 2, 32) and (8, 1024, 12, 32); "125m" (8, 1024, 12,
-   64); "1b" (1, 2048, 16, 128)), in bf16, causal and non-causal, through
+   64) and its pipeline microbatch (2, 1024, 12, 64); "1b" (1, 2048, 16,
+   128)), in bf16, causal and non-causal, through
    ``flash_attention`` forward + backward and through
    ``flash_block_attention_bwd`` with external lse/Delta, within
    ``flash.KERNEL_TOL`` (each element within one bf16 ulp plus 1e-4, the
@@ -344,6 +345,55 @@ Phases, each of which fails the run (non-zero exit, no result line):
    It prints the heal's wall and rate, the step p50s and the drill's
    seconds.
 
+19. train_pp (it runs after train_moe_expert): the twin of the
+   reference's tests/test_integration_pp.py at "125m" (136,091,136
+   parameters; 12 layers, heads of 64, seq 1024, no activation
+   checkpointing), full width and depth, batch 8: each replica group's
+   GPT (``pipelined_gpt``) pipelined over a virtual ``PP_AXES`` =
+   ``{"stage": 4}`` mesh of the card, stage s running layers 3s..3s+2
+   through ``models.transformer._block`` from stage-stacked leaves split
+   on dim 0 over "stage", the batch in ``PP_MICROBATCHES`` = 4 GPipe
+   microbatches of 2 sequences (``parallel.make_pipeline``; the flash
+   kernels at (2, 1024, 12, 64)), the embeddings, ln_f and the head
+   replicated outside the pipeline. First a parity pass: one
+   forward/backward of the same weights and batch through the pipelined
+   and the unpipelined GPT, the loss within ``LOSS_TOL`` and the gradient
+   sample within ``GRAD_REL_NORM``, each timed warm alone. Then
+   ``run_pp_drill`` with the launch counts set to 0 just before it: two
+   groups of one rank over TCP at codec none, AdamW (3e-4) in optax's
+   order on the pieces; group 1 fails after its 3rd commit, group 0
+   commits 4 alone, group 1 restarts from a poisoned init and heals into
+   its stage-split template at 5; both commit 5-7. Every piece and AdamW
+   moment of both groups bitwise at every step both commit, every healed
+   leaf in the healer's sharding (the stage leaves split over "stage",
+   each piece on its position), the heal's wire bytes the state's,
+   finite losses, each flash kernel launched M x 12 = 48 times a pass
+   (only the schedule's filled slots run a stage), no codec kernel. Then,
+   at the drill's initial weights, ``make_pipeline_1f1b`` and
+   ``make_pipeline_interleaved_1f1b`` (V = 3, one layer a virtual stage)
+   against GPipe with autograd, the embedding's output fed in detached:
+   every stage gradient within ``PP_SCHEDULE_TOL``, 1F1B's peak stored
+   inputs equal to ``peak_inflight_activations``. It prints what
+   train_hsdp prints and checks the memory first (``pp_device_bytes``,
+   ``hsdp_host_bytes``).
+
+20. pipeline_plane: the port's MPMD stage plane (``pipeline.Pipeline``)
+   on the card at ``PLANE``: 4 stages x 2 replicas, 8 microbatches of
+   1,024 rows (a "125m" sequence's tokens), ``layer_dims`` (768,) * 13
+   (three layers a stage; an f32 activation frame is 3 MiB), the stage
+   compute as torch ops on the card. The reference's own oracles: for
+   each codec in none, bf16 and int8 with error feedback, streaming 1F1B
+   against stage-serial GPipe, sha256-equal at every step; the schedule
+   rebuilt from each replica's events (``reconstruct_pipe_schedule``)
+   equal to its lane's projection of ``expected_stage_sequence`` at every
+   step; a kill of stage 1's second replica two actions into a step under
+   ``on_kill="heal"`` (0 drained steps, a replay wave, the heal's
+   ``redist_moved_bytes`` = ``redist_lower_bound_bytes`` = the stage's
+   bytes) and under ``"drain"`` (the full tree moved); one ``rebalance``,
+   bitwise against a control that never rebalanced. It prints step
+   seconds per arm, frame bytes a step, the heal's ms and bytes; no
+   flash or codec kernel may launch.
+
 It prints a ``kernels`` JSON line before the last line and ends with
 ``{"ok": true, "device": {...}}``. It needs one card and no network.
 """
@@ -351,6 +401,7 @@ It prints a ``kernels`` JSON line before the last line and ends with
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import math
@@ -586,13 +637,15 @@ def _check(name: str, got, want, what: str, failed: list) -> float:
 FLASH_SHAPE = (8, 1024, 12, 64)  # "125m": batch 8, seq 1024, 12 heads of 64
 # (what, [B, S, H, D], timed): the flash kernels at each head_dim they
 # take, at the attention shape of the model that reaches it and at one
-# with work enough to time
+# with work enough to time; a head_dim's first timed shape fills its
+# per_head_dim row, a later one goes to the row's "also_timed"
 FLASH_SHAPES = (
     ("tiny", (8, 128, 4, 16), False),
     ("head_dim 16", (8, 1024, 12, 16), True),
     ("head_dim 32", (1, 128, 2, 32), False),
     ("head_dim 32", (8, 1024, 12, 32), True),
     ("125m", FLASH_SHAPE, True),
+    ("125m pipeline microbatch", (2, 1024, 12, 64), True),
     ("1b", (1, 2048, 16, 128), True),
 )
 
@@ -780,7 +833,12 @@ def phase_kernels(seed: int, ptxas: dict):
         if timed:
             times = time_flash(q, k, v, do)
             for name in FLASH_KERNELS:
-                per_d[name][d].update(shape=list(shape), **times[name])
+                row = per_d[name][d]
+                if "shape" in row:
+                    row.setdefault("also_timed", []).append(
+                        {"what": what, "shape": list(shape), **times[name]})
+                else:
+                    row.update(shape=list(shape), **times[name])
             if shape == FLASH_SHAPE:
                 top = times
         del q, k, v, do
@@ -1913,8 +1971,9 @@ def sharded_parity(dense, sharded, sample, seed: int, card: str,
         secs = time.perf_counter() - t0
         if name == "sharded":
             tree = model.grad_tree()
-            grads = {n: _tree_get(tree, n.replace(".", "/")).full()
-                     for n in sample}
+            grads = {n: _tree_get(tree, n.replace(".", "/")) for n in sample}
+            grads = {n: g.full() if hasattr(g, "full") else g
+                     for n, g in grads.items()}
         else:
             named = dict(model.named_parameters())
             grads = {n: named[n].grad.detach().clone() for n in sample}
@@ -1954,12 +2013,14 @@ def sharded_parity(dense, sharded, sample, seed: int, card: str,
 
 
 def hsdp_report(result: dict, cfg, batch: int, per_pass: dict,
-                pass_ms: dict, card: str, positions: int = 0) -> list:
+                pass_ms: dict, card: str, positions: int = 0,
+                layout: "str | None" = None) -> list:
     """The lines train_hsdp prints about a ``run_hsdp_drill`` result: the
     bitwise checks, per group the step phases' p50s and committed step
     times, committed tokens/s after the heal, the heal's wall, rate and
-    bytes, the bytes of pieces per position, and the flash launches and
-    their summed device time per pass beside ``forward_backward``."""
+    bytes, the bytes of pieces per position, and the flash launches
+    (``layout`` says what makes them up) and their summed device time per
+    pass beside ``forward_backward``."""
     runs, heal = result["runs"], result["heal_step"]
     lines = [f"both groups bitwise equal (every piece of the parameters "
              f"and AdamW's moments) at every step both committed "
@@ -1986,10 +2047,10 @@ def hsdp_report(result: dict, cfg, batch: int, per_pass: dict,
                  f"{result['piece_bytes']} (f32)")
     fb = [run.metrics.get("forward_backward_p50_ms")
           for _, run in sorted(runs.items())]
+    layout = layout or (f"{cfg.n_layers} layers x "
+                        f"{positions or hsdp_positions()} positions, remat")
     lines.append(f"flash launches per forward/backward pass: {per_pass} "
-                 f"({cfg.n_layers} layers x "
-                 f"{positions or hsdp_positions()} positions, "
-                 f"remat); their device time per pass "
+                 f"({layout}); their device time per pass "
                  f"{pass_ms['total']:.2f} ms ("
                  + ", ".join(f"{n} {ms:.2f}" for n, ms in pass_ms.items()
                              if n != "total")
@@ -2193,6 +2254,648 @@ def phase_train_moe_expert(seed: int, card: str,
     torch.cuda.empty_cache()
     log(f"  phase {time.perf_counter() - t0:.1f} s ({card})")
     return counts, want, cfg.head_dim
+
+
+# train_pp: the GPT's blocks over a virtual {"stage": 4} mesh in each
+# replica group (tests/test_integration_pp.py's layout at "125m")
+PP_AXES = {"stage": 4}    # the reference test's S = 4, positions of the card
+PP_BATCH = 8
+PP_MICROBATCHES = 4       # the reference test's M: 2 sequences a microbatch
+PP_STEPS = 7              # committed steps; group 1 heals at 5
+PP_KILL_AFTER = 3
+# 1F1B and interleaved 1F1B against GPipe with autograd, the relative norm
+# of each stage gradient's difference: the same products, summed over the
+# microbatches in another order (1F1B in tick order, autograd its own)
+PP_SCHEDULE_TOL = 1e-3
+# the parity pass's gradient sample: a layer of the first, a middle and
+# the last stage at "125m", the embedding and the head
+PP_GRAD_SAMPLE = ("wte.embedding", "layers_0.attn.q_proj.kernel",
+                  "layers_5.mlp.up_proj.kernel",
+                  "layers_11.attn.o_proj.kernel", "lm_head.kernel")
+
+
+def pp_stages() -> int:
+    return PP_AXES["stage"]
+
+
+def pp_attention_shape(cfg, batch: int = PP_BATCH,
+                       microbatches: int = PP_MICROBATCHES) -> tuple:
+    """[B, S, H, D] of each flash call: one microbatch."""
+    return (batch // microbatches, cfg.max_seq_len, cfg.n_heads,
+            cfg.head_dim)
+
+
+def pp_launches(passes: int, layers: int,
+                microbatches: int = PP_MICROBATCHES) -> dict:
+    """Each flash kernel's launches in ``passes`` GPipe forward/backward
+    passes of the pipelined GPT. Only the slots the schedule fills run a
+    stage, so every microbatch meets every layer once: M x layers forward
+    launches a pass and as many of each backward kernel (the stages run
+    no activation checkpointing)."""
+    per = passes * microbatches * layers
+    return {"flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per}
+
+
+def pp_replicated_bytes(cfg) -> int:
+    """f32 bytes of the leaves outside the pipeline (the embeddings, ln_f
+    and the head), which every forward gathers onto each position."""
+    d = cfg.d_model
+    return 4 * (2 * cfg.vocab_size * d + cfg.max_seq_len * d + 2 * d)
+
+
+def pp_device_bytes(n_params: int, cfg, batch: int = PP_BATCH,
+                    groups: int = 2) -> int:
+    """Device memory train_pp may hold at once, the largest of its parts:
+    the parity pass (the unsharded and the pipelined model, each its f32
+    parameters and gradients; one pass's activations: GPipe keeps every
+    microbatch's, the unpipelined batch's bf16 activations, half of
+    ``gpt_activation_bytes``); the drill (per group its f32 parameters,
+    gradients and two AdamW moments, 16 bytes a parameter; the healer's
+    healed copy of parameters and moments, 12; every group's activations
+    and the replicated leaves gathered onto the positions); the schedule
+    pass (the weights, stacked copies with their GPipe and 1F1B gradients
+    and one pass's activations)."""
+    act = gpt_activation_bytes(cfg, batch) // 2 \
+        + pp_stages() * pp_replicated_bytes(cfg)
+    parity = 16 * n_params + act
+    drill = (16 * groups + 12) * n_params + groups * act
+    schedules = 20 * n_params + act
+    return max(parity, drill, schedules)
+
+
+def stack_gpt_tree(tree, n_layers: int, stages: int):
+    """The GPT's parameter tree (the reference's structure) with its
+    layers stage-stacked: stage s holds layers s*L/S .. (s+1)*L/S - 1, as
+    ``stages/layers_j`` leaves of a leading [S] dim; the embeddings, ln_f
+    and the head stay as they are."""
+    from torchft_tpu_torch.parallel import stack_stage_params
+
+    per = n_layers // stages
+    out = {k: v for k, v in tree.items() if not k.startswith("layers_")}
+    out["stages"] = stack_stage_params([
+        {f"layers_{j}": tree[f"layers_{s * per + j}"] for j in range(per)}
+        for s in range(stages)])
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def pipelined_gpt():
+    """The class of the drill's model (defined on first use: the script
+    imports torch and the port inside its phases)."""
+    from torchft_tpu_torch.models import GPT, ShardedGPT, gpt_param_tree
+    from torchft_tpu_torch.models.transformer import (
+        _block,
+        _layer_norm,
+        _tree_set,
+        ce_from_hidden,
+        gpt_param_shapes,
+    )
+    from torchft_tpu_torch.parallel import (
+        make_pipeline,
+        merge_microbatches,
+        split_microbatches,
+    )
+
+    class PipelinedGPT(ShardedGPT):
+        """The GPT with its blocks over the mesh's ``stage`` axis, as the
+        reference's PP test lays its model out: stage s runs layers
+        s*L/S .. (s+1)*L/S - 1 through the functional block from
+        stage-stacked leaves split on dim 0 over ``"stage"`` (each
+        position holds exactly its stage's weights); the batch splits
+        into ``microbatches`` GPipe microbatches (``make_pipeline``). The
+        embeddings, ln_f and the head are replicated and run outside the
+        pipeline, before ``split_microbatches`` and after
+        ``merge_microbatches``, so autograd carries the gradient to the
+        embedding. ``ShardedGPT``'s machinery holds the pieces, gathers
+        the replicated leaves and gives the heal's state trees.
+        ``params``: whole leaves in the reference's structure, else the
+        unpipelined ``GPT``'s draw from ``seed``."""
+
+        def __init__(self, cfg, mesh, params=None, seed: int = 0,
+                     microbatches: int = PP_MICROBATCHES) -> None:
+            mesh = getattr(mesh, "mesh", None) or mesh
+            self.stages = mesh.shape["stage"]
+            if cfg.n_layers % self.stages:
+                raise ValueError(f"{cfg.n_layers} layers do not split over "
+                                 f"{self.stages} stages")
+            if params is None:
+                params = gpt_param_tree(GPT(cfg, device=mesh.devices.flat[0],
+                                            seed=seed))
+            super().__init__(cfg, mesh, params=stack_gpt_tree(
+                params, cfg.n_layers, self.stages), seed=seed)
+            self.microbatches = microbatches
+            self.pipeline = make_pipeline(mesh, self._stage)
+
+        def _param_shapes(self):
+            per = self.cfg.n_layers // self.stages
+            out = {}
+            for path, shape in gpt_param_shapes(self.cfg).items():
+                if not path.startswith("layers_"):
+                    out[path] = shape
+                    continue
+                layer, rest = path.split("/", 1)
+                if int(layer.split("_")[1]) < per:
+                    out[f"stages/{layer}/{rest}"] = (self.stages, *shape)
+            return out
+
+        def _rules(self):
+            return [(r"stages/.*", 0, "stage")]
+
+        def _check_layout(self, path, sharding):
+            """Stage leaves split on dim 0 over "stage", nothing else
+            split."""
+            spec = tuple(sharding.spec)
+            staged = spec[:1] == ("stage",)
+            if staged != path.startswith("stages/") or any(
+                    e is not None for e in spec[staged:]):
+                raise ValueError(f"{path}: spec {sharding.spec} is not the "
+                                 f"pipeline's layout")
+
+        def _stage(self, params, h):
+            for j in range(len(params)):
+                h = _block(self.cfg, params[f"layers_{j}"], h)
+            return h
+
+        def stacked(self):
+            """The stage leaves as ``ShardedTensor`` s over the live
+            parameter pieces (autograd reaches them)."""
+            tree = {}
+            for path in self.paths:
+                if path.startswith("stages/"):
+                    _tree_set(tree, path[len("stages/"):],
+                              self.layouts[path].like(self.pieces(path)))
+            return tree
+
+        def loss(self, tokens, targets):
+            cfg, dt = self.cfg, self.cfg.dtype
+            # the replicated leaves on the first position, their
+            # gradient summed into every copy (ShardedGPT's gather)
+            wte, wpe, ln_s, ln_b, head = (self._gather(p)[0] for p in (
+                "wte/embedding", "wpe/embedding", "ln_f/scale", "ln_f/bias",
+                "lm_head/kernel"))
+            x = wte.to(dt)[tokens] \
+                + wpe.to(dt)[:tokens.shape[1]][None, :, :]
+            h = merge_microbatches(self.pipeline(
+                self.stacked(), split_microbatches(x, self.microbatches)))
+            return ce_from_hidden(_layer_norm(h, ln_s, ln_b), head, targets,
+                                  cfg.xent_chunks)
+
+        def grad_tree(self):
+            """The gradients in the unpipelined GPT's structure
+            (``layers_i`` for every layer), whole tensors."""
+            per = self.cfg.n_layers // self.stages
+            out = {}
+            for path in self.paths:
+                g = self._leaf(path, [p.grad for p in self.pieces(path)])
+                g = g.full()
+                if not path.startswith("stages/"):
+                    _tree_set(out, path, g)
+                    continue
+                _, layer, rest = path.split("/", 2)
+                j = int(layer.split("_")[1])
+                for s in range(self.stages):
+                    _tree_set(out, f"layers_{s * per + j}/{rest}", g[s])
+            return out
+
+    return PipelinedGPT
+
+
+def run_pp_drill(cfg, *, device=None, batch: int = PP_BATCH, seed: int = 0,
+                 microbatches: int = PP_MICROBATCHES, timeout: float = 600.0,
+                 log=log) -> dict:
+    """The PP x FT drill: ``examples.train_hsdp.run_hsdp_drill`` with each
+    group's model a :func:`pipelined_gpt` over a virtual ``PP_AXES`` mesh
+    of ``device`` (two groups of one rank, TCP at codec none, AdamW (3e-4)
+    in optax's order on the pieces; group 1 fails after its 3rd commit,
+    restarts from a poisoned init and heals into its stage-split template
+    at 5; both commit to 7, every piece and moment bitwise at every joint
+    step, every healed leaf in the healer's sharding, the heal's wire
+    bytes the state's)."""
+    from torchft_tpu_torch.examples.train_hsdp import run_hsdp_drill
+
+    return run_hsdp_drill(
+        cfg, PP_AXES, steps=PP_STEPS, kill_after=PP_KILL_AFTER,
+        device=device, batch_size=batch, seed=seed,
+        model_fn=functools.partial(pipelined_gpt(),
+                                   microbatches=microbatches),
+        timeout=timeout, log=log)
+
+
+def pp_parity(cfg, seed: int, card: str, batch: int = PP_BATCH,
+              device: str = "cuda") -> None:
+    """One forward/backward of the same weights and batch through the
+    pipelined GPT over ``PP_AXES`` (a virtual mesh of ``device``) and the
+    unpipelined GPT (:func:`sharded_parity`)."""
+    import torch
+
+    from torchft_tpu_torch.models import GPT, gpt_param_tree
+    from torchft_tpu_torch.parallel import ft_mesh
+
+    dev = torch.device(device)
+    dense = GPT(cfg, device=dev, seed=seed)
+    mesh = ft_mesh(PP_AXES, devices=[dev] * pp_stages())
+    piped = pipelined_gpt()(cfg, mesh, params=gpt_param_tree(dense))
+    sample = [n for n in PP_GRAD_SAMPLE
+              if not n.startswith("layers_")
+              or int(n.split(".")[0].split("_")[1]) < cfg.n_layers]
+    sharded_parity(dense, piped, sample, seed, card, batch,
+                   f"pipelined {PP_AXES} x {PP_MICROBATCHES} microbatches")
+
+
+def pp_schedules(cfg, seed: int, card: str, batch: int = PP_BATCH,
+                 device: str = "cuda") -> list:
+    """1F1B and interleaved 1F1B against GPipe with autograd at the drill's
+    initial weights: the embedding's output fed in detached (the
+    reference's ``embed_fn`` and ``loss_fn`` carry no parameters), ln_f,
+    the head and the loss as ``loss_fn``. Every stage gradient of
+    ``make_pipeline_1f1b`` (S = 4, M = 4, ``stage_fn`` the stage's layers)
+    and of ``make_pipeline_interleaved_1f1b`` (V = layers / S: one layer a
+    virtual stage) within ``PP_SCHEDULE_TOL`` of GPipe's; the losses
+    within 1e-5; 1F1B's peak stored inputs equal to
+    ``peak_inflight_activations(one_f_one_b_schedule(S, M))``. Raises on a
+    miss; returns the lines it logged."""
+    import torch
+
+    from torchft_tpu_torch.models import GPT, gpt_param_tree
+    from torchft_tpu_torch.models.transformer import (
+        _block,
+        _layer_norm,
+        _tree_get,
+        ce_from_hidden,
+        gpt_param_shapes,
+    )
+    from torchft_tpu_torch.parallel import (
+        ft_mesh,
+        make_pipeline,
+        make_pipeline_1f1b,
+        make_pipeline_interleaved_1f1b,
+        one_f_one_b_schedule,
+        peak_inflight_activations,
+        split_microbatches,
+        stack_interleaved_params,
+    )
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    S, M, L = pp_stages(), PP_MICROBATCHES, cfg.n_layers
+    V = L // S
+    tree = gpt_param_tree(GPT(cfg, device=dev, seed=seed))
+    mesh = ft_mesh(PP_AXES, devices=[dev] * S)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    tok = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len),
+                        generator=gen, device=dev)
+    dt = cfg.dtype
+    with torch.no_grad():
+        x = tree["wte"]["embedding"].to(dt)[tok] \
+            + tree["wpe"]["embedding"].to(dt)[:cfg.max_seq_len][None]
+    xm = split_microbatches(x, M)
+    ym = split_microbatches(torch.roll(tok, -1, dims=1), M)
+
+    def stage_fn(p, h):
+        for j in range(len(p)):
+            h = _block(cfg, p[f"layers_{j}"], h)
+        return h
+
+    def loss_fn(h, y):
+        h = _layer_norm(h, tree["ln_f"]["scale"], tree["ln_f"]["bias"])
+        return ce_from_hidden(h, tree["lm_head"]["kernel"], y,
+                              cfg.xent_chunks)
+
+    per = L // S
+    names = [p.split("/", 1)[1] for p in gpt_param_shapes(cfg)
+             if p.startswith("layers_0/")]
+    stacked = stack_gpt_tree(tree, L, S)["stages"]
+    for j in range(per):
+        for n in names:
+            _tree_get(stacked, f"layers_{j}/{n}").requires_grad_(True)
+    times = {}
+    sync()
+    t0 = time.perf_counter()
+    out = make_pipeline(mesh, stage_fn)(stacked, xm)
+    gpipe_loss = sum(loss_fn(out[k], ym[k]) for k in range(M)) / M
+    gpipe_loss.backward()
+    sync()
+    times["gpipe"] = time.perf_counter() - t0
+    del out
+    one = make_pipeline_1f1b(mesh, stage_fn, loss_fn, M)
+    sync()
+    t0 = time.perf_counter()
+    one_loss, one_grads = one(stacked, xm, ym)
+    sync()
+    times["1f1b"] = time.perf_counter() - t0
+    inter = make_pipeline_interleaved_1f1b(
+        mesh, lambda p, h: _block(cfg, p, h), loss_fn, M, V)
+    virtual = stack_interleaved_params(
+        [tree[f"layers_{v}"] for v in range(L)], S, V)
+    sync()
+    t0 = time.perf_counter()
+    int_loss, int_grads = inter(virtual, xm, ym)
+    sync()
+    times["interleaved"] = time.perf_counter() - t0
+    failed = []
+    worst = {"1f1b": 0.0, "interleaved": 0.0}
+    for layer in range(L):
+        s, j = divmod(layer, per)        # GPipe and 1F1B: stage s, its j-th
+        row = (layer % S) * V + layer // S  # interleaved: device-major row
+        for n in names:
+            want = _tree_get(stacked, f"layers_{j}/{n}").grad[s].double()
+            for arm, got in (
+                    ("1f1b", _tree_get(one_grads, f"layers_{j}/{n}")[s]),
+                    ("interleaved", _tree_get(int_grads, n)[row])):
+                e = float((got.double() - want).norm()
+                          / want.norm().clamp_min(1e-30))
+                worst[arm] = max(worst[arm], e)
+                if not e <= PP_SCHEDULE_TOL:
+                    failed.append(f"{arm} layer {layer} {n}: {e:.3e}")
+    peak = one.stats["peak_inflight"]
+    want_peak = peak_inflight_activations(one_f_one_b_schedule(S, M))
+    if peak != want_peak:
+        failed.append(f"1F1B stored {peak} stage inputs at once, the "
+                      f"schedule's peak is {want_peak}")
+    losses = {"gpipe": gpipe_loss.item(), "1f1b": one_loss.item(),
+              "interleaved": int_loss.item()}
+    for arm in ("1f1b", "interleaved"):
+        if not abs(losses[arm] - losses["gpipe"]) <= 1e-5 * max(
+                1.0, abs(losses["gpipe"])):
+            failed.append(f"{arm} loss {losses[arm]} against GPipe's "
+                          f"{losses['gpipe']}")
+    line = (f"schedules at S = {S}, M = {M}: losses {losses}; stage "
+            f"gradients' largest relative difference to GPipe with "
+            f"autograd: 1F1B {worst['1f1b']:.3e}, interleaved (V = {V}) "
+            f"{worst['interleaved']:.3e} (tolerance {PP_SCHEDULE_TOL}); "
+            f"1F1B peak stored inputs {peak}, peak_inflight_activations "
+            f"{want_peak}; seconds a pass "
+            + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+            + f" ({card})")
+    log("  " + line)
+    del tree, stacked, virtual, one_grads, int_grads
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"the 1F1B schedules against GPipe: {failed}")
+    return [line]
+
+
+def flash_times_at(rows: dict, shape) -> "dict | None":
+    """{kernel: times} the kernels phase took at ``shape``, or None."""
+    out = {}
+    for name in FLASH_KERNELS:
+        for row in rows.get(name, {}).get("per_head_dim", ()):
+            for t in [row] + row.get("also_timed", []):
+                if t.get("shape") == list(shape):
+                    out[name] = t
+    return out if len(out) == len(FLASH_KERNELS) else None
+
+
+def phase_train_pp(seed: int, card: str, batch: int = PP_BATCH,
+                   times: "dict | None" = None):
+    """The PP phase (module docstring, phase 19): the parity pass, the
+    drill with the launch counts set to 0 just before it and read just
+    after, then the schedule pass. ``times``: the flash kernels' times at
+    a microbatch's shape from the kernels phase (timed here if None).
+    Returns (the drill's launches, the launches the schedule says, the
+    head_dim)."""
+    import torch
+
+    from torchft_tpu_torch.models import gpt_param_shapes
+    from torchft_tpu_torch.ops import flash, quant
+
+    t0 = time.perf_counter()
+    cfg = pp_config()
+    n_params = sum(math.prod(s) for s in gpt_param_shapes(cfg).values())
+    need_host = hsdp_host_bytes(n_params)
+    free_host = check_host_memory(need_host, what="train_pp")
+    need = pp_device_bytes(n_params, cfg, batch)
+    gc.collect()  # an earlier phase's cycles may hold tensors
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    if free < need:
+        raise AssertionError(f"train_pp needs {need / 1e9:.2f} GB of device "
+                             f"memory free, has {free / 1e9:.2f} GB")
+    shape = pp_attention_shape(cfg, batch)
+    log(f"  125m: {n_params} parameters, {cfg.n_layers} layers, heads "
+        f"{cfg.n_heads} of {cfg.head_dim}, seq {cfg.max_seq_len}, "
+        f"xent_chunks {cfg.xent_chunks}, remat {cfg.remat}; batch {batch} "
+        f"in {PP_MICROBATCHES} microbatches over {PP_AXES} (virtual "
+        f"positions, {cfg.n_layers // pp_stages()} layers a stage), "
+        f"attention {shape} a call; device memory: up to "
+        f"{need / 1e9:.2f} GB (reckoned before the run), "
+        f"{free / 1e9:.1f} GB free; host memory: up to "
+        f"{need_host / 1e9:.2f} GB, {free_host / 1e9:.1f} GB available")
+    if times is None:
+        times = hsdp_flash_times(seed, shape)
+    per_pass = pp_launches(1, cfg.n_layers)
+    pass_ms = {n: per_pass[n] * times[n]["ms"] for n in per_pass}
+    pass_ms["total"] = sum(pass_ms.values())
+    pp_parity(cfg, seed, card, batch)
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    quant.reset_launch_counts()
+    result = run_pp_drill(cfg, device="cuda", batch=batch, seed=seed,
+                          log=lambda m: log("  " + m))
+    counts = {**flash.LAUNCHES, **quant.LAUNCHES}
+    want = {**pp_launches(result["passes"], cfg.n_layers),
+            **dict.fromkeys(quant.LAUNCHES, 0)}
+    peak = torch.cuda.max_memory_allocated()
+    for line in hsdp_report(result, cfg, batch, per_pass, pass_ms, card,
+                            layout=f"{PP_MICROBATCHES} microbatches x "
+                                   f"{cfg.n_layers} layers, no remat"):
+        log("  " + line)
+    log(f"  device memory peak: {peak / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB reserved "
+        f"(reckoned {need / 1e9:.2f} GB) ({card})")
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    pp_schedules(cfg, seed, card, batch)
+    log(f"  phase {time.perf_counter() - t0:.1f} s ({card})")
+    return counts, want, cfg.head_dim
+
+
+def pp_config():
+    """"125m", full width and depth."""
+    from torchft_tpu_torch.models import CONFIGS
+
+    return CONFIGS["125m"]
+
+
+# pipeline_plane: the MPMD stage plane (pipeline.py) on the card
+PLANE = dict(num_stages=4, replicas=2, microbatches=8,
+             layer_dims=(768,) * 13, batch=1024)  # 3 layers a stage
+PLANE_STEPS = 3
+PLANE_CODECS = (("none", False), ("bf16", False), ("int8", True))
+PLANE_KILL = (1, 1)         # a middle stage's second replica
+PLANE_KILL_AFTER = 2        # schedule actions into the step
+PLANE_REBALANCE = [[0, 1, 2, 3], [4, 5, 6], [7, 8], [9, 10, 11]]
+
+
+def _plane_sum(pipe, name: str) -> float:
+    return sum(s.get(name, 0.0) for s in pipe.metrics_snapshots().values())
+
+
+def plane_lane_sequence(stage: int, lane: int, shape: dict) -> list:
+    """Stage ``stage``'s (phase, microbatch) order on lane ``lane`` of a
+    fault-free 1F1B step: the per-lane projection of the schedule over the
+    lane's microbatches (lane, lane + R, ...)."""
+    from torchft_tpu_torch.pipeline import expected_stage_sequence
+
+    r = shape["replicas"]
+    seq = expected_stage_sequence(shape["num_stages"],
+                                  shape["microbatches"] // r, stage)
+    return [(phase, lane + r * k) for phase, k in seq]
+
+
+def phase_pipeline_plane(seed: int, card: str, device: str = "cuda",
+                         shape: "dict | None" = None,
+                         steps: int = PLANE_STEPS) -> list:
+    """The plane's phase (module docstring, phase 20): the reference's own
+    oracles on the card. Raises on a miss; returns the lines it logged."""
+    from torchft_tpu_torch.pipeline import (
+        Pipeline,
+        PipelineConfig,
+        reconstruct_pipe_schedule,
+    )
+
+    t_phase = time.perf_counter()
+    shape = dict(PLANE if shape is None else shape)
+    lines = []
+
+    def make(**kw):
+        return Pipeline(PipelineConfig(seed=seed, device=device,
+                                       step_timeout=120.0, **shape, **kw))
+
+    def say(line: str) -> None:
+        lines.append(line)
+        log("  " + line)
+
+    def steps_of(pipe, n: int):
+        """Run ``n`` fault-free steps: each one's seconds, frame bytes,
+        global hash and loss, and the most inputs a replica held."""
+        secs, nbytes, hashes, losses, peak = [], [], [], [], 0
+        for _ in range(n):
+            before = _plane_sum(pipe, "pipe_stage_bytes")
+            t0 = time.perf_counter()
+            r = pipe.run_step()
+            secs.append(time.perf_counter() - t0)
+            _require(not r["aborted"] and not r["killed"],
+                     f"step {r['step']} aborted or lost a replica")
+            _require(r["loss"] is not None and math.isfinite(r["loss"]),
+                     f"step {r['step']}: loss {r['loss']}")
+            nbytes.append(int(_plane_sum(pipe, "pipe_stage_bytes") - before))
+            hashes.append(pipe.global_param_hash())
+            losses.append(r["loss"])
+            peak = max(peak, r["inflight_peak"])
+        return secs, nbytes, hashes, losses, peak
+
+    frame = shape["batch"] * shape["layer_dims"][1] * 4
+    say(f"plane: {shape['num_stages']} stages x {shape['replicas']} "
+        f"replicas, {shape['microbatches']} microbatches of "
+        f"{shape['batch']} rows, layers {len(shape['layer_dims']) - 1} of "
+        f"{shape['layer_dims'][1]} (f32 activation frame {frame} bytes), "
+        f"on {device}")
+    for codec, ef in PLANE_CODECS:
+        hashes = {}
+        for streaming in (True, False):
+            pipe = make(codec=codec, error_feedback=ef, streaming=streaming)
+            try:
+                secs, nbytes, traj, losses, peak = steps_of(pipe, steps)
+                if codec == "none" and streaming:
+                    # the executed schedule from the events alone
+                    for (s, r), rep in sorted(pipe.replicas.items()):
+                        rec = reconstruct_pipe_schedule([rep.events.dump()])
+                        want = plane_lane_sequence(s, r, shape)
+                        for step in range(steps):
+                            _require(rec.get(step, {}).get(s) == want,
+                                     f"stage {s} replica {r} step {step}: "
+                                     f"events give {rec.get(step, {})}")
+            finally:
+                pipe.close()
+            hashes[streaming] = traj
+            say(f"{codec}{' + EF' if ef else ''} "
+                f"{'1F1B' if streaming else 'GPipe stage-serial'}: step s "
+                f"{[round(x, 3) for x in secs]}, frame bytes a step "
+                f"{nbytes}, losses {[round(x, 6) for x in losses]}, "
+                f"most inputs a replica held {peak} ({card})")
+        _require(hashes[True] == hashes[False],
+                 f"{codec}: 1F1B and stage-serial parameters differ")
+        say(f"{codec}: 1F1B sha256-equal to stage-serial at every step "
+            f"({steps})")
+    say(f"the schedule rebuilt from each replica's events equals its "
+        f"lane's projection of one_f_one_b_schedule at every step")
+    # a mid-step kill of a middle stage's replica, healed and drained
+    s_k, r_k = PLANE_KILL
+    for on_kill in ("heal", "drain"):
+        pipe = make(on_kill=on_kill)
+        try:
+            steps_of(pipe, 1)
+            pipe.schedule_kill(s_k, r_k, after_actions=PLANE_KILL_AFTER)
+            t0 = time.perf_counter()
+            r = pipe.run_step()
+            kill_s = time.perf_counter() - t0
+            _require(r["killed"] == [PLANE_KILL] and not r["aborted"],
+                     f"{on_kill}: the kill step gave {r['killed']}, "
+                     f"aborted {r['aborted']}")
+            drained = _plane_sum(pipe, "pipe_drained_steps")
+            if on_kill == "heal":
+                t0 = time.perf_counter()
+                info = pipe.heal(s_k, r_k)
+                heal_ms = (time.perf_counter() - t0) * 1e3
+                _require(drained == 0, f"heal: {drained} drained steps")
+                _require(_plane_sum(pipe, "pipe_replay_microbatches") > 0,
+                         "heal: no replay wave")
+                _require(info["moved_bytes"] == info["lower_bound_bytes"]
+                         == pipe.stage_param_bytes(s_k),
+                         f"heal moved {info}, stage bytes "
+                         f"{pipe.stage_param_bytes(s_k)}")
+                moved = _plane_sum(pipe, "redist_moved_bytes")
+                lower = _plane_sum(pipe, "redist_lower_bound_bytes")
+                _require(moved == lower, f"redist_moved_bytes {moved} != "
+                                         f"redist_lower_bound_bytes {lower}")
+                steps_of(pipe, 1)
+                say(f"heal arm: stage {s_k} replica {r_k} killed "
+                    f"{PLANE_KILL_AFTER} actions into step 1, which "
+                    f"committed in {kill_s:.3f} s with pipe_drained_steps "
+                    f"0 and {_plane_sum(pipe, 'pipe_replay_microbatches'):g}"
+                    f" replayed frames; heal {heal_ms:.1f} ms, "
+                    f"redist_moved_bytes {int(moved)} = "
+                    f"redist_lower_bound_bytes {int(lower)} (of "
+                    f"{pipe.total_param_bytes()} in the model); step 2 "
+                    f"committed by all {len(pipe.replicas)} ({card})")
+            else:
+                moved = _plane_sum(pipe, "redist_moved_bytes")
+                _require(drained >= 1, "drain: no drained step")
+                _require(moved == pipe.total_param_bytes(),
+                         f"drain moved {moved}, the tree is "
+                         f"{pipe.total_param_bytes()}")
+                say(f"drain arm: the same kill drained {drained:g} replica "
+                    f"steps and refetched the full tree, {int(moved)} "
+                    f"bytes; the rerun committed in {kill_s:.3f} s ({card})")
+        finally:
+            pipe.close()
+    # one rebalance, bitwise against a control that never rebalanced
+    control, moved = make(), make()
+    try:
+        steps_of(control, 1)
+        steps_of(moved, 1)
+        before = moved.global_param_hash()
+        t0 = time.perf_counter()
+        info = moved.rebalance(PLANE_REBALANCE)
+        ms = (time.perf_counter() - t0) * 1e3
+        _require(info["moved_bytes"] == info["lower_bound_bytes"] > 0,
+                 f"rebalance moved {info}")
+        _require(moved.global_param_hash() == before,
+                 "the rebalance changed the parameters")
+        a, b = steps_of(control, 2)[2], steps_of(moved, 2)[2]
+        _require(a == b, "the rebalanced run left the control's trajectory")
+        say(f"rebalance to {PLANE_REBALANCE}: {info['moved_bytes']} bytes "
+            f"moved = the plan's lower bound, {ms:.1f} ms; 2 more steps "
+            f"sha256-equal to the control ({card})")
+    finally:
+        control.close()
+        moved.close()
+    say(f"phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return lines
 
 
 # train_resnet: BASELINE config 2, ResNet-18 over two DDP groups
@@ -3895,7 +4598,8 @@ def _check_launches(counts, want, what: str) -> None:
 PHASES = ("kernels", "train", "train_multijob", "train_sharded",
           "train_moe", "train_cuda_int8",
           "train_tiny", "gpt_1b", "train_llama_ring", "train_hsdp",
-          "train_moe_expert", "train_resnet", "train_diloco",
+          "train_moe_expert", "train_pp", "pipeline_plane", "train_resnet",
+          "train_diloco",
           "train_diloco_sharded", "train_localsgd_int8", "train_hier_int8",
           "train_durable")
 
@@ -4069,6 +4773,26 @@ def main() -> int:
                         "position (the batch over data x expert), the "
                         "forward twice (remat); codec: none")
         _add_launches(rows, counts, head_dim)
+    if "train_pp" in phases:
+        log("phase train_pp")
+        counts, want, head_dim = phase_train_pp(
+            args.seed, smi, times=flash_times_at(
+                rows, pp_attention_shape(pp_config())))
+        _check_launches(counts, want,
+                        "flash: per pass every microbatch through every "
+                        "layer, once forward and once each backward; "
+                        "codec: none")
+        _add_launches(rows, counts, head_dim)
+    if "pipeline_plane" in phases:
+        log("phase pipeline_plane")
+        flash.reset_launch_counts()
+        quant.reset_launch_counts()
+        phase_pipeline_plane(args.seed, smi)
+        counts = {**flash.LAUNCHES, **quant.LAUNCHES}
+        _check_launches(counts, dict.fromkeys(counts, 0),
+                        "the plane's stage compute is an f32 MLP of "
+                        "torch.matmul, as the reference's is numpy; its "
+                        "int8 stage wire is the host codec in both")
     if "train_resnet" in phases:
         log("phase train_resnet")
         flash.reset_launch_counts()

@@ -17,7 +17,11 @@ whole at "tiny" on the CPU (both drills, the five schedule checks, which
 must also reject a broken coverage or grow). For ``train_hier_int8``:
 the host memory it needs at 125m, the roles of its schedule, the phase
 whole at "tiny" on the CPU (the card plane's arms on a CPU pool), and its
-checks failing a drill whose counter or recorded step is wrong.
+checks failing a drill whose counter or recorded step is wrong. For
+``train_pp``: its memory and launches at 125m, the phase whole at "tiny"
+(depth 8) on the CPU, and the schedule pass failing a wrong 1F1B runner;
+for ``pipeline_plane``: every arm at the card's stage and replica counts
+with narrow layers on the CPU.
 """
 
 import importlib.util
@@ -150,7 +154,10 @@ def test_flash_shapes_reach_every_head_dim() -> None:
     assert sorted({shape[3] for _, shape, _ in shapes}) == \
         list(smoke.HEAD_DIMS)
     for d in smoke.HEAD_DIMS:
-        assert sum(1 for _, shape, t in shapes if t and shape[3] == d) == 1
+        assert sum(1 for _, shape, t in shapes if t and shape[3] == d) >= 1
+    # the pipelined 125m's microbatch (2 sequences) is timed beside 125m's
+    assert ("125m pipeline microbatch", (2, 1024, 12, 64), True) in shapes
+    assert smoke.pp_attention_shape(CONFIGS["125m"]) == (2, 1024, 12, 64)
     for name in ("tiny", "125m", "1b"):
         cfg = CONFIGS[name]
         assert (name, (8 if name != "1b" else 1, cfg.max_seq_len,
@@ -159,8 +166,8 @@ def test_flash_shapes_reach_every_head_dim() -> None:
     assert smoke.PHASES == ("kernels", "train", "train_multijob",
                             "train_sharded", "train_moe", "train_cuda_int8",
                             "train_tiny", "gpt_1b", "train_llama_ring",
-                            "train_hsdp", "train_moe_expert",
-                            "train_resnet", "train_diloco",
+                            "train_hsdp", "train_moe_expert", "train_pp",
+                            "pipeline_plane", "train_resnet", "train_diloco",
                             "train_diloco_sharded",
                             "train_localsgd_int8", "train_hier_int8",
                             "train_durable")
@@ -1023,3 +1030,135 @@ def test_resnet_drill_catches_a_heal_without_running_statistics(
     with pytest.raises(AssertionError, match="group 1 differs at step"):
         smoke.run_resnet_drill(batch=2, image=8, device="cpu", timeout=30.0,
                                log=lambda m: None)
+
+
+def test_pp_memory_and_launches_at_125m() -> None:
+    smoke = _smoke()
+    cfg = smoke.pp_config()
+    assert (cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.head_dim,
+            cfg.max_seq_len, cfg.remat) == (768, 12, 12, 64, 1024, False)
+    from torchft_tpu_torch.models import gpt_param_shapes
+
+    n = sum(math.prod(s) for s in gpt_param_shapes(cfg).values())
+    assert n == 136091136
+    # 13 passes x 4 microbatches x 12 layers, no remat
+    assert smoke.pp_launches(13, 12) == dict.fromkeys(
+        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 13 * 4 * 12)
+    act = smoke.gpt_activation_bytes(cfg, 8) // 2 \
+        + 4 * smoke.pp_replicated_bytes(cfg)
+    need = smoke.pp_device_bytes(n, cfg)
+    assert need == (16 * 2 + 12) * n + 2 * act
+    assert need < 40e9
+    phases = smoke.PHASES
+    assert phases.index("train_moe_expert") < phases.index("train_pp") \
+        < phases.index("pipeline_plane") < phases.index("train_durable")
+
+
+def test_flash_times_at_reads_the_kernels_rows() -> None:
+    smoke = _smoke()
+    rows = {n: {"per_head_dim": [
+        {"head_dim": 64, "shape": [8, 1024, 12, 64], "ms": 1.0,
+         "also_timed": [{"shape": [2, 1024, 12, 64], "ms": 0.25}]}]}
+        for n in smoke.FLASH_KERNELS}
+    got = smoke.flash_times_at(rows, (2, 1024, 12, 64))
+    assert {n: t["ms"] for n, t in got.items()} == dict.fromkeys(
+        smoke.FLASH_KERNELS, 0.25)
+    assert smoke.flash_times_at(rows, (1, 1024, 12, 64)) is None
+    assert smoke.flash_times_at({}, (2, 1024, 12, 64)) is None
+
+
+def test_train_pp_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # the phase as the card runs it, moved to "tiny" at depth 8 (two layers
+    # a stage, V = 2 in the schedule pass) on the CPU: the parity pass, the
+    # drill's checks, the report, the launches the schedule says and the
+    # 1F1B schedules against GPipe; the kernels' timing needs the card
+    import dataclasses
+    import functools
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    tiny = dataclasses.replace(CONFIGS["tiny"], n_layers=8, xent_chunks=2)
+    monkeypatch.setattr(smoke, "pp_config", lambda: tiny)
+    times = {n: {"ms": 0.01} for n in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")}
+    for name in ("pp_parity", "pp_schedules"):
+        monkeypatch.setattr(smoke, name, functools.partial(
+            getattr(smoke, name), device="cpu"))
+    fn = smoke.run_pp_drill
+    monkeypatch.setattr(smoke, "run_pp_drill", lambda cfg, **kw: fn(
+        cfg, **dict(kw, device="cpu", timeout=30.0)))
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (1e12, 1e12))
+    for name in ("empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "max_memory_reserved", lambda *a: 0)
+    counts, want, head_dim = smoke.phase_train_pp(0, "CPU", times=times)
+    assert head_dim == 16
+    # 13 passes x 4 microbatches x 8 layers; the CPU launches no kernel
+    assert want == {"flash_fwd": 13 * 4 * 8, "flash_bwd_dq": 13 * 4 * 8,
+                    "flash_bwd_dkv": 13 * 4 * 8, "quant_int8": 0,
+                    "dequant_acc_int8": 0}
+    assert set(counts) == set(want) and not any(counts.values())
+    text = "\n".join(lines)
+    assert "pipelined {'stage': 4} x 4 microbatches: loss" in text
+    assert " ms warm (CPU)" in text
+    assert "FAIL" not in text
+    assert "both groups bitwise equal" in text
+    assert "group 1 healed at step 5 into its sharded template" in text
+    assert "heal: heal_wall_ms" in text and "= the state's" in text
+    assert "flash launches per forward/backward pass: {'flash_fwd': 32" \
+        in text and "(4 microbatches x 8 layers, no remat)" in text
+    assert "interleaved (V = 2)" in text
+    assert "1F1B peak stored inputs 4, peak_inflight_activations 4" in text
+    assert "committed tokens/s" in text and "phase " in text
+
+
+def test_pp_schedules_fail_a_wrong_runner(monkeypatch) -> None:
+    # a 1F1B runner whose gradients are off fails the schedule pass loudly
+    import dataclasses
+
+    from torchft_tpu_torch import parallel
+
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "log", lambda m: None)
+    real = parallel.make_pipeline_1f1b
+
+    def off(*a, **kw):
+        run = real(*a, **kw)
+
+        def wrapped(stacked, x, y):
+            loss, grads = run(stacked, x, y)
+            for leaf in grads["layers_0"]["mlp"]["up_proj"].values():
+                leaf.mul_(1.01)
+            return loss, grads
+        wrapped.stats = run.stats
+        return wrapped
+
+    monkeypatch.setattr(parallel, "make_pipeline_1f1b", off)
+    tiny = dataclasses.replace(CONFIGS["tiny"], n_layers=4)
+    with pytest.raises(AssertionError, match="1f1b layer 0 mlp/up_proj"):
+        smoke.pp_schedules(tiny, 0, "CPU", device="cpu")
+
+
+def test_pipeline_plane_runs_small_on_the_cpu(monkeypatch) -> None:
+    # the phase's arms at the card's stage and replica counts, narrow: the
+    # bitwise oracle per codec, the schedule from events, the kill healed
+    # and drained, the rebalance
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    shape = dict(smoke.PLANE, layer_dims=(16,) * 13, batch=8)
+    got = smoke.phase_pipeline_plane(0, "CPU", device="cpu", shape=shape,
+                                     steps=2)
+    text = "\n".join(got)
+    for codec in ("none", "bf16", "int8"):
+        assert f"{codec}: 1F1B sha256-equal to stage-serial" in text
+    assert "equals its lane's projection" in text
+    assert "heal arm: stage 1 replica 1 killed" in text
+    assert "pipe_drained_steps 0" in text
+    assert "drain arm" in text and "rebalance to" in text
+    # a microbatch's f32 activation frame: rows x width
+    assert "(f32 activation frame 512 bytes)" in text
+    assert smoke.PLANE["layer_dims"] == (768,) * 13
+    assert 1024 * 768 * 4 == 3 << 20  # the card's frame: 3 MiB

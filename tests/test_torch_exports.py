@@ -27,8 +27,8 @@ RENAMED = {
     "XlaCommContext": "comm.cuda_backend.CudaCommContext",
     "OrbaxCheckpointer": "checkpoint_io.DcpCheckpointer",
 }
-NOT_PORTED = {"MeshManager", "Pipeline", "PipelineConfig", "DeployPublisher",
-              "ServeCohort", "ServingReplica", "serve_layout"}
+NOT_PORTED = {"MeshManager", "DeployPublisher", "ServeCohort",
+              "ServingReplica", "serve_layout"}
 COMM_RENAMED = {
     "XlaCommContext": "comm.cuda_backend.CudaCommContext",
     "default_mesh_manager": "comm.cuda_backend.default_device_pool",

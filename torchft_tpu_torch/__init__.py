@@ -47,6 +47,8 @@ _LAZY = {
     "OptimizerWrapper": "torchft_tpu_torch.optim",
     "ShardedOptimizerWrapper": "torchft_tpu_torch.optim",
     "ShardedOptState": "torchft_tpu_torch.optim",
+    "Pipeline": "torchft_tpu_torch.pipeline",
+    "PipelineConfig": "torchft_tpu_torch.pipeline",
 }
 # the reference's alias (torchft_tpu.Optimizer is its OptimizerWrapper)
 _ALIASES = {"Optimizer": "OptimizerWrapper"}
@@ -71,6 +73,8 @@ __all__ = [
     "Manager",
     "Optimizer",
     "OptimizerWrapper",
+    "Pipeline",
+    "PipelineConfig",
     "PureDistributedDataParallel",
     "ReduceOp",
     "ShardedGradReducer",

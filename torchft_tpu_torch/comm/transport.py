@@ -85,6 +85,8 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "TcpCommContext",
+    "codec_decode_frame",
+    "codec_encode_frame",
     "codec_roundtrip",
     "codec_wire_nbytes",
     "host_unsupported_reason",
@@ -558,6 +560,24 @@ def codec_roundtrip(codec, chunk_bytes: int, src: np.ndarray,
     for ch_s, ch_o in zip(src_chunks, out_chunks):
         codec.decode_into(iov_join(codec.encode_iovecs([ch_s])), [ch_o],
                           _copy)
+
+
+def codec_encode_frame(codec, flat: np.ndarray) -> bytes:
+    """Encode one whole flat array as a single wire-frame payload: the
+    point-to-point frame surface (the pipeline plane's activation and
+    gradient hops), where a tensor travels un-chunked, one frame, one
+    codec image. The allreduce planes keep their chunk-grid encoding
+    (:func:`codec_roundtrip`); the two must not be mixed, because the int8
+    codec's per-chunk scale makes the images differ."""
+    return iov_join(codec.encode_iovecs([np.ascontiguousarray(flat)]))
+
+
+def codec_decode_frame(codec, data: bytes, out: np.ndarray) -> None:
+    """Decode one :func:`codec_encode_frame` payload into ``out`` in place
+    (plain copy combine). Callers that need the wire's local image for
+    error feedback decode their own encoded bytes through this, so
+    residuals stay bit-identical on both ends of the hop."""
+    codec.decode_into(data, [out], _copy)
 
 
 def codec_wire_nbytes(codec, chunk_bytes: int, a: np.ndarray) -> int:

@@ -64,8 +64,9 @@ from torchft_tpu_torch.parallel.sharding import (
 from torchft_tpu_torch.utils.device import resolve_device
 
 __all__ = ["CONFIGS", "GPT", "ShardedGPT", "TrainStep", "TransformerConfig",
-           "count_params", "from_jax_params", "gpt_param_shapes",
-           "gpt_param_tree", "loss_fn", "make_grad_step", "make_train_step"]
+           "ce_from_hidden", "count_params", "from_jax_params",
+           "gpt_param_shapes", "gpt_param_tree", "layer_tree", "loss_fn",
+           "make_grad_step", "make_train_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,20 +162,52 @@ class _MLP(nn.Module):
         self.down_proj = _Param(kernel=(f, d))
 
 
-def attn_sublayer(block: nn.Module, x, attn_fn: Optional[Callable] = None):
-    """``x`` plus the causal self-attention of ``block`` (its ``ln_1`` and
-    ``attn``), the half a dense and an MoE block share. ``attn_fn(q, k, v)``
+def layer_tree(module: nn.Module) -> Dict[str, Any]:
+    """``module``'s parameters (the live tensors) as a dict tree in the
+    reference's ``layers_i`` structure: ``{"ln_1": {"scale": ...},
+    "attn": {"q_proj": {"kernel": ...}}, ...}``."""
+    tree: Dict[str, Any] = {}
+    for name, p in module.named_parameters():
+        _tree_set(tree, name.replace(".", "/"), p)
+    return tree
+
+
+def _attn_sublayer(cfg, layer: Dict[str, Any], x,
+                   attn_fn: Optional[Callable] = None):
+    """``x`` plus the causal self-attention of ``layer`` (its ``ln_1`` and
+    ``attn`` tensors), the half a dense and an MoE block share. ``cfg`` is
+    duck-typed (dtype, n_heads, head_dim, d_model). ``attn_fn(q, k, v)``
     on ``[B, S, H, D]`` replaces ``causal_attention`` when given."""
-    cfg, dt = block.cfg, block.cfg.dtype
+    dt = cfg.dtype
     b, s, _ = x.shape
-    h = _layer_norm(x, block.ln_1.scale, block.ln_1.bias)
+    h = _layer_norm(x, layer["ln_1"]["scale"], layer["ln_1"]["bias"])
     shape = (b, s, cfg.n_heads, cfg.head_dim)
-    q = (h @ block.attn.q_proj.kernel.to(dt)).reshape(shape)
-    k = (h @ block.attn.k_proj.kernel.to(dt)).reshape(shape)
-    v = (h @ block.attn.v_proj.kernel.to(dt)).reshape(shape)
+    w = layer["attn"]
+    q = (h @ w["q_proj"]["kernel"].to(dt)).reshape(shape)
+    k = (h @ w["k_proj"]["kernel"].to(dt)).reshape(shape)
+    v = (h @ w["v_proj"]["kernel"].to(dt)).reshape(shape)
     attn = causal_attention if attn_fn is None else attn_fn
     a = attn(q, k, v).reshape(b, s, cfg.d_model)
-    return x + a @ block.attn.o_proj.kernel.to(dt)
+    return x + a @ w["o_proj"]["kernel"].to(dt)
+
+
+def _block(cfg: TransformerConfig, layer: Dict[str, Any], x, *,
+           attn_fn: Optional[Callable] = None):
+    """One decoder block over ``layer``, a dict of tensors in the
+    reference's ``layers_i`` tree (twin of the reference's ``_block``): a
+    stage of a pipeline runs a range of layers from stacked leaves with
+    it, and :class:`Block` runs its own parameters through it."""
+    dt = cfg.dtype
+    x = _attn_sublayer(cfg, layer, x, attn_fn)
+    h = _layer_norm(x, layer["ln_2"]["scale"], layer["ln_2"]["bias"])
+    h = F.gelu(h @ layer["mlp"]["up_proj"]["kernel"].to(dt),
+               approximate="tanh")
+    return x + h @ layer["mlp"]["down_proj"]["kernel"].to(dt)
+
+
+def attn_sublayer(block: nn.Module, x, attn_fn: Optional[Callable] = None):
+    """:func:`_attn_sublayer` over ``block``'s own parameters."""
+    return _attn_sublayer(block.cfg, layer_tree(block), x, attn_fn)
 
 
 class Block(nn.Module):
@@ -188,11 +221,7 @@ class Block(nn.Module):
         self.mlp = _MLP(d, cfg.d_ff)
 
     def forward(self, x, attn_fn: Optional[Callable] = None):
-        dt = self.cfg.dtype
-        x = attn_sublayer(self, x, attn_fn)
-        h = _layer_norm(x, self.ln_2.scale, self.ln_2.bias)
-        h = F.gelu(h @ self.mlp.up_proj.kernel.to(dt), approximate="tanh")
-        return x + h @ self.mlp.down_proj.kernel.to(dt)
+        return _block(self.cfg, layer_tree(self), x, attn_fn=attn_fn)
 
 
 class GPT(nn.Module):
@@ -252,17 +281,25 @@ class GPT(nn.Module):
 
     def cross_entropy(self, h, targets):
         """Mean next-token cross entropy of final-norm hidden states ``h``
-        (the reference's ``ce_from_hidden``)."""
-        w = self.lm_head.kernel
-        if self.cfg.xent_chunks > 0:
-            return hidden_cross_entropy(h, w, targets, self.cfg.xent_chunks)
-        logp = torch.log_softmax(h.float() @ w.float(), dim=-1)
-        return -logp.gather(-1, targets[..., None])[..., 0].mean()
+        (:func:`ce_from_hidden` over the model's head)."""
+        return ce_from_hidden(h, self.lm_head.kernel, targets,
+                              self.cfg.xent_chunks)
 
     def loss(self, tokens, targets, attn_fn: Optional[Callable] = None):
         """Mean next-token cross entropy."""
         return self.cross_entropy(self.forward_hidden(tokens, attn_fn),
                                   targets)
+
+
+def ce_from_hidden(h, lm_head_kernel, targets, xent_chunks: int = 0):
+    """Mean next-token cross entropy from final-norm hidden states (twin
+    of the reference's ``ce_from_hidden``): ``xent_chunks`` > 0 runs
+    ``ops.xent.hidden_cross_entropy``'s online logsumexp over that many
+    vocab chunks, 0 the dense f32 log-softmax. The head is replicated."""
+    if xent_chunks > 0:
+        return hidden_cross_entropy(h, lm_head_kernel, targets, xent_chunks)
+    logp = torch.log_softmax(h.float() @ lm_head_kernel.float(), dim=-1)
+    return -logp.gather(-1, targets[..., None])[..., 0].mean()
 
 
 def loss_fn(cfg: TransformerConfig, model: GPT, tokens, targets,

@@ -1,7 +1,9 @@
 """In-group parallelism: the device mesh and its replica axis
 (``mesh.py``), the fsdp and tensor layouts of parameters and the sharded
 leaf that holds them (``sharding.py``), ring attention over a sequence
-axis (``ring.py``) and the expert-parallel MoE block (``moe.py``)."""
+axis (``ring.py``), the expert-parallel MoE block (``moe.py``), and the
+pipeline stages over a ``stage`` axis (``pipeline.py``) with their
+schedules as data (``schedule.py``)."""
 
 from torchft_tpu_torch.parallel.mesh import (  # noqa: F401
     AXIS_DATA,
@@ -38,4 +40,22 @@ from torchft_tpu_torch.parallel.ring import (  # noqa: F401
     ring_attention,
     ring_launches,
     ring_schedule,
+)
+from torchft_tpu_torch.parallel.pipeline import (  # noqa: F401
+    make_pipeline,
+    make_pipeline_1f1b,
+    make_pipeline_interleaved_1f1b,
+    merge_microbatches,
+    split_microbatches,
+    stack_interleaved_params,
+    stack_stage_params,
+)
+from torchft_tpu_torch.parallel.schedule import (  # noqa: F401
+    bubble_fraction,
+    gpipe_schedule,
+    interleaved_1f1b_schedule,
+    interleaved_tables,
+    one_f_one_b_schedule,
+    peak_inflight_activations,
+    validate_schedule,
 )

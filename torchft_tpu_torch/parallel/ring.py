@@ -81,11 +81,14 @@ def ring_launches(n: int, causal: bool = True,
             "flash_bwd_dq": pairs, "flash_bwd_dkv": pairs}
 
 
-def _rotate(held: List[list], devices: Sequence[torch.device]) -> List[list]:
-    """One ring step: what shard ``i`` holds moves to shard ``i + 1``'s
-    device (the reference's ``ppermute(i -> i + 1)``)."""
+def _rotate(held: List[list], devices: Sequence[torch.device],
+            shift: int = 1) -> List[list]:
+    """One ring step: what shard ``i`` holds moves to shard ``i + shift``'s
+    device (the reference's ``ppermute(i -> i + shift)``; the pipeline's
+    backward hop is ``shift=-1``)."""
     n = len(held)
-    return [[x.to(devices[i]) for x in held[(i - 1) % n]] for i in range(n)]
+    return [[x.to(devices[i]) for x in held[(i - shift) % n]]
+            for i in range(n)]
 
 
 # ------------------------------------------------------------ einsum ring
