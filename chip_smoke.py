@@ -192,7 +192,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    from a poisoned init and each heals at 5 through
    ``recv_checkpoint_sharded`` from group 0's rank of its number, the
    stripes spread over both of group 0's ranks (peers from the group
-   store); both commit 5-7. Every live rank's parameters and AdamW state
+   store); both commit 5-6 (cut from 5-7 to keep the script under 900
+   s). Every live rank's parameters and AdamW state
    must be bitwise equal at every committed step, both donor ranks must
    have served bytes of the second heal, the losses must be finite, and
    the flash kernels must have launched per layer per pass twice forward
@@ -287,10 +288,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``GRAD_SAMPLE`` within ``GRAD_REL_NORM``. Then ``run_hsdp_drill``, with
    the launch counts set to 0 just before it: two groups over TCP at codec
    none, AdamW (3e-4) in optax's order stepped on the pieces; group 1
-   fails after its 3rd commit, group 0 commits 4 alone, group 1 restarts
+   fails after its 2nd commit, group 0 commits 3 alone, group 1 restarts
    from a poisoned init (its model, optimizer and staged state released
-   first) and heals into its sharded template at 5, fetching only its
-   pieces' bounds; both commit 5-7. Every piece (parameters and both
+   first) and heals into its sharded template at 4, fetching only its
+   pieces' bounds; both commit 4-5 (cut from 7 steps to keep the script
+   under 900 s). Every piece (parameters and both
    moments) of each group must equal the other's bitwise at every step
    both commit, every healed leaf must carry the healer's sharding, the
    heal's wire bytes must equal its state's (no region fetched twice),
@@ -321,9 +323,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    Then ``run_moe_drill(axes=MOE_EXPERT_AXES)``, with the launch counts
    set to 0 just before it: two groups of one rank over TCP at codec none,
    AdamW (3e-4) in optax's order stepped on the pieces; group 1 fails
-   after its 3rd commit, group 0 commits 4 alone, group 1 restarts from a
-   poisoned init and heals into its expert-sharded template at 5; both
-   commit 5-7. Every piece of both groups bitwise at every step both
+   after its 2nd commit, group 0 commits 3 alone, group 1 restarts from a
+   poisoned init and heals into its expert-sharded template at 4; both
+   commit 4-5 (cut from 7 steps to keep the script under 900 s). Every
+   piece of both groups bitwise at every step both
    commit, every healed leaf in the healer's sharding, the heal's wire
    bytes the state's, finite losses, the flash kernels launched per pass 2
    x 96 forward and 96 of each backward (12 layers x 8 positions, remat),
@@ -393,6 +396,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bitwise against a control that never rebalanced. It prints step
    seconds per arm, frame bytes a step, the heal's ms and bytes; no
    flash or codec kernel may launch.
+
+21. fused_step (it runs after pipeline_plane): the fused HSDP step
+   (``fused.FusedStepEngine``) at "125m" (136,091,136 parameters as one
+   flat f32 vector, ``fused.module_loss_fn`` over the GPT) on a virtual
+   ``FUSED_MESH`` = 2x2 (replicas x model shards) of the card: q_len
+   34,022,784, p_len 68,045,568, each position a microbatch of 2
+   sequences of 1,024 (a row of 2,048 f32 token ids, targets rolled),
+   AdamW (3e-4, weight decay 1e-4), the 16,384-element chunk grid. First
+   the unsharded GPT's gradient of step 1's 8 sequences; then, with the
+   launch counts set to 0, for each codec in none, bf16 and int8 + EF a
+   fused engine (one CUDA graph a step) and a staged one (four graphs, 6
+   host hops: 4.35 GB a step) from the same state, 3 steps each: every
+   state bitwise equal after every step, 1 dispatch and 0 hops a fused
+   step, 4 and 6 a staged one, 5 programs and 1 + 4 captures at first
+   sight and none after. Codec none: ``h`` at the staged arm's host hop,
+   assembled in (m, r) order, against the unsharded gradient
+   (``GRAD_REL_NORM``), the loss within ``LOSS_TOL``; then 2 steps of
+   each arm in one ``StepProfiler`` window, the device's busy share per
+   arm. Int8: step 2's ``h`` and residual bitwise the host codec on the
+   same ``gm``; then both engines churn 2x2 -> 4x1 -> 2x2 -> 4x1, a step
+   each, bitwise, ``verify_replicas``, no program or capture at a seen
+   shape. Each flash kernel launches once per layer per position per run
+   of the grad stage (a replay or the warm-up before a capture), each
+   int8 exchange one ``quant_int8`` and two ``dequant_acc_int8``. It
+   prints device ms (CUDA events) and wall ms per step of each arm, the
+   peak memory beside its reckoning (``fused_device_bytes``), each with
+   the card's name and power limit.
 
 It prints a ``kernels`` JSON line before the last line and ends with
 ``{"ok": true, "device": {...}}``. It needs one card and no network.
@@ -1814,8 +1844,8 @@ def phase_train_llama_ring(seed: int, card: str,
 # train_hsdp: the 1b GPT sharded over fsdp x tensor in each replica group
 HSDP_AXES = {"fsdp": 2, "tensor": 2}  # a virtual mesh of the one card
 HSDP_BATCH = 8
-HSDP_STEPS = 7          # committed steps; group 1 heals at 5
-HSDP_KILL_AFTER = 3
+HSDP_STEPS = 5          # committed steps; group 1 heals at 4
+HSDP_KILL_AFTER = 2
 HSDP_PHASES = ("quorum", "forward_backward", "ddp_wire")
 
 
@@ -2123,7 +2153,7 @@ def phase_train_hsdp(seed: int, card: str, batch: int = HSDP_BATCH):
 # mesh in each replica group (the reference test's mesh)
 MOE_EXPERT_AXES = {"expert": 4, "data": 2}
 MOE_EXPERT_BATCH = 8
-MOE_EXPERT_SCHEDULE = dict(kill_step=3, steps_after=2)  # heal at 5, 7 steps
+MOE_EXPERT_SCHEDULE = dict(kill_step=2, steps_after=1)  # heal at 4, 5 steps
 MOE_GRAD_SAMPLE = ("wte.embedding", "layers_0.attn.q_proj.kernel",
                    "layers_1.moe.gate.kernel", "layers_1.moe.experts.up",
                    "layers_1.moe.experts.down", "lm_head.kernel")
@@ -2896,6 +2926,527 @@ def phase_pipeline_plane(seed: int, card: str, device: str = "cuda",
         moved.close()
     say(f"phase {time.perf_counter() - t_phase:.1f} s ({card})")
     return lines
+
+
+# fused_step: the fused HSDP step (fused.py) at "125m" over a virtual
+# replica x model mesh of the card
+FUSED_MESH = (2, 2)         # replicas x model shards: 4 positions
+FUSED_SEQS = 2              # sequences of a position's microbatch
+FUSED_STEPS = 3             # steps of each arm per codec, from one state
+FUSED_CODECS = ("none", "bf16", "int8")
+FUSED_CHURN = ((4, 1), (2, 2), (4, 1))  # the int8 arm's shapes after 2x2
+FUSED_CHUNK_BYTES = 1 << 16  # the engine's chunk grid: 16,384 f32
+FUSED_PROFILE_STEPS = 2     # steps of each arm in the StepProfiler window
+FUSED_ADAMW = dict(learning_rate=3e-4, weight_decay=1e-4)
+FUSED_STAGES = 4            # programs of the staged arm
+
+
+def fused_config():
+    """"125m", full width and depth."""
+    from torchft_tpu_torch.models import CONFIGS
+
+    return CONFIGS["125m"]
+
+
+def gpt_row_loss(seq: int):
+    """``loss(model, row)``: a position's batch row of f32 token ids, cut
+    into sequences of ``seq``, the model's mean next-token loss with the
+    targets rolled as ``sharded_parity`` rolls them."""
+    import torch
+
+    def loss(model, row):
+        tok = row.view(-1, seq).long()
+        return model.loss(tok, torch.roll(tok, -1, dims=1))
+
+    return loss
+
+
+def fused_batch(seed: int, step: int, cfg, positions: int,
+                seqs: int = FUSED_SEQS):
+    """Step ``step``'s batch rows: ``(positions, seqs * seq)`` f32 token
+    ids drawn from the seed."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed * 1000 + step)
+    tok = torch.randint(0, cfg.vocab_size,
+                        (positions, seqs * cfg.max_seq_len), generator=gen)
+    return tok.float().numpy()
+
+
+def fused_shape(n_params: int, mesh) -> dict:
+    """The engine's lengths at a mesh shape: positions, q_len, p_len."""
+    r, m = mesh
+    q = -(-n_params // (r * m))
+    return {"positions": r * m, "q_len": q, "p_len": r * q}
+
+
+def fused_launches(runs: int, layers: int, positions: int, codec: str,
+                   ef: bool = True) -> dict:
+    """Each kernel's launches in ``runs`` runs of the step's stages (a
+    replay, or the warm-up run before a capture): per run one GPT pass per
+    position (each flash kernel once per layer, no remat at "125m"), and
+    under int8 one ``quant_int8`` for all slots, one ``dequant_acc_int8``
+    for the rank-order accumulate and one more for the error feedback's
+    wire image."""
+    flash = runs * positions * layers
+    q = runs if codec == "int8" else 0
+    return {"flash_fwd": flash, "flash_bwd_dq": flash, "flash_bwd_dkv": flash,
+            "quant_int8": q, "dequant_acc_int8": q * (2 if ef else 1)}
+
+
+def fused_host_hop_bytes(n_params: int, mesh=FUSED_MESH) -> int:
+    """Bytes one staged step sends through the host: gm (D x p_len), h and
+    new_sub (D x q_len each), f32, each down and up."""
+    s = fused_shape(n_params, mesh)
+    d = s["positions"]
+    return 2 * 4 * (d * s["p_len"] + 2 * d * s["q_len"])
+
+
+def fused_device_bytes(n_params: int, cfg, mesh=FUSED_MESH,
+                       churn=FUSED_CHURN) -> int:
+    """A reckoning of the phase's device memory at its peak, the int8
+    arm's churn, where a fused and a staged engine hold both shapes: per
+    engine and shape the state (params and residual, D x p_len f32 each;
+    AdamW's moments, D x q_len each); the staged engine's input buffers
+    (gm, h, new_sub); per engine the graphs' transients at the larger
+    shape (the int8 exchange's gm, gq, wire image and new residual at D x
+    p_len f32, the int8 slots at D x p_len bytes, h twice at D x q_len,
+    and the update's new sub-shards and moments, 3 x D x q_len); the
+    model's f32 parameters and one position's activations."""
+    shapes = [mesh] + [s for s in churn if s != mesh][:1]
+    state = staged = transient = 0
+    for sh in shapes:
+        s = fused_shape(n_params, sh)
+        dp, dq = s["positions"] * s["p_len"], s["positions"] * s["q_len"]
+        state += 4 * (2 * dp + 2 * dq)
+        staged += 4 * (dp + 2 * dq)
+        transient = max(transient, 4 * (4 * dp + 5 * dq) + dp)
+    return 2 * state + staged + 2 * transient + 4 * n_params \
+        + gpt_activation_bytes(cfg, FUSED_SEQS)
+
+
+def fused_host_bytes(n_params: int, mesh=FUSED_MESH,
+                     churn=FUSED_CHURN) -> int:
+    """Host memory the phase may hold: the staged engine's pinned staging
+    at both shapes, and the int8 oracle's copies (gm, the residual before
+    and after, gq and the wire image: 5 x D x p_len f32)."""
+    shapes = [mesh] + [s for s in churn if s != mesh][:1]
+    pinned = sum(fused_host_hop_bytes(n_params, sh) // 2 for sh in shapes)
+    s = fused_shape(n_params, mesh)
+    return pinned + 5 * 4 * s["positions"] * s["p_len"]
+
+
+def assemble_grad(h, replicas: int, model_shards: int):
+    """The flat averaged gradient from the exchange's ``h`` (D x q_len):
+    element (m, r, k) of the padded vector is h[r * M + m, k]."""
+    d, q = h.shape
+    return h.reshape(replicas, model_shards, q).transpose(1, 0, 2).reshape(-1)
+
+
+def host_int8_exchange(gm, e, replicas: int, model_shards: int,
+                       chunk_bytes: int, ef: bool = True):
+    """The int8 exchange on the host, the numpy codec of the TCP wire: every
+    destination slot of ``gm`` (+ ``e``) encoded and decoded on its chunk
+    grid (``codec_roundtrip``), each position's slots summed from 0 in rank
+    order and divided by R*M; the new residual ``gq - wire image``.
+    Returns (h, e)."""
+    import numpy as np
+
+    from torchft_tpu_torch.comm.transport import _CODECS, codec_roundtrip
+
+    codec = _CODECS["int8"]()
+    r_, m_ = replicas, model_shards
+    d_, p_len = gm.shape
+    q = p_len // r_
+    gq = (gm + e).astype(np.float32) if ef else gm
+    wire = np.empty_like(gq)
+    for d in range(d_):
+        for j in range(r_):
+            sl = slice(j * q, (j + 1) * q)
+            codec_roundtrip(codec, chunk_bytes,
+                            np.ascontiguousarray(gq[d, sl]), wire[d, sl])
+    h = np.empty((d_, q), np.float32)
+    for d in range(d_):
+        r, m = divmod(d, m_)
+        acc = np.zeros(q, np.float32)
+        for src in range(r_):
+            acc = acc + wire[src * m_ + m, r * q:(r + 1) * q]
+        h[d] = acc / np.float32(r_ * m_)
+    return h, ((gq - wire) if ef else e)
+
+
+def same_state(a, b) -> bool:
+    """Two engines' device states bitwise equal (every tensor the digest
+    hashes), compared on the device."""
+    import torch
+
+    return all(x.shape == y.shape and torch.equal(_bits(x), _bits(y))
+               for x, y in zip(a.state_tensors(), b.state_tensors()))
+
+
+def timed_step(fn, batch, cuda: bool) -> tuple:
+    """(loss, device ms by CUDA events around the call, wall ms)."""
+    import torch
+
+    ev = None
+    if cuda:
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    t0 = time.perf_counter()
+    loss = fn(batch)
+    if cuda:
+        ev[1].record()
+        ev[1].synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return loss, (ev[0].elapsed_time(ev[1]) if cuda else None), wall
+
+
+def busy_share(prof, label: str):
+    """The device's busy share inside the host ranges named ``label`` of a
+    ``torch.profiler`` trace: the union of the device events' intervals
+    there over the ranges' length. None where the trace holds no device
+    event."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.events())
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == label and e.device_type == DeviceType.CPU)
+    dev = sorted((e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == DeviceType.CUDA)
+    if not spans or not dev:
+        return None
+    busy = total = 0.0
+    for lo, hi in spans:
+        total += hi - lo
+        end = lo
+        for s, t in dev:
+            s, t = max(s, end), min(t, hi)
+            if t > s:
+                busy += t - s
+                end = t
+    return busy / total if total else None
+
+
+def dense_gradient(model, batch, seq: int):
+    """The unsharded model's loss and flat gradient on all positions'
+    sequences of ``batch`` at once."""
+    import torch
+
+    dev = next(model.parameters()).device
+    tok = torch.from_numpy(batch).to(dev).view(-1, seq).long()
+    model.zero_grad(set_to_none=True)
+    loss = model.loss(tok, torch.roll(tok, -1, dims=1))
+    loss.backward()
+    grad = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grad.cpu().numpy()
+
+
+def check_grad_parity(staged, loss: float, dense: tuple, card: str) -> None:
+    """Codec none: ``h`` as the staged arm read it at its host hop,
+    assembled in (m, r) order, against the unsharded model's gradient of
+    the same sequences (``GRAD_REL_NORM``), the step's loss against its
+    loss (``LOSS_TOL``)."""
+    import numpy as np
+
+    spec = staged.spec
+    h = staged._staged_buffers()["h"][1].numpy()
+    got = assemble_grad(h, spec.replicas, spec.model_shards)
+    got = got[:spec.param_size].astype(np.float64)
+    want = dense[1].astype(np.float64)
+    rel = float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
+                                                 1e-30))
+    ok = bool(np.isfinite(got).all()) and rel <= GRAD_REL_NORM \
+        and abs(loss - dense[0]) <= LOSS_TOL
+    log(f"  codec none, step 1: h at the staged arm's host hop (assembled "
+        f"in (m, r) order) against the unsharded GPT's gradient of the same "
+        f"{spec.positions * FUSED_SEQS} sequences: relative norm of the "
+        f"difference {rel:.3e} (tolerance {GRAD_REL_NORM}); loss {loss:.6f} "
+        f"against {dense[0]:.6f} (|diff| {abs(loss - dense[0]):.3e}, "
+        f"tolerance {LOSS_TOL}) {'ok' if ok else 'FAIL'} ({card})")
+    _require(ok, f"fused step's gradient against the unsharded GPT: "
+                 f"relative norm {rel}, loss {loss} against {dense[0]}")
+
+
+def check_int8_exchange(staged, e_before, card: str) -> None:
+    """Int8: the exchange's ``h`` and new residual as the staged arm left
+    them, bitwise against the host codec on the same ``gm`` (read at its
+    hop) and the residual before the step."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    spec = staged.spec
+    bufs = staged._staged_buffers()
+    gm = bufs["gm"][1].numpy()
+    h = bufs["h"][1].numpy()
+    e_after = staged._state.e.cpu().numpy()
+    want_h, want_e = host_int8_exchange(gm, e_before, spec.replicas,
+                                        spec.model_shards, spec.chunk_bytes,
+                                        spec.error_feedback)
+    ok = h.view(np.int32).tobytes() == want_h.view(np.int32).tobytes() \
+        and e_after.view(np.int32).tobytes() \
+        == want_e.view(np.int32).tobytes()
+    log(f"  codec int8, step 2: the exchange's h and residual against the "
+        f"host codec on the same gm and residual (q_len {spec.q_len} on "
+        f"the {spec.chunk_bytes // 4}-element grid): bitwise "
+        f"{'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s; "
+        f"{card})")
+    _require(ok, "the card's int8 exchange disagrees with the host codec")
+
+
+def run_fused_arm(codec: str, params, loss_fn, batches, device, card: str,
+                  dense=None, profile: bool = False) -> dict:
+    """One codec's arms: a fused and a staged engine from the same state,
+    ``FUSED_STEPS`` steps each on the same batches, every state bitwise
+    equal after every step, the counters and the program cache checked,
+    the oracles of the codec; under int8 the churn over ``FUSED_CHURN``.
+    Returns the runs of the stages (for the launch schedule) and the
+    times."""
+    import torch
+
+    from torchft_tpu_torch.comm.cuda_backend import DevicePool
+    from torchft_tpu_torch.fused import FusedStepEngine
+    from torchft_tpu_torch.optim import adamw
+
+    cuda = torch.device(device).type == "cuda"
+    R, M = FUSED_MESH
+    pool = DevicePool(device)
+    batch_size = batches[0].shape[1]
+    kw = dict(codec=codec, chunk_bytes=FUSED_CHUNK_BYTES, fn_key="gpt")
+    fused = FusedStepEngine(pool, R, M, params, batch_size, loss_fn,
+                            adamw(**FUSED_ADAMW), **kw)
+    staged = FusedStepEngine(pool, R, M, params, batch_size, loss_fn,
+                             adamw(**FUSED_ADAMW), **kw)
+    _require(same_state(fused, staged), f"{codec}: initial states differ")
+    captures = {"fused": 1, "staged": FUSED_STAGES} if cuda \
+        else {"fused": 0, "staged": 0}
+    times = {"fused": [], "staged": [], "fused_wall": [], "staged_wall": []}
+    runs = 0
+    for step in range(FUSED_STEPS):
+        b = batches[step]
+        e_before = (staged._state.e.to("cpu", copy=True).numpy()
+                    if codec == "int8" and step == 1 else None)
+        c0 = (fused.counters(), staged.counters())
+        lf, ms_f, wall_f = timed_step(fused.step_fused, b, cuda)
+        ls, ms_s, wall_s = timed_step(staged.step_staged, b, cuda)
+        c1 = (fused.counters(), staged.counters())
+        runs += 2 + (2 if step == 0 and cuda else 0)
+        for k, v in (("fused", ms_f), ("staged", ms_s),
+                     ("fused_wall", wall_f), ("staged_wall", wall_s)):
+            times[k].append(v)
+        delta = [(c1[i]["step_dispatch_count"] - c0[i]["step_dispatch_count"],
+                  c1[i]["step_host_hops"] - c0[i]["step_host_hops"])
+                 for i in range(2)]
+        _require(delta == [(1, 0), (FUSED_STAGES, 6)],
+                 f"{codec}: dispatches/hops per step {delta}, want "
+                 f"fused 1/0 and staged {FUSED_STAGES}/6")
+        _require(lf == ls and lf == lf, f"{codec}: losses {lf} and {ls}")
+        _require(same_state(fused, staged),
+                 f"{codec}: fused and staged states differ after step "
+                 f"{step + 1}")
+        _require(pool.compile_count == 1 + FUSED_STAGES
+                 and fused.captures == captures["fused"]
+                 and staged.captures == captures["staged"],
+                 f"{codec}: {pool.compile_count} programs and "
+                 f"{fused.captures}/{staged.captures} captures after step "
+                 f"{step + 1}")
+        log(f"  {codec} step {step + 1}: loss {lf:.6f} both arms, states "
+            f"bitwise equal; device ms fused "
+            f"{_ms(ms_f)} (one replay), staged {_ms(ms_s)} (four replays, "
+            f"six hops); wall ms {wall_f:.1f} / {wall_s:.1f} ({card})")
+        if codec == "none" and step == 0 and dense is not None:
+            check_grad_parity(staged, ls, dense, card)
+        if e_before is not None:
+            check_int8_exchange(staged, e_before, card)
+    hits = pool.hit_count
+    log(f"  {codec}: programs built {pool.compile_count} (1 fused + "
+        f"{FUSED_STAGES} stages), captures {fused.captures} fused + "
+        f"{staged.captures} staged, cache hits {hits}")
+    out = {"runs": runs, "times": times, "profile": None}
+    if profile:
+        out["profile"] = fused_profile(fused, staged, batches, cuda, card)
+        out["runs"] += 2 * FUSED_PROFILE_STEPS
+    if codec == "int8":
+        out["runs"] += fused_churn(fused, staged, batches, cuda, card)
+        _require(pool.hit_count > hits, "int8 churn hit no cached program")
+        t0 = time.perf_counter()
+        # the staged state is its bitwise twin (same_state after each step)
+        log(f"  int8 after the churn: sha256 of the state "
+            f"{fused.digest()[:16]} ({time.perf_counter() - t0:.1f} s)")
+    del fused, staged, pool
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ms(v) -> str:
+    return "not measured" if v is None else f"{v:.2f}"
+
+
+def _share(v) -> str:
+    return "not measured" if v is None else f"{v:.3f}"
+
+
+def fused_profile(fused, staged, batches, cuda: bool, card: str) -> dict:
+    """``FUSED_PROFILE_STEPS`` steps of each arm in one ``StepProfiler``
+    window (a trace under the temp dir, removed after): the device's busy
+    share in each arm's steps, the states bitwise after."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from torchft_tpu_torch.utils.profiling import StepProfiler
+
+    t0 = time.perf_counter()
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    log_dir = tempfile.mkdtemp(prefix="fused_step_trace_")
+    try:
+        with StepProfiler(log_dir=log_dir, start=0,
+                          num_steps=2 * FUSED_PROFILE_STEPS) as prof:
+            for label, fn in (("fused_arm", fused.step_fused),
+                              ("staged_arm", staged.step_staged)):
+                for i in range(FUSED_PROFILE_STEPS):
+                    prof.step()
+                    sync()
+                    with torch.profiler.record_function(label):
+                        fn(batches[FUSED_STEPS + i])
+                        sync()
+            prof.step()
+        trace_bytes = sum(os.path.getsize(os.path.join(log_dir, f))
+                          for f in os.listdir(log_dir))
+        share = {arm: busy_share(prof.profile, f"{arm}_arm")
+                 for arm in ("fused", "staged")}
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    _require(same_state(fused, staged), "states differ after the profile")
+    log(f"  StepProfiler window ({time.perf_counter() - t0:.1f} s) over "
+        f"{FUSED_PROFILE_STEPS} fused and "
+        f"{FUSED_PROFILE_STEPS} staged steps (trace {trace_bytes} bytes): "
+        f"device busy share fused {_share(share['fused'])}, staged "
+        f"{_share(share['staged'])} ({card})")
+    return share
+
+
+def fused_churn(fused, staged, batches, cuda: bool, card: str) -> int:
+    """Both engines through ``FUSED_CHURN`` (one step of each arm at every
+    shape): states bitwise, ``verify_replicas`` on both, a shape seen
+    before costs no program and no capture. Returns the stage runs."""
+    pool = fused.pool
+    seen = {FUSED_MESH}
+    runs = 0
+    for i, shape in enumerate(FUSED_CHURN):
+        t0 = time.perf_counter()
+        before = (pool.compile_count, fused.captures, staged.captures)
+        for eng in (fused, staged):
+            eng.reshape_mesh(*shape)
+        _require(same_state(fused, staged), f"states differ at {shape}")
+        b = batches[i][:, :]
+        lf = fused.step_fused(b)
+        ls = staged.step_staged(b)
+        new = shape not in seen
+        runs += 2 + (2 if new and cuda else 0)
+        after = (pool.compile_count, fused.captures, staged.captures)
+        want = (before[0] + (1 + FUSED_STAGES if new else 0),
+                before[1] + (1 if new and cuda else 0),
+                before[2] + (FUSED_STAGES if new and cuda else 0))
+        _require(after == want, f"churn to {shape}: programs and captures "
+                                f"{after}, want {want}")
+        _require(lf == ls and same_state(fused, staged),
+                 f"arms differ after the step at {shape}")
+        fused.verify_replicas()
+        staged.verify_replicas()
+        seen.add(shape)
+        log(f"  int8 churn to {shape[0]}x{shape[1]}: "
+            f"{'first sight, ' if new else 'seen before, '}programs "
+            f"{after[0]}, captures {after[1]} + {after[2]}; loss {lf:.6f} "
+            f"both arms, states bitwise, replicas verified "
+            f"({time.perf_counter() - t0:.1f} s; {card})")
+    return runs
+
+
+def phase_fused_step(seed: int, card: str, device: str = "cuda"):
+    """The fused-step phase (module docstring, phase 21): the unsharded
+    gradient first, then the codec arms with the launch counts set to 0
+    just before them. Returns (launches, the launches the schedule says,
+    the head_dim)."""
+    import torch
+
+    from torchft_tpu_torch.fused import module_loss_fn, module_params
+    from torchft_tpu_torch.models import GPT
+    from torchft_tpu_torch.ops import flash, quant
+
+    t0 = time.perf_counter()
+    cfg = fused_config()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    R, M = FUSED_MESH
+    model = GPT(cfg, device=dev, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    shape = fused_shape(n_params, FUSED_MESH)
+    need_host = fused_host_bytes(n_params)
+    free_host = check_host_memory(need_host, what="fused_step")
+    need = fused_device_bytes(n_params, cfg)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0]
+        _require(free >= need, f"fused_step needs {need / 1e9:.2f} GB of "
+                               f"device memory free, has {free / 1e9:.2f} GB")
+    hop = fused_host_hop_bytes(n_params)
+    log(f"  {n_params} parameters, mesh {R}x{M} of virtual positions, "
+        f"q_len {shape['q_len']}, p_len {shape['p_len']}, "
+        f"{FUSED_SEQS} sequences of {cfg.max_seq_len} a position, AdamW "
+        f"{FUSED_ADAMW}; staged host bytes a step {hop}; device memory: up "
+        f"to {need / 1e9:.2f} GB reckoned; host memory: up to "
+        f"{need_host / 1e9:.2f} GB, {free_host / 1e9:.1f} GB available")
+    params = module_params(model)
+    loss_fn = module_loss_fn(model, gpt_row_loss(cfg.max_seq_len))
+    n_batches = FUSED_STEPS + FUSED_PROFILE_STEPS
+    batches = [fused_batch(seed, s, cfg, R * M) for s in range(n_batches)]
+    dense = dense_gradient(model, batches[0], cfg.max_seq_len)
+    log(f"  model, flat params and the unsharded gradient "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    quant.reset_launch_counts()
+    want = dict.fromkeys((*flash.LAUNCHES, *quant.LAUNCHES), 0)
+    summary = {}
+    for codec in FUSED_CODECS:
+        arm = run_fused_arm(codec, params, loss_fn, batches, device, card,
+                            dense=dense if codec == "none" else None,
+                            profile=codec == "none")
+        for k, v in fused_launches(arm["runs"], cfg.n_layers, R * M,
+                                   codec).items():
+            want[k] += v
+        summary[codec] = arm
+    counts = {**flash.LAUNCHES, **quant.LAUNCHES}
+    for codec, arm in summary.items():
+        t = arm["times"]
+        log(f"  {codec}: device ms per fused replay "
+            f"{[_ms(v) for v in t['fused']]}, per staged step "
+            f"{[_ms(v) for v in t['staged']]}; wall ms fused "
+            f"{[round(v, 1) for v in t['fused_wall']]}, staged "
+            f"{[round(v, 1) for v in t['staged_wall']]} ({card})")
+    share = summary["none"]["profile"]
+    if cuda:
+        log(f"  device memory peak: "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated, "
+            f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB reserved "
+            f"(reckoned {need / 1e9:.2f} GB) ({card})")
+    log(f"  device busy share (codec none, StepProfiler window) fused "
+        f"{_share(share['fused'])}, staged {_share(share['staged'])} "
+        f"({card})")
+    del model, loss_fn, summary
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"  phase {time.perf_counter() - t0:.1f} s ({card})")
+    return counts, want, cfg.head_dim
+
 
 
 # train_resnet: BASELINE config 2, ResNet-18 over two DDP groups
@@ -3975,7 +4526,7 @@ def phase_train_multijob(seed: int, card: str, batch: int = 8):
 # train_moe: the template heal of examples/train_moe.py's twin at
 # "moe-8x125m", two groups of MOE_RANKS ranks
 MOE_RANKS = 2
-MOE_SCHEDULE = dict(kill_step=3, steps_alone=1, steps_after=2)
+MOE_SCHEDULE = dict(kill_step=3, steps_alone=1, steps_after=1)
 MOE_PHASES = ("quorum", "forward_backward", "ddp_d2h", "ddp_wire", "ddp_h2d",
               "commit_barrier", "heal_stage", "heal_wire", "heal_h2d")
 
@@ -4598,8 +5149,8 @@ def _check_launches(counts, want, what: str) -> None:
 PHASES = ("kernels", "train", "train_multijob", "train_sharded",
           "train_moe", "train_cuda_int8",
           "train_tiny", "gpt_1b", "train_llama_ring", "train_hsdp",
-          "train_moe_expert", "train_pp", "pipeline_plane", "train_resnet",
-          "train_diloco",
+          "train_moe_expert", "train_pp", "pipeline_plane", "fused_step",
+          "train_resnet", "train_diloco",
           "train_diloco_sharded", "train_localsgd_int8", "train_hier_int8",
           "train_durable")
 
@@ -4793,6 +5344,15 @@ def main() -> int:
                         "the plane's stage compute is an f32 MLP of "
                         "torch.matmul, as the reference's is numpy; its "
                         "int8 stage wire is the host codec in both")
+    if "fused_step" in phases:
+        log("phase fused_step")
+        counts, want, head_dim = phase_fused_step(args.seed, smi)
+        _check_launches(counts, want,
+                        "flash: per run of the grad stage (a replay, or the "
+                        "warm-up before a capture) one GPT pass per mesh "
+                        "position; codec: per run of the int8 exchange one "
+                        "quant_int8 and two dequant_acc_int8")
+        _add_launches(rows, counts, head_dim)
     if "train_resnet" in phases:
         log("phase train_resnet")
         flash.reset_launch_counts()

@@ -167,7 +167,8 @@ def test_flash_shapes_reach_every_head_dim() -> None:
                             "train_sharded", "train_moe", "train_cuda_int8",
                             "train_tiny", "gpt_1b", "train_llama_ring",
                             "train_hsdp", "train_moe_expert", "train_pp",
-                            "pipeline_plane", "train_resnet", "train_diloco",
+                            "pipeline_plane", "fused_step", "train_resnet",
+                            "train_diloco",
                             "train_diloco_sharded",
                             "train_localsgd_int8", "train_hier_int8",
                             "train_durable")
@@ -694,8 +695,8 @@ def test_train_moe_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
     monkeypatch.setattr(example, "run_moe_drill", lambda cfg, **kw: fn(
         cfg, **dict(kw, device="cpu", batch_size=2, timeout=30.0)))
     passes, layers = smoke.phase_train_moe(0, "CPU")
-    # per rank: group 0 at 1-7, group 1 at 2-3 and 5-7
-    assert (passes, layers) == (2 * (7 + 2 + 3), 2)
+    # per rank: group 0 at 1-6, group 1 at 2-3 and 5-6
+    assert (passes, layers) == (2 * (6 + 2 + 2), 2)
     text = "\n".join(lines)
     assert "every live rank bitwise equal" in text
     assert "heal of group 1 rank 0 at step 5" in text
@@ -884,9 +885,10 @@ def test_train_hsdp_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
         cfg, axes, **dict(kw, device="cpu", timeout=30.0)))
     counts, want, head_dim = smoke.phase_train_hsdp(0, "CPU")
     assert head_dim == 16
-    # 13 passes x 2 layers x 4 positions; the CPU launches no kernel
-    assert want == {"flash_fwd": 13 * 2 * 4 * 2, "flash_bwd_dq": 13 * 2 * 4,
-                    "flash_bwd_dkv": 13 * 2 * 4, "quant_int8": 0,
+    # 9 passes (group 0: 5, group 1: steps 1-2 and 4-5) x 2 layers x 4
+    # positions; the CPU launches no kernel
+    assert want == {"flash_fwd": 9 * 2 * 4 * 2, "flash_bwd_dq": 9 * 2 * 4,
+                    "flash_bwd_dkv": 9 * 2 * 4, "quant_int8": 0,
                     "dequant_acc_int8": 0}
     assert set(counts) == set(want) and not any(counts.values())
     text = "\n".join(lines)
@@ -894,7 +896,7 @@ def test_train_hsdp_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
     assert " ms warm (CPU)" in text
     assert "FAIL" not in text
     assert "both groups bitwise equal" in text
-    assert "group 1 healed at step 5 into its sharded template" in text
+    assert "group 1 healed at step 4 into its sharded template" in text
     assert "heal: heal_wall_ms" in text and "= the state's" in text
     assert "bytes of parameter pieces per mesh position" in text
     assert "flash launches per forward/backward pass: {'flash_fwd': 16" \
@@ -974,9 +976,10 @@ def test_train_moe_expert_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
         cfg, **dict(kw, device="cpu", timeout=30.0)))
     counts, want, head_dim = smoke.phase_train_moe_expert(0, "CPU")
     assert head_dim == 16
-    # 13 passes x 2 layers x 8 positions; the CPU launches no kernel
-    assert want == {"flash_fwd": 13 * 2 * 8 * 2, "flash_bwd_dq": 13 * 2 * 8,
-                    "flash_bwd_dkv": 13 * 2 * 8, "quant_int8": 0,
+    # 9 passes (group 0: 5, group 1: steps 1-2 and 4-5) x 2 layers x 8
+    # positions; the CPU launches no kernel
+    assert want == {"flash_fwd": 9 * 2 * 8 * 2, "flash_bwd_dq": 9 * 2 * 8,
+                    "flash_bwd_dkv": 9 * 2 * 8, "quant_int8": 0,
                     "dequant_acc_int8": 0}
     assert set(counts) == set(want) and not any(counts.values())
     text = "\n".join(lines)
@@ -984,7 +987,7 @@ def test_train_moe_expert_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
     assert "grad layers_1.moe.experts.up" in text
     assert "FAIL" not in text
     assert "both groups bitwise equal" in text
-    assert "group 1 healed at step 5 into its sharded template" in text
+    assert "group 1 healed at step 4 into its sharded template" in text
     assert "heal: heal_wall_ms" in text and "= the state's" in text
     assert "(2 layers x 8 positions, remat)" in text
     assert "committed tokens/s" in text and "phase " in text
@@ -1162,3 +1165,105 @@ def test_pipeline_plane_runs_small_on_the_cpu(monkeypatch) -> None:
     assert "(f32 activation frame 512 bytes)" in text
     assert smoke.PLANE["layer_dims"] == (768,) * 13
     assert 1024 * 768 * 4 == 3 << 20  # the card's frame: 3 MiB
+
+
+def test_fused_step_memory_and_launches_at_125m() -> None:
+    smoke = _smoke()
+    cfg = smoke.fused_config()
+    from torchft_tpu_torch.models import gpt_param_shapes
+
+    n = sum(math.prod(s) for s in gpt_param_shapes(cfg).values())
+    assert n == 136091136
+    assert smoke.fused_shape(n, (2, 2)) == {
+        "positions": 4, "q_len": 34022784, "p_len": 68045568}
+    # gm (4 x 68,045,568) and h, new_sub (4 x 34,022,784 each), f32, down
+    # and up: 4.35 GB a staged step
+    assert smoke.fused_host_hop_bytes(n) == 2 * 4 * (4 * 68045568
+                                                    + 2 * 4 * 34022784)
+    assert smoke.fused_host_hop_bytes(n) == 4354916352
+    # the schedule of the card's run: per codec 3 steps of each arm and a
+    # warm-up before each engine's captures; 2 + 2 profiled steps (none);
+    # the int8 churn: 3 steps of each arm and the warm-ups at 4x1
+    runs = {"none": 3 * 2 + 2 + 4, "bf16": 3 * 2 + 2,
+            "int8": 3 * 2 + 2 + 3 * 2 + 2}
+    assert sum(runs.values()) == 36
+    want = smoke.fused_launches(runs["int8"], 12, 4, "int8")
+    assert want == {"flash_fwd": 16 * 48, "flash_bwd_dq": 16 * 48,
+                    "flash_bwd_dkv": 16 * 48, "quant_int8": 16,
+                    "dequant_acc_int8": 32}
+    assert smoke.fused_launches(8, 12, 4, "bf16")["quant_int8"] == 0
+    need = smoke.fused_device_bytes(n, cfg)
+    assert 30e9 < need < 60e9
+    assert smoke.fused_host_bytes(n) < 16e9
+    phases = smoke.PHASES
+    assert phases.index("pipeline_plane") < phases.index("fused_step") \
+        < phases.index("train_hier_int8")
+
+
+def test_assemble_grad_reads_h_in_model_then_replica_order() -> None:
+    import numpy as np
+
+    smoke = _smoke()
+    # position d = r * M + m holds elements [m * p_len + r * q_len, ...)
+    R, M, q = 2, 3, 4
+    full = np.arange(R * M * q, dtype=np.float32)
+    h = np.stack([full[m * R * q + r * q:m * R * q + (r + 1) * q]
+                  for r in range(R) for m in range(M)])
+    np.testing.assert_array_equal(smoke.assemble_grad(h, R, M), full)
+
+
+def test_fused_step_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # the phase as the card runs it, moved to "tiny" (sequences of 64) on
+    # the CPU: both arms bitwise for every codec, the counters, the
+    # gradient against the unsharded GPT, int8 against the host codec, the
+    # churn, the StepProfiler window; no capture and no kernel on the CPU
+    import dataclasses
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    tiny = dataclasses.replace(CONFIGS["tiny"], max_seq_len=64)
+    monkeypatch.setattr(smoke, "fused_config", lambda: tiny)
+    counts, want, head_dim = smoke.phase_fused_step(0, "CPU", device="cpu")
+    assert head_dim == 16
+    # 28 runs (no warm-ups without captures) x 4 positions x 2 layers;
+    # int8: 12 runs of the exchange
+    assert want == {"flash_fwd": 224, "flash_bwd_dq": 224,
+                    "flash_bwd_dkv": 224, "quant_int8": 12,
+                    "dequant_acc_int8": 24}
+    assert set(counts) == set(want) and not any(counts.values())
+    text = "\n".join(lines)
+    assert "FAIL" not in text
+    for codec in ("none", "bf16", "int8"):
+        for step in (1, 2, 3):
+            assert f"{codec} step {step}: loss" in text
+        assert f"{codec}: programs built 5 (1 fused + 4 stages)" in text
+    assert text.count("states bitwise equal") == 9
+    assert "against the unsharded GPT's gradient of the same 8 sequences" \
+        in text
+    assert "against the host codec on the same gm and residual" in text \
+        and "bitwise ok" in text
+    assert "int8 churn to 4x1: first sight, programs 10" in text
+    assert "int8 churn to 2x2: seen before, programs 10" in text
+    assert "over 2 fused and 2 staged steps" in text
+    assert "int8 after the churn: sha256 of the state" in text
+    assert "phase " in text
+
+
+def test_fused_step_oracles_catch_a_wrong_exchange() -> None:
+    import numpy as np
+
+    from torchft_tpu_torch.comm.cuda_backend import DevicePool
+    from torchft_tpu_torch.fused import FusedStepEngine
+    from torchft_tpu_torch.optim import sgd
+
+    smoke = _smoke()
+    eng = FusedStepEngine(DevicePool("cpu"), 2, 2,
+                          np.linspace(-1, 1, 999, dtype=np.float32), 4,
+                          lambda w, b: (w * b.mean()).square().sum(),
+                          sgd(0.1), codec="int8", chunk_bytes=64)
+    e0 = eng._state.e.numpy().copy()
+    eng.step_staged(np.ones((4, 4), np.float32))
+    smoke.check_int8_exchange(eng, e0, "CPU")  # the true residual passes
+    with pytest.raises(AssertionError, match="host codec"):
+        smoke.check_int8_exchange(eng, e0 + 1e-3, "CPU")

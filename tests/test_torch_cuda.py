@@ -1035,3 +1035,66 @@ def test_hsdp_example_runs_over_the_cards() -> None:
         lh.shutdown()
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "step 3" in proc.stdout and "done" in proc.stdout, proc.stdout
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["none", "bf16", "int8"])
+def test_fused_step_fused_equals_staged_on_card(codec) -> None:
+    """The fused HSDP step at "tiny" over a virtual 2x2 mesh of the card:
+    one CUDA graph a fused step, four a staged one, the states bitwise
+    equal after every step; each replay counts the launches its capture
+    recorded (every flash kernel once per layer per position, int8: one
+    ``quant_int8`` and two ``dequant_acc_int8``), the warm-up before each
+    engine's first capture its own; the exchange on the card bitwise the
+    CPU's."""
+    from torchft_tpu_torch.comm.cuda_backend import DevicePool
+    from torchft_tpu_torch.fused import (
+        FusedStepEngine,
+        module_loss_fn,
+        module_params,
+    )
+    from torchft_tpu_torch.optim import adamw
+
+    _cuda()
+    smoke = _chip_smoke()
+    cfg = CONFIGS["tiny"]
+    model = GPT(cfg, device="cuda", seed=0)
+    loss_fn = module_loss_fn(model, smoke.gpt_row_loss(cfg.max_seq_len))
+    params = module_params(model)
+    pool = DevicePool("cuda")
+    kw = dict(codec=codec, chunk_bytes=1024, fn_key="tiny")
+    a = FusedStepEngine(pool, 2, 2, params, 2 * cfg.max_seq_len, loss_fn,
+                        adamw(3e-4, weight_decay=1e-4), **kw)
+    b = FusedStepEngine(pool, 2, 2, params, 2 * cfg.max_seq_len, loss_fn,
+                        adamw(3e-4, weight_decay=1e-4), **kw)
+    flash.reset_launch_counts()
+    quant.reset_launch_counts()
+    for step in range(3):
+        batch = smoke.fused_batch(0, step, cfg, 4)
+        assert a.step_fused(batch) == b.step_staged(batch)
+        assert smoke.same_state(a, b), step
+    assert (a.captures, b.captures) == (1, 4)
+    assert pool.compile_count == 5
+    a.verify_replicas()
+    want = smoke.fused_launches(3 * 2 + 2, cfg.n_layers, 4, codec)
+    assert {**flash.LAUNCHES, **quant.LAUNCHES} == want
+    # the exchange program on the card against the CPU's, bitwise
+    spec = a.spec
+    gen = torch.Generator().manual_seed(5)
+    gm = torch.randn((4, spec.p_len), generator=gen) * 3
+    e = torch.randn((4, spec.p_len), generator=gen) * 1e-2
+    prog = a._exe("exchange")
+    cpu_e, card_e = e.clone(), e.cuda()
+    (cpu_h,) = prog.run(gm, cpu_e)
+    (card_h,) = prog.run(gm.cuda(), card_e)
+    assert torch.equal(card_h.cpu().view(torch.int32), cpu_h.view(torch.int32))
+    assert torch.equal(card_e.cpu().view(torch.int32), cpu_e.view(torch.int32))

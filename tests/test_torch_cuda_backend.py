@@ -435,9 +435,9 @@ def test_concurrent_first_sight_builds_once() -> None:
         return "plan"
 
     with ThreadPoolExecutor(max_workers=2) as ex:
-        f1 = ex.submit(pool.plan, ("k",), build)
+        f1 = ex.submit(pool.executable, ("k",), build)
         started.wait(timeout=10)
-        f2 = ex.submit(pool.plan, ("k",), build)
+        f2 = ex.submit(pool.executable, ("k",), build)
         release.set()
         assert f1.result(timeout=10) == f2.result(timeout=10) == "plan"
     assert builds[0] == 1 and pool.compile_count == 1
@@ -1030,3 +1030,90 @@ def test_hier_per_op_override_and_flat_default(pool) -> None:
     w = lossy.allreduce([np.ones(8, np.float32)], topology="hier")
     with pytest.raises(ValueError, match="error-feedback"):
         w.future().result(timeout=5)
+
+
+# ------------------------------------------- mesh shape and the mesh churn
+
+
+def test_mesh_for_lays_a_virtual_mesh_and_raises_past_the_pool() -> None:
+    pool = DevicePool("cpu", positions=8)
+    assert pool.device_count() == 8
+    assert (pool.axis_name, pool.model_axis_name) == ("replica", "model")
+    wire = pool.mesh_for(4)
+    assert wire.axis_names == ("replica",) and wire.shape == {"replica": 4}
+    mesh = pool.mesh_for(2, 2)
+    assert mesh.axis_names == ("replica", "model")
+    assert mesh.shape == {"replica": 2, "model": 2}
+    assert {str(d) for d in mesh.devices.flat} == {"cpu"}
+    assert pool.mesh_for(2, 2) is mesh  # cached per shape
+    # twin of the reference's test_mesh_world_size_exceeds_pool_raises
+    small = DevicePool("cpu", positions=2)
+    with pytest.raises(ValueError, match="exceeds the device pool"):
+        small.mesh_for(3)
+    with pytest.raises(ValueError, match="exceeds the device pool"):
+        small.mesh_for(2, 2)
+
+
+def test_mesh_shape_on_host_and_card_contexts() -> None:
+    assert DummyCommContext(rank=1, world_size=3).mesh_shape() == (3, 1)
+    tcp = TcpCommContext(timeout=5.0)
+    assert tcp.mesh_shape() == (1, 1)
+    shared = DevicePool("cpu")
+    ctxs = [CudaCommContext(timeout=10.0, device_pool=shared,
+                            model_shards=2) for _ in range(2)]
+    assert ctxs[0].mesh_shape() == (1, 2)
+    _run_cohort(ctxs, "cuda://mesh_shape", 2,
+                lambda ctx, rank: ctx.mesh_shape())
+    assert [c.mesh_shape() for c in ctxs] == [(2, 2), (2, 2)]
+    assert CudaCommContext(device_pool=DevicePool("cpu")).mesh_shape() \
+        == (1, 1)
+    for c in ctxs:
+        c.shutdown()
+
+
+def test_mesh_reconfigure_compile_counts() -> None:
+    # twin of the reference's test of the same name: first sight of a world
+    # size builds once; every later quorum at a seen world size is a cache
+    # hit with no new trace
+    pool = DevicePool("cpu")
+    inputs4 = _inputs(4, seed=42, floats_only=True)
+    inputs3 = _inputs(3, seed=43, floats_only=True)
+
+    def make(n):
+        return [CudaCommContext(timeout=15.0, algorithm="star",
+                                compression="none", chunk_bytes=CHUNK,
+                                device_pool=pool) for _ in range(n)]
+
+    ctxs = make(4)
+    _run_cohort(ctxs, "cuda://churn4/e1", 4,
+                _allreduce_body(inputs4, ReduceOp.SUM))
+    assert pool.compile_count == 1 and pool.trace_count == 1
+    hits0 = pool.hit_count
+    _run_cohort(ctxs, "cuda://churn4/e1b", 4,
+                _allreduce_body(inputs4, ReduceOp.SUM))
+    assert pool.compile_count == 1 and pool.trace_count == 1
+    assert pool.hit_count > hits0
+    # replica 3 dies: first sight of world 3 builds one plan
+    ctxs[3].shutdown()
+    _run_cohort(ctxs[:3], "cuda://churn4/e2", 3,
+                _allreduce_body(inputs3, ReduceOp.SUM))
+    assert pool.compile_count == 2 and pool.trace_count == 2
+    # it comes back: world 4 was seen, no new plan
+    for c in ctxs:
+        c.shutdown()
+    ctxs = make(4)
+    hits1 = pool.hit_count
+    _run_cohort(ctxs, "cuda://churn4/e3", 4,
+                _allreduce_body(inputs4, ReduceOp.SUM))
+    assert pool.compile_count == 2 and pool.trace_count == 2
+    assert pool.hit_count > hits1
+    for c in ctxs:
+        c.shutdown()
+    # another layout is another plan (keyed, not retraced)
+    inputs_alt = [[np.ones(17, np.float32) * r] for r in range(4)]
+    ctxs = make(4)
+    _run_cohort(ctxs, "cuda://churn4/e4", 4,
+                _allreduce_body(inputs_alt, ReduceOp.SUM))
+    assert pool.compile_count == 3 and pool.trace_count == 3
+    for c in ctxs:
+        c.shutdown()

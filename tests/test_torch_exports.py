@@ -26,15 +26,17 @@ import torchft_tpu_torch.ops
 RENAMED = {
     "XlaCommContext": "comm.cuda_backend.CudaCommContext",
     "OrbaxCheckpointer": "checkpoint_io.DcpCheckpointer",
+    "MeshManager": "comm.cuda_backend.DevicePool",
 }
-NOT_PORTED = {"MeshManager", "DeployPublisher", "ServeCohort",
-              "ServingReplica", "serve_layout"}
+NOT_PORTED = {"DeployPublisher", "ServeCohort", "ServingReplica",
+              "serve_layout"}
 COMM_RENAMED = {
     "XlaCommContext": "comm.cuda_backend.CudaCommContext",
     "default_mesh_manager": "comm.cuda_backend.default_device_pool",
     "xla_backend": "comm.cuda_backend",
+    "MeshManager": "comm.cuda_backend.DevicePool",
 }
-COMM_NOT_PORTED = {"MeshManager"}
+COMM_NOT_PORTED: set = set()
 
 
 def _public(module):

@@ -1,9 +1,14 @@
 """The port's host spans (utils/profiling.py) against the JAX package's:
 ``timed_span`` and ``throughput_span`` write the Manager's ``Metrics``
 under the reference's names, and ``host_span`` names a region on a
-``torch.profiler`` trace.
+``torch.profiler`` trace. ``StepProfiler`` and ``trace`` are twins of the
+reference's tests (tests/test_profiling_prefetch.py, the context-manager
+case of tests/test_telemetry.py): the env contract, a window of steps
+written as a Chrome trace, an early exit that still closes it.
 """
 
+import json
+import os
 import time
 
 import pytest
@@ -12,10 +17,13 @@ import torch
 from torchft_tpu.utils import profiling as jax_profiling
 from torchft_tpu.utils.metrics import Metrics as JaxMetrics
 from torchft_tpu_torch.utils.metrics import Metrics
+from torchft_tpu_torch.utils import profiling
 from torchft_tpu_torch.utils.profiling import (
+    StepProfiler,
     host_span,
     throughput_span,
     timed_span,
+    trace,
 )
 
 
@@ -65,3 +73,107 @@ def test_host_span_shows_on_a_profiler_trace() -> None:
         with host_span("outer_pack_frag1"):
             torch.ones(8).sum()
     assert any(e.name == "outer_pack_frag1" for e in prof.events())
+
+
+# ------------------------------------------------------------ StepProfiler
+
+
+def _trace_files(log_dir):
+    return [os.path.join(root, f) for root, _, files in os.walk(log_dir)
+            for f in files]
+
+
+def test_step_profiler_disabled_is_noop(monkeypatch) -> None:
+    monkeypatch.delenv("TORCHFT_TPU_PROFILE_DIR", raising=False)
+    p = StepProfiler()
+    assert not p.enabled
+    for _ in range(10):
+        p.step()
+    p.close()
+    assert p.profile is None
+
+
+def test_step_profiler_env_contract(monkeypatch, tmp_path) -> None:
+    monkeypatch.setenv("TORCHFT_TPU_PROFILE_DIR", str(tmp_path / "env"))
+    monkeypatch.setenv("TORCHFT_TPU_PROFILE_START", "10")
+    monkeypatch.setenv("TORCHFT_TPU_PROFILE_STEPS", "5")
+    p = StepProfiler()
+    assert p.enabled and (p.start, p.num_steps) == (10, 5)
+    assert p.log_dir == str(tmp_path / "env")
+
+
+def test_step_profiler_traces_window(tmp_path) -> None:
+    log_dir = str(tmp_path / "trace")
+    p = StepProfiler(log_dir=log_dir, start=2, num_steps=2)
+    x = torch.ones((64, 64))
+    for i in range(6):
+        with host_span(f"step{i}"):
+            x @ x
+        p.step()
+    p.close()
+    found = _trace_files(log_dir)
+    assert len(found) == 1, found
+    with open(found[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    # the third step() opened the window and the fifth closed it: the work
+    # between them (steps 3 and 4) is on the trace, the rest is not
+    assert {"step3", "step4"} <= names
+    assert not {"step0", "step1", "step2", "step5"} & names
+    assert p.profile is not None
+    assert any(e.name == "step3" for e in p.profile.events())
+
+
+def test_trace_context_manager(tmp_path) -> None:
+    log_dir = str(tmp_path / "blk")
+    with trace(log_dir):
+        torch.ones((8, 8)) @ torch.ones((8, 8))
+    assert _trace_files(log_dir)
+
+
+def test_step_profiler_early_loop_exit_closes_trace(tmp_path) -> None:
+    log_dir = str(tmp_path / "early")
+    p = StepProfiler(log_dir=log_dir, start=0, num_steps=100)
+    p.step()  # opens the trace; the loop "ends" before the window does
+    p.close()
+    assert _trace_files(log_dir)
+    with trace(str(tmp_path / "next")):  # no trace left open
+        pass
+
+
+def test_step_profiler_context_manager_closes_trace(monkeypatch) -> None:
+    with StepProfiler(log_dir=None) as prof:  # disabled: a no-op
+        assert not prof.enabled
+        prof.step()
+    assert prof._done
+
+    class _FakeTrace:
+        def __init__(self):
+            self.started = []
+            self.stopped = 0
+
+        def start_trace(self, d):
+            self.started.append(d)
+
+        def stop_trace(self):
+            self.stopped += 1
+            return "profile"
+
+    fake = _FakeTrace()
+    monkeypatch.setattr(profiling, "start_trace", fake.start_trace)
+    monkeypatch.setattr(profiling, "stop_trace", fake.stop_trace)
+    with StepProfiler(log_dir="unused", start=0, num_steps=100) as prof:
+        prof.step()  # opens the trace at step 0
+        assert fake.started == ["unused"]
+    # the block ended inside the window: __exit__ closed the trace
+    assert fake.stopped == 1
+    assert prof._done and not prof._active and prof.profile == "profile"
+    prof.close()  # idempotent
+    assert fake.stopped == 1
+
+
+def test_one_trace_at_a_time(tmp_path) -> None:
+    with trace(str(tmp_path / "a")):
+        with pytest.raises(RuntimeError, match="already open"):
+            profiling.start_trace(str(tmp_path / "b"))
+    with pytest.raises(RuntimeError, match="no profiler trace"):
+        profiling.stop_trace()

@@ -36,6 +36,7 @@ _LAZY = {
     "CheckpointServer": "torchft_tpu_torch.checkpointing",
     "CheckpointTransport": "torchft_tpu_torch.checkpointing",
     "CudaCommContext": "torchft_tpu_torch.comm.cuda_backend",
+    "DevicePool": "torchft_tpu_torch.comm.cuda_backend",
     "DistributedSampler": "torchft_tpu_torch.data",
     "DistributedDataParallel": "torchft_tpu_torch.ddp",
     "PureDistributedDataParallel": "torchft_tpu_torch.ddp",
@@ -54,8 +55,8 @@ _LAZY = {
 _ALIASES = {"Optimizer": "OptimizerWrapper"}
 
 # The reference's public names this package binds, under the same names;
-# its XlaCommContext and OrbaxCheckpointer have their twins here as
-# CudaCommContext and DcpCheckpointer.
+# its XlaCommContext, MeshManager and OrbaxCheckpointer have their twins here
+# as CudaCommContext, DevicePool and DcpCheckpointer.
 __all__ = [
     "AsyncCheckpointWriter",
     "CheckpointServer",
@@ -63,6 +64,7 @@ __all__ = [
     "CommContext",
     "CudaCommContext",
     "DcpCheckpointer",
+    "DevicePool",
     "DiLoCo",
     "DistributedDataParallel",
     "DistributedSampler",

@@ -18,7 +18,7 @@ import threading
 from abc import ABC, abstractmethod
 from concurrent.futures import Future
 from datetime import timedelta
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -239,6 +239,13 @@ class CommContext(ABC):
         """Encoded size of ``a`` as one allreduce contribution. Identity
         wire: the raw byte count."""
         return int(np.asarray(a).nbytes)
+
+    def mesh_shape(self) -> Tuple[int, int]:
+        """(replicas, model_shards) of the device layout behind this
+        context: the wire world and a degenerate model axis for a host
+        context (one device per replica group); the card plane reports its
+        declared model axis (comm/cuda_backend.py)."""
+        return (self.size(), 1)
 
 
 class DummyCommContext(CommContext):

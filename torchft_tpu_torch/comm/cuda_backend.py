@@ -84,6 +84,15 @@ host: the fallback for dtypes the card does not hold, and the oracle.
 64-bit payloads and the dtypes torch does not add on the card (u16, u32)
 reduce on a host simulation of the same topology and codec math
 (``_host_allreduce``), bitwise identical by construction.
+
+Fused step
+----------
+The builders of ``fused.FusedStepEngine``: a ``(replica, model)`` mesh laid
+over the pool's device (``DevicePool.mesh_for``, virtual: every position a
+row of a stacked tensor), the HSDP step's four stage bodies written once
+(``_fused_local_fns``), and two program families cached in the pool per
+``_FusedSpec.exec_key``: the whole step as one CUDA graph
+(``_build_fused_step``) and each stage as its own (``_build_step_stage``).
 """
 
 from __future__ import annotations
@@ -153,22 +162,44 @@ def _is_float(dt) -> bool:
     return np.dtype(dt).kind == "f" or "float" in np.dtype(dt).name
 
 
+# the mesh axes of the fused step (the reference's _AXIS, _MODEL_AXIS)
+REPLICA_AXIS = "replica"
+MODEL_AXIS = "model"
+# mesh positions a DevicePool lays out over its device by default
+DEFAULT_POSITIONS = 64
+
+
 # --------------------------------------------------------------- the pool
 
 
 class DevicePool:
-    """Plan cache across quorum epochs, on one device.
+    """Plan cache across quorum epochs, on one device (twin of the
+    reference's ``MeshManager``).
 
-    ``plan(key, build)`` returns the cached plan or builds it once, even
-    when several contexts (one per Manager in a process) race on first
-    sight. ``compile_count`` counts plan builds, ``trace_count`` builder
-    runs and ``hit_count`` cache hits, under the reference's names. The
-    plane's device work runs on the pool's own CUDA stream."""
+    ``executable(key, build)`` returns the cached plan or builds it once,
+    even when several contexts (one per Manager in a process) race on first
+    sight. ``compile_count`` counts builds, ``trace_count`` builder runs and
+    ``hit_count`` cache hits, under the reference's names. The plane's
+    device work runs on the pool's own CUDA stream.
 
-    def __init__(self, device: "Optional[str | torch.device]" = None) -> None:
+    ``mesh_for(world_size, model_shards)`` lays a ``(replica, model)`` mesh
+    over the pool's device: a virtual mesh, the device repeated at every
+    position, as the reference's CPU tests lay theirs over forced host
+    devices. ``positions`` is how many positions the pool lays out
+    (``device_count()``); a mesh that needs more raises, as the
+    reference's does past its device list."""
+
+    def __init__(self, device: "Optional[str | torch.device]" = None,
+                 positions: int = DEFAULT_POSITIONS,
+                 axis_name: str = REPLICA_AXIS,
+                 model_axis_name: str = MODEL_AXIS) -> None:
         self._device_arg = device
         self._device: Optional[torch.device] = None
         self._stream = None
+        self._positions = int(positions)
+        self.axis_name = axis_name
+        self.model_axis_name = model_axis_name
+        self._meshes: Dict[Tuple[int, int], Any] = {}
         self._plans: Dict[Tuple, Any] = {}
         self._building: Dict[Tuple, Future] = {}
         self._lock = threading.Lock()
@@ -185,6 +216,39 @@ class DevicePool:
             if self._device is None:
                 self._device = resolve_device(self._device_arg)
             return self._device
+
+    def device_count(self) -> int:
+        """Mesh positions the pool lays out over its device."""
+        return self._positions
+
+    def mesh_for(self, world_size: int, model_shards: int = 1):
+        """The ``parallel.mesh.Mesh`` of ``world_size`` replicas x
+        ``model_shards`` positions over the pool's device: 1-D
+        ``(replica,)`` at one model shard, else 2-D ``(replica, model)``,
+        replica group r the row of positions ``r*M .. r*M + M - 1``.
+        Cached per shape; raises ValueError past ``device_count()``."""
+        from torchft_tpu_torch.parallel.mesh import Mesh
+
+        m = max(1, int(model_shards))
+        need = int(world_size) * m
+        if need > self._positions:
+            raise ValueError(
+                f"mesh {world_size}x{m} needs {need} positions, which "
+                f"exceeds the device pool ({self._positions}); pass a "
+                "larger `positions` to DevicePool")
+        dev = self.device()
+        with self._lock:
+            mesh = self._meshes.get((world_size, m))
+            if mesh is None:
+                grid = np.empty(need, dtype=object)
+                grid[:] = [dev] * need
+                if m == 1:
+                    mesh = Mesh(grid, (self.axis_name,))
+                else:
+                    mesh = Mesh(grid.reshape(world_size, m),
+                                (self.axis_name, self.model_axis_name))
+                self._meshes[(world_size, m)] = mesh
+            return mesh
 
     @contextlib.contextmanager
     def on_stream(self):
@@ -208,7 +272,9 @@ class DevicePool:
         with self._lock:
             self.trace_count += 1
 
-    def plan(self, key: Tuple, build: Callable[[], Any]) -> Any:
+    def executable(self, key: Tuple, build: Callable[[], Any]) -> Any:
+        """The cached plan of ``key``; ``build()`` runs at most once per key
+        for the life of the pool."""
         with self._lock:
             p = self._plans.get(key)
             if p is not None:
@@ -655,6 +721,324 @@ def _build_hier_psum(pool: DevicePool, n: int, codec_name: str,
     outs = [((1, s), _DEVICE_DTYPES[d]) for s, d in layouts]
     return _Plan(pool.device(), shapes, outs,
                  lambda ins: [f(g) for f, g in zip(fns, ins)])
+
+
+# ------------------------------------------------------- the fused HSDP step
+# Twin of the reference's fused-step builders. A replica group is a row of
+# ``model_shards`` positions of a (replica, model) mesh laid over the pool's
+# device (``DevicePool.mesh_for``); every position is a row of a stacked
+# ``(D, ...)`` tensor, ``D = replicas * model_shards``, position ``d = r * M +
+# m``. Params are model-sharded and replica-replicated; the optimizer state is
+# sharded over both axes: position (r, m) owns the sub-shard
+# ``shard_m[r*q_len : (r+1)*q_len]``. The four stage bodies are written once
+# (``_fused_local_fns``) and shared by the fused program (one CUDA graph of
+# all four) and the staged programs (one graph each, with host round trips
+# between them in fused.py), so both arms run the same kernels in the same
+# order; no twin of ``_hardround`` is needed (module docstring). Programs are
+# cached in the DevicePool per (mesh shape, codec, chunk grid, layouts, fn
+# identity): churn at a seen shape is a cache hit.
+
+_STAGES = ("grad", "exchange", "update", "gather")
+# the port's one block quantizer (the reference pins its "xla"/"pallas" pick)
+_QUANT_IMPL = "quant_int8"
+
+
+class _FusedSpec:
+    """Static description of one fused-step program family: everything the
+    builders need, and everything the cache key must pin. ``q_len`` is the
+    per-position owned sub-shard, ``p_len = replicas * q_len`` the
+    per-model-shard param slice, ``s_len = model_shards * p_len`` the padded
+    flat param vector. ``opt_leaf_names`` (``optim.state_leaf_names``)
+    stands for the reference's optax treedef."""
+
+    __slots__ = (
+        "replicas", "model_shards", "param_size", "batch_size",
+        "codec_name", "chunk_bytes", "quant_impl", "error_feedback",
+        "loss_fn", "tx", "opt_leaf_names", "opt_leaf_shapes",
+        "opt_leaf_dtypes", "fn_key", "q_len", "p_len", "s_len",
+    )
+
+    def __init__(self, replicas: int, model_shards: int, param_size: int,
+                 batch_size: int, codec_name: str, chunk_bytes: int,
+                 quant_impl: str, error_feedback: bool, loss_fn, tx,
+                 opt_leaf_names, opt_leaf_shapes, opt_leaf_dtypes,
+                 fn_key: str) -> None:
+        self.replicas = int(replicas)
+        self.model_shards = max(1, int(model_shards))
+        self.param_size = int(param_size)
+        self.batch_size = int(batch_size)
+        self.codec_name = codec_name
+        self.chunk_bytes = int(chunk_bytes)
+        self.quant_impl = quant_impl
+        self.error_feedback = bool(error_feedback)
+        self.loss_fn = loss_fn
+        self.tx = tx
+        self.opt_leaf_names = tuple(opt_leaf_names)
+        self.opt_leaf_shapes = tuple(tuple(s) for s in opt_leaf_shapes)
+        self.opt_leaf_dtypes = tuple(opt_leaf_dtypes)
+        self.fn_key = fn_key
+        self.q_len = max(
+            1, -(-self.param_size // (self.replicas * self.model_shards))
+        )
+        self.p_len = self.replicas * self.q_len
+        self.s_len = self.model_shards * self.p_len
+
+    @property
+    def positions(self) -> int:
+        return self.replicas * self.model_shards
+
+    def exec_key(self, kind: str) -> Tuple:
+        """DevicePool cache key of one program of the family (``kind``:
+        "fused" or a stage name): the reference's fields."""
+        return (
+            "fused_step", kind, self.replicas, self.model_shards,
+            self.codec_name, self.chunk_bytes, self.quant_impl,
+            self.error_feedback, self.param_size, self.batch_size,
+            self.opt_leaf_shapes,
+            tuple(str(d) for d in self.opt_leaf_dtypes), self.fn_key,
+        )
+
+
+def _fused_local_fns(spec: _FusedSpec):
+    """The four stage bodies over stacked tensors, defined once and shared
+    by the fused and staged builders. Each is pure (returns new tensors):
+
+    ``grad(p, b) -> (gm, loss)``: per position the params allgather over
+    the model axis (the row's shards side by side, a view), autograd of
+    ``loss_fn`` on its microbatch, the reduce-scatter back onto the model
+    axis (summed in model order); ``loss`` the sum over positions divided
+    by R*M, one per position.
+
+    ``exchange(gm, e) -> (h, e')``: the cross-replica reduce-scatter of the
+    model-sharded gradient under the codec, divided by R*M. ``none`` sums in
+    rank order; ``bf16``/``fp16`` cast every slot and accumulate in f32 from
+    0 in rank order; ``int8`` quantizes every destination slot on the chunk
+    grid (``quant_int8``, one launch for all D*R slots), adds the error
+    feedback residual first when it is on, and decodes-accumulates in rank
+    order (``dequant_acc_int8``, one launch for all positions, the output
+    in (m, r) order: the flat averaged gradient); the residual is ``gq -
+    own wire image`` (one more ``dequant_acc_int8``).
+
+    ``update(h, p, *opt) -> (new_sub, *new_opt)``: per position its owned
+    sub-shard through ``tx`` and ``optim.apply_updates``.
+
+    ``gather(new_sub) -> new_p``: the allgather over the replica axis of
+    the raw values, a broadcast view shaped ``(R, M, R, q_len)``."""
+    from torchft_tpu_torch.optim import (
+        _state_tensors,
+        apply_updates,
+        state_from_leaves,
+    )
+
+    R, M = spec.replicas, spec.model_shards
+    D = R * M
+    q_len, p_len, s_len = spec.q_len, spec.p_len, spec.s_len
+    codec = spec.codec_name
+    denom = R * M
+    ef = spec.error_feedback
+    names = spec.opt_leaf_names
+    step = _grid_step(q_len, spec.chunk_bytes)
+    cpr = n_chunks(q_len, step)
+
+    def local_grad(p, b):
+        gm = torch.empty((D, p_len), dtype=torch.float32, device=p.device)
+        losses = []
+        for r in range(R):
+            full = p[r * M:(r + 1) * M].reshape(s_len)
+            rowg = gm[r * M:(r + 1) * M]
+            for m in range(M):
+                x = full.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    w = x if spec.param_size == s_len \
+                        else x[:spec.param_size]
+                    loss = spec.loss_fn(w, b[r * M + m])
+                    (g,) = torch.autograd.grad(loss, x)
+                if m == 0:
+                    rowg.copy_(g.view(M, p_len))
+                else:
+                    rowg.add_(g.view(M, p_len))
+                losses.append(loss.detach().float().reshape(()))
+        total = losses[0]
+        for x in losses[1:]:
+            total = total + x
+        return gm, div_exact(total, denom).reshape(1).expand(D).contiguous()
+
+    def by_position(mr):
+        # (M, R, q_len) in (m, r) order -> (D, q_len), d = r * M + m
+        return mr.transpose(0, 1).reshape(D, q_len)
+
+    def local_exchange(gm, e):
+        gv = gm.view(R, M, R, q_len)  # [source r', m, destination r]
+        if codec == "none":
+            acc = gv[0]
+            for r in range(1, R):
+                acc = acc + gv[r]
+            return by_position(div_exact(acc, denom)), e
+        if codec in _WIRE_DTYPES:
+            wd = _WIRE_DTYPES[codec]
+            acc = torch.zeros((M, R, q_len), dtype=torch.float32,
+                              device=gm.device)
+            for r in range(R):
+                acc = acc + gv[r].to(wd).to(torch.float32)
+            return by_position(div_exact(acc, denom)), e
+        gq = gm + e if ef else gm
+        q, s = quant_int8(gq.view(D * R, q_len), step)
+        acc = dequant_acc_int8(q.view(R, M * R * q_len),
+                               s.view(R, M * R * cpr), step, seg=q_len,
+                               cps=cpr, divisor=denom)
+        h = by_position(acc.view(M, R, q_len))
+        if ef:
+            e = gq - _dev_dequant_int8(q, s, step).view(D, p_len)
+        return h, e
+
+    def local_update(h, p, *opt):
+        pv = p.view(R, M, R, q_len)
+        subs, new = [], [[] for _ in opt]
+        for d in range(D):
+            r, m = divmod(d, M)
+            p_sub = pv[r, m, r]
+            state = state_from_leaves(names, [leaf[d] for leaf in opt])
+            updates, new_state = spec.tx.update([h[d]], state, [p_sub])
+            subs.append(apply_updates([p_sub], updates)[0])
+            for acc, leaf in zip(new, _state_tensors(new_state)):
+                acc.append(leaf)
+        return (torch.stack(subs),) + tuple(torch.stack(x) for x in new)
+
+    def local_gather(new_sub):
+        return new_sub.view(R, M, q_len).permute(1, 0, 2)[None].expand(
+            R, M, R, q_len)
+
+    return local_grad, local_exchange, local_update, local_gather
+
+
+class _StepProgram:
+    """One program of a fused-step family. ``pure(*args)`` is its body
+    (new tensors out); ``write(args, outs)`` writes the state outputs into
+    their input tensors in place and returns the rest. ``run(*args)`` does
+    both eagerly (the CPU path); ``capture(args, mempool, side)`` records
+    both as one CUDA graph over the static tensors ``args``."""
+
+    def __init__(self, pure: Callable, write: Callable) -> None:
+        self.pure = pure
+        self.write = write
+
+    def run(self, *args):
+        return self.write(args, self.pure(*args))
+
+    def capture(self, args: Sequence[torch.Tensor], mempool,
+                side: "torch.cuda.Stream") -> "_StepGraph":
+        """Warm up once (the pure body alone: autograd's and cuBLAS's lazy
+        state come into being on the capture stream ``side``, outside the
+        capture; its launches count as launches), then capture on
+        ``side``, tallying the kernel wrappers' calls
+        (``recording_launches``). One side stream serves all of an
+        owner's captures, so the warm-ups' cached memory is reused."""
+        from torchft_tpu_torch.ops import flash, quant
+
+        cur = torch.cuda.current_stream(args[0].device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.pure(*args)
+        side.wait_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        tally: Dict[str, int] = {}
+        with flash.recording_launches(tally, side), \
+                quant.recording_launches(tally, side):
+            with torch.cuda.graph(graph, pool=mempool, stream=side,
+                                  capture_error_mode="thread_local"):
+                outs = self.run(*args)
+        cur.wait_stream(side)
+        return _StepGraph(graph, outs, tally)
+
+
+class _StepGraph:
+    """A captured program: ``replay()`` runs it on the current stream, adds
+    its capture's tally to the kernel wrappers' launch counts, and returns
+    its static outputs (valid until the next replay of a graph sharing its
+    memory pool)."""
+
+    def __init__(self, graph, outs: Tuple, tally: Dict[str, int]) -> None:
+        self.graph = graph
+        self.outs = outs
+        self.tally = tally
+
+    def replay(self) -> Tuple:
+        from torchft_tpu_torch.ops import flash, quant
+
+        self.graph.replay()
+        flash.add_launches(self.tally)
+        quant.add_launches(self.tally)
+        return self.outs
+
+
+def _write_state(dst: torch.Tensor, src: torch.Tensor) -> None:
+    if src is not dst:
+        dst.copy_(src)
+
+
+def _build_fused_step(pool: DevicePool, spec: _FusedSpec) -> _StepProgram:
+    """The whole step as one program: ``run(p, b, e, *opt) -> (loss,)``,
+    with ``p``, ``e`` and the optimizer leaves updated in place (the
+    reference's ``fn(z, p, b, e, *opt) -> (new_p, loss, new_e, *new_opt)``
+    with the outputs replacing the inputs). On the card it is captured as
+    ONE CUDA graph: no host round trip between the stages."""
+    grad, exchange, update, gather = _fused_local_fns(spec)
+    pool._note_trace()
+
+    def pure(p, b, e, *opt):
+        gm, loss = grad(p, b)
+        h, new_e = exchange(gm, e)
+        del gm  # its memory serves the update
+        new_sub, *new_opt = update(h, p, *opt)
+        return (gather(new_sub), loss, new_e, *new_opt)
+
+    def write(args, outs):
+        p, _, e, *opt = args
+        new_p, loss, new_e, *new_opt = outs
+        p.view(new_p.shape).copy_(new_p)
+        _write_state(e, new_e)
+        for dst, src in zip(opt, new_opt):
+            dst.copy_(src)
+        return (loss,)
+
+    return _StepProgram(pure, write)
+
+
+def _build_step_stage(pool: DevicePool, spec: _FusedSpec,
+                      stage: str) -> _StepProgram:
+    """One stage of the staged arm, the same body the fused program
+    composes, as a program of its own (a CUDA graph of its own on the card)
+    whose inputs and outputs cross the host between replays:
+
+    ``grad``     ``run(p, b) -> (gm, loss)``
+    ``exchange`` ``run(gm, e) -> (h,)``, ``e`` updated in place
+    ``update``   ``run(h, p, *opt) -> (new_sub,)``, ``opt`` in place
+    ``gather``   ``run(new_sub, p) -> ()``, ``p`` written in place"""
+    if stage not in _STAGES:
+        raise ValueError(f"unknown step stage {stage!r}")
+    grad, exchange, update, gather = _fused_local_fns(spec)
+    pool._note_trace()
+    if stage == "grad":
+        return _StepProgram(grad, lambda args, outs: outs)
+    if stage == "exchange":
+        def write_exchange(args, outs):
+            _write_state(args[1], outs[1])
+            return outs[:1]
+
+        return _StepProgram(exchange, write_exchange)
+    if stage == "update":
+        def write_update(args, outs):
+            for dst, src in zip(args[2:], outs[1:]):
+                dst.copy_(src)
+            return outs[:1]
+
+        return _StepProgram(update, write_update)
+
+    def write_gather(args, outs):
+        args[1].view(outs[0].shape).copy_(outs[0])
+        return ()
+
+    return _StepProgram(lambda new_sub, p: (gather(new_sub),), write_gather)
 
 
 # ------------------------------------------------------ host-side fallback
@@ -1261,7 +1645,7 @@ class _DeviceGroup:
         and a plan's buffers hold one op at a time."""
         pool = self.pool
         with pool.on_stream():
-            plan = pool.plan(key, build)
+            plan = pool.executable(key, build)
         with plan.lock:
             with pool.on_stream():
                 for buf, arrays in zip(plan.inputs, rows):
@@ -1324,7 +1708,11 @@ class CudaCommContext(CommContext):
     ``DevicePool("cpu")`` to run the plane on the CPU. ``topology``: the
     default path of ``allreduce``, "flat" or "hier" (module docstring);
     ``domain_resolver``: the :class:`DomainTopology` every rank resolves
-    its cohort with (default: the ``TORCHFT_TPU_DOMAINS`` map)."""
+    its cohort with (default: the ``TORCHFT_TPU_DOMAINS`` map).
+    ``model_shards``: the model-axis extent of each replica group on the
+    fused-step plane (fused.py); the wire collectives stay 1-D, so it is
+    introspection (``mesh_shape()``) and plumbing for the fused builders,
+    never a change to the exchange sequence."""
 
     backend_name = "cuda"
 
@@ -1334,7 +1722,8 @@ class CudaCommContext(CommContext):
                  chunk_bytes: int = 1 << 20,
                  device_pool: Optional[DevicePool] = None,
                  topology: str = "flat",
-                 domain_resolver: Optional[DomainTopology] = None) -> None:
+                 domain_resolver: Optional[DomainTopology] = None,
+                 model_shards: int = 1) -> None:
         super().__init__()
         if isinstance(timeout, timedelta):
             timeout = timeout.total_seconds()
@@ -1352,6 +1741,7 @@ class CudaCommContext(CommContext):
         self._pool = device_pool or default_device_pool()
         self._topology_default = topology
         self._domain_resolver = domain_resolver
+        self._model_shards = max(1, int(model_shards))
         self._wire_members: "Optional[List[str]]" = None
         self._configured_members: "Optional[List[str]]" = None
         self._hier_assignment: Optional[DomainAssignment] = None
@@ -1614,6 +2004,11 @@ class CudaCommContext(CommContext):
 
     def wire_nbytes(self, a: np.ndarray) -> int:
         return codec_wire_nbytes(self._codec, self._chunk_bytes, a)
+
+    def mesh_shape(self) -> Tuple[int, int]:
+        """(replicas, model_shards): the wire world times the declared
+        model-axis extent."""
+        return (self.size(), self._model_shards)
 
     # ----------------------------------------------------------- collectives
 

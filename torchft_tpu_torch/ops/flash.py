@@ -110,10 +110,12 @@ def recording_launches(into: Dict[str, int],
 
 
 def add_launches(counts: Dict[str, int]) -> None:
-    """Count a graph replay's launches: the tally of its capture."""
+    """Count a graph replay's launches: this module's names of the tally of
+    its capture (a tally may hold the codec kernels' too)."""
     with _LAUNCHES_LOCK:
         for name, n in counts.items():
-            LAUNCHES[name] += n
+            if name in LAUNCHES:
+                LAUNCHES[name] += n
 
 
 def _count(name: str) -> None:

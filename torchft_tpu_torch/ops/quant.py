@@ -21,13 +21,17 @@ the kernels agree bit for bit.
 
 Each wrapper launches its kernel for CUDA tensors (anything the kernel does
 not take raises ValueError), runs its plain version for CPU tensors, and
-counts its launches in ``LAUNCHES``. There is no fallback.
+counts its launches in ``LAUNCHES``. There is no fallback. Under a CUDA graph
+capture (``recording_launches``) a wrapper records its kernel into the graph
+and its count goes to the capture's tally, which the graph's owner adds to
+``LAUNCHES`` at every replay (``add_launches``), as ``ops/flash.py`` does.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Tuple
+from contextlib import contextmanager
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -35,12 +39,14 @@ from torchft_tpu_torch.ops import _build
 
 __all__ = [
     "LAUNCHES",
+    "add_launches",
     "dequant_acc_int8",
     "dequant_acc_int8_plain",
     "div_exact",
     "n_chunks",
     "quant_int8",
     "quant_int8_plain",
+    "recording_launches",
     "reset_launch_counts",
 ]
 
@@ -55,9 +61,43 @@ def reset_launch_counts() -> None:
             LAUNCHES[name] = 0
 
 
+# capture stream handle -> the tally of the graph being captured on it
+_CAPTURES: Dict[int, Dict[str, int]] = {}
+
+
+@contextmanager
+def recording_launches(into: Dict[str, int],
+                       stream: "torch.cuda.Stream") -> Iterator[Dict[str, int]]:
+    """Tally the kernel calls made on ``stream`` into ``into`` instead of
+    ``LAUNCHES`` for the span of a CUDA graph capture on that stream (the
+    kernels are recorded into the graph, not launched)."""
+    key = stream.cuda_stream
+    with _LAUNCHES_LOCK:
+        _CAPTURES[key] = into
+    try:
+        yield into
+    finally:
+        with _LAUNCHES_LOCK:
+            _CAPTURES.pop(key, None)
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count a graph replay's launches: this module's names of the tally of
+    its capture."""
+    with _LAUNCHES_LOCK:
+        for name, n in counts.items():
+            if name in LAUNCHES:
+                LAUNCHES[name] += n
+
+
 def _count(name: str) -> None:
     with _LAUNCHES_LOCK:
-        LAUNCHES[name] += 1
+        into = (_CAPTURES.get(torch.cuda.current_stream().cuda_stream)
+                if _CAPTURES else None)
+        if into is not None:
+            into[name] = into.get(name, 0) + 1
+        else:
+            LAUNCHES[name] += 1
 
 
 def div_exact(t: torch.Tensor, d: "int | float") -> torch.Tensor:

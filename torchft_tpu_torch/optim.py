@@ -401,10 +401,12 @@ class OuterTransformation:
                   for g, t in zip(grads, state["nu"])]
             count = state["count"] + 1
             c = count.to(torch.float32)
-            bc1 = 1 - torch.tensor(b1, dtype=torch.float32,
-                                   device=c.device) ** c
-            bc2 = 1 - torch.tensor(b2, dtype=torch.float32,
-                                   device=c.device) ** c
+            # the bases are filled on the device, so a CUDA graph can
+            # capture the update (a host tensor would be a copy)
+            bc1 = 1 - torch.full((), b1, dtype=torch.float32,
+                                 device=c.device) ** c
+            bc2 = 1 - torch.full((), b2, dtype=torch.float32,
+                                 device=c.device) ** c
             updates = [(m / bc1.to(m.dtype))
                        / (torch.sqrt(v / bc2.to(v.dtype)) + self.eps)
                        for m, v in zip(mu, nu)]
@@ -488,10 +490,10 @@ class TransformationOptimizer(torch.optim.Optimizer):
         tx = self.tx
         count = self.state[params[0]]["count"] + 1
         c = count.to(torch.float32)
-        bc1 = 1 - torch.tensor(tx.b1, dtype=torch.float32,
-                               device=c.device) ** c
-        bc2 = 1 - torch.tensor(tx.b2, dtype=torch.float32,
-                               device=c.device) ** c
+        bc1 = 1 - torch.full((), tx.b1, dtype=torch.float32,
+                             device=c.device) ** c
+        bc2 = 1 - torch.full((), tx.b2, dtype=torch.float32,
+                             device=c.device) ** c
         for p in params:
             # OuterTransformation.update's expressions, in place
             g, state = p.grad, self.state[p]
@@ -623,15 +625,28 @@ class ShardedOptState:
                    for t in _state_tensors(s))
 
 
-def _state_tensors(state: Dict[str, Any]) -> List[torch.Tensor]:
-    """One leaf's state flattened in the JAX package's slot order: optax's
-    ``count, mu, nu`` for Adam(W), ``trace`` with momentum, nothing for
-    plain SGD."""
+def state_leaf_names(state: Dict[str, Any]) -> Tuple[str, ...]:
+    """The slots of one leaf's :class:`OuterTransformation` state in the
+    JAX package's (optax's) order: ``count, mu, nu`` for Adam(W),
+    ``trace`` with momentum, none for plain SGD."""
     if "count" in state:
-        return [state["count"], state["mu"][0], state["nu"][0]]
+        return ("count", "mu", "nu")
     if "trace" in state:
-        return [state["trace"][0]]
-    return []
+        return ("trace",)
+    return ()
+
+
+def _state_tensors(state: Dict[str, Any]) -> List[torch.Tensor]:
+    """One leaf's state flattened in the JAX package's slot order
+    (:func:`state_leaf_names`)."""
+    return [state[n] if n == "count" else state[n][0]
+            for n in state_leaf_names(state)]
+
+
+def state_from_leaves(names: Sequence[str],
+                      leaves: Sequence[torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`_state_tensors`."""
+    return {n: (t if n == "count" else [t]) for n, t in zip(names, leaves)}
 
 
 class ShardedOptimizerWrapper:
