@@ -424,6 +424,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    peak memory beside its reckoning (``fused_device_bytes``), each with
    the card's name and power limit.
 
+22. serve_deploy (it runs after train_resnet): the train-to-serve plane
+   (``serve.py``) fed by the 125m trainer, full width and depth, batch 8
+   (``run_serve_drill``). One lighthouse holds two jobs: "train", one
+   group of the ``train`` phase's model, and "serve", a
+   ``ServeCohort(SERVE_MEMBERS, replication=2)`` whose members hold their
+   shards on the card (125 units, one a parameter: 544,364,544 bytes). A
+   seeded closed-loop request stream runs through ``cohort.answer`` for
+   the whole drill. The trainer commits 6 steps; ``Manager.set_commit_hook``
+   records each committed step, and at steps 2, 4 and 6 it publishes its
+   parameters after the update (``DeployPublisher``: one D2H host copy,
+   staged at ``step == version``). Deploy v2; kill member 1 and let the
+   trainer commit 3-4 through it (the serve job's ``membership_epoch``
+   must move); deploy v4 to the survivors under traffic; ``rejoin_member
+   (1)`` from serve peers; ``grow()`` to 5; deploy v6, the union
+   transition. Checks: every adoption moves exactly its lower bound; v2
+   moves 2 x the model, v4 2 x the model less member 1's shard, which the
+   rejoin moves from peers alone (``deploy_train_bytes`` flat); every live
+   member's per-unit digests, read back from the card, equal the
+   publication's; ``serve_dropped`` 0, ``serve_stale_reads`` 0 summed over
+   the members, ``serve_reroutes`` > 0; every answer within
+   ``SERVE_ANSWER_TOL`` x sum |unit| x |x| of the float64 sum of the
+   published leaf; the router's and members' ``/telemetry`` counters equal
+   their ``Metrics``; each flash kernel launched once per layer per
+   trainer pass, no codec kernel. It prints, per deploy, the wall time,
+   the moved bytes and their lower bound, the answers per second, the peak
+   device memory and the card.
+
 It prints a ``kernels`` JSON line before the last line and ends with
 ``{"ok": true, "device": {...}}``. It needs one card and no network.
 """
@@ -5139,6 +5166,436 @@ def phase_train_hier_int8(seed: int, card: str, batch: int = 8):
     return result["passes"] * cfg.n_layers, per_kernel, result
 
 
+# ------------------------------------------------------------ serve_deploy
+
+SERVE_MEMBERS = 4           # the cohort before it grows to 5
+SERVE_REPLICATION = 2
+SERVE_STEPS = 6             # committed steps of the trainer
+SERVE_PUBLISH = (2, 4, 6)   # the steps whose parameters are deployed
+SERVE_KILLED = 1            # the member killed after v2, rejoined at v4
+SERVE_HEARTBEAT_MS = 1500   # the lighthouse's: a dead member's lease ends
+# An answer is sum(unit) * x summed in f32 on the card: |got - want| <=
+# SERVE_ANSWER_TOL * sum(|unit|) * |x| against the float64 sum of the
+# published leaf (tests/test_torch_serve_plane.py's ANSWER_TOL)
+SERVE_ANSWER_TOL = 1e-5
+SERVE_COUNTERS = ("serve_requests", "serve_reroutes", "serve_dropped",
+                  "serve_stale_reads", "deploy_bytes_moved",
+                  "deploy_lower_bound_bytes", "deploy_train_bytes",
+                  "deploy_peer_bytes", "deploy_adoptions")
+
+
+def serve_config():
+    from torchft_tpu_torch.models import CONFIGS
+
+    return CONFIGS["125m"]
+
+
+def _serve_epoch(addr: str, job: str) -> int:
+    import urllib.request
+
+    with urllib.request.urlopen(f"{addr}/status.json", timeout=10) as r:
+        return int(json.load(r)["jobs"].get(job, {}).get(
+            "membership_epoch", 0))
+
+
+def _shard_bytes(layout, member: int, unit_bytes) -> int:
+    return sum(unit_bytes[u] for u in layout.units_of(member))
+
+
+def _telemetry_counters(addr: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"{addr}/telemetry/metrics",
+                                timeout=10) as r:
+        got = json.load(r)["metrics"]
+    return {k: got.get(k) for k in SERVE_COUNTERS}
+
+
+class _Hammer:
+    """A seeded closed-loop request stream through ``cohort.answer``: units
+    uniform, x in [-2, 2). Keeps every answer's (time, version, unit, x,
+    value) and counts the drops the caller sees."""
+
+    def __init__(self, cohort, n_units: int, seed: int) -> None:
+        import threading
+
+        import numpy as np
+
+        self.cohort = cohort
+        self.rng = np.random.default_rng(seed)
+        self.n_units = n_units
+        self.answers: list = []
+        self.drops = 0
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="serve_hammer")
+
+    def _run(self) -> None:
+        while not self.stop.is_set():
+            u = int(self.rng.integers(self.n_units))
+            x = float(self.rng.uniform(-2.0, 2.0))
+            try:
+                v, value = self.cohort.answer(u, x)
+            except ConnectionError:
+                self.drops += 1
+                continue
+            self.answers.append((time.perf_counter(), v, u, x, value))
+
+    def rate(self, t0: float, t1: float) -> float:
+        n = sum(1 for a in self.answers if t0 <= a[0] <= t1)
+        return n / max(t1 - t0, 1e-9)
+
+
+def run_serve_drill(cfg, *, device=None, batch: int = 8, seed: int = 0,
+                    timeout: float = 120.0) -> dict:
+    """The train-to-serve drill of the ``serve_deploy`` phase (module
+    docstring, phase 22): one trainer group of ``cfg`` in job "train" and a
+    ``ServeCohort(SERVE_MEMBERS, replication=2)`` in job "serve" on one
+    lighthouse; a seeded request stream runs through ``cohort.answer`` the
+    whole drill. The trainer commits ``SERVE_STEPS`` steps; its commit hook
+    records each committed step, and at the steps of ``SERVE_PUBLISH`` it
+    publishes its parameters (after the update) with that version and
+    waits for the drill. Deploy v2; kill member ``SERVE_KILLED`` and let
+    the trainer commit 3-4 through it; deploy v4 to the survivors; rejoin
+    the member from its serve peers; grow to 5; deploy v6 (the union
+    transition). Raises AssertionError on any oracle; returns the
+    figures."""
+    import queue
+    import threading
+
+    import torch
+
+    from torchft_tpu_torch.control import Lighthouse
+    from torchft_tpu_torch.examples.train_ddp import train_group
+    from torchft_tpu_torch.serve import (
+        SERVE_JOB_ID,
+        DeployPublisher,
+        ServeCohort,
+    )
+    from torchft_tpu_torch.utils.metrics import Metrics
+
+    cuda = torch.device(device or "cuda").type == "cuda"
+    t_start = time.perf_counter()
+    lighthouse = Lighthouse(min_replicas=1, join_timeout_ms=100,
+                            quorum_tick_ms=10,
+                            heartbeat_timeout_ms=SERVE_HEARTBEAT_MS)
+    addr = lighthouse.address()
+    pub_metrics = Metrics()
+    pub = DeployPublisher(timeout=timeout, metrics=pub_metrics)
+    published: "queue.Queue" = queue.Queue()
+    gates = {v: threading.Event() for v in SERVE_PUBLISH[:-1]}
+    stop = threading.Event()
+    hook_steps: list = []
+    commits: dict = {}
+    sums: dict = {}
+    publish_s: dict = {}
+    errors: list = []
+    trainer_run: list = []
+
+    def on_start(manager) -> None:
+        manager.set_commit_hook(lambda step, parts: hook_steps.append(step))
+
+    def on_commit(step, manager, model, loss) -> None:
+        # the hook fired inside should_commit, before the update; the
+        # parameters read here are the committed step's, updated
+        if not hook_steps or hook_steps[-1] != step - 1:
+            raise AssertionError(f"commit hook recorded {hook_steps}, "
+                                 f"the trainer committed step {step}")
+        commits[step] = time.perf_counter()
+        if step not in SERVE_PUBLISH:
+            return
+        params = [p.detach() for p in model.parameters()]
+        sums[step] = [(float(p.double().sum()), float(p.double().abs().sum()))
+                      for p in params]
+        t0 = time.perf_counter()
+        published.put((step, pub.publish(step, params)))
+        publish_s[step] = time.perf_counter() - t0
+        gate = gates.get(step)
+        if gate is not None:
+            while not gate.wait(0.1):
+                if stop.is_set():
+                    raise RuntimeError("the serve drill failed")
+
+    def trainer() -> None:
+        try:
+            trainer_run.append(train_group(
+                cfg, replica_group=0, num_groups=1, total_steps=SERVE_STEPS,
+                lighthouse_addr=addr, device=device, batch_size=batch,
+                init_seed=seed, data_seed=seed, on_start=on_start,
+                on_commit=on_commit, stop=stop, timeout=timeout,
+                job_id="train"))
+        except BaseException as e:  # noqa: BLE001 — reported by the drill
+            errors.append(e)
+            stop.set()
+
+    def next_version(want: int) -> str:
+        deadline = time.monotonic() + 4 * timeout
+        while True:
+            if errors:
+                raise RuntimeError(f"the trainer failed: {errors[0]!r}")
+            try:
+                v, a = published.get(timeout=0.5)
+            except queue.Empty:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"no publication of v{want}")
+                continue
+            _require(v == want, f"published v{v}, want v{want}")
+            return a
+
+    def check_member(m, version: int, what: str) -> None:
+        snap = m.metrics.snapshot()
+        _require(snap["deploy_bytes_moved"] == snap[
+            "deploy_lower_bound_bytes"], f"{what}: member {m.member_index} "
+            f"moved {snap['deploy_bytes_moved']}, lower bound "
+            f"{snap['deploy_lower_bound_bytes']}")
+        want = pub.digests(version)
+        got = m.live_digests()
+        _require(m.version == version and got and all(
+            d == want[u] for u, d in got.items()),
+            f"{what}: member {m.member_index}'s live units at version "
+            f"{m.version} differ from the publication's digests")
+
+    cohort = ServeCohort(SERVE_MEMBERS, lighthouse_addr=addr,
+                         replication=SERVE_REPLICATION, timeout=timeout,
+                         heartbeat_interval=0.1, device=device)
+    hammer = None
+    thread = threading.Thread(target=trainer, name="serve_trainer",
+                              daemon=True)
+    deploys: dict = {}
+    try:
+        thread.start()
+        a2 = next_version(2)
+        unit_bytes = pub.unit_bytes
+        model_bytes = sum(unit_bytes)
+        n_units = len(unit_bytes)
+
+        def deploy(version: int, address: str) -> dict:
+            before = {m.member_index: m.metrics.snapshot()
+                      for m in cohort.members}
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            moved = cohort.deploy(version, [address], unit_bytes)
+            t1 = time.perf_counter()
+            live = [m for m in cohort.members if m.alive]
+            for m in live:
+                check_member(m, version, f"v{version}")
+            snaps = {m.member_index: m.metrics.snapshot() for m in live}
+            rec = {"wall_s": t1 - t0, "moved": int(moved), "t0": t0,
+                   "t1": t1,
+                   "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                               if cuda else None),
+                   "per_member": {i: s["deploy_bytes_moved"] - before[i]
+                                  .get("deploy_bytes_moved", 0.0)
+                                  for i, s in snaps.items()},
+                   "lower": sum(s["deploy_lower_bound_bytes"] - before[i]
+                                .get("deploy_lower_bound_bytes", 0.0)
+                                for i, s in snaps.items()),
+                   "adopt_ms": {i: s.get("deploy_wall_ms")
+                                for i, s in snaps.items()},
+                   "upload_ms": {i: s.get("deploy_upload_max_ms")
+                                 for i, s in snaps.items()}}
+            deploys[version] = rec
+            return rec
+
+        # -- v2 to the whole cohort --------------------------------------
+        d2 = deploy(2, a2)
+        _require(d2["moved"] == SERVE_REPLICATION * model_bytes,
+                 f"v2 moved {d2['moved']}, want {SERVE_REPLICATION} x the "
+                 f"model's {model_bytes}")
+        hammer = _Hammer(cohort, n_units, seed)
+        hammer.thread.start()
+        time.sleep(0.5)
+        # -- the kill; the trainer commits through it --------------------
+        epoch0 = _serve_epoch(addr, SERVE_JOB_ID)
+        t_kill = time.perf_counter()
+        cohort.members[SERVE_KILLED].kill()
+        gates[2].set()
+        deadline = time.monotonic() + 10 * SERVE_HEARTBEAT_MS / 1e3
+        while _serve_epoch(addr, SERVE_JOB_ID) == epoch0:
+            _require(time.monotonic() < deadline,
+                     f"the serve job's membership_epoch stayed {epoch0} "
+                     f"after member {SERVE_KILLED}'s kill")
+            time.sleep(0.05)
+        epoch1 = _serve_epoch(addr, SERVE_JOB_ID)
+        t_epoch = time.perf_counter()
+        # -- v4 to the survivors, under traffic ---------------------------
+        a4 = next_version(4)
+        _require(all(commits[s] > t_kill for s in (3, 4)),
+                 "the trainer did not commit steps 3-4 after the kill")
+        d4 = deploy(4, a4)
+        killed_bytes = _shard_bytes(cohort.layout, SERVE_KILLED, unit_bytes)
+        _require(d4["moved"] == SERVE_REPLICATION * model_bytes
+                 - killed_bytes,
+                 f"v4 moved {d4['moved']}, want 2 x {model_bytes} less the "
+                 f"killed member's shard {killed_bytes}")
+        _require(float(cohort.metrics.snapshot().get("serve_reroutes")
+                       or 0) > 0, "no request was re-routed after the kill")
+        # -- the rejoin from serve peers ---------------------------------
+        victim = cohort.members[SERVE_KILLED]
+        snap0 = victim.metrics.snapshot()
+        t0 = time.perf_counter()
+        healed = cohort.rejoin_member(SERVE_KILLED)
+        rejoin_s = time.perf_counter() - t0
+        snap1 = victim.metrics.snapshot()
+        d_train = snap1.get("deploy_train_bytes", 0) - snap0.get(
+            "deploy_train_bytes", 0)
+        d_peer = snap1.get("deploy_peer_bytes", 0) - snap0.get(
+            "deploy_peer_bytes", 0)
+        _require(d_train == 0 and d_peer == healed == killed_bytes,
+                 f"rejoin: train bytes moved {d_train}, peer bytes "
+                 f"{d_peer}, healed {healed}, the shard {killed_bytes}")
+        check_member(victim, 4, "rejoin")
+        # -- growth, then v6: the union transition ------------------------
+        joiner = cohort.grow()
+        gates[4].set()
+        d6 = deploy(6, next_version(6))
+        for v, d in deploys.items():
+            _require(d["moved"] == d["lower"],
+                     f"v{v} moved {d['moved']}, the lower bounds sum to "
+                     f"{d['lower']}")
+        jm = d6["per_member"][joiner.member_index]
+        _require(0 < jm < model_bytes,
+                 f"the joiner moved {jm} of the model's {model_bytes}")
+        time.sleep(0.5)
+        hammer.stop.set()
+        hammer.thread.join(timeout=timeout)
+        thread.join(timeout=timeout)
+        _require(not errors, f"the trainer failed: {errors!r}")
+        # -- the serving oracles -----------------------------------------
+        dropped = float(cohort.metrics.snapshot().get("serve_dropped") or 0)
+        stale = sum(float(m.metrics.snapshot().get("serve_stale_reads")
+                          or 0) for m in cohort.members if m.alive)
+        _require(dropped == 0 and hammer.drops == 0,
+                 f"{dropped} requests dropped ({hammer.drops} seen)")
+        _require(stale == 0, f"{stale} stale reads")
+        _require(len(hammer.answers) > 1, "no request was answered")
+        worst = 0.0
+        for _, v, u, x, value in hammer.answers:
+            s, a = sums[v][u]
+            worst = max(worst, abs(value - s * x) / max(a * abs(x), 1e-30))
+        _require(worst <= SERVE_ANSWER_TOL,
+                 f"an answer is {worst:.3e} (relative to sum |unit| |x|) "
+                 f"off the float64 sum, bound {SERVE_ANSWER_TOL}")
+        tele = {"router": (_telemetry_counters(cohort.router_address()),
+                           cohort.metrics.snapshot())}
+        for m in cohort.members:
+            tele[f"member {m.member_index}"] = (
+                _telemetry_counters(m.address), m.metrics.snapshot())
+        for who, (http, snap) in tele.items():
+            want = {k: snap.get(k) for k in SERVE_COUNTERS}
+            _require(http == want, f"{who}'s /telemetry counters {http} "
+                                   f"differ from its Metrics {want}")
+        answers = hammer.answers
+        return {
+            "run": trainer_run[0], "deploys": deploys,
+            "model_bytes": model_bytes, "units": n_units,
+            "killed_bytes": killed_bytes,
+            "rejoin": {"moved": healed, "wall_s": rejoin_s},
+            "epochs": (epoch0, epoch1), "epoch_s": t_epoch - t_kill,
+            "after_kill": sorted(s for s, t in commits.items()
+                                 if t > t_kill),
+            "answers": len(answers),
+            "answer_rate": len(answers) / max(
+                answers[-1][0] - answers[0][0], 1e-9),
+            "rates": {v: hammer.rate(d["t0"], d["t1"])
+                      for v, d in deploys.items()},
+            "worst": worst,
+            "reroutes": float(cohort.metrics.snapshot()["serve_reroutes"]),
+            "publish_s": publish_s,
+            "publish_metrics": pub_metrics.snapshot(),
+            "answer_ms": {m.member_index: (
+                m.metrics.snapshot().get("serve_answer_avg_ms"),
+                m.metrics.snapshot().get("serve_answer_max_ms"))
+                for m in cohort.members},
+            "seconds": time.perf_counter() - t_start,
+        }
+    finally:
+        stop.set()
+        for g in gates.values():
+            g.set()
+        if hammer is not None:
+            hammer.stop.set()
+            hammer.thread.join(timeout=timeout)
+        thread.join(timeout=timeout)
+        cohort.shutdown()
+        pub.close()
+        lighthouse.shutdown()
+
+
+def serve_report(result: dict, card: str) -> list:
+    lines = [f"{result['units']} units, the model {result['model_bytes']} "
+             f"bytes; the serve job's membership_epoch "
+             f"{result['epochs'][0]} -> {result['epochs'][1]} "
+             f"{result['epoch_s']:.2f} s after the kill; the trainer "
+             f"committed steps {result['after_kill']} after it"]
+    for v, d in sorted(result["deploys"].items()):
+        peak = "not measured" if d["peak_gb"] is None \
+            else f"{d['peak_gb']:.2f} GB"
+        lines.append(
+            f"deploy v{v}: wall {d['wall_s']:.3f} s, moved {d['moved']} "
+            f"bytes, lower bound {int(d['lower'])}, per member (each = its "
+            f"lower bound) "
+            f"{sorted((k, int(b)) for k, b in d['per_member'].items())}, "
+            f"{d['moved'] / max(d['wall_s'], 1e-9) / 1e9:.3f} GB/s; "
+            f"answers {result['rates'][v]:.1f}/s during it; peak device "
+            f"memory {peak} ({card})")
+        lines.append(
+            f"deploy v{v} per member: adopt ms "
+            f"{ {k: round(x, 1) for k, x in d['adopt_ms'].items()} }, the "
+            f"upload to the device in it ms "
+            f"{ {k: round(x or 0, 1) for k, x in d['upload_ms'].items()} }")
+    pm = result["publish_metrics"]
+    lines.append(
+        "publish s " + str({v: round(s, 3)
+                            for v, s in result["publish_s"].items()})
+        + f": D2H of the units avg "
+        f"{pm.get('deploy_publish_d2h_avg_ms', 0):.1f} ms, sha256 avg "
+        f"{pm.get('deploy_publish_digest_avg_ms', 0):.1f} ms ({card})")
+    r = result["rejoin"]
+    lines.append(f"rejoin of member {SERVE_KILLED}: {int(r['moved'])} bytes "
+                 f"from serve peers (= its shard {result['killed_bytes']}), "
+                 f"0 from the trainer, {r['wall_s']:.3f} s")
+    lines.append(
+        f"answers: {result['answers']} at {result['answer_rate']:.1f}/s "
+        f"overall, 0 dropped, 0 stale, {result['reroutes']:.0f} re-routed, "
+        f"worst |got - want| / (sum |unit| |x|) {result['worst']:.2e} "
+        f"(bound {SERVE_ANSWER_TOL}); per member answer ms (avg, max) "
+        + str({k: (round(a or 0, 2), round(b or 0, 2))
+               for k, (a, b) in result["answer_ms"].items()}) + f" ({card})")
+    run = result["run"]
+    times = ", ".join(f"{s}: {t * 1e3:.1f}"
+                      for s, t in sorted(run.step_seconds.items()))
+    lines.append(f"trainer step ms {{{times}}}; {run.passes} "
+                 f"forward/backward passes; drill {result['seconds']:.1f} s "
+                 f"({card})")
+    return lines
+
+
+def phase_serve_deploy(seed: int, card: str, device: str = "cuda"):
+    """The train-to-serve phase (module docstring, phase 22). Returns the
+    kernel launches, those the trainer's passes want, and the head_dim."""
+    from torchft_tpu_torch.ops import flash, quant
+
+    cfg = serve_config()
+    t0 = time.perf_counter()
+    log(f"  trainer: d_model {cfg.d_model} layers {cfg.n_layers} heads "
+        f"{cfg.n_heads} (head_dim {cfg.head_dim}) seq {cfg.max_seq_len}, "
+        f"batch 8; cohort {SERVE_MEMBERS} members, replication "
+        f"{SERVE_REPLICATION}, on {device}")
+    flash.reset_launch_counts()
+    quant.reset_launch_counts()
+    result = run_serve_drill(cfg, device=device, seed=seed)
+    counts = {**flash.LAUNCHES, **quant.LAUNCHES}
+    for line in serve_report(result, card):
+        log("  " + line)
+    log(f"  phase {time.perf_counter() - t0:.1f} s ({card})")
+    want = {**{n: result["run"].passes * cfg.n_layers
+               for n in flash.LAUNCHES},
+            **dict.fromkeys(quant.LAUNCHES, 0)}
+    return counts, want, cfg.head_dim
+
+
 def _check_launches(counts, want, what: str) -> None:
     log(f"  kernel launches on the main path: {counts} (want {want})")
     if counts != want:
@@ -5150,7 +5607,7 @@ PHASES = ("kernels", "train", "train_multijob", "train_sharded",
           "train_moe", "train_cuda_int8",
           "train_tiny", "gpt_1b", "train_llama_ring", "train_hsdp",
           "train_moe_expert", "train_pp", "pipeline_plane", "fused_step",
-          "train_resnet", "train_diloco",
+          "train_resnet", "serve_deploy", "train_diloco",
           "train_diloco_sharded", "train_localsgd_int8", "train_hier_int8",
           "train_durable")
 
@@ -5363,6 +5820,14 @@ def main() -> int:
                         "ResNet-18 has no attention and codec none: its "
                         "convolutions are library calls, as the "
                         "reference's are XLA's")
+    if "serve_deploy" in phases:
+        log("phase serve_deploy")
+        counts, want, head_dim = phase_serve_deploy(args.seed, smi)
+        _check_launches(counts, want,
+                        "flash: one per layer per pass of the trainer, "
+                        "graph replays and capture warm-ups included; the "
+                        "serving cohort launches none; codec: none")
+        _add_launches(rows, counts, head_dim)
     if "train_diloco" in phases:
         log("phase train_diloco")
         flash.reset_launch_counts()

@@ -204,3 +204,23 @@ def test_healed_optimizer_steps_bitwise_like_donor() -> None:
         o.step()
     for a, b in zip(donor.parameters(), healed.parameters()):
         assert torch.equal(a, b)
+
+
+def test_server_listens_with_the_full_backlog(monkeypatch) -> None:
+    # the backlog is set at bind: a value assigned to the server after it
+    # bound never reached listen(), and 16 concurrent fetches (4 adopters x
+    # 4 connections) overflowed the default 5, each dropped SYN a 1 s
+    # retransmit
+    import socket
+
+    seen = []
+    real = socket.socket.listen
+
+    def listen(self, *args):
+        seen.extend(args)
+        return real(self, *args)
+
+    monkeypatch.setattr(socket.socket, "listen", listen)
+    server = cp.CheckpointServer(timeout=5.0)
+    server.shutdown()
+    assert seen == [1024]

@@ -21,7 +21,9 @@ checks failing a drill whose counter or recorded step is wrong. For
 ``train_pp``: its memory and launches at 125m, the phase whole at "tiny"
 (depth 8) on the CPU, and the schedule pass failing a wrong 1F1B runner;
 for ``pipeline_plane``: every arm at the card's stage and replica counts
-with narrow layers on the CPU.
+with narrow layers on the CPU. For ``serve_deploy``: the phase whole at
+"tiny" on the CPU (every oracle of the drill, the report, the launches it
+wants), and its oracles failing a cohort that moves a stale shard.
 """
 
 import importlib.util
@@ -168,7 +170,7 @@ def test_flash_shapes_reach_every_head_dim() -> None:
                             "train_tiny", "gpt_1b", "train_llama_ring",
                             "train_hsdp", "train_moe_expert", "train_pp",
                             "pipeline_plane", "fused_step", "train_resnet",
-                            "train_diloco",
+                            "serve_deploy", "train_diloco",
                             "train_diloco_sharded",
                             "train_localsgd_int8", "train_hier_int8",
                             "train_durable")
@@ -1267,3 +1269,47 @@ def test_fused_step_oracles_catch_a_wrong_exchange() -> None:
     smoke.check_int8_exchange(eng, e0, "CPU")  # the true residual passes
     with pytest.raises(AssertionError, match="host codec"):
         smoke.check_int8_exchange(eng, e0 + 1e-3, "CPU")
+
+
+def test_serve_deploy_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # the phase as the card runs it, at "tiny" on the CPU: the trainer's 6
+    # steps, the three deploys, the kill, the rejoin and the growth, every
+    # oracle; no kernel launches on the CPU
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    monkeypatch.setattr(smoke, "serve_config", lambda: CONFIGS["tiny"])
+    counts, want, head_dim = smoke.phase_serve_deploy(0, "CPU",
+                                                      device="cpu")
+    assert head_dim == 16
+    # 6 committed steps, no capture on the CPU: 6 passes of 2 layers
+    assert want == {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+                    "quant_int8": 0, "dequant_acc_int8": 0}
+    assert not any(counts.values())
+    text = "\n".join(lines)
+    for v in (2, 4, 6):
+        assert f"deploy v{v}: wall" in text
+    assert "0 dropped, 0 stale" in text
+    assert "0 from the trainer" in text
+    assert "the trainer committed steps [3, 4, 5, 6] after it" in text
+    assert "phase " in text
+
+
+def test_serve_oracles_catch_a_stale_shard(monkeypatch) -> None:
+    # a member whose live bytes are not the publication's fails the drill
+    import torchft_tpu_torch.serve as serve
+
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "log", lambda m: None)
+    real = serve.ServingReplica._flip
+
+    def stale_flip(self, version, host, buffers):
+        if self.member_index == 2 and version == 2:
+            buffers = {u: [b + 1 for b in bufs] for u, bufs in
+                       buffers.items()}
+        return real(self, version, host, buffers)
+
+    monkeypatch.setattr(serve.ServingReplica, "_flip", stale_flip)
+    with pytest.raises(AssertionError, match="member 2's live units"):
+        smoke.run_serve_drill(CONFIGS["tiny"], device="cpu", seed=0,
+                              timeout=30.0)

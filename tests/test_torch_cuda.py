@@ -33,7 +33,9 @@ with one group's wire in a ``SubprocessCommContext`` child commits its
 round bitwise the replicated arm's, and the child holds no CUDA context.
 The flash-block ring over virtual shards of the card matches the same
 ring over CPU shards, and the llama ring example's drill heals bitwise
-there. This file imports no
+there. The serving cohort holds its shards on the card, its digests read
+back from the card equal to the publication's, while answers race a
+deploy. This file imports no
 JAX, so it runs where only torch is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -1098,3 +1100,58 @@ def test_fused_step_fused_equals_staged_on_card(codec) -> None:
     (card_h,) = prog.run(gm.cuda(), card_e)
     assert torch.equal(card_h.cpu().view(torch.int32), cpu_h.view(torch.int32))
     assert torch.equal(card_e.cpu().view(torch.int32), cpu_e.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_serve_cohort_holds_its_shards_on_the_card() -> None:
+    """The train-to-serve plane with the cohort on the card (its default
+    device): tensors on the card published, every live buffer on the card,
+    its digest read back from the card equal to the publication's, an
+    answer racing a concurrent deploy reading one whole version, and the
+    card's f32 sum within the plane's bound of a float64 sum."""
+    import threading
+
+    import numpy as np
+
+    from torchft_tpu_torch.serve import DeployPublisher, ServeCohort
+
+    _cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    versions = {v: [torch.randn(4096 + 64 * i, device="cuda", generator=gen)
+                    for i in range(10)] for v in (1, 2)}
+    pub = DeployPublisher()
+    cohort = ServeCohort(3, replication=2)
+    stop, seen, errors = threading.Event(), [], []
+
+    def hammer() -> None:
+        u = 0
+        while not stop.is_set():
+            try:
+                seen.append((u % 10, *cohort.answer(u % 10, 1.5)))
+            except Exception as e:  # noqa: BLE001 — asserted below
+                errors.append(e)
+            u += 1
+
+    try:
+        cohort.deploy(1, [pub.publish(1, versions[1])], pub.unit_bytes)
+        t = threading.Thread(target=hammer, daemon=True)
+        t.start()
+        cohort.deploy(2, [pub.publish(2, versions[2])], pub.unit_bytes)
+        stop.set()
+        t.join(timeout=30)
+        assert not errors and seen
+        for m in cohort.members:
+            assert m.version == 2
+            assert all(b.device.type == "cuda"
+                       for bufs in m._live.buffers.values() for b in bufs)
+            want = pub.digests(2)
+            assert m.live_digests() == {u: want[u] for u in m._live.buffers}
+            assert not m.metrics.snapshot().get("serve_stale_reads")
+        for u, v, got in seen:
+            leaf = versions[v][u].double()
+            bound = 1e-5 * float(leaf.abs().sum()) * 1.5
+            assert abs(got - float(leaf.sum()) * 1.5) <= bound
+    finally:
+        stop.set()
+        cohort.shutdown()
+        pub.close()

@@ -28,8 +28,7 @@ RENAMED = {
     "OrbaxCheckpointer": "checkpoint_io.DcpCheckpointer",
     "MeshManager": "comm.cuda_backend.DevicePool",
 }
-NOT_PORTED = {"DeployPublisher", "ServeCohort", "ServingReplica",
-              "serve_layout"}
+NOT_PORTED: set = set()
 COMM_RENAMED = {
     "XlaCommContext": "comm.cuda_backend.CudaCommContext",
     "default_mesh_manager": "comm.cuda_backend.default_device_pool",

@@ -4,15 +4,26 @@ Per-step fault tolerance for replicated training on NVIDIA GPUs: a quorum
 of healthy replica groups every step (the native lighthouse and manager
 servers in native/), cross-group gradient averaging over a reconfigurable
 TCP transport, an optimizer gated on a two-phase commit, and live heals of
-restarted groups from a peer. The model's attention runs hand-written CUDA
-kernels for Hopper (``ops/flash.py``, ``csrc/``). Entry points run on CUDA
-unless asked for the CPU (``device="cpu"``).
+restarted groups from a peer, and a serving cohort that adopts committed
+weights while it answers (``serve.py``). The model's attention runs
+hand-written CUDA kernels for Hopper (``ops/flash.py``, ``csrc/``). Entry
+points run on CUDA unless asked for the CPU (``device="cpu"``).
 """
 
 import importlib
 from typing import Any
 
-from torchft_tpu_torch.comm import (  # noqa: F401
+# Lock-order detector opt-in (TORCHFT_TPU_LOCKCHECK=1): installs before the
+# imports below create their module-level locks. Unset, a no-op; the lint
+# suite's checkers stay unimported (stdlib only, and no torch).
+from torchft_tpu_torch.analysis.lockcheck import (
+    maybe_install as _lockcheck_install,
+)
+
+_lockcheck_install()
+del _lockcheck_install
+
+from torchft_tpu_torch.comm import (  # noqa: E402,F401
     CommContext,
     DummyCommContext,
     ErrorSwallowingCommContext,
@@ -21,7 +32,7 @@ from torchft_tpu_torch.comm import (  # noqa: F401
     SubprocessCommContext,
     TcpCommContext,
 )
-from torchft_tpu_torch.futures import (  # noqa: F401
+from torchft_tpu_torch.futures import (  # noqa: E402,F401
     future_chain,
     future_timeout,
     future_wait,
@@ -50,6 +61,10 @@ _LAZY = {
     "ShardedOptState": "torchft_tpu_torch.optim",
     "Pipeline": "torchft_tpu_torch.pipeline",
     "PipelineConfig": "torchft_tpu_torch.pipeline",
+    "DeployPublisher": "torchft_tpu_torch.serve",
+    "ServeCohort": "torchft_tpu_torch.serve",
+    "ServingReplica": "torchft_tpu_torch.serve",
+    "serve_layout": "torchft_tpu_torch.serve",
 }
 # the reference's alias (torchft_tpu.Optimizer is its OptimizerWrapper)
 _ALIASES = {"Optimizer": "OptimizerWrapper"}
@@ -64,6 +79,7 @@ __all__ = [
     "CommContext",
     "CudaCommContext",
     "DcpCheckpointer",
+    "DeployPublisher",
     "DevicePool",
     "DiLoCo",
     "DistributedDataParallel",
@@ -79,6 +95,8 @@ __all__ = [
     "PipelineConfig",
     "PureDistributedDataParallel",
     "ReduceOp",
+    "ServeCohort",
+    "ServingReplica",
     "ShardedGradReducer",
     "ShardedOptimizerWrapper",
     "ShardedOptState",
@@ -89,6 +107,7 @@ __all__ = [
     "future_timeout",
     "future_wait",
     "load_checkpoint",
+    "serve_layout",
 ]
 
 

@@ -136,8 +136,10 @@ __all__ = [
     "join_leaf_payload",
     "recv_checkpoint_sharded",
     "redistribute_exchange",
+    "serve_copy_stats",
     "serve_redist_payload",
     "split_leaf_payload",
+    "wire_crc_stats",
 ]
 
 # Chunk size for streaming a staged leaf into the socket: few syscalls, and
@@ -163,6 +165,45 @@ class ChecksumError(ConnectionError):
     """A tensor body failed its CRC32C wire frame: the payload was corrupted
     in flight. A ConnectionError, so callers treat it as "this copy is bad,
     refetch"."""
+
+
+# Process-wide test counters, the reference's: the receiver's CRC frames
+# checked and rejected, and the donor's tensor bodies served as views of
+# the staged copy against the copies a body needed (a region that is not
+# contiguous). Plain increments under the GIL, no lock: they sit on the
+# heal plane's per-frame and per-region paths and only tests read them.
+_crc_stats = {"frames_checked": 0, "checksum_errors": 0}
+_copy_stats = {"zero_copy_serves": 0, "full_array_copies": 0}
+
+
+def _snapshot(stats: Dict[str, int], reset: bool) -> Dict[str, int]:
+    out = dict(stats)
+    if reset:
+        stats.update(dict.fromkeys(stats, 0))
+    return out
+
+
+def wire_crc_stats(reset: bool = False) -> Dict[str, int]:
+    """Snapshot (optionally reset) the receiver-side CRC frame counters."""
+    return _snapshot(_crc_stats, reset)
+
+
+def serve_copy_stats(reset: bool = False) -> Dict[str, int]:
+    """Snapshot (optionally reset) the donor serve-path copy counters."""
+    return _snapshot(_copy_stats, reset)
+
+
+def _count_crc(ok: bool) -> None:
+    _crc_stats["frames_checked"] += 1
+    if not ok:
+        _crc_stats["checksum_errors"] += 1
+
+
+def _count_serve(copies: int) -> None:
+    if copies == 0:
+        _copy_stats["zero_copy_serves"] += 1
+    else:
+        _copy_stats["full_array_copies"] += copies
 
 
 # ------------------------------------------------------------ bytes and bounds
@@ -191,6 +232,7 @@ def _wire_encode(region: Any, wire: "Optional[torch.dtype]"
         t = region if isinstance(region, torch.Tensor) \
             else torch.from_numpy(np.ascontiguousarray(region))
         return _byte_view(t.to(wire).contiguous()), dtype_str(wire)
+    _count_serve(0 if _contiguous(region) else 1)
     if isinstance(region, torch.Tensor):
         return _byte_view(region.contiguous()), None
     return _byte_view(np.ascontiguousarray(region)), None
@@ -446,13 +488,16 @@ class _Staged:
 
 def _build_staged(step: int, state: Any, peers: Sequence[str] = (),
                   shard_filter: "Optional[Any]" = None,
-                  metrics: "Optional[Any]" = None) -> _Staged:
+                  metrics: "Optional[Any]" = None,
+                  owned: bool = False) -> _Staged:
     """Stage ``state`` for serving; the manifest comes from metadata only.
     Tensors are copied to host lazily (the gate keeps the trainer off them
     until staging finished), a ``ShardedTensor`` piece by piece; numpy
     arrays, mutable host state, are snapshot now. ``shard_filter(path,
     bounds) -> bool`` drops pieces at staging time (the single-process
-    stand-in for a host that holds part of a leaf)."""
+    stand-in for a host that holds part of a leaf). ``owned``: the caller
+    hands over numpy leaves that nothing mutates again, served as they
+    are, with no snapshot copy."""
     flat, spec = tree_flatten_with_path(state)
     entries: List[dict] = []
     slots: List[StealableTask] = []
@@ -500,7 +545,8 @@ def _build_staged(step: int, state: Any, peers: Sequence[str] = (),
             slots.append(StealableTask(_stage))
         else:
             with timed_span(metrics, "heal_stage"):
-                snap = np.array(leaf, copy=True)
+                snap = np.ascontiguousarray(leaf) if owned \
+                    else np.array(leaf, copy=True)
             slots.append(StealableTask(lambda s=snap: s))
     manifest = {"step": step, "leaves": entries, "treedef": spec,
                 "peers": list(peers)}
@@ -792,6 +838,16 @@ class _Handler(BaseHTTPRequestHandler):
                     pass
 
 
+class _ThreadingServer(ThreadingHTTPServer):
+    """The listening socket's backlog is set when the server binds, so it
+    is a class attribute: at the default 5, the connections of several
+    healers or adopters at once (4 members x 4 fetchers) overflow it and
+    each dropped SYN costs a 1 s retransmit."""
+
+    daemon_threads = True
+    request_queue_size = 1024
+
+
 class CheckpointServer(CheckpointTransport[T]):
     """Daemon-thread HTTP server streaming the staged state dict."""
 
@@ -842,9 +898,7 @@ class CheckpointServer(CheckpointTransport[T]):
         self._staged: Optional[_Staged] = None
         self._peers: List[str] = []
         self._shard_filter = None  # test seam: a host holding part of a leaf
-        self._server = ThreadingHTTPServer(("0.0.0.0", 0), _Handler)
-        self._server.daemon_threads = True
-        self._server.request_queue_size = 1024
+        self._server = _ThreadingServer(("0.0.0.0", 0), _Handler)
         self._server.ckpt_server = self  # type: ignore[attr-defined]
         self._thread = threading.Thread(
             target=self._server.serve_forever,
@@ -879,11 +933,15 @@ class CheckpointServer(CheckpointTransport[T]):
         self._peers = [p for p in peers if p != self._addr]
 
     def send_checkpoint(self, dst_ranks: List[int], step: int, state_dict: T,
-                        timeout: "float | timedelta") -> None:
+                        timeout: "float | timedelta",
+                        owned: bool = False) -> None:
+        """Stage ``state_dict`` at ``step`` and open the gate. ``owned``:
+        its numpy leaves are host copies the caller hands over and never
+        mutates, served without a snapshot copy (a deploy publication)."""
         del dst_ranks  # HTTP serves whoever fetches
         staged = _build_staged(step, state_dict, peers=self._peers,
                                shard_filter=self._shard_filter,
-                               metrics=self._metrics)
+                               metrics=self._metrics, owned=owned)
         with self._cond:
             self._staged = staged
             self._disallowed = False
@@ -934,6 +992,14 @@ class CheckpointServer(CheckpointTransport[T]):
         self._server.server_close()
         if wait:
             self._thread.join(timeout=5.0)
+
+    # -- test conveniences, the reference's (pre-seeding a donor) ----------
+
+    def allow_checkpoint(self, step: int, state_dict: T) -> None:
+        self.send_checkpoint([], step, state_dict, self._timeout)
+
+    def address(self) -> str:
+        return self._addr
 
 
 # ---------------------------------------------------------------- client side
@@ -1097,6 +1163,7 @@ def _read_wire(resp, dtype, shape, wire_name: "Optional[str]", what: str,
         readinto_exact(resp, memoryview(trailer), what=f"{what} crc frame")
         want = struct.unpack("<I", trailer)[0]
         got = crc32c(memoryview(view))
+        _count_crc(got == want)
         if got != want:
             raise ChecksumError(
                 f"{what}: CRC32C mismatch (wire frame {want:#010x}, computed "

@@ -748,20 +748,22 @@ class _FusedSpec:
     builders need, and everything the cache key must pin. ``q_len`` is the
     per-position owned sub-shard, ``p_len = replicas * q_len`` the
     per-model-shard param slice, ``s_len = model_shards * p_len`` the padded
-    flat param vector. ``opt_leaf_names`` (``optim.state_leaf_names``)
-    stands for the reference's optax treedef."""
+    flat param vector. ``sub_update(g, p_sub, leaves) -> (new_sub,
+    new_leaves)`` is one position's optimizer step over its owned
+    sub-shard and its state leaves (fused.py builds it from ``tx``); the
+    leaves' shapes and dtypes stand for the reference's optax treedef."""
 
     __slots__ = (
         "replicas", "model_shards", "param_size", "batch_size",
         "codec_name", "chunk_bytes", "quant_impl", "error_feedback",
-        "loss_fn", "tx", "opt_leaf_names", "opt_leaf_shapes",
+        "loss_fn", "sub_update", "opt_leaf_shapes",
         "opt_leaf_dtypes", "fn_key", "q_len", "p_len", "s_len",
     )
 
     def __init__(self, replicas: int, model_shards: int, param_size: int,
                  batch_size: int, codec_name: str, chunk_bytes: int,
-                 quant_impl: str, error_feedback: bool, loss_fn, tx,
-                 opt_leaf_names, opt_leaf_shapes, opt_leaf_dtypes,
+                 quant_impl: str, error_feedback: bool, loss_fn, sub_update,
+                 opt_leaf_shapes, opt_leaf_dtypes,
                  fn_key: str) -> None:
         self.replicas = int(replicas)
         self.model_shards = max(1, int(model_shards))
@@ -772,8 +774,7 @@ class _FusedSpec:
         self.quant_impl = quant_impl
         self.error_feedback = bool(error_feedback)
         self.loss_fn = loss_fn
-        self.tx = tx
-        self.opt_leaf_names = tuple(opt_leaf_names)
+        self.sub_update = sub_update
         self.opt_leaf_shapes = tuple(tuple(s) for s in opt_leaf_shapes)
         self.opt_leaf_dtypes = tuple(opt_leaf_dtypes)
         self.fn_key = fn_key
@@ -820,23 +821,16 @@ def _fused_local_fns(spec: _FusedSpec):
     own wire image`` (one more ``dequant_acc_int8``).
 
     ``update(h, p, *opt) -> (new_sub, *new_opt)``: per position its owned
-    sub-shard through ``tx`` and ``optim.apply_updates``.
+    sub-shard through ``spec.sub_update``.
 
     ``gather(new_sub) -> new_p``: the allgather over the replica axis of
     the raw values, a broadcast view shaped ``(R, M, R, q_len)``."""
-    from torchft_tpu_torch.optim import (
-        _state_tensors,
-        apply_updates,
-        state_from_leaves,
-    )
-
     R, M = spec.replicas, spec.model_shards
     D = R * M
     q_len, p_len, s_len = spec.q_len, spec.p_len, spec.s_len
     codec = spec.codec_name
     denom = R * M
     ef = spec.error_feedback
-    names = spec.opt_leaf_names
     step = _grid_step(q_len, spec.chunk_bytes)
     cpr = n_chunks(q_len, step)
 
@@ -897,10 +891,10 @@ def _fused_local_fns(spec: _FusedSpec):
         for d in range(D):
             r, m = divmod(d, M)
             p_sub = pv[r, m, r]
-            state = state_from_leaves(names, [leaf[d] for leaf in opt])
-            updates, new_state = spec.tx.update([h[d]], state, [p_sub])
-            subs.append(apply_updates([p_sub], updates)[0])
-            for acc, leaf in zip(new, _state_tensors(new_state)):
+            new_sub, leaves = spec.sub_update(h[d], p_sub,
+                                              [leaf[d] for leaf in opt])
+            subs.append(new_sub)
+            for acc, leaf in zip(new, leaves):
                 acc.append(leaf)
         return (torch.stack(subs),) + tuple(torch.stack(x) for x in new)
 

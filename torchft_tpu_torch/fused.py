@@ -51,12 +51,31 @@ from torchft_tpu_torch.comm.cuda_backend import (
     _build_step_stage,
     _FusedSpec,
 )
-from torchft_tpu_torch.optim import _state_tensors, state_leaf_names
+from torchft_tpu_torch.optim import (
+    _state_tensors,
+    apply_updates,
+    state_from_leaves,
+    state_leaf_names,
+)
 from torchft_tpu_torch.utils.metrics import Metrics
 
 __all__ = ["FusedStepEngine", "module_loss_fn", "module_params"]
 
 _CODECS = ("none", "bf16", "fp16", "int8")
+
+
+def _sub_update(tx: Any, names: Tuple[str, ...]) -> Callable:
+    """One position's optimizer step, ``(g, p_sub, leaves) -> (new_sub,
+    new_leaves)``: its state rebuilt from the stacked leaves' rows, ``tx``
+    and ``apply_updates`` over the owned sub-shard."""
+
+    def update(g: torch.Tensor, p_sub: torch.Tensor,
+               leaves: List[torch.Tensor]):
+        state = state_from_leaves(names, leaves)
+        updates, new_state = tx.update([g], state, [p_sub])
+        return apply_updates([p_sub], updates)[0], _state_tensors(new_state)
+
+    return update
 
 
 class _ShapeState:
@@ -157,8 +176,7 @@ class FusedStepEngine:
             quant_impl=_QUANT_IMPL,
             error_feedback=error_feedback,
             loss_fn=self.loss_fn,
-            tx=self.tx,
-            opt_leaf_names=state_leaf_names(state),
+            sub_update=_sub_update(self.tx, state_leaf_names(state)),
             opt_leaf_shapes=[tuple(t.shape) for t in leaves],
             opt_leaf_dtypes=[t.dtype for t in leaves],
             fn_key=fn_key,

@@ -168,8 +168,6 @@ def make_vocab_parallel_cross_entropy(mesh, axis_name: str = "tensor",
     axis_name)``. Gradients reach each piece on its own device, in its own
     shape: the head stays sharded. The result is on the first shard's
     device."""
-    from torchft_tpu_torch.parallel.sharding import PartitionSpec
-
     devices = [torch.device(d) for d in mesh.axis_devices(axis_name)]
     grid = mesh.devices.shape
     axis = mesh.axis_names.index(axis_name)
@@ -180,7 +178,9 @@ def make_vocab_parallel_cross_entropy(mesh, axis_name: str = "tensor",
         positions.append(int(np.ravel_multi_index(coord, grid)))
 
     def loss(h, w, targets):
-        if w.sharding.spec != PartitionSpec(None, axis_name):
+        # a PartitionSpec is a tuple: compared as one, with no import of
+        # the parallel layer above this one
+        if tuple(w.sharding.spec) != (None, axis_name):
             raise ValueError(f"the lm head must be split on its vocab "
                              f"dimension over {axis_name!r} alone, not "
                              f"{w.sharding.spec}")

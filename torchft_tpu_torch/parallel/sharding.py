@@ -35,6 +35,8 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 
+from torchft_tpu_torch.utils.serialization import register_tensor_leaf
+
 __all__ = [
     "NamedSharding",
     "PartitionSpec",
@@ -231,6 +233,9 @@ class ShardedTensor:
     def __repr__(self) -> str:
         return (f"ShardedTensor(shape={self.shape}, dtype={self.dtype}, "
                 f"spec={self.sharding.spec}, pieces={len(self.pieces)})")
+
+
+register_tensor_leaf(ShardedTensor)
 
 
 def replicated(mesh) -> NamedSharding:

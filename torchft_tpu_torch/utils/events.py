@@ -7,8 +7,8 @@ happened when": a discarded step, a heal, a latched error, a broken lease
 each leave one structured event. The Manager owns
 one recorder per process (``manager.events``).
 
-Event vocabulary of the port (``EVENT_KINDS``, a subset of the JAX
-package's, with the same fields):
+Event vocabulary of the port (``EVENT_KINDS``, the JAX package's, with
+the same fields and in its order):
 
     quorum_start / quorum_complete   the async quorum RPC
     step_commit / step_discard       the commit barrier, or a fast-path
@@ -16,11 +16,23 @@ package's, with the same fields):
     heal_start / heal_done           heal assignment -> healed state applied
     round_abort                      a LocalSGD/DiLoCo round rolled back
     error_latched                    first latch of an error episode
+    member_dead                      the MPMD plane saw a stage replica die
     mesh_reconfigure / mesh_compile  the device plane's group and plans
     hier_exchange                    the hierarchical tier's roles
+    shard_grid_rebuild / reshard     the sharded update's grid and its
+                                     redistribution
+    redist_plan                      a redistribution plan was compiled
+    fused_step                       one step of the fused HSDP engine
+    microbatch_send / _recv          the MPMD plane's frames
+    stage_rebalance                  the MPMD plane moved layers
     lease_break                      the epoch lease broke (``reason``)
     job_preempted                    the lighthouse evicted this group
                                      (``job_id``; epoch = membership epoch)
+    deploy_publish / deploy_start / deploy_done
+                                     the train-to-serve plane's deploys
+    serve_flip / serve_reroute / serve_join
+                                     a serving replica's version flip, a
+                                     re-routed request, a join or rejoin
 
 Every event is stamped with a process-monotonic sequence number, wall and
 monotonic clocks, the replica_id/rank, and the step and quorum epoch when
@@ -51,11 +63,25 @@ EVENT_KINDS = (
     "heal_done",
     "round_abort",
     "error_latched",
+    "member_dead",
     "mesh_reconfigure",
     "mesh_compile",
     "hier_exchange",
+    "shard_grid_rebuild",
+    "reshard",
+    "redist_plan",
+    "fused_step",
+    "microbatch_send",
+    "microbatch_recv",
+    "stage_rebalance",
     "lease_break",
     "job_preempted",
+    "deploy_publish",
+    "deploy_start",
+    "deploy_done",
+    "serve_flip",
+    "serve_reroute",
+    "serve_join",
 )
 
 

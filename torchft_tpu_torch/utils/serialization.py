@@ -28,16 +28,27 @@ from typing import Any, List, Tuple
 import numpy as np
 import torch
 
-from torchft_tpu_torch.parallel.sharding import ShardedTensor
+__all__ = ["dtype_from_str", "dtype_str", "is_tensor_leaf",
+           "register_tensor_leaf", "to_host", "tree_flatten_with_path",
+           "tree_unflatten"]
 
-__all__ = ["dtype_from_str", "dtype_str", "is_tensor_leaf", "to_host",
-           "tree_flatten_with_path", "tree_unflatten"]
+# The leaf types whose bytes ride the tensor wire. ``parallel/sharding.py``
+# registers ``ShardedTensor`` as it loads: utils sits below parallel and
+# imports none of it, and a sharded leaf cannot exist before its module.
+_TENSOR_TYPES: Tuple[type, ...] = (torch.Tensor, np.ndarray)
+
+
+def register_tensor_leaf(cls: type) -> None:
+    """Count instances of ``cls`` as tensor leaves."""
+    global _TENSOR_TYPES
+    if cls not in _TENSOR_TYPES:
+        _TENSOR_TYPES = _TENSOR_TYPES + (cls,)
 
 
 def is_tensor_leaf(x: Any) -> bool:
     """A leaf whose bytes ride the tensor wire (a torch tensor, a numpy
     array or a ``ShardedTensor``); every other leaf is an object leaf."""
-    return isinstance(x, (torch.Tensor, np.ndarray, ShardedTensor))
+    return isinstance(x, _TENSOR_TYPES)
 
 
 def _keys(x: dict) -> list:
