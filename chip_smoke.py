@@ -74,8 +74,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    device memory (``multijob_device_bytes``; hi0 runs at "tiny" if it
    does not fit) and the host's (``multijob_host_bytes``); it runs before
    the phases that keep the card plane's buffers, with six models to hold.
-5. train_sharded: the reference example's two remaining arms at "125m",
-   full width and depth, batch 8. (b) ``SHARDED=1``: three groups over TCP
+5. train_sharded: the reference example's two remaining arms at "125m"'s
+   full width, its depth cut from 12 to ``CUT_LAYERS`` = 6 to keep the
+   script under 900 s, batch 8. (b) ``SHARDED=1``: three groups over TCP
    at codec none through ``ShardedOptimizerWrapper`` (reduce-scatter, a
    1/3 update with optax-order ``adamw(3e-4)``, weight decay 1e-4, a
    params allgather); g0 is killed after step 3, g1 and g2 commit 4 on a
@@ -88,9 +89,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    must equal, bitwise, the same steps of the wrapper's replicated arm
    (``sharded=False``). (a) DDP's streamed pipeline against its lock-step
    arm: two groups on the card's int8 psum plane with error feedback, the
-   same seeds and batches, 3 steps each; the averaged gradients and the
+   same seeds and batches, 2 steps each (``SHARDED_AB_STEPS``, cut from 3
+   to keep the script under 900 s); the averaged gradients and the
    residuals must be bitwise equal after every step. (c) the sharded arm on
-   the same plane, two groups, 3 steps: the groups bitwise equal, and each
+   the same plane, two groups, 2 steps: the groups bitwise equal, and each
    codec kernel launched once per reduce_scatter (the native scatter of
    the two owned shard buckets). Every flash kernel launched 12 x the
    passes of all runs. It checks the device memory first
@@ -126,8 +128,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    equal to its donor), the losses finite, and every flash kernel launched
    12 x (inner steps + capture warm-up passes) times. It prints the outer
    sync's phase p50s and gauges, the round times and the heal.
-10. train_localsgd_int8: BASELINE config 3's shape, LocalSGD at "125m",
-   full width and depth, batch 8, four groups on the on-device plane
+10. train_localsgd_int8: BASELINE config 3's shape, LocalSGD at "125m"'s
+   full width, its depth cut to ``CUT_LAYERS`` = 6 to keep the script
+   under 900 s, batch 8, four groups on the on-device plane
    (``comm_backend="cuda"``, psum, int8, error feedback on),
    ``sync_every=8``, 2 fragments. Every group commits round 1; in round 2
    group 3's second fragment op fails after its collective ran (its round
@@ -138,8 +141,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a peer. Round 1's fragment averages on the card must equal the same
    plane on the CPU bitwise. It first checks the host's free memory
    (``localsgd_host_bytes``).
-11. train_hier_int8: the hierarchical data plane at "125m", full width and
-   depth, batch 8: four groups in two domains (``HIER_DOMAINS``: rack0 =
+11. train_hier_int8: the hierarchical data plane at "125m"'s full width,
+   its depth cut to ``CUT_LAYERS`` = 6 to keep the script under 900 s,
+   batch 8: four groups in two domains (``HIER_DOMAINS``: rack0 =
    {g0, g1}, rack1 = {g2, g3}) over ``TcpCommContext(algorithm="star",
    compression="int8", topology="hier")``, 4 lanes, 1 MiB chunks, DDP with
    error feedback, each group's domain resolved through a
@@ -160,8 +164,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``HIER_PSUM_TOL`` x absmax of the f64 sum; the codec kernels must have
    launched 3 times each per distinct size (star 2, psum 1). It first
    checks the host's free memory (``hier_host_bytes``).
-12. train_durable: the reference training loop whole, at "125m" full width
-   and depth, batch 8, over TCP under a lighthouse granting 2 s epoch
+12. train_durable: the reference training loop whole, at "125m"'s full
+   width, its depth cut to ``CUT_LAYERS`` = 6 to keep the script under
+   900 s (the fused-vs-eager check after it stays at full depth), batch
+   8, over TCP under a lighthouse granting 2 s epoch
    leases (``run_resume_drill``): group 0 commits 3 steps alone, each a
    fused step replaying one CUDA graph; group 1 starts from a poisoned
    init and heals; both commit 4 steps together, the steady ones on the
@@ -175,15 +181,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    equal at every step both commit, the losses finite, and every flash
    kernel launched once per layer per pass, graph replays (the capture's
    tally) and the capture's warm-up passes included. It first checks the
-   disk (``durable_disk_bytes``, 9.8 GB at 125m) and fails if short.
+   disk (``durable_disk_bytes``, 6.7 GB at 6 layers) and fails if short.
    Then the fused step against the same step run eagerly, bitwise after 3
    steps, and the device time of each.
 
 13. train_moe (it runs after train_sharded, before the phases that keep
    the card plane's buffers): the reference's ``examples/train_moe.py`` at
-   "moe-8x125m" (334,308,864 parameters; 12 layers of the 125m backbone,
-   8 top-2 experts with capacity factor 1.25 on every other layer,
-   activation checkpointing on), full width and depth, batch 8 x 1024,
+   "moe-8x125m" at full width, its depth cut from 12 to ``CUT_LAYERS`` =
+   6 to keep the script under 900 s (192,714,240 parameters; 6 layers of
+   the 125m backbone, 8 top-2 experts with capacity factor 1.25 on every
+   other layer, activation checkpointing on), batch 8 x 1024,
    over TCP at codec none, AdamW (3e-4, weight decay 1e-4):
    ``run_moe_drill``, two replica groups of two ranks each, every rank
    holding the whole model (the reference's expert axis of width 1).
@@ -204,8 +211,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``moe_device_bytes``) and the host's (``moe_host_bytes``).
 
 14. train_diloco_sharded (it runs after train_diloco): DiLoCo's outer
-   update sharded by fragment (``sharded_outer=True``) at "125m", full
-   width and depth, batch 8 x 1024: three groups as threads over loopback
+   update sharded by fragment (``sharded_outer=True``) at "125m"'s full
+   width, its depth cut from 12 to ``CUT_LAYERS`` = 6 layers to
+   keep the script under 900 s (93,605,376 parameters), batch 8 x 1024:
+   three groups as threads over loopback
    TCP at codec none, group 2's wire in a ``SubprocessCommContext`` child
    (``check_comm_child`` first shows such a child holds no CUDA context),
    ``sync_every=8``, 3 fragments, outer ``sgd(0.7, momentum=0.9,
@@ -225,7 +234,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every group reconfigures and the stopped child is SIGKILLed and
    replaced; all three commit the retried round and round 6. After every
    committed round the live groups hold each fragment's momentum exactly
-   once; every flash kernel launched 12 x the passes of both arms. It
+   once; every flash kernel launched 6 x the passes of both arms. It
    prints the five checks, per group and life the p50s of ``outer_d2h``,
    ``outer_wire``, ``outer_land`` and ``reshard``, the ``reshard``
    events, round seconds, the heal's wall and GB/s, the drill's seconds
@@ -273,10 +282,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    are measured, its link is not.
 
 16. train_hsdp (it runs after train_llama_ring): the reference's
-   ``examples/train_hsdp.py`` at "1b" (1,346,572,288 parameters; 24
-   layers, d_model 2048, 16 heads of 128, d_ff 8192, vocab 32768, seq
-   2048, activation checkpointing on, the loss over 8 vocab chunks a
-   shard), full width and depth, batch 8, each replica group's GPT
+   ``examples/train_hsdp.py`` at "1b"'s full width, its depth cut from 24
+   to ``CUT_LAYERS`` = 6 layers to keep the script under 900 s
+   (440,455,168 parameters; d_model 2048, 16 heads of 128, d_ff 8192,
+   vocab 32768, seq 2048, activation checkpointing on, the loss over 8
+   vocab chunks a shard), batch 8, each replica group's GPT
    sharded over a virtual mesh ``{"fsdp": 2, "tensor": 2}`` of the card
    (``models.transformer.ShardedGPT``: the batch over fsdp, fsdp gathers
    inside the remat region, Megatron's column and row splits, the
@@ -296,8 +306,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    moments) of each group must equal the other's bitwise at every step
    both commit, every healed leaf must carry the healer's sharding, the
    heal's wire bytes must equal its state's (no region fetched twice),
-   the losses finite, the flash kernels launched per pass 2 x 96 forward
-   and 96 of each backward (24 layers x 4 positions, remat) and no codec
+   the losses finite, the flash kernels launched per pass 2 x 24 forward
+   and 24 of each backward (6 layers x 4 positions, remat) and no codec
    kernel. It prints the step p50s (``quorum``, ``forward_backward``,
    ``ddp_wire``), committed steps and tokens/s, the heal's wall and rate,
    the bytes of pieces per position, the flash kernels' device ms per
@@ -306,9 +316,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``hsdp_device_bytes``).
 
 17. train_moe_expert (it runs after train_hsdp): the reference's
-   ``examples/train_moe.py`` with its expert axis, at "moe-8x125m"
-   (334,308,864 parameters; remat on, 8 experts, capacity factor 1.25),
-   full width and depth, batch 8 x 1024, each replica group's model a
+   ``examples/train_moe.py`` with its expert axis, at "moe-8x125m" at full
+   width, its depth cut from 12 to ``CUT_LAYERS`` = 6 to keep the script
+   under 900 s (192,714,240 parameters; remat on, 8 experts, capacity
+   factor 1.25), batch 8 x 1024, each replica group's model a
    ``ShardedMoETransformer`` over a virtual mesh ``MOE_EXPERT_AXES`` =
    ``{"expert": 4, "data": 2}`` of the card (the reference test's mesh):
    the experts' ``up``/``down`` split 2 a position by ``moe_rules()``, the
@@ -451,6 +462,46 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the moved bytes and their lower bound, the answers per second, the peak
    device memory and the card.
 
+23. train_proc (it runs before train_durable): replica groups as real OS
+   processes (``examples.train_ddp.run_process_drill``) at "125m", full
+   width and depth, batch 8, over TCP at codec none: two groups, each
+   spawned (never forked: this process holds a CUDA context) with the
+   environment ``launcher.hsdp_spec`` writes for it (manager ports 29600
+   + i, store ports 29700 + i, when free), under a lighthouse in this
+   process. Both commit 1-3; group 0 begins step 4 and is SIGKILLed (its
+   manager server, store, checkpoint server, sockets and CUDA context
+   together); group 1 latches, commits 4-5 alone and waits in its commit
+   hook for the relaunch; group 0 relaunches as a fresh process from a
+   poisoned init on the same ports, heals from group 1 over HTTP at 6,
+   and both commit 6-9. Checks: the parameter digests equal at every step
+   two lives commit; the relaunch's first commit after step 3 and healed;
+   no two-participant commit of group 1 in the dead window; finite
+   losses; each life's flash launches (counted in the child) 12 x its
+   passes, none in this process; the card's free memory back within 1
+   GiB once the victim is reaped (of its value before the groups less
+   the survivor's share) and after the drill; each child's peak within
+   ``proc_child_bytes`` (one parameters + gradients + AdamW footprint, its
+   activations and graph pools) and at rest after every commit at most
+   one footprint. It prints the kill-to-heal timeline (reap, survivor
+   latch, solo commits, the relaunch's spawn, CUDA init, kernel load and
+   model build, the heal's bytes and seconds, the first joint commit),
+   the memory readings and each life's figures. It first checks the
+   device memory (``train_proc_device_bytes``) and the host's
+   (``proc_host_bytes``).
+24. dryrun_multichip: ``graft_entry.dryrun_multichip(8)`` on 8 virtual
+   positions of the card (the reference driver's count): the dp x fsdp x
+   tp step of ``ShardedGPT`` at "tiny" and the vocab-parallel cross
+   entropy, the flash ring over seq 8 (shards of 64 tokens), the
+   expert-parallel MoE block and the MoE transformer over tensor 2 x
+   expert 4, GPipe, 1F1B and interleaved 1F1B over 8 stages, each within
+   ``graft_entry.DRYRUN_TOL`` of its unsharded counterpart, and the FT
+   loop (2 groups of 2 ranks of 2 positions, a spare, an observer, a kill
+   and a sharded heal); each segment's flash launches as
+   ``dryrun_launches`` says. Then ``graft_entry.entry()`` at "125m": its
+   logits against the same model with ``reference_attention`` (the loss
+   within ``LOSS_TOL``, the logits within ``GRAD_REL_NORM``) and the
+   forward's time.
+
 It prints a ``kernels`` JSON line before the last line and ends with
 ``{"ok": true, "device": {...}}``. It needs one card and no network.
 """
@@ -496,6 +547,22 @@ INT8_OPTIONS = {"algorithm": "psum", "compression": "int8"}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# the depth of the phases cut to keep the script under 900 s at full
+# width: train_sharded, train_moe, train_hsdp, train_moe_expert,
+# train_diloco_sharded, train_localsgd_int8, train_hier_int8 and
+# train_durable
+CUT_LAYERS = 6
+
+
+def cut_depth(cfg, layers: int = CUT_LAYERS):
+    """``cfg`` with at most ``layers`` layers: a phase's depth cut, which
+    leaves a config already that shallow (the CPU tests' "tiny") as it
+    is."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, n_layers=min(cfg.n_layers, layers))
 
 
 # How every time of the kernels line was taken; each row carries it.
@@ -1877,10 +1944,10 @@ HSDP_PHASES = ("quorum", "forward_backward", "ddp_wire")
 
 
 def hsdp_config():
-    """"1b", full width and depth."""
+    """"1b" at full width, its depth cut to ``CUT_LAYERS``."""
     from torchft_tpu_torch.models import CONFIGS
 
-    return CONFIGS["1b"]
+    return cut_depth(CONFIGS["1b"])
 
 
 def hsdp_positions() -> int:
@@ -2263,7 +2330,7 @@ def phase_train_moe_expert(seed: int, card: str,
     from torchft_tpu_torch.ops import flash, quant
 
     t0 = time.perf_counter()
-    cfg = MOE_CONFIGS["moe-8x125m"]
+    cfg = cut_depth(MOE_CONFIGS["moe-8x125m"])
     n_params = sum(math.prod(s) for s in moe_param_shapes(cfg).values())
     positions = moe_expert_positions()
     need_host = hsdp_host_bytes(n_params)
@@ -2277,7 +2344,8 @@ def phase_train_moe_expert(seed: int, card: str,
         raise AssertionError(f"train_moe_expert needs {need / 1e9:.2f} GB of "
                              f"device memory free, has {free / 1e9:.2f} GB")
     shape = moe_expert_attention_shape(cfg, batch)
-    log(f"  moe-8x125m: {n_params} parameters, {cfg.num_experts} experts "
+    log(f"  moe-8x125m at {cfg.n_layers} layers: {n_params} parameters, "
+        f"{cfg.num_experts} experts "
         f"(capacity factor {cfg.capacity_factor}) on every "
         f"{cfg.moe_every}nd layer of {cfg.n_layers}, remat {cfg.remat}, "
         f"batch {batch} x {cfg.max_seq_len}; mesh {MOE_EXPERT_AXES} of "
@@ -3864,7 +3932,8 @@ def durable_report(result: dict, batch: int, seq: int, card: str) -> list:
 
 
 def phase_train_durable(seed: int, card: str, batch: int = 8):
-    """run_resume_drill at "125m", full width and depth, over TCP under a
+    """run_resume_drill at "125m"'s full width, its depth cut to
+    ``CUT_LAYERS``, over TCP under a
     lease_ms=2000 lighthouse, checkpoints in a temporary directory that is
     removed; returns the flash launches it must have made (one per layer
     per pass, graph replays and capture warm-ups included) and the
@@ -3875,13 +3944,13 @@ def phase_train_durable(seed: int, card: str, batch: int = 8):
     from torchft_tpu_torch.examples.train_ddp import run_resume_drill
     from torchft_tpu_torch.models import CONFIGS, GPT, count_params
 
-    cfg = CONFIGS["125m"]
+    cfg = cut_depth(CONFIGS["125m"])
     n_params = count_params(GPT(cfg, device="meta"))
     directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         need = durable_disk_bytes(n_params)
         free = check_disk(directory, need)
-        log(f"  125m: {n_params} parameters; checkpoints under {directory}: "
+        log(f"  125m at {cfg.n_layers} layers: {n_params} parameters; checkpoints under {directory}: "
             f"up to {need / 1e9:.2f} GB, {free / 1e9:.1f} GB free")
         t0 = time.perf_counter()
         result = run_resume_drill(cfg, device="cuda", batch_size=batch,
@@ -4180,7 +4249,7 @@ def phase_train_diloco_sharded(seed: int, card: str, batch: int = 8):
     from torchft_tpu_torch.models import CONFIGS, GPT, count_params
 
     t0 = time.perf_counter()
-    cfg = CONFIGS["125m"]
+    cfg = cut_depth(CONFIGS["125m"])
     n_params = count_params(GPT(cfg, device="meta"))
     need_host = diloco_sharded_host_bytes(n_params)
     free_host = check_host_memory(need_host, what="train_diloco_sharded")
@@ -4196,7 +4265,8 @@ def phase_train_diloco_sharded(seed: int, card: str, batch: int = 8):
                 f"train_diloco_sharded needs {need / 1e9:.2f} GB of device "
                 f"memory free, has {free / 1e9:.2f} GB")
         torch.cuda.reset_peak_memory_stats()
-    log(f"  125m: {n_params} parameters, batch {batch}, 3 groups over TCP "
+    log(f"  125m at {cfg.n_layers} layers: {n_params} parameters, batch "
+        f"{batch}, 3 groups over TCP "
         f"at codec none (group 2's wire in a child), sync_every 8, 3 "
         f"fragments, wire timeout {DILOCO_WIRE_TIMEOUT} s; host memory: up "
         f"to {need_host / 1e9:.2f} GB, {free_host / 1e9:.1f} GB available; "
@@ -4367,11 +4437,11 @@ def phase_train_localsgd_int8(seed: int, card: str, batch: int = 8):
     from torchft_tpu_torch.examples.train_diloco import run_diloco_drill
     from torchft_tpu_torch.models import CONFIGS, GPT, count_params
 
-    cfg = CONFIGS["125m"]
+    cfg = cut_depth(CONFIGS["125m"])
     n_params = count_params(GPT(cfg, device="meta"))
     need = localsgd_host_bytes(n_params)
     free = check_host_memory(need)
-    log(f"  125m: {n_params} parameters, batch {batch}, {LOCALSGD_GROUPS} "
+    log(f"  125m at {cfg.n_layers} layers: {n_params} parameters, batch {batch}, {LOCALSGD_GROUPS} "
         f"groups on the cuda plane {INT8_OPTIONS}; host memory: up to "
         f"{need / 1e9:.2f} GB, {free / 1e9:.1f} GB available")
     t0 = time.perf_counter()
@@ -4631,7 +4701,7 @@ def phase_train_moe(seed: int, card: str, batch: int = 8):
     )
 
     t0 = time.perf_counter()
-    cfg = MOE_CONFIGS["moe-8x125m"]
+    cfg = cut_depth(MOE_CONFIGS["moe-8x125m"])
     n_params = count_params(MoETransformer(cfg, device="meta"))
     need_host = moe_host_bytes(n_params)
     free_host = check_host_memory(need_host, what="train_moe")
@@ -4642,7 +4712,8 @@ def phase_train_moe(seed: int, card: str, batch: int = 8):
     if free < need:
         raise AssertionError(f"train_moe needs {need / 1e9:.2f} GB of device "
                              f"memory free, has {free / 1e9:.2f} GB")
-    log(f"  moe-8x125m: {n_params} parameters, {cfg.num_experts} experts "
+    log(f"  moe-8x125m at {cfg.n_layers} layers: {n_params} parameters, "
+        f"{cfg.num_experts} experts "
         f"(capacity factor {cfg.capacity_factor}) on every "
         f"{cfg.moe_every}nd layer of {cfg.n_layers}, remat {cfg.remat}, "
         f"batch {batch} x {cfg.max_seq_len}; 2 groups x {MOE_RANKS} ranks "
@@ -4674,7 +4745,7 @@ def phase_train_moe(seed: int, card: str, batch: int = 8):
 SHARDED_GROUPS = 3
 # the drill: (kill_step, steps_alone, steps_after, kill_group)
 SHARDED_SCHEDULE = (3, 1, 2, 0)
-SHARDED_AB_STEPS = 3
+SHARDED_AB_STEPS = 2  # cut from 3 to keep the script under 900 s
 SHARDED_PHASES = ("quorum", "forward_backward", "opt_update", "reshard",
                   "commit_barrier")
 DDP_STAGES = ("ddp_d2h", "ddp_ef", "ddp_wire", "ddp_h2d", "ddp_wire_total",
@@ -4795,7 +4866,7 @@ def phase_train_sharded(seed: int, card: str, batch: int = 8):
     from torchft_tpu_torch.models import CONFIGS, GPT, count_params
 
     t0 = time.perf_counter()
-    cfg = CONFIGS["125m"]
+    cfg = cut_depth(CONFIGS["125m"])
     n_params = count_params(GPT(cfg, device="meta"))
     act = gpt_activation_bytes(cfg, batch)
     need = sharded_device_bytes(n_params, act)
@@ -4803,7 +4874,8 @@ def phase_train_sharded(seed: int, card: str, batch: int = 8):
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info()[0]
     held = torch.cuda.memory_allocated()
-    log(f"  125m: {n_params} parameters, batch {batch}; device memory: up "
+    log(f"  125m at {cfg.n_layers} layers: {n_params} parameters, batch "
+        f"{batch}; device memory: up "
         f"to {need / 1e9:.2f} GB, {free / 1e9:.1f} GB free ({held / 1e9:.2f}"
         f" GB held by earlier phases)")
     if free < need:
@@ -5120,11 +5192,11 @@ def phase_train_hier_int8(seed: int, card: str, batch: int = 8):
     from torchft_tpu_torch.examples.train_ddp import run_kill_and_heal
     from torchft_tpu_torch.models import CONFIGS, GPT, count_params
 
-    cfg = CONFIGS["125m"]
+    cfg = cut_depth(CONFIGS["125m"])
     n_params = count_params(GPT(cfg, device="meta"))
     need = hier_host_bytes(n_params)
     free = check_host_memory(need, what="train_hier_int8")
-    log(f"  125m: {n_params} parameters, batch {batch}, 4 groups in "
+    log(f"  125m at {cfg.n_layers} layers: {n_params} parameters, batch {batch}, 4 groups in "
         f"domains {HIER_DOMAINS} over TCP {HIER_OPTIONS}; host memory: up "
         f"to {need / 1e9:.2f} GB, {free / 1e9:.1f} GB available")
     k, s_alone, after, killed, record_step = HIER_SCHEDULE
@@ -5596,6 +5668,274 @@ def phase_serve_deploy(seed: int, card: str, device: str = "cuda"):
     return counts, want, cfg.head_dim
 
 
+# train_proc: replica groups as OS processes at 125m (run_process_drill)
+PROC_BATCH = 8
+# one CUDA context with cuBLAS's workspace and the kernels' module, reckoned
+PROC_CONTEXT_BYTES = 1 << 30
+PROC_PORTS = (29600, 29700)  # the launcher's defaults: manager, store
+# a child's device bytes at rest beyond its parameters, gradients and
+# moments: DDP's buckets and the step's small tensors (92.7 MiB measured
+# at 125m on the H100); a second parameters + AdamW footprint is 1.63 GB
+PROC_REST_SLACK = 256 << 20
+
+
+def proc_child_bytes(n_params: int, act: int, graphs: int = 0) -> int:
+    """Device memory one train_proc child may allocate: its f32
+    parameters, gradients and two AdamW moments (16 bytes a parameter),
+    one pass's activations, and the private pool of each CUDA graph it
+    captured (one pass's activations). A second parameters + AdamW
+    footprint (12 bytes a parameter) is not in it."""
+    return 16 * n_params + act * (1 + graphs)
+
+
+def train_proc_device_bytes(n_params: int, act: int) -> int:
+    """Device memory train_proc may hold at once: two children (the victim
+    or the relaunch, and the survivor with the graph of its solo steps),
+    each with a CUDA context."""
+    return (proc_child_bytes(n_params, act)
+            + proc_child_bytes(n_params, act, graphs=1)
+            + 2 * PROC_CONTEXT_BYTES)
+
+
+def proc_host_bytes(n_params: int, groups: int = 2) -> int:
+    """Host memory train_proc may hold at once, in f32 copies of the
+    parameters: per child the DDP staging arena, the wire's buffers and
+    scratch (4); once, the heal's staged state on both ends (6)."""
+    return (groups * 4 + 6) * 4 * n_params
+
+
+PROC_PHASES = ("quorum", "forward_backward", "ddp_wire", "commit_barrier")
+_LIFE = {(0, 0): "group 0 (killed)", (1, 0): "group 1 (survivor)",
+         (0, 1): "group 0 (relaunch)"}
+
+
+def proc_report(result: dict, n_params: int, act: int, card: str) -> list:
+    """The lines train_proc prints about a ``run_process_drill`` result:
+    the kill-to-heal timeline, the card's memory through it, and each
+    life's passes, launches, peak memory and phase p50s."""
+    tl, mem = result["timeline"], result["memory"]
+    su = tl["relaunch_startup"]
+    latch = tl["survivor_latch_s"]
+    lines = [
+        f"kill-to-heal, seconds from the SIGKILL of group 0 in its step "
+        f"{max(result['commits'][(0, 0)]) + 1}: reaped {tl['reap_s']:.3f}; survivor latch "
+        + (f"{latch:.3f}" if latch is not None else "none (its next quorum "
+           "formed without the dead peer)")
+        + f"; solo commits {[round(t, 3) for t in tl['solo_commit_s']]}; "
+        f"relaunch spawned at {tl['relaunch_after_kill_s']:.3f}, its "
+        f"interpreter and imports {tl['relaunch_spawn_s']:.2f}, CUDA init "
+        f"{su.get('cuda_init_s', 0):.2f}, kernel load "
+        f"{su.get('kernel_load_s', 0):.3f}, model build "
+        f"{su.get('model_build_s', 0):.2f} (model, optimizer, manager): "
+        f"started {tl['relaunch_started_s']:.2f} after its spawn; heal at "
+        f"step {result['heal_step']}: "
+        f"{tl['heal'].get('heal_wire_bytes', 0):.0f} bytes in "
+        f"{tl['heal'].get('heal_wall_ms', 0):.1f} ms "
+        f"({tl['heal'].get('heal_bytes_per_s', 0) / 1e9:.3f} GB/s); first "
+        f"joint commit {tl['first_joint_commit_s']:.2f} ({card})"]
+    if mem:
+        lines.append(
+            f"card free memory: {mem['before'] / 1e9:.3f} GB before the "
+            f"groups, {mem['at_kill'] / 1e9:.3f} at the kill, "
+            f"{mem['after_kill'] / 1e9:.3f} after the reap (want "
+            f"{mem['want_after_kill'] / 1e9:.3f} - 1 GiB; survivor's share "
+            f"{mem['survivor_share'] / 1e9:.3f}, a context "
+            f"{mem['context'] / 1e9:.3f}), reclaimed in "
+            f"{mem['reclaim_s']:.2f} s; {mem['after'] / 1e9:.3f} after the "
+            f"drill ({card})")
+    for key, name in _LIFE.items():
+        commits = result["commits"].get(key, {})
+        rest = [c["allocated"] for c in commits.values()]
+        done = result["done"].get(key, (None, {}))[1]
+        graphs = done.get("captures", 0)
+        peak = result["peaks"].get(key)
+        lines.append(
+            f"{name}: committed {min(commits)}-{max(commits)}, "
+            f"{result['passes'][key]} passes, flash launches "
+            f"{result['launches'][key]}, graphs {graphs}"
+            + (f", peak {peak / 1e9:.3f} GB allocated (reckoned "
+               f"{proc_child_bytes(n_params, act, graphs) / 1e9:.3f}; a "
+               f"second parameters + AdamW footprint is "
+               f"{12 * n_params / 1e9:.3f}), at rest after commits "
+               f"{min(rest) / 1e9:.3f}-{max(rest) / 1e9:.3f} GB"
+               if peak is not None else "")
+            + (f", phase p50 ms {_p50s(done['metrics'], PROC_PHASES)}"
+               if done else ""))
+    lines.append(f"drill {result['seconds']:.1f} s ({card})")
+    return lines
+
+
+def check_proc_memory(result: dict, n_params: int, act: int) -> None:
+    """Each child's peak within its reckoning (``proc_child_bytes``: one
+    parameters + gradients + AdamW footprint, its activations and graph
+    pools), and at rest after every commit at most one footprint of
+    parameters, gradients and moments (16 bytes a parameter) beside its
+    graph pools and ``PROC_REST_SLACK``: no commit left a second
+    parameters + AdamW footprint behind."""
+    for key, name in _LIFE.items():
+        graphs = result["done"].get(key, (None, {}))[1].get("captures", 0)
+        peak = result["peaks"][key]
+        want = proc_child_bytes(n_params, act, graphs)
+        _require(peak <= want, f"{name}: peak {peak} bytes allocated, "
+                 f"reckoned {want}")
+        rest = max(c["allocated"] for c in result["commits"][key].values())
+        bound = 16 * n_params + graphs * act + PROC_REST_SLACK
+        _require(rest <= bound, f"{name}: {rest} bytes allocated after a "
+                 f"commit, more than one footprint ({bound})")
+
+
+def phase_train_proc(seed: int, card: str, batch: int = PROC_BATCH):
+    """Replica groups as OS processes (module docstring, phase 23):
+    returns the children's flash launches, those the schedule wants, and
+    the head_dim."""
+    import torch
+
+    from torchft_tpu_torch.examples.train_ddp import run_process_drill
+    from torchft_tpu_torch.models import CONFIGS, GPT, count_params
+
+    t0 = time.perf_counter()
+    cfg = CONFIGS["125m"]
+    n_params = count_params(GPT(cfg, device="meta"))
+    free_host = check_host_memory(proc_host_bytes(n_params),
+                                  what="train_proc")
+    act = gpt_activation_bytes(cfg, batch)
+    need = train_proc_device_bytes(n_params, act)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    if free < need:
+        raise AssertionError(f"train_proc needs {need / 1e9:.2f} GB of "
+                             f"device memory free, has {free / 1e9:.2f} GB")
+    log(f"  125m: {n_params} parameters, batch {batch}, two groups as OS "
+        f"processes (spawn) over TCP at codec none; device memory: up to "
+        f"{need / 1e9:.2f} GB, {free / 1e9:.1f} GB free; host memory "
+        f"{free_host / 1e9:.1f} GB available")
+    result = run_process_drill(
+        cfg, device="cuda", batch_size=batch, seed=seed, timeout=120.0,
+        base_manager_port=PROC_PORTS[0], base_store_port=PROC_PORTS[1],
+        log=lambda m: log("  " + m))
+    for line in proc_report(result, n_params, act, card):
+        log("  " + line)
+    check_proc_memory(result, n_params, act)
+    counts = {k: sum(c[k] for c in result["launches"].values())
+              for k in FLASH_KERNELS}
+    want = cfg.n_layers * sum(result["passes"].values())
+    log(f"  phase {time.perf_counter() - t0:.1f} s ({card})")
+    return counts, dict.fromkeys(FLASH_KERNELS, want), cfg.head_dim
+
+
+# dryrun_multichip: the driver entry's twin on a virtual mesh of the card
+DRYRUN_POSITIONS = 8  # the reference driver's count
+ENTRY_CALLS = 5       # timed forwards of entry()'s fn
+
+
+def dryrun_launches(n: int) -> dict:
+    """Each segment's flash launches in ``dryrun_multichip(n)`` ("tiny",
+    2 layers, no remat): the sharded step one attention per layer per
+    position, the ring its pairs per layer, the MoE transformer one per
+    layer per position, and each unsharded counterpart one per layer."""
+    from torchft_tpu_torch.parallel import ring_launches
+
+    layers = 2
+    dense = hsdp_launches(1, layers, 1, remat=False)
+    ring = {k: v * layers + dense[k]
+            for k, v in ring_launches(n, causal=True).items()}
+    sharded = {k: v + dense[k] for k, v in
+               hsdp_launches(1, layers, n, remat=False).items()}
+    zero = dict.fromkeys(FLASH_KERNELS, 0)
+    return {"step": sharded, "vocab": zero, "ring": ring, "moe": sharded,
+            "pipeline": zero, "ft": zero}
+
+
+def check_entry(card: str, calls: int = ENTRY_CALLS,
+                device: str = "cuda") -> dict:
+    """``graft_entry.entry()`` at "125m" on the card (or ``device``):
+    ``calls`` timed forwards of its fn (CUDA events on the card, after one
+    warm call), and its logits held against the same model with
+    ``reference_attention``: the loss of the logits within ``LOSS_TOL`` and
+    the logits within ``GRAD_REL_NORM`` (relative norm of the difference).
+    Returns its flash launches."""
+    import torch
+
+    from torchft_tpu_torch.graft_entry import entry
+    from torchft_tpu_torch.models import transformer
+    from torchft_tpu_torch.ops import attention, flash
+
+    fn, (params, tokens) = entry(device)
+    before = dict(flash.LAUNCHES)
+    with torch.no_grad():
+        logits = fn(params, tokens)
+        _, device_ms, wall_ms = timed_step(
+            lambda _: [fn(params, tokens) for _ in range(calls)], None,
+            device == "cuda")
+        ms = (wall_ms if device_ms is None else device_ms) / calls
+        launches = {k: flash.LAUNCHES[k] - before[k] for k in before}
+        kernel_attention = transformer.causal_attention
+        transformer.causal_attention = attention.reference_attention
+        try:
+            ref = fn(params, tokens)
+        finally:
+            transformer.causal_attention = kernel_attention
+    if {k: flash.LAUNCHES[k] - before[k] for k in before} != launches:
+        raise AssertionError("the reference model launched a flash kernel")
+    tgt = torch.roll(tokens.long(), -1, dims=1)
+
+    def ce(x):
+        return float(torch.nn.functional.cross_entropy(
+            x.reshape(-1, x.shape[-1]), tgt.reshape(-1)))
+
+    loss, ref_loss = ce(logits), ce(ref)
+    rel = float((logits.double() - ref.double()).norm()
+                / ref.double().norm())
+    log(f"  entry(): logits {tuple(logits.shape)} {logits.dtype}; loss "
+        f"{loss:.6f} against {ref_loss:.6f} with reference_attention "
+        f"(|diff| {abs(loss - ref_loss):.3e}, tolerance {LOSS_TOL}); "
+        f"logits relative norm of the difference {rel:.3e} (tolerance "
+        f"{GRAD_REL_NORM}); forward {ms:.3f} ms a call over {calls} calls "
+        f"after a warm one ({card})")
+    if not (abs(loss - ref_loss) <= LOSS_TOL and rel <= GRAD_REL_NORM
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"entry()'s logits against reference_attention:"
+                             f" loss {loss} vs {ref_loss}, relative {rel}")
+    del params, logits, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dryrun_multichip(seed: int, card: str, n: int = DRYRUN_POSITIONS,
+                           device: str = "cuda") -> dict:
+    """``dryrun_multichip(n)`` on a virtual mesh of the card (or
+    ``device``), each segment's flash launches against ``dryrun_launches``
+    (none off the card), then ``check_entry``. Returns the flash launches
+    by head_dim."""
+    from torchft_tpu_torch.graft_entry import dryrun_multichip
+    from torchft_tpu_torch.models import CONFIGS
+
+    t0 = time.perf_counter()
+    result = dryrun_multichip(n, device)
+    want = dryrun_launches(n)
+    if device != "cuda":
+        want = {k: dict.fromkeys(v, 0) for k, v in want.items()}
+    for name, secs in result["seconds"].items():
+        log(f"  segment {name}: {secs:.2f} s, flash launches "
+            f"{result['launches'][name]} (want {want[name]}) "
+            f"{ {k: v for k, v in result['segments'][name].items() if k not in ('commits',)} }")
+        if result["launches"][name] != want[name]:
+            raise AssertionError(f"segment {name}: flash launches "
+                                 f"{result['launches'][name]}, want "
+                                 f"{want[name]}")
+    tiny = {k: sum(c[k] for c in result["launches"].values())
+            for k in FLASH_KERNELS}
+    entry_launches = check_entry(card, device=device)
+    fwd = CONFIGS["125m"].n_layers * (ENTRY_CALLS + 1)
+    if entry_launches != {"flash_fwd": fwd if device == "cuda" else 0,
+                          "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        raise AssertionError(f"entry()'s flash launches {entry_launches}")
+    log(f"  phase {time.perf_counter() - t0:.1f} s ({card})")
+    return {CONFIGS["tiny"].head_dim: tiny,
+            CONFIGS["125m"].head_dim: entry_launches}
+
+
 def _check_launches(counts, want, what: str) -> None:
     log(f"  kernel launches on the main path: {counts} (want {want})")
     if counts != want:
@@ -5609,7 +5949,7 @@ PHASES = ("kernels", "train", "train_multijob", "train_sharded",
           "train_moe_expert", "train_pp", "pipeline_plane", "fused_step",
           "train_resnet", "serve_deploy", "train_diloco",
           "train_diloco_sharded", "train_localsgd_int8", "train_hier_int8",
-          "train_durable")
+          "train_proc", "dryrun_multichip", "train_durable")
 
 
 def _add_launches(rows: dict, counts: dict, head_dim: int) -> None:
@@ -5869,6 +6209,31 @@ def main() -> int:
                         "flash: one per layer per pass; codec: the card "
                         "plane's hier arms at each distinct bucket size")
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
+    if "train_proc" in phases:
+        log("phase train_proc")
+        flash.reset_launch_counts()
+        quant.reset_launch_counts()
+        counts, want, head_dim = phase_train_proc(args.seed, smi)
+        parent = {**flash.LAUNCHES, **quant.LAUNCHES}
+        _check_launches(parent, dict.fromkeys(parent, 0),
+                        "this process drives the groups and launches none")
+        _check_launches(counts, want,
+                        "flash, counted in each child and posted with its "
+                        "commits: one per layer per pass of every life, the "
+                        "survivor's capture warm-ups included")
+        _add_launches(rows, counts, head_dim)
+    if "dryrun_multichip" in phases:
+        log("phase dryrun_multichip")
+        flash.reset_launch_counts()
+        quant.reset_launch_counts()
+        per_d = phase_dryrun_multichip(args.seed, smi)
+        counts = {**flash.LAUNCHES, **quant.LAUNCHES}
+        want = {n: sum(c[n] for c in per_d.values()) for n in flash.LAUNCHES}
+        _check_launches(counts, {**want, **dict.fromkeys(quant.LAUNCHES, 0)},
+                        "flash: each segment's, and entry()'s forwards; "
+                        "codec: none")
+        for head_dim, c in per_d.items():
+            _add_launches(rows, c, head_dim)
     if "train_durable" in phases:
         log("phase train_durable")
         flash.reset_launch_counts()

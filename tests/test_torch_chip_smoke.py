@@ -26,6 +26,7 @@ with narrow layers on the CPU. For ``serve_deploy``: the phase whole at
 wants), and its oracles failing a cohort that moves a stale shard.
 """
 
+import dataclasses
 import importlib.util
 import math
 import os
@@ -173,6 +174,7 @@ def test_flash_shapes_reach_every_head_dim() -> None:
                             "serve_deploy", "train_diloco",
                             "train_diloco_sharded",
                             "train_localsgd_int8", "train_hier_int8",
+                            "train_proc", "dryrun_multichip",
                             "train_durable")
     assert all(n in {k for k, v in GPT(CONFIGS["1b"], device="meta")
                      .named_parameters()} for n in smoke.GRAD_SAMPLE)
@@ -394,7 +396,11 @@ def test_hier_host_bytes_at_125m() -> None:
     # 4 groups x 4 f32 copies, the recorded step (8), the heal (6) and the
     # host oracle (4)
     assert smoke.hier_host_bytes(n) == (4 * 4 + 18) * 4 * n
-    assert smoke.PHASES.index("train_hier_int8") == len(smoke.PHASES) - 2
+    # the last of the training planes, before the process drill, the dry
+    # run and train_durable
+    assert smoke.PHASES.index("train_hier_int8") == len(smoke.PHASES) - 4
+    assert smoke.PHASES[-3:] == ("train_proc", "dryrun_multichip",
+                                 "train_durable")
 
 
 def test_hier_roles_follow_the_schedule() -> None:
@@ -574,9 +580,11 @@ def test_sharded_memory_and_launches_at_125m() -> None:
     # three groups' parameters and gradients, at a wire of 2 half the
     # moments and their staged update, and three groups' activations
     assert smoke.sharded_device_bytes(n, act) == 3 * (18 * n + act)
-    # the A/B arms: 2 arms x 2 launches x 15 DDP buckets x 3 steps; the
-    # card plane's sharded arm: one native scatter a step with a peer
-    assert smoke.sharded_expected_launches(15) == {"ab": 180, "sharded": 3}
+    # the A/B arms: 2 arms x 2 launches x 15 DDP buckets x 2 steps (cut
+    # from 3); the card plane's sharded arm: one native scatter a step
+    # with a peer
+    assert smoke.SHARDED_AB_STEPS == 2
+    assert smoke.sharded_expected_launches(15) == {"ab": 120, "sharded": 2}
     phases = smoke.PHASES
     assert phases.index("train_multijob") < phases.index("train_sharded") \
         < phases.index("train_cuda_int8")
@@ -609,10 +617,10 @@ def test_train_sharded_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
     smoke, lines = _tiny_sharded(monkeypatch)
     flash_launches, codec = smoke.phase_train_sharded(0, "CPU")
     text = "\n".join(lines)
-    # (b) 3 x 7 - 1 drill passes, 3 x 3 replicated; (a) 2 x 2 x 3; (c) 2 x 3
-    assert flash_launches == CONFIGS["tiny"].n_layers * (20 + 9 + 12 + 6)
-    # "tiny" has one DDP bucket: 2 x 2 x 1 x 3, then 3 sharded scatters
-    assert codec == 12 + 3
+    # (b) 3 x 7 - 1 drill passes, 3 x 3 replicated; (a) 2 x 2 x 2; (c) 2 x 2
+    assert flash_launches == CONFIGS["tiny"].n_layers * (20 + 9 + 8 + 4)
+    # "tiny" has one DDP bucket: 2 x 2 x 1 x 2, then 2 sharded scatters
+    assert codec == 8 + 2
     assert "steps 1-3 bitwise equal to the replicated arm" in text
     assert "(a) streamed == lock-step bitwise" in text
     assert "(c) sharded on the int8 card plane" in text
@@ -816,13 +824,15 @@ def test_train_llama_ring_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
 def test_hsdp_memory_and_launches_at_1b() -> None:
     smoke = _smoke()
     cfg = smoke.hsdp_config()
+    # "1b"'s width, its depth cut to 6 to keep the script under 900 s
     assert (cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.head_dim, cfg.d_ff,
             cfg.vocab_size, cfg.max_seq_len, cfg.xent_chunks, cfg.remat) == \
-        (2048, 24, 16, 128, 8192, 32768, 2048, 8, True)
+        (2048, 6, 16, 128, 8192, 32768, 2048, 8, True)
+    assert smoke.CUT_LAYERS == 6
     from torchft_tpu_torch.models import gpt_param_shapes
 
     n = sum(math.prod(s) for s in gpt_param_shapes(cfg).values())
-    assert n == 1346572288
+    assert n == 440455168
     # batch 8 over fsdp 2, 16 heads over tensor 2: what the kernels see
     assert smoke.hsdp_attention_shape(cfg) == (4, 2048, 8, 128)
     assert smoke.hsdp_positions() == 4
@@ -1313,3 +1323,145 @@ def test_serve_oracles_catch_a_stale_shard(monkeypatch) -> None:
     with pytest.raises(AssertionError, match="member 2's live units"):
         smoke.run_serve_drill(CONFIGS["tiny"], device="cpu", seed=0,
                               timeout=30.0)
+
+
+# --------------------------------------------------------------- train_proc
+
+
+def test_train_proc_memory_at_125m() -> None:
+    # the twin of tests/test_memory_plan.py's claim for the process drill:
+    # a child's reckoning holds one parameters + gradients + AdamW
+    # footprint (16 bytes a parameter), its activations and graph pools,
+    # and no second parameters + AdamW footprint (12 bytes a parameter)
+    smoke = _smoke()
+    cfg = CONFIGS["125m"]
+    n = 136091136
+    act = smoke.gpt_activation_bytes(cfg, 8)
+    assert smoke.proc_child_bytes(n, act) == 16 * n + act
+    assert smoke.proc_child_bytes(n, act, graphs=1) == 16 * n + 2 * act
+    assert 12 * n == 1633093632  # the 1.63 GB a second footprint would add
+    assert smoke.train_proc_device_bytes(n, act) == (32 * n + 3 * act
+                                                     + 2 * (1 << 30))
+    assert smoke.proc_host_bytes(n) == (2 * 4 + 6) * 4 * n
+    phases = smoke.PHASES
+    assert (phases.index("train_hier_int8") < phases.index("train_proc")
+            < phases.index("dryrun_multichip") < phases.index(
+                "train_durable"))
+
+
+def _proc_result(n, act, peak, rest):
+    commits = {key: {s: {"allocated": rest} for s in (1, 2)}
+               for key in ((0, 0), (1, 0), (0, 1))}
+    return {"peaks": dict.fromkeys(commits, peak), "commits": commits,
+            "done": {(1, 0): (0.0, {"captures": 1}),
+                     (0, 1): (0.0, {"captures": 0})}}
+
+
+def test_check_proc_memory_rejects_a_second_footprint() -> None:
+    smoke = _smoke()
+    n, act = 136091136, smoke.gpt_activation_bytes(CONFIGS["125m"], 8)
+    smoke.check_proc_memory(_proc_result(
+        n, act, 16 * n + act, 16 * n + smoke.PROC_REST_SLACK), n, act)
+    assert smoke.PROC_REST_SLACK < 12 * n // 6
+    # a commit that allocates a second parameters + AdamW footprint
+    with pytest.raises(AssertionError, match="peak"):
+        smoke.check_proc_memory(
+            _proc_result(n, act, 16 * n + act + 12 * n, 16 * n), n, act)
+    # or leaves one behind
+    with pytest.raises(AssertionError, match="more than one footprint"):
+        smoke.check_proc_memory(_proc_result(n, act, 16 * n, 28 * n), n,
+                                act)
+
+
+def test_train_proc_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # the phase as the card runs it, moved to "tiny" on the CPU: real
+    # processes, a real SIGKILL, every check of the drill, the report and
+    # the launches it wants; the memory readings are the card's only
+    import torchft_tpu_torch.examples.train_ddp as example
+    import torchft_tpu_torch.models as models
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    monkeypatch.setitem(models.CONFIGS, "125m", CONFIGS["tiny"])
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (1e15, 1e15))
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    checked = []
+    monkeypatch.setattr(smoke, "check_proc_memory",
+                        lambda *a: checked.append(a))
+    drill = example.run_process_drill
+    monkeypatch.setattr(example, "run_process_drill", lambda cfg, **kw: drill(
+        cfg, **dict(kw, device="cpu", batch_size=2, timeout=30.0)))
+    counts, want, head_dim = smoke.phase_train_proc(0, "CPU")
+    text = "\n".join(lines)
+    assert head_dim == 16 and len(checked) == 1
+    result = checked[0][0]
+    # 3 + 2 + (the survivor's latched step) ... each life's passes
+    passes = result["passes"]
+    assert passes[(0, 0)] == 3 and passes[(0, 1)] == 4
+    assert want == dict.fromkeys(smoke.FLASH_KERNELS, 2 * sum(
+        passes.values()))
+    assert counts == dict.fromkeys(smoke.FLASH_KERNELS, 0)  # no card
+    assert "SIGKILL of group 0 in its step 4" in text
+    assert "heal at step 6" in text and "first joint commit" in text
+    for name in ("killed", "survivor", "relaunch"):
+        assert f"({name}): committed" in text
+    assert "group 0 (relaunch): committed 6-9" in text
+
+
+# --------------------------------------------------------- dryrun_multichip
+
+
+def test_dryrun_launches_at_8() -> None:
+    # 2 layers of "tiny": the sharded step and the MoE transformer one
+    # attention a layer per position (8) and their unsharded models one a
+    # layer; the causal ring of 8 its 36 pairs a layer
+    want = _smoke().dryrun_launches(8)
+    per = {"step": 18, "ring": 74, "moe": 18, "vocab": 0, "pipeline": 0,
+           "ft": 0}
+    assert want == {k: dict.fromkeys(flash.LAUNCHES, v)
+                    for k, v in per.items()}
+
+
+def test_dryrun_multichip_phase_runs_on_the_cpu(monkeypatch) -> None:
+    # the phase at 2 positions on the CPU with "125m" cut to "tiny": every
+    # segment held against its counterpart, entry()'s logits against
+    # reference_attention, the launches (none off the card); the FT loop
+    # runs whole in tests/test_torch_graft_entry.py
+    import torchft_tpu_torch.graft_entry as graft
+    import torchft_tpu_torch.models as models
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    monkeypatch.setitem(models.CONFIGS, "125m", CONFIGS["tiny"])
+    monkeypatch.setattr(graft, "_dryrun_ft_loop", lambda n, dev: {
+        "trace": "stub"})
+    per_d = smoke.phase_dryrun_multichip(0, "CPU", n=2, device="cpu")
+    text = "\n".join(lines)
+    assert per_d == {16: dict.fromkeys(flash.LAUNCHES, 0)}
+    for name in ("step", "vocab", "ring", "moe", "pipeline", "ft"):
+        assert f"segment {name}:" in text
+    assert "entry(): logits (4, 128, 512) torch.float32" in text
+
+
+def test_the_depth_cuts_that_keep_the_script_under_900_s() -> None:
+    # train_sharded, train_diloco_sharded, train_localsgd_int8,
+    # train_hier_int8 and train_durable at "125m"'s width and 6 of its
+    # layers, train_moe and train_moe_expert at "moe-8x125m"'s and 6 of
+    # its, train_hsdp at "1b"'s and 6 of its 24; a config already that
+    # shallow ("tiny", as the CPU runs of the phases use) is left
+    from torchft_tpu_torch.models import MOE_CONFIGS, moe_param_shapes
+
+    smoke = _smoke()
+    assert smoke.CUT_LAYERS == 6
+    cut = smoke.cut_depth(CONFIGS["125m"])
+    assert cut == dataclasses.replace(CONFIGS["125m"], n_layers=6)
+    n = sum(p.numel() for p in GPT(cut, device="meta").parameters())
+    assert n == 93605376
+    assert smoke.durable_disk_bytes(n) == 6739587072
+    moe = smoke.cut_depth(MOE_CONFIGS["moe-8x125m"])
+    assert moe.n_layers == 6 and moe.d_model == 768
+    assert sum(math.prod(s) for s in moe_param_shapes(moe).values()) \
+        == 192714240
+    assert smoke.cut_depth(CONFIGS["tiny"], 6) == CONFIGS["tiny"]

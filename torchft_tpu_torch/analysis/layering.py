@@ -50,8 +50,8 @@ ALLOWED: Dict[str, Set[str]] = {
     "parallel": {"parallel", "ops", "comm", "futures", "utils"},
     "models": {"models", "ops", "parallel", "utils"},
     "examples": {"examples", "checkpoint_io", "checkpointing", "comm",
-                 "control", "data", "ddp", "local_sgd", "manager", "models",
-                 "ops", "optim", "parallel", "utils"},
+                 "control", "data", "ddp", "launcher", "local_sgd",
+                 "manager", "models", "ops", "optim", "parallel", "utils"},
     "fused": {"comm", "optim", "utils"},
     "serve": {"checkpointing", "comm", "control", "utils"},
 }

@@ -49,7 +49,10 @@ checkpoints, a kill of every group, and a resume that must equal the
 checkpoint bitwise. ``run_multijob_drill`` puts two jobs on one lighthouse
 (one with an observer, ``data_plane=False``), kills and heals a group of
 one while the other stays on its lease, then lets a higher-priority job
-evict a group of the second. The first two take ``comm_backend`` and ``comm_options`` for the
+evict a group of the second. ``run_process_drill`` runs two groups as OS
+processes, as the lines above tell users to: one is SIGKILLed inside a
+step and relaunched on the same ports, and heals from the survivor. The
+first two take ``comm_backend`` and ``comm_options`` for the
 Manager: the default is the TCP gradient wire; ``comm_backend="cuda"`` with
 e.g. ``comm_options={"algorithm": "psum", "compression": "int8"}`` reduces
 on the training device instead (comm/cuda_backend.py), where groups that
@@ -96,14 +99,18 @@ from torchft_tpu_torch.ddp import (
     DistributedDataParallel,
     _BucketPlan,
 )
-from torchft_tpu_torch.manager import Manager, _build_comm_context
+from torchft_tpu_torch.manager import (
+    LIGHTHOUSE_ENV,
+    Manager,
+    _build_comm_context,
+)
 from torchft_tpu_torch.models import (
     CONFIGS,
     GPT,
     TransformerConfig,
     make_train_step,
 )
-from torchft_tpu_torch.ops.flash import check_head_dim
+from torchft_tpu_torch.ops.flash import LAUNCHES, check_head_dim
 from torchft_tpu_torch.optim import (
     OptimizerWrapper,
     ShardedOptimizerWrapper,
@@ -116,7 +123,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["FaultyCommContext", "InjectedFailure", "GroupRun",
            "run_joint", "run_kill_and_heal", "run_multijob_drill",
-           "run_resume_drill", "train_group"]
+           "run_process_drill", "run_resume_drill", "train_group"]
 
 # the manifest paths of the sharded optimizer's slots: a heal leaves them
 # on the donor, and the healer fetches them with fetch_opt_shard
@@ -346,6 +353,7 @@ def train_group(
     sharded: Optional[bool] = None,
     digest_params: bool = False,
     digest_averages: bool = False,
+    run: Optional[GroupRun] = None,
 ) -> GroupRun:
     """Train one replica group until ``total_steps`` steps are committed
     (or ``stop`` is set).
@@ -382,7 +390,10 @@ def train_group(
     that wrapper's replicated arm, its bitwise oracle.
     ``digest_params``/``digest_averages``: keep
     sha256 digests of the parameters after each commit, and of the averaged
-    gradients with DDP's residuals after each average.
+    gradients with DDP's residuals after each average. ``run``: the
+    :class:`GroupRun` to fill (a new one by default), so that a hook can
+    read it while the group trains: its ``passes`` count every pass so far,
+    the captures' warm-up passes included.
 
     A CUDA run of a config whose head_dim the flash kernels do not take
     raises ValueError here, before anything is built.
@@ -469,7 +480,9 @@ def train_group(
             manager, adamw(3e-4, weight_decay=1e-4), model, sharded=sharded)
     # the solo-wire step: forward, backward and AdamW as one CUDA graph
     train_step = make_train_step(model, optimizer)
-    run = GroupRun(replica_id=manager.replica_id())
+    run = run if run is not None else GroupRun()
+    run.replica_id = manager.replica_id()
+    warmups = 0  # the captures' warm-up passes already in run.passes
     writer: Optional[AsyncCheckpointWriter] = None
 
     try:
@@ -583,6 +596,8 @@ def train_group(
                         + list(ddp._residuals or ()))
                 loss = loss.detach()
                 committed = opt.step(loss)
+            run.passes += train_step.warmup_passes - warmups
+            warmups = train_step.warmup_passes
             run.losses.update(opt.take_losses())
             step = manager.current_step()
             if manager.did_heal():
@@ -610,7 +625,7 @@ def train_group(
             run.losses.update(opt.drain())
         except Exception as e:  # noqa: BLE001 — keep the step's own error
             logger.warning(f"group {replica_group}: loss readback failed: {e}")
-        run.passes += train_step.warmup_passes
+        run.passes += train_step.warmup_passes - warmups
         run.captures = train_step.captures
         if writer is not None:
             try:
@@ -957,6 +972,447 @@ def run_joint(cfg: TransformerConfig, *, groups: int = 2, steps: int = 3,
     if errors:
         raise errors[0]
     return runs
+
+
+# run_process_drill's schedule (k, s, a) and its slack on the card's memory
+PROC_KILL, PROC_SOLO, PROC_AFTER = 3, 2, 3
+PROC_MEMORY_SLACK = 1 << 30
+
+
+def _free_port_base(count: int, preferred: Optional[int] = None,
+                    avoid: Sequence[int] = ()) -> int:
+    """A port p such that p .. p + count - 1 all bind on every interface
+    now (as the ManagerServer binds) and none is in ``avoid``:
+    ``preferred`` if so, else a random one below the ephemeral range."""
+    import random
+    import socket
+
+    def free(base: int) -> bool:
+        if any(base <= a < base + count for a in avoid):
+            return False
+        socks = []
+        try:
+            for port in range(base, base + count):
+                s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+                socks.append(s)
+                s.bind(("0.0.0.0", port))
+            return True
+        except OSError:
+            return False
+        finally:
+            for s in socks:
+                s.close()
+
+    if preferred is not None and free(preferred):
+        return preferred
+    rng = random.Random()
+    for _ in range(500):
+        base = rng.randrange(20000, 32000 - count)
+        if free(base):
+            return base
+    raise RuntimeError(f"no {count} consecutive free ports")
+
+
+def _drill_wait(what: tuple, addr: str, timeout: float, stop) -> None:
+    """One gate of the process drill's schedule: ``("event", ev, what)``
+    waits for a multiprocessing event, ``("lighthouse", key, count)`` for
+    the lighthouse's ``/status.json`` to count ``count`` ``key``."""
+    if what[0] == "event":
+        _wait_for(what[1].is_set, what[2], timeout, stop)
+    else:
+        _wait_lighthouse(addr, what[1], what[2], timeout, stop)
+
+
+def _proc_group_main(cfg: TransformerConfig, env: Dict[str, str],
+                     incarnation: int, train_kwargs: Dict[str, Any],
+                     waits: Dict[Any, Sequence[tuple]], queue, stop) -> None:
+    """One replica group of :func:`run_process_drill` as its own OS
+    process (the spawn target): the launcher's environment for its group
+    (``env``: the lighthouse, ``REPLICA_GROUP_ID``, the store and manager
+    ports), its own store on ``MASTER_PORT``, and :func:`train_group`. It
+    posts to ``queue``, its own (one writer a queue): ``("started", group,
+    incarnation, wall, startup)`` once its manager exists, with the
+    seconds of CUDA's initialisation, the kernels' load and the model's
+    build; ``("commit", ...)`` after every commit (participants, heal,
+    parameter digest, passes so far, cumulative flash launches, device
+    memory, loss); ``("done", ...)`` with the run's summary, or
+    ``("error", ..., traceback)``. ``waits`` gates the schedule:
+    ``waits["start"]`` before the first quorum, ``waits[step]`` after the
+    commit of ``step`` (:func:`_drill_wait`)."""
+    import traceback
+
+    t_entry = time.time()
+    group, store = -1, None
+    try:
+        os.environ.update(env)
+        group = int(os.environ["REPLICA_GROUP_ID"])
+        device = resolve_device(train_kwargs["device"])
+        cuda = device.type == "cuda"
+        startup: Dict[str, float] = {"entry": t_entry}
+        if cuda:
+            # f32 products stay f32, as in main()
+            torch.backends.cuda.matmul.allow_tf32 = False
+            t0 = time.perf_counter()
+            torch.empty(1, device=device)
+            torch.cuda.synchronize(device)
+            startup["cuda_init_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            from torchft_tpu_torch.ops import _build
+
+            _build.load_kernels()
+            startup["kernel_load_s"] = time.perf_counter() - t0
+        store = StoreServer(port=int(os.environ["MASTER_PORT"]))
+        addr, timeout = os.environ[LIGHTHOUSE_ENV], train_kwargs["timeout"]
+        run = GroupRun()
+        t_build = time.perf_counter()
+
+        def memory() -> Dict[str, Optional[int]]:
+            if not cuda:
+                return {"peak": None, "allocated": None, "reserved": None}
+            return {"peak": torch.cuda.max_memory_allocated(device),
+                    "allocated": torch.cuda.memory_allocated(device),
+                    "reserved": torch.cuda.memory_reserved(device)}
+
+        def on_start(manager: Manager) -> None:
+            startup["model_build_s"] = time.perf_counter() - t_build
+            queue.put(("started", group, incarnation, time.time(), startup))
+            for what in waits.get("start", ()):
+                _drill_wait(what, addr, timeout, stop)
+
+        def on_commit(step, manager, model, loss) -> None:
+            queue.put(("commit", group, incarnation, time.time(), dict(
+                step=step, participants=manager.num_participants(),
+                healed=manager.did_heal(), digest=run.param_digests[step],
+                passes=run.passes, launches=dict(LAUNCHES),
+                loss=float(loss), **memory())))
+            for what in waits.get(step, ()):
+                _drill_wait(what, addr, timeout, stop)
+
+        train_group(
+            cfg, replica_group=group,
+            num_groups=int(os.environ["NUM_REPLICA_GROUPS"]),
+            store_addr=store.addr, on_start=on_start, on_commit=on_commit,
+            stop=stop, digest_params=True, run=run, **train_kwargs)
+        keep = ("heal_wall_ms", "heal_wire_bytes", "heal_bytes_per_s",
+                "quorum_p50_ms", "forward_backward_p50_ms", "ddp_wire_p50_ms",
+                "commit_barrier_p50_ms")
+        queue.put(("done", group, incarnation, time.time(), dict(
+            passes=run.passes, launches=dict(LAUNCHES),
+            healed_at=run.healed_at, participants=run.participants,
+            losses=run.losses, fused_steps=run.fused_steps,
+            captures=run.captures, step_seconds=run.step_seconds,
+            metrics={k: run.metrics[k] for k in keep if k in run.metrics},
+            events=[e for e in run.events if e["kind"] in (
+                "error_latched", "step_discard", "heal_start", "heal_done")],
+            **memory())))
+    except BaseException:
+        queue.put(("error", group, incarnation, time.time(),
+                   traceback.format_exc()))
+        raise
+    finally:
+        if store is not None:
+            store.shutdown()
+
+
+def run_process_drill(
+    cfg: TransformerConfig,
+    *,
+    kill_step: int = PROC_KILL,
+    solo_steps: int = PROC_SOLO,
+    steps_after: int = PROC_AFTER,
+    device: "Optional[str | torch.device]" = None,
+    batch_size: int = 8,
+    seed: int = 0,
+    timeout: float = 60.0,
+    base_manager_port: Optional[int] = None,
+    base_store_port: Optional[int] = None,
+    log: Callable[[str], None] = logger.info,
+) -> Dict[str, object]:
+    """Two replica groups, each its own OS process (multiprocessing's
+    spawn, never fork: the caller may hold a CUDA context), under a
+    lighthouse in this process, through a real SIGKILL and a relaunch, on
+    a fixed schedule (k = ``kill_step``, s = ``solo_steps``, a =
+    ``steps_after``):
+
+    - both groups commit steps 1..k together;
+    - group 0 begins step k + 1 (its quorum request waits at the
+      lighthouse) while group 1 holds in its commit hook of k; this
+      process SIGKILLs group 0 there (its manager server, store,
+      checkpoint server, transport sockets and CUDA context go down
+      together, with no cleanup), reaps it and releases group 1;
+    - group 1 latches the dead peer, forms its next quorum alone and
+      commits k + 1..k + s with 1 participant, then holds in its commit
+      hook (its manager heartbeating) until the relaunch has started;
+    - group 0 relaunches as a fresh process from a poisoned init (another
+      seed) with the same group, environment and ports, holds before its
+      first quorum until group 1 has committed k + s, heals from group 1
+      over HTTP at k + s + 1, and both commit a more steps.
+
+    Each group runs :func:`train_group` in :func:`_proc_group_main`, in
+    the environment ``launcher.hsdp_spec`` writes for it (manager port
+    ``base_manager_port + i``, store port ``base_store_port + i``; free
+    ports are found when these are None or taken), and posts its commits
+    to a queue of its own. On the card this process reads the card's free
+    memory (``torch.cuda.mem_get_info``) before the groups start, at the
+    kill, once the victim is reaped and after the drill.
+
+    Raises AssertionError unless: at every step that more than one (group,
+    incarnation) commits, the parameter digests are equal; the relaunch's
+    first commit comes after step k and reports a heal; group 1 commits no
+    step after k with 2 participants before the heal; every loss is
+    finite; every incarnation's flash launches are layers x its passes (0
+    on the CPU); and on the card, once the victim is reaped, the free
+    memory is within 1 GiB of its value before the groups started less
+    group 1's share (its allocator's reserved bytes and one CUDA context,
+    the two contexts reckoned equal from the reading at the kill), and
+    within 1 GiB of that value after the drill. Returns the commits by
+    (group, incarnation), the started and done messages, the kill-to-heal
+    timeline (``timeline``), the memory readings (``memory``), the heal
+    step, the steps more than one life committed and the passes."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    from torchft_tpu_torch.launcher import hsdp_spec
+
+    device = resolve_device(device)
+    cuda = device.type == "cuda"
+    if cuda:
+        check_head_dim(f"run_process_drill: config with d_model "
+                       f"{cfg.d_model} and {cfg.n_heads} heads", cfg.head_dim)
+    total = kill_step + solo_steps + 1 + steps_after
+    victim, survivor, relaunch = (0, 0), (1, 0), (0, 1)
+    ctx = mp.get_context("spawn")
+    lighthouse = Lighthouse(min_replicas=1, heartbeat_timeout_ms=1000,
+                            join_timeout_ms=200)
+    addr = lighthouse.address()
+    mport = _free_port_base(2, base_manager_port)
+    sport = _free_port_base(2, base_store_port, avoid=(mport, mport + 1))
+    env = {s.replica_group_id: s.env for s in hsdp_spec(
+        script=os.path.abspath(__file__), num_replica_groups=2,
+        lighthouse_addr=addr, base_manager_port=mport,
+        base_store_port=sport)}
+    stop, killed, solo_done, relaunched = (ctx.Event() for _ in range(4))
+    waits = {
+        victim: {"start": [("lighthouse", "healthy", 2)]},
+        survivor: {"start": [("lighthouse", "healthy", 2)],
+                   kill_step: [("event", killed,
+                                "the drill never released the survivor")],
+                   kill_step + solo_steps: [
+                       ("event", relaunched, "the relaunch never started"),
+                       ("lighthouse", "participants", 1)]},
+        relaunch: {"start": [("event", solo_done,
+                              "the survivor never committed its solo "
+                              "steps")]},
+    }
+    queues: Dict[Tuple[int, int], Any] = {}
+    procs: Dict[Tuple[int, int], Any] = {}
+    launched: Dict[Tuple[int, int], float] = {}
+    commits: Dict[Tuple[int, int], Dict[int, Dict[str, Any]]] = {}
+    started: Dict[Tuple[int, int], Tuple[float, Dict[str, float]]] = {}
+    done: Dict[Tuple[int, int], Tuple[float, Dict[str, Any]]] = {}
+    errors: List[str] = []
+    memory: Dict[str, Any] = {}
+    timeline: Dict[str, Any] = {}
+
+    def free_bytes() -> int:
+        return torch.cuda.mem_get_info(device)[0]
+
+    def launch(key: Tuple[int, int]) -> None:
+        group, inc = key
+        queues[key] = ctx.Queue()
+        kwargs = dict(device=str(device), batch_size=batch_size,
+                      init_seed=seed + 1000 * inc, data_seed=seed,
+                      timeout=timeout, total_steps=total)
+        p = ctx.Process(
+            target=_proc_group_main, name=f"group{group}_life{inc}",
+            args=(cfg, env[group], inc, kwargs, waits[key], queues[key],
+                  stop),
+            daemon=True)
+        launched[key] = time.time()
+        p.start()
+        procs[key] = p
+
+    def drain() -> None:
+        for q in queues.values():
+            while True:
+                try:
+                    kind, group, inc, wall, body = q.get_nowait()
+                except (queue_mod.Empty, OSError, EOFError):
+                    break
+                key = (group, inc)
+                if kind == "started":
+                    started[key] = (wall, body)
+                elif kind == "commit":
+                    commits.setdefault(key, {})[body["step"]] = dict(
+                        body, wall=wall)
+                    log(f"group {group} life {inc} committed step "
+                        f"{body['step']} participants {body['participants']}"
+                        + (" (healed)" if body["healed"] else ""))
+                elif kind == "done":
+                    done[key] = (wall, body)
+                else:
+                    errors.append(f"group {group} life {inc}:\n{body}")
+
+    def committed(key: Tuple[int, int], step: int) -> bool:
+        return step in commits.get(key, {})
+
+    def reclaim(want: int) -> Tuple[int, float]:
+        """The free memory once it reaches ``want``, polled for 30 s at
+        most, and the seconds it took."""
+        t0 = time.perf_counter()
+        free = free_bytes()
+        while free < want and time.perf_counter() - t0 < 30.0:
+            time.sleep(0.05)
+            free = free_bytes()
+        return free, time.perf_counter() - t0
+
+    t_start = time.perf_counter()
+    deadline = time.monotonic() + 10 * timeout
+    try:
+        if cuda:
+            torch.cuda.empty_cache()
+            memory["before"] = free_bytes()
+        launch(victim)
+        launch(survivor)
+        while not (survivor in done and relaunch in done):
+            drain()
+            if errors:
+                raise RuntimeError("a replica group failed:\n"
+                                   + "\n".join(errors))
+            for key, p in procs.items():
+                if p.exitcode is not None and p.exitcode != 0 and not (
+                        key == victim and "kill" in timeline):
+                    drain()
+                    raise RuntimeError(f"group {key[0]} life {key[1]} exited "
+                                       f"with {p.exitcode}: {errors}")
+            if (not killed.is_set() and committed(victim, kill_step)
+                    and committed(survivor, kill_step)):
+                # the victim's step k + 1 has begun: its quorum request
+                # waits for the survivor, which holds in its commit hook
+                _wait_lighthouse(addr, "participants", 1, timeout, stop)
+                if cuda:
+                    memory["at_kill"] = free_bytes()
+                timeline["kill"] = time.time()
+                procs[victim].kill()
+                procs[victim].join(timeout)
+                timeline["reaped"] = time.time()
+                if cuda:
+                    # the survivor's share: its allocator's pool and one
+                    # CUDA context, the two contexts reckoned equal
+                    pools = (commits[victim][kill_step]["reserved"]
+                             + commits[survivor][kill_step]["reserved"])
+                    held = memory["before"] - memory["at_kill"]
+                    context = max(0, (held - pools) // 2)
+                    share = commits[survivor][kill_step]["reserved"] + context
+                    memory.update(context=context, survivor_share=share,
+                                  want_after_kill=memory["before"] - share)
+                    memory["after_kill"], memory["reclaim_s"] = reclaim(
+                        memory["want_after_kill"] - PROC_MEMORY_SLACK)
+                killed.set()
+                log(f"SIGKILLed group 0 in its step {kill_step + 1}; "
+                    "relaunching it")
+                launch(relaunch)
+            if committed(survivor, kill_step + solo_steps):
+                solo_done.set()
+            if relaunch in started:
+                relaunched.set()
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    "the process drill stalled: commits "
+                    f"{ {k: sorted(v) for k, v in commits.items()} }")
+            time.sleep(0.01)
+        for key, p in procs.items():
+            p.join(timeout)
+            want = -9 if key == victim else 0  # -SIGKILL
+            _require(p.exitcode == want, f"group {key[0]} life {key[1]} "
+                     f"exited with {p.exitcode}, not {want}")
+        drain()
+        if cuda:
+            memory["after"], memory["final_reclaim_s"] = reclaim(
+                memory["before"] - PROC_MEMORY_SLACK)
+    finally:
+        stop.set()
+        for ev in (killed, solo_done, relaunched):
+            ev.set()
+        for p in procs.values():
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        for q in queues.values():
+            q.cancel_join_thread()
+            q.close()
+        lighthouse.shutdown()
+
+    by_step: Dict[int, List[Tuple[Tuple[int, int], str]]] = {}
+    for key, steps in commits.items():
+        for step, body in steps.items():
+            by_step.setdefault(step, []).append((key, body["digest"]))
+    overlap = []
+    for step, entries in sorted(by_step.items()):
+        if len(entries) > 1:
+            overlap.append(step)
+            for key, digest in entries[1:]:
+                _require(digest == entries[0][1],
+                         f"group {key[0]} life {key[1]} diverged from group "
+                         f"{entries[0][0][0]} life {entries[0][0][1]} at "
+                         f"step {step}")
+    first = min(commits.get(relaunch) or [0])
+    _require(first > kill_step and commits[relaunch][first]["healed"],
+             f"the relaunch's first commit is at step {first}, healed "
+             f"{commits.get(relaunch, {}).get(first, {}).get('healed')}")
+    _require(overlap == list(range(1, kill_step + 1))
+             + list(range(first, total + 1)),
+             f"steps committed by more than one life: {overlap}")
+    window = {s: commits[survivor][s]["participants"]
+              for s in range(kill_step + 1, first)}
+    _require(set(window.values()) <= {1},
+             f"the survivor's participants in the dead window: {window}")
+    losses = [b["loss"] for c in commits.values() for b in c.values()]
+    losses += [v for _, b in done.values() for v in b["losses"].values()]
+    _require(all(math.isfinite(v) for v in losses), "non-finite loss")
+    # every incarnation's flash launches: layers x its passes so far
+    last = {victim: commits[victim][max(commits[victim])]}
+    last.update({key: body for key, (_, body) in done.items()})
+    for key, body in last.items():
+        want = cfg.n_layers * body["passes"] if cuda else 0
+        _require(set(body["launches"].values()) <= {want},
+                 f"group {key[0]} life {key[1]}: flash launches "
+                 f"{body['launches']}, want {want} each ({body['passes']} "
+                 "passes)")
+    if cuda:
+        _require(memory["after_kill"] >= memory["want_after_kill"]
+                 - PROC_MEMORY_SLACK,
+                 f"the card's free memory after the kill, "
+                 f"{memory['after_kill']}, is not within 1 GiB of "
+                 f"{memory['want_after_kill']}")
+        _require(memory["after"] >= memory["before"] - PROC_MEMORY_SLACK,
+                 f"the card's free memory after the drill, "
+                 f"{memory['after']}, is not within 1 GiB of "
+                 f"{memory['before']}")
+    t_kill = timeline["kill"]
+    latch = [e["t_wall"] for e in done[survivor][1]["events"]
+             if e["kind"] in ("error_latched", "step_discard")
+             and e["t_wall"] >= t_kill]
+    r_wall, r_startup = started[relaunch]
+    timeline.update(
+        reap_s=timeline["reaped"] - t_kill,
+        survivor_latch_s=(min(latch) - t_kill) if latch else None,
+        solo_commit_s=[commits[survivor][s]["wall"] - t_kill
+                       for s in range(kill_step + 1, first)],
+        relaunch_after_kill_s=launched[relaunch] - t_kill,
+        relaunch_spawn_s=r_startup["entry"] - launched[relaunch],
+        relaunch_started_s=r_wall - launched[relaunch],
+        relaunch_startup=r_startup,
+        heal=done[relaunch][1]["metrics"],
+        first_joint_commit_s=commits[relaunch][first]["wall"] - t_kill)
+    return {"commits": commits, "started": started, "done": done,
+            "timeline": timeline, "memory": memory, "heal_step": first,
+            "overlap": overlap,
+            "passes": {key: body["passes"] for key, body in last.items()},
+            "launches": {key: body["launches"] for key, body in last.items()},
+            "peaks": {key: body["peak"] for key, body in last.items()},
+            "total": total, "seconds": time.perf_counter() - t_start}
 
 
 # run_multijob_drill's schedule: a1 fails after step 3, heals at 5, the
