@@ -473,8 +473,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    together); group 1 latches, commits 4-5 alone and waits in its commit
    hook for the relaunch; group 0 relaunches as a fresh process from a
    poisoned init on the same ports, heals from group 1 over HTTP at 6,
-   and both commit 6-9. Checks: the parameter digests equal at every step
-   two lives commit; the relaunch's first commit after step 3 and healed;
+   and both commit 6-9. Group 0 (both lives) commits by
+   ``OptimizerWrapper``'s decide-first arm (``donate_update=True``),
+   group 1 by the default overlapped one (the update beside the barrier
+   behind a backup). Checks: the parameter digests equal at every step
+   two lives commit (so the two arms bitwise, across the kill and the
+   heal); the relaunch's first commit after step 3 and healed;
    no two-participant commit of group 1 in the dead window; finite
    losses; each life's flash launches (counted in the child) 12 x its
    passes, none in this process; the card's free memory back within 1
@@ -482,7 +486,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the survivor's share) and after the drill; each child's peak within
    ``proc_child_bytes`` (one parameters + gradients + AdamW footprint, its
    activations and graph pools) and at rest after every commit at most
-   one footprint. It prints the kill-to-heal timeline (reap, survivor
+   one footprint; each classic commit's update rise (the most allocated
+   in the update's window beyond its start) under 8 bytes a parameter in
+   the decide-first lives, and the survivor's largest at least 12 (its
+   backup). It prints the kill-to-heal timeline (reap, survivor
    latch, solo commits, the relaunch's spawn, CUDA init, kernel load and
    model build, the heal's bytes and seconds, the first joint commit),
    the memory readings and each life's figures. It first checks the
@@ -5677,15 +5684,31 @@ PROC_PORTS = (29600, 29700)  # the launcher's defaults: manager, store
 # moments: DDP's buckets and the step's small tensors (92.7 MiB measured
 # at 125m on the H100); a second parameters + AdamW footprint is 1.63 GB
 PROC_REST_SLACK = 256 << 20
+# a classic update's rise, bytes a parameter: the foreach AdamW's
+# temporaries (one parameter-sized tensor, reckoned), the overlapped
+# arm's backup of the parameters and both moments, and the donated arm's
+# bound, under the backup
+PROC_UPDATE_TEMP = 4
+PROC_BACKUP = 12
+PROC_DONATED_RISE = 8
+# group 0 (both lives) decides first; group 1 overlaps (the default)
+PROC_DONATE = (True, False)
 
 
-def proc_child_bytes(n_params: int, act: int, graphs: int = 0) -> int:
+def proc_child_bytes(n_params: int, act: int, graphs: int = 0,
+                     overlapped: bool = True) -> int:
     """Device memory one train_proc child may allocate: its f32
     parameters, gradients and two AdamW moments (16 bytes a parameter),
-    one pass's activations, and the private pool of each CUDA graph it
-    captured (one pass's activations). A second parameters + AdamW
-    footprint (12 bytes a parameter) is not in it."""
-    return 16 * n_params + act * (1 + graphs)
+    the private pool of each CUDA graph it captured (one pass's
+    activations), and the larger of two windows: a forward/backward (one
+    pass's activations) and a classic update (the foreach AdamW's
+    temporaries, 4 bytes a parameter, and on the overlapped arm the
+    backup, 12: 16 + 12 + 4 in all). At 125m, batch 8, the activations
+    (7.58 GB, 55.7 bytes a parameter) outweigh the update (2.18 GB
+    overlapped), so the peak is the forward/backward's: a second
+    footprint that outlived the update would show at rest, not here."""
+    update = PROC_UPDATE_TEMP + (PROC_BACKUP if overlapped else 0)
+    return 16 * n_params + act * graphs + max(act, update * n_params)
 
 
 def train_proc_device_bytes(n_params: int, act: int) -> int:
@@ -5705,6 +5728,9 @@ def proc_host_bytes(n_params: int, groups: int = 2) -> int:
 
 
 PROC_PHASES = ("quorum", "forward_backward", "ddp_wire", "commit_barrier")
+# the optimizer wrapper's classic phases: the backup and the update's
+# enqueue, and the exposed barrier
+PROC_COMMIT_PHASES = ("prologue", "dispatch", "barrier")
 _LIFE = {(0, 0): "group 0 (killed)", (1, 0): "group 1 (survivor)",
          (0, 1): "group 0 (relaunch)"}
 
@@ -5746,20 +5772,30 @@ def proc_report(result: dict, n_params: int, act: int, card: str) -> list:
     for key, name in _LIFE.items():
         commits = result["commits"].get(key, {})
         rest = [c["allocated"] for c in commits.values()]
+        rises = {s: c["update_rise"] for s, c in sorted(commits.items())
+                 if c.get("update_rise") is not None}
         done = result["done"].get(key, (None, {}))[1]
         graphs = done.get("captures", 0)
         peak = result["peaks"].get(key)
+        donated = result["donate_update"][key[0]]
+        reckoned = proc_child_bytes(n_params, act, graphs, not donated)
         lines.append(
-            f"{name}: committed {min(commits)}-{max(commits)}, "
+            f"{name}: committed {min(commits)}-{max(commits)} "
+            f"({'decide first' if donated else 'overlapped'}), "
             f"{result['passes'][key]} passes, flash launches "
             f"{result['launches'][key]}, graphs {graphs}"
             + (f", peak {peak / 1e9:.3f} GB allocated (reckoned "
-               f"{proc_child_bytes(n_params, act, graphs) / 1e9:.3f}; a "
-               f"second parameters + AdamW footprint is "
+               f"{reckoned / 1e9:.3f}; a second parameters + AdamW "
+               f"footprint is "
                f"{12 * n_params / 1e9:.3f}), at rest after commits "
                f"{min(rest) / 1e9:.3f}-{max(rest) / 1e9:.3f} GB"
                if peak is not None else "")
-            + (f", phase p50 ms {_p50s(done['metrics'], PROC_PHASES)}"
+            + (", update rise by step, bytes (a parameter): "
+               + ", ".join(f"{s}: {r} ({r / n_params:.2f})"
+                           for s, r in rises.items()) if rises else "")
+            + (f", phase p50 ms {_p50s(done['metrics'], PROC_PHASES)}, "
+               f"commit p50 ms "
+               f"{_p50s(done['classic_metrics'], PROC_COMMIT_PHASES)}"
                if done else ""))
     lines.append(f"drill {result['seconds']:.1f} s ({card})")
     return lines
@@ -5768,20 +5804,41 @@ def proc_report(result: dict, n_params: int, act: int, card: str) -> list:
 def check_proc_memory(result: dict, n_params: int, act: int) -> None:
     """Each child's peak within its reckoning (``proc_child_bytes``: one
     parameters + gradients + AdamW footprint, its activations and graph
-    pools), and at rest after every commit at most one footprint of
-    parameters, gradients and moments (16 bytes a parameter) beside its
-    graph pools and ``PROC_REST_SLACK``: no commit left a second
-    parameters + AdamW footprint behind."""
+    pools, and its arm's update), and at rest after every commit at most
+    one footprint of parameters, gradients and moments (16 bytes a
+    parameter) beside its graph pools and ``PROC_REST_SLACK``: no commit
+    left a second parameters + AdamW footprint behind. The classic
+    commits' update rises hold the claim of tests/test_memory_plan.py:
+    in a decide-first child every one is under ``PROC_DONATED_RISE``
+    bytes a parameter (no second footprint, even transiently); in an
+    overlapped child the largest is at least ``PROC_BACKUP`` (the
+    transient backup)."""
     for key, name in _LIFE.items():
+        donated = result["donate_update"][key[0]]
         graphs = result["done"].get(key, (None, {}))[1].get("captures", 0)
         peak = result["peaks"][key]
-        want = proc_child_bytes(n_params, act, graphs)
+        want = proc_child_bytes(n_params, act, graphs,
+                                overlapped=not donated)
         _require(peak <= want, f"{name}: peak {peak} bytes allocated, "
                  f"reckoned {want}")
-        rest = max(c["allocated"] for c in result["commits"][key].values())
+        commits = result["commits"][key].values()
+        rest = max(c["allocated"] for c in commits)
         bound = 16 * n_params + graphs * act + PROC_REST_SLACK
         _require(rest <= bound, f"{name}: {rest} bytes allocated after a "
                  f"commit, more than one footprint ({bound})")
+        rises = [c["update_rise"] for c in commits
+                 if c.get("update_rise") is not None]
+        _require(bool(rises), f"{name}: no classic commit reported its "
+                 "update's rise")
+        if donated:
+            _require(max(rises) < PROC_DONATED_RISE * n_params,
+                     f"{name} (decide first): an update rose {max(rises)} "
+                     f"bytes, not under {PROC_DONATED_RISE} a parameter")
+        else:
+            _require(max(rises) >= PROC_BACKUP * n_params,
+                     f"{name} (overlapped): the largest update rise "
+                     f"{max(rises)} bytes is under the backup's "
+                     f"{PROC_BACKUP} a parameter")
 
 
 def phase_train_proc(seed: int, card: str, batch: int = PROC_BATCH):
@@ -5813,7 +5870,7 @@ def phase_train_proc(seed: int, card: str, batch: int = PROC_BATCH):
     result = run_process_drill(
         cfg, device="cuda", batch_size=batch, seed=seed, timeout=120.0,
         base_manager_port=PROC_PORTS[0], base_store_port=PROC_PORTS[1],
-        log=lambda m: log("  " + m))
+        donate_update=PROC_DONATE, log=lambda m: log("  " + m))
     for line in proc_report(result, n_params, act, card):
         log("  " + line)
     check_proc_memory(result, n_params, act)

@@ -1349,10 +1349,15 @@ def test_train_proc_memory_at_125m() -> None:
                 "train_durable"))
 
 
-def _proc_result(n, act, peak, rest):
-    commits = {key: {s: {"allocated": rest} for s in (1, 2)}
+def _proc_result(n, act, peak, rest, rises=None):
+    # group 0 decides first (a rise of its AdamW temporaries), group 1
+    # overlaps (its backup too); step 2 a fused commit, which reports none
+    rises = rises or {0: 4 * n, 1: 16 * n}
+    commits = {key: {1: {"allocated": rest, "update_rise": rises[key[0]]},
+                     2: {"allocated": rest, "update_rise": None}}
                for key in ((0, 0), (1, 0), (0, 1))}
     return {"peaks": dict.fromkeys(commits, peak), "commits": commits,
+            "donate_update": (True, False),
             "done": {(1, 0): (0.0, {"captures": 1}),
                      (0, 1): (0.0, {"captures": 0})}}
 
@@ -1371,6 +1376,37 @@ def test_check_proc_memory_rejects_a_second_footprint() -> None:
     with pytest.raises(AssertionError, match="more than one footprint"):
         smoke.check_proc_memory(_proc_result(n, act, 16 * n, 28 * n), n,
                                 act)
+
+
+def test_check_proc_memory_holds_each_arm_to_its_update_rise() -> None:
+    # the other half of tests/test_memory_plan.py's claim: a decide-first
+    # child's classic updates allocate no second parameters + AdamW
+    # footprint even transiently (under 8 bytes a parameter), an
+    # overlapped child's do (its 12-byte backup), and each child reports
+    # a rise for some classic commit
+    smoke = _smoke()
+    n, act = 136091136, smoke.gpt_activation_bytes(CONFIGS["125m"], 8)
+    peak, rest = 16 * n + act, 16 * n
+    assert smoke.PROC_DONATE == (True, False)
+    # the reckoning: the update window (16 + 12 + 4 bytes a parameter
+    # overlapped, 16 + 4 decided) stays under the forward/backward's at
+    # 125m, batch 8
+    assert smoke.proc_child_bytes(n, act, overlapped=False) == 16 * n + act
+    assert act > 16 * n
+    assert smoke.proc_child_bytes(n, 8 * n, overlapped=True) == 32 * n
+    assert smoke.proc_child_bytes(n, 8 * n, overlapped=False) == 24 * n
+    smoke.check_proc_memory(_proc_result(n, act, peak, rest), n, act)
+    with pytest.raises(AssertionError, match="decide first"):
+        smoke.check_proc_memory(_proc_result(
+            n, act, peak, rest, rises={0: 8 * n, 1: 16 * n}), n, act)
+    with pytest.raises(AssertionError, match="overlapped"):
+        smoke.check_proc_memory(_proc_result(
+            n, act, peak, rest, rises={0: 4 * n, 1: 12 * n - 1}), n, act)
+    result = _proc_result(n, act, peak, rest)
+    for c in result["commits"][(0, 1)].values():
+        c["update_rise"] = None
+    with pytest.raises(AssertionError, match="no classic commit"):
+        smoke.check_proc_memory(result, n, act)
 
 
 def test_train_proc_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
@@ -1406,7 +1442,15 @@ def test_train_proc_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
     assert "heal at step 6" in text and "first joint commit" in text
     for name in ("killed", "survivor", "relaunch"):
         assert f"({name}): committed" in text
-    assert "group 0 (relaunch): committed 6-9" in text
+    assert "group 0 (relaunch): committed 6-9 (decide first)" in text
+    assert "group 1 (survivor): committed 1-9 (overlapped)" in text
+    # group 0's lives decide first, group 1 overlaps: the digests, equal at
+    # 1-3 and 6-9, hold the two arms bitwise across the kill and the heal
+    assert result["donate_update"] == (True, False)
+    assert result["overlap"] == [1, 2, 3, 6, 7, 8, 9]
+    # no rise without a card
+    assert all(c["update_rise"] is None for life in result["commits"].values()
+               for c in life.values())
 
 
 # --------------------------------------------------------- dryrun_multichip

@@ -35,7 +35,11 @@ The flash-block ring over virtual shards of the card matches the same
 ring over CPU shards, and the llama ring example's drill heals bitwise
 there. The serving cohort holds its shards on the card, its digests read
 back from the card equal to the publication's, while answers race a
-deploy. This file imports no
+deploy. At "125m" each ``OptimizerWrapper`` arm's update allocates what
+its memory plan says (decide first: under 8 bytes a parameter; the
+overlapped arm: at least its 12-byte backup), the arms end 3 steps
+bitwise equal, and a discarded overlapped step is undone bitwise in
+place. This file imports no
 JAX, so it runs where only torch is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -1155,3 +1159,107 @@ def test_serve_cohort_holds_its_shards_on_the_card() -> None:
         stop.set()
         cohort.shutdown()
         pub.close()
+
+
+class _HeldManager:
+    """A manager stand-in for ``OptimizerWrapper.step``: each decision is
+    held open until the wrapper asks for it (the barrier RPC still in
+    flight when the update is dispatched), and is ``commit`` with the
+    local vote True."""
+
+    def __init__(self) -> None:
+        self.commit = True
+        self.step = 0
+
+    def finish_staging(self) -> None:
+        pass
+
+    def current_step(self) -> int:
+        return self.step
+
+    def should_commit_async(self):
+        from concurrent.futures import Future
+
+        manager = self
+
+        class Held(Future):
+            def result(self, timeout=None):
+                if not self.done():
+                    manager.step += bool(manager.commit)
+                    self.set_result(bool(manager.commit))
+                return super().result(timeout)
+
+        fut = Held()
+        fut.local_should_commit = True
+        return fut
+
+
+@pytest.mark.cuda
+def test_update_rise_per_arm_at_125m_on_card() -> None:
+    # the memory-plan twin of tests/test_memory_plan.py's two claims (:59,
+    # :81) at "125m" on the card, one OptimizerWrapper arm at a time in
+    # this process, over AdamW (capturable, its state created up front):
+    # each decide-first update allocates under 8 bytes a parameter beyond
+    # what was allocated as it began (the foreach temporaries, no second
+    # footprint), the overlapped arm's largest at least 12 (the backup of
+    # the parameters and both moments); after 3 committed steps on the
+    # same seeded gradients the two arms are bitwise equal, and a
+    # discarded overlapped step leaves every parameter and state tensor
+    # bitwise what it was, at its old address
+    from contextlib import contextmanager
+
+    from torchft_tpu_torch.models import count_params
+    from torchft_tpu_torch.optim import OptimizerWrapper, init_adam_state
+
+    _cuda()
+    cfg = CONFIGS["125m"]
+    n = count_params(GPT(cfg, device="meta"))
+    arms = {}
+    for donate in (True, False):
+        name = "decide first" if donate else "overlapped"
+        model = GPT(cfg, device="cuda", seed=0)
+        params = list(model.parameters())
+        adamw = torch.optim.AdamW(params, lr=3e-4, weight_decay=1e-4,
+                                  capturable=True)
+        init_adam_state(adamw)
+        rises = []
+
+        @contextmanager
+        def window():
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            yield
+            rises.append(torch.cuda.max_memory_allocated() - base)
+
+        manager = _HeldManager()
+        opt = OptimizerWrapper(manager, adamw, donate_update=donate,
+                               update_window=window)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        for _ in range(3):
+            for p in params:
+                p.grad = 1e-2 * torch.randn(p.shape, generator=gen,
+                                            device="cuda")
+            assert opt.step()
+        torch.cuda.synchronize()
+        tensors = lambda: [p.detach() for p in params] + [  # noqa: E731
+            v for p in params for _, v in sorted(adamw.state[p].items())]
+        arms[donate] = [t.clone() for t in tensors()]
+        print(f"update rise, {name}, 125m ({n} parameters), "
+              f"{torch.cuda.get_device_name(0)}: "
+              + ", ".join(f"{r} bytes ({r / n:.2f} a parameter)"
+                          for r in rises))
+        if donate:
+            assert max(rises) < 8 * n, (name, rises)
+        else:
+            assert max(rises) >= 12 * n, (name, rises)
+            # a discard: the update ran beside the barrier and is undone
+            manager.commit = False
+            before = [(t.clone(), t.data_ptr()) for t in tensors()]
+            assert not opt.step()
+            torch.cuda.synchronize()
+            for t, (b, ptr) in zip(tensors(), before):
+                assert torch.equal(t, b) and t.data_ptr() == ptr
+            del before
+        del model, params, adamw, opt, tensors
+        torch.cuda.empty_cache()
+    assert all(torch.equal(a, b) for a, b in zip(arms[True], arms[False]))

@@ -13,6 +13,8 @@ int8 plane. ``run_resume_drill`` runs the durable half at "tiny": a fused
 solo phase, a heal, steady steps on the epoch lease, checkpoints, a kill of
 both groups and a resume, with the checks ``chip_smoke.py``'s
 ``train_durable`` makes (on the card it also counts the flash launches).
+Both ``OptimizerWrapper`` arms run against real Managers through an
+injected discard, bitwise equal step for step.
 """
 
 import dataclasses
@@ -422,3 +424,109 @@ def test_observer_heal_and_spares_together() -> None:
     assert len(ratios) >= 6
     assert all(min(abs(r - 1.0), abs(r - 0.5)) < 1e-4 for r in ratios), ratios
     assert not view["participated"] and view["world_max"] >= 3
+
+
+def test_donated_step_loop_with_real_manager() -> None:
+    # the twin of tests/test_integration.py's: both OptimizerWrapper arms
+    # against real Managers and a lighthouse, here one replica group of
+    # two ranks in threads so that the default arm's discard path runs
+    # too. Mid-loop rank 0 latches an error after the average: it votes
+    # False, and rank 1, voting True, learns of the discard from the
+    # barrier after its update was dispatched (overlapped: restored from
+    # the backup; decided: never run). Every parameter and state tensor
+    # of both ranks is then bitwise what it was, at its old address, and
+    # the two arms' trajectories are equal step for step, bitwise
+    import threading
+
+    from torchft_tpu_torch.comm.store import StoreServer
+    from torchft_tpu_torch.comm.transport import TcpCommContext
+    from torchft_tpu_torch.ddp import DistributedDataParallel
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.optim import (OptimizerWrapper, init_adam_state,
+                                         load_optimizer_state_dict)
+
+    def rank_main(mode, donate, rank, lighthouse, store, out):
+        w = torch.nn.Parameter(torch.ones(32))
+        adam = torch.optim.Adam([w], lr=0.1)
+        init_adam_state(adam)
+
+        def load_state_dict(sd):
+            with torch.no_grad():
+                w.copy_(sd["w"])
+            load_optimizer_state_dict(adam, sd["opt"])
+
+        manager = Manager(
+            comm=TcpCommContext(timeout=10.0), min_replica_size=1,
+            load_state_dict=load_state_dict,
+            state_dict=lambda: {"w": w.detach(), "opt": adam.state_dict()},
+            rank=rank, world_size=2, store_addr=store.addr,
+            lighthouse_addr=lighthouse.address(),
+            replica_id=f"donate_{mode}_", timeout=10.0, quorum_timeout=10.0,
+            connect_timeout=10.0, heartbeat_interval=0.05)
+        tensors = lambda: [w.detach()] + [  # noqa: E731
+            v for _, v in sorted(adam.state[w].items())]
+        try:
+            opt = OptimizerWrapper(manager, adam, donate_update=donate)
+            backups, real_backup = [], opt._backup
+            opt._backup = lambda: backups.append(1) or real_backup()
+            ddp = DistributedDataParallel(manager)
+            traj, injected = [], False
+            while len(traj) < 4:
+                opt.begin_step()
+                loss = ((w - 5.0 - rank) ** 2).mean()
+                loss.backward()
+                ddp.average_gradients([w])
+                if len(traj) == 2 and not injected:
+                    injected = True
+                    if rank == 0:
+                        # late, so rank 1's barrier is still waiting for
+                        # this vote when it dispatches its update
+                        time.sleep(0.2)
+                        manager.report_error(RuntimeError("injected"))
+                    before = [(t.clone(), t.data_ptr()) for t in tensors()]
+                    taken = len(backups)
+                    assert not opt.step()
+                    for t, (b, ptr) in zip(tensors(), before):
+                        assert torch.equal(t, b) and t.data_ptr() == ptr
+                    out[(mode, rank, "discard_backups")] = (
+                        len(backups) - taken)
+                    continue
+                assert opt.step()
+                traj.append([t.clone() for t in tensors()])
+            out[(mode, rank)] = traj
+        finally:
+            manager.shutdown(wait=False)
+
+    out, errors = {}, []
+    for mode, donate in (("overlapped", False), ("donated", True)):
+        lighthouse = Lighthouse(min_replicas=1, join_timeout_ms=100,
+                                heartbeat_timeout_ms=2000)
+        store = StoreServer()
+
+        def run(rank):
+            try:
+                rank_main(mode, donate, rank, lighthouse, store, out)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(r,)) for r in (0, 1)]
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+                assert not t.is_alive()
+        finally:
+            store.shutdown()
+            lighthouse.shutdown()
+        if errors:
+            raise errors[0]
+    # rank 0 voted False (no backup), rank 1 dispatched behind a backup;
+    # the donated arm takes none
+    assert out[("overlapped", 0, "discard_backups")] == 0
+    assert out[("overlapped", 1, "discard_backups")] == 1
+    assert out[("donated", 1, "discard_backups")] == 0
+    for rank in (0, 1):
+        assert len(out[("overlapped", rank)]) == 4
+        for a, b in zip(out[("overlapped", rank)], out[("donated", rank)]):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -6,8 +6,19 @@ a heal making the fused step re-read the state, the classic -> fused
 transition draining the fence, the fused trajectory equal to the classic
 one (bitwise here: on the CPU both paths run the same eager arithmetic),
 fence-stride batching of the loss readback, and the fused -> classic
-transition shrinking the fence. A stand-in manager decides the commits,
-as the reference's tests use a mock.
+transition shrinking the fence. The two classic arms, as the reference's
+seven ``donate_update`` tests: the default overlapped arm enqueues the
+update while the barrier is in flight (behind a backup), skips it on a
+False local vote, waits out and restores an update the group discards or
+whose barrier raises; the decided arm (``donate_update=True``) runs
+nothing on a discard; the arms are bitwise equal over 3 AdamW steps
+(stronger than the reference's rtol 1e-6: both update in place with the
+same arithmetic). Beyond the reference: every non-commit leaves each
+parameter and state tensor bitwise at its old address, a heal from the
+prologue survives a discard, a decision already final takes no backup,
+and both arms track the reference's wrapper at both ``donate_update``
+values. A stand-in manager decides the commits, as the reference's tests
+use a mock; it can hold a decision open until the wrapper asks for it.
 
 Against the reference itself: the commit arithmetic of both wrappers, and
 the port's fused step (``models.make_train_step``) from the JAX package's
@@ -31,19 +42,44 @@ import jax.numpy as jnp
 
 from torchft_tpu_torch.models import CONFIGS, GPT, from_jax_params
 from torchft_tpu_torch.models import make_train_step
-from torchft_tpu_torch.optim import OptimizerWrapper, load_optimizer_state_dict
+from torchft_tpu_torch.optim import (OptimizerWrapper, init_adam_state,
+                                     load_optimizer_state_dict)
+
+
+class HeldFuture(Future):
+    """A commit decision held open until its result is asked for: the
+    barrier RPC still in flight when the wrapper dispatches the update."""
+
+    def __init__(self, resolve):
+        super().__init__()
+        self._resolve = resolve
+
+    def result(self, timeout=None):
+        if not self.done():
+            self._resolve(self)
+        return super().result(timeout)
 
 
 class FakeManager:
-    """Just enough Manager for the wrapper: decisions set by the test."""
+    """Just enough Manager for the wrapper: decisions set by the test.
+    ``commit``: the global decision (True, False, or an exception the
+    barrier raises); ``local``: the local vote (``bool(commit)`` unless
+    set); ``held``: decisions held open until the wrapper resolves them
+    (else final when the prologue returns, as on an epoch-lease step);
+    ``prologue``: called in the prologue (a heal loading state)."""
 
-    def __init__(self, commit=True, solo=True, healed=False):
+    def __init__(self, commit=True, solo=True, healed=False, held=False,
+                 local=None, prologue=None):
         self.commit = commit
         self.solo = solo
         self.healed = healed
+        self.held = held
+        self.local = local
+        self.prologue = prologue
         self.step = 0
         self.errors = []
         self.quorum_error = None
+        self.events = []
 
     def start_quorum(self, **kw):
         pass
@@ -67,15 +103,28 @@ class FakeManager:
     def should_commit(self):
         return self.should_commit_async().result()
 
+    def finish_staging(self):
+        self.events.append("staged")
+
     def should_commit_async(self):
-        fut = Future()
-        if isinstance(self.commit, BaseException):
-            fut.set_exception(self.commit)
-        else:
-            if self.commit:
-                self.step += 1
-            fut.set_result(bool(self.commit))
-        fut.local_should_commit = bool(self.commit)
+        if self.prologue is not None:
+            self.prologue()
+        commit = self.commit
+
+        def resolve(fut):
+            self.events.append("decision")
+            if isinstance(commit, BaseException):
+                fut.set_exception(commit)
+            else:
+                if commit:
+                    self.step += 1
+                fut.set_result(bool(commit))
+
+        fut = HeldFuture(resolve)
+        if not self.held:
+            resolve(fut)
+        fut.local_should_commit = (bool(commit) if self.local is None
+                                   else self.local)
         return fut
 
 
@@ -257,6 +306,378 @@ def test_fused_to_classic_transition_shrinks_fence() -> None:
     assert len(opt._in_flight) == opt._fence_depth == 1
     assert [e[0] for e in opt._in_flight] == ["block"]
     assert opt.drain() == {**{i + 1: float(i) for i in range(8)}, 9: -1.0}
+
+
+# ------------------------------------- the overlapped and the decided arm
+
+
+def _adamw_params(seed=0, shapes=((4, 3), (5,), ())):
+    rng = np.random.default_rng(seed)
+    params = [torch.nn.Parameter(torch.tensor(
+        rng.standard_normal(s).astype(np.float32))) for s in shapes]
+    optimizer = torch.optim.AdamW(params, lr=1e-2, weight_decay=1e-2)
+    init_adam_state(optimizer)
+    return params, optimizer
+
+
+def _set_grads(params, rng):
+    for p in params:
+        p.grad = torch.tensor(rng.standard_normal(tuple(p.shape))
+                              .astype(np.float32))
+
+
+def _tensors(params, optimizer):
+    """Every parameter and state tensor, in order."""
+    out = [p.detach() for p in params]
+    for p in params:
+        out += [v for _, v in sorted(optimizer.state[p].items())]
+    return out
+
+
+def _snapshot(params, optimizer):
+    return [(t.clone(), t.data_ptr()) for t in _tensors(params, optimizer)]
+
+
+def _assert_unchanged(params, optimizer, snap):
+    now = _tensors(params, optimizer)
+    assert len(now) == len(snap)
+    for t, (before, ptr) in zip(now, snap):
+        assert torch.equal(t, before)
+        assert t.data_ptr() == ptr
+
+
+def _spy(monkeypatch, opt, name):
+    calls = []
+    real = getattr(opt, name)
+
+    def spy(*a):
+        calls.append(a)
+        return real(*a)
+
+    monkeypatch.setattr(opt, name, spy)
+    return calls
+
+
+def test_classic_step_overlaps_barrier_with_dispatch(monkeypatch) -> None:
+    # the default arm: the update is enqueued WHILE the barrier RPC is in
+    # flight, so a slow barrier costs max(rpc, update), not their sum
+    import threading
+    import time
+
+    w, sgd = _sgd_param()
+    manager = FakeManager()
+    rpc_s = 0.15
+
+    def _commit_async():
+        fut = Future()
+        fut.local_should_commit = True
+
+        def _resolve():
+            time.sleep(rpc_s)  # a slow two-phase-commit round trip
+            manager.events.append("decision")
+            fut.set_result(True)
+
+        threading.Thread(target=_resolve, daemon=True).start()
+        return fut
+
+    manager.should_commit_async = _commit_async
+    opt = OptimizerWrapper(manager, sgd)
+    real_step = sgd.step
+
+    def traced_step(*a, **kw):
+        manager.events.append("dispatch")
+        return real_step(*a, **kw)
+
+    monkeypatch.setattr(sgd, "step", traced_step)
+    _set_grad(w, 2.0)
+    t0 = time.perf_counter()
+    assert opt.step()
+    elapsed = time.perf_counter() - t0
+    # the served state staged first, then the dispatch strictly before the
+    # decision resolved: genuine overlap
+    assert manager.events == ["staged", "dispatch", "decision"]
+    assert elapsed < rpc_s * 2, f"step took {elapsed:.3f}s"
+    np.testing.assert_allclose(w.detach().numpy(), np.full(3, 0.8), rtol=1e-6)
+    assert "dispatch_avg_ms" in opt.classic_metrics.snapshot()
+
+
+def test_classic_step_skips_dispatch_on_false_local_vote(monkeypatch) -> None:
+    # a False local vote makes the global AND False: no backup, no update
+    params, adamw = _adamw_params()
+    _set_grads(params, np.random.default_rng(1))
+    manager = FakeManager(commit=False, held=True)
+    opt = OptimizerWrapper(manager, adamw)
+    backups = _spy(monkeypatch, opt, "_backup")
+    steps = _spy(monkeypatch, adamw, "step")
+    snap = _snapshot(params, adamw)
+    assert not opt.step()
+    assert not backups and not steps, "update dispatched on a False vote"
+    assert manager.events == ["decision"]
+    _assert_unchanged(params, adamw, snap)
+
+
+def test_donated_step_matches_overlapped_step(monkeypatch) -> None:
+    # the two arms over 3 committed AdamW steps on the same seeded values:
+    # bitwise equal parameters and state (the reference holds its two
+    # programs within rtol 1e-6; here both arms run the same in-place
+    # update, so nothing may differ), the overlapped arm taking a backup
+    # at every step
+    results = []
+    for donate in (False, True):
+        params, adamw = _adamw_params()
+        opt = OptimizerWrapper(FakeManager(held=True), adamw,
+                               donate_update=donate)
+        backups = _spy(monkeypatch, opt, "_backup")
+        rng = np.random.default_rng(2)
+        for _ in range(3):
+            _set_grads(params, rng)
+            assert opt.step()
+        assert len(backups) == (0 if donate else 3)
+        results.append(_tensors(params, adamw))
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+    # the first parameter's state, sorted: exp_avg, exp_avg_sq, step
+    assert int(results[0][len(params) + 2]) == 3
+
+
+def test_donated_step_noncommit_dispatches_nothing(monkeypatch) -> None:
+    # decide-then-apply: a discarded step runs no update and touches no
+    # tensor; the gradients stay as they were
+    params, adamw = _adamw_params()
+    _set_grads(params, np.random.default_rng(1))
+    grads = [p.grad.clone() for p in params]
+    opt = OptimizerWrapper(FakeManager(commit=False, local=True, held=True),
+                           adamw, donate_update=True)
+    steps = _spy(monkeypatch, adamw, "step")
+    backups = _spy(monkeypatch, opt, "_backup")
+    snap = _snapshot(params, adamw)
+    assert not opt.step()
+    assert not steps and not backups
+    _assert_unchanged(params, adamw, snap)
+    assert all(torch.equal(p.grad, g) for p, g in zip(params, grads))
+
+
+def test_donated_step_fence_survives_next_donation() -> None:
+    # two commits on the decided arm leave the fence holding the first's
+    # entry while the second updates the same tensors in place; a
+    # non-commit then drains both, and the values are the two updates'
+    w = torch.nn.Parameter(torch.ones(16))
+    sgd = torch.optim.SGD([w], lr=0.1)
+    manager = FakeManager()
+    opt = OptimizerWrapper(manager, sgd, fence_depth=2, donate_update=True)
+    for loss in (1.0, 2.0):
+        w.grad = torch.full((16,), 0.5)
+        assert opt.step(torch.tensor(loss))
+    assert [e[0] for e in opt._in_flight] == ["block", "block"]
+    manager.commit = False
+    w.grad = torch.full((16,), 0.5)
+    assert not opt.step(torch.tensor(3.0))
+    assert opt._in_flight == []
+    assert opt.take_losses() == {1: 1.0, 2: 2.0}
+    np.testing.assert_allclose(w.detach().numpy(), np.full(16, 0.9),
+                               rtol=1e-6)
+
+
+def test_overlapped_discard_awaits_dispatched_program(monkeypatch) -> None:
+    # a dispatched update the group does not adopt (local vote True, global
+    # decision False) is restored and waited out: a peer voting False for
+    # M steps leaves no update queued
+    params, adamw = _adamw_params()
+    opt = OptimizerWrapper(FakeManager(commit=False, local=True, held=True),
+                           adamw)
+    waited = []
+    real_wait = opt._wait_batch
+    monkeypatch.setattr(opt, "_wait_batch", lambda entries: (
+        waited.extend(entries), real_wait(entries)))
+    rng = np.random.default_rng(3)
+    snap = _snapshot(params, adamw)
+    for _ in range(3):
+        _set_grads(params, rng)
+        assert not opt.step()
+    # every discarded step waited on exactly its own update
+    assert [e[0] for e in waited] == ["block"] * 3
+    _assert_unchanged(params, adamw, snap)
+
+
+def test_overlapped_step_awaits_dispatch_when_barrier_raises(
+        monkeypatch) -> None:
+    # a barrier that fails after the dispatch (a wedged manager, a timeout)
+    # restores the backup and waits the update out before re-raising
+    params, adamw = _adamw_params()
+    _set_grads(params, np.random.default_rng(4))
+    manager = FakeManager(commit=TimeoutError("barrier timed out"),
+                          held=True)
+    opt = OptimizerWrapper(manager, adamw)
+    waited = []
+    real_wait = opt._wait_batch
+    monkeypatch.setattr(opt, "_wait_batch", lambda entries: (
+        waited.extend(entries), real_wait(entries)))
+    snap = _snapshot(params, adamw)
+    with pytest.raises(TimeoutError):
+        opt.step()
+    assert [e[0] for e in waited] == ["block"], waited
+    _assert_unchanged(params, adamw, snap)
+
+
+@pytest.mark.parametrize("case", ["discard", "local_false", "raises"])
+def test_overlapped_noncommit_leaves_state_bitwise_in_place(case) -> None:
+    # after a committed step (so the moments are non-zero and the step
+    # count moved), each way a step fails to commit leaves every parameter
+    # and state tensor bitwise what it was, at its old address
+    params, adamw = _adamw_params()
+    manager = FakeManager(held=True)
+    opt = OptimizerWrapper(manager, adamw)
+    rng = np.random.default_rng(5)
+    _set_grads(params, rng)
+    assert opt.step()
+    manager.commit, manager.local = {
+        "discard": (False, True), "local_false": (False, False),
+        "raises": (ConnectionError("barrier lost"), True)}[case]
+    _set_grads(params, rng)
+    snap = _snapshot(params, adamw)
+    if case == "raises":
+        with pytest.raises(ConnectionError):
+            opt.step()
+    else:
+        assert not opt.step()
+    _assert_unchanged(params, adamw, snap)
+    # and the next committed step is the one a clean history gives
+    manager.commit, manager.local = True, None
+    assert opt.step()
+    ref_params, ref_adamw = _adamw_params()
+    rng = np.random.default_rng(5)
+    for _ in range(2):
+        _set_grads(ref_params, rng)
+        ref_adamw.step()
+    for a, b in zip(_tensors(params, adamw), _tensors(ref_params, ref_adamw)):
+        assert torch.equal(a, b)
+
+
+def test_overlapped_discard_keeps_a_heal_from_the_prologue() -> None:
+    # a heal loads the donor's state in the prologue; the backup is taken
+    # after it, so a discarded step restores the healed state, not the
+    # pre-heal one
+    donor, donor_opt = _adamw_params(seed=7)
+    rng = np.random.default_rng(6)
+    for _ in range(2):
+        _set_grads(donor, rng)
+        donor_opt.step()
+    params, adamw = _adamw_params()
+
+    def heal():
+        with torch.no_grad():
+            for p, d in zip(params, donor):
+                p.copy_(d)
+        load_optimizer_state_dict(adamw, donor_opt.state_dict())
+
+    manager = FakeManager(commit=False, local=True, held=True, healed=True,
+                          prologue=heal)
+    opt = OptimizerWrapper(manager, adamw)
+    ptrs = [t.data_ptr() for t in _tensors(params, adamw)]
+    _set_grads(params, rng)
+    assert not opt.step()
+    for a, b in zip(_tensors(params, adamw), _tensors(donor, donor_opt)):
+        assert torch.equal(a, b)
+    assert [t.data_ptr() for t in _tensors(params, adamw)] == ptrs
+
+
+def test_overlapped_step_takes_no_backup_once_the_decision_is_final(
+        monkeypatch) -> None:
+    # a decision already final when the prologue returns (an epoch-lease
+    # step) runs decide-then-apply: no backup; a decision still in flight
+    # takes one. Both land on the same values
+    results = []
+    for held in (True, False):
+        params, adamw = _adamw_params()
+        manager = FakeManager(held=held)
+        opt = OptimizerWrapper(manager, adamw)
+        backups = _spy(monkeypatch, opt, "_backup")
+        _set_grads(params, np.random.default_rng(8))
+        assert opt.step()
+        assert len(backups) == (1 if held else 0)
+        assert manager.events == (["staged", "decision"] if held
+                                  else ["decision"])
+        results.append(_tensors(params, adamw))
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+
+
+def test_update_window_wraps_each_arm_update() -> None:
+    # the window opens after the prologue and closes after the update
+    # (overlapped: after the decision and the drop or the restore)
+    from contextlib import contextmanager
+
+    for donate, held in ((False, True), (True, True), (False, False)):
+        w, sgd = _sgd_param()
+        manager = FakeManager(held=held)
+        order = []
+
+        @contextmanager
+        def window():
+            order.append("open")
+            yield
+            order.append("close")
+
+        manager.prologue = lambda: order.append("prologue")
+        real_step = sgd.step
+        sgd.step = lambda *a, **k: (order.append("update"),
+                                    real_step(*a, **k))[1]
+        opt = OptimizerWrapper(manager, sgd, donate_update=donate,
+                               update_window=window)
+        _set_grad(w, 2.0)
+        assert opt.step()
+        assert order == ["prologue", "open", "update", "close"], (donate,
+                                                                  held)
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_both_arms_track_the_reference_wrapper(donate) -> None:
+    # the port's two arms and the reference's OptimizerWrapper at the same
+    # donate_update, from the same "tiny" parameters (from_jax_params) and
+    # the same seeded gradients, 3 committed AdamW steps: every parameter
+    # within this file's 1e-4 absolute (torch's AdamW and optax's adamw
+    # round in another order), and the port's arms bitwise each other
+    import optax
+
+    from torchft_tpu.models import transformer as jtf
+    from torchft_tpu.optim import OptimizerWrapper as JaxWrapper
+
+    jcfg = dataclasses.replace(jtf.CONFIGS["tiny"], dtype=jnp.float32)
+    params = jax.device_get(jtf.init_params(jcfg, jax.random.key(0)))
+    rng = np.random.default_rng(9)
+    grads = [jax.tree_util.tree_map(
+        lambda a: rng.standard_normal(a.shape).astype(np.float32), params)
+        for _ in range(3)]
+    jopt = JaxWrapper(FakeManager(held=True), optax.adamw(3e-4),
+                      donate_update=donate)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    jstate = jopt.init(jparams)
+    for g in grads:
+        jparams, jstate, ok = jopt.step(
+            jparams, jstate, jax.tree_util.tree_map(jnp.asarray, g))
+        assert ok
+    want = from_jax_params(jax.device_get(jparams))
+    cfg = dataclasses.replace(CONFIGS["tiny"], dtype=torch.float32)
+    arms = []
+    for port_donate in (False, True):
+        model = GPT(cfg, device="cpu")
+        model.load_state_dict(from_jax_params(params))
+        adamw = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                  weight_decay=1e-4)
+        init_adam_state(adamw)
+        opt = OptimizerWrapper(FakeManager(held=True), adamw,
+                               donate_update=port_donate)
+        named = dict(model.named_parameters())
+        for g in grads:
+            for name, value in from_jax_params(g).items():
+                named[name].grad = value.clone()
+            assert opt.step()
+        for name, p in named.items():
+            np.testing.assert_allclose(p.detach().numpy(),
+                                       want[name].numpy(), rtol=0,
+                                       atol=1e-4, err_msg=name)
+        arms.append([p.detach().clone() for p in model.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*arms))
 
 
 # ---------------------------------------------------- the fused train step

@@ -412,19 +412,32 @@ def test_hsdp_mesh_takes_a_card_a_position_while_there_are_cards(
     assert example.default_axes(3) == {"fsdp": 3, "tensor": 1}
 
 
-def test_train_hsdp_example_runs() -> None:
-    # the example end to end as a process against a fresh lighthouse, on a
-    # virtual mesh of 4 CPU positions (MESH_DEVICES), where the reference
-    # forces 8 host devices
+def _run_example(**extra_env):
     lh = Lighthouse(min_replicas=1, join_timeout_ms=200)
     env = dict(os.environ, TORCHFT_TPU_LIGHTHOUSE=lh.address(),
                REPLICA_GROUP_ID="0", LOGLEVEL="ERROR", DEVICE="cpu",
-               TOTAL_STEPS="3", MESH_DEVICES="4")
+               TOTAL_STEPS="3", MESH_DEVICES="4", **extra_env)
     try:
-        proc = subprocess.run(
+        return subprocess.run(
             [sys.executable, "-m", "torchft_tpu_torch.examples.train_hsdp"],
             env=env, capture_output=True, text=True, timeout=180, cwd=_ROOT)
     finally:
         lh.shutdown()
+
+
+def test_train_hsdp_example_runs() -> None:
+    # the example end to end as a process against a fresh lighthouse, on a
+    # virtual mesh of 4 CPU positions (MESH_DEVICES), where the reference
+    # forces 8 host devices
+    proc = _run_example()
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "step 3" in proc.stdout and "done" in proc.stdout, proc.stdout
+
+
+def test_train_hsdp_example_donated_update() -> None:
+    # the twin of tests/test_apps.py's: the same example with the
+    # decide-then-apply commit (TORCHFT_TPU_DONATE_UPDATE=1, no transient
+    # backup) trains end to end over the sharded state
+    proc = _run_example(TORCHFT_TPU_DONATE_UPDATE="1")
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "step 3" in proc.stdout and "done" in proc.stdout, proc.stdout

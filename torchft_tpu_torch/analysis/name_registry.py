@@ -46,9 +46,10 @@ __all__ = ["check", "parse_docs_registry", "collect_code_names",
 
 CHECKER = "name-registry"
 
-# ``_fused_timed``: OptimizerWrapper's timer over both of its sinks
+# ``_fused_timed``, ``_classic_timed``: OptimizerWrapper's timers over
+# both of their sinks
 _METRIC_METHODS = {"incr", "gauge", "observe", "timed", "label",
-                   "_fused_timed"}
+                   "_fused_timed", "_classic_timed"}
 _HELPER_DERIVED = {
     "timed_span": ("{}",),
     "throughput_span": ("{}", "{}_bytes", "{}_bytes_per_s"),

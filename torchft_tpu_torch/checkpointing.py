@@ -569,6 +569,10 @@ class CheckpointTransport(ABC, Generic[T]):
     def disallow_checkpoint(self) -> None:  # noqa: B027 — optional hook
         """Close the serving gate (training may mutate state again)."""
 
+    def finish_staging(self) -> None:  # noqa: B027 — optional hook
+        """Return once the staged state no longer reads the live tensors
+        (training may mutate them while the gate stays open)."""
+
     @abstractmethod
     def recv_checkpoint(self, src_rank: int, metadata: str, step: int,
                         timeout: "float | timedelta") -> T:
@@ -952,6 +956,12 @@ class CheckpointServer(CheckpointTransport[T]):
                 slot.run()
 
         _heal_executor("stage").submit(_drain)
+
+    def finish_staging(self) -> None:
+        with self._cond:
+            staged = self._staged
+        if staged is not None:
+            staged.finish_staging(self._timeout)
 
     def disallow_checkpoint(self) -> None:
         with self._cond:

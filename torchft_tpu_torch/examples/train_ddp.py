@@ -22,8 +22,11 @@ Each step takes one of the reference's two paths: on a solo wire (no
 data-plane peer) ``opt.can_fuse()`` -> ``opt.fused_step(train_step, ...)``,
 forward, backward and AdamW as one CUDA graph; otherwise forward/backward,
 ``ddp.average_gradients`` (the streamed per-bucket pipeline; ``streamed=
-False`` is its lock-step arm), ``opt.step()``. Losses come back through the
-optimizer wrapper's fence, in batches, never one sync per step.
+False`` is its lock-step arm), ``opt.step()``: the reference's default
+overlapped commit, the update beside the barrier RPC behind a backup that
+a discard restores (``train_group(donate_update=True)`` decides first and
+updates in place). Losses come back through the optimizer wrapper's
+fence, in batches, never one sync per step.
 
 ``SHARDED=1`` switches the weight update to the cross-replica sharded path
 (``optim.ShardedOptimizerWrapper``: reduce-scatter, a 1/N update with
@@ -70,6 +73,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from concurrent.futures import Future
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -115,6 +119,7 @@ from torchft_tpu_torch.optim import (
     OptimizerWrapper,
     ShardedOptimizerWrapper,
     adamw,
+    init_adam_state,
     load_optimizer_state_dict,
 )
 from torchft_tpu_torch.utils.device import resolve_device
@@ -263,9 +268,11 @@ class GroupRun:
     checkpoints: List[Dict[str, Any]] = field(default_factory=list)
     # the manager's metrics snapshot at the end (phase timers, heal gauges,
     # lease counters) and the optimizer wrapper's of its fused steps
-    # (barrier, dispatch, fence, transition_drain)
+    # (barrier, dispatch, fence, transition_drain) and of its classic ones
+    # (prologue, dispatch, barrier, fence)
     metrics: Dict[str, object] = field(default_factory=dict)
     fused_metrics: Dict[str, object] = field(default_factory=dict)
+    classic_metrics: Dict[str, object] = field(default_factory=dict)
     recorded: Dict[int, Tuple[List[np.ndarray], List[np.ndarray]]] = field(
         default_factory=dict)
     # digests (sha256) of the parameters after each committed step, and of
@@ -353,6 +360,8 @@ def train_group(
     sharded: Optional[bool] = None,
     digest_params: bool = False,
     digest_averages: bool = False,
+    donate_update: bool = False,
+    update_window: Optional[Callable[[], Any]] = None,
     run: Optional[GroupRun] = None,
 ) -> GroupRun:
     """Train one replica group until ``total_steps`` steps are committed
@@ -390,7 +399,11 @@ def train_group(
     that wrapper's replicated arm, its bitwise oracle.
     ``digest_params``/``digest_averages``: keep
     sha256 digests of the parameters after each commit, and of the averaged
-    gradients with DDP's residuals after each average. ``run``: the
+    gradients with DDP's residuals after each average.
+    ``donate_update``/``update_window``: ``OptimizerWrapper``'s commit
+    arm (False: the update overlaps the barrier behind a backup; True:
+    decide, then update in place) and the context entered around each
+    classic update. ``run``: the
     :class:`GroupRun` to fill (a new one by default), so that a hook can
     read it while the group trains: its ``passes`` count every pass so far,
     the captures' warm-up passes included.
@@ -413,6 +426,9 @@ def train_group(
     optimizer = torch.optim.AdamW(model.parameters(), lr=3e-4,
                                   weight_decay=1e-4,
                                   capturable=device.type == "cuda")
+    if sharded is None:
+        # its state now, as optax's init: no update allocates the moments
+        init_adam_state(optimizer)
     sharded_opt: Optional[ShardedOptimizerWrapper] = None
     # synthetic next-token dataset, sharded across groups x local ranks
     rng = np.random.default_rng(data_seed)
@@ -474,7 +490,8 @@ def train_group(
             timeout=timeout, defer_paths=OPT_SLOTS_PATH_RE),
     )
     ddp = DistributedDataParallel(manager, streamed=streamed)
-    opt = OptimizerWrapper(manager, optimizer)
+    opt = OptimizerWrapper(manager, optimizer, donate_update=donate_update,
+                           update_window=update_window)
     if sharded is not None:
         sharded_opt = ShardedOptimizerWrapper(
             manager, adamw(3e-4, weight_decay=1e-4), model, sharded=sharded)
@@ -635,6 +652,7 @@ def train_group(
             run.checkpoints = list(writer.saves)
         run.metrics = manager.metrics.snapshot()
         run.fused_metrics = opt.fused_metrics.snapshot()
+        run.classic_metrics = opt.classic_metrics.snapshot()
         run.buckets = (ddp.bucket_sizes() if sharded_opt is None
                        else sharded_opt.bucket_sizes())
         if manager.events:
@@ -1035,7 +1053,9 @@ def _proc_group_main(cfg: TransformerConfig, env: Dict[str, str],
     seconds of CUDA's initialisation, the kernels' load and the model's
     build; ``("commit", ...)`` after every commit (participants, heal,
     parameter digest, passes so far, cumulative flash launches, device
-    memory, loss); ``("done", ...)`` with the run's summary, or
+    memory, loss, and ``update_rise``: the bytes a classic update
+    allocated beyond those allocated as it began, None for a fused commit
+    and on the CPU); ``("done", ...)`` with the run's summary, or
     ``("error", ..., traceback)``. ``waits`` gates the schedule:
     ``waits["start"]`` before the first quorum, ``waits[step]`` after the
     commit of ``step`` (:func:`_drill_wait`)."""
@@ -1066,14 +1086,34 @@ def _proc_group_main(cfg: TransformerConfig, env: Dict[str, str],
         run = GroupRun()
         t_build = time.perf_counter()
 
+        # the peak before the last reset of the allocator's statistics,
+        # the manager, and each classic commit's update rise by step
+        held: Dict[str, Any] = {"peak": 0, "manager": None, "rises": {}}
+
         def memory() -> Dict[str, Optional[int]]:
             if not cuda:
                 return {"peak": None, "allocated": None, "reserved": None}
-            return {"peak": torch.cuda.max_memory_allocated(device),
+            return {"peak": max(held["peak"],
+                                torch.cuda.max_memory_allocated(device)),
                     "allocated": torch.cuda.memory_allocated(device),
                     "reserved": torch.cuda.memory_reserved(device)}
 
+        @contextmanager
+        def update_window():
+            # a classic update's rise: the most allocated in its window
+            # beyond what was allocated as it began
+            if not cuda:
+                yield
+                return
+            held["peak"] = memory()["peak"]
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            yield
+            held["rises"][held["manager"].current_step()] = (
+                torch.cuda.max_memory_allocated(device) - base)
+
         def on_start(manager: Manager) -> None:
+            held["manager"] = manager
             startup["model_build_s"] = time.perf_counter() - t_build
             queue.put(("started", group, incarnation, time.time(), startup))
             for what in waits.get("start", ()):
@@ -1084,7 +1124,8 @@ def _proc_group_main(cfg: TransformerConfig, env: Dict[str, str],
                 step=step, participants=manager.num_participants(),
                 healed=manager.did_heal(), digest=run.param_digests[step],
                 passes=run.passes, launches=dict(LAUNCHES),
-                loss=float(loss), **memory())))
+                loss=float(loss), update_rise=held["rises"].pop(step, None),
+                **memory())))
             for what in waits.get(step, ()):
                 _drill_wait(what, addr, timeout, stop)
 
@@ -1092,7 +1133,8 @@ def _proc_group_main(cfg: TransformerConfig, env: Dict[str, str],
             cfg, replica_group=group,
             num_groups=int(os.environ["NUM_REPLICA_GROUPS"]),
             store_addr=store.addr, on_start=on_start, on_commit=on_commit,
-            stop=stop, digest_params=True, run=run, **train_kwargs)
+            stop=stop, digest_params=True, update_window=update_window,
+            run=run, **train_kwargs)
         keep = ("heal_wall_ms", "heal_wire_bytes", "heal_bytes_per_s",
                 "quorum_p50_ms", "forward_backward_p50_ms", "ddp_wire_p50_ms",
                 "commit_barrier_p50_ms")
@@ -1102,6 +1144,8 @@ def _proc_group_main(cfg: TransformerConfig, env: Dict[str, str],
             losses=run.losses, fused_steps=run.fused_steps,
             captures=run.captures, step_seconds=run.step_seconds,
             metrics={k: run.metrics[k] for k in keep if k in run.metrics},
+            classic_metrics={k: v for k, v in run.classic_metrics.items()
+                             if k.endswith("_p50_ms")},
             events=[e for e in run.events if e["kind"] in (
                 "error_latched", "step_discard", "heal_start", "heal_done")],
             **memory())))
@@ -1126,6 +1170,7 @@ def run_process_drill(
     timeout: float = 60.0,
     base_manager_port: Optional[int] = None,
     base_store_port: Optional[int] = None,
+    donate_update: Sequence[bool] = (False, False),
     log: Callable[[str], None] = logger.info,
 ) -> Dict[str, object]:
     """Two replica groups, each its own OS process (multiprocessing's
@@ -1152,7 +1197,9 @@ def run_process_drill(
     the environment ``launcher.hsdp_spec`` writes for it (manager port
     ``base_manager_port + i``, store port ``base_store_port + i``; free
     ports are found when these are None or taken), and posts its commits
-    to a queue of its own. On the card this process reads the card's free
+    to a queue of its own; group ``g`` commits by ``OptimizerWrapper``'s
+    arm ``donate_update[g]`` in both its lives, so the digests also hold
+    the two arms equal. On the card this process reads the card's free
     memory (``torch.cuda.mem_get_info``) before the groups start, at the
     kill, once the victim is reaped and after the drill.
 
@@ -1168,7 +1215,8 @@ def run_process_drill(
     within 1 GiB of that value after the drill. Returns the commits by
     (group, incarnation), the started and done messages, the kill-to-heal
     timeline (``timeline``), the memory readings (``memory``), the heal
-    step, the steps more than one life committed and the passes."""
+    step, the steps more than one life committed, the passes and each
+    group's arm (``donate_update``)."""
     import multiprocessing as mp
     import queue as queue_mod
 
@@ -1222,7 +1270,8 @@ def run_process_drill(
         queues[key] = ctx.Queue()
         kwargs = dict(device=str(device), batch_size=batch_size,
                       init_seed=seed + 1000 * inc, data_seed=seed,
-                      timeout=timeout, total_steps=total)
+                      timeout=timeout, total_steps=total,
+                      donate_update=bool(donate_update[group]))
         p = ctx.Process(
             target=_proc_group_main, name=f"group{group}_life{inc}",
             args=(cfg, env[group], inc, kwargs, waits[key], queues[key],
@@ -1412,6 +1461,7 @@ def run_process_drill(
             "passes": {key: body["passes"] for key, body in last.items()},
             "launches": {key: body["launches"] for key, body in last.items()},
             "peaks": {key: body["peak"] for key, body in last.items()},
+            "donate_update": tuple(bool(d) for d in donate_update),
             "total": total, "seconds": time.perf_counter() - t_start}
 
 

@@ -26,7 +26,9 @@ virtual mesh, the reference's ``--xla_force_host_platform_device_count``).
 It runs on CUDA (``DEVICE=cpu`` for the CPU). The loop is the reference's:
 DDP, ``OptimizerWrapper`` over AdamW (3e-4) in optax's order, stepped on
 the pieces (``optim.TransformationOptimizer``), batches of 8 from
-``np.random.default_rng(group)``.
+``np.random.default_rng(group)``. ``TORCHFT_TPU_DONATE_UPDATE=1`` picks
+the wrapper's decide-then-apply arm, for a model that barely fits: no
+transient backup of the parameters and state, the barrier RPC exposed.
 
 ``train_hsdp_group`` is one group's loop as a function;
 ``run_hsdp_drill`` drives two groups in threads through a kill of group 1
@@ -142,6 +144,7 @@ def train_hsdp_group(
     on_heal: Optional[Callable[[Dict[str, Any], ShardedGPT], None]] = None,
     stop: Optional[threading.Event] = None,
     timeout: float = 60.0,
+    donate_update: bool = False,
 ) -> GroupRun:
     """Train replica group ``replica_group`` until ``total_steps`` steps
     are committed (or ``stop`` is set), its GPT sharded over ``mesh`` (a
@@ -157,8 +160,9 @@ def train_hsdp_group(
     checkpoint are released first. ``on_start(manager)`` runs once the
     manager exists, ``on_commit(step, manager, model, optimizer, loss)``
     after every commit, ``on_heal(state, model)`` with a healed state
-    before it is loaded. A CUDA run of a config whose head_dim the flash
-    kernels do not take raises ValueError here."""
+    before it is loaded. ``donate_update``: ``OptimizerWrapper``'s arm. A
+    CUDA run of a config whose head_dim the flash kernels do not take
+    raises ValueError here."""
     device = resolve_device(device)
     if device.type == "cuda":
         check_head_dim(f"train_hsdp_group: config with d_model "
@@ -199,7 +203,7 @@ def train_hsdp_group(
         heartbeat_interval=0.05,
     )
     ddp = DistributedDataParallel(manager)
-    opt = OptimizerWrapper(manager, optimizer)
+    opt = OptimizerWrapper(manager, optimizer, donate_update=donate_update)
     run = GroupRun(replica_id=manager.replica_id())
     rng = np.random.default_rng(replica_group)
     try:
@@ -497,7 +501,9 @@ def main(mesh_devices: Optional[int] = None) -> None:
         cfg, mesh, replica_group=replica_group, total_steps=total_steps,
         device=device, rank=int(os.environ.get("RANK", "0")),
         world_size=int(os.environ.get("WORLD_SIZE", "1")),
-        on_commit=on_commit)
+        on_commit=on_commit,
+        # the HBM-bound shape: decide first, no transient backup
+        donate_update=os.environ.get("TORCHFT_TPU_DONATE_UPDATE") == "1")
     print(f"[group {replica_group}] done")
 
 

@@ -979,6 +979,16 @@ class Manager:
         => the optimizer may be stepped."""
         return self.should_commit_async(timeout=timeout).result()
 
+    def finish_staging(self) -> None:
+        """Return once the checkpoint this replica serves to healers has
+        been copied off the training state, which the caller may then
+        update in place before the barrier closes the serving gate (the
+        overlapped ``OptimizerWrapper.step``). A transport without the
+        hook stages nothing lazily."""
+        finish = getattr(self._checkpoint_transport, "finish_staging", None)
+        if finish is not None:
+            finish()
+
     def set_commit_hook(
         self, hook: "Optional[Callable[[int, int], None]]"
     ) -> None:

@@ -6,14 +6,24 @@ torchft shape over a ``torch.optim.Optimizer``: ``begin_step`` (alias
 ``optimizer.step()`` only if the replica group commits, and returns whether
 it did.
 
-Two paths, as in the reference:
+Three paths, as in the reference:
 
-- classic (``step``): decide, then apply. Torch updates in place, which is
-  the reference's ``donate_update=True`` arm: the commit barrier runs
-  first and a discarded step touches nothing. (The reference's default
-  overlapped arm dispatches the update beside the barrier RPC and drops it
-  on a discard; in torch that needs a second copy of parameters and
-  optimizer state, and is not ported.)
+- classic, overlapped (``step``, the default ``donate_update=False``): the
+  prologue (``should_commit_async``: drain the collectives, apply a pending
+  heal, cast the local vote), then a backup of every parameter and
+  optimizer-state tensor and ``optimizer.step()`` enqueued while the
+  barrier RPC rides the manager's executor. A commit drops the backup; a
+  discard, or a barrier that raises, copies it back in place, ordered
+  after the update on the same stream, so every tensor is bitwise what it
+  was and keeps its address. The reference's non-donated update allocates
+  its outputs beside its inputs; here the backup is that transient second
+  footprint (12 bytes a parameter for f32 AdamW). A False local vote takes
+  no backup and dispatches nothing; a decision already final when the
+  prologue returns (an epoch-lease step) runs as the decided path.
+- classic, decided (``donate_update=True``): the barrier first, then the
+  update in place, the reference's donated program; a discarded step
+  touches nothing and no second footprint is ever allocated, but the
+  barrier RPC is exposed.
 - fused (``can_fuse`` -> ``fused_step``): on a solo wire the average is an
   identity, so the barrier runs first and then one fused forward +
   backward + update, a CUDA graph on the card (``models.make_train_step``).
@@ -22,7 +32,11 @@ A heal applies the donor's state through the user's ``load_state_dict``
 inside the barrier, into the very tensors this optimizer holds, so the
 committed update lands on the healed state. ``fused_step`` then has the
 fused function re-read the state (``sync_state``), so a load that replaced
-tensors makes the graph re-capture.
+tensors makes the graph re-capture. The overlapped path takes its backup
+after the prologue, so a discard restores the healed state; and since its
+update lands before the barrier closes the serving gate, it first waits
+until the state this replica serves to a healer has been copied off the
+live tensors (``Manager.finish_staging``).
 
 The fence bounds how far the host runs ahead of the card: each committed
 step pushes an entry (a CUDA event, and the step's loss), and the entry from
@@ -32,7 +46,8 @@ entry waits its event at once. Every non-committing step drains the fence.
 The losses read back land in ``take_losses()``, keyed by the step count
 after the commit. ``metrics`` times ``prologue``, ``barrier``,
 ``dispatch``, ``fence`` and ``transition_drain`` over every step, the
-reference's names; ``fused_metrics`` the same phases of fused steps alone.
+reference's names; ``fused_metrics`` and ``classic_metrics`` the same
+phases of fused steps alone and of classic steps alone.
 
 ``step`` also takes the future ``DistributedDataParallel.average_gradients_async``
 returned and resolves it before the prologue: a loop may submit the average
@@ -60,8 +75,9 @@ from __future__ import annotations
 import logging
 import time
 from concurrent.futures import Future
-from contextlib import contextmanager
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from contextlib import contextmanager, nullcontext
+from typing import (Any, Callable, ContextManager, Dict, Iterator, List,
+                    Optional, Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -174,13 +190,38 @@ def load_optimizer_state_dict(optimizer: torch.optim.Optimizer,
                     state[k] = v
 
 
+def _copy_batched(dst: List[torch.Tensor], src: List[torch.Tensor]) -> None:
+    """``d.copy_(s)`` for each pair, one ``_foreach_copy_`` per device and
+    dtype (a few launches on the card, not one a tensor)."""
+    groups: Dict[Tuple[torch.device, torch.dtype], Tuple[list, list]] = {}
+    for d, s in zip(dst, src):
+        ds, ss = groups.setdefault((d.device, d.dtype), ([], []))
+        ds.append(d)
+        ss.append(s)
+    with torch.no_grad():
+        for ds, ss in groups.values():
+            torch._foreach_copy_(ds, ss)
+
+
 class OptimizerWrapper:
     """Gates ``optimizer.step()`` on the manager's two-phase commit."""
 
     def __init__(self, manager, optimizer: torch.optim.Optimizer,
-                 fence_depth: int = 1, fence_stride: int = 8) -> None:
+                 fence_depth: int = 1, fence_stride: int = 8,
+                 donate_update: bool = False,
+                 update_window: Optional[
+                     Callable[[], ContextManager[Any]]] = None) -> None:
+        """``donate_update``: False (the reference's default) overlaps the
+        update with the barrier RPC behind a backup; True decides first
+        and updates in place (module docstring). ``update_window()``: a
+        context manager entered around each classic step's update, after
+        the prologue (overlapped: the backup, the update, the decision and
+        the restore or the drop; decided: the update), for a caller that
+        reads the device memory the update takes."""
         self.manager = manager
         self.optimizer = optimizer
+        self._donate_update = bool(donate_update)
+        self._update_window = update_window or nullcontext
         # entries (kind, event, loss, step): "block" for a classic step,
         # "readback" for a fused one
         self._fence_depth = fence_depth
@@ -193,11 +234,18 @@ class OptimizerWrapper:
         self.classic_steps = 0
         self.metrics = Metrics(window=512)
         self.fused_metrics = Metrics(window=512)
+        self.classic_metrics = Metrics(window=512)
 
     @contextmanager
     def _fused_timed(self, name: str) -> Iterator[None]:
         """Time a fused step's phase into both sinks."""
         with self.metrics.timed(name), self.fused_metrics.timed(name):
+            yield
+
+    @contextmanager
+    def _classic_timed(self, name: str) -> Iterator[None]:
+        """Time a classic step's phase into both sinks."""
+        with self.metrics.timed(name), self.classic_metrics.timed(name):
             yield
 
     def begin_step(self, **kwargs) -> None:
@@ -225,22 +273,98 @@ class OptimizerWrapper:
                 grads.result()
             except Exception as e:  # noqa: BLE001 — the barrier discards
                 self.manager.report_error(e)
-        with self.metrics.timed("prologue"):
+        with self._classic_timed("prologue"):
             decision = self.manager.should_commit_async()
+        if self._donate_update or decision.done():
+            return self._step_decided(decision, loss)
+        backup = None
+        with self._update_window():
+            if getattr(decision, "local_should_commit", True):
+                with self._classic_timed("dispatch"):
+                    # healers read host copies of the served state: finish
+                    # them before the update lands on the live tensors
+                    self.manager.finish_staging()
+                    backup = self._backup()
+                    self.optimizer.step()
+            # the exposed barrier: what the RPC costs beyond the dispatch
+            try:
+                with self._classic_timed("barrier"):
+                    committed = bool(decision.result())
+            except BaseException:
+                self._roll_back(backup)
+                self._drain_fence()
+                raise
+            if not (committed and backup is not None):
+                self._drain_fence()
+                self._roll_back(backup)
+                return False
+            backup = None  # the allocator frees the second footprint
+        with self._classic_timed("fence"):
+            self._push_fence("block", loss)
+        return True
+
+    def _step_decided(self, decision: Future,
+                      loss: Optional[torch.Tensor]) -> bool:
+        """Decide, then apply in place: the donated arm, and any step whose
+        decision was final when the prologue returned."""
         try:
-            with self.metrics.timed("barrier"):
+            with self._classic_timed("barrier"):
                 committed = bool(decision.result())
         except BaseException:
             self._drain_fence()
             raise
         if committed:
-            with self.metrics.timed("dispatch"):
+            with self._update_window(), self._classic_timed("dispatch"):
                 self.optimizer.step()
-            with self.metrics.timed("fence"):
+            with self._classic_timed("fence"):
                 self._push_fence("block", loss)
             return True
         self._drain_fence()
         return False
+
+    def _backup(self) -> Tuple[list, List[torch.Tensor],
+                               List[torch.Tensor]]:
+        """A copy of every parameter and optimizer-state tensor, on its
+        tensor's device and current stream, one batched copy per device
+        and dtype; and each parameter's state entries as they are now
+        (None where the step creates the state lazily)."""
+        states, live = [], []
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                state = self.optimizer.state.get(p)
+                live.append(p.detach())
+                states.append((p, None if state is None else dict(state)))
+                if state is not None:
+                    live += [v for v in state.values()
+                             if isinstance(v, torch.Tensor)]
+        copies = [torch.empty_like(t) for t in live]
+        _copy_batched(copies, live)
+        return states, live, copies
+
+    def _roll_back(self, backup) -> None:
+        """Copy ``backup`` back into the same tensors (their addresses,
+        which a captured CUDA graph and DDP's views hold, do not move), put
+        back each state's entries, free the copies, and wait out the update
+        that was not adopted with its restore: a run of discards must not
+        leave programs queued without bound."""
+        if backup is None:
+            return
+        states, live, copies = backup
+        _copy_batched(live, copies)
+        for p, saved in states:
+            if saved is None:
+                self.optimizer.state.pop(p, None)
+            else:
+                state = self.optimizer.state[p]
+                state.clear()
+                state.update(saved)
+        copies.clear()  # free them now, not with a raised frame
+        event = None
+        if self._cuda:
+            event = torch.cuda.Event()
+            event.record()
+        self._wait_batch([("block", event, None,
+                           self.manager.current_step())])
 
     # ------------------------------------------------------------- fused
 

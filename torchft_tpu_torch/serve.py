@@ -28,9 +28,11 @@ events and wire. Every leg rides a subsystem the port already has:
   training job: ``deploy_train_bytes`` does not move on a rejoin.
 
 Live training: hang ``DeployPublisher.publish`` off the trainer's commit.
-``Manager.set_commit_hook`` fires inside ``should_commit``, before the
-optimizer applies the step, so a trainer records the committed step in the
-hook and publishes the parameters after its update.
+``Manager.set_commit_hook`` fires inside ``should_commit``, on the
+barrier's thread, before the update is known to have landed (the
+decide-first arm has not run it yet; the overlapped arm may be running it
+beside the barrier), so a trainer records the committed step in the hook
+and publishes the parameters after its update.
 
 Layering: an orchestration module (``checkpointing``, ``comm``,
 ``control``, ``utils``); nothing imports it back. ``ServingReplica`` and
