@@ -41,7 +41,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    dv in one call, ``library_pair_ms``); beside the codec kernels,
    their time summed over one wire step of the int8 drill at each DDP
    bucket's own size (``step_ms`` over ``step_launches`` launches) beside
-   that step's bound (``step_bound_ms``).
+   that step's bound (``step_bound_ms``). On a machine with several
+   cards, every card but ``cuda:0`` then takes both codec kernels at the
+   125m gradient (launched while ``cuda:0`` is current, so each wrapper
+   must follow its tensor's card) and the flash kernels at "125m"'s shape,
+   once each against their plain versions as above, and each kernel's
+   device time there (``ms_by_card``).
 3. train: the main path at the full width of the "125m" config over the
    TCP gradient wire: two replica groups under an in-process lighthouse, a
    few committed steps, a failure injected into group 1, its restart from a
@@ -105,7 +110,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel must have launched exactly twice per gradient bucket per
    allreduce with a peer on the wire. Then the plane on the card is held
    bitwise against the plane on the CPU at each of the drill's bucket
-   sizes.
+   sizes. The phase lays itself over the visible cards, cycled (group g
+   on card g mod the cards, one ``DevicePool`` over them): over two cards
+   or more each rank's row is quantized on its own card, the int8 rows
+   move to each owner's card and the result back to every card, so each
+   codec kernel launches world + cards times per bucket op
+   (``codec_launches``), and the plane over the cards is also held bitwise
+   against the plane on one card at each bucket size.
 7. train_tiny: the drill of 3 over TCP at "tiny" (head_dim 16), full width
    and depth, batch 8: the example's default config, on the card.
 8. gpt_1b: one forward/backward of "1b" (24 layers, d_model 2048, 16 heads
@@ -140,7 +151,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    each codec kernel must have launched exactly twice per fragment op with
    a peer. Round 1's fragment averages on the card must equal the same
    plane on the CPU bitwise. It first checks the host's free memory
-   (``localsgd_host_bytes``).
+   (``localsgd_host_bytes``). The four groups lie over the visible cards,
+   cycled, as in train_cuda_int8.
 11. train_hier_int8: the hierarchical data plane at "125m"'s full width,
    its depth cut to ``CUT_LAYERS`` = 6 to keep the script under 900 s,
    batch 8: four groups in two domains (``HIER_DOMAINS``: rack0 =
@@ -495,8 +507,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the memory readings and each life's figures. It first checks the
    device memory (``train_proc_device_bytes``) and the host's
    (``proc_host_bytes``).
-24. dryrun_multichip: ``graft_entry.dryrun_multichip(8)`` on 8 virtual
-   positions of the card (the reference driver's count): the dp x fsdp x
+24. dryrun_multichip: ``graft_entry.dryrun_multichip(8)`` on 8 positions
+   (the count ``__graft_entry__.py`` runs), virtual on one card and laid
+   over the visible cards, cycled, where there are several: the dp x fsdp x
    tp step of ``ShardedGPT`` at "tiny" and the vocab-parallel cross
    entropy, the flash ring over seq 8 (shards of 64 tokens), the
    expert-parallel MoE block and the MoE transformer over tensor 2 x
@@ -509,8 +522,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    within ``LOSS_TOL``, the logits within ``GRAD_REL_NORM``) and the
    forward's time.
 
+Each of train_cuda_int8, train_localsgd_int8 and dryrun_multichip first
+prints its layout: the cards it uses, the positions on each, and the
+``nvidia-smi topo -m`` link between them (with CUDA's peer access, which
+the copies between cards take).
+
 It prints a ``kernels`` JSON line before the last line and ends with
-``{"ok": true, "device": {...}}``. It needs one card and no network.
+``{"ok": true, "device": {...}}``. It needs one card and no network; on
+a machine with several it lays the phases above over them.
 """
 
 from __future__ import annotations
@@ -591,7 +610,9 @@ def cuda_ms(fn, iters: int = 100, warmup: int = 10, repeats: int = 3) -> float:
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on a stream of the current card: torch's default capture
+    # stream is made once, on the card current at its first use
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -721,6 +742,76 @@ def card() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip()
+
+
+def visible_cards() -> list:
+    """``cuda:0`` .. ``cuda:n-1``, the cards this process sees."""
+    import torch
+
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def cycled(cards: list, positions: int) -> list:
+    """Position p on ``cards[p % len(cards)]``."""
+    return [cards[p % len(cards)] for p in range(positions)]
+
+
+def topo_links(text: str) -> dict:
+    """{(i, j): link} between GPU i and GPU j from ``nvidia-smi topo -m``'s
+    matrix (``NV18``, ``SYS``, ``PIX``, ...): its first GPU row is the
+    header, each later one a card's links; {} when it holds none."""
+    header, links = None, {}
+    for line in text.splitlines():
+        cols = line.split()
+        if not cols or not cols[0].startswith("GPU") \
+                or not cols[0][3:].isdigit():
+            continue
+        if header is None:
+            header = [int(c[3:]) for c in cols
+                      if c.startswith("GPU") and c[3:].isdigit()]
+            continue
+        for j, link in zip(header, cols[1:]):
+            links[(int(cols[0][3:]), j)] = link
+    return links
+
+
+def layout_line(positions: list) -> str:
+    """The cards a phase uses, the positions on each and the link between
+    every two of them: ``nvidia-smi topo -m``'s, or what it said when it
+    could not read the matrix, beside CUDA's peer access."""
+    import torch
+
+    cards = sorted({d.index for d in positions})
+    count = {i: sum(d.index == i for d in positions) for i in cards}
+    line = (f"layout: {len(positions)} positions over {len(cards)} "
+            f"card(s): " + ", ".join(f"cuda:{i} x{count[i]}" for i in cards))
+    if len(cards) < 2:
+        return line + "; no link crossed"
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True)
+    links = topo_links(topo.stdout) if topo.returncode == 0 else {}
+    said = (topo.stdout + topo.stderr).strip().splitlines()
+    pairs = []
+    for a in cards:
+        for b in cards:
+            if a < b:
+                peer = torch.cuda.can_device_access_peer(a, b)
+                pairs.append(f"cuda:{a}-cuda:{b} "
+                             f"{links.get((a, b), 'unknown')} "
+                             f"(peer access {'yes' if peer else 'no'})")
+    note = "" if links else (f"; nvidia-smi topo -m: "
+                             f"{said[0] if said else topo.returncode}")
+    return line + "; links " + ", ".join(pairs) + note
+
+
+def codec_launches(world: int, positions: list) -> int:
+    """Launches of each codec kernel per int8 quantized psum op of a wire
+    of ``world`` ranks whose rank r lies on ``positions[r]``: 2 on one card
+    (phase 1 over all rows, phase 2 over all shards); over several cards
+    one a card and one a shard (quant_int8: each card's rows, each owner's
+    shard; dequant_acc_int8: each owner's sum, each card's final decode)."""
+    cards = len({d.index for d in positions[:world]})
+    return 2 if cards == 1 else world + cards
 
 
 def phase_device():
@@ -1230,6 +1321,56 @@ def check_codec(x, sizes, seed: int, check) -> None:
     torch.cuda.empty_cache()
 
 
+def check_other_cards(seed: int, cards: list) -> dict:
+    """Every card but ``cuda:0``, once each: both codec kernels at the 125m
+    gradient, launched with ``cuda:0`` current (each wrapper follows its
+    tensor's card), bitwise against their plain versions there; the flash
+    kernels at "125m"'s shape (``check_flash``); and each kernel's device
+    time on that card (``cuda_ms`` at the calls of ``codec_calls`` and
+    ``flash_calls``). Returns {card: {kernel: ms}}."""
+    import torch
+
+    from torchft_tpu_torch.ops import quant
+
+    out = {}
+    for dev in cards[1:]:
+        log(f"  kernels on {dev} ({torch.cuda.get_device_name(dev)})")
+        check = Bitwise()
+        with torch.cuda.device(0):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            n = sum(p.numel() for p in _gpt_125m_params())
+            x = torch.randn((2, n), generator=gen, device=dev) * 1e-3
+            q, s = quant.quant_int8(x, CHUNK_STEP)
+            pq, ps = quant.quant_int8_plain(x, CHUNK_STEP)
+            acc = quant.dequant_acc_int8(q, s, CHUNK_STEP)
+            p_acc = quant.dequant_acc_int8_plain(q, s, CHUNK_STEP)
+            torch.cuda.synchronize(dev)
+            check("quant_int8", "q", q, pq)
+            check("quant_int8", "scales", s, ps)
+            check("dequant_acc_int8", "owner sums (2 sources)", acc, p_acc)
+            del q, s, pq, ps, acc, p_acc
+        check.raise_failed()
+        with torch.cuda.device(dev):
+            times = {name: cuda_ms(fn) for name, fn in codec_calls(x).items()}
+            del x
+            q4 = flash_inputs(seed, FLASH_SHAPE)
+            check_flash(*q4)
+            times.update({name: cuda_ms(fn)
+                          for name, fn in flash_calls(*q4).items()})
+            del q4
+            torch.cuda.empty_cache()
+        log(f"  {dev}: " + ", ".join(f"{k} {v:.4f} ms"
+                                      for k, v in times.items()))
+        out[str(dev)] = times
+    return out
+
+
+def _gpt_125m_params() -> list:
+    from torchft_tpu_torch.models import CONFIGS, GPT
+
+    return list(GPT(CONFIGS["125m"], device="meta").parameters())
+
+
 def phase_quant_kernels(seed: int):
     """The int8 codec kernels bitwise against their plain versions (see
     check_codec), then timed at the 125m gradient and per wire step."""
@@ -1396,9 +1537,11 @@ def codec_step_ms(sizes, seed: int, check):
 
 
 def phase_train(config: str, steps: int, layers, seed: int, card: str,
-                comm_backend: str = "host", comm_options=None):
-    """Run the drill at CONFIGS[config]; return the flash kernels'
-    launches (one per layer per forward/backward pass) and the result."""
+                comm_backend: str = "host", comm_options=None,
+                devices=None):
+    """Run the drill at CONFIGS[config] on the card (or group g on
+    ``devices[g % len(devices)]``); return the flash kernels' launches (one
+    per layer per forward/backward pass) and the result."""
     import dataclasses
 
     from torchft_tpu_torch.examples.train_ddp import run_kill_and_heal
@@ -1413,8 +1556,9 @@ def phase_train(config: str, steps: int, layers, seed: int, card: str,
         f"{cfg.d_ff} seq {cfg.max_seq_len} xent_chunks {cfg.xent_chunks}, "
         f"batch {batch}, gradient wire {comm_backend} {comm_options or ''}")
     t0 = time.perf_counter()
+    place = dict(device="cuda") if devices is None else dict(devices=devices)
     result = run_kill_and_heal(cfg, kill_step=steps, steps_after=steps - 1,
-                               device="cuda", batch_size=batch, seed=seed,
+                               batch_size=batch, seed=seed, **place,
                                timeout=120.0, log=lambda m: log("  " + m),
                                comm_backend=comm_backend,
                                comm_options=comm_options)
@@ -1445,12 +1589,14 @@ def phase_train(config: str, steps: int, layers, seed: int, card: str,
     return result["passes"] * cfg.n_layers, result
 
 
-def check_plane_at_buckets(sizes, seed: int) -> None:
+def check_plane_at_buckets(sizes, seed: int, cards=None) -> None:
     """The int8 plane on the card against the same plane on the CPU (the
     codec kernels' plain versions), bitwise, at each distinct size of the
     drill's DDP buckets: two groups decode the same bytes, so the drill's
     own checks cannot see a kernel that is wrong but deterministic at the
-    main path's shapes (phase-1 rows, phase-2 shards, their tail chunks)."""
+    main path's shapes (phase-1 rows, phase-2 shards, their tail chunks).
+    With ``cards`` (two or more) the plane over them (rank r on
+    ``cards[r]``) is held bitwise against both as well."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -1460,6 +1606,8 @@ def check_plane_at_buckets(sizes, seed: int) -> None:
 
     world = 2
     pools = {"cuda": DevicePool("cuda"), "cpu": DevicePool("cpu")}
+    if cards is not None and len(cards) > 1:
+        pools["cards"] = DevicePool(devices=cards[:world])
     rng = np.random.default_rng(seed)
     for size in sorted(set(sizes)):
         grads = [(rng.standard_normal(size) * 1e-3).astype(np.float32)
@@ -1482,13 +1630,20 @@ def check_plane_at_buckets(sizes, seed: int) -> None:
             finally:
                 for c in ctxs:
                     c.shutdown()
-        same = all(c.tobytes() == h.tobytes()
-                   for c, h in zip(out["cuda"], out["cpu"]))
-        log(f"  bucket of {size} f32: card plane vs CPU plane bitwise "
-            f"{'ok' if same else 'FAIL'}")
-        if not same:
-            raise AssertionError(f"int8 plane on the card differs from the "
-                                 f"CPU plane at a bucket of {size}")
+        for arm in pools:
+            if arm == "cpu":
+                continue
+            same = all(c.tobytes() == h.tobytes() == o.tobytes()
+                       for c, h, o in zip(out[arm], out["cpu"], out["cuda"]))
+            what = ("plane over the cards" if arm == "cards"
+                    else "card plane")
+            log(f"  bucket of {size} f32: {what} vs CPU plane bitwise "
+                f"{'ok' if same else 'FAIL'}"
+                + (" (and vs the plane on one card)" if arm == "cards"
+                   else ""))
+            if not same:
+                raise AssertionError(f"int8 {what} differs from the CPU "
+                                     f"plane at a bucket of {size}")
 
 
 # the loss of the 1b GPT with the kernels against the same model with
@@ -4437,10 +4592,11 @@ def check_plane_at_fragments(recorded, seed: int) -> None:
                                  f"CPU plane at fragment op {op}")
 
 
-def phase_train_localsgd_int8(seed: int, card: str, batch: int = 8):
+def phase_train_localsgd_int8(seed: int, card: str, batch: int = 8,
+                              devices=None):
     """The LocalSGD drill on the int8 device plane (module docstring, phase
-    10); returns the flash launches, the codec launches per kernel and the
-    result."""
+    10), on the card or group g on ``devices[g % len(devices)]``; returns
+    the flash launches, the codec launches per kernel and the result."""
     from torchft_tpu_torch.examples.train_diloco import run_diloco_drill
     from torchft_tpu_torch.models import CONFIGS, GPT, count_params
 
@@ -4452,9 +4608,10 @@ def phase_train_localsgd_int8(seed: int, card: str, batch: int = 8):
         f"groups on the cuda plane {INT8_OPTIONS}; host memory: up to "
         f"{need / 1e9:.2f} GB, {free / 1e9:.1f} GB available")
     t0 = time.perf_counter()
+    place = dict(device="cuda") if devices is None else dict(devices=devices)
     result = run_diloco_drill(
         cfg, algo="local_sgd", groups=LOCALSGD_GROUPS, rounds=3, kill=None,
-        fault=(3, 4), record_ops=(1, 2), device="cuda", batch_size=batch,
+        fault=(3, 4), record_ops=(1, 2), batch_size=batch, **place,
         seed=seed, timeout=300.0, log=lambda m: log("  " + m),
         comm_backend="cuda", comm_options=INT8_OPTIONS)
     runs = result["runs"]
@@ -4477,9 +4634,13 @@ def phase_train_localsgd_int8(seed: int, card: str, batch: int = 8):
     log(f"  heal of group 3: wall {heal.get('heal_wall_ms', 0):.1f} ms, wire "
         f"{heal.get('heal_bytes_per_s', 0) / 1e9:.3f} GB/s ({card})")
     # every fragment op of the 3 rounds had 3 peers on the wire
-    codec = 2 * 2 * 3
-    log(f"  2 fragments x 3 rounds with a peer x 2 launches = {codec} of "
-        f"each codec kernel; forward/backward passes: {result['passes']}")
+    per_op = (2 if devices is None
+              else codec_launches(LOCALSGD_GROUPS,
+                                  cycled(devices, LOCALSGD_GROUPS)))
+    codec = 2 * 3 * per_op
+    log(f"  2 fragments x 3 rounds with a peer x {per_op} launches = "
+        f"{codec} of each codec kernel; forward/backward passes: "
+        f"{result['passes']}")
     check_plane_at_fragments(result["recorded"], seed)
     return result["passes"] * cfg.n_layers, codec, result
 
@@ -5960,16 +6121,30 @@ def check_entry(card: str, calls: int = ENTRY_CALLS,
 
 
 def phase_dryrun_multichip(seed: int, card: str, n: int = DRYRUN_POSITIONS,
-                           device: str = "cuda") -> dict:
+                           device: str = "cuda", devices=None) -> dict:
     """``dryrun_multichip(n)`` on a virtual mesh of the card (or
-    ``device``), each segment's flash launches against ``dryrun_launches``
-    (none off the card), then ``check_entry``. Returns the flash launches
-    by head_dim."""
+    ``device``), or position p on ``devices[p % len(devices)]``, each
+    segment's flash launches against ``dryrun_launches`` (none off the
+    card), then ``check_entry``. Returns the flash launches by head_dim."""
     from torchft_tpu_torch.graft_entry import dryrun_multichip
     from torchft_tpu_torch.models import CONFIGS
 
     t0 = time.perf_counter()
-    result = dryrun_multichip(n, device)
+    result = (dryrun_multichip(n, device) if devices is None
+              else dryrun_multichip(n, devices=devices))
+    if devices is not None:
+        from torchft_tpu_torch.ops import flash
+
+        before = dict(flash.LAUNCHES)
+        virtual = dryrun_multichip(n, device)
+        flash.LAUNCHES.update(before)  # a comparison: its launches don't count
+        same = all(result["segments"][k] == v for k, v in
+                   virtual["segments"].items() if k != "ft")
+        log(f"  over {len(set(devices))} cards / virtual on {device}, "
+            "seconds: " + ", ".join(
+                f"{k} {result['seconds'][k]:.2f} / {v:.2f}"
+                for k, v in virtual["seconds"].items())
+            + f"; figures but ft's equal: {'yes' if same else 'no'}")
     want = dryrun_launches(n)
     if device != "cuda":
         want = {k: dict.fromkeys(v, 0) for k, v in want.items()}
@@ -6060,12 +6235,16 @@ def main() -> int:
     from torchft_tpu_torch.ops import flash, quant
 
     rows = {}
+    cards = visible_cards()
     if "kernels" in phases:
         log("phase kernels")
         rows = phase_kernels(args.seed, ptxas)
         rows.update(phase_quant_kernels(args.seed))
         for name in ("quant_int8", "dequant_acc_int8"):
             rows[name]["ptxas"] = ptxas.get(name)
+        for dev, times in check_other_cards(args.seed, cards).items():
+            for name, ms in times.items():
+                rows[name].setdefault("ms_by_card", {})[dev] = ms
     if "train" in phases:
         log("phase train")
         flash.reset_launch_counts()
@@ -6112,11 +6291,14 @@ def main() -> int:
         _add_launches(rows, counts, MOE_CONFIGS["moe-8x125m"].head_dim)
     if "train_cuda_int8" in phases:
         log("phase train_cuda_int8")
+        groups = cycled(cards, 2)
+        log("  " + layout_line(groups))
         flash.reset_launch_counts()
         quant.reset_launch_counts()
-        want, result = phase_train("125m", args.steps, None, args.seed, smi,
-                                   comm_backend="cuda",
-                                   comm_options=INT8_OPTIONS)
+        want, result = phase_train(
+            "125m", args.steps, None, args.seed, smi, comm_backend="cuda",
+            comm_options=INT8_OPTIONS,
+            devices=cards if len(cards) > 1 else None)
         counts = {**flash.LAUNCHES, **quant.LAUNCHES}
         # the fixed schedule has a peer on the wire in k + 1 + a steps
         # (all but the survivor's solo step); each of those reduces every
@@ -6126,15 +6308,23 @@ def main() -> int:
         if survivor.wire_steps != wire_steps:
             raise AssertionError(f"{survivor.wire_steps} steps with a wire "
                                  f"peer, the schedule has {wire_steps}")
-        per_kernel = 2 * len(survivor.buckets) * wire_steps
+        per_op = codec_launches(2, groups)
+        per_kernel = per_op * len(survivor.buckets) * wire_steps
         log(f"  {len(survivor.buckets)} gradient buckets x {wire_steps} steps "
-            f"with a peer x 2 launches = {per_kernel} of each codec kernel")
+            f"with a peer x {per_op} launches = {per_kernel} of each codec "
+            "kernel")
         _check_launches(counts, {**{n: want for n in flash.LAUNCHES},
                                  **{n: per_kernel for n in quant.LAUNCHES}},
                         "flash: one per layer per pass; codec: 2 per bucket "
-                        "per allreduce with a peer")
+                        "per allreduce with a peer on one card, world + "
+                        "cards over several")
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
-        check_plane_at_buckets(survivor.buckets, args.seed)
+        check_plane_at_buckets(survivor.buckets, args.seed, groups)
+        if len(cards) > 1:
+            log("  the same drill on cuda:0 alone, beside the run over the "
+                "cards")
+            phase_train("125m", args.steps, None, args.seed, smi,
+                        comm_backend="cuda", comm_options=INT8_OPTIONS)
     if "train_tiny" in phases:
         log("phase train_tiny")
         flash.reset_launch_counts()
@@ -6246,14 +6436,17 @@ def main() -> int:
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
     if "train_localsgd_int8" in phases:
         log("phase train_localsgd_int8")
+        log("  " + layout_line(cycled(cards, LOCALSGD_GROUPS)))
         flash.reset_launch_counts()
         quant.reset_launch_counts()
-        want, codec, _ = phase_train_localsgd_int8(args.seed, smi)
+        want, codec, _ = phase_train_localsgd_int8(
+            args.seed, smi, devices=cards if len(cards) > 1 else None)
         counts = {**flash.LAUNCHES, **quant.LAUNCHES}
         _check_launches(counts, {**{n: want for n in flash.LAUNCHES},
                                  **{n: codec for n in quant.LAUNCHES}},
-                        "flash: one per layer per pass; codec: 2 per "
-                        "fragment op with a peer")
+                        "flash: one per layer per pass; codec: per "
+                        "fragment op with a peer 2 on one card, world + "
+                        "cards over several")
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
     if "train_hier_int8" in phases:
         log("phase train_hier_int8")
@@ -6281,9 +6474,11 @@ def main() -> int:
         _add_launches(rows, counts, head_dim)
     if "dryrun_multichip" in phases:
         log("phase dryrun_multichip")
+        log("  " + layout_line(cycled(cards, DRYRUN_POSITIONS)))
         flash.reset_launch_counts()
         quant.reset_launch_counts()
-        per_d = phase_dryrun_multichip(args.seed, smi)
+        per_d = phase_dryrun_multichip(
+            args.seed, smi, devices=cards if len(cards) > 1 else None)
         counts = {**flash.LAUNCHES, **quant.LAUNCHES}
         want = {n: sum(c[n] for c in per_d.values()) for n in flash.LAUNCHES}
         _check_launches(counts, {**want, **dict.fromkeys(quant.LAUNCHES, 0)},

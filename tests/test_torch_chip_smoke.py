@@ -1509,3 +1509,109 @@ def test_the_depth_cuts_that_keep_the_script_under_900_s() -> None:
     assert sum(math.prod(s) for s in moe_param_shapes(moe).values()) \
         == 192714240
     assert smoke.cut_depth(CONFIGS["tiny"], 6) == CONFIGS["tiny"]
+
+
+TOPO = """\tGPU0\tGPU1\tGPU2\tGPU3\tCPU Affinity\tNUMA Affinity
+GPU0\t X \tNV18\tNV18\tSYS\t0-31\t0
+GPU1\tNV18\t X \tNV18\tNV18\t0-31\t0
+GPU2\tNV18\tNV18\t X \tNV18\t32-63\t1
+GPU3\tSYS\tNV18\tNV18\t X \t32-63\t1
+
+Legend:
+  X    = Self
+  NV#  = Connection traversing a bonded set of # NVLinks
+"""
+
+
+def test_topo_links_read_the_matrix() -> None:
+    links = _smoke().topo_links(TOPO)
+    assert links[(0, 1)] == links[(2, 3)] == "NV18"
+    assert links[(0, 3)] == links[(3, 0)] == "SYS"
+    assert links[(1, 1)] == "X" and len(links) == 16
+    assert _smoke().topo_links("Failed to run topology matrix\n") == {}
+
+
+def test_layout_lines_name_cards_positions_and_links(monkeypatch) -> None:
+    # the line each of train_cuda_int8, train_localsgd_int8 and
+    # dryrun_multichip prints first: on one card its positions; over cards,
+    # the cycled positions on each and topo -m's link (or what it said when
+    # it could not read the matrix) beside CUDA's peer access
+    smoke = _smoke()
+    cards = [torch.device("cuda", i) for i in range(3)]
+    assert smoke.cycled(cards, 8) == cards * 2 + cards[:2]
+    one = smoke.layout_line(smoke.cycled(cards[:1], 8))
+    assert one == ("layout: 8 positions over 1 card(s): cuda:0 x8; no link "
+                   "crossed")
+    said = {"out": TOPO, "rc": 0}
+    monkeypatch.setattr(smoke.subprocess, "run", lambda *a, **k: (
+        subprocess.CompletedProcess(a, said["rc"], said["out"], "")))
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: (a, b) != (0, 2))
+    line = smoke.layout_line(smoke.cycled(cards, 4))
+    assert line == (
+        "layout: 4 positions over 3 card(s): cuda:0 x2, cuda:1 x1, cuda:2 "
+        "x1; links cuda:0-cuda:1 NV18 (peer access yes), cuda:0-cuda:2 NV18 "
+        "(peer access no), cuda:1-cuda:2 NV18 (peer access yes)")
+    said.update(out="Failed to run topology matrix\n", rc=255)
+    line = smoke.layout_line(cards[:2])
+    assert line.endswith("links cuda:0-cuda:1 unknown (peer access yes); "
+                         "nvidia-smi topo -m: Failed to run topology matrix")
+
+
+def test_codec_launches_per_op_on_one_card_and_over_cards() -> None:
+    smoke = _smoke()
+    cards = [torch.device("cuda", i) for i in range(4)]
+    # one card: phase 1 over all rows, phase 2 over all shards
+    assert smoke.codec_launches(2, [cards[0]] * 2) == 2
+    assert smoke.codec_launches(4, [cards[0]] * 4) == 2
+    # over cards: one a card and one a shard
+    assert smoke.codec_launches(2, cards[:2]) == 4
+    assert smoke.codec_launches(4, smoke.cycled(cards[:2], 4)) == 6
+    assert smoke.codec_launches(4, cards) == 8
+
+
+def test_localsgd_phase_runs_over_two_cpu_cards(monkeypatch) -> None:
+    # the phase laid over two "cards" (cpu:0 and cpu:1: the plane's
+    # cross-card path on the host), its drill at "tiny": the schedule
+    # checks, the CPU plane check and the codec count over cards
+    import torchft_tpu_torch.examples.train_diloco as example
+    import torchft_tpu_torch.models as models
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    monkeypatch.setitem(models.CONFIGS, "125m", CONFIGS["tiny"])
+    drill = example.run_diloco_drill
+    monkeypatch.setattr(example, "run_diloco_drill", lambda cfg, **kw: drill(
+        cfg, **dict(kw, batch_size=2, timeout=30.0)))
+    cards = [torch.device("cpu", 0), torch.device("cpu", 1)]
+    want, codec, result = smoke.phase_train_localsgd_int8(0, "CPU",
+                                                          devices=cards)
+    assert codec == 2 * 3 * (4 + 2)
+    assert result["checked_rounds"] == {1: 4, 2: 3, 3: 4}
+    text = "\n".join(lines)
+    assert "x 6 launches = 36 of each codec kernel" in text
+    assert text.count("card plane vs CPU plane bitwise ok") == 2
+
+
+def test_dryrun_phase_over_a_device_list_compares_the_virtual_mesh(
+        monkeypatch) -> None:
+    # laid over a device list the phase also runs the virtual mesh, logs
+    # both runs' seconds per segment and whether the figures agree, and
+    # leaves that comparison's launches out of the count
+    import torchft_tpu_torch.graft_entry as graft
+    import torchft_tpu_torch.models as models
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    monkeypatch.setitem(models.CONFIGS, "125m", CONFIGS["tiny"])
+    monkeypatch.setattr(graft, "_dryrun_ft_loop", lambda n, dev: {
+        "trace": "stub"})
+    before = dict(flash.LAUNCHES)
+    smoke.phase_dryrun_multichip(0, "CPU", n=2, device="cpu",
+                                 devices=["cpu"])
+    text = "\n".join(lines)
+    assert "over 1 cards / virtual on cpu, seconds: step " in text
+    assert "figures but ft's equal: yes" in text
+    assert flash.LAUNCHES == before

@@ -1263,3 +1263,170 @@ def test_update_rise_per_arm_at_125m_on_card() -> None:
         del model, params, adamw, opt, tensors
         torch.cuda.empty_cache()
     assert all(torch.equal(a, b) for a, b in zip(arms[True], arms[False]))
+
+
+# ------------------------------------------------ the plane over the cards
+
+
+def _cards(least: int = 2):
+    """The visible cards, or a skip below ``least`` of them."""
+    _cuda()
+    n = torch.cuda.device_count()
+    if n < least:
+        pytest.skip(f"needs {least} cards or more, sees {n}")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_codec_kernels_launch_on_their_own_card() -> None:
+    """Both codec kernels on the last visible card while ``cuda:0`` is
+    current: each wrapper launches on its tensor's card (its stream, under
+    its device guard), bitwise its plain version there."""
+    dev = _cards()[-1]
+    step = 1000
+    with torch.cuda.device(0):
+        gen = torch.Generator(device=dev).manual_seed(4)
+        x = torch.randn((3, 4 * step + 17), generator=gen, device=dev)
+        x[1, step + 3] = float("nan")
+        quant.reset_launch_counts()
+        q, s = quant.quant_int8(x, step)
+        acc = quant.dequant_acc_int8(q, s, step, divisor=3)
+        torch.cuda.synchronize(dev)
+        assert q.device == s.device == acc.device == dev
+        pq, ps = quant.quant_int8_plain(x, step)
+        p_acc = quant.dequant_acc_int8_plain(q, s, step, divisor=3)
+        assert torch.cuda.current_device() == 0
+    assert torch.equal(q, pq) and torch.equal(_bits(s), _bits(ps))
+    assert torch.equal(_bits(acc), _bits(p_acc))
+    assert quant.LAUNCHES == {"quant_int8": 1, "dequant_acc_int8": 1}
+
+
+def _plane_results(pool, tag, world, inputs, op, scatter=False, **kw):
+    """Each rank's results of one op on ``pool``'s plane (chunk grid 4 KiB)."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchft_tpu_torch.comm.cuda_backend import CudaCommContext
+
+    ctxs = [CudaCommContext(timeout=60.0, chunk_bytes=1 << 12,
+                            device_pool=pool, **kw) for _ in range(world)]
+
+    def worker(r):
+        ctxs[r].configure(f"cards://{tag}", r, world)
+        arrays = [a.copy() for a in inputs[r]]
+        if scatter:
+            w = ctxs[r].reduce_scatter(arrays, op)
+            return [np.array(w.future().result(timeout=60)[r])]
+        w = ctxs[r].allreduce(arrays, op)
+        return [np.array(a) for a in w.future().result(timeout=60)]
+
+    try:
+        with ThreadPoolExecutor(world) as ex:
+            return [f.result(120) for f in
+                    [ex.submit(worker, r) for r in range(world)]]
+    finally:
+        for c in ctxs:
+            c.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["star", "ring", "psum", "scatter", "hier",
+                                  "hier_psum"])
+@pytest.mark.parametrize("layout", ["cards", "cycled"])
+def test_plane_over_the_cards_equals_the_one_card_plane(kind,
+                                                        layout) -> None:
+    """The gradient plane with rank r on ``cuda:r`` (``cards``: up to four
+    ranks, one a card) or on ``cuda:r % 2`` (``cycled``: three ranks, two
+    sharing a card; the hier tier four) against ``DevicePool("cuda",
+    positions=n)`` and the CPU plane, bitwise, at codecs none, bf16 and
+    int8 under SUM and AVG; the raw psum (codec none) against the one-card
+    plane alone, its sum being the library's."""
+    import numpy as np
+
+    from torchft_tpu_torch.comm.context import ReduceOp
+    from torchft_tpu_torch.comm.cuda_backend import DevicePool
+    from torchft_tpu_torch.comm.topology import DomainTopology
+
+    cards = _cards()
+    hier = kind.startswith("hier")
+    if layout == "cards":
+        world = 4 if hier else min(4, len(cards))
+        if world > len(cards):
+            pytest.skip("the hier tier's 2x2 layout needs four cards")
+        positions = cards[:world]
+    else:
+        world = 4 if hier else 3
+        positions = [cards[r % 2] for r in range(world)]
+    pools = {"cards": DevicePool(devices=positions),
+             "one": DevicePool("cuda", positions=world),
+             "cpu": DevicePool("cpu", positions=world)}
+    kw = {"algorithm": "psum" if kind in ("psum", "scatter", "hier_psum")
+          else "star" if kind == "hier" else kind}
+    if hier:
+        kw.update(topology="hier", domain_resolver=DomainTopology(
+            static_map={"d0": ["rank0", "rank1"], "d1": ["rank2", "rank3"]}))
+    rng = np.random.default_rng(world * 5 + len(kind))
+    sizes = (4000, 2500, 4097, 3001)[:world] if kind == "scatter" \
+        else (5000, 7, 257)
+    inputs = [[(rng.standard_normal(s) * (r + 1)).astype(np.float32)
+               for s in sizes] for r in range(world)]
+    for codec in ("none", "bf16", "int8"):
+        for op in (ReduceOp.SUM, ReduceOp.AVG):
+            tag = f"{kind}_{layout}_{codec}_{op}"
+            got = {arm: _plane_results(pool, f"{tag}/{arm}", world, inputs,
+                                       op, scatter=kind == "scatter",
+                                       compression=codec, **kw)
+                   for arm, pool in pools.items()}
+            numeric = codec == "none" and kw["algorithm"] == "psum"
+            for arm in ("one",) if numeric else ("one", "cpu"):
+                for g_r, w_r in zip(got["cards"], got[arm]):
+                    for g, w in zip(g_r, w_r):
+                        assert g.tobytes() == w.tobytes(), (tag, arm)
+
+
+@pytest.mark.cuda
+def test_dryrun_over_the_cards_equals_the_virtual_mesh() -> None:
+    """``dryrun_multichip(4)`` with position p on card p % cards against
+    the same run on a virtual mesh of ``cuda:0``: every segment's figures
+    equal, bitwise, and the same flash launches; the FT loop's threaded
+    schedule varies from run to run, so it is held to its own checks
+    (every rank healed on its sharding, the trajectories within the
+    reference's tolerance) and a common step after the heal."""
+    from torchft_tpu_torch.graft_entry import dryrun_multichip
+
+    cards = _cards()
+    flash.reset_launch_counts()
+    over = dryrun_multichip(4, devices=cards)
+    virtual = dryrun_multichip(4, device="cuda")
+    for name, figures in virtual["segments"].items():
+        if name == "ft":
+            assert over["segments"]["ft"]["common_steps"] > 0
+            continue
+        assert over["segments"][name] == figures, name
+    assert over["launches"] == virtual["launches"]
+    print({name: (round(over["seconds"][name], 2),
+                  round(virtual["seconds"][name], 2))
+           for name in virtual["seconds"]})
+
+
+@pytest.mark.cuda
+def test_kill_and_heal_over_the_cards_on_the_int8_plane() -> None:
+    """The example's drill at "tiny" with group g on card g % cards and
+    one ``DevicePool`` over them, on the int8 quantized psum: the drill's
+    own checks (every joint step's parameters bitwise equal across the
+    groups, the healed group bitwise its donor from the heal on), and each
+    codec kernel launched world + cards times per bucket op with a peer."""
+    from torchft_tpu_torch.examples.train_ddp import run_kill_and_heal
+
+    cards = _cards()
+    quant.reset_launch_counts()
+    result = run_kill_and_heal(
+        CONFIGS["tiny"], kill_step=2, steps_after=2, devices=cards,
+        batch_size=4, timeout=60.0, comm_backend="cuda",
+        comm_options={"algorithm": "psum", "compression": "int8"})
+    assert result["heal_step"] == 4 and result["checked_steps"] == [4, 5, 6]
+    assert result["compared"] == {1: 2, 2: 2, 3: 1, 4: 2, 5: 2, 6: 2}
+    survivor = result["runs"][0]
+    per_op = 2 + min(2, len(cards))
+    want = per_op * len(survivor.buckets) * survivor.wire_steps
+    assert quant.LAUNCHES == {"quant_int8": want, "dequant_acc_int8": want}

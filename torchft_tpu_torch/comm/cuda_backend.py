@@ -1,5 +1,6 @@
-"""On-device gradient plane: the collectives as torch code over one stacked
-device tensor, with the int8 block codec as hand-written CUDA kernels.
+"""On-device gradient plane: the collectives as torch code over stacked
+device tensors, one a card, with the int8 block codec as hand-written CUDA
+kernels.
 
 Twin of ``torchft_tpu/comm/xla_backend.py``. The TCP
 transport (transport.py) moves gradient bytes over sockets; this plane
@@ -7,25 +8,31 @@ implements the same ``CommContext`` surface (allreduce with the donation
 contract, reduce_scatter, allgather, broadcast, the ``wire_*``
 introspection error feedback keys off) but reduces on the card.
 
-One card, several replica groups
---------------------------------
+Replica groups in one process
+-----------------------------
 Replica groups that share a process (threads, as in the kill/heal drill)
-share one device. ``_DeviceGroup`` is the in-process rendezvous that stands
-in for a collective launch, as the reference's ``_XlaGroup`` does: contexts
+share one ``DevicePool``, the twin of the reference's ``MeshManager``: a
+list of positions, rank r of the wire on position r whichever replicas
+survive. ``_DeviceGroup`` is the in-process rendezvous that stands in for
+a collective launch, as the reference's ``_XlaGroup`` does: contexts
 configured against the same store address join one group; each rank's
 submit deposits its donated numpy arrays, and when the whole cohort has
-submitted a sequence number the group's 1-thread executor uploads every
-rank's arrays into ONE stacked ``(world, size)`` device tensor per array
-(row r = rank r), runs the reduction on the card, copies the result back
-through pinned host staging, synchronises, writes it into every rank's
-donated arrays and only then resolves the futures. ``all_to_all`` becomes a
-re-indexing of the stacked buffer (owner d reads columns ``[d·L, (d+1)·L)``
-of every row) and ``all_gather`` a read of all rows. A rank missing from a
-sequence number fails the op with ``ConnectionError`` after the timeout; a
-member that reconfigures or shuts down fails its peers' in-flight ops at
-once, and the Manager latches either like a dead socket. Several processes
-(NCCL over ``torch.distributed``) are not ported: NCCL refuses two ranks on
-one device, and the port's drill runs its groups on one card.
+submitted a sequence number the group's 1-thread executor uploads each
+rank's arrays to its own position's card, into ONE stacked buffer per
+payload array and card (the rows of the card's ranks), runs the reduction,
+copies each rank's result back from its own card through pinned host
+staging, synchronises every card's stream, writes the results into every
+rank's donated arrays and only then resolves the futures. On one card
+(``DevicePool(device, positions=n)``, the virtual mesh) the buffer holds
+every row, ``all_to_all`` is a re-indexing of it (owner d reads columns
+``[d·L, (d+1)·L)`` of every row) and ``all_gather`` a read of all rows;
+across cards they are device-to-device copies, ordered by the pool's
+stream on each card, which is current on its card for the whole op. A
+rank missing from a sequence number fails the op with ``ConnectionError``
+after the timeout; a member that reconfigures or shuts down fails its
+peers' in-flight ops at once, and the Manager latches either like a dead
+socket. Several processes (NCCL over ``torch.distributed``) are not
+ported: the JAX package has no such arm to hold them to.
 
 Algorithms
 ----------
@@ -33,18 +40,25 @@ Algorithms
 codec bits exactly, so the socket transport stays the bitwise oracle:
 
 * ``star``: acc = v_0 + Σ_{r>0} dec(enc(v_r)) in rank order per chunk, the
-  root's contribution raw, AVG divides, the result re-encoded once.
+  root's contribution raw, AVG divides, the result re-encoded once; across
+  cards each card encodes its rows and rank 0's card decodes and
+  accumulates them.
 * ``ring``: per grid chunk and rank-part c (``_chunk_bounds``), partial sums
   in ring order v_c, v_{c+1} + acc, ...; the completed part encoded once
-  (one int8 scale per part), AVG after the decode.
+  (one int8 scale per part), AVG after the decode; across cards part c's
+  partial sum travels card to card in ring order.
 
 ``psum`` is the native path: codec "none" is a plain ``sum`` over the
-stacked rows (numeric: the order is the library's). A lossy codec runs the
-QUANTIZED exchange (EQuARX): each rank's contribution is quantized on the
-chunk grid (``quant_int8``), every owner dequantize-accumulates its shard
-of the int8 rows in rank order (``dequant_acc_int8``), the reduced shards
-are re-quantized on the shard-local grid and decoded once more, so every
-rank receives identical values. bf16/fp16 downcast elementwise instead.
+stacked rows (numeric: the order is the library's; across cards the rows
+are stacked on rank 0's card first). A lossy codec runs the QUANTIZED
+exchange (EQuARX): each rank's contribution is quantized on the chunk grid
+(``quant_int8``, on its own card), every owner dequantize-accumulates its
+shard of the int8 rows in rank order (``dequant_acc_int8``, on the owner's
+card), the reduced shards are re-quantized on the shard-local grid and
+decoded once more (on every card), so every rank receives identical
+values. bf16/fp16 downcast elementwise instead. Every path across cards is
+bitwise the same path on one card: the same elementwise operations in the
+same order, each kernel's rows independent of the others.
 
 Floating-point rounding is the host's at every point: torch's elementwise
 ops round each result, divisions go through ``div_exact`` (PyTorch's CUDA
@@ -60,8 +74,9 @@ bit-matches the host codec, which is what makes the host
 Plans
 -----
 ``DevicePool`` caches one plan per ``(world, algorithm, codec, chunk grid,
-op, layouts)``: the stacked device buffers, the ring's part-index tensors
-and the pinned host staging. Every quorum at a seen world size and layout
+op, layouts)``: the stacked device buffers of each card, the ring's
+part-index tensors and the pinned host staging. The pool's positions fix
+the cards of each world size, so the key needs no more. Every quorum at a seen world size and layout
 reuses its plan (``hit_count``); only first sight builds one
 (``compile_count``), so membership churn never grows the cache per step.
 
@@ -88,8 +103,8 @@ reduce on a host simulation of the same topology and codec math
 Fused step
 ----------
 The builders of ``fused.FusedStepEngine``: a ``(replica, model)`` mesh laid
-over the pool's device (``DevicePool.mesh_for``, virtual: every position a
-row of a stacked tensor), the HSDP step's four stage bodies written once
+over the pool's one card (``DevicePool.mesh_for``, virtual: every position
+a row of a stacked tensor; the engine refuses a pool of several cards), the HSDP step's four stage bodies written once
 (``_fused_local_fns``), and two program families cached in the pool per
 ``_FusedSpec.exec_key``: the whole step as one CUDA graph
 (``_build_fused_step``) and each stage as its own (``_build_step_stage``).
@@ -172,34 +187,96 @@ DEFAULT_POSITIONS = 64
 # --------------------------------------------------------------- the pool
 
 
+def _card_key(dev: torch.device) -> Tuple[str, int]:
+    """What makes two positions one card: the device type and index (a
+    bare ``cuda`` is the current card)."""
+    index = dev.index
+    if index is None:
+        index = torch.cuda.current_device() if dev.type == "cuda" else 0
+    return dev.type, index
+
+
+class _Cards:
+    """Where a wire of ``n`` ranks lies: rank r on the pool's position r.
+    ``devices`` are the distinct cards in rank order of first sight,
+    ``ranks[c]`` the ranks on card c in rank order, and rank r is row
+    ``slot[r]`` of its card's buffers (card ``of[r]``)."""
+
+    def __init__(self, positions: Sequence[torch.device]) -> None:
+        self.n = len(positions)
+        self.devices: List[torch.device] = []
+        self.ranks: List[List[int]] = []
+        self.of: List[int] = []
+        self.slot: List[int] = []
+        index: Dict[Tuple[str, int], int] = {}
+        for r, dev in enumerate(positions):
+            c = index.setdefault(_card_key(dev), len(self.devices))
+            if c == len(self.devices):
+                self.devices.append(dev)
+                self.ranks.append([])
+            self.of.append(c)
+            self.slot.append(len(self.ranks[c]))
+            self.ranks[c].append(r)
+
+    @property
+    def one(self) -> bool:
+        return len(self.devices) == 1
+
+    def card(self, r: int) -> torch.device:
+        return self.devices[self.of[r]]
+
+    def row(self, bufs: Sequence[torch.Tensor], r: int) -> torch.Tensor:
+        """Rank r's row of a payload laid over the cards (one buffer a
+        card)."""
+        return bufs[self.of[r]][self.slot[r]]
+
+
 class DevicePool:
-    """Plan cache across quorum epochs, on one device (twin of the
-    reference's ``MeshManager``).
+    """Plan cache across quorum epochs over a list of devices (twin of the
+    reference's ``MeshManager(devices=)``).
+
+    ``devices`` are the pool's positions; a device may repeat, and
+    ``DevicePool(device, positions=n)`` is ``devices=[device] * n`` (a
+    virtual mesh, the one device at every position, as the reference's CPU
+    tests lay theirs over forced host devices). Positions on distinct
+    cards are a mesh over those cards. Rank r of the wire lies on position
+    r whichever replicas survive, and replica group r of ``mesh_for`` is
+    the row of positions ``r*M .. r*M + M - 1``. A card the process cannot
+    see raises when the pool first resolves its devices; nothing falls back
+    to ``cuda:0`` or to the CPU. CPU positions with distinct indices
+    (``cpu:0``, ``cpu:1``) lay out as distinct cards: the cross-card path
+    on the host.
 
     ``executable(key, build)`` returns the cached plan or builds it once,
     even when several contexts (one per Manager in a process) race on first
     sight. ``compile_count`` counts builds, ``trace_count`` builder runs and
-    ``hit_count`` cache hits, under the reference's names. The plane's
-    device work runs on the pool's own CUDA stream.
-
-    ``mesh_for(world_size, model_shards)`` lays a ``(replica, model)`` mesh
-    over the pool's device: a virtual mesh, the device repeated at every
-    position, as the reference's CPU tests lay theirs over forced host
-    devices. ``positions`` is how many positions the pool lays out
-    (``device_count()``); a mesh that needs more raises, as the
-    reference's does past its device list."""
+    ``hit_count`` cache hits, under the reference's names. A plan's key
+    holds the world size, and the pool's positions fix the cards of that
+    world, so a pool over cards never meets a one-card plan. The plane's
+    device work runs on the pool's own CUDA stream on each card."""
 
     def __init__(self, device: "Optional[str | torch.device]" = None,
                  positions: int = DEFAULT_POSITIONS,
                  axis_name: str = REPLICA_AXIS,
-                 model_axis_name: str = MODEL_AXIS) -> None:
-        self._device_arg = device
-        self._device: Optional[torch.device] = None
-        self._stream = None
-        self._positions = int(positions)
+                 model_axis_name: str = MODEL_AXIS,
+                 devices: "Optional[Sequence[str | torch.device]]" = None
+                 ) -> None:
+        if devices is not None:
+            if device is not None:
+                raise ValueError("DevicePool takes `device` or `devices`, "
+                                 "not both")
+            devices = list(devices)
+            if not devices:
+                raise ValueError("DevicePool(devices=[]) has no position")
+            self._device_args = devices
+        else:
+            self._device_args = [device] * int(positions)
+        self._devices: Optional[Tuple[torch.device, ...]] = None
+        self._streams: Dict[Tuple[str, int], Any] = {}
         self.axis_name = axis_name
         self.model_axis_name = model_axis_name
         self._meshes: Dict[Tuple[int, int], Any] = {}
+        self._cards: Dict[int, _Cards] = {}
         self._plans: Dict[Tuple, Any] = {}
         self._building: Dict[Tuple, Future] = {}
         self._lock = threading.Lock()
@@ -209,39 +286,77 @@ class DevicePool:
         # flight recorder: every plan build emits one mesh_compile event
         self.events = None
 
-    def device(self) -> torch.device:
-        """The pool's device (``cuda`` unless given), resolved on first
-        use so that constructing a pool touches no device."""
+    def devices(self) -> Tuple[torch.device, ...]:
+        """The device of every position (``cuda`` unless given), resolved
+        and checked on first use, so that constructing a pool touches no
+        device."""
         with self._lock:
-            if self._device is None:
-                self._device = resolve_device(self._device_arg)
-            return self._device
+            if self._devices is None:
+                resolved = {}
+                for arg in self._device_args:
+                    key = str(arg)
+                    if key not in resolved:
+                        resolved[key] = _visible(resolve_device(arg))
+                self._devices = tuple(resolved[str(a)]
+                                      for a in self._device_args)
+            return self._devices
+
+    def cards(self) -> List[torch.device]:
+        """The distinct cards of the pool's positions, in position order."""
+        return self.cards_for(self.device_count()).devices
+
+    def device(self) -> torch.device:
+        """The pool's one card. A pool over several cards raises: the
+        callers that need a single card (the fused engine) do not run
+        across cards yet (ROADMAP item 7b)."""
+        cards = self.cards()
+        if len(cards) != 1:
+            raise ValueError(
+                f"this DevicePool lies over {len(cards)} cards "
+                f"({', '.join(map(str, cards))}); a single-card caller "
+                "needs a pool over one card (ROADMAP item 7b)")
+        return cards[0]
 
     def device_count(self) -> int:
-        """Mesh positions the pool lays out over its device."""
-        return self._positions
+        """Mesh positions the pool lays out."""
+        return len(self._device_args)
+
+    def _need(self, need: int, what: str) -> None:
+        if need > self.device_count():
+            raise ValueError(
+                f"{what} needs {need} positions, which exceeds the device "
+                f"pool ({self.device_count()}); pass more `devices` (or a "
+                "larger `positions`) to DevicePool")
+
+    def cards_for(self, world_size: int) -> _Cards:
+        """The cards of a wire of ``world_size`` ranks: positions
+        ``0 .. world_size - 1``. Cached per world size; raises past the
+        pool."""
+        self._need(int(world_size), f"a wire of {world_size} ranks")
+        devs = self.devices()
+        with self._lock:
+            cards = self._cards.get(world_size)
+            if cards is None:
+                cards = self._cards[world_size] = _Cards(devs[:world_size])
+            return cards
 
     def mesh_for(self, world_size: int, model_shards: int = 1):
         """The ``parallel.mesh.Mesh`` of ``world_size`` replicas x
-        ``model_shards`` positions over the pool's device: 1-D
-        ``(replica,)`` at one model shard, else 2-D ``(replica, model)``,
-        replica group r the row of positions ``r*M .. r*M + M - 1``.
-        Cached per shape; raises ValueError past ``device_count()``."""
+        ``model_shards`` positions over ``devices[:world_size *
+        model_shards]``: 1-D ``(replica,)`` at one model shard, else 2-D
+        ``(replica, model)``, replica group r the row ``devices[r*M :
+        (r+1)*M]``. Cached per shape; raises ValueError past the pool."""
         from torchft_tpu_torch.parallel.mesh import Mesh
 
         m = max(1, int(model_shards))
         need = int(world_size) * m
-        if need > self._positions:
-            raise ValueError(
-                f"mesh {world_size}x{m} needs {need} positions, which "
-                f"exceeds the device pool ({self._positions}); pass a "
-                "larger `positions` to DevicePool")
-        dev = self.device()
+        self._need(need, f"mesh {world_size}x{m}")
+        devs = self.devices()
         with self._lock:
             mesh = self._meshes.get((world_size, m))
             if mesh is None:
                 grid = np.empty(need, dtype=object)
-                grid[:] = [dev] * need
+                grid[:] = list(devs[:need])
                 if m == 1:
                     mesh = Mesh(grid, (self.axis_name,))
                 else:
@@ -250,23 +365,31 @@ class DevicePool:
                 self._meshes[(world_size, m)] = mesh
             return mesh
 
+    def _card_streams(self) -> List[Any]:
+        cuda = [d for d in self.cards() if d.type == "cuda"]
+        with self._lock:
+            for d in cuda:
+                if _card_key(d) not in self._streams:
+                    self._streams[_card_key(d)] = torch.cuda.Stream(device=d)
+            return [self._streams[_card_key(d)] for d in cuda]
+
     @contextlib.contextmanager
     def on_stream(self):
-        """Run the enclosed device work on the pool's stream (CUDA)."""
-        dev = self.device()
-        if dev.type != "cuda":
-            yield
-            return
-        with self._lock:
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(device=dev)
-            stream = self._stream
-        with torch.cuda.stream(stream):
+        """Run the enclosed device work on the pool's stream of each card
+        (CUDA): every card's pool stream is current on that card, so a copy
+        between two cards orders itself after the work on both, and the
+        first card is the current device."""
+        streams = self._card_streams()
+        with contextlib.ExitStack() as stack:
+            for s in reversed(streams):
+                stack.enter_context(torch.cuda.stream(s))
             yield
 
     def synchronize(self) -> None:
-        if self._stream is not None:
-            self._stream.synchronize()
+        with self._lock:
+            streams = list(self._streams.values())
+        for s in streams:
+            s.synchronize()
 
     def _note_trace(self) -> None:
         with self._lock:
@@ -307,6 +430,16 @@ class DevicePool:
             ev.emit("mesh_compile", key=repr(key)[:200],
                     compile_count=compile_count)
         return p
+
+
+def _visible(dev: torch.device) -> torch.device:
+    """``dev`` unless it names a card this process cannot see."""
+    if dev.type == "cuda" and dev.index is not None \
+            and dev.index >= torch.cuda.device_count():
+        raise ValueError(
+            f"DevicePool: {dev} is not visible to this process "
+            f"({torch.cuda.device_count()} cards visible)")
+    return dev
 
 
 _DEFAULT_POOLS: Dict[str, DevicePool] = {}
@@ -366,15 +499,15 @@ def _dev_enc_dec(codec_name: str, x: torch.Tensor, step: int
 def device_codec_roundtrip(codec_name: str, chunk_bytes: int,
                            src: np.ndarray,
                            pool: Optional[DevicePool] = None) -> np.ndarray:
-    """decode(encode(src)) computed on the pool's device over the chunk
-    grid: the device image of one wire contribution, which the tests hold
-    bit for bit against the host ``codec_roundtrip`` (what the error
-    feedback arena runs)."""
+    """decode(encode(src)) computed on the device of the pool's first
+    position over the chunk grid: the device image of one wire
+    contribution, which the tests hold bit for bit against the host
+    ``codec_roundtrip`` (what the error feedback arena runs)."""
     pool = pool or default_device_pool()
     src = np.ascontiguousarray(src, dtype=np.float32).reshape(-1)
     step = _grid_step(src.size, chunk_bytes)
     with pool.on_stream():
-        x = torch.from_numpy(src).to(pool.device())
+        x = torch.from_numpy(src).to(pool.devices()[0])
         out = _dev_enc_dec(codec_name, x[None], step)[0].cpu().numpy()
     return out
 
@@ -383,31 +516,85 @@ def device_codec_roundtrip(codec_name: str, chunk_bytes: int,
 
 
 class _Plan:
-    """One cached collective: stacked device input buffers, the reduction
-    over them, and the pinned host staging its results come back through.
-    ``run`` returns one host array per input buffer (rows: 1 for an
-    allreduce, whose result every rank shares; world for a scatter)."""
+    """One cached collective over the cards of a wire (``_Cards``):
+    ``inputs[k][c]`` holds payload k's rows of the ranks on card c (one
+    buffer a card: rows that share a card share a buffer and a launch), the
+    reduction over them, and the pinned host staging its results come back
+    through. ``reduce(inputs)`` returns, per payload, the result on every
+    card: the one row every rank shares (an allreduce), or the rows of the
+    card's ranks (a scatter). ``run`` returns, per payload, each rank's
+    host row, read back from its own card."""
 
-    def __init__(self, device: torch.device,
-                 shapes: Sequence[Tuple[Tuple[int, ...], torch.dtype]],
-                 out_shapes: Sequence[Tuple[Tuple[int, ...], torch.dtype]],
-                 reduce: Callable[[List[torch.Tensor]], List[torch.Tensor]]
-                 ) -> None:
-        self.inputs = [torch.zeros(s, dtype=d, device=device)
-                       for s, d in shapes]
-        pin = device.type == "cuda"
-        self.host = [torch.empty(s, dtype=d, pin_memory=pin)
-                     for s, d in out_shapes] if pin else None
+    def __init__(self, cards: _Cards,
+                 shapes: Sequence[Tuple[int, torch.dtype]],
+                 out_shapes: Sequence[Tuple[int, torch.dtype]],
+                 reduce: Callable[[List[List[torch.Tensor]]],
+                                  List[List[torch.Tensor]]],
+                 scatter: bool = False) -> None:
+        self.cards = cards
+        self.inputs = [[torch.zeros((len(ranks), cols), dtype=d, device=dev)
+                        for dev, ranks in zip(cards.devices, cards.ranks)]
+                       for cols, d in shapes]
+        self.host = [[torch.empty((len(ranks) if scatter else 1, cols),
+                                  dtype=d, pin_memory=True)
+                      if dev.type == "cuda" else None
+                      for dev, ranks in zip(cards.devices, cards.ranks)]
+                     for cols, d in out_shapes]
         self._reduce = reduce
+        self._scatter = scatter
         self.lock = threading.Lock()
 
-    def run(self) -> List[np.ndarray]:
+    def run(self) -> List[List[np.ndarray]]:
         outs = self._reduce(self.inputs)
-        if self.host is None:
-            return [o.numpy() for o in outs]
-        for h, o in zip(self.host, outs):
-            h.copy_(o, non_blocking=True)
-        return [h.numpy() for h in self.host]
+        c = self.cards
+        got = []
+        for hosts, per_card in zip(self.host, outs):
+            staged = []
+            for h, o in zip(hosts, per_card):
+                if h is None:
+                    staged.append(o.numpy())
+                else:
+                    h.copy_(o, non_blocking=True)
+                    staged.append(h.numpy())
+            got.append([staged[c.of[r]][c.slot[r] if self._scatter else 0]
+                        for r in range(c.n)])
+        return got
+
+
+def _one_card(fn: Callable[[torch.Tensor], torch.Tensor]):
+    """A reduction of one card's stacked ``(n, size)`` rows as a plan's
+    per-payload reduction."""
+    return lambda bufs: [fn(bufs[0])]
+
+
+def _everywhere(cards: _Cards, t: torch.Tensor) -> List[torch.Tensor]:
+    """``t`` on every card of the wire (a copy to each other card)."""
+    return [t.to(dev) for dev in cards.devices]
+
+
+def _gather_rows(cards: _Cards, bufs: Sequence[torch.Tensor],
+                 dev: torch.device,
+                 ranks: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """The rows of ``ranks`` (every rank by default), stacked in that order
+    on ``dev``: the one-card layout of those rows."""
+    ranks = range(cards.n) if ranks is None else ranks
+    out = torch.empty((len(ranks),) + tuple(bufs[0].shape[1:]),
+                      dtype=bufs[0].dtype, device=dev)
+    for i, r in enumerate(ranks):
+        out[i].copy_(cards.row(bufs, r))
+    return out
+
+
+def _enc_ship_dec(codec_name: str, x: torch.Tensor, step: int,
+                  dev: torch.device) -> torch.Tensor:
+    """``_dev_enc_dec`` across cards: rows encoded on their own card, the
+    encoding moved to ``dev`` and decoded there."""
+    if codec_name == "none" or x.dtype != torch.float32:
+        return x.to(dev)
+    if codec_name in _WIRE_DTYPES:
+        return x.to(_WIRE_DTYPES[codec_name]).to(dev).to(torch.float32)
+    q, s = quant_int8(x.contiguous(), step)
+    return _dev_dequant_int8(q.to(dev), s.to(dev), step)
 
 
 def _comb(op: str, acc: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
@@ -444,27 +631,30 @@ def _build_allreduce(pool: DevicePool, n: int, algorithm: str,
                      codec_name: str, chunk_bytes: int, op: str,
                      layouts: Sequence[Tuple[int, str]]) -> _Plan:
     """The star / ring parity paths and the raw psum, one reduction per
-    payload array over its ``(n, size)`` stacked buffer; the result is one
-    row, the same for every rank."""
+    payload array over its rows; the result is one row, the same for every
+    rank."""
     pool._note_trace()
-    dev = pool.device()
+    cards = pool.cards_for(n)
     lossy = codec_name != "none"
     fns = []
     for size, dkey in layouts:
         step = _grid_step(size, chunk_bytes, np.dtype(dkey).itemsize)
         if algorithm == "psum":
-            fns.append(_raw_psum(n, op))
+            fns.append(_raw_psum(cards, op))
         elif algorithm == "star":
-            fns.append(_star(n, codec_name, op, step, lossy))
+            fns.append(_star(cards, codec_name, op, step, lossy))
         else:
-            fns.append(_ring(dev, n, codec_name, op, size, step, lossy))
-    shapes = [((n, s), _DEVICE_DTYPES[d]) for s, d in layouts]
-    outs = [((1, s), _DEVICE_DTYPES[d]) for s, d in layouts]
-    return _Plan(dev, shapes, outs,
+            fns.append(_ring(cards, codec_name, op, size, step, lossy))
+    shapes = [(s, _DEVICE_DTYPES[d]) for s, d in layouts]
+    return _Plan(cards, shapes, shapes,
                  lambda ins: [f(g) for f, g in zip(fns, ins)])
 
 
-def _raw_psum(n: int, op: str):
+def _raw_psum(cards: _Cards, op: str):
+    """The library's reduction over the stacked rows; across cards the rows
+    are stacked on rank 0's card first, so the sum is the one-card sum."""
+    n = cards.n
+
     def fn(g: torch.Tensor) -> torch.Tensor:
         if op in (ReduceOp.SUM, ReduceOp.AVG):
             red = g.sum(0, dtype=g.dtype)
@@ -475,65 +665,150 @@ def _raw_psum(n: int, op: str):
         else:
             red = g.amin(0)
         return red[None]
-    return fn
+
+    if cards.one:
+        return _one_card(fn)
+    root = cards.card(0)
+    return lambda bufs: _everywhere(cards, fn(_gather_rows(cards, bufs,
+                                                           root)))
 
 
-def _star(n: int, codec_name: str, op: str, step: int, lossy: bool):
-    def fn(g: torch.Tensor) -> torch.Tensor:
-        acc = g[0]
-        if n > 1:
-            dec = _dev_enc_dec(codec_name, g[1:], step)
-            for r in range(n - 1):
-                acc = _comb(op, acc, dec[r])
+def _star(cards: _Cards, codec_name: str, op: str, step: int, lossy: bool):
+    """acc = v_0 + dec(enc(v_r)) in rank order on rank 0's card. Across
+    cards each card encodes its peers' rows (one launch), the encodings
+    move to the root's card and decode there."""
+    n = cards.n
+
+    def finish(acc: torch.Tensor) -> torch.Tensor:
         if op == ReduceOp.AVG:
             acc = div_exact(acc, n)
         if lossy:
             acc = _dev_enc_dec(codec_name, acc[None], step)[0]
         return acc[None]
-    return fn
+
+    if cards.one:
+        def fn(g: torch.Tensor) -> torch.Tensor:
+            acc = g[0]
+            if n > 1:
+                dec = _dev_enc_dec(codec_name, g[1:], step)
+                for r in range(n - 1):
+                    acc = _comb(op, acc, dec[r])
+            return finish(acc)
+        return _one_card(fn)
+
+    root = cards.of[0]
+
+    def fn_cards(bufs: List[torch.Tensor]) -> List[torch.Tensor]:
+        dec: Dict[int, torch.Tensor] = {}
+        for c, (buf, ranks) in enumerate(zip(bufs, cards.ranks)):
+            first = 1 if c == root else 0   # rank 0 is its card's first row
+            if len(ranks) > first:
+                rows = _enc_ship_dec(codec_name, buf[first:], step,
+                                     cards.devices[root])
+                dec.update(zip(ranks[first:], rows))
+        acc = bufs[root][0]
+        for r in range(1, n):
+            acc = _comb(op, acc, dec[r])
+        return _everywhere(cards, finish(acc))
+    return fn_cards
 
 
-def _ring(dev: torch.device, n: int, codec_name: str, op: str, size: int,
-          step: int, lossy: bool):
+def _ring(cards: _Cards, codec_name: str, op: str, size: int, step: int,
+          lossy: bool):
+    """Per grid chunk and rank-part p, the partial sum in ring order v_p,
+    v_{p+1} + acc, ...; the completed part encoded once (one int8 scale per
+    (chunk, part) segment), AVG after the decode. Across cards part p's
+    partial sum travels card to card in ring order and is encoded on the
+    card where it completes (rank p - 1's); every card then gathers the
+    parts."""
+    n = cards.n
     part, dst, n_seg, maxlen = _ring_parts(size, n, step)
-    part_t = torch.from_numpy(part).to(dev)
-    dst_t = torch.from_numpy(dst).to(dev)
 
-    def fn(g: torch.Tensor) -> torch.Tensor:
-        acc = torch.gather(g, 0, part_t[None])[0]
-        for i in range(1, n):
-            new = torch.gather(g, 0, ((part_t + i) % n)[None])[0]
-            acc = _comb(op, new, acc)   # the local (newer) value on the left
+    def encode(acc: torch.Tensor, seg_index: torch.Tensor,
+               rows: int) -> torch.Tensor:
         if lossy and acc.dtype == torch.float32:
             if codec_name == "int8":
-                seg = torch.zeros(n_seg * maxlen, dtype=torch.float32,
-                                  device=dev)
-                seg[dst_t] = acc
-                dec = _dev_enc_dec(codec_name, seg.view(n_seg, maxlen),
+                seg = torch.zeros(rows * maxlen, dtype=torch.float32,
+                                  device=acc.device)
+                seg[seg_index] = acc
+                dec = _dev_enc_dec(codec_name, seg.view(rows, maxlen),
                                    maxlen)
-                acc = dec.reshape(-1)[dst_t]
+                acc = dec.reshape(-1)[seg_index]
             else:
                 acc = _dev_enc_dec(codec_name, acc[None], step)[0]
         if op == ReduceOp.AVG:
             acc = div_exact(acc, n)
-        return acc[None]
-    return fn
+        return acc
+
+    if cards.one:
+        dev = cards.devices[0]
+        part_t = torch.from_numpy(part).to(dev)
+        dst_t = torch.from_numpy(dst).to(dev)
+
+        def fn(g: torch.Tensor) -> torch.Tensor:
+            acc = torch.gather(g, 0, part_t[None])[0]
+            for i in range(1, n):
+                new = torch.gather(g, 0, ((part_t + i) % n)[None])[0]
+                acc = _comb(op, new, acc)   # the local (newer) value left
+            return encode(acc, dst_t, n_seg)[None]
+        return _one_card(fn)
+
+    # part p's elements, on every card; and their slots in part p's own
+    # [chunks, maxlen] segment matrix (rows ci * n + p of the one above)
+    elems = [np.flatnonzero(part == p) for p in range(n)]
+    at = [[torch.from_numpy(e).to(dev) for dev in cards.devices]
+          for e in elems]
+    segs = [torch.from_numpy((dst[e] // maxlen // n) * maxlen
+                             + dst[e] % maxlen).to(cards.card((p - 1) % n))
+            for p, e in enumerate(elems)]
+    chunks = n_chunks(size, step)
+
+    def fn_cards(bufs: List[torch.Tensor]) -> List[torch.Tensor]:
+        done = []
+        for p in range(n):
+            acc = cards.row(bufs, p)[at[p][cards.of[p]]]
+            for i in range(1, n):
+                r = (p + i) % n
+                c = cards.of[r]
+                acc = _comb(op, cards.row(bufs, r)[at[p][c]],
+                            acc.to(cards.devices[c]))
+            done.append(encode(acc, segs[p], chunks))
+        outs = []
+        for c, dev in enumerate(cards.devices):
+            out = torch.empty(size, dtype=bufs[0].dtype, device=dev)
+            for p in range(n):
+                out[at[p][c]] = done[p].to(dev)
+            outs.append(out[None])
+        return outs
+    return fn_cards
 
 
 def _build_psum_scatter(pool: DevicePool, n: int, op: str,
                         sizes: Sequence[int]) -> _Plan:
-    """The native reduce_scatter: input ``(n, n·L)`` (each rank's
+    """The native reduce_scatter: each rank's row ``(n·L,)`` holds its
     contribution to every owner's slot, padded to the common slot length
-    L); output ``(n, L)``, row d owner d's reduced slot (numeric)."""
+    L; owner d's reduced slot (numeric) lands on owner d's card."""
     pool._note_trace()
+    cards = pool.cards_for(n)
     L = max(sizes)
 
-    def fn(ins: List[torch.Tensor]) -> List[torch.Tensor]:
-        red = ins[0].view(n, n, L).sum(0)
-        return [div_exact(red, n) if op == ReduceOp.AVG else red]
+    def red(g: torch.Tensor) -> torch.Tensor:
+        out = g.sum(0)
+        return div_exact(out, n) if op == ReduceOp.AVG else out
 
-    return _Plan(pool.device(), [((n, n * L), torch.float32)],
-                 [((n, L), torch.float32)], fn)
+    if cards.one:
+        def fn(ins):
+            return [[red(ins[0][0].view(n, n, L))]]
+    else:
+        def fn(ins):
+            return [[torch.stack([
+                red(_gather_rows(cards, [b[:, d * L:(d + 1) * L]
+                                         for b in ins[0]], dev))
+                for d in ranks]) for dev, ranks in zip(cards.devices,
+                                                        cards.ranks)]]
+
+    return _Plan(cards, [(n * L, torch.float32)], [(L, torch.float32)], fn,
+                 scatter=True)
 
 
 def _build_quantized_psum(pool: DevicePool, n: int, codec_name: str,
@@ -542,13 +817,15 @@ def _build_quantized_psum(pool: DevicePool, n: int, codec_name: str,
     """The quantized allreduce (EQuARX) for each f32 payload:
 
     1. quantize every rank's row on the chunk grid (``quant_int8``, one
-       launch for all rows; bf16/fp16 downcast elementwise);
+       launch for all rows of a card; bf16/fp16 downcast elementwise);
     2. owner d dequantize-accumulates columns ``[d·L, (d+1)·L)`` of every
-       row in rank order (``dequant_acc_int8``, one launch for all owners;
-       the padding past ``size`` decodes to 0, as the reference's 1.0-padded
-       scales make it), then AVG divides;
+       row in rank order (``dequant_acc_int8``: on one card one launch for
+       all owners, across cards one on each owner's card after the int8
+       rows and scales moved there; the padding past ``size`` decodes to
+       0, as the reference's 1.0-padded scales make it), then AVG divides;
     3. each owner's reduced shard is re-quantized on the shard-local grid
-       and decoded (one launch each), so every rank receives the same bytes.
+       and decoded (one launch each, on every card), so every rank
+       receives the same bytes.
 
     Non-f32 payloads ride a raw ``sum`` uncompressed, as the host codecs
     leave them. SUM/AVG only (the ctor and ``unsupported_reason`` refuse
@@ -558,55 +835,123 @@ def _build_quantized_psum(pool: DevicePool, n: int, codec_name: str,
         raise ValueError(
             f"quantized psum only accumulates (sum/avg); got op={op!r}"
         )
+    cards = pool.cards_for(n)
     div = n if op == ReduceOp.AVG else 0
     fns = []
     for size, dkey in layouts:
         if size == 0:
-            fns.append(lambda g: g[:1])
+            fns.append(lambda bufs: [b[:1] for b in bufs])
         elif dkey != "<f4":
-            fns.append(_raw_psum(n, op))
+            fns.append(_raw_psum(cards, op))
         elif codec_name == "int8":
-            fns.append(_qpsum_int8(n, size, chunk_bytes, div))
+            fns.append(_qpsum_int8(cards, size, chunk_bytes, div))
         else:
-            fns.append(_qpsum_astype(n, size, _WIRE_DTYPES[codec_name], div))
-    shapes = [((n, s), _DEVICE_DTYPES[d]) for s, d in layouts]
-    outs = [((1, s), _DEVICE_DTYPES[d]) for s, d in layouts]
-    return _Plan(pool.device(), shapes, outs,
+            fns.append(_qpsum_astype(cards, size, _WIRE_DTYPES[codec_name],
+                                     div))
+    shapes = [(s, _DEVICE_DTYPES[d]) for s, d in layouts]
+    return _Plan(cards, shapes, shapes,
                  lambda ins: [f(g) for f, g in zip(fns, ins)])
 
 
-def _qpsum_int8(n: int, size: int, chunk_bytes: int, div: int):
+def _qpsum_int8(cards: _Cards, size: int, chunk_bytes: int, div: int):
+    n = cards.n
     L = -(-size // n)
     step1 = _grid_step(size, chunk_bytes)
     step2 = _grid_step(L, chunk_bytes)
     c2 = n_chunks(L, step2)
 
-    def fn(g: torch.Tensor) -> torch.Tensor:
-        q = torch.empty((n, n * L), dtype=torch.int8, device=g.device)
-        s = torch.empty((n, n_chunks(size, step1)), dtype=torch.float32,
-                        device=g.device)
-        quant_int8(g, step1, out=(q[:, :size], s))
-        acc = dequant_acc_int8(q, s, step1, valid=size, divisor=div)
-        q2, s2 = quant_int8(acc.view(n, L), step2)
-        out = dequant_acc_int8(q2.view(1, n * L), s2.view(1, n * c2), step2,
-                               valid=size, seg=L, cps=c2)
-        return out[:size][None]
-    return fn
+    if cards.one:
+        def fn(g: torch.Tensor) -> torch.Tensor:
+            q = torch.empty((n, n * L), dtype=torch.int8, device=g.device)
+            s = torch.empty((n, n_chunks(size, step1)), dtype=torch.float32,
+                            device=g.device)
+            quant_int8(g, step1, out=(q[:, :size], s))
+            acc = dequant_acc_int8(q, s, step1, valid=size, divisor=div)
+            q2, s2 = quant_int8(acc.view(n, L), step2)
+            out = dequant_acc_int8(q2.view(1, n * L), s2.view(1, n * c2),
+                                   step2, valid=size, seg=L, cps=c2)
+            return out[:size][None]
+        return _one_card(fn)
+
+    # owner d's shard [lo, lo + w) and the chunks [k0, k1) of the phase-1
+    # grid that cover it; its buffer starts o columns before lo, at chunk
+    # k0's start, so the kernel's chunk of each column is the global one
+    shards = []
+    for d in range(n):
+        lo = d * L
+        w = max(0, min(L, size - lo))
+        k0 = lo // step1
+        shards.append((lo, w, k0, lo - k0 * step1, n_chunks(lo + w, step1)))
+
+    def fn_cards(bufs: List[torch.Tensor]) -> List[torch.Tensor]:
+        enc = [quant_int8(b, step1) for b in bufs]   # one launch a card
+        reduced = []
+        for d, (lo, w, k0, o, k1) in enumerate(shards):
+            dev = cards.card(d)
+            if w == 0:   # a shard of padding alone
+                acc = torch.zeros(L, dtype=torch.float32, device=dev)
+            else:
+                q = torch.zeros((n, o + L), dtype=torch.int8, device=dev)
+                s = torch.empty((n, k1 - k0), dtype=torch.float32,
+                                device=dev)
+                for r in range(n):
+                    qc, sc = enc[cards.of[r]]
+                    q[r, o:o + w].copy_(qc[cards.slot[r], lo:lo + w])
+                    s[r].copy_(sc[cards.slot[r], k0:k1])
+                acc = dequant_acc_int8(q, s, step1, valid=o + w,
+                                       divisor=div)[o:]
+            reduced.append(quant_int8(acc[None], step2))
+        outs = []
+        for dev in cards.devices:
+            q2 = torch.empty((1, n * L), dtype=torch.int8, device=dev)
+            s2 = torch.empty((1, n * c2), dtype=torch.float32, device=dev)
+            for d, (qd, sd) in enumerate(reduced):
+                q2[0, d * L:(d + 1) * L].copy_(qd[0])
+                s2[0, d * c2:(d + 1) * c2].copy_(sd[0])
+            out = dequant_acc_int8(q2, s2, step2, valid=size, seg=L, cps=c2)
+            outs.append(out[:size][None])
+        return outs
+    return fn_cards
 
 
-def _qpsum_astype(n: int, size: int, wd: torch.dtype, div: int):
+def _qpsum_astype(cards: _Cards, size: int, wd: torch.dtype, div: int):
+    n = cards.n
     L = -(-size // n)
 
-    def fn(g: torch.Tensor) -> torch.Tensor:
-        et = torch.zeros((n, n * L), dtype=wd, device=g.device)
-        et[:, :size] = g.to(wd)
-        acc = torch.zeros(n * L, dtype=torch.float32, device=g.device)
-        for r in range(n):
-            acc = acc + et[r].float()
-        if div:
-            acc = div_exact(acc, div)
-        return acc.to(wd).float()[:size][None]
-    return fn
+    if cards.one:
+        def fn(g: torch.Tensor) -> torch.Tensor:
+            et = torch.zeros((n, n * L), dtype=wd, device=g.device)
+            et[:, :size] = g.to(wd)
+            acc = torch.zeros(n * L, dtype=torch.float32, device=g.device)
+            for r in range(n):
+                acc = acc + et[r].float()
+            if div:
+                acc = div_exact(acc, div)
+            return acc.to(wd).float()[:size][None]
+        return _one_card(fn)
+
+    def fn_cards(bufs: List[torch.Tensor]) -> List[torch.Tensor]:
+        enc = [b.to(wd) for b in bufs]   # each row downcast on its card
+        reduced = []
+        for d in range(n):
+            dev = cards.card(d)
+            lo = d * L
+            hi = min(size, lo + L)
+            acc = torch.zeros(max(0, hi - lo), dtype=torch.float32,
+                              device=dev)
+            for r in range(n):
+                acc = acc + cards.row(enc, r)[lo:hi].to(dev).float()
+            if div:
+                acc = div_exact(acc, div)
+            reduced.append(acc.to(wd))
+        outs = []
+        for dev in cards.devices:
+            out = torch.empty(size, dtype=wd, device=dev)
+            for d, part in enumerate(reduced):
+                out[d * L:d * L + part.numel()] = part.to(dev)
+            outs.append(out.float()[None])
+        return outs
+    return fn_cards
 
 
 def _build_quantized_psum_scatter(pool: DevicePool, n: int,
@@ -614,29 +959,57 @@ def _build_quantized_psum_scatter(pool: DevicePool, n: int,
                                   sizes: Sequence[int]) -> _Plan:
     """The quantized reduce_scatter: phase 1 of the quantized psum alone.
     Every rank's contribution to every owner is quantized on that slot's
-    grid (one launch), each owner dequantize-accumulates its slot in rank
-    order (one launch). Input and output as :func:`_build_psum_scatter`."""
+    grid (one launch a card), each owner dequantize-accumulates its slot in
+    rank order (one launch; across cards one on each owner's card). Input
+    and output as :func:`_build_psum_scatter`."""
     pool._note_trace()
+    cards = pool.cards_for(n)
     L = max(sizes)
     step = _grid_step(L, chunk_bytes)
     c = n_chunks(L, step)
     div = n if op == ReduceOp.AVG else 0
 
-    def fn(ins: List[torch.Tensor]) -> List[torch.Tensor]:
-        x = ins[0].view(n * n, L)   # row r·n + d: rank r's slot for owner d
+    def fn(ins: List[List[torch.Tensor]]) -> List[List[torch.Tensor]]:
+        if cards.one:
+            x = ins[0][0].view(n * n, L)   # row r·n + d: rank r's slot for d
+            if codec_name == "int8":
+                q, s = quant_int8(x, step)
+                acc = dequant_acc_int8(q.view(n, n * L), s.view(n, n * c),
+                                       step, seg=L, cps=c, divisor=div)
+                return [[acc.view(n, L)]]
+            et = x.view(n, n, L).to(_WIRE_DTYPES[codec_name])
+            acc = torch.zeros((n, L), dtype=torch.float32, device=x.device)
+            for r in range(n):
+                acc = acc + et[r].float()
+            return [[div_exact(acc, div) if div else acc]]
+        bufs = [b.view(-1, L) for b in ins[0]]   # row slot·n + d
         if codec_name == "int8":
-            q, s = quant_int8(x, step)
-            acc = dequant_acc_int8(q.view(n, n * L), s.view(n, n * c), step,
-                                   seg=L, cps=c, divisor=div)
-            return [acc.view(n, L)]
-        et = x.view(n, n, L).to(_WIRE_DTYPES[codec_name])
-        acc = torch.zeros((n, L), dtype=torch.float32, device=x.device)
-        for r in range(n):
-            acc = acc + et[r].float()
-        return [div_exact(acc, div) if div else acc]
+            enc = [quant_int8(b, step) for b in bufs]   # one launch a card
+        else:
+            enc = [b.to(_WIRE_DTYPES[codec_name]) for b in bufs]
+        outs = []
+        for dev, owners in zip(cards.devices, cards.ranks):
+            rows = []
+            for d in owners:
+                if codec_name == "int8":
+                    q = torch.empty((n, L), dtype=torch.int8, device=dev)
+                    s = torch.empty((n, c), dtype=torch.float32, device=dev)
+                    for r in range(n):
+                        qc, sc = enc[cards.of[r]]
+                        q[r].copy_(qc[cards.slot[r] * n + d])
+                        s[r].copy_(sc[cards.slot[r] * n + d])
+                    rows.append(dequant_acc_int8(q, s, step, divisor=div))
+                    continue
+                acc = torch.zeros(L, dtype=torch.float32, device=dev)
+                for r in range(n):
+                    slot = enc[cards.of[r]][cards.slot[r] * n + d]
+                    acc = acc + slot.to(dev).float()
+                rows.append(div_exact(acc, div) if div else acc)
+            outs.append(torch.stack(rows))
+        return [outs]
 
-    return _Plan(pool.device(), [((n, n * L), torch.float32)],
-                 [((n, L), torch.float32)], fn)
+    return _Plan(cards, [(n * L, torch.float32)], [(L, torch.float32)], fn,
+                 scatter=True)
 
 
 def _build_hier(pool: DevicePool, n: int, codec_name: str,
@@ -644,25 +1017,33 @@ def _build_hier(pool: DevicePool, n: int, codec_name: str,
                 layouts: Sequence[Tuple[int, str]],
                 groups: Sequence[Sequence[int]]) -> _Plan:
     """The deterministic hierarchical allreduce (module docstring), per
-    payload array over its ``(n, size)`` stacked buffer, bitwise with the
-    TCP hier path: reduce-within in wire rank order, the star fan-in of the
-    encoded domain sums in domain order, the root's re-encode, then AVG."""
+    payload array over its rows, bitwise with the TCP hier path:
+    reduce-within in wire rank order (across cards on the card of the
+    domain's first rank), the star fan-in of the encoded domain sums in
+    domain order (each encoded on its own card, decoded on domain 0's),
+    the root's re-encode, then AVG."""
     pool._note_trace()
+    cards = pool.cards_for(n)
     lossy = codec_name != "none"
 
     def build_one(size: int, dkey: str):
         step = _grid_step(size, chunk_bytes, np.dtype(dkey).itemsize)
 
-        def fn(g: torch.Tensor) -> torch.Tensor:
+        def reduce(row) -> torch.Tensor:
             dsums = []
             for ranks in groups:
-                acc = g[ranks[0]]
+                acc = row(ranks[0])
                 for r in ranks[1:]:
-                    acc = _comb(op, acc, g[r])
+                    acc = _comb(op, acc, row(r).to(acc.device))
                 dsums.append(acc)
             acc = dsums[0]
             if len(dsums) > 1:
-                dec = _dev_enc_dec(codec_name, torch.stack(dsums[1:]), step)
+                if cards.one:
+                    dec = _dev_enc_dec(codec_name, torch.stack(dsums[1:]),
+                                       step)
+                else:
+                    dec = [_enc_ship_dec(codec_name, x[None], step,
+                                         acc.device)[0] for x in dsums[1:]]
                 for d in range(len(dsums) - 1):
                     acc = _comb(op, acc, dec[d])
                 if lossy:
@@ -670,13 +1051,16 @@ def _build_hier(pool: DevicePool, n: int, codec_name: str,
             if op == ReduceOp.AVG:
                 acc = div_exact(acc, n)
             return acc[None]
-        return fn
 
-    fns = [build_one(size, dkey) if size else (lambda g: g[:1])
-           for size, dkey in layouts]
-    shapes = [((n, s), _DEVICE_DTYPES[d]) for s, d in layouts]
-    outs = [((1, s), _DEVICE_DTYPES[d]) for s, d in layouts]
-    return _Plan(pool.device(), shapes, outs,
+        if cards.one:
+            return _one_card(lambda g: reduce(lambda r: g[r]))
+        return lambda bufs: _everywhere(
+            cards, reduce(lambda r: cards.row(bufs, r)))
+
+    fns = [build_one(size, dkey) if size else
+           (lambda bufs: [b[:1] for b in bufs]) for size, dkey in layouts]
+    shapes = [(s, _DEVICE_DTYPES[d]) for s, d in layouts]
+    return _Plan(cards, shapes, shapes,
                  lambda ins: [f(g) for f, g in zip(fns, ins)])
 
 
@@ -687,39 +1071,53 @@ def _build_hier_psum(pool: DevicePool, n: int, codec_name: str,
     """The native hierarchical allreduce (numeric): a full-precision sum
     within each domain, then the domain sums (one per egress row) encoded
     once and accumulated across domains in domain order. int8 is one
-    ``quant_int8`` of the egress rows and one ``dequant_acc_int8`` across
-    them (AVG divides in the same launch); bf16/fp16 downcast. Extrema
-    are idempotent across tiers (a plain max/min); non-f32 payloads and a
-    single domain accumulate flat. Every rank receives the one result."""
+    ``quant_int8`` of the egress rows (across cards one on each domain's
+    card) and one ``dequant_acc_int8`` across them (AVG divides in the
+    same launch); bf16/fp16 downcast. Extrema are idempotent across tiers
+    (a plain max/min); non-f32 payloads and a single domain accumulate
+    flat. Every rank receives the one result."""
     pool._note_trace()
+    cards = pool.cards_for(n)
     div = n if op == ReduceOp.AVG else 0
-    index = [torch.tensor(list(r), dtype=torch.long, device=pool.device())
-             for r in groups]
+    if cards.one:
+        index = [torch.tensor(list(r), dtype=torch.long,
+                              device=cards.devices[0]) for r in groups]
+    root = cards.card(groups[0][0])
 
     def build_one(size: int, dkey: str):
         if op in (ReduceOp.MAX, ReduceOp.MIN) or dkey != "<f4" \
                 or len(groups) == 1:
-            return _raw_psum(n, op)
+            return _raw_psum(cards, op)
         step = _grid_step(size, chunk_bytes)
 
-        def fn(g: torch.Tensor) -> torch.Tensor:
-            dsums = torch.stack([g.index_select(0, i).sum(0) for i in index])
+        def across(dsums: List[torch.Tensor]) -> torch.Tensor:
             if codec_name == "int8":
-                q, s = quant_int8(dsums, step)
+                if cards.one:
+                    q, s = quant_int8(torch.stack(dsums), step)
+                else:   # each egress row encoded on its card, moved
+                    enc = [quant_int8(x[None], step) for x in dsums]
+                    q = torch.cat([e[0].to(root) for e in enc])
+                    s = torch.cat([e[1].to(root) for e in enc])
                 return dequant_acc_int8(q, s, step, divisor=div)[None]
             if codec_name != "none":
-                dsums = dsums.to(_WIRE_DTYPES[codec_name]).float()
+                wd = _WIRE_DTYPES[codec_name]
+                dsums = [x.to(wd).to(root).float() for x in dsums]
             acc = dsums[0]
             for d in range(1, len(groups)):
-                acc = acc + dsums[d]
+                acc = acc + dsums[d].to(root)
             return (div_exact(acc, div) if div else acc)[None]
-        return fn
 
-    fns = [build_one(size, dkey) if size else (lambda g: g[:1])
-           for size, dkey in layouts]
-    shapes = [((n, s), _DEVICE_DTYPES[d]) for s, d in layouts]
-    outs = [((1, s), _DEVICE_DTYPES[d]) for s, d in layouts]
-    return _Plan(pool.device(), shapes, outs,
+        if cards.one:
+            return _one_card(lambda g: across(
+                [g.index_select(0, i).sum(0) for i in index]))
+        return lambda bufs: _everywhere(cards, across(
+            [_gather_rows(cards, bufs, cards.card(ranks[0]), ranks).sum(0)
+             for ranks in groups]))
+
+    fns = [build_one(size, dkey) if size else
+           (lambda bufs: [b[:1] for b in bufs]) for size, dkey in layouts]
+    shapes = [(s, _DEVICE_DTYPES[d]) for s, d in layouts]
+    return _Plan(cards, shapes, shapes,
                  lambda ins: [f(g) for f, g in zip(fns, ins)])
 
 
@@ -1534,11 +1932,11 @@ class _DeviceGroup:
             for r in range(n):
                 self._members[r].metrics.incr("comm_chunks", n_chunks_op)
 
-            def deliver(outs: List[np.ndarray]) -> None:
+            def deliver(outs: List[List[np.ndarray]]) -> None:
                 for r, sub in enumerate(ordered):
                     for k, j in enumerate(dev_idx):
                         if owners is None or owners[j] == r:
-                            np.copyto(sub.arrays[j].reshape(-1), outs[k][0])
+                            np.copyto(sub.arrays[j].reshape(-1), outs[k][r])
 
             self._run(key, build, [[sub.arrays[j] for sub in ordered]
                                    for j in dev_idx], deliver)
@@ -1619,34 +2017,37 @@ class _DeviceGroup:
         for r in range(n):
             self._members[r].metrics.incr("comm_chunks", n_chunks_op)
 
-        def deliver(outs: List[np.ndarray]) -> None:
-            for sub in ordered:
+        def deliver(outs: List[List[np.ndarray]]) -> None:
+            for r, sub in enumerate(ordered):
                 for k, j in enumerate(dev_idx):
-                    np.copyto(sub.arrays[j].reshape(-1), outs[k][0])
+                    np.copyto(sub.arrays[j].reshape(-1), outs[k][r])
 
         self._run(key, build, [[sub.arrays[j] for sub in ordered]
                                for j in dev_idx], deliver)
 
     def _run(self, key: Tuple, build: Callable[[], _Plan],
              rows: List[List[np.ndarray]],
-             deliver: Callable[[List[np.ndarray]], None]) -> None:
-        """The plan of ``key`` (built on the pool's stream at first sight):
-        upload row r of input buffer k from ``rows[k][r]``, reduce on the
-        card, download, wait for the stream, and ``deliver`` the host
-        results into the ranks' donated arrays (the donation contract;
-        _execute resolves the futures after this). The plan's lock spans
-        all of it: groups that share a pool run on executors of their own,
-        and a plan's buffers hold one op at a time."""
+             deliver: Callable[[List[List[np.ndarray]]], None]) -> None:
+        """The plan of ``key`` (built on the pool's streams at first sight):
+        upload rank r's row of payload k from ``rows[k][r]`` to its own
+        card, reduce, download each rank's result from its own card, wait
+        for every card's stream, and ``deliver`` the host results
+        (``outs[k][r]``) into the ranks' donated arrays (the donation
+        contract; _execute resolves the futures after this). The plan's
+        lock spans all of it: groups that share a pool run on executors of
+        their own, and a plan's buffers hold one op at a time."""
         pool = self.pool
         with pool.on_stream():
             plan = pool.executable(key, build)
+        cards = plan.cards
         with plan.lock:
             with pool.on_stream():
-                for buf, arrays in zip(plan.inputs, rows):
+                for bufs, arrays in zip(plan.inputs, rows):
                     for r, a in enumerate(arrays):
                         src = torch.from_numpy(np.ascontiguousarray(a)
                                                .reshape(-1))
-                        buf[r, :src.numel()].copy_(src, non_blocking=True)
+                        cards.row(bufs, r)[:src.numel()].copy_(
+                            src, non_blocking=True)
                 outs = plan.run()
             pool.synchronize()
             deliver(outs)
@@ -1679,9 +2080,9 @@ class _DeviceGroup:
                 stacked[r, j * L: j * L + sizes[j]] = (
                     np.ascontiguousarray(a).reshape(-1))
 
-        def deliver(outs: List[np.ndarray]) -> None:
+        def deliver(outs: List[List[np.ndarray]]) -> None:
             for r, sub in enumerate(ordered):
-                np.copyto(sub.arrays[r].reshape(-1), outs[0][r, :sizes[r]])
+                np.copyto(sub.arrays[r].reshape(-1), outs[0][r][:sizes[r]])
 
         self._run(key, build, [list(stacked)], deliver)
 

@@ -92,7 +92,10 @@ from torchft_tpu_torch.comm.context import (
     ReduceOp,
     Work,
 )
-from torchft_tpu_torch.comm.cuda_backend import default_device_pool
+from torchft_tpu_torch.comm.cuda_backend import (
+    DevicePool,
+    default_device_pool,
+)
 from torchft_tpu_torch.comm.store import StoreServer
 from torchft_tpu_torch.comm.topology import DomainTopology
 from torchft_tpu_torch.control import Lighthouse, LighthouseClient
@@ -665,6 +668,30 @@ def train_group(
     return run
 
 
+def group_devices(groups: int,
+                  device: "Optional[str | torch.device]" = None,
+                  devices: "Optional[Sequence[str | torch.device]]" = None,
+                  comm_backend: str = "host",
+                  comm_options: Optional[Dict[str, Any]] = None
+                  ) -> Tuple[list, Dict[str, Any]]:
+    """Each drill group's device and the groups' wire options. Without
+    ``devices`` every group runs on ``device``. With a list, group g's
+    model, optimizer and batches live on ``devices[g % len(devices)]``,
+    and on the cuda plane every group shares one
+    ``DevicePool(devices=...)`` over those cards (position g is group g's
+    card; rank r of the wire lies on position r), unless ``comm_options``
+    names a ``device_pool``."""
+    options = dict(comm_options or {})
+    if devices is None:
+        return [device] * groups, options
+    if device is not None:
+        raise ValueError("pass `device` or `devices`, not both")
+    devs = [devices[g % len(devices)] for g in range(groups)]
+    if comm_backend == "cuda":
+        options.setdefault("device_pool", DevicePool(devices=devs))
+    return devs, options
+
+
 def _require(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
@@ -759,6 +786,7 @@ def run_kill_and_heal(
     sharded: Optional[bool] = None,
     model_shards: int = 1,
     digest_params: bool = False,
+    devices: "Optional[Sequence[str | torch.device]]" = None,
 ) -> Dict[str, object]:
     """``groups`` replica groups under an in-process lighthouse, on a fixed
     schedule (k = ``kill_step``, s = ``steps_alone``, a = ``steps_after``):
@@ -783,7 +811,10 @@ def run_kill_and_heal(
     allreduces of that step (a joint step up to k) in ``GroupRun.recorded``.
     ``comm_backend`` / ``comm_options`` select the wire, ``streamed`` DDP's
     arm, ``sharded`` the weight update, ``model_shards`` its mesh and
-    ``digest_params`` the digests, as for :func:`train_group`. With
+    ``digest_params`` the digests, as for :func:`train_group`.
+    ``devices``: group g on ``devices[g % len(devices)]`` and one shared
+    ``DevicePool`` over them on the cuda plane (:func:`group_devices`); a
+    heal moves the donor's state to the healer's card over HTTP. With
     ``sharded=True`` the survivors reshard onto the shrunken wire after the
     kill, the restarted group heals its optimizer shard with
     ``fetch_opt_shard``, and all reshard back.
@@ -815,7 +846,8 @@ def run_kill_and_heal(
     runs: Dict[int, List[GroupRun]] = {g: [] for g in range(groups)}
     errors: List[BaseException] = []
     tree = _DrillDomains(domains) if domains is not None else None
-    comm_options = dict(comm_options or {})
+    devs, comm_options = group_devices(groups, device, devices, comm_backend,
+                                       comm_options)
     if tree is not None:
         comm_options["domain_resolver"] = tree.resolver
     # bitwise comparison per step, as soon as every group of it committed
@@ -838,8 +870,8 @@ def run_kill_and_heal(
         first = min(held)
         for g in sorted(held):
             for a, b in zip(held[first], held[g]):
-                _require(torch.equal(a, b), f"group {g} diverged from "
-                         f"group {first} at step {step}")
+                _require(torch.equal(a, b.to(a.device)), f"group {g} "
+                         f"diverged from group {first} at step {step}")
         compared[step] = len(held)
 
     def started(group: int, wait_all: bool):
@@ -864,7 +896,7 @@ def run_kill_and_heal(
                 _wait_lighthouse(addr, "participants", 1, timeout, stop)
         return _hook
 
-    common = dict(num_groups=groups, lighthouse_addr=addr, device=device,
+    common = dict(num_groups=groups, lighthouse_addr=addr,
                   batch_size=batch_size, data_seed=seed, timeout=timeout,
                   total_steps=total, stop=stop, comm_backend=comm_backend,
                   comm_options=comm_options, streamed=streamed,
@@ -881,7 +913,7 @@ def run_kill_and_heal(
     def survivor(g: int):
         def _run():
             runs[g].append(train_group(
-                cfg, replica_group=g, init_seed=seed,
+                cfg, replica_group=g, init_seed=seed, device=devs[g],
                 on_start=started(g, True), on_commit=on_commit(g),
                 record_ops=record, **common))
         return _run
@@ -890,8 +922,9 @@ def run_kill_and_heal(
         g = kill_group
         try:
             train_group(cfg, replica_group=g, init_seed=seed,
-                        fail_at_step=kill_step, on_start=started(g, True),
-                        on_commit=on_commit(g), record_ops=record, **common)
+                        device=devs[g], fail_at_step=kill_step,
+                        on_start=started(g, True), on_commit=on_commit(g),
+                        record_ops=record, **common)
             raise AssertionError(f"group {g} was never failed")
         except InjectedFailure as e:
             runs[g].append(e.run)
@@ -900,7 +933,7 @@ def run_kill_and_heal(
             raise TimeoutError(
                 f"the survivors never committed step {kill_step + s_alone}")
         runs[g].append(train_group(
-            cfg, replica_group=g, init_seed=seed + 1000,
+            cfg, replica_group=g, init_seed=seed + 1000, device=devs[g],
             on_start=started(g, False), on_commit=on_commit(g), **common))
 
     def guarded(fn):

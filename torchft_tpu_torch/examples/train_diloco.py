@@ -53,6 +53,7 @@ from torchft_tpu_torch.examples.train_ddp import (
     FaultyCommContext,
     InjectedFailure,
     _wait_lighthouse,
+    group_devices,
 )
 from torchft_tpu_torch.local_sgd import DiLoCo, LocalSGD, fragment_boundaries
 from torchft_tpu_torch.manager import Manager
@@ -364,6 +365,7 @@ def run_diloco_drill(
     subproc_groups: Sequence[int] = (),
     wedge: Optional[Tuple[int, int]] = None,
     keep_params: Sequence[int] = (),
+    devices: "Optional[Sequence[str | torch.device]]" = None,
 ) -> Dict[str, object]:
     """``groups`` replica groups as threads under an in-process lighthouse
     (no lease; every quorum waits for every live group), ``rounds``
@@ -392,6 +394,9 @@ def run_diloco_drill(
     Every group but the quorum's first also heals in its first round (the
     step-0 heal that gives every group the same initial state).
     ``sharded_outer`` and ``subproc_groups`` go to :func:`train_group`.
+    ``devices``: group g on ``devices[g % len(devices)]``, and one shared
+    ``DevicePool`` over them on the cuda plane
+    (``train_ddp.group_devices``).
 
     Raises AssertionError unless: every group that commits a round holds
     parameters bitwise equal to every other group that commits it (and, for
@@ -551,7 +556,9 @@ def run_diloco_drill(
                 _wait_lighthouse(addr, "participants", 1, timeout, stop)
         return _hook
 
-    common = dict(num_groups=groups, lighthouse_addr=addr, device=device,
+    devs, comm_options = group_devices(groups, device, devices,
+                                       comm_backend, comm_options)
+    common = dict(num_groups=groups, lighthouse_addr=addr,
                   batch_size=batch_size, data_seed=seed, timeout=timeout,
                   total_syncs=rounds, stop=stop, algo=algo,
                   sync_every=sync_every, num_fragments=num_fragments,
@@ -561,6 +568,7 @@ def run_diloco_drill(
     def group(g: int):
         def _run():
             kwargs = dict(common, replica_group=g, init_seed=seed,
+                          device=devs[g],
                           on_start=on_start, on_round=on_round(g, 0),
                           on_fence=on_fence(g, 0), on_comm=on_comm(g, 0))
             if fault is not None and fault[0] == g:
@@ -670,7 +678,7 @@ def run_diloco_drill(
 def _tree_equal(a: Any, b: Any) -> bool:
     if isinstance(a, torch.Tensor):
         return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
-                and torch.equal(a, b))
+                and torch.equal(a, b.to(a.device)))
     if isinstance(a, dict):
         return (isinstance(b, dict) and a.keys() == b.keys()
                 and all(_tree_equal(a[k], b[k]) for k in a))

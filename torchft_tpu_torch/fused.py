@@ -11,9 +11,11 @@ bodies as four graphs with real host round trips in between: the A/B lever
 and the bitwise oracle (both arms replay the same kernels in the same order,
 so fused and staged agree bit for bit, not within a tolerance).
 
-The mesh is laid over the ``DevicePool``'s device (``mesh_for``): every
+The mesh is laid over the ``DevicePool``'s one card (``mesh_for``): every
 position ``d = r * model_shards + m`` is a row of a stacked ``(D, ...)``
-tensor on that device, the virtual mesh of the port's other in-group axes.
+tensor on that card, the virtual mesh of the port's other in-group axes. A
+pool over several cards raises (``DevicePool.device``): one row of
+positions a card is ROADMAP item 7b's next step.
 On the CPU both arms run the same bodies eagerly.
 
 Counter contract (the reference's):

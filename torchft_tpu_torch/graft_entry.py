@@ -7,9 +7,12 @@ over :class:`~torchft_tpu_torch.models.GPT`, ``params`` its state and
 ``tokens`` drawn as the reference draws them.
 
 ``dryrun_multichip(n)`` runs the reference's segments over an
-n-position :class:`~torchft_tpu_torch.parallel.Mesh` (virtual: the one
-device repeats; on the card unless ``device="cpu"``) and holds each
-against its unsharded counterpart in the port:
+n-position :class:`~torchft_tpu_torch.parallel.Mesh` and holds each
+against its unsharded counterpart in the port. Position p lies on
+``devices[p % len(devices)]``, as the reference lays its mesh over
+``jax.devices()[:n]``: one device (``device``, the card unless
+``device="cpu"``) is a virtual mesh, a list of cards a mesh across them,
+and the unsharded counterparts run on the first:
 
 1. one dp x fsdp x tp step of ``ShardedGPT`` at "tiny" (the reference's
    factorisation of n), and the vocab-parallel cross entropy, whose
@@ -36,7 +39,7 @@ import dataclasses
 import math
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -128,6 +131,14 @@ class _Launches:
         self._last = now
 
 
+def _positions(n: int, dev) -> list:
+    """A segment's n positions: ``dev`` itself when it is a list of them,
+    else one device repeated (a virtual mesh)."""
+    if isinstance(dev, (list, tuple)):
+        return list(dev)
+    return [dev] * n
+
+
 def _factor(n: int):
     """The reference's dp x fsdp x tp factorisation of n: tensor 2 if it
     divides n, then data 2 if it divides the rest, fsdp the rest."""
@@ -152,9 +163,11 @@ def _step_segment(n: int, dev, rng) -> Dict[str, Any]:
     from torchft_tpu_torch.parallel import ft_mesh
 
     cfg = CONFIGS["tiny"]
+    devs = _positions(n, dev)
+    dev = devs[0]
     data, fsdp, tensor = _factor(n)
     mesh = ft_mesh({"data": data, "fsdp": fsdp, "tensor": tensor},
-                   devices=[dev] * n)
+                   devices=devs)
     dense = GPT(cfg, device=dev, seed=0)
     model = ShardedGPT(cfg, mesh, params=gpt_param_tree(dense))
     split = data * fsdp
@@ -197,9 +210,11 @@ def _vocab_segment(n: int, dev, rng) -> Dict[str, Any]:
     )
 
     cfg = CONFIGS["tiny"]
+    devs = _positions(n, dev)
+    dev = devs[0]
     d, v = cfg.d_model, cfg.vocab_size
     world = max(k for k in range(1, n + 1) if v % k == 0)
-    mesh = ft_mesh({"tensor": world}, devices=[dev] * world)
+    mesh = ft_mesh({"tensor": world}, devices=devs[:world])
     h = torch.tensor(rng.standard_normal((8, d)), dtype=torch.float32,
                      device=dev)
     w = torch.tensor(rng.standard_normal((d, v)) * 0.1, dtype=torch.float32,
@@ -235,11 +250,13 @@ def _ring_segment(n: int, dev, rng) -> Dict[str, Any]:
     from torchft_tpu_torch.parallel import ft_mesh, make_ring_attention
 
     cfg = dataclasses.replace(CONFIGS["tiny"], max_seq_len=64 * n)
+    devs = _positions(n, dev)
+    dev = devs[0]
     model = GPT(cfg, device=dev, seed=1)
     tok = torch.tensor(rng.integers(0, cfg.vocab_size, (2, cfg.max_seq_len)),
                        device=dev)
     tgt = torch.roll(tok, -1, dims=1)
-    ring = make_ring_attention(ft_mesh({"seq": n}, devices=[dev] * n),
+    ring = make_ring_attention(ft_mesh({"seq": n}, devices=devs),
                                "seq", causal=True, block_impl="flash")
     loss = loss_fn(cfg, model, tok, tgt, attn_fn=ring)
     loss.backward()
@@ -280,7 +297,9 @@ def _moe_segment(n: int, dev, rng) -> Dict[str, Any]:
     )
 
     out: Dict[str, Any] = {}
-    mesh = ft_mesh({"expert": n}, devices=[dev] * n)
+    devs = _positions(n, dev)
+    dev = devs[0]
+    mesh = ft_mesh({"expert": n}, devices=devs)
     cfg = MoEConfig(d_model=32, d_ff=64, num_experts=n)
     params = init_moe_params(cfg, seed=2, device=dev)
     sharded = shard_pytree(params, mesh, tp_rules=moe_rules(),
@@ -302,7 +321,7 @@ def _moe_segment(n: int, dev, rng) -> Dict[str, Any]:
                                 num_experts=ep, remat=False)
     dense = MoETransformer(mcfg, device=dev, seed=3)
     model = ShardedMoETransformer(
-        mcfg, ft_mesh({"tensor": tp, "expert": ep}, devices=[dev] * n),
+        mcfg, ft_mesh({"tensor": tp, "expert": ep}, devices=devs),
         params=gpt_param_tree(dense))
     tok = torch.tensor(rng.integers(0, mcfg.vocab_size,
                                     (max(2, ep), mcfg.max_seq_len)),
@@ -354,12 +373,15 @@ def _pipeline_segments(n: int, dev, rng) -> Dict[str, Any]:
         stack_stage_params,
     )
 
+    devs = _positions(n, dev)
+    dev = devs[0]
+
     def weights(k: int):
         return [{"w": torch.tensor(rng.standard_normal((16, 16)) * 0.3,
                                    dtype=torch.float32, device=dev)}
                 for _ in range(k)]
 
-    mesh = ft_mesh({"stage": n}, devices=[dev] * n)
+    mesh = ft_mesh({"stage": n}, devices=devs)
     stages = weights(n)
     x = torch.tensor(rng.standard_normal((8, 16)), dtype=torch.float32,
                      device=dev)
@@ -407,18 +429,25 @@ def _pipeline_segments(n: int, dev, rng) -> Dict[str, Any]:
 
 
 def dryrun_multichip(n_devices: int,
-                     device: "Optional[str | torch.device]" = None
+                     device: "Optional[str | torch.device]" = None,
+                     devices: "Optional[Sequence[str | torch.device]]" = None
                      ) -> Dict[str, Any]:
-    """The reference's dry run over an n-position virtual mesh of the card
-    (or ``device``): every segment of the module docstring, each held
-    against its unsharded counterpart within ``DRYRUN_TOL``; raises on the
-    first miss. Prints the summary line (``... ft[...] OK``) and returns
-    it (``summary``) with each segment's figures (``segments``), flash
-    launches (``launches``) and seconds (``seconds``)."""
+    """The reference's dry run over n positions, position p on
+    ``devices[p % len(devices)]`` (default ``[device]``: a virtual mesh of
+    the card, or of ``device``): every segment of the module docstring,
+    each held against its unsharded counterpart within ``DRYRUN_TOL``;
+    raises on the first miss. Prints the summary line (``... ft[...] OK``)
+    and returns it (``summary``) with each segment's figures
+    (``segments``), flash launches (``launches``) and seconds
+    (``seconds``)."""
     from torchft_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(device)
+    if devices is not None and device is not None:
+        raise ValueError("dryrun_multichip takes `device` or `devices`, "
+                         "not both")
+    cards = [resolve_device(d) for d in (devices or [device])]
     n = int(n_devices)
+    devs = [cards[p % len(cards)] for p in range(n)]
     rng = np.random.default_rng(0)
     launches = _Launches()
     segments: Dict[str, Dict[str, Any]] = {}
@@ -431,11 +460,11 @@ def dryrun_multichip(n_devices: int,
                          ("ring", _ring_segment), ("moe", _moe_segment),
                          ("pipeline", _pipeline_segments)):
             t0 = time.perf_counter()
-            segments[name] = fn(n, dev, rng)
+            segments[name] = fn(n, devs, rng)
             seconds[name] = time.perf_counter() - t0
             launches.mark(name)
         t0 = time.perf_counter()
-        ft = _dryrun_ft_loop(n, dev)
+        ft = _dryrun_ft_loop(n, devs)
         seconds["ft"] = time.perf_counter() - t0
         launches.mark("ft")
     finally:
@@ -457,11 +486,14 @@ def dryrun_multichip(n_devices: int,
 
 
 def _dryrun_ft_loop(n_devices: int,
-                    device: "Optional[str | torch.device]" = None
+                    devices: "Optional[str | torch.device | Sequence]" = None
                     ) -> Dict[str, Any]:
     """The reference's FT segment on the port's Manager, ``TcpCommContext``
-    and ``CheckpointServer``, at its topology over virtual positions of
-    ``device``:
+    and ``CheckpointServer``, at its topology over n positions, position p
+    on ``devices[p % len(devices)]`` (one device, the card by default, is
+    virtual positions of it); rank r of group g holds the positions from
+    ``(g * ranks_per_group + r) * per_rank`` on, the spare group group
+    0's:
 
     * 2 trainer replica groups x ``ranks_per_group`` ranks (2 from n = 4),
       each rank an fsdp sub-mesh of ``n // (2 * ranks)`` positions with
@@ -493,9 +525,17 @@ def _dryrun_ft_loop(n_devices: int,
     )
     from torchft_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(device)
+    if devices is None or isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    cards = [resolve_device(d) for d in devices]
     ranks_per_group = 2 if n_devices >= 4 else 1
     per_rank = max(1, n_devices // (2 * ranks_per_group))
+
+    def positions(group: int, rank: int) -> list:
+        g = 0 if group == 2 else group  # the spare reuses group 0's
+        first = (g * ranks_per_group + rank) * per_rank
+        return [cards[(first + i) % len(cards)] for i in range(per_rank)]
+
     n_groups = 3  # groups 0, 1 train; group 2 is the spare
     target_commits, kill_at = 5, 3
     lighthouse = Lighthouse(min_replicas=1, join_timeout_ms=300,
@@ -511,7 +551,8 @@ def _dryrun_ft_loop(n_devices: int,
     errors: list = []
 
     def rank_main(group, rank, store_addr, restarted, killed) -> None:
-        mesh = ft_mesh({"fsdp": per_rank}, devices=[dev] * per_rank)
+        mesh = ft_mesh({"fsdp": per_rank}, devices=positions(group, rank))
+        dev = mesh.devices.flat[0]
         seed = 99.0 if restarted else 1.0  # poison: only a heal fixes it
         # dim 0 splits over fsdp at any n, so the sharded heal path runs;
         # rank-distinct values: a cross-rank heal mix-up would diverge
@@ -542,8 +583,9 @@ def _dryrun_ft_loop(n_devices: int,
 
         def grad_step(leaf: ShardedTensor):
             live = [p.detach().requires_grad_(True) for p in leaf.pieces]
-            loss = sum(((p - target) ** 2).sum() for p in live) \
-                / math.prod(leaf.shape)
+            # each piece's term summed on the first piece's card
+            loss = sum(((p - target) ** 2).sum().to(live[0].device)
+                       for p in live) / math.prod(leaf.shape)
             return torch.autograd.grad(loss, live)
 
         manager = Manager(

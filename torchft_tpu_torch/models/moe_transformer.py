@@ -293,7 +293,8 @@ class ShardedMoETransformer(ShardedGPT):
             return super()._layer(i, xs)
         if self.cfg.remat and torch.is_grad_enabled():
             out = torch.utils.checkpoint.checkpoint(
-                self._moe_block, i, *xs, use_reentrant=False)
+                self._moe_block, i, *xs,
+                use_reentrant=self._remat_reentrant)
         else:
             out = self._moe_block(i, *xs)
         return out[:-1], out[-1]

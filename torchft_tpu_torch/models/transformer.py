@@ -755,6 +755,13 @@ class ShardedGPT(nn.Module):
         shape = mesh.shape
         self.tp = shape.get(AXIS_TENSOR, 1)
         self.devices = [_device(d) for d in mesh.devices.flat]
+        # Autograd runs each card's backward on a thread of its own, and a
+        # non-reentrant checkpoint recomputes its region from whichever
+        # thread first unpacks a saved tensor: over several cards two
+        # threads race to recompute one region (torch.utils.checkpoint's
+        # early stop then asserts). There the region recomputes inside its
+        # own backward node, once (reentrant).
+        self._remat_reentrant = len({str(d) for d in self.devices}) > 1
         coords = [dict(zip(mesh.axis_names, map(int, np.unravel_index(
             p, mesh.devices.shape)))) for p in range(mesh.size)]
         self.batch_shards = int(np.prod([shape.get(a, 1)
@@ -885,7 +892,8 @@ class ShardedGPT(nn.Module):
         the dense GPT has none)."""
         if self.cfg.remat and torch.is_grad_enabled():
             return torch.utils.checkpoint.checkpoint(
-                self._block, i, *xs, use_reentrant=False), None
+                self._block, i, *xs,
+                use_reentrant=self._remat_reentrant), None
         return self._block(i, *xs), None
 
     def _split_batch(self, tokens: torch.Tensor) -> List[torch.Tensor]:

@@ -19,8 +19,9 @@ f64 there) and bought only +-1 parity; the H100 divides in f64, so the port
 keeps the bitwise semantics, and the host codec, the plain versions here and
 the kernels agree bit for bit.
 
-Each wrapper launches its kernel for CUDA tensors (anything the kernel does
-not take raises ValueError), runs its plain version for CPU tensors, and
+Each wrapper launches its kernel for CUDA tensors, on the current stream of
+their own card whichever card is current (anything the kernel does not take
+raises ValueError), runs its plain version for CPU tensors, and
 counts its launches in ``LAUNCHES``. There is no fallback. Under a CUDA graph
 capture (``recording_launches``) a wrapper records its kernel into the graph
 and its count goes to the capture's tally, which the graph's owner adds to
@@ -191,12 +192,13 @@ def quant_int8(x: torch.Tensor, step: int,
     if rows == 0 or n == 0:
         return q, scales
     lib = _build.load_kernels()
-    rc = lib.tft_quant_int8(
-        x.data_ptr(), x.stride(0), q.data_ptr(), q.stride(0),
-        scales.data_ptr(), rows, n, step, _stream(),
-    )
-    _build.check(rc, "quant_int8")
-    _count("quant_int8")
+    with torch.cuda.device(x.device):  # the launch rides x's card's stream
+        rc = lib.tft_quant_int8(
+            x.data_ptr(), x.stride(0), q.data_ptr(), q.stride(0),
+            scales.data_ptr(), rows, n, step, _stream(),
+        )
+        _build.check(rc, "quant_int8")
+        _count("quant_int8")
     return q, scales
 
 
@@ -267,11 +269,12 @@ def dequant_acc_int8(q: torch.Tensor, scales: torch.Tensor, step: int, *,
     if n_src == 0:
         raise ValueError("dequant_acc_int8: no sources")
     lib = _build.load_kernels()
-    rc = lib.tft_dequant_acc_int8(
-        q.data_ptr(), q.stride(0), scales.data_ptr(), scales.stride(0),
-        out.data_ptr(), n_src, n, valid, seg, int(cps), step, int(divisor),
-        _stream(),
-    )
-    _build.check(rc, "dequant_acc_int8")
-    _count("dequant_acc_int8")
+    with torch.cuda.device(q.device):
+        rc = lib.tft_dequant_acc_int8(
+            q.data_ptr(), q.stride(0), scales.data_ptr(), scales.stride(0),
+            out.data_ptr(), n_src, n, valid, seg, int(cps), step,
+            int(divisor), _stream(),
+        )
+        _build.check(rc, "dequant_acc_int8")
+        _count("dequant_acc_int8")
     return out

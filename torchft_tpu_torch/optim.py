@@ -624,8 +624,10 @@ class TransformationOptimizer(torch.optim.Optimizer):
             mu, nu = state["mu"], state["nu"]
             mu.mul_(tx.b1).add_(g * (1 - tx.b1))
             nu.mul_(tx.b2).add_(torch.mul(g, g).mul_(1 - tx.b2))
-            u = torch.div(mu, bc1.to(mu.dtype)).div_(
-                torch.div(nu, bc2.to(nu.dtype)).sqrt_().add_(tx.eps))
+            # the corrections on this parameter's card (a mesh over cards
+            # holds its pieces on several)
+            u = torch.div(mu, bc1.to(mu)).div_(
+                torch.div(nu, bc2.to(nu)).sqrt_().add_(tx.eps))
             if tx.kind == "adamw":
                 u.add_(tx.weight_decay * p)
             p.add_(u.mul_(-tx.learning_rate))
