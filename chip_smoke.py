@@ -422,8 +422,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 21. fused_step (it runs after pipeline_plane): the fused HSDP step
    (``fused.FusedStepEngine``) at "125m" (136,091,136 parameters as one
-   flat f32 vector, ``fused.module_loss_fn`` over the GPT) on a virtual
-   ``FUSED_MESH`` = 2x2 (replicas x model shards) of the card: q_len
+   flat f32 vector, ``fused.module_loss_fn`` over the GPT) on
+   ``FUSED_MESH`` = 2x2 (replicas x model shards) laid over the visible
+   cards, cycled (position d on ``cuda:{d % cards}``; it prints its layout
+   first): on one card a virtual mesh, on several one position a card,
+   each program one CUDA graph spanning the cards: q_len
    34,022,784, p_len 68,045,568, each position a microbatch of 2
    sequences of 1,024 (a row of 2,048 f32 token ids, targets rolled),
    AdamW (3e-4, weight decay 1e-4), the 16,384-element chunk grid. First
@@ -440,12 +443,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    arm. Int8: step 2's ``h`` and residual bitwise the host codec on the
    same ``gm``; then both engines churn 2x2 -> 4x1 -> 2x2 -> 4x1, a step
    each, bitwise, ``verify_replicas``, no program or capture at a seen
-   shape. Each flash kernel launches once per layer per position per run
-   of the grad stage (a replay or the warm-up before a capture), each
-   int8 exchange one ``quant_int8`` and two ``dequant_acc_int8``. It
-   prints device ms (CUDA events) and wall ms per step of each arm, the
-   peak memory beside its reckoning (``fused_device_bytes``), each with
-   the card's name and power limit.
+   shape. Over several cards, then, for each codec 3 fused steps on the
+   virtual 2x2 of cuda:0 from the same state and batches, whose digest
+   must equal the cards' digest after their 3 steps. Each flash kernel
+   launches once per layer per position per run of the grad stage (a
+   replay or the warm-up before a capture), each int8 exchange one
+   ``quant_int8`` and two ``dequant_acc_int8`` a card holding positions
+   (``fused_launches``). It prints device ms (CUDA events) and wall ms per
+   step of each arm, the bytes a step moves between cards
+   (``fused_cross_card_bytes``), the peak memory of the fullest card
+   beside its reckoning (``fused_device_bytes``), each with the card's
+   name and power limit.
 
 22. serve_deploy (it runs after train_resnet): the train-to-serve plane
    (``serve.py``) fed by the 125m trainer, full width and depth, batch 8
@@ -3185,8 +3193,8 @@ def phase_pipeline_plane(seed: int, card: str, device: str = "cuda",
     return lines
 
 
-# fused_step: the fused HSDP step (fused.py) at "125m" over a virtual
-# replica x model mesh of the card
+# fused_step: the fused HSDP step (fused.py) at "125m" over a replica x
+# model mesh of the visible cards (a virtual mesh of one card)
 FUSED_MESH = (2, 2)         # replicas x model shards: 4 positions
 FUSED_SEQS = 2              # sequences of a position's microbatch
 FUSED_STEPS = 3             # steps of each arm per codec, from one state
@@ -3238,15 +3246,16 @@ def fused_shape(n_params: int, mesh) -> dict:
 
 
 def fused_launches(runs: int, layers: int, positions: int, codec: str,
-                   ef: bool = True) -> dict:
+                   ef: bool = True, cards: int = 1) -> dict:
     """Each kernel's launches in ``runs`` runs of the step's stages (a
     replay, or the warm-up run before a capture): per run one GPT pass per
     position (each flash kernel once per layer, no remat at "125m"), and
-    under int8 one ``quant_int8`` for all slots, one ``dequant_acc_int8``
-    for the rank-order accumulate and one more for the error feedback's
-    wire image."""
+    under int8, on each of the ``cards`` that hold positions, one
+    ``quant_int8`` for the card's slots, one ``dequant_acc_int8`` for the
+    rank-order accumulate of its owners and one more for the error
+    feedback's wire image of its slots."""
     flash = runs * positions * layers
-    q = runs if codec == "int8" else 0
+    q = runs * cards if codec == "int8" else 0
     return {"flash_fwd": flash, "flash_bwd_dq": flash, "flash_bwd_dkv": flash,
             "quant_int8": q, "dequant_acc_int8": q * (2 if ef else 1)}
 
@@ -3260,26 +3269,67 @@ def fused_host_hop_bytes(n_params: int, mesh=FUSED_MESH) -> int:
 
 
 def fused_device_bytes(n_params: int, cfg, mesh=FUSED_MESH,
-                       churn=FUSED_CHURN) -> int:
-    """A reckoning of the phase's device memory at its peak, the int8
-    arm's churn, where a fused and a staged engine hold both shapes: per
-    engine and shape the state (params and residual, D x p_len f32 each;
-    AdamW's moments, D x q_len each); the staged engine's input buffers
-    (gm, h, new_sub); per engine the graphs' transients at the larger
-    shape (the int8 exchange's gm, gq, wire image and new residual at D x
-    p_len f32, the int8 slots at D x p_len bytes, h twice at D x q_len,
-    and the update's new sub-shards and moments, 3 x D x q_len); the
-    model's f32 parameters and one position's activations."""
+                       churn=FUSED_CHURN, cards: int = 1) -> int:
+    """A reckoning of the phase's device memory at its peak on the fullest
+    of ``cards`` (the mesh cycled over them, so the first), the int8 arm's
+    churn, where a fused and a staged engine hold both shapes: per engine
+    and shape the state of the card's n positions (params and residual, n
+    x p_len f32 each; AdamW's moments, n x q_len each); the staged engine's
+    input buffers (gm, h, new_sub); per engine the graphs' transients at
+    the larger shape (the int8 exchange's gm, gq, wire image and new
+    residual at n x p_len f32, the int8 slots at n x p_len bytes, h twice
+    at n x q_len, and the update's new sub-shards and moments, 3 x n x
+    q_len; over several cards a row's gathered params and a gradient kept
+    for its reduce-scatter, M x p_len f32 each); the model's f32
+    parameters and one position's activations."""
     shapes = [mesh] + [s for s in churn if s != mesh][:1]
     state = staged = transient = 0
     for sh in shapes:
         s = fused_shape(n_params, sh)
-        dp, dq = s["positions"] * s["p_len"], s["positions"] * s["q_len"]
+        n = -(-s["positions"] // cards)
+        dp, dq = n * s["p_len"], n * s["q_len"]
         state += 4 * (2 * dp + 2 * dq)
         staged += 4 * (dp + 2 * dq)
-        transient = max(transient, 4 * (4 * dp + 5 * dq) + dp)
+        row = 2 * 4 * sh[1] * s["p_len"] if cards > 1 else 0
+        transient = max(transient, 4 * (4 * dp + 5 * dq) + dp + row)
     return 2 * state + staged + 2 * transient + 4 * n_params \
         + gpt_activation_bytes(cfg, FUSED_SEQS)
+
+
+def fused_cross_card_bytes(n_params: int, mesh, card_of, codec: str,
+                           chunk_bytes: int = FUSED_CHUNK_BYTES) -> dict:
+    """Bytes one step moves between cards, per stage, as the stage bodies
+    copy them (``cuda_backend._fused_local_fns``), position d on card
+    ``card_of[d]``: the model-axis allgather (each other card's shard of a
+    row, once per card of the row), the reduce-scatter (each gradient's
+    shards bound for another card; the losses to the first card), the
+    exchange (each slot whose source and owner lie on two cards: f32 raw,
+    2 bytes under bf16/fp16, 1 byte and a scale a chunk under int8) and
+    the replica gather (each source's raw sub-shard to every other card of
+    its model shard)."""
+    r_, m_ = mesh
+    s = fused_shape(n_params, mesh)
+    q, p = s["q_len"], s["p_len"]
+    step = max(1, chunk_bytes // 4)
+    slot = {"none": 4 * q, "bf16": 2 * q, "fp16": 2 * q,
+            "int8": q + 4 * -(-q // step)}[codec]
+    out = dict.fromkeys(("allgather", "reduce_scatter", "exchange",
+                         "gather"), 0)
+    for r in range(r_):
+        row = [card_of[r * m_ + k] for k in range(m_)]
+        for c in set(row):
+            out["allgather"] += 4 * p * sum(x != c for x in row)
+        for m in range(m_):
+            out["reduce_scatter"] += 4 * p * sum(x != row[m] for x in row)
+    for d in range(r_ * m_):
+        r, m = divmod(d, m_)
+        out["reduce_scatter"] += 4 * (card_of[d] != card_of[0])
+        for src in range(r_):
+            other = card_of[src * m_ + m] != card_of[d]
+            out["exchange"] += slot * other
+            out["gather"] += 4 * q * other
+    out["total"] = sum(out.values())
+    return out
 
 
 def fused_host_bytes(n_params: int, mesh=FUSED_MESH,
@@ -3359,10 +3409,11 @@ def timed_step(fn, batch, cuda: bool) -> tuple:
     return loss, (ev[0].elapsed_time(ev[1]) if cuda else None), wall
 
 
-def busy_share(prof, label: str):
+def busy_share(prof, label: str, card=None):
     """The device's busy share inside the host ranges named ``label`` of a
     ``torch.profiler`` trace: the union of the device events' intervals
-    there over the ranges' length. None where the trace holds no device
+    there (of card index ``card`` alone when given, else of every card)
+    over the ranges' length. None where the trace holds no device
     event."""
     from torch.autograd import DeviceType
 
@@ -3370,7 +3421,8 @@ def busy_share(prof, label: str):
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.name == label and e.device_type == DeviceType.CPU)
     dev = sorted((e.time_range.start, e.time_range.end) for e in events
-                 if e.device_type == DeviceType.CUDA)
+                 if e.device_type == DeviceType.CUDA
+                 and (card is None or e.device_index == card))
     if not spans or not dev:
         return None
     busy = total = 0.0
@@ -3408,7 +3460,7 @@ def check_grad_parity(staged, loss: float, dense: tuple, card: str) -> None:
     import numpy as np
 
     spec = staged.spec
-    h = staged._staged_buffers()["h"][1].numpy()
+    h = staged._host_rows(staged._staged_buffers()["h"][1])
     got = assemble_grad(h, spec.replicas, spec.model_shards)
     got = got[:spec.param_size].astype(np.float64)
     want = dense[1].astype(np.float64)
@@ -3435,9 +3487,9 @@ def check_int8_exchange(staged, e_before, card: str) -> None:
     t0 = time.perf_counter()
     spec = staged.spec
     bufs = staged._staged_buffers()
-    gm = bufs["gm"][1].numpy()
-    h = bufs["h"][1].numpy()
-    e_after = staged._state.e.cpu().numpy()
+    gm = staged._host_rows(bufs["gm"][1])
+    h = staged._host_rows(bufs["h"][1])
+    e_after = staged._host_rows(staged._state.e)
     want_h, want_e = host_int8_exchange(gm, e_before, spec.replicas,
                                         spec.model_shards, spec.chunk_bytes,
                                         spec.error_feedback)
@@ -3453,13 +3505,16 @@ def check_int8_exchange(staged, e_before, card: str) -> None:
 
 
 def run_fused_arm(codec: str, params, loss_fn, batches, device, card: str,
-                  dense=None, profile: bool = False) -> dict:
+                  dense=None, profile: bool = False,
+                  devices=None) -> dict:
     """One codec's arms: a fused and a staged engine from the same state,
     ``FUSED_STEPS`` steps each on the same batches, every state bitwise
     equal after every step, the counters and the program cache checked,
     the oracles of the codec; under int8 the churn over ``FUSED_CHURN``.
-    Returns the runs of the stages (for the launch schedule) and the
-    times."""
+    ``devices``: the pool's positions (several cards), else a virtual mesh
+    of ``device``. Returns the runs of the stages (for the launch
+    schedule), the times and, over several cards, the digest after the
+    ``FUSED_STEPS`` steps."""
     import torch
 
     from torchft_tpu_torch.comm.cuda_backend import DevicePool
@@ -3468,7 +3523,7 @@ def run_fused_arm(codec: str, params, loss_fn, batches, device, card: str,
 
     cuda = torch.device(device).type == "cuda"
     R, M = FUSED_MESH
-    pool = DevicePool(device)
+    pool = DevicePool(devices=devices) if devices else DevicePool(device)
     batch_size = batches[0].shape[1]
     kw = dict(codec=codec, chunk_bytes=FUSED_CHUNK_BYTES, fn_key="gpt")
     fused = FusedStepEngine(pool, R, M, params, batch_size, loss_fn,
@@ -3482,7 +3537,7 @@ def run_fused_arm(codec: str, params, loss_fn, batches, device, card: str,
     runs = 0
     for step in range(FUSED_STEPS):
         b = batches[step]
-        e_before = (staged._state.e.to("cpu", copy=True).numpy()
+        e_before = (staged._host_rows(staged._state.e)
                     if codec == "int8" and step == 1 else None)
         c0 = (fused.counters(), staged.counters())
         lf, ms_f, wall_f = timed_step(fused.step_fused, b, cuda)
@@ -3520,7 +3575,8 @@ def run_fused_arm(codec: str, params, loss_fn, batches, device, card: str,
     log(f"  {codec}: programs built {pool.compile_count} (1 fused + "
         f"{FUSED_STAGES} stages), captures {fused.captures} fused + "
         f"{staged.captures} staged, cache hits {hits}")
-    out = {"runs": runs, "times": times, "profile": None}
+    out = {"runs": runs, "times": times, "profile": None,
+           "digest": fused.digest() if devices else None}
     if profile:
         out["profile"] = fused_profile(fused, staged, batches, cuda, card)
         out["runs"] += 2 * FUSED_PROFILE_STEPS
@@ -3536,6 +3592,46 @@ def run_fused_arm(codec: str, params, loss_fn, batches, device, card: str,
     if cuda:
         torch.cuda.empty_cache()
     return out
+
+
+def fused_virtual_digest(codec: str, params, loss_fn, batches, device,
+                         want: str, card: str) -> int:
+    """Over several cards: ``FUSED_STEPS`` fused steps of a fresh engine on
+    the virtual 2x2 of ``device`` from the same state and batches (device
+    and wall ms a step printed beside the cards'); its digest must be
+    ``want``, the cards' after as many steps. Returns the stage runs (the
+    steps and the warm-up before the capture)."""
+    import torch
+
+    from torchft_tpu_torch.comm.cuda_backend import DevicePool
+    from torchft_tpu_torch.fused import FusedStepEngine
+    from torchft_tpu_torch.optim import adamw
+
+    t0 = time.perf_counter()
+    R, M = FUSED_MESH
+    eng = FusedStepEngine(DevicePool(device), R, M, params,
+                          batches[0].shape[1], loss_fn, adamw(**FUSED_ADAMW),
+                          codec=codec, chunk_bytes=FUSED_CHUNK_BYTES,
+                          fn_key="gpt")
+    cuda = torch.device(device).type == "cuda"
+    ms, wall = [], []
+    for step in range(FUSED_STEPS):
+        _, m, w = timed_step(eng.step_fused, batches[step], cuda)
+        ms.append(m)
+        wall.append(w)
+    got = eng.digest()
+    log(f"  {codec}: {FUSED_STEPS} fused steps on the virtual {R}x{M} of "
+        f"{device}: device ms {[_ms(v) for v in ms]}, wall ms "
+        f"{[round(v, 1) for v in wall]}; sha256 {got[:16]}, over the cards "
+        f"{want[:16]}: {'equal' if got == want else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f} s; {card})")
+    _require(got == want, f"{codec}: the virtual mesh's digest {got} is not "
+                          f"the cards' {want}")
+    del eng
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return FUSED_STEPS + (1 if cuda else 0)
 
 
 def _ms(v) -> str:
@@ -3576,6 +3672,9 @@ def fused_profile(fused, staged, batches, cuda: bool, card: str) -> dict:
                           for f in os.listdir(log_dir))
         share = {arm: busy_share(prof.profile, f"{arm}_arm")
                  for arm in ("fused", "staged")}
+        cards = [d.index for d in fused._cards.devices] if cuda else []
+        per_card = {arm: [busy_share(prof.profile, f"{arm}_arm", i)
+                          for i in cards] for arm in ("fused", "staged")}
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
     _require(same_state(fused, staged), "states differ after the profile")
@@ -3584,6 +3683,10 @@ def fused_profile(fused, staged, batches, cuda: bool, card: str) -> dict:
         f"{FUSED_PROFILE_STEPS} staged steps (trace {trace_bytes} bytes): "
         f"device busy share fused {_share(share['fused'])}, staged "
         f"{_share(share['staged'])} ({card})")
+    if len(cards) > 1:
+        log(f"  busy share a card ({', '.join(f'cuda:{i}' for i in cards)}):"
+            f" fused {[_share(v) for v in per_card['fused']]}, staged "
+            f"{[_share(v) for v in per_card['staged']]} ({card})")
     return share
 
 
@@ -3624,13 +3727,17 @@ def fused_churn(fused, staged, batches, cuda: bool, card: str) -> int:
     return runs
 
 
-def phase_fused_step(seed: int, card: str, device: str = "cuda"):
+def phase_fused_step(seed: int, card: str, device: str = "cuda",
+                     devices=None):
     """The fused-step phase (module docstring, phase 21): the unsharded
     gradient first, then the codec arms with the launch counts set to 0
-    just before them. Returns (launches, the launches the schedule says,
-    the head_dim)."""
+    just before them; ``devices``: the mesh's positions over several
+    cards (else a virtual mesh of ``device``), and then each codec's
+    virtual run on ``device`` against the cards' digest. Returns
+    (launches, the launches the schedule says, the head_dim)."""
     import torch
 
+    from torchft_tpu_torch.comm.cuda_backend import _card_key
     from torchft_tpu_torch.fused import module_loss_fn, module_params
     from torchft_tpu_torch.models import GPT
     from torchft_tpu_torch.ops import flash, quant
@@ -3640,25 +3747,43 @@ def phase_fused_step(seed: int, card: str, device: str = "cuda"):
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     R, M = FUSED_MESH
+    positions = [torch.device(d) for d in devices] if devices else \
+        [dev] * (R * M)
+    keys = list(dict.fromkeys(_card_key(d) for d in positions))
+    n_cards = len(keys)
+    card_of = [keys.index(_card_key(d)) for d in positions]
     model = GPT(cfg, device=dev, seed=seed)
     n_params = sum(p.numel() for p in model.parameters())
     shape = fused_shape(n_params, FUSED_MESH)
     need_host = fused_host_bytes(n_params)
     free_host = check_host_memory(need_host, what="fused_step")
-    need = fused_device_bytes(n_params, cfg)
+    need = fused_device_bytes(n_params, cfg, cards=n_cards)
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-        free = torch.cuda.mem_get_info()[0]
-        _require(free >= need, f"fused_step needs {need / 1e9:.2f} GB of "
-                               f"device memory free, has {free / 1e9:.2f} GB")
+        for d in dict.fromkeys(positions):
+            free = torch.cuda.mem_get_info(d)[0]
+            _require(free >= need, f"fused_step needs {need / 1e9:.2f} GB "
+                                   f"of device memory free on {d}, has "
+                                   f"{free / 1e9:.2f} GB")
     hop = fused_host_hop_bytes(n_params)
-    log(f"  {n_params} parameters, mesh {R}x{M} of virtual positions, "
+    where = (f"one position a card over {n_cards} cards" if n_cards > 1
+             else "virtual positions")
+    log(f"  {n_params} parameters, mesh {R}x{M} of {where}, "
         f"q_len {shape['q_len']}, p_len {shape['p_len']}, "
         f"{FUSED_SEQS} sequences of {cfg.max_seq_len} a position, AdamW "
         f"{FUSED_ADAMW}; staged host bytes a step {hop}; device memory: up "
-        f"to {need / 1e9:.2f} GB reckoned; host memory: up to "
-        f"{need_host / 1e9:.2f} GB, {free_host / 1e9:.1f} GB available")
+        f"to {need / 1e9:.2f} GB reckoned on the fullest card; host memory: "
+        f"up to {need_host / 1e9:.2f} GB, {free_host / 1e9:.1f} GB "
+        f"available")
+    if n_cards > 1:
+        for codec in FUSED_CODECS:
+            cross = fused_cross_card_bytes(n_params, FUSED_MESH, card_of,
+                                           codec)
+            log(f"  {codec}: bytes a step between cards {cross['total']} "
+                f"(allgather {cross['allgather']}, reduce-scatter "
+                f"{cross['reduce_scatter']}, exchange {cross['exchange']}, "
+                f"gather {cross['gather']}) ({card})")
     params = module_params(model)
     loss_fn = module_loss_fn(model, gpt_row_loss(cfg.max_seq_len))
     n_batches = FUSED_STEPS + FUSED_PROFILE_STEPS
@@ -3667,7 +3792,8 @@ def phase_fused_step(seed: int, card: str, device: str = "cuda"):
     log(f"  model, flat params and the unsharded gradient "
         f"{time.perf_counter() - t0:.1f} s ({card})")
     if cuda:
-        torch.cuda.reset_peak_memory_stats()
+        for d in dict.fromkeys(positions):
+            torch.cuda.reset_peak_memory_stats(d)
     flash.reset_launch_counts()
     quant.reset_launch_counts()
     want = dict.fromkeys((*flash.LAUNCHES, *quant.LAUNCHES), 0)
@@ -3675,10 +3801,17 @@ def phase_fused_step(seed: int, card: str, device: str = "cuda"):
     for codec in FUSED_CODECS:
         arm = run_fused_arm(codec, params, loss_fn, batches, device, card,
                             dense=dense if codec == "none" else None,
-                            profile=codec == "none")
+                            profile=codec == "none",
+                            devices=positions if n_cards > 1 else None)
         for k, v in fused_launches(arm["runs"], cfg.n_layers, R * M,
-                                   codec).items():
+                                   codec, cards=n_cards).items():
             want[k] += v
+        if n_cards > 1:
+            runs = fused_virtual_digest(codec, params, loss_fn, batches,
+                                        device, arm["digest"], card)
+            for k, v in fused_launches(runs, cfg.n_layers, R * M,
+                                       codec).items():
+                want[k] += v
         summary[codec] = arm
     counts = {**flash.LAUNCHES, **quant.LAUNCHES}
     for codec, arm in summary.items():
@@ -3690,10 +3823,12 @@ def phase_fused_step(seed: int, card: str, device: str = "cuda"):
             f"{[round(v, 1) for v in t['staged_wall']]} ({card})")
     share = summary["none"]["profile"]
     if cuda:
-        log(f"  device memory peak: "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated, "
-            f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB reserved "
-            f"(reckoned {need / 1e9:.2f} GB) ({card})")
+        for d in dict.fromkeys(positions):
+            log(f"  device memory peak on {d}: "
+                f"{torch.cuda.max_memory_allocated(d) / 1e9:.2f} GB "
+                f"allocated, {torch.cuda.max_memory_reserved(d) / 1e9:.2f} "
+                f"GB reserved (reckoned {need / 1e9:.2f} GB for the fullest "
+                f"card) ({card})")
     log(f"  device busy share (codec none, StepProfiler window) fused "
         f"{_share(share['fused'])}, staged {_share(share['staged'])} "
         f"({card})")
@@ -6390,12 +6525,15 @@ def main() -> int:
                         "int8 stage wire is the host codec in both")
     if "fused_step" in phases:
         log("phase fused_step")
-        counts, want, head_dim = phase_fused_step(args.seed, smi)
+        positions = cycled(cards, FUSED_MESH[0] * FUSED_MESH[1])
+        log("  " + layout_line(positions))
+        counts, want, head_dim = phase_fused_step(
+            args.seed, smi, devices=positions if len(cards) > 1 else None)
         _check_launches(counts, want,
                         "flash: per run of the grad stage (a replay, or the "
                         "warm-up before a capture) one GPT pass per mesh "
                         "position; codec: per run of the int8 exchange one "
-                        "quant_int8 and two dequant_acc_int8")
+                        "quant_int8 and two dequant_acc_int8 a card")
         _add_launches(rows, counts, head_dim)
     if "train_resnet" in phases:
         log("phase train_resnet")

@@ -1212,6 +1212,84 @@ def test_fused_step_memory_and_launches_at_125m() -> None:
         < phases.index("train_hier_int8")
 
 
+def test_fused_step_launches_and_bytes_over_cards_at_125m() -> None:
+    # over several cards each card holding positions quantizes its slots
+    # and decodes its owners' sums (and its wire image) once a run; flash
+    # stays one launch per layer per position per run
+    smoke = _smoke()
+    cfg = smoke.fused_config()
+    from torchft_tpu_torch.models import gpt_param_shapes
+
+    n = sum(math.prod(s) for s in gpt_param_shapes(cfg).values())
+    for cards in (1, 2, 4):
+        got = smoke.fused_launches(12, 12, 4, "int8", cards=cards)
+        assert got == {"flash_fwd": 12 * 48, "flash_bwd_dq": 12 * 48,
+                       "flash_bwd_dkv": 12 * 48, "quant_int8": 12 * cards,
+                       "dequant_acc_int8": 24 * cards}
+        assert smoke.fused_launches(12, 12, 4, "int8", ef=False,
+                                    cards=cards)["dequant_acc_int8"] \
+            == 12 * cards
+        assert smoke.fused_launches(12, 12, 4, "none",
+                                    cards=cards)["quant_int8"] == 0
+    # the fullest card: one position of four cards holds a quarter of the
+    # state, plus a row's gathered params and a kept gradient
+    one = smoke.fused_device_bytes(n, cfg)
+    two = smoke.fused_device_bytes(n, cfg, cards=2)
+    four = smoke.fused_device_bytes(n, cfg, cards=4)
+    assert four < two < one and 10e9 < four < 30e9
+    # bytes between cards a step at 2x2, one position a card: each
+    # position fetches its row's other shard and ships its gradient's
+    # (4 x 272 MB each), each owner gets its other replica's slot and
+    # each position its other replica's sub-shard (4 x 136 MB each)
+    q, p = 34022784, 68045568
+    cross = smoke.fused_cross_card_bytes(n, (2, 2), [0, 1, 2, 3], "none")
+    assert cross["allgather"] == 4 * 4 * p
+    assert cross["reduce_scatter"] == 4 * 4 * p + 3 * 4
+    assert cross["exchange"] == cross["gather"] == 4 * 4 * q
+    assert 3.2e9 < cross["total"] < 3.4e9
+    bf16 = smoke.fused_cross_card_bytes(n, (2, 2), [0, 1, 2, 3], "bf16")
+    assert bf16["exchange"] * 2 == cross["exchange"]
+    int8 = smoke.fused_cross_card_bytes(n, (2, 2), [0, 1, 2, 3], "int8")
+    assert 0.25 < int8["exchange"] / cross["exchange"] < 0.26
+    # cycled over two cards: a row's two shards lie on cards 0 and 1, the
+    # replicas of a shard on one card, so only the model axis crosses
+    cyc = smoke.fused_cross_card_bytes(n, (2, 2), [0, 1, 0, 1], "none")
+    assert cyc["allgather"] == cross["allgather"]
+    assert cyc["exchange"] == cyc["gather"] == 0
+    assert smoke.fused_cross_card_bytes(n, (2, 2), [0] * 4,
+                                        "int8")["total"] == 0
+
+
+def test_fused_step_runs_over_cards_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # the phase's path over several cards at "tiny" on the CPU, positions
+    # on cpu:0 .. cpu:3 (distinct cards to the engine): the same oracles,
+    # then each codec's virtual run against the cards' digest
+    import dataclasses
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    tiny = dataclasses.replace(CONFIGS["tiny"], max_seq_len=64)
+    monkeypatch.setattr(smoke, "fused_config", lambda: tiny)
+    counts, want, head_dim = smoke.phase_fused_step(
+        0, "CPU", device="cpu", devices=[f"cpu:{i}" for i in range(4)])
+    # 28 runs over the cards and 3 fused steps a codec on the virtual
+    # mesh (no warm-ups on the CPU) x 4 positions x 2 layers; int8: 12
+    # runs over 4 cards and 3 on one
+    assert want == {"flash_fwd": 296, "flash_bwd_dq": 296,
+                    "flash_bwd_dkv": 296, "quant_int8": 51,
+                    "dequant_acc_int8": 102}
+    text = "\n".join(lines)
+    assert "FAIL" not in text
+    assert "one position a card over 4 cards" in text
+    assert text.count("states bitwise equal") == 9
+    for codec in ("none", "bf16", "int8"):
+        assert f"{codec}: bytes a step between cards" in text
+        assert f"{codec}: 3 fused steps on the virtual 2x2 of cpu" in text
+    assert text.count(": equal (") == 3
+    assert "int8 churn to 2x2: seen before, programs 10" in text
+
+
 def test_assemble_grad_reads_h_in_model_then_replica_order() -> None:
     import numpy as np
 
@@ -1274,7 +1352,7 @@ def test_fused_step_oracles_catch_a_wrong_exchange() -> None:
                           np.linspace(-1, 1, 999, dtype=np.float32), 4,
                           lambda w, b: (w * b.mean()).square().sum(),
                           sgd(0.1), codec="int8", chunk_bytes=64)
-    e0 = eng._state.e.numpy().copy()
+    e0 = eng._host_rows(eng._state.e)
     eng.step_staged(np.ones((4, 4), np.float32))
     smoke.check_int8_exchange(eng, e0, "CPU")  # the true residual passes
     with pytest.raises(AssertionError, match="host codec"):

@@ -1100,8 +1100,8 @@ def test_fused_step_fused_equals_staged_on_card(codec) -> None:
     e = torch.randn((4, spec.p_len), generator=gen) * 1e-2
     prog = a._exe("exchange")
     cpu_e, card_e = e.clone(), e.cuda()
-    (cpu_h,) = prog.run(gm, cpu_e)
-    (card_h,) = prog.run(gm.cuda(), card_e)
+    ((cpu_h,),) = prog.run([gm], [cpu_e])
+    ((card_h,),) = prog.run([gm.cuda()], [card_e])
     assert torch.equal(card_h.cpu().view(torch.int32), cpu_h.view(torch.int32))
     assert torch.equal(card_e.cpu().view(torch.int32), cpu_e.view(torch.int32))
 
@@ -1430,3 +1430,67 @@ def test_kill_and_heal_over_the_cards_on_the_int8_plane() -> None:
     per_op = 2 + min(2, len(cards))
     want = per_op * len(survivor.buckets) * survivor.wire_steps
     assert quant.LAUNCHES == {"quant_int8": want, "dequant_acc_int8": want}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["none", "bf16", "int8"])
+@pytest.mark.parametrize("cards", [4, 2], ids=["one_a_card", "cycled"])
+def test_fused_step_over_the_cards_equals_the_virtual_mesh(cards,
+                                                           codec) -> None:
+    """The fused HSDP step at "tiny" over ``cuda:0 .. cuda:3`` (one position
+    a card) and over two cards cycled (``cuda:0, cuda:1, cuda:0, cuda:1``)
+    against the virtual 2x2 of ``cuda:0``: a fused and a staged engine over
+    the cards and a fused one on the virtual mesh, their digests equal after
+    every step and after a churn to 4x1 and back; each position's rows on
+    its card; one graph a fused program spanning the cards (1 + 4
+    captures, none at a seen shape); the launches as ``fused_launches``
+    says, each codec kernel once a card holding positions."""
+    from torchft_tpu_torch.comm.cuda_backend import DevicePool
+    from torchft_tpu_torch.fused import (
+        FusedStepEngine,
+        module_loss_fn,
+        module_params,
+    )
+    from torchft_tpu_torch.optim import adamw
+
+    visible = _cards(cards)
+    positions = [visible[d % cards] for d in range(4)]
+    smoke = _chip_smoke()
+    cfg = CONFIGS["tiny"]
+    model = GPT(cfg, device="cuda:0", seed=0)
+    loss_fn = module_loss_fn(model, smoke.gpt_row_loss(cfg.max_seq_len))
+    params = module_params(model)
+    kw = dict(codec=codec, chunk_bytes=1024, fn_key="tiny")
+
+    def engine(pool):
+        return FusedStepEngine(pool, 2, 2, params, 2 * cfg.max_seq_len,
+                               loss_fn, adamw(3e-4, weight_decay=1e-4), **kw)
+
+    pool = DevicePool(devices=positions)
+    a, b = engine(pool), engine(pool)
+    v = engine(DevicePool("cuda:0"))
+    for bufs in (a._state.p, a._state.e, *a._state.opt):
+        for d in range(4):
+            assert a._cards.row(bufs, d).device == positions[d]
+    flash.reset_launch_counts()
+    quant.reset_launch_counts()
+    for step, mesh in enumerate([(2, 2)] * 3 + [(4, 1), (2, 2)]):
+        if (a.replicas, a.model_shards) != mesh:
+            for eng in (a, b, v):
+                eng.reshape_mesh(*mesh)
+        batch = smoke.fused_batch(0, step, cfg, 4)
+        la, lb, lv = a.step_fused(batch), b.step_staged(batch), \
+            v.step_fused(batch)
+        assert la == lb == lv, step
+        assert a.digest() == b.digest() == v.digest(), (step, mesh)
+    a.verify_replicas()
+    assert (a.captures, b.captures, v.captures) == (2, 8, 2)
+    assert pool.compile_count == 10
+    # over the cards 5 runs of each arm and a warm-up before each of the
+    # 2 + 8 captures (4 runs of the stages each shape); on cuda:0 5 runs
+    # and 2 warm-ups
+    want = smoke.fused_launches(5 * 2 + 2 * 2, cfg.n_layers, 4, codec,
+                                cards=cards)
+    for k, n in smoke.fused_launches(5 + 2, cfg.n_layers, 4, codec).items():
+        want[k] += n
+    assert {**flash.LAUNCHES, **quant.LAUNCHES} == want

@@ -22,9 +22,12 @@ quantized psum and its scatter with a numpy composition of the reference's
 codecs, the raw psum within 1e-5 of numpy's sum, and the hier star with the
 reference's ``_host_hier_allreduce``. ``dryrun_multichip(4,
 devices=["cpu"])`` gives ``dryrun_multichip(4, device="cpu")``'s figures.
-A pool that names a card the process cannot see raises, and so do the
-single-card callers (``DevicePool.device()``, ``FusedStepEngine``) over a
-pool of several devices. (R1 keeps the XLA plane from being an oracle.)
+A pool that names a card the process cannot see raises. No caller needs a
+pool over one card any more (``DevicePool.device()`` is gone):
+``FusedStepEngine`` takes a pool over several devices (its bitwise oracles
+over cards are in tests/test_torch_fused_step.py) and refuses one whose
+positions mix device kinds. (R1 keeps the XLA plane from being an
+oracle.)
 """
 
 from __future__ import annotations
@@ -376,17 +379,25 @@ def test_dryrun_over_a_device_list_gives_the_virtual_mesh_figures() -> None:
 
 
 def test_single_card_callers_refuse_a_pool_of_several_devices() -> None:
+    # the single-card callers are gone: the fused engine lays a pool over
+    # several devices out one position a card (no fall back to the first
+    # card), and only a pool whose positions mix device kinds is refused
     from torchft_tpu_torch.fused import FusedStepEngine
     from torchft_tpu_torch.optim import sgd
 
-    pool = DevicePool(devices=["cpu", "meta"])
-    assert [str(d) for d in pool.cards()] == ["cpu", "meta"]
-    with pytest.raises(ValueError, match="ROADMAP item 7b"):
-        pool.device()
-    with pytest.raises(ValueError, match="ROADMAP item 7b"):
-        FusedStepEngine(pool, 1, 2, np.zeros(8, np.float32), 2,
+    assert not hasattr(DevicePool, "device")
+    pool = DevicePool(devices=[f"cpu:{i}" for i in range(4)])
+    eng = FusedStepEngine(pool, 2, 2, np.linspace(-1, 1, 8, dtype=np.float32),
+                          2, lambda p, row: (p * row.sum()).square().sum(),
+                          sgd(0.1))
+    assert len(eng._state.p) == len(pool.cards()) == 4
+    eng.step_fused(np.ones((4, 2), np.float32))
+    eng.verify_replicas()
+    mixed = DevicePool(devices=["cpu", "meta"])
+    assert [str(d) for d in mixed.cards()] == ["cpu", "meta"]
+    with pytest.raises(ValueError, match="cpu, meta"):
+        FusedStepEngine(mixed, 1, 2, np.zeros(8, np.float32), 2,
                         lambda p, row: (p * p).sum(), sgd(0.1))
-    assert DevicePool(devices=["cpu"] * 4).device() == torch.device("cpu")
 
 
 def test_a_card_the_process_cannot_see_raises() -> None:

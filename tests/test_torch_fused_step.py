@@ -37,6 +37,15 @@ Two suites:
   within 1e-6; the digests differ once the update's FMA roundings enter.
   A tiny GPT (2 layers, width 64) as a flat-loss engine at 2x2 matches the
   unsharded GPT's gradient of the same sequences.
+
+Every engine twin runs over three layouts of the pool (``LAYOUTS``):
+"virtual" (``DevicePool("cpu")``, every position a row of one stacked
+tensor), "cards" (``cpu:0 .. cpu:3``, distinct device indices lay out as
+distinct cards, so the stages take their cross-card path on the host: one
+buffer a card, copies between them) and "cycled" (``cpu:0, cpu:1, cpu:0,
+cpu:1``: two positions a card). Over cards and cycled the digest is the
+virtual mesh's after every step, in both arms, for every codec and shape;
+each position's rows lie on its own card's buffer.
 """
 
 from __future__ import annotations
@@ -92,11 +101,20 @@ def _smoke():
     return mod
 
 
+# where the mesh's positions lie (module docstring)
+LAYOUTS = {
+    "virtual": lambda: DevicePool("cpu"),
+    "cards": lambda: DevicePool(devices=[f"cpu:{i}" for i in range(4)]),
+    "cycled": lambda: DevicePool(devices=["cpu:0", "cpu:1"] * 2),
+}
+LAYOUT_IDS = list(LAYOUTS)
+
+
 @pytest.fixture(scope="module")
-def pool():
-    # one pool for the module: programs cache across tests, like one
-    # training process surviving many quorum epochs
-    return DevicePool("cpu")
+def pools():
+    # one pool a layout for the module: programs cache across tests, like
+    # one training process surviving many quorum epochs
+    return {name: make() for name, make in LAYOUTS.items()}
 
 
 def _loss_fn():
@@ -110,9 +128,9 @@ def _tx():
     return optim.sgd(0.05, momentum=0.9)
 
 
-def _engine(pool, replicas, model_shards, codec, **kw):
+def _engine(pool, replicas, model_shards, codec, params=PARAMS, **kw):
     rng = np.random.default_rng(7)
-    params = rng.standard_normal(PARAMS).astype(np.float32)
+    params = rng.standard_normal(params).astype(np.float32)
     return FusedStepEngine(pool, replicas, model_shards, params, BATCH,
                            _loss_fn(), _tx(), codec=codec, chunk_bytes=CHUNK,
                            **kw)
@@ -126,9 +144,11 @@ def _batch(devices: int, step: int) -> np.ndarray:
 # ------------------------------------------------ bitwise identity
 
 
+@pytest.mark.parametrize("layout", LAYOUT_IDS)
 @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("codec", CODECS)
-def test_staged_fused_bitwise_identity(pool, shape, codec) -> None:
+def test_staged_fused_bitwise_identity(pools, shape, codec, layout) -> None:
+    pool = pools[layout]
     R, M = shape
     a = _engine(pool, R, M, codec)
     b = _engine(pool, R, M, codec)
@@ -145,11 +165,11 @@ def test_staged_fused_bitwise_identity(pool, shape, codec) -> None:
     b.verify_replicas()
     assert a.spec.error_feedback == (codec == "int8")
     if codec == "int8":
-        assert bool((a._state.e != 0).any())
+        assert any(bool((t != 0).any()) for t in a._state.e)
 
 
-def test_padding_roundtrip(pool) -> None:
-    eng = _engine(pool, 2, 2, "none")
+def test_padding_roundtrip(pools) -> None:
+    eng = _engine(pools["virtual"], 2, 2, "none")
     assert eng.params().shape == (PARAMS,)
     assert eng.spec.q_len * 4 >= PARAMS
 
@@ -157,8 +177,9 @@ def test_padding_roundtrip(pool) -> None:
 # ------------------------------------------------- counter oracle
 
 
-def test_fused_counter_oracle() -> None:
-    pool = DevicePool("cpu")
+@pytest.mark.parametrize("layout", LAYOUT_IDS)
+def test_fused_counter_oracle(layout) -> None:
+    pool = LAYOUTS[layout]()
     eng = _engine(pool, 2, 2, "int8", metrics=Metrics())
     eng.step_fused(_batch(4, 0))
     c = eng.counters()
@@ -176,8 +197,9 @@ def test_fused_counter_oracle() -> None:
     assert c["captures"] == 0  # the CPU runs the programs eagerly
 
 
-def test_staged_counter_oracle() -> None:
-    pool = DevicePool("cpu")
+@pytest.mark.parametrize("layout", LAYOUT_IDS)
+def test_staged_counter_oracle(layout) -> None:
+    pool = LAYOUTS[layout]()
     eng = _engine(pool, 2, 2, "none", metrics=Metrics())
     eng.step_staged(_batch(4, 0))
     c = eng.counters()
@@ -203,8 +225,9 @@ def test_fused_step_event_emitted() -> None:
     assert rec["compile_count"] == 1  # only the fused program existed
 
 
-def test_no_retrace_across_kill_shrink_rejoin() -> None:
-    pool = DevicePool("cpu")
+@pytest.mark.parametrize("layout", LAYOUT_IDS)
+def test_no_retrace_across_kill_shrink_rejoin(layout) -> None:
+    pool = LAYOUTS[layout]()
     eng = _engine(pool, 4, 1, "int8")
     eng.step_fused(_batch(4, 0))
     compiles_4x1 = pool.compile_count
@@ -229,8 +252,9 @@ def test_mesh_shape_label_follows_reshape() -> None:
     assert eng.metrics.snapshot()["mesh_shape"] == "2x1"
 
 
-def test_reshape_preserves_params() -> None:
-    eng = _engine(DevicePool("cpu"), 2, 2, "none")
+@pytest.mark.parametrize("layout", LAYOUT_IDS)
+def test_reshape_preserves_params(layout) -> None:
+    eng = _engine(LAYOUTS[layout](), 2, 2, "none")
     eng.step_fused(_batch(4, 0))
     before = eng.params().copy()
     eng.reshape_mesh(4, 1)
@@ -272,13 +296,14 @@ def _txs(name: str):
             optim.adamw(3e-4, weight_decay=1e-4))
 
 
-def _pair(mesh_mgr, replicas, model_shards, codec, txname, params=PARAMS):
+def _pair(mesh_mgr, replicas, model_shards, codec, txname, params=PARAMS,
+          layout="virtual"):
     rng = np.random.default_rng(7)
     p = rng.standard_normal(params).astype(np.float32)
     jtx, ttx = _txs(txname)
     ref = RefEngine(mesh_mgr, replicas, model_shards, p, BATCH, _ref_loss,
                     jtx, codec=codec, chunk_bytes=CHUNK, fn_key=txname)
-    port = FusedStepEngine(DevicePool("cpu"), replicas, model_shards, p,
+    port = FusedStepEngine(LAYOUTS[layout](), replicas, model_shards, p,
                            BATCH, _loss_fn(), ttx, codec=codec,
                            chunk_bytes=CHUNK)
     return ref, port
@@ -371,7 +396,7 @@ def test_stages_against_the_reference(x64, mesh_mgr, codec, shape,
         p = np.asarray(ref._p)
         b = rng.standard_normal((D, BATCH)).astype(np.float32)
         rg, rl = ref._exe("grad")(ref._z, ref._p, jax.device_put(b, row))
-        pg, pl = port._exe("grad").run(_t(p), _t(b))
+        (pg,), pl = port._exe("grad").run([_t(p)], [_t(b)])
         np.testing.assert_allclose(pg.numpy(), np.asarray(rg), rtol=1e-6,
                                    atol=1e-7)
         np.testing.assert_allclose(pl.numpy(), np.asarray(rl), rtol=1e-6)
@@ -382,7 +407,7 @@ def test_stages_against_the_reference(x64, mesh_mgr, codec, shape,
         rh, re = ref._exe("exchange")(ref._z, jax.device_put(gm, row),
                                       jax.device_put(e, row))
         te = _t(e)
-        (ph,) = port._exe("exchange").run(_t(gm), te)
+        ((ph,),) = port._exe("exchange").run([_t(gm)], [te])
         hh, he = _host_exchange(codec, gm, e, R, M,
                                 port.spec.error_feedback)
         assert _bitwise(ph, hh) and _bitwise(te, he)
@@ -400,7 +425,8 @@ def test_stages_against_the_reference(x64, mesh_mgr, codec, shape,
         ru = ref._exe("update")(ref._z, jax.device_put(h, row), ref._p,
                                 *ref._opt)
         topt = [_t(x) for x in opt]
-        (pn,) = port._exe("update").run(_t(h), _t(p), *topt)
+        ((pn,),) = port._exe("update").run([_t(h)], [_t(p)],
+                                           *[[t] for t in topt])
         hs, hl = _host_update(txname, h, p, opt, R, M)
         assert _bitwise(pn, hs)
         assert all(_bitwise(t, x) for t, x in zip(topt, hl))
@@ -412,7 +438,7 @@ def test_stages_against_the_reference(x64, mesh_mgr, codec, shape,
         # gather: raw values
         (rp,) = ref._exe("gather")(ru[0])
         tp = torch.zeros((D, spec.p_len))
-        port._exe("gather").run(_t(ru[0]), tp)
+        port._exe("gather").run([_t(ru[0])], [tp])
         assert _bitwise(tp, rp)
         ref._p, ref._opt = rp, list(ru[1:])
 
@@ -434,17 +460,20 @@ def test_reference_update_contracts_fma(x64, mesh_mgr) -> None:
     assert _bitwise(ru[1], once)
     assert not _bitwise(ru[1], twice)
     topt = [_t(t)]
-    port._exe("update").run(_t(h), _t(np.asarray(ref._p)), *topt)
+    port._exe("update").run([_t(h)], [_t(np.asarray(ref._p))], topt)
     assert _bitwise(topt[0], twice)
 
 
+@pytest.mark.parametrize("layout", LAYOUT_IDS)
 @pytest.mark.parametrize("txname", ["sgd", "adamw"])
 @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("codec", CODECS)
 def test_whole_steps_against_the_reference(x64, mesh_mgr, codec, shape,
-                                           txname) -> None:
+                                           txname, layout) -> None:
     R, M = shape
-    ref, port = _pair(mesh_mgr, R, M, codec, txname)
+    ref, port = _pair(mesh_mgr, R, M, codec, txname, layout=layout)
+    # the reference's positions are distinct host devices
+    assert len(set(ref._row.mesh.devices.flat)) == R * M
     assert ref.digest() == port.digest()  # the same bytes, leaf order
     for step in range(3):
         batch = _batch(R * M, step)
@@ -453,24 +482,26 @@ def test_whole_steps_against_the_reference(x64, mesh_mgr, codec, shape,
         assert abs(lr - lp) <= RUN_ATOL
         np.testing.assert_allclose(port.params(), ref.params(), rtol=0,
                                    atol=RUN_ATOL)
-        np.testing.assert_allclose(port._state.e.numpy(), np.asarray(ref._e),
+        np.testing.assert_allclose(port._host_rows(port._state.e),
+                                   np.asarray(ref._e),
                                    rtol=0, atol=RUN_ATOL)
     port.verify_replicas()
 
 
-def test_tiny_gpt_engine_matches_the_unsharded_gradient() -> None:
+@pytest.mark.parametrize("layout", ["virtual", "cards"])
+def test_tiny_gpt_engine_matches_the_unsharded_gradient(layout) -> None:
     cfg = dataclasses.replace(CONFIGS["tiny"], max_seq_len=64)
     assert (cfg.n_layers, cfg.d_model) == (2, 64)
     model = GPT(cfg, device="cpu", seed=0)
     smoke = _smoke()
     loss_fn = module_loss_fn(model, smoke.gpt_row_loss(cfg.max_seq_len))
     R, M = 2, 2
-    eng = FusedStepEngine(DevicePool("cpu"), R, M, module_params(model),
+    eng = FusedStepEngine(LAYOUTS[layout](), R, M, module_params(model),
                           2 * cfg.max_seq_len, loss_fn,
                           optim.adamw(3e-4, weight_decay=1e-4), fn_key="gpt")
     batch = smoke.fused_batch(0, 0, cfg, R * M)
     loss = eng.step_staged(batch)
-    h = eng._staged_buffers()["h"][1].numpy()
+    h = eng._host_rows(eng._staged_buffers()["h"][1])
     got = smoke.assemble_grad(h, R, M)[:eng.spec.param_size]
     dense_loss, want = smoke.dense_gradient(model, batch, cfg.max_seq_len)
     rel = np.linalg.norm(got - want) / np.linalg.norm(want)
@@ -481,3 +512,77 @@ def test_tiny_gpt_engine_matches_the_unsharded_gradient() -> None:
     eng.step_fused(batch)
     np.testing.assert_array_equal(module_params(model), before)
     assert not np.array_equal(eng.params(), before)
+
+
+# ------------------------------------------- over cards, against virtual
+
+
+@pytest.mark.parametrize("layout", ["cards", "cycled"])
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("codec", CODECS)
+def test_cards_digest_equals_the_virtual_mesh(codec, shape, layout) -> None:
+    # several int8 chunks a slot (257 params), both arms, 3 steps, a churn
+    # to the other shape and back: the digest over the cards is the
+    # virtual mesh's after every step
+    R, M = shape
+    arms = ("fused", "staged")
+    virtual = {a: _engine(LAYOUTS["virtual"](), R, M, codec, params=257)
+               for a in arms}
+    cards = {a: _engine(LAYOUTS[layout](), R, M, codec, params=257)
+             for a in arms}
+    assert cards["fused"].digest() == virtual["fused"].digest()
+    other = SHAPES[1 - SHAPES.index(shape)]
+    for step, mesh in enumerate([shape] * 3 + [other, shape]):
+        for a in arms:
+            for eng in (virtual[a], cards[a]):
+                if (eng.replicas, eng.model_shards) != mesh:
+                    eng.reshape_mesh(*mesh)
+            batch = _batch(mesh[0] * mesh[1], step)
+            lv = virtual[a].step(batch, fused=a == "fused")
+            lc = cards[a].step(batch, fused=a == "fused")
+            assert np.float32(lv) == np.float32(lc), (a, step)
+            assert cards[a].digest() == virtual[a].digest(), (a, step, mesh)
+        assert cards["fused"].digest() == cards["staged"].digest()
+    for a in arms:
+        cards[a].verify_replicas()
+        assert cards[a].counters()["step_dispatch_count"] == \
+            virtual[a].counters()["step_dispatch_count"]
+
+
+@pytest.mark.parametrize("layout", LAYOUT_IDS)
+def test_rows_lie_on_their_cards(layout) -> None:
+    # one buffer a card of the pool's positions, position d's rows of p,
+    # e and every optimizer leaf on pool.devices()[d]'s buffer, in
+    # position order; p's row d is model shard d % M of the padded params
+    from torchft_tpu_torch.comm.cuda_backend import _card_key
+
+    pool = LAYOUTS[layout]()
+    R, M = 2, 2
+    eng = FusedStepEngine(pool, R, M, np.arange(13, dtype=np.float32),
+                          BATCH, _loss_fn(), optim.adamw(3e-4),
+                          codec="int8", chunk_bytes=CHUNK)
+    cards = eng._cards
+    want = {"virtual": 1, "cards": 4, "cycled": 2}[layout]
+    assert len(cards.devices) == want
+    st = eng._state
+    padded = np.zeros(eng.spec.s_len, np.float32)
+    padded[:13] = np.arange(13)
+    shards = padded.reshape(M, eng.spec.p_len)
+    for bufs in (st.p, st.e, *st.opt, st.b):
+        assert len(bufs) == want
+        for c, buf in enumerate(bufs):
+            assert buf.shape[0] == len(cards.ranks[c])
+            assert buf.device.type == cards.devices[c].type
+    for d in range(R * M):
+        assert _card_key(cards.devices[cards.of[d]]) == \
+            _card_key(pool.devices()[d])
+        np.testing.assert_array_equal(cards.row(st.p, d).numpy(),
+                                      shards[d % M])
+    for name, (dev_bufs, hosts) in eng._staged_buffers().items():
+        assert [t.shape[0] for t in dev_bufs] == \
+            [t.shape[0] for t in hosts] == [len(r) for r in cards.ranks]
+
+
+def test_engine_refuses_a_pool_of_mixed_device_kinds() -> None:
+    with pytest.raises(ValueError, match="devices of one kind"):
+        _engine(DevicePool(devices=["cpu", "meta"]), 1, 2, "none")

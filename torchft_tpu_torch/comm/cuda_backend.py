@@ -103,11 +103,12 @@ reduce on a host simulation of the same topology and codec math
 Fused step
 ----------
 The builders of ``fused.FusedStepEngine``: a ``(replica, model)`` mesh laid
-over the pool's one card (``DevicePool.mesh_for``, virtual: every position
-a row of a stacked tensor; the engine refuses a pool of several cards), the HSDP step's four stage bodies written once
-(``_fused_local_fns``), and two program families cached in the pool per
-``_FusedSpec.exec_key``: the whole step as one CUDA graph
-(``_build_fused_step``) and each stage as its own (``_build_step_stage``).
+over the pool's positions (``DevicePool.mesh_for``), one buffer a card of
+its positions' rows (on one card the stacked tensor of the virtual mesh),
+the HSDP step's four stage bodies written once (``_fused_local_fns``), and
+two program families cached in the pool per ``_FusedSpec.exec_key``: the
+whole step as one CUDA graph spanning the cards (``_build_fused_step``) and
+each stage as its own (``_build_step_stage``).
 """
 
 from __future__ import annotations
@@ -194,6 +195,16 @@ def _card_key(dev: torch.device) -> Tuple[str, int]:
     if index is None:
         index = torch.cuda.current_device() if dev.type == "cuda" else 0
     return dev.type, index
+
+
+@contextlib.contextmanager
+def _current_streams(streams: Sequence["torch.cuda.Stream"]):
+    """Each stream current on its own card; the first one's card is the
+    current device."""
+    with contextlib.ExitStack() as stack:
+        for s in reversed(streams):
+            stack.enter_context(torch.cuda.stream(s))
+        yield
 
 
 class _Cards:
@@ -305,18 +316,6 @@ class DevicePool:
         """The distinct cards of the pool's positions, in position order."""
         return self.cards_for(self.device_count()).devices
 
-    def device(self) -> torch.device:
-        """The pool's one card. A pool over several cards raises: the
-        callers that need a single card (the fused engine) do not run
-        across cards yet (ROADMAP item 7b)."""
-        cards = self.cards()
-        if len(cards) != 1:
-            raise ValueError(
-                f"this DevicePool lies over {len(cards)} cards "
-                f"({', '.join(map(str, cards))}); a single-card caller "
-                "needs a pool over one card (ROADMAP item 7b)")
-        return cards[0]
-
     def device_count(self) -> int:
         """Mesh positions the pool lays out."""
         return len(self._device_args)
@@ -379,10 +378,7 @@ class DevicePool:
         (CUDA): every card's pool stream is current on that card, so a copy
         between two cards orders itself after the work on both, and the
         first card is the current device."""
-        streams = self._card_streams()
-        with contextlib.ExitStack() as stack:
-            for s in reversed(streams):
-                stack.enter_context(torch.cuda.stream(s))
+        with _current_streams(self._card_streams()):
             yield
 
     def synchronize(self) -> None:
@@ -1124,17 +1120,22 @@ def _build_hier_psum(pool: DevicePool, n: int, codec_name: str,
 # ------------------------------------------------------- the fused HSDP step
 # Twin of the reference's fused-step builders. A replica group is a row of
 # ``model_shards`` positions of a (replica, model) mesh laid over the pool's
-# device (``DevicePool.mesh_for``); every position is a row of a stacked
-# ``(D, ...)`` tensor, ``D = replicas * model_shards``, position ``d = r * M +
-# m``. Params are model-sharded and replica-replicated; the optimizer state is
-# sharded over both axes: position (r, m) owns the sub-shard
+# positions (``DevicePool.mesh_for``), position ``d = r * M + m`` on
+# ``devices[d]``. Every tensor of the step is one buffer a card
+# (``_Cards``: position d is row ``slot[d]`` of card ``of[d]``'s buffer):
+# on one card that buffer is today's stacked ``(D, ...)`` tensor, the virtual
+# mesh. Params are model-sharded and replica-replicated; the optimizer state
+# is sharded over both axes: position (r, m) owns the sub-shard
 # ``shard_m[r*q_len : (r+1)*q_len]``. The four stage bodies are written once
 # (``_fused_local_fns``) and shared by the fused program (one CUDA graph of
-# all four) and the staged programs (one graph each, with host round trips
-# between them in fused.py), so both arms run the same kernels in the same
-# order; no twin of ``_hardround`` is needed (module docstring). Programs are
-# cached in the DevicePool per (mesh shape, codec, chunk grid, layouts, fn
-# identity): churn at a seen shape is a cache hit.
+# all four, spanning the cards) and the staged programs (one graph each, with
+# host round trips between them in fused.py), so both arms run the same
+# kernels in the same order; no twin of ``_hardround`` is needed (module
+# docstring). Across cards each stage does what the reference's collective
+# does with the same elementwise operations in the same order, so a mesh over
+# cards is bitwise the virtual one. Programs are cached in the DevicePool per
+# (mesh shape, codec, chunk grid, layouts, fn identity): churn at a seen shape
+# is a cache hit.
 
 _STAGES = ("grad", "exchange", "update", "gather")
 # the port's one block quantizer (the reference pins its "xla"/"pallas" pick)
@@ -1188,7 +1189,8 @@ class _FusedSpec:
 
     def exec_key(self, kind: str) -> Tuple:
         """DevicePool cache key of one program of the family (``kind``:
-        "fused" or a stage name): the reference's fields."""
+        "fused" or a stage name): the reference's fields. The pool's
+        positions fix the cards of a shape, so the key needs no more."""
         return (
             "fused_step", kind, self.replicas, self.model_shards,
             self.codec_name, self.chunk_bytes, self.quant_impl,
@@ -1198,117 +1200,234 @@ class _FusedSpec:
         )
 
 
-def _fused_local_fns(spec: _FusedSpec):
-    """The four stage bodies over stacked tensors, defined once and shared
-    by the fused and staged builders. Each is pure (returns new tensors):
+def _fused_local_fns(spec: _FusedSpec, cards: _Cards):
+    """The four stage bodies over per-card buffers (a list, one tensor a
+    card of ``cards``, each holding its positions' rows), defined once and
+    shared by the fused and staged builders. Each is pure (returns new
+    tensors):
 
     ``grad(p, b) -> (gm, loss)``: per position the params allgather over
-    the model axis (the row's shards side by side, a view), autograd of
-    ``loss_fn`` on its microbatch, the reduce-scatter back onto the model
-    axis (summed in model order); ``loss`` the sum over positions divided
-    by R*M, one per position.
+    the model axis (its row's shards side by side on its card: a view when
+    the row shares one buffer, else copies), autograd of ``loss_fn`` on its
+    microbatch on its card, the reduce-scatter back onto the model axis
+    (shard k of every gradient of the row summed on (r, k)'s card in model
+    order; a row over several cards keeps its gradients until its last, so
+    that no card's pass waits on another's); ``loss`` the sum over positions
+    on the first card, in position order, divided by R*M, one per position.
 
     ``exchange(gm, e) -> (h, e')``: the cross-replica reduce-scatter of the
-    model-sharded gradient under the codec, divided by R*M. ``none`` sums in
-    rank order; ``bf16``/``fp16`` cast every slot and accumulate in f32 from
-    0 in rank order; ``int8`` quantizes every destination slot on the chunk
-    grid (``quant_int8``, one launch for all D*R slots), adds the error
-    feedback residual first when it is on, and decodes-accumulates in rank
-    order (``dequant_acc_int8``, one launch for all positions, the output
-    in (m, r) order: the flat averaged gradient); the residual is ``gq -
-    own wire image`` (one more ``dequant_acc_int8``).
+    model-sharded gradient under the codec, divided by R*M, each owner's
+    sum on its card. ``none`` sums the raw slots in rank order;
+    ``bf16``/``fp16`` cast every slot on its source card (encoded bytes
+    cross) and accumulate in f32 from 0 in rank order; ``int8`` quantizes
+    every slot on the chunk grid (``quant_int8``, one launch a card for its
+    slots), adds the error-feedback residual first when it is on, ships the
+    int8 payload and scales to each owner's card and decodes-accumulates
+    there in rank order (``dequant_acc_int8``, one launch a card); the
+    residual is ``gq - own wire image`` (one more ``dequant_acc_int8`` a
+    card). On one card the slots are read in (m, r) order as views of the
+    stacked gradient, as the reference's ``all_to_all`` lays them.
 
     ``update(h, p, *opt) -> (new_sub, *new_opt)``: per position its owned
-    sub-shard through ``spec.sub_update``.
+    sub-shard through ``spec.sub_update``, on its card.
 
     ``gather(new_sub) -> new_p``: the allgather over the replica axis of
-    the raw values, a broadcast view shaped ``(R, M, R, q_len)``."""
+    the raw values: on one card a broadcast view shaped ``(R, M, R,
+    q_len)``, across cards each position's ``(R, q_len)`` copied to it."""
     R, M = spec.replicas, spec.model_shards
-    D = R * M
     q_len, p_len, s_len = spec.q_len, spec.p_len, spec.s_len
     codec = spec.codec_name
     denom = R * M
     ef = spec.error_feedback
     step = _grid_step(q_len, spec.chunk_bytes)
     cpr = n_chunks(q_len, step)
+    C = len(cards.devices)
+    one = cards.one
+    row = cards.row
+
+    def row_params(p, r: int, c: int) -> torch.Tensor:
+        # row r's M shards side by side on card c: a view of the buffer
+        # where the row's rows lie there in order, else a copy of each
+        first = r * M
+        s = cards.slot[first]
+        if all(cards.of[first + k] == c and cards.slot[first + k] == s + k
+               for k in range(M)):
+            return p[c][s:s + M].reshape(s_len)
+        return torch.cat([row(p, first + k).to(p[c].device)
+                          for k in range(M)])
+
+    def reduce_scatter(gm, r: int, m: int, g: torch.Tensor) -> None:
+        # position (r, m)'s shard k onto (r, k)'s row, in model order
+        for k in range(M):
+            dst = row(gm, r * M + k)
+            if m == 0:
+                dst.copy_(g[k])
+            else:
+                dst.add_(g[k].to(dst.device))
 
     def local_grad(p, b):
-        gm = torch.empty((D, p_len), dtype=torch.float32, device=p.device)
+        gm = [torch.empty((len(cards.ranks[c]), p_len), dtype=torch.float32,
+                          device=p[c].device) for c in range(C)]
         losses = []
         for r in range(R):
-            full = p[r * M:(r + 1) * M].reshape(s_len)
-            rowg = gm[r * M:(r + 1) * M]
-            for m in range(M):
-                x = full.detach().requires_grad_(True)
+            pos = range(r * M, (r + 1) * M)
+            spans = len({cards.of[d] for d in pos}) > 1
+            full: Dict[int, torch.Tensor] = {}
+            pending = []
+            for m, d in enumerate(pos):
+                c = cards.of[d]
+                if c not in full:
+                    full[c] = row_params(p, r, c)
+                x = full[c].detach().requires_grad_(True)
                 with torch.enable_grad():
                     w = x if spec.param_size == s_len \
                         else x[:spec.param_size]
-                    loss = spec.loss_fn(w, b[r * M + m])
+                    loss = spec.loss_fn(w, row(b, d))
                     (g,) = torch.autograd.grad(loss, x)
-                if m == 0:
-                    rowg.copy_(g.view(M, p_len))
-                else:
-                    rowg.add_(g.view(M, p_len))
                 losses.append(loss.detach().float().reshape(()))
-        total = losses[0]
+                pending.append((m, g.view(M, p_len)))
+                if not spans or m == M - 1:
+                    for mm, gg in pending:
+                        reduce_scatter(gm, r, mm, gg)
+                    pending = []
+        first = p[0].device
+        total = losses[0].to(first)
         for x in losses[1:]:
-            total = total + x
-        return gm, div_exact(total, denom).reshape(1).expand(D).contiguous()
+            total = total + x.to(first)
+        return gm, div_exact(total, denom).reshape(1).expand(R * M) \
+            .contiguous()
 
-    def by_position(mr):
-        # (M, R, q_len) in (m, r) order -> (D, q_len), d = r * M + m
-        return mr.transpose(0, 1).reshape(D, q_len)
+    def slots(bufs, src: int, c: int, width: int, f=None) -> torch.Tensor:
+        # source replica src's slots bound for card c's positions, on card
+        # c: slot (src, m, r) is columns [r*width, (r+1)*width) of position
+        # (src, m)'s row; on one card all of them in (m, r) order (a view)
+        if one:
+            x = bufs[0].view(R, M * R * width)[src]
+            return x if f is None else f(x)
+        parts = []
+        for d in cards.ranks[c]:
+            r, m = divmod(d, M)
+            x = row(bufs, src * M + m)[r * width:(r + 1) * width]
+            parts.append((x if f is None else f(x)).to(bufs[c].device))
+        return torch.cat(parts)
+
+    def by_source(bufs, c: int, width: int) -> torch.Tensor:
+        # (R, n * width): row r' the slots(bufs, r', c, width)
+        if one:
+            return bufs[0].view(R, M * R * width)
+        return torch.stack([slots(bufs, src, c, width) for src in range(R)])
+
+    def by_position(acc: torch.Tensor, c: int) -> torch.Tensor:
+        # an owner card's sums in its slot order -> its rows: (m, r) order
+        # on one card, d = r * M + m
+        if one:
+            return acc.view(M, R, q_len).transpose(0, 1).reshape(R * M, q_len)
+        return acc.view(-1, q_len)
 
     def local_exchange(gm, e):
-        gv = gm.view(R, M, R, q_len)  # [source r', m, destination r]
         if codec == "none":
-            acc = gv[0]
-            for r in range(1, R):
-                acc = acc + gv[r]
-            return by_position(div_exact(acc, denom)), e
+            h = []
+            for c in range(C):
+                acc = slots(gm, 0, c, q_len)
+                for r in range(1, R):
+                    acc = acc + slots(gm, r, c, q_len)
+                h.append(by_position(div_exact(acc, denom), c))
+            return h, e
         if codec in _WIRE_DTYPES:
             wd = _WIRE_DTYPES[codec]
-            acc = torch.zeros((M, R, q_len), dtype=torch.float32,
-                              device=gm.device)
-            for r in range(R):
-                acc = acc + gv[r].to(wd).to(torch.float32)
-            return by_position(div_exact(acc, denom)), e
-        gq = gm + e if ef else gm
-        q, s = quant_int8(gq.view(D * R, q_len), step)
-        acc = dequant_acc_int8(q.view(R, M * R * q_len),
-                               s.view(R, M * R * cpr), step, seg=q_len,
-                               cps=cpr, divisor=denom)
-        h = by_position(acc.view(M, R, q_len))
+            h = []
+            for c in range(C):
+                acc = torch.zeros(len(cards.ranks[c]) * q_len,
+                                  dtype=torch.float32, device=gm[c].device)
+                for r in range(R):
+                    acc = acc + slots(gm, r, c, q_len,
+                                      lambda x: x.to(wd)).to(torch.float32)
+                h.append(by_position(div_exact(acc, denom), c))
+            return h, e
+        gq = [g + x for g, x in zip(gm, e)] if ef else gm
+        enc = [quant_int8(t.view(-1, q_len), step) for t in gq]
+        qs = [q.view(-1, p_len) for q, _ in enc]
+        ss = [s.view(-1, R * cpr) for _, s in enc]
+        h = [by_position(dequant_acc_int8(
+                 by_source(qs, c, q_len), by_source(ss, c, cpr), step,
+                 seg=q_len, cps=cpr, divisor=denom), c) for c in range(C)]
         if ef:
-            e = gq - _dev_dequant_int8(q, s, step).view(D, p_len)
+            e = [t - _dev_dequant_int8(q, s, step).view(-1, p_len)
+                 for t, (q, s) in zip(gq, enc)]
         return h, e
 
     def local_update(h, p, *opt):
-        pv = p.view(R, M, R, q_len)
-        subs, new = [], [[] for _ in opt]
-        for d in range(D):
-            r, m = divmod(d, M)
-            p_sub = pv[r, m, r]
-            new_sub, leaves = spec.sub_update(h[d], p_sub,
-                                              [leaf[d] for leaf in opt])
-            subs.append(new_sub)
-            for acc, leaf in zip(new, leaves):
-                acc.append(leaf)
-        return (torch.stack(subs),) + tuple(torch.stack(x) for x in new)
+        subs, new_opt = [], [[] for _ in opt]
+        for c, ranks in enumerate(cards.ranks):
+            card_subs, card_opt = [], [[] for _ in opt]
+            for i, d in enumerate(ranks):
+                p_sub = p[c][i].view(R, q_len)[d // M]
+                new_sub, leaves = spec.sub_update(
+                    h[c][i], p_sub, [leaf[c][i] for leaf in opt])
+                card_subs.append(new_sub)
+                for acc, leaf in zip(card_opt, leaves):
+                    acc.append(leaf)
+            subs.append(torch.stack(card_subs))
+            for acc, x in zip(new_opt, card_opt):
+                acc.append(torch.stack(x))
+        return (subs, *new_opt)
 
     def local_gather(new_sub):
-        return new_sub.view(R, M, q_len).permute(1, 0, 2)[None].expand(
-            R, M, R, q_len)
+        if one:
+            return [new_sub[0].view(R, M, q_len).permute(1, 0, 2)[None]
+                    .expand(R, M, R, q_len)]
+        return [torch.stack([torch.stack([row(new_sub, src * M + d % M)
+                                          .to(new_sub[c].device)
+                                          for src in range(R)])
+                             for d in ranks])
+                for c, ranks in enumerate(cards.ranks)]
 
     return local_grad, local_exchange, local_update, local_gather
+
+
+@contextlib.contextmanager
+def _allocating_to_pool(devices: Sequence[torch.device], mempool):
+    """Every allocation on ``devices`` goes to the private memory pool
+    ``mempool`` for the span: a capture routes only its own card's
+    allocations to its pool, and a graph spanning cards must not lend its
+    other cards' memory back to the caching allocator. Raises where this
+    torch cannot route them."""
+    if not devices:
+        yield
+        return
+    begin = getattr(torch._C, "_cuda_beginAllocateToPool", None)
+    end = getattr(torch._C, "_cuda_endAllocateToPool", None)
+    if begin is None or end is None:
+        raise RuntimeError(
+            f"torch {torch.__version__} cannot route a card's allocations "
+            "to a graph's memory pool (torch._C._cuda_beginAllocateToPool), "
+            "so the fused step cannot capture across cards")
+    for d in devices:
+        begin(d.index, mempool)
+    try:
+        yield
+    finally:
+        for d in devices:
+            end(d.index, mempool)
+
+
+def _release_pools(devices: Sequence[torch.device], mempool) -> None:
+    """Drop one hold on ``mempool`` on each of ``devices`` (one per capture
+    that routed to it): once no graph needs it, its memory returns to the
+    card."""
+    release = getattr(torch._C, "_cuda_releasePool", None)
+    if release is not None:
+        for d in devices:
+            release(d.index, mempool)
 
 
 class _StepProgram:
     """One program of a fused-step family. ``pure(*args)`` is its body
     (new tensors out); ``write(args, outs)`` writes the state outputs into
     their input tensors in place and returns the rest. ``run(*args)`` does
-    both eagerly (the CPU path); ``capture(args, mempool, side)`` records
-    both as one CUDA graph over the static tensors ``args``."""
+    both eagerly (the CPU path); ``capture(args, mempool, sides)`` records
+    both as one CUDA graph over the static tensors ``args`` (each a list,
+    one tensor a card)."""
 
     def __init__(self, pure: Callable, write: Callable) -> None:
         self.pure = pure
@@ -1317,47 +1436,72 @@ class _StepProgram:
     def run(self, *args):
         return self.write(args, self.pure(*args))
 
-    def capture(self, args: Sequence[torch.Tensor], mempool,
-                side: "torch.cuda.Stream") -> "_StepGraph":
+    def capture(self, args: Sequence[Sequence[torch.Tensor]], mempool,
+                sides: Sequence["torch.cuda.Stream"]) -> "_StepGraph":
         """Warm up once (the pure body alone: autograd's and cuBLAS's lazy
-        state come into being on the capture stream ``side``, outside the
-        capture; its launches count as launches), then capture on
-        ``side``, tallying the kernel wrappers' calls
-        (``recording_launches``). One side stream serves all of an
-        owner's captures, so the warm-ups' cached memory is reused."""
+        state come into being on the capture streams ``sides``, one a card
+        of the program in card order, outside the capture; its launches
+        count as launches), then capture on the first card's side stream,
+        the other cards' side streams forked from it and joined back into
+        it, so the graph spans the cards; their allocations go to the same
+        private pool. The kernel wrappers' calls on every side stream are
+        tallied (``recording_launches``). One side stream a card serves all
+        of an owner's captures, so the warm-ups' cached memory is reused."""
         from torchft_tpu_torch.ops import flash, quant
 
-        cur = torch.cuda.current_stream(args[0].device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
+        curs = [torch.cuda.current_stream(s.device) for s in sides]
+        for s, cur in zip(sides, curs):
+            s.wait_stream(cur)
+        with _current_streams(sides):
             self.pure(*args)
-        side.wait_stream(cur)
+        for s, cur in zip(sides, curs):
+            s.wait_stream(cur)
         graph = torch.cuda.CUDAGraph()
         tally: Dict[str, int] = {}
-        with flash.recording_launches(tally, side), \
-                quant.recording_launches(tally, side):
-            with torch.cuda.graph(graph, pool=mempool, stream=side,
-                                  capture_error_mode="thread_local"):
-                outs = self.run(*args)
-        cur.wait_stream(side)
-        return _StepGraph(graph, outs, tally)
+        with contextlib.ExitStack() as stack:
+            for s in sides:
+                stack.enter_context(flash.recording_launches(tally, s))
+                stack.enter_context(quant.recording_launches(tally, s))
+            stack.enter_context(_allocating_to_pool(
+                [s.device for s in sides[1:]], mempool))
+            stack.enter_context(_current_streams(sides[1:]))
+            stack.enter_context(torch.cuda.graph(
+                graph, pool=mempool, stream=sides[0],
+                capture_error_mode="thread_local"))
+            for s in sides[1:]:
+                s.wait_stream(sides[0])
+            outs = self.run(*args)
+            for s in sides[1:]:
+                sides[0].wait_stream(s)
+        for s, cur in zip(sides, curs):
+            cur.wait_stream(s)
+        return _StepGraph(graph, outs, tally, [s.device for s in sides])
 
 
 class _StepGraph:
-    """A captured program: ``replay()`` runs it on the current stream, adds
-    its capture's tally to the kernel wrappers' launch counts, and returns
-    its static outputs (valid until the next replay of a graph sharing its
-    memory pool)."""
+    """A captured program: ``replay()`` runs it on the first card's current
+    stream, ordered after and before the work of every card's current
+    stream, adds its capture's tally to the kernel wrappers' launch counts,
+    and returns its static outputs (valid until the next replay of a graph
+    sharing its memory pool)."""
 
-    def __init__(self, graph, outs: Tuple, tally: Dict[str, int]) -> None:
+    def __init__(self, graph, outs: Tuple, tally: Dict[str, int],
+                 devices: Sequence[torch.device]) -> None:
         self.graph = graph
         self.outs = outs
         self.tally = tally
+        self.devices = list(devices)
 
     def replay(self) -> Tuple:
         from torchft_tpu_torch.ops import flash, quant
 
-        self.graph.replay()
+        curs = [torch.cuda.current_stream(d) for d in self.devices]
+        for cur in curs[1:]:
+            curs[0].wait_stream(cur)
+        with torch.cuda.device(self.devices[0]):
+            self.graph.replay()
+        for cur in curs[1:]:
+            cur.wait_stream(curs[0])
         flash.add_launches(self.tally)
         quant.add_launches(self.tally)
         return self.outs
@@ -1368,13 +1512,21 @@ def _write_state(dst: torch.Tensor, src: torch.Tensor) -> None:
         dst.copy_(src)
 
 
+def _write_rows(dst: Sequence[torch.Tensor],
+                src: Sequence[torch.Tensor]) -> None:
+    for d, s in zip(dst, src):
+        d.view(s.shape).copy_(s)
+
+
 def _build_fused_step(pool: DevicePool, spec: _FusedSpec) -> _StepProgram:
     """The whole step as one program: ``run(p, b, e, *opt) -> (loss,)``,
-    with ``p``, ``e`` and the optimizer leaves updated in place (the
-    reference's ``fn(z, p, b, e, *opt) -> (new_p, loss, new_e, *new_opt)``
-    with the outputs replacing the inputs). On the card it is captured as
-    ONE CUDA graph: no host round trip between the stages."""
-    grad, exchange, update, gather = _fused_local_fns(spec)
+    each argument a list of one buffer a card, with ``p``, ``e`` and the
+    optimizer leaves updated in place (the reference's ``fn(z, p, b, e,
+    *opt) -> (new_p, loss, new_e, *new_opt)`` with the outputs replacing
+    the inputs). On the card it is captured as ONE CUDA graph spanning the
+    cards: no host round trip between the stages."""
+    grad, exchange, update, gather = _fused_local_fns(
+        spec, pool.cards_for(spec.positions))
     pool._note_trace()
 
     def pure(p, b, e, *opt):
@@ -1387,10 +1539,11 @@ def _build_fused_step(pool: DevicePool, spec: _FusedSpec) -> _StepProgram:
     def write(args, outs):
         p, _, e, *opt = args
         new_p, loss, new_e, *new_opt = outs
-        p.view(new_p.shape).copy_(new_p)
-        _write_state(e, new_e)
+        _write_rows(p, new_p)
+        for dst, src in zip(e, new_e):
+            _write_state(dst, src)
         for dst, src in zip(opt, new_opt):
-            dst.copy_(src)
+            _write_rows(dst, src)
         return (loss,)
 
     return _StepProgram(pure, write)
@@ -1400,7 +1553,8 @@ def _build_step_stage(pool: DevicePool, spec: _FusedSpec,
                       stage: str) -> _StepProgram:
     """One stage of the staged arm, the same body the fused program
     composes, as a program of its own (a CUDA graph of its own on the card)
-    whose inputs and outputs cross the host between replays:
+    whose inputs and outputs cross the host between replays (each a list,
+    one buffer a card; ``loss`` on the first card):
 
     ``grad``     ``run(p, b) -> (gm, loss)``
     ``exchange`` ``run(gm, e) -> (h,)``, ``e`` updated in place
@@ -1408,26 +1562,28 @@ def _build_step_stage(pool: DevicePool, spec: _FusedSpec,
     ``gather``   ``run(new_sub, p) -> ()``, ``p`` written in place"""
     if stage not in _STAGES:
         raise ValueError(f"unknown step stage {stage!r}")
-    grad, exchange, update, gather = _fused_local_fns(spec)
+    grad, exchange, update, gather = _fused_local_fns(
+        spec, pool.cards_for(spec.positions))
     pool._note_trace()
     if stage == "grad":
         return _StepProgram(grad, lambda args, outs: outs)
     if stage == "exchange":
         def write_exchange(args, outs):
-            _write_state(args[1], outs[1])
+            for dst, src in zip(args[1], outs[1]):
+                _write_state(dst, src)
             return outs[:1]
 
         return _StepProgram(exchange, write_exchange)
     if stage == "update":
         def write_update(args, outs):
             for dst, src in zip(args[2:], outs[1:]):
-                dst.copy_(src)
+                _write_rows(dst, src)
             return outs[:1]
 
         return _StepProgram(update, write_update)
 
     def write_gather(args, outs):
-        args[1].view(outs[0].shape).copy_(outs[0])
+        _write_rows(args[1], outs[0])
         return ()
 
     return _StepProgram(lambda new_sub, p: (gather(new_sub),), write_gather)

@@ -11,12 +11,17 @@ bodies as four graphs with real host round trips in between: the A/B lever
 and the bitwise oracle (both arms replay the same kernels in the same order,
 so fused and staged agree bit for bit, not within a tolerance).
 
-The mesh is laid over the ``DevicePool``'s one card (``mesh_for``): every
-position ``d = r * model_shards + m`` is a row of a stacked ``(D, ...)``
-tensor on that card, the virtual mesh of the port's other in-group axes. A
-pool over several cards raises (``DevicePool.device``): one row of
-positions a card is ROADMAP item 7b's next step.
-On the CPU both arms run the same bodies eagerly.
+The mesh is laid over the ``DevicePool``'s positions (``mesh_for``):
+position ``d = r * model_shards + m`` lies on ``pool.devices()[d]``, and
+every tensor of the step is one buffer a card holding its positions' rows
+in position order. A pool whose positions repeat one card is the virtual
+mesh (one stacked ``(D, ...)`` tensor, as the port's other in-group axes
+lay theirs); a pool over several cards puts each position on its card, and
+a cycled pool holds the positions that share a card as rows of that card's
+buffers. On the card a program is one CUDA graph spanning the cards
+(``_StepProgram.capture``); across cards the stages copy between them and
+stay bitwise the virtual mesh. On the CPU both arms run the same bodies
+eagerly, and ``cpu:0 .. cpu:n-1`` lay out as distinct cards.
 
 Counter contract (the reference's):
 
@@ -40,6 +45,7 @@ capture.
 from __future__ import annotations
 
 import hashlib
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -51,7 +57,9 @@ from torchft_tpu_torch.comm.cuda_backend import (
     DevicePool,
     _build_fused_step,
     _build_step_stage,
+    _Cards,
     _FusedSpec,
+    _release_pools,
 )
 from torchft_tpu_torch.optim import (
     _state_tensors,
@@ -80,18 +88,19 @@ def _sub_update(tx: Any, names: Tuple[str, ...]) -> Callable:
     return update
 
 
-class _ShapeState:
-    """One mesh shape's tensors on the device: the training state (``p``,
-    ``e``, ``opt``), the batch rows, and the staged arm's input buffers
-    and pinned host staging (made at its first staged step). The graphs of
-    the shape are captured over these tensors, so they live as long as the
-    engine."""
+Rows = List[torch.Tensor]  # one buffer a card, its positions' rows
 
-    def __init__(self, p: torch.Tensor, e: torch.Tensor,
-                 opt: List[torch.Tensor], b: torch.Tensor) -> None:
+
+class _ShapeState:
+    """One mesh shape's tensors on the cards, one buffer a card of its
+    positions' rows: the training state (``p``, ``e``, ``opt`` a list of
+    leaves), the batch rows, and the staged arm's input buffers and pinned
+    host staging (made at its first staged step). The graphs of the shape
+    are captured over these tensors, so they live as long as the engine."""
+
+    def __init__(self, p: Rows, e: Rows, opt: List[Rows], b: Rows) -> None:
         self.p, self.e, self.opt, self.b = p, e, opt, b
-        self.staged: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] \
-            = None
+        self.staged: Optional[Dict[str, Tuple[Rows, Rows]]] = None
 
 
 class FusedStepEngine:
@@ -130,8 +139,14 @@ class FusedStepEngine:
     ) -> None:
         if codec not in _CODECS:
             raise ValueError(f"unknown step codec {codec!r}")
+        kinds = {d.type for d in device_pool.cards()}
+        if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
+            raise ValueError(
+                "FusedStepEngine lays its mesh over devices of one kind, "
+                "cpu or cuda; this pool's positions lie on "
+                f"{', '.join(map(str, device_pool.cards()))}")
         self.pool = device_pool
-        self.device = device_pool.device()
+        self.device = device_pool.devices()[0]  # position 0's: the first card
         self.replicas = int(replicas)
         self.model_shards = max(1, int(model_shards))
         self.codec = codec
@@ -143,9 +158,12 @@ class FusedStepEngine:
         self.captures = 0  # CUDA graphs this engine captured
         self._shapes: Dict[Tuple[int, int], _ShapeState] = {}
         self._graphs: Dict[Tuple, Any] = {}
-        # on the card: the memory pool and the side stream of its captures
+        # on the card: the memory pool and each card's side stream of its
+        # captures; the cards besides the first whose allocations a capture
+        # routed to the pool, once a capture (released with the engine)
         self._mempool = None
-        self._side = None
+        self._sides: Dict[Tuple[str, int], Any] = {}
+        self._routed: List[torch.device] = []
         if error_feedback is None:
             error_feedback = codec == "int8"
         params = torch.as_tensor(np.asarray(params, dtype=np.float32)
@@ -185,56 +203,81 @@ class FusedStepEngine:
         )
 
     def _init_device_state(self, params: torch.Tensor) -> None:
-        """Pad and replicate the flat params into the stacked layout, zero
-        the residual and initialise each position's optimizer state. A
-        shape seen before gets the values written into its tensors, so its
-        captured graphs stay valid."""
+        """Pad and replicate the flat params into each card's rows, zero
+        the residual and initialise each position's optimizer state on its
+        card. A shape seen before gets the values written into its tensors,
+        so its captured graphs stay valid."""
         spec = self.spec
-        R, M, D = self.replicas, self.model_shards, spec.positions
+        R, M = self.replicas, self.model_shards
         self.pool.mesh_for(R, M)  # raises past the pool's positions
-        dev = self.device
-        padded = torch.zeros(spec.s_len, dtype=torch.float32, device=dev)
-        padded[:spec.param_size] = params.to(dev)
-        shards = padded.view(M, spec.p_len)
-        p = shards[torch.arange(D, device=dev) % M]
-        per_pos = []
-        for d in range(D):
-            r, m = divmod(d, M)
-            sub = shards[m, r * spec.q_len:(r + 1) * spec.q_len]
-            per_pos.append(_state_tensors(self.tx.init([sub])))
-        opt = [torch.stack([per_pos[d][i].to(dev) for d in range(D)])
-               .to(spec.opt_leaf_dtypes[i]) for i in range(len(per_pos[0]))]
-        e = torch.zeros((D, spec.p_len), dtype=torch.float32, device=dev)
+        cards = self._cards
+        padded = torch.zeros(spec.s_len, dtype=torch.float32,
+                             device=self.device)
+        padded[:spec.param_size] = params.to(self.device)
+        p, e, opt = [], [], []
+        for dev, ranks in zip(cards.devices, cards.ranks):
+            shards = padded.to(dev).view(M, spec.p_len)
+            p.append(shards[torch.as_tensor([d % M for d in ranks],
+                                            device=dev)])
+            per_pos = []
+            for d in ranks:
+                r, m = divmod(d, M)
+                sub = shards[m, r * spec.q_len:(r + 1) * spec.q_len]
+                per_pos.append(_state_tensors(self.tx.init([sub])))
+            opt.append([torch.stack([x[i].to(dev) for x in per_pos])
+                        .to(spec.opt_leaf_dtypes[i])
+                        for i in range(len(per_pos[0]))])
+            e.append(torch.zeros((len(ranks), spec.p_len),
+                                 dtype=torch.float32, device=dev))
+        opt = [list(leaf) for leaf in zip(*opt)]  # by leaf, then card
         st = self._shapes.get((R, M))
         if st is None:
-            b = torch.zeros((D, spec.batch_size), dtype=torch.float32,
-                            device=dev)
+            b = [torch.zeros((len(ranks), spec.batch_size),
+                             dtype=torch.float32, device=dev)
+                 for dev, ranks in zip(cards.devices, cards.ranks)]
             self._shapes[(R, M)] = _ShapeState(p, e, opt, b)
             return
-        st.p.copy_(p)
-        st.e.copy_(e)
-        for dst, src in zip(st.opt, opt):
-            dst.copy_(src)
+        for dst, src in zip((st.p, st.e, *st.opt), (p, e, *opt)):
+            for d, s in zip(dst, src):
+                d.copy_(s)
 
     @property
     def _state(self) -> _ShapeState:
         return self._shapes[(self.replicas, self.model_shards)]
 
     @property
+    def _cards(self) -> _Cards:
+        """Where the current shape's positions lie: one buffer a card."""
+        return self.pool.cards_for(self.replicas * self.model_shards)
+
+    @property
     def world_devices(self) -> int:
         return self.replicas * self.model_shards
+
+    def _rows(self, bufs: Rows) -> List[torch.Tensor]:
+        """Every position's row of a per-card payload, in position order."""
+        cards = self._cards
+        return [cards.row(bufs, d) for d in range(cards.n)]
+
+    def _host_rows(self, bufs: Rows) -> np.ndarray:
+        """A per-card payload as the stacked ``(D, ...)`` host array of the
+        virtual mesh (a copy)."""
+        return torch.stack([t.to("cpu") for t in self._rows(bufs)]).numpy()
 
     def params(self) -> np.ndarray:
         """The full (unpadded) flat param vector, read from the replica-0
         row of each model shard."""
-        full = self._state.p[:self.model_shards].reshape(-1)
-        return full[:self.spec.param_size].to("cpu", copy=True).numpy()
+        rows = self._rows(self._state.p)[:self.model_shards]
+        full = torch.cat([t.to("cpu", copy=True) for t in rows])
+        return full[:self.spec.param_size].numpy()
 
     def state_tensors(self) -> List[torch.Tensor]:
         """The device state the digest covers, in its order: params, the
-        error-feedback residual, the optimizer leaves (optax's order)."""
+        error-feedback residual, the optimizer leaves (optax's order), each
+        as its positions' rows in position order: the bytes of the stacked
+        layout, wherever the rows lie."""
         st = self._state
-        return [st.p, st.e, *st.opt]
+        return [t for bufs in (st.p, st.e, *st.opt) for t in self._rows(bufs)]
 
     def digest(self) -> str:
         """sha256 over all device-resident state (params, EF residual,
@@ -249,11 +292,11 @@ class FusedStepEngine:
         """Every replica row of a model shard must hold bitwise-identical
         params (the replica-axis allgather ships raw values, so divergence
         means a broken exchange)."""
-        p = self._state.p.view(torch.int32)
+        p = [t.view(torch.int32) for t in self._rows(self._state.p)]
         M = self.model_shards
         for m in range(M):
             for r in range(1, self.replicas):
-                if not torch.equal(p[m], p[r * M + m]):
+                if not torch.equal(p[m], p[r * M + m].to(p[m].device)):
                     raise AssertionError(
                         f"replica divergence at model shard {m}: "
                         f"replica 0 vs replica {r}"
@@ -269,10 +312,17 @@ class FusedStepEngine:
             build = lambda: _build_step_stage(self.pool, spec, kind)  # noqa: E731
         return self.pool.executable(spec.exec_key(kind), build)
 
-    def _run(self, kind: str, args: Tuple[torch.Tensor, ...]) -> Tuple:
+    def _side(self, dev: torch.device) -> "torch.cuda.Stream":
+        key = (dev.type, dev.index)
+        if key not in self._sides:
+            self._sides[key] = torch.cuda.Stream(dev)
+        return self._sides[key]
+
+    def _run(self, kind: str, args: Tuple[Rows, ...]) -> Tuple:
         """One program run: eager on the CPU; on the card the replay of
         this engine's graph of the program, captured at first sight over
-        ``args`` (always the same tensors for a shape)."""
+        ``args`` (always the same tensors for a shape) as one graph over
+        every card of the shape. A capture that fails raises."""
         prog = self._exe(kind)
         if self.device.type != "cuda":
             return prog.run(*args)
@@ -281,13 +331,17 @@ class FusedStepEngine:
         if graph is None:
             if self._mempool is None:
                 self._mempool = torch.cuda.graph_pool_handle()
-                self._side = torch.cuda.Stream(self.device)
-            graph = self._graphs[key] = prog.capture(args, self._mempool,
-                                                     self._side)
+                weakref.finalize(self, _release_pools, self._routed,
+                                 self._mempool).atexit = False
+            devs = self._cards.devices
+            graph = prog.capture(args, self._mempool,
+                                 [self._side(d) for d in devs])
+            self._routed.extend(devs[1:])
+            self._graphs[key] = graph
             self.captures += 1
         return graph.replay()
 
-    def _load_batch(self, batch: Any) -> torch.Tensor:
+    def _load_batch(self, batch: Any) -> Rows:
         b = torch.as_tensor(batch, dtype=torch.float32)
         want = (self.world_devices, self.spec.batch_size)
         if tuple(b.shape) != want:
@@ -296,7 +350,8 @@ class FusedStepEngine:
                 f"{want}"
             )
         dst = self._state.b
-        dst.copy_(b)
+        for t, ranks in zip(dst, self._cards.ranks):
+            t.copy_(b[ranks])
         return dst
 
     def step_fused(self, batch: Any) -> float:
@@ -324,18 +379,19 @@ class FusedStepEngine:
             )
         return loss
 
-    def _staged_buffers(self) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
-        """Per intermediate (gm, h, new_sub) the device buffer the next
+    def _staged_buffers(self) -> Dict[str, Tuple[Rows, Rows]]:
+        """Per intermediate (gm, h, new_sub) each card's buffer the next
         stage reads and the host staging it crosses (pinned on the card)."""
         st = self._state
         if st.staged is None:
-            spec, D = self.spec, self.spec.positions
+            spec, cards = self.spec, self._cards
             pin = self.device.type == "cuda"
             st.staged = {
-                name: (torch.empty((D, n), dtype=torch.float32,
-                                   device=self.device),
-                       torch.empty((D, n), dtype=torch.float32,
-                                   pin_memory=pin))
+                name: ([torch.empty((len(r), n), dtype=torch.float32,
+                                    device=dev)
+                        for dev, r in zip(cards.devices, cards.ranks)],
+                       [torch.empty((len(r), n), dtype=torch.float32,
+                                    pin_memory=pin) for r in cards.ranks])
                 for name, n in (("gm", spec.p_len), ("h", spec.q_len),
                                 ("ns", spec.q_len))
             }
@@ -350,13 +406,14 @@ class FusedStepEngine:
         bufs = self._staged_buffers()
         b = self._load_batch(batch)
 
-        def hop(x: torch.Tensor, name: str) -> torch.Tensor:
-            dev_buf, host = bufs[name]
-            host.copy_(x)  # d2h, synchronous
-            arr = host.numpy()
-            dev_buf.copy_(torch.from_numpy(arr))  # h2d
+        def hop(x: Rows, name: str) -> Rows:
+            # every card's rows down to the host and back up
+            dev_bufs, hosts = bufs[name]
+            for src, dev_buf, host in zip(x, dev_bufs, hosts):
+                host.copy_(src)  # d2h, synchronous
+                dev_buf.copy_(torch.from_numpy(host.numpy()))  # h2d
             self.metrics.incr("step_host_hops", 2)
-            return dev_buf
+            return dev_bufs
 
         gm, loss_row = self._run("grad", (st.p, b))
         gm = hop(gm, "gm")
