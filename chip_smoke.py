@@ -509,10 +509,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one footprint; each classic commit's update rise (the most allocated
    in the update's window beyond its start) under 8 bytes a parameter in
    the decide-first lives, and the survivor's largest at least 12 (its
-   backup). It prints the kill-to-heal timeline (reap, survivor
-   latch, solo commits, the relaunch's spawn, CUDA init, kernel load and
-   model build, the heal's bytes and seconds, the first joint commit),
-   the memory readings and each life's figures. It first checks the
+   backup); and the kill-to-heal lifecycle read from the flight
+   recordings alone, which the survivor and the relaunch each fetch over
+   HTTP from their own ``/telemetry/events`` and ``/telemetry/metrics``
+   (found through the group store's ``checkpoint_addr_0``) before their
+   managers go down (``train_ddp.check_lifecycle``): on the survivor a
+   two-wire quorum, then ``member_dead`` naming group 0's first life (its
+   replica id from its "started" message) at a higher epoch, a later
+   quorum, commits after the death and a two-wire quorum again; on the
+   relaunch ``heal_start`` before ``heal_done`` at an epoch no lower than
+   the death's, then a commit beyond step 3, every event stamped with its
+   replica id and rank 0; the survivor's ``steps_committed`` at least 9
+   and a finite ``allreduce_p50_ms``; the two recordings one valid Chrome
+   trace. It prints the kill-to-heal timeline (reap, survivor
+   latch, member_dead, solo commits, the relaunch's spawn, CUDA init,
+   kernel load and model build, the heal's bytes and seconds, the first
+   joint commit), the lifecycle (the epochs, heal start and done, the
+   first resumed commit, the event counts, the trace), the memory
+   readings and each life's figures. It first checks the
    device memory (``train_proc_device_bytes``) and the host's
    (``proc_host_bytes``).
 24. dryrun_multichip: ``graft_entry.dryrun_multichip(8)`` on 8 positions
@@ -6038,12 +6052,14 @@ def proc_report(result: dict, n_params: int, act: int, card: str) -> list:
     tl, mem = result["timeline"], result["memory"]
     su = tl["relaunch_startup"]
     latch = tl["survivor_latch_s"]
+    lc = result["lifecycle"]
     lines = [
         f"kill-to-heal, seconds from the SIGKILL of group 0 in its step "
         f"{max(result['commits'][(0, 0)]) + 1}: reaped {tl['reap_s']:.3f}; survivor latch "
         + (f"{latch:.3f}" if latch is not None else "none (its next quorum "
            "formed without the dead peer)")
-        + f"; solo commits {[round(t, 3) for t in tl['solo_commit_s']]}; "
+        + f"; member_dead {tl['member_dead_s']:.3f}; solo commits "
+        f"{[round(t, 3) for t in tl['solo_commit_s']]}; "
         f"relaunch spawned at {tl['relaunch_after_kill_s']:.3f}, its "
         f"interpreter and imports {tl['relaunch_spawn_s']:.2f}, CUDA init "
         f"{su.get('cuda_init_s', 0):.2f}, kernel load "
@@ -6054,7 +6070,22 @@ def proc_report(result: dict, n_params: int, act: int, card: str) -> list:
         f"{tl['heal'].get('heal_wire_bytes', 0):.0f} bytes in "
         f"{tl['heal'].get('heal_wall_ms', 0):.1f} ms "
         f"({tl['heal'].get('heal_bytes_per_s', 0) / 1e9:.3f} GB/s); first "
-        f"joint commit {tl['first_joint_commit_s']:.2f} ({card})"]
+        f"joint commit {tl['first_joint_commit_s']:.2f} ({card})",
+        f"lifecycle from /telemetry alone: survivor's last two-wire quorum "
+        f"epoch {lc['last_two_wire_epoch']}, member_dead of group 0's first "
+        f"life at epoch {lc['death_epoch']} (step {lc['death_step']}, "
+        f"{tl['member_dead_s']:.3f} s after the kill), two-wire again at "
+        f"epoch {lc['rejoin_epoch']}; relaunch heal_start "
+        f"{tl['heal_start_s']:.3f} -> heal_done {tl['heal_done_s']:.3f} s "
+        f"at epoch {lc['heal_epoch']}, first resumed commit from step "
+        f"{lc['first_resumed_commit']} at {tl['first_resumed_s']:.3f} s; "
+        f"survivor steps_committed {lc['steps_committed']:.0f}, allreduce "
+        f"p50 {lc['allreduce_p50_ms']:.2f} ms; events "
+        + "; ".join(f"{life} {sum(kinds.values())} "
+                    + ", ".join(f"{k} {n}" for k, n in sorted(kinds.items()))
+                    for life, kinds in lc["event_counts"].items())
+        + f"; merged Chrome trace valid ({lc['trace_events']} events) "
+        f"({card})"]
     if mem:
         lines.append(
             f"card free memory: {mem['before'] / 1e9:.3f} GB before the "

@@ -1522,6 +1522,20 @@ def test_train_proc_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
         assert f"({name}): committed" in text
     assert "group 0 (relaunch): committed 6-9 (decide first)" in text
     assert "group 1 (survivor): committed 1-9 (overlapped)" in text
+    # the lifecycle from the flight recordings the two lives fetched over
+    # HTTP: the death one epoch above the last two-wire quorum, at step 3,
+    # the relaunch's heal in the rejoin's epoch, commits again from step 5
+    lc, tl = result["lifecycle"], result["timeline"]
+    assert f"member_dead {tl['member_dead_s']:.3f}; solo commits" in text
+    assert (f"member_dead of group 0's first life at epoch "
+            f"{lc['death_epoch']} (step 3, ") in text
+    assert (f"two-wire again at epoch {lc['rejoin_epoch']}; relaunch "
+            "heal_start") in text
+    assert "first resumed commit from step 5" in text
+    assert "survivor steps_committed 9," in text
+    assert "merged Chrome trace valid (" in text
+    assert lc["death_epoch"] > lc["last_two_wire_epoch"]
+    assert lc["rejoin_epoch"] == lc["heal_epoch"] >= lc["death_epoch"]
     # group 0's lives decide first, group 1 overlaps: the digests, equal at
     # 1-3 and 6-9, hold the two arms bitwise across the kill and the heal
     assert result["donate_update"] == (True, False)

@@ -29,6 +29,7 @@ import queue as queue_mod
 import time
 
 import numpy as np
+import pytest
 
 from torchft_tpu_torch.control import Lighthouse
 from torchft_tpu_torch.models import CONFIGS
@@ -277,3 +278,73 @@ def test_run_process_drill_at_tiny() -> None:
     # no flash kernel on the CPU
     assert all(set(c.values()) <= {0} for c in result["launches"].values())
     assert result["memory"] == {}
+    # the lifecycle, read from the two flight recordings the survivor and
+    # the relaunch fetched over HTTP (run_process_drill raises unless
+    # check_lifecycle holds): the survivor sees the death at the quorum
+    # after the kill's step, the relaunch heals in the quorum that puts it
+    # back on the survivor's wire, and commits from there
+    lc = result["lifecycle"]
+    assert lc["last_two_wire_epoch"] < lc["death_epoch"]
+    assert lc["death_epoch"] < lc["rejoin_epoch"] == lc["heal_epoch"]
+    assert lc["death_step"] == PROC_KILL
+    assert lc["first_resumed_commit"] == heal - 1
+    assert lc["steps_committed"] == total and lc["trace_valid"]
+    assert lc["event_counts"]["survivor"]["member_dead"] == 1
+    assert "member_dead" not in lc["event_counts"]["relaunch"]
+    # the death is recorded after the survivor's latch, when there is one,
+    # and before its first solo commit, whose quorum recorded it
+    assert (timeline["death_epoch"], timeline["rejoin_epoch"]) == (
+        lc["death_epoch"], lc["rejoin_epoch"])
+    latch = timeline["survivor_latch_s"]
+    assert 0 < timeline["member_dead_s"] < timeline["solo_commit_s"][0]
+    assert latch is None or latch <= timeline["member_dead_s"]
+    assert (timeline["heal_start_s"] < timeline["heal_done_s"]
+            < timeline["first_resumed_s"])
+    # each life's commit messages carry its recorded events: the victim's
+    # three quorums and commits survive its SIGKILL
+    kinds = [e["kind"] for s in sorted(commits[(0, 0)])
+             for e in commits[(0, 0)][s]["events"]]
+    assert kinds.count("quorum_complete") == kinds.count("step_commit") \
+        == PROC_KILL
+
+
+def _commit(digest, *events):
+    return {"digest": digest, "events": [
+        dict(zip(("kind", "step", "epoch", "wire_world"), e))
+        for e in events]}
+
+
+def test_drill_divergence_names_each_lifes_recording() -> None:
+    # a digest that differs fails the drill with each life's recorded
+    # quorums, commits and heals up to that step, so the message says
+    # which group moved first
+    from torchft_tpu_torch.examples.train_ddp import check_digests
+
+    q, c = "quorum_complete", "step_commit"
+    commits = {
+        (0, 0): {1: _commit("a", (q, 0, 1, 2), (c, 0, 1)),
+                 2: _commit("b", (q, 1, 1, 2), (c, 1, 1))},
+        (1, 0): {1: _commit("a", (q, 0, 1, 2), (c, 0, 1)),
+                 2: _commit("b", (q, 1, 1, 2), (c, 1, 1)),
+                 3: _commit("c", (q, 2, 2, 1), (c, 2, 2))},
+        (0, 1): {3: _commit("c", (q, 0, 2, 2), ("heal_start", 0, 2),
+                            ("heal_done", 2, 2), (c, 2, 2))},
+    }
+    assert check_digests(commits) == [1, 2, 3]
+    commits[(0, 1)][3]["digest"] = "d"
+    with pytest.raises(AssertionError) as err:
+        check_digests(commits)
+    text = str(err.value)
+    assert "group 0 life 1 diverged from group 1 life 0 at step 3" in text
+    assert "group 0 life 0: q1/w2@0 c@0 q1/w2@1 c@1" in text
+    assert "group 1 life 0: q1/w2@0 c@0 q1/w2@1 c@1 q2/w1@2 c@2" in text
+    assert "group 0 life 1: q2/w2@0 hs@0 hd@2 c@2" in text
+    # up to the step: a later commit's events are left out
+    commits[(0, 1)][3]["digest"] = "c"
+    commits[(1, 0)][2]["digest"] = "x"
+    with pytest.raises(AssertionError) as err:
+        check_digests(commits)
+    text = str(err.value)
+    assert "group 1 life 0 diverged from group 0 life 0 at step 2" in text
+    assert "group 0 life 1: (none)" in text
+    assert text.endswith("group 1 life 0: q1/w2@0 c@0 q1/w2@1 c@1")

@@ -623,3 +623,66 @@ def test_all_observer_quorum_stays_coherent(mstore) -> None:
     assert seen["torch"] == seen["jax"]
     prefix, rank, world = seen["torch"][0]
     assert (rank, world) == (0, 2) and "/observer/" not in prefix
+
+
+# --- the event stream, against the JAX package --------------------------------
+# A sequence of quorum answers (each a list of wire members, "evict" for an
+# eviction) drives both Managers; each non-evicted quorum is followed by a
+# commit. The projected recordings must be equal: the Manager's member_dead
+# names every wire member of the last quorum that is gone from this one, in
+# sorted order, before quorum_complete.
+
+_EVENT_FIELDS = ("kind", "step", "epoch", "member", "wire_world",
+                 "replica_world", "participants", "heal")
+
+
+@pytest.mark.parametrize("kwargs,answers,dead", [
+    ({}, [list("abc"), list("ac")], [(2, "b")]),
+    ({}, [list("dbac"), list("ac")], [(2, "b"), (2, "d")]),
+    ({}, [list("ac"), list("abc"), list("ab")], [(3, "c")]),
+    ({}, [list("abc"), list("ac"), list("a"), list("ab")],
+     [(2, "b"), (3, "c")]),
+    ({"data_plane": False}, [list("ab"), list("a")], [(2, "b")]),
+    ({"job_id": "lo"}, [list("abc"), "evict", list("a")],
+     [(3, "b"), (3, "c")]),
+], ids=["one_leaves", "two_leave_sorted", "one_joins", "leave_leave_join",
+        "observer", "eviction"])
+def test_event_stream_matches_the_reference(mstore, kwargs, answers,
+                                            dead) -> None:
+    import torchft_tpu.control as jctrl
+    import torchft_tpu_torch.control as pctrl
+
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore, **kwargs).items():
+        ctrl = pctrl if pkg == "torch" else jctrl
+        observer = kwargs.get("data_plane") is False
+        client.should_commit.return_value = True
+        try:
+            for qid, wire in enumerate(answers, start=1):
+                if wire == "evict":
+                    client.quorum.return_value = ctrl.QuorumResult.from_json(
+                        '{"evicted": true, "job_id": "lo", '
+                        '"membership_epoch": 9, "lease_ms": 0}')
+                else:
+                    client.quorum.return_value = _quorum(
+                        pkg, quorum_id=qid, replica_world_size=len(wire) + 1,
+                        max_step=m.current_step(), max_world_size=len(wire),
+                        transport_rank=None if observer else 0,
+                        transport_world_size=len(wire),
+                        transport_replica_ids=wire)
+                m.start_quorum(allow_heal=not observer)
+                m.wait_quorum()
+                if wire != "evict":
+                    assert m.should_commit()
+            seen[pkg] = [tuple(e.get(f) for f in _EVENT_FIELDS)
+                         for e in m.events.since(0)[0]]
+        finally:
+            m.shutdown(wait=False)
+    assert seen["torch"] == seen["jax"]
+    got = [(e[2], e[3]) for e in seen["torch"] if e[0] == "member_dead"]
+    assert got == dead
+    # each death comes just before its quorum's quorum_complete
+    kinds = [e[0] for e in seen["torch"]]
+    for i, kind in enumerate(kinds):
+        if kind == "member_dead":
+            assert kinds[i + 1] in ("member_dead", "quorum_complete")

@@ -54,7 +54,9 @@ checkpoint bitwise. ``run_multijob_drill`` puts two jobs on one lighthouse
 one while the other stays on its lease, then lets a higher-priority job
 evict a group of the second. ``run_process_drill`` runs two groups as OS
 processes, as the lines above tell users to: one is SIGKILLed inside a
-step and relaunched on the same ports, and heals from the survivor. The
+step and relaunched on the same ports, and heals from the survivor; the
+kill-to-heal lifecycle is then read back from the survivor's and the
+relaunch's ``/telemetry`` alone (``check_lifecycle``). The
 first two take ``comm_backend`` and ``comm_options`` for the
 Manager: the default is the TCP gradient wire; ``comm_backend="cuda"`` with
 e.g. ``comm_options={"algorithm": "psum", "compression": "int8"}`` reduces
@@ -96,7 +98,7 @@ from torchft_tpu_torch.comm.cuda_backend import (
     DevicePool,
     default_device_pool,
 )
-from torchft_tpu_torch.comm.store import StoreServer
+from torchft_tpu_torch.comm.store import StoreClient, StoreServer
 from torchft_tpu_torch.comm.topology import DomainTopology
 from torchft_tpu_torch.control import Lighthouse, LighthouseClient
 from torchft_tpu_torch.data import DistributedSampler
@@ -126,6 +128,10 @@ from torchft_tpu_torch.optim import (
     load_optimizer_state_dict,
 )
 from torchft_tpu_torch.utils.device import resolve_device
+from torchft_tpu_torch.utils.events import (
+    to_chrome_trace,
+    validate_chrome_trace,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -286,6 +292,9 @@ class GroupRun:
     # the Manager's flight recorder at the end (what GET /telemetry/events
     # serves): quorums, heals, commits, the sharded update's reshards
     events: List[Dict[str, Any]] = field(default_factory=list)
+    # the same recording read over HTTP before the manager went down, with
+    # the metrics (``capture_flight_recording``), when asked for
+    telemetry: Dict[str, Any] = field(default_factory=dict)
 
 
 def _digest(tensors: Sequence[Any]) -> str:
@@ -366,6 +375,7 @@ def train_group(
     donate_update: bool = False,
     update_window: Optional[Callable[[], Any]] = None,
     run: Optional[GroupRun] = None,
+    capture_telemetry: bool = False,
 ) -> GroupRun:
     """Train one replica group until ``total_steps`` steps are committed
     (or ``stop`` is set).
@@ -409,7 +419,10 @@ def train_group(
     classic update. ``run``: the
     :class:`GroupRun` to fill (a new one by default), so that a hook can
     read it while the group trains: its ``passes`` count every pass so far,
-    the captures' warm-up passes included.
+    the captures' warm-up passes included. ``capture_telemetry``: before the
+    manager shuts down, however the run ends, read its flight recording
+    and metrics over HTTP into ``run.telemetry``
+    (:func:`capture_flight_recording`).
 
     A CUDA run of a config whose head_dim the flash kernels do not take
     raises ValueError here, before anything is built.
@@ -660,6 +673,10 @@ def train_group(
                        else sharded_opt.bucket_sizes())
         if manager.events:
             run.events = manager.events.since(0)[0]
+        if capture_telemetry:
+            run.telemetry = capture_flight_recording(
+                store.addr if store is not None else store_addr, rank=rank,
+                job_id=job_id, timeout=min(timeout, 10.0))
         if comm is not None:
             run.recorded = comm.recorded
         manager.shutdown(wait=False)
@@ -1028,6 +1045,151 @@ def run_joint(cfg: TransformerConfig, *, groups: int = 2, steps: int = 3,
 # run_process_drill's schedule (k, s, a) and its slack on the card's memory
 PROC_KILL, PROC_SOLO, PROC_AFTER = 3, 2, 3
 PROC_MEMORY_SLACK = 1 << 30
+# what each drill commit carries of its life's recording: enough to say,
+# when two lives' parameters differ, which one moved first
+LIFE_KINDS = ("quorum_complete", "member_dead", "step_commit", "step_discard",
+              "heal_start", "heal_done", "error_latched")
+LIFE_FIELDS = ("kind", "step", "epoch", "wire_world", "member")
+
+
+def _life_history(events: Sequence[Dict[str, Any]]) -> str:
+    """One life's recorded quorums, deaths, commits, discards, heals and
+    latches, compact, each at the step count it was recorded at:
+    ``q3/w2@2`` is a quorum of epoch 3 with a wire of 2, ``c@2`` the commit
+    that took the count from 2 to 3."""
+    short = {"quorum_complete": "q", "member_dead": "dead",
+             "step_commit": "c", "step_discard": "x", "heal_start": "hs",
+             "heal_done": "hd", "error_latched": "err"}
+    out = []
+    for e in events:
+        tag = short.get(e["kind"], e["kind"])
+        if e["kind"] == "quorum_complete":
+            tag += f"{e.get('epoch')}/w{e.get('wire_world')}"
+        elif e["kind"] == "member_dead":
+            tag += f"({e.get('member')})"
+        out.append(f"{tag}@{e.get('step')}")
+    return " ".join(out) or "(none)"
+
+
+def check_digests(commits: Dict[Tuple[int, int],
+                                 Dict[int, Dict[str, Any]]]) -> List[int]:
+    """The steps that more than one life of the drill committed (``commits``
+    by (group, life), then by step, as :func:`run_process_drill` gathers
+    them), after checking that their parameter digests are equal. On a
+    difference the AssertionError gives each life's recorded quorums,
+    deaths, commits, discards and heals up to that step, from its commit
+    messages, so the message says which group moved first."""
+    by_step: Dict[int, List[Tuple[Tuple[int, int], str]]] = {}
+    for key, steps in commits.items():
+        for step, body in steps.items():
+            by_step.setdefault(step, []).append((key, body["digest"]))
+    overlap = []
+    for step, entries in sorted(by_step.items()):
+        if len(entries) < 2:
+            continue
+        overlap.append(step)
+        (g0, i0), digest0 = entries[0]
+        for (g, i), digest in entries[1:]:
+            if digest != digest0:
+                raise AssertionError(
+                    f"group {g} life {i} diverged from group {g0} life {i0} "
+                    f"at step {step}; each life's recording up to it:\n"
+                    + "\n".join(
+                        f"  group {gk} life {ik}: " + _life_history(
+                            [e for s in sorted(c) if s <= step
+                             for e in c[s]["events"]])
+                        for (gk, ik), c in sorted(commits.items())))
+    return overlap
+
+
+def _recording(dump: Dict[str, Any], what: str) -> List[Dict[str, Any]]:
+    _require("capture_error" not in dump,
+             f"{what}: no flight recording: {dump.get('capture_error')}")
+    return sorted(dump["events"]["events"], key=lambda e: e["seq"])
+
+
+def check_lifecycle(survivor: Dict[str, Any], relaunch: Dict[str, Any], *,
+                    dead_id: str, relaunch_id: str, kill_step: int,
+                    total: int) -> Dict[str, Any]:
+    """The kill-to-heal lifecycle from two flight recordings alone (the
+    survivor's and the relaunch's, as :func:`capture_flight_recording`
+    returns them), by the checks of the JAX package's
+    tests/test_telemetry_integration.py. The survivor: a quorum with two
+    on the wire, then ``member_dead`` naming ``dead_id`` at a higher epoch,
+    a later quorum at an epoch no lower, a commit after the death and a
+    two-member wire again. The relaunch: ``heal_start`` before
+    ``heal_done`` at an epoch no lower than the death's, then a commit
+    beyond ``kill_step``, every event stamped ``relaunch_id`` and rank 0.
+    The survivor's metrics: ``steps_committed`` at least ``total`` and a
+    finite ``allreduce_p50_ms``. The two recordings make one valid Chrome
+    trace. Extra events are allowed, missing ones are not. Raises
+    AssertionError on the first check that fails; returns the epochs, the
+    walls of the death, the heal and the first resumed commit, and the
+    counts."""
+    surv = _recording(survivor, "the survivor")
+    heal = _recording(relaunch, "the relaunch")
+    brief = f"the survivor's recording: {_life_history(surv)}"
+    quorums = [e for e in surv if e["kind"] == "quorum_complete"]
+    deaths = [e for e in surv
+              if e["kind"] == "member_dead" and e["member"] == dead_id]
+    _require(bool(deaths), f"no member_dead naming {dead_id}; {brief}")
+    death = deaths[0]
+    before = [e for e in quorums
+              if e["seq"] < death["seq"] and e["wire_world"] == 2]
+    _require(bool(before) and death["epoch"] > before[-1]["epoch"],
+             f"member_dead at epoch {death['epoch']} is not above a "
+             f"two-wire quorum before it; {brief}")
+    after = [e for e in quorums if e["seq"] > death["seq"]]
+    _require(bool(after) and after[0]["epoch"] >= death["epoch"],
+             f"no quorum at epoch >= {death['epoch']} after the death; "
+             f"{brief}")
+    _require(any(e["kind"] == "step_commit" and e["seq"] > death["seq"]
+                 for e in surv), f"no commit after the death; {brief}")
+    rejoin = [e for e in after if e["wire_world"] == 2]
+    _require(bool(rejoin), f"the relaunch never re-entered the survivor's "
+             f"wire; {brief}")
+    hs = [e for e in heal if e["kind"] == "heal_start"]
+    hd = [e for e in heal if e["kind"] == "heal_done"]
+    brief = f"the relaunch's recording: {_life_history(heal)}"
+    _require(bool(hs) and bool(hd) and hs[0]["seq"] < hd[0]["seq"],
+             f"no heal_start before heal_done; {brief}")
+    _require(hs[0]["epoch"] >= death["epoch"],
+             f"heal_start at epoch {hs[0]['epoch']}, below the death's "
+             f"{death['epoch']}; {brief}")
+    resumed = [e for e in heal
+               if e["kind"] == "step_commit" and e["seq"] > hd[0]["seq"]]
+    _require(bool(resumed) and max(e["step"] for e in resumed) > kill_step,
+             f"no commit beyond step {kill_step} after the heal; {brief}")
+    stamps = {(e["replica_id"], e["rank"]) for e in heal}
+    _require(stamps == {(relaunch_id, 0)},
+             f"the relaunch's events carry {stamps}, want "
+             f"{{({relaunch_id!r}, 0)}}")
+    metrics = survivor["metrics"]["metrics"]
+    p50 = metrics.get("allreduce_p50_ms")
+    _require(metrics.get("steps_committed", 0) >= total,
+             f"the survivor's steps_committed "
+             f"{metrics.get('steps_committed')}, want >= {total}")
+    _require(p50 is not None and math.isfinite(p50),
+             f"the survivor's allreduce_p50_ms is {p50}")
+    trace = json.loads(json.dumps(to_chrome_trace(
+        [survivor["events"], relaunch["events"]])))
+    problems = validate_chrome_trace(trace)
+    _require(problems == [], f"the merged Chrome trace: {problems}")
+    counts: Dict[str, Dict[str, int]] = {}
+    for life, evs in (("survivor", surv), ("relaunch", heal)):
+        for e in evs:
+            kinds = counts.setdefault(life, {})
+            kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    return dict(
+        last_two_wire_epoch=before[-1]["epoch"], death_epoch=death["epoch"],
+        death_step=death["step"], rejoin_epoch=rejoin[0]["epoch"],
+        heal_epoch=hs[0]["epoch"], member_dead_wall=death["t_wall"],
+        heal_start_wall=hs[0]["t_wall"], heal_done_wall=hd[0]["t_wall"],
+        first_resumed_commit=resumed[0]["step"],
+        first_resumed_wall=resumed[0]["t_wall"],
+        allreduce_p50_ms=p50, steps_committed=metrics["steps_committed"],
+        event_counts=counts, trace_events=len(trace["traceEvents"]),
+        trace_valid=True)
 
 
 def _free_port_base(count: int, preferred: Optional[int] = None,
@@ -1082,16 +1244,20 @@ def _proc_group_main(cfg: TransformerConfig, env: Dict[str, str],
     (``env``: the lighthouse, ``REPLICA_GROUP_ID``, the store and manager
     ports), its own store on ``MASTER_PORT``, and :func:`train_group`. It
     posts to ``queue``, its own (one writer a queue): ``("started", group,
-    incarnation, wall, startup)`` once its manager exists, with the
-    seconds of CUDA's initialisation, the kernels' load and the model's
-    build; ``("commit", ...)`` after every commit (participants, heal,
-    parameter digest, passes so far, cumulative flash launches, device
-    memory, loss, and ``update_rise``: the bytes a classic update
-    allocated beyond those allocated as it began, None for a fused commit
-    and on the CPU); ``("done", ...)`` with the run's summary, or
-    ``("error", ..., traceback)``. ``waits`` gates the schedule:
-    ``waits["start"]`` before the first quorum, ``waits[step]`` after the
-    commit of ``step`` (:func:`_drill_wait`)."""
+    incarnation, wall, {"startup": ..., "replica_id": ...})`` once its
+    manager exists, with the seconds of CUDA's initialisation, the kernels'
+    load and the model's build, and the manager's replica id (the victim's
+    first life, SIGKILLed, says nothing after this); ``("commit", ...)``
+    after every commit (participants, heal, parameter digest, passes so
+    far, cumulative flash launches, device memory, loss, ``update_rise``:
+    the bytes a classic update allocated beyond those allocated as it
+    began, None for a fused commit and on the CPU, and ``events``: the
+    lifecycle events recorded since the last commit, ``LIFE_KINDS``);
+    ``("done", ...)`` with the run's summary and its flight recording
+    read over HTTP before the manager went down (``telemetry``), or
+    ``("error", ..., traceback)``, a failed capture included. ``waits``
+    gates the schedule: ``waits["start"]`` before the first quorum,
+    ``waits[step]`` after the commit of ``step`` (:func:`_drill_wait`)."""
     import traceback
 
     t_entry = time.time()
@@ -1121,7 +1287,8 @@ def _proc_group_main(cfg: TransformerConfig, env: Dict[str, str],
 
         # the peak before the last reset of the allocator's statistics,
         # the manager, and each classic commit's update rise by step
-        held: Dict[str, Any] = {"peak": 0, "manager": None, "rises": {}}
+        held: Dict[str, Any] = {"peak": 0, "manager": None, "rises": {},
+                                "cursor": 0}
 
         def memory() -> Dict[str, Optional[int]]:
             if not cuda:
@@ -1148,9 +1315,18 @@ def _proc_group_main(cfg: TransformerConfig, env: Dict[str, str],
         def on_start(manager: Manager) -> None:
             held["manager"] = manager
             startup["model_build_s"] = time.perf_counter() - t_build
-            queue.put(("started", group, incarnation, time.time(), startup))
+            queue.put(("started", group, incarnation, time.time(), dict(
+                startup=startup, replica_id=manager.replica_id())))
             for what in waits.get("start", ()):
                 _drill_wait(what, addr, timeout, stop)
+
+        def recorded(manager: Manager) -> List[Dict[str, Any]]:
+            # the lifecycle events since the last commit
+            if not manager.events:
+                return []
+            evs, held["cursor"], _ = manager.events.since(held["cursor"])
+            return [{k: e[k] for k in LIFE_FIELDS if k in e} for e in evs
+                    if e["kind"] in LIFE_KINDS]
 
         def on_commit(step, manager, model, loss) -> None:
             queue.put(("commit", group, incarnation, time.time(), dict(
@@ -1158,7 +1334,7 @@ def _proc_group_main(cfg: TransformerConfig, env: Dict[str, str],
                 healed=manager.did_heal(), digest=run.param_digests[step],
                 passes=run.passes, launches=dict(LAUNCHES),
                 loss=float(loss), update_rise=held["rises"].pop(step, None),
-                **memory())))
+                events=recorded(manager), **memory())))
             for what in waits.get(step, ()):
                 _drill_wait(what, addr, timeout, stop)
 
@@ -1167,7 +1343,10 @@ def _proc_group_main(cfg: TransformerConfig, env: Dict[str, str],
             num_groups=int(os.environ["NUM_REPLICA_GROUPS"]),
             store_addr=store.addr, on_start=on_start, on_commit=on_commit,
             stop=stop, digest_params=True, update_window=update_window,
-            run=run, **train_kwargs)
+            run=run, capture_telemetry=True, **train_kwargs)
+        if "capture_error" in run.telemetry:
+            raise RuntimeError("the flight recording's capture failed: "
+                               + run.telemetry["capture_error"])
         keep = ("heal_wall_ms", "heal_wire_bytes", "heal_bytes_per_s",
                 "quorum_p50_ms", "forward_backward_p50_ms", "ddp_wire_p50_ms",
                 "commit_barrier_p50_ms")
@@ -1179,9 +1358,7 @@ def _proc_group_main(cfg: TransformerConfig, env: Dict[str, str],
             metrics={k: run.metrics[k] for k in keep if k in run.metrics},
             classic_metrics={k: v for k, v in run.classic_metrics.items()
                              if k.endswith("_p50_ms")},
-            events=[e for e in run.events if e["kind"] in (
-                "error_latched", "step_discard", "heal_start", "heal_done")],
-            **memory())))
+            telemetry=run.telemetry, **memory())))
     except BaseException:
         queue.put(("error", group, incarnation, time.time(),
                    traceback.format_exc()))
@@ -1237,7 +1414,9 @@ def run_process_drill(
     kill, once the victim is reaped and after the drill.
 
     Raises AssertionError unless: at every step that more than one (group,
-    incarnation) commits, the parameter digests are equal; the relaunch's
+    incarnation) commits, the parameter digests are equal (else the message
+    gives each life's recorded quorums, commits, discards and heals up to
+    that step, ``_life_history``); the relaunch's
     first commit comes after step k and reports a heal; group 1 commits no
     step after k with 2 participants before the heal; every loss is
     finite; every incarnation's flash launches are layers x its passes (0
@@ -1245,9 +1424,15 @@ def run_process_drill(
     memory is within 1 GiB of its value before the groups started less
     group 1's share (its allocator's reserved bytes and one CUDA context,
     the two contexts reckoned equal from the reading at the kill), and
-    within 1 GiB of that value after the drill. Returns the commits by
-    (group, incarnation), the started and done messages, the kill-to-heal
-    timeline (``timeline``), the memory readings (``memory``), the heal
+    within 1 GiB of that value after the drill; and the lifecycle holds, read
+    from the flight recordings that the survivor and the relaunch fetched
+    over HTTP before their managers went down (:func:`check_lifecycle`,
+    the victim's replica id from its "started" message). Returns the
+    commits by (group, incarnation), the started and done messages, the
+    kill-to-heal timeline (``timeline``: with ``member_dead_s``, from the
+    kill to the survivor's ``member_dead``, and the epochs of the death
+    and of the rejoin), the lifecycle (``lifecycle``), the memory readings
+    (``memory``), the heal
     step, the steps more than one life committed, the passes and each
     group's arm (``donate_update``)."""
     import multiprocessing as mp
@@ -1426,19 +1611,7 @@ def run_process_drill(
             q.close()
         lighthouse.shutdown()
 
-    by_step: Dict[int, List[Tuple[Tuple[int, int], str]]] = {}
-    for key, steps in commits.items():
-        for step, body in steps.items():
-            by_step.setdefault(step, []).append((key, body["digest"]))
-    overlap = []
-    for step, entries in sorted(by_step.items()):
-        if len(entries) > 1:
-            overlap.append(step)
-            for key, digest in entries[1:]:
-                _require(digest == entries[0][1],
-                         f"group {key[0]} life {key[1]} diverged from group "
-                         f"{entries[0][0][0]} life {entries[0][0][1]} at "
-                         f"step {step}")
+    overlap = check_digests(commits)
     first = min(commits.get(relaunch) or [0])
     _require(first > kill_step and commits[relaunch][first]["healed"],
              f"the relaunch's first commit is at step {first}, healed "
@@ -1472,11 +1645,17 @@ def run_process_drill(
                  f"the card's free memory after the drill, "
                  f"{memory['after']}, is not within 1 GiB of "
                  f"{memory['before']}")
+    lifecycle = check_lifecycle(
+        done[survivor][1]["telemetry"], done[relaunch][1]["telemetry"],
+        dead_id=started[victim][1]["replica_id"],
+        relaunch_id=started[relaunch][1]["replica_id"],
+        kill_step=kill_step, total=total)
     t_kill = timeline["kill"]
-    latch = [e["t_wall"] for e in done[survivor][1]["events"]
+    latch = [e["t_wall"] for e in
+             done[survivor][1]["telemetry"]["events"]["events"]
              if e["kind"] in ("error_latched", "step_discard")
              and e["t_wall"] >= t_kill]
-    r_wall, r_startup = started[relaunch]
+    r_wall, r_startup = started[relaunch][0], started[relaunch][1]["startup"]
     timeline.update(
         reap_s=timeline["reaped"] - t_kill,
         survivor_latch_s=(min(latch) - t_kill) if latch else None,
@@ -1487,9 +1666,16 @@ def run_process_drill(
         relaunch_started_s=r_wall - launched[relaunch],
         relaunch_startup=r_startup,
         heal=done[relaunch][1]["metrics"],
-        first_joint_commit_s=commits[relaunch][first]["wall"] - t_kill)
+        first_joint_commit_s=commits[relaunch][first]["wall"] - t_kill,
+        member_dead_s=lifecycle["member_dead_wall"] - t_kill,
+        heal_start_s=lifecycle["heal_start_wall"] - t_kill,
+        heal_done_s=lifecycle["heal_done_wall"] - t_kill,
+        first_resumed_s=lifecycle["first_resumed_wall"] - t_kill,
+        death_epoch=lifecycle["death_epoch"],
+        rejoin_epoch=lifecycle["rejoin_epoch"])
     return {"commits": commits, "started": started, "done": done,
-            "timeline": timeline, "memory": memory, "heal_step": first,
+            "timeline": timeline, "lifecycle": lifecycle, "memory": memory,
+            "heal_step": first,
             "overlap": overlap,
             "passes": {key: body["passes"] for key, body in last.items()},
             "launches": {key: body["launches"] for key, body in last.items()},
@@ -1513,11 +1699,46 @@ def _job_status(addr: str, job: str, timeout: float) -> Dict[str, Any]:
         return json.load(r)["jobs"].get(job, {})
 
 
-def _telemetry(manager: Manager, what: str, timeout: float) -> Dict[str, Any]:
-    """GET /telemetry/{what} from the manager's checkpoint server."""
-    url = f"{manager._checkpoint_transport.metadata()}/telemetry/{what}"
+def _get_json(url: str, timeout: float) -> Dict[str, Any]:
     with urllib.request.urlopen(url, timeout=timeout) as r:
         return json.load(r)
+
+
+def _telemetry(manager: Manager, what: str, timeout: float) -> Dict[str, Any]:
+    """GET /telemetry/{what} from the manager's checkpoint server."""
+    return _get_json(
+        f"{manager._checkpoint_transport.metadata()}/telemetry/{what}",
+        timeout)
+
+
+def capture_flight_recording(store_addr: str, rank: int = 0,
+                             job_id: str = "default",
+                             timeout: float = 10.0) -> Dict[str, Any]:
+    """A live manager's flight recording, read as scripts/fleet_top.py
+    reads it: the address of rank ``rank``'s checkpoint server from the
+    group store (``checkpoint_addr_{rank}``, under the job's prefix), then
+    ``GET /telemetry/events?since=0`` and ``/telemetry/metrics``, and a
+    check that ``?since=<next>`` returns an empty tail. Returns ``{"events":
+    ..., "metrics": ...}`` (the two response bodies), or ``{"capture_error":
+    ...}`` when any of it fails; every read is bounded by ``timeout``."""
+    try:
+        prefix = "" if job_id == "default" else f"job:{job_id}/"
+        addr = StoreClient(store_addr, connect_timeout=timeout).get(
+            f"{prefix}checkpoint_addr_{rank}")
+        if addr is None:
+            raise KeyError(f"no {prefix}checkpoint_addr_{rank} in the store")
+        url = addr.decode()
+        events = _get_json(f"{url}/telemetry/events?since=0", timeout)
+        metrics = _get_json(f"{url}/telemetry/metrics", timeout)
+        tail = _get_json(f"{url}/telemetry/events?since={events['next']}",
+                         timeout)
+        if tail["events"]:
+            raise AssertionError(
+                f"the cursor {events['next']} returned "
+                f"{len(tail['events'])} stale events")
+        return {"events": events, "metrics": metrics}
+    except Exception as e:  # noqa: BLE001 — the caller fails on it
+        return {"capture_error": repr(e)}
 
 
 def run_multijob_drill(

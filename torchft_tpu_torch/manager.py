@@ -273,6 +273,9 @@ class Manager:
         self.events = EventRecorder(replica_id=self._replica_id,
                                     rank=self._rank)
         self._quorum_epoch: Optional[int] = None
+        # wire membership (transport_replica_ids) of the last quorum: the
+        # diff against the next quorum gives the member_dead events
+        self._wire_members: "tuple" = ()
 
         self._step = 0
         # (quorum_id, wire fingerprint, in_transport) of the last successful
@@ -816,6 +819,16 @@ class Manager:
         fingerprint = _cohort_fingerprint(quorum.transport_replica_ids)
         self._transport_world_size = t_world
         self._label_mesh_shape()
+        # a replica that was on the wire last quorum and is absent now left
+        # the fleet (death, kill or departure): with the epoch stamps, this
+        # is what lets a merged recording show "epoch N -> member_dead ->
+        # epoch N+1" without scraping a log
+        members = tuple(quorum.transport_replica_ids or ())
+        if self.events:
+            for gone in sorted(set(self._wire_members) - set(members)):
+                self.events.emit("member_dead", step=self._step,
+                                 epoch=quorum.quorum_id, member=gone)
+        self._wire_members = members
         if self.events:
             self.events.emit(
                 "quorum_complete", step=self._step, epoch=quorum.quorum_id,

@@ -16,7 +16,9 @@ the same fields and in its order):
     heal_start / heal_done           heal assignment -> healed state applied
     round_abort                      a LocalSGD/DiLoCo round rolled back
     error_latched                    first latch of an error episode
-    member_dead                      the MPMD plane saw a stage replica die
+    member_dead                      a wire member of the last quorum is
+                                     gone from this one (the Manager), or
+                                     the MPMD plane saw a stage replica die
     mesh_reconfigure / mesh_compile  the device plane's group and plans
     hier_exchange                    the hierarchical tier's roles
     shard_grid_rebuild / reshard     the sharded update's grid and its
