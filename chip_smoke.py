@@ -483,8 +483,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    device memory and the card.
 
 23. train_proc (it runs before train_durable): replica groups as real OS
-   processes (``examples.train_ddp.run_process_drill``) at "125m", full
-   width and depth, batch 8, over TCP at codec none: two groups, each
+   processes (``examples.train_ddp.run_process_drill``) at "125m"'s full
+   width, its depth cut to ``CUT_LAYERS`` = 6 to make room for
+   train_churn, batch 8, over TCP at codec none: two groups, each
    spawned (never forked: this process holds a CUDA context) with the
    environment ``launcher.hsdp_spec`` writes for it (manager ports 29600
    + i, store ports 29700 + i, when free), under a lighthouse in this
@@ -500,7 +501,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    two lives commit (so the two arms bitwise, across the kill and the
    heal); the relaunch's first commit after step 3 and healed;
    no two-participant commit of group 1 in the dead window; finite
-   losses; each life's flash launches (counted in the child) 12 x its
+   losses; each life's flash launches (counted in the child) 6 x its
    passes, none in this process; the card's free memory back within 1
    GiB once the victim is reaped (of its value before the groups less
    the survivor's share) and after the drill; each child's peak within
@@ -543,13 +544,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
    logits against the same model with ``reference_attention`` (the loss
    within ``LOSS_TOL``, the logits within ``GRAD_REL_NORM``) and the
    forward's time.
+25. train_churn (it runs after train_localsgd_int8, before
+   train_hier_int8): repeated kills while the job commits
+   (``examples.train_ddp.run_churn_drill``, the twin of the reference's
+   churn test) at "125m", full width and depth, batch 8. (a) Five groups,
+   one thread each, over TCP at codec none under a lighthouse with
+   ``min_replicas`` 3 until every group has committed 10 steps; group 1
+   is killed after step 2 and again after step 6, group 3 after step 4;
+   each restarts from a poisoned init once the survivors have committed a
+   step without it and heals from a live peer in the next quorum. (b) Two
+   groups on the card plane (``INT8_OPTIONS``, a wire timeout of
+   ``CHURN_WIRE_TIMEOUT``), 6 steps: group 0 latches its own wire at the
+   start of step 4 with the membership unchanged, both discard that step,
+   the latched group bumps its ``comm_epoch`` and both wires reconfigure.
+   Checks (``train_ddp.check_churn``): each kill fired once; at every step
+   two lives commit, their parameter digests equal; finite losses; a
+   group never killed commits at least 6 of 10 steps and a killed one at
+   least 3; each restarted life heals in its first commit; every dead
+   life's parameters are freed once its group restarts, and the device
+   memory allocated after each heal, read with every group between
+   steps, is at most its value at the kill's last commit plus one model's
+   parameters; in (b) 3 commits of each group after the latch and the
+   latched group's ``comm_epoch`` at least 1. Each flash kernel launched
+   12 x the passes of every life of both arms, each codec kernel
+   ``codec_launches`` per DDP bucket per committed step of (b). It prints
+   each kill's timeline (the survivors' first commit without the dead
+   group, the restart, its heal's start and end, its first commit), the
+   heal's bytes and GB/s, the memory, each group's commits, the committed
+   tokens/s before the first kill and over the run (the gated drill's
+   pace, its meetings and holds included), and the latched group's
+   epochs. It first checks the device memory
+   (``churn_device_bytes``) and the host's. Over several cards group g
+   lies on card g mod cards in both arms.
 
 Each of train_cuda_int8, train_localsgd_int8 and dryrun_multichip first
 prints its layout: the cards it uses, the positions on each, and the
 ``nvidia-smi topo -m`` link between them (with CUDA's peer access, which
 the copies between cards take).
 
-It prints a ``kernels`` JSON line before the last line and ends with
+After the phases it prints each phase's wall seconds (from its header to
+the next's; the kernels' build under "device"), then a ``kernels`` JSON
+line before the last line, and ends with
 ``{"ok": true, "device": {...}}``. It needs one card and no network; on
 a machine with several it lays the phases above over them.
 """
@@ -597,10 +632,28 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# each phase run so far and its start on the script's clock, in order
+PHASE_STARTS: list = []
+
+
+def begin_phase(name: str) -> None:
+    """Print the phase's header and mark its start: the script closes with
+    each phase's seconds (``phase_seconds``)."""
+    PHASE_STARTS.append((name, time.perf_counter()))
+    log(f"phase {name}")
+
+
+def phase_seconds(starts: list, end: float) -> dict:
+    """Each phase's wall seconds, from its start to the next phase's (the
+    last to ``end``), the kernels' build in "device"."""
+    ends = [t for _, t in starts[1:]] + [end]
+    return {name: e - t for (name, t), e in zip(starts, ends)}
+
+
 # the depth of the phases cut to keep the script under 900 s at full
 # width: train_sharded, train_moe, train_hsdp, train_moe_expert,
-# train_diloco_sharded, train_localsgd_int8, train_hier_int8 and
-# train_durable
+# train_diloco_sharded, train_localsgd_int8, train_hier_int8,
+# train_durable and, to make room for train_churn, train_proc
 CUT_LAYERS = 6
 
 
@@ -6178,7 +6231,7 @@ def phase_train_proc(seed: int, card: str, batch: int = PROC_BATCH):
     from torchft_tpu_torch.models import CONFIGS, GPT, count_params
 
     t0 = time.perf_counter()
-    cfg = CONFIGS["125m"]
+    cfg = cut_depth(CONFIGS["125m"])
     n_params = count_params(GPT(cfg, device="meta"))
     free_host = check_host_memory(proc_host_bytes(n_params),
                                   what="train_proc")
@@ -6190,7 +6243,8 @@ def phase_train_proc(seed: int, card: str, batch: int = PROC_BATCH):
     if free < need:
         raise AssertionError(f"train_proc needs {need / 1e9:.2f} GB of "
                              f"device memory free, has {free / 1e9:.2f} GB")
-    log(f"  125m: {n_params} parameters, batch {batch}, two groups as OS "
+    log(f"  125m at {cfg.n_layers} layers: {n_params} parameters, batch "
+        f"{batch}, two groups as OS "
         f"processes (spawn) over TCP at codec none; device memory: up to "
         f"{need / 1e9:.2f} GB, {free / 1e9:.1f} GB free; host memory "
         f"{free_host / 1e9:.1f} GB available")
@@ -6206,6 +6260,173 @@ def phase_train_proc(seed: int, card: str, batch: int = PROC_BATCH):
     want = cfg.n_layers * sum(result["passes"].values())
     log(f"  phase {time.perf_counter() - t0:.1f} s ({card})")
     return counts, dict.fromkeys(FLASH_KERNELS, want), cfg.head_dim
+
+
+# train_churn: repeated kills while the job commits (run_churn_drill), the
+# reference churn test's schedule at "125m", then a latched card plane
+CHURN_BATCH = 8
+# arm (b): two groups on the int8 card plane; group 0 latches its wire at
+# the start of step 4, and each group commits every step after it
+CHURN_LATCH = dict(groups=2, kills=(), min_replicas=2, total_steps=6,
+                   latch=(0, 3))
+# arm (b)'s wire timeout, which the latched step's peer waits out once: at
+# most the init heal's 1.63 GB skews the groups' first bucket op
+CHURN_WIRE_TIMEOUT = 10.0
+CHURN_PHASES = ("quorum", "forward_backward", "ddp_wire", "commit_barrier")
+
+
+def churn_device_bytes(n_params: int, act: int, groups: int = 5,
+                       cards: int = 1) -> int:
+    """Device memory train_churn's arm (a) may hold at once on its fullest
+    card: each group there is a train_proc child's reckoning
+    (``proc_child_bytes``: parameters, gradients and AdamW moments, and
+    the larger of a pass's activations and an overlapped update). A dead
+    life is freed before its restart builds, so no card holds more than
+    its groups' share."""
+    return -(-groups // cards) * proc_child_bytes(n_params, act)
+
+
+def churn_launches(churn: dict, latch: dict, layers: int,
+                   positions: list) -> tuple:
+    """The launches train_churn wants of each kernel: each flash kernel
+    once per layer per pass of every life of both arms; each codec kernel
+    ``codec_launches`` per bucket op of arm (b), one op a DDP bucket a
+    committed step with a peer (the latched step reduces nothing: its
+    ops fail on the latched side and time out on the other). Returns the
+    counts and the wire steps and buckets they came from."""
+    runs = [r for rs in latch["lives"].values() for r in rs]
+    wire = {r.wire_steps for r in runs}
+    if len(wire) != 1:
+        raise AssertionError(f"arm (b)'s groups committed {sorted(wire)} "
+                             "steps with a peer: each should have all")
+    steps, buckets = wire.pop(), len(runs[0].buckets)
+    flash = layers * (churn["passes"] + latch["passes"])
+    codec = codec_launches(2, positions) * buckets * steps
+    return ({**dict.fromkeys(FLASH_KERNELS, flash),
+             **dict.fromkeys(("quant_int8", "dequant_acc_int8"), codec)},
+            steps, buckets)
+
+
+def _s(v) -> str:
+    return "n/a" if v is None else f"{v:.3f}"
+
+
+def churn_report(result: dict, card: str) -> list:
+    """The lines train_churn prints about a ``run_churn_drill`` result:
+    each kill's timeline, heal and device memory, each group's commits,
+    the committed tokens/s before the first kill and over the run, the
+    latch, and the drill's figures."""
+    lines = []
+    for k in result["kills"]:
+        rate = k["heal_bytes_per_s"]
+        lines.append(
+            f"kill of group {k['group']} life {k['life']} after step "
+            f"{k['death_step']} (scheduled at {k['step']}), seconds from "
+            f"the kill: survivors' first commit without it "
+            f"{_s(k['survivors_first_commit_s'])}; restart started "
+            f"{_s(k['restart_started_s'])}; heal_start "
+            f"{_s(k['heal_start_s'])}, heal_done {_s(k['heal_done_s'])} "
+            f"(step {k['heal_step']}); first commit "
+            f"{_s(k['first_commit_s'])} ({card})")
+        lines.append(
+            f"  heal: {k['heal_bytes'] or 0:.0f} bytes in "
+            f"{k['heal_ms'] or 0:.1f} ms, "
+            f"{(rate or 0) / 1e9:.3f} GB/s ({card})")
+        if result["cuda"]:
+            lines.append(
+                f"  device memory allocated, every group between steps: "
+                f"{k['memory_before'] / 1e9:.3f} GB at the kill's last "
+                f"commit (step {k['death_step']}), "
+                f"{k['memory_after'] / 1e9:.3f} GB after the heal (step "
+                f"{k['heal_step']}); limit + one model's parameters "
+                f"{result['param_bytes'] / 1e9:.3f} GB")
+    for g, runs in result["lives"].items():
+        spans = []
+        for life, run in enumerate(runs):
+            steps = sorted(result["commits"].get((g, life), {}))
+            spans.append(f"life {life} {steps[0]}-{steps[-1]}" if steps
+                         else f"life {life} none")
+        p50 = _p50s(runs[-1].metrics, CHURN_PHASES)
+        lines.append(f"group {g}: committed {', '.join(spans)}; last life's "
+                     f"p50 ms {p50} ({card})")
+    rates = result["tokens_per_s"]
+    lines.append(f"committed tokens/s of the gated drill (commit-hook "
+                 f"meetings and restart holds included), all groups: "
+                 f"{rates['before_first_kill'] or 0:.1f} before the first "
+                 f"kill, {rates['whole_run'] or 0:.1f} over the run "
+                 f"({card})")
+    latch = result["latch"]
+    if latch is not None:
+        epochs = {s: b["comm_epoch"] for s, b in sorted(
+            result["commits"][(latch["group"], 0)].items())}
+        lines.append(f"latch: group {latch['group']} latched its wire at "
+                     f"the start of step {latch['step'] + 1}; its "
+                     f"comm_epoch by committed step {epochs}; commits "
+                     f"after the latch {latch['post_commits']}")
+    lines.append(f"drill {result['seconds']:.1f} s; {result['passes']} "
+                 f"passes; steps committed by two lives or more: "
+                 f"{result['overlap']} ({card})")
+    return lines
+
+
+def phase_train_churn(seed: int, card: str, batch: int = CHURN_BATCH,
+                      devices=None):
+    """Repeated kills while the job commits (module docstring, phase 25):
+    returns the launches the phase wants, arm (a)'s result and arm (b)'s."""
+    import torch
+
+    from torchft_tpu_torch.examples.train_ddp import (CHURN_GROUPS,
+                                                      run_churn_drill)
+    from torchft_tpu_torch.models import CONFIGS, GPT, count_params
+
+    t0 = time.perf_counter()
+    cfg = CONFIGS["125m"]
+    n_params = count_params(GPT(cfg, device="meta"))
+    free_host = check_host_memory(proc_host_bytes(n_params, CHURN_GROUPS),
+                                  what="train_churn")
+    act = gpt_activation_bytes(cfg, batch)
+    cards = list(devices) if devices is not None else [torch.device("cuda")]
+    need = churn_device_bytes(n_params, act, CHURN_GROUPS, len(cards))
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = min(torch.cuda.mem_get_info(d)[0] for d in cards)
+    if free < need:
+        raise AssertionError(f"train_churn needs {need / 1e9:.2f} GB of "
+                             f"device memory free on each card, has "
+                             f"{free / 1e9:.2f} GB")
+    log(f"  125m: {n_params} parameters, batch {batch}; (a) "
+        f"{CHURN_GROUPS} groups over TCP at codec none, min_replicas 3, "
+        f"10 steps, kills (group, step) (1, 2), (3, 4), (1, 6); device "
+        f"memory: up to {need / 1e9:.2f} GB a card, {free / 1e9:.1f} GB "
+        f"free; host memory {free_host / 1e9:.1f} GB available")
+    place = dict(device="cuda") if devices is None else dict(devices=devices)
+    torch.cuda.reset_peak_memory_stats()
+    churn = run_churn_drill(cfg, batch_size=batch, seed=seed, timeout=120.0,
+                            log=lambda m: log("  " + m), **place)
+    for line in churn_report(churn, card):
+        log("  " + line)
+    log(f"  (b) 2 groups on the card plane {INT8_OPTIONS}, wire timeout "
+        f"{CHURN_WIRE_TIMEOUT} s, group 0 latching its wire at the start "
+        "of step 4")
+    latch = run_churn_drill(
+        cfg, batch_size=batch, seed=seed, timeout=120.0,
+        comm_backend="cuda",
+        comm_options={**INT8_OPTIONS, "timeout": CHURN_WIRE_TIMEOUT},
+        log=lambda m: log("  " + m), **CHURN_LATCH, **place)
+    for line in churn_report(latch, card):
+        log("  " + line)
+    positions = cycled(list(devices) if devices is not None
+                       else [torch.device("cuda", 0)], 2)
+    want, steps, buckets = churn_launches(churn, latch, cfg.n_layers,
+                                          positions)
+    log(f"  (b) {buckets} gradient buckets x {steps} steps with a peer x "
+        f"{codec_launches(2, positions)} launches of each codec kernel")
+    log(f"  device memory peak {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB allocated (reckoned {need / 1e9:.2f} GB a card) ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase {time.perf_counter() - t0:.1f} s ({card})")
+    return want, churn, latch
 
 
 # dryrun_multichip: the driver entry's twin on a virtual mesh of the card
@@ -6346,8 +6567,9 @@ PHASES = ("kernels", "train", "train_multijob", "train_sharded",
           "train_tiny", "gpt_1b", "train_llama_ring", "train_hsdp",
           "train_moe_expert", "train_pp", "pipeline_plane", "fused_step",
           "train_resnet", "serve_deploy", "train_diloco",
-          "train_diloco_sharded", "train_localsgd_int8", "train_hier_int8",
-          "train_proc", "dryrun_multichip", "train_durable")
+          "train_diloco_sharded", "train_localsgd_int8", "train_churn",
+          "train_hier_int8", "train_proc", "dryrun_multichip",
+          "train_durable")
 
 
 def _add_launches(rows: dict, counts: dict, head_dim: int) -> None:
@@ -6396,6 +6618,7 @@ def main() -> int:
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}", file=sys.stderr)
         return 2
+    PHASE_STARTS[:] = [("device", time.perf_counter())]
     smi, ptxas = phase_device()
     from torchft_tpu_torch.models import CONFIGS, MOE_CONFIGS
     from torchft_tpu_torch.ops import flash, quant
@@ -6403,7 +6626,7 @@ def main() -> int:
     rows = {}
     cards = visible_cards()
     if "kernels" in phases:
-        log("phase kernels")
+        begin_phase("kernels")
         rows = phase_kernels(args.seed, ptxas)
         rows.update(phase_quant_kernels(args.seed))
         for name in ("quant_int8", "dequant_acc_int8"):
@@ -6412,7 +6635,7 @@ def main() -> int:
             for name, ms in times.items():
                 rows[name].setdefault("ms_by_card", {})[dev] = ms
     if "train" in phases:
-        log("phase train")
+        begin_phase("train")
         flash.reset_launch_counts()
         want, _ = phase_train("125m", args.steps, args.layers, args.seed, smi)
         counts = dict(flash.LAUNCHES)
@@ -6420,7 +6643,7 @@ def main() -> int:
                         "one per layer per forward/backward pass")
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
     if "train_multijob" in phases:
-        log("phase train_multijob")
+        begin_phase("train_multijob")
         flash.reset_launch_counts()
         quant.reset_launch_counts()
         per_d, _ = phase_train_multijob(args.seed, smi)
@@ -6433,7 +6656,7 @@ def main() -> int:
         for head_dim, c in per_d.items():
             _add_launches(rows, c, head_dim)
     if "train_sharded" in phases:
-        log("phase train_sharded")
+        begin_phase("train_sharded")
         flash.reset_launch_counts()
         quant.reset_launch_counts()
         want, codec = phase_train_sharded(args.seed, smi)
@@ -6445,7 +6668,7 @@ def main() -> int:
                         "sharded reduce_scatter")
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
     if "train_moe" in phases:
-        log("phase train_moe")
+        begin_phase("train_moe")
         flash.reset_launch_counts()
         passes, layers = phase_train_moe(args.seed, smi)
         counts = dict(flash.LAUNCHES)
@@ -6456,7 +6679,7 @@ def main() -> int:
                         "recompute), 1 dQ, 1 dK/dV")
         _add_launches(rows, counts, MOE_CONFIGS["moe-8x125m"].head_dim)
     if "train_cuda_int8" in phases:
-        log("phase train_cuda_int8")
+        begin_phase("train_cuda_int8")
         groups = cycled(cards, 2)
         log("  " + layout_line(groups))
         flash.reset_launch_counts()
@@ -6492,7 +6715,7 @@ def main() -> int:
             phase_train("125m", args.steps, None, args.seed, smi,
                         comm_backend="cuda", comm_options=INT8_OPTIONS)
     if "train_tiny" in phases:
-        log("phase train_tiny")
+        begin_phase("train_tiny")
         flash.reset_launch_counts()
         want, _ = phase_train("tiny", args.steps, None, args.seed, smi)
         counts = dict(flash.LAUNCHES)
@@ -6500,7 +6723,7 @@ def main() -> int:
                         "one per layer per forward/backward pass")
         _add_launches(rows, counts, CONFIGS["tiny"].head_dim)
     if "gpt_1b" in phases:
-        log("phase gpt_1b")
+        begin_phase("gpt_1b")
         flash.reset_launch_counts()
         counts, layers = phase_gpt_1b(args.seed)
         # activation checkpointing runs each block's forward again in the
@@ -6511,7 +6734,7 @@ def main() -> int:
                         "1b, remat: 2 forward, 1 dQ, 1 dK/dV per layer")
         _add_launches(rows, counts, CONFIGS["1b"].head_dim)
     if "train_llama_ring" in phases:
-        log("phase train_llama_ring")
+        begin_phase("train_llama_ring")
         counts, want, head_dim = phase_train_llama_ring(args.seed, smi)
         _check_launches(counts, want,
                         "flash: per layer per pass the causal ring of "
@@ -6520,14 +6743,14 @@ def main() -> int:
                         "codec: none")
         _add_launches(rows, counts, head_dim)
     if "train_hsdp" in phases:
-        log("phase train_hsdp")
+        begin_phase("train_hsdp")
         counts, want, head_dim = phase_train_hsdp(args.seed, smi)
         _check_launches(counts, want,
                         "flash: per layer per pass one attention per mesh "
                         "position, the forward twice (remat); codec: none")
         _add_launches(rows, counts, head_dim)
     if "train_moe_expert" in phases:
-        log("phase train_moe_expert")
+        begin_phase("train_moe_expert")
         counts, want, head_dim = phase_train_moe_expert(args.seed, smi)
         _check_launches(counts, want,
                         "flash: per layer per pass one attention per mesh "
@@ -6535,7 +6758,7 @@ def main() -> int:
                         "forward twice (remat); codec: none")
         _add_launches(rows, counts, head_dim)
     if "train_pp" in phases:
-        log("phase train_pp")
+        begin_phase("train_pp")
         counts, want, head_dim = phase_train_pp(
             args.seed, smi, times=flash_times_at(
                 rows, pp_attention_shape(pp_config())))
@@ -6545,7 +6768,7 @@ def main() -> int:
                         "codec: none")
         _add_launches(rows, counts, head_dim)
     if "pipeline_plane" in phases:
-        log("phase pipeline_plane")
+        begin_phase("pipeline_plane")
         flash.reset_launch_counts()
         quant.reset_launch_counts()
         phase_pipeline_plane(args.seed, smi)
@@ -6555,7 +6778,7 @@ def main() -> int:
                         "torch.matmul, as the reference's is numpy; its "
                         "int8 stage wire is the host codec in both")
     if "fused_step" in phases:
-        log("phase fused_step")
+        begin_phase("fused_step")
         positions = cycled(cards, FUSED_MESH[0] * FUSED_MESH[1])
         log("  " + layout_line(positions))
         counts, want, head_dim = phase_fused_step(
@@ -6567,7 +6790,7 @@ def main() -> int:
                         "quant_int8 and two dequant_acc_int8 a card")
         _add_launches(rows, counts, head_dim)
     if "train_resnet" in phases:
-        log("phase train_resnet")
+        begin_phase("train_resnet")
         flash.reset_launch_counts()
         quant.reset_launch_counts()
         phase_train_resnet(args.seed, smi)
@@ -6577,7 +6800,7 @@ def main() -> int:
                         "convolutions are library calls, as the "
                         "reference's are XLA's")
     if "serve_deploy" in phases:
-        log("phase serve_deploy")
+        begin_phase("serve_deploy")
         counts, want, head_dim = phase_serve_deploy(args.seed, smi)
         _check_launches(counts, want,
                         "flash: one per layer per pass of the trainer, "
@@ -6585,7 +6808,7 @@ def main() -> int:
                         "serving cohort launches none; codec: none")
         _add_launches(rows, counts, head_dim)
     if "train_diloco" in phases:
-        log("phase train_diloco")
+        begin_phase("train_diloco")
         flash.reset_launch_counts()
         want, _ = phase_train_diloco(args.seed, smi)
         counts = dict(flash.LAUNCHES)
@@ -6594,7 +6817,7 @@ def main() -> int:
                         "warm-ups included")
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
     if "train_diloco_sharded" in phases:
-        log("phase train_diloco_sharded")
+        begin_phase("train_diloco_sharded")
         check_comm_child(smi)
         flash.reset_launch_counts()
         want, _ = phase_train_diloco_sharded(args.seed, smi)
@@ -6604,7 +6827,7 @@ def main() -> int:
                         "and capture warm-ups included")
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
     if "train_localsgd_int8" in phases:
-        log("phase train_localsgd_int8")
+        begin_phase("train_localsgd_int8")
         log("  " + layout_line(cycled(cards, LOCALSGD_GROUPS)))
         flash.reset_launch_counts()
         quant.reset_launch_counts()
@@ -6617,8 +6840,21 @@ def main() -> int:
                         "fragment op with a peer 2 on one card, world + "
                         "cards over several")
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
+    if "train_churn" in phases:
+        begin_phase("train_churn")
+        log("  " + layout_line(cycled(cards, 5)))
+        flash.reset_launch_counts()
+        quant.reset_launch_counts()
+        want, _, _ = phase_train_churn(
+            args.seed, smi, devices=cards if len(cards) > 1 else None)
+        counts = {**flash.LAUNCHES, **quant.LAUNCHES}
+        _check_launches(counts, want,
+                        "flash: one per layer per pass of every life of "
+                        "both arms; codec: per bucket op of arm (b) with a "
+                        "peer 2 on one card, world + cards over several")
+        _add_launches(rows, counts, CONFIGS["125m"].head_dim)
     if "train_hier_int8" in phases:
-        log("phase train_hier_int8")
+        begin_phase("train_hier_int8")
         flash.reset_launch_counts()
         quant.reset_launch_counts()
         want, codec, _ = phase_train_hier_int8(args.seed, smi)
@@ -6629,7 +6865,7 @@ def main() -> int:
                         "plane's hier arms at each distinct bucket size")
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
     if "train_proc" in phases:
-        log("phase train_proc")
+        begin_phase("train_proc")
         flash.reset_launch_counts()
         quant.reset_launch_counts()
         counts, want, head_dim = phase_train_proc(args.seed, smi)
@@ -6642,7 +6878,7 @@ def main() -> int:
                         "survivor's capture warm-ups included")
         _add_launches(rows, counts, head_dim)
     if "dryrun_multichip" in phases:
-        log("phase dryrun_multichip")
+        begin_phase("dryrun_multichip")
         log("  " + layout_line(cycled(cards, DRYRUN_POSITIONS)))
         flash.reset_launch_counts()
         quant.reset_launch_counts()
@@ -6656,7 +6892,7 @@ def main() -> int:
         for head_dim, c in per_d.items():
             _add_launches(rows, c, head_dim)
     if "train_durable" in phases:
-        log("phase train_durable")
+        begin_phase("train_durable")
         flash.reset_launch_counts()
         want, _ = phase_train_durable(args.seed, smi)
         counts = dict(flash.LAUNCHES)
@@ -6664,6 +6900,8 @@ def main() -> int:
                         "one per layer per pass, graph replays included")
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
         fused_vs_classic(args.seed, smi)
+    log("phase seconds, each from its start to the next's: " + json.dumps(
+        phase_seconds(PHASE_STARTS, time.perf_counter())) + f" ({smi})")
     if rows:
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,10 @@ checks failing a drill whose counter or recorded step is wrong. For
 for ``pipeline_plane``: every arm at the card's stage and replica counts
 with narrow layers on the CPU. For ``serve_deploy``: the phase whole at
 "tiny" on the CPU (every oracle of the drill, the report, the launches it
-wants), and its oracles failing a cohort that moves a stale shard.
+wants), and its oracles failing a cohort that moves a stale shard. For
+``train_churn``: its memory and launches at 125m, and the phase whole at
+"tiny" on the CPU (both arms, their oracles, the report, the launches it
+wants).
 """
 
 import dataclasses
@@ -32,6 +35,7 @@ import math
 import os
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -173,9 +177,9 @@ def test_flash_shapes_reach_every_head_dim() -> None:
                             "pipeline_plane", "fused_step", "train_resnet",
                             "serve_deploy", "train_diloco",
                             "train_diloco_sharded",
-                            "train_localsgd_int8", "train_hier_int8",
-                            "train_proc", "dryrun_multichip",
-                            "train_durable")
+                            "train_localsgd_int8", "train_churn",
+                            "train_hier_int8", "train_proc",
+                            "dryrun_multichip", "train_durable")
     assert all(n in {k for k, v in GPT(CONFIGS["1b"], device="meta")
                      .named_parameters()} for n in smoke.GRAD_SAMPLE)
 
@@ -1543,6 +1547,92 @@ def test_train_proc_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
     # no rise without a card
     assert all(c["update_rise"] is None for life in result["commits"].values()
                for c in life.values())
+
+
+# -------------------------------------------------------------- train_churn
+
+
+def test_phase_seconds_span_each_phase_to_the_next() -> None:
+    # the closing line's seconds: each phase from its header to the next
+    # one's, the last to the end; the kernels' build under "device"
+    smoke = _smoke()
+    starts = [("device", 1.0), ("train", 3.5), ("train_churn", 10.0)]
+    assert smoke.phase_seconds(starts, 12.25) == {
+        "device": 2.5, "train": 6.5, "train_churn": 2.25}
+    assert smoke.phase_seconds([], 5.0) == {}
+
+
+def test_churn_memory_and_launches_at_125m() -> None:
+    # five groups, each a train_proc child's reckoning, on one card or
+    # spread; the codec kernels per bucket op of arm (b), the flash
+    # kernels per pass of both arms
+    smoke = _smoke()
+    cfg = CONFIGS["125m"]
+    n = 136091136
+    act = smoke.gpt_activation_bytes(cfg, 8)
+    child = smoke.proc_child_bytes(n, act)
+    assert smoke.churn_device_bytes(n, act) == 5 * child
+    assert smoke.churn_device_bytes(n, act, cards=4) == 2 * child
+    lives = {g: [types.SimpleNamespace(wire_steps=6, buckets=[0] * 15)]
+             for g in (0, 1)}
+    want, steps, buckets = smoke.churn_launches(
+        {"passes": 47}, {"passes": 14, "lives": lives}, 12,
+        [torch.device("cpu")] * 2)
+    assert (steps, buckets) == (6, 15)
+    assert want == {**dict.fromkeys(smoke.FLASH_KERNELS, 12 * 61),
+                    "quant_int8": 180, "dequant_acc_int8": 180}
+    lives[1][0].wire_steps = 5
+    with pytest.raises(AssertionError, match="steps with a peer"):
+        smoke.churn_launches({"passes": 47}, {"passes": 14, "lives": lives},
+                             12, [torch.device("cpu")] * 2)
+    phases = smoke.PHASES
+    assert (phases.index("train_localsgd_int8") < phases.index("train_churn")
+            < phases.index("train_hier_int8"))
+
+
+def test_train_churn_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # the phase as the card runs it, moved to "tiny" on the CPU (arm (b)'s
+    # card plane on a CPU pool): both drills, their oracles, the report
+    # and the launches it wants; the memory readings are the card's only
+    import torchft_tpu_torch.examples.train_ddp as example
+    import torchft_tpu_torch.models as models
+
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    monkeypatch.setattr(smoke, "CHURN_WIRE_TIMEOUT", 3.0)
+    monkeypatch.setitem(models.CONFIGS, "125m", CONFIGS["tiny"])
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (1e15, 1e15))
+    for name in ("empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    drill = example.run_churn_drill
+    monkeypatch.setattr(example, "run_churn_drill", lambda cfg, **kw: drill(
+        cfg, **dict(kw, device="cpu", batch_size=2, timeout=30.0)))
+    want, churn, latch = smoke.phase_train_churn(0, "CPU")
+    text = "\n".join(lines)
+    # 47 passes of arm (a), 14 of arm (b), 2 layers of "tiny"; each codec
+    # kernel 2 launches per bucket op of the 6 committed steps with a peer
+    assert churn["passes"] == 47 and latch["passes"] == 14
+    buckets = len(latch["lives"][0][0].buckets)
+    assert want == {**dict.fromkeys(smoke.FLASH_KERNELS, 2 * 61),
+                    "quant_int8": 2 * buckets * 6,
+                    "dequant_acc_int8": 2 * buckets * 6}
+    assert [(k["group"], k["death_step"], k["heal_step"])
+            for k in churn["kills"]] == [(1, 2, 4), (3, 4, 6), (1, 6, 8)]
+    assert text.count("kill of group") == 3
+    assert "kill of group 1 life 1 after step 6 (scheduled at 6)" in text
+    assert "(step 8); first commit" in text and "GB/s (CPU)" in text
+    assert "group 1: committed life 0 1-2, life 1 4-6, life 2 8-10" in text
+    assert "group 3: committed life 0 1-4, life 1 6-10" in text
+    assert "before the first kill" in text
+    assert ("latch: group 0 latched its wire at the start of step 4" in text
+            and "commits after the latch {0: 3, 1: 3}" in text)
+    assert latch["latch"]["comm_epoch"] >= 1
+    assert "steps committed by two lives or more: [1, 2, 3, 4, 5, 6, 7, " \
+        "8, 9, 10]" in text
+    # no device memory lines on the CPU
+    assert "GB at the kill's last commit" not in text
 
 
 # --------------------------------------------------------- dryrun_multichip

@@ -2456,6 +2456,15 @@ class CudaCommContext(CommContext):
         with self._lock:
             return self._error
 
+    def _latch_error(self, e: Exception) -> None:
+        """Latch ``e`` on the group this context belongs to now, as a
+        failed op of that group does (the reference's
+        ``XlaCommContext._latch_error``): every later op fails until the
+        next configure."""
+        with self._lock:
+            group = self._group
+        self._latch_group_error(group, e)
+
     def _latch_group_error(self, group: _DeviceGroup, e: Exception) -> None:
         """Latch only while this context still belongs to ``group``: a
         stale group's timer or executor firing after a reconfigure must

@@ -56,8 +56,12 @@ evict a group of the second. ``run_process_drill`` runs two groups as OS
 processes, as the lines above tell users to: one is SIGKILLed inside a
 step and relaunched on the same ports, and heals from the survivor; the
 kill-to-heal lifecycle is then read back from the survivor's and the
-relaunch's ``/telemetry`` alone (``check_lifecycle``). The
-first two take ``comm_backend`` and ``comm_options`` for the
+relaunch's ``/telemetry`` alone (``check_lifecycle``).
+``run_churn_drill`` kills repeatedly while the job commits (five groups,
+three kills, one group twice; or a latched wire under stable membership)
+and holds every heal bitwise and every dead life's memory freed
+(``check_churn``). ``run_kill_and_heal`` and ``run_churn_drill`` take
+``comm_backend`` and ``comm_options`` for the
 Manager: the default is the TCP gradient wire; ``comm_backend="cuda"`` with
 e.g. ``comm_options={"algorithm": "psum", "compression": "int8"}`` reduces
 on the training device instead (comm/cuda_backend.py), where groups that
@@ -66,6 +70,7 @@ share a process share the device's plans.
 
 from __future__ import annotations
 
+import gc
 import json
 import logging
 import math
@@ -75,6 +80,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import weakref
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from concurrent.futures import Future
@@ -136,8 +142,9 @@ from torchft_tpu_torch.utils.events import (
 logger = logging.getLogger(__name__)
 
 __all__ = ["FaultyCommContext", "InjectedFailure", "GroupRun",
-           "run_joint", "run_kill_and_heal", "run_multijob_drill",
-           "run_process_drill", "run_resume_drill", "train_group"]
+           "check_churn", "run_churn_drill", "run_joint",
+           "run_kill_and_heal", "run_multijob_drill", "run_process_drill",
+           "run_resume_drill", "train_group"]
 
 # the manifest paths of the sharded optimizer's slots: a heal leaves them
 # on the donor, and the healer fetches them with fetch_opt_shard
@@ -146,11 +153,14 @@ OPT_SLOTS_PATH_RE = r".*\['slots'\]\[(\d+)\]\[(\d+)\]$"
 
 class InjectedFailure(Exception):
     """Raised by ``train_group`` at ``fail_at_step``: a simulated crash.
-    ``run`` is what the group did until then."""
+    ``run`` is what the group did until then, ``step`` the
+    ``fail_at_step`` that fired."""
 
-    def __init__(self, msg: str, run: "GroupRun") -> None:
+    def __init__(self, msg: str, run: "GroupRun",
+                 step: Optional[int] = None) -> None:
         super().__init__(msg)
         self.run = run
+        self.step = step
 
 
 class FaultyCommContext(ErrorSwallowingCommContext):
@@ -295,6 +305,8 @@ class GroupRun:
     # the same recording read over HTTP before the manager went down, with
     # the metrics (``capture_flight_recording``), when asked for
     telemetry: Dict[str, Any] = field(default_factory=dict)
+    # the step count at whose start ``latch_at`` latched the wire
+    latched_at: Optional[int] = None
 
 
 def _digest(tensors: Sequence[Any]) -> str:
@@ -376,6 +388,8 @@ def train_group(
     update_window: Optional[Callable[[], Any]] = None,
     run: Optional[GroupRun] = None,
     capture_telemetry: bool = False,
+    use_async_quorum: bool = True,
+    latch_at: Optional[int] = None,
 ) -> GroupRun:
     """Train one replica group until ``total_steps`` steps are committed
     (or ``stop`` is set).
@@ -422,7 +436,12 @@ def train_group(
     the captures' warm-up passes included. ``capture_telemetry``: before the
     manager shuts down, however the run ends, read its flight recording
     and metrics over HTTP into ``run.telemetry``
-    (:func:`capture_flight_recording`).
+    (:func:`capture_flight_recording`). ``use_async_quorum`` goes to the
+    Manager. ``latch_at``: at the first step that starts with ``latch_at``
+    or more steps committed, once that step's quorum is in, latch this
+    group's own wire (``_latch_error(RuntimeError("injected transport
+    fault"))``: the state a timed-out collective leaves, with the
+    membership unchanged), once (``run.latched_at``).
 
     A CUDA run of a config whose head_dim the flash kernels do not take
     raises ValueError here, before anything is built.
@@ -489,6 +508,7 @@ def train_group(
         load_state_dict=load_state_dict,
         state_dict=state_dict,
         min_replica_size=1,
+        use_async_quorum=use_async_quorum,
         timeout=timeout,
         quorum_timeout=timeout,
         connect_timeout=timeout,
@@ -563,8 +583,8 @@ def train_group(
                 if writer is not None:
                     writer.wait()  # the kill lands once the write persisted
                 raise InjectedFailure(
-                    f"group {replica_group} at step {fail_at_step}", run
-                )
+                    f"group {replica_group} at step {fail_at_step}", run,
+                    fail_at_step)
             tokens, targets = next_batch()
             t0 = time.perf_counter()
             if sharded_opt is not None:
@@ -584,6 +604,11 @@ def train_group(
                     manager.wait_quorum()
                 except Exception as e:  # noqa: BLE001 — the barrier discards
                     manager.report_error(e)
+            if (latch_at is not None and run.latched_at is None
+                    and manager.current_step() >= latch_at):
+                run.latched_at = manager.current_step()
+                manager._comm._latch_error(
+                    RuntimeError("injected transport fault"))
             if manager.is_evicted():
                 run.evicted_at = manager.current_step()
                 run.evict_seconds = time.perf_counter() - t0
@@ -748,6 +773,66 @@ def _wait_lighthouse(addr: str, key: str, count: int, timeout: float,
         time.sleep(0.01)
 
 
+def _run_groups(bodies: Sequence[Callable[[], None]], lighthouse: Lighthouse,
+                stop: threading.Event,
+                on_error: Callable[[], None] = lambda: None) -> None:
+    """Run each replica group's body on a thread of its own (``group{g}``)
+    and wait for all; then shut the drill's lighthouse down and raise the
+    first group's error. A group that fails sets ``stop`` and calls
+    ``on_error``, so that no other group waits for it."""
+    errors: List[BaseException] = []
+
+    def guarded(fn: Callable[[], None]) -> Callable[[], None]:
+        def _run():
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+                stop.set()  # never strand the other groups
+                on_error()
+        return _run
+
+    threads = [threading.Thread(target=guarded(fn), name=f"group{g}")
+               for g, fn in enumerate(bodies)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        lighthouse.shutdown()
+    if errors:
+        raise errors[0]
+
+
+def _group_lives(train: Callable[[int, Optional[int]], GroupRun],
+                 fails: Sequence[int], restart: Callable[[int, int], None],
+                 lives: List[GroupRun]) -> None:
+    """One replica group's lives, appended to ``lives`` as each ends:
+    ``train(life, fail_at_step)`` runs life ``life`` (from its own init,
+    ``seed + 1000 * life`` in the drills), armed with the first kill of
+    ``fails`` that has not fired. A life killed by :class:`InjectedFailure`
+    at step s is followed by the next once ``restart(life, s)`` returns;
+    a life that ends with its kill unfired raises AssertionError."""
+    fired: List[int] = []
+    life = 0
+    while True:
+        fail = next((s for s in fails if s not in fired), None)
+        try:
+            lives.append(train(life, fail))
+        except InjectedFailure as e:
+            # keep the run, not the exception: its traceback holds the
+            # dead life's frames
+            lives.append(e.run)
+            fired.append(e.step)
+        else:
+            _require(fail is None, f"{threading.current_thread().name} "
+                     f"was never failed at step {fail}")
+            return
+        restart(life, fired[-1])
+        life += 1
+
+
 class _DrillDomains:
     """The drill's domain tree, served to a :class:`DomainTopology` through
     its ``fetch`` hook as a root ``/status.json`` with one aggregator per
@@ -861,7 +946,6 @@ def run_kill_and_heal(
     ahead, stop = threading.Event(), threading.Event()
     survivors_done = threading.Barrier(len(survivors))
     runs: Dict[int, List[GroupRun]] = {g: [] for g in range(groups)}
-    errors: List[BaseException] = []
     tree = _DrillDomains(domains) if domains is not None else None
     devs, comm_options = group_devices(groups, device, devices, comm_backend,
                                        comm_options)
@@ -927,55 +1011,30 @@ def run_kill_and_heal(
         record = range((record_step - 1) * n_buckets + 1,
                        record_step * n_buckets + 1)
 
-    def survivor(g: int):
-        def _run():
-            runs[g].append(train_group(
-                cfg, replica_group=g, init_seed=seed, device=devs[g],
-                on_start=started(g, True), on_commit=on_commit(g),
-                record_ops=record, **common))
-        return _run
+    def group(g: int):
+        def train(life: int, fail: Optional[int]) -> GroupRun:
+            return train_group(
+                cfg, replica_group=g, init_seed=seed + 1000 * life,
+                device=devs[g], fail_at_step=fail,
+                on_start=started(g, not life), on_commit=on_commit(g),
+                record_ops=() if life else record, **common)
 
-    def killed():
-        g = kill_group
-        try:
-            train_group(cfg, replica_group=g, init_seed=seed,
-                        device=devs[g], fail_at_step=kill_step,
-                        on_start=started(g, True), on_commit=on_commit(g),
-                        record_ops=record, **common)
-            raise AssertionError(f"group {g} was never failed")
-        except InjectedFailure as e:
-            runs[g].append(e.run)
-            log(f"injected failure: {e}; restarting from a poisoned init")
-        if not ahead.wait(timeout) or stop.is_set():
-            raise TimeoutError(
-                f"the survivors never committed step {kill_step + s_alone}")
-        runs[g].append(train_group(
-            cfg, replica_group=g, init_seed=seed + 1000, device=devs[g],
-            on_start=started(g, False), on_commit=on_commit(g), **common))
+        def restart(life: int, step: int) -> None:
+            log(f"injected failure: group {g} at step {step}; restarting "
+                "from a poisoned init")
+            if not ahead.wait(timeout) or stop.is_set():
+                raise TimeoutError(
+                    f"the survivors never committed step {kill_step + s_alone}")
 
-    def guarded(fn):
-        def _run():
-            try:
-                fn()
-            except BaseException as e:  # noqa: BLE001 — re-raised below
-                errors.append(e)
-                stop.set()  # never strand the other groups
-                ahead.set()
-                survivors_done.abort()
-        return _run
+        return lambda: _group_lives(
+            train, (kill_step,) if g == kill_group else (), restart, runs[g])
 
-    threads = [threading.Thread(
-        target=guarded(killed if g == kill_group else survivor(g)),
-        name=f"group{g}") for g in range(groups)]
-    try:
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-    finally:
-        lighthouse.shutdown()
-    if errors:
-        raise errors[0]
+    def unblock() -> None:
+        ahead.set()
+        survivors_done.abort()
+
+    _run_groups([group(g) for g in range(groups)], lighthouse, stop,
+                unblock)
 
     restarted = runs[kill_group][-1]
     _require(restarted.healed_at == [kill_step + s_alone + 1],
@@ -1012,33 +1071,20 @@ def run_joint(cfg: TransformerConfig, *, groups: int = 2, steps: int = 3,
     addr = lighthouse.address()
     stop = threading.Event()
     runs: Dict[int, GroupRun] = {}
-    errors: List[BaseException] = []
 
     def started(manager) -> None:
         _wait_lighthouse(addr, "healthy", groups, timeout, stop)
 
-    def group(g: int) -> None:
-        try:
+    def group(g: int):
+        def _run() -> None:
             runs[g] = train_group(
                 cfg, replica_group=g, num_groups=groups, total_steps=steps,
                 lighthouse_addr=addr, device=device, batch_size=batch_size,
                 init_seed=seed, data_seed=seed, timeout=timeout, stop=stop,
                 on_start=started, **kwargs)
-        except BaseException as e:  # noqa: BLE001 — re-raised below
-            errors.append(e)
-            stop.set()
+        return _run
 
-    threads = [threading.Thread(target=group, args=(g,), name=f"group{g}")
-               for g in range(groups)]
-    try:
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-    finally:
-        lighthouse.shutdown()
-    if errors:
-        raise errors[0]
+    _run_groups([group(g) for g in range(groups)], lighthouse, stop)
     return runs
 
 
@@ -1682,6 +1728,392 @@ def run_process_drill(
             "peaks": {key: body["peak"] for key, body in last.items()},
             "donate_update": tuple(bool(d) for d in donate_update),
             "total": total, "seconds": time.perf_counter() - t_start}
+
+
+# run_churn_drill's defaults: the reference's churn test
+# (tests/test_integration.py:415), five groups under min_replicas 3 for 10
+# steps, killed at (group, step) (1, 2), (3, 4) and (1, 6); its floors are 6
+# of 10 steps committed by a group never killed and 3 by a killed one
+CHURN_GROUPS, CHURN_MIN_REPLICAS, CHURN_STEPS = 5, 3, 10
+CHURN_KILLS = ((1, 2), (3, 4), (1, 6))
+CHURN_FLOORS = (6, 3)
+# commits every group makes after a latch, as the reference's latch test
+CHURN_LATCH_COMMITS = 3
+
+
+class _Meetings:
+    """The churn drill's rendezvous in the commit hooks: the groups that
+    commit a step wait there for each other (``members``: the step's wire
+    world, which every member of the quorum reads alike), and the last to
+    arrive runs ``fn(step)`` while every group is between steps."""
+
+    def __init__(self, timeout: float, stop: threading.Event) -> None:
+        self._cond = threading.Condition()
+        self._arrived: Dict[int, int] = {}
+        self._done: set = set()
+        self._timeout, self._stop = timeout, stop
+
+    def meet(self, step: int, members: int,
+             fn: Callable[[int], None]) -> None:
+        deadline = time.monotonic() + self._timeout
+        with self._cond:
+            self._arrived[step] = self._arrived.get(step, 0) + 1
+            if self._arrived[step] == members:
+                try:
+                    fn(step)
+                finally:
+                    self._done.add(step)
+                    self._cond.notify_all()
+                return
+            while step not in self._done:
+                if self._stop.is_set():
+                    raise RuntimeError("another replica group failed")
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"{self._arrived[step]} of {members} groups met in "
+                        f"their commit hooks of step {step}")
+                self._cond.wait(min(0.05, left))
+
+
+def run_churn_drill(
+    cfg: TransformerConfig,
+    *,
+    groups: int = CHURN_GROUPS,
+    kills: Sequence[Tuple[int, int]] = CHURN_KILLS,
+    min_replicas: int = CHURN_MIN_REPLICAS,
+    total_steps: int = CHURN_STEPS,
+    use_async_quorum: bool = True,
+    latch: Optional[Tuple[int, int]] = None,
+    comm_backend: str = "host",
+    comm_options: Optional[Dict[str, Any]] = None,
+    device: "Optional[str | torch.device]" = None,
+    devices: "Optional[Sequence[str | torch.device]]" = None,
+    batch_size: int = 8,
+    seed: int = 0,
+    timeout: float = 60.0,
+    log: Callable[[str], None] = logger.info,
+) -> Dict[str, Any]:
+    """Repeated kills while the job commits (the twin of the reference's
+    churn test, tests/test_integration.py:415, with the GPT): ``groups``
+    replica groups, one thread each, under one lighthouse in this process
+    with ``min_replicas``, until every group has committed
+    ``total_steps`` steps.
+
+    Each ``(group, step)`` of ``kills`` fires once, in that group's life
+    that reaches the step: :func:`train_group` raises
+    :class:`InjectedFailure` at the top of its next step (its manager,
+    store and checkpoint server shut down), and the group restarts from a
+    poisoned init (``seed + 1000 * life``) and heals from a live peer, as
+    the reference's ``Runner.run_replica`` does, once a survivor has
+    committed a step without it (a gate on commits, not on time). The
+    survivors hold in that commit hook until the new life's quorum
+    request waits at the lighthouse, so it takes the next quorum with them
+    and heals there; a kill at step s therefore needs s + 2 <=
+    ``total_steps``. The lighthouse's join window is ``timeout``: a quorum
+    waits for every healthy group, and a dead one drops out after its 1 s
+    heartbeat timeout. ``latch=(group, step)``: that group latches its own
+    wire once, at the first step that starts with ``step`` commits, after
+    its quorum (``train_group(latch_at=)``); its peers' ops of that step
+    wait out the wire's timeout (``comm_options["timeout"]``, below
+    ``timeout``), the latched member bumps its ``comm_epoch`` in the next
+    quorum request and every wire reconfigures.
+    ``use_async_quorum``, ``comm_backend`` and ``comm_options`` go to every
+    group's Manager; ``devices``: group g on ``devices[g % len]``
+    (:func:`group_devices`).
+
+    The groups that commit a step meet in their commit hooks, and the last
+    to arrive collects the garbage and reads the device memory
+    (``torch.cuda.memory_allocated`` summed over the cards, on the card)
+    with every group between steps; it also records every life that is
+    dead and restarted whose parameters are still alive (weak
+    references). Raises AssertionError unless :func:`check_churn` holds.
+    Returns every life's :class:`GroupRun` (``lives``), the commits by
+    (group, life) (digest, loss, wall, participants, wire world, heal,
+    ``comm_epoch``, the recorded events), each kill's timeline
+    (``kills``: from the kill, the survivors' first commit without the dead
+    group, the restart's start, its heal's start and end and its first
+    commit, with the heal's bytes and seconds and the device memory
+    before the kill and after the heal), the latch (``latch``), the
+    committed tokens per second before the first kill and over the whole
+    run (``tokens_per_s``: the gated drill's pace, the meetings in the
+    commit hooks and the survivors' holds for each restart included, not
+    a rate under ungated traffic), the steps more than one life committed
+    (``overlap``), the passes and the seconds."""
+    kills = [tuple(int(v) for v in k) for k in kills]
+    for g, s in kills:
+        if not (0 <= g < groups and 1 <= s and s + 2 <= total_steps):
+            raise ValueError(f"kill {(g, s)}: a group of {groups} and a step "
+                             f"with room to rejoin before {total_steps}")
+    if len(set(kills)) != len(kills):
+        raise ValueError(f"a kill is scheduled twice: {kills}")
+    if latch is not None and not (0 <= latch[0] < groups
+                                  and 1 <= latch[1] < total_steps):
+        raise ValueError(f"latch {latch} outside {groups} groups and "
+                         f"{total_steps} steps")
+    if latch is not None and (comm_options or {}).get(
+            "timeout", timeout) >= timeout:
+        # the peers' ops wait out the wire's timeout while the latched
+        # group's next quorum waits for them
+        raise ValueError("a latch needs a wire timeout (comm_options"
+                         "['timeout']) below the quorum's (timeout)")
+    devs, comm_options = group_devices(groups, device, devices, comm_backend,
+                                       comm_options)
+    cards = sorted({d for d in (resolve_device(v) for v in devs)
+                    if d.type == "cuda"}, key=str)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in GPT(cfg, device="meta").parameters())
+    lighthouse = Lighthouse(min_replicas=min_replicas,
+                            heartbeat_timeout_ms=1000,
+                            join_timeout_ms=int(timeout * 1000))
+    addr = lighthouse.address()
+    stop = threading.Event()
+    lock = threading.Lock()
+    meetings = _Meetings(timeout, stop)
+    lives: Dict[int, List[GroupRun]] = {g: [] for g in range(groups)}
+    commits: Dict[Tuple[int, int], Dict[int, Dict[str, Any]]] = {}
+    started: Dict[Tuple[int, int], float] = {}
+    deaths: List[Dict[str, Any]] = []
+    # a dead group's gates: its death step, a survivor's commit past it
+    # (the restart waits for it) and its next life's start (the survivors
+    # wait for it)
+    gates: Dict[int, Tuple[int, threading.Event, threading.Event]] = {}
+    refs: Dict[Tuple[int, int], list] = {}
+    memory: Dict[int, int] = {}
+    leaks: Dict[int, List[Tuple[int, int]]] = {}
+    latched: List[Tuple[int, int]] = []
+
+    def sample(step: int) -> None:
+        # every group is between steps: what is allocated now is the
+        # live lives' state, and a dead life's only if it leaked
+        gc.collect()
+        with lock:
+            restarted = [(d["group"], d["life"]) for d in deaths
+                         if (d["group"], d["life"] + 1) in started]
+        held = [key for key in restarted
+                if any(r() is not None for r in refs.get(key, ()))]
+        if held:
+            leaks[step] = held
+        if cards:
+            for d in cards:
+                torch.cuda.synchronize(d)
+            memory[step] = sum(torch.cuda.memory_allocated(d) for d in cards)
+
+    def hooks(g: int, life: int, run: GroupRun):
+        cursor = [0]
+
+        def on_start(manager: Manager) -> None:
+            with lock:
+                started[(g, life)] = time.time()
+                if life:
+                    gates[g][2].set()
+            if not life:
+                _wait_lighthouse(addr, "healthy", groups, timeout, stop)
+
+        def on_commit(step, manager, model, loss) -> None:
+            wall = time.time()
+            evs: List[Dict[str, Any]] = []
+            if manager.events:
+                got, cursor[0], _ = manager.events.since(cursor[0])
+                evs = [{k: e[k] for k in LIFE_FIELDS if k in e} for e in got
+                       if e["kind"] in LIFE_KINDS]
+            body = dict(digest=run.param_digests[step], events=evs,
+                        wall=wall, loss=float(loss),
+                        participants=manager.num_participants(),
+                        wire=manager.transport_world_size(),
+                        healed=manager.did_heal(),
+                        comm_epoch=manager._comm_epoch)
+            with lock:
+                refs.setdefault((g, life), [weakref.ref(p)
+                                            for p in model.parameters()])
+                first = (g, life) not in commits
+                commits.setdefault((g, life), {})[step] = body
+                if first and life:
+                    gates.pop(g, None)
+            log(f"group {g} life {life} committed step {step} participants "
+                f"{body['participants']} wire {body['wire']}"
+                + (" (healed)" if body["healed"] else ""))
+            meetings.meet(step, body["wire"], sample)
+            with lock:
+                waits = [(h, past, back) for h, (d, past, back)
+                         in gates.items() if h != g and step > d]
+            for h, past, back in waits:
+                # the survivors committed without group h: let it restart,
+                # and hold until its next life asks for a quorum (every
+                # survivor holds here after the step's meeting, so the
+                # request waiting at the lighthouse is the new life's)
+                past.set()
+                _wait_for(back.is_set, f"group {h} never restarted",
+                          timeout, stop)
+                _wait_lighthouse(addr, "participants", 1, timeout, stop)
+
+        return on_start, on_commit
+
+    def group_main(g: int):
+        def train(life: int, fail: Optional[int]) -> GroupRun:
+            run = GroupRun()
+            on_start, on_commit = hooks(g, life, run)
+            latch_at = (latch[1] if latch is not None and latch[0] == g
+                        and not latched else None)
+            try:
+                return train_group(
+                    cfg, replica_group=g, num_groups=groups,
+                    total_steps=total_steps, lighthouse_addr=addr,
+                    device=devs[g], batch_size=batch_size,
+                    init_seed=seed + 1000 * life, data_seed=seed,
+                    fail_at_step=fail, on_start=on_start,
+                    on_commit=on_commit, stop=stop, timeout=timeout,
+                    comm_backend=comm_backend, comm_options=comm_options,
+                    digest_params=True, run=run,
+                    use_async_quorum=use_async_quorum, latch_at=latch_at)
+            finally:
+                if run.latched_at is not None:
+                    latched.append((g, run.latched_at))
+
+        def restart(life: int, step: int) -> None:
+            t_kill = time.time()
+            with lock:
+                death = max(commits.get((g, life), {0: None}))
+                deaths.append(dict(group=g, life=life, step=step,
+                                   death_step=death, t_kill=t_kill))
+                gates[g] = (death, threading.Event(), threading.Event())
+            log(f"group {g} life {life} killed after step {death}; "
+                "restarting from a poisoned init once a survivor commits")
+            gc.collect()
+            _wait_for(gates[g][1].is_set, f"no survivor committed past step "
+                      f"{death} without group {g}", timeout, stop)
+
+        return lambda: _group_lives(train, [s for k, s in kills if k == g],
+                                    restart, lives[g])
+
+    t_start = time.perf_counter()
+    _run_groups([group_main(g) for g in range(groups)], lighthouse, stop)
+    seconds = time.perf_counter() - t_start
+
+    timeline = []
+    for d in deaths:
+        # every death has a next life, which committed: the drill ended
+        g, life, step, t_kill = (d["group"], d["life"], d["death_step"],
+                                 d["t_kill"])
+        survivors = [c[step + 1]["wall"] for key, c in commits.items()
+                     if key[0] != g and step + 1 in c]
+        new, run = commits[(g, life + 1)], lives[g][life + 1]
+        first = min(new)
+        heal_walls = {e["kind"]: e["t_wall"] for e in reversed(run.events)
+                      if e["kind"] in ("heal_start", "heal_done")}
+        metrics = run.metrics
+        timeline.append(dict(
+            d, survivors_first_commit_s=min(survivors) - t_kill,
+            restart_started_s=started[(g, life + 1)] - t_kill,
+            heal_start_s=(heal_walls["heal_start"] - t_kill
+                          if "heal_start" in heal_walls else None),
+            heal_done_s=(heal_walls["heal_done"] - t_kill
+                         if "heal_done" in heal_walls else None),
+            heal_step=first, healed=new[first]["healed"],
+            first_commit_s=new[first]["wall"] - t_kill,
+            heal_ms=metrics.get("heal_wall_ms"),
+            heal_bytes=metrics.get("heal_wire_bytes"),
+            heal_bytes_per_s=metrics.get("heal_bytes_per_s"),
+            memory_before=memory.get(step),
+            memory_after=memory.get(first)))
+
+    tokens = batch_size * cfg.max_seq_len
+    walls = sorted(b["wall"] for c in commits.values() for b in c.values())
+    step1 = [c[1]["wall"] for c in commits.values() if 1 in c]
+    t0 = max(step1) if step1 else walls[0]
+    first_kill = min((d["t_kill"] for d in deaths), default=walls[-1])
+
+    def rate(end: float) -> Optional[float]:
+        n = sum(1 for w in walls if t0 < w <= end)
+        return n * tokens / (end - t0) if n and end > t0 else None
+
+    latch_info = None
+    if latch is not None:
+        lg, at = latched[0] if latched else (latch[0], None)
+        latch_info = dict(
+            group=lg, step=at,
+            comm_epoch=max((b["comm_epoch"] for (h, _), c in commits.items()
+                            if h == lg for b in c.values()), default=0),
+            post_commits={g: sum(1 for (h, _), c in commits.items() if h == g
+                                 for s in c if at is not None and s > at)
+                          for g in range(groups)},
+            fired=len(latched))
+    result = dict(
+        lives=lives, commits=commits, kills=timeline, latch=latch_info,
+        schedule=kills, memory=memory, leaks=leaks, param_bytes=param_bytes,
+        cuda=bool(cards), groups=groups, total=total_steps,
+        tokens_per_s=dict(before_first_kill=rate(first_kill),
+                          whole_run=rate(walls[-1])),
+        passes=sum(r.passes for rs in lives.values() for r in rs),
+        seconds=seconds)
+    result["overlap"] = check_churn(result)
+    return result
+
+
+def check_churn(result: Dict[str, Any]) -> List[int]:
+    """The churn drill's oracle (:func:`run_churn_drill`'s result): each
+    scheduled kill fired exactly once and no other; at every step that
+    more than one life committed, their parameter digests are equal
+    (:func:`check_digests`, whose message names each life's quorums,
+    commits and heals); every loss is finite; a group never killed
+    committed at least 6 of every 10 steps and a killed one at least 3
+    (``CHURN_FLOORS``); each restarted life healed in its first commit;
+    every dead life's parameters were freed once its group restarted, and
+    on the card the device memory after each heal is at most its value
+    at the kill's last commit plus one model's parameters; with a latch,
+    it fired once, every group committed ``CHURN_LATCH_COMMITS`` steps
+    after it and the latched group's ``comm_epoch`` rose to at least 1.
+    Returns the steps more than one life committed; raises
+    AssertionError on the first miss."""
+    from collections import Counter
+
+    fired = Counter((d["group"], d["step"]) for d in result["kills"])
+    want = Counter(tuple(k) for k in result["schedule"])
+    _require(fired == want, f"kills fired {dict(fired)}, scheduled "
+             f"{dict(want)}: each once")
+    overlap = check_digests(result["commits"])
+    _require(bool(overlap), "no step was committed by two lives")
+    losses = [b["loss"] for c in result["commits"].values()
+              for b in c.values()]
+    losses += [v for rs in result["lives"].values() for r in rs
+               for v in r.losses.values()]
+    _require(all(math.isfinite(v) for v in losses), "non-finite loss")
+    total, killed = result["total"], {g for g, _ in result["schedule"]}
+    for g in range(result["groups"]):
+        steps = {s for (h, _), c in result["commits"].items() if h == g
+                 for s in c}
+        floor = (CHURN_FLOORS[1] if g in killed
+                 else CHURN_FLOORS[0] * total // 10)
+        _require(len(steps) >= floor and max(steps, default=0) >= total,
+                 f"group {g} committed {len(steps)} steps "
+                 f"(to {max(steps, default=0)}), want at least {floor} "
+                 f"and step {total}")
+    for k in result["kills"]:
+        _require(k["healed"], f"group {k['group']} life {k['life'] + 1} "
+                 f"did not heal in its first commit (step {k['heal_step']})")
+    _require(not result["leaks"], "a dead life's parameters outlived it: "
+             + "; ".join(f"at step {s}: (group, life) {v}"
+                         for s, v in sorted(result["leaks"].items())))
+    if result["cuda"]:
+        for k in result["kills"]:
+            before, after = k["memory_before"], k["memory_after"]
+            _require(before is not None and after is not None
+                     and after <= before + result["param_bytes"],
+                     f"group {k['group']}'s heal at step {k['heal_step']}: "
+                     f"{after} bytes allocated, {before} at the kill's last "
+                     f"commit (step {k['death_step']}) plus "
+                     f"{result['param_bytes']} of parameters")
+    latch = result["latch"]
+    if latch is not None:
+        _require(latch["fired"] == 1, f"the latch fired {latch['fired']} "
+                 "times, want once")
+        _require(all(n >= CHURN_LATCH_COMMITS
+                     for n in latch["post_commits"].values()),
+                 f"commits after the latch {latch['post_commits']}, want "
+                 f"{CHURN_LATCH_COMMITS} on every group")
+        _require(latch["comm_epoch"] >= 1, f"group {latch['group']}'s "
+                 f"comm_epoch is {latch['comm_epoch']}, want >= 1")
+    return overlap
 
 
 # run_multijob_drill's schedule: a1 fails after step 3, heals at 5, the
