@@ -53,7 +53,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    poisoned init, a heal from group 0, more commits, on a fixed schedule of
    steps. The healed parameters must equal the donor's bitwise, the losses
    must be finite, and every flash kernel must have launched once per layer
-   per forward/backward pass.
+   per forward/backward pass. Then ``commit_raise``, on a line of its own:
+   "125m" at full width and depth, batch 8, two solo groups under real
+   Managers whose barrier RPC is held until the update dispatched, so
+   ``OptimizerWrapper.step`` takes the overlapped arm (``classic_metrics``
+   records dispatch before barrier); one group's ``capturable`` AdamW
+   updates its first parameter group and raises
+   ``torch.cuda.OutOfMemoryError``. Every parameter and AdamW state tensor
+   must be bitwise restored at its address, the decision read, and the
+   retried step bitwise equal to the other group's, whose update never
+   raised; every flash kernel launched once per layer per pass (5 passes).
 4. train_multijob: the multi-tenant control plane at "125m", full width
    and depth, batch 8, over TCP at codec none, on one lighthouse granting 2
    s epoch leases with ``fleet_capacity`` 5 (``run_multijob_drill``). Job
@@ -1662,6 +1671,167 @@ def phase_train(config: str, steps: int, layers, seed: int, card: str,
         f"{[round(r) for r in rates]} ({card})")
     log(f"  forward/backward passes of both groups: {result['passes']}")
     return result["passes"] * cfg.n_layers, result
+
+
+def commit_raise(seed: int, card: str, config: str = "125m", batch: int = 8,
+                 device: str = "cuda") -> int:
+    """An update that raises part way through the overlapped commit: two
+    solo groups, each under a real Manager and lighthouse, the barrier RPC
+    held until the update was dispatched, so ``OptimizerWrapper.step``
+    takes the overlapped arm (read from ``classic_metrics``: dispatch, then
+    barrier). Both commit one step; at the second, group A's AdamW updates
+    its first parameter group and raises ``torch.cuda.OutOfMemoryError``.
+    Every parameter and AdamW state tensor must then be bitwise what it was
+    before the step, at the same address, and the decision must have been
+    read; A's retry of the step commits bitwise equal to the same step of
+    group B, whose update never raised. Returns the forward/backward
+    passes (5)."""
+    import threading
+
+    import torch
+
+    from torchft_tpu_torch.comm.store import StoreServer
+    from torchft_tpu_torch.comm.transport import TcpCommContext
+    from torchft_tpu_torch.control import Lighthouse
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.models import CONFIGS, GPT
+    from torchft_tpu_torch.optim import OptimizerWrapper, init_adam_state
+
+    cfg = CONFIGS[config]
+    on_card = device != "cpu"
+    t0 = time.perf_counter()
+    fault = torch.cuda.OutOfMemoryError("injected: the update ran out of "
+                                        "memory part way")
+
+    class RaisingAdamW(torch.optim.AdamW):
+        """Once ``fail`` is set, its next step updates the first parameter
+        group and then raises it; every step opens the held barrier."""
+
+        fail = None
+        dispatched = None  # a threading.Event a group's barrier waits on
+
+        def step(self, closure=None):
+            try:
+                if self.fail is None:
+                    return super().step(closure)
+                exc, self.fail = self.fail, None
+                groups = self.param_groups
+                self.param_groups = groups[:1]
+                try:
+                    super().step(closure)
+                finally:
+                    self.param_groups = groups
+                raise exc
+            finally:
+                self.dispatched.set()
+
+    lighthouses, stores, groups = [], [], {}
+    try:
+        for name in ("A", "B"):
+            lighthouses.append(Lighthouse(min_replicas=1, join_timeout_ms=100))
+            stores.append(StoreServer())
+            manager = Manager(
+                comm=TcpCommContext(timeout=60.0), min_replica_size=1, rank=0,
+                world_size=1, store_addr=stores[-1].addr,
+                lighthouse_addr=lighthouses[-1].address(),
+                replica_id=f"commit_raise_{name}", timeout=60.0,
+                quorum_timeout=60.0, connect_timeout=60.0)
+            model = GPT(cfg, device=device, seed=seed)
+            params = list(model.parameters())
+            half = len(params) // 2
+            adamw = RaisingAdamW(
+                [{"params": params[:half]}, {"params": params[half:]}],
+                lr=3e-4, weight_decay=1e-4, capturable=on_card)
+            adamw.dispatched = threading.Event()
+            init_adam_state(adamw)
+            rpc = manager._client.should_commit
+
+            def held(*a, _opt=adamw, _rpc=rpc, **kw):
+                # the decision stays in flight until the update dispatched
+                if not _opt.dispatched.wait(60.0):
+                    raise TimeoutError("the update never dispatched")
+                _opt.dispatched.clear()
+                return _rpc(*a, **kw)
+
+            manager._client.should_commit = held
+            opt = OptimizerWrapper(manager, adamw)
+            order = []
+            observe = opt.classic_metrics.observe
+            opt.classic_metrics.observe = (
+                lambda n, s, _o=order, _f=observe: (_o.append(n), _f(n, s)))
+            groups[name] = (manager, model, adamw, opt, order)
+
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        batches = []
+        for _ in range(2):
+            tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len),
+                                   generator=gen, device=device)
+            batches.append((tokens, torch.roll(tokens, -1, dims=1)))
+
+        def tensors(model, adamw):
+            params = list(model.parameters())
+            return [p.detach() for p in params] + [
+                v for p in params for _, v in sorted(adamw.state[p].items())]
+
+        def forward_backward(name, tokens, targets):
+            _, model, _, opt, _ = groups[name]
+            opt.begin_step()
+            model.loss(tokens, targets).backward()
+
+        for name in ("A", "B"):
+            forward_backward(name, *batches[0])
+            _require(groups[name][3].step(), f"group {name} commits step 1")
+        manager, model, adamw, opt, order = groups["A"]
+        forward_backward("A", *batches[1])
+        before = [(t.clone(), t.data_ptr()) for t in tensors(model, adamw)]
+        step_before = manager.current_step()
+        order.clear()
+        adamw.fail = fault
+        t_raise = time.perf_counter()
+        try:
+            opt.step()
+        except torch.cuda.OutOfMemoryError as e:
+            _require(e is fault, "the update's own exception reaches the "
+                                 "caller")
+        else:
+            raise AssertionError("the raising update did not raise")
+        if on_card:
+            torch.cuda.synchronize()
+        raise_ms = (time.perf_counter() - t_raise) * 1e3
+        _require(order[:3] == ["prologue", "dispatch", "barrier"],
+                 f"the overlapped arm: dispatch, then barrier ({order})")
+        _require(manager.current_step() == step_before + 1,
+                 "the decision was read (it committed the manager's step)")
+        now = tensors(model, adamw)
+        _require(len(now) == len(before) and all(
+            torch.equal(t, b) and t.data_ptr() == ptr
+            for t, (b, ptr) in zip(now, before)),
+            "every parameter and AdamW state tensor bitwise restored at "
+            "its address")
+        del before
+        for name in ("A", "B"):
+            forward_backward(name, *batches[1])
+            _require(groups[name][3].step(), f"group {name} commits step 2")
+        a, b = (tensors(*groups[n][1:3]) for n in ("A", "B"))
+        _require(all(torch.equal(x, y) for x, y in zip(a, b)),
+                 "the retried step bitwise equal to the twin's")
+        log(f"  commit_raise: {config} ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}), batch {batch}: the overlapped arm (order "
+            f"{order[:3]}), the update raised {type(fault).__name__} after "
+            f"group 1 of 2, restored bitwise at the same addresses, decision "
+            f"read, in {raise_ms:.1f} ms; the retry bitwise equal to the "
+            f"twin's step; {time.perf_counter() - t0:.1f} s ({card})")
+        return 5
+    finally:
+        for manager, *_ in groups.values():
+            manager.shutdown(wait=False)
+        for s in stores:
+            s.shutdown()
+        for lh in lighthouses:
+            lh.shutdown()
+        groups.clear()
+        if on_card:
+            torch.cuda.empty_cache()
 
 
 def check_plane_at_buckets(sizes, seed: int, cards=None) -> None:
@@ -6641,6 +6811,14 @@ def main() -> int:
         counts = dict(flash.LAUNCHES)
         _check_launches(counts, {n: want for n in counts},
                         "one per layer per forward/backward pass")
+        _add_launches(rows, counts, CONFIGS["125m"].head_dim)
+        flash.reset_launch_counts()
+        passes = commit_raise(args.seed, smi)
+        counts = dict(flash.LAUNCHES)
+        _check_launches(counts, {n: passes * CONFIGS["125m"].n_layers
+                                 for n in counts},
+                        "commit_raise: one per layer per forward/backward "
+                        "pass")
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
     if "train_multijob" in phases:
         begin_phase("train_multijob")

@@ -3,7 +3,11 @@
 Twin of the default-plane cases of tests/test_checkpointing.py and
 tests/test_crc32c.py: round trip (bitwise, dtypes and structure kept),
 wrong step -> 400, the gate blocks until staged, CRC32C frames catch a
-flipped bit, and a healed optimizer steps bitwise like its donor.
+flipped bit, and a healed optimizer steps bitwise like its donor. On host
+(numpy) state, each case on a server of each package, which must deliver
+the same: a large state, a chunked heal of numpy scalars and a 0-d array,
+a leaf sliced by the donor (and a slice outside it refused), writable
+healed leaves, and an ml_dtypes bfloat16 leaf.
 """
 
 import io
@@ -224,3 +228,141 @@ def test_server_listens_with_the_full_backlog(monkeypatch) -> None:
     server = cp.CheckpointServer(timeout=5.0)
     server.shutdown()
     assert seen == [1024]
+
+
+# --- numpy state over both packages' servers ----------------------------------
+# Twins of tests/test_checkpointing.py's cases on host (numpy) state: each
+# runs on a server of each package and the two must deliver the same.
+
+
+def _jax_cp():
+    import torchft_tpu.checkpointing as jcp
+
+    return jcp
+
+
+def _by_key(tree):
+    """``tree`` with every dict's keys sorted. The port rebuilds a dict in
+    the donor's key order (a torch state_dict's order is its module's);
+    the JAX package sorts them, as jax's pytrees do."""
+    if isinstance(tree, dict):
+        return {k: _by_key(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_by_key(x) for x in tree)
+    return tree
+
+
+def _each_package(run):
+    """``run(checkpointing_module)`` for the port and the JAX package;
+    assert both returned the same, dicts compared by key, and return the
+    port's."""
+    got = [run(cp), run(_jax_cp())]
+    _assert_same(_by_key(got[0]), _by_key(got[1]))
+    return got[0]
+
+
+def test_large_state_roundtrip() -> None:
+    big = {"params": [np.random.default_rng(0).random(1 << 20)
+                      for _ in range(4)]}
+
+    def run(ck):
+        server = ck.CheckpointServer(timeout=30.0, num_chunks=2)
+        try:
+            server.send_checkpoint([1], step=1, state_dict=big, timeout=30.0)
+            return server.recv_checkpoint(0, server.metadata(), 1, 30.0)
+        finally:
+            server.shutdown()
+
+    _assert_same(big, _each_package(run))
+
+
+def test_chunked_recv_matches_full() -> None:
+    # four connections reassemble the tree: numpy scalars, a 0-d array,
+    # a half-precision leaf and plain ints, each as it was
+    state = {
+        "params": {"w": np.arange(24, dtype=np.float32).reshape(4, 6),
+                   "b": np.ones((6,), dtype=np.float16)},
+        "scalars": {"count": np.float64(7.0), "step_arr": np.array(3)},
+        "torchft": {"step": 3, "batches_committed": 6},
+    }
+
+    def run(ck):
+        donor = ck.CheckpointServer(timeout=5.0)
+        healer = ck.CheckpointServer(timeout=5.0, num_chunks=4)
+        try:
+            donor.send_checkpoint([1], step=3, state_dict=state, timeout=5.0)
+            got = healer.recv_checkpoint(0, donor.metadata(), 3, 5.0)
+            return {"params": got["params"], "torchft": got["torchft"],
+                    "scalars": {k: (type(v).__name__, np.asarray(v).dtype.str,
+                                    np.asarray(v).shape, float(v))
+                                for k, v in got["scalars"].items()}}
+        finally:
+            donor.shutdown()
+            healer.shutdown()
+
+    got = _each_package(run)
+    for k, v in state["params"].items():
+        _assert_same(v, got["params"][k])
+    assert got["torchft"] == {"step": 3, "batches_committed": 6}
+    assert got["scalars"]["count"][3] == 7.0
+    assert got["scalars"]["step_arr"][2:] == ((), 3.0)
+
+
+def test_leaf_fetch_with_slice() -> None:
+    # a healer pulls one region of a leaf, sliced by the donor; a slice
+    # outside the leaf is a 400 (test_leaf_fetch_bad_slice_is_400), and
+    # the leaves a chunked heal and a leaf fetch return are writable
+    # (test_chunked_leaves_writable_and_int_avg_rejected)
+    w = np.arange(64, dtype=np.float32).reshape(8, 8)
+
+    def run(ck):
+        donor = ck.CheckpointServer(timeout=5.0)
+        healer = ck.CheckpointServer(timeout=5.0, num_chunks=2)
+        try:
+            donor.send_checkpoint([1], step=5, state_dict={"w": w},
+                                  timeout=5.0)
+            manifest = ck.fetch_manifest(donor.metadata(), 5)
+            shard = ck.fetch_leaf(donor.metadata(), 5, 0,
+                                  slices=(slice(2, 6), slice(None)))
+            full = ck.fetch_leaf(donor.metadata(), 5, 0)
+            with pytest.raises(urllib.error.HTTPError) as exc:
+                ck.fetch_leaf(donor.metadata(), 5, 0, slices=(slice(0, 99),))
+            assert exc.value.code == 400
+            healed = healer.recv_checkpoint(0, donor.metadata(), 5, 5.0)
+            healed["w"] += 1.0
+            full += 1.0
+            return ([(e["path"], tuple(e["shape"]))
+                     for e in manifest["leaves"]], shard, full, healed["w"])
+        finally:
+            donor.shutdown()
+            healer.shutdown()
+
+    paths, shard, full, healed = _each_package(run)
+    assert paths == [("['w']", (8, 8))]
+    assert np.array_equal(shard, w[2:6, :])
+    assert np.array_equal(full, w + 1.0) and np.array_equal(healed, w + 1.0)
+
+
+def test_leaf_fetch_bfloat16() -> None:
+    # an ml_dtypes bfloat16 array (no buffer protocol) is served as its
+    # raw bytes
+    import ml_dtypes
+
+    w = np.arange(16, dtype=np.float32).astype(ml_dtypes.bfloat16)
+
+    def run(ck):
+        donor = ck.CheckpointServer(timeout=5.0)
+        try:
+            donor.send_checkpoint([1], step=1, state_dict={"w": w},
+                                  timeout=5.0)
+            got = ck.fetch_leaf(donor.metadata(), 1, 0)
+            shard = ck.fetch_leaf(donor.metadata(), 1, 0,
+                                  slices=(slice(4, 8),))
+            return got.dtype.name, got.view(np.uint16), shard.view(np.uint16)
+        finally:
+            donor.shutdown()
+
+    dtype, got, shard = _each_package(run)
+    assert dtype == "bfloat16"
+    assert np.array_equal(got, w.view(np.uint16))
+    assert np.array_equal(shard, w[4:8].view(np.uint16))

@@ -1549,6 +1549,22 @@ def test_train_proc_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
                for c in life.values())
 
 
+def test_commit_raise_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # train's commit_raise sub-check as the card runs it, at "tiny" on the
+    # CPU: real Managers and lighthouses, the held barrier, the raise part
+    # way through the update, every check and the line it prints
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    assert smoke.commit_raise(0, "CPU", config="tiny", batch=2,
+                              device="cpu") == 5
+    text = "\n".join(lines)
+    assert "commit_raise: tiny (2 layers, d_model 64), batch 2: the " \
+        "overlapped arm (order ['prologue', 'dispatch', 'barrier'])" in text
+    assert "restored bitwise at the same addresses, decision read" in text
+    assert "the retry bitwise equal to the twin's step" in text
+
+
 # -------------------------------------------------------------- train_churn
 
 

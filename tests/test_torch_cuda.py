@@ -39,7 +39,8 @@ deploy. At "125m" each ``OptimizerWrapper`` arm's update allocates what
 its memory plan says (decide first: under 8 bytes a parameter; the
 overlapped arm: at least its 12-byte backup), the arms end 3 steps
 bitwise equal, and a discarded overlapped step is undone bitwise in
-place. This file imports no
+place, as is an overlapped step whose update raises part way. This file
+imports no
 JAX, so it runs where only torch is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -1263,6 +1264,77 @@ def test_update_rise_per_arm_at_125m_on_card() -> None:
         del model, params, adamw, opt, tensors
         torch.cuda.empty_cache()
     assert all(torch.equal(a, b) for a, b in zip(arms[True], arms[False]))
+
+
+@pytest.mark.cuda
+def test_overlapped_raise_rolls_back_on_card() -> None:
+    # an overlapped step whose capturable AdamW updates its first parameter
+    # group and then raises an out-of-memory error: every parameter and
+    # state tensor bitwise what it was at its old address, the decision
+    # read, the error re-raised, and the next step bitwise a clean history
+    from torchft_tpu_torch.optim import OptimizerWrapper, init_adam_state
+
+    _cuda()
+
+    class Failing(torch.optim.AdamW):
+        fail = None
+
+        def step(self, closure=None):
+            if self.fail is None:
+                return super().step(closure)
+            exc, self.fail = self.fail, None
+            groups = self.param_groups
+            self.param_groups = groups[:1]
+            try:
+                super().step(closure)
+            finally:
+                self.param_groups = groups
+            raise exc
+
+    def build():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = [torch.nn.Parameter(torch.randn(s, generator=gen,
+                                                 device="cuda"))
+                  for s in ((256, 128), (128,), (4096,))]
+        adamw = Failing([{"params": params[:1]}, {"params": params[1:]}],
+                        lr=1e-2, weight_decay=1e-2, capturable=True)
+        init_adam_state(adamw)
+        return params, adamw
+
+    def tensors(params, adamw):
+        return [p.detach() for p in params] + [
+            v for p in params for _, v in sorted(adamw.state[p].items())]
+
+    def set_grads(params, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for p in params:
+            p.grad = torch.randn(p.shape, generator=gen, device="cuda")
+
+    params, adamw = build()
+    manager = _HeldManager()
+    opt = OptimizerWrapper(manager, adamw)
+    set_grads(params, 1)
+    assert opt.step()
+    set_grads(params, 2)
+    torch.cuda.synchronize()
+    before = [(t.clone(), t.data_ptr()) for t in tensors(params, adamw)]
+    fault = torch.cuda.OutOfMemoryError("injected")
+    adamw.fail = fault
+    with pytest.raises(torch.cuda.OutOfMemoryError) as raised:
+        opt.step()
+    torch.cuda.synchronize()
+    assert raised.value is fault
+    assert manager.step == 2  # the decision was read
+    for t, (b, ptr) in zip(tensors(params, adamw), before):
+        assert torch.equal(t, b) and t.data_ptr() == ptr
+    assert opt.step()
+    ref, ref_adamw = build()
+    for seed in (1, 2):
+        set_grads(ref, seed)
+        ref_adamw.step()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(tensors(params, adamw),
+                                                tensors(ref, ref_adamw)))
 
 
 # ------------------------------------------------ the plane over the cards

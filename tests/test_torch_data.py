@@ -1,6 +1,8 @@
 """The port's data pipeline against the JAX package's.
 
-``DistributedSampler`` yields the JAX package's index stream.
+``DistributedSampler`` yields the JAX package's index stream and global
+rank arithmetic, its shards covering the dataset (disjoint, or padded by
+wrap-around).
 ``PrefetchIterator`` (twins of the prefetch tests of
 tests/test_profiling_prefetch.py, on the CPU): order and values, the depth
 bound, overlap with a slow source, source errors on the consumer, a latched
@@ -50,6 +52,34 @@ def test_state_dict_resumes_mid_epoch_like_reference() -> None:
     resumed = DistributedSampler(200, **kw)
     resumed.load_state_dict(theirs.state_dict())
     assert list(resumed) == list(b)
+
+
+def test_sampler_global_rank_arithmetic() -> None:
+    kw = dict(dataset=100, replica_group=2, num_replica_groups=4, rank=1,
+              num_replicas=3, shuffle=False)
+    ours, theirs = DistributedSampler(**kw), JaxSampler(**kw)
+    assert (ours.global_rank, ours.global_world_size) == (
+        theirs.global_rank, theirs.global_world_size) == (1 + 3 * 2, 12)
+
+
+@pytest.mark.parametrize("size,groups,replicas,per", [
+    (24, 3, 2, 4), (10, 3, 1, 4)], ids=[
+    "shards_disjoint_and_cover", "padding_when_not_divisible"])
+def test_sampler_shards_cover_the_dataset(size, groups, replicas,
+                                          per) -> None:
+    # the shards of every group and rank cover the dataset; disjoint when
+    # it divides, padded by wrap-around to ceil(size / shards) when not
+    shards = []
+    for group, rank in itertools.product(range(groups), range(replicas)):
+        kw = dict(replica_group=group, num_replica_groups=groups, rank=rank,
+                  num_replicas=replicas, shuffle=False)
+        shard = list(DistributedSampler(size, **kw))
+        assert shard == list(JaxSampler(size, **kw))
+        assert len(shard) == per
+        shards.extend(shard)
+    assert set(shards) == set(range(size))
+    if size % (groups * replicas) == 0:
+        assert sorted(shards) == list(range(size))
 
 
 # ------------------------------------------------------------- prefetch

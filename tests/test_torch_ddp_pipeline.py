@@ -8,8 +8,11 @@ arm's at every step of a multi-step run, at codecs none, bf16 and int8,
 star and ring, over the port's TCP wire; and bitwise equal to the JAX
 package's streamed DDP on the same inputs over the JAX package's wire.
 Also: the arena generations (overlap, aliasing, the all-in-flight guard,
-the mid-loop failure guard), PureDistributedDataParallel, and
-``OptimizerWrapper.step`` taking the average's future. The FutureGroup
+the mid-loop failure guard), PureDistributedDataParallel,
+``OptimizerWrapper.step`` taking the average's future, and (twins of
+tests/test_train_integration.py) the JAX package's bucket plan for float32
+and bfloat16 leaves, a bucketed round trip through an identity wire, and
+buckets issued while earlier ones are in flight. The FutureGroup
 twins (test_future_group_*) live in tests/test_torch_futures.py.
 Tolerance: none; every comparison is bitwise.
 """
@@ -607,3 +610,73 @@ def test_overlapping_averages_under_thread_stress() -> None:
     assert all("in flight" in str(e) for e in losses)
     for f in wins:
         f.result(timeout=10)
+
+
+# ------------------------------ the bucket plan and its issue, as the JAX's
+
+
+def test_ddp_bucketed_average_roundtrip() -> None:
+    # a small budget splits the leaves into dtype-homogeneous buckets, the
+    # JAX package's plan for the same leaves; over an identity wire every
+    # leaf comes back as it went, each in exactly one bucket
+    import jax.numpy as jnp
+
+    from torchft_tpu.ddp import DistributedDataParallel as JaxDDP
+
+    grads = [torch.arange(6, dtype=torch.float32).reshape(2, 3),
+             torch.full((4,), 2.0), torch.tensor([1.0, 2.0, 3.0],
+                                                 dtype=torch.bfloat16)]
+    manager = _mock_manager()
+    manager.allreduce_arrays.side_effect = lambda arrays, **kw: (
+        CompletedWork([np.array(a, copy=True) for a in arrays]))
+    ddp = DistributedDataParallel(manager, bucket_bytes=64)
+    out = ddp.average_gradients([g.clone() for g in grads])
+    for o, g in zip(out, grads):
+        assert o.dtype == g.dtype and torch.equal(o, g)
+    jax_ddp = JaxDDP(manager, bucket_bytes=64)
+    jax_ddp.average_gradients({str(i): jnp.asarray(
+        g.float().numpy(), dtype=jnp.bfloat16 if g.dtype == torch.bfloat16
+        else jnp.float32) for i, g in enumerate(grads)})
+    assert ddp._plan.buckets == jax_ddp._plan.buckets
+    assert len(ddp._plan.buckets) >= 2
+    assert sorted(i for b in ddp._plan.buckets for i in b) == [0, 1, 2]
+
+
+def test_ddp_buckets_issue_pipelined() -> None:
+    # bucket k+1 is issued while bucket k is in flight: no bucket's wire
+    # op completes until all three were issued (a serial issue loop would
+    # see its first op complete only when the release gives up, after 10 s)
+    gate, issued = threading.Event(), []
+
+    def gated(arrays, **kw):
+        fut: Future = Future()
+        fut.set_running_or_notify_cancel()
+        arrs = [np.array(a, copy=True) for a in arrays]
+        issued.append(gate.is_set())
+
+        def complete():
+            gate.wait(30)
+            fut.set_result(arrs)
+
+        threading.Thread(target=complete, daemon=True).start()
+        return Work(fut)
+
+    def release():
+        deadline = time.monotonic() + 10
+        while len(issued) < 3 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        gate.set()
+
+    manager = _mock_manager()
+    manager.allreduce_arrays.side_effect = gated
+    ddp = DistributedDataParallel(manager, bucket_bytes=64)
+    grads = [torch.arange(32, dtype=torch.float32), torch.ones(32),
+             torch.ones(32, dtype=torch.bfloat16)]
+    releaser = threading.Thread(target=release, daemon=True)
+    releaser.start()
+    out = ddp.average_gradients([g.clone() for g in grads])
+    releaser.join(timeout=15)
+    assert not releaser.is_alive()
+    assert len(ddp._plan.buckets) == 3
+    assert issued == [False, False, False], issued
+    assert all(torch.equal(o, g) for o, g in zip(out, grads))

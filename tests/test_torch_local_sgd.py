@@ -21,6 +21,14 @@ arriving fragment's momentum from its live holder (moved == lower bound >
 0, bitwise a carried copy), a shrink reinitializes only an uncovered
 fragment, and an aborted sharded round leaves parameters and owned outer
 states bitwise as they were. Every stub is ``comm.wire_stub``'s.
+
+Over a stand-in manager on an identity wire (twins of
+tests/test_train_integration.py's LocalSGD and DiLoCo cases), each
+package's wrapper makes the same quorum, fence and commit calls and leaves
+the same parameters: the round's quorum kicked a step early, a discarded
+round rolled back, a committed one made the backup, DiLoCo's fence with
+an async quorum, its outer SGD step and its momentum, and a round shorter
+than its fragments refused.
 """
 
 import copy
@@ -1214,3 +1222,160 @@ def test_sharded_round_abort_restores_params_and_owned_states(
         aborts = [e for e in mgr.events.since(0)[0]
                   if e["kind"] == "round_abort"]
         assert len(aborts) == 1 and aborts[0]["wire_world"] == 3
+
+
+
+# ----------------------------- the wrappers over a stand-in, as the JAX's
+# Twins of tests/test_train_integration.py's LocalSGD and DiLoCo cases: the
+# same inner values through each package's wrapper over each package's
+# wire stub on an identity wire, the commit decided by the test; the calls
+# the wrapper made, the parameters it left and its outer state must agree.
+
+
+def _recording_stub(stub_cls, ctx, commit=True, use_async=True):
+    """``stub_cls`` over ``ctx`` (world 1), recording the quorum, fence and
+    commit calls, committing iff ``commit``."""
+
+    class Recording(stub_cls):
+        def __init__(self):
+            super().__init__(ctx, 1)
+            self._use_async_quorum = use_async
+            self.calls = []
+
+        def start_quorum(self, **kw):
+            self.calls.append("start_quorum")
+            super().start_quorum(**kw)
+
+        def quorum_fence(self):
+            self.calls.append("quorum_fence")
+            super().quorum_fence()
+
+        def should_commit(self):
+            self.calls.append("should_commit")
+            return commit and super().should_commit()
+
+    return Recording()
+
+
+def _pair(kind, commit=True, use_async=True, sync_every=1, lr=1.0,
+          momentum=None):
+    """The port's and the JAX package's wrapper ("localsgd", or "diloco"
+    with outer SGD at ``lr``, Nesterov ``momentum`` if given), each over
+    its package's recording stub: ``(port, port_stub, jax, jax_stub)``."""
+    from torchft_tpu.comm.context import DummyCommContext as JaxDummy
+
+    port_m = _recording_stub(WireStubManager, DummyCommContext(), commit,
+                             use_async)
+    jax_m = _recording_stub(JaxWireStub, JaxDummy(), commit, use_async)
+    if kind == "localsgd":
+        return (LocalSGD(port_m, sync_every=sync_every), port_m,
+                JaxLocalSGD(jax_m, sync_every=sync_every), jax_m)
+    nesterov = momentum is not None
+    return (DiLoCo(port_m, outer.sgd(lr, momentum=momentum,
+                                     nesterov=nesterov),
+                   sync_every=sync_every), port_m,
+            JaxDiLoCo(jax_m, optax.sgd(lr, momentum=momentum,
+                                       nesterov=nesterov),
+                      sync_every=sync_every), jax_m)
+
+
+def _run_pair(kind, values, w0=0.0, **kw):
+    """Register ``w0`` (2 floats) with both packages' wrappers and take one
+    inner step per entry of ``values`` (the inner loop leaving w there).
+    Returns per package the stub's calls after each step, the parameters
+    after each step and the wrapper."""
+    port, port_m, jax_w, jax_m = _pair(kind, **kw)
+    w = torch.full((2,), w0)
+    port.register([w])
+    jp = jax_w.register({"w": jnp.full(2, w0, dtype=jnp.float32)})
+    got = {"port": ([], [], port), "jax": ([], [], jax_w)}
+    for v in values:
+        w.fill_(v)
+        port.step()
+        got["port"][0].append(list(port_m.calls))
+        got["port"][1].append(w.numpy().copy())
+        jp = jax_w.step({"w": jnp.full(2, v, dtype=jnp.float32)})
+        got["jax"][0].append(list(jax_m.calls))
+        got["jax"][1].append(np.asarray(jp["w"]).copy())
+    (calls, ws, _), (jcalls, jws, _) = got["port"], got["jax"]
+    assert calls == jcalls
+    for a, b in zip(ws, jws):
+        np.testing.assert_allclose(a, b, **OUTER_TOL)
+    return got
+
+
+def test_local_sgd_sync_cadence() -> None:
+    # an async-quorum manager's round quorum is kicked one step ahead of
+    # the boundary; the sync itself runs at the boundary, then the count
+    # restarts
+    got = _run_pair("localsgd", [1.0, 2.0], sync_every=2)
+    calls, ws, wrapper = got["port"]
+    assert calls[0] == ["start_quorum"]
+    assert calls[1].count("start_quorum") == 1
+    assert calls[1].count("should_commit") == 1
+    assert ws[1].tolist() == [2.0, 2.0] and wrapper.local_step == 0
+
+
+@pytest.mark.parametrize("kind,commit", [
+    ("localsgd", False), ("localsgd", True), ("diloco", False)], ids=[
+    "local_sgd_rollback_on_abort", "local_sgd_commit_updates_backup",
+    "diloco_rollback_on_abort"])
+def test_round_commit_or_rollback(kind, commit) -> None:
+    # a discarded round rolls back to the registered values; a committed
+    # LocalSGD round keeps the inner values and makes them the backup
+    w0 = 7.0 if kind == "diloco" else 0.0
+    got = _run_pair(kind, [5.0], w0=w0, commit=commit, use_async=False)
+    _, ws, wrapper = got["port"]
+    want = 5.0 if commit else w0
+    assert ws[0].tolist() == [want, want]
+    if commit:
+        wrapper.restore()  # the backup, copied into the registered tensor
+        assert ws[0].tolist() == [5.0, 5.0]
+        assert np.asarray(got["jax"][2].restore()["w"]).tolist() == \
+            [5.0, 5.0]
+
+
+def test_diloco_accepts_async_quorum() -> None:
+    # an async-quorum manager is fenced (quorum resolved, a pending heal
+    # applied) once, at the round's first fragment boundary
+    got = _run_pair("diloco", [1.0, 3.0], sync_every=2)
+    calls, ws, _ = got["port"]
+    assert calls[-1].count("quorum_fence") == 1
+    np.testing.assert_allclose(ws[-1], np.full(2, 3.0), rtol=1e-6)
+
+
+@pytest.mark.parametrize("lr,want", [(1.0, 3.0), (0.5, 1.5)])
+def test_diloco_outer_step_applies_pseudogradient(lr, want) -> None:
+    # pseudogradient old - new = -3; outer SGD moves lr of the way there
+    got = _run_pair("diloco", [3.0], lr=lr, use_async=False)
+    np.testing.assert_allclose(got["port"][1][0], np.full(2, want),
+                               rtol=1e-6)
+
+
+def test_diloco_outer_optimizer_state_persists() -> None:
+    # the Nesterov momentum evolves across syncs, as optax's does
+    got = _run_pair("diloco", [1.0, 2.5], lr=0.7, momentum=0.9,
+                    use_async=False)
+    port, jax_w = got["port"][2], got["jax"][2]
+    traces = [t.numpy() for t in port.outer_state[0]["trace"]]
+    jtraces = [np.asarray(x) for x in jax.tree_util.tree_leaves(
+        jax_w.outer_state[0])]
+    assert len(traces) == len(jtraces) == 1
+    np.testing.assert_allclose(traces[0], jtraces[0], **OUTER_TOL)
+    assert not np.array_equal(traces[0], np.zeros(2))
+
+
+def test_sync_every_must_cover_fragments() -> None:
+    # fragments ship at distinct inner steps: a round needs at least
+    # num_fragments of them, in both packages, LocalSGD and DiLoCo alike
+    from torchft_tpu.comm.context import DummyCommContext as JaxDummy
+
+    for stub, wrappers, tx in (
+            (WireStubManager(DummyCommContext(), 1), (LocalSGD, DiLoCo),
+             outer.sgd(0.7)),
+            (JaxWireStub(JaxDummy(), 1), (JaxLocalSGD, JaxDiLoCo),
+             optax.sgd(0.7))):
+        with pytest.raises(ValueError, match="num_fragments"):
+            wrappers[0](stub, sync_every=2, num_fragments=4)
+        with pytest.raises(ValueError, match="num_fragments"):
+            wrappers[1](stub, tx, sync_every=3, num_fragments=5)

@@ -6,9 +6,19 @@ the solo-wire identity, the required quorum floor, DDP's frozen bucket
 plan, ``reduce_scatter_arrays``/``allgather_arrays`` across two groups,
 and the ``topology`` keyword forwarded (only when set) through the
 Manager, its wrappers and DDP.
+
+Then every case of tests/test_manager.py over its mocked control plane,
+run on both packages' Managers with the same fabricated quorum answers:
+each asserts the reference case's expectations on both and that the two
+agree (the configure calls, participation, step, commits, the latched
+error's type, the values returned, a healed state bitwise). An answer
+without data-plane membership configures the full-membership wire
+(``.../all/...``) and, in sync mode, counts every replica as
+participating, as the reference reads it.
 """
 
 import threading
+from concurrent.futures import Future
 
 import numpy as np
 import pytest
@@ -340,7 +350,7 @@ def test_reduce_scatter_and_allgather_across_groups(infra) -> None:
 # the same wire configuration, participation and heal decisions.
 
 
-def _mocked_manager(pkg, store, **kwargs):
+def _mocked_manager(pkg, store, state=None, **kwargs):
     from unittest.mock import MagicMock, patch
 
     import torchft_tpu.comm.context as jctx
@@ -351,17 +361,29 @@ def _mocked_manager(pkg, store, **kwargs):
     mod, ctx = (pmanager, pctx) if pkg == "torch" else (jmanager, jctx)
 
     class FakeComm(ctx.CommContext):
-        """Identity-sum wire recording its configure calls."""
+        """Identity-sum wire recording its configure calls and the ops it
+        reduced; ``fail_next`` fails the next allreduce with that
+        exception, ``hang_next`` leaves it never completing."""
 
         def __init__(self) -> None:
             super().__init__()
             self.configure_calls = []
+            self.ops = []
+            self.fail_next = None
+            self.hang_next = False
 
         def configure(self, store_addr, rank, world_size):
             self.configure_calls.append((store_addr, rank, world_size))
             self._rank, self._world_size = rank, world_size
 
         def allreduce(self, arrays, op=ReduceOp.SUM, topology=None):
+            self.ops.append(op)
+            if self.fail_next is not None:
+                exc, self.fail_next = self.fail_next, None
+                return ctx.FailedWork(exc)
+            if self.hang_next:
+                self.hang_next = False
+                return ctx.Work(Future())
             return ctx.CompletedWork([np.array(a, copy=True)
                                       for a in arrays])
 
@@ -371,7 +393,12 @@ def _mocked_manager(pkg, store, **kwargs):
         def broadcast(self, arrays, root=0):
             return ctx.CompletedWork(list(arrays))
 
-    state = {"w": np.zeros(2)}
+    state = {"w": np.zeros(2)} if state is None else state
+
+    def load_state_dict(sd):
+        state.clear()
+        state.update(sd)
+
     defaults = dict(min_replica_size=2, use_async_quorum=True, rank=0,
                     world_size=1, store_addr=store.addr,
                     lighthouse_addr="http://mock-lighthouse:1", timeout=5.0,
@@ -383,7 +410,7 @@ def _mocked_manager(pkg, store, **kwargs):
         server.return_value.address.return_value = "http://mock:1"
         client = MagicMock()
         client_cls.return_value = client
-        manager = mod.Manager(comm=comm, load_state_dict=state.update,
+        manager = mod.Manager(comm=comm, load_state_dict=load_state_dict,
                               state_dict=lambda: dict(state), **defaults)
     return manager, client, comm, server
 
@@ -409,9 +436,17 @@ def mstore():
     server.shutdown()
 
 
-def _both(mstore, **kwargs):
-    return {pkg: _mocked_manager(pkg, mstore, **kwargs)
-            for pkg in ("torch", "jax")}
+def _both(mstore, states=None, **kwargs):
+    """Each package's mocked Manager on the same arguments. ``states``: a
+    dict that receives each package's user state, the dict its
+    ``load_state_dict`` loads a heal into."""
+    out = {}
+    for pkg in ("torch", "jax"):
+        state = {"w": np.zeros(2)}
+        if states is not None:
+            states[pkg] = state
+        out[pkg] = _mocked_manager(pkg, mstore, state=state, **kwargs)
+    return out
 
 
 def test_transport_scoped_to_data_plane_members(mstore) -> None:
@@ -477,6 +512,7 @@ def test_observer_gets_solo_transport_and_never_participates(mstore) -> None:
 def test_observer_start_quorum_forces_allow_heal_false(mstore) -> None:
     # a confused control plane assigns an observer a heal: nothing is
     # fetched and the sync-participation branch is skipped
+    seen = {}
     for pkg, (m, client, comm, _) in _both(mstore, data_plane=False).items():
         try:
             client.quorum.return_value = _quorum(
@@ -490,8 +526,11 @@ def test_observer_start_quorum_forces_allow_heal_false(mstore) -> None:
             assert m._healing is False and m._pending_state_dict is None
             assert not m.is_participating()
             assert m.num_participants() == 1
+            seen[pkg] = (m.num_participants(), m.current_step(),
+                         [(r, w) for _, r, w in comm.configure_calls])
         finally:
             m.shutdown(wait=False)
+    assert seen["torch"] == seen["jax"]
 
 
 def test_sync_participation_counts_the_wire_not_the_quorum(mstore) -> None:
@@ -686,3 +725,551 @@ def test_event_stream_matches_the_reference(mstore, kwargs, answers,
     for i, kind in enumerate(kinds):
         if kind == "member_dead":
             assert kinds[i + 1] in ("member_dead", "quorum_complete")
+
+
+# --- tests/test_manager.py whole, against the JAX package ---------------------
+# Each case runs the reference case's steps on both packages' Managers over
+# the same fabricated answers, asserts the reference's own expectations on
+# each, and that the two agree: the configure calls, participation, step,
+# commits, the latched error's type, the values returned, and a healed
+# state bitwise.
+
+
+def _observed(m, comm) -> dict:
+    """What the two packages' Managers must agree on after a case."""
+    err = m.errored()
+    return {"configure": list(comm.configure_calls),
+            "participating": m.is_participating(),
+            "participants": m.num_participants(),
+            "step": m.current_step(),
+            "committed": m.batches_committed(),
+            "errored": None if err is None else type(err).__name__,
+            "ops": list(comm.ops)}
+
+
+def _agree(seen: dict) -> dict:
+    """Assert both packages saw the same, and return it."""
+    assert seen["torch"] == seen["jax"], seen
+    return seen["torch"]
+
+
+def _donor(pkg, step: int, w: np.ndarray, committed: int):
+    """A donor's checkpoint server of ``pkg``, staged at ``step``."""
+    import torchft_tpu.checkpointing as jck
+    import torchft_tpu_torch.checkpointing as pck
+
+    server = (pck if pkg == "torch" else jck).CheckpointServer(timeout=5.0)
+    server.allow_checkpoint(step, {
+        "user": {"w": w},
+        "torchft": {"step": step, "batches_committed": committed}})
+    return server
+
+
+def _healing_from(pkg, donor):
+    """Patch ``pkg``'s manager module so a heal's ``ManagerClient`` names
+    ``donor`` as the checkpoint's address."""
+    from unittest.mock import patch
+
+    import torchft_tpu.manager as jmanager
+    import torchft_tpu_torch.manager as pmanager
+
+    patcher = patch.object(pmanager if pkg == "torch" else jmanager,
+                           "ManagerClient")
+    cls = patcher.start()
+    cls.return_value.checkpoint_metadata.return_value = donor.address()
+    return patcher
+
+
+def _heal_answer(pkg, max_step: int, quorum_id: int = 3):
+    # replica 1 of 2 is behind: it heals from rank 0 and is not in the
+    # max-step cohort; the answer carries no data-plane membership
+    return _quorum(pkg, quorum_id=quorum_id, replica_rank=1,
+                   replica_world_size=2, recover_src_rank=0,
+                   recover_src_manager_address="http://donor:1",
+                   max_step=max_step, max_rank=None, max_world_size=1,
+                   heal=True)
+
+
+def _bits(a) -> tuple:
+    a = np.asarray(a)
+    return a.dtype.str, a.shape, a.tobytes()
+
+
+def test_happy_path_step_commit(mstore) -> None:
+    # an answer without data-plane membership (the reference's "old
+    # control plane") configures the full-membership wire and counts
+    # every replica as participating
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore).items():
+        try:
+            client.quorum.return_value = _quorum(pkg)
+            client.should_commit.return_value = True
+            assert m.current_step() == 0
+            m.start_quorum()
+            fut = m.allreduce_arrays([np.full(3, 4.0, np.float32)]).future()
+            out = fut.result(timeout=5)[0]
+            np.testing.assert_allclose(out, np.full(3, 2.0))
+            assert m.should_commit()
+            seen[pkg] = (_observed(m, comm), _bits(out))
+        finally:
+            m.shutdown(wait=False)
+    got, _ = _agree(seen)
+    assert got["step"] == 1 and got["committed"] == 2
+    assert got["configure"] == [("store/torchft/1/all/0", 0, 2)]
+    assert got["participating"] and got["participants"] == 2
+
+
+def test_quorum_id_change_reconfigures(mstore) -> None:
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore).items():
+        try:
+            client.should_commit.return_value = True
+            counts = []
+            for qid in (1, 1, 2):
+                client.quorum.return_value = _quorum(pkg, quorum_id=qid)
+                m.start_quorum()
+                m.wait_quorum()
+                counts.append(len(comm.configure_calls))
+            seen[pkg] = (counts, _observed(m, comm))
+        finally:
+            m.shutdown(wait=False)
+    counts, got = _agree(seen)
+    assert counts == [1, 1, 2]
+    assert [c[0] for c in got["configure"]] == ["store/torchft/1/all/0",
+                                                "store/torchft/2/all/0"]
+
+
+@pytest.mark.parametrize("op", [ReduceOp.SUM, ReduceOp.AVG], ids=[
+    "async_heal_not_participating_zero_grads",
+    "healing_replica_avg_matches_sum_scaling"])
+def test_healing_replica_contributes_zeros(mstore, op) -> None:
+    # a healing replica is not participating and contributes zeros, AVG
+    # reduces as SUM scaled by the participants (1 here), and its vote is
+    # still True: the donor's state applies in should_commit (async mode)
+    # and the step goes on from the donor's
+    seen, states = {}, {}
+    for pkg, (m, client, comm, _) in _both(mstore, states=states).items():
+        donor = _donor(pkg, 20, np.full(2, 7.0), 40)
+        patcher = _healing_from(pkg, donor)
+        try:
+            client.quorum.return_value = _heal_answer(pkg, 20)
+            client.should_commit.return_value = True
+            m.start_quorum()
+            fut = m.allreduce_arrays([np.full(2, 9.0, np.float32)],
+                                     op=op).future()
+            out = fut.result(timeout=5)[0]
+            np.testing.assert_allclose(out, np.zeros(2))
+            assert not m.is_participating() and m.num_participants() == 1
+            assert m.should_commit()
+            np.testing.assert_allclose(states[pkg]["w"], np.full(2, 7.0))
+            seen[pkg] = (_observed(m, comm), _bits(out),
+                         _bits(states[pkg]["w"]))
+        finally:
+            patcher.stop()
+            donor.shutdown()
+            m.shutdown(wait=False)
+    got, _, _ = _agree(seen)
+    assert got["step"] == 21 and got["ops"] == [ReduceOp.SUM]
+
+
+def test_sync_quorum_heals_eagerly(mstore) -> None:
+    # sync mode heals inside start_quorum; an answer without data-plane
+    # membership makes participation the replica rank and world, so the
+    # healer participates, and a heal-step AVG divides by 2
+    seen, states = {}, {}
+    for pkg, (m, client, comm, _) in _both(
+            mstore, states=states, use_async_quorum=False).items():
+        donor = _donor(pkg, 5, np.full(2, 3.0), 10)
+        patcher = _healing_from(pkg, donor)
+        try:
+            client.quorum.return_value = _heal_answer(pkg, 5, quorum_id=1)
+            client.should_commit.return_value = True
+            m.start_quorum()
+            np.testing.assert_allclose(states[pkg]["w"], np.full(2, 3.0))
+            assert m.is_participating() and m.num_participants() == 2
+            assert m.current_step() == 5
+            out = m.allreduce_arrays([np.full(2, 9.0, np.float32)],
+                                     op=ReduceOp.AVG).future()
+            out = out.result(timeout=5)[0]
+            seen[pkg] = (_observed(m, comm), _bits(out),
+                         _bits(states[pkg]["w"]))
+        finally:
+            patcher.stop()
+            donor.shutdown()
+            m.shutdown(wait=False)
+    got, out, _ = _agree(seen)
+    assert np.frombuffer(out[2], np.float32).tolist() == [4.5, 4.5]
+    assert got["configure"] == [("store/torchft/1/all/0", 1, 2)]
+
+
+@pytest.mark.parametrize("op,want", [(ReduceOp.AVG, 2.0),
+                                     (ReduceOp.MAX, 4.0)], ids=[
+    "avg_scales_by_participants_not_transport_world", "max_not_scaled"])
+def test_allreduce_scaling_by_op(mstore, op, want) -> None:
+    # AVG through the Manager reduces as SUM and scales by the
+    # participants; MAX reaches the wire as MAX and is not scaled
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore).items():
+        try:
+            client.quorum.return_value = _quorum(pkg)
+            client.should_commit.return_value = True
+            m.start_quorum()
+            out = m.allreduce_arrays([np.full(3, 4.0, np.float32)],
+                                     op=op).future().result(timeout=5)[0]
+            np.testing.assert_allclose(out, np.full(3, want))
+            seen[pkg] = (_observed(m, comm), _bits(out))
+        finally:
+            m.shutdown(wait=False)
+    got, _ = _agree(seen)
+    assert got["ops"] == [ReduceOp.SUM if op == ReduceOp.AVG else op]
+
+
+@pytest.mark.parametrize("fault", ["fail", "hang"], ids=[
+    "allreduce_error_latches_and_skips", "wrap_future_timeout_latches"])
+def test_allreduce_failure_latches(mstore, fault) -> None:
+    # a failed or hung op completes with its input and latches (a hang
+    # through wrap_future's timeout); later ops this step return their
+    # input, the local vote is False, the step does not move, and the next
+    # quorum clears the latch
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore, timeout=0.5).items():
+        try:
+            client.quorum.return_value = _quorum(pkg)
+            client.should_commit.return_value = False
+            m.start_quorum()
+            if fault == "fail":
+                comm.fail_next = RuntimeError("injected comm failure")
+            else:
+                comm.hang_next = True
+            out = m.allreduce_arrays([np.full(2, 6.0, np.float32)])
+            out = out.future().result(timeout=10)[0]
+            np.testing.assert_allclose(out, np.full(2, 6.0))
+            latched = _observed(m, comm)
+            again = m.allreduce_arrays([np.ones(2)]).future().result(5)[0]
+            np.testing.assert_allclose(again, np.ones(2))
+            assert m.should_commit() is False
+            assert client.should_commit.call_args.args[2] is False
+            assert m.current_step() == 0
+            client.quorum.return_value = _quorum(pkg, quorum_id=2)
+            m.start_quorum()
+            m.wait_quorum()
+            assert m.errored() is None
+            seen[pkg] = (latched, _observed(m, comm), _bits(out))
+        finally:
+            m.shutdown(wait=False)
+    latched, _, _ = _agree(seen)
+    assert latched["errored"] == ("RuntimeError" if fault == "fail"
+                                  else "TimeoutError")
+    assert latched["ops"] == [ReduceOp.SUM]
+
+
+def test_spares_mode_clamps_participation(mstore) -> None:
+    # FIXED_WITH_SPARES: the world clamps to min_replica_size and a rank
+    # beyond it is parked
+    import torchft_tpu.manager as jmanager
+    import torchft_tpu_torch.manager as pmanager
+
+    seen = {}
+    for pkg in ("torch", "jax"):
+        mode = (pmanager if pkg == "torch" else jmanager).WorldSizeMode
+        m, client, comm, _ = _mocked_manager(
+            pkg, mstore, world_size_mode=mode.FIXED_WITH_SPARES,
+            min_replica_size=2)
+        try:
+            got = []
+            for qid, rank in ((1, 2), (2, 1)):
+                client.quorum.return_value = _quorum(
+                    pkg, quorum_id=qid, replica_rank=rank,
+                    replica_world_size=3, max_rank=rank, max_world_size=3)
+                m.start_quorum()
+                m.wait_quorum()
+                got.append(_observed(m, comm))
+            seen[pkg] = got
+        finally:
+            m.shutdown(wait=False)
+    parked, active = _agree(seen)
+    assert (parked["participants"], parked["participating"]) == (2, False)
+    assert (active["participants"], active["participating"]) == (2, True)
+
+
+def test_allow_heal_false_uses_full_quorum(mstore) -> None:
+    # allow_heal=False: no checkpoint traffic even when the answer says
+    # heal, and participation comes from the max-step cohort
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore).items():
+        try:
+            client.quorum.return_value = _quorum(
+                pkg, replica_rank=1, replica_world_size=2,
+                recover_src_rank=0, max_step=3, max_rank=None,
+                max_world_size=1, heal=True)
+            m.start_quorum(allow_heal=False)
+            m.wait_quorum()
+            assert not m._healing
+            seen[pkg] = _observed(m, comm)
+        finally:
+            m.shutdown(wait=False)
+    got = _agree(seen)
+    assert got["participants"] == 1 and not got["participating"]
+
+
+def test_min_replicas_vote_false(mstore) -> None:
+    # fewer participants than min_replica_size: the local vote is False
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore,
+                                           min_replica_size=2).items():
+        try:
+            client.quorum.return_value = _quorum(
+                pkg, replica_world_size=1, max_world_size=1, max_rank=0)
+            client.should_commit.return_value = False
+            m.start_quorum()
+            m.wait_quorum()
+            assert m.should_commit() is False
+            seen[pkg] = (client.should_commit.call_args.args[2],
+                         _observed(m, comm))
+        finally:
+            m.shutdown(wait=False)
+    vote, got = _agree(seen)
+    assert vote is False and got["step"] == 0
+
+
+def test_donor_serves_recovering_peers(mstore) -> None:
+    # recover_dst_ranks in the answer: the donor stages its checkpoint at
+    # the max step, read here through each package's own fetch path (the
+    # manifest and the state a healer receives)
+    import torchft_tpu.checkpointing as jck
+    import torchft_tpu_torch.checkpointing as pck
+
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore).items():
+        ck = pck if pkg == "torch" else jck
+        healer = ck.CheckpointServer(timeout=5.0)
+        try:
+            client.quorum.return_value = _quorum(pkg, max_step=7,
+                                                 recover_dst_ranks=[1])
+            m.start_quorum()
+            m.wait_quorum()
+            metadata = m._checkpoint_transport.metadata()
+            manifest = ck.fetch_manifest(metadata, 7, timeout=5.0)
+            assert manifest["step"] == 7
+            got = healer.recv_checkpoint(src_rank=0, metadata=metadata,
+                                         step=7, timeout=5.0)
+            assert got["torchft"]["step"] == 0
+            assert "w" in got["user"]
+            seen[pkg] = (got["torchft"], _bits(got["user"]["w"]),
+                         len(manifest["leaves"]))
+        finally:
+            healer.shutdown()
+            m.shutdown(wait=False)
+    _agree(seen)
+
+
+def test_state_dict_roundtrip(mstore) -> None:
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore).items():
+        m2, *_ = _mocked_manager(pkg, mstore)
+        try:
+            client.quorum.return_value = _quorum(pkg)
+            client.should_commit.return_value = True
+            m.start_quorum()
+            assert m.should_commit()
+            sd = m.state_dict()
+            m2.load_state_dict(sd)
+            seen[pkg] = (sd, m2.current_step(), m2.batches_committed())
+        finally:
+            m.shutdown(wait=False)
+            m2.shutdown(wait=False)
+    assert _agree(seen) == ({"step": 1, "batches_committed": 2}, 1, 2)
+
+
+@pytest.mark.parametrize("kwargs,key,want", [
+    ({"timeout": 12.5}, "timeout", 12.5),
+    ({"shrink_only": True}, "shrink_only", True),
+], ids=["quorum_timeout_plumbing", "shrink_only_plumbed_to_quorum"])
+def test_start_quorum_arguments_reach_the_rpc(mstore, kwargs, key,
+                                              want) -> None:
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore).items():
+        try:
+            client.quorum.return_value = _quorum(pkg)
+            m.start_quorum(**kwargs)
+            m.wait_quorum()
+            seen[pkg] = client.quorum.call_args.kwargs[key]
+        finally:
+            m.shutdown(wait=False)
+    assert _agree(seen) == want
+
+
+def test_metrics_populated(mstore) -> None:
+    names = ("quorum_avg_ms", "allreduce_avg_ms", "commit_barrier_avg_ms")
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore).items():
+        try:
+            client.quorum.return_value = _quorum(pkg)
+            client.should_commit.return_value = True
+            m.start_quorum()
+            m.allreduce_arrays([np.ones(2, np.float32)]).future().result(5)
+            m.should_commit()
+            snap = m.metrics.snapshot()
+            seen[pkg] = (snap["steps_committed"],
+                         [n for n in names if n in snap])
+        finally:
+            m.shutdown(wait=False)
+    assert _agree(seen) == (1, list(names))
+
+
+@pytest.mark.parametrize("op", [ReduceOp.SUM, ReduceOp.AVG])
+def test_bfloat16_arrays_scale_as_floats(mstore, op) -> None:
+    # an ml_dtypes bfloat16 array (what a bf16 bucket is on the host wire)
+    # is a float to the Manager: AVG takes it and both ops scale it by the
+    # participants, though numpy does not class it under np.floating
+    import ml_dtypes
+
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore).items():
+        try:
+            client.quorum.return_value = _quorum(pkg)
+            m.start_quorum()
+            a = np.full(3, 4.0, ml_dtypes.bfloat16)
+            out = m.allreduce_arrays([a], op=op).future().result(5)[0]
+            seen[pkg] = (out.dtype.name, out.astype(np.float32).tolist())
+        finally:
+            m.shutdown(wait=False)
+    assert _agree(seen) == ("bfloat16", [2.0, 2.0, 2.0])
+
+
+def test_integer_avg_raises(mstore) -> None:
+    for pkg, (m, client, comm, _) in _both(mstore).items():
+        try:
+            client.quorum.return_value = _quorum(pkg)
+            m.start_quorum()
+            with pytest.raises(ValueError, match="AVG requires floating"):
+                m.allreduce_arrays([np.array([4, 4], np.int64)],
+                                   op=ReduceOp.AVG)
+            assert comm.ops == []
+        finally:
+            m.shutdown(wait=False)
+
+
+class _FanoutTransport:
+    """A checkpoint transport recording the peers each donor event set."""
+
+    def __init__(self) -> None:
+        self.peer_calls = []
+        self.sends = 0
+
+    def metadata(self):
+        return "fake://ckpt"
+
+    def set_peers(self, peers):
+        self.peer_calls.append(list(peers))
+
+    def send_checkpoint(self, dst_ranks, step, state_dict, timeout):
+        self.sends += 1
+
+    def recv_checkpoint(self, src_rank, metadata, step, timeout):
+        raise AssertionError("a donor never receives")
+
+    def disallow_checkpoint(self):
+        pass
+
+    def shutdown(self, wait=True):
+        pass
+
+
+def test_ckpt_peers_rediscovered_each_donor_event(mstore) -> None:
+    # a peer that restarts advertises a new checkpoint address: the donor
+    # reads the peers' addresses again at every donor event
+    seen = {}
+    for pkg in ("torch", "jax"):
+        transport = _FanoutTransport()
+        m, client, comm, _ = _mocked_manager(
+            pkg, mstore, world_size=2, checkpoint_transport=transport)
+        try:
+            for qid, addr in ((1, "peer:1111"), (2, "peer:2222")):
+                StoreClient(mstore.addr).set("checkpoint_addr_1", addr)
+                client.quorum.return_value = _quorum(
+                    pkg, quorum_id=qid, max_step=2 + qid, max_world_size=1,
+                    recover_dst_ranks=[1])
+                m.start_quorum()
+                m.wait_quorum()
+            seen[pkg] = (transport.peer_calls, transport.sends)
+        finally:
+            m.shutdown(wait=False)
+    assert _agree(seen) == ([["peer:1111"], ["peer:2222"]], 2)
+
+
+def test_should_commit_async_overlaps_rpc(mstore) -> None:
+    # the barrier RPC rides the executor while the caller is free; the
+    # counters move only with the decision
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore).items():
+        gate, entered = threading.Event(), threading.Event()
+
+        def slow_commit(rank, step, should_commit, timeout=None):
+            entered.set()
+            assert gate.wait(5)
+            return True
+
+        try:
+            client.quorum.return_value = _quorum(pkg)
+            client.should_commit.side_effect = slow_commit
+            m.start_quorum()
+            m.wait_quorum()
+            fut = m.should_commit_async()
+            assert fut.local_should_commit is True
+            assert entered.wait(5)
+            assert not fut.done() and m.current_step() == 0
+            gate.set()
+            assert fut.result(timeout=5) is True
+            seen[pkg] = _observed(m, comm)
+        finally:
+            gate.set()
+            m.shutdown(wait=False)
+    got = _agree(seen)
+    assert (got["step"], got["committed"]) == (1, 2)
+
+
+def test_should_commit_async_false_local_vote_after_error(mstore) -> None:
+    # a latched error shows on the returned future before the decision
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore).items():
+        try:
+            client.quorum.return_value = _quorum(pkg)
+            client.should_commit.return_value = False
+            m.start_quorum()
+            m.wait_quorum()
+            m.report_error(RuntimeError("transport died"))
+            fut = m.should_commit_async()
+            seen[pkg] = (fut.local_should_commit, fut.result(timeout=5),
+                         _observed(m, comm))
+        finally:
+            m.shutdown(wait=False)
+    local, decision, got = _agree(seen)
+    assert local is False and decision is False and got["step"] == 0
+
+
+def test_should_commit_async_applies_heal_in_prologue(mstore) -> None:
+    # the pending heal applies in the prologue, before the future returns,
+    # so an overlapping caller updates the healed state
+    seen, states = {}, {}
+    for pkg, (m, client, comm, _) in _both(mstore, states=states).items():
+        donor = _donor(pkg, 20, np.full(2, 7.0), 40)
+        patcher = _healing_from(pkg, donor)
+        try:
+            client.quorum.return_value = _heal_answer(pkg, 20)
+            client.should_commit.return_value = True
+            m.start_quorum()
+            m.wait_quorum()
+        finally:
+            patcher.stop()
+            donor.shutdown()
+        try:
+            fut = m.should_commit_async()
+            assert m.did_heal()
+            np.testing.assert_allclose(states[pkg]["w"], np.full(2, 7.0))
+            assert fut.result(timeout=5) is True
+            seen[pkg] = (_observed(m, comm), _bits(states[pkg]["w"]))
+        finally:
+            m.shutdown(wait=False)
+    got, _ = _agree(seen)
+    assert got["step"] == 21

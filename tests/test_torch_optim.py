@@ -602,6 +602,93 @@ def test_overlapped_step_takes_no_backup_once_the_decision_is_final(
         assert torch.equal(a, b)
 
 
+class _FailingAdamW(torch.optim.AdamW):
+    """AdamW whose next step, once ``fail`` is set, updates its first
+    parameter group and then raises ``fail``: an allocation failure part
+    way through the update."""
+
+    fail = None
+
+    def step(self, closure=None):
+        if self.fail is None:
+            return super().step(closure)
+        exc, self.fail = self.fail, None
+        groups = self.param_groups
+        self.param_groups = groups[:1]
+        try:
+            super().step(closure)
+        finally:
+            self.param_groups = groups
+        raise exc
+
+
+def _failing_adamw(seed=0):
+    params, _ = _adamw_params(seed)
+    adamw = _FailingAdamW([{"params": params[:1]}, {"params": params[1:]}],
+                          lr=1e-2, weight_decay=1e-2)
+    init_adam_state(adamw)
+    return params, adamw
+
+
+def _raise_once(real, exc):
+    """``real``, except that its first call raises ``exc``."""
+    armed = [exc]
+
+    def call(*a, **k):
+        if armed:
+            raise armed.pop()
+        return real(*a, **k)
+
+    return call
+
+
+@pytest.mark.parametrize("where", ["update", "backup", "staging",
+                                   "update_and_barrier"])
+def test_overlapped_raise_rolls_back_and_reads_the_decision(where) -> None:
+    # anything that raises between the prologue and the decision on the
+    # overlapped arm (the served state's staging, the backup, an update
+    # that wrote part of the state) leaves every parameter and state
+    # tensor bitwise what it was at its old address, reads the decision,
+    # drains the fence and re-raises the original exception, with a
+    # failing barrier chained to it; the next step commits as a wrapper
+    # that never raised does
+    params, adamw = _failing_adamw()
+    manager = FakeManager(held=True)
+    opt = OptimizerWrapper(manager, adamw)
+    rng = np.random.default_rng(10)
+    _set_grads(params, rng)
+    assert opt.step() and opt._in_flight
+    _set_grads(params, rng)
+    snap = _snapshot(params, adamw)
+    fault = MemoryError("allocation failed part way through the update")
+    if where == "backup":
+        opt._backup = _raise_once(opt._backup, fault)
+    elif where == "staging":
+        manager.finish_staging = _raise_once(manager.finish_staging, fault)
+    else:
+        adamw.fail = fault
+    if where == "update_and_barrier":
+        manager.commit = ConnectionError("barrier lost")
+    manager.events.clear()
+    with pytest.raises(MemoryError) as raised:
+        opt.step()
+    assert raised.value is fault
+    if where == "update_and_barrier":
+        assert isinstance(raised.value.__context__, ConnectionError)
+    assert "decision" in manager.events
+    assert not opt._in_flight
+    _assert_unchanged(params, adamw, snap)
+    manager.commit = True
+    assert opt.step()
+    ref_params, ref_adamw = _failing_adamw()
+    rng = np.random.default_rng(10)
+    for _ in range(2):
+        _set_grads(ref_params, rng)
+        ref_adamw.step()
+    for a, b in zip(_tensors(params, adamw), _tensors(ref_params, ref_adamw)):
+        assert torch.equal(a, b)
+
+
 def test_update_window_wraps_each_arm_update() -> None:
     # the window opens after the prologue and closes after the update
     # (overlapped: after the decision and the drop or the restore)

@@ -1,6 +1,7 @@
 """The port's host spans (utils/profiling.py) against the JAX package's:
 ``timed_span`` and ``throughput_span`` write the Manager's ``Metrics``
-under the reference's names, and ``host_span`` names a region on a
+under the reference's names (the byte counter cumulative, none for a
+zero-byte span), and ``host_span`` names a region on a
 ``torch.profiler`` trace. ``StepProfiler`` and ``trace`` are twins of the
 reference's tests (tests/test_profiling_prefetch.py, the context-manager
 case of tests/test_telemetry.py): the env contract, a window of steps
@@ -65,6 +66,31 @@ def test_throughput_span_counter_and_rate() -> None:
     assert _names(got) == _names(want)
     assert got["heal_wire_bytes"] == want["heal_wire_bytes"] == 1500
     assert got["heal_wire_bytes_per_s"] > 0
+
+
+def test_throughput_span_cumulative_byte_counter() -> None:
+    # the byte counter adds up over spans (the rate gauge is the last
+    # span's), and a zero-byte span records its time and no byte keys
+    got = []
+    for metrics_cls, span in ((Metrics, throughput_span),
+                              (JaxMetrics, jax_profiling.throughput_span)):
+        m = metrics_cls()
+        for n in (1000, 500):
+            with span(m, "heal_wire", n):
+                time.sleep(0.001)
+        late = [0]
+        with span(m, "heal_wire", late):
+            late[0] = 250
+        zero = metrics_cls()
+        with span(zero, "x", 0):
+            pass
+        snap, zsnap = m.snapshot(), zero.snapshot()
+        assert snap["heal_wire_bytes"] == 1750.0
+        assert snap["heal_wire_bytes_per_s"] > 0
+        assert snap["heal_wire_avg_ms"] > 0
+        assert "x_bytes" not in zsnap and "x_avg_ms" in zsnap
+        got.append((_names(snap), _names(zsnap)))
+    assert got[0] == got[1]
 
 
 def test_host_span_shows_on_a_profiler_trace() -> None:

@@ -6,10 +6,13 @@ old one gone, ``wire_generation`` bumped); a SIGSTOPped (wedged) child
 fails its op within the context's timeout + 10 s, the ops queued behind it
 at once, and the next configure replaces it; a child's death surfaces as
 an error and latches; the codec and the other transport options reach
-the child. Each wait carries its own timeout. Tolerance: bitwise, except
-the bf16 codec's allreduce (rtol 1e-2, as the reference test).
+the child, the hierarchical tier too (four children over a 2x2 domain
+map, bitwise both packages' host composition). Each wait carries its own
+timeout. Tolerance: bitwise, except the bf16 codec's allreduce (rtol
+1e-2, as the reference test).
 """
 
+import json
 import os
 import signal
 import time
@@ -154,3 +157,42 @@ def test_subprocess_compression_plumbed(store) -> None:
     assert results[0].tobytes() != np.full(8, 3.002, np.float32).tobytes()
     assert SubprocessCommContext.unsupported_reason("star", "bf16") is None
     assert SubprocessCommContext.unsupported_reason("nccl", "none")
+
+
+def test_subprocess_context_forwards_hier(store, monkeypatch) -> None:
+    # topology="hier" reaches each child's TcpCommContext, whose resolver
+    # reads the domain map from the environment it inherited
+    from torchft_tpu.comm.xla_backend import (
+        _host_hier_allreduce as ref_hier,
+    )
+    from torchft_tpu_torch.comm.cuda_backend import _host_hier_allreduce
+
+    chunk, groups = 1 << 12, ((0, 1), (2, 3))
+    monkeypatch.setenv("TORCHFT_TPU_DOMAINS", json.dumps(
+        {"d0": ["rank0", "rank1"], "d1": ["rank2", "rank3"]}))
+    rng = np.random.default_rng(29)
+    srcs = [(rng.standard_normal(1024) * (r + 1)).astype(np.float32)
+            for r in range(4)]
+    want = _host_hier_allreduce([[s.copy()] for s in srcs], "int8", chunk,
+                                ReduceOp.SUM, groups, 4)[0]
+    assert want.tobytes() == ref_hier([[s.copy()] for s in srcs], "int8",
+                                      chunk, ReduceOp.SUM, groups, 4)[0] \
+        .tobytes()
+    ctxs = [SubprocessCommContext(timeout=30.0, algorithm="star",
+                                  channels=2, compression="int8",
+                                  chunk_bytes=chunk, topology="hier")
+            for _ in range(4)]
+    try:
+        def run(rank):
+            ctxs[rank].configure(f"{store.addr}/sub_hier", rank, 4)
+            work = ctxs[rank].allreduce([srcs[rank].copy()])
+            return work.future().result(timeout=60)[0]
+
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            outs = [f.result(timeout=180)
+                    for f in [pool.submit(run, r) for r in range(4)]]
+        for out in outs:
+            assert out.tobytes() == want.tobytes()
+    finally:
+        for c in ctxs:
+            c.shutdown()

@@ -7,12 +7,19 @@ endpoint, the Chrome-trace export) and of
 Each route is asked of a server of each package fed the same metrics and
 events: the payloads have the same key sets, ``scripts/fleet_top.py``
 builds its row from a port replica unchanged, and the port's chrome trace
-passes both packages' ``validate_chrome_trace``.
+passes both packages' ``validate_chrome_trace``. Then the event ring
+(stamps and cursor, the bound and its drop count, the disabled no-op and
+its switch) on the same emits into both packages' recorders, and the
+port's under racing writers, its emit cost, its overhead on a live
+allreduce, fleet_top's mesh and mode columns, and ``Metrics`` under racing
+writers (twins of tests/test_telemetry.py).
 """
 
 import importlib.util
 import json
 import os
+import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -394,3 +401,253 @@ def test_fleet_top_tags_port_rows_by_job_with_the_observer() -> None:
         for s in stores:
             s.shutdown()
         lh.shutdown()
+
+
+# --- the event ring and the satellites, against the JAX package -------------
+# Twins of tests/test_telemetry.py's recorder and satellite cases: the same
+# emits into each package's EventRecorder give the same events, cursors and
+# drop counts (the clock stamps aside); the concurrency, cost and overhead
+# pins hold for the port's recorder and Metrics; fleet_top reads the mesh
+# and mode columns from a live port endpoint.
+
+
+def _projected(result):
+    events, nxt, dropped = result
+    return ([{k: v for k, v in e.items() if k not in ("t_wall", "t_mono")}
+             for e in events], nxt, dropped)
+
+
+def _recorder_trace(recorder_cls):
+    rec = recorder_cls(capacity=64, enabled=True, replica_id="rep_a", rank=3)
+    seqs = [rec.emit("quorum_start", step=5, epoch=2),
+            rec.emit("quorum_complete", step=5, epoch=2, wire_world=2)]
+    first = rec.since(0)
+    assert all(e["t_wall"] > 0 and e["t_mono"] > 0 for e in first[0])
+    rec.emit("step_commit", step=5, epoch=2)
+    tail = rec.since(first[1])
+    return seqs, _projected(first), _projected(tail), rec.since(tail[1])
+
+
+def test_recorder_stamps_and_cursor() -> None:
+    got = _recorder_trace(EventRecorder)
+    assert got == _recorder_trace(JaxEventRecorder)
+    seqs, (events, nxt, dropped), (tail, nxt2, _), rest = got
+    assert seqs == [0, 1] and nxt == 2 and dropped == 0
+    assert events[1] == {"seq": 1, "kind": "quorum_complete",
+                         "replica_id": "rep_a", "rank": 3, "step": 5,
+                         "epoch": 2, "wire_world": 2}
+    assert [e["kind"] for e in tail] == ["step_commit"] and nxt2 == 3
+    assert rest == ([], 3, 0)
+
+
+def _ring_trace(recorder_cls):
+    rec = recorder_cls(capacity=8, enabled=True)
+    for i in range(20):
+        rec.emit("step_commit", step=i)
+    return _projected(rec.since(0)), _projected(rec.since(15))
+
+
+def test_recorder_ring_bound_and_drop_accounting() -> None:
+    got = _ring_trace(EventRecorder)
+    assert got == _ring_trace(JaxEventRecorder)
+    (events, nxt, dropped), (inside, _, inside_dropped) = got
+    assert nxt == 20 and len(events) == 8 and dropped == 12
+    assert [e["seq"] for e in events] == list(range(12, 20))
+    assert inside_dropped == 0
+    assert [e["seq"] for e in inside] == [15, 16, 17, 18, 19]
+
+
+def test_recorder_disabled_is_noop(monkeypatch) -> None:
+    for recorder_cls in (EventRecorder, JaxEventRecorder):
+        rec = recorder_cls(capacity=16, enabled=False)
+        assert not rec
+        assert rec.emit("step_commit", step=1) == -1
+        assert rec.next_seq == 0
+        assert rec.since(0) == ([], 0, 0)
+        assert rec.dump()["events"] == []
+        monkeypatch.setenv("TORCHFT_TPU_EVENTS", "0")
+        assert not recorder_cls().enabled
+        monkeypatch.delenv("TORCHFT_TPU_EVENTS")
+        assert recorder_cls().enabled
+
+
+def test_recorder_concurrent_writers_ordered_and_bounded() -> None:
+    # writers racing a reader: the sequence numbers stay unique and
+    # ordered, the ring within its bound, no emit lost or duplicated
+    rec = EventRecorder(capacity=128, enabled=True)
+    writers, per = 8, 500
+    errors, cursor = [], [0]
+    stop = threading.Event()
+
+    def write(w):
+        try:
+            for i in range(per):
+                rec.emit("step_commit", step=i, writer=w)
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    def read():
+        try:
+            while not stop.is_set():
+                events, nxt, _ = rec.since(max(0, cursor[0] - 50))
+                seqs = [e["seq"] for e in events]
+                assert seqs == sorted(seqs) and len(seqs) == len(set(seqs))
+                assert len(events) <= 128
+                cursor[0] = nxt
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=write, args=(w,))
+               for w in range(writers)]
+    reader = threading.Thread(target=read)
+    reader.start()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    stop.set()
+    reader.join(timeout=30)
+    assert not errors
+    assert rec.next_seq == writers * per
+    events, nxt, dropped = rec.since(0)
+    assert nxt == writers * per
+    assert len(events) == 128 and dropped == writers * per - 128
+    assert [e["seq"] for e in events] == list(range(nxt - 128, nxt))
+
+
+def test_emit_overhead_envelope() -> None:
+    # the reference's bounds, about 25x above an emit's measured cost on
+    # the host: an enabled emit under 50 us, the disabled guard under 10
+    rec = EventRecorder(capacity=4096, enabled=True)
+    n = 20000
+    t0 = time.perf_counter()
+    for i in range(n):
+        rec.emit("step_commit", step=i, epoch=7)
+    per_emit = (time.perf_counter() - t0) / n
+    assert per_emit < 50e-6, f"enabled emit cost {per_emit * 1e6:.1f} us"
+    off = EventRecorder(capacity=4096, enabled=False)
+    t0 = time.perf_counter()
+    for i in range(n):
+        if off:
+            off.emit("step_commit", step=i)
+    per_guard = (time.perf_counter() - t0) / n
+    assert per_guard < 10e-6, f"disabled guard cost {per_guard * 1e6:.2f} us"
+    assert off.next_seq == 0
+
+
+def test_allreduce_p50_unmoved_by_enabled_recorder() -> None:
+    # the Manager's per-step emits around a live two-rank loopback
+    # allreduce of the port's wire, the arms interleaved on one configured
+    # transport, under the reference's bound (2.5x + 2 ms)
+    from torchft_tpu_torch.comm.transport import TcpCommContext
+
+    store = StoreServer()
+    world = 2
+    ctxs = [TcpCommContext(timeout=20.0, algorithm="star", channels=2)
+            for _ in range(world)]
+    rec = EventRecorder(capacity=4096, enabled=True)
+    payload = [np.ones(1 << 15, np.float32) for _ in range(world)]
+    times = {False: [], True: []}
+    try:
+        configure = [threading.Thread(
+            target=ctxs[r].configure, args=(f"{store.addr}/events_ab", r,
+                                            world)) for r in range(world)]
+        for t in configure:
+            t.start()
+        for t in configure:
+            t.join(timeout=30)
+
+        def rank_loop(rank, emit):
+            for i in range(10):
+                t0 = time.perf_counter()
+                work = ctxs[rank].allreduce([payload[rank]])
+                if emit and rank == 0:
+                    for _ in range(4):
+                        rec.emit("step_commit", step=i, epoch=1)
+                work.future().result(timeout=30)
+                if rank == 0:
+                    times[emit].append(time.perf_counter() - t0)
+
+        for _ in range(2):
+            for emit in (False, True):
+                ts = [threading.Thread(target=rank_loop, args=(r, emit))
+                      for r in range(world)]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join(timeout=60)
+    finally:
+        for c in ctxs:
+            c.shutdown()
+        store.shutdown()
+    p50 = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    assert p50[True] <= p50[False] * 2.5 + 2e-3, p50
+
+
+def test_fleet_top_mesh_and_mode_columns_live() -> None:
+    # the mesh column is the "{replicas}x{model}" label, the mode the
+    # fused plane's step_executable_count gauge, read from a port server
+    ft = _load_fleet_top()
+    server = CheckpointServer(timeout=5.0)
+    metrics = Metrics()
+    server.set_metrics(metrics)
+    server.set_telemetry(lambda: {
+        "replica_id": "rep_m", "rank": 0, "step": 3, "healing": False})
+    try:
+        metrics.label("mesh_shape", "2x2")
+        metrics.gauge("step_executable_count", 1.0)
+        ep = {"replica_id": "rep_m", "rank": 0, "url": server.metadata()}
+        row = ft.build_row(ep, ft.poll_manager(server.metadata(), 0,
+                                               timeout=5.0))
+        assert row["mesh"] == "2×2" and row["mode"] == "fused"
+        text = ft.render({"quorum": {"participants": [{}]}}, [row])
+        assert "2×2" in text and "fused" in text
+        metrics.gauge("step_executable_count", 4.0)
+        row = ft.build_row(ep, ft.poll_manager(server.metadata(), 0,
+                                               timeout=5.0))
+        assert row["mode"] == "staged"
+    finally:
+        server.shutdown()
+
+
+def test_metrics_concurrent_writers_exact_counters() -> None:
+    # writers racing snapshot and reset_timings: no raise, exact counters
+    m = Metrics(window=64)
+    writers, per = 8, 400
+    errors = []
+    stop = threading.Event()
+
+    def write(w):
+        try:
+            for i in range(per):
+                m.incr("c")
+                m.incr("bytes", 3.0)
+                m.observe(f"t{w % 2}", 0.001)
+                m.gauge("g", float(i))
+                m.label("backend", "host")
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    def read():
+        try:
+            while not stop.is_set():
+                assert m.snapshot().get("c", 0) <= writers * per
+                m.reset_timings()
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=write, args=(w,))
+               for w in range(writers)]
+    reader = threading.Thread(target=read)
+    reader.start()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    stop.set()
+    reader.join(timeout=30)
+    assert not errors
+    snap = m.snapshot()
+    assert snap["c"] == writers * per
+    assert snap["bytes"] == writers * per * 3.0
+    assert snap["backend"] == "host"

@@ -12,9 +12,10 @@ the error-feedback roles (twins of test_transport_framing.py and
 test_transport_striping.py); and the hierarchical tier: mixed cohorts on
 even, uneven and singleton domains bitwise against the reference's and
 against both packages' ``_host_hier_allreduce``, the tier counters, the
-published assignment, the per-op override, an egress death, and the int8
-error-feedback descent over the hier wire (twins of test_hier_topology.py).
-Every comparison is bitwise unless a test states its bound.
+published assignment, the per-op override, an egress death, the int8
+error-feedback descent over the hier wire, the host wire's capability
+table, its constructor's refusals and the wrappers that forward the
+topology (twins of test_hier_topology.py). Every comparison is bitwise unless a test states its bound.
 """
 
 import socket
@@ -856,3 +857,62 @@ def test_int8_ef_converges_over_hier_wire_where_raw_parks(jserver) -> None:
     assert err_fp32 < 1e-4
     assert float(np.max(np.abs(x_ef - x_fp32))) < 1e-3 * scale, err_ef
     assert err_raw > 10 * err_ef, (err_raw, err_ef)
+
+
+# ------------------------------------- the hier capability surface, as the JAX
+
+
+def test_host_rules() -> None:
+    # the host wire's capability table, reason for reason the reference's
+    # (its on-device plane named "cuda" where the reference names "xla")
+    for algorithm in ("star", "ring", "auto", "psum", "tree"):
+        for codec in ("none", "bf16", "int8"):
+            for topology in ("flat", "hier", "mesh"):
+                want = ref_transport.host_unsupported_reason(
+                    algorithm, codec, topology=topology)
+                got = port_transport.host_unsupported_reason(
+                    algorithm, codec, topology=topology)
+                assert got == (None if want is None else
+                               want.replace("xla", "cuda")), (
+                    algorithm, codec, topology)
+    assert port_transport.host_unsupported_reason(
+        "star", "int8", topology="hier") is None
+    assert "cuda" in port_transport.host_unsupported_reason(
+        "psum", "none", topology="hier")
+    assert "hier" in port_transport.host_unsupported_reason(
+        "star", "none", topology="mesh")
+
+
+def test_ctor_refusals_are_prescriptive() -> None:
+    for cls in (TcpCommContext, JaxTcp):
+        with pytest.raises(ValueError, match="psum"):
+            cls(algorithm="psum", topology="hier")
+        with pytest.raises(ValueError, match="unknown topology"):
+            cls(topology="tree")
+
+
+def test_wrappers_forward_topology() -> None:
+    # the error-swallowing wrapper and the wire stub answer for the
+    # context they wrap, topology included; an identity context takes all
+    from torchft_tpu.comm.context import ErrorSwallowingCommContext as JSwallow
+    from torchft_tpu.comm.wire_stub import WireStubManager as JStub
+    from torchft_tpu_torch.comm.wire_stub import WireStubManager
+
+    got = {}
+    for pkg, tcp, swallow, stub in (
+            ("port", TcpCommContext, ErrorSwallowingCommContext,
+             WireStubManager),
+            ("jax", JaxTcp, JSwallow, JStub)):
+        inner = tcp(timeout=5.0, algorithm="star")
+        try:
+            wrapped, wire = swallow(inner), stub(inner, 1)
+            got[pkg] = (
+                wrapped.supports("star", "int8", topology="hier"),
+                wrapped.supports("psum", "none", topology="hier"),
+                wire.comm_supports("ring", "bf16", topology="hier"),
+                wire.comm_unsupported_reason("star", "none",
+                                             topology="weird") is not None)
+        finally:
+            inner.shutdown()
+    assert got["port"] == got["jax"] == (True, False, True, True)
+    assert DummyCommContext().supports("star", "int8", topology="hier")

@@ -9,11 +9,12 @@ every bucket has landed; ``OptimizerWrapper.step`` takes that future.
 
 Gradients are packed into dtype-homogeneous buckets by a plan frozen at the
 first call (parameter order, <= ``bucket_bytes`` each), so every replica,
-a recovering one included, reduces identical buckets. Healing replicas
-contribute zeros and receive the average, which is how they end the heal
-step bitwise identical to their donor. With no data-plane peer (a solo
-wire) the average is an identity and the copies are skipped; the quorum
-still runs.
+a recovering one included, reduces identical buckets; a bfloat16 bucket
+rides the host wire as ml_dtypes' bfloat16, as the JAX package's does.
+Healing replicas contribute zeros and receive the average, which is how
+they end the heal step bitwise identical to their donor. With no
+data-plane peer (a solo wire) the average is an identity and the copies
+are skipped; the quorum still runs.
 
 Streamed pipeline (the default; ``streamed=False`` keeps the lock-step
 shape as the A/B lever and bitwise oracle). The stages of each bucket run
@@ -133,6 +134,31 @@ def _wire_healthy(manager) -> bool:
     a latched error every op resolves inline."""
     errored = getattr(manager, "errored", None)
     return not callable(errored) or errored() is None
+
+
+def _host_view(t: torch.Tensor) -> np.ndarray:
+    """The numpy view of a CPU tensor the host wire reduces in place: a
+    bfloat16 tensor as ml_dtypes' bfloat16, what the JAX package's bf16
+    buckets are (numpy has no bfloat16 of its own)."""
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        import ml_dtypes
+    except ImportError:
+        raise TypeError(
+            "bfloat16 gradients ride the host wire as ml_dtypes' bfloat16, "
+            "and the ml_dtypes package is missing; keep the gradients "
+            "float32 (the models' param_dtype)") from None
+    return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+
+
+def _from_host(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over a reduced numpy array (inverse of
+    :func:`_host_view`)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _itemsize(dtype) -> int:
@@ -333,7 +359,7 @@ class DistributedDataParallel:
         try:
             if arena.staging is None:
                 arena.staging = plan.alloc_staging(pin=grads[0].is_cuda)
-                arena.views = [s.numpy() for s in arena.staging]
+                arena.views = [_host_view(s) for s in arena.staging]
             ef = _ef_gate(self._manager, self._error_feedback)
             if ef:
                 # zeroed on first use and whenever the transport
@@ -388,7 +414,7 @@ class DistributedDataParallel:
                     and reduced.shape == staged.shape:
                 src = arena.staging[k]
             else:
-                src = torch.from_numpy(np.ascontiguousarray(reduced))
+                src = _from_host(reduced)
             device = grads[plan.buckets[k][0]].device
             if device.type == "cuda":
                 stream = self._copy_stream(device)
@@ -770,10 +796,10 @@ class PureDistributedDataParallel:
             return grads
         if self._manager.is_solo_wire():
             return grads
-        host = [g.detach().cpu().numpy().copy().reshape(-1) for g in grads]
+        host = [_host_view(g.detach().cpu().reshape(-1)).copy()
+                for g in grads]
         works = [self._manager.allreduce_arrays([h]) for h in host]
         for g, w in zip(grads, works):
             reduced = w.future().result()[0]
-            g.copy_(torch.from_numpy(np.ascontiguousarray(reduced))
-                    .reshape(g.shape))
+            g.copy_(_from_host(reduced).reshape(g.shape))
         return grads

@@ -71,6 +71,13 @@ LIGHTHOUSE_ENV: str = "TORCHFT_TPU_LIGHTHOUSE"
 __all__ = ["Manager", "WorldSizeMode"]
 
 
+def _is_float_dtype(dt: np.dtype) -> bool:
+    """True for numpy's floats and for ml_dtypes' (bfloat16, the float8
+    types), which ``np.issubdtype`` does not class under ``np.floating``:
+    a bf16 bucket on the host wire is scaled like any other float."""
+    return np.issubdtype(dt, np.floating) or "float" in np.dtype(dt).name
+
+
 def _cohort_fingerprint(replica_ids: "Sequence[str]") -> str:
     """Short stable digest of the wire membership, part of the transport
     rendezvous prefix (the same digest as the JAX package's)."""
@@ -424,7 +431,7 @@ class Manager:
         (raises); False, the op then returning its inputs, once this step
         has errored or when its quorum fails (latched)."""
         if op == ReduceOp.AVG and any(
-            not np.issubdtype(a.dtype, np.floating) for a in arrays
+            not _is_float_dtype(a.dtype) for a in arrays
         ):
             raise ValueError(
                 "ReduceOp.AVG requires floating-point arrays; got "
@@ -456,7 +463,7 @@ class Manager:
             scale = 1.0 / max(1, self.num_participants())
             for i in (range(len(reduced)) if owned is None else owned):
                 a = reduced[i]
-                if np.issubdtype(a.dtype, np.floating):
+                if _is_float_dtype(a.dtype):
                     s = np.asarray(scale).astype(a.dtype)
                     if a.flags.writeable:
                         np.multiply(a, s, out=a)
@@ -792,9 +799,12 @@ class Manager:
         if self._use_async_quorum or not allow_heal:
             self._participating_rank = quorum.max_rank
             self._participating_world_size = quorum.max_world_size
-        else:
+        elif quorum.transport_replica_ids:
             self._participating_rank = quorum.transport_rank
             self._participating_world_size = quorum.transport_world_size
+        else:  # an answer without data-plane membership: every replica
+            self._participating_rank = quorum.replica_rank
+            self._participating_world_size = quorum.replica_world_size
         self._replica_world_size = quorum.replica_world_size
         if not self._data_plane:
             # off the wire, an observer contributes nothing, whatever its
@@ -813,10 +823,17 @@ class Manager:
         # stay members: in the heal step they receive the cohort's average
         # and apply it on top of the fetched state, which is what makes
         # recovery bitwise exact.
-        in_transport = quorum.transport_rank is not None
-        t_rank = quorum.transport_rank if in_transport else 0
-        t_world = quorum.transport_world_size if in_transport else 1
-        fingerprint = _cohort_fingerprint(quorum.transport_replica_ids)
+        if quorum.transport_replica_ids:
+            in_transport = quorum.transport_rank is not None
+            t_rank = quorum.transport_rank if in_transport else 0
+            t_world = quorum.transport_world_size if in_transport else 1
+            fingerprint = _cohort_fingerprint(quorum.transport_replica_ids)
+        else:
+            # an answer without data-plane membership: the wire spans the
+            # whole quorum, as the JAX package reads it
+            in_transport = True
+            t_rank, t_world = quorum.replica_rank, quorum.replica_world_size
+            fingerprint = "all"
         self._transport_world_size = t_world
         self._label_mesh_shape()
         # a replica that was on the wire last quorum and is absent now left

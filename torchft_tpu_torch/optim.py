@@ -15,11 +15,16 @@ Three paths, as in the reference:
   barrier RPC rides the manager's executor. A commit drops the backup; a
   discard, or a barrier that raises, copies it back in place, ordered
   after the update on the same stream, so every tensor is bitwise what it
-  was and keeps its address. The reference's non-donated update allocates
-  its outputs beside its inputs; here the backup is that transient second
-  footprint (12 bytes a parameter for f32 AdamW). A False local vote takes
-  no backup and dispatches nothing; a decision already final when the
-  prologue returns (an epoch-lease step) runs as the decided path.
+  was and keeps its address. So does an exception before the decision (the
+  staging, the backup, or an update that wrote part of the state), which
+  then reads the decision, drains the fence and re-raises: the vote was
+  cast, so the group cannot adopt the step, and the reference's
+  functional update leaves no partial write either. The reference's
+  non-donated update allocates its outputs beside its inputs; here the
+  backup is that transient second footprint (12 bytes a parameter for f32
+  AdamW). A False local vote takes no backup and dispatches nothing; a
+  decision already final when the prologue returns (an epoch-lease step)
+  runs as the decided path.
 - classic, decided (``donate_update=True``): the barrier first, then the
   update in place, the reference's donated program; a discarded step
   touches nothing and no second footprint is ever allocated, but the
@@ -280,12 +285,16 @@ class OptimizerWrapper:
         backup = None
         with self._update_window():
             if getattr(decision, "local_should_commit", True):
-                with self._classic_timed("dispatch"):
-                    # healers read host copies of the served state: finish
-                    # them before the update lands on the live tensors
-                    self.manager.finish_staging()
-                    backup = self._backup()
-                    self.optimizer.step()
+                try:
+                    with self._classic_timed("dispatch"):
+                        # healers read host copies of the served state:
+                        # finish them before the update lands on the live
+                        # tensors
+                        self.manager.finish_staging()
+                        backup = self._backup()
+                        self.optimizer.step()
+                except BaseException as e:
+                    self._abandon(decision, backup, e)
             # the exposed barrier: what the RPC costs beyond the dispatch
             try:
                 with self._classic_timed("barrier"):
@@ -302,6 +311,23 @@ class OptimizerWrapper:
         with self._classic_timed("fence"):
             self._push_fence("block", loss)
         return True
+
+    def _abandon(self, decision: Future, backup, exc: BaseException) -> None:
+        """The overlapped step raised before its decision (the staging, the
+        backup, or an update that may have written part of the state):
+        restore the backup in place, read the decision, drain the fence and
+        re-raise ``exc``, with a failing barrier chained to it. The vote
+        was already cast, so this group cannot adopt the step: it crashes,
+        restarts and heals, as the reference's does."""
+        self._roll_back(backup)
+        try:
+            with self._classic_timed("barrier"):
+                decision.result()
+        except Exception:
+            raise exc  # the barrier's failure becomes its __context__
+        finally:
+            self._drain_fence()
+        raise exc
 
     def _step_decided(self, decision: Future,
                       loss: Optional[torch.Tensor]) -> bool:
