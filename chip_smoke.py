@@ -108,8 +108,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    residuals must be bitwise equal after every step. (c) the sharded arm on
    the same plane, two groups, 2 steps: the groups bitwise equal, and each
    codec kernel launched once per reduce_scatter (the native scatter of
-   the two owned shard buckets). Every flash kernel launched 12 x the
-   passes of all runs. It checks the device memory first
+   the two owned shard buckets). (d) ``sharded_bf16`` (ROADMAP F22): one
+   forward/backward, its gradients cast to bfloat16 on the card (rank r's
+   times ``SHARDED_BF16_SCALES[r]``), reduced by two port
+   ``ShardedGradReducer`` under real Managers on one lighthouse over TCP
+   at codec none, ``sharded=True`` and ``sharded=False``: each rank's
+   owned shards bitwise the same reduction from CPU tensors, the
+   replicated arm bitwise the sharded arm on every shard, within
+   ``SHARDED_BF16_BUDGET_S`` (20 s). Every flash kernel launched 6 x the
+   passes of all runs (``CUT_LAYERS``). It checks the device memory first
    (``sharded_device_bytes``) and runs before the phases that keep the
    card plane's buffers.
 6. train_cuda_int8: the same drill, all 12 layers, with the gradient wire
@@ -5393,6 +5400,159 @@ def check_sharded_drill(result: dict, replicated: dict) -> None:
                              f"bitwise at steps {same} of {list(steps)}")
 
 
+# train_sharded's sharded_bf16 (ROADMAP F22): bfloat16 gradients of one
+# pass through the sharded reducer, rank r's the pass's gradient times
+# SHARDED_BF16_SCALES[r], cast on the card
+SHARDED_BF16_SCALES = (1.0, 0.75)
+SHARDED_BF16_BUDGET_S = 20.0
+# the device sharded_bf16 runs its pass on (the CPU tests move it)
+SHARDED_BF16_DEVICE = "cuda"
+
+
+def reduce_sharded(grads_by_rank, sharded: bool, pkg=None,
+                   timeout: float = 60.0) -> list:
+    """``ShardedGradReducer.reduce`` of each wire rank's gradients: one
+    group a thread, each under a real Manager (TCP at codec none) on one
+    lighthouse, one quorum without heals. Wire rank r reduces
+    ``grads_by_rank[r]``, so the cohort's rank order fixes the sum's.
+    Returns, by wire rank, ``{leaf: a copy of its reduced host array}``
+    (the owned shard when ``sharded``, every leaf otherwise). ``pkg``
+    holds the classes (``Lighthouse``, ``StoreServer``, ``TcpCommContext``,
+    ``Manager``, ``ShardedGradReducer``): the port's unless given."""
+    import threading
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    if pkg is None:
+        from torchft_tpu_torch.comm.store import StoreServer
+        from torchft_tpu_torch.comm.transport import TcpCommContext
+        from torchft_tpu_torch.control import Lighthouse
+        from torchft_tpu_torch.ddp import ShardedGradReducer
+        from torchft_tpu_torch.manager import Manager
+
+        pkg = SimpleNamespace(Lighthouse=Lighthouse, StoreServer=StoreServer,
+                              TcpCommContext=TcpCommContext, Manager=Manager,
+                              ShardedGradReducer=ShardedGradReducer)
+    world = len(grads_by_rank)
+    lighthouse = pkg.Lighthouse(min_replicas=world, join_timeout_ms=100)
+    stores = [pkg.StoreServer() for _ in range(world)]
+    out = [None] * world
+    errors = []
+
+    def group(g):
+        manager = pkg.Manager(
+            comm=pkg.TcpCommContext(timeout=timeout),
+            min_replica_size=world, rank=0, world_size=1,
+            store_addr=stores[g].addr, lighthouse_addr=lighthouse.address(),
+            replica_id=f"sharded_bf16_{g}_", timeout=timeout,
+            quorum_timeout=timeout, connect_timeout=timeout,
+            heartbeat_interval=0.05, use_async_quorum=False,
+            state_dict=dict, load_state_dict=lambda sd: None)
+        try:
+            manager.start_quorum(allow_heal=False)
+            rank = manager.transport_rank()
+            _, mine, leaves = pkg.ShardedGradReducer(manager).reduce(
+                grads_by_rank[rank], sharded=sharded)
+            if mine != rank or not manager.should_commit():
+                raise AssertionError(f"wire rank {rank} (reducer {mine}) "
+                                     "did not commit its reduce")
+            out[rank] = {i: np.array(a, copy=True) for i, a in leaves.items()}
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(f"group {g}: {e!r}")
+        finally:
+            manager.shutdown(wait=False)
+
+    threads = [threading.Thread(target=group, args=(g,), name=f"bf16_{g}")
+               for g in range(world)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=4 * timeout)
+    finally:
+        lighthouse.shutdown()
+        for st in stores:
+            st.shutdown()
+    if errors or any(o is None for o in out):
+        raise AssertionError("; ".join(errors) or "a group hung")
+    return out
+
+
+def same_bits(a, b) -> bool:
+    """Two host arrays of one dtype and shape, equal bit for bit."""
+    import numpy as np
+
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def sharded_bf16(cfg, seed: int, card: str, batch: int = 8) -> int:
+    """F22's rest on the card: one forward/backward of ``cfg`` (the flash
+    kernels at its head_dim), its gradients cast to bfloat16 on the card,
+    rank r's scaled by ``SHARDED_BF16_SCALES[r]``; two port
+    ``ShardedGradReducer`` reduce them (``reduce_sharded``) with
+    ``sharded=True`` and ``sharded=False``. Each rank's owned shards must
+    be bitwise the same reduction of the same bf16 values from CPU
+    tensors, and the replicated arm bitwise the sharded arm on every
+    shard; within ``SHARDED_BF16_BUDGET_S``. Returns the passes (1)."""
+    import torch
+
+    from torchft_tpu_torch.models import GPT
+
+    device = SHARDED_BF16_DEVICE
+    t0 = time.perf_counter()
+    model = GPT(cfg, device=device, seed=seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len),
+                           generator=gen, device=device)
+    model.loss(tokens, torch.roll(tokens, -1, dims=1)).backward()
+    grads = [[(p.grad * s).to(torch.bfloat16) for p in model.parameters()]
+             for s in SHARDED_BF16_SCALES]
+    del model
+    if device != "cpu":
+        torch.cuda.synchronize()
+    staged = sum(g.numel() * g.element_size() for g in grads[0])
+    t1 = time.perf_counter()
+    on_card = {arm: reduce_sharded(grads, sharded=arm) for arm in (True, False)}
+    t2 = time.perf_counter()
+    on_cpu = reduce_sharded([[g.cpu() for g in gs] for gs in grads], True)
+    t3 = time.perf_counter()
+    del grads
+    n = len(on_card[False][0])
+    for rank, owned in enumerate(on_card[True]):
+        if not owned or sorted(owned) != sorted(on_cpu[rank]):
+            raise AssertionError(f"sharded_bf16: rank {rank} owns "
+                                 f"{sorted(owned)} from the card, "
+                                 f"{sorted(on_cpu[rank])} from the CPU")
+        for i, a in owned.items():
+            if a.dtype.name != "bfloat16":
+                raise AssertionError(f"sharded_bf16: leaf {i} came back "
+                                     f"{a.dtype}, not bfloat16")
+            if not same_bits(a, on_cpu[rank][i]):
+                raise AssertionError(f"sharded_bf16: rank {rank} leaf {i} "
+                                     "differs from the CPU tensors' reduce")
+            for full in on_card[False]:
+                if not same_bits(a, full[i]):
+                    raise AssertionError(
+                        f"sharded_bf16: leaf {i} of the replicated arm "
+                        "differs from the sharded arm's")
+    if sorted(i for o in on_card[True] for i in o) != list(range(n)):
+        raise AssertionError("sharded_bf16: the owned shards do not cover "
+                             f"the {n} leaves once each")
+    seconds = time.perf_counter() - t0
+    log(f"  sharded_bf16: {n} bf16 leaves, {staged} bytes staged a rank, "
+        f"{len(SHARDED_BF16_SCALES)} ranks; owned shards "
+        f"{[len(o) for o in on_card[True]]} leaves bitwise the CPU "
+        f"tensors' reduce, the replicated arm bitwise the sharded arm on "
+        f"every shard; {seconds:.1f} s (pass and cast {t1 - t0:.1f}, card "
+        f"arms {t2 - t1:.1f}, CPU arm {t3 - t2:.1f}) ({card})")
+    if seconds > SHARDED_BF16_BUDGET_S:
+        raise AssertionError(f"sharded_bf16 took {seconds:.1f} s, over its "
+                             f"{SHARDED_BF16_BUDGET_S:.0f} s")
+    return 1
+
+
 def phase_train_sharded(seed: int, card: str, batch: int = 8):
     """The reference example's two remaining arms (module docstring, phase
     5): returns the flash launches, each codec kernel's launches, and the
@@ -5504,6 +5664,10 @@ def phase_train_sharded(seed: int, card: str, batch: int = 8):
         f"with a peer; p50 ms {_p50s(runs[0].metrics, SHARDED_PHASES)} "
         f"({card})")
     del card_runs, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) sharded_bf16: bf16 gradients through the sharded reducer
+    passes += sharded_bf16(cfg, seed, card, batch)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  phase {time.perf_counter() - t0:.1f} s; device memory held "

@@ -611,6 +611,7 @@ def _tiny_sharded(monkeypatch, free=1e12):
         fn = getattr(example, name)
         monkeypatch.setattr(example, name, lambda cfg, _fn=fn, **kw: _fn(
             cfg, **dict(kw, device="cpu", batch_size=2, timeout=30.0)))
+    monkeypatch.setattr(smoke, "SHARDED_BF16_DEVICE", "cpu")
     return smoke, lines
 
 
@@ -621,17 +622,69 @@ def test_train_sharded_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
     smoke, lines = _tiny_sharded(monkeypatch)
     flash_launches, codec = smoke.phase_train_sharded(0, "CPU")
     text = "\n".join(lines)
-    # (b) 3 x 7 - 1 drill passes, 3 x 3 replicated; (a) 2 x 2 x 2; (c) 2 x 2
-    assert flash_launches == CONFIGS["tiny"].n_layers * (20 + 9 + 8 + 4)
-    # "tiny" has one DDP bucket: 2 x 2 x 1 x 2, then 2 sharded scatters
+    # (b) 3 x 7 - 1 drill passes, 3 x 3 replicated; (a) 2 x 2 x 2; (c) 2 x 2;
+    # (d) sharded_bf16's one pass
+    assert flash_launches == CONFIGS["tiny"].n_layers * (20 + 9 + 8 + 4 + 1)
+    # "tiny" has one DDP bucket: 2 x 2 x 1 x 2, then 2 sharded scatters;
+    # sharded_bf16 rides the TCP wire, no codec kernel
     assert codec == 8 + 2
     assert "steps 1-3 bitwise equal to the replicated arm" in text
     assert "(a) streamed == lock-step bitwise" in text
     assert "(c) sharded on the int8 card plane" in text
+    # sharded_bf16 last, after (c): the bitwise oracle and the bytes
+    assert text.index("(c) sharded on the int8 card plane") < \
+        text.index("sharded_bf16:")
+    assert "bitwise the CPU tensors' reduce, the replicated arm bitwise " \
+        "the sharded arm on every shard" in text
+    n = sum(p.numel() for p in GPT(CONFIGS["tiny"], device="cpu").parameters())
+    assert f"{2 * n} bytes staged a rank" in text
     for g in (0, 1, 2):
         assert f"g{g} life 0: optimizer state held" in text
     assert "g0 life 1" in text and "heal plan (moved, lower bound) [(" \
         in text
+
+
+def test_sharded_bf16_budget_and_scales() -> None:
+    # F22's rest on the card: two ranks, rank 1's gradient 0.75 x rank 0's
+    # (the bf16 sum then rounds), within 20 s of the 900 s script
+    smoke = _smoke()
+    assert smoke.SHARDED_BF16_SCALES == (1.0, 0.75)
+    assert smoke.SHARDED_BF16_BUDGET_S == 20.0
+    assert smoke.SHARDED_BF16_DEVICE == "cuda"
+
+
+@pytest.mark.parametrize("fault", ["card_arm", "replicated_arm", "slow"])
+def test_sharded_bf16_oracle_fails_on_a_difference(monkeypatch,
+                                                   fault) -> None:
+    # the sub-check at "tiny" on the CPU fails when one owned leaf of the
+    # card's sharded arm differs from the CPU tensors' reduce, when the
+    # replicated arm differs from the sharded arm, or over its budget
+    import numpy as np
+
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "log", lambda m: None)
+    reduce = smoke.reduce_sharded
+    calls = []
+
+    def flipped(grads, sharded, **kw):
+        out = reduce(grads, sharded, **kw)
+        calls.append(sharded)
+        arm = {"card_arm": (1, True), "replicated_arm": (2, False)}
+        if arm.get(fault) == (len(calls), sharded):
+            leaf = next(iter(out[0]))
+            bits = out[0][leaf].view(np.uint16)
+            bits.flat[0] ^= 1
+        return out
+
+    monkeypatch.setattr(smoke, "reduce_sharded", flipped)
+    monkeypatch.setattr(smoke, "SHARDED_BF16_DEVICE", "cpu")
+    if fault == "slow":
+        monkeypatch.setattr(smoke, "SHARDED_BF16_BUDGET_S", 0.0)
+    match = {"card_arm": "differs from the CPU tensors' reduce",
+             "replicated_arm": "replicated arm differs",
+             "slow": "over its"}[fault]
+    with pytest.raises(AssertionError, match=match):
+        smoke.sharded_bf16(CONFIGS["tiny"], 0, "CPU", batch=2)
 
 
 def test_check_sharded_drill_catches_an_overship() -> None:

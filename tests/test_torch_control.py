@@ -359,3 +359,59 @@ def test_lighthouse_cli_serves_a_domain_tier() -> None:
         proc.terminate()
         proc.wait(timeout=10)
         root.shutdown()
+
+
+# --- the binding itself: every symbol the reference declares ---------------
+
+
+def _reference_symbols():
+    """The ``ft_*`` symbols the reference binding's ``_configure``
+    declares."""
+    import inspect
+    import re
+
+    from torchft_tpu.control import _native as ref_native
+
+    return sorted(set(re.findall(r"\blib\.(ft_\w+)\.",
+                                 inspect.getsource(ref_native._configure))))
+
+
+def test_binding_declares_every_reference_symbol_alike() -> None:
+    # F23: an undeclared symbol returns a C int; ctypes then cuts a
+    # returned char* and ft_free frees a wild pointer
+    from torchft_tpu.control._native import get_lib as ref_lib
+    from torchft_tpu_torch.control._native import get_lib as port_lib
+
+    names = _reference_symbols()
+    assert "ft_json_roundtrip" in names and len(names) > 30
+    for name in names:
+        ref, port = getattr(ref_lib(), name), getattr(port_lib(), name)
+        assert port.restype == ref.restype, name
+        assert list(port.argtypes or ()) == list(ref.argtypes or ()), name
+
+
+def test_json_roundtrip_through_both_bindings() -> None:
+    # the reference's cases (tests/test_quorum_kernel.py) through each
+    # package's binding: the same JSON back from the native parser
+    import ctypes
+    import json
+
+    from torchft_tpu.control import _native as ref_native
+    from torchft_tpu_torch.control import _native as port_native
+
+    cases = [
+        '{"a":1,"b":[true,false,null],"c":"x\\ny","d":-3.5}',
+        '{"nested":{"deep":{"n":9223372036854775807}}}',
+        '{"uni":"\\u00e9\\u4e2d"}',
+        "[]",
+    ]
+    for case in cases:
+        outs = []
+        for native in (port_native, ref_native):
+            err = ctypes.c_char_p()
+            ptr = native.get_lib().ft_json_roundtrip(case.encode(),
+                                                     ctypes.byref(err))
+            native.check_error(err)
+            outs.append(native.take_string(ptr))
+        assert outs[0] == outs[1]
+        assert json.loads(outs[0]) == json.loads(case)

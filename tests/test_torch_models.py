@@ -128,6 +128,19 @@ def test_count_params_tiny() -> None:
     assert count_params(model) == jtf.count_params(jparams)
 
 
+def test_transformer_125m_param_count() -> None:
+    # the reference's shape-only count (there a slow case), here on the
+    # meta device: the same leaves' shapes, so the same count
+    cfg = CONFIGS["125m"]
+    shapes = jax.eval_shape(lambda k: jtf.init_params(jtf.CONFIGS["125m"], k),
+                            jax.random.key(0))
+    want = sum(int(np.prod(l.shape))
+               for l in jax.tree_util.tree_leaves(shapes))
+    n = count_params(GPT(cfg, device="meta"))
+    assert n == want == 136_091_136
+    assert 120e6 < n < 180e6
+
+
 def test_default_device_is_cuda_and_never_falls_back() -> None:
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU; the default device works")

@@ -819,3 +819,148 @@ def test_manifest_paths_match_across_packages_not_indices() -> None:
     finally:
         port.shutdown()
         ref.shutdown(wait=False)
+
+
+# ------------------------------------------- bfloat16 through the reducer
+
+
+def _bf16_grads(world, seed=17):
+    """Per rank a gradient list as the JAX package takes it (ml_dtypes'
+    bfloat16 arrays, one float32 leaf between them, so the buckets group
+    by dtype) and as the port takes it (torch tensors of the same bits)."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(seed)
+    shapes = [(33, 7), (129,), (5, 4, 3), (64,), (2, 300)]
+    ref = []
+    for rank in range(world):
+        leaves = [(rng.standard_normal(s) * (rank + 1)).astype(
+            ml_dtypes.bfloat16) for s in shapes]
+        leaves[3] = leaves[3].astype(np.float32)
+        ref.append(leaves)
+    port = [[torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+             if a.dtype.name == "bfloat16" else torch.from_numpy(a.copy())
+             for a in leaves] for leaves in ref]
+    return ref, port
+
+
+def _reference_reducer_pkg():
+    from types import SimpleNamespace
+
+    from torchft_tpu.comm.store import StoreServer as RefStore
+    from torchft_tpu.comm.transport import TcpCommContext as RefTcp
+    from torchft_tpu.control import Lighthouse as RefLighthouse
+    from torchft_tpu.ddp import ShardedGradReducer as RefReducer
+    from torchft_tpu.manager import Manager as RefManager
+
+    return SimpleNamespace(Lighthouse=RefLighthouse, StoreServer=RefStore,
+                           TcpCommContext=RefTcp, Manager=RefManager,
+                           ShardedGradReducer=RefReducer)
+
+
+@pytest.mark.parametrize("world", [1, 2, 3])
+@pytest.mark.parametrize("sharded", [True, False])
+def test_bf16_gradients_reduce_bitwise_as_the_reference(world,
+                                                        sharded) -> None:
+    # F22's rest: the port's ShardedGradReducer stages and returns
+    # bfloat16 gradients (ml_dtypes' bfloat16 host arrays, as the
+    # reference's), each wire rank's leaves bitwise the reference
+    # reducer's on the same values under real Managers (the AVG scaling
+    # included); the sharded arm's owned leaves are the replicated arm's
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    ref_grads, port_grads = _bf16_grads(world)
+    port = smoke.reduce_sharded(port_grads, sharded, timeout=20.0)
+    ref = smoke.reduce_sharded(ref_grads, sharded,
+                               pkg=_reference_reducer_pkg(), timeout=20.0)
+    n = len(ref_grads[0])
+    for rank in range(world):
+        assert sorted(port[rank]) == sorted(ref[rank])
+        for i, a in port[rank].items():
+            assert a.dtype == ref[rank][i].dtype, (i, a.dtype)
+            assert smoke.same_bits(a, ref[rank][i]), (rank, i)
+    if sharded:
+        assert sorted(i for p in port for i in p) == list(range(n))
+        full = smoke.reduce_sharded(port_grads, False, timeout=20.0)
+        for rank, owned in enumerate(port):
+            for i, a in owned.items():
+                assert smoke.same_bits(a, full[rank][i])
+    else:
+        assert all(sorted(p) == list(range(n)) for p in port)
+    assert {a.dtype.name for p in port for a in p.values()} == \
+        {"bfloat16", "float32"}
+
+
+def test_sharded_wrapper_steps_bf16_params(store) -> None:
+    # F26: ShardedOptimizerWrapper steps bfloat16 parameters: the reduced
+    # bf16 leaves reach the update and the allgather through the host
+    # views, the sharded arm is the replicated arm bit for bit, and both
+    # hold against the reference wrapper on the same bf16 values within
+    # one bf16 ulp (torch rounds lr * g to bf16 before the subtraction,
+    # XLA may fuse the two)
+    import jax.numpy as jnp
+    import ml_dtypes
+    import optax
+
+    from torchft_tpu.comm import StoreServer as JaxStore
+    from torchft_tpu.comm import TcpCommContext as JaxTcp
+    from torchft_tpu.comm.wire_stub import run_stub_ranks as jax_ranks
+    from torchft_tpu.optim import ShardedOptimizerWrapper as JaxWrapper
+
+    bf16 = ml_dtypes.bfloat16
+    params0 = {k: v.astype(bf16) for k, v in _make_params().items()}
+    gseq = [[{k: v.astype(bf16) for k, v in g.items()} for g in step]
+            for step in _grad_seq(_make_params(), 2, 2)]
+
+    def tensor(a):
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+
+    def _port(sharded):
+        def _fn(mgr, rank):
+            params = [torch.nn.Parameter(tensor(params0[k])) for k in _KEYS]
+            opt = ShardedOptimizerWrapper(mgr, sgd(0.1), params,
+                                          sharded=sharded)
+            for s in range(2):
+                mgr.start_quorum()
+                for p, k in zip(params, _KEYS):
+                    p.grad = tensor(gseq[s][rank][k])
+                assert opt.step()
+            assert all(p.dtype == torch.bfloat16 for p in params)
+            return {k: p.detach().view(torch.int16).numpy().view(bf16).copy()
+                    for k, p in zip(_KEYS, params)}
+
+        return run_stub_ranks(store.addr, f"bf16_wrap_{sharded}", 2, _fn,
+                              lambda: TcpCommContext(timeout=15.0,
+                                                     chunk_bytes=256))
+
+    def _ref(mgr, rank):
+        opt = JaxWrapper(mgr, optax.sgd(0.1))
+        params = {k: jnp.asarray(v) for k, v in params0.items()}
+        state = opt.init(params)
+        for s in range(2):
+            mgr.start_quorum()
+            params, state, ok = opt.step(params, state, gseq[s][rank])
+            assert ok
+        return {k: np.asarray(v) for k, v in params.items()}
+
+    server = JaxStore()
+    try:
+        ref = jax_ranks(server.addr, "bf16_wrap_ref", 2, _ref,
+                        lambda: JaxTcp(timeout=15.0, chunk_bytes=256))
+    finally:
+        server.shutdown()
+    sh, rp = _port(True), _port(False)
+    for r in range(2):
+        for k in _KEYS:
+            assert sh[r][k].tobytes() == rp[r][k].tobytes() == \
+                sh[0][k].tobytes(), (r, k)
+            assert ref[r][k].dtype == bf16
+            np.testing.assert_allclose(sh[r][k].astype(np.float32),
+                                       ref[r][k].astype(np.float32),
+                                       rtol=2.0 ** -8, atol=0)

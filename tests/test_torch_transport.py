@@ -408,6 +408,51 @@ def test_codec_bytes_match_reference(codec) -> None:
     assert _bits(outs) == _bits(want)
 
 
+@pytest.mark.parametrize("codec", CODECS)
+def test_encode_views_matches_reference(codec) -> None:
+    # F25: every codec's encode_views, the join of encode_iovecs, is the
+    # reference's bytes on the same views, non-finite values included
+    rng = np.random.default_rng(12)
+    views = [rng.standard_normal(1000).astype(np.float32),
+             rng.standard_normal(7),
+             np.arange(9, dtype=np.int64),
+             np.array([1.0, np.inf, 2.0, np.nan], np.float32),
+             np.zeros(0, np.float32)]
+    port = port_transport._CODECS[codec]()
+    ref = ref_transport._CODECS[codec]()
+    data = port.encode_views(views)
+    assert isinstance(data, bytes)
+    assert data == ref.encode_views(views) == iov_join(
+        port.encode_iovecs(views))
+
+
+@pytest.mark.parametrize("kinds", [("port", "port"), ("port", "jax")])
+def test_op_delay_serializes_one_lane_and_overlaps_four(jserver,
+                                                        kinds) -> None:
+    # F24: the per-op wire latency hook (``_op_delay``) of both packages'
+    # contexts, a cohort of each kind, with the bounds of
+    # tests/test_comm.py: three ops on one lane take at least 3 x 0.1 s
+    # (x 0.95), four on four lanes under 4 x 0.15 s (x 0.75)
+    def run(n_ops, delay, channels, tag):
+        def body(ctx, rank):
+            ctx._op_delay = delay
+            t0 = time.perf_counter()
+            works = [ctx.allreduce([np.full(8, float(rank + 1), np.float32)])
+                     for _ in range(n_ops)]
+            outs = [w.future().result(timeout=10)[0] for w in works]
+            for out in outs:
+                np.testing.assert_array_equal(out, np.full(8, 3.0))
+            return time.perf_counter() - t0
+
+        return _cohort(kinds, body, jserver.addr, f"{tag}_{'_'.join(kinds)}",
+                       channels=channels)
+
+    for elapsed in run(3, 0.1, 1, "delay_serial"):
+        assert elapsed >= 3 * 0.1 * 0.95, elapsed
+    for elapsed in run(4, 0.15, 4, "delay_overlap"):
+        assert elapsed < 4 * 0.15 * 0.75, elapsed
+
+
 def test_chunk_grid_owned_matches_reference() -> None:
     flats = [np.zeros(n, np.float32) for n in (0, 1, 1024, 1025, 3000)]
     owners = [0, 1, 2, 0, 1]

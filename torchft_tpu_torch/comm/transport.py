@@ -414,6 +414,11 @@ class _NoCodec:
         views themselves (zero copy)."""
         return list(views)
 
+    def encode_views(self, views: Sequence[np.ndarray]) -> bytes:
+        """The encoded payload as one buffer: the join of
+        :meth:`encode_iovecs`."""
+        return iov_join(self.encode_iovecs(views))
+
     def decode_into(self, data: bytes, views: Sequence[np.ndarray],
                     combine) -> None:
         _decode_into(data, views, combine)
@@ -424,10 +429,18 @@ class _NoCodec:
 
 
 def _to_bf16_bits(v: np.ndarray) -> np.ndarray:
+    """bfloat16 bits of ``v``, round to nearest even, a NaN as the quiet
+    NaN of its sign (0x7FC0 / 0xFFC0), the reference's bytes (torch's
+    vectorized cast writes 0xFFFF for every NaN)."""
     import torch
 
-    return (torch.from_numpy(np.ascontiguousarray(v)).to(torch.bfloat16)
-            .view(torch.int16).numpy())
+    v = np.ascontiguousarray(v)
+    bits = torch.from_numpy(v).to(torch.bfloat16).view(torch.int16).numpy()
+    nan = np.isnan(v)
+    if nan.any():
+        bits[nan] = np.where(np.signbit(v[nan]), np.int16(-64),
+                             np.int16(0x7FC0))
+    return bits
 
 
 def _from_bf16_bits(bits: np.ndarray, dtype: np.dtype) -> np.ndarray:
@@ -750,6 +763,8 @@ class _Lane:
     def _execute(self, p: _PendingOp):
         self._seq += 1
         ctx = self._ctx
+        if ctx._op_delay:
+            time.sleep(ctx._op_delay)
         if ctx._world_size == 1:
             if p.opcode in _GRAD_OPCODES:
                 # solo wire: the op's vote is this rank's own health, the
@@ -1178,6 +1193,7 @@ class TcpCommContext(CommContext):
         self._rr = 0
         self._listener: Optional[socket.socket] = None
         self._error: Optional[Exception] = None
+        self._op_delay = 0.0  # test hook: simulated per-op wire latency
         # data-plane commit votes: the aggregate health bytes that rode
         # this context's collectives since the last take_commit_vote
         self._vote_health = None

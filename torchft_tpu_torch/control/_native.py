@@ -198,6 +198,8 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.ft_compute_quorum_results.argtypes = [c_char_p, c_i64, c_char_p,
                                               err_p]
     lib.ft_compute_quorum_results.restype = c_void_p
+    lib.ft_json_roundtrip.argtypes = [c_char_p, err_p]
+    lib.ft_json_roundtrip.restype = c_void_p
 
     # incremental-quorum driver (the byte-identity oracle in the tests)
     lib.ft_iq_new.argtypes = [c_char_p, c_int, c_i64, err_p]

@@ -731,14 +731,14 @@ class ShardedGradReducer:
         metrics = getattr(mgr, "metrics", None)
         if world == 1:
             # solo wire: the average is an identity
-            return plan, 0, {i: g.detach().cpu().numpy()
+            return plan, 0, {i: _host_view(g.detach().cpu())
                              for i, g in enumerate(grads)}
         with self._lock:
             arena = self._arenas[world]
         if arena.staging is None:
             arena.staging = plan.alloc_staging(
                 pin=bool(grads) and grads[0].is_cuda)
-            arena.views = [s.numpy() for s in arena.staging]
+            arena.views = [_host_view(s) for s in arena.staging]
         views = arena.views
         ef = _ef_gate(mgr, self._error_feedback)
         if ef:

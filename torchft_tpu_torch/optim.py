@@ -87,6 +87,7 @@ from typing import (Any, Callable, ContextManager, Dict, Iterator, List,
 import numpy as np
 import torch
 
+from torchft_tpu_torch.ddp import _from_host, _host_view
 from torchft_tpu_torch.utils.metrics import Metrics
 
 logger = logging.getLogger(__name__)
@@ -1087,8 +1088,7 @@ class ShardedOptimizerWrapper:
         """Leaf ``i``'s staged update: ``(new_param, new_state)``, nothing
         adopted."""
         p = self.params[i].detach()
-        g = torch.from_numpy(np.ascontiguousarray(grad)).to(
-            device=p.device, dtype=p.dtype)
+        g = _from_host(grad).to(device=p.device, dtype=p.dtype)
         updates, new_state = self.tx.update([g], self.state.leaf_states[i],
                                             [p])
         return apply_updates([p], updates)[0], new_state
@@ -1154,7 +1154,7 @@ class ShardedOptimizerWrapper:
                 self.params[i].copy_(new_param)
         if not self._sharded or plan.world_size == 1:
             return True
-        contrib = [staged[i][0].cpu().numpy() for i in owned]
+        contrib = [_host_view(staged[i][0].cpu()) for i in owned]
         gathered = mgr.allgather_arrays(contrib).future().result()
         errored = getattr(mgr, "errored", None)
         if callable(errored) and errored() is not None:
@@ -1173,7 +1173,7 @@ class ShardedOptimizerWrapper:
                         f"contributed {len(got)} of {stop - start} leaves; "
                         "restart and heal from a peer")
                 for j, i in enumerate(range(start, stop)):
-                    self.params[i].copy_(torch.from_numpy(
+                    self.params[i].copy_(_from_host(
                         np.asarray(got[j]).reshape(plan.shapes[i])))
         return True
 
