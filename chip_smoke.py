@@ -63,8 +63,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    must be bitwise restored at its address, the decision read, and the
    retried step bitwise equal to the other group's, whose update never
    raised; every flash kernel launched once per layer per pass (5 passes).
-4. train_multijob: the multi-tenant control plane at "125m", full width
-   and depth, batch 8, over TCP at codec none, on one lighthouse granting 2
+4. train_multijob: the multi-tenant control plane at "125m"'s full
+   width, its depth cut to ``CUT_LAYERS`` = 6 (hi0 too) to keep the script
+   under 900 s, batch 8, over TCP at codec none, on one lighthouse granting 2
    s epoch leases with ``fleet_capacity`` 5 (``run_multijob_drill``). Job
    "a" (priority 5): DDP groups a0 and a1 and an observer
    (``data_plane=False``) running a forward-only probe; job "b" (priority
@@ -83,7 +84,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``quorum_compute_count`` and ``lease_breaks`` flat across them; b1
    evicted within 5 s with a ``job_preempted`` event and its parameters
    as committed, ``jobs.b`` one preemption naming b1; every flash kernel
-   launched 12 x (training passes + observer passes (forward only) +
+   launched 6 x (training passes + observer passes (forward only) +
    capture warm-up passes), none of the codec kernels. It first checks the
    device memory (``multijob_device_bytes``; hi0 runs at "tiny" if it
    does not fit) and the host's (``multijob_host_bytes``); it runs before
@@ -126,7 +127,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel must have launched exactly twice per gradient bucket per
    allreduce with a peer on the wire. Then the plane on the card is held
    bitwise against the plane on the CPU at each of the drill's bucket
-   sizes. The phase lays itself over the visible cards, cycled (group g
+   sizes. Before that count, ``pytree_allreduce`` (ROADMAP F28): one
+   more forward/backward of "125m" gives a step's gradient tree, and two
+   groups (port Managers on one lighthouse, the same int8 plane) reduce it
+   (group g's times ``PYTREE_SCALES[g]``) through
+   ``Manager.allreduce_pytree`` and, in the same quorum, the same leaves
+   as host arrays through ``allreduce_arrays``: every leaf back on its
+   card in its dtype, bitwise the arrays' result; its pass adds 12 launches
+   of each flash kernel and each f32 leaf of each arm one op's codec
+   launches. The phase lays itself over the visible cards, cycled (group g
    on card g mod the cards, one ``DevicePool`` over them): over two cards
    or more each rank's row is quantized on its own card, the int8 rows
    move to each owner's card and the result back to every card, so each
@@ -144,7 +153,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    card.
 
 9. train_diloco: BASELINE config 4's shape, the DiLoCo example
-   (``run_diloco_drill``) at "125m", full width and depth, batch 8: two
+   (``run_diloco_drill``) at "125m"'s full width, its depth cut to
+   ``CUT_LAYERS`` = 6 to keep the script under 900 s, batch 8: two
    groups over TCP at codec none, ``sync_every=8``, 2 streaming fragments,
    outer ``sgd(0.7, momentum=0.9, nesterov=True)``, inner AdamW (3e-4,
    weight decay 0.1, betas 0.9/0.95) as one CUDA graph a step. Both commit
@@ -153,7 +163,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    4's fence; both commit rounds 4-5. After every round both commit, their
    parameters and outer states must be bitwise equal (the healed group
    equal to its donor), the losses finite, and every flash kernel launched
-   12 x (inner steps + capture warm-up passes) times. It prints the outer
+   6 x (inner steps + capture warm-up passes) times. It prints the outer
    sync's phase p50s and gauges, the round times and the heal.
 10. train_localsgd_int8: BASELINE config 3's shape, LocalSGD at "125m"'s
    full width, its depth cut to ``CUT_LAYERS`` = 6 to keep the script
@@ -210,8 +220,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel launched once per layer per pass, graph replays (the capture's
    tally) and the capture's warm-up passes included. It first checks the
    disk (``durable_disk_bytes``, 6.7 GB at 6 layers) and fails if short.
-   Then the fused step against the same step run eagerly, bitwise after 3
-   steps, and the device time of each.
+   Then ``full_stream`` (ROADMAP F29): the last committed state (group 0's
+   newest checkpoint: model, AdamW, sampler and step), moved to the card,
+   is staged by a port donor and fetched by two port healers,
+   ``num_chunks=0`` (the legacy full stream, one pickle) and
+   ``num_chunks=2``: bitwise equal leaf by leaf, with the bytes, seconds
+   and GB/s of each. Then the fused step against the same step run
+   eagerly, bitwise after 3 steps, and the device time of each.
 
 13. train_moe (it runs after train_sharded, before the phases that keep
    the card plane's buffers): the reference's ``examples/train_moe.py`` at
@@ -669,7 +684,9 @@ def phase_seconds(starts: list, end: float) -> dict:
 # the depth of the phases cut to keep the script under 900 s at full
 # width: train_sharded, train_moe, train_hsdp, train_moe_expert,
 # train_diloco_sharded, train_localsgd_int8, train_hier_int8,
-# train_durable and, to make room for train_churn, train_proc
+# train_durable, train_proc (for train_churn's room) and train_multijob
+# and train_diloco (for train_cuda_int8's pytree_allreduce and
+# train_durable's full_stream)
 CUT_LAYERS = 6
 
 
@@ -1896,6 +1913,127 @@ def check_plane_at_buckets(sizes, seed: int, cards=None) -> None:
             if not same:
                 raise AssertionError(f"int8 {what} differs from the CPU "
                                      f"plane at a bucket of {size}")
+
+
+# train_cuda_int8's pytree_allreduce: group g reduces the step's gradient
+# tree times PYTREE_SCALES[g]
+PYTREE_SCALES = (1.0, 0.75)
+
+
+def pytree_allreduce(cfg, seed: int, card: str, batch: int = 8,
+                     device: str = "cuda", positions=None) -> "tuple":
+    """Manager.allreduce_pytree (ROADMAP F28) on the int8 card plane: one
+    forward/backward of ``cfg`` on ``device`` gives a gradient tree (a
+    dict of the parameters' gradients on the card); two groups, port
+    Managers on one lighthouse over ``CudaCommContext`` (psum, int8) on a
+    ``DevicePool`` over ``positions`` (group g on ``positions[g]``), reduce
+    group g's tree times ``PYTREE_SCALES[g]`` through ``allreduce_pytree``
+    and, in the same quorum, the same leaves as host arrays through
+    ``allreduce_arrays``. Every leaf must come back on its card in its
+    dtype, bitwise the arrays' result. Returns (passes, codec ops): 1
+    pass, and the f32 payloads both arms reduced (each one op)."""
+    import threading
+
+    import torch
+
+    from torchft_tpu_torch.comm.cuda_backend import (CudaCommContext,
+                                                     DevicePool)
+    from torchft_tpu_torch.comm.store import StoreServer
+    from torchft_tpu_torch.control import Lighthouse
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.models import GPT
+    from torchft_tpu_torch.utils.serialization import to_numpy, tree_leaves
+
+    world = len(PYTREE_SCALES)
+    positions = positions or [device] * world
+    t0 = time.perf_counter()
+    model = GPT(cfg, device=device, seed=seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len),
+                           generator=gen, device=device)
+    model.loss(tokens, torch.roll(tokens, -1, dims=1)).backward()
+    trees = [{name: p.grad * s for name, p in model.named_parameters()}
+             for s in PYTREE_SCALES]
+    del model
+    leaves = tree_leaves(trees[0])
+    nbytes = sum(g.numel() * g.element_size() for g in leaves)
+    ops = sum(1 for g in leaves if g.dtype == torch.float32 and g.numel())
+    pool = DevicePool(devices=positions[:world])
+    lighthouse = Lighthouse(min_replicas=world, join_timeout_ms=100)
+    stores = [StoreServer() for _ in range(world)]
+    out, errors = [None] * world, []
+    seconds = [dict() for _ in range(world)]
+
+    def group(g):
+        manager = Manager(
+            comm=CudaCommContext(timeout=120.0, chunk_bytes=CHUNK_BYTES,
+                                 device_pool=pool, **INT8_OPTIONS),
+            min_replica_size=world, rank=0, world_size=1,
+            store_addr=stores[g].addr, lighthouse_addr=lighthouse.address(),
+            replica_id=f"pytree_{g}_", timeout=120.0, quorum_timeout=120.0,
+            connect_timeout=120.0, heartbeat_interval=0.05,
+            use_async_quorum=False, state_dict=dict,
+            load_state_dict=lambda sd: None)
+        try:
+            manager.start_quorum(allow_heal=False)
+            tree = trees[g]
+            ta = time.perf_counter()
+            got = manager.allreduce_pytree(tree).result(timeout=240)
+            tb = time.perf_counter()
+            host = [to_numpy(t).copy() for t in tree_leaves(tree)]
+            tc = time.perf_counter()
+            arrays = manager.allreduce_arrays(host).future().result(240)
+            td = time.perf_counter()
+            if not manager.should_commit():
+                raise AssertionError("the step did not commit")
+            seconds[g] = {"pytree": tb - ta, "arrays": td - tc}
+            out[g] = (got, arrays)
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(f"group {g}: {e!r}")
+        finally:
+            manager.shutdown(wait=False)
+
+    threads = [threading.Thread(target=group, args=(g,), name=f"pytree_{g}")
+               for g in range(world)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        lighthouse.shutdown()
+        for st in stores:
+            st.shutdown()
+    if errors or any(o is None for o in out):
+        raise AssertionError("pytree_allreduce: "
+                             + ("; ".join(errors) or "a group hung"))
+    for g, (got, arrays) in enumerate(out):
+        src = trees[g]
+        if list(got) != sorted(src):
+            raise AssertionError("pytree_allreduce: the result's keys are "
+                                 "not the tree's, sorted")
+        for (name, t), a in zip(sorted(got.items()), arrays):
+            if not isinstance(t, torch.Tensor) or t.dtype != src[name].dtype \
+                    or t.device != src[name].device:
+                raise AssertionError(
+                    f"pytree_allreduce: group {g} leaf {name} came back "
+                    f"{type(t).__name__} {getattr(t, 'dtype', '')} on "
+                    f"{getattr(t, 'device', '')}, not {src[name].dtype} on "
+                    f"{src[name].device}")
+            if not same_bits(to_numpy(t), a):
+                raise AssertionError(
+                    f"pytree_allreduce: group {g} leaf {name} differs from "
+                    "allreduce_arrays of the same host leaves")
+    del trees, out
+    wall = time.perf_counter() - t0
+    py = max(s["pytree"] for s in seconds)
+    ar = max(s["arrays"] for s in seconds)
+    log(f"  pytree_allreduce: {len(leaves)} leaves, {nbytes} bytes a group, "
+        f"{world} groups on the int8 card plane; every leaf back on its "
+        f"card in its dtype, bitwise allreduce_arrays of the same host "
+        f"leaves; allreduce_pytree {py:.2f} s, allreduce_arrays "
+        f"{ar:.2f} s; {wall:.1f} s with the pass ({card})")
+    return 1, 2 * ops
 
 
 # the loss of the 1b GPT with the kernels against the same model with
@@ -4472,7 +4610,8 @@ def durable_report(result: dict, batch: int, seq: int, card: str) -> list:
     return lines
 
 
-def phase_train_durable(seed: int, card: str, batch: int = 8):
+def phase_train_durable(seed: int, card: str, batch: int = 8,
+                        device: str = "cuda"):
     """run_resume_drill at "125m"'s full width, its depth cut to
     ``CUT_LAYERS``, over TCP under a
     lease_ms=2000 lighthouse, checkpoints in a temporary directory that is
@@ -4494,7 +4633,7 @@ def phase_train_durable(seed: int, card: str, batch: int = 8):
         log(f"  125m at {cfg.n_layers} layers: {n_params} parameters; checkpoints under {directory}: "
             f"up to {need / 1e9:.2f} GB, {free / 1e9:.1f} GB free")
         t0 = time.perf_counter()
-        result = run_resume_drill(cfg, device="cuda", batch_size=batch,
+        result = run_resume_drill(cfg, device=device, batch_size=batch,
                                   seed=seed, timeout=120.0,
                                   ckpt_dir=directory,
                                   log=lambda m: log("  " + m))
@@ -4505,12 +4644,101 @@ def phase_train_durable(seed: int, card: str, batch: int = 8):
             f"{result['telemetry']['control_rpcs_per_step']}")
         for line in durable_report(result, batch, cfg.max_seq_len, card):
             log("  " + line)
+        full_stream(last_committed_state(directory, device), card)
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     if result["runs"][0][0].captures < 1 and result["runs"][0][0].fused_steps:
         raise AssertionError("group 0's fused steps ran without a CUDA graph")
     log(f"  forward/backward passes of all runs: {result['passes']}")
     return result["passes"] * cfg.n_layers, result
+
+
+def _to_device(tree, device):
+    """``tree`` with its tensor leaves moved to ``device``."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return type(tree)((k, _to_device(v, device)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree
+
+
+def last_committed_state(directory: str, device: str) -> dict:
+    """The resume drill's last committed state, group 0's newest
+    checkpoint under ``directory`` (model, AdamW, sampler), its tensors on
+    ``device``, in a heal's shape (``{"user": ..., "torchft": ...}``)."""
+    from torchft_tpu_torch.checkpoint_io import (latest_checkpoint,
+                                                 load_checkpoint)
+
+    saved = load_checkpoint(latest_checkpoint(
+        os.path.join(directory, "group0", "ckpt")))
+    return {"user": _to_device(saved["user"], device),
+            "torchft": saved["manager"]}
+
+
+def full_stream(state, card: str, step: int = 1,
+                timeout: float = 120.0) -> dict:
+    """The legacy full-stream heal (ROADMAP F29) against the chunked one:
+    a port donor stages ``state`` (on the card), then two port healers
+    fetch it, ``num_chunks=0`` (one pickle, ``GET /checkpoint/{step}``)
+    and ``num_chunks=2``; the two results must be equal, leaf by leaf, in
+    type, dtype, shape and bits. Returns the bytes and seconds of each."""
+    import numpy as np
+    import torch
+
+    from torchft_tpu_torch.checkpointing import CheckpointServer
+    from torchft_tpu_torch.utils.serialization import tree_flatten_with_path
+
+    donor = CheckpointServer(timeout=timeout)
+    healers = {n: CheckpointServer(timeout=timeout, num_chunks=n)
+               for n in (0, 2)}
+    got, secs = {}, {}
+    try:
+        t0 = time.perf_counter()
+        donor.send_checkpoint([1], step, state, timeout)
+        donor.finish_staging()
+        stage = time.perf_counter() - t0
+        for n, healer in healers.items():
+            t = time.perf_counter()
+            got[n] = healer.recv_checkpoint(0, donor.metadata(), step,
+                                            timeout)
+            secs[n] = time.perf_counter() - t
+    finally:
+        for server in [donor, *healers.values()]:
+            server.shutdown()
+    flat = {n: tree_flatten_with_path(t)[0] for n, t in got.items()}
+    if [p for p, _ in flat[0]] != [p for p, _ in flat[2]]:
+        raise AssertionError("full_stream: the stream's leaves are not the "
+                             "chunked heal's")
+    nbytes = 0
+    for (path, a), (_, b) in zip(flat[0], flat[2]):
+        if type(a) is not type(b):
+            raise AssertionError(f"full_stream: {path} is a "
+                                 f"{type(a).__name__} from the stream, a "
+                                 f"{type(b).__name__} chunked")
+        if isinstance(a, torch.Tensor):
+            same = (a.dtype == b.dtype and a.shape == b.shape
+                    and a.device.type == b.device.type == "cpu"
+                    and torch.equal(a.reshape(-1).view(torch.uint8),
+                                    b.reshape(-1).view(torch.uint8)))
+            nbytes += a.numel() * a.element_size()
+        elif isinstance(a, (np.ndarray, np.generic)):
+            same = (a.dtype == b.dtype and np.shape(a) == np.shape(b)
+                    and np.asarray(a).tobytes() == np.asarray(b).tobytes())
+        else:
+            same = a == b
+        if not same:
+            raise AssertionError(f"full_stream: {path} differs between the "
+                                 "stream and the chunked heal")
+    log(f"  full_stream: {len(flat[0])} leaves, {nbytes} tensor bytes staged "
+        f"from the card in {stage:.2f} s; num_chunks=0 (one pickle) "
+        f"{secs[0]:.2f} s, {nbytes / secs[0] / 1e9:.3f} GB/s; num_chunks=2 "
+        f"{secs[2]:.2f} s, {nbytes / secs[2] / 1e9:.3f} GB/s; bitwise equal "
+        f"({card})")
+    return {"bytes": nbytes, "stream_s": secs[0], "chunked_s": secs[2]}
 
 
 def fused_vs_classic(seed: int, card: str, batch: int = 8, steps: int = 3,
@@ -4608,11 +4836,11 @@ def phase_train_diloco(seed: int, card: str, batch: int = 8):
     from torchft_tpu_torch.examples.train_diloco import run_diloco_drill
     from torchft_tpu_torch.models import CONFIGS, GPT, count_params
 
-    cfg = CONFIGS["125m"]
+    cfg = cut_depth(CONFIGS["125m"])
     n_params = count_params(GPT(cfg, device="meta"))
-    log(f"  125m: {n_params} parameters, batch {batch}, 2 groups over TCP, "
-        f"sync_every 8, 2 fragments: {4 * n_params} bytes of f32 per round "
-        "per group")
+    log(f"  125m at {cfg.n_layers} layers: {n_params} parameters, batch "
+        f"{batch}, 2 groups over TCP, sync_every 8, 2 fragments: "
+        f"{4 * n_params} bytes of f32 per round per group")
     t0 = time.perf_counter()
     result = run_diloco_drill(cfg, device="cuda", batch_size=batch,
                               seed=seed, timeout=120.0,
@@ -5115,7 +5343,7 @@ def phase_train_multijob(seed: int, card: str, batch: int = 8):
     from torchft_tpu_torch.models import CONFIGS, GPT, count_params
 
     t0 = time.perf_counter()
-    cfg = CONFIGS["125m"]
+    cfg = cut_depth(CONFIGS["125m"])
     n_params = count_params(GPT(cfg, device="meta"))
     need_host = multijob_host_bytes(n_params)
     free_host = check_host_memory(need_host, what="train_multijob")
@@ -5134,8 +5362,9 @@ def phase_train_multijob(seed: int, card: str, batch: int = 8):
             raise AssertionError(
                 f"train_multijob needs {need / 1e9:.2f} GB of device memory "
                 f"free, has {free / 1e9:.2f} GB")
-    hi_cfg = CONFIGS[hi_name]
-    log(f"  125m: {n_params} parameters, batch {batch}; jobs a (a0, a1, an "
+    hi_cfg = cut_depth(CONFIGS[hi_name])
+    log(f"  125m at {cfg.n_layers} layers: {n_params} parameters, batch "
+        f"{batch}; jobs a (a0, a1, an "
         f"observer), b (b0, b1) and hi (hi0 at {hi_name}) over TCP at "
         "codec none; "
         f"device memory: up to {need / 1e9:.2f} GB, {free / 1e9:.1f} GB free "
@@ -7030,6 +7259,10 @@ def main() -> int:
             "125m", args.steps, None, args.seed, smi, comm_backend="cuda",
             comm_options=INT8_OPTIONS,
             devices=cards if len(cards) > 1 else None)
+        # then, once, the gradient tree of a step reduced through
+        # Manager.allreduce_pytree beside allreduce_arrays (F28)
+        passes, tree_ops = pytree_allreduce(
+            CONFIGS["125m"], args.seed, smi, positions=groups)
         counts = {**flash.LAUNCHES, **quant.LAUNCHES}
         # the fixed schedule has a peer on the wire in k + 1 + a steps
         # (all but the survivor's solo step); each of those reduces every
@@ -7040,15 +7273,16 @@ def main() -> int:
             raise AssertionError(f"{survivor.wire_steps} steps with a wire "
                                  f"peer, the schedule has {wire_steps}")
         per_op = codec_launches(2, groups)
-        per_kernel = per_op * len(survivor.buckets) * wire_steps
-        log(f"  {len(survivor.buckets)} gradient buckets x {wire_steps} steps "
-            f"with a peer x {per_op} launches = {per_kernel} of each codec "
-            "kernel")
+        per_kernel = per_op * (len(survivor.buckets) * wire_steps + tree_ops)
+        log(f"  ({len(survivor.buckets)} gradient buckets x {wire_steps} "
+            f"steps with a peer + {tree_ops} f32 leaves of pytree_allreduce)"
+            f" x {per_op} launches = {per_kernel} of each codec kernel")
+        want += passes * CONFIGS["125m"].n_layers
         _check_launches(counts, {**{n: want for n in flash.LAUNCHES},
                                  **{n: per_kernel for n in quant.LAUNCHES}},
-                        "flash: one per layer per pass; codec: 2 per bucket "
-                        "per allreduce with a peer on one card, world + "
-                        "cards over several")
+                        "flash: one per layer per pass; codec: 2 per f32 "
+                        "payload (a bucket, a leaf) per allreduce with a "
+                        "peer on one card, world + cards over several")
         _add_launches(rows, counts, CONFIGS["125m"].head_dim)
         check_plane_at_buckets(survivor.buckets, args.seed, groups)
         if len(cards) > 1:

@@ -245,6 +245,27 @@ def f(metrics, tag):
     assert "_wire'" not in msgs  # pattern matched the doc placeholder
 
 
+def test_name_registry_tables_apply_to_the_real_docs_only():
+    # the port's own tables describe docs/operations.md: a check over a
+    # fixture's docs text reports the fixture alone, as the reference's
+    # check does (tests/test_analysis.py runs the same case), and a check
+    # over a tree that lacks one of their names still reports it
+    code = src("torchft_tpu_torch/x.py", """
+def f(ev, metrics):
+    metrics.incr("good_counter")
+    metrics.observe("lane_l0_wire", 0.1)
+    ev.emit("thing_done")
+""")
+    msgs = [f.message for f in name_registry.check([code, EVENTS_PY],
+                                                   docs_text=DOCS)]
+    assert msgs and all("ghost_counter" in m for m in msgs), msgs
+    assert not any("serve_answer" in m or "comm_striped_ops" in m
+                   for m in msgs)
+    root = Path(__file__).resolve().parents[1]
+    real = name_registry.check([code, EVENTS_PY], root=root)
+    assert any("serve_answer" in f.message for f in real)
+
+
 def test_name_registry_catches_unknown_event_kind():
     code = src("torchft_tpu_torch/x.py", """
 def f(ev, metrics):

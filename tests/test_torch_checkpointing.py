@@ -25,6 +25,10 @@ from torchft_tpu_torch import checkpointing as cp
 from torchft_tpu_torch.utils.crc32c import crc32c
 from torchft_tpu_torch.utils.serialization import (
     is_tensor_leaf,
+    pytree_from_bytes,
+    pytree_from_stream,
+    pytree_to_bytes,
+    pytree_to_stream,
     tree_flatten_with_path,
     tree_unflatten,
 )
@@ -73,7 +77,7 @@ def test_flatten_roundtrip() -> None:
     _assert_same(state, tree_unflatten(spec, leaves))
 
 
-@pytest.mark.parametrize("num_chunks", [1, 2, 3])
+@pytest.mark.parametrize("num_chunks", [0, 1, 2, 3])
 def test_checkpoint_roundtrip_bitwise(num_chunks) -> None:
     server = cp.CheckpointServer(timeout=5.0, num_chunks=num_chunks)
     try:
@@ -366,3 +370,127 @@ def test_leaf_fetch_bfloat16() -> None:
     assert dtype == "bfloat16"
     assert np.array_equal(got, w.view(np.uint16))
     assert np.array_equal(shard, w[4:8].view(np.uint16))
+
+
+# ------------------------------------------- the full stream (F29, was L1)
+
+
+def test_serialization_roundtrip() -> None:
+    # the reference's case on tensors: the stream carries the host tree
+    # (a tensor arrives as a numpy array), builtins as they were
+    tree = {
+        "params": {"w": torch.arange(6, dtype=torch.float32).reshape(2, 3)},
+        "step": 7,
+        "nested": [np.ones(2), "label", None],
+    }
+    out = pytree_from_bytes(pytree_to_bytes(tree))
+    np.testing.assert_allclose(out["params"]["w"], np.arange(6).reshape(2, 3))
+    assert isinstance(out["params"]["w"], np.ndarray)  # tensor -> host
+    assert out["step"] == 7
+    assert out["nested"][1] == "label" and out["nested"][2] is None
+    buf = io.BytesIO()
+    pytree_to_stream(tree, buf)
+    buf.seek(0)
+    again = pytree_from_stream(buf)
+    assert again["params"]["w"].tobytes() == out["params"]["w"].tobytes()
+
+
+def _plain_tree(kind: str):
+    """One tree of plain containers in either form: tensors ("torch") or
+    the same values as numpy ("numpy", bf16 as ml_dtypes'), with a 0-d
+    leaf, ints, strings, None, a tuple, an OrderedDict and dict keys out
+    of sorted order."""
+    from collections import OrderedDict
+
+    import ml_dtypes
+
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((4, 5)).astype(np.float32)
+    b = rng.standard_normal(7).astype(ml_dtypes.bfloat16)
+    ids = np.arange(6, dtype=np.int64)
+    s = np.asarray(1.25, np.float32)
+    if kind == "torch":
+        w, ids, s = torch.from_numpy(w), torch.from_numpy(ids), \
+            torch.from_numpy(s)
+        b = torch.from_numpy(b.view(np.int16)).view(torch.bfloat16)
+    return {"z": {"w": w, "b": b}, "a": [ids, s, None, "label", 3, 2.5],
+            "t": (1, (s, "x")),
+            "od": OrderedDict([("y", w), ("x", 4)]),
+            "step": 9}
+
+
+def test_pytree_bytes_equal_the_reference() -> None:
+    from torchft_tpu.utils.serialization import (
+        pytree_to_bytes as jax_pytree_to_bytes)
+
+    got = pytree_to_bytes(_plain_tree("torch"))
+    assert got == jax_pytree_to_bytes(_plain_tree("numpy"))
+    # and the reference reads it as its own
+    back = pytree_from_bytes(got)
+    assert list(back) == ["a", "od", "step", "t", "z"]
+    assert list(back["od"]) == ["y", "x"]
+    assert back["z"]["b"].dtype.name == "bfloat16"
+    assert back["a"][1].shape == () and back["a"][2] is None
+
+
+def _leaves_bits(tree) -> list:
+    out = []
+    for path, x in tree_flatten_with_path(tree)[0]:
+        if isinstance(x, torch.Tensor):
+            from torchft_tpu_torch.utils.serialization import to_numpy
+            x = to_numpy(x)
+        if isinstance(x, np.ndarray):
+            out.append((path, x.dtype.name, x.shape, x.tobytes()))
+        else:
+            out.append((path, x))
+    return out
+
+
+def test_full_stream_heals_across_packages() -> None:
+    # a reference healer on its default full stream heals from a port
+    # donor, and a port healer with num_chunks=0 from a reference donor
+    # (plain containers and arrays), both bitwise
+    jcp = _jax_cp()
+    pstate, jstate = _plain_tree("torch"), _plain_tree("numpy")
+    pd, jd = cp.CheckpointServer(timeout=5.0), jcp.CheckpointServer(
+        timeout=5.0)
+    jh = jcp.CheckpointServer(timeout=5.0)  # num_chunks=0, its default
+    ph = cp.CheckpointServer(timeout=5.0, num_chunks=0)
+    try:
+        pd.send_checkpoint([1], step=4, state_dict=pstate, timeout=5.0)
+        jd.send_checkpoint([1], step=4, state_dict=jstate, timeout=5.0)
+        from_port = jh.recv_checkpoint(0, pd.metadata(), 4, 5.0)
+        from_jax = ph.recv_checkpoint(0, jd.metadata(), 4, 5.0)
+    finally:
+        for s in (pd, jd, jh, ph):
+            s.shutdown()
+    want = _leaves_bits(jstate)
+    assert _leaves_bits(from_port) == want
+    assert _leaves_bits(from_jax) == want
+    # a JAX donor's state comes as it was pickled: numpy leaves, dicts
+    # sorted as jax rebuilds them
+    assert list(from_jax) == sorted(from_jax)
+    assert isinstance(from_jax["z"]["w"], np.ndarray)
+
+
+def test_full_stream_equals_the_chunked_heal() -> None:
+    # from a port donor the full stream returns exactly what the chunked
+    # heal returns: tensors on the CPU, numpy leaves, the donor's key order
+    state = {"user": _state(), "torchft": {"step": 3,
+                                           "batches_committed": 6}}
+    donor = cp.CheckpointServer(timeout=5.0)
+    healers = [cp.CheckpointServer(timeout=5.0, num_chunks=n)
+               for n in (0, 2)]
+    try:
+        donor.send_checkpoint([1], step=3, state_dict=state, timeout=5.0)
+        stream, chunked = (h.recv_checkpoint(0, donor.metadata(), 3, 5.0)
+                           for h in healers)
+        _assert_same(chunked, stream)
+        _assert_same(state, stream)
+        with pytest.raises(ValueError, match="num_chunks"):
+            cp.CheckpointServer(num_chunks=-1)
+        with pytest.raises(ValueError, match="defer_paths"):
+            cp.CheckpointServer(num_chunks=0, defer_paths=r"(\d+)/(\d+)")
+    finally:
+        for s in [donor] + healers:
+            s.shutdown()

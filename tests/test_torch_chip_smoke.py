@@ -1866,3 +1866,127 @@ def test_dryrun_phase_over_a_device_list_compares_the_virtual_mesh(
     assert "over 1 cards / virtual on cpu, seconds: step " in text
     assert "figures but ft's equal: yes" in text
     assert flash.LAUNCHES == before
+
+
+# -------------------------------------- pytree_allreduce and full_stream
+
+
+def test_pytree_allreduce_runs_at_tiny_on_the_cpu(monkeypatch) -> None:
+    # train_cuda_int8's sub-check on a CPU pool: both arms bitwise, every
+    # leaf a tensor of its dtype on its device; 1 pass, one codec op per
+    # f32 leaf of each arm
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    cfg = CONFIGS["tiny"]
+    passes, ops = smoke.pytree_allreduce(cfg, 0, "CPU", batch=2,
+                                         device="cpu",
+                                         positions=["cpu", "cpu"])
+    leaves = list(GPT(cfg, device="meta").parameters())
+    assert passes == 1 and ops == 2 * len(leaves)
+    text = "\n".join(lines)
+    assert "pytree_allreduce: " in text
+    assert "bitwise allreduce_arrays of the same host leaves" in text
+    assert f"{4 * sum(p.numel() for p in leaves)} bytes a group" in text
+
+
+def test_pytree_allreduce_fails_on_a_leaf_that_differs(monkeypatch) -> None:
+    import torchft_tpu_torch.manager as pmanager
+
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "log", lambda m: None)
+    real = pmanager.Manager.allreduce_pytree
+
+    def off_by_one_ulp(self, tree, op="sum"):
+        fut = real(self, tree, op)
+        out = fut.result()
+        k = sorted(out)[0]
+        out[k] = torch.nextafter(out[k], torch.full_like(out[k], math.inf))
+        return fut
+
+    monkeypatch.setattr(pmanager.Manager, "allreduce_pytree", off_by_one_ulp)
+    with pytest.raises(AssertionError, match="differs from allreduce_arrays"):
+        smoke.pytree_allreduce(CONFIGS["tiny"], 0, "CPU", batch=2,
+                               device="cpu", positions=["cpu", "cpu"])
+
+
+def _resume_dir(tmp_path, monkeypatch):
+    from torchft_tpu_torch.examples.train_ddp import run_resume_drill
+
+    monkeypatch.setenv("TORCHFT_TPU_FASTPATH", "1")
+    run_resume_drill(CONFIGS["tiny"], device="cpu", batch_size=2,
+                     timeout=30.0, ckpt_dir=str(tmp_path))
+    return str(tmp_path)
+
+
+def test_full_stream_of_the_last_committed_state(tmp_path,
+                                                 monkeypatch) -> None:
+    # train_durable's sub-check on the CPU: the resume drill's newest
+    # checkpoint of group 0 through both heals, bitwise, with the figures
+    smoke = _smoke()
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    state = smoke.last_committed_state(_resume_dir(tmp_path, monkeypatch),
+                                       "cpu")
+    assert set(state) == {"user", "torchft"}
+    assert state["torchft"]["step"] == 8
+    got = smoke.full_stream(state, "CPU")
+    n = sum(p.numel() for p in GPT(CONFIGS["tiny"], device="meta")
+            .parameters())
+    # parameters and both AdamW moments, f32, and the optimizer's steps
+    assert got["bytes"] >= 12 * n
+    text = "\n".join(lines)
+    assert "num_chunks=0 (one pickle)" in text and "bitwise equal" in text
+
+    import torchft_tpu_torch.checkpointing as cp
+
+    real = cp._recv_stream
+
+    def flipped(*a, **kw):
+        out = real(*a, **kw)
+        w = out["user"]["model"]
+        k = next(iter(w))
+        w[k].view(-1)[0] = torch.nextafter(w[k].view(-1)[0],
+                                           torch.tensor(math.inf))
+        return out
+
+    monkeypatch.setattr(cp, "_recv_stream", flipped)
+    with pytest.raises(AssertionError, match="differs between the stream"):
+        smoke.full_stream(state, "CPU")
+
+
+@pytest.mark.parametrize("phase", ["train_multijob", "train_diloco"])
+def test_phase_runs_at_the_cut_depth(monkeypatch, phase) -> None:
+    # both phases run "125m" at its full width and CUT_LAYERS layers (hi0
+    # too), to make room in the script's 900 s
+    import torchft_tpu_torch.examples.train_ddp as ddp_example
+    import torchft_tpu_torch.examples.train_diloco as diloco_example
+
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "log", lambda m: None)
+    seen = {}
+
+    class _Stop(Exception):
+        pass
+
+    def drill(cfg, **kw):
+        seen["cfg"], seen["hi"] = cfg, kw.get("hi_cfg")
+        raise _Stop
+
+    if phase == "train_multijob":
+        monkeypatch.setattr(smoke, "check_host_memory", lambda *a, **k: 0)
+        monkeypatch.setattr(torch.cuda, "mem_get_info",
+                            lambda *a: (10**12, 10**12))
+        for name in ("empty_cache", "reset_peak_memory_stats"):
+            monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+        monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a: 0)
+        monkeypatch.setattr(ddp_example, "run_multijob_drill", drill)
+    else:
+        monkeypatch.setattr(diloco_example, "run_diloco_drill", drill)
+    with pytest.raises(_Stop):
+        getattr(smoke, f"phase_{phase}")(0, "CPU")
+    full = CONFIGS["125m"]
+    for cfg in filter(None, (seen["cfg"], seen["hi"])):
+        assert cfg.n_layers == smoke.CUT_LAYERS == 6
+        assert (cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_size) == \
+            (full.d_model, full.n_heads, full.d_ff, full.vocab_size)

@@ -72,8 +72,8 @@ def _assert_port_bitwise(got, src) -> None:
 
 
 def _port_healer(mode: str, state, **kw):
-    if mode == "full_stream":  # the whole state over one connection
-        return cp.CheckpointServer(timeout=10.0, num_chunks=1, **kw)
+    if mode == "full_stream":  # one pickle of the whole state
+        return cp.CheckpointServer(timeout=10.0, num_chunks=0, **kw)
     if mode == "chunked":
         return cp.CheckpointServer(timeout=10.0, num_chunks=3, **kw)
     if mode == "sharded":
@@ -100,8 +100,7 @@ def _jax_healer(mode: str, state):
                          ["full_stream", "chunked", "sharded", "striped"])
 def test_bitwise_heal_identity(mode: str, dtype_name: str) -> None:
     # every heal mode of both packages is bitwise the donor's state, and
-    # the two packages heal the same bytes ("full_stream" is one rawleaves
-    # stream in the port: it has no pickle stream)
+    # the two packages heal the same bytes
     pstate, jstate = _port_state(dtype_name), _jax_state(dtype_name)
     pd, jd = cp.CheckpointServer(timeout=10.0), \
         jax_ckpt.CheckpointServer(timeout=10.0)

@@ -237,13 +237,36 @@ def test_donor_stages_shard_wise() -> None:
         span = cp.fetch_leaf(donor.metadata(), 3, 0,
                              slices=(slice(0, D_IN), slice(2, 10)))
         np.testing.assert_array_equal(np.asarray(span), w[:, 2:10])
-        # the chunked (template-free) heal reads the assembled leaf
-        full = cp.CheckpointServer(timeout=5.0)
-        try:
-            got = full.recv_checkpoint(0, donor.metadata(), 3, 5.0)
-        finally:
-            full.shutdown()
-        assert _bytes(got["layer1"]["w"]) == w.tobytes()
+        # the chunked (template-free) heal reads the assembled leaf, and
+        # so does the legacy full stream (the reference's last assertion)
+        for n in (2, 0):
+            full = cp.CheckpointServer(timeout=5.0, num_chunks=n)
+            try:
+                got = full.recv_checkpoint(0, donor.metadata(), 3, 5.0)
+            finally:
+                full.shutdown()
+            assert _bytes(got["layer1"]["w"]) == w.tobytes()
+    finally:
+        donor.shutdown()
+
+
+def test_full_stream_refuses_a_leaf_this_host_does_not_cover() -> None:
+    # a donor holding half of a sharded leaf cannot materialize it: the
+    # full stream answers 503 before any byte of the body
+    import urllib.error
+    import urllib.request
+
+    w = np.arange(D_IN * D_HID, dtype=np.float32).reshape(D_IN, D_HID)
+    params = shard_group_params({"layer1": {"w": w}}, group_mesh())
+    donor = cp.CheckpointServer(timeout=5.0)
+    donor._shard_filter = lambda path, bounds: bounds[1][0] < D_HID // 2
+    try:
+        donor.send_checkpoint([1], step=3, state_dict=params, timeout=5.0)
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(f"{donor.metadata()}/checkpoint/3",
+                                   timeout=10)
+        assert err.value.code == 503
+        assert "not covered" in err.value.read().decode()
     finally:
         donor.shutdown()
 

@@ -11,7 +11,9 @@ exactly its stage's weights), its gradients from ``backward()`` through
 ``make_pipeline``; gradients average across groups through the Manager
 over TCP. Group 1 is killed, restarts from a poisoned init and heals
 through its template (``CheckpointServer(template_fn=...)``) onto its own
-stage-split layout. The reference holds the two groups within rtol 1e-5;
+stage-split layout. The gradients, a tree of sharded leaves, average
+through ``Manager.allreduce_pytree`` as the reference's do. The reference
+holds the two groups within rtol 1e-5;
 the port's run the same code on one CPU, so they must be bitwise equal at
 every step both commit.
 
@@ -135,8 +137,12 @@ class _PpReplica:
                     for k, v in params.items()}
             out = merge_microbatches(pp(live, mb))
             loss = torch.mean((out - 1.0) ** 2)
-            pieces = [p for v in live.values() for p in v.pieces]
-            return loss, torch.autograd.grad(loss, pieces)
+            grads = iter(torch.autograd.grad(
+                loss, [p for v in live.values() for p in v.pieces]))
+            # the gradients in the parameters' own layout, a tree of
+            # sharded leaves as the reference's jax.grad gives
+            return loss, {k: v.like([next(grads) for _ in v.pieces])
+                          for k, v in live.items()}
 
         manager = Manager(
             comm=TcpCommContext(timeout=5.0),
@@ -163,14 +169,12 @@ class _PpReplica:
                     logger.info("quorum retry: %s", e)
                     continue
                 _, grads = grad_step(holder["params"])
-                avg = manager.allreduce_arrays(
-                    [g.numpy() for g in grads]).future().result(20)
+                avg = manager.allreduce_pytree(grads).result(timeout=20)
                 if not manager.should_commit():
                     continue
-                it = iter(avg)
                 holder["params"] = {
-                    k: v.like([p - 0.1 * torch.from_numpy(next(it))
-                               for p in v.pieces])
+                    k: v.like([p - 0.1 * g
+                               for p, g in zip(v.pieces, avg[k].pieces)])
                     for k, v in holder["params"].items()}
                 self.history[manager.current_step()] = {
                     k: v.full().numpy().tobytes()

@@ -32,6 +32,11 @@ from torchft_tpu_torch.ddp import DistributedDataParallel, _BucketPlan
 from torchft_tpu_torch.examples.train_ddp import _wait_lighthouse
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.optim import OptimizerWrapper
+from torchft_tpu_torch.utils.serialization import (
+    from_host,
+    to_numpy,
+    tree_flatten_with_path,
+)
 
 
 def _manager(lh, store, comm=None, name="rep", **kw):
@@ -1273,3 +1278,170 @@ def test_should_commit_async_applies_heal_in_prologue(mstore) -> None:
             m.shutdown(wait=False)
     got, _ = _agree(seen)
     assert got["step"] == 21
+
+
+# ---------------------------------------- allreduce_pytree (F28): a tree
+
+
+def _pytree(pkg: str, rank: int, ints: bool):
+    """One rank's gradient tree, the same values in either package: the
+    port's leaves tensors (f32, bf16, int32, a 0-d, one numpy leaf kept
+    numpy), the reference's numpy (bf16 as ml_dtypes'), nested dicts and a
+    list whose keys are not in sorted order."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(40 + rank)
+    leaves = {"w": rng.standard_normal((3, 4)).astype(np.float32),
+              "bf": rng.standard_normal(5).astype(ml_dtypes.bfloat16),
+              "s": np.asarray(rng.standard_normal(), np.float32),
+              "a": rng.standard_normal(2).astype(np.float32),
+              "n": rng.standard_normal(6).astype(np.float32),
+              "i": np.arange(4, dtype=np.int32) * (rank + 3)}
+    if pkg == "torch":
+        leaves.update({k: from_host(v.copy()) for k, v in leaves.items()
+                       if k != "n"})
+    tree = {"w": leaves["w"],
+            "nested": {"z": [leaves["bf"], leaves["s"]], "a": leaves["a"]},
+            "n": leaves["n"]}
+    if ints:
+        tree["i"] = leaves["i"]
+    return tree
+
+
+def _leaf_bits(tree) -> list:
+    """(path, kind, dtype, shape, bytes) of every leaf in jax's order."""
+    out = []
+    for path, x in tree_flatten_with_path(tree)[0]:
+        kind = "tensor" if isinstance(x, torch.Tensor) else type(x).__name__
+        a = to_numpy(x) if isinstance(x, torch.Tensor) else np.asarray(x)
+        out.append((path, kind, a.dtype.name, a.shape, a.tobytes()))
+    return out
+
+
+@pytest.mark.parametrize("op", [ReduceOp.SUM, ReduceOp.AVG])
+def test_allreduce_pytree_mixed_cohort_is_the_reference(op) -> None:
+    # a port Manager and a reference Manager in one quorum over TCP: each
+    # reduces its tree through allreduce_pytree; the port's result is the
+    # reference's bitwise, leaf by leaf, in the same structure, its tensor
+    # leaves back as tensors of their dtypes, its inputs untouched
+    from torchft_tpu.comm.transport import TcpCommContext as JaxTcp
+    from torchft_tpu.manager import Manager as JaxManager
+
+    lighthouse = Lighthouse(min_replicas=2, join_timeout_ms=10000)
+    stores = [StoreServer(), StoreServer()]
+    kinds = ("torch", "jax")
+    managers = [None, None]
+    out, inputs = {}, {}
+    barrier = threading.Barrier(2, timeout=60.0)
+
+    def _replica(idx: int) -> None:
+        kind = kinds[idx]
+        cls, comm = ((Manager, TcpCommContext(timeout=20.0)) if kind ==
+                     "torch" else (JaxManager, JaxTcp(timeout=20.0)))
+        mgr = cls(comm=comm, min_replica_size=2, rank=0, world_size=1,
+                  store_addr=stores[idx].addr,
+                  lighthouse_addr=lighthouse.address(),
+                  replica_id=f"pytree_{kind}_", timeout=20.0,
+                  quorum_timeout=20.0, connect_timeout=20.0,
+                  heartbeat_interval=0.05, use_async_quorum=False)
+        managers[idx] = mgr
+        barrier.wait()
+        mgr.start_quorum(allow_heal=False)
+        tree = _pytree(kind, idx, ints=op == ReduceOp.SUM)
+        inputs[kind] = (tree, _leaf_bits(tree))
+        out[kind] = mgr.allreduce_pytree(tree, op=op).result(timeout=30)
+        assert mgr.num_participants() == 2
+        assert mgr.should_commit()
+
+    threads = [threading.Thread(target=_replica, args=(i,)) for i in range(2)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120.0)
+            assert not t.is_alive()
+    finally:
+        for mgr in managers:
+            if mgr is not None:
+                mgr.shutdown(wait=False)
+        for s in stores:
+            s.shutdown()
+        lighthouse.shutdown()
+    assert set(out) == set(kinds), "a replica raised"
+    port, ref = _leaf_bits(out["torch"]), _leaf_bits(out["jax"])
+    # the same leaves under the same paths, in the same dict key order
+    assert list(out["torch"]) == list(out["jax"]) == sorted(out["jax"])
+    assert [p[0] for p in port] == [r[0] for r in ref]
+    for p, r in zip(port, ref):
+        assert p[2:] == r[2:], p[0]  # dtype, shape, bits
+        assert p[1] == ("ndarray" if p[0] == "['n']" else "tensor"), p
+    # the reduction did reduce: rank 0's own values are not the result
+    tree, before = inputs["torch"]
+    assert port[0][4] != before[0][4]
+    # the port's input tensors were not written (its numpy leaf is
+    # donated, as the reference's), and no result tensor is an input
+    after = _leaf_bits(tree)
+    assert [b for b in after if b[1] == "tensor"] == \
+        [b for b in before if b[1] == "tensor"]
+    src = dict(tree_flatten_with_path(tree)[0])
+    for path, x in tree_flatten_with_path(out["torch"])[0]:
+        if isinstance(x, torch.Tensor):
+            assert x.dtype == src[path].dtype and x.device == src[path].device
+            assert x.data_ptr() != src[path].data_ptr()
+
+
+def test_allreduce_pytree_healing_member_contributes_zeros(mstore) -> None:
+    # a healing replica's tree reduces as zeros in both packages, its
+    # inputs untouched, and the step commits with the donor's state
+    seen, states = {}, {}
+    for pkg, (m, client, comm, _) in _both(mstore, states=states).items():
+        donor = _donor(pkg, 20, np.full(2, 7.0), 40)
+        patcher = _healing_from(pkg, donor)
+        try:
+            client.quorum.return_value = _heal_answer(pkg, 20)
+            client.should_commit.return_value = True
+            m.start_quorum()
+            tree = _pytree(pkg, 0, ints=True)
+            before = _leaf_bits(tree)
+            got = m.allreduce_pytree(tree).result(timeout=5)
+            assert not m.is_participating()
+            for leaf in tree_flatten_with_path(got)[0]:
+                a = leaf[1]
+                a = to_numpy(a) if isinstance(a, torch.Tensor) else a
+                assert not np.asarray(a, np.float64).any(), leaf[0]
+            assert [b for b in _leaf_bits(tree) if b[1] == "tensor"] == \
+                [b for b in before if b[1] == "tensor"]
+            assert m.should_commit()
+            seen[pkg] = (_observed(m, comm),
+                         [b[2:] for b in _leaf_bits(got)])
+        finally:
+            patcher.stop()
+            donor.shutdown()
+            m.shutdown(wait=False)
+    got, _ = _agree(seen)
+    assert got["step"] == 21 and got["ops"] == [ReduceOp.SUM]
+
+
+def test_allreduce_pytree_latched_error_resolves_to_the_input(mstore) -> None:
+    # a failed op latches: the tree resolves to its input's values (the
+    # port's tensor leaves as new tensors of their dtypes), the step does
+    # not commit, and both packages agree leaf by leaf
+    seen = {}
+    for pkg, (m, client, comm, _) in _both(mstore).items():
+        try:
+            client.quorum.return_value = _quorum(pkg)
+            client.should_commit.return_value = False
+            m.start_quorum()
+            comm.fail_next = RuntimeError("injected comm failure")
+            tree = _pytree(pkg, 1, ints=True)
+            before = _leaf_bits(tree)
+            got = m.allreduce_pytree(tree).result(timeout=10)
+            assert [b[2:] for b in _leaf_bits(got)] == \
+                [b[2:] for b in before]
+            assert m.should_commit() is False
+            seen[pkg] = (_observed(m, comm),
+                         [b[2:] for b in _leaf_bits(got)])
+        finally:
+            m.shutdown(wait=False)
+    got, _ = _agree(seen)
+    assert got["errored"] == "RuntimeError" and got["step"] == 0

@@ -7,8 +7,8 @@ shim that builds the same values as torch tensors (float32 and
 bfloat16), what the port's trainers hand their checkpoint server, and
 ``np.asarray`` reads a tensor through the port's host view (a bfloat16
 tensor as ml_dtypes' bfloat16, the reference's host dtype). Every
-transport arm (the default chunked stream, ``num_chunks=3``, a template,
-striping) heals both dtypes bitwise.
+transport arm (the full stream, ``num_chunks=3``, a template, striping)
+heals both dtypes bitwise.
 """
 
 import threading
@@ -62,7 +62,13 @@ reference_twin(
              # a future over all of them
              "donor._staged.all_staged.result(10.0)":
                  "donor._staged.finish_staging(10.0)",
-             "staged.all_staged.done()": "all(s.done for s in staged.slots)"},
+             "staged.all_staged.done()": "all(s.done for s in staged.slots)",
+             # the full stream is the reference's constructor default and
+             # is asked for by name here (the port's default is chunked)
+             'if mode == "full_stream":\n        healer = CheckpointServer('
+             'timeout=10.0)':
+                 'if mode == "full_stream":\n        healer = CheckpointServer('
+                 'timeout=10.0, num_chunks=0)'},
     drop={
         # a jax mesh's sharded params (tests/test_integration_hsdp.py)
         "test_sharded_multi_donor_bitwise":

@@ -47,10 +47,9 @@ def test_sharded_kill_shrink_rejoin_lifecycle() -> None:
     surv = sorted(lives[1][0].events, key=lambda e: e["seq"])
     assert _kinds(surv, "shard_grid_rebuild")
     assert _kinds(surv, "quorum_complete", wire_world=3)
-    death = min(e["seq"] for e in surv
-                if e["kind"] in ("member_dead", "error_latched")
-                or (e["kind"] == "quorum_complete"
-                    and e.get("wire_world") == 2))
+    dead = _kinds(surv, "member_dead")
+    assert dead, "the kill left no member_dead event"
+    death = dead[0]["seq"]
     shrink = [e for e in _kinds(surv, "reshard", new_world=2)
               if e["seq"] > death]
     assert shrink and shrink[0]["reinit_leaves"] > 0

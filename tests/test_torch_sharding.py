@@ -111,6 +111,20 @@ def test_shard_pytree_places_arrays() -> None:
                for p in sharded["w"].pieces)
 
 
+def test_shard_pytree_over_cpu_positions_of_distinct_indices() -> None:
+    # a CPU tensor reports no device index, so a mesh over "cpu:0" ...
+    # "cpu:7" (positions a device finds, as conftest's eight CPU devices
+    # are for the reference) holds its pieces as "cpu" tensors
+    mesh = ft_mesh({"fsdp": 8}, devices=[f"cpu:{i}" for i in range(8)])
+    w = np.arange(32 * 16, dtype=np.float32).reshape(32, 16)
+    sharded = shard_pytree({"w": w}, mesh, fsdp_axis="fsdp", tp_rules=None)
+    assert len(sharded["w"].pieces) == 8
+    assert sharded["w"].full().numpy().tobytes() == w.tobytes()
+    with pytest.raises(ValueError, match="layout wants"):
+        ShardedTensor((32, 16), torch.float32, sharded["w"].sharding,
+                      [torch.zeros(4, 16, dtype=torch.float16)] * 8)
+
+
 def test_tp_sharding_rules_applied() -> None:
     # tests/test_integration_tp.py's mini block on a {"tensor": 4} mesh
     d, d_ff = 8, 16

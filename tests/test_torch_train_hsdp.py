@@ -3,8 +3,9 @@
 Twins of ``tests/test_integration_hsdp.py``'s and
 ``tests/test_integration_tp.py``'s drills: replica groups whose state is
 sharded over an in-group mesh (here a virtual ``["cpu"] * n`` mesh, its
-pieces ``ShardedTensor`` s) average gradients through the Manager over
-TCP; one group is killed and heals through the sharded checkpoint path,
+pieces ``ShardedTensor`` s) average their gradients, a tree of sharded
+leaves, through ``Manager.allreduce_pytree`` over TCP, as the reference's
+do; one group is killed and heals through the sharded checkpoint path,
 its healed leaves landing in its own layout. The trajectories of the
 groups must agree at every step both commit, within the reference's
 tolerance (rtol 1e-5, atol 1e-6). Then the example's own drill,
@@ -145,8 +146,12 @@ class _Replica:
                     whole = {path: _assemble(leaf.like(ps))
                              for (path, leaf), ps in zip(items, pieces)}
                     self.loss_fn(whole).backward()
-                    grads = [p.grad.numpy() for ps in pieces for p in ps]
-                    avg = manager.allreduce_arrays(grads).future().result(20)
+                    # the gradients in the parameters' layout, a tree of
+                    # sharded leaves, averaged as the reference's are
+                    grads = _unflat(
+                        (path, leaf.like([p.grad for p in ps]))
+                        for (path, leaf), ps in zip(items, pieces))
+                    avg = manager.allreduce_pytree(grads).result(timeout=20)
                     committed = manager.should_commit()
                 except (TimeoutError, RuntimeError) as e:
                     logger.info("step retry g%d r%d: %s", self.group,
@@ -155,13 +160,12 @@ class _Replica:
                 if not committed:
                     time.sleep(0.01)
                     continue
-                it = iter(avg)
                 holder["params"] = _unflat(
                     (path, leaf.like([
-                        p.detach() - self.lr * torch.from_numpy(
-                            np.asarray(next(it)))
-                        for p in leaf.pieces]))
-                    for path, leaf in _flat(holder["params"]))
+                        p.detach() - self.lr * g
+                        for p, g in zip(leaf.pieces, g_leaf.pieces)]))
+                    for (path, leaf), (_, g_leaf)
+                    in zip(_flat(holder["params"]), _flat(avg)))
                 step = manager.current_step()
                 first = _flat(holder["params"])[0][1]
                 self.history[step] = first.full().numpy().copy()

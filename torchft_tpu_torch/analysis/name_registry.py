@@ -275,11 +275,14 @@ def check(
     """``docs_text``/``native_text`` may be supplied directly (fixtures)
     or read from ``root`` (docs/operations.md, native/*.cc|h);
     ``port_only`` and ``reference_only`` replace :data:`PORT_ONLY_METRICS`
-    and :data:`REFERENCE_ONLY_METRICS` (fixtures)."""
+    and :data:`REFERENCE_ONLY_METRICS`, which describe the real docs and
+    so apply by default only when the docs are read from ``root`` (a
+    supplied ``docs_text`` is a fixture: no table unless given)."""
+    real_docs = docs_text is None
     if port_only is None:
-        port_only = PORT_ONLY_METRICS
+        port_only = PORT_ONLY_METRICS if real_docs else {}
     if reference_only is None:
-        reference_only = REFERENCE_ONLY_METRICS
+        reference_only = REFERENCE_ONLY_METRICS if real_docs else {}
     findings: List[Finding] = []
     docs_rel = "docs/operations.md"
     if docs_text is None:

@@ -23,7 +23,10 @@ optimizer may touch the state again) closes it.
   object entry (a non-tensor leaf: the step counters, an optimizer's
   hyperparameters) its ``value``. ``peers`` are the other ranks' servers
   of the replica group (``set_peers``), for a healer to fan out to.
-- Wire: ``GET /checkpoint/{step}/manifest``,
+- Wire: ``GET /checkpoint/{step}`` (the JAX package's legacy full
+  stream: one pickle of the whole state's host copy, ``utils.
+  serialization.pytree_to_stream``, ended by the connection's close),
+  ``GET /checkpoint/{step}/manifest``,
   ``GET /checkpoint/{step}/rawleaves/{lo}-{hi}`` (the tensor leaves' raw
   bytes back to back) and ``GET /checkpoint/{step}/leaf/{i}`` (one leaf,
   or with ``?slice=0:4,:`` one region of it, with dtype and shape
@@ -52,6 +55,10 @@ optimizer may touch the state again) closes it.
   donor's structure. Leaves whose manifest path matches the server's
   ``defer_paths`` (the sharded optimizer's slots) come through
   :func:`fetch_opt_shard` instead, still inside the heal.
+- Healer, full stream (``num_chunks=0``): ``_recv_stream`` reads the
+  manifest, then the pickle, and retypes and rebuilds a donor of this
+  package's state by the manifest, so it equals the chunked heal; a JAX
+  donor's state comes as it was pickled.
 - Healer with a template (``CheckpointServer(template_fn=...)``):
   :func:`recv_checkpoint_sharded` matches the template's leaves to the
   donor's by path, routes each region over the donor's and its peers'
@@ -113,7 +120,10 @@ from torchft_tpu_torch.utils.net import advertised_host
 from torchft_tpu_torch.utils.serialization import (
     dtype_from_str,
     dtype_str,
+    from_host,
     is_tensor_leaf,
+    pytree_from_stream,
+    pytree_to_stream,
     to_host,
     tree_flatten_with_path,
     tree_unflatten,
@@ -472,6 +482,7 @@ class _Staged:
     slots: List[StealableTask]
     entries: List[dict]
     manifest_bytes: bytes
+    spec: Any
 
     def leaf(self, i: int, timeout: "Optional[float]" = None) -> Any:
         """Host copy of leaf ``i``, staged inline if the background stager
@@ -551,7 +562,8 @@ def _build_staged(step: int, state: Any, peers: Sequence[str] = (),
     manifest = {"step": step, "leaves": entries, "treedef": spec,
                 "peers": list(peers)}
     return _Staged(step=step, slots=slots, entries=entries,
-                   manifest_bytes=pickle.dumps(manifest, protocol=5))
+                   manifest_bytes=pickle.dumps(manifest, protocol=5),
+                   spec=spec)
 
 
 class CheckpointTransport(ABC, Generic[T]):
@@ -765,6 +777,40 @@ class _Handler(BaseHTTPRequestHandler):
             self._write_body(view, crc)
         return True
 
+    def _send_stream(self, staged: _Staged) -> None:
+        """``GET /checkpoint/{step}``: the whole state as one pickle of its
+        host copy (``pytree_to_stream``), the JAX package's legacy full
+        stream. The state is materialized before the headers (a sharded
+        leaf this host does not cover is a 503); the body ends with the
+        connection."""
+        server: "CheckpointServer" = self.server.ckpt_server  # type: ignore[attr-defined]
+        try:
+            leaves = []
+            for i in range(len(staged.slots)):
+                leaf = staged.leaf(i, server._timeout)
+                if isinstance(leaf, _HostShards):
+                    leaf = leaf.read(_full(leaf.shape))
+                leaves.append(leaf)
+            state = tree_unflatten(staged.spec, leaves)
+        except Exception as e:  # noqa: BLE001 — staging or coverage
+            self.send_error(503, str(e)[:300])
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", "application/octet-stream")
+        self.send_header("Connection", "close")
+        self.end_headers()
+        self.close_connection = True
+        try:
+            pytree_to_stream(state, self.wfile)
+        except (BrokenPipeError, ConnectionResetError):
+            logger.warning("checkpoint receiver disconnected mid-stream")
+        except Exception as e:  # noqa: BLE001 — mid-body: cut it short
+            logger.exception("checkpoint stream failed: %s", e)
+            try:
+                self.connection.close()
+            except OSError:
+                pass
+
     def do_GET(self) -> None:  # noqa: N802
         from urllib.parse import parse_qs, urlparse
 
@@ -776,7 +822,7 @@ class _Handler(BaseHTTPRequestHandler):
             except (BrokenPipeError, ConnectionResetError):
                 logger.debug("telemetry poller disconnected")
             return
-        if len(parts) < 3 or parts[0] != "checkpoint":
+        if len(parts) < 2 or parts[0] != "checkpoint":
             self.send_error(404, "unknown path")
             return
         try:
@@ -794,6 +840,9 @@ class _Handler(BaseHTTPRequestHandler):
         wire = _WIRE_DTYPES[wire_name] if wire_name is not None else None
         staged = self._await_staged(step)
         if staged is None:
+            return
+        if len(parts) == 2:
+            self._send_stream(staged)
             return
         streaming = False
         try:
@@ -862,7 +911,10 @@ class CheckpointServer(CheckpointTransport[T]):
                  heal_wire_dtype: Optional[str] = None,
                  stripe_bytes: int = 4 << 20) -> None:
         """``num_chunks``: keep-alive connections a healer fetches over
-        (at least 2 on the template path). ``defer_paths``: a regular
+        (at least 2 on the template path); 0 fetches the legacy full
+        stream, one pickle of the donor's whole state (the JAX package's
+        default, whose Manager passes 2 as this package's does).
+        ``defer_paths``: a regular
         expression over manifest paths whose groups are (leaf, slot); a
         chunked heal through this server fetches the non-empty entries it
         matches with :func:`fetch_opt_shard` (the sharded optimizer's
@@ -878,8 +930,12 @@ class CheckpointServer(CheckpointTransport[T]):
         large stripe over donors and connections (<= 0: never)."""
         if isinstance(timeout, timedelta):
             timeout = timeout.total_seconds()
-        if num_chunks < 1:
-            raise ValueError("num_chunks must be >= 1")
+        if num_chunks < 0:
+            raise ValueError("num_chunks must be >= 0")
+        if num_chunks == 0 and defer_paths is not None:
+            raise ValueError("defer_paths needs the chunked heal "
+                             "(num_chunks >= 1): the full stream carries "
+                             "the donor's own shard of every deferred slot")
         if heal_wire_dtype is not None and heal_wire_dtype not in _WIRE_DTYPES:
             raise ValueError(
                 f"heal_wire_dtype={heal_wire_dtype!r} unsupported "
@@ -985,6 +1041,9 @@ class CheckpointServer(CheckpointTransport[T]):
                 parallel=max(2, self._num_chunks), metrics=self._metrics,
                 wire_dtype=self._heal_wire_dtype,
                 stripe_bytes=self._stripe_bytes)
+        elif self._num_chunks == 0:
+            out = _recv_stream(metadata, step, float(timeout),
+                               metrics=self._metrics)
         else:
             out = _recv_chunked(metadata, step, self._num_chunks,
                                 float(timeout), metrics=self._metrics,
@@ -1384,6 +1443,42 @@ def _recv_chunked(metadata: str, step: int, num_chunks: int, timeout: float,
         if total and wall > 0:
             metrics.gauge("heal_bytes_per_s", total / wall)
     return tree_unflatten(manifest["treedef"], outs)
+
+
+def _recv_stream(metadata: str, step: int, timeout: float,
+                 metrics: "Optional[Any]" = None) -> Any:
+    """The legacy full stream, ``GET /checkpoint/{step}``: one pickle of
+    the donor's host state. The manifest comes first. From a donor of this
+    package its entries retype the leaves (a tensor leaf as a CPU tensor)
+    and its structure rebuilds the state, so the result is the chunked
+    heal's; a JAX-package donor's manifest holds a jax tree structure, and
+    its stream's tree is the result as it came (plain containers, dicts
+    sorted, numpy leaves)."""
+    t0 = time.perf_counter()
+    manifest = fetch_manifest(metadata, step, timeout)
+    conn = _DonorConn(metadata, timeout)
+    try:
+        with timed_span(metrics, "heal_wire"):
+            tree = pytree_from_stream(conn.get(f"/checkpoint/{step}"))
+    finally:
+        conn.close()
+    flat, spec = tree_flatten_with_path(tree)
+    leaves = [x for _, x in flat]
+    entries = manifest["leaves"]
+    if isinstance(manifest["treedef"], tuple):  # a donor of this package
+        if [p for p, _ in flat] != [e["path"] for e in entries]:
+            raise ConnectionError(
+                f"checkpoint {step}: the stream's leaves differ from the "
+                "manifest's — donor/healer version skew")
+        leaves = [from_host(x) if e.get("tensor") else x
+                  for x, e in zip(leaves, entries)]
+        spec = manifest["treedef"]
+    if metrics is not None:
+        wall = time.perf_counter() - t0
+        total = sum(int(x.nbytes) for x in leaves if is_tensor_leaf(x))
+        if total and wall > 0:
+            metrics.gauge("heal_bytes_per_s", total / wall)
+    return tree_unflatten(spec, leaves)
 
 
 # --------------------------------------------------- the template (sharded) heal

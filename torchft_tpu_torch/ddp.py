@@ -74,6 +74,8 @@ import torch
 
 from torchft_tpu_torch.futures import FutureGroup, completed_future
 from torchft_tpu_torch.utils.profiling import timed_span
+from torchft_tpu_torch.utils.serialization import from_host as _from_host
+from torchft_tpu_torch.utils.serialization import host_view as _host_view
 
 __all__ = ["DistributedDataParallel", "PureDistributedDataParallel",
            "ShardedGradReducer", "shard_ranges"]
@@ -134,31 +136,6 @@ def _wire_healthy(manager) -> bool:
     a latched error every op resolves inline."""
     errored = getattr(manager, "errored", None)
     return not callable(errored) or errored() is None
-
-
-def _host_view(t: torch.Tensor) -> np.ndarray:
-    """The numpy view of a CPU tensor the host wire reduces in place: a
-    bfloat16 tensor as ml_dtypes' bfloat16, what the JAX package's bf16
-    buckets are (numpy has no bfloat16 of its own)."""
-    if t.dtype != torch.bfloat16:
-        return t.numpy()
-    try:
-        import ml_dtypes
-    except ImportError:
-        raise TypeError(
-            "bfloat16 gradients ride the host wire as ml_dtypes' bfloat16, "
-            "and the ml_dtypes package is missing; keep the gradients "
-            "float32 (the models' param_dtype)") from None
-    return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
-
-
-def _from_host(a: np.ndarray) -> torch.Tensor:
-    """A CPU tensor over a reduced numpy array (inverse of
-    :func:`_host_view`)."""
-    a = np.ascontiguousarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
 
 
 def _itemsize(dtype) -> int:

@@ -49,6 +49,7 @@ from enum import Enum
 from typing import Any, Callable, Dict, List, Optional, Sequence, TypeVar
 
 import numpy as np
+import torch
 
 from torchft_tpu_torch.checkpointing import CheckpointServer, CheckpointTransport
 from torchft_tpu_torch.comm.context import CommContext, CompletedWork, ReduceOp, Work
@@ -58,6 +59,15 @@ from torchft_tpu_torch.control import ManagerClient, ManagerServer
 from torchft_tpu_torch.futures import future_chain, future_timeout
 from torchft_tpu_torch.utils.events import EventRecorder
 from torchft_tpu_torch.utils.metrics import Metrics
+from torchft_tpu_torch.utils.serialization import (
+    from_host,
+    host_view,
+    is_tensor_leaf,
+    to_host,
+    to_numpy,
+    tree_leaves,
+    tree_map,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -76,6 +86,17 @@ def _is_float_dtype(dt: np.dtype) -> bool:
     types), which ``np.issubdtype`` does not class under ``np.floating``:
     a bf16 bucket on the host wire is scaled like any other float."""
     return np.issubdtype(dt, np.floating) or "float" in np.dtype(dt).name
+
+
+def _host_array(leaf: Any) -> np.ndarray:
+    """A leaf of :meth:`Manager.allreduce_pytree` on the host: a tensor
+    copied (bfloat16 as ml_dtypes' bfloat16), a sharded leaf assembled, a
+    numpy array as it is (donated)."""
+    if isinstance(leaf, torch.Tensor):
+        return host_view(to_host(leaf))
+    if is_tensor_leaf(leaf):
+        return to_numpy(leaf)
+    return np.asarray(leaf)
 
 
 def _cohort_fingerprint(replica_ids: "Sequence[str]") -> str:
@@ -529,6 +550,33 @@ class Manager:
             self._logger.exception(f"allgather submit failed: {e}")
             self.report_error(e)
             return CompletedWork(fallback)
+
+    def allreduce_pytree(self, tree: Any, op: str = ReduceOp.SUM) -> Future:
+        """Reduce a tree of tensors and arrays across replica groups (the
+        analog of DDP's comm hook). Its leaves, in ``jax.tree_util``'s
+        order, go through :meth:`allreduce_arrays` under all of its rules.
+        A tensor leaf is copied to the host and never written in place; it
+        comes back as a tensor of its dtype on its own device (a sharded
+        leaf in its own layout). A numpy leaf is donated and comes back
+        numpy, any other leaf as a numpy array. The future resolves to the
+        tree rebuilt as ``jax.tree_util`` rebuilds it (a dict's keys
+        sorted)."""
+        leaves = tree_leaves(tree)
+        work = self.allreduce_arrays([_host_array(x) for x in leaves], op=op)
+
+        def _back(leaf: Any, reduced: np.ndarray) -> Any:
+            if isinstance(leaf, torch.Tensor):
+                return from_host(reduced).reshape(leaf.shape).to(leaf.device)
+            if is_tensor_leaf(leaf) and not isinstance(leaf, np.ndarray):
+                return type(leaf).from_full(from_host(reduced),
+                                            leaf.sharding)
+            return reduced
+
+        def _rebuild(f: Future) -> Any:
+            it = iter(zip(leaves, f.result()))
+            return tree_map(lambda _: _back(*next(it)), tree)
+
+        return future_chain(work.future(), _rebuild)
 
     # ------------------------------------------------------------- telemetry
 

@@ -184,8 +184,10 @@ class ShardedTensor:
                              f"{len(self.bounds)}")
         for p, b, dev in zip(pieces, self.bounds, self.devices):
             want = tuple(hi - lo for lo, hi in b)
+            # a CPU tensor reports no index: "cpu:1" holds a "cpu" tensor
             if tuple(p.shape) != want or p.dtype != dtype \
-                    or p.device != dev:
+                    or p.device != dev and not (
+                        p.device.type == dev.type == "cpu"):
                 raise ValueError(
                     f"piece {tuple(p.shape)} {p.dtype} on {p.device}, the "
                     f"layout wants {want} {dtype} on {dev}")
